@@ -1,0 +1,59 @@
+"""KernelBackend interface of the port (``repro.kernels.backends.base``).
+
+A backend owns how an emulated GEMM runs: which schemes and operand
+types it takes, how it plans tiles, and the 2-D and strided-batched
+matmuls. The registry in :mod:`repro_torch.kernels.backends` maps names
+('torch', 'cuda') to instances.
+"""
+
+from __future__ import annotations
+
+import abc
+import dataclasses
+
+import torch
+
+from repro_torch.kernels.common import Blocks
+
+
+@dataclasses.dataclass(frozen=True)
+class BackendCapabilities:
+    """What a backend runs: its Ozaki schemes and real operand types.
+    Both built-in backends take every shape as it is (the CUDA kernel
+    masks ragged edges itself), so, unlike the reference, there is no
+    alignment to pad to."""
+    schemes: frozenset
+    operand_dtypes: frozenset
+
+
+class KernelBackend(abc.ABC):
+    name: str
+
+    @property
+    @abc.abstractmethod
+    def capabilities(self) -> BackendCapabilities:
+        ...
+
+    @abc.abstractmethod
+    def choose_blocks(self, m: int, n: int, k: int, p: int) -> Blocks | None:
+        ...
+
+    @abc.abstractmethod
+    def matmul(self, a: torch.Tensor, b: torch.Tensor, cfg, out_dtype,
+               blocks: Blocks | None) -> torch.Tensor:
+        """(M, K) @ (K, N), or strided-batched (B, M, K) @ (B, K, N) in
+        one launch, under ``cfg``."""
+
+    def check(self, cfg, a: torch.Tensor, b: torch.Tensor) -> None:
+        """Raise unless this backend runs ``cfg`` on these operands."""
+        caps = self.capabilities
+        if cfg.scheme not in caps.schemes:
+            raise NotImplementedError(
+                f"backend {self.name!r} has no {cfg.scheme} kernel in this "
+                "port yet (ROADMAP.md § 1 item 3: Scheme II)")
+        for x in (a, b):
+            if x.dtype not in caps.operand_dtypes:
+                raise NotImplementedError(
+                    f"backend {self.name!r} takes "
+                    f"{sorted(str(d) for d in caps.operand_dtypes)} operands, "
+                    f"got {x.dtype}")

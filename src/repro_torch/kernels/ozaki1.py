@@ -1,0 +1,137 @@
+"""The fused EmuGEMM-I kernel (``csrc/emugemm1.cu``): wrapper, plain
+version and launch counts.
+
+``fused_matmul_scheme1`` takes (M, K) @ (K, N) or, strided over a batch,
+(B, M, K) @ (B, K, N) operands in float32 or bfloat16 with their
+power-of-two scales mu (..., M, 1) and nu (..., 1, N), and returns the
+Scheme-I product in ``out_dtype``. On a CUDA tensor it launches the
+kernel; on a CPU tensor it runs the plain version, which is
+``repro_torch.core.scheme1`` — the same slicing, exact integer slice
+products and shift-reduce, as separate torch ops.
+
+The kernel replaces the Pallas kernels ``repro.kernels.ozaki1.
+fused_matmul_prologue`` and ``repro.kernels.backends.gpu.
+fused_matmul_scheme1`` (2-D launch) and ``fused_matmul_scheme1_batched``
+(batched launch).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+
+from repro_torch.core import scheme1
+
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+MAX_P = 8
+
+
+@dataclasses.dataclass
+class LaunchCounts:
+    """Launches of the kernel in each form, and calls of the plain
+    version on CUDA tensors (which the serving path must never make)."""
+    launches_2d: int = 0
+    launches_batched: int = 0
+    plain_cuda_calls: int = 0
+
+    def reset(self) -> None:
+        self.launches_2d = self.launches_batched = self.plain_cuda_calls = 0
+
+
+COUNTS = LaunchCounts()
+
+
+def fused_matmul_plain(a: torch.Tensor, b: torch.Tensor, mu: torch.Tensor,
+                       nu: torch.Tensor, p: int, beta: int,
+                       out_dtype: torch.dtype) -> torch.Tensor:
+    """The kernel's function in plain torch ops (CPU or CUDA)."""
+    if a.is_cuda:
+        COUNTS.plain_cuda_calls += 1
+    a_sl = scheme1.carve(scheme1.widen(a) / mu, p, beta)
+    b_sl = scheme1.carve(scheme1.widen(b) / nu, p, beta)
+    accs = scheme1.triangular_accumulators(a_sl, b_sl, p)
+    return scheme1.shift_reduce(accs, beta, mu, nu, out_dtype)
+
+
+def _bind(lib: ctypes.CDLL):
+    fn = lib.emugemm1
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(a, b, mu, nu, p, beta, out_dtype):
+    if not (a.is_cuda and b.is_cuda and mu.is_cuda and nu.is_cuda):
+        raise ValueError("emugemm1: all operands must be CUDA tensors")
+    if len({a.device, b.device, mu.device, nu.device}) != 1:
+        raise ValueError("emugemm1: operands on different devices")
+    if a.dtype not in _KERNEL_DTYPES or b.dtype != a.dtype:
+        raise NotImplementedError(
+            f"emugemm1 takes float32 or bfloat16 operands of one type, got "
+            f"{a.dtype} @ {b.dtype} (float64 is not on this slice's path; "
+            "ROADMAP.md § 1)")
+    if out_dtype not in _KERNEL_DTYPES:
+        raise NotImplementedError(f"emugemm1: out_dtype {out_dtype}")
+    if mu.dtype != torch.float32 or nu.dtype != torch.float32:
+        raise ValueError("emugemm1: scales must be float32")
+    if not 1 <= p <= MAX_P:
+        raise NotImplementedError(f"emugemm1 is compiled for p in 1..{MAX_P}, "
+                                  f"got p={p}")
+    if not 1 <= beta <= 7:
+        raise ValueError(f"emugemm1: beta={beta} outside 1..7")
+
+
+def _launch(a3, b3, mu3, nu3, p, beta, out_dtype):
+    from repro_torch.kernels import build
+    batch, m, k = a3.shape
+    n = b3.shape[-1]
+    if b3.shape[:2] != (batch, k) or mu3.shape != (batch, m, 1) \
+            or nu3.shape != (batch, 1, n):
+        raise ValueError(f"emugemm1: shapes {tuple(a3.shape)} @ "
+                         f"{tuple(b3.shape)}, mu {tuple(mu3.shape)}, "
+                         f"nu {tuple(nu3.shape)}")
+    mu3, nu3 = mu3.contiguous(), nu3.contiguous()
+    out = torch.empty((batch, m, n), dtype=out_dtype, device=a3.device)
+    if out.numel() == 0 or k == 0:
+        return out.zero_()
+    fn = _bind(build.load("emugemm1"))
+    stream = torch.cuda.current_stream(a3.device).cuda_stream
+    rc = fn(a3.data_ptr(), b3.data_ptr(), mu3.data_ptr(), nu3.data_ptr(),
+            out.data_ptr(), batch, m, n, k,
+            a3.stride(0), a3.stride(1), a3.stride(2),
+            b3.stride(0), b3.stride(1), b3.stride(2),
+            int(a3.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+            p, beta, stream)
+    if rc != 0:
+        raise RuntimeError(f"emugemm1 launch failed (code {rc}) for "
+                           f"{(batch, m, k, n)} p={p}")
+    return out
+
+
+def fused_matmul_scheme1(a: torch.Tensor, b: torch.Tensor, mu: torch.Tensor,
+                         nu: torch.Tensor, p: int, beta: int,
+                         out_dtype: torch.dtype) -> torch.Tensor:
+    """(M, K) @ (K, N) with scales (M, 1) / (1, N) -> (M, N), or the
+    strided-batched (B, M, K) @ (B, K, N) -> (B, M, N) form.
+
+    CPU tensors take the plain version; CUDA tensors launch the
+    kernel or raise.
+    """
+    if a.device.type == "cpu":
+        return fused_matmul_plain(a, b, mu, nu, p, beta, out_dtype)
+    _check(a, b, mu, nu, p, beta, out_dtype)
+    if a.dim() == 2 and b.dim() == 2:
+        out = _launch(a[None], b[None], mu[None], nu[None], p, beta,
+                      out_dtype)[0]
+        COUNTS.launches_2d += 1
+        return out
+    if a.dim() == 3 and b.dim() == 3:
+        out = _launch(a, b, mu, nu, p, beta, out_dtype)
+        COUNTS.launches_batched += 1
+        return out
+    raise ValueError(f"emugemm1: operands must both be 2-D or both 3-D, got "
+                     f"{tuple(a.shape)} @ {tuple(b.shape)}")
