@@ -44,6 +44,6 @@ def params_from_jax(tree, mcfg: ModelConfig, device="cuda",
             "port yet (ROADMAP.md § 1 item 4)")
     params = _to_torch(tree, getattr(torch, mcfg.dtype), device)
     if split_layers:
-        params["blocks"] = [M.layer(params, i) for i in range(mcfg.n_layers)]
+        params["blocks"] = M.unstack_layers(params, mcfg.n_layers)
         del params["layers"]
     return params

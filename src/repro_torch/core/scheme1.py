@@ -85,6 +85,27 @@ def split(a: torch.Tensor, p: int, beta: int, dim: int):
     return torch.stack(carve(a / scale, p, beta)), scale
 
 
+def interleave_k(slices: torch.Tensor, t_k: int) -> torch.Tensor:
+    """Paper Eq. 11 for a right operand: interleave p slices (p, K, N)
+    along K at ``t_k`` granularity into (p*K, N), row groups cycling
+    B'_0 | ... | B'_{p-1} per K-chunk. K must be a multiple of ``t_k``.
+    (The reference's left-operand layout feeds kernels not ported yet.)
+    """
+    p, k, n = slices.shape
+    if k % t_k:
+        raise ValueError(f"K={k} not divisible by t_k={t_k}")
+    s = slices.reshape(p, k // t_k, t_k, n)
+    return s.permute(1, 0, 2, 3).reshape(p * k, n)
+
+
+def deinterleave_k(x: torch.Tensor, p: int, t_k: int) -> torch.Tensor:
+    """Inverse of :func:`interleave_k`: (p*K, N) -> (p, K, N) slices."""
+    pk, n = x.shape
+    k = pk // p
+    s = x.reshape(k // t_k, p, t_k, n)
+    return s.permute(1, 0, 2, 3).reshape(p, k, n)
+
+
 def triangular_accumulators(a_slices, b_slices, p: int) -> torch.Tensor:
     """Paper Eq. 2: C_s = sum_{i<=s} A'_i B'_{s-i}, s = 0..p-1, as
     (p, ..., M, N) int32.

@@ -44,6 +44,21 @@ class KernelBackend(abc.ABC):
         """(M, K) @ (K, N), or strided-batched (B, M, K) @ (B, K, N) in
         one launch, under ``cfg``."""
 
+    @abc.abstractmethod
+    def decompose(self, b: torch.Tensor, nu: torch.Tensor,
+                  tau: torch.Tensor | None, p: int, beta_f: int,
+                  beta_b: int):
+        """A weight's interleaved forward slices and, when ``tau`` is
+        given, its K-transposed twin from the same read (else None); see
+        ``repro_torch.kernels.decompose``."""
+
+    @abc.abstractmethod
+    def matmul_mixed(self, a: torch.Tensor, b_hat: torch.Tensor,
+                     mu: torch.Tensor, nu: torch.Tensor, p: int, beta: int,
+                     out_dtype) -> torch.Tensor:
+        """(M, K) float @ prepared interleaved int8 planes; see
+        ``repro_torch.kernels.ozaki1.fused_matmul_mixed``."""
+
     def check(self, cfg, a: torch.Tensor, b: torch.Tensor) -> None:
         """Raise unless this backend runs ``cfg`` on these operands."""
         caps = self.capabilities

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ozaki1
+from repro_torch.kernels import decompose, ozaki1
 from repro_torch.kernels.backends.base import BackendCapabilities, KernelBackend
 from repro_torch.kernels.common import Blocks
 
@@ -22,8 +22,9 @@ _CAPS = BackendCapabilities(
     operand_dtypes=frozenset({torch.float32, torch.bfloat16}),
 )
 
-# The one tile the kernel is compiled for (csrc/emugemm1.cu).
-KERNEL_BLOCKS = Blocks(bm=64, bn=64, bk=32)
+# The one tile the kernel is compiled for (csrc/emugemm1.cu). Its K tile
+# is the interleave granularity of a prepared weight.
+KERNEL_BLOCKS = Blocks(bm=64, bn=64, bk=decompose.TILE)
 
 
 def choose_blocks_cuda(m: int, n: int, k: int, p: int) -> Blocks | None:
@@ -59,3 +60,12 @@ class CudaBackend(KernelBackend):
         mu, nu = scales(a, b)
         return ozaki1.fused_matmul_scheme1(a, b, mu, nu, cfg.p, beta,
                                            out_dtype)
+
+    def decompose(self, b, nu, tau, p, beta_f, beta_b):
+        if tau is None:
+            return decompose.decompose_interleave_rhs(b, nu, p, beta_f), None
+        return decompose.decompose_interleave_pair(b, nu, tau, p, beta_f,
+                                                   beta_b)
+
+    def matmul_mixed(self, a, b_hat, mu, nu, p, beta, out_dtype):
+        return ozaki1.fused_matmul_mixed(a, b_hat, mu, nu, p, beta, out_dtype)

@@ -2,16 +2,17 @@
 'xla' backend.
 
 It runs Scheme I as separate torch ops (``ozaki1.fused_matmul_plain``,
-which is ``repro_torch.core.scheme1``) on whatever device the operands
-are on. A CUDA tensor reaches it only when it is asked for by name, as
-the bit-parity checks do.
+which is ``repro_torch.core.scheme1``, and the prepared-weight kernels'
+plain versions) on whatever device the operands are on. A CUDA tensor
+reaches it only when it is asked for by name, as the bit-parity checks
+do.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ozaki1
+from repro_torch.kernels import decompose, ozaki1
 from repro_torch.kernels.backends.base import BackendCapabilities, KernelBackend
 from repro_torch.kernels.backends.cuda import scales
 
@@ -37,3 +38,12 @@ class TorchBackend(KernelBackend):
         beta = cfg.resolved_beta(a.shape[-1])
         mu, nu = scales(a, b)
         return ozaki1.fused_matmul_plain(a, b, mu, nu, cfg.p, beta, out_dtype)
+
+    def decompose(self, b, nu, tau, p, beta_f, beta_b):
+        if tau is None:
+            return decompose.decompose_rhs_plain(b, nu, p, beta_f), None
+        return decompose.decompose_pair_plain(b, nu, tau, p, beta_f, beta_b)
+
+    def matmul_mixed(self, a, b_hat, mu, nu, p, beta, out_dtype):
+        return ozaki1.fused_matmul_mixed_plain(a, b_hat, mu, nu, p, beta,
+                                               out_dtype)

@@ -4,8 +4,15 @@
 //   src/repro/kernels/ozaki1.py        fused_matmul_prologue (_kernel, a_fp=b_fp=True)
 //   src/repro/kernels/backends/gpu.py  fused_matmul_scheme1 (_kernel), 2-D launch
 //   src/repro/kernels/backends/gpu.py  fused_matmul_scheme1_batched, batched launch
-// with one kernel and two launch forms: a 2-D grid over (bN, bM) output
-// tiles, and the same grid strided over a batch on blockIdx.z.
+//   src/repro/kernels/ozaki1.py        fused_matmul_mixed (_kernel, a_fp only)
+// with one kernel and three launch forms: a 2-D grid over (bN, bM) output
+// tiles, the same grid strided over a batch on blockIdx.z, and the mixed
+// form, whose B operand is a prepared weight: the p int8 planes of the
+// interleaved (p*Kp, N) layout that csrc/decompose.cu writes, at the
+// kernel's K tile BK as interleave granularity (Kp = K rounded up to BK,
+// the rows past K zero). The mixed form loads those planes into the
+// same shared tiles the carve would have filled, so the MMA schedule and
+// the epilogue, and with them every numerics rule below, are shared.
 //
 // What one block computes, for its (BM, BN) output tile:
 //   * every K step stages a (BM, BK) tile of A and a (BK, BN) tile of B
@@ -30,6 +37,12 @@
 //   * int32 -> bf16 rounds through fp32 (RNE twice), as torch does, and a
 //     bf16 output rounds after every op, as the reference shift_reduce does;
 //   * the scales and beta come from the caller, computed from the logical K.
+//
+// Training (the mixed form, 1024 tokens): a (1024, K) @ (K, N) GEMM at
+// p = 4 does 10 int8 GEMMs, 2*10*1024*K*N operations, against reading
+// K*N*p bytes of planes, so it is bound by operations (about 44 us for
+// K = N = 2048 at the int8 peak); the kernel as written stays far above
+// that (PERF.md).
 //
 // Bound at the serving shapes: with M = 4..64 rows and K, N in the
 // thousands, the weight B has to be read once, and the p(p+1)/2 int8
@@ -111,9 +124,9 @@ __device__ __forceinline__ void carve(float r, float two_beta, int8_t* dst, int 
   }
 }
 
-template <typename T, typename O, int P>
+template <typename T, typename O, int P, bool BPREP>
 __global__ void __launch_bounds__(NWARPS * 32)
-emugemm1_kernel(const T* __restrict__ a, const T* __restrict__ b,
+emugemm1_kernel(const T* __restrict__ a, const void* __restrict__ bv,
                 const float* __restrict__ mu, const float* __restrict__ nu,
                 O* __restrict__ out, int M, int N, int K,
                 long long sab, long long sam, long long sak,
@@ -132,7 +145,6 @@ emugemm1_kernel(const T* __restrict__ a, const T* __restrict__ b,
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
   a += bz * sab;
-  b += bz * sbb;
   mu += bz * M;
   nu += bz * N;
   out += bz * M * static_cast<long long>(N);
@@ -158,15 +170,46 @@ emugemm1_kernel(const T* __restrict__ a, const T* __restrict__ b,
       const int off = ((kk / 16) * (BM / 16) + mm / 16) * T16 + (mm % 16) * 16 + kk % 16;
       carve<P>(r, two_beta, sA + off, PLANE_A);
     }
-    // Stage and carve the B tile.
-    for (int e = tid; e < BK * BN; e += NT) {
-      int kk, nn;
-      if (sbn == 1) { kk = e / BN; nn = e % BN; } else { nn = e / BK; kk = e % BK; }
-      const int gk = k0 + kk, gn = n0 + nn;
-      float r = 0.f;
-      if (gk < K && gn < N) r = __fdiv_rn(widen(b[gk * sbk + gn * sbn]), nu[gn]);
-      const int off = ((kk / 16) * (BN / 16) + nn / 16) * T16 + (kk % 16) * 16 + nn % 16;
-      carve<P>(r, two_beta, sB + off, PLANE_B);
+    if constexpr (BPREP) {
+      // Load the P prepared planes of this K chunk: rows
+      // (k0 / BK * P + i) * BK + kk of the interleaved layout, whose row
+      // stride is sbk. Four bytes at a time where rows and base allow.
+      const int8_t* bh = static_cast<const int8_t*>(bv) + bz * sbb;
+      const long long row0 = static_cast<long long>(k0 / BK) * P * BK;
+      if ((N & 3) == 0 && (sbk & 3) == 0 && (reinterpret_cast<uintptr_t>(bh) & 3) == 0) {
+        for (int e = tid; e < P * BK * (BN / 4); e += NT) {
+          const int i = e / (BK * BN / 4);
+          const int rem = e % (BK * BN / 4);
+          const int kk = rem / (BN / 4), nn = (rem % (BN / 4)) * 4;
+          const int gn = n0 + nn;
+          int v = 0;
+          if (gn < N) v = *reinterpret_cast<const int*>(bh + (row0 + i * BK + kk) * sbk + gn);
+          const int off = ((kk / 16) * (BN / 16) + nn / 16) * T16 + (kk % 16) * 16 + nn % 16;
+          *reinterpret_cast<int*>(sB + i * PLANE_B + off) = v;
+        }
+      } else {
+        for (int e = tid; e < P * BK * BN; e += NT) {
+          const int i = e / (BK * BN);
+          const int rem = e % (BK * BN);
+          const int kk = rem / BN, nn = rem % BN;
+          const int gn = n0 + nn;
+          const int8_t v = gn < N ? bh[(row0 + i * BK + kk) * sbk + gn] : int8_t(0);
+          const int off = ((kk / 16) * (BN / 16) + nn / 16) * T16 + (kk % 16) * 16 + nn % 16;
+          sB[i * PLANE_B + off] = v;
+        }
+      }
+    } else {
+      // Stage and carve the B tile.
+      const T* b = static_cast<const T*>(bv) + bz * sbb;
+      for (int e = tid; e < BK * BN; e += NT) {
+        int kk, nn;
+        if (sbn == 1) { kk = e / BN; nn = e % BN; } else { nn = e / BK; kk = e % BK; }
+        const int gk = k0 + kk, gn = n0 + nn;
+        float r = 0.f;
+        if (gk < K && gn < N) r = __fdiv_rn(widen(b[gk * sbk + gn * sbn]), nu[gn]);
+        const int off = ((kk / 16) * (BN / 16) + nn / 16) * T16 + (kk % 16) * 16 + nn % 16;
+        carve<P>(r, two_beta, sB + off, PLANE_B);
+      }
     }
     __syncthreads();
 #pragma unroll
@@ -227,28 +270,26 @@ emugemm1_kernel(const T* __restrict__ a, const T* __restrict__ b,
   }
 }
 
-template <typename T, typename O, int P>
+template <typename T, typename O, int P, bool BPREP>
 int launch(const void* a, const void* b, const float* mu, const float* nu, void* out,
            int batch, int M, int N, int K, long long sab, long long sam, long long sak,
            long long sbb, long long sbk, long long sbn, int beta,
            cudaStream_t stream) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, batch);
-  const T* ta = static_cast<const T*>(a);
-  const T* tb = static_cast<const T*>(b);
-  O* to = static_cast<O*>(out);
-  emugemm1_kernel<T, O, P><<<grid, NWARPS * 32, 0, stream>>>(
-      ta, tb, mu, nu, to, M, N, K, sab, sam, sak, sbb, sbk, sbn, beta);
+  emugemm1_kernel<T, O, P, BPREP><<<grid, NWARPS * 32, 0, stream>>>(
+      static_cast<const T*>(a), b, mu, nu, static_cast<O*>(out), M, N, K,
+      sab, sam, sak, sbb, sbk, sbn, beta);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename O>
+template <typename T, typename O, bool BPREP>
 int launch_p(int p, const void* a, const void* b, const float* mu, const float* nu,
              void* out, int batch, int M, int N, int K, long long sab, long long sam,
              long long sak, long long sbb, long long sbk, long long sbn, int beta,
              cudaStream_t st) {
 #define EMUGEMM1_CASE(PP) \
   case PP:                \
-    return launch<T, O, PP>(a, b, mu, nu, out, batch, M, N, K, sab, sam, sak, sbb, sbk, sbn, beta, st);
+    return launch<T, O, PP, BPREP>(a, b, mu, nu, out, batch, M, N, K, sab, sam, sak, sbb, sbk, sbn, beta, st);
   switch (p) {
     EMUGEMM1_CASE(1)
     EMUGEMM1_CASE(2)
@@ -264,9 +305,23 @@ int launch_p(int p, const void* a, const void* b, const float* mu, const float* 
 #undef EMUGEMM1_CASE
 }
 
+template <bool BPREP>
+int launch_types(int in_bf16, int out_bf16, int p, const void* a, const void* b,
+                 const float* mu, const float* nu, void* out, int batch, int M, int N,
+                 int K, long long sab, long long sam, long long sak, long long sbb,
+                 long long sbk, long long sbn, int beta, cudaStream_t st) {
+  if (!in_bf16 && !out_bf16)
+    return launch_p<float, float, BPREP>(p, a, b, mu, nu, out, batch, M, N, K, sab, sam, sak, sbb, sbk, sbn, beta, st);
+  if (!in_bf16 && out_bf16)
+    return launch_p<float, __nv_bfloat16, BPREP>(p, a, b, mu, nu, out, batch, M, N, K, sab, sam, sak, sbb, sbk, sbn, beta, st);
+  if (in_bf16 && !out_bf16)
+    return launch_p<__nv_bfloat16, float, BPREP>(p, a, b, mu, nu, out, batch, M, N, K, sab, sam, sak, sbb, sbk, sbn, beta, st);
+  return launch_p<__nv_bfloat16, __nv_bfloat16, BPREP>(p, a, b, mu, nu, out, batch, M, N, K, sab, sam, sak, sbb, sbk, sbn, beta, st);
+}
+
 }  // namespace
 
-// Plain C entry point, bound with ctypes. Returns 0 on success, a
+// Plain C entry points, bound with ctypes. Each returns 0 on success, a
 // cudaError_t code if the launch was refused, and -1 for an argument
 // combination that has no compiled instance.
 extern "C" int emugemm1(const void* a, const void* b, const float* mu, const float* nu,
@@ -275,12 +330,22 @@ extern "C" int emugemm1(const void* a, const void* b, const float* mu, const flo
                         long long sbn, int in_bf16, int out_bf16, int p, int beta,
                         void* stream) {
   if (batch <= 0 || M <= 0 || N <= 0 || K <= 0 || beta < 1 || beta > 7) return -1;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!in_bf16 && !out_bf16)
-    return launch_p<float, float>(p, a, b, mu, nu, out, batch, M, N, K, sab, sam, sak, sbb, sbk, sbn, beta, st);
-  if (!in_bf16 && out_bf16)
-    return launch_p<float, __nv_bfloat16>(p, a, b, mu, nu, out, batch, M, N, K, sab, sam, sak, sbb, sbk, sbn, beta, st);
-  if (in_bf16 && !out_bf16)
-    return launch_p<__nv_bfloat16, float>(p, a, b, mu, nu, out, batch, M, N, K, sab, sam, sak, sbb, sbk, sbn, beta, st);
-  return launch_p<__nv_bfloat16, __nv_bfloat16>(p, a, b, mu, nu, out, batch, M, N, K, sab, sam, sak, sbb, sbk, sbn, beta, st);
+  return launch_types<false>(in_bf16, out_bf16, p, a, b, mu, nu, out, batch, M, N, K,
+                             sab, sam, sak, sbb, sbk, sbn, beta,
+                             static_cast<cudaStream_t>(stream));
 }
+
+// The mixed form: A (M, K) float through strides, B the prepared int8
+// planes (p * Kp, N) with row stride ldb, interleaved at granularity BK.
+extern "C" int emugemm1_mixed(const void* a, const void* b_hat, const float* mu,
+                              const float* nu, void* out, int M, int N, int K,
+                              long long sam, long long sak, long long ldb, int in_bf16,
+                              int out_bf16, int p, int beta, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || beta < 1 || beta > 7) return -1;
+  return launch_types<true>(in_bf16, out_bf16, p, a, b_hat, mu, nu, out, 1, M, N, K,
+                            0, sam, sak, 0, ldb, 1, beta,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// The K tile, which is the interleave granularity the mixed form reads.
+extern "C" int emugemm1_bk() { return BK; }

@@ -1,5 +1,5 @@
-"""The fused EmuGEMM-I kernel (``csrc/emugemm1.cu``): wrapper, plain
-version and launch counts.
+"""The fused EmuGEMM-I kernel (``csrc/emugemm1.cu``): wrappers, plain
+versions and launch counts.
 
 ``fused_matmul_scheme1`` takes (M, K) @ (K, N) or, strided over a batch,
 (B, M, K) @ (B, K, N) operands in float32 or bfloat16 with their
@@ -9,10 +9,18 @@ kernel; on a CPU tensor it runs the plain version, which is
 ``repro_torch.core.scheme1`` — the same slicing, exact integer slice
 products and shift-reduce, as separate torch ops.
 
+``fused_matmul_mixed`` is the kernel's third launch form: the lhs is
+carved in the kernel as above, and the rhs is a prepared weight, the p
+int8 planes interleaved on K at granularity ``decompose.TILE`` (the
+kernel's K tile) that ``repro_torch.kernels.decompose`` writes. Its plain
+version deinterleaves them and runs the same slice products and
+shift-reduce.
+
 The kernel replaces the Pallas kernels ``repro.kernels.ozaki1.
 fused_matmul_prologue`` and ``repro.kernels.backends.gpu.
-fused_matmul_scheme1`` (2-D launch) and ``fused_matmul_scheme1_batched``
-(batched launch).
+fused_matmul_scheme1`` (2-D launch), ``fused_matmul_scheme1_batched``
+(batched launch) and ``repro.kernels.ozaki1.fused_matmul_mixed`` (mixed
+launch).
 """
 
 from __future__ import annotations
@@ -34,10 +42,12 @@ class LaunchCounts:
     version on CUDA tensors (which the serving path must never make)."""
     launches_2d: int = 0
     launches_batched: int = 0
+    launches_mixed: int = 0
     plain_cuda_calls: int = 0
 
     def reset(self) -> None:
-        self.launches_2d = self.launches_batched = self.plain_cuda_calls = 0
+        self.launches_2d = self.launches_batched = self.launches_mixed = 0
+        self.plain_cuda_calls = 0
 
 
 COUNTS = LaunchCounts()
@@ -55,12 +65,40 @@ def fused_matmul_plain(a: torch.Tensor, b: torch.Tensor, mu: torch.Tensor,
     return scheme1.shift_reduce(accs, beta, mu, nu, out_dtype)
 
 
+def fused_matmul_mixed_plain(a: torch.Tensor, b_hat: torch.Tensor,
+                             mu: torch.Tensor, nu: torch.Tensor, p: int,
+                             beta: int, out_dtype: torch.dtype
+                             ) -> torch.Tensor:
+    """The mixed form's function in plain torch ops (CPU or CUDA)."""
+    from repro_torch.kernels.decompose import TILE
+    if a.is_cuda:
+        COUNTS.plain_cuda_calls += 1
+    k = a.shape[-1]
+    b_sl = scheme1.deinterleave_k(b_hat, p, TILE)[:, :k]
+    a_sl = scheme1.carve(scheme1.widen(a) / mu, p, beta)
+    accs = scheme1.triangular_accumulators(a_sl, b_sl, p)
+    return scheme1.shift_reduce(accs, beta, mu, nu, out_dtype)
+
+
 def _bind(lib: ctypes.CDLL):
     fn = lib.emugemm1
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                    + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    return fn
+
+
+def _bind_mixed(lib: ctypes.CDLL):
+    from repro_torch.kernels.decompose import TILE
+    fn = lib.emugemm1_mixed
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                   + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    if lib.emugemm1_bk() != TILE:
+        raise RuntimeError(f"emugemm1.cu's K tile is {lib.emugemm1_bk()}, "
+                           f"the prepared layout interleaves at {TILE}")
     return fn
 
 
@@ -135,3 +173,45 @@ def fused_matmul_scheme1(a: torch.Tensor, b: torch.Tensor, mu: torch.Tensor,
         return out
     raise ValueError(f"emugemm1: operands must both be 2-D or both 3-D, got "
                      f"{tuple(a.shape)} @ {tuple(b.shape)}")
+
+
+def fused_matmul_mixed(a: torch.Tensor, b_hat: torch.Tensor,
+                       mu: torch.Tensor, nu: torch.Tensor, p: int, beta: int,
+                       out_dtype: torch.dtype) -> torch.Tensor:
+    """(M, K) float @ prepared (p * Kp, N) int8 planes, with scales
+    mu (M, 1) and nu (1, N) -> (M, N) ``out_dtype``.
+
+    ``b_hat`` is interleaved on K at granularity ``decompose.TILE``
+    with Kp = K rounded up to it. CPU tensors take the plain version;
+    CUDA tensors launch the kernel's mixed form or raise.
+    """
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decompose import round_up
+    if a.device.type == "cpu":
+        return fused_matmul_mixed_plain(a, b_hat, mu, nu, p, beta, out_dtype)
+    _check(a, a, mu, nu, p, beta, out_dtype)
+    m, k = a.shape
+    n = b_hat.shape[-1]
+    if (b_hat.dim() != 2 or b_hat.dtype != torch.int8
+            or b_hat.device != a.device or not b_hat.is_contiguous()
+            or b_hat.shape[0] != p * round_up(k)
+            or mu.shape != (m, 1) or nu.shape != (1, n)):
+        raise ValueError(f"emugemm1 mixed: a {tuple(a.shape)}, prepared "
+                         f"{tuple(b_hat.shape)} {b_hat.dtype} (expected a "
+                         f"contiguous int8 ({p} * {round_up(k)}, N)), mu "
+                         f"{tuple(mu.shape)}, nu {tuple(nu.shape)}")
+    mu, nu = mu.contiguous(), nu.contiguous()
+    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    if out.numel() == 0 or k == 0:
+        return out.zero_()
+    fn = _bind_mixed(build.load("emugemm1"))
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    rc = fn(a.data_ptr(), b_hat.data_ptr(), mu.data_ptr(), nu.data_ptr(),
+            out.data_ptr(), m, n, k, a.stride(0), a.stride(1),
+            b_hat.stride(0), int(a.dtype == torch.bfloat16),
+            int(out_dtype == torch.bfloat16), p, beta, stream)
+    if rc != 0:
+        raise RuntimeError(f"emugemm1 mixed launch failed (code {rc}) for "
+                           f"{(m, k, n)} p={p}")
+    COUNTS.launches_mixed += 1
+    return out

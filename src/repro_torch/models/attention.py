@@ -1,10 +1,13 @@
-"""Grouped-query attention of the port: the serving step
-(``repro.models.attention``: ``_project_qkv``, ``_store_step``,
-``attention_step``).
+"""Grouped-query attention of the port (``repro.models.attention``): the
+chunked online-softmax ``flash_attention`` and ``attention_train`` of
+the training path, and the serving step (``_project_qkv``,
+``_store_step``, ``attention_step``).
 
-The train, prefill and single-token decode paths of the reference, and
-its chunked ``flash_attention``, come with the training slice (ROADMAP.md
-§ 1 item 2); int8 and ring-buffer KV caches with the model zoo (item 4).
+``flash_attention`` is plain torch, as the reference's is plain JAX (its
+Pallas flash kernel is not on this path). The reference's prefill and
+single-token decode paths come with serving's remaining items
+(ROADMAP.md § 1 item 2); int8 and ring-buffer KV caches and sequence
+parallelism with the model zoo and multi-device items (4, 8).
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ import math
 import torch
 
 from repro_torch.models import common
-from repro_torch.models.common import GemmPolicy, dense, he_init, policy_einsum
+from repro_torch.models.common import (NATIVE_POLICY, GemmPolicy, dense,
+                                       he_init, policy_einsum)
 
 NEG_INF = -1e30
 
@@ -33,6 +37,8 @@ class AttnConfig:
     use_rope: bool = True
     softmax_scale: float | None = None
     cache_int8: bool = False
+    q_chunk: int = 1024
+    kv_chunk: int = 1024
 
     @property
     def scale(self) -> float:
@@ -67,6 +73,106 @@ def _project_qkv(params, cfg: AttnConfig, x, positions, policy: GemmPolicy):
         q = common.apply_rope(q, positions, cfg.rope_theta)
         k = common.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _chunk_mask(cfg: AttnConfig, q_pos, k_pos):
+    """(bq, bk) boolean validity mask from absolute positions."""
+    rel = q_pos[:, None] - k_pos[None, :]
+    mask = torch.ones(rel.shape, dtype=torch.bool, device=rel.device)
+    if cfg.causal:
+        mask &= rel >= 0
+    if cfg.window is not None:
+        mask &= rel < cfg.window
+    return mask
+
+
+def _pad_seq(x, mult: int, value=0):
+    """Pad axis 1 up to a multiple of ``mult``."""
+    extra = (-x.shape[1]) % mult
+    if not extra:
+        return x
+    pad = x.new_full((x.shape[0], extra) + tuple(x.shape[2:]), value)
+    return torch.cat([x, pad], dim=1)
+
+
+def flash_attention(cfg: AttnConfig, q, k, v, q_positions, k_positions,
+                    kv_valid_len=None, policy: GemmPolicy = NATIVE_POLICY):
+    """Exact chunked attention with an online softmax in float32.
+
+    q: (B, Sq, H, D); k/v: (B, Sk, KVH, D); *_positions: (Sq,)/(Sk,)
+    int32. kv_valid_len: keys at index >= it are masked. ``policy``
+    selects the config of the two inner contractions ('attn_qk',
+    'attn_av'). Ragged lengths pad to the chunk grid with a position
+    sentinel that fails every mask; with causal self-attention the kv
+    chunks past each q chunk's diagonal are skipped. Returns (B, Sq, H, D).
+    """
+    b, sq0, h, d = q.shape
+    sk0 = k.shape[1]
+    kvh = cfg.n_kv_heads
+    g = h // kvh
+    bq = min(cfg.q_chunk, sq0)
+    bk = min(cfg.kv_chunk, sk0)
+    q = _pad_seq(q, bq)
+    k = _pad_seq(k, bk)
+    v = _pad_seq(v, bk)
+    q_positions = _pad_seq(q_positions[None], bq, 2 ** 30)[0]
+    k_positions = _pad_seq(k_positions[None], bk, 2 ** 30)[0]
+    sq, sk = q.shape[1], k.shape[1]
+    if sk != sk0 and kv_valid_len is None:
+        kv_valid_len = sk0
+    n_q, n_k = sq // bq, sk // bk
+    qc = q.reshape(b, n_q, bq, kvh, g, d)
+    kc = k.reshape(b, n_k, bk, kvh, d)
+    vc = v.reshape(b, n_k, bk, kvh, d)
+    outs = []
+    for i in range(n_q):
+        qi = qc[:, i]
+        q_pos = q_positions[i * bq:(i + 1) * bq]
+        acc = torch.zeros((b, kvh, g, bq, d), dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((b, kvh, g, bq), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, kvh, g, bq), dtype=torch.float32,
+                        device=q.device)
+        if cfg.causal and sq == sk and kv_valid_len is None:
+            # Static diagonal bound: kv chunks covering rows < (i+1)*bq.
+            hi = min(n_k, ((i + 1) * bq + bk - 1) // bk)
+            lo = 0 if cfg.window is None else max(
+                0, (i * bq - cfg.window + 1) // bk)
+        else:
+            lo, hi = 0, n_k
+        for j in range(lo, hi):
+            kj, vj = kc[:, j], vc[:, j]
+            k_pos = k_positions[j * bk:(j + 1) * bk]
+            s_ij = policy_einsum("bqkgd,bjkd->bkgqj", qi, kj, policy,
+                                 "attn_qk", pet=torch.float32) * cfg.scale
+            mask = _chunk_mask(cfg, q_pos, k_pos)
+            if kv_valid_len is not None:
+                kidx = j * bk + torch.arange(bk, device=q.device)
+                mask &= (kidx < kv_valid_len)[None, :]
+            s_ij = torch.where(mask[None, None, None], s_ij,
+                               torch.full_like(s_ij, NEG_INF))
+            m_new = torch.maximum(m, s_ij.amax(-1))
+            p = torch.exp(s_ij - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + policy_einsum(
+                "bkgqj,bjkd->bkgqd", p.to(vj.dtype), vj, policy, "attn_av",
+                pet=torch.float32)
+            m = m_new
+        out = acc / torch.clamp(l[..., None], min=1e-30)
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, bq, h, d))
+    return torch.cat(outs, dim=1)[:, :sq0].to(q.dtype)
+
+
+def attention_train(params, cfg: AttnConfig, x, positions,
+                    policy: GemmPolicy):
+    """x: (B, S, D) -> (B, S, D); no cache."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(params, cfg, x, positions, policy)
+    pos1d = positions[0]
+    out = flash_attention(cfg, q, k, v, pos1d, pos1d, policy=policy)
+    return dense(out.reshape(b, s, -1), params["wo"], policy, "attn")
 
 
 def init_cache(cfg: AttnConfig, batch: int, max_seq: int, dtype, device,

@@ -1,5 +1,6 @@
 """Residual blocks of the port (``repro.models.blocks``): the attention
-block's serving step, pre-norm attention + pre-norm dense FFN."""
+block, pre-norm attention + pre-norm dense FFN, in its training forward
+(``block_train``) and its serving step (``block_step``)."""
 
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ def attn_config(mcfg: ModelConfig) -> AttnConfig:
         n_kv_heads=mcfg.n_kv_heads, head_dim=mcfg.resolved_head_dim,
         qkv_bias=mcfg.qkv_bias, causal=mcfg.causal,
         window=mcfg.attn_window, rope_theta=mcfg.rope_theta,
-        use_rope=mcfg.causal, cache_int8=mcfg.kv_cache_dtype == "int8")
+        use_rope=mcfg.causal, q_chunk=mcfg.q_chunk, kv_chunk=mcfg.kv_chunk,
+        cache_int8=mcfg.kv_cache_dtype == "int8")
 
 
 def check_supported(mcfg: ModelConfig) -> None:
@@ -39,6 +41,24 @@ def init_block(gen, mcfg: ModelConfig, dtype, device, lead: tuple = ()):
     }
 
 
+def _ffn_part(params, mcfg: ModelConfig, x, policy: GemmPolicy):
+    h = apply_norm(mcfg.norm, params["ln2"], x)
+    return x + apply_ffn(params["ffn"], h, mcfg.act, policy)
+
+
+def block_train(params, kind: str, mcfg: ModelConfig, x, positions,
+                policy: GemmPolicy):
+    """One block's training forward; returns (x, aux loss). Only the
+    dense attention block is ported (``check_supported``)."""
+    if kind != "attn":
+        raise NotImplementedError(
+            f"block kind {kind!r} is not ported yet (ROADMAP.md § 1 item 4)")
+    h = apply_norm(mcfg.norm, params["ln1"], x)
+    x = x + attention.attention_train(params["mixer"], attn_config(mcfg), h,
+                                      positions, policy)
+    return _ffn_part(params, mcfg, x, policy), 0.0
+
+
 def block_step(params, mcfg: ModelConfig, x, start, n_new, cache,
                policy: GemmPolicy):
     """Ragged serving step of one attention block (see
@@ -46,6 +66,4 @@ def block_step(params, mcfg: ModelConfig, x, start, n_new, cache,
     h = apply_norm(mcfg.norm, params["ln1"], x)
     mix, cache = attention.attention_step(params["mixer"], attn_config(mcfg),
                                           h, start, n_new, cache, policy)
-    x = x + mix
-    h = apply_norm(mcfg.norm, params["ln2"], x)
-    return x + apply_ffn(params["ffn"], h, mcfg.act, policy), cache
+    return _ffn_part(params, mcfg, x + mix, policy), cache

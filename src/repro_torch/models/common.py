@@ -181,3 +181,16 @@ def apply_ffn(params, x: torch.Tensor, act: str, policy: GemmPolicy,
 def pad_vocab(vocab: int, multiple: int = 512) -> int:
     """Padded embedding/logit vocab (Megatron-style)."""
     return ((vocab + multiple - 1) // multiple) * multiple
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       vocab: int) -> torch.Tensor:
+    """Mean token NLL in float32; labels outside [0, vocab) (padding ids)
+    are masked out."""
+    logits = logits.float()
+    mask = (labels >= 0) & (labels < vocab)
+    safe = torch.where(mask, labels, torch.zeros_like(labels)).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1)

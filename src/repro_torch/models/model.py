@@ -1,18 +1,21 @@
 """Top-level language model of the port (``repro.models.model``):
-embeddings -> stacked blocks -> head, for the serving step.
+embeddings -> stacked blocks -> head, for the training forward and the
+serving step.
 
 Parameters keep the reference's pytree layout: ``params["layers"]["b0"]``
 holds each block weight stacked on a leading layer axis, and the
 reference's ``lax.scan`` over it becomes a Python loop over that axis.
 
-Entry points: ``init_params``, ``init_cache``, ``forward_step``,
-``logits_from_hidden``. They run on ``device="cuda"`` unless the caller
-asks for the CPU, and raise when CUDA is asked for and absent.
+Entry points: ``init_params``, ``init_cache``, ``forward_train``,
+``forward_step``, ``logits_from_hidden``. They run on ``device="cuda"``
+unless the caller asks for the CPU, and raise when CUDA is asked for and
+absent.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as B
@@ -32,13 +35,20 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def layer(params, i: int):
-    """Layer ``i``'s block parameters, sliced from the stacked leaves."""
-    def take(tree):
+def unstack_layers(params, n_layers: int) -> list:
+    """Every layer's block parameters, views from one ``unbind`` of each
+    stacked leaf (in training, one gradient buffer per leaf, not one per
+    layer)."""
+    def split(tree):
         if isinstance(tree, dict):
-            return {k: take(v) for k, v in tree.items()}
+            return {k: split(v) for k, v in tree.items()}
+        return torch.unbind(tree)
+    def pick(tree, i):
+        if isinstance(tree, dict):
+            return {k: pick(v, i) for k, v in tree.items()}
         return tree[i]
-    return take(params["layers"]["b0"])
+    parts = split(params["layers"]["b0"])
+    return [pick(parts, i) for i in range(n_layers)]
 
 
 def init_params(mcfg: ModelConfig, seed: int = 0, device="cuda"):
@@ -71,6 +81,40 @@ def init_cache(mcfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
         device, lead=(mcfg.n_layers,))}}
 
 
+def embed_inputs(params, mcfg: ModelConfig, inputs: dict):
+    """Token front end: (embeddings (B, S, D), positions (B, S) int32)."""
+    if mcfg.frontend != "none":
+        raise NotImplementedError(
+            f"the {mcfg.frontend} front end is not ported yet (ROADMAP.md "
+            "§ 1 item 4)")
+    ids = inputs["tokens"]
+    b, s = ids.shape
+    x = params["emb"][ids.long()]
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device).expand(b, s)
+    return x, positions
+
+
+def forward_train(params, mcfg: ModelConfig, inputs: dict,
+                  policy: GemmPolicy = NATIVE_POLICY, remat: bool = True):
+    """Training forward: (logits (B, S, vocab_padded), mtp logits (None),
+    aux loss). With ``remat`` each layer runs under a non-reentrant
+    activation checkpoint, as the reference wraps each scanned group in
+    ``jax.checkpoint``: only the layer inputs stay alive, and the
+    backward recomputes each layer, its weight preparation included."""
+    B.check_supported(mcfg)
+    x, positions = embed_inputs(params, mcfg, inputs)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in unstack_layers(params, mcfg.n_layers):
+        if remat:
+            x, a = checkpoint(B.block_train, lp, "attn", mcfg, x, positions,
+                              policy, use_reentrant=False)
+        else:
+            x, a = B.block_train(lp, "attn", mcfg, x, positions, policy)
+        aux = aux + a
+    return logits_from_hidden(params, mcfg, x, policy), None, aux
+
+
 def logits_from_hidden(params, mcfg: ModelConfig, x, policy: GemmPolicy):
     x = apply_norm(mcfg.norm, params["ln_f"], x)
     # emb.T is a strided view: the kernel reads it in place.
@@ -92,10 +136,9 @@ def forward_step(params, mcfg: ModelConfig, tokens, start, n_new, cache,
     b, c = tokens.shape
     x = params["emb"][tokens.long()]
     kv = cache["layers"]["b0"]
-    for i in range(mcfg.n_layers):
+    for i, lp in enumerate(unstack_layers(params, mcfg.n_layers)):
         view = {"k": kv["k"][i], "v": kv["v"][i]}
-        x, _ = B.block_step(layer(params, i), mcfg, x, start, n_new, view,
-                            policy)
+        x, _ = B.block_step(lp, mcfg, x, start, n_new, view, policy)
     idx = torch.clamp(n_new.long() - 1, 0, c - 1)
     x_last = x[torch.arange(b, device=x.device), idx][:, None]    # (B, 1, D)
     logits = logits_from_hidden(params, mcfg, x_last, policy)

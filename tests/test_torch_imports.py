@@ -25,7 +25,9 @@ def _port_modules():
 
 def test_every_port_module_imports_without_jax_or_repro():
     mods = _port_modules()
-    assert "repro_torch.launch.serve" in mods and len(mods) > 20
+    assert {"repro_torch.launch.serve", "repro_torch.launch.train",
+            "repro_torch.kernels.prepared",
+            "repro_torch.kernels.decompose"} <= set(mods) and len(mods) > 20
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -77,6 +79,11 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--smoke", "--requests", "1", "--gen", "1"])
+    from repro_torch.launch import steps, train
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        steps.init_state(arch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--smoke", "--steps", "1"])
     toks = serve.main(["--smoke", "--requests", "2", "--prompt-len", "5",
                        "--gen", "2", "--gemm", "ozaki1-p4",
                        "--device", "cpu"])
