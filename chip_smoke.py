@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Drives repro_torch only (no jax, nothing of the reference package) on the
-card, with no CPU fallback, in nine phases:
+card, with no CPU fallback, in fourteen phases:
 
 1. build: nvcc compiles the port's CUDA kernels from this checkout, one
    process per source, in parallel;
@@ -35,7 +35,27 @@ card, with no CPU fallback, in nine phases:
    uncached, and cached and uncached with bwd_p = 3 (which launches the
    rhs decomposition);
 9. trainer: launch/train.py at smoke size on the card fails at step 2,
-   resumes, and ends in the state of an uninterrupted run, bit for bit.
+   resumes, and ends in the state of an uninterrupted run, bit for bit;
+10. Scheme-II kernels: EmuGEMM-II's 2-D, batched and residue forms are
+    held against their plain versions bit for bit at the shapes of
+    olmo-1b-emu's attention scores (serve; train at 8 x 128 and 2 x 2048
+    tokens, forward and both backward transposes) and on a ragged
+    shape, float32 and bfloat16, m in {4, 6, 8, 16}, and timed beside
+    their bounds; the library routes of the 2-D and residue forms
+    (``dispatch.emulated_matmul`` and ``ops.fused_scheme2_matmul`` under
+    ozaki2-m6, on olmo-1b's dense shapes at 1024 tokens) are driven with
+    their counts read around them;
+11. emu serve: full-width olmo-1b-emu under its shipped gemm_sites
+    (ozaki1-p4+cached, attn_qk ozaki2-m6, attn_av ozaki1-p4) serves the
+    trace of phase 3; the launch counts of both kernels' modules are read
+    around it, and request 0 alone must match the cohort;
+12. emu parity and profile: one full-width mixed step on 'cuda' and
+    'torch' gives bit-identical logits; step walls and device time by
+    kernel of a mixed and a decode step;
+13. emu train: full-width olmo-1b-emu, one warm-up and three timed steps
+    of 8 x 128 tokens, launch counts read around them, three more traced;
+14. emu train parity: under deterministic algorithms one step's loss and
+    every gradient leaf are bit-identical on 'cuda' and 'torch'.
 
 Any failure exits non-zero and prints no result. The line before the
 last is a JSON object listing each kernel; the last line is
@@ -66,9 +86,11 @@ import torch  # noqa: E402
 from repro_torch import api, configs  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
-from repro_torch.core import scheme1  # noqa: E402
+from repro_torch.core import scheme1, scheme2  # noqa: E402
+from repro_torch.core.precision import default_moduli  # noqa: E402
 from repro_torch.data import make_batch_iterator  # noqa: E402
-from repro_torch.kernels import build, decompose, ozaki1  # noqa: E402
+from repro_torch.kernels import (build, decompose, dispatch, ops,  # noqa: E402
+                                 ozaki1, ozaki2)
 from repro_torch.launch import steps as S, train as train_cli  # noqa: E402
 from repro_torch.launch.serve import build_trace  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -83,6 +105,10 @@ L2_BYTES = 50 * 2 ** 20
 
 SOURCE = "src/repro_torch/kernels/csrc/emugemm1.cu"
 DECOMPOSE_SOURCE = "src/repro_torch/kernels/csrc/decompose.cu"
+SOURCE2 = "src/repro_torch/kernels/csrc/emugemm2.cu"
+EMU = "olmo-1b-emu"
+M_MAIN = 6                       # olmo-1b-emu's attn_qk is ozaki2-m6
+M_CHECK = (4, 6, 8, 16)
 SPEC = "ozaki1-p4"
 P_MAIN = 4
 REQUESTS, PROMPT, GEN, LANES, CHUNK, PAGE = 8, 48, 16, 4, 16, 16
@@ -282,23 +308,28 @@ def serve_phase(dev, arch, policy):
                         PROMPT, GEN, 0.0)
     torch.cuda.synchronize()
     eng.reset_clock()
-    ozaki1.COUNTS.reset()
+    reset_counts()
     t0 = time.perf_counter()
     results = eng.run(trace)
     dt = time.perf_counter() - t0
-    counts = ozaki1.LaunchCounts(**vars(ozaki1.COUNTS))
+    counts, _, counts2 = snapshot_counts()
     util = eng.utilization()
     toks = [results[r.rid].tokens for r in trace]
     ttft = float(np.median([results[r.rid].ttft for r in trace]))
-    log(f"[serve] {util['steps']} steps, {REQUESTS} requests x {GEN} tokens "
+    tag = f"[serve {arch.model.name}]"
+    log(f"{tag} {util['steps']} steps, {REQUESTS} requests x {GEN} tokens "
         f"in {dt:.3f} s ({REQUESTS * GEN / dt:.1f} tok/s), ttft p50 "
-        f"{ttft:.3f} s, launches: 2-D {counts.launches_2d}, batched "
-        f"{counts.launches_batched}, plain version on CUDA "
-        f"{counts.plain_cuda_calls}")
+        f"{ttft:.3f} s, launches: emugemm1 2-D {counts.launches_2d}, "
+        f"batched {counts.launches_batched}; emugemm2 batched "
+        f"{counts2.launches_batched}, 2-D {counts2.launches_2d}; plain "
+        f"versions on CUDA {counts.plain_cuda_calls} + "
+        f"{counts2.plain_cuda_calls}")
     if counts.launches_2d == 0 or counts.launches_batched == 0:
         raise AssertionError("the serve path did not launch the kernel")
-    if counts.plain_cuda_calls != 0:
-        raise AssertionError("the serve path ran the plain version on CUDA")
+    if scheme2_sites(eng.policy) and counts2.launches_batched == 0:
+        raise AssertionError("the serve path did not launch emugemm2")
+    if counts.plain_cuda_calls or counts2.plain_cuda_calls:
+        raise AssertionError("the serve path ran a plain version on CUDA")
     if not all(len(t) == GEN and all(0 <= x < arch.model.vocab for x in t)
                for t in toks):
         raise AssertionError(f"malformed tokens {toks}")
@@ -309,9 +340,25 @@ def serve_phase(dev, arch, policy):
     r0 = Request(prompt=trace[0].prompt, max_new_tokens=GEN)
     if alone.run([r0])[r0.rid].tokens != toks[0]:
         raise AssertionError("request 0 alone differs from the cohort")
-    log(f"[serve] request 0 alone == in cohort; sample {toks[0][:8]}")
-    return eng, counts, {"steps": util["steps"], "seconds": dt,
-                         "tok_per_s": REQUESTS * GEN / dt, "ttft_p50_s": ttft}
+    log(f"{tag} request 0 alone == in cohort; sample {toks[0][:8]}")
+    return eng, (counts, counts2), {
+        "steps": util["steps"], "seconds": dt,
+        "tok_per_s": REQUESTS * GEN / dt, "ttft_p50_s": ttft}
+
+
+def scheme2_sites(policy) -> bool:
+    return any(c is not None and c.scheme == "ozaki2"
+               for c in [policy.default] + [c for _, c in policy.overrides])
+
+
+def on_backend(policy, backend):
+    """``policy`` with every emulated site pinned to ``backend``."""
+    def pin(cfg):
+        if cfg is None or cfg.scheme == "native":
+            return cfg
+        return api.precision(cfg, backend=backend)
+    return GemmPolicy(default=pin(policy.default),
+                      overrides=tuple((s, pin(c)) for s, c in policy.overrides))
 
 
 def tree_map(fn, tree):
@@ -320,7 +367,9 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-def parity_phase(dev, arch, params, view_tokens):
+def parity_phase(dev, arch, params, view_tokens, policy, label):
+    """One full-width mixed step under ``policy`` on the 'cuda' and 'torch'
+    backends (bit for bit), and its distance to a float32 forward."""
     mcfg = arch.model
     gen = torch.Generator(device=dev).manual_seed(1)
     tokens = torch.randint(0, mcfg.vocab, (LANES, CHUNK), generator=gen,
@@ -331,21 +380,20 @@ def parity_phase(dev, arch, params, view_tokens):
     for leaf in cache["layers"]["b0"].values():
         leaf.normal_(generator=gen)
     logits = {}
-    runs = ((SPEC + "@cuda", params), (SPEC + "@torch", params),
-            ("native", params),
-            ("native-f32", tree_map(lambda x: x.float(), params)))
+    native = GemmPolicy(default=api.precision("native"))
+    runs = (("cuda", params, on_backend(policy, "cuda")),
+            ("torch", params, on_backend(policy, "torch")),
+            ("native", params, native),
+            ("native-f32", tree_map(lambda x: x.float(), params), native))
     with torch.inference_mode():
-        for name, prm in runs:
+        for name, prm, pol in runs:
             views = {"layers": {"b0": {
                 k: v.clone().to(prm["emb"].dtype)
                 for k, v in cache["layers"]["b0"].items()}}}
-            pol = GemmPolicy(default=api.precision(name.split("-")[0]
-                                                   if name.startswith("native")
-                                                   else name))
             logits[name], _ = M.forward_step(prm, mcfg, tokens, start,
                                              n_new, views, pol)
     torch.cuda.synchronize()
-    a, b = logits[SPEC + "@cuda"], logits[SPEC + "@torch"]
+    a, b = logits["cuda"], logits["torch"]
     if not torch.equal(a, b):
         raise AssertionError("full-width logits differ between the cuda and "
                              "torch backends: max |diff| "
@@ -363,7 +411,7 @@ def parity_phase(dev, arch, params, view_tokens):
 
     rel_emu, rel_nat = rel(a), rel(logits["native"])
     log(f"[parity] full-width mixed step: cuda == torch backend logits bit "
-        f"for bit; relative distance to a float32 forward: {SPEC} bf16 "
+        f"for bit; relative distance to a float32 forward: {label} bf16 "
         f"{rel_emu:.3e}, native bf16 {rel_nat:.3e}")
     if not rel_emu <= max(4 * rel_nat, 1e-3):
         raise AssertionError(f"emulated logits far from the float32 "
@@ -380,7 +428,8 @@ def kernel_label(name: str) -> str:
 
 def device_summary(prof, prof_wall_ms: float, top_n: int = 4) -> dict:
     """Device-busy time (the union of kernel intervals), idle share of the
-    profiled wall time, and the device time of the top kernels by name."""
+    profiled wall time, the device time of the top kernels by name and
+    that of EmuGEMM-II (attn_qk under olmo-1b-emu)."""
     from torch.autograd import DeviceType
     spans, by_name = [], {}
     for e in prof.events():
@@ -400,13 +449,15 @@ def device_summary(prof, prof_wall_ms: float, top_n: int = 4) -> dict:
     return {"profiled_wall_ms": prof_wall_ms,
             "device_busy_ms": busy_ms if spans else None,
             "idle_share": (1 - busy_ms / prof_wall_ms) if spans else None,
-            "top_device_ms": dict(top)}
+            "top_device_ms": dict(top),
+            "emugemm2_ms": sum(v for k, v in by_name.items()
+                               if k.startswith("emugemm2"))}
 
 
-def profile_phase(dev, arch, params, view_tokens):
+def profile_phase(dev, arch, params, view_tokens, runs):
     """Where one serve step's time goes: host wall time of a mixed and a
-    decode step under ozaki1-p4 and native, and under torch.profiler the
-    device-busy share and device time by kernel name."""
+    decode step under each (label, policy) of ``runs``, and under
+    torch.profiler the device-busy share and device time by kernel name."""
     from torch.profiler import ProfilerActivity, profile
     mcfg = arch.model
     start = torch.tensor([0, 16, 32, 47], device=dev, dtype=torch.int32)
@@ -416,8 +467,7 @@ def profile_phase(dev, arch, params, view_tokens):
         tokens = torch.ones((LANES, c), device=dev, dtype=torch.int32)
         nn = torch.tensor(n_new, device=dev, dtype=torch.int32)
         cache = M.init_cache(mcfg, LANES, view_tokens, dev)
-        for spec in (SPEC, "native"):
-            pol = GemmPolicy(default=api.precision(spec))
+        for spec, pol in runs:
 
             def step():
                 with torch.inference_mode():
@@ -638,17 +688,19 @@ def train_kernel_phase(dev, mcfg):
 
 def snapshot_counts():
     return (ozaki1.LaunchCounts(**vars(ozaki1.COUNTS)),
-            decompose.LaunchCounts(**vars(decompose.COUNTS)))
+            decompose.LaunchCounts(**vars(decompose.COUNTS)),
+            ozaki2.LaunchCounts(**vars(ozaki2.COUNTS)))
 
 
 def reset_counts():
     ozaki1.COUNTS.reset()
     decompose.COUNTS.reset()
+    ozaki2.COUNTS.reset()
 
 
-def train_batches(arch, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
-    return make_batch_iterator(arch, ShapeSpec("chip", seq, batch, "train"),
-                               seed=0)
+def train_batches(arch, batch=None, seq=None):
+    return make_batch_iterator(arch, ShapeSpec(
+        "chip", seq or TRAIN_SEQ, batch or TRAIN_BATCH, "train"), seed=0)
 
 
 def run_steps(step, run, batches, n):
@@ -666,10 +718,12 @@ def run_steps(step, run, batches, n):
     return losses, walls
 
 
-def train_phase(dev, arch, card: str):
+def train_phase(dev, arch, card: str, policy=None, long_seq: bool = True):
+    """Train ``arch`` under ``policy`` (None: the arch's gemm_sites)."""
     from torch.profiler import ProfilerActivity, profile
-    step = S.make_train_step(arch, policy=GemmPolicy(
-        default=api.precision(TRAIN_SPEC)))
+    label = TRAIN_SPEC if policy is not None else arch.model.name
+    tag = f"[train {arch.model.name}]"
+    step = S.make_train_step(arch, policy=policy)
     run = {"state": S.init_state(arch, 0, dev)}
     batches = train_batches(arch)
     torch.cuda.synchronize()
@@ -680,18 +734,19 @@ def train_phase(dev, arch, card: str):
     losses, warm = run_steps(step, run, batches, 1)
     timed, walls = run_steps(step, run, batches, TRAIN_STEPS)
     losses += timed
-    k1, k2 = snapshot_counts()
+    k1, k2, k3 = snapshot_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     tok_s = TRAIN_STEPS * TOKENS / sum(walls)
-    log(f"[train] 1 + {TRAIN_STEPS} steps of {TOKENS} tokens under "
-        f"{TRAIN_SPEC}: losses {losses}, warm-up wall s {warm[0]:.3f}, "
+    log(f"{tag} 1 + {TRAIN_STEPS} steps of {TOKENS} tokens under "
+        f"{label}: losses {losses}, warm-up wall s {warm[0]:.3f}, "
         f"timed step wall s {[round(w, 3) for w in walls]}, {tok_s:.1f} "
         f"tokens/s over the timed steps, peak memory "
         f"{peak / 2 ** 30:.2f} GiB on {card}; launches: pair "
         f"{k2.launches_pair}, "
         f"rhs {k2.launches_rhs}, mixed {k1.launches_mixed}, 2-D "
-        f"{k1.launches_2d}, batched {k1.launches_batched}, plain versions on "
-        f"CUDA {k1.plain_cuda_calls + k2.plain_cuda_calls}")
+        f"{k1.launches_2d}, batched {k1.launches_batched}, emugemm2 batched "
+        f"{k3.launches_batched}, plain versions on CUDA "
+        f"{k1.plain_cuda_calls + k2.plain_cuda_calls + k3.plain_cuda_calls}")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite training loss {losses}")
     if min(k2.launches_pair, k1.launches_mixed, k1.launches_2d,
@@ -700,11 +755,15 @@ def train_phase(dev, arch, card: str):
     # The per-step times of the kernel phase count these launches.
     expect = train_launches(arch.model)
     n_run = 1 + TRAIN_STEPS
-    if (k2.launches_pair, k1.launches_mixed) != (
-            n_run * expect["pair"], n_run * expect["mixed"]):
+    # attn_qk under Scheme II: the forward, the recompute, dA and dB of
+    # each chunk pair.
+    qk = (4 * chunk_pairs(arch.model, TRAIN_SEQ) * arch.model.n_layers
+          if scheme2_sites(policy or arch.gemm_policy()) else 0)
+    if (k2.launches_pair, k1.launches_mixed, k3.launches_batched) != (
+            n_run * expect["pair"], n_run * expect["mixed"], n_run * qk):
         raise AssertionError(f"launches differ from the per-step accounting "
-                             f"{expect}")
-    if k1.plain_cuda_calls or k2.plain_cuda_calls:
+                             f"{expect}, attn_qk {qk}")
+    if k1.plain_cuda_calls or k2.plain_cuda_calls or k3.plain_cuda_calls:
         raise AssertionError("the train path ran a plain version on CUDA")
     # The same number of steps again, traced: device activity only, so the
     # host runs as it does unprofiled; the idle share is that of the
@@ -715,7 +774,14 @@ def train_phase(dev, arch, card: str):
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
     profiled = device_summary(prof, prof_wall_ms, top_n=6)
     profiled["step_wall_s"] = prof_walls
-    log(f"[train] {TRAIN_STEPS} profiled steps " + json.dumps(profiled))
+    log(f"{tag} {TRAIN_STEPS} profiled steps " + json.dumps(profiled))
+    summary = {"losses": losses, "warmup_wall_s": warm[0],
+               "step_wall_s": walls, "tokens_per_s": tok_s,
+               "peak_memory_bytes": peak, "profile": profiled}
+    if not all(math.isfinite(x) for x in prof_losses):
+        raise AssertionError(f"non-finite training loss {prof_losses}")
+    if not long_seq:
+        return run["state"]["params"], (k1, k2, k3), summary
     # At the published context: one chunk pair of flash attention is
     # skipped (causal) and one rescaled across chunks.
     torch.cuda.reset_peak_memory_stats(dev)
@@ -726,16 +792,12 @@ def train_phase(dev, arch, card: str):
         f"losses {long_losses}, step wall s "
         f"{[round(w, 3) for w in long_walls]}, peak memory "
         f"{long_peak / 2 ** 30:.2f} GiB")
-    if not all(math.isfinite(x) for x in prof_losses + long_losses):
-        raise AssertionError(f"non-finite training loss "
-                             f"{prof_losses + long_losses}")
-    summary = {"losses": losses, "warmup_wall_s": warm[0],
-               "step_wall_s": walls, "tokens_per_s": tok_s,
-               "peak_memory_bytes": peak, "profile": profiled,
-               "long_seq": {"tokens": LONG_BATCH * LONG_SEQ,
-                            "losses": long_losses, "step_wall_s": long_walls,
-                            "peak_memory_bytes": long_peak}}
-    return run["state"]["params"], (k1, k2), summary
+    if not all(math.isfinite(x) for x in long_losses):
+        raise AssertionError(f"non-finite training loss {long_losses}")
+    summary["long_seq"] = {"tokens": LONG_BATCH * LONG_SEQ,
+                           "losses": long_losses, "step_wall_s": long_walls,
+                           "peak_memory_bytes": long_peak}
+    return run["state"]["params"], (k1, k2, k3), summary
 
 
 def grads_equal(name, run_a, run_b):
@@ -772,7 +834,7 @@ def train_parity_phase(dev, arch, params):
                   for backend in ("@cuda", "@torch")))
     reset_counts()
     cached_bwd = run(TRAIN_SPEC, bwd_p=P_BWD)
-    _, k2 = snapshot_counts()
+    _, k2, _ = snapshot_counts()
     grads_equal(f"(c) bwd_p={P_BWD}: cached == uncached", cached_bwd,
                 run("ozaki1-p4", bwd_p=P_BWD))
     if k2.launches_rhs != train_launches(arch.model)["rhs"]:
@@ -781,6 +843,241 @@ def train_parity_phase(dev, arch, params):
     log(f"[train-parity] the bwd_p={P_BWD} step launched the rhs kernel "
         f"{k2.launches_rhs} times")
     return k2.launches_rhs
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: EmuGEMM-II against its plain versions, and its library routes.
+# ---------------------------------------------------------------------------
+
+def chunk_pairs(mcfg, seq):
+    """The (q chunk, kv chunk) pairs causal flash attention runs at
+    ``seq`` tokens (q_chunk == kv_chunk), the later ones skipped."""
+    nc = -(-seq // min(mcfg.q_chunk, seq))
+    return nc * (nc + 1) // 2
+
+
+def qk_shapes(mcfg, view_tokens):
+    """attn_qk's strided-batched GEMMs under olmo-1b-emu with their
+    launches per step: (label, batch, m, k, n, a transposed, b
+    transposed, count). A train step runs each chunk pair's forward
+    twice (remat) and the backward's dA = g b^T and dB = a^T g on
+    transposed views; at 2 x 2048 tokens flash attention runs 3 of the
+    2 x 2 chunk pairs."""
+    L, hd = mcfg.n_layers, mcfg.resolved_head_dim
+    g = mcfg.n_heads // mcfg.n_kv_heads
+    kvh = mcfg.n_kv_heads
+    out = [("serve mixed", LANES * kvh, CHUNK * g, hd, view_tokens, False,
+            False, L),
+           ("serve decode", LANES * kvh, g, hd, view_tokens, False, False, L)]
+    for name, batch, seq in (("train", TRAIN_BATCH, TRAIN_SEQ),
+                             ("long", LONG_BATCH, LONG_SEQ)):
+        c, pairs = min(mcfg.q_chunk, seq), chunk_pairs(mcfg, seq)
+        bt = batch * kvh
+        out += [(f"{name} fwd", bt, c * g, hd, c, False, False,
+                 2 * pairs * L),
+                (f"{name} dA", bt, c * g, c, hd, False, True, pairs * L),
+                (f"{name} dB", bt, hd, c * g, c, True, False, pairs * L)]
+    return out
+
+
+def operand(gen, lead, rows, cols, transposed, dtype, dev):
+    """A (..., rows, cols) operand, or the transposed view of a
+    (..., cols, rows) tensor."""
+    if transposed:
+        return conditioned(gen, lead + (cols, rows), dtype, dev).transpose(
+            -1, -2)
+    return conditioned(gen, lead + (rows, cols), dtype, dev)
+
+
+def scheme2_bound(batch, m, k, n, p, in_bytes, out_bytes):
+    """Least time: the float operands and scales read once, the output
+    written once, against p int8 GEMMs at the int8 peak."""
+    moved = batch * (in_bytes * (m * k + k * n + m + n) + out_bytes * m * n)
+    ops_ = batch * p * 2 * m * n * k
+    t_b, t_o = moved / HBM_BYTES_PER_S, ops_ / INT8_OPS_PER_S
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def residue_bound(m, k, n, p):
+    moved = p * (m * k + k * n + m * n)
+    ops_ = p * 2 * m * n * k
+    t_b, t_o = moved / HBM_BYTES_PER_S, ops_ / INT8_OPS_PER_S
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def int_mm_yardstick(gen, dev, batch, m, k, n, p):
+    """p torch._int_mm per batch element at the same shape (which needs
+    more than 16 rows, so M is raised to 32 where smaller). A speed
+    reference only, used nowhere in the port."""
+    ai = torch.randint(-127, 128, (max(m, 32), k), generator=gen, device=dev,
+                       dtype=torch.int8)
+    bi = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                       dtype=torch.int8)
+
+    def run():
+        for _ in range(p * batch):
+            torch._int_mm(ai, bi)
+    return run
+
+
+def check_equal(what, out, ref, max_err, key):
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    max_err[key] = max(max_err[key], err)
+    if not torch.equal(out, ref):
+        raise AssertionError(f"{what}: kernel != plain version, max |diff| "
+                             f"{err}")
+
+
+def scheme2_kernel_phase(dev, mcfg, view_tokens):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    max_err = {"2d": 0.0, "batched": 0.0, "residues": 0.0}
+    checks = 0
+    shapes = qk_shapes(mcfg, view_tokens)
+    for dtype in (torch.float32, torch.bfloat16):
+        for p in M_CHECK:
+            moduli = default_moduli(p)
+            cases = [(lbl, (bt,), m, k, n, ta, tb)
+                     for lbl, bt, m, k, n, ta, tb, _ in shapes]
+            cases += [("ragged", (), 100, 200, 77, False, False),
+                      ("ragged, B transposed", (), 100, 200, 77, False, True)]
+            for lbl, lead, m, k, n, ta, tb in cases:
+                a = operand(gen, lead, m, k, ta, dtype, dev)
+                b = operand(gen, lead, k, n, tb, dtype, dev)
+                mu, nu = scheme2.scales(a, b, moduli)
+                out = ozaki2.fused_matmul_scheme2(a, b, mu, nu, moduli, dtype)
+                ref = ozaki2.fused_matmul_scheme2_plain(a, b, mu, nu, moduli,
+                                                        dtype)
+                check_equal(f"emugemm2 {lbl} {lead + (m, k, n)} {dtype} "
+                            f"m={p}", out, ref, max_err,
+                            "batched" if lead else "2d")
+                checks += 1
+                del a, b, out, ref
+            for m, k, n in ((100, 200, 77), (1024, 2048, 2048)):
+                a_res = torch.randint(-128, 128, (p, m, k), generator=gen,
+                                      device=dev, dtype=torch.int8)
+                b_res = torch.randint(-128, 128, (p, k, n), generator=gen,
+                                      device=dev, dtype=torch.int8)
+                check_equal(f"emugemm2 residues {(p, m, k, n)}",
+                            ozaki2.fused_residue_matmul(a_res, b_res, moduli),
+                            ozaki2.fused_residue_matmul_plain(a_res, b_res,
+                                                              moduli),
+                            max_err, "residues")
+                checks += 1
+    log(f"[scheme2-kernel] {checks} shape/type/moduli cases bit-identical to "
+        "the plain versions")
+
+    # Timing at olmo-1b-emu's configuration (bf16, m = 6), per shape and
+    # summed per step.
+    bf = torch.bfloat16
+    moduli = default_moduli(M_MAIN)
+    steps = {"serve mixed": "mixed", "serve decode": "decode",
+             "train fwd": "train", "train dA": "train", "train dB": "train",
+             "long fwd": "long", "long dA": "long", "long dB": "long"}
+    totals = {s: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                  "bytes_ms": 0.0, "ops_ms": 0.0, "yardstick_ms": 0.0}
+              for s in ("mixed", "decode", "train", "long")}
+    for lbl, bt, m, k, n, ta, tb, count in shapes:
+        a = operand(gen, (bt,), m, k, ta, bf, dev)
+        b = operand(gen, (bt,), k, n, tb, bf, dev)
+        mu, nu = scheme2.scales(a, b, moduli)
+        ms = time_ms(lambda: ozaki2.fused_matmul_scheme2(a, b, mu, nu,
+                                                         moduli, bf), 20)
+        plain = time_ms(lambda: ozaki2.fused_matmul_scheme2_plain(
+            a, b, mu, nu, moduli, bf), 3)
+        yard = time_ms(int_mm_yardstick(gen, dev, bt, m, k, n, M_MAIN), 3)
+        bms, by = scheme2_bound(bt, m, k, n, M_MAIN, 2, 2)
+        _add(totals[steps[lbl]], count, ms, plain, yard, bms, by)
+        log(f"[scheme2-kernel] batched {lbl} B={bt} M={m} K={k} N={n}"
+            f"{' (A transposed)' if ta else ''}"
+            f"{' (B transposed)' if tb else ''} x{count}/step: kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by}), "
+            f"yardstick torch._int_mm x{M_MAIN * bt} {yard:.4f} ms")
+        del a, b
+    for s, t in totals.items():
+        log(f"[scheme2-kernel] batched per {s} step: kernel {t['ms']:.3f} ms, "
+            f"plain {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms, "
+            f"yardstick {t['yardstick_ms']:.3f} ms")
+    return max_err, totals
+
+
+def dense_shapes(mcfg):
+    """olmo-1b's dense GEMMs at 1024 tokens: (m, k, n)."""
+    d, f = mcfg.d_model, mcfg.d_ff
+    return [(TOKENS, d, d), (TOKENS, d, f), (TOKENS, f, d)]
+
+
+def scheme2_library_phase(dev, mcfg):
+    """The library routes of the 2-D and residue forms under ozaki2-m6 on
+    olmo-1b's dense shapes (bf16): ``dispatch.emulated_matmul`` (the 2-D
+    form) and ``ops.fused_scheme2_matmul`` (the residue form) agree bit
+    for bit; their launches are counted around that run. Then each form
+    is timed beside its bound."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    bf = torch.bfloat16
+    spec = f"ozaki2-m{M_MAIN}"
+    moduli = default_moduli(M_MAIN)
+    shapes = dense_shapes(mcfg)
+    xs = [(conditioned(gen, (m, k), bf, dev), conditioned(gen, (k, n), bf, dev))
+          for m, k, n in shapes]
+    torch.cuda.synchronize()
+    reset_counts()
+    for a, b in xs:
+        fused = dispatch.emulated_matmul(a, b, cfg=spec)
+        routed = ops.fused_scheme2_matmul(a, b, spec, out_dtype=bf)
+        if not torch.equal(fused, routed):
+            raise AssertionError(f"{spec}: the 2-D and residue routes differ "
+                                 f"at {tuple(a.shape)} @ {tuple(b.shape)}")
+    torch.cuda.synchronize()
+    _, _, counts = snapshot_counts()
+    log(f"[scheme2-library] {spec} on {len(shapes)} dense shapes: the 2-D "
+        f"and residue routes agree bit for bit; launches 2-D "
+        f"{counts.launches_2d}, residues {counts.launches_residues}, plain "
+        f"versions on CUDA {counts.plain_cuda_calls}")
+    if (counts.launches_2d, counts.launches_residues) != (len(shapes),) * 2:
+        raise AssertionError("the library routes did not launch each form "
+                             "once per shape")
+    if counts.plain_cuda_calls:
+        raise AssertionError("the library routes ran a plain version on CUDA")
+    totals = {f: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                  "bytes_ms": 0.0, "ops_ms": 0.0, "yardstick_ms": 0.0}
+              for f in ("2d", "residues")}
+    for (m, k, n), (a, b) in zip(shapes, xs):
+        mu, nu = scheme2.scales(a, b, moduli)
+        a_res = scheme2.balanced_residues(torch.trunc(a * mu), moduli)
+        b_res = scheme2.balanced_residues(torch.trunc(b * nu), moduli)
+        yard = time_ms(int_mm_yardstick(gen, dev, 1, m, k, n, M_MAIN), 5)
+        for form, run_k, run_p, (bms, by) in (
+                ("2d",
+                 lambda: ozaki2.fused_matmul_scheme2(a, b, mu, nu, moduli, bf),
+                 lambda: ozaki2.fused_matmul_scheme2_plain(a, b, mu, nu,
+                                                           moduli, bf),
+                 scheme2_bound(1, m, k, n, M_MAIN, 2, 2)),
+                ("residues",
+                 lambda: ozaki2.fused_residue_matmul(a_res, b_res, moduli),
+                 lambda: ozaki2.fused_residue_matmul_plain(a_res, b_res,
+                                                           moduli),
+                 residue_bound(m, k, n, M_MAIN))):
+            ms = time_ms(run_k, 10)
+            plain = time_ms(run_p, 3)
+            _add(totals[form], 1, ms, plain, yard, bms, by)
+            log(f"[scheme2-library] {form} M={m} K={k} N={n}: kernel "
+                f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms "
+                f"({by}), yardstick torch._int_mm x{M_MAIN} {yard:.4f} ms")
+    return counts, totals
+
+
+def emu_train_parity_phase(dev, arch, params):
+    """One full-width step of olmo-1b-emu under its gemm_sites: loss and
+    gradients bit-identical on the 'cuda' and 'torch' backends."""
+    def run(backend):
+        _, batch = next(train_batches(arch))
+        loss_fn = S.make_loss_fn(arch, on_backend(arch.gemm_policy(),
+                                                  backend))
+        return S.value_and_grad(loss_fn, params, S.batch_to(batch, dev))
+
+    grads_equal(f"(e) {arch.model.name}, cuda == torch backend",
+                run("cuda"), run("torch"))
 
 
 def trainer_phase():
@@ -817,7 +1114,7 @@ def trainer_phase():
 def build_phase():
     """nvcc for each kernel source, all started together."""
     t0 = time.perf_counter()
-    names = ("emugemm1", "decompose")
+    names = ("emugemm1", "decompose", "emugemm2")
     with ThreadPoolExecutor(len(names)) as ex:
         for f in [ex.submit(build.build, n) for n in names]:
             f.result()
@@ -834,21 +1131,26 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader", "-i", "0"],
                          capture_output=True, text=True, check=True)
-    log(smi.stdout.strip())
+    card = smi.stdout.strip()
+    log(card)
     build_phase()
 
     arch = configs.get_config("olmo-1b")
     view_tokens = PAGE * math.ceil((PROMPT + GEN - 1 + CHUNK) / PAGE)
+    spec_policy = GemmPolicy(default=api.precision(SPEC))
     max_err, totals = kernel_phase(dev, arch.model, view_tokens)
-    eng, counts, serve = serve_phase(
-        dev, arch, GemmPolicy(default=api.precision(SPEC)))
-    serve.update(parity_phase(dev, arch, eng.params, view_tokens))
+    eng, (counts, _), serve = serve_phase(dev, arch, spec_policy)
+    serve.update(parity_phase(dev, arch, eng.params, view_tokens,
+                              spec_policy, SPEC))
     log("[serve] summary " + json.dumps(serve))
-    profile_phase(dev, arch, eng.params, view_tokens)
+    profile_phase(dev, arch, eng.params, view_tokens,
+                  ((SPEC, spec_policy),
+                   ("native", GemmPolicy(default=api.precision("native")))))
     del eng
 
     t_err, t_totals = train_kernel_phase(dev, arch.model)
-    params, (k1, k2), train = train_phase(dev, arch, smi.stdout.strip())
+    params, (k1, k2, _), train = train_phase(
+        dev, arch, card, GemmPolicy(default=api.precision(TRAIN_SPEC)))
     log("[train] summary " + json.dumps(
         {k: v for k, v in train.items() if k != "profile"}))
     torch.use_deterministic_algorithms(True, warn_only=True)
@@ -856,6 +1158,28 @@ def main() -> int:
     del params
     trainer_phase()
     torch.use_deterministic_algorithms(False)
+
+    # olmo-1b-emu: Scheme II on attn_qk, under the config's gemm_sites.
+    emu = configs.get_config(EMU)
+    s2_err, s2_totals = scheme2_kernel_phase(dev, emu.model, view_tokens)
+    lib_counts, lib_totals = scheme2_library_phase(dev, emu.model)
+    eng, (e1, e2), emu_serve = serve_phase(dev, emu, None)
+    emu_serve.update(parity_phase(dev, emu, eng.params, view_tokens,
+                                  eng.policy, EMU))
+    log(f"[serve {EMU}] summary " + json.dumps(emu_serve))
+    profile_phase(dev, emu, eng.params, view_tokens, ((EMU, eng.policy),))
+    del eng
+    params, (ek1, ek2, ek3), emu_train = train_phase(dev, emu, card,
+                                                      long_seq=False)
+    log(f"[train {EMU}] summary " + json.dumps(
+        {k: v for k, v in emu_train.items() if k != "profile"}))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    emu_train_parity_phase(dev, emu, params)
+    del params
+    torch.use_deterministic_algorithms(False)
+
+    def bound_by(t):
+        return "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations"
 
     common = {"route": "cuda", "library_ms": None}
     kernels = []
@@ -870,9 +1194,7 @@ def main() -> int:
             "name": name, **common, "source": SOURCE, "replaces": replaces,
             "launches": launches, "max_abs_err": max_err[kind],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"],
-            "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"]
-            else "operations",
+            "bound_ms": t["bound_ms"], "bound_by": bound_by(t),
             "int_mm_yardstick_ms": t["yardstick_ms"],
             "per": "one mixed serve step of olmo-1b (4 lanes x chunk 16)",
             "launches_in_train_run": train_n})
@@ -893,12 +1215,37 @@ def main() -> int:
         row = {"name": name, **common, "source": source, "replaces": replaces,
                "launches": launches, "max_abs_err": t_err[key],
                "ms": t["ms"], "plain_ms": t["plain_ms"],
-               "bound_ms": t["bound_ms"],
-               "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"]
-               else "operations", "per": per}
+               "bound_ms": t["bound_ms"], "bound_by": bound_by(t), "per": per}
         if key == "mixed":
             row["int_mm_yardstick_ms"] = t["yardstick_ms"]
         kernels.append(row)
+    lib_per = (f"one launch at each of olmo-1b's dense shapes at {TOKENS} "
+               f"tokens under ozaki2-m{M_MAIN}, bf16 (launches: the library "
+               "route's run)")
+    for form, name, replaces, launches in (
+            ("2d", "emugemm2_2d", "src/repro/kernels/backends/gpu.py:359",
+             lib_counts.launches_2d),
+            ("residues", "emugemm2_residues", "src/repro/kernels/ozaki2.py:52",
+             lib_counts.launches_residues)):
+        t = lib_totals[form]
+        kernels.append({
+            "name": name, **common, "source": SOURCE2, "replaces": replaces,
+            "launches": launches, "max_abs_err": s2_err[form],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": bound_by(t),
+            "int_mm_yardstick_ms": t["yardstick_ms"], "per": lib_per})
+    t = s2_totals["mixed"]
+    kernels.append({
+        "name": "emugemm2_batched", **common, "source": SOURCE2,
+        "replaces": "src/repro/kernels/backends/gpu.py:409",
+        "launches": e2.launches_batched, "max_abs_err": s2_err["batched"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": bound_by(t), "int_mm_yardstick_ms": t["yardstick_ms"],
+        "per": f"one mixed serve step of {EMU} (attn_qk, ozaki2-m{M_MAIN})",
+        "launches_in_train_run": ek3.launches_batched,
+        "per_train_step": {k: s2_totals["train"][k]
+                           for k in ("ms", "plain_ms", "bound_ms",
+                                     "yardstick_ms")}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Architecture registry of the port: ``--arch <id>`` -> ArchConfig.
 
-Only olmo-1b is ported; every other id of the reference's registry
-raises NotImplementedError naming its ROADMAP.md item.
+olmo-1b and olmo-1b-emu (olmo-1b with its GEMM sites under Scheme I and
+Scheme II) are ported; every other id of the reference's registry raises
+NotImplementedError naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -11,9 +12,10 @@ import importlib
 from repro_torch.configs.base import (ALL_SHAPES, ArchConfig,  # noqa: F401
                                       ModelConfig, ShapeSpec, TrainPolicy)
 
-ARCH_IDS = ("olmo-1b",)
+ARCH_IDS = ("olmo-1b", "olmo-1b-emu")
 
-_MODULES = {"olmo-1b": "repro_torch.configs.olmo_1b"}
+_MODULES = {"olmo-1b": "repro_torch.configs.olmo_1b",
+            "olmo-1b-emu": "repro_torch.configs.olmo_1b_emu"}
 
 # The reference's other ids, each waiting on the ROADMAP.md § 1 item that
 # ports what it needs.
@@ -21,7 +23,7 @@ _NOT_PORTED = {
     "hubert-xlarge": 4, "granite-3-8b": 4, "deepseek-coder-33b": 4,
     "qwen1.5-32b": 4, "internvl2-1b": 4, "qwen2-moe-a2.7b": 4,
     "deepseek-v3-671b": 4, "recurrentgemma-2b": 4, "mamba2-780m": 4,
-    "olmo-1b-emu": 3, "qwen2-moe-a2.7b-emu": 4,
+    "qwen2-moe-a2.7b-emu": 4,
 }
 
 

@@ -1,8 +1,9 @@
 """Emulated GEMM front end of the port (``repro.core.emulated``).
 
 ``emulated_dot(a, b, cfg)`` computes a @ b under the emulation selected by
-``cfg``: 'native' is a plain matmul, 'ozaki1' the Scheme-I emulation on the
-selected kernel backend. Leading batch dims of ``a`` flatten into M.
+``cfg``: 'native' is a plain matmul, 'ozaki1' the Scheme-I and 'ozaki2' the
+Scheme-II emulation on the selected kernel backend. Leading batch dims of
+``a`` flatten into M.
 
 Both front doors are differentiable through ``torch.autograd.Function``s
 that mirror the reference's custom VJPs: dA = dC B^T and dB = A^T dC run
@@ -56,9 +57,6 @@ def _dot_2d(a: torch.Tensor, b: torch.Tensor,
     if cfg.scheme == "native":
         out_dtype = _out_dtype(cfg, a, b)
         return torch.matmul(a.to(out_dtype), b.to(out_dtype))
-    if cfg.scheme != "ozaki1":
-        raise NotImplementedError(
-            f"{cfg.scheme} is not ported yet (ROADMAP.md § 1 item 3)")
     from repro_torch.kernels import dispatch
     if cfg.impl in ("auto", "pallas"):
         return dispatch.auto_fused_matmul(a, b, cfg)
@@ -141,7 +139,7 @@ def emulated_dot(a: torch.Tensor, b: torch.Tensor,
 
 def _batched(a, b, cfg):
     from repro_torch.kernels import dispatch
-    if cfg.scheme == "ozaki1" and cfg.impl == "xla":
+    if cfg.scheme != "native" and cfg.impl == "xla":
         return dispatch.emulated_matmul_batched(a, b, cfg=cfg,
                                                 backend="torch")
     return dispatch.emulated_matmul_batched(a, b, cfg=cfg)

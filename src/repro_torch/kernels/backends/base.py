@@ -18,7 +18,9 @@ from repro_torch.kernels.common import Blocks
 
 @dataclasses.dataclass(frozen=True)
 class BackendCapabilities:
-    """What a backend runs: its Ozaki schemes and real operand types.
+    """What a backend runs: its Ozaki schemes and real operand types
+    (Scheme II narrows them to float32 and bfloat16 on both backends,
+    ``repro_torch.core.scheme2.operand``).
     Both built-in backends take every shape as it is (the CUDA kernel
     masks ragged edges itself), so, unlike the reference, there is no
     alignment to pad to."""
@@ -35,8 +37,10 @@ class KernelBackend(abc.ABC):
         ...
 
     @abc.abstractmethod
-    def choose_blocks(self, m: int, n: int, k: int, p: int) -> Blocks | None:
-        ...
+    def choose_blocks(self, m: int, n: int, k: int, p: int,
+                      scheme: str = "ozaki1") -> Blocks | None:
+        """Tiles for an (m, k) @ (k, n) problem with ``p`` slices (Scheme
+        I) or moduli (Scheme II), or None."""
 
     @abc.abstractmethod
     def matmul(self, a: torch.Tensor, b: torch.Tensor, cfg, out_dtype,
@@ -64,8 +68,8 @@ class KernelBackend(abc.ABC):
         caps = self.capabilities
         if cfg.scheme not in caps.schemes:
             raise NotImplementedError(
-                f"backend {self.name!r} has no {cfg.scheme} kernel in this "
-                "port yet (ROADMAP.md § 1 item 3: Scheme II)")
+                f"backend {self.name!r} has no {cfg.scheme} kernel; it runs "
+                f"{sorted(caps.schemes)}")
         for x in (a, b):
             if x.dtype not in caps.operand_dtypes:
                 raise NotImplementedError(

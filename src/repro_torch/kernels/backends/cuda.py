@@ -1,36 +1,50 @@
-"""The 'cuda' backend: Scheme I on the hand-written EmuGEMM-I kernel.
+"""The 'cuda' backend: Scheme I on the hand-written EmuGEMM-I kernel,
+Scheme II on EmuGEMM-II.
 
-The torch counterpart of the Scheme-I part of
-``repro.kernels.backends.gpu``: ``choose_blocks_gpu`` (here
-:func:`choose_blocks_cuda`), ``_matmul_scheme1`` and
-``_matmul_scheme1_batched``. As in the reference, the power-of-two
-scales and beta are computed outside the kernel (beta from the logical
-K), and the kernel receives them. The kernel zero-fills ragged edges
-itself, so nothing is padded and every shape reaches it.
+The torch counterpart of ``repro.kernels.backends.gpu``:
+``choose_blocks_gpu`` (here :func:`choose_blocks_cuda`),
+``_matmul_scheme1[_batched]``, ``_matmul_scheme2[_batched]``,
+``supported_moduli`` and ``_check_moduli``. As in the reference, the
+power-of-two scales, beta and the Scheme-II budget are computed outside
+the kernels, and the kernels receive them. Scheme II integerizes each
+operand in its own type with the budget of the lhs type, as the
+reference does, so mixed operand types are not promoted. Unlike the
+reference, moduli the kernel does not take raise instead of falling
+back to the plain version, and the budget and beta come from the
+logical K (the reference takes them from K padded to 16, which differs
+only for K <= 8). The kernels zero-fill ragged edges themselves, so
+nothing is padded and every shape reaches them.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import decompose, ozaki1
+from repro_torch.core import scheme2
+from repro_torch.kernels import decompose, ozaki1, ozaki2
 from repro_torch.kernels.backends.base import BackendCapabilities, KernelBackend
 from repro_torch.kernels.common import Blocks
 
 _CAPS = BackendCapabilities(
-    schemes=frozenset({"ozaki1"}),
+    schemes=frozenset({"ozaki1", "ozaki2"}),
     operand_dtypes=frozenset({torch.float32, torch.bfloat16}),
 )
 
-# The one tile the kernel is compiled for (csrc/emugemm1.cu). Its K tile
-# is the interleave granularity of a prepared weight.
+# The one tile each kernel is compiled for: csrc/emugemm1.cu, whose K tile
+# is the interleave granularity of a prepared weight, and csrc/emugemm2.cu,
+# whose K step is the strip it integerizes once for all moduli.
 KERNEL_BLOCKS = Blocks(bm=64, bn=64, bk=decompose.TILE)
+SCHEME2_BLOCKS = Blocks(bm=64, bn=64, bk=64)
 
 
-def choose_blocks_cuda(m: int, n: int, k: int, p: int) -> Blocks | None:
-    """The kernel's tile for an (m, k) @ (k, n) problem at slice count p,
-    or None when the kernel has no instance for p."""
+def choose_blocks_cuda(m: int, n: int, k: int, p: int,
+                       scheme: str = "ozaki1") -> Blocks | None:
+    """The kernel's tile for an (m, k) @ (k, n) problem at slice count
+    (Scheme I) or modulus count (Scheme II) p, or None when the kernel
+    has no instance for p."""
     del m, n, k
+    if scheme == "ozaki2":
+        return SCHEME2_BLOCKS if 1 <= p <= ozaki2.MAX_MODULI else None
     return KERNEL_BLOCKS if 1 <= p <= ozaki1.MAX_P else None
 
 
@@ -41,6 +55,15 @@ def scales(a: torch.Tensor, b: torch.Tensor):
     return scheme1.pow2_scale(a, -1), scheme1.pow2_scale(b, -2)
 
 
+def scheme2_operands(a: torch.Tensor, b: torch.Tensor, moduli):
+    """(a, b, mu, nu) as the Scheme-II kernel takes them: K checked
+    against the int32 bound, each operand in its own float type, the
+    scales at the budget of the lhs type."""
+    scheme2.check_exact_k(a.shape[-1], moduli)
+    a, b = scheme2.operand(a), scheme2.operand(b)
+    return (a, b, *scheme2.scales(a, b, moduli))
+
+
 class CudaBackend(KernelBackend):
     name = "cuda"
 
@@ -48,11 +71,17 @@ class CudaBackend(KernelBackend):
     def capabilities(self) -> BackendCapabilities:
         return _CAPS
 
-    def choose_blocks(self, m, n, k, p):
-        return choose_blocks_cuda(m, n, k, p)
+    def choose_blocks(self, m, n, k, p, scheme="ozaki1"):
+        return choose_blocks_cuda(m, n, k, p, scheme)
 
     def matmul(self, a, b, cfg, out_dtype, blocks):
         self.check(cfg, a, b)
+        if cfg.scheme == "ozaki2":
+            moduli = cfg.resolved_moduli()
+            ozaki2.check_moduli(moduli)
+            a, b, mu, nu = scheme2_operands(a, b, moduli)
+            return ozaki2.fused_matmul_scheme2(a, b, mu, nu, moduli,
+                                               out_dtype)
         if a.dtype != b.dtype:
             common = torch.promote_types(a.dtype, b.dtype)
             a, b = a.to(common), b.to(common)

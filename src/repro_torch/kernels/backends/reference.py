@@ -3,7 +3,10 @@
 
 It runs Scheme I as separate torch ops (``ozaki1.fused_matmul_plain``,
 which is ``repro_torch.core.scheme1``, and the prepared-weight kernels'
-plain versions) on whatever device the operands are on. A CUDA tensor
+plain versions) and Scheme II likewise
+(``ozaki2.fused_matmul_scheme2_plain``, which is
+``repro_torch.core.scheme2.matmul``'s pipeline, for any moduli set) on
+whatever device the operands are on. A CUDA tensor
 reaches it only when it is asked for by name, as the bit-parity checks
 do.
 """
@@ -12,12 +15,12 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import decompose, ozaki1
+from repro_torch.kernels import decompose, ozaki1, ozaki2
 from repro_torch.kernels.backends.base import BackendCapabilities, KernelBackend
-from repro_torch.kernels.backends.cuda import scales
+from repro_torch.kernels.backends.cuda import scales, scheme2_operands
 
 _CAPS = BackendCapabilities(
-    schemes=frozenset({"ozaki1"}),
+    schemes=frozenset({"ozaki1", "ozaki2"}),
     operand_dtypes=frozenset({torch.float32, torch.bfloat16, torch.float16,
                               torch.float64}),
 )
@@ -30,11 +33,16 @@ class TorchBackend(KernelBackend):
     def capabilities(self) -> BackendCapabilities:
         return _CAPS
 
-    def choose_blocks(self, m, n, k, p):
+    def choose_blocks(self, m, n, k, p, scheme="ozaki1"):
         return None          # no tiles: whole-array torch ops
 
     def matmul(self, a, b, cfg, out_dtype, blocks):
         self.check(cfg, a, b)
+        if cfg.scheme == "ozaki2":
+            moduli = cfg.resolved_moduli()
+            a, b, mu, nu = scheme2_operands(a, b, moduli)
+            return ozaki2.fused_matmul_scheme2_plain(a, b, mu, nu, moduli,
+                                                     out_dtype)
         beta = cfg.resolved_beta(a.shape[-1])
         mu, nu = scales(a, b)
         return ozaki1.fused_matmul_plain(a, b, mu, nu, cfg.p, beta, out_dtype)

@@ -3,7 +3,7 @@
 The torch counterpart of ``repro.kernels.dispatch``:
 
 * :func:`select_blocks` — the backend's ``choose_blocks`` memoized per
-  (shape, p, out type, batch) key in a per-backend cache
+  (shape, p, out type, batch, scheme) key in a per-backend cache
   (``block_cache_info`` / ``block_cache_clear``);
 * :func:`plan_emulated` / :func:`plan_emulated_batched` — one (backend,
   out type, blocks) resolution per GEMM;
@@ -54,15 +54,18 @@ BlockCacheInfo = collections.namedtuple(
 
 
 def select_blocks(m: int, n: int, k: int, p: int, out_bytes: int,
-                  backend: str, batch: int = 1) -> Blocks | None:
-    """Cached block selection through the backend registry."""
+                  backend: str, batch: int = 1,
+                  scheme: str = "ozaki1") -> Blocks | None:
+    """Cached block selection through the backend registry; ``p`` is the
+    slice count (Scheme I) or the modulus count (Scheme II), and
+    ``scheme`` keys the cache as in the reference."""
     cache = _BLOCK_CACHES.setdefault(backend, _BlockCache())
-    key = (m, n, k, p, out_bytes, batch)
+    key = (m, n, k, p, out_bytes, batch, scheme)
     if key in cache.data:
         cache.hits += 1
         return cache.data[key]
     cache.misses += 1
-    blocks = backends.get_backend(backend).choose_blocks(m, n, k, p)
+    blocks = backends.get_backend(backend).choose_blocks(m, n, k, p, scheme)
     cache.put(key, blocks)
     return blocks
 
@@ -88,14 +91,23 @@ def block_cache_clear(backend: str | None = None) -> None:
 # Plans.
 # ---------------------------------------------------------------------------
 
-def _refuse_outside_slice(cfg: EmulationConfig, a, b) -> None:
+def _refuse_cfg(cfg: EmulationConfig) -> None:
+    """Raise for the parts of a config the port does not run yet."""
     if cfg.guard is not None:
         raise NotImplementedError(
             "'+guard' is not ported yet (ROADMAP.md § 1 item 5)")
+    if cfg.scheme == "ozaki2" and cfg.cache_weights:
+        raise NotImplementedError(
+            "'ozaki2...+cached' needs Scheme-II prepared residues "
+            "(PreparedResidues), not ported yet (ROADMAP.md § 1 item 3)")
+
+
+def _refuse_outside_slice(cfg: EmulationConfig, a, b) -> None:
+    _refuse_cfg(cfg)
     if a.is_complex() or b.is_complex():
         raise NotImplementedError(
-            "complex emulated GEMMs are not ported yet (ROADMAP.md § 1 "
-            "item 3)")
+            "complex emulated GEMMs (Scheme I 4M, Scheme II 3M) are not "
+            "ported yet (ROADMAP.md § 1 item 3)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,6 +120,13 @@ class GemmPlan:
     blocks: Blocks | None
     backend: str
     batch: int = 1
+
+
+def _p_eff(cfg: EmulationConfig) -> int:
+    """The residue count the tiles budget for: slices (Scheme I) or
+    moduli (Scheme II; an explicit tuple may disagree with cfg.p)."""
+    return (len(cfg.resolved_moduli()) if cfg.scheme == "ozaki2"
+            else cfg.p)
 
 
 def _out_dtype(cfg: EmulationConfig, a, b, out_dtype) -> torch.dtype:
@@ -124,7 +143,8 @@ def plan_emulated(a: torch.Tensor, b: torch.Tensor, cfg: EmulationConfig,
     n = b.shape[1]
     out_dtype = _out_dtype(cfg, a, b, out_dtype)
     name = backends.resolve_backend_name(backend, cfg, a.device)
-    blocks = select_blocks(m, n, k, cfg.p, out_dtype.itemsize, name)
+    blocks = select_blocks(m, n, k, _p_eff(cfg), out_dtype.itemsize, name,
+                           scheme=cfg.scheme)
     return GemmPlan(cfg, m, n, k, out_dtype, blocks, name)
 
 
@@ -137,7 +157,8 @@ def plan_emulated_batched(a: torch.Tensor, b: torch.Tensor,
     n = b.shape[-1]
     out_dtype = _out_dtype(cfg, a, b, out_dtype)
     name = backends.resolve_backend_name(backend, cfg, a.device)
-    blocks = select_blocks(m, n, k, cfg.p, out_dtype.itemsize, name, batch)
+    blocks = select_blocks(m, n, k, _p_eff(cfg), out_dtype.itemsize, name,
+                           batch, cfg.scheme)
     return GemmPlan(cfg, m, n, k, out_dtype, blocks, name, batch)
 
 
@@ -228,12 +249,6 @@ def resolve_policy(policy):
         if default.scheme != "native":
             policy = dataclasses.replace(policy, default=default)
     for cfg in [policy.default] + [c for _, c in policy.overrides]:
-        if cfg is None or cfg.scheme == "native":
-            continue
-        if cfg.scheme != "ozaki1":
-            raise NotImplementedError(
-                f"{cfg.scheme} is not ported yet (ROADMAP.md § 1 item 3)")
-        if cfg.guard is not None:
-            raise NotImplementedError(
-                "'+guard' is not ported yet (ROADMAP.md § 1 item 5)")
+        if cfg is not None and cfg.scheme != "native":
+            _refuse_cfg(cfg)
     return policy

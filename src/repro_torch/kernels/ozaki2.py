@@ -1,0 +1,224 @@
+"""The fused EmuGEMM-II kernel (``csrc/emugemm2.cu``): wrappers, plain
+versions and launch counts.
+
+* :func:`fused_matmul_scheme2` takes (M, K) @ (K, N) or, strided over a
+  batch, (B, M, K) @ (B, K, N) float32 / bfloat16 operands with their
+  power-of-two integerization scales mu (..., M, 1) in a's type and nu
+  (..., 1, N) in b's type, and returns the Scheme-II product in
+  ``out_dtype``: integerize and carve residues in the prologue, one int8
+  GEMM per modulus, modular reduction and the CRT in the epilogue. Its
+  plain version is ``repro_torch.core.scheme2.scaled_matmul``.
+* :func:`fused_residue_matmul` takes (p, M, K) and (p, K, N) balanced int8
+  residues and returns the balanced int8 residues (p, M, N) of their
+  products mod each modulus. Its plain version is the reference's oracle
+  ``repro.kernels.ref.scheme2_residues``.
+
+On a CUDA tensor a wrapper launches the kernel or raises; on a CPU tensor
+it runs the plain version. The kernel replaces the Pallas kernels
+``repro.kernels.backends.gpu.fused_matmul_scheme2`` (2-D launch, float
+rhs), ``fused_matmul_scheme2_batched`` (batched launch) and
+``repro.kernels.ozaki2.fused_residue_matmul`` (residue launch).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from functools import lru_cache
+
+import torch
+
+from repro_torch.core import scheme2
+
+# The kernel unrolls its CRT over at most 16 moduli, each <= 256 (the
+# reference's gpu.MAX_MODULI).
+MAX_MODULI = 16
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+_INT_P = ctypes.POINTER(ctypes.c_int)
+
+
+@dataclasses.dataclass
+class LaunchCounts:
+    """Launches of the kernel in each form, and calls of the plain
+    versions on CUDA tensors (which the model paths must never make)."""
+    launches_2d: int = 0
+    launches_batched: int = 0
+    launches_residues: int = 0
+    plain_cuda_calls: int = 0
+
+    def reset(self) -> None:
+        self.launches_2d = self.launches_batched = 0
+        self.launches_residues = self.plain_cuda_calls = 0
+
+
+COUNTS = LaunchCounts()
+
+
+def check_moduli(moduli) -> None:
+    """Raise unless the kernel runs this moduli set (the reference's
+    ``supported_moduli`` and ``_check_moduli``)."""
+    moduli = tuple(int(m) for m in moduli)
+    if not (0 < len(moduli) <= MAX_MODULI and max(moduli) <= 256):
+        raise NotImplementedError(
+            f"emugemm2 takes at most {MAX_MODULI} moduli, each <= 256 "
+            f"(balanced int8 residues); got {len(moduli)} moduli, max "
+            f"{max(moduli, default=0)}. The 'torch' backend runs larger "
+            "sets; the 'cuda' backend does not fall back to it")
+
+
+def fused_matmul_scheme2_plain(a, b, mu, nu, moduli, out_dtype):
+    """The fused forms' function in plain torch ops (CPU or CUDA)."""
+    if a.is_cuda:
+        COUNTS.plain_cuda_calls += 1
+    return scheme2.scaled_matmul(a, b, mu, nu, moduli, out_dtype)
+
+
+def fused_residue_matmul_plain(a_res, b_res, moduli):
+    """The residue form's function in plain torch ops (CPU or CUDA)."""
+    if a_res.is_cuda:
+        COUNTS.plain_cuda_calls += 1
+    acc = scheme2.residue_gemms(a_res, b_res)
+    outs = []
+    for l, m in enumerate(moduli):
+        half = int(m) // 2
+        outs.append((torch.remainder(acc[l] + half, int(m)) - half)
+                    .to(torch.int8))
+    return torch.stack(outs)
+
+
+@lru_cache(maxsize=None)
+def _crt_args(moduli: tuple[int, ...]):
+    """The moduli and Garner's inverse table as ctypes int arrays."""
+    p = len(moduli)
+    inv = scheme2.garner_constants(moduli)
+    return ((ctypes.c_int * p)(*moduli),
+            (ctypes.c_int * (p * p))(*[x for row in inv for x in row]))
+
+
+def _bind(lib: ctypes.CDLL):
+    fn = lib.emugemm2
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 4
+                   + [_INT_P] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _bind_residues(lib: ctypes.CDLL):
+    fn = lib.emugemm2_residues
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                   + [ctypes.c_longlong] * 6 + [ctypes.c_int] + [_INT_P]
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(a, b, mu, nu, moduli, out_dtype):
+    xs = (a, b, mu, nu)
+    if not all(x.is_cuda for x in xs):
+        raise ValueError("emugemm2: all operands must be CUDA tensors")
+    if len({x.device for x in xs}) != 1:
+        raise ValueError("emugemm2: operands on different devices")
+    if a.dtype not in _KERNEL_DTYPES or b.dtype not in _KERNEL_DTYPES:
+        raise NotImplementedError(
+            f"emugemm2 takes float32 or bfloat16 operands, got {a.dtype} @ "
+            f"{b.dtype} (float64 / x64: ROADMAP.md § 1 item 3)")
+    if mu.dtype != a.dtype or nu.dtype != b.dtype:
+        raise ValueError(f"emugemm2: scales in the operands' types, got mu "
+                         f"{mu.dtype} for {a.dtype}, nu {nu.dtype} for "
+                         f"{b.dtype}")
+    if out_dtype not in _KERNEL_DTYPES:
+        raise NotImplementedError(f"emugemm2: out_dtype {out_dtype}")
+    check_moduli(moduli)
+
+
+def _launch(a3, b3, mu3, nu3, moduli, out_dtype):
+    from repro_torch.kernels import build
+    batch, m, k = a3.shape
+    n = b3.shape[-1]
+    if b3.shape[:2] != (batch, k) or mu3.shape != (batch, m, 1) \
+            or nu3.shape != (batch, 1, n):
+        raise ValueError(f"emugemm2: shapes {tuple(a3.shape)} @ "
+                         f"{tuple(b3.shape)}, mu {tuple(mu3.shape)}, "
+                         f"nu {tuple(nu3.shape)}")
+    mu3, nu3 = mu3.contiguous(), nu3.contiguous()
+    out = torch.empty((batch, m, n), dtype=out_dtype, device=a3.device)
+    if out.numel() == 0 or k == 0:
+        return out.zero_()
+    fn = _bind(build.load("emugemm2"))
+    mods, inv = _crt_args(moduli)
+    stream = torch.cuda.current_stream(a3.device).cuda_stream
+    rc = fn(a3.data_ptr(), b3.data_ptr(), mu3.data_ptr(), nu3.data_ptr(),
+            out.data_ptr(), batch, m, n, k,
+            a3.stride(0), a3.stride(1), a3.stride(2),
+            b3.stride(0), b3.stride(1), b3.stride(2),
+            int(a3.dtype == torch.bfloat16), int(b3.dtype == torch.bfloat16),
+            int(out_dtype == torch.bfloat16), len(moduli), mods, inv, stream)
+    if rc != 0:
+        raise RuntimeError(f"emugemm2 launch failed (code {rc}) for "
+                           f"{(batch, m, k, n)} moduli={moduli}")
+    return out
+
+
+def fused_matmul_scheme2(a: torch.Tensor, b: torch.Tensor, mu: torch.Tensor,
+                         nu: torch.Tensor, moduli,
+                         out_dtype: torch.dtype) -> torch.Tensor:
+    """(M, K) @ (K, N) with scales (M, 1) / (1, N) -> (M, N), or the
+    strided-batched (B, M, K) @ (B, K, N) -> (B, M, N) form.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    or raise.
+    """
+    moduli = tuple(int(m) for m in moduli)
+    if a.device.type == "cpu":
+        return fused_matmul_scheme2_plain(a, b, mu, nu, moduli, out_dtype)
+    _check(a, b, mu, nu, moduli, out_dtype)
+    if a.dim() == 2 and b.dim() == 2:
+        out = _launch(a[None], b[None], mu[None], nu[None], moduli,
+                      out_dtype)[0]
+        COUNTS.launches_2d += 1
+        return out
+    if a.dim() == 3 and b.dim() == 3:
+        out = _launch(a, b, mu, nu, moduli, out_dtype)
+        COUNTS.launches_batched += 1
+        return out
+    raise ValueError(f"emugemm2: operands must both be 2-D or both 3-D, got "
+                     f"{tuple(a.shape)} @ {tuple(b.shape)}")
+
+
+def fused_residue_matmul(a_res: torch.Tensor, b_res: torch.Tensor,
+                         moduli) -> torch.Tensor:
+    """(p, M, K) @ (p, K, N) balanced int8 residues -> (p, M, N) balanced
+    int8 residues of the products mod each modulus.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel's
+    residue form or raise.
+    """
+    from repro_torch.kernels import build
+    moduli = tuple(int(m) for m in moduli)
+    if a_res.device.type == "cpu":
+        return fused_residue_matmul_plain(a_res, b_res, moduli)
+    p, m, k = a_res.shape
+    n = b_res.shape[-1]
+    if (b_res.dim() != 3 or b_res.shape[:2] != (p, k) or p != len(moduli)
+            or a_res.dtype != torch.int8 or b_res.dtype != torch.int8
+            or not b_res.is_cuda or b_res.device != a_res.device):
+        raise ValueError(f"emugemm2 residues: {tuple(a_res.shape)} "
+                         f"{a_res.dtype} @ {tuple(b_res.shape)} {b_res.dtype}"
+                         f" on {b_res.device}, {len(moduli)} moduli")
+    check_moduli(moduli)
+    out = torch.empty((p, m, n), dtype=torch.int8, device=a_res.device)
+    if out.numel() == 0 or k == 0:
+        return out.zero_()
+    fn = _bind_residues(build.load("emugemm2"))
+    mods, _ = _crt_args(moduli)
+    stream = torch.cuda.current_stream(a_res.device).cuda_stream
+    rc = fn(a_res.data_ptr(), b_res.data_ptr(), out.data_ptr(), m, n, k,
+            a_res.stride(0), a_res.stride(1), a_res.stride(2),
+            b_res.stride(0), b_res.stride(1), b_res.stride(2), p, mods,
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"emugemm2 residue launch failed (code {rc}) for "
+                           f"{(p, m, k, n)}")
+    COUNTS.launches_residues += 1
+    return out

@@ -105,8 +105,9 @@ def prepare_rhs(b: torch.Tensor, cfg: EmulationConfig, *,
         return b
     if cfg.scheme == "ozaki2":
         raise NotImplementedError(
-            "Scheme-II prepared residues are not ported yet (ROADMAP.md § 1 "
-            "item 3)")
+            "Scheme-II prepared residues (PreparedResidues, with the "
+            "prepared-residue form of EmuGEMM-II) are not ported yet "
+            "(ROADMAP.md § 1 item 3)")
     if cfg.scheme != "ozaki1":
         raise ValueError(f"prepare_rhs needs an emulated scheme, got "
                          f"{cfg.scheme!r}")

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: EmuGEMM-I in its three launch
-forms and the prepared-weight decomposition (K2, K2r) against their plain
-versions, bit for bit, the dispatcher's routing of CUDA tensors, and a
-cached train step that launches them.
+forms, the prepared-weight decomposition (K2, K2r) and EmuGEMM-II in its
+three launch forms (K5g, K6, K5) against their plain versions, bit for
+bit, the dispatcher's routing of CUDA tensors, and train steps that
+launch them.
 
 These tests need an NVIDIA GPU and nvcc; they skip elsewhere. This file
 imports no jax, so it runs where only torch is installed:
@@ -13,8 +14,9 @@ import pytest
 import torch
 
 from _torch_util import cuda_device  # noqa: F401
-from repro_torch.core import scheme1
-from repro_torch.kernels import decompose, dispatch, ozaki1
+from repro_torch.core import scheme1, scheme2
+from repro_torch.core.precision import default_moduli
+from repro_torch.kernels import decompose, dispatch, ops, ozaki1, ozaki2
 
 pytestmark = pytest.mark.cuda
 
@@ -109,3 +111,72 @@ def test_cached_train_step_launches_the_prepared_kernels(cuda_device):
     assert ozaki1.COUNTS.launches_2d > 0 and ozaki1.COUNTS.launches_batched > 0
     assert ozaki1.COUNTS.plain_cuda_calls == 0
     assert decompose.COUNTS.plain_cuda_calls == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [4, 6, 8, 16])
+def test_scheme2_kernel_bit_identical_to_plain_on_card(cuda_device, dtype, p):
+    """K5g (2-D), K6 (batched, plain strides and transposed views) and K5
+    (residues) against their plain versions."""
+    g = torch.Generator(device=cuda_device).manual_seed(p)
+    moduli = default_moduli(p)
+    for (m, k, n, batch, trans) in [(100, 200, 77, None, False),
+                                    (64, 96, 80, None, True),
+                                    (16, 128, 80, 64, False),
+                                    (128, 128, 128, 16, True)]:
+        lead = () if batch is None else (batch,)
+        a = torch.randn(lead + (m, k), generator=g, device=cuda_device)
+        b = (torch.randn(lead + (n, k), generator=g,
+                         device=cuda_device).transpose(-1, -2) if trans
+             else torch.randn(lead + (k, n), generator=g, device=cuda_device))
+        a, b = a.to(dtype), b.to(dtype)
+        mu, nu = scheme2.scales(a, b, moduli)
+        out = ozaki2.fused_matmul_scheme2(a, b, mu, nu, moduli, dtype)
+        ref = ozaki2.fused_matmul_scheme2_plain(a, b, mu, nu, moduli, dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), (m, k, n, batch, trans)
+    a_res = torch.randint(-128, 128, (p, 100, 200), generator=g,
+                          device=cuda_device, dtype=torch.int8)
+    b_res = torch.randint(-128, 128, (p, 77, 200), generator=g,
+                          device=cuda_device, dtype=torch.int8)
+    b_res = b_res.transpose(-1, -2)
+    out = ozaki2.fused_residue_matmul(a_res, b_res, moduli)
+    ref = ozaki2.fused_residue_matmul_plain(a_res, b_res, moduli)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+def test_scheme2_routes_agree_and_refuse_on_card(cuda_device):
+    a = torch.randn(64, 128, device=cuda_device)
+    b = torch.randn(128, 96, device=cuda_device)
+    ozaki2.COUNTS.reset()
+    fused = dispatch.emulated_matmul(a, b, cfg="ozaki2-m6")
+    via_residues = ops.fused_scheme2_matmul(a, b, "ozaki2-m6")
+    assert torch.equal(fused, via_residues)
+    assert ozaki2.COUNTS.launches_2d == 1
+    assert ozaki2.COUNTS.launches_residues == 1
+    assert ozaki2.COUNTS.plain_cuda_calls == 0
+    with pytest.raises(NotImplementedError):
+        ozaki2.fused_matmul_scheme2(a.double(), b.double(),
+                                    *scheme2.scales(a, b, default_moduli(6)),
+                                    default_moduli(6), torch.float32)
+
+
+def test_emu_train_step_launches_scheme2(cuda_device):
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.launch import steps as S
+    arch = configs.get_smoke_config("olmo-1b-emu")
+    state = S.init_state(arch, 0, cuda_device)
+    step = S.make_train_step(arch)          # the config's gemm_sites
+    _, batch = next(make_batch_iterator(arch, ShapeSpec("t", 32, 2,
+                                                        "train")))
+    ozaki1.COUNTS.reset()
+    ozaki2.COUNTS.reset()
+    _, metrics = step(state, batch)
+    assert torch.isfinite(metrics["loss"])
+    assert ozaki2.COUNTS.launches_batched > 0
+    assert ozaki1.COUNTS.launches_mixed > 0
+    assert ozaki2.COUNTS.plain_cuda_calls == 0
+    assert ozaki1.COUNTS.plain_cuda_calls == 0

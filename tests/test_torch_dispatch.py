@@ -111,7 +111,7 @@ def test_block_cache_counts_per_backend():
     assert dispatch.block_cache_info().currsize == 0
 
 
-@pytest.mark.parametrize("spec,err", [("ozaki2-m6", NotImplementedError),
+@pytest.mark.parametrize("spec,err", [("ozaki2-m6+cached", NotImplementedError),
                                       ("ozaki1-p4+guard", NotImplementedError),
                                       ("ozaki1-p4@tpu", KeyError)])
 def test_outside_the_slice_raises(spec, err):
@@ -126,3 +126,6 @@ def test_native_and_complex():
     with pytest.raises(NotImplementedError):
         dispatch.emulated_matmul(a.to(torch.complex64), b.to(torch.complex64),
                                  cfg="ozaki1-p4")
+    with pytest.raises(NotImplementedError, match="3M"):
+        dispatch.emulated_matmul(a.to(torch.complex64), b.to(torch.complex64),
+                                 cfg="ozaki2-m6")

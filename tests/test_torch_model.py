@@ -2,10 +2,11 @@
 (repro_torch.models.model.forward_step vs repro.models.model.forward_step)
 on the smoke config, from the same parameters (repro_torch.convert).
 
-Logits agree within 1e-4 * max|logits| under 'native' and 'ozaki1-p4':
-the emulated GEMMs are bit-identical on equal inputs, and what differs
-is float32 ulps of XLA's and torch's softmax, rope, norm and native
-matmul, which the emulation carries forward.
+Logits agree within 1e-4 * max|logits| under 'native', 'ozaki1-p4' and
+olmo-1b-emu's own site policy (Scheme I on the projections and attn_av,
+Scheme II on attn_qk): the emulated GEMMs are bit-identical on equal
+inputs, and what differs is float32 ulps of XLA's and torch's softmax,
+rope, norm and native matmul, which the emulation carries forward.
 """
 
 import jax
@@ -43,16 +44,25 @@ def setup():
     return jarch, tarch, jparams, tparams, tokens, start, n_new, hist
 
 
-@pytest.mark.parametrize("spec", ["native", "ozaki1-p4"])
+def _policies(spec):
+    """(reference, port) policies of a spec, or of an arch's gemm_sites."""
+    if spec.startswith("olmo"):
+        return (jdispatch.resolve_policy(
+                    jconfigs.get_smoke_config(spec).gemm_policy()),
+                tconfigs.get_smoke_config(spec).gemm_policy())
+    return (jdispatch.resolve_policy(JPolicy(default=japi.precision(spec))),
+            TPolicy(default=tapi.precision(spec)))
+
+
+@pytest.mark.parametrize("spec", ["native", "ozaki1-p4", "olmo-1b-emu"])
 def test_forward_step_logits_match_reference(setup, spec):
     jarch, tarch, jparams, tparams, tokens, start, n_new, hist = setup
-    jpol = jdispatch.resolve_policy(JPolicy(default=japi.precision(spec)))
+    jpol, tpol = _policies(spec)
     jcache = {"layers": {"b0": {k: jnp.asarray(v) for k, v in hist.items()}}}
     jlog, jout = JM.forward_step(jparams, jarch.model, jnp.asarray(tokens),
                                  jnp.asarray(start), jnp.asarray(n_new),
                                  jcache, jpol)
     tcache = {"layers": {"b0": {k: t(v) for k, v in hist.items()}}}
-    tpol = TPolicy(default=tapi.precision(spec))
     tlog, tout = TM.forward_step(tparams, tarch.model, t(tokens), t(start),
                                  t(n_new), tcache, tpol)
     jlog = np.asarray(jlog)
@@ -108,4 +118,4 @@ def test_outside_the_slice_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tconfigs.get_config("mamba2-780m")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tconfigs.get_config("olmo-1b-emu")
+        tconfigs.get_config("qwen2-moe-a2.7b-emu")

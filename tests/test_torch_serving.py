@@ -2,7 +2,8 @@
 reference engine (repro.serving), on the olmo-1b smoke config with the
 same parameters: greedy tokens are equal on a 3-request trace, except
 after a step where the reference's top-2 logit margin is below 1e-3
-(there float32 ulps of the two frameworks may pick differently). Plus
+(there float32 ulps of the two frameworks may pick differently), under
+'native', 'ozaki1-p4' and olmo-1b-emu's own site policy. Plus
 the engine's own invariants: cohort independence and page accounting."""
 
 import jax
@@ -37,11 +38,14 @@ def jax_setup():
 
 
 def _serve_port(tree, trace, spec, **kw):
-    arch = tconfigs.get_smoke_config("olmo-1b")
+    """Serve ``trace`` under a spec, or under an arch's gemm_sites."""
+    arch = tconfigs.get_smoke_config(spec if spec.startswith("olmo")
+                                     else "olmo-1b")
+    policy = (None if spec.startswith("olmo")
+              else TPolicy(default=tapi.precision(spec)))
     params = convert.params_from_jax(tree, arch.model, device="cpu")
     eng = ContinuousEngine(arch, max_seq=MAX_SEQ, params=params,
-                           policy=TPolicy(default=tapi.precision(spec)),
-                           device="cpu", **kw)
+                           policy=policy, device="cpu", **kw)
     reqs = [Request(prompt=p, max_new_tokens=n) for p, n in trace]
     res = eng.run(reqs, max_steps=2000)
     eng.sched.check_invariants()
@@ -60,11 +64,15 @@ def _jax_margin(arch, params, policy, context):
     return float(top2[1] - top2[0])
 
 
-@pytest.mark.parametrize("spec", ["native", "ozaki1-p4"])
+@pytest.mark.parametrize("spec", ["native", "ozaki1-p4", "olmo-1b-emu"])
 def test_greedy_tokens_match_reference_engine(jax_setup, spec):
     arch, params, tree = jax_setup
     trace = _trace(3, seed=3)
-    jpolicy = JPolicy(default=japi.precision(spec))
+    jpolicy = None
+    if spec.startswith("olmo"):     # the engine takes the arch's gemm_sites
+        arch = jconfigs.get_smoke_config(spec)
+    else:
+        jpolicy = JPolicy(default=japi.precision(spec))
     jeng = JEngine(arch, None, max_seq=MAX_SEQ, policy=jpolicy,
                    params=params, max_lanes=2, chunk=8, page_size=8)
     jreqs = [JRequest(prompt=p, max_new_tokens=n) for p, n in trace]
@@ -121,7 +129,7 @@ def test_engine_refuses_what_the_slice_does_not_run():
     arch = tconfigs.get_smoke_config("olmo-1b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ContinuousEngine(arch, max_seq=16, device="cpu",
-                         policy=TPolicy(default=tapi.precision("ozaki2-m6")))
+                         policy=TPolicy(default=tapi.precision("ozaki2-m6+guard")))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ContinuousEngine(arch, object(), max_seq=16, device="cpu")
     # '+cached' parses and, as in the reference, prepares nothing here:

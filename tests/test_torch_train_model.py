@@ -7,7 +7,9 @@ The reference's ``make_train_step`` fails on this JAX (ROADMAP.md § 3 R1),
 so the oracle is ``jax.value_and_grad(steps.make_loss_fn(...))`` composed
 without a mesh and jitted. Emulated specs take ``+xla`` on the JAX side,
 the reference expansion, which its own tests hold bit-identical to the
-Pallas kernels (tests/test_prepared.py).
+Pallas kernels (tests/test_prepared.py); olmo-1b-emu runs its own site
+policy (Scheme II on attn_qk, whose batched backward re-enters Scheme
+II), with ``+xla`` added to each site's spec on the JAX side.
 
 Tolerances: the loss within 1e-5 relative and each gradient leaf within
 1e-4 relative L2. The emulated GEMMs are bit-identical on equal inputs,
@@ -48,16 +50,33 @@ def setup():
     return jarch, tarch, jparams, tparams, batch
 
 
-@pytest.mark.parametrize("spec", ["native", "ozaki1-p4", "ozaki1-p4+cached"])
+def _policies(spec):
+    """(reference, port) policies: the reference's with ``+xla`` on each
+    emulated site; an arch id stands for its gemm_sites."""
+    def xla(s):
+        return s if s == "native" else s + "+xla"
+
+    if spec.startswith("olmo"):
+        sites = jconfigs.get_smoke_config(spec).gemm_sites
+        jpol = JPolicy(
+            default=japi.precision(xla(dict(sites)["default"])),
+            overrides=tuple((k, japi.precision(xla(s))) for k, s in sites
+                            if k != "default"))
+        return jpol, tconfigs.get_smoke_config(spec).gemm_policy()
+    return (JPolicy(default=japi.precision(xla(spec))),
+            TPolicy(default=tapi.precision(spec)))
+
+
+@pytest.mark.parametrize("spec", ["native", "ozaki1-p4", "ozaki1-p4+cached",
+                                  "olmo-1b-emu"])
 def test_loss_and_gradients_match_reference(setup, spec):
     jarch, tarch, jparams, tparams, batch = setup
-    jspec = spec if spec == "native" else spec + "+xla"
-    jloss_fn = JS.make_loss_fn(jarch, JPolicy(default=japi.precision(jspec)))
+    jpol, tpol = _policies(spec)
+    jloss_fn = JS.make_loss_fn(jarch, jpol)
     jl, jg = jax.jit(jax.value_and_grad(jloss_fn))(
         jparams, {k: jnp.asarray(v) for k, v in batch.items()})
-    tl, tg = TS.value_and_grad(
-        TS.make_loss_fn(tarch, TPolicy(default=tapi.precision(spec))),
-        tparams, TS.batch_to(batch, "cpu"))
+    tl, tg = TS.value_and_grad(TS.make_loss_fn(tarch, tpol), tparams,
+                               TS.batch_to(batch, "cpu"))
     assert abs(float(tl) - float(jl)) <= 1e-5 * abs(float(jl))
     jflat = tree_flatten(jax.tree.map(np.asarray, jg))
     tflat = tree_flatten(tg)
