@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Drives repro_torch only (no jax, nothing of the reference package) on the
-card, with no CPU fallback, in fourteen phases:
+card, with no CPU fallback, in fifteen phases:
 
 1. build: nvcc compiles the port's CUDA kernels from this checkout, one
    process per source, in parallel;
@@ -55,7 +55,19 @@ card, with no CPU fallback, in fourteen phases:
 13. emu train: full-width olmo-1b-emu, one warm-up and three timed steps
     of 8 x 128 tokens, launch counts read around them, three more traced;
 14. emu train parity: under deterministic algorithms one step's loss and
-    every gradient leaf are bit-identical on 'cuda' and 'torch'.
+    every gradient leaf are bit-identical on 'cuda' and 'torch';
+15. scientific GEMMs: the complex 3M kernels (K7g, fused from the float
+    parts; K7, on residues) and EmuGEMM-II in float64 are held against
+    their plain versions bit for bit (complex64 and complex128, m in
+    {4, 8, 12, 16}; float64, m in {8, 12, 16}; ragged, transposed,
+    complex @ real, rows of tiny magnitude, 1024^3); the front doors
+    (``api.einsum`` on complex128, float64 and a float64 batch, the
+    residue routes of ``ops``, complex64 under ozaki1-p4) run with the
+    launch counts read around them; then DGEMM and ZGEMM at
+    M = N = K = 4096 (m in {8, 12, 16}) and 8192 (m = 16) are timed beside
+    their bounds, the plain versions, torch._int_mm and cuBLAS, with the
+    effective bits of the kernel and of cuBLAS against a longdouble
+    product of 64 sampled rows on the host.
 
 Any failure exits non-zero and prints no result. The line before the
 last is a JSON object listing each kernel; the last line is
@@ -86,11 +98,11 @@ import torch  # noqa: E402
 from repro_torch import api, configs  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
-from repro_torch.core import scheme1, scheme2  # noqa: E402
+from repro_torch.core import complex3m, scheme1, scheme2  # noqa: E402
 from repro_torch.core.precision import default_moduli  # noqa: E402
 from repro_torch.data import make_batch_iterator  # noqa: E402
 from repro_torch.kernels import (build, decompose, dispatch, ops,  # noqa: E402
-                                 ozaki1, ozaki2)
+                                 ozaki1, ozaki2, ozaki3m)
 from repro_torch.launch import steps as S, train as train_cli  # noqa: E402
 from repro_torch.launch.serve import build_trace  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -119,6 +131,18 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 3
 TOKENS = TRAIN_BATCH * TRAIN_SEQ
 LONG_BATCH, LONG_SEQ, LONG_STEPS = 2, 2048, 2
 P_BWD = 3
+# The scientific GEMMs: DGEMM- and ZGEMM-grade Scheme II at the sizes the
+# paper's users run (M = N = K), bit checks at m in SCI_M_CHECK (complex)
+# and F64_M_CHECK (float64), the front doors at SCI_M_FRONT, effective bits
+# on EVAL_ROWS sampled rows, bit identity at 8192 on the first SCI_ROWS.
+SOURCE3M = "src/repro_torch/kernels/csrc/emugemm3m.cu"
+SCI_SIZES = ((4096, (8, 12, 16)), (8192, (16,)))
+SCI_M_CHECK = (4, 8, 12, 16)
+F64_M_CHECK = (8, 12, 16)
+SCI_M_FRONT = 12
+SCI_BATCHED = (8, 512, 512)
+SCI_BIG = SCI_4M_N = 1024
+EVAL_ROWS, SCI_ROWS = 64, 256
 
 
 def log(*args):
@@ -696,6 +720,7 @@ def reset_counts():
     ozaki1.COUNTS.reset()
     decompose.COUNTS.reset()
     ozaki2.COUNTS.reset()
+    ozaki3m.COUNTS.reset()
 
 
 def train_batches(arch, batch=None, seq=None):
@@ -922,11 +947,14 @@ def int_mm_yardstick(gen, dev, batch, m, k, n, p):
 
 def check_equal(what, out, ref, max_err, key):
     torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
+    wide = torch.complex128 if out.is_complex() else torch.float64
+    err = torch.where(out == ref, 0, out.to(wide) - ref.to(wide)).abs().max(
+        ).item() if out.numel() else 0.0
     max_err[key] = max(max_err[key], err)
     if not torch.equal(out, ref):
         raise AssertionError(f"{what}: kernel != plain version, max |diff| "
                              f"{err}")
+    return err
 
 
 def scheme2_kernel_phase(dev, mcfg, view_tokens):
@@ -1067,6 +1095,358 @@ def scheme2_library_phase(dev, mcfg):
     return counts, totals
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the scientific GEMMs, DGEMM- and ZGEMM-grade.
+# ---------------------------------------------------------------------------
+
+def eq19(gen, shape, dtype, dev):
+    """Paper Eq. 19 matrices drawn in the working type (a complex one has
+    two such parts), so float64 carries all 53 mantissa bits, which
+    ``conditioned`` (float32, then cast) would not."""
+    part = (torch.float64 if dtype in (torch.float64, torch.complex128)
+            else torch.float32)
+
+    def draw():
+        return (torch.rand(shape, generator=gen, device=dev, dtype=part)
+                - 0.5) * torch.exp(2 * torch.randn(shape, generator=gen,
+                                                   device=dev, dtype=part))
+    return torch.complex(draw(), draw()) if dtype.is_complex else draw()
+
+
+def timed(fn):
+    """(ms, result) of one synchronised call, CUDA events."""
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1), out
+
+
+def threem_bound(m, k, n, p, part_bytes):
+    """Least time of a complex GEMM by 3M: both complex operands and the
+    scales read once, the complex output written once, against 3p int8
+    GEMMs at the int8 peak."""
+    moved = part_bytes * (2 * (m * k + k * n) + m + n + 2 * m * n)
+    ops_ = 3 * p * 2 * m * n * k
+    t_b, t_o = moved / HBM_BYTES_PER_S, ops_ / INT8_OPS_PER_S
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def threem_residue_bound(m, k, n, p):
+    moved = p * (3 * (m * k + k * n) + 2 * m * n)
+    ops_ = 3 * p * 2 * m * n * k
+    t_b, t_o = moved / HBM_BYTES_PER_S, ops_ / INT8_OPS_PER_S
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def extended_reference(a_rows, b, pool):
+    """a_rows @ b in numpy longdouble on the host, in column chunks on a
+    thread pool; returns a function that waits for the product."""
+    cplx = a_rows.is_complex() or b.is_complex()
+    ar, br = a_rows.real.cpu().numpy(), b.real.cpu().numpy()
+    ai, bi = ((a_rows.imag.cpu().numpy(), b.imag.cpu().numpy()) if cplx
+              else (None, None))
+    cols = np.array_split(np.arange(br.shape[1]), 32)
+
+    def mm(x, y):
+        return x.astype(np.longdouble) @ y.astype(np.longdouble)
+
+    def part(c):
+        if not cplx:
+            return mm(ar, br[:, c])
+        return (mm(ar, br[:, c]) - mm(ai, bi[:, c])
+                + 1j * (mm(ar, bi[:, c]) + mm(ai, br[:, c])))
+
+    futures = [pool.submit(part, c) for c in cols]
+    return lambda: np.concatenate([f.result() for f in futures], axis=1)
+
+
+def effective_bits(c_rows, ref) -> float:
+    """-log2(max |c - ref| / max |ref|) over the sampled rows, in
+    longdouble."""
+    c = c_rows.cpu().numpy()
+    c = c.astype(np.clongdouble if np.iscomplexobj(c) else np.longdouble)
+    return float(-np.log2(float(np.abs(c - ref).max() / np.abs(ref).max())))
+
+
+def scientific_kernel_checks(dev, gen, max_err):
+    """K7g, K7 and float64 EmuGEMM-II against their plain versions, bit
+    for bit: complex64 and complex128 at m in {4, 8, 12, 16} (ragged, a
+    transposed view, complex @ real, real @ complex, rows of tiny
+    magnitude, 1024^3); K7 on random residues; float64 at m in {8, 12,
+    16} (the 2-D and batched forms, float64 and float32 outputs, float32
+    operands to a float64 output, and the residue route). One row a case,
+    with its maximum absolute difference, which must be 0."""
+    rows = []
+
+    def case(what, out, ref, key):
+        err = check_equal(what, out, ref, max_err, key)
+        rows.append(what)
+        log(f"[scientific] case {what}: max |kernel - plain| {err}")
+    for dtype in (torch.complex64, torch.complex128):
+        part = torch.float64 if dtype == torch.complex128 else torch.float32
+        tiny = 2.0 ** -1000 if part == torch.float64 else 2.0 ** -120
+        for p in SCI_M_CHECK:
+            moduli = default_moduli(p)
+            a = eq19(gen, (200, 136), dtype, dev)
+            a[:3] *= tiny                  # 1 / (mu * nu) subnormal or 0
+            b = eq19(gen, (136, 72), dtype, dev)
+            bt = eq19(gen, (72, 136), dtype, dev).T
+            big = (eq19(gen, (SCI_BIG, SCI_BIG), dtype, dev),
+                   eq19(gen, (SCI_BIG, SCI_BIG), dtype, dev))
+            for lbl, x, y in (("ragged", a, b), ("B transposed", a, bt),
+                              ("complex @ real", a, b.real.contiguous()),
+                              ("real @ complex", a.real.contiguous(), b),
+                              (f"{SCI_BIG}^3", *big)):
+                mu, nu = complex3m.scales(x, y, moduli)
+                case(f"emugemm3m {lbl} {tuple(x.shape)} @ {tuple(y.shape)} "
+                     f"{x.dtype} @ {y.dtype} m={p}",
+                     ozaki3m.fused_matmul_3m(x, y, mu, nu, moduli, part),
+                     ozaki3m.fused_matmul_3m_plain(x, y, mu, nu, moduli,
+                                                   part), "3m_2d")
+            del a, b, bt, big
+    for p in SCI_M_CHECK:
+        moduli = default_moduli(p)
+        for m, k, n in ((200, 136, 72), (SCI_BIG,) * 3):
+            a3 = torch.randint(-128, 128, (p, 3, m, k), generator=gen,
+                               device=dev, dtype=torch.int8)
+            b3 = torch.randint(-128, 128, (p, 3, k, n), generator=gen,
+                               device=dev, dtype=torch.int8)
+            out = ozaki3m.fused_3m_residue_matmul(a3, b3, moduli)
+            ref = ozaki3m.fused_3m_residue_matmul_plain(a3, b3, moduli)
+            case(f"emugemm3m residues {(p, 3, m, k, n)} m={p}",
+                 torch.stack(out), torch.stack(ref), "3m_residues")
+    f64 = torch.float64
+    for p in F64_M_CHECK:
+        moduli = default_moduli(p)
+        for lbl, lead, m, k, n, tb in (
+                ("ragged", (), 200, 136, 72, False),
+                ("B transposed", (), 200, 136, 72, True),
+                (f"{SCI_BIG}^3", (), SCI_BIG, SCI_BIG, SCI_BIG, False),
+                ("batched", (8,), 128, 128, 128, False),
+                ("batched, B transposed", (8,), 128, 128, 128, True)):
+            a = eq19(gen, lead + (m, k), f64, dev)
+            b = (eq19(gen, lead + (n, k), f64, dev).transpose(-1, -2) if tb
+                 else eq19(gen, lead + (k, n), f64, dev))
+            for x, y, out_t in ((a, b, f64), (a, b, torch.float32),
+                                (a.float(), b.float(), f64)):
+                mu, nu = scheme2.scales(x, y, moduli)
+                case(f"emugemm2 {lbl} {tuple(x.shape)} @ {tuple(y.shape)} "
+                     f"{x.dtype} -> {out_t} m={p}",
+                     ozaki2.fused_matmul_scheme2(x, y, mu, nu, moduli, out_t),
+                     ozaki2.fused_matmul_scheme2_plain(x, y, mu, nu, moduli,
+                                                       out_t),
+                     "f64_batched" if lead else "f64_2d")
+        a, b = eq19(gen, (200, 136), f64, dev), eq19(gen, (136, 72), f64, dev)
+        mu, nu = scheme2.scales(a, b, moduli)
+        case(f"emugemm2 residue route (200, 136) @ (136, 72) float64 m={p}",
+             ops.fused_scheme2_matmul(a, b, f"ozaki2-m{p}", out_dtype=f64),
+             ozaki2.fused_matmul_scheme2_plain(a, b, mu, nu, moduli, f64),
+             "f64_residues")
+    log(f"[scientific] {len(rows)} complex64/complex128/float64 kernel "
+        "cases bit-identical to the plain versions")
+
+
+def scientific_main_path(dev, gen, za, zb, da, db):
+    """The front doors a user calls, with every count zeroed just before
+    and read just after: ZGEMM and DGEMM through ``api.einsum`` (K7g,
+    K5g) and the residue routes (K7, K5 with a float64 CRT), a float64
+    batched einsum (K6) and a complex64 GEMM under ozaki1-p4 (four
+    EmuGEMM-I launches)."""
+    spec = f"ozaki2-m{SCI_M_FRONT}"
+    ba = eq19(gen, SCI_BATCHED, torch.float64, dev)
+    bb = eq19(gen, SCI_BATCHED, torch.float64, dev)
+    n4m = SCI_4M_N
+    ca, cb = (za[:n4m, :n4m].to(torch.complex64),
+              zb[:n4m, :n4m].to(torch.complex64))
+    torch.cuda.synchronize()
+    reset_counts()
+    out = {
+        "zgemm": api.einsum("mk,kn->mn", za, zb, precision=spec),
+        "zgemm_residues": ops.fused_3m_matmul(za, zb, spec),
+        "dgemm": api.einsum("mk,kn->mn", da, db, precision=spec),
+        "dgemm_residues": ops.fused_scheme2_matmul(da, db, spec,
+                                                   out_dtype=torch.float64),
+        "batched": api.einsum("bmk,bkn->bmn", ba, bb, precision=spec),
+        "4m": api.einsum("mk,kn->mn", ca, cb, precision="ozaki1-p4"),
+    }
+    torch.cuda.synchronize()
+    c1, _, c2 = snapshot_counts()
+    c3 = ozaki3m.LaunchCounts(**vars(ozaki3m.COUNTS))
+    counts = {"emugemm3m_2d": c3.launches_2d,
+              "emugemm3m_residues": c3.launches_residues,
+              "emugemm2_2d": c2.launches_2d,
+              "emugemm2_residues": c2.launches_residues,
+              "emugemm2_batched": c2.launches_batched,
+              "emugemm1_2d": c1.launches_2d}
+    plain = c1.plain_cuda_calls + c2.plain_cuda_calls + c3.plain_cuda_calls
+    log(f"[scientific] main path launches {json.dumps(counts)}; plain "
+        f"versions on CUDA {plain}")
+    if counts != {"emugemm3m_2d": 1, "emugemm3m_residues": 1,
+                  "emugemm2_2d": 1, "emugemm2_residues": 1,
+                  "emugemm2_batched": 1, "emugemm1_2d": 4} or plain:
+        raise AssertionError("the scientific front doors did not launch "
+                             "each kernel as expected")
+    for kind in ("zgemm", "dgemm"):
+        if not torch.equal(out[kind], out[kind + "_residues"]):
+            raise AssertionError(f"{kind}: the fused and residue routes "
+                                 "differ")
+    if not torch.equal(out["4m"], dispatch.emulated_matmul(
+            ca, cb, cfg="ozaki1-p4", backend="torch")):
+        raise AssertionError("complex64 ozaki1-p4: four EmuGEMM-I launches "
+                             "!= matmul_complex_4m on the torch backend")
+    if not torch.equal(out["batched"][-1],
+                       scheme2.matmul(ba[-1], bb[-1], api.precision(spec))):
+        raise AssertionError("float64 batched einsum != scheme2.matmul")
+    mu, nu = scheme2.scales(ba, bb, default_moduli(SCI_M_FRONT))
+    b_ms = time_ms(lambda: ozaki2.fused_matmul_scheme2(
+        ba, bb, mu, nu, default_moduli(SCI_M_FRONT), torch.float64), 5)
+    b_plain = time_ms(lambda: ozaki2.fused_matmul_scheme2_plain(
+        ba, bb, mu, nu, default_moduli(SCI_M_FRONT), torch.float64), 1)
+    b_bms, b_by = scheme2_bound(*SCI_BATCHED, SCI_BATCHED[-1], SCI_M_FRONT,
+                                8, 8)
+    b_lib = time_ms(lambda: torch.matmul(ba, bb), 5)
+    log(f"[scientific] front doors: ZGEMM and DGEMM fused == residue route, "
+        f"4M == matmul_complex_4m, batched == scheme2.matmul, bit for bit; "
+        f"float64 batched {SCI_BATCHED} m={SCI_M_FRONT}: kernel {b_ms:.3f} "
+        f"ms, plain {b_plain:.3f} ms, bound {b_bms:.4f} ms ({b_by}), cuBLAS "
+        f"{b_lib:.3f} ms")
+    batched = {"ms": b_ms, "plain_ms": b_plain, "bound_ms": b_bms,
+               "bound_by": b_by, "library_ms": b_lib}
+    return counts, out, batched
+
+
+def scientific_phase(dev):
+    """DGEMM- and ZGEMM-grade Scheme II: the kernels against their plain
+    versions, the front doors, then M = N = K = 4096 at m in {8, 12, 16}
+    and 8192 at m = 16, float64 on EmuGEMM-II's 2-D form and complex128
+    on K7g, beside their bounds, the plain versions (4096 only; at 8192
+    the kernel's first 256 rows are held against the plain version of
+    those rows, which is exact because mu is per row and nu depends on b
+    alone), the torch._int_mm yardstick and cuBLAS DGEMM / ZGEMM, with
+    the effective bits of the kernel and of cuBLAS against a longdouble
+    product of 64 sampled rows computed on the host."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    max_err = dict.fromkeys(("3m_2d", "3m_residues", "f64_2d",
+                             "f64_batched", "f64_residues"), 0.0)
+    t0 = time.perf_counter()
+    scientific_kernel_checks(dev, gen, max_err)
+    inputs = {(n, kind): (eq19(gen, (n, n), dtype, dev),
+                          eq19(gen, (n, n), dtype, dev))
+              for n, _ in SCI_SIZES
+              for kind, dtype in (("dgemm", torch.float64),
+                                  ("zgemm", torch.complex128))}
+    n0 = SCI_SIZES[0][0]
+    counts, front, batched = scientific_main_path(
+        dev, gen, *inputs[n0, "zgemm"], *inputs[n0, "dgemm"])
+    pool = ThreadPoolExecutor(os.cpu_count() or 4)
+    table, timings = [], {}
+    try:
+        # The host references run while the card works.
+        samples, exact = {}, {}
+        for (n, kind), (a, b) in inputs.items():
+            samples[n, kind] = torch.randperm(n, generator=gen,
+                                              device=dev)[:EVAL_ROWS]
+            exact[n, kind] = extended_reference(a[samples[n, kind]], b, pool)
+        for n, ps in SCI_SIZES:
+            for kind in ("dgemm", "zgemm"):
+                a, b = inputs[n, kind]
+                lib_ms = time_ms(lambda: torch.matmul(a, b), 3)
+                lib_out = torch.matmul(a, b)
+                for p in ps:
+                    moduli = default_moduli(p)
+                    if kind == "dgemm":
+                        mu, nu = scheme2.scales(a, b, moduli)
+                        kern, plain = (ozaki2.fused_matmul_scheme2,
+                                       ozaki2.fused_matmul_scheme2_plain)
+                        bms, by = scheme2_bound(1, n, n, n, p, 8, 8)
+                        n_mm = p
+                    else:
+                        mu, nu = complex3m.scales(a, b, moduli)
+                        kern, plain = (ozaki3m.fused_matmul_3m,
+                                       ozaki3m.fused_matmul_3m_plain)
+                        bms, by = threem_bound(n, n, n, p, 8)
+                        n_mm = 3 * p
+                    f64 = torch.float64
+                    out = kern(a, b, mu, nu, moduli, f64)      # warm-up
+                    if n == n0:
+                        ms = time_ms(lambda: kern(a, b, mu, nu, moduli, f64),
+                                     3)
+                        plain_ms, ref = timed(lambda: plain(a, b, mu, nu,
+                                                            moduli, f64))
+                        rows = slice(None)
+                        if p == SCI_M_FRONT and not torch.equal(out,
+                                                                front[kind]):
+                            raise AssertionError(f"{kind}: einsum != the "
+                                                 "direct kernel call")
+                    else:
+                        ms, out = timed(lambda: kern(a, b, mu, nu, moduli,
+                                                     f64))
+                        plain_ms, rows = None, slice(0, SCI_ROWS)
+                        ref = plain(a[rows], b, mu[rows], nu, moduli, f64)
+                    check_equal(f"{kind} {n}^3 m={p} rows {rows}", out[rows],
+                                ref, max_err,
+                                "f64_2d" if kind == "dgemm" else "3m_2d")
+                    del ref
+                    yard = time_ms(int_mm_yardstick(gen, dev, 1, n, n, n,
+                                                    n_mm), 1)
+                    ref_rows = exact[n, kind]()
+                    bits = effective_bits(out[samples[n, kind]], ref_rows)
+                    lib_bits = effective_bits(lib_out[samples[n, kind]],
+                                              ref_rows)
+                    row = {"kind": kind, "n": n, "m": p, "ms": ms,
+                           "plain_ms": plain_ms, "bound_ms": bms,
+                           "bound_by": by, "int_mm_yardstick_ms": yard,
+                           "library_ms": lib_ms, "bits": bits,
+                           "library_bits": lib_bits}
+                    table.append(row)
+                    timings[kind, n, p] = row
+                    plain_txt = ("not run" if plain_ms is None
+                                 else f"{plain_ms:.3f} ms")
+                    log(f"[scientific] {kind} {n}^3 m={p}: kernel {ms:.3f} "
+                        f"ms, bound {bms:.4f} ms ({by}), plain {plain_txt}, "
+                        f"yardstick torch._int_mm x{n_mm} {yard:.3f} ms, "
+                        f"cuBLAS {lib_ms:.3f} ms; effective bits {bits:.2f} "
+                        f"(cuBLAS {lib_bits:.2f})")
+                    del out
+                del lib_out
+            for kind in ("dgemm", "zgemm"):
+                if n != n0:
+                    del inputs[n, kind]
+            torch.cuda.empty_cache()
+        # The residue forms at the DGEMM / ZGEMM shape and moduli.
+        p = SCI_SIZES[0][1][-1]
+        moduli = default_moduli(p)
+        res = {}
+        for form, phases, run_k, run_p, bound in (
+                ("3m_residues", 3, ozaki3m.fused_3m_residue_matmul,
+                 ozaki3m.fused_3m_residue_matmul_plain, threem_residue_bound),
+                ("residues", None, ozaki2.fused_residue_matmul,
+                 ozaki2.fused_residue_matmul_plain, residue_bound)):
+            lead = (p, phases) if phases else (p,)
+            a_r = torch.randint(-128, 128, lead + (n0, n0), generator=gen,
+                                device=dev, dtype=torch.int8)
+            b_r = torch.randint(-128, 128, lead + (n0, n0), generator=gen,
+                                device=dev, dtype=torch.int8)
+            ms = time_ms(lambda: run_k(a_r, b_r, moduli), 3)
+            plain_ms = time_ms(lambda: run_p(a_r, b_r, moduli), 1)
+            bms, by = bound(n0, n0, n0, p)
+            res[form] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                         "bound_by": by}
+            log(f"[scientific] {form} p={p} {n0}^3 (int8 in and out): "
+                f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                f"{bms:.4f} ms ({by})")
+            del a_r, b_r
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    log("[scientific] table " + json.dumps(table))
+    log(f"[scientific] phase took {time.perf_counter() - t0:.1f} s")
+    return max_err, counts, timings, res, batched
+
+
 def emu_train_parity_phase(dev, arch, params):
     """One full-width step of olmo-1b-emu under its gemm_sites: loss and
     gradients bit-identical on the 'cuda' and 'torch' backends."""
@@ -1114,7 +1494,7 @@ def trainer_phase():
 def build_phase():
     """nvcc for each kernel source, all started together."""
     t0 = time.perf_counter()
-    names = ("emugemm1", "decompose", "emugemm2")
+    names = ("emugemm1", "decompose", "emugemm2", "emugemm3m")
     with ThreadPoolExecutor(len(names)) as ex:
         for f in [ex.submit(build.build, n) for n in names]:
             f.result()
@@ -1177,6 +1557,9 @@ def main() -> int:
     emu_train_parity_phase(dev, emu, params)
     del params
     torch.use_deterministic_algorithms(False)
+
+    # DGEMM- and ZGEMM-grade Scheme II.
+    sci_err, sci_counts, sci_t, sci_res, sci_batched = scientific_phase(dev)
 
     def bound_by(t):
         return "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations"
@@ -1246,6 +1629,46 @@ def main() -> int:
         "per_train_step": {k: s2_totals["train"][k]
                            for k in ("ms", "plain_ms", "bound_ms",
                                      "yardstick_ms")}})
+    # The float64 entries of EmuGEMM-II's rows, and the 3M kernels.
+    n0, p_sci = SCI_SIZES[0][0], SCI_SIZES[0][1][-1]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "int_mm_yardstick_ms",
+            "library_ms")
+    dgemm, zgemm = sci_t["dgemm", n0, p_sci], sci_t["zgemm", n0, p_sci]
+    sci_per = (f"one {{}} {n0}^3 at m = {p_sci} (launches: the scientific "
+               f"front doors at m = {SCI_M_FRONT})")
+    f64_rows = {
+        "emugemm2_2d": {**{k: dgemm[k] for k in keys},
+                        "max_abs_err": sci_err["f64_2d"],
+                        "launches": sci_counts["emugemm2_2d"],
+                        "per": sci_per.format("DGEMM-grade float64 GEMM")},
+        "emugemm2_residues": {**sci_res["residues"], "library_ms": None,
+                              "max_abs_err": sci_err["f64_residues"],
+                              "launches": sci_counts["emugemm2_residues"],
+                              "per": sci_per.format(
+                                  "residue GEMM of the DGEMM route")},
+        "emugemm2_batched": {**sci_batched,
+                             "max_abs_err": sci_err["f64_batched"],
+                             "launches": sci_counts["emugemm2_batched"],
+                             "per": f"one float64 batched GEMM "
+                                    f"{SCI_BATCHED} at m = {SCI_M_FRONT}"}}
+    for row in kernels:
+        if row["name"] in f64_rows:
+            row["float64"] = f64_rows[row["name"]]
+    kernels.append({
+        "name": "emugemm3m_2d", **common, "source": SOURCE3M,
+        "replaces": "src/repro/kernels/backends/gpu.py:522",
+        "launches": sci_counts["emugemm3m_2d"],
+        "max_abs_err": sci_err["3m_2d"],
+        **{k: zgemm[k] for k in keys},
+        "bits": zgemm["bits"], "library_bits": zgemm["library_bits"],
+        "per": sci_per.format("ZGEMM-grade complex128 GEMM")})
+    kernels.append({
+        "name": "emugemm3m_residues", **common, "source": SOURCE3M,
+        "replaces": "src/repro/kernels/ozaki3m.py:72",
+        "launches": sci_counts["emugemm3m_residues"],
+        "max_abs_err": sci_err["3m_residues"], **sci_res["3m_residues"],
+        "int_mm_yardstick_ms": zgemm["int_mm_yardstick_ms"],
+        "per": sci_per.format("3p-product residue GEMM of the ZGEMM route")})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

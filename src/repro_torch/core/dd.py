@@ -3,14 +3,16 @@
 
 A value is an unevaluated sum hi + lo with |lo| <= ulp(hi)/2, about
 twice the mantissa bits of the base type. Scheme II evaluates Garner's
-mixed-radix polynomial with it in float32 (the reference runs without
-x64) and rounds the result to the output type.
+mixed-radix polynomial with it, in float64 for a float64 output and in
+float32 otherwise (``scheme2.dd_dtype``), and rounds the result to the
+output type.
 
-No FMA: ``two_prod`` splits with Veltkamp (constant 2^13 + 1 for
-float32), which is exact in IEEE arithmetic. Every op here is one torch
-elementwise op, so nothing can contract ``ah * bh - p`` into an FMA;
-the CUDA kernel (``kernels/csrc/emugemm2.cu``) writes the same ops as
-explicit ``_rn`` intrinsics for that reason.
+No FMA: ``two_prod`` splits with Veltkamp (constant 2^12 + 1 for
+float32, 2^27 + 1 for float64: ``2^((nmant + 2) // 2) + 1``, as the
+reference computes it), which is exact in IEEE arithmetic. Every op here
+is one torch elementwise op, so nothing can contract ``ah * bh - p``
+into an FMA; the CUDA kernels (``kernels/csrc/emugemm_common.cuh``)
+write the same ops as explicit ``_rn`` intrinsics for that reason.
 """
 
 from __future__ import annotations

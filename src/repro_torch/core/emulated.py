@@ -3,7 +3,8 @@
 ``emulated_dot(a, b, cfg)`` computes a @ b under the emulation selected by
 ``cfg``: 'native' is a plain matmul, 'ozaki1' the Scheme-I and 'ozaki2' the
 Scheme-II emulation on the selected kernel backend. Leading batch dims of
-``a`` flatten into M.
+``a`` flatten into M. Operands may be float64 or complex (Scheme II: 3M;
+Scheme I: 4M of complex64); complex ones run forward only.
 
 Both front doors are differentiable through ``torch.autograd.Function``s
 that mirror the reference's custom VJPs: dA = dC B^T and dB = A^T dC run
@@ -122,7 +123,18 @@ class _EmulatedDot(torch.autograd.Function):
 
 
 def _differentiated(*xs) -> bool:
-    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+    """Will autograd record this call? A complex operand that would be
+    differentiated raises: the reference's VJP transposes without
+    conjugating, PyTorch's complex autograd conjugates, so the port has no
+    complex backward yet (ROADMAP.md § 1 item 3)."""
+    if not (torch.is_grad_enabled() and any(x.requires_grad for x in xs)):
+        return False
+    if any(x.is_complex() for x in xs):
+        raise NotImplementedError(
+            "emulated complex GEMMs run forward only in the port: the "
+            "reference's VJP transposes without conjugating, PyTorch's "
+            "complex autograd conjugates (ROADMAP.md § 1 item 3)")
+    return True
 
 
 def emulated_dot(a: torch.Tensor, b: torch.Tensor,

@@ -49,6 +49,14 @@ def widen(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def complex_parts(x: torch.Tensor):
+    """(re, im) of x; a real x is its own real part with a zero
+    imaginary part, as ``jnp.real`` / ``jnp.imag`` take it."""
+    if x.is_complex():
+        return x.real, x.imag
+    return x, torch.zeros_like(x)
+
+
 def pow2_scale(x: torch.Tensor, dim: int) -> torch.Tensor:
     """Power-of-two scale mu with |x / mu| in [0, 1) along ``dim``,
     keepdim, in ``widen(x)``'s dtype.
@@ -147,3 +155,34 @@ def matmul(a: torch.Tensor, b: torch.Tensor, cfg: EmulationConfig,
     b_sl, nu = split(b, cfg.p, beta, dim=-2)
     accs = triangular_accumulators(a_sl, b_sl, cfg.p)
     return shift_reduce(accs, beta, mu, nu, out_dtype)
+
+
+def check_complex_4m(a: torch.Tensor, b: torch.Tensor) -> None:
+    """Raise unless Scheme I's 4M runs these operands: complex64, or a
+    complex64 with a float32 real operand."""
+    if torch.float64 in (a.real.dtype, b.real.dtype):
+        raise NotImplementedError(
+            f"ozaki1 complex (4M) takes complex64 operands in the port, got "
+            f"{a.dtype} @ {b.dtype}: complex128 needs Scheme I in float64 "
+            "(ROADMAP.md § 1 item 3); an ozaki2 spec runs it (3M)")
+
+
+def matmul_complex_4m(a: torch.Tensor, b: torch.Tensor, cfg: EmulationConfig,
+                      out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Scheme-I complex GEMM via the 4M formulation (paper Sec. V-D:
+    'EmuGEMM-I uses the 4M formulation'):
+    C_re = Ar Br - Ai Bi, C_im = Ar Bi + Ai Br, four real emulated GEMMs.
+
+    complex64 (and float32 parts) only: complex128 needs Scheme I in
+    float64, which EmuGEMM-I does not run (ROADMAP.md § 1 item 3).
+    """
+    check_complex_4m(a, b)
+    if out_dtype is None:
+        out_dtype = torch.float32
+    ar, ai = complex_parts(a)
+    br, bi = complex_parts(b)
+    rr = matmul(ar, br, cfg, out_dtype)
+    ii = matmul(ai, bi, cfg, out_dtype)
+    ri = matmul(ar, bi, cfg, out_dtype)
+    ir = matmul(ai, br, cfg, out_dtype)
+    return torch.complex(rr - ii, ri + ir)

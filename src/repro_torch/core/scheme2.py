@@ -9,16 +9,20 @@ The torch counterpart of ``repro.core.scheme2`` (paper Sec. II-C2):
   3. one exact int8 GEMM per modulus into int32;
   4. C'_l = C_l mod m_l;
   5. CRT reconstruction by balanced Garner digits (exact int32) and a
-     double-double Horner evaluation in float32, rounded to the output
-     type, then divided by mu * nu rounded to that type.
+     double-double Horner evaluation, rounded to the output type, then
+     divided by mu * nu rounded to that type.
 
 Every modulo is a floor modulo (``torch.remainder``, the sign of the
-divisor, as ``jnp.remainder``); residues and digits are int32 and the
-double-double is float32 whatever the global settings, as the reference
-computes them without x64. ``matmul`` is the plain version of the fused
-EmuGEMM-II kernel (``repro_torch.kernels.ozaki2``) and what the 'torch'
-backend runs. The reference's guard hook in ``balanced_residues`` is not
-ported (ROADMAP.md § 1 item 5), nor is Scheme II in float64.
+divisor, as ``jnp.remainder``). The reference picks its integer and
+double-double types from the global x64 flag; the port states them
+(ROADMAP.md § 3 H6): a float64 operand takes its residues through int64
+and any other through int32, and a float64 output reconstructs in
+float64 double-double and any other in float32. That is the reference's
+arithmetic without x64 for float32 and bfloat16, and with x64 for
+float64 (DGEMM-grade Scheme II). ``matmul`` is the plain version of the
+fused EmuGEMM-II kernel (``repro_torch.kernels.ozaki2``) and what the
+'torch' backend runs. The reference's guard hook in
+``balanced_residues`` is not ported (ROADMAP.md § 1 item 5).
 """
 
 from __future__ import annotations
@@ -33,10 +37,11 @@ from repro_torch.core.precision import (EmulationAccuracyError,
 from repro_torch.core.scheme1 import exact_pow2
 
 # Operand types of the port's Scheme II, with their mantissa bits + 1
-# (``jnp.finfo(dtype).nmant + 1``), which cap the integer budget.
-MANTISSA = {torch.float32: 24, torch.bfloat16: 8}
-OUT_DTYPES = (torch.float32, torch.bfloat16)
-_MAXEXP = 128            # finfo(float32 or bfloat16).maxexp
+# (``jnp.finfo(dtype).nmant + 1``), which cap the integer budget, and
+# their ``finfo.maxexp``, which caps the scales.
+MANTISSA = {torch.float32: 24, torch.bfloat16: 8, torch.float64: 53}
+_MAXEXP = {torch.float32: 128, torch.bfloat16: 128, torch.float64: 1024}
+OUT_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
 
 
 def operand(x: torch.Tensor) -> torch.Tensor:
@@ -46,8 +51,8 @@ def operand(x: torch.Tensor) -> torch.Tensor:
         x = x.to(torch.float32)
     if x.dtype not in MANTISSA:
         raise NotImplementedError(
-            f"Scheme II takes float32 or bfloat16 operands in the port, got "
-            f"{x.dtype} (float64 / x64: ROADMAP.md § 1 item 3)")
+            f"Scheme II takes float32, bfloat16 or float64 operands in the "
+            f"port, got {x.dtype}")
     return x
 
 
@@ -63,9 +68,11 @@ def _pow2_int_scale(a: torch.Tensor, axis: int,
     |trunc(mu * a)| < 2^budget_bits (mu * amax in [2^(budget-1),
     2^budget)); clamped below the type's overflow point, so that
     subnormal-only lines integerize to zeros."""
-    amax = torch.amax(torch.abs(a), dim=axis, keepdim=True).float()
+    amax = torch.amax(torch.abs(a), dim=axis, keepdim=True)
+    if amax.dtype != torch.float64:
+        amax = amax.float()          # exact; frexp takes no bfloat16
     _, exp = torch.frexp(torch.where(amax == 0, torch.ones_like(amax), amax))
-    e = torch.clamp(budget_bits - exp, max=_MAXEXP - 1)
+    e = torch.clamp(budget_bits - exp, max=_MAXEXP[a.dtype] - 1)
     return exact_pow2(e, a.dtype)
 
 
@@ -77,13 +84,15 @@ def integerize(a: torch.Tensor, axis: int, budget_bits: int):
 
 def balanced_residues(a_int: torch.Tensor, moduli) -> torch.Tensor:
     """(p, *a.shape) int8 balanced residues of an exact-integer float
-    array, reduced in int32."""
+    array, reduced in int64 for float64 (integers up to 2^53) and in
+    int32 otherwise."""
     oversized = [int(m) for m in moduli if int(m) > 256]
     if oversized:
         raise ValueError(
             f"moduli {oversized} exceed 256: balanced residues must fit "
             "int8 — no backend lowers wider moduli")
-    ai = a_int.to(torch.int32)
+    ai = a_int.to(torch.int64 if a_int.dtype == torch.float64
+                  else torch.int32)
     outs = []
     for m in moduli:
         half = int(m) // 2
@@ -147,15 +156,22 @@ def garner_digits(residues: torch.Tensor, moduli) -> list[torch.Tensor]:
     return digits
 
 
-def mixed_radix_to_dd(digits: list[torch.Tensor], moduli):
-    """The balanced mixed-radix polynomial in float32 double-double
+def dd_dtype(out_dtype: torch.dtype) -> torch.dtype:
+    """The double-double's base type: float64 for a float64 output,
+    float32 for any other (ROADMAP.md § 3 H6)."""
+    return torch.float64 if out_dtype == torch.float64 else torch.float32
+
+
+def mixed_radix_to_dd(digits: list[torch.Tensor], moduli,
+                      dtype: torch.dtype = torch.float32):
+    """The balanced mixed-radix polynomial in double-double of ``dtype``
     (Horner, highest digit first)."""
     p = len(digits)
-    hi = digits[p - 1].to(torch.float32)
+    hi = digits[p - 1].to(dtype)
     lo = torch.zeros_like(hi)
     for i in range(p - 2, -1, -1):
         hi, lo = dd.mul_scalar(hi, lo, float(moduli[i]))
-        hi, lo = dd.add_scalar_array(hi, lo, digits[i].to(torch.float32))
+        hi, lo = dd.add_scalar_array(hi, lo, digits[i].to(dtype))
     return hi, lo
 
 
@@ -164,7 +180,8 @@ def crt_reconstruct(residues: torch.Tensor, moduli,
     """The centered representative in (-P/2, P/2] of the residues, as
     ``out_dtype``: hi and lo each rounded to it, then added in it."""
     moduli = tuple(int(m) for m in moduli)
-    hi, lo = mixed_radix_to_dd(garner_digits(residues, moduli), moduli)
+    hi, lo = mixed_radix_to_dd(garner_digits(residues, moduli), moduli,
+                               dd_dtype(out_dtype))
     return hi.to(out_dtype) + lo.to(out_dtype)
 
 
@@ -181,8 +198,8 @@ def scaled_matmul(a: torch.Tensor, b: torch.Tensor, mu: torch.Tensor,
     (..., M, 1) in a's type and nu (..., 1, N) in b's type."""
     if out_dtype not in OUT_DTYPES:
         raise NotImplementedError(
-            f"Scheme II out_dtype {out_dtype}: the port reconstructs in "
-            "float32 double-double (float64 / x64: ROADMAP.md § 1 item 3)")
+            f"Scheme II out_dtype {out_dtype}: the port reconstructs into "
+            "float32, bfloat16 or float64")
     moduli = tuple(int(m) for m in moduli)
     a_res = balanced_residues(torch.trunc(a * mu), moduli)
     b_res = balanced_residues(torch.trunc(b * nu), moduli)

@@ -18,9 +18,10 @@ from repro_torch.kernels.common import Blocks
 
 @dataclasses.dataclass(frozen=True)
 class BackendCapabilities:
-    """What a backend runs: its Ozaki schemes and real operand types
-    (Scheme II narrows them to float32 and bfloat16 on both backends,
-    ``repro_torch.core.scheme2.operand``).
+    """What a backend runs: its Ozaki schemes and operand types (Scheme
+    II narrows the real ones to float32, bfloat16 and float64 on both
+    backends, ``repro_torch.core.scheme2.operand``; a complex operand runs
+    as 3M under Scheme II and as 4M of complex64 under Scheme I).
     Both built-in backends take every shape as it is (the CUDA kernel
     masks ragged edges itself), so, unlike the reference, there is no
     alignment to pad to."""

@@ -1,10 +1,12 @@
 """The 'cuda' backend: Scheme I on the hand-written EmuGEMM-I kernel,
-Scheme II on EmuGEMM-II.
+Scheme II on EmuGEMM-II, complex Scheme II on its 3M kernel.
 
 The torch counterpart of ``repro.kernels.backends.gpu``:
 ``choose_blocks_gpu`` (here :func:`choose_blocks_cuda`),
 ``_matmul_scheme1[_batched]``, ``_matmul_scheme2[_batched]``,
-``supported_moduli`` and ``_check_moduli``. As in the reference, the
+``_matmul_3m``, ``supported_moduli`` and ``_check_moduli``; and the
+dispatcher's Scheme-I complex 4M (``dispatch._fused_2d``), which runs as
+four launches of EmuGEMM-I. As in the reference, the
 power-of-two scales, beta and the Scheme-II budget are computed outside
 the kernels, and the kernels receive them. Scheme II integerizes each
 operand in its own type with the budget of the lhs type, as the
@@ -20,21 +22,24 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import scheme2
-from repro_torch.kernels import decompose, ozaki1, ozaki2
+from repro_torch.core import complex3m, scheme1, scheme2
+from repro_torch.kernels import decompose, ozaki1, ozaki2, ozaki3m
 from repro_torch.kernels.backends.base import BackendCapabilities, KernelBackend
 from repro_torch.kernels.common import Blocks
 
 _CAPS = BackendCapabilities(
     schemes=frozenset({"ozaki1", "ozaki2"}),
-    operand_dtypes=frozenset({torch.float32, torch.bfloat16}),
+    operand_dtypes=frozenset({torch.float32, torch.bfloat16, torch.float64,
+                              torch.complex64, torch.complex128}),
 )
 
 # The one tile each kernel is compiled for: csrc/emugemm1.cu, whose K tile
-# is the interleave granularity of a prepared weight, and csrc/emugemm2.cu,
-# whose K step is the strip it integerizes once for all moduli.
+# is the interleave granularity of a prepared weight, csrc/emugemm2.cu,
+# whose K step is the strip it integerizes once for all moduli, and the 3M
+# kernel of csrc/emugemm3m.cu, whose four staged strips are half as wide.
 KERNEL_BLOCKS = Blocks(bm=64, bn=64, bk=decompose.TILE)
 SCHEME2_BLOCKS = Blocks(bm=64, bn=64, bk=64)
+SCHEME2_3M_BLOCKS = Blocks(bm=64, bn=64, bk=32)
 
 
 def choose_blocks_cuda(m: int, n: int, k: int, p: int,
@@ -43,8 +48,10 @@ def choose_blocks_cuda(m: int, n: int, k: int, p: int,
     (Scheme I) or modulus count (Scheme II) p, or None when the kernel
     has no instance for p."""
     del m, n, k
-    if scheme == "ozaki2":
-        return SCHEME2_BLOCKS if 1 <= p <= ozaki2.MAX_MODULI else None
+    if scheme in ("ozaki2", "ozaki2-3m"):
+        if not 1 <= p <= ozaki2.MAX_MODULI:
+            return None
+        return SCHEME2_BLOCKS if scheme == "ozaki2" else SCHEME2_3M_BLOCKS
     return KERNEL_BLOCKS if 1 <= p <= ozaki1.MAX_P else None
 
 
@@ -76,6 +83,8 @@ class CudaBackend(KernelBackend):
 
     def matmul(self, a, b, cfg, out_dtype, blocks):
         self.check(cfg, a, b)
+        if a.is_complex() or b.is_complex():
+            return self._matmul_complex(a, b, cfg, out_dtype, blocks)
         if cfg.scheme == "ozaki2":
             moduli = cfg.resolved_moduli()
             ozaki2.check_moduli(moduli)
@@ -89,6 +98,24 @@ class CudaBackend(KernelBackend):
         mu, nu = scales(a, b)
         return ozaki1.fused_matmul_scheme1(a, b, mu, nu, cfg.p, beta,
                                            out_dtype)
+
+    def _matmul_complex(self, a, b, cfg, out_dtype, blocks):
+        """(M, K) @ (K, N) with a complex operand -> complex: the 3M kernel
+        under Scheme II; under Scheme I, which has no complex kernel,
+        C_re = Ar Br - Ai Bi and C_im = Ar Bi + Ai Br from four EmuGEMM-I
+        launches (4M, as the reference's dispatcher runs it)."""
+        if cfg.scheme == "ozaki2":
+            moduli = cfg.resolved_moduli()
+            ozaki2.check_moduli(moduli)
+            scheme2.check_exact_k(a.shape[-1], moduli)
+            mu, nu = complex3m.scales(a, b, moduli)
+            return ozaki3m.fused_matmul_3m(a, b, mu, nu, moduli, out_dtype)
+        scheme1.check_complex_4m(a, b)
+        ar, ai = scheme1.complex_parts(a)
+        br, bi = scheme1.complex_parts(b)
+        rr, ii, ri, ir = (self.matmul(x, y, cfg, out_dtype, blocks)
+                          for x, y in ((ar, br), (ai, bi), (ar, bi), (ai, br)))
+        return torch.complex(rr - ii, ri + ir)
 
     def decompose(self, b, nu, tau, p, beta_f, beta_b):
         if tau is None:

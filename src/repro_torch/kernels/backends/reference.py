@@ -5,8 +5,9 @@ It runs Scheme I as separate torch ops (``ozaki1.fused_matmul_plain``,
 which is ``repro_torch.core.scheme1``, and the prepared-weight kernels'
 plain versions) and Scheme II likewise
 (``ozaki2.fused_matmul_scheme2_plain``, which is
-``repro_torch.core.scheme2.matmul``'s pipeline, for any moduli set) on
-whatever device the operands are on. A CUDA tensor
+``repro_torch.core.scheme2.matmul``'s pipeline, for any moduli set), and
+complex GEMMs as ``scheme1.matmul_complex_4m`` and
+``complex3m.matmul``, on whatever device the operands are on. A CUDA tensor
 reaches it only when it is asked for by name, as the bit-parity checks
 do.
 """
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import complex3m, scheme1
 from repro_torch.kernels import decompose, ozaki1, ozaki2
 from repro_torch.kernels.backends.base import BackendCapabilities, KernelBackend
 from repro_torch.kernels.backends.cuda import scales, scheme2_operands
@@ -22,7 +24,8 @@ from repro_torch.kernels.backends.cuda import scales, scheme2_operands
 _CAPS = BackendCapabilities(
     schemes=frozenset({"ozaki1", "ozaki2"}),
     operand_dtypes=frozenset({torch.float32, torch.bfloat16, torch.float16,
-                              torch.float64}),
+                              torch.float64, torch.complex64,
+                              torch.complex128}),
 )
 
 
@@ -38,6 +41,10 @@ class TorchBackend(KernelBackend):
 
     def matmul(self, a, b, cfg, out_dtype, blocks):
         self.check(cfg, a, b)
+        if a.is_complex() or b.is_complex():
+            if cfg.scheme == "ozaki2":
+                return complex3m.matmul(a, b, cfg, out_dtype)
+            return scheme1.matmul_complex_4m(a, b, cfg, out_dtype)
         if cfg.scheme == "ozaki2":
             moduli = cfg.resolved_moduli()
             a, b, mu, nu = scheme2_operands(a, b, moduli)

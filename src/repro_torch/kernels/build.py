@@ -2,8 +2,9 @@
 
 Each kernel source under ``kernels/csrc/`` exposes a plain C function.
 It is compiled on first use into ``kernels/build/`` (one shared library
-per source, named by a hash of the source and the flags, so an edited
-source is never served from a stale library) and loaded with ctypes. No
+per source, named by a hash of the source, the shared ``csrc/*.cuh``
+headers and the flags, so an edited source is never served from a stale
+library) and loaded with ctypes. No
 PyTorch header is compiled, which keeps a cold build to seconds.
 
 Nothing here runs at import time: the CPU tests import every module of
@@ -42,7 +43,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library's path, named by a hash of its source, the shared
+    headers of ``csrc/`` and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

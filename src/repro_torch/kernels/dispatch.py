@@ -15,6 +15,13 @@ Both backends take every shape as it is: the CUDA kernel zero-fills
 ragged edges in the kernel, so nothing is padded (the reference pads to
 its backend's alignment), and 'auto' never sends a CUDA tensor to the
 plain version.
+
+Complex operands run with a real interior: the output type of a complex
+problem is the real type of its parts, and the backend assembles the
+complex result (Scheme II: the fused 3M kernel, block-cache key
+'ozaki2-3m'; Scheme I: 4M, four real launches). A batched complex problem
+runs as one 2-D launch per batch element, which is what the reference's
+vmap fallback computes (it has no batched 3M kernel either).
 """
 
 from __future__ import annotations
@@ -102,14 +109,6 @@ def _refuse_cfg(cfg: EmulationConfig) -> None:
             "(PreparedResidues), not ported yet (ROADMAP.md § 1 item 3)")
 
 
-def _refuse_outside_slice(cfg: EmulationConfig, a, b) -> None:
-    _refuse_cfg(cfg)
-    if a.is_complex() or b.is_complex():
-        raise NotImplementedError(
-            "complex emulated GEMMs (Scheme I 4M, Scheme II 3M) are not "
-            "ported yet (ROADMAP.md § 1 item 3)")
-
-
 @dataclasses.dataclass(frozen=True)
 class GemmPlan:
     cfg: EmulationConfig
@@ -122,6 +121,18 @@ class GemmPlan:
     batch: int = 1
 
 
+def _complex(a, b) -> bool:
+    return a.is_complex() or b.is_complex()
+
+
+def _scheme_key(cfg: EmulationConfig, a, b) -> str:
+    """The block-cache key: 'ozaki2-3m' for a complex problem under
+    Scheme II, whose kernel has its own tile, else the scheme."""
+    if cfg.scheme == "ozaki2" and _complex(a, b):
+        return "ozaki2-3m"
+    return cfg.scheme
+
+
 def _p_eff(cfg: EmulationConfig) -> int:
     """The residue count the tiles budget for: slices (Scheme I) or
     moduli (Scheme II; an explicit tuple may disagree with cfg.p)."""
@@ -129,30 +140,41 @@ def _p_eff(cfg: EmulationConfig) -> int:
             else cfg.p)
 
 
-def _out_dtype(cfg: EmulationConfig, a, b, out_dtype) -> torch.dtype:
+def _promoted(cfg: EmulationConfig, a, b, out_dtype) -> torch.dtype:
     if out_dtype is None and cfg.out_dtype is not None:
         out_dtype = getattr(torch, cfg.out_dtype)
     return out_dtype or torch.promote_types(a.dtype, b.dtype)
 
 
+def _out_dtype(cfg: EmulationConfig, a, b, out_dtype) -> torch.dtype:
+    """The emulated output type; for a complex problem the real type of
+    its parts (its interior is real and the complex result is assembled
+    at the end)."""
+    out_dtype = _promoted(cfg, a, b, out_dtype)
+    if _complex(a, b):
+        out_dtype = torch.empty((), dtype=out_dtype).real.dtype
+    return out_dtype
+
+
 def plan_emulated(a: torch.Tensor, b: torch.Tensor, cfg: EmulationConfig,
                   out_dtype=None, backend: str | None = None) -> GemmPlan:
     """Backend, output type and cached blocks for one 2-D GEMM."""
-    _refuse_outside_slice(cfg, a, b)
+    _refuse_cfg(cfg)
     m, k = a.shape
     n = b.shape[1]
     out_dtype = _out_dtype(cfg, a, b, out_dtype)
     name = backends.resolve_backend_name(backend, cfg, a.device)
     blocks = select_blocks(m, n, k, _p_eff(cfg), out_dtype.itemsize, name,
-                           scheme=cfg.scheme)
+                           scheme=_scheme_key(cfg, a, b))
     return GemmPlan(cfg, m, n, k, out_dtype, blocks, name)
 
 
 def plan_emulated_batched(a: torch.Tensor, b: torch.Tensor,
                           cfg: EmulationConfig, out_dtype=None,
                           backend: str | None = None) -> GemmPlan:
-    """Backend, output type and blocks for one (B, M, K) @ (B, K, N)."""
-    _refuse_outside_slice(cfg, a, b)
+    """Backend, output type and blocks for one (B, M, K) @ (B, K, N) of
+    real operands."""
+    _refuse_cfg(cfg)
     batch, m, k = a.shape
     n = b.shape[-1]
     out_dtype = _out_dtype(cfg, a, b, out_dtype)
@@ -188,7 +210,7 @@ def emulated_matmul(a: torch.Tensor, b: torch.Tensor, *, cfg=None,
             f"{tuple(b.shape)} — use repro_torch.api.einsum or "
             "emulated_matmul_batched")
     if cfg.scheme == "native":
-        out = _out_dtype(cfg, a, b, out_dtype)
+        out = _promoted(cfg, a, b, out_dtype)
         return torch.matmul(a.to(out), b.to(out))
     plan = plan_emulated(a, b, cfg, out_dtype, backend)
     return backends.get_backend(plan.backend).matmul(
@@ -202,7 +224,8 @@ def emulated_matmul_batched(a: torch.Tensor, b: torch.Tensor, *, cfg=None,
 
     * ``b`` 2-D: leading dims of ``a`` flatten into M — one 2-D launch;
     * matching leading axes: ONE strided-batched launch over the
-      collapsed leading axes.
+      collapsed leading axes; complex operands, one 2-D launch per batch
+      element.
     """
     if b.dim() == 2:
         lead = a.shape[:-1]
@@ -218,9 +241,14 @@ def emulated_matmul_batched(a: torch.Tensor, b: torch.Tensor, *, cfg=None,
     a3 = a.reshape((-1,) + tuple(a.shape[-2:]))
     b3 = b.reshape((-1,) + tuple(b.shape[-2:]))
     if cfg.scheme == "native":
-        out = _out_dtype(cfg, a, b, out_dtype)
+        out = _promoted(cfg, a, b, out_dtype)
         return torch.matmul(a3.to(out), b3.to(out)).reshape(
             *lead, a.shape[-2], b.shape[-1])
+    if _complex(a3, b3):
+        out = torch.stack([emulated_matmul(x, y, cfg=cfg, out_dtype=out_dtype,
+                                           backend=backend)
+                           for x, y in zip(a3, b3)])
+        return out.reshape(*lead, out.shape[-2], out.shape[-1])
     plan = plan_emulated_batched(a3, b3, cfg, out_dtype, backend)
     out = backends.get_backend(plan.backend).matmul(
         a3, b3, cfg, plan.out_dtype, plan.blocks)
@@ -229,7 +257,10 @@ def emulated_matmul_batched(a: torch.Tensor, b: torch.Tensor, *, cfg=None,
 
 def auto_fused_matmul(a: torch.Tensor, b: torch.Tensor, cfg: EmulationConfig):
     """'auto'-impl hook: the emulated GEMM on the selected backend for a
-    real 2-D problem, else None (native configs)."""
+    2-D problem, else None (native configs). Unlike the reference, which
+    sends a complex Scheme-I problem to its XLA expansion, a CUDA tensor
+    never goes to a plain version here: 4M runs as four EmuGEMM-I
+    launches (equal, bit for bit, to ``scheme1.matmul_complex_4m``)."""
     if a.dim() != 2 or b.dim() != 2 or cfg.scheme == "native":
         return None
     return emulated_matmul(a, b, cfg=cfg)

@@ -2,12 +2,15 @@
 versions and launch counts.
 
 * :func:`fused_matmul_scheme2` takes (M, K) @ (K, N) or, strided over a
-  batch, (B, M, K) @ (B, K, N) float32 / bfloat16 operands with their
-  power-of-two integerization scales mu (..., M, 1) in a's type and nu
-  (..., 1, N) in b's type, and returns the Scheme-II product in
-  ``out_dtype``: integerize and carve residues in the prologue, one int8
-  GEMM per modulus, modular reduction and the CRT in the epilogue. Its
-  plain version is ``repro_torch.core.scheme2.scaled_matmul``.
+  batch, (B, M, K) @ (B, K, N) operands with their power-of-two
+  integerization scales mu (..., M, 1) in a's type and nu (..., 1, N) in
+  b's type, and returns the Scheme-II product in ``out_dtype``:
+  integerize and carve residues in the prologue, one int8 GEMM per
+  modulus, modular reduction and the CRT in the epilogue. The kernel
+  takes float32 and bfloat16 operands in any pairing with a float32,
+  bfloat16 or float64 output, and float64 operands (both) with a float64
+  or float32 output. Its plain version is
+  ``repro_torch.core.scheme2.scaled_matmul``.
 * :func:`fused_residue_matmul` takes (p, M, K) and (p, K, N) balanced int8
   residues and returns the balanced int8 residues (p, M, N) of their
   products mod each modulus. Its plain version is the reference's oracle
@@ -33,7 +36,8 @@ from repro_torch.core import scheme2
 # The kernel unrolls its CRT over at most 16 moduli, each <= 256 (the
 # reference's gpu.MAX_MODULI).
 MAX_MODULI = 16
-_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+# The kernel's type codes (csrc/emugemm2.cu).
+TYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 _INT_P = ctypes.POINTER(ctypes.c_int)
 
 
@@ -119,16 +123,21 @@ def _check(a, b, mu, nu, moduli, out_dtype):
         raise ValueError("emugemm2: all operands must be CUDA tensors")
     if len({x.device for x in xs}) != 1:
         raise ValueError("emugemm2: operands on different devices")
-    if a.dtype not in _KERNEL_DTYPES or b.dtype not in _KERNEL_DTYPES:
+    if a.dtype not in TYPE_CODE or b.dtype not in TYPE_CODE:
         raise NotImplementedError(
-            f"emugemm2 takes float32 or bfloat16 operands, got {a.dtype} @ "
-            f"{b.dtype} (float64 / x64: ROADMAP.md § 1 item 3)")
+            f"emugemm2 takes float32, bfloat16 or float64 operands, got "
+            f"{a.dtype} @ {b.dtype}")
     if mu.dtype != a.dtype or nu.dtype != b.dtype:
         raise ValueError(f"emugemm2: scales in the operands' types, got mu "
                          f"{mu.dtype} for {a.dtype}, nu {nu.dtype} for "
                          f"{b.dtype}")
-    if out_dtype not in _KERNEL_DTYPES:
-        raise NotImplementedError(f"emugemm2: out_dtype {out_dtype}")
+    f64 = torch.float64 in (a.dtype, b.dtype)
+    if out_dtype not in TYPE_CODE or (f64 and (
+            a.dtype != b.dtype or out_dtype == torch.bfloat16)):
+        raise NotImplementedError(
+            f"emugemm2 has no instance for {a.dtype} @ {b.dtype} -> "
+            f"{out_dtype}: float64 operands come in pairs, with a float64 "
+            "or float32 output")
     check_moduli(moduli)
 
 
@@ -152,8 +161,8 @@ def _launch(a3, b3, mu3, nu3, moduli, out_dtype):
             out.data_ptr(), batch, m, n, k,
             a3.stride(0), a3.stride(1), a3.stride(2),
             b3.stride(0), b3.stride(1), b3.stride(2),
-            int(a3.dtype == torch.bfloat16), int(b3.dtype == torch.bfloat16),
-            int(out_dtype == torch.bfloat16), len(moduli), mods, inv, stream)
+            TYPE_CODE[a3.dtype], TYPE_CODE[b3.dtype], TYPE_CODE[out_dtype],
+            len(moduli), mods, inv, stream)
     if rc != 0:
         raise RuntimeError(f"emugemm2 launch failed (code {rc}) for "
                            f"{(batch, m, k, n)} moduli={moduli}")

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: EmuGEMM-I in its three launch
-forms, the prepared-weight decomposition (K2, K2r) and EmuGEMM-II in its
-three launch forms (K5g, K6, K5) against their plain versions, bit for
-bit, the dispatcher's routing of CUDA tensors, and train steps that
-launch them.
+forms, the prepared-weight decomposition (K2, K2r), EmuGEMM-II in its
+three launch forms (K5g, K6, K5; float32, bfloat16 and float64) and its
+complex 3M kernels (K7g, K7) against their plain versions, bit for bit,
+the dispatcher's routing of CUDA tensors (complex 4M included), and train
+steps that launch them.
 
 These tests need an NVIDIA GPU and nvcc; they skip elsewhere. This file
 imports no jax, so it runs where only torch is installed:
@@ -14,9 +15,11 @@ import pytest
 import torch
 
 from _torch_util import cuda_device  # noqa: F401
-from repro_torch.core import scheme1, scheme2
-from repro_torch.core.precision import default_moduli
-from repro_torch.kernels import decompose, dispatch, ops, ozaki1, ozaki2
+from repro_torch.core import complex3m, scheme1, scheme2
+from repro_torch.core.precision import (DEFAULT_MODULI, EmulationConfig,
+                                        default_moduli)
+from repro_torch.kernels import (decompose, dispatch, ops, ozaki1, ozaki2,
+                                 ozaki3m)
 
 pytestmark = pytest.mark.cuda
 
@@ -156,10 +159,12 @@ def test_scheme2_routes_agree_and_refuse_on_card(cuda_device):
     assert ozaki2.COUNTS.launches_2d == 1
     assert ozaki2.COUNTS.launches_residues == 1
     assert ozaki2.COUNTS.plain_cuda_calls == 0
+    # float64 operands come in pairs, and never with a bf16 output.
+    a64, b64 = a.double(), b.double()
     with pytest.raises(NotImplementedError):
-        ozaki2.fused_matmul_scheme2(a.double(), b.double(),
-                                    *scheme2.scales(a, b, default_moduli(6)),
-                                    default_moduli(6), torch.float32)
+        ozaki2.fused_matmul_scheme2(a64, b64,
+                                    *scheme2.scales(a64, b64, default_moduli(6)),
+                                    default_moduli(6), torch.bfloat16)
 
 
 def test_emu_train_step_launches_scheme2(cuda_device):
@@ -180,3 +185,129 @@ def test_emu_train_step_launches_scheme2(cuda_device):
     assert ozaki1.COUNTS.launches_mixed > 0
     assert ozaki2.COUNTS.plain_cuda_calls == 0
     assert ozaki1.COUNTS.plain_cuda_calls == 0
+
+
+def _eq19(g, shape, dtype, dev):
+    """Paper Eq. 19 matrices drawn in the working type (a complex one has
+    two such parts), so float64 carries all 53 mantissa bits."""
+    part = (torch.float64 if dtype in (torch.float64, torch.complex128)
+            else torch.float32)
+
+    def draw():
+        return (torch.rand(shape, generator=g, device=dev, dtype=part)
+                - 0.5) * torch.exp(2 * torch.randn(shape, generator=g,
+                                                   device=dev, dtype=part))
+    return torch.complex(draw(), draw()) if dtype.is_complex else draw()
+
+
+@pytest.mark.parametrize("p", [8, 12, 16])
+def test_scheme2_float64_bit_identical_to_plain_on_card(cuda_device, p):
+    """EmuGEMM-II in float64: K5g (2-D; float64 out, float32 out, and
+    float32 operands to a float64 out), K6 (batched, transposed views) and
+    the residue route of ops.fused_scheme2_matmul."""
+    g = torch.Generator(device=cuda_device).manual_seed(100 + p)
+    moduli = default_moduli(p)
+    f64 = torch.float64
+    for (m, k, n, batch, trans) in [(200, 136, 72, None, False),
+                                    (64, 96, 80, None, True),
+                                    (16, 128, 80, 8, True)]:
+        lead = () if batch is None else (batch,)
+        a = _eq19(g, lead + (m, k), f64, cuda_device)
+        b = (_eq19(g, lead + (n, k), f64, cuda_device).transpose(-1, -2)
+             if trans else _eq19(g, lead + (k, n), f64, cuda_device))
+        for x, y, out_t in ((a, b, f64), (a, b, torch.float32),
+                            (a.float(), b.float(), f64)):
+            mu, nu = scheme2.scales(x, y, moduli)
+            out = ozaki2.fused_matmul_scheme2(x, y, mu, nu, moduli, out_t)
+            ref = ozaki2.fused_matmul_scheme2_plain(x, y, mu, nu, moduli,
+                                                    out_t)
+            torch.cuda.synchronize()
+            assert out.dtype == out_t
+            assert torch.equal(out, ref), (m, k, n, batch, x.dtype, out_t)
+    a, b = _eq19(g, (100, 200), f64, cuda_device), _eq19(g, (200, 77), f64,
+                                                         cuda_device)
+    ozaki2.COUNTS.reset()
+    fused = dispatch.emulated_matmul(a, b, cfg=f"ozaki2-m{p}")
+    routed = ops.fused_scheme2_matmul(a, b, f"ozaki2-m{p}", out_dtype=f64)
+    assert fused.dtype == f64 and torch.equal(fused, routed)
+    assert (ozaki2.COUNTS.launches_2d, ozaki2.COUNTS.launches_residues,
+            ozaki2.COUNTS.plain_cuda_calls) == (1, 1, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("p", [4, 8, 12, 16])
+def test_3m_kernels_bit_identical_to_plain_on_card(cuda_device, dtype, p):
+    """K7g against complex3m.scaled_matmul (ragged, a transposed view,
+    complex @ real and real @ complex, rows of tiny magnitude whose
+    1 / (mu * nu) is subnormal), and K7 against its plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(200 + p)
+    moduli = default_moduli(p)
+    part = torch.float64 if dtype == torch.complex128 else torch.float32
+    a = _eq19(g, (200, 136), dtype, cuda_device)
+    a[:3] *= 2.0 ** -120 if part == torch.float32 else 2.0 ** -1000
+    b = _eq19(g, (136, 72), dtype, cuda_device)
+    bt = _eq19(g, (72, 136), dtype, cuda_device).T
+    cases = [(a, b), (a, bt), (a, b.real.contiguous()), (a.real.contiguous(), b),
+             (a[:64, :96], b[:96, :64])]
+    for out_t in (part, torch.float32 if part == torch.float64
+                  else torch.float64):
+        for x, y in cases:
+            mu, nu = complex3m.scales(x, y, moduli)
+            out = ozaki3m.fused_matmul_3m(x, y, mu, nu, moduli, out_t)
+            ref = ozaki3m.fused_matmul_3m_plain(x, y, mu, nu, moduli, out_t)
+            torch.cuda.synchronize()
+            assert out.dtype == ref.dtype
+            assert torch.equal(out, ref), (tuple(x.shape), x.dtype, y.dtype,
+                                           out_t)
+    for (m, k, n) in [(100, 200, 77), (128, 128, 128)]:
+        a3 = torch.randint(-128, 128, (p, 3, m, k), generator=g,
+                           device=cuda_device, dtype=torch.int8)
+        b3 = torch.randint(-128, 128, (p, 3, k, n), generator=g,
+                           device=cuda_device, dtype=torch.int8)
+        out = ozaki3m.fused_3m_residue_matmul(a3, b3, moduli)
+        ref = ozaki3m.fused_3m_residue_matmul_plain(a3, b3, moduli)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(out, ref)), (m, k, n)
+
+
+def test_complex_routes_on_card(cuda_device):
+    """The front doors launch K7g (and ops.fused_3m_matmul K7) with no
+    plain version on CUDA; complex64 under ozaki1 is four EmuGEMM-I
+    launches equal to matmul_complex_4m; what the port does not run
+    raises instead of falling back."""
+    from repro_torch import api
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    a = _eq19(g, (96, 160), torch.complex128, cuda_device)
+    b = _eq19(g, (160, 40), torch.complex128, cuda_device)
+    ozaki3m.COUNTS.reset()
+    out = api.einsum("mk,kn->mn", a, b, precision="ozaki2-m12")
+    direct = ozaki3m.fused_matmul_3m(
+        a, b, *complex3m.scales(a, b, default_moduli(12)),
+        default_moduli(12), torch.float64)
+    routed = ops.fused_3m_matmul(a, b, "ozaki2-m12")
+    assert out.dtype == torch.complex128
+    assert torch.equal(out, direct) and torch.equal(out, routed)
+    assert (ozaki3m.COUNTS.launches_2d, ozaki3m.COUNTS.launches_residues,
+            ozaki3m.COUNTS.plain_cuda_calls) == (2, 1, 0)
+    # A complex batch runs one 2-D launch per element.
+    za = a[:64].reshape(2, 32, 160)
+    zb = b[:, :32].reshape(160, 2, 16).permute(1, 0, 2)
+    batched = api.einsum("bmk,bkn->bmn", za, zb, precision="ozaki2-m12")
+    assert ozaki3m.COUNTS.launches_2d == 4
+    assert torch.equal(batched[1], api.einsum(
+        "mk,kn->mn", za[1], zb[1], precision="ozaki2-m12"))
+    a64, b64 = a.to(torch.complex64), b.to(torch.complex64)
+    ozaki1.COUNTS.reset()
+    out = api.einsum("mk,kn->mn", a64, b64, precision="ozaki1-p4")
+    assert ozaki1.COUNTS.launches_2d == 4
+    assert ozaki1.COUNTS.plain_cuda_calls == 0
+    assert torch.equal(out, dispatch.emulated_matmul(a64, b64, cfg="ozaki1-p4",
+                                                     backend="torch"))
+    with pytest.raises(NotImplementedError, match="complex128"):
+        dispatch.emulated_matmul(a, b, cfg="ozaki1-p4")
+    cfg17 = EmulationConfig(scheme="ozaki2", p=17,
+                            moduli=DEFAULT_MODULI + (181,))
+    with pytest.raises(NotImplementedError, match="at most 16 moduli"):
+        dispatch.emulated_matmul(a, b, cfg=cfg17)
+    with pytest.raises(NotImplementedError, match="forward only"):
+        api.einsum("mk,kn->mn", a.requires_grad_(), b, precision="ozaki2-m8")

@@ -120,12 +120,23 @@ def test_outside_the_slice_raises(spec, err):
 
 
 def test_native_and_complex():
+    """Native is a plain matmul (complex stays complex); complex64 runs as
+    Scheme I's 4M and Scheme II's 3M (their parity with the reference:
+    tests/test_torch_complex3m.py); complex128 under Scheme I raises."""
+    from repro_torch.core import complex3m, scheme1
     a, b = torch.randn(4, 8), torch.randn(8, 3)
     torch.testing.assert_close(
         dispatch.emulated_matmul(a, b, cfg="native"), a @ b)
-    with pytest.raises(NotImplementedError):
-        dispatch.emulated_matmul(a.to(torch.complex64), b.to(torch.complex64),
-                                 cfg="ozaki1-p4")
-    with pytest.raises(NotImplementedError, match="3M"):
-        dispatch.emulated_matmul(a.to(torch.complex64), b.to(torch.complex64),
-                                 cfg="ozaki2-m6")
+    ac = torch.complex(a, a.flip(0))
+    bc = torch.complex(b, b.flip(1))
+    torch.testing.assert_close(
+        dispatch.emulated_matmul(ac, bc, cfg="native"), ac @ bc)
+    assert torch.equal(
+        dispatch.emulated_matmul(ac, bc, cfg="ozaki1-p4"),
+        scheme1.matmul_complex_4m(ac, bc, EmulationConfig(scheme="ozaki1")))
+    assert torch.equal(
+        dispatch.emulated_matmul(ac, bc, cfg="ozaki2-m6"),
+        complex3m.matmul(ac, bc, EmulationConfig(scheme="ozaki2", p=6)))
+    with pytest.raises(NotImplementedError, match="complex128"):
+        dispatch.emulated_matmul(ac.to(torch.complex128),
+                                 bc.to(torch.complex128), cfg="ozaki1-p4")
