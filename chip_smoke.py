@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Drives repro_torch only (no jax, nothing of the reference package) on the
-card, with no CPU fallback, in fifteen phases:
+card, with no CPU fallback, in eighteen phases:
 
 1. build: nvcc compiles the port's CUDA kernels from this checkout, one
    process per source, in parallel;
@@ -55,7 +55,10 @@ card, with no CPU fallback, in fifteen phases:
 13. emu train: full-width olmo-1b-emu, one warm-up and three timed steps
     of 8 x 128 tokens, launch counts read around them, three more traced;
 14. emu train parity: under deterministic algorithms one step's loss and
-    every gradient leaf are bit-identical on 'cuda' and 'torch';
+    every gradient leaf are bit-identical on 'cuda' and 'torch', and with
+    2 microbatches the weights prepared once for the step (the hoist,
+    through EmuGEMM-I's pair and mixed forms) give the float32 mean of
+    the halves' per-call-cached gradients, bit for bit;
 15. scientific GEMMs: the complex 3M kernels (K7g, fused from the float
     parts; K7, on residues) and EmuGEMM-II in float64 are held against
     their plain versions bit for bit (complex64 and complex128, m in
@@ -67,7 +70,23 @@ card, with no CPU fallback, in fifteen phases:
     M = N = K = 4096 (m in {8, 12, 16}) and 8192 (m = 16) are timed beside
     their bounds, the plain versions, torch._int_mm and cuBLAS, with the
     effective bits of the kernel and of cuBLAS against a longdouble
-    product of 64 sampled rows on the host.
+    product of 64 sampled rows on the host;
+16. prepared kernel: EmuGEMM-II's prepared form (a float lhs against a
+    weight's int8 residue planes) is held against its plain version and
+    against the float-rhs form bit for bit at olmo-1b's train shapes
+    (forward and dA at 1024 and 512 tokens, ragged M, N and K, the tied
+    head), bf16 and float32 at m in {6, 8, 16} and float64 at m = 16, and
+    timed per hoisted step beside its bound, its plain version and the
+    float-rhs form;
+17. hoisted train: full-width olmo-1b under ozaki2-m6+cached with 2
+    microbatches of 4 x 128 tokens: one warm-up and three timed steps
+    with the launch counts by kernel form and the prepare_rhs calls read
+    around them (each weight prepared once a step), then three steps
+    traced by torch.profiler (device activity only);
+18. hoisted train parity: under deterministic algorithms, one step's loss
+    and float32 gradients with the hoisted preps equal the mean of the
+    halves' per-call-cached ones, the uncached ozaki2-m6 ones, and those
+    of the 'torch' backend, bit for bit.
 
 Any failure exits non-zero and prints no result. The line before the
 last is a JSON object listing each kernel; the last line is
@@ -76,6 +95,8 @@ last is a JSON object listing each kernel; the last line is
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -102,7 +123,7 @@ from repro_torch.core import complex3m, scheme1, scheme2  # noqa: E402
 from repro_torch.core.precision import default_moduli  # noqa: E402
 from repro_torch.data import make_batch_iterator  # noqa: E402
 from repro_torch.kernels import (build, decompose, dispatch, ops,  # noqa: E402
-                                 ozaki1, ozaki2, ozaki3m)
+                                 ozaki1, ozaki2, ozaki3m, prepared)
 from repro_torch.launch import steps as S, train as train_cli  # noqa: E402
 from repro_torch.launch.serve import build_trace  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -143,6 +164,12 @@ SCI_M_FRONT = 12
 SCI_BATCHED = (8, 512, 512)
 SCI_BIG = SCI_4M_N = 1024
 EVAL_ROWS, SCI_ROWS = 64, 256
+# Training under Scheme II with the once-per-step weight hoist: TOKENS a
+# step in HOIST_MICRO microbatches, the prepared form checked at
+# HOIST_M_CHECK moduli.
+HOIST_SPEC = f"ozaki2-m{M_MAIN}+cached"
+HOIST_MICRO = 2
+HOIST_M_CHECK = (6, 8, 16)
 
 
 def log(*args):
@@ -1096,6 +1123,268 @@ def scheme2_library_phase(dev, mcfg):
 
 
 # ---------------------------------------------------------------------------
+# Phases 16-18: EmuGEMM-II's prepared form, and training under
+# ozaki2-m6+cached with gradient accumulation and the once-per-step hoist.
+# ---------------------------------------------------------------------------
+
+def micro_arch(arch):
+    """``arch`` accumulating gradients over HOIST_MICRO microbatches."""
+    return dataclasses.replace(arch, train=dataclasses.replace(
+        arch.train, microbatches=HOIST_MICRO))
+
+
+@contextlib.contextmanager
+def counting_preps():
+    """Count every ``prepared.prepare_rhs`` call inside the block."""
+    calls = {"n": 0}
+    real = prepared.prepare_rhs
+
+    def counted(*args, **kw):
+        calls["n"] += 1
+        return real(*args, **kw)
+
+    prepared.prepare_rhs = counted
+    try:
+        yield calls
+    finally:
+        prepared.prepare_rhs = real
+
+
+def hoisted_shapes(mcfg):
+    """The prepared form's GEMMs in one hoisted train step of TOKENS
+    tokens in HOIST_MICRO microbatches: (label, m, k, n, b transposed,
+    count per step). Each layer weight's forward runs twice (remat) and
+    its dA once per microbatch; the tied head (emb.T, prepared per call)
+    once each."""
+    m = TOKENS // HOIST_MICRO
+    out = []
+    for k, n, tr, c in weight_shapes(mcfg):
+        r = 1 if tr else 2
+        out += [(f"fwd K={k} N={n}", m, k, n, tr, HOIST_MICRO * r * c),
+                (f"dA K={n} N={k}", m, n, k, not tr, HOIST_MICRO * c)]
+    return out
+
+
+def hoisted_launches(mcfg):
+    """Launches and preps per hoisted step, by kernel form."""
+    w = sum(c for _, _, tr, c in weight_shapes(mcfg) if not tr)
+    return {"prepared": sum(c for *_, c in hoisted_shapes(mcfg)),
+            "2d": HOIST_MICRO * (w + 1),                      # dB
+            "batched": HOIST_MICRO * 2 * 4 * chunk_pairs(mcfg, TRAIN_SEQ)
+            * mcfg.n_layers,                     # attn_qk and attn_av
+            "preps": w + HOIST_MICRO}            # the head, per microbatch
+
+
+def prepared_bound(m, k, n, p, in_bytes, out_bytes):
+    """Least time of the prepared form: the lhs and both scales read once,
+    the weight's p int8 planes read once, the output written once,
+    against p int8 GEMMs at the int8 peak."""
+    moved = in_bytes * (m * k + m + n) + p * k * n + out_bytes * m * n
+    ops_ = p * 2 * m * n * k
+    t_b, t_o = moved / HBM_BYTES_PER_S, ops_ / INT8_OPS_PER_S
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def prepared_kernel_phase(dev, mcfg):
+    """The prepared form against its plain version bit for bit, and
+    against the float-rhs form on the same operands, at olmo-1b's train
+    shapes (forward and dA, 1024 tokens and the hoisted step's 512),
+    ragged M, N and K, the tied head, bf16 and float32 at m in
+    HOIST_M_CHECK, float64 at one shape; then timed per hoisted step
+    beside its bound, its plain version and the float-rhs form."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    d, f = mcfg.d_model, mcfg.d_ff
+    vp = pad_vocab(mcfg.vocab)
+    max_err = {"prepared": 0.0}
+    checks = 0
+
+    def case(m, k, n, dtype, p, tr=False):
+        moduli = default_moduli(p)
+        cfg = api.precision(f"ozaki2-m{p}")
+        b = make_weight(gen, k, n, tr, dtype, dev)
+        a = conditioned(gen, (m, k), dtype, dev)
+        prep = prepared.prepare_rhs(b, cfg)
+        if prep.layout != "fused":
+            raise AssertionError(f"a CUDA weight prepared as {prep.layout}")
+        mu = scheme2._pow2_int_scale(a, -1, min(
+            prep.budget_bits, scheme2.MANTISSA[dtype]))
+        out = ozaki2.fused_matmul_scheme2_prepared(
+            a, prep.residues, mu, prep.scale, moduli, dtype, n)
+        ref = ozaki2.fused_matmul_scheme2_prepared_plain(
+            a, prep.residues, mu, prep.scale, moduli, dtype, n)
+        what = f"emugemm2 prepared {(m, k, n)} {dtype} m={p}"
+        check_equal(what, out, ref, max_err, "prepared")
+        mu2, nu2 = scheme2.scales(a, b, moduli)
+        float_rhs = ozaki2.fused_matmul_scheme2(a, b, mu2, nu2, moduli, dtype)
+        if not torch.equal(out, float_rhs):
+            raise AssertionError(f"{what}: != the float-rhs form")
+
+    cases = [(mm, k, n) for mm in (TOKENS, TOKENS // HOIST_MICRO)
+             for k, n in ((d, d), (d, f), (f, d))]
+    cases += [(1000, d, d), (TOKENS, d, 1990), (TOKENS, 2040, d)]
+    for dtype in (torch.bfloat16, torch.float32):
+        for p in HOIST_M_CHECK:
+            for m, k, n in cases:
+                case(m, k, n, dtype, p)
+                checks += 1
+    for m, k, n, tr in ((TOKENS // HOIST_MICRO, d, vp, True),
+                        (TOKENS // HOIST_MICRO, vp, d, False)):
+        case(m, k, n, torch.bfloat16, M_MAIN, tr)
+        checks += 1
+    case(TOKENS, d, d, torch.float64, 16)
+    checks += 1
+    log(f"[prepared-kernel] {checks} shape/type/moduli cases bit-identical "
+        "to the plain version and to the float-rhs form")
+
+    # Timing at the hoisted step's configuration (bf16, m = 6), per shape
+    # and summed over one step; each weight's planes rotate past the L2.
+    bf, moduli = torch.bfloat16, default_moduli(M_MAIN)
+    cfg = api.precision(f"ozaki2-m{M_MAIN}")
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
+              "ops_ms": 0.0, "yardstick_ms": 0.0, "float_rhs_ms": 0.0}
+    for lbl, m, k, n, tr, count in hoisted_shapes(mcfg):
+        copies = max(1, math.ceil(2 * L2_BYTES / (M_MAIN * k * n)))
+        bs = [make_weight(gen, k, n, tr, bf, dev) for _ in range(copies)]
+        preps = [prepared.prepare_rhs(b, cfg) for b in bs]
+        a = conditioned(gen, (m, k), bf, dev)
+        mu = scheme2._pow2_int_scale(a, -1, preps[0].budget_bits)
+        nus = [scheme2._pow2_int_scale(b, -2, preps[0].budget_bits)
+               for b in bs]
+        it = iter(range(10 ** 9))
+
+        def rot(fn):
+            def run():
+                i = next(it) % copies
+                fn(bs[i], nus[i], preps[i])
+            return run
+
+        ms = time_ms(rot(lambda b, nu, pr: ozaki2.fused_matmul_scheme2_prepared(
+            a, pr.residues, mu, pr.scale, moduli, bf, n)), 10)
+        plain = time_ms(rot(
+            lambda b, nu, pr: ozaki2.fused_matmul_scheme2_prepared_plain(
+                a, pr.residues, mu, pr.scale, moduli, bf, n)), 2)
+        float_rhs = time_ms(rot(lambda b, nu, pr: ozaki2.fused_matmul_scheme2(
+            a, b, mu, nu, moduli, bf)), 5)
+        yard = time_ms(int_mm_yardstick(gen, dev, 1, m, k, n, M_MAIN), 3)
+        bms, by = prepared_bound(m, k, n, M_MAIN, 2, 2)
+        _add(totals, count, ms, plain, yard, bms, by)
+        totals["float_rhs_ms"] += count * float_rhs
+        log(f"[prepared-kernel] {lbl} M={m}{' (B transposed)' if tr else ''}"
+            f" x{count}/step: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"float-rhs form {float_rhs:.4f} ms, bound {bms:.4f} ms ({by}), "
+            f"yardstick torch._int_mm x{M_MAIN} {yard:.4f} ms")
+        del bs, preps
+    log(f"[prepared-kernel] per hoisted step: kernel {totals['ms']:.3f} ms, "
+        f"plain {totals['plain_ms']:.3f} ms, float-rhs form "
+        f"{totals['float_rhs_ms']:.3f} ms, bound {totals['bound_ms']:.3f} ms")
+    return max_err, totals
+
+
+def hoisted_train_phase(dev, arch, card: str):
+    """Full-width ``arch`` under HOIST_SPEC with HOIST_MICRO microbatches:
+    one warm-up and TRAIN_STEPS timed steps with the launch counts and
+    prepare_rhs calls read around them, then TRAIN_STEPS traced."""
+    from torch.profiler import ProfilerActivity, profile
+    arch = micro_arch(arch)
+    mcfg = arch.model
+    tag = f"[hoist {mcfg.name}]"
+    step = S.make_train_step(arch, policy=GemmPolicy(
+        default=api.precision(HOIST_SPEC)))
+    run = {"state": S.init_state(arch, 0, dev)}
+    batches = train_batches(arch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with counting_preps() as calls:
+        reset_counts()
+        losses, warm = run_steps(step, run, batches, 1)
+        timed, walls = run_steps(step, run, batches, TRAIN_STEPS)
+        k1, k2, k3 = snapshot_counts()
+        n_preps = calls["n"]
+    losses += timed
+    peak = torch.cuda.max_memory_allocated(dev)
+    tok_s = TRAIN_STEPS * TOKENS / sum(walls)
+    n_run = 1 + TRAIN_STEPS
+    plain = k1.plain_cuda_calls + k2.plain_cuda_calls + k3.plain_cuda_calls
+    launches = {"prepared": k3.launches_prepared, "2d": k3.launches_2d,
+                "batched": k3.launches_batched,
+                "residues": k3.launches_residues,
+                "emugemm1": k1.launches_2d + k1.launches_batched
+                + k1.launches_mixed,
+                "decompose": k2.launches_pair + k2.launches_rhs,
+                "plain_on_cuda": plain}
+    log(f"{tag} 1 + {TRAIN_STEPS} steps of {HOIST_MICRO} x "
+        f"{TOKENS // HOIST_MICRO} tokens under {HOIST_SPEC}: losses {losses}, "
+        f"warm-up wall s {warm[0]:.3f}, timed step wall s "
+        f"{[round(w, 3) for w in walls]}, {tok_s:.1f} tokens/s over the "
+        f"timed steps, peak memory {peak / 2 ** 30:.2f} GiB on {card}; "
+        f"launches {json.dumps(launches)}; prepare_rhs calls {n_preps}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss {losses}")
+    expect = hoisted_launches(mcfg)
+    got = (k3.launches_prepared, k3.launches_2d, k3.launches_batched,
+           n_preps)
+    want = tuple(n_run * expect[k]
+                 for k in ("prepared", "2d", "batched", "preps"))
+    if got != want or launches["emugemm1"] or launches["decompose"]:
+        raise AssertionError(f"launches or preps {got} differ from the "
+                             f"per-step accounting {want} ({expect})")
+    if plain:
+        raise AssertionError("the hoisted step ran a plain version on CUDA")
+    w = expect["preps"] - HOIST_MICRO
+    log(f"{tag} preps built once per step: {n_preps // n_run} prepare_rhs "
+        f"calls a step, one for each of the {w} layer weights and one for "
+        f"the tied head in each of the {HOIST_MICRO} microbatches (preparing "
+        f"in every microbatch's forward and recompute would make "
+        f"{2 * HOIST_MICRO * w + HOIST_MICRO})")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prof_losses, prof_walls = run_steps(step, run, batches, TRAIN_STEPS)
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    profiled = device_summary(prof, prof_wall_ms, top_n=6)
+    profiled["step_wall_s"] = prof_walls
+    log(f"{tag} {TRAIN_STEPS} profiled steps " + json.dumps(profiled))
+    if not all(math.isfinite(x) for x in prof_losses):
+        raise AssertionError(f"non-finite training loss {prof_losses}")
+    summary = {"spec": HOIST_SPEC, "microbatches": HOIST_MICRO,
+               "losses": losses, "warmup_wall_s": warm[0],
+               "step_wall_s": walls, "tokens_per_s": tok_s,
+               "peak_memory_bytes": peak, "launches_per_step": expect,
+               "prepare_rhs_calls": n_preps, "profile": profiled}
+    return run["state"]["params"], k3, summary
+
+
+def hoisted_parity_phase(dev, arch, params, policy, label, uncached=None,
+                         torch_backend=False):
+    """One step's loss and float32 gradients at full width, bit for bit:
+    hoisted preps (each weight prepared once, the tied head once per
+    microbatch) == the per-call cache on each half (the float32 mean of
+    two microbatches=1 evaluations), == ``uncached`` when given, and the
+    'cuda' == the 'torch' backend when asked."""
+    _, batch = next(train_batches(arch))
+    halves = S.split_batch(S.batch_to(batch, dev), HOIST_MICRO)
+
+    def grads(pol, hoist):
+        preps = prepared.build_step_preps(params, pol) if hoist else None
+        return S.accumulate_grads(S.make_loss_fn(arch, pol), params, halves,
+                                  preps)
+
+    with counting_preps() as calls:
+        hoisted = grads(policy, True)
+    want = hoisted_launches(arch.model)["preps"]
+    if calls["n"] != want:
+        raise AssertionError(f"({label}) the hoisted step prepared "
+                             f"{calls['n']} times, not {want}")
+    grads_equal(f"({label}) hoisted == mean of the halves' per-call cache",
+                hoisted, grads(policy, False))
+    if uncached is not None:
+        grads_equal(f"({label}) hoisted == uncached", hoisted,
+                    grads(uncached, False))
+    if torch_backend:
+        grads_equal(f"({label}) hoisted, cuda == torch backend", hoisted,
+                    grads(on_backend(policy, "torch"), True))
+
+
+# ---------------------------------------------------------------------------
 # Phase 15: the scientific GEMMs, DGEMM- and ZGEMM-grade.
 # ---------------------------------------------------------------------------
 
@@ -1555,11 +1844,28 @@ def main() -> int:
         {k: v for k, v in emu_train.items() if k != "profile"}))
     torch.use_deterministic_algorithms(True, warn_only=True)
     emu_train_parity_phase(dev, emu, params)
+    hoisted_parity_phase(dev, micro_arch(emu), params,
+                         dispatch.resolve_policy(emu.gemm_policy()), "f")
     del params
     torch.use_deterministic_algorithms(False)
 
     # DGEMM- and ZGEMM-grade Scheme II.
     sci_err, sci_counts, sci_t, sci_res, sci_batched = scientific_phase(dev)
+
+    # olmo-1b trained under ozaki2-m6+cached with gradient accumulation:
+    # EmuGEMM-II's prepared form and the once-per-step hoist.
+    p_err, p_totals = prepared_kernel_phase(dev, arch.model)
+    params, hk, hoist = hoisted_train_phase(dev, arch, card)
+    log("[hoist] summary " + json.dumps(
+        {k: v for k, v in hoist.items() if k != "profile"}))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    hoisted_parity_phase(
+        dev, micro_arch(arch), params,
+        GemmPolicy(default=api.precision(HOIST_SPEC)), "g",
+        uncached=GemmPolicy(default=api.precision(f"ozaki2-m{M_MAIN}")),
+        torch_backend=True)
+    del params
+    torch.use_deterministic_algorithms(False)
 
     def bound_by(t):
         return "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations"
@@ -1629,6 +1935,23 @@ def main() -> int:
         "per_train_step": {k: s2_totals["train"][k]
                            for k in ("ms", "plain_ms", "bound_ms",
                                      "yardstick_ms")}})
+    hoist_per = (f"one {HOIST_SPEC} train step of full-width olmo-1b "
+                 f"({HOIST_MICRO} microbatches of {TOKENS // HOIST_MICRO} "
+                 f"tokens; launches: the warm-up and {TRAIN_STEPS} timed "
+                 "steps)")
+    kernels.append({
+        "name": "emugemm2_prepared", **common, "source": SOURCE2,
+        "replaces": "src/repro/kernels/backends/gpu.py:359",
+        "launches": hk.launches_prepared, "max_abs_err": p_err["prepared"],
+        "ms": p_totals["ms"], "plain_ms": p_totals["plain_ms"],
+        "bound_ms": p_totals["bound_ms"], "bound_by": bound_by(p_totals),
+        "float_rhs_ms": p_totals["float_rhs_ms"],
+        "int_mm_yardstick_ms": p_totals["yardstick_ms"], "per": hoist_per})
+    for row in kernels:
+        if row["name"] in ("emugemm2_2d", "emugemm2_batched"):
+            row["launches_in_hoisted_train"] = (
+                hk.launches_2d if row["name"] == "emugemm2_2d"
+                else hk.launches_batched)
     # The float64 entries of EmuGEMM-II's rows, and the 3M kernels.
     n0, p_sci = SCI_SIZES[0][0], SCI_SIZES[0][1][-1]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "int_mm_yardstick_ms",

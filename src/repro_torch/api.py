@@ -14,7 +14,10 @@ and emulated einsum.
   contractions, canonicalized (permute + reshape) onto the 2-D core or,
   with batch axes, onto the strided-batched core. Contractions the
   canonicalization cannot express (repeated labels, ellipses, summed
-  free axes, broadcasting) raise.
+  free axes, broadcasting) raise. The rhs may be a prepared operand
+  (``kernels.prepared``) of the config's scheme, in its fixed (K, N)
+  layout: ``(((k,), (0,)), ((), ()))``, or ``'...k,kn->...n'``-shaped
+  subscripts.
 """
 
 from __future__ import annotations
@@ -115,7 +118,35 @@ def _norm_dims(dims, ndim: int, what: str) -> tuple[int, ...]:
     return out
 
 
-def dot_general(a: torch.Tensor, b: torch.Tensor, dimension_numbers, *,
+def _dot_general_prepared(a, b, dimension_numbers, cfg, out_dtype):
+    """A prepared rhs: only (..., K) x prepared (K, N) exists, its layout
+    fixed when it was prepared."""
+    from repro_torch.core.emulated import prepared_dot
+    from repro_torch.kernels.dispatch import check_prepared
+    (lc, rc), (lb, rb) = dimension_numbers
+    lc, rc, lb, rb = tuple(lc), tuple(rc), tuple(lb), tuple(rb)
+    if lb or rb or rc != (0,) or len(lc) != 1:
+        raise ValueError(
+            "a prepared rhs supports only dimension_numbers "
+            f"(((k,), (0,)), ((), ())); got {dimension_numbers} — "
+            "prepare_rhs fixes the (K, N) layout")
+    check_prepared(b, cfg)
+    if not -a.dim() <= lc[0] < a.dim():
+        raise ValueError(f"lhs contracting dim {lc[0]} out of range for "
+                         f"rank-{a.dim()} operand")
+    k_axis = lc[0] % a.dim()
+    if a.shape[k_axis] != b.k:
+        raise ValueError(f"lhs contracting dim {a.shape[k_axis]} vs "
+                         f"prepared K={b.k}")
+    a = a.movedim(k_axis, -1)
+    if out_dtype is None and cfg.out_dtype is not None:
+        out_dtype = getattr(torch, cfg.out_dtype)
+    if out_dtype is None:
+        out_dtype = torch.promote_types(a.dtype, torch.float32)
+    return prepared_dot(a, b, out_dtype=out_dtype)
+
+
+def dot_general(a: torch.Tensor, b, dimension_numbers, *,
                 precision: str | EmulationConfig | None = None,
                 out_dtype=None, backend: str | None = None) -> torch.Tensor:
     """Emulated ``lax.dot_general``: the output is laid out
@@ -124,10 +155,14 @@ def dot_general(a: torch.Tensor, b: torch.Tensor, dimension_numbers, *,
     The contraction canonicalizes to lhs (batch..., free..., K) and rhs
     (batch..., K, N); without batch axes it runs on the 2-D core, with
     them the lhs free axes fold into M and the whole stack runs as ONE
-    strided-batched launch.
+    strided-batched launch. A prepared ``b`` runs on the backend it was
+    prepared for.
     """
     from repro_torch.core.emulated import emulated_dot, emulated_dot_batched
+    from repro_torch.kernels.dispatch import _is_prepared
     cfg = resolve_config(precision)
+    if _is_prepared(b):
+        return _dot_general_prepared(a, b, dimension_numbers, cfg, out_dtype)
     if backend is not None:
         cfg = dataclasses.replace(cfg, backend=backend)
     if out_dtype is not None:
@@ -197,8 +232,21 @@ def einsum(subscripts: str, a: torch.Tensor, b: torch.Tensor, *,
     Shared labels kept in the output are batch axes, shared labels
     dropped from it are contracted, and every other label is a free
     axis; e.g. ``bqkgd,bjkd->bkgqj`` (attention scores) and
-    ``bkgqj,bjkd->bkgqd`` (weighted values).
+    ``bkgqj,bjkd->bkgqd`` (weighted values). A prepared ``b`` takes
+    ``...k,kn->...n``-shaped subscripts.
     """
+    from repro_torch.kernels.dispatch import _is_prepared
+    if _is_prepared(b):
+        a_lab, (k, n), out_lab = _parse_einsum(subscripts, a.dim(), 2)
+        if not (k in a_lab and k not in out_lab and n in out_lab
+                and n not in a_lab):
+            raise ValueError(
+                f"a prepared rhs supports only '...k,kn->...n'-shaped "
+                f"subscripts (fixed (K, N) layout); got {subscripts!r}")
+        out = dot_general(a, b, (((a_lab.index(k),), (0,)), ((), ())),
+                          precision=precision, out_dtype=out_dtype)
+        canon = [lab for lab in a_lab if lab != k] + [n]
+        return out.permute(tuple(canon.index(x) for x in out_lab))
     a_lab, b_lab, out_lab = _parse_einsum(subscripts, a.dim(), b.dim())
     shared = [lab for lab in a_lab if lab in b_lab]
     batch = [lab for lab in shared if lab in out_lab]

@@ -8,13 +8,17 @@ Scheme I: 4M of complex64); complex ones run forward only.
 
 Both front doors are differentiable through ``torch.autograd.Function``s
 that mirror the reference's custom VJPs: dA = dC B^T and dB = A^T dC run
-through the same emulated GEMM, at ``cfg.bwd_p`` slices when it is set.
-With ``cfg.cache_weights`` (``+cached``) the forward prepares B once
-(forward slices plus the K-transposed twin, from one read) and the
-backward's dA consumes the twin. Only (a, b, twin) are saved for the
+through the same emulated GEMM, at ``cfg.bwd_p`` slices (or moduli) when
+it is set. With ``cfg.cache_weights`` (``+cached``) the forward prepares
+B once (Scheme I: forward slices plus the K-transposed twin, from one
+read; Scheme II: balanced residues of B and of B^T) and the backward's
+dA consumes the twin. Only a, b and the twin's tensors are saved for the
 backward, through ``save_for_backward``, so activation checkpointing
 discards and recomputes them (the recompute prepares B again, as the
-reference's remat does).
+reference's remat does). :func:`emulated_dot_prepared` takes a weight
+prepared once per optimizer step instead (``kernels.prepared.
+StepPrepared``): its forward and dA consume the prep, which a recompute
+does not build again, and dB reaches the float weight.
 
 As in the reference, a call that is not differentiated (no grad mode, or
 no operand requiring grad) runs the plain forward, which prepares
@@ -37,7 +41,8 @@ def _out_dtype(cfg: EmulationConfig, a, b) -> torch.dtype:
 
 
 def prepared_dot(x: torch.Tensor, w, out_dtype=None) -> torch.Tensor:
-    """x: (..., K) @ a PreparedOperand w: (K, N) -> (..., N)."""
+    """x: (..., K) @ a prepared w (PreparedOperand or PreparedResidues):
+    (K, N) -> (..., N)."""
     from repro_torch.kernels import prepared
     if out_dtype is None:
         out_dtype = torch.promote_types(x.dtype, torch.float32)
@@ -48,8 +53,10 @@ def prepared_dot(x: torch.Tensor, w, out_dtype=None) -> torch.Tensor:
 
 
 def _cacheable(a, b, cfg: EmulationConfig) -> bool:
-    return (cfg.scheme == "ozaki1" and cfg.cache_weights and b.dim() == 2
-            and not a.is_complex() and not b.is_complex())
+    # Scheme I caches int8 slices, Scheme II balanced residues; complex
+    # problems run the 4M / 3M expansions, never a prepared operand.
+    return (cfg.scheme in ("ozaki1", "ozaki2") and cfg.cache_weights
+            and b.dim() == 2 and not a.is_complex() and not b.is_complex())
 
 
 def _dot_2d(a: torch.Tensor, b: torch.Tensor,
@@ -79,6 +86,37 @@ def _flat_dot(a, b, cfg):
         *lead, b.shape[-1])
 
 
+def _save_with_twin(ctx, a, b, twin) -> None:
+    """Save a, b and the twin's tensors through save_for_backward (so
+    that activation checkpointing can drop them); the twin's metadata
+    stays on ctx."""
+    from repro_torch.kernels import prepared
+    ctx.twin, tensors = prepared.split_tensors(twin)
+    ctx.save_for_backward(a, b, *tensors)
+
+
+def _bwd_core(ctx, g):
+    """Shared backward (the reference's ``_bwd_core``): dA = dC B^T from
+    the twin when one was saved, else through the emulated GEMM; dB =
+    A^T dC."""
+    from repro_torch.kernels import prepared
+    a, b, *twin_tensors = ctx.saved_tensors
+    cfg = _bwd_cfg(ctx.cfg)
+    a2 = a.reshape(-1, a.shape[-1])
+    g2 = g.reshape(-1, g.shape[-1])
+    da = db = None
+    if ctx.needs_input_grad[0]:
+        if ctx.twin is not None:
+            twin = prepared.join_tensors(ctx.twin, twin_tensors)
+            da = prepared_dot(g2, twin, _out_dtype(cfg, g2, b))
+        else:
+            da = _dot_2d(g2, b.T, cfg)
+        da = da.reshape(a.shape).to(a.dtype)
+    if ctx.needs_input_grad[1]:
+        db = _dot_2d(a2.T, g2, cfg).to(b.dtype)
+    return da, db
+
+
 class _EmulatedDot(torch.autograd.Function):
     """The reference's ``_emulated_dot`` custom VJP (``_fwd``, ``_bwd``,
     ``_bwd_core``)."""
@@ -90,36 +128,33 @@ class _EmulatedDot(torch.autograd.Function):
             ctx.twin = None
             ctx.save_for_backward(a, b)
             return _flat_dot(a, b, cfg)
-        # Decompose the rhs once: forward layout + K-transposed twin.
+        # Encode the rhs once: forward layout + K-transposed twin.
         from repro_torch.kernels import prepared
         prep = prepared.prepare_rhs(b, cfg, with_twin=True)
         out = prepared_dot(a, prep, _out_dtype(cfg, a, b))
-        twin = prep.twin
-        # The twin's tensors go through save_for_backward, so that
-        # activation checkpointing can drop them; its metadata stays.
-        ctx.twin = dataclasses.replace(twin, slices=None, scale=None)
-        ctx.save_for_backward(a, b, twin.slices, twin.scale)
+        _save_with_twin(ctx, a, b, prep.twin)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        a, b, *twin_tensors = ctx.saved_tensors
-        cfg = _bwd_cfg(ctx.cfg)
-        a2 = a.reshape(-1, a.shape[-1])
-        g2 = g.reshape(-1, g.shape[-1])
-        da = db = None
-        if ctx.needs_input_grad[0]:
-            if ctx.twin is not None:
-                twin = dataclasses.replace(ctx.twin, slices=twin_tensors[0],
-                                           scale=twin_tensors[1])
-                da_dtype = _out_dtype(cfg, g2, b)
-                da = prepared_dot(g2, twin, da_dtype)
-            else:
-                da = _dot_2d(g2, b.T, cfg)
-            da = da.reshape(a.shape).to(a.dtype)
-        if ctx.needs_input_grad[1]:
-            db = _dot_2d(a2.T, g2, cfg).to(b.dtype)
-        return da, db, None
+        return (*_bwd_core(ctx, g), None)
+
+
+class _EmulatedDotPrepared(torch.autograd.Function):
+    """The reference's ``_emulated_dot_prepared`` custom VJP: the forward
+    from a prep built once per step, dA from its twin, dB to the float
+    weight; the prep takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, a, b, prep, cfg):
+        ctx.cfg = cfg
+        out = prepared_dot(a, prep, _out_dtype(cfg, a, b))
+        _save_with_twin(ctx, a, b, prep.twin)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*_bwd_core(ctx, g), None, None)
 
 
 def _differentiated(*xs) -> bool:
@@ -143,6 +178,17 @@ def emulated_dot(a: torch.Tensor, b: torch.Tensor,
     if _differentiated(a, b):
         return _EmulatedDot.apply(a, b, cfg)
     return _flat_dot(a, b, cfg)
+
+
+def emulated_dot_prepared(a: torch.Tensor, b: torch.Tensor, prep,
+                          cfg: EmulationConfig) -> torch.Tensor:
+    """a: (..., K) @ b: (K, N), where ``prep`` is b's prepared operand
+    (with its twin), built once per optimizer step: ``emulated_dot``
+    under ``cfg.cache_weights`` without preparing again per microbatch
+    or in the recompute."""
+    if _differentiated(a, b):
+        return _EmulatedDotPrepared.apply(a, b, prep, cfg)
+    return prepared_dot(a, prep, _out_dtype(cfg, a, b))
 
 
 # ---------------------------------------------------------------------------

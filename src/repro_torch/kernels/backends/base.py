@@ -64,6 +64,14 @@ class KernelBackend(abc.ABC):
         """(M, K) float @ prepared interleaved int8 planes; see
         ``repro_torch.kernels.ozaki1.fused_matmul_mixed``."""
 
+    @abc.abstractmethod
+    def matmul_prepared_residues(self, a: torch.Tensor, b_res: torch.Tensor,
+                                 mu: torch.Tensor, nu: torch.Tensor, moduli,
+                                 out_dtype, n: int) -> torch.Tensor:
+        """(M, K) float @ a prepared weight's (p, Kp, Np) int8 residues
+        -> (M, n); see
+        ``repro_torch.kernels.ozaki2.fused_matmul_scheme2_prepared``."""
+
     def check(self, cfg, a: torch.Tensor, b: torch.Tensor) -> None:
         """Raise unless this backend runs ``cfg`` on these operands."""
         caps = self.capabilities

@@ -4,7 +4,8 @@ Scheme II on EmuGEMM-II, complex Scheme II on its 3M kernel.
 The torch counterpart of ``repro.kernels.backends.gpu``:
 ``choose_blocks_gpu`` (here :func:`choose_blocks_cuda`),
 ``_matmul_scheme1[_batched]``, ``_matmul_scheme2[_batched]``,
-``_matmul_3m``, ``supported_moduli`` and ``_check_moduli``; and the
+``_matmul_3m``, ``supported_moduli`` and ``_check_moduli``, the
+prepared-residue consumption of ``prepared.matmul_prepared_scheme2``; and the
 dispatcher's Scheme-I complex 4M (``dispatch._fused_2d``), which runs as
 four launches of EmuGEMM-I. As in the reference, the
 power-of-two scales, beta and the Scheme-II budget are computed outside
@@ -125,3 +126,9 @@ class CudaBackend(KernelBackend):
 
     def matmul_mixed(self, a, b_hat, mu, nu, p, beta, out_dtype):
         return ozaki1.fused_matmul_mixed(a, b_hat, mu, nu, p, beta, out_dtype)
+
+    def matmul_prepared_residues(self, a, b_res, mu, nu, moduli, out_dtype,
+                                 n):
+        ozaki2.check_moduli(moduli)
+        return ozaki2.fused_matmul_scheme2_prepared(a, b_res, mu, nu, moduli,
+                                                    out_dtype, n)

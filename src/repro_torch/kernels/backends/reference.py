@@ -5,7 +5,8 @@ It runs Scheme I as separate torch ops (``ozaki1.fused_matmul_plain``,
 which is ``repro_torch.core.scheme1``, and the prepared-weight kernels'
 plain versions) and Scheme II likewise
 (``ozaki2.fused_matmul_scheme2_plain``, which is
-``repro_torch.core.scheme2.matmul``'s pipeline, for any moduli set), and
+``repro_torch.core.scheme2.matmul``'s pipeline, for any moduli set, and
+``fused_matmul_scheme2_prepared_plain`` for a prepared weight), and
 complex GEMMs as ``scheme1.matmul_complex_4m`` and
 ``complex3m.matmul``, on whatever device the operands are on. A CUDA tensor
 reaches it only when it is asked for by name, as the bit-parity checks
@@ -62,3 +63,8 @@ class TorchBackend(KernelBackend):
     def matmul_mixed(self, a, b_hat, mu, nu, p, beta, out_dtype):
         return ozaki1.fused_matmul_mixed_plain(a, b_hat, mu, nu, p, beta,
                                                out_dtype)
+
+    def matmul_prepared_residues(self, a, b_res, mu, nu, moduli, out_dtype,
+                                 n):
+        return ozaki2.fused_matmul_scheme2_prepared_plain(
+            a, b_res, mu, nu, moduli, out_dtype, n)

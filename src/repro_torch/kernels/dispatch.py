@@ -103,10 +103,6 @@ def _refuse_cfg(cfg: EmulationConfig) -> None:
     if cfg.guard is not None:
         raise NotImplementedError(
             "'+guard' is not ported yet (ROADMAP.md § 1 item 5)")
-    if cfg.scheme == "ozaki2" and cfg.cache_weights:
-        raise NotImplementedError(
-            "'ozaki2...+cached' needs Scheme-II prepared residues "
-            "(PreparedResidues), not ported yet (ROADMAP.md § 1 item 3)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -198,12 +194,55 @@ def _resolve_cfg(cfg) -> EmulationConfig:
 _LEGACY_DEFAULT = EmulationConfig(scheme="ozaki1", p=4)
 
 
-def emulated_matmul(a: torch.Tensor, b: torch.Tensor, *, cfg=None,
-                    out_dtype=None, backend: str | None = None
-                    ) -> torch.Tensor:
+def _is_prepared(b) -> bool:
+    from repro_torch.kernels.prepared import PreparedOperand, PreparedResidues
+    return isinstance(b, (PreparedOperand, PreparedResidues))
+
+
+def check_prepared(b, cfg: EmulationConfig) -> None:
+    """A prepared rhs is the emulation data of one scheme: raise unless
+    ``cfg`` is that scheme (the reference's refusals)."""
+    from repro_torch.kernels.prepared import PreparedResidues
+    if cfg.scheme == "native":
+        raise ValueError(
+            "a prepared rhs is pre-decomposed emulation data; it cannot be "
+            "consumed under a 'native' config (pass the float weight "
+            "instead)")
+    residues = isinstance(b, PreparedResidues)
+    if residues and cfg.scheme != "ozaki2":
+        raise ValueError(
+            "a PreparedResidues rhs is Scheme-II (ozaki2) data; it cannot be "
+            f"consumed under scheme={cfg.scheme!r} (pass the float weight, "
+            "or prepare under the matching config)")
+    if not residues and cfg.scheme == "ozaki2":
+        raise ValueError(
+            "a PreparedOperand rhs is Scheme-I (ozaki1) data; it cannot be "
+            "consumed under scheme='ozaki2' (pass the float weight, or "
+            "prepare under the matching config)")
+
+
+def emulated_matmul(a: torch.Tensor, b, *, cfg=None, out_dtype=None,
+                    backend: str | None = None) -> torch.Tensor:
     """Emulated (M, K) @ (K, N) on the selected backend (argument >
-    ``REPRO_TORCH_BACKEND`` > ``cfg.backend`` > the operands' device)."""
+    ``REPRO_TORCH_BACKEND`` > ``cfg.backend`` > the operands' device).
+
+    ``b`` may be a prepared operand of the config's scheme: its finished
+    encode streams as it is, on the backend pinned when it was prepared,
+    and only the lhs is carved."""
     cfg = _resolve_cfg(cfg)
+    if _is_prepared(b):
+        from repro_torch.kernels import prepared
+        _refuse_cfg(cfg)
+        check_prepared(b, cfg)
+        if a.dim() != 2:
+            raise ValueError(
+                f"emulated_matmul is strictly 2-D; got lhs {tuple(a.shape)}"
+                " — use repro_torch.api.dot_general / einsum for higher "
+                "ranks")
+        out_dtype = (out_dtype or (getattr(torch, cfg.out_dtype)
+                                   if cfg.out_dtype else None)
+                     or torch.promote_types(a.dtype, torch.float32))
+        return prepared.matmul_prepared(a, b, out_dtype=out_dtype)
     if a.dim() != 2 or b.dim() != 2:
         raise ValueError(
             f"emulated_matmul is strictly 2-D; got {tuple(a.shape)} @ "

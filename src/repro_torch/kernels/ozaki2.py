@@ -11,6 +11,14 @@ versions and launch counts.
   bfloat16 or float64 output, and float64 operands (both) with a float64
   or float32 output. Its plain version is
   ``repro_torch.core.scheme2.scaled_matmul``.
+* :func:`fused_matmul_scheme2_prepared` takes an (M, K) float lhs with
+  its scale mu (M, 1) and a prepared weight: its (p, Kp, Np) balanced
+  int8 residues (K and N padded past the logical dims with zero
+  residues) and its scale nu (1, Np) in the weight's type. The prologue
+  integerizes and carves only the lhs; each modulus's rhs tile is read
+  from its residue plane. It takes the lhs types of the 2-D form. Its
+  plain version is the reference's XLA expansion of a prepared operand
+  (``repro.kernels.prepared.matmul_prepared_scheme2``).
 * :func:`fused_residue_matmul` takes (p, M, K) and (p, K, N) balanced int8
   residues and returns the balanced int8 residues (p, M, N) of their
   products mod each modulus. Its plain version is the reference's oracle
@@ -18,8 +26,9 @@ versions and launch counts.
 
 On a CUDA tensor a wrapper launches the kernel or raises; on a CPU tensor
 it runs the plain version. The kernel replaces the Pallas kernels
-``repro.kernels.backends.gpu.fused_matmul_scheme2`` (2-D launch, float
-rhs), ``fused_matmul_scheme2_batched`` (batched launch) and
+``repro.kernels.backends.gpu.fused_matmul_scheme2`` (2-D launch with a
+float rhs; prepared launch with a residue rhs, ``b_res``),
+``fused_matmul_scheme2_batched`` (batched launch) and
 ``repro.kernels.ozaki2.fused_residue_matmul`` (residue launch).
 """
 
@@ -48,11 +57,13 @@ class LaunchCounts:
     launches_2d: int = 0
     launches_batched: int = 0
     launches_residues: int = 0
+    launches_prepared: int = 0
     plain_cuda_calls: int = 0
 
     def reset(self) -> None:
         self.launches_2d = self.launches_batched = 0
-        self.launches_residues = self.plain_cuda_calls = 0
+        self.launches_residues = self.launches_prepared = 0
+        self.plain_cuda_calls = 0
 
 
 COUNTS = LaunchCounts()
@@ -75,6 +86,25 @@ def fused_matmul_scheme2_plain(a, b, mu, nu, moduli, out_dtype):
     if a.is_cuda:
         COUNTS.plain_cuda_calls += 1
     return scheme2.scaled_matmul(a, b, mu, nu, moduli, out_dtype)
+
+
+def fused_matmul_scheme2_prepared_plain(a, b_res, mu, nu, moduli,
+                                        out_dtype, n=None):
+    """The prepared form's function in plain torch ops (CPU or CUDA):
+    the lhs's balanced residues, one exact GEMM per modulus against the
+    stored planes, their reduction, the CRT, then / (mu * nu). Rows of
+    the planes past K are zero residues and add nothing, so they are
+    sliced off instead of padding the lhs."""
+    if a.is_cuda:
+        COUNTS.plain_cuda_calls += 1
+    m, k = a.shape
+    n = b_res.shape[-1] if n is None else n
+    moduli = tuple(int(x) for x in moduli)
+    a_res = scheme2.balanced_residues(torch.trunc(a * mu), moduli)
+    c_res = scheme2.modular_reduce(
+        scheme2.residue_gemms(a_res, b_res[:, :k, :n]), moduli)
+    return scheme2.unscale(scheme2.crt_reconstruct(c_res, moduli, out_dtype),
+                           mu, nu[:, :n], out_dtype)
 
 
 def fused_residue_matmul_plain(a_res, b_res, moduli):
@@ -108,6 +138,15 @@ def _bind(lib: ctypes.CDLL):
     return fn
 
 
+def _bind_prepared(lib: ctypes.CDLL):
+    fn = lib.emugemm2_prepared
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                   + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 4
+                   + [_INT_P] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _bind_residues(lib: ctypes.CDLL):
     fn = lib.emugemm2_residues
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
@@ -117,25 +156,29 @@ def _bind_residues(lib: ctypes.CDLL):
     return fn
 
 
-def _check(a, b, mu, nu, moduli, out_dtype):
+def _check(a, b, mu, nu, moduli, out_dtype, b_type=None):
+    """Raise unless the kernel has an instance for these operands;
+    ``b_type`` is the rhs's float type (the prepared form's b is int8,
+    and its type is nu's)."""
+    b_type = b.dtype if b_type is None else b_type
     xs = (a, b, mu, nu)
     if not all(x.is_cuda for x in xs):
         raise ValueError("emugemm2: all operands must be CUDA tensors")
     if len({x.device for x in xs}) != 1:
         raise ValueError("emugemm2: operands on different devices")
-    if a.dtype not in TYPE_CODE or b.dtype not in TYPE_CODE:
+    if a.dtype not in TYPE_CODE or b_type not in TYPE_CODE:
         raise NotImplementedError(
             f"emugemm2 takes float32, bfloat16 or float64 operands, got "
-            f"{a.dtype} @ {b.dtype}")
-    if mu.dtype != a.dtype or nu.dtype != b.dtype:
+            f"{a.dtype} @ {b_type}")
+    if mu.dtype != a.dtype or nu.dtype != b_type:
         raise ValueError(f"emugemm2: scales in the operands' types, got mu "
                          f"{mu.dtype} for {a.dtype}, nu {nu.dtype} for "
-                         f"{b.dtype}")
-    f64 = torch.float64 in (a.dtype, b.dtype)
+                         f"{b_type}")
+    f64 = torch.float64 in (a.dtype, b_type)
     if out_dtype not in TYPE_CODE or (f64 and (
-            a.dtype != b.dtype or out_dtype == torch.bfloat16)):
+            a.dtype != b_type or out_dtype == torch.bfloat16)):
         raise NotImplementedError(
-            f"emugemm2 has no instance for {a.dtype} @ {b.dtype} -> "
+            f"emugemm2 has no instance for {a.dtype} @ {b_type} -> "
             f"{out_dtype}: float64 operands come in pairs, with a float64 "
             "or float32 output")
     check_moduli(moduli)
@@ -193,6 +236,52 @@ def fused_matmul_scheme2(a: torch.Tensor, b: torch.Tensor, mu: torch.Tensor,
         return out
     raise ValueError(f"emugemm2: operands must both be 2-D or both 3-D, got "
                      f"{tuple(a.shape)} @ {tuple(b.shape)}")
+
+
+def fused_matmul_scheme2_prepared(a: torch.Tensor, b_res: torch.Tensor,
+                                  mu: torch.Tensor, nu: torch.Tensor, moduli,
+                                  out_dtype: torch.dtype,
+                                  n: int | None = None) -> torch.Tensor:
+    """(M, K) float @ a prepared weight's (p, Kp, Np) int8 residues,
+    with scales mu (M, 1) in a's type and nu (1, Np) in the weight's
+    type -> (M, n) (n <= Np, the weight's logical width; default Np).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel's
+    prepared form or raise.
+    """
+    from repro_torch.kernels import build
+    moduli = tuple(int(x) for x in moduli)
+    if a.device.type == "cpu":
+        return fused_matmul_scheme2_prepared_plain(a, b_res, mu, nu, moduli,
+                                                   out_dtype, n)
+    _check(a, b_res, mu, nu, moduli, out_dtype, b_type=nu.dtype)
+    m, k = a.shape
+    p, kp, np_ = b_res.shape
+    n = np_ if n is None else n
+    if (a.dim() != 2 or b_res.dtype != torch.int8 or p != len(moduli)
+            or kp < k or np_ < n or b_res.stride(2) != 1
+            or mu.shape != (m, 1) or nu.shape[0] != 1 or nu.shape[1] < n):
+        raise ValueError(f"emugemm2 prepared: {tuple(a.shape)} @ "
+                         f"{tuple(b_res.shape)} {b_res.dtype} (n={n}), mu "
+                         f"{tuple(mu.shape)}, nu {tuple(nu.shape)}, "
+                         f"{len(moduli)} moduli")
+    mu, nu = mu.contiguous(), nu.contiguous()
+    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    if out.numel() == 0 or k == 0:
+        return out.zero_()
+    fn = _bind_prepared(build.load("emugemm2"))
+    mods, inv = _crt_args(moduli)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    rc = fn(a.data_ptr(), b_res.data_ptr(), mu.data_ptr(), nu.data_ptr(),
+            out.data_ptr(), m, n, k, a.stride(0), a.stride(1),
+            b_res.stride(0), b_res.stride(1), TYPE_CODE[a.dtype],
+            TYPE_CODE[nu.dtype], TYPE_CODE[out_dtype], len(moduli), mods,
+            inv, stream)
+    if rc != 0:
+        raise RuntimeError(f"emugemm2 prepared launch failed (code {rc}) "
+                           f"for {(m, k, n)} moduli={moduli}")
+    COUNTS.launches_prepared += 1
+    return out
 
 
 def fused_residue_matmul(a_res: torch.Tensor, b_res: torch.Tensor,

@@ -1,32 +1,41 @@
-"""Pre-decomposed rhs operands of the port (``repro.kernels.prepared``,
-Scheme I).
+"""Pre-decomposed rhs operands of the port (``repro.kernels.prepared``).
 
-Training re-decomposes the same weight in the forward, the remat
-re-forward and the backward dA = dC B^T. A :class:`PreparedOperand`
-holds the finished decomposition instead:
+Training re-encodes the same weight in the forward, the remat re-forward
+and the backward dA = dC B^T. A prepared operand holds the finished
+encode instead, with ``twin``, the same weight prepared as the rhs of
+B^T for dA:
 
-  * ``slices`` — the p int8 slices, interleaved on K ((p * Kp, N), paper
-    Eq. 11) at granularity ``blocks.bk``, the K tile of the mixed kernel;
-  * ``scale``  — the (1, N) float32 power-of-two column scale;
-  * ``p``/``beta``, ``k``/``n`` (the logical dims), ``layout``;
-  * ``twin``   — the same weight prepared as the rhs of B^T, for dA;
-  * ``backend`` — the kernel backend that prepared it and consumes it.
+* :class:`PreparedOperand` (Scheme I): the p int8 slices, interleaved
+  on K ((p * Kp, N), paper Eq. 11) at granularity ``blocks.bk``, the K
+  tile of the mixed kernel; the (1, N) float32 power-of-two column
+  scale; ``p``/``beta``, ``k``/``n`` (the logical dims), ``layout`` and
+  ``backend``, the kernel backend that prepared it and consumes it.
+  Built from a single read of the weight (K2, the pair kernel; K2r twice
+  when the backward runs at another slice count), consumed through the
+  mixed form of the EmuGEMM-I kernel (K3).
+* :class:`PreparedResidues` (Scheme II): the (p, Kp, Np) balanced int8
+  residues of the integerized weight, padded to 16 on K and N with zero
+  residues, its (1, Np) power-of-two scale in the weight's type and the
+  budget pinned at encode time. ``layout`` 'fused' is consumed by the
+  prepared form of EmuGEMM-II (K5g with ``b_res``), whose prologue
+  carves only the lhs; 'stacked' (an ``impl='xla'`` config, or a
+  backend other than 'cuda') by its plain version. The encode runs in
+  torch ops, as the reference's runs in XLA ops.
 
-:func:`prepare_rhs` builds one from a single read of the weight (K2, the
-pair kernel; K2r twice when the backward runs at another slice count),
-and :func:`matmul_prepared` consumes it through the mixed form of the
-EmuGEMM-I kernel (K3): the lhs is carved in the kernel, the prepared
-planes stream as they are.
+:func:`prepare_rhs` builds either from a float (K, N) weight and
+:func:`matmul_prepared` consumes either. Under gradient accumulation
+:func:`build_step_preps` prepares every cacheable dense weight once per
+optimizer step and :func:`attach_step_preps` pairs each with its float
+weight (:class:`StepPrepared`), which ``models.common.dense`` sends
+through ``core.emulated.emulated_dot_prepared``.
 
-Unlike the reference, nothing is padded to 128: the prepared layouts
-round K (and N in the twin) up to the kernel's tile only, with zero
-slices, and beta comes from the logical dims, which the reference's
+Unlike the reference, nothing is padded to 128 in Scheme I: the prepared
+layouts round K (and N in the twin) up to the kernel's tile only, with
+zero slices, and beta comes from the logical dims, which the reference's
 padded dims agree with wherever ``safe_beta`` is 7 (every dim up to
-2^17; :func:`_beta` checks it). The reference's 'stacked' layout of its
-XLA expansion has no counterpart: ``impl='xla'`` prepares on the
-``torch`` backend, the plain versions, in the same layout.
-Scheme II (``PreparedResidues``) and the once-per-step hoist
-(``StepPrepared``) are not ported yet.
+2^17; :func:`_beta` checks it). The reference's Scheme-I 'stacked'
+layout of its XLA expansion has no counterpart: ``impl='xla'`` prepares
+on the ``torch`` backend, the plain versions, in the same layout.
 """
 
 from __future__ import annotations
@@ -34,15 +43,17 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.core import scheme1
+from repro_torch.core import scheme1, scheme2
 from repro_torch.core.precision import EmulationConfig
 from repro_torch.kernels import backends
 from repro_torch.kernels.backends.cuda import KERNEL_BLOCKS
 from repro_torch.kernels.common import Blocks
 from repro_torch.kernels.decompose import TILE
 
-_REF_ALIGN = 128     # the reference's prepared padding
+_REF_ALIGN = 128     # the reference's Scheme-I prepared padding
+ALIGN = 16           # the residue stack's padding (the reference's gpu.ALIGN)
 
 
 @dataclasses.dataclass
@@ -59,6 +70,9 @@ class PreparedOperand:
     twin: "PreparedOperand | None" = None
     backend: str = "cuda"
 
+    # The tensor fields, which autograd saves (core.emulated).
+    TENSORS = ("slices", "scale")
+
     def stacked(self) -> torch.Tensor:
         """The (p, Kp, N) slice stack, deinterleaved."""
         return scheme1.deinterleave_k(self.slices, self.p, self.blocks.bk)
@@ -72,6 +86,58 @@ class PreparedOperand:
         for i in range(self.p):
             w = w + 2.0 ** (-self.beta * (i + 1)) * st[i]
         return (w * self.scale.float())[:self.k, :self.n]
+
+
+@dataclasses.dataclass
+class PreparedResidues:
+    """A pre-encoded Scheme-II rhs operand (module doc): ``residues``
+    (p, Kp, Np) int8, ``scale`` (1, Np) in the weight's type, the
+    ``moduli``, the pinned ``budget_bits``, the logical ``k``/``n``,
+    ``layout`` ('fused' | 'stacked') and ``twin``. Unlike a Scheme-I
+    operand it has no block granularity: any K tile consumes the stack."""
+    residues: torch.Tensor
+    scale: torch.Tensor
+    moduli: tuple
+    budget_bits: int
+    k: int
+    n: int
+    layout: str = "fused"
+    twin: "PreparedResidues | None" = None
+
+    TENSORS = ("residues", "scale")
+
+    @property
+    def p(self) -> int:
+        return len(self.moduli)
+
+    @property
+    def padded_k(self) -> int:
+        return self.residues.shape[-2]
+
+    @property
+    def padded_n(self) -> int:
+        return self.residues.shape[-1]
+
+    def reconstruct(self) -> torch.Tensor:
+        """The dense (k, n) float32 weight the residues represent, exact up
+        to the integerization truncation (1 / scale elementwise)."""
+        res = scheme2.modular_reduce(self.residues.to(torch.int32),
+                                     self.moduli)
+        w_int = scheme2.crt_reconstruct(res, self.moduli, torch.float32)
+        return (w_int / self.scale.float())[:self.k, :self.n]
+
+
+def split_tensors(prep):
+    """(``prep`` with its tensor fields set to None, those tensors): the
+    tensors go through autograd's ``save_for_backward``, so that
+    activation checkpointing can drop them; the metadata stays."""
+    return (dataclasses.replace(prep, **dict.fromkeys(prep.TENSORS)),
+            tuple(getattr(prep, f) for f in prep.TENSORS))
+
+
+def join_tensors(meta, tensors):
+    """The inverse of :func:`split_tensors`."""
+    return dataclasses.replace(meta, **dict(zip(meta.TENSORS, tensors)))
 
 
 def _beta(cfg: EmulationConfig, dim: int) -> int:
@@ -93,21 +159,25 @@ def _backend_name(cfg: EmulationConfig, device) -> str:
 
 
 def prepare_rhs(b: torch.Tensor, cfg: EmulationConfig, *,
-                with_twin: bool = False) -> PreparedOperand:
-    """Decompose a (K, N) float rhs once, for reuse across GEMMs.
+                with_twin: bool = False):
+    """Decompose a (K, N) float rhs once, for reuse across GEMMs: a
+    :class:`PreparedOperand` under Scheme I, a :class:`PreparedResidues`
+    under Scheme II (:func:`prepare_rhs_scheme2`).
 
     With ``with_twin`` the K-transposed layout for the backward dA GEMM
-    comes too: from the same read of b (the pair kernel) when forward
-    and backward share p, else from a second rhs decomposition of b.T at
-    ``cfg.bwd_p`` (b.T is a strided view, never copied).
+    comes too. Under Scheme I it comes from the same read of b (the pair
+    kernel) when forward and backward share p, else from a second rhs
+    decomposition of b.T at ``cfg.bwd_p`` (b.T is a strided view, never
+    copied).
     """
+    if cfg.scheme == "ozaki2":
+        return prepare_rhs_scheme2(b, cfg, with_twin=with_twin)
+    if isinstance(b, PreparedResidues):
+        raise ValueError("got a PreparedResidues (Scheme-II) operand "
+                         f"under scheme={cfg.scheme!r}; pass the float "
+                         "weight instead")
     if isinstance(b, PreparedOperand):
         return b
-    if cfg.scheme == "ozaki2":
-        raise NotImplementedError(
-            "Scheme-II prepared residues (PreparedResidues, with the "
-            "prepared-residue form of EmuGEMM-II) are not ported yet "
-            "(ROADMAP.md § 1 item 3)")
     if cfg.scheme != "ozaki1":
         raise ValueError(f"prepare_rhs needs an emulated scheme, got "
                          f"{cfg.scheme!r}")
@@ -141,15 +211,103 @@ def prepare_rhs(b: torch.Tensor, cfg: EmulationConfig, *,
                            k, n, twin, name)
 
 
-def matmul_prepared(a: torch.Tensor, prep: PreparedOperand,
+def _pad2(x: torch.Tensor, align: int) -> torch.Tensor:
+    k, n = x.shape
+    kp, np_ = -(-k // align) * align, -(-n // align) * align
+    if (kp, np_) == (k, n):
+        return x
+    return F.pad(x, (0, np_ - n, 0, kp - k))
+
+
+def _encode_residues(b: torch.Tensor, moduli, k_dim: int):
+    """One Scheme-II rhs encode: the 16-aligned balanced residue stack,
+    the power-of-two scale and the pinned budget. It mirrors
+    ``scheme2.matmul``'s (integerize at the shared budget, capped by the
+    weight type's mantissa, then ``balanced_residues``), so consumption
+    is bit-identical to the unprepared product; padded rows and columns
+    encode to zero residues, which add nothing mod any modulus."""
+    b_pad = _pad2(b, ALIGN)
+    budget = scheme2.budget_bits(moduli, k_dim, b.dtype)
+    nu = scheme2._pow2_int_scale(b_pad, -2, budget)
+    res = scheme2.balanced_residues(torch.trunc(b_pad * nu), moduli)
+    return res, nu, budget
+
+
+def prepare_rhs_scheme2(b: torch.Tensor, cfg: EmulationConfig, *,
+                        with_twin: bool = False) -> PreparedResidues:
+    """Encode a (K, N) float rhs's balanced Scheme-II residues once.
+
+    ``with_twin`` also encodes B^T for the backward dA GEMM, a separate
+    encode: its scale reduces over the other axis and its budget is set
+    by its own contraction length N; a reduced ``cfg.bwd_p`` keeps the
+    leading ``bwd_p`` moduli. The layout is pinned now: 'fused' when the
+    config runs fused and the backend resolves to 'cuda', else 'stacked'.
+    """
+    if isinstance(b, PreparedResidues):
+        return b
+    if isinstance(b, PreparedOperand):
+        raise ValueError("got a PreparedOperand (Scheme-I) operand under "
+                         "scheme='ozaki2'; pass the float weight instead")
+    if b.dim() != 2:
+        raise ValueError(f"prepare_rhs is 2-D; got {tuple(b.shape)}")
+    if b.is_complex():
+        raise ValueError("prepare_rhs is real-valued; decompose the real "
+                         "and imaginary parts separately (the complex 3M "
+                         "path re-encodes per call)")
+    b = scheme2.operand(b)
+    k, n = b.shape
+    moduli = tuple(int(m) for m in cfg.resolved_moduli())
+    layout = "fused" if _backend_name(cfg, b.device) == "cuda" else "stacked"
+    res, nu, budget = _encode_residues(b, moduli, k)
+    twin = None
+    if with_twin:
+        t_moduli = moduli[:cfg.bwd_p] if cfg.bwd_p else moduli
+        t_res, tau, t_budget = _encode_residues(b.T, t_moduli, n)
+        twin = PreparedResidues(t_res, tau, t_moduli, t_budget, n, k, layout)
+    return PreparedResidues(res, nu, moduli, budget, k, n, layout, twin)
+
+
+def matmul_prepared_scheme2(a: torch.Tensor, prep: PreparedResidues,
+                            out_dtype=torch.float32) -> torch.Tensor:
+    """(M, K) float @ prepared Scheme-II residues (K, N) -> (M, N).
+
+    The lhs integerizes in its own type at the prep's pinned budget,
+    capped by its own mantissa, and is carved in the kernel's prologue
+    while the stored planes stream as they are ('fused'; the 'cuda'
+    backend, which launches the kernel or raises); a 'stacked' prep runs
+    the plain version on the 'torch' backend. Bit-identical to
+    ``scheme2.matmul`` on the same operands whenever the lhs mantissa
+    does not cap the budget below the encode-time one (any same-type
+    pair).
+    """
+    m, k = a.shape
+    if k != prep.k:
+        raise ValueError(f"lhs K={k} vs prepared K={prep.k}")
+    if a.is_complex():
+        raise ValueError("matmul_prepared is real-valued; got complex lhs "
+                         f"{a.dtype}")
+    scheme2.check_exact_k(k, prep.moduli)
+    a = scheme2.operand(a)
+    budget = min(prep.budget_bits, scheme2.MANTISSA[a.dtype])
+    mu = scheme2._pow2_int_scale(a, -1, budget)                # (M, 1)
+    name = "cuda" if prep.layout == "fused" else "torch"
+    return backends.get_backend(name).matmul_prepared_residues(
+        a, prep.residues, mu, prep.scale, prep.moduli, out_dtype, prep.n)
+
+
+def matmul_prepared(a: torch.Tensor, prep,
                     out_dtype=torch.float32) -> torch.Tensor:
-    """(M, K) float @ prepared (K, N) -> (M, N) ``out_dtype``, on the
-    backend that prepared ``prep``: the lhs is carved in the mixed
-    kernel, the prepared planes stream as they are."""
+    """(M, K) float @ prepared (K, N) -> (M, N) ``out_dtype``.
+
+    A :class:`PreparedResidues` goes to :func:`matmul_prepared_scheme2`.
+    A :class:`PreparedOperand` runs on the backend that prepared it: the
+    lhs is carved in the mixed kernel, the prepared planes stream as
+    they are."""
+    if isinstance(prep, PreparedResidues):
+        return matmul_prepared_scheme2(a, prep, out_dtype)
     if not isinstance(prep, PreparedOperand):
-        raise NotImplementedError(
-            f"matmul_prepared takes a Scheme-I PreparedOperand, got "
-            f"{type(prep).__name__} (Scheme II: ROADMAP.md § 1 item 3)")
+        raise TypeError(f"matmul_prepared takes a PreparedOperand or "
+                        f"PreparedResidues, got {type(prep).__name__}")
     m, k = a.shape
     if k != prep.k:
         raise ValueError(f"lhs K={k} vs prepared K={prep.k}")
@@ -165,3 +323,144 @@ def matmul_prepared(a: torch.Tensor, prep: PreparedOperand,
     mu = scheme1.pow2_scale(a, -1)                              # (M, 1)
     return backends.get_backend(prep.backend).matmul_mixed(
         a, prep.slices, mu, prep.scale, prep.p, prep.beta, out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Once-per-step preparation under gradient accumulation.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class StepPrepared:
+    """A float weight paired with its once-per-step prepared operand.
+
+    Built before the microbatch loop by :func:`build_step_preps` and
+    attached to the params tree by :func:`attach_step_preps`, so every
+    microbatch streams the finished encode instead of preparing again.
+    ``w`` stays the differentiable leaf: ``emulated_dot_prepared``
+    (``repro_torch.core.emulated``) computes the forward from ``prep``
+    and sends dB to ``w``; ``prep`` takes no gradient. For a layer stack
+    ``w`` is (L, K, N) and ``prep`` the list of its L per-layer preps."""
+    w: torch.Tensor
+    prep: "PreparedOperand | PreparedResidues | list"
+
+    def unbind(self) -> list:
+        """Per-layer pairs of a layer stack."""
+        return [StepPrepared(w, p)
+                for w, p in zip(torch.unbind(self.w), self.prep)]
+
+
+def _map_with_path(fn, tree, path=()):
+    """``fn(path, leaf)`` over a tree of dicts, ``path`` the tuple of
+    keys down to the leaf."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def _site_of(path) -> str:
+    if "mixer" in path:
+        return "attn"
+    if "head" in path or "emb" in path:
+        return "logits"
+    return "ffn"
+
+
+def _step_cacheable(cfg) -> bool:
+    # Scheme I caches int8 slices, Scheme II balanced residues.
+    return cfg.scheme in ("ozaki1", "ozaki2") and cfg.cache_weights
+
+
+def policy_caches_weights(policy) -> bool:
+    """Does any call-site family of this GemmPolicy cache weights? An
+    unset default defers to the ambient resolver, as ``for_site`` does."""
+    sites = [policy.default] + [cfg for _, cfg in policy.overrides]
+    if policy.default is None:
+        from repro_torch import api
+        sites[0] = api.resolve_config()
+    return any(_step_cacheable(cfg) for cfg in sites)
+
+
+def _path_key(path) -> str:
+    return "/".join(str(k) for k in path)
+
+
+# Projection-weight leaf names consumed through models.common.dense, the
+# only places a prepared rhs is legal. Excludes lookalikes used through
+# raw einsums (w_r/w_i of RG-LRU, wkv_b of MLA, MoE experts,
+# frontend_proj) and the tied-embedding table.
+DENSE_WEIGHT_NAMES = frozenset({
+    "wq", "wk", "wv", "wo", "wq_a", "wq_b", "wkv_a",
+    "wi", "wi_gate", "wi_up", "w_y", "w_gate", "w_out", "w_in",
+    "head",
+})
+
+
+def build_step_preps(params, policy) -> dict:
+    """Prepare every cacheable dense weight once, keyed by tree path.
+
+    Returns {path: prepared operand (with twin)} for the float leaves in
+    ``DENSE_WEIGHT_NAMES`` whose site config caches weights. A 3-D stack
+    under 'layers' is prepared per layer into a list, which the model's
+    layer loop pairs with its weight's per-layer views (the reference
+    stacks them for its layer scan; an eager loop needs no stack). MoE
+    leaves are skipped (their experts are consumed through raw einsums).
+    Nothing here is differentiated.
+    """
+    preps: dict = {}
+
+    def visit(path, leaf):
+        ndim = getattr(leaf, "ndim", 0)
+        stacked = ndim == 3 and "layers" in path
+        if (not path or path[-1] not in DENSE_WEIGHT_NAMES or "moe" in path
+                or not (ndim == 2 or stacked) or not leaf.is_floating_point()):
+            return leaf
+        cfg = policy.for_site(_site_of(path))
+        if not _step_cacheable(cfg):
+            return leaf
+        w = leaf.detach()
+        if stacked:
+            preps[_path_key(path)] = [prepare_rhs(w[g], cfg, with_twin=True)
+                                      for g in range(w.shape[0])]
+        else:
+            preps[_path_key(path)] = prepare_rhs(w, cfg, with_twin=True)
+        return leaf
+
+    with torch.no_grad():
+        _map_with_path(visit, params)
+    return preps
+
+
+def attach_step_preps(params, preps: dict):
+    """Swap each prepared weight leaf for a StepPrepared(w, prep) pair."""
+    if not preps:
+        return params
+
+    def wrap(path, leaf):
+        prep = preps.get(_path_key(path))
+        return StepPrepared(leaf, prep) if prep is not None else leaf
+
+    return _map_with_path(wrap, params)
+
+
+# ---------------------------------------------------------------------------
+# Whole-model preparation (once-per-session serving reuse).
+# ---------------------------------------------------------------------------
+
+def prepare_params(params, policy):
+    """Wrap a model's 2-D dense projection weights as prepared operands
+    (either scheme), once per serve session. Scan-stacked (3-D) layer
+    leaves pass through untouched, so on olmo-1b, whose projections are
+    layer stacks and whose head is the tied embedding, no leaf is
+    prepared (ROADMAP.md § 3 R4)."""
+    def wrap(path, leaf):
+        if (not path or path[-1] not in DENSE_WEIGHT_NAMES
+                or getattr(leaf, "ndim", 0) != 2
+                or not leaf.is_floating_point()):
+            return leaf
+        cfg = policy.for_site(_site_of(path))
+        if cfg.scheme not in ("ozaki1", "ozaki2"):
+            return leaf
+        with torch.no_grad():
+            return prepare_rhs(leaf.detach(), cfg)
+
+    return _map_with_path(wrap, params)

@@ -5,6 +5,12 @@ its shardings and ``jit``: PyTorch runs eagerly, and the slice trains on
 one card. The step is pure, as the reference's jitted one is: it takes a
 state {"params", "opt"} and a batch of numpy arrays and returns a new
 state and its metrics, leaving the old state as it was.
+
+With ``TrainPolicy.microbatches`` > 1 the step accumulates gradients over
+that many slices of the batch, as the reference's microbatch scan does,
+and a policy that caches weights prepares them once per optimizer step,
+before the loop (``kernels.prepared.build_step_preps``), instead of once
+per microbatch and again in each recompute.
 """
 
 from __future__ import annotations
@@ -12,18 +18,23 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import dispatch, prepared
 from repro_torch.models import model as M
 from repro_torch.models.common import GemmPolicy, cross_entropy_loss
 from repro_torch.optim import (clip_by_global_norm, make_optimizer,
                                warmup_cosine)
-from repro_torch.utils.tree import tree_leaves, tree_unflatten
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 
 def make_loss_fn(arch: ArchConfig, policy: GemmPolicy):
     mcfg = arch.model
 
-    def loss_fn(params, batch):
+    def loss_fn(params, batch, preps=None):
+        if preps:
+            # Once-per-step prepared weights (built before the microbatch
+            # loop, see make_train_step) replace their float leaves with
+            # StepPrepared pairs, which dense() consumes.
+            params = prepared.attach_step_preps(params, preps)
         logits, mtp_logits, aux = M.forward_train(
             params, mcfg, batch, policy, remat=arch.train.remat)
         return cross_entropy_loss(logits, batch["labels"], mcfg.vocab) + aux
@@ -31,13 +42,42 @@ def make_loss_fn(arch: ArchConfig, policy: GemmPolicy):
     return loss_fn
 
 
-def value_and_grad(loss_fn, params, batch):
-    """(loss, gradient tree) of ``loss_fn(params, batch)``, like
-    ``jax.value_and_grad``; ``params`` keeps no gradient state."""
+def value_and_grad(loss_fn, params, batch, *args):
+    """(loss, gradient tree) of ``loss_fn(params, batch, *args)``, like
+    ``jax.value_and_grad``: only the leaves of ``params`` are
+    differentiated, and ``params`` keeps no gradient state."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-    loss = loss_fn(tree_unflatten(params, leaves), batch)
+    loss = loss_fn(tree_unflatten(params, leaves), batch, *args)
     grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), tree_unflatten(params, grads)
+
+
+def split_batch(batch: dict, n_micro: int) -> list[dict]:
+    """``n_micro`` microbatches of consecutive rows along the first axis
+    (the reference's reshape to (n_micro, B // n_micro, ...))."""
+    rows = {len(v) for v in batch.values()}
+    if len(rows) != 1 or next(iter(rows)) % n_micro:
+        raise ValueError(f"a batch of {sorted(rows)} rows does not split "
+                         f"into {n_micro} microbatches")
+    parts = {k: torch.chunk(v, n_micro) for k, v in batch.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n_micro)]
+
+
+def accumulate_grads(loss_fn, params, batches, preps=None):
+    """(mean loss, mean gradients) over ``batches``: the float32
+    gradients summed in microbatch order from zeros, then divided, and
+    the losses likewise, as the reference's scan accumulates them."""
+    g_acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                           device=p.device), params)
+    l_acc = torch.zeros((), dtype=torch.float32,
+                        device=tree_leaves(params)[0].device)
+    for mb in batches:
+        loss, grads = value_and_grad(loss_fn, params, mb, preps)
+        g_acc = tree_map(lambda a, g: a + g.float(), g_acc, grads)
+        l_acc = l_acc + loss
+        del grads
+    n = len(batches)
+    return l_acc / n, tree_map(lambda g: g / n, g_acc)
 
 
 def batch_to(batch: dict, device) -> dict:
@@ -56,21 +96,27 @@ def make_train_step(arch: ArchConfig, mesh=None,
     if mesh is not None:
         raise NotImplementedError(
             "multi-device meshes are not ported yet (ROADMAP.md § 1 item 8)")
-    if arch.train.microbatches > 1:
-        raise NotImplementedError(
-            "gradient accumulation and its once-per-step weight preparation "
-            "(StepPrepared, build_step_preps) are not ported yet "
-            "(ROADMAP.md § 1 item 2)")
     if policy is None:
         policy = arch.gemm_policy()
     policy = dispatch.resolve_policy(policy)
     loss_fn = make_loss_fn(arch, policy)
     _, opt_update = make_optimizer(arch.train.optimizer)
+    n_micro = arch.train.microbatches
+    cached = prepared.policy_caches_weights(policy)
 
     def train_step(state, batch):
         params = state["params"]
-        device = tree_leaves(params)[0].device
-        loss, grads = value_and_grad(loss_fn, params, batch_to(batch, device))
+        batch = batch_to(batch, tree_leaves(params)[0].device)
+        if n_micro > 1:
+            # Prepare each cacheable weight HERE, once per optimizer step;
+            # every microbatch and every recompute streams the result.
+            preps = prepared.build_step_preps(params, policy) if cached \
+                else None
+            loss, grads = accumulate_grads(
+                loss_fn, params, split_batch(batch, n_micro), preps)
+            del preps
+        else:
+            loss, grads = value_and_grad(loss_fn, params, batch)
         grads, gnorm = clip_by_global_norm(grads, 1.0)
         lr = warmup_cosine(state["opt"]["step"], arch.train.learning_rate)
         new_params, new_opt = opt_update(grads, state["opt"], params, lr)

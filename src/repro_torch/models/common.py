@@ -14,8 +14,9 @@ from typing import Mapping
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.emulated import emulated_dot
+from repro_torch.core.emulated import emulated_dot, emulated_dot_prepared
 from repro_torch.core.precision import NATIVE, EmulationConfig
+from repro_torch.kernels.prepared import StepPrepared
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,11 +46,18 @@ class GemmPolicy:
 NATIVE_POLICY = GemmPolicy(default=NATIVE)
 
 
-def dense(x: torch.Tensor, w: torch.Tensor, policy: GemmPolicy, site: str,
+def dense(x: torch.Tensor, w, policy: GemmPolicy, site: str,
           bias: torch.Tensor | None = None) -> torch.Tensor:
-    """x: (..., K) @ w: (K, N) under the policy's emulation config."""
+    """x: (..., K) @ w: (K, N) under the policy's emulation config.
+
+    ``w`` may be a :class:`~repro_torch.kernels.prepared.StepPrepared`
+    pair (float weight + once-per-step prep, attached by
+    ``launch/steps.py``), sent through ``emulated_dot_prepared``: the
+    forward streams the prep and dB still reaches the weight."""
     cfg = policy.for_site(site)
-    if cfg.scheme == "native":
+    if isinstance(w, StepPrepared):
+        out = emulated_dot_prepared(x, w.w, w.prep, cfg).to(x.dtype)
+    elif cfg.scheme == "native":
         out = torch.matmul(x, w)
     else:
         out = emulated_dot(x, w, cfg).to(x.dtype)

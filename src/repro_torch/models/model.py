@@ -18,6 +18,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.prepared import StepPrepared
 from repro_torch.models import blocks as B
 from repro_torch.models.attention import init_cache as attn_init_cache
 from repro_torch.models.common import (GemmPolicy, NATIVE_POLICY, apply_norm,
@@ -38,10 +39,13 @@ def resolve_device(device) -> torch.device:
 def unstack_layers(params, n_layers: int) -> list:
     """Every layer's block parameters, views from one ``unbind`` of each
     stacked leaf (in training, one gradient buffer per leaf, not one per
-    layer)."""
+    layer); a once-per-step ``StepPrepared`` stack splits into per-layer
+    pairs of weight view and prep."""
     def split(tree):
         if isinstance(tree, dict):
             return {k: split(v) for k, v in tree.items()}
+        if isinstance(tree, StepPrepared):
+            return tree.unbind()
         return torch.unbind(tree)
     def pick(tree, i):
         if isinstance(tree, dict):

@@ -55,12 +55,12 @@ class RequestResult:
 def _refuse_prepared(params) -> None:
     """The reference's ``prepare_params`` wraps 2-D dense weights only;
     olmo-1b has none (stacked layers, tied head), so preparing is a no-op
-    there. Any architecture where it would do work needs the prepared-
-    operand kernels, which are not ported."""
+    there. Serving an architecture where it would do work is not ported
+    (``kernels.prepared.prepare_params`` is, for training's tests)."""
     if "head" in params:
         raise NotImplementedError(
-            "prepared weights ('+cached' / --prepare on an untied head) "
-            "are not ported yet (ROADMAP.md § 1 item 2)")
+            "serving prepared weights ('+cached' / --prepare on an untied "
+            "head) is not ported yet (ROADMAP.md § 1 item 2)")
 
 
 class ContinuousEngine:

@@ -1,9 +1,10 @@
 """The port's CUDA kernels on the card: EmuGEMM-I in its three launch
 forms, the prepared-weight decomposition (K2, K2r), EmuGEMM-II in its
-three launch forms (K5g, K6, K5; float32, bfloat16 and float64) and its
-complex 3M kernels (K7g, K7) against their plain versions, bit for bit,
-the dispatcher's routing of CUDA tensors (complex 4M included), and train
-steps that launch them.
+four launch forms (K5g with a float and with a residue rhs, K6, K5;
+float32, bfloat16 and float64) and its complex 3M kernels (K7g, K7)
+against their plain versions, bit for bit, the dispatcher's routing of
+CUDA tensors (complex 4M included), and train steps that launch them
+(a hoisted microbatch step among them).
 
 These tests need an NVIDIA GPU and nvcc; they skip elsewhere. This file
 imports no jax, so it runs where only torch is installed:
@@ -311,3 +312,69 @@ def test_complex_routes_on_card(cuda_device):
         dispatch.emulated_matmul(a, b, cfg=cfg17)
     with pytest.raises(NotImplementedError, match="forward only"):
         api.einsum("mk,kn->mn", a.requires_grad_(), b, precision="ozaki2-m8")
+
+
+# ---------------------------------------------------------------------------
+# EmuGEMM-II's prepared form (K5g with a residue rhs) and the hoisted step.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("p", [6, 8, 16])
+def test_scheme2_prepared_bit_identical_to_plain_on_card(cuda_device, dtype,
+                                                         p):
+    """The prepared form against its plain version, and against the 2-D
+    form on the same operands, aligned, ragged and with a transposed
+    lhs."""
+    from repro_torch.kernels import prepared
+    g = torch.Generator(device=cuda_device).manual_seed(p)
+    cfg = EmulationConfig(scheme="ozaki2", p=p)
+    for m, k, n, trans in [(256, 512, 384, False), (100, 200, 77, False),
+                           (33, 130, 50, True)]:
+        a = (torch.randn((k, m) if trans else (m, k), generator=g,
+                         device=cuda_device, dtype=torch.float64) * 3)
+        a = (a.T if trans else a).to(dtype)
+        b = torch.randn(k, n, generator=g, device=cuda_device,
+                        dtype=torch.float64).to(dtype)
+        prep = prepared.prepare_rhs(b, cfg)
+        assert prep.layout == "fused"
+        mu = scheme2._pow2_int_scale(a, -1, prep.budget_bits)
+        ozaki2.COUNTS.reset()
+        out = ozaki2.fused_matmul_scheme2_prepared(
+            a, prep.residues, mu, prep.scale, prep.moduli, dtype, n)
+        assert ozaki2.COUNTS.launches_prepared == 1
+        ref = ozaki2.fused_matmul_scheme2_prepared_plain(
+            a, prep.residues, mu, prep.scale, prep.moduli, dtype, n)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), (m, k, n, trans)
+        assert torch.equal(prepared.matmul_prepared(a, prep, dtype),
+                           dispatch.emulated_matmul(a, b, cfg=cfg)), (m, k, n)
+
+
+def test_hoisted_step_launches_the_prepared_form(cuda_device):
+    """A microbatches=2 step under ozaki2-m6+cached prepares each weight
+    once and launches the prepared form for every dense forward and dA,
+    with no plain version on CUDA."""
+    import dataclasses
+    from repro_torch import api, configs
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.launch import steps as S
+    from repro_torch.models.common import GemmPolicy
+    arch = configs.get_smoke_config("olmo-1b")
+    arch = dataclasses.replace(arch, train=dataclasses.replace(
+        arch.train, microbatches=2))
+    state = S.init_state(arch, 0, cuda_device)
+    step = S.make_train_step(arch, policy=GemmPolicy(
+        default=api.precision("ozaki2-m6+cached")))
+    _, batch = next(make_batch_iterator(arch, ShapeSpec("t", 32, 4,
+                                                        "train")))
+    ozaki2.COUNTS.reset()
+    _, metrics = step(state, batch)
+    assert torch.isfinite(metrics["loss"])
+    layers = arch.model.n_layers
+    # 7 dense weights a layer: forward, recompute and dA per microbatch;
+    # the tied head: forward and dA per microbatch.
+    assert ozaki2.COUNTS.launches_prepared == 2 * (21 * layers + 2)
+    assert ozaki2.COUNTS.launches_2d == 2 * (7 * layers + 1)   # dB
+    assert ozaki2.COUNTS.plain_cuda_calls == 0

@@ -16,6 +16,7 @@ from repro.kernels import dispatch as jdispatch
 from repro_torch import api as tapi
 from repro_torch.core.precision import EmulationConfig
 from repro_torch.kernels import backends, dispatch
+from repro_torch.models.common import GemmPolicy
 
 
 @pytest.mark.parametrize("p", [3, 4, 6])
@@ -111,12 +112,22 @@ def test_block_cache_counts_per_backend():
     assert dispatch.block_cache_info().currsize == 0
 
 
-@pytest.mark.parametrize("spec,err", [("ozaki2-m6+cached", NotImplementedError),
-                                      ("ozaki1-p4+guard", NotImplementedError),
+@pytest.mark.parametrize("spec,err", [("ozaki1-p4+guard", NotImplementedError),
                                       ("ozaki1-p4@tpu", KeyError)])
 def test_outside_the_slice_raises(spec, err):
     with pytest.raises(err):
         dispatch.emulated_matmul(torch.ones(4, 8), torch.ones(8, 4), cfg=spec)
+
+
+def test_ozaki2_cached_spec_runs():
+    """'ozaki2-m6+cached' is in the slice: a plain GEMM under it gives the
+    bits of 'ozaki2-m6' (``+cached`` only changes a differentiated call),
+    and a policy holding it resolves."""
+    a, b = torch.randn(4, 8), torch.randn(8, 4)
+    assert torch.equal(dispatch.emulated_matmul(a, b, cfg="ozaki2-m6+cached"),
+                       dispatch.emulated_matmul(a, b, cfg="ozaki2-m6"))
+    dispatch.resolve_policy(GemmPolicy(
+        default=EmulationConfig.parse("ozaki2-m6+cached")))
 
 
 def test_native_and_complex():

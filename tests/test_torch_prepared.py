@@ -135,9 +135,15 @@ def test_prepared_refuses_other_granularities_and_schemes():
     bad = dataclasses.replace(prep, blocks=Blocks(64, 64, 16))
     with pytest.raises(ValueError, match="granularity"):
         tprepared.matmul_prepared(t(_conditioned(1, (4, 64))), bad)
-    with pytest.raises(NotImplementedError,
-                       match=r"PreparedResidues.*§ 1 item 3"):
-        tprepared.prepare_rhs(b, TCfg(scheme="ozaki2", p=4))
+    # The ozaki2 refusals that remain: a PreparedResidues rhs under
+    # ozaki1, a complex weight, a 3-D weight.
+    res = tprepared.prepare_rhs(b, TCfg(scheme="ozaki2", p=4))
+    with pytest.raises(ValueError, match="PreparedResidues"):
+        tprepared.prepare_rhs(res, TCfg(scheme="ozaki1", p=4))
+    with pytest.raises(ValueError, match="real-valued"):
+        tprepared.prepare_rhs(torch.complex(b, b), TCfg(scheme="ozaki2", p=4))
+    with pytest.raises(ValueError, match="2-D"):
+        tprepared.prepare_rhs(b[None], TCfg(scheme="ozaki2", p=4))
 
 
 # ---------------------------------------------------------------------------

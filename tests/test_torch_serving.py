@@ -142,3 +142,17 @@ def test_engine_refuses_what_the_slice_does_not_run():
         toks[spec] = eng.run([req])[req.rid].tokens
         assert eng.prepared == spec.endswith("+cached")
     assert toks["ozaki1-p4+cached"] == toks["ozaki1-p4"]
+
+
+def test_ozaki2_cached_serves_as_ozaki2():
+    """'ozaki2-m6+cached' serves olmo-1b as 'ozaki2-m6' does: the serve
+    never differentiates, so the cache prepares nothing (as the
+    reference's primal does)."""
+    arch = tconfigs.get_smoke_config("olmo-1b")
+    toks = {}
+    for spec in ("ozaki2-m6+cached", "ozaki2-m6"):
+        eng = ContinuousEngine(arch, max_seq=16, device="cpu",
+                               policy=TPolicy(default=tapi.precision(spec)))
+        req = Request(prompt=[5, 6, 7], max_new_tokens=3)
+        toks[spec] = eng.run([req])[req.rid].tokens
+    assert toks["ozaki2-m6+cached"] == toks["ozaki2-m6"]
