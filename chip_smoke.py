@@ -3,10 +3,10 @@
     python3 chip_smoke.py
 
 Drives repro_torch only (no jax, nothing of the reference package) on the
-card, with no CPU fallback, in eighteen phases:
+card, with no CPU fallback, in nineteen phases:
 
-1. build: nvcc compiles the port's CUDA kernels from this checkout, one
-   process per source, in parallel;
+1. build: nvcc compiles the port's CUDA kernels from this checkout (six
+   sources), one process per source, in parallel;
 2. kernel: every kernel of the serving path is held against its plain
    version bit for bit at the path's shapes (float32 and bfloat16,
    p in {3, 4, 6}), and timed beside its bound;
@@ -87,6 +87,22 @@ card, with no CPU fallback, in eighteen phases:
     and float32 gradients with the hoisted preps equal the mean of the
     halves' per-call-cached ones, the uncached ozaki2-m6 ones, and those
     of the 'torch' backend, bit for bit.
+19. library: the kernels no model reaches. EmuGEMM-I on interleaved
+    operands (K8) and the lhs decomposition (K11) are held against their
+    plain versions bit for bit at olmo-1b's dense shapes at 1024 tokens
+    and a ragged shape (float32 and bfloat16, p in {3, 4, 6}), and K11 +
+    K2r -> K8 and the 'xla' route of ``ops.fused_scheme1_matmul`` against
+    K1; the int8 GEMM (K9) bit for bit at 4096^3, 1024 x 2048 x 8192 and a
+    ragged shape; then the library's entry points run with the counts read
+    around them: the 'xla' route and the decompositions feeding K8 (bf16,
+    p = 4), the naive Fig. 4 structure (p(p+1)/2 K9 launches) at 4096^3,
+    which must equal K1, and fused attention (K10) at olmo-1b's heads
+    (2 x 16 x 2048 x 128, causal, bf16 and float32, and a window of 1024),
+    granite-3-8b's GQA (32 / 8 heads), recurrentgemma-2b's MQA (10 / 1
+    heads of 256 over 4096, window 2048) and a rectangular non-causal case
+    (128 / 512, D 64), within 2e-5 (float32) and 2e-2 (bf16) of its plain
+    version; each kernel is timed beside its bound, its plain version and,
+    for K9 and K10, torch._int_mm and scaled_dot_product_attention.
 
 Any failure exits non-zero and prints no result. The line before the
 last is a JSON object listing each kernel; the last line is
@@ -122,8 +138,9 @@ from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.core import complex3m, scheme1, scheme2  # noqa: E402
 from repro_torch.core.precision import default_moduli  # noqa: E402
 from repro_torch.data import make_batch_iterator  # noqa: E402
-from repro_torch.kernels import (build, decompose, dispatch, ops,  # noqa: E402
-                                 ozaki1, ozaki2, ozaki3m, prepared)
+from repro_torch.kernels import (build, decompose, dispatch,  # noqa: E402
+                                 flash_attn, matmul_int8, ops, ozaki1, ozaki2,
+                                 ozaki3m, prepared)
 from repro_torch.launch import steps as S, train as train_cli  # noqa: E402
 from repro_torch.launch.serve import build_trace  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -131,9 +148,12 @@ from repro_torch.models.common import GemmPolicy, pad_vocab  # noqa: E402
 from repro_torch.serving import ContinuousEngine, Request  # noqa: E402
 from repro_torch.utils.tree import tree_flatten  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, int8 ops/s.
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, int8 ops/s,
+# bf16 tensor-core flop/s and float32 flop/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+BF16_FLOPS_PER_S = 989e12
+FP32_FLOPS_PER_S = 67e12
 L2_BYTES = 50 * 2 ** 20
 
 SOURCE = "src/repro_torch/kernels/csrc/emugemm1.cu"
@@ -170,6 +190,30 @@ EVAL_ROWS, SCI_ROWS = 64, 256
 HOIST_SPEC = f"ozaki2-m{M_MAIN}+cached"
 HOIST_MICRO = 2
 HOIST_M_CHECK = (6, 8, 16)
+# The library kernels: EmuGEMM-I on interleaved operands and the lhs
+# decomposition at olmo-1b's dense shapes (and LIB_RAGGED) at LIB_P
+# slices; the int8 GEMM checked at INT8_CHECK and timed at INT8_TIMED,
+# the naive Fig. 4 structure at NAIVE_N^3; attention at ATTN_CASES:
+# (label, B, H, KVH, S_q, S_k, D, causal, window, dtype).
+SOURCE_INT8 = "src/repro_torch/kernels/csrc/matmul_int8.cu"
+SOURCE_FLASH = "src/repro_torch/kernels/csrc/flash_attn.cu"
+LIB_P = (3, 4, 6)
+LIB_RAGGED = (100, 1000, 77)
+INT8_CHECK = ((4096, 4096, 4096), (1024, 2048, 8192), (1000, 3000, 777))
+INT8_TIMED = (4096, 8192)
+NAIVE_N = 4096
+ATTN_CASES = (
+    ("olmo-1b causal", 2, 16, 16, 2048, 2048, 128, True, None, "bfloat16"),
+    ("olmo-1b causal", 2, 16, 16, 2048, 2048, 128, True, None, "float32"),
+    ("granite-3-8b GQA causal", 1, 32, 8, 2048, 2048, 128, True, None,
+     "bfloat16"),
+    ("olmo-1b window 1024", 2, 16, 16, 2048, 2048, 128, True, 1024,
+     "bfloat16"),
+    ("recurrentgemma-2b MQA window 2048", 1, 10, 1, 4096, 4096, 256, True,
+     2048, "bfloat16"),
+    ("rectangular full", 1, 4, 4, 128, 512, 64, False, None, "float32"),
+)
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
 def log(*args):
@@ -748,6 +792,8 @@ def reset_counts():
     decompose.COUNTS.reset()
     ozaki2.COUNTS.reset()
     ozaki3m.COUNTS.reset()
+    matmul_int8.COUNTS.reset()
+    flash_attn.COUNTS.reset()
 
 
 def train_batches(arch, batch=None, seq=None):
@@ -1780,10 +1826,329 @@ def trainer_phase():
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the library kernels (K8, K11, K9, K10).
+# ---------------------------------------------------------------------------
+
+def lhs_bound(m, k, p, in_bytes):
+    """K11: A and mu read once, the p planes of (M, Kp) written once."""
+    moved = in_bytes * m * k + 4 * m + p * m * decompose.round_up(k)
+    return 1e3 * moved / HBM_BYTES_PER_S, "bytes"
+
+
+def int8_bound(m, k, n):
+    moved = m * k + k * n + 4 * m * n
+    t_b, t_o = moved / HBM_BYTES_PER_S, 2 * m * n * k / INT8_OPS_PER_S
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def attn_bound(b, h, kvh, sq, sk, d, causal, window, dtype):
+    """q, k, v and o moved once, against 4 D flops for every (q, k) pair
+    a head sees (half the pairs, plus the diagonal, when causal with
+    S_q = S_k) at the bf16 tensor-core or the float32 peak."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    moved = size * d * (2 * b * h * sq + 2 * b * kvh * sk)
+    pairs = int(flash_attn.visible(sq, sk, causal, window).sum())
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    t_b, t_o = moved / HBM_BYTES_PER_S, 4 * b * h * d * pairs / peak
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def library_counts():
+    return {"emugemm1": ozaki1.LaunchCounts(**vars(ozaki1.COUNTS)),
+            "decompose": decompose.LaunchCounts(**vars(decompose.COUNTS)),
+            "int8": matmul_int8.LaunchCounts(**vars(matmul_int8.COUNTS)),
+            "flash": flash_attn.LaunchCounts(**vars(flash_attn.COUNTS))}
+
+
+def scheme1_cfg(p, decomp):
+    return dataclasses.replace(api.precision(f"ozaki1-p{p}"), decomp=decomp)
+
+
+def naive_scheme1(a, b, p, beta):
+    """Paper Fig. 4's naive emulation: split both operands, p(p+1)/2 int8
+    GEMMs (K9), each written to device memory, summed into p int32
+    accumulators, then a separate shift-reduce."""
+    a_sl, mu = scheme1.split(a, p, beta, dim=1)
+    b_sl, nu = scheme1.split(b, p, beta, dim=0)
+    accs = []
+    for s in range(p):
+        acc = ops.int8_matmul(a_sl[0], b_sl[s])
+        for i in range(1, s + 1):
+            acc = acc + ops.int8_matmul(a_sl[i], b_sl[s - i])
+        accs.append(acc)
+    return scheme1.shift_reduce(torch.stack(accs), beta, mu, nu,
+                                torch.float32)
+
+
+def fused_scheme1(a, b, p, beta):
+    """The same GEMM in one EmuGEMM-I launch (K1), scales included."""
+    mu, nu = scheme1.pow2_scale(a, 1), scheme1.pow2_scale(b, 0)
+    return ozaki1.fused_matmul_scheme1(a, b, mu, nu, p, beta, torch.float32)
+
+
+def attn_inputs(gen, dev, case):
+    _, b, h, kvh, sq, sk, d, _, _, dt = case
+    dtype = getattr(torch, dt)
+    return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
+                 for shape in ((b, h, sq, d), (b, kvh, sk, d),
+                               (b, kvh, sk, d)))
+
+
+def check_close(what, out, ref, tol, max_err, key):
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    max_err[key] = max(max_err[key], err)
+    if bool((diff > tol + tol * ref.float().abs()).any()) or not bool(
+            torch.isfinite(out).all()):
+        raise AssertionError(f"{what}: kernel differs from the plain version "
+                             f"beyond {tol}, max |diff| {err}")
+    return err
+
+
+def library_phase(dev, mcfg):
+    """K11 and K8 (the 'xla' route of ops.fused_scheme1_matmul and the
+    lhs + rhs decompositions feeding the interleaved form), K9 (the int8
+    baseline and the naive structure it composes) and K10 (fused
+    attention at the head layouts of olmo-1b, granite-3-8b and
+    recurrentgemma-2b): checked against their plain versions, driven
+    through the library's entry points with the counts read around them,
+    and timed beside their bounds and library calls."""
+    gen = torch.Generator(device=dev).manual_seed(19)
+    max_err = {"interleaved": 0.0, "lhs": 0.0, "int8": 0.0, "flash": 0.0}
+    shapes = dense_shapes(mcfg)
+
+    # (a) K11 and K8, bit for bit: against the plain versions, K11 + K2r
+    # -> K8 against K1 on the same operands, the 'xla' route against the
+    # 'kernel' route.
+    checks = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for p in LIB_P:
+            for m, k, n in shapes + [LIB_RAGGED]:
+                a = conditioned(gen, (m, k), dtype, dev)
+                b = conditioned(gen, (k, n), dtype, dev)
+                beta = scheme1_cfg(p, "xla").resolved_beta(k)
+                mu, nu = scheme1.pow2_scale(a, 1), scheme1.pow2_scale(b, 0)
+                what = f"{(m, k, n)} {dtype} p={p}"
+                a_hat = decompose.decompose_interleave(a, mu, p, beta)
+                check_equal(f"K11 {what}", a_hat,
+                            decompose.decompose_lhs_plain(a, mu, p, beta),
+                            max_err, "lhs")
+                b_hat = decompose.decompose_interleave_rhs(b, nu, p, beta)
+                out = ozaki1.fused_matmul_interleaved(a_hat, b_hat, mu, nu,
+                                                      p, beta, dtype)
+                check_equal(f"K8 {what}", out,
+                            ozaki1.fused_matmul_interleaved_plain(
+                                a_hat, b_hat, mu, nu, p, beta, dtype),
+                            max_err, "interleaved")
+                if not torch.equal(out, ozaki1.fused_matmul_scheme1(
+                        a, b, mu, nu, p, beta, dtype)):
+                    raise AssertionError(f"K11 + K2r -> K8 != K1 at {what}")
+                routes = [ops.fused_scheme1_matmul(
+                    a, b, scheme1_cfg(p, d), out_dtype=dtype)
+                    for d in ("xla", "kernel")]
+                if not torch.equal(*routes):
+                    raise AssertionError(f"ops.fused_scheme1_matmul: 'xla' "
+                                         f"!= 'kernel' at {what}")
+                checks += 1
+                del a, b, a_hat, b_hat, out, routes
+    log(f"[library] K11 and K8: {checks} shape/type/p cases bit-identical to "
+        "their plain versions; K11 + K2r -> K8 == K1 and the 'xla' route "
+        "== the 'kernel' route in every case")
+
+    # (b) K9, bit for bit.
+    for m, k, n in INT8_CHECK:
+        a8 = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
+                           dtype=torch.int8)
+        b8 = torch.randint(-128, 128, (k, n), generator=gen, device=dev,
+                           dtype=torch.int8)
+        check_equal(f"K9 {(m, k, n)}", matmul_int8.int8_matmul(a8, b8),
+                    matmul_int8.int8_matmul_plain(a8, b8), max_err, "int8")
+    log(f"[library] K9 bit-identical to its plain version at {INT8_CHECK}")
+
+    # The main path: the library's entry points, counts zeroed just before
+    # and read just after. Nothing here compares with a plain version.
+    bf, p = torch.bfloat16, P_MAIN
+    xs = [(conditioned(gen, (m, k), bf, dev), conditioned(gen, (k, n), bf, dev))
+          for m, k, n in shapes]
+    na = conditioned(gen, (NAIVE_N, NAIVE_N), torch.float32, dev)
+    nb = conditioned(gen, (NAIVE_N, NAIVE_N), torch.float32, dev)
+    naive_beta = scheme1_cfg(p, "xla").resolved_beta(NAIVE_N)
+    qkvs = [attn_inputs(gen, dev, c) for c in ATTN_CASES]
+    torch.cuda.synchronize()
+    reset_counts()
+    routed = [ops.fused_scheme1_matmul(a, b, scheme1_cfg(p, "xla"),
+                                       out_dtype=bf) for a, b in xs]
+    composed = []
+    for a, b in xs:
+        beta = scheme1_cfg(p, "xla").resolved_beta(a.shape[1])
+        mu, nu = scheme1.pow2_scale(a, 1), scheme1.pow2_scale(b, 0)
+        composed.append(ozaki1.fused_matmul_interleaved(
+            decompose.decompose_interleave(a, mu, p, beta),
+            decompose.decompose_interleave_rhs(b, nu, p, beta), mu, nu, p,
+            beta, bf))
+    naive = naive_scheme1(na, nb, p, naive_beta)
+    attn = [flash_attn.flash_attention(q, k, v, causal=c[7], window=c[8])
+            for c, (q, k, v) in zip(ATTN_CASES, qkvs)]
+    torch.cuda.synchronize()
+    counts = library_counts()
+    e1, dc = counts["emugemm1"], counts["decompose"]
+    n_mm = p * (p + 1) // 2
+    log(f"[library] main path: K8 {e1.launches_interleaved}, K11 "
+        f"{dc.launches_lhs}, K2r {dc.launches_rhs}, K9 "
+        f"{counts['int8'].launches}, K10 {counts['flash'].launches}, K1 "
+        f"{e1.launches_2d}, plain versions on CUDA "
+        f"{sum(c.plain_cuda_calls for c in counts.values())}")
+    expected = (2 * len(shapes), len(shapes), len(shapes), n_mm,
+                len(ATTN_CASES), 0)
+    got = (e1.launches_interleaved, dc.launches_lhs, dc.launches_rhs,
+           counts["int8"].launches, counts["flash"].launches, e1.launches_2d)
+    if got != expected:
+        raise AssertionError(f"library main path launches {got}, expected "
+                             f"{expected}")
+    if any(c.plain_cuda_calls for c in counts.values()):
+        raise AssertionError("the library path ran a plain version on CUDA")
+    for (a, b), r, c in zip(xs, routed, composed):
+        if not (torch.equal(r, c) and torch.equal(r, ops.fused_scheme1_matmul(
+                a, b, scheme1_cfg(p, "kernel"), out_dtype=bf))):
+            raise AssertionError(f"the 'xla' route, the decompositions + K8 "
+                                 f"and K1 differ at {tuple(a.shape)} @ "
+                                 f"{tuple(b.shape)}")
+    if not torch.equal(naive, fused_scheme1(na, nb, p, naive_beta)):
+        raise AssertionError("the naive K9 composition != K1")
+    for c, (q, k, v), out in zip(ATTN_CASES, qkvs, attn):
+        check_close(f"K10 {c}", out, flash_attn.flash_attention_plain(
+            q, k, v, c[7], c[8]), ATTN_TOL[c[9]], max_err, "flash")
+    log(f"[library] on the main path the 'xla' route == K11 + K2r -> K8 == "
+        f"K1, the naive K9 composition at {NAIVE_N}^3 == K1, and K10 within "
+        f"its bars in {len(ATTN_CASES)} cases (max |diff| "
+        f"{max_err['flash']:.3g})")
+    del routed, composed, naive, attn
+
+    # Times. K8 and K11 summed over one launch at each dense shape.
+    t8, t11 = ({"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
+                "ops_ms": 0.0, "yardstick_ms": 0.0} for _ in range(2))
+    for (m, k, n), (a, b) in zip(shapes, xs):
+        beta = scheme1_cfg(p, "xla").resolved_beta(k)
+        mu, nu = scheme1.pow2_scale(a, 1), scheme1.pow2_scale(b, 0)
+        a_hat = decompose.decompose_interleave(a, mu, p, beta)
+        b_hat = decompose.decompose_interleave_rhs(b, nu, p, beta)
+        for tot, run_k, run_p, (bms, by) in (
+                (t8, lambda: ozaki1.fused_matmul_interleaved(
+                    a_hat, b_hat, mu, nu, p, beta, bf),
+                 lambda: ozaki1.fused_matmul_interleaved_plain(
+                     a_hat, b_hat, mu, nu, p, beta, bf),
+                 bound_ms(1, m, k, n, p, p, 2)),     # p bytes an element in
+                (t11, lambda: decompose.decompose_interleave(a, mu, p, beta),
+                 lambda: decompose.decompose_lhs_plain(a, mu, p, beta),
+                 lhs_bound(m, k, p, 2))):
+            _add(tot, 1, time_ms(run_k, 10), time_ms(run_p, 3), 0.0, bms, by)
+        log(f"[library] M={m} K={k} N={n} bf16 p={p}: K8 and K11 running "
+            f"totals {t8['ms']:.4f} / {t11['ms']:.4f} ms")
+    log(f"[library] K8 per {len(shapes)} dense shapes: kernel "
+        f"{t8['ms']:.4f} ms, plain {t8['plain_ms']:.4f} ms, bound "
+        f"{t8['bound_ms']:.4f} ms; K11: kernel {t11['ms']:.4f} ms, plain "
+        f"{t11['plain_ms']:.4f} ms, bound {t11['bound_ms']:.4f} ms (bytes)")
+    del xs
+
+    # K9 beside torch._int_mm (the library call) and its bound.
+    t9 = []
+    for n_ in INT8_TIMED:
+        a8 = torch.randint(-128, 128, (n_, n_), generator=gen, device=dev,
+                           dtype=torch.int8)
+        b8 = torch.randint(-128, 128, (n_, n_), generator=gen, device=dev,
+                           dtype=torch.int8)
+        ms = time_ms(lambda: matmul_int8.int8_matmul(a8, b8), 10)
+        plain = time_ms(lambda: matmul_int8.int8_matmul_plain(a8, b8), 3)
+        lib = time_ms(lambda: torch._int_mm(a8, b8), 10)
+        bms, by = int8_bound(n_, n_, n_)
+        t9.append({"n": n_, "ms": ms, "plain_ms": plain, "library_ms": lib,
+                   "bound_ms": bms, "bound_by": by})
+        log(f"[library] K9 {n_}^3: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"torch._int_mm {lib:.4f} ms, bound {bms:.4f} ms ({by})")
+        del a8, b8
+    naive_ms = time_ms(lambda: naive_scheme1(na, nb, p, naive_beta), 3)
+    fused_ms = time_ms(lambda: fused_scheme1(na, nb, p, naive_beta), 3)
+    log(f"[library] Fig. 4 at {NAIVE_N}^3, float32, p={p}: naive ({n_mm} K9 "
+        f"launches, split and shift-reduce in torch) {naive_ms:.3f} ms, "
+        f"fused (K1, one launch) {fused_ms:.3f} ms, naive/fused "
+        f"{naive_ms / fused_ms:.3f}")
+    del na, nb
+
+    # K10 beside its bound and, where it runs the case without an explicit
+    # mask, scaled_dot_product_attention (the library call).
+    t10 = []
+    for c, (q, k, v) in zip(ATTN_CASES, qkvs):
+        label, b_, h, kvh, sq, sk, d, causal, window, dt = c
+        dtype = getattr(torch, dt)
+        fast = dtype == torch.bfloat16
+        ms = time_ms(lambda: flash_attn.flash_attention(
+            q, k, v, causal=causal, window=window), 10 if fast else 3)
+        plain = time_ms(lambda: flash_attn.flash_attention_plain(
+            q, k, v, causal, window), 3)
+        lib = None
+        if window is None:
+            lib = time_ms(lambda: torch.nn.functional.
+                          scaled_dot_product_attention(
+                              q, k, v, is_causal=causal,
+                              enable_gqa=h != kvh), 10 if fast else 3)
+        bms, by = attn_bound(b_, h, kvh, sq, sk, d, causal, window, dtype)
+        t10.append({"case": label, "shape": [b_, h, kvh, sq, sk, d],
+                    "causal": causal, "window": window, "dtype": dt,
+                    "ms": ms, "plain_ms": plain, "library_ms": lib,
+                    "bound_ms": bms, "bound_by": by})
+        log(f"[library] K10 {label} {dt} B={b_} H={h}/{kvh} S={sq}/{sk} "
+            f"D={d}: kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa "
+            f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
+            f"{bms:.4f} ms ({by})")
+    del qkvs
+
+    def totals(t):
+        return {"ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"],
+                "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"]
+                else "operations"}
+
+    common = {"route": "cuda"}
+    lib_per = (f"one launch at each of olmo-1b's dense shapes at {TOKENS} "
+               f"tokens, bf16, p = {p} (launches: phase 19's main path)")
+    return [
+        {"name": "emugemm1_interleaved", **common, "source": SOURCE,
+         "replaces": "src/repro/kernels/ozaki1.py:118",
+         "launches": e1.launches_interleaved,
+         "max_abs_err": max_err["interleaved"], **totals(t8),
+         "library_ms": None, "per": lib_per},
+        {"name": "decompose_lhs", **common, "source": DECOMPOSE_SOURCE,
+         "replaces": "src/repro/kernels/decompose.py:42",
+         "launches": dc.launches_lhs, "max_abs_err": max_err["lhs"],
+         **totals(t11), "library_ms": None, "per": lib_per},
+        {"name": "int8_matmul", **common, "source": SOURCE_INT8,
+         "replaces": "src/repro/kernels/matmul_int8.py:38",
+         "launches": counts["int8"].launches, "max_abs_err": max_err["int8"],
+         **{key: t9[0][key] for key in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
+         "per": f"one {INT8_TIMED[0]}^3 GEMM; library: torch._int_mm "
+                f"(launches: the naive Fig. 4 structure at {NAIVE_N}^3)",
+         "cases": t9, "naive_fig4_ms": naive_ms, "fused_k1_ms": fused_ms},
+        {"name": "flash_attention", **common, "source": SOURCE_FLASH,
+         "replaces": "src/repro/kernels/flash_attn.py:75",
+         "launches": counts["flash"].launches,
+         "max_abs_err": max_err["flash"],
+         **{key: t10[0][key] for key in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
+         "per": f"one call at {ATTN_CASES[0][0]} {ATTN_CASES[0][9]} "
+                f"{list(t10[0]['shape'])}; library: "
+                "scaled_dot_product_attention (launches: one per case)",
+         "cases": t10},
+    ]
+
+
 def build_phase():
     """nvcc for each kernel source, all started together."""
     t0 = time.perf_counter()
-    names = ("emugemm1", "decompose", "emugemm2", "emugemm3m")
+    names = ("emugemm1", "decompose", "emugemm2", "emugemm3m", "matmul_int8",
+             "flash_attn")
     with ThreadPoolExecutor(len(names)) as ex:
         for f in [ex.submit(build.build, n) for n in names]:
             f.result()
@@ -1866,6 +2231,9 @@ def main() -> int:
         torch_backend=True)
     del params
     torch.use_deterministic_algorithms(False)
+
+    # The library kernels.
+    library_rows = library_phase(dev, arch.model)
 
     def bound_by(t):
         return "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations"
@@ -1992,6 +2360,7 @@ def main() -> int:
         "max_abs_err": sci_err["3m_residues"], **sci_res["3m_residues"],
         "int_mm_yardstick_ms": zgemm["int_mm_yardstick_ms"],
         "per": sci_per.format("3p-product residue GEMM of the ZGEMM route")})
+    kernels += library_rows
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

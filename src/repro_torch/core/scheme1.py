@@ -93,25 +93,44 @@ def split(a: torch.Tensor, p: int, beta: int, dim: int):
     return torch.stack(carve(a / scale, p, beta)), scale
 
 
-def interleave_k(slices: torch.Tensor, t_k: int) -> torch.Tensor:
-    """Paper Eq. 11 for a right operand: interleave p slices (p, K, N)
-    along K at ``t_k`` granularity into (p*K, N), row groups cycling
-    B'_0 | ... | B'_{p-1} per K-chunk. K must be a multiple of ``t_k``.
-    (The reference's left-operand layout feeds kernels not ported yet.)
+def interleave_k(slices: torch.Tensor, operand: str, t_k: int) -> torch.Tensor:
+    """Paper Eq. 11: interleave p slices along K at ``t_k`` granularity.
+
+    Operand 'a' (slices (p, M, K)) gives (M, p*K), column groups cycling
+    A'_0 | ... | A'_{p-1} per K-chunk; operand 'b' (slices (p, K, N))
+    gives (p*K, N), row groups cycling the same way. K must be a
+    multiple of ``t_k``.
     """
-    p, k, n = slices.shape
+    p = slices.shape[0]
+    if operand not in ("a", "b"):
+        raise ValueError(f"operand must be 'a' or 'b', got {operand!r}")
+    k = slices.shape[2] if operand == "a" else slices.shape[1]
     if k % t_k:
         raise ValueError(f"K={k} not divisible by t_k={t_k}")
+    if operand == "a":
+        m = slices.shape[1]
+        s = slices.reshape(p, m, k // t_k, t_k)
+        return s.permute(1, 2, 0, 3).reshape(m, p * k)
+    n = slices.shape[2]
     s = slices.reshape(p, k // t_k, t_k, n)
     return s.permute(1, 0, 2, 3).reshape(p * k, n)
 
 
-def deinterleave_k(x: torch.Tensor, p: int, t_k: int) -> torch.Tensor:
-    """Inverse of :func:`interleave_k`: (p*K, N) -> (p, K, N) slices."""
-    pk, n = x.shape
-    k = pk // p
-    s = x.reshape(k // t_k, p, t_k, n)
-    return s.permute(1, 0, 2, 3).reshape(p, k, n)
+def deinterleave_k(x: torch.Tensor, p: int, operand: str,
+                   t_k: int) -> torch.Tensor:
+    """Inverse of :func:`interleave_k`: (M, p*K) -> (p, M, K) for 'a',
+    (p*K, N) -> (p, K, N) for 'b'."""
+    if operand == "a":
+        m, pk = x.shape
+        k = pk // p
+        s = x.reshape(m, k // t_k, p, t_k)
+        return s.permute(2, 0, 1, 3).reshape(p, m, k)
+    if operand == "b":
+        pk, n = x.shape
+        k = pk // p
+        s = x.reshape(k // t_k, p, t_k, n)
+        return s.permute(1, 0, 2, 3).reshape(p, k, n)
+    raise ValueError(f"operand must be 'a' or 'b', got {operand!r}")
 
 
 def triangular_accumulators(a_slices, b_slices, p: int) -> torch.Tensor:

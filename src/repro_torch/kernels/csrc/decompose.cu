@@ -1,11 +1,15 @@
-// Prepared-weight decomposition for Hopper (sm_90a): one read of a
-// weight B (K, N) writes its Scheme-I int8 slices in the interleaved
-// layouts the mixed form of csrc/emugemm1.cu streams.
+// Scheme-I decomposition for Hopper (sm_90a): one read of an operand
+// writes its int8 slices in the interleaved layouts that csrc/emugemm1.cu
+// streams (a weight B (K, N) for the mixed form, both operands for the
+// interleaved form).
 //
 // Replaces the Pallas kernels of the JAX package
 //   src/repro/kernels/decompose.py  decompose_interleave_pair (_kernel_pair)
 //   src/repro/kernels/decompose.py  decompose_interleave_rhs  (_kernel_rhs)
-// with one kernel, compiled with and without the twin output.
+//   src/repro/kernels/decompose.py  decompose_interleave      (_kernel)
+// with one kernel in three forms: with and without the twin output, and
+// the lhs form, which reads A (M, K) as its transpose (K, M) through the
+// strides and writes the same planes transposed (below).
 //
 // What one block computes, for its (TK, TN) tile of B (f32 or bf16,
 // bf16 widened exactly; read through strides, so the tied head's emb.T
@@ -21,15 +25,20 @@
 //     written to row (n / TN * p + i) * TN + n % TN, column k. The tile
 //     sits in shared memory, so the transposed read is free and both
 //     outputs are written with neighbouring threads on neighbouring bytes.
-// Rows past K (forward) and past N (twin) up to the next tile are written
-// as zero slices, so a consumer needs no masking there.
+//   * the lhs form (LHS): B is A^T (K, M) and nu is mu (1, M); slice i of
+//     element (k, m) goes to row m, column (k / TK * p + i) * TK + k % TK of
+//     the (M, p * Kp) layout (paper Eq. 11, lhs), so threads walk k and
+//     neighbouring threads write neighbouring bytes of a row of A-hat.
+// Rows past K (forward) and past N (twin), and columns past K (lhs), up to
+// the next tile are written as zero slices, so a consumer needs no masking
+// there.
 //
 // Numerics: the same as the carve in emugemm1.cu (exact division by a
 // power of two with __fdiv_rn, exact shifts and truncation, no FMA), so
 // the planes are bit-identical to repro_torch.kernels.decompose's plain
 // version and to the slices the 2-D kernel carves in its prologue.
 //
-// Bound: bytes. The weight is read once (2 or 4 bytes an element) and
+// Bound: bytes. The operand is read once (2 or 4 bytes an element) and
 // p bytes an element are written per layout: for a 2048 x 8192 bf16
 // weight at p = 4, 33.6 MB read and 134 MB written, about 50 us at
 // 3.35 TB/s. The kernel moves one byte per thread per store and keeps no
@@ -62,7 +71,7 @@ __device__ __forceinline__ void carve(float r, float two_beta, int8_t* dst, long
   }
 }
 
-template <typename T, int P, bool TWIN>
+template <typename T, int P, bool TWIN, bool LHS>
 __global__ void __launch_bounds__(NT)
 decompose_kernel(const T* __restrict__ b, const float* __restrict__ nu,
                  const float* __restrict__ tau, int8_t* __restrict__ fwd,
@@ -82,15 +91,27 @@ decompose_kernel(const T* __restrict__ b, const float* __restrict__ nu,
   }
   __syncthreads();
 
-  // Forward planes: a row of the tile per TN threads.
   const float tf = pow2(beta_f);
   const long long frow = static_cast<long long>(blockIdx.y) * P * TK;
-  for (int e = tid; e < TK * TN; e += NT) {
-    const int kk = e / TN, nn = e % TN;
-    const int gn = n0 + nn;
-    if (gn < N)
-      carve<P>(__fdiv_rn(tile[kk][nn], nu[gn]), tf,
-               fwd + (frow + kk) * N + gn, static_cast<long long>(TK) * N);
+  if constexpr (LHS) {
+    // Lhs planes: a column of the tile (a row of A) per TK threads, read
+    // transposed; the row length of A-hat is p * Kp = gridDim.y * P * TK.
+    const long long ld = static_cast<long long>(gridDim.y) * P * TK;
+    for (int e = tid; e < TK * TN; e += NT) {
+      const int nn = e / TK, kk = e % TK;
+      const int gn = n0 + nn;
+      if (gn < N)
+        carve<P>(__fdiv_rn(tile[kk][nn], nu[gn]), tf, fwd + gn * ld + frow + kk, TK);
+    }
+  } else {
+    // Forward planes: a row of the tile per TN threads.
+    for (int e = tid; e < TK * TN; e += NT) {
+      const int kk = e / TN, nn = e % TN;
+      const int gn = n0 + nn;
+      if (gn < N)
+        carve<P>(__fdiv_rn(tile[kk][nn], nu[gn]), tf,
+                 fwd + (frow + kk) * N + gn, static_cast<long long>(TK) * N);
+    }
   }
 
   if constexpr (TWIN) {
@@ -107,7 +128,7 @@ decompose_kernel(const T* __restrict__ b, const float* __restrict__ nu,
   }
 }
 
-template <typename T, bool TWIN>
+template <typename T, bool TWIN, bool LHS>
 int launch_p(int p, const void* b, const float* nu, const float* tau, void* fwd,
              void* twin, int K, int N, long long sbk, long long sbn, int beta_f,
              int beta_b, cudaStream_t st) {
@@ -117,8 +138,8 @@ int launch_p(int p, const void* b, const float* nu, const float* tau, void* fwd,
   int8_t* t = static_cast<int8_t*>(twin);
 #define DECOMPOSE_CASE(PP)                                                    \
   case PP:                                                                    \
-    decompose_kernel<T, PP, TWIN><<<grid, NT, 0, st>>>(tb, nu, tau, f, t, K, N, \
-                                                        sbk, sbn, beta_f, beta_b); \
+    decompose_kernel<T, PP, TWIN, LHS><<<grid, NT, 0, st>>>(tb, nu, tau, f, t, K, N, \
+                                                             sbk, sbn, beta_f, beta_b); \
     break;
   switch (p) {
     DECOMPOSE_CASE(1)
@@ -150,10 +171,22 @@ extern "C" int decompose_interleave(const void* b, const float* nu, const float*
   if (twin != nullptr && (beta_b < 1 || beta_b > 7)) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (twin == nullptr)
-    return in_bf16 ? launch_p<__nv_bfloat16, false>(p, b, nu, tau, fwd, twin, K, N, sbk, sbn, beta_f, beta_b, st)
-                   : launch_p<float, false>(p, b, nu, tau, fwd, twin, K, N, sbk, sbn, beta_f, beta_b, st);
-  return in_bf16 ? launch_p<__nv_bfloat16, true>(p, b, nu, tau, fwd, twin, K, N, sbk, sbn, beta_f, beta_b, st)
-                 : launch_p<float, true>(p, b, nu, tau, fwd, twin, K, N, sbk, sbn, beta_f, beta_b, st);
+    return in_bf16 ? launch_p<__nv_bfloat16, false, false>(p, b, nu, tau, fwd, twin, K, N, sbk, sbn, beta_f, beta_b, st)
+                   : launch_p<float, false, false>(p, b, nu, tau, fwd, twin, K, N, sbk, sbn, beta_f, beta_b, st);
+  return in_bf16 ? launch_p<__nv_bfloat16, true, false>(p, b, nu, tau, fwd, twin, K, N, sbk, sbn, beta_f, beta_b, st)
+                 : launch_p<float, true, false>(p, b, nu, tau, fwd, twin, K, N, sbk, sbn, beta_f, beta_b, st);
+}
+
+// The lhs form: A (M, K) through its strides, mu (M, 1) -> A-hat
+// (M, p * Kp), Kp = K rounded up to the tile. Same return codes.
+extern "C" int decompose_interleave_lhs(const void* a, const float* mu, void* a_hat, int M,
+                                        int K, long long sam, long long sak, int in_bf16,
+                                        int p, int beta, void* stream) {
+  if (M <= 0 || K <= 0 || beta < 1 || beta > 7) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // A read as A^T (K, M): its row stride is A's column stride.
+  return in_bf16 ? launch_p<__nv_bfloat16, false, true>(p, a, mu, nullptr, a_hat, nullptr, K, M, sak, sam, beta, 0, st)
+                 : launch_p<float, false, true>(p, a, mu, nullptr, a_hat, nullptr, K, M, sak, sam, beta, 0, st);
 }
 
 // The tile, which is the interleave granularity of both layouts.

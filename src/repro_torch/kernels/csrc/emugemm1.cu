@@ -5,14 +5,20 @@
 //   src/repro/kernels/backends/gpu.py  fused_matmul_scheme1 (_kernel), 2-D launch
 //   src/repro/kernels/backends/gpu.py  fused_matmul_scheme1_batched, batched launch
 //   src/repro/kernels/ozaki1.py        fused_matmul_mixed (_kernel, a_fp only)
-// with one kernel and three launch forms: a 2-D grid over (bN, bM) output
-// tiles, the same grid strided over a batch on blockIdx.z, and the mixed
+//   src/repro/kernels/ozaki1.py        fused_matmul_interleaved (_kernel, neither)
+// with one kernel and four launch forms: a 2-D grid over (bN, bM) output
+// tiles, the same grid strided over a batch on blockIdx.z, the mixed
 // form, whose B operand is a prepared weight: the p int8 planes of the
 // interleaved (p*Kp, N) layout that csrc/decompose.cu writes, at the
 // kernel's K tile BK as interleave granularity (Kp = K rounded up to BK,
-// the rows past K zero). The mixed form loads those planes into the
-// same shared tiles the carve would have filled, so the MMA schedule and
-// the epilogue, and with them every numerics rule below, are shared.
+// the rows past K zero), and the interleaved form, whose A operand is
+// also already sliced: the (M, p*Kp) layout of decompose.cu's lhs form
+// (switch APREP beside BPREP). The prepared forms load those planes into
+// the same shared tiles the carve would have filled, so the MMA schedule
+// and the epilogue, and with them every numerics rule below, are shared.
+// The interleaved form divides nothing: A-hat and B-hat hold slices of
+// A / mu and B / nu, so mu and nu enter only in the epilogue, and its
+// result equals the 2-D form's bit for bit on the same operands.
 //
 // What one block computes, for its (BM, BN) output tile:
 //   * every K step stages a (BM, BK) tile of A and a (BK, BN) tile of B
@@ -42,7 +48,10 @@
 // p = 4 does 10 int8 GEMMs, 2*10*1024*K*N operations, against reading
 // K*N*p bytes of planes, so it is bound by operations (about 44 us for
 // K = N = 2048 at the int8 peak); the kernel as written stays far above
-// that (PERF.md).
+// that (PERF.md). The interleaved form reads p bytes an element of each
+// operand and does the same integer work, so it too is bound by
+// operations (about 43 us at K = N = 2048, p = 4); it skips the carve of
+// both tiles, which the other forms repeat in every block that reads them.
 //
 // Bound at the serving shapes: with M = 4..64 rows and K, N in the
 // thousands, the weight B has to be read once, and the p(p+1)/2 int8
@@ -124,7 +133,7 @@ __device__ __forceinline__ void carve(float r, float two_beta, int8_t* dst, int 
   }
 }
 
-template <typename T, typename O, int P, bool BPREP>
+template <typename T, typename O, int P, bool BPREP, bool APREP>
 __global__ void __launch_bounds__(NWARPS * 32)
 emugemm1_kernel(const T* __restrict__ a, const void* __restrict__ bv,
                 const float* __restrict__ mu, const float* __restrict__ nu,
@@ -160,15 +169,46 @@ emugemm1_kernel(const T* __restrict__ a, const void* __restrict__ bv,
     for (int f = 0; f < FW; ++f) wmma::fill_fragment(acc[s][f], 0);
 
   for (int k0 = 0; k0 < K; k0 += BK) {
-    // Stage and carve the A tile; threads walk A's unit-stride axis.
-    for (int e = tid; e < BM * BK; e += NT) {
-      int mm, kk;
-      if (sak == 1) { mm = e / BK; kk = e % BK; } else { kk = e / BM; mm = e % BM; }
-      const int gm = m0 + mm, gk = k0 + kk;
-      float r = 0.f;
-      if (gm < M && gk < K) r = __fdiv_rn(widen(a[gm * sam + gk * sak]), mu[gm]);
-      const int off = ((kk / 16) * (BM / 16) + mm / 16) * T16 + (mm % 16) * 16 + kk % 16;
-      carve<P>(r, two_beta, sA + off, PLANE_A);
+    if constexpr (APREP) {
+      // Load the P sliced planes of this K chunk: columns
+      // (k0 / BK * P + i) * BK + kk of the interleaved (M, P*Kp) layout,
+      // whose row stride is sam. Four bytes at a time where rows and base
+      // allow.
+      const int8_t* ah = reinterpret_cast<const int8_t*>(a) + bz * sab;
+      const long long col0 = static_cast<long long>(k0 / BK) * P * BK;
+      if ((sam & 3) == 0 && (reinterpret_cast<uintptr_t>(ah) & 3) == 0) {
+        for (int e = tid; e < P * BM * (BK / 4); e += NT) {
+          const int i = e / (BM * BK / 4);
+          const int rem = e % (BM * BK / 4);
+          const int mm = rem / (BK / 4), kk = (rem % (BK / 4)) * 4;
+          const int gm = m0 + mm;
+          int v = 0;
+          if (gm < M) v = *reinterpret_cast<const int*>(ah + gm * sam + col0 + i * BK + kk);
+          const int off = ((kk / 16) * (BM / 16) + mm / 16) * T16 + (mm % 16) * 16 + kk % 16;
+          *reinterpret_cast<int*>(sA + i * PLANE_A + off) = v;
+        }
+      } else {
+        for (int e = tid; e < P * BM * BK; e += NT) {
+          const int i = e / (BM * BK);
+          const int rem = e % (BM * BK);
+          const int mm = rem / BK, kk = rem % BK;
+          const int gm = m0 + mm;
+          const int8_t v = gm < M ? ah[gm * sam + col0 + i * BK + kk] : int8_t(0);
+          const int off = ((kk / 16) * (BM / 16) + mm / 16) * T16 + (mm % 16) * 16 + kk % 16;
+          sA[i * PLANE_A + off] = v;
+        }
+      }
+    } else {
+      // Stage and carve the A tile; threads walk A's unit-stride axis.
+      for (int e = tid; e < BM * BK; e += NT) {
+        int mm, kk;
+        if (sak == 1) { mm = e / BK; kk = e % BK; } else { kk = e / BM; mm = e % BM; }
+        const int gm = m0 + mm, gk = k0 + kk;
+        float r = 0.f;
+        if (gm < M && gk < K) r = __fdiv_rn(widen(a[gm * sam + gk * sak]), mu[gm]);
+        const int off = ((kk / 16) * (BM / 16) + mm / 16) * T16 + (mm % 16) * 16 + kk % 16;
+        carve<P>(r, two_beta, sA + off, PLANE_A);
+      }
     }
     if constexpr (BPREP) {
       // Load the P prepared planes of this K chunk: rows
@@ -270,26 +310,26 @@ emugemm1_kernel(const T* __restrict__ a, const void* __restrict__ bv,
   }
 }
 
-template <typename T, typename O, int P, bool BPREP>
+template <typename T, typename O, int P, bool BPREP, bool APREP>
 int launch(const void* a, const void* b, const float* mu, const float* nu, void* out,
            int batch, int M, int N, int K, long long sab, long long sam, long long sak,
            long long sbb, long long sbk, long long sbn, int beta,
            cudaStream_t stream) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, batch);
-  emugemm1_kernel<T, O, P, BPREP><<<grid, NWARPS * 32, 0, stream>>>(
+  emugemm1_kernel<T, O, P, BPREP, APREP><<<grid, NWARPS * 32, 0, stream>>>(
       static_cast<const T*>(a), b, mu, nu, static_cast<O*>(out), M, N, K,
       sab, sam, sak, sbb, sbk, sbn, beta);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename O, bool BPREP>
+template <typename T, typename O, bool BPREP, bool APREP = false>
 int launch_p(int p, const void* a, const void* b, const float* mu, const float* nu,
              void* out, int batch, int M, int N, int K, long long sab, long long sam,
              long long sak, long long sbb, long long sbk, long long sbn, int beta,
              cudaStream_t st) {
 #define EMUGEMM1_CASE(PP) \
   case PP:                \
-    return launch<T, O, PP, BPREP>(a, b, mu, nu, out, batch, M, N, K, sab, sam, sak, sbb, sbk, sbn, beta, st);
+    return launch<T, O, PP, BPREP, APREP>(a, b, mu, nu, out, batch, M, N, K, sab, sam, sak, sbb, sbk, sbn, beta, st);
   switch (p) {
     EMUGEMM1_CASE(1)
     EMUGEMM1_CASE(2)
@@ -347,5 +387,21 @@ extern "C" int emugemm1_mixed(const void* a, const void* b_hat, const float* mu,
                             static_cast<cudaStream_t>(stream));
 }
 
-// The K tile, which is the interleave granularity the mixed form reads.
+// The interleaved form: A-hat (M, p * Kp) and B-hat (p * Kp, N) int8
+// planes with row strides lda and ldb, both interleaved at granularity BK
+// (Kp a multiple of BK, the slices past the logical K zero).
+extern "C" int emugemm1_interleaved(const void* a_hat, const void* b_hat, const float* mu,
+                                    const float* nu, void* out, int M, int N, int Kp,
+                                    long long lda, long long ldb, int out_bf16, int p,
+                                    int beta, void* stream) {
+  if (M <= 0 || N <= 0 || Kp <= 0 || Kp % BK != 0 || beta < 1 || beta > 7) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (out_bf16)
+    return launch_p<int8_t, __nv_bfloat16, true, true>(p, a_hat, b_hat, mu, nu, out, 1, M, N, Kp,
+                                                       0, lda, 1, 0, ldb, 1, beta, st);
+  return launch_p<int8_t, float, true, true>(p, a_hat, b_hat, mu, nu, out, 1, M, N, Kp, 0, lda,
+                                             1, 0, ldb, 1, beta, st);
+}
+
+// The K tile, which is the interleave granularity the prepared forms read.
 extern "C" int emugemm1_bk() { return BK; }

@@ -1,20 +1,26 @@
-"""Prepared-weight decomposition kernels (``csrc/decompose.cu``): wrappers,
+"""Scheme-I decomposition kernels (``csrc/decompose.cu``): wrappers,
 plain versions and launch counts.
 
 * :func:`decompose_interleave_pair` (K2) — one read of B (K, N) gives the
   forward layout (p * Kp, N), scaled by nu, and the K-transposed twin
   (p * Np, K) of B^T, scaled by tau, each interleaved on its contraction
   axis at granularity :data:`TILE`;
-* :func:`decompose_interleave_rhs` (K2r) — the forward layout alone.
+* :func:`decompose_interleave_rhs` (K2r) — the forward layout alone;
+* :func:`decompose_interleave` (K11) — the lhs layout: one read of A
+  (M, K) over mu gives A-hat (M, p * Kp), the slices of each K chunk in
+  consecutive column groups (the kernel's lhs form).
 
 Kp and Np are K and N rounded up to :data:`TILE`; the rows past K (and
-past N in the twin) hold zero slices. On a CUDA tensor a wrapper
-launches the kernel; on a CPU tensor it runs the plain version,
-``scheme1.carve`` then ``scheme1.interleave_k``. The scales and beta come
-from the caller, as in the reference.
+past N in the twin), and the columns past K of A-hat, hold zero slices.
+On a CUDA tensor a wrapper launches the kernel; on a CPU tensor it runs
+the plain version, ``scheme1.carve`` then ``scheme1.interleave_k``. The
+scales and beta come from the caller, as in the reference; unlike the
+reference, which asks for K and M aligned to its blocks and interleaves
+at its ``bk``, every shape is taken and the granularity is :data:`TILE`.
 
 The kernel replaces the Pallas kernels ``repro.kernels.decompose.
-decompose_interleave_pair`` and ``decompose_interleave_rhs``.
+decompose_interleave_pair``, ``decompose_interleave_rhs`` and
+``decompose_interleave``.
 """
 
 from __future__ import annotations
@@ -40,10 +46,12 @@ class LaunchCounts:
     tensors (which the training path must never make)."""
     launches_pair: int = 0
     launches_rhs: int = 0
+    launches_lhs: int = 0
     plain_cuda_calls: int = 0
 
     def reset(self) -> None:
-        self.launches_pair = self.launches_rhs = self.plain_cuda_calls = 0
+        self.launches_pair = self.launches_rhs = self.launches_lhs = 0
+        self.plain_cuda_calls = 0
 
 
 COUNTS = LaunchCounts()
@@ -58,7 +66,8 @@ def _interleaved(r: torch.Tensor, p: int, beta: int) -> torch.Tensor:
     rows up to the next TILE as zero slices."""
     k = r.shape[0]
     r = F.pad(r, (0, 0, 0, round_up(k) - k))
-    return scheme1.interleave_k(torch.stack(scheme1.carve(r, p, beta)), TILE)
+    return scheme1.interleave_k(torch.stack(scheme1.carve(r, p, beta)), "b",
+                                TILE)
 
 
 def decompose_rhs_plain(b, nu, p, beta):
@@ -66,6 +75,16 @@ def decompose_rhs_plain(b, nu, p, beta):
     if b.is_cuda:
         COUNTS.plain_cuda_calls += 1
     return _interleaved(scheme1.widen(b) / nu, p, beta)
+
+
+def decompose_lhs_plain(a, mu, p, beta):
+    """K11's function in plain torch ops (CPU or CUDA)."""
+    if a.is_cuda:
+        COUNTS.plain_cuda_calls += 1
+    k = a.shape[1]
+    r = F.pad(scheme1.widen(a) / mu, (0, round_up(k) - k))
+    return scheme1.interleave_k(torch.stack(scheme1.carve(r, p, beta)), "a",
+                                TILE)
 
 
 def decompose_pair_plain(b, nu, tau, p, beta_f, beta_b):
@@ -77,29 +96,40 @@ def decompose_pair_plain(b, nu, tau, p, beta_f, beta_b):
             _interleaved(w.T / tau, p, beta_b))
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.decompose_interleave
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
-                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+def _bind(lib: ctypes.CDLL, lhs: bool = False):
+    """The rhs/pair entry point, or with ``lhs`` the lhs form's."""
     if lib.decompose_tile() != TILE:
         raise RuntimeError(f"decompose.cu tiles by {lib.decompose_tile()}, "
                            f"the wrapper expects {TILE}")
+    if lhs:
+        fn = lib.decompose_interleave_lhs
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                       + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
+    else:
+        fn = lib.decompose_interleave
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                       + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
     return fn
+
+
+def _check_operand(x, p):
+    if x.dim() != 2 or not x.is_cuda:
+        raise ValueError(f"decompose: the operand must be a 2-D CUDA tensor, "
+                         f"got {tuple(x.shape)} on {x.device}")
+    if x.dtype not in _KERNEL_DTYPES:
+        raise NotImplementedError(f"decompose takes float32 or bfloat16, got "
+                                  f"{x.dtype}")
+    if not 1 <= p <= MAX_P:
+        raise NotImplementedError(f"decompose is compiled for p in "
+                                  f"1..{MAX_P}, got p={p}")
 
 
 def _launch(b, nu, tau, p, beta_f, beta_b):
     from repro_torch.kernels import build
-    if b.dim() != 2 or not b.is_cuda:
-        raise ValueError(f"decompose: B must be a 2-D CUDA tensor, got "
-                         f"{tuple(b.shape)} on {b.device}")
-    if b.dtype not in _KERNEL_DTYPES:
-        raise NotImplementedError(f"decompose takes float32 or bfloat16, got "
-                                  f"{b.dtype}")
-    if not 1 <= p <= MAX_P:
-        raise NotImplementedError(f"decompose is compiled for p in "
-                                  f"1..{MAX_P}, got p={p}")
+    _check_operand(b, p)
     k, n = b.shape
     scales = [(nu, (1, n), beta_f)] + ([] if tau is None
                                        else [(tau, (1, k), beta_b)])
@@ -157,4 +187,37 @@ def decompose_interleave_pair(b: torch.Tensor, nu: torch.Tensor,
         return decompose_pair_plain(b, nu, tau, p, beta_f, beta_b)
     out = _launch(b, nu, tau, p, beta_f, beta_b)
     COUNTS.launches_pair += 1
+    return out
+
+
+def decompose_interleave(a: torch.Tensor, mu: torch.Tensor, p: int,
+                         beta: int) -> torch.Tensor:
+    """a (M, K) float, mu (M, 1) float32 -> A-hat (M, p * Kp) int8.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel's
+    lhs form or raise.
+    """
+    from repro_torch.kernels import build
+    if a.device.type == "cpu":
+        return decompose_lhs_plain(a, mu, p, beta)
+    _check_operand(a, p)
+    m, k = a.shape
+    if (mu.device != a.device or mu.dtype != torch.float32
+            or tuple(mu.shape) != (m, 1)):
+        raise ValueError(f"decompose: scale {tuple(mu.shape)} {mu.dtype} on "
+                         f"{mu.device}, expected float32 {(m, 1)}")
+    if not 1 <= beta <= 7:
+        raise ValueError(f"decompose: beta={beta} outside 1..7")
+    mu = mu.contiguous()
+    out = torch.empty((m, p * round_up(k)), dtype=torch.int8, device=a.device)
+    if out.numel() == 0:
+        return out
+    fn = _bind(build.load("decompose"), lhs=True)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    rc = fn(a.data_ptr(), mu.data_ptr(), out.data_ptr(), m, k, a.stride(0),
+            a.stride(1), int(a.dtype == torch.bfloat16), p, beta, stream)
+    if rc != 0:
+        raise RuntimeError(f"decompose lhs launch failed (code {rc}) for "
+                           f"{(m, k)} p={p}")
+    COUNTS.launches_lhs += 1
     return out

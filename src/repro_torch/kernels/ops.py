@@ -1,5 +1,17 @@
 """Scheme-pinned end-to-end wrappers of the port (``repro.kernels.ops``).
 
+:func:`fused_scheme1_matmul` is EmuGEMM-I end to end. Under
+``cfg.decomp`` 'kernel' or 'auto' the power-of-two scales run in torch
+and the slicing in the kernel (the 2-D form of
+``ozaki1.fused_matmul_scheme1``); under 'xla' both operands are split in
+torch, interleaved on K at ``decompose.TILE`` (K padded with zero
+slices) and multiplied by the kernel's interleaved form
+(``ozaki1.fused_matmul_interleaved``), the paper's Sec. III-A pipeline.
+The two routes give the same bits. No spec token sets ``decomp``, so a
+caller reaches 'xla' through ``EmulationConfig(decomp='xla')``.
+
+:func:`int8_matmul` is ``matmul_int8.int8_matmul``, re-exported.
+
 :func:`fused_scheme2_matmul` is the route that drives the residue form of
 EmuGEMM-II (``ozaki2.fused_residue_matmul``): the scales and the balanced
 residues are computed in torch, the p residue GEMMs with their modular
@@ -12,17 +24,21 @@ double-double). On CUDA tensors it equals the fused form
 kernel (``ozaki3m.fused_3m_residue_matmul``): the shared scales and the
 [re, im, re+im] residue phases in torch, the 3p residue GEMMs with the 3M
 combination in the kernel, the two CRTs in torch. It equals the fused 3M
-kernel's result bit for bit. The reference's Scheme-I wrappers of this
-module are not ported (ROADMAP.md § 2, K8).
+kernel's result bit for bit.
 """
 
 from __future__ import annotations
 
-import torch
+import warnings
 
-from repro_torch.core import complex3m, scheme2
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import complex3m, scheme1, scheme2
 from repro_torch.core.precision import EmulationConfig
-from repro_torch.kernels import ozaki2, ozaki3m
+from repro_torch.kernels import decompose, dispatch, ozaki1, ozaki2, ozaki3m
+from repro_torch.kernels.backends.cuda import KERNEL_BLOCKS
+from repro_torch.kernels.matmul_int8 import int8_matmul  # noqa: F401  (re-export)
 
 
 def _resolve(cfg, scheme: str, p: int) -> EmulationConfig:
@@ -39,6 +55,41 @@ def _resolve(cfg, scheme: str, p: int) -> EmulationConfig:
     if ambient is not None and ambient.scheme == scheme:
         return ambient
     return EmulationConfig(scheme=scheme, p=p)
+
+
+def fused_scheme1_matmul(a: torch.Tensor, b: torch.Tensor, cfg=None,
+                         out_dtype=torch.float32, blocks=None) -> torch.Tensor:
+    """End-to-end EmuGEMM-I: (M, K) @ (K, N) float -> (M, N) ``out_dtype``
+    (ozaki1-p4 when nothing is configured); the decomposition site
+    follows ``cfg.decomp``.
+
+    ``blocks`` may only name the kernel's own tile
+    (``backends.cuda.KERNEL_BLOCKS``): the kernel is compiled for one.
+    """
+    cfg = _resolve(cfg, "ozaki1", 4)
+    if blocks is not None and blocks != KERNEL_BLOCKS:
+        raise ValueError(f"fused_scheme1_matmul: the kernel runs one tile, "
+                         f"{KERNEL_BLOCKS}; got blocks={blocks}")
+    if torch.float64 in (a.dtype, b.dtype):
+        raise NotImplementedError(
+            "ozaki1 takes float32 and narrower operands in the port, got "
+            f"{a.dtype} @ {b.dtype}: Scheme I in float64 is ROADMAP.md § 1 "
+            "item 3")
+    k = a.shape[1]
+    p, beta = cfg.p, cfg.resolved_beta(k)
+    if cfg.decomp in ("auto", "kernel"):
+        if a.dtype != b.dtype or a.dtype != torch.bfloat16:
+            a, b = scheme1.widen(a), scheme1.widen(b)   # bf16 @ bf16 stays
+        mu, nu = scheme1.pow2_scale(a, 1), scheme1.pow2_scale(b, 0)
+        return ozaki1.fused_matmul_scheme1(a, b, mu, nu, p, beta, out_dtype)
+    a_sl, mu = scheme1.split(a, p, beta, dim=1)
+    b_sl, nu = scheme1.split(b, p, beta, dim=0)
+    pad = decompose.round_up(k) - k
+    a_hat = scheme1.interleave_k(F.pad(a_sl, (0, pad)), "a", decompose.TILE)
+    b_hat = scheme1.interleave_k(F.pad(b_sl, (0, 0, 0, pad)), "b",
+                                 decompose.TILE)
+    return ozaki1.fused_matmul_interleaved(a_hat, b_hat, mu, nu, p, beta,
+                                           out_dtype)
 
 
 def fused_scheme2_matmul(a: torch.Tensor, b: torch.Tensor, cfg=None,
@@ -90,3 +141,12 @@ def fused_3m_matmul(a: torch.Tensor, b: torch.Tensor, cfg=None,
         scheme2.modular_reduce(c_re8.to(torch.int32), moduli),
         scheme2.modular_reduce(c_im8.to(torch.int32), moduli),
         mu, nu, moduli, out_dtype)
+
+
+def maybe_fused_matmul(a: torch.Tensor, b: torch.Tensor, cfg: EmulationConfig):
+    """Deprecated dispatch hook; use ``dispatch.auto_fused_matmul``."""
+    warnings.warn(
+        "ops.maybe_fused_matmul is deprecated; call "
+        "dispatch.auto_fused_matmul (or repro_torch.dot_general/einsum)",
+        DeprecationWarning, stacklevel=2)
+    return dispatch.auto_fused_matmul(a, b, cfg)

@@ -16,11 +16,23 @@ kernel's K tile) that ``repro_torch.kernels.decompose`` writes. Its plain
 version deinterleaves them and runs the same slice products and
 shift-reduce.
 
+``fused_matmul_interleaved`` is the fourth launch form: both operands
+are already sliced and interleaved at ``decompose.TILE`` (A-hat
+(M, p * Kp) from ``decompose.decompose_interleave``, B-hat (p * Kp, N)
+from ``decompose.decompose_interleave_rhs`` or ``scheme1.interleave_k``),
+so the kernel carves nothing and applies mu and nu in the epilogue
+only. Its plain version deinterleaves both and runs the slice products
+and shift-reduce, as the reference's oracle ``ref.scheme1_interleaved``.
+Unlike the reference, which needs M, N and K aligned to its blocks and
+interleaves at its ``bk``, M and N are taken as they are and the
+granularity is the kernel's K tile (the bits are the same at any
+granularity).
+
 The kernel replaces the Pallas kernels ``repro.kernels.ozaki1.
 fused_matmul_prologue`` and ``repro.kernels.backends.gpu.
 fused_matmul_scheme1`` (2-D launch), ``fused_matmul_scheme1_batched``
-(batched launch) and ``repro.kernels.ozaki1.fused_matmul_mixed`` (mixed
-launch).
+(batched launch), ``repro.kernels.ozaki1.fused_matmul_mixed`` (mixed
+launch) and ``fused_matmul_interleaved`` (interleaved launch).
 """
 
 from __future__ import annotations
@@ -43,11 +55,12 @@ class LaunchCounts:
     launches_2d: int = 0
     launches_batched: int = 0
     launches_mixed: int = 0
+    launches_interleaved: int = 0
     plain_cuda_calls: int = 0
 
     def reset(self) -> None:
         self.launches_2d = self.launches_batched = self.launches_mixed = 0
-        self.plain_cuda_calls = 0
+        self.launches_interleaved = self.plain_cuda_calls = 0
 
 
 COUNTS = LaunchCounts()
@@ -74,8 +87,22 @@ def fused_matmul_mixed_plain(a: torch.Tensor, b_hat: torch.Tensor,
     if a.is_cuda:
         COUNTS.plain_cuda_calls += 1
     k = a.shape[-1]
-    b_sl = scheme1.deinterleave_k(b_hat, p, TILE)[:, :k]
+    b_sl = scheme1.deinterleave_k(b_hat, p, "b", TILE)[:, :k]
     a_sl = scheme1.carve(scheme1.widen(a) / mu, p, beta)
+    accs = scheme1.triangular_accumulators(a_sl, b_sl, p)
+    return scheme1.shift_reduce(accs, beta, mu, nu, out_dtype)
+
+
+def fused_matmul_interleaved_plain(a_hat: torch.Tensor, b_hat: torch.Tensor,
+                                   mu: torch.Tensor, nu: torch.Tensor, p: int,
+                                   beta: int, out_dtype: torch.dtype
+                                   ) -> torch.Tensor:
+    """The interleaved form's function in plain torch ops (CPU or CUDA)."""
+    from repro_torch.kernels.decompose import TILE
+    if a_hat.is_cuda:
+        COUNTS.plain_cuda_calls += 1
+    a_sl = scheme1.deinterleave_k(a_hat, p, "a", TILE)
+    b_sl = scheme1.deinterleave_k(b_hat, p, "b", TILE)
     accs = scheme1.triangular_accumulators(a_sl, b_sl, p)
     return scheme1.shift_reduce(accs, beta, mu, nu, out_dtype)
 
@@ -89,16 +116,24 @@ def _bind(lib: ctypes.CDLL):
     return fn
 
 
-def _bind_mixed(lib: ctypes.CDLL):
+def _bind_prepared(lib: ctypes.CDLL, interleaved: bool = False):
+    """The mixed form's entry point, or with ``interleaved`` the
+    interleaved form's; both read planes interleaved at the K tile."""
     from repro_torch.kernels.decompose import TILE
-    fn = lib.emugemm1_mixed
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                   + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
     if lib.emugemm1_bk() != TILE:
         raise RuntimeError(f"emugemm1.cu's K tile is {lib.emugemm1_bk()}, "
                            f"the prepared layout interleaves at {TILE}")
+    if interleaved:
+        fn = lib.emugemm1_interleaved
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                       + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
+    else:
+        fn = lib.emugemm1_mixed
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                       + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
     return fn
 
 
@@ -204,7 +239,7 @@ def fused_matmul_mixed(a: torch.Tensor, b_hat: torch.Tensor,
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if out.numel() == 0 or k == 0:
         return out.zero_()
-    fn = _bind_mixed(build.load("emugemm1"))
+    fn = _bind_prepared(build.load("emugemm1"))
     stream = torch.cuda.current_stream(a.device).cuda_stream
     rc = fn(a.data_ptr(), b_hat.data_ptr(), mu.data_ptr(), nu.data_ptr(),
             out.data_ptr(), m, n, k, a.stride(0), a.stride(1),
@@ -214,4 +249,63 @@ def fused_matmul_mixed(a: torch.Tensor, b_hat: torch.Tensor,
         raise RuntimeError(f"emugemm1 mixed launch failed (code {rc}) for "
                            f"{(m, k, n)} p={p}")
     COUNTS.launches_mixed += 1
+    return out
+
+
+def fused_matmul_interleaved(a_hat: torch.Tensor, b_hat: torch.Tensor,
+                             mu: torch.Tensor, nu: torch.Tensor, p: int,
+                             beta: int, out_dtype: torch.dtype = torch.float32
+                             ) -> torch.Tensor:
+    """A-hat (M, p * Kp) int8 @ B-hat (p * Kp, N) int8, both interleaved on
+    K at granularity ``decompose.TILE``, with scales mu (M, 1) and nu
+    (1, N) -> (M, N) ``out_dtype``.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel's
+    interleaved form or raise.
+    """
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decompose import TILE
+    if a_hat.device.type == "cpu":
+        return fused_matmul_interleaved_plain(a_hat, b_hat, mu, nu, p, beta,
+                                              out_dtype)
+    if not (a_hat.is_cuda and b_hat.is_cuda and mu.is_cuda and nu.is_cuda):
+        raise ValueError("emugemm1: all operands must be CUDA tensors")
+    if len({a_hat.device, b_hat.device, mu.device, nu.device}) != 1:
+        raise ValueError("emugemm1: operands on different devices")
+    if out_dtype not in _KERNEL_DTYPES:
+        raise NotImplementedError(f"emugemm1: out_dtype {out_dtype}")
+    if not 1 <= p <= MAX_P:
+        raise NotImplementedError(f"emugemm1 is compiled for p in 1..{MAX_P}, "
+                                  f"got p={p}")
+    if not 1 <= beta <= 7:
+        raise ValueError(f"emugemm1: beta={beta} outside 1..7")
+    if a_hat.dim() != 2 or b_hat.dim() != 2:
+        raise ValueError(f"emugemm1 interleaved: A-hat {tuple(a_hat.shape)} "
+                         f"and B-hat {tuple(b_hat.shape)} must be 2-D")
+    (m, pk), n = a_hat.shape, b_hat.shape[1]
+    if (a_hat.dtype != torch.int8
+            or b_hat.dtype != torch.int8 or b_hat.shape[0] != pk
+            or pk % (p * TILE) or not a_hat.is_contiguous()
+            or not b_hat.is_contiguous() or mu.dtype != torch.float32
+            or nu.dtype != torch.float32 or tuple(mu.shape) != (m, 1)
+            or tuple(nu.shape) != (1, n)):
+        raise ValueError(
+            f"emugemm1 interleaved: A-hat {tuple(a_hat.shape)} {a_hat.dtype}, "
+            f"B-hat {tuple(b_hat.shape)} {b_hat.dtype} (expected contiguous "
+            f"int8 (M, {p} * Kp) and ({p} * Kp, N), Kp a multiple of {TILE}),"
+            f" mu {tuple(mu.shape)} {mu.dtype}, nu {tuple(nu.shape)} "
+            f"{nu.dtype} (float32 (M, 1), (1, N))")
+    mu, nu = mu.contiguous(), nu.contiguous()
+    out = torch.empty((m, n), dtype=out_dtype, device=a_hat.device)
+    if out.numel() == 0 or pk == 0:
+        return out.zero_()
+    fn = _bind_prepared(build.load("emugemm1"), interleaved=True)
+    stream = torch.cuda.current_stream(a_hat.device).cuda_stream
+    rc = fn(a_hat.data_ptr(), b_hat.data_ptr(), mu.data_ptr(), nu.data_ptr(),
+            out.data_ptr(), m, n, pk // p, a_hat.stride(0), b_hat.stride(0),
+            int(out_dtype == torch.bfloat16), p, beta, stream)
+    if rc != 0:
+        raise RuntimeError(f"emugemm1 interleaved launch failed (code {rc}) "
+                           f"for {(m, pk // p, n)} p={p}")
+    COUNTS.launches_interleaved += 1
     return out

@@ -75,7 +75,8 @@ class PreparedOperand:
 
     def stacked(self) -> torch.Tensor:
         """The (p, Kp, N) slice stack, deinterleaved."""
-        return scheme1.deinterleave_k(self.slices, self.p, self.blocks.bk)
+        return scheme1.deinterleave_k(self.slices, self.p, "b",
+                                      self.blocks.bk)
 
     def reconstruct(self) -> torch.Tensor:
         """The dense (k, n) float32 weight the slices represent, exact up

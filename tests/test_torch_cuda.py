@@ -1,5 +1,6 @@
-"""The port's CUDA kernels on the card: EmuGEMM-I in its three launch
-forms, the prepared-weight decomposition (K2, K2r), EmuGEMM-II in its
+"""The port's CUDA kernels on the card: EmuGEMM-I in its four launch
+forms, the decomposition (K2, K2r, K11), the int8 GEMM (K9), fused
+attention (K10), EmuGEMM-II in its
 four launch forms (K5g with a float and with a residue rhs, K6, K5;
 float32, bfloat16 and float64) and its complex 3M kernels (K7g, K7)
 against their plain versions, bit for bit, the dispatcher's routing of
@@ -378,3 +379,107 @@ def test_hoisted_step_launches_the_prepared_form(cuda_device):
     assert ozaki2.COUNTS.launches_prepared == 2 * (21 * layers + 2)
     assert ozaki2.COUNTS.launches_2d == 2 * (7 * layers + 1)   # dB
     assert ozaki2.COUNTS.plain_cuda_calls == 0
+
+
+# ---------------------------------------------------------------------------
+# The library kernels: K11, K8, K9, K10.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [3, 4, 6])
+def test_library_scheme1_kernels_bit_identical_on_card(cuda_device, dtype, p):
+    """K11 and K8 against their plain versions; K11 + K2r -> K8 and the
+    'xla' route of ops.fused_scheme1_matmul against K1 (the 'kernel'
+    route), bit for bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(p)
+    for (m, k, n) in [(256, 2048, 512), (37, 1000, 77), (1, 33, 5)]:
+        a = torch.randn(m, k, generator=g, device=cuda_device).to(dtype)
+        b = torch.randn(k, n, generator=g, device=cuda_device).to(dtype)
+        mu, nu = scheme1.pow2_scale(a, 1), scheme1.pow2_scale(b, 0)
+        decompose.COUNTS.reset()
+        ozaki1.COUNTS.reset()
+        a_hat = decompose.decompose_interleave(a, mu, p, 7)
+        b_hat = decompose.decompose_interleave_rhs(b, nu, p, 7)
+        out = ozaki1.fused_matmul_interleaved(a_hat, b_hat, mu, nu, p, 7,
+                                              dtype)
+        assert decompose.COUNTS.launches_lhs == 1
+        assert ozaki1.COUNTS.launches_interleaved == 1
+        assert torch.equal(a_hat, decompose.decompose_lhs_plain(a, mu, p, 7))
+        assert torch.equal(out, ozaki1.fused_matmul_interleaved_plain(
+            a_hat, b_hat, mu, nu, p, 7, dtype)), (m, k, n)
+        assert torch.equal(out, ozaki1.fused_matmul_scheme1(
+            a, b, mu, nu, p, 7, dtype)), (m, k, n)
+        routes = [ops.fused_scheme1_matmul(
+            a, b, EmulationConfig(scheme="ozaki1", p=p, decomp=d),
+            out_dtype=dtype) for d in ("xla", "kernel")]
+        torch.cuda.synchronize()
+        assert torch.equal(routes[0], routes[1]), (m, k, n)
+
+
+def test_int8_matmul_bit_identical_on_card(cuda_device):
+    from repro_torch.kernels import matmul_int8
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    for (m, k, n) in [(512, 1024, 768), (37, 1000, 77), (130, 4096, 200),
+                      (1, 7, 3)]:
+        a = torch.randint(-128, 128, (m, k), generator=g, device=cuda_device,
+                          dtype=torch.int8)
+        b = torch.randint(-128, 128, (k, n), generator=g, device=cuda_device,
+                          dtype=torch.int8)
+        matmul_int8.COUNTS.reset()
+        out = matmul_int8.int8_matmul(a, b)
+        assert matmul_int8.COUNTS.launches == 1
+        ref = matmul_int8.int8_matmul_plain(a, b)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), (m, k, n)
+    # A transposed rhs view is read through a contiguous copy.
+    bt = torch.randint(-128, 128, (77, 1000), generator=g, device=cuda_device,
+                       dtype=torch.int8)
+    a = torch.randint(-128, 128, (37, 1000), generator=g, device=cuda_device,
+                      dtype=torch.int8)
+    assert torch.equal(matmul_int8.int8_matmul(a, bt.T),
+                       matmul_int8.int8_matmul_plain(a, bt.T))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_flash_attention_on_card(cuda_device, dtype, tol, d):
+    from repro_torch.kernels import flash_attn
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    cases = [(2, 4, 4, 256, 256, True, None), (1, 8, 2, 200, 200, True, None),
+             (1, 4, 1, 128, 512, False, None), (1, 2, 2, 300, 300, False, 64),
+             (1, 2, 1, 128, 64, True, 32)]       # rows 95.. see no key
+    for (b, h, kvh, sq, sk, causal, window) in cases:
+        q = torch.randn(b, h, sq, d, generator=g, device=cuda_device).to(dtype)
+        k = torch.randn(b, kvh, sk, d, generator=g,
+                        device=cuda_device).to(dtype)
+        v = torch.randn(b, kvh, sk, d, generator=g,
+                        device=cuda_device).to(dtype)
+        flash_attn.COUNTS.reset()
+        out = flash_attn.flash_attention(q, k, v, causal=causal,
+                                         window=window, bq=sq, bk=sk)
+        assert flash_attn.COUNTS.launches == 1
+        ref = flash_attn.flash_attention_plain(q, k, v, causal, window)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and out.shape == q.shape
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
+                                   atol=tol)
+
+
+def test_library_kernels_refuse_what_they_were_not_built_for(cuda_device):
+    from repro_torch.kernels import flash_attn
+    a = torch.randn(8, 16, device=cuda_device, dtype=torch.float64)
+    with pytest.raises(NotImplementedError):
+        ops.fused_scheme1_matmul(a, a.T)
+    with pytest.raises(NotImplementedError):
+        decompose.decompose_interleave(a, scheme1.pow2_scale(a, 1), 4, 7)
+    q = torch.randn(1, 2, 64, 48, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        flash_attn.flash_attention(q, q, q)
+    q = torch.randn(1, 2, 64, 64, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(NotImplementedError):
+        flash_attn.flash_attention(q, q, q)
+    x = torch.zeros(8, 64, device=cuda_device, dtype=torch.int8)
+    mu = torch.ones(8, 1, device=cuda_device)
+    with pytest.raises(ValueError):         # 64 is not p * Kp for p = 3
+        ozaki1.fused_matmul_interleaved(x, x.T.contiguous(), mu, mu.T, 3, 7)

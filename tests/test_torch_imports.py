@@ -27,7 +27,9 @@ def test_every_port_module_imports_without_jax_or_repro():
     mods = _port_modules()
     assert {"repro_torch.launch.serve", "repro_torch.launch.train",
             "repro_torch.kernels.prepared",
-            "repro_torch.kernels.decompose"} <= set(mods) and len(mods) > 20
+            "repro_torch.kernels.decompose",
+            "repro_torch.kernels.flash_attn",
+            "repro_torch.kernels.matmul_int8"} <= set(mods) and len(mods) > 20
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

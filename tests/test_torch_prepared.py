@@ -55,9 +55,9 @@ def test_interleave_round_trip_matches_reference():
     from repro.core import scheme1 as jscheme1
     x = np.random.default_rng(0).integers(-127, 128, (3, 64, 7)).astype(np.int8)
     ref = np.asarray(jscheme1.interleave_k(jnp.asarray(x), "b", 32))
-    out = scheme1.interleave_k(t(x), 32)
+    out = scheme1.interleave_k(t(x), "b", 32)
     np.testing.assert_array_equal(out.numpy(), ref)
-    np.testing.assert_array_equal(scheme1.deinterleave_k(out, 3, 32).numpy(), x)
+    np.testing.assert_array_equal(scheme1.deinterleave_k(out, 3, "b", 32).numpy(), x)
 
 
 @pytest.mark.parametrize("p", [3, 4, 6])
