@@ -5,7 +5,7 @@
 Drives repro_torch only (no jax, nothing of the reference package) on the
 card, with no CPU fallback, in nineteen phases:
 
-1. build: nvcc compiles the port's CUDA kernels from this checkout (six
+1. build: nvcc compiles the port's CUDA kernels from this checkout (seven
    sources), one process per source, in parallel;
 2. kernel: every kernel of the serving path is held against its plain
    version bit for bit at the path's shapes (float32 and bfloat16,
@@ -59,18 +59,22 @@ card, with no CPU fallback, in nineteen phases:
     2 microbatches the weights prepared once for the step (the hoist,
     through EmuGEMM-I's pair and mixed forms) give the float32 mean of
     the halves' per-call-cached gradients, bit for bit;
-15. scientific GEMMs: the complex 3M kernels (K7g, fused from the float
-    parts; K7, on residues) and EmuGEMM-II in float64 are held against
-    their plain versions bit for bit (complex64 and complex128, m in
-    {4, 8, 12, 16}; float64, m in {8, 12, 16}; ragged, transposed,
-    complex @ real, rows of tiny magnitude, 1024^3); the front doors
-    (``api.einsum`` on complex128, float64 and a float64 batch, the
-    residue routes of ``ops``, complex64 under ozaki1-p4) run with the
-    launch counts read around them; then DGEMM and ZGEMM at
-    M = N = K = 4096 (m in {8, 12, 16}) and 8192 (m = 16) are timed beside
-    their bounds, the plain versions, torch._int_mm and cuBLAS, with the
-    effective bits of the kernel and of cuBLAS against a longdouble
-    product of 64 sampled rows on the host;
+15. scientific GEMMs: the plane route of DGEMM and ZGEMM (the encode
+    kernels and the TMA-fed wgmma plane GEMM, real and 3M), the complex
+    residue kernel K7 and EmuGEMM-II's float64 batched form are held
+    against their plain versions bit for bit (complex64 and complex128, m
+    in {4, 8, 12, 16}; float64, m in {8, 12, 16}; ragged, transposed,
+    complex @ real, rows of tiny magnitude, 1024^3, K = 131200 across the
+    plane GEMM's in-kernel reduction); the front doors (``api.einsum`` on
+    complex128, float64 and a float64 batch, the residue routes of
+    ``ops``, complex64 under ozaki1-p4) run with the launch counts read
+    around them; then DGEMM and ZGEMM at M = N = K = 4096 (m in {8, 12,
+    16}) and 8192 (m = 16) are timed beside their bounds, the plain
+    versions, torch._int_mm and cuBLAS, with the encode, the mainloop
+    (and its int8 rate) and the CRT epilogue timed apart, the fused
+    float64 kernel the DGEMM route replaced timed beside it at 4096^3,
+    m = 16, and the effective bits of the route and of cuBLAS against a
+    longdouble product of 64 sampled rows on the host;
 16. prepared kernel: EmuGEMM-II's prepared form (a float lhs against a
     weight's int8 residue planes) is held against its plain version and
     against the float-rhs form bit for bit at olmo-1b's train shapes
@@ -177,6 +181,8 @@ P_BWD = 3
 # and F64_M_CHECK (float64), the front doors at SCI_M_FRONT, effective bits
 # on EVAL_ROWS sampled rows, bit identity at 8192 on the first SCI_ROWS.
 SOURCE3M = "src/repro_torch/kernels/csrc/emugemm3m.cu"
+SOURCE_PLANES = "src/repro_torch/kernels/csrc/emugemm2_planes.cu"
+SCI_LONG_K = 131200               # past the plane GEMM's in-kernel reduction
 SCI_SIZES = ((4096, (8, 12, 16)), (8192, (16,)))
 SCI_M_CHECK = (4, 8, 12, 16)
 F64_M_CHECK = (8, 12, 16)
@@ -1508,19 +1514,45 @@ def effective_bits(c_rows, ref) -> float:
 
 
 def scientific_kernel_checks(dev, gen, max_err):
-    """K7g, K7 and float64 EmuGEMM-II against their plain versions, bit
-    for bit: complex64 and complex128 at m in {4, 8, 12, 16} (ragged, a
-    transposed view, complex @ real, real @ complex, rows of tiny
-    magnitude, 1024^3); K7 on random residues; float64 at m in {8, 12,
-    16} (the 2-D and batched forms, float64 and float32 outputs, float32
-    operands to a float64 output, and the residue route). One row a case,
-    with its maximum absolute difference, which must be 0."""
+    """The plane route (K7g, float64 K5g), K7 and float64 EmuGEMM-II
+    against their plain versions, bit for bit: the encode kernels alone
+    (float64, complex64 and complex128 operands, a transposed view, a
+    real operand of a complex product); complex64 and complex128 at m in
+    {4, 8, 12, 16} (ragged, a transposed view, complex @ real, real @
+    complex, rows of tiny magnitude, 1024^3); K7 on random residues;
+    float64 at m in {8, 12, 16} (the 2-D plane route and the batched
+    form, float64 and float32 outputs, float32 operands to a float64
+    output, and the residue route) and at K = SCI_LONG_K, m = 16. One row
+    a case, with its maximum absolute difference, which must be 0."""
     rows = []
+    # The plane route's own cases draw from a generator of their own, so
+    # that the timed inputs are those of earlier runs.
+    gen17 = torch.Generator(device=dev).manual_seed(17)
 
     def case(what, out, ref, key):
         err = check_equal(what, out, ref, max_err, key)
         rows.append(what)
         log(f"[scientific] case {what}: max |kernel - plain| {err}")
+    for p in SCI_M_CHECK:
+        moduli = default_moduli(p)
+        for dtype in (torch.float64, torch.complex64, torch.complex128):
+            x, y = (eq19(gen17, (200, 136), dtype, dev),
+                    eq19(gen17, (136, 72), dtype, dev))
+            if dtype == torch.float64:
+                mu, nu = scheme2.scales(x, y, moduli)
+                enc, plain, key = (ozaki2.encode_planes,
+                                   ozaki2.encode_planes_plain, "encode")
+                ops_ = ((x, mu), (y.T, nu.T))
+            else:
+                mu, nu = complex3m.scales(x, y, moduli)
+                enc, plain, key = (ozaki3m.encode_planes_3m,
+                                   ozaki3m.encode_planes_3m_plain,
+                                   "encode_3m")
+                ops_ = ((x, mu), (y.T, nu.T), (x.real.contiguous(), mu))
+            for v, sc in ops_:
+                case(f"encode {tuple(v.shape)} {v.dtype} strides "
+                     f"{v.stride()} m={p}", enc(v, sc, moduli),
+                     plain(v, sc, moduli), key)
     for dtype in (torch.complex64, torch.complex128):
         part = torch.float64 if dtype == torch.complex128 else torch.float32
         tiny = 2.0 ** -1000 if part == torch.float64 else 2.0 ** -120
@@ -1581,16 +1613,28 @@ def scientific_kernel_checks(dev, gen, max_err):
              ops.fused_scheme2_matmul(a, b, f"ozaki2-m{p}", out_dtype=f64),
              ozaki2.fused_matmul_scheme2_plain(a, b, mu, nu, moduli, f64),
              "f64_residues")
+    # Past the plane GEMM's in-kernel reduction: its K tiles between
+    # reductions (1023 at m = 256) cover 130944 < SCI_LONG_K.
+    moduli = default_moduli(16)
+    a = eq19(gen17, (64, SCI_LONG_K), f64, dev)
+    b = eq19(gen17, (SCI_LONG_K, 64), f64, dev)
+    mu = scheme2._pow2_int_scale(a, -1, 52)
+    nu = scheme2._pow2_int_scale(b, -2, 52)
+    case(f"emugemm2 plane route (64, {SCI_LONG_K}) @ ({SCI_LONG_K}, 64) "
+         "float64 m=16", ozaki2.fused_matmul_scheme2(a, b, mu, nu, moduli, f64),
+         ozaki2.fused_matmul_scheme2_plain(a, b, mu, nu, moduli, f64),
+         "f64_2d")
     log(f"[scientific] {len(rows)} complex64/complex128/float64 kernel "
         "cases bit-identical to the plain versions")
 
 
 def scientific_main_path(dev, gen, za, zb, da, db):
     """The front doors a user calls, with every count zeroed just before
-    and read just after: ZGEMM and DGEMM through ``api.einsum`` (K7g,
-    K5g) and the residue routes (K7, K5 with a float64 CRT), a float64
-    batched einsum (K6) and a complex64 GEMM under ozaki1-p4 (four
-    EmuGEMM-I launches)."""
+    and read just after: ZGEMM and DGEMM through ``api.einsum`` (the
+    plane route: two encodes and one plane GEMM each, and no fused
+    EmuGEMM-II 2-D launch) and the residue routes (K7, K5 with a float64
+    CRT), a float64 batched einsum (K6) and a complex64 GEMM under
+    ozaki1-p4 (four EmuGEMM-I launches)."""
     spec = f"ozaki2-m{SCI_M_FRONT}"
     ba = eq19(gen, SCI_BATCHED, torch.float64, dev)
     bb = eq19(gen, SCI_BATCHED, torch.float64, dev)
@@ -1611,8 +1655,11 @@ def scientific_main_path(dev, gen, za, zb, da, db):
     torch.cuda.synchronize()
     c1, _, c2 = snapshot_counts()
     c3 = ozaki3m.LaunchCounts(**vars(ozaki3m.COUNTS))
-    counts = {"emugemm3m_2d": c3.launches_2d,
+    counts = {"emugemm3m_encode": c3.launches_encode,
+              "emugemm3m_planes": c3.launches_planes,
               "emugemm3m_residues": c3.launches_residues,
+              "emugemm2_encode": c2.launches_encode,
+              "emugemm2_planes": c2.launches_planes,
               "emugemm2_2d": c2.launches_2d,
               "emugemm2_residues": c2.launches_residues,
               "emugemm2_batched": c2.launches_batched,
@@ -1620,9 +1667,11 @@ def scientific_main_path(dev, gen, za, zb, da, db):
     plain = c1.plain_cuda_calls + c2.plain_cuda_calls + c3.plain_cuda_calls
     log(f"[scientific] main path launches {json.dumps(counts)}; plain "
         f"versions on CUDA {plain}")
-    if counts != {"emugemm3m_2d": 1, "emugemm3m_residues": 1,
-                  "emugemm2_2d": 1, "emugemm2_residues": 1,
-                  "emugemm2_batched": 1, "emugemm1_2d": 4} or plain:
+    if counts != {"emugemm3m_encode": 2, "emugemm3m_planes": 1,
+                  "emugemm3m_residues": 1, "emugemm2_encode": 2,
+                  "emugemm2_planes": 1, "emugemm2_2d": 0,
+                  "emugemm2_residues": 1, "emugemm2_batched": 1,
+                  "emugemm1_2d": 4} or plain:
         raise AssertionError("the scientific front doors did not launch "
                              "each kernel as expected")
     for kind in ("zgemm", "dgemm"):
@@ -1654,19 +1703,70 @@ def scientific_main_path(dev, gen, za, zb, da, db):
     return counts, out, batched
 
 
+def encode_bound(m, k, n, p, part_bytes, phases):
+    """Least time of the two encodes of an (M, K) @ (K, N): the operands'
+    parts and scales read once, the int8 planes (p * phases of them,
+    K padded to the plane GEMM's tile) written once."""
+    parts = 2 if phases == 3 else 1
+    moved = (part_bytes * (parts * (m * k + k * n) + m + n)
+             + p * phases * ozaki2.plane_k(k) * (m + n))
+    return 1e3 * moved / HBM_BYTES_PER_S, "bytes"
+
+
+def planes_bound(m, k, n, p, out_bytes, phases):
+    """Least time of the plane GEMM: the planes and scales read once and
+    the output written once, against p * phases int8 GEMMs at the int8
+    peak."""
+    kp = ozaki2.plane_k(k)
+    moved = p * phases * kp * (m + n) + 8 * (m + n) + out_bytes * m * n
+    ops_ = p * phases * 2 * m * n * kp
+    t_b, t_o = moved / HBM_BYTES_PER_S, ops_ / INT8_OPS_PER_S
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def plane_split(kind, a, b, mu, nu, moduli, iters):
+    """The plane route's kernels timed apart on a route's operands: (the
+    two encodes, the plane GEMM's mainloop alone, the plane GEMM with its
+    CRT epilogue), ms; and the planes."""
+    if kind == "dgemm":
+        def enc():
+            return (ozaki2.encode_planes(a, mu, moduli)[:, None],
+                    ozaki2.encode_planes(b.T, nu.T, moduli)[:, None])
+        out = torch.empty((a.shape[0], b.shape[1]), dtype=torch.float64,
+                          device=a.device)
+    else:
+        def enc():
+            return (ozaki3m.encode_planes_3m(a, mu, moduli),
+                    ozaki3m.encode_planes_3m(b.T, nu.T, moduli))
+        out = torch.empty((a.shape[0], b.shape[1]), dtype=torch.complex128,
+                          device=a.device)
+    enc_ms = time_ms(enc, iters)
+    ap, bp = enc()
+    main_ms = time_ms(lambda: ozaki2.launch_planes(ap, bp, mu, nu, moduli,
+                                                   out, epilogue=False),
+                      iters)
+    gemm_ms = time_ms(lambda: ozaki2.launch_planes(ap, bp, mu, nu, moduli,
+                                                   out), iters)
+    return enc_ms, main_ms, gemm_ms, (ap, bp)
+
+
 def scientific_phase(dev):
     """DGEMM- and ZGEMM-grade Scheme II: the kernels against their plain
     versions, the front doors, then M = N = K = 4096 at m in {8, 12, 16}
-    and 8192 at m = 16, float64 on EmuGEMM-II's 2-D form and complex128
-    on K7g, beside their bounds, the plain versions (4096 only; at 8192
-    the kernel's first 256 rows are held against the plain version of
-    those rows, which is exact because mu is per row and nu depends on b
+    and 8192 at m = 16, float64 and complex128 on the plane route,
+    beside their bounds, the plain versions (4096 only; at 8192 the
+    route's first 256 rows are held against the plain version of those
+    rows, which is exact because mu is per row and nu depends on b
     alone), the torch._int_mm yardstick and cuBLAS DGEMM / ZGEMM, with
-    the effective bits of the kernel and of cuBLAS against a longdouble
-    product of 64 sampled rows computed on the host."""
+    the encode, the mainloop and the CRT epilogue timed apart and the
+    effective bits of the route and of cuBLAS against a longdouble
+    product of 64 sampled rows computed on the host. At 4096^3, m = 16,
+    the fused float64 EmuGEMM-II kernel that the DGEMM route replaced
+    (its batched launch, one batch) is timed beside it, and each plane
+    kernel beside its plain version."""
     gen = torch.Generator(device=dev).manual_seed(14)
-    max_err = dict.fromkeys(("3m_2d", "3m_residues", "f64_2d",
-                             "f64_batched", "f64_residues"), 0.0)
+    max_err = dict.fromkeys(("encode", "encode_3m", "3m_2d", "3m_residues",
+                             "f64_2d", "f64_batched", "f64_residues"), 0.0)
     t0 = time.perf_counter()
     scientific_kernel_checks(dev, gen, max_err)
     inputs = {(n, kind): (eq19(gen, (n, n), dtype, dev),
@@ -1674,7 +1774,7 @@ def scientific_phase(dev):
               for n, _ in SCI_SIZES
               for kind, dtype in (("dgemm", torch.float64),
                                   ("zgemm", torch.complex128))}
-    n0 = SCI_SIZES[0][0]
+    n0, p_last = SCI_SIZES[0][0], SCI_SIZES[0][1][-1]
     counts, front, batched = scientific_main_path(
         dev, gen, *inputs[n0, "zgemm"], *inputs[n0, "dgemm"])
     pool = ThreadPoolExecutor(os.cpu_count() or 4)
@@ -1718,14 +1818,49 @@ def scientific_phase(dev):
                             raise AssertionError(f"{kind}: einsum != the "
                                                  "direct kernel call")
                     else:
-                        ms, out = timed(lambda: kern(a, b, mu, nu, moduli,
-                                                     f64))
+                        ms = time_ms(lambda: kern(a, b, mu, nu, moduli, f64),
+                                     1)
                         plain_ms, rows = None, slice(0, SCI_ROWS)
                         ref = plain(a[rows], b, mu[rows], nu, moduli, f64)
                     check_equal(f"{kind} {n}^3 m={p} rows {rows}", out[rows],
                                 ref, max_err,
                                 "f64_2d" if kind == "dgemm" else "3m_2d")
                     del ref
+                    phases = 1 if kind == "dgemm" else 3
+                    enc_ms, main_ms, gemm_ms, planes = plane_split(
+                        kind, a, b, mu, nu, moduli, 3 if n == n0 else 1)
+                    split = {
+                        "encode_ms": enc_ms, "mainloop_ms": main_ms,
+                        "planes_ms": gemm_ms, "crt_ms": gemm_ms - main_ms,
+                        "mainloop_tops": phases * p * 2 * n ** 3 / main_ms
+                        / 1e9,
+                        "encode_bound_ms": encode_bound(n, n, n, p, 8,
+                                                        phases)[0],
+                        **dict(zip(("planes_bound_ms", "planes_bound_by"),
+                                   planes_bound(n, n, n, p,
+                                                8 if phases == 1 else 16,
+                                                phases)))}
+                    if n == n0 and p == p_last:
+                        # The plane kernels beside their plain versions,
+                        # and the fused kernel the DGEMM route replaced.
+                        if kind == "dgemm":
+                            enc_p, mm_p = (ozaki2.encode_planes_plain,
+                                           ozaki2.plane_matmul_plain)
+                            split["fused_before_ms"] = time_ms(
+                                lambda: ozaki2.fused_matmul_scheme2(
+                                    a[None], b[None], mu[None], nu[None],
+                                    moduli, f64), 1)
+                        else:
+                            enc_p, mm_p = (ozaki3m.encode_planes_3m_plain,
+                                           ozaki3m.plane_matmul_3m_plain)
+                        split["encode_plain_ms"] = timed(lambda: (
+                            enc_p(a, mu, moduli), enc_p(b.T, nu.T, moduli)))[0]
+                        ap, bp = (x.squeeze(1) if kind == "dgemm" else x
+                                  for x in planes)
+                        split["planes_plain_ms"] = timed(lambda: mm_p(
+                            ap, bp, mu, nu, moduli, f64))[0]
+                        del ap, bp
+                    del planes
                     yard = time_ms(int_mm_yardstick(gen, dev, 1, n, n, n,
                                                     n_mm), 1)
                     ref_rows = exact[n, kind]()
@@ -1736,16 +1871,19 @@ def scientific_phase(dev):
                            "plain_ms": plain_ms, "bound_ms": bms,
                            "bound_by": by, "int_mm_yardstick_ms": yard,
                            "library_ms": lib_ms, "bits": bits,
-                           "library_bits": lib_bits}
+                           "library_bits": lib_bits, **split}
                     table.append(row)
                     timings[kind, n, p] = row
                     plain_txt = ("not run" if plain_ms is None
                                  else f"{plain_ms:.3f} ms")
-                    log(f"[scientific] {kind} {n}^3 m={p}: kernel {ms:.3f} "
-                        f"ms, bound {bms:.4f} ms ({by}), plain {plain_txt}, "
-                        f"yardstick torch._int_mm x{n_mm} {yard:.3f} ms, "
-                        f"cuBLAS {lib_ms:.3f} ms; effective bits {bits:.2f} "
-                        f"(cuBLAS {lib_bits:.2f})")
+                    log(f"[scientific] {kind} {n}^3 m={p}: route {ms:.3f} "
+                        f"ms (encode {enc_ms:.3f}, mainloop {main_ms:.3f} at "
+                        f"{split['mainloop_tops']:.1f} int8 TOPS, CRT "
+                        f"{gemm_ms - main_ms:.3f}), bound {bms:.4f} ms "
+                        f"({by}), plain {plain_txt}, yardstick "
+                        f"torch._int_mm x{n_mm} {yard:.3f} ms, cuBLAS "
+                        f"{lib_ms:.3f} ms; effective bits {bits:.2f} (cuBLAS "
+                        f"{lib_bits:.2f})")
                     del out
                 del lib_out
             for kind in ("dgemm", "zgemm"):
@@ -2147,8 +2285,8 @@ def library_phase(dev, mcfg):
 def build_phase():
     """nvcc for each kernel source, all started together."""
     t0 = time.perf_counter()
-    names = ("emugemm1", "decompose", "emugemm2", "emugemm3m", "matmul_int8",
-             "flash_attn")
+    names = ("emugemm1", "decompose", "emugemm2", "emugemm2_planes",
+             "emugemm3m", "matmul_int8", "flash_attn")
     with ThreadPoolExecutor(len(names)) as ex:
         for f in [ex.submit(build.build, n) for n in names]:
             f.result()
@@ -2320,18 +2458,13 @@ def main() -> int:
             row["launches_in_hoisted_train"] = (
                 hk.launches_2d if row["name"] == "emugemm2_2d"
                 else hk.launches_batched)
-    # The float64 entries of EmuGEMM-II's rows, and the 3M kernels.
+    # The float64 entries of EmuGEMM-II's rows, the plane route of DGEMM
+    # and ZGEMM, and K7.
     n0, p_sci = SCI_SIZES[0][0], SCI_SIZES[0][1][-1]
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "int_mm_yardstick_ms",
-            "library_ms")
     dgemm, zgemm = sci_t["dgemm", n0, p_sci], sci_t["zgemm", n0, p_sci]
     sci_per = (f"one {{}} {n0}^3 at m = {p_sci} (launches: the scientific "
                f"front doors at m = {SCI_M_FRONT})")
     f64_rows = {
-        "emugemm2_2d": {**{k: dgemm[k] for k in keys},
-                        "max_abs_err": sci_err["f64_2d"],
-                        "launches": sci_counts["emugemm2_2d"],
-                        "per": sci_per.format("DGEMM-grade float64 GEMM")},
         "emugemm2_residues": {**sci_res["residues"], "library_ms": None,
                               "max_abs_err": sci_err["f64_residues"],
                               "launches": sci_counts["emugemm2_residues"],
@@ -2345,14 +2478,37 @@ def main() -> int:
     for row in kernels:
         if row["name"] in f64_rows:
             row["float64"] = f64_rows[row["name"]]
-    kernels.append({
-        "name": "emugemm3m_2d", **common, "source": SOURCE3M,
-        "replaces": "src/repro/kernels/backends/gpu.py:522",
-        "launches": sci_counts["emugemm3m_2d"],
-        "max_abs_err": sci_err["3m_2d"],
-        **{k: zgemm[k] for k in keys},
-        "bits": zgemm["bits"], "library_bits": zgemm["library_bits"],
-        "per": sci_per.format("ZGEMM-grade complex128 GEMM")})
+    for t, prefix, replaces, what, enc_err in (
+            (dgemm, "emugemm2", "src/repro/kernels/backends/gpu.py:359",
+             "DGEMM-grade float64 GEMM", "encode"),
+            (zgemm, "emugemm3m", "src/repro/kernels/backends/gpu.py:522",
+             "ZGEMM-grade complex128 GEMM", "encode_3m")):
+        kernels.append({
+            "name": f"{prefix}_encode", **common, "source": SOURCE_PLANES,
+            "replaces": replaces,
+            "launches": sci_counts[f"{prefix}_encode"],
+            "max_abs_err": sci_err[enc_err], "ms": t["encode_ms"],
+            "plain_ms": t["encode_plain_ms"],
+            "bound_ms": t["encode_bound_ms"], "bound_by": "bytes",
+            "per": sci_per.format(f"pair of operand encodes of a {what}")})
+        kernels.append({
+            "name": f"{prefix}_planes", **common, "source": SOURCE_PLANES,
+            "replaces": replaces,
+            "launches": sci_counts[f"{prefix}_planes"],
+            "max_abs_err": sci_err["f64_2d" if prefix == "emugemm2"
+                                   else "3m_2d"],
+            "ms": t["planes_ms"], "plain_ms": t["planes_plain_ms"],
+            "bound_ms": t["planes_bound_ms"],
+            "bound_by": t["planes_bound_by"], "library_ms": t["library_ms"],
+            **{k: t[k] for k in ("mainloop_ms", "crt_ms", "mainloop_tops",
+                                 "bits", "library_bits",
+                                 "int_mm_yardstick_ms")},
+            "route_ms": t["ms"], "route_plain_ms": t["plain_ms"],
+            "route_bound_ms": t["bound_ms"],
+            **({"fused_before_ms": t["fused_before_ms"]}
+               if "fused_before_ms" in t else {}),
+            "per": sci_per.format(what) + "; library: cuBLAS on the "
+                   "float operands; route: the encodes and the plane GEMM"})
     kernels.append({
         "name": "emugemm3m_residues", **common, "source": SOURCE3M,
         "replaces": "src/repro/kernels/ozaki3m.py:72",

@@ -21,7 +21,7 @@ unless given; the residues and double-double follow
 ``repro_torch.core.scheme2`` (int64 residues for float64 parts, a
 float64 double-double for a float64 output).
 
-:func:`scaled_matmul` is the plain version of the fused 3M kernel K7g
+:func:`scaled_matmul` is the plain version of the 3M plane route K7g
 (``repro_torch.kernels.ozaki3m.fused_matmul_3m``) and, with
 :func:`matmul`, what the 'torch' backend runs.
 """
@@ -74,24 +74,40 @@ def scaled_matmul(a: torch.Tensor, b: torch.Tensor, mu: torch.Tensor,
                   out_dtype: torch.dtype) -> torch.Tensor:
     """The 3M pipeline for given scales: (..., M, K) @ (..., K, N),
     complex or real operands, -> complex (..., M, N) with parts of
-    ``out_dtype``. One modulus at a time, so that the float64 copies of
-    the residues that ``residue_gemms`` multiplies stay small."""
+    ``out_dtype``."""
     if out_dtype not in _PART_DTYPES:
         raise NotImplementedError(
             f"complex Scheme II assembles complex64 or complex128 results; "
             f"out_dtype {out_dtype} has no complex type")
     moduli = tuple(int(m) for m in moduli)
-    ar, ai = parts(a)
-    br, bi = parts(b)
-    res = [scheme2.balanced_residues(torch.trunc(x * s), moduli)
-           for x, s in ((ar, mu), (ai, mu), (br, nu), (bi, nu))]
+    return residue_matmul(phase_residues(a, mu, moduli),
+                          phase_residues(b, nu, moduli), mu, nu, moduli,
+                          out_dtype)
+
+
+def phase_residues(x: torch.Tensor, scale: torch.Tensor,
+                   moduli) -> torch.Tensor:
+    """(p, 3, ...) int8: the balanced residues of re and im integerized
+    with the shared scale, and the re-balanced residues of their sum."""
+    xr, xi = parts(x)
+    res = [scheme2.balanced_residues(torch.trunc(v * scale), moduli)
+           for v in (xr, xi)]
+    sums = torch.stack([_balanced(res[0][l].to(torch.int32)
+                                  + res[1][l].to(torch.int32), int(m))
+                        for l, m in enumerate(moduli)])
+    return torch.stack([res[0], res[1], sums], dim=1)
+
+
+def residue_matmul(a3: torch.Tensor, b3: torch.Tensor, mu: torch.Tensor,
+                   nu: torch.Tensor, moduli,
+                   out_dtype: torch.dtype) -> torch.Tensor:
+    """The 3M products of the phase residues (p, 3, ..., M, K) and
+    (p, 3, ..., K, N), one modulus at a time, so that the float64 copies
+    that ``residue_gemms`` multiplies stay small, then the CRTs."""
     c_re, c_im = [], []
-    for l, m in enumerate(moduli):
-        ar_l, ai_l, br_l, bi_l = (r[l] for r in res)
-        as_l = _balanced(ar_l.to(torch.int32) + ai_l.to(torch.int32), m)
-        bs_l = _balanced(br_l.to(torch.int32) + bi_l.to(torch.int32), m)
-        t1, t2, t3 = (scheme2.residue_gemms(x, y) for x, y in
-                      ((ar_l, br_l), (ai_l, bi_l), (as_l, bs_l)))
+    for l, m in enumerate(int(m) for m in moduli):
+        t1, t2, t3 = (scheme2.residue_gemms(a3[l, t], b3[l, t])
+                      for t in range(3))
         # The exact modular combination, in the reference's order.
         t1m, t2m, t3m = (torch.remainder(t, m) for t in (t1, t2, t3))
         c_re.append(torch.remainder(t1m - t2m, m).to(torch.int32))
@@ -130,7 +146,7 @@ def gemm_count(cfg: EmulationConfig) -> int:
 
 def fused_matmul(a: torch.Tensor, b: torch.Tensor, cfg: EmulationConfig,
                  out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """Complex Scheme-II GEMM through the dispatcher: the fused 3M kernel
+    """Complex Scheme-II GEMM through the dispatcher: the 3M plane route
     on CUDA tensors, the plain version on CPU tensors."""
     import dataclasses
     from repro_torch.kernels import dispatch  # lazy: the backends import us

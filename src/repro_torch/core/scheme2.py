@@ -201,8 +201,16 @@ def scaled_matmul(a: torch.Tensor, b: torch.Tensor, mu: torch.Tensor,
             f"Scheme II out_dtype {out_dtype}: the port reconstructs into "
             "float32, bfloat16 or float64")
     moduli = tuple(int(m) for m in moduli)
-    a_res = balanced_residues(torch.trunc(a * mu), moduli)
-    b_res = balanced_residues(torch.trunc(b * nu), moduli)
+    return residue_matmul(balanced_residues(torch.trunc(a * mu), moduli),
+                          balanced_residues(torch.trunc(b * nu), moduli),
+                          mu, nu, moduli, out_dtype)
+
+
+def residue_matmul(a_res: torch.Tensor, b_res: torch.Tensor, mu: torch.Tensor,
+                   nu: torch.Tensor, moduli,
+                   out_dtype: torch.dtype) -> torch.Tensor:
+    """Steps 3-5 on the balanced residues (p, ..., M, K) and
+    (p, ..., K, N) of the integerized operands."""
     c_res = modular_reduce(residue_gemms(a_res, b_res), moduli)
     return unscale(crt_reconstruct(c_res, moduli, out_dtype), mu, nu,
                    out_dtype)

@@ -1,5 +1,6 @@
 """The 'cuda' backend: Scheme I on the hand-written EmuGEMM-I kernel,
-Scheme II on EmuGEMM-II, complex Scheme II on its 3M kernel.
+Scheme II on EmuGEMM-II (a float64 2-D product and complex Scheme II on
+its plane route).
 
 The torch counterpart of ``repro.kernels.backends.gpu``:
 ``choose_blocks_gpu`` (here :func:`choose_blocks_cuda`),
@@ -36,11 +37,13 @@ _CAPS = BackendCapabilities(
 
 # The one tile each kernel is compiled for: csrc/emugemm1.cu, whose K tile
 # is the interleave granularity of a prepared weight, csrc/emugemm2.cu,
-# whose K step is the strip it integerizes once for all moduli, and the 3M
-# kernel of csrc/emugemm3m.cu, whose four staged strips are half as wide.
+# whose K step is the strip it integerizes once for all moduli (a float64
+# 2-D product runs on the plane GEMM's tile instead), and the plane GEMM
+# of csrc/emugemm2_planes.cu, which runs every complex 3M product.
 KERNEL_BLOCKS = Blocks(bm=64, bn=64, bk=decompose.TILE)
 SCHEME2_BLOCKS = Blocks(bm=64, bn=64, bk=64)
-SCHEME2_3M_BLOCKS = Blocks(bm=64, bn=64, bk=32)
+SCHEME2_3M_BLOCKS = Blocks(bm=ozaki2.PLANE_TILE[0], bn=ozaki2.PLANE_TILE[1],
+                           bk=ozaki2.PLANE_K)
 
 
 def choose_blocks_cuda(m: int, n: int, k: int, p: int,
@@ -101,7 +104,7 @@ class CudaBackend(KernelBackend):
                                            out_dtype)
 
     def _matmul_complex(self, a, b, cfg, out_dtype, blocks):
-        """(M, K) @ (K, N) with a complex operand -> complex: the 3M kernel
+        """(M, K) @ (K, N) with a complex operand -> complex: the 3M route
         under Scheme II; under Scheme I, which has no complex kernel,
         C_re = Ar Br - Ai Bi and C_im = Ar Bi + Ai Br from four EmuGEMM-I
         launches (4M, as the reference's dispatcher runs it)."""

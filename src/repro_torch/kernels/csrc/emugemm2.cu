@@ -14,7 +14,9 @@
 // int8 residues in and writes balanced int8 residues out.
 //
 // Operand types: float32 and bfloat16 (attention scores) and float64
-// (DGEMM-grade Scheme II); outputs float32, bfloat16 and float64.
+// (DGEMM-grade batches); outputs float32, bfloat16 and float64. A 2-D
+// float64 product (a DGEMM) takes the plane route of emugemm2_planes.cu
+// instead (kernels/ozaki2.py).
 //
 // What one block of the fused forms computes, for its (BM, BN) output tile:
 //   * prologue, once per K strip of BK: stage a (BM, BK) strip of A and a
@@ -63,13 +65,13 @@
 // about 0.5 us at 3.35 TB/s and the 6 int8 GEMMs about 0.01 us at the
 // int8 peak, so the form is bound by bytes and, in practice, by latency:
 // 128 blocks, one per SM, each a chain of strip loads, carves, MMAs and
-// the CRT epilogue. A DGEMM-grade 4096^3 GEMM at p = 16 is bound by its
-// 16 int8 GEMMs (about 1.1 ms at the int8 peak), and the kernel by its
-// per-element integer work (a carve per staged element and modulus, a
-// fold per strip and modulus). The design keeps the (p, M, K) residues and
-// the (p, M, N) int32 products out of device memory: only the float
-// operands are read and the output written, as the paper's fusion asks.
-// It does not pipeline loads or use TMA / wgmma (PERF.md).
+// the CRT epilogue. A float64 batch (8 x 512^3 at p = 12) is bound by its
+// int8 GEMMs, and the kernel by its per-element integer work (a carve per
+// staged element and modulus, a fold per strip and modulus). The design
+// keeps the (p, M, K) residues and the (p, M, N) int32 products out of
+// device memory: only the float operands are read and the output
+// written, as the paper's fusion asks. It does not pipeline loads or use
+// TMA / wgmma; the plane route does both (PERF.md).
 
 #include "scheme2_common.cuh"
 

@@ -1,7 +1,8 @@
-// Device pieces of Ozaki Scheme II shared by EmuGEMM-II (emugemm2.cu) and
-// its complex 3M kernels (emugemm3m.cu): operand types, exact floor
-// moduli, the integerize-and-carve prologue, int8 wmma tiles, and the
-// Garner + double-double CRT epilogue.
+// Device pieces of Ozaki Scheme II shared by EmuGEMM-II (emugemm2.cu), its
+// complex 3M kernels (emugemm3m.cu) and the plane route of DGEMM and ZGEMM
+// (emugemm2_planes.cu): operand types, exact floor moduli, the
+// integerize-and-carve prologue, int8 wmma tiles, and the Garner +
+// double-double CRT epilogue.
 //
 // Numerics, so that every kernel is bit-identical to its plain version
 // (repro_torch.core.scheme2, repro_torch.core.complex3m):
@@ -11,7 +12,9 @@
 //     operands, one strip's accumulator, Garner terms) take the quotient
 //     from a float reciprocal and correct it; float64 integerized operands
 //     (exact integers below 2^53) take it from a double reciprocal, and
-//     x - q * m is one exact fma; full-K accumulators use %;
+//     x - q * m is one exact fma; full-K accumulators use %. The plane
+//     route (emugemm2_planes.cu) reduces by Barrett's integer quotient
+//     instead: every exact reduction gives the same residue;
 //   * every float op of the double-double is an explicit _rn intrinsic,
 //     so nvcc cannot contract ah * bh - p into an FMA, which would break
 //     Dekker's exact product; the Veltkamp constant is 2^12 + 1 in float32
@@ -251,39 +254,57 @@ struct Out<double> {
   static __device__ __forceinline__ void store(double* o, double c) { *o = c; }
 };
 
-// The CRT of one element: balanced Garner digits of its residues
-// (res(i) in [0, m_i)), in exact int32, then the mixed-radix polynomial by
+// ---- the CRT ---------------------------------------------------------------
+
+// The mixed-radix polynomial of W elements' balanced digits by
 // double-double Horner, hi and lo rounded to O and added in it.
+template <typename O, int W>
+__device__ __forceinline__ void horner(const Crt& crt, const int (&d)[W][MAXP],
+                                       typename Out<O>::V (&c)[W]) {
+  using D = typename Out<O>::D;
+  const int p = crt.p;
+  D hi[W], lo[W];
+#pragma unroll
+  for (int w = 0; w < W; ++w) hi[w] = lo[w] = 0;
+#pragma unroll
+  for (int i = MAXP - 1; i >= 0; --i) {
+    if (i < p) {
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        if (i == p - 1) {
+          hi[w] = static_cast<D>(d[w][i]);
+          lo[w] = 0;
+        } else {
+          mul_scalar(hi[w], lo[w], static_cast<D>(crt.m[i]));
+          add_scalar(hi[w], lo[w], static_cast<D>(d[w][i]));
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int w = 0; w < W; ++w) c[w] = Out<O>::add(Out<O>::cvt(hi[w]), Out<O>::cvt(lo[w]));
+}
+
+// The CRT of one element: balanced Garner digits of its residues
+// (res(i) in [0, m_i)), in exact int32, then the Horner.
 template <typename O, typename Res>
 __device__ __forceinline__ typename Out<O>::V crt_element(const Crt& crt, const float (&rcp)[MAXP],
                                                           Res res) {
-  using D = typename Out<O>::D;
   const int p = crt.p;
-  int d[MAXP];
+  int d[1][MAXP];
 #pragma unroll
   for (int i = 0; i < MAXP; ++i) {
     if (i < p) {
       const int mi = crt.m[i];
       int t = res(i);
 #pragma unroll
-      for (int j = 0; j < i; ++j) t = floor_mod_small((t - d[j]) * crt.inv[i][j], mi, rcp[i]);
-      d[i] = t > mi / 2 ? t - mi : t;
+      for (int j = 0; j < i; ++j) t = floor_mod_small((t - d[0][j]) * crt.inv[i][j], mi, rcp[i]);
+      d[0][i] = t > mi / 2 ? t - mi : t;
     }
   }
-  D hi = 0, lo = 0;
-#pragma unroll
-  for (int i = MAXP - 1; i >= 0; --i) {
-    if (i < p) {
-      if (i == p - 1) {
-        hi = static_cast<D>(d[i]);
-        lo = 0;
-      } else {
-        mul_scalar(hi, lo, static_cast<D>(crt.m[i]));
-        add_scalar(hi, lo, static_cast<D>(d[i]));
-      }
-    }
-  }
-  return Out<O>::add(Out<O>::cvt(hi), Out<O>::cvt(lo));
+  typename Out<O>::V c[1];
+  horner<O, 1>(crt, d, c);
+  return c[0];
 }
 
 // ---- int8 tensor-core tiles ------------------------------------------------

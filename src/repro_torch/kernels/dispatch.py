@@ -18,9 +18,9 @@ plain version.
 
 Complex operands run with a real interior: the output type of a complex
 problem is the real type of its parts, and the backend assembles the
-complex result (Scheme II: the fused 3M kernel, block-cache key
+complex result (Scheme II: the 3M plane route, block-cache key
 'ozaki2-3m'; Scheme I: 4M, four real launches). A batched complex problem
-runs as one 2-D launch per batch element, which is what the reference's
+runs as one 2-D route per batch element, which is what the reference's
 vmap fallback computes (it has no batched 3M kernel either).
 """
 

@@ -23,8 +23,8 @@ double-double). On CUDA tensors it equals the fused form
 :func:`fused_3m_matmul` is the complex route that drives the 3M residue
 kernel (``ozaki3m.fused_3m_residue_matmul``): the shared scales and the
 [re, im, re+im] residue phases in torch, the 3p residue GEMMs with the 3M
-combination in the kernel, the two CRTs in torch. It equals the fused 3M
-kernel's result bit for bit.
+combination in the kernel, the two CRTs in torch. It equals the 3M
+plane route's result bit for bit.
 """
 
 from __future__ import annotations
@@ -124,19 +124,9 @@ def fused_3m_matmul(a: torch.Tensor, b: torch.Tensor, cfg=None,
     moduli = cfg.resolved_moduli()
     scheme2.check_exact_k(a.shape[-1], moduli)
     mu, nu = complex3m.scales(a, b, moduli)
-
-    def phases(x, scale):
-        """(p, 3, ...) residues [re, im, re+im], the sum re-balanced."""
-        re, im = (scheme2.balanced_residues(torch.trunc(v * scale), moduli)
-                  for v in complex3m.parts(x))
-        sums = torch.stack([
-            complex3m._balanced(re[l].to(torch.int32) + im[l].to(torch.int32),
-                                int(m))
-            for l, m in enumerate(moduli)])
-        return torch.stack([re, im, sums], dim=1)
-
-    c_re8, c_im8 = ozaki3m.fused_3m_residue_matmul(phases(a, mu),
-                                                   phases(b, nu), moduli)
+    c_re8, c_im8 = ozaki3m.fused_3m_residue_matmul(
+        complex3m.phase_residues(a, mu, moduli),
+        complex3m.phase_residues(b, nu, moduli), moduli)
     return complex3m.reconstruct(
         scheme2.modular_reduce(c_re8.to(torch.int32), moduli),
         scheme2.modular_reduce(c_im8.to(torch.int32), moduli),

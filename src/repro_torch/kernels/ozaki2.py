@@ -24,6 +24,15 @@ versions and launch counts.
   products mod each modulus. Its plain version is the reference's oracle
   ``repro.kernels.ref.scheme2_residues``.
 
+The 2-D form with float64 operands (a DGEMM) takes the plane route
+(``csrc/emugemm2_planes.cu``) instead of the fused kernel: two launches of
+:func:`encode_planes`, which writes an operand's balanced residues once
+as K-contiguous int8 planes (p, R, Kp), K padded with zero residues to
+``PLANE_K``, and one of :func:`plane_matmul`, a TMA-fed wgmma int8 GEMM
+per modulus with the reduction and the CRT in its epilogue. Their plain
+versions are :func:`encode_planes_plain` and :func:`plane_matmul_plain`;
+together they are ``scheme2.scaled_matmul``.
+
 On a CUDA tensor a wrapper launches the kernel or raises; on a CPU tensor
 it runs the plain version. The kernel replaces the Pallas kernels
 ``repro.kernels.backends.gpu.fused_matmul_scheme2`` (2-D launch with a
@@ -47,23 +56,29 @@ from repro_torch.core import scheme2
 MAX_MODULI = 16
 # The kernel's type codes (csrc/emugemm2.cu).
 TYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
+# The plane GEMM's K tile (csrc/emugemm2_planes.cu), to which planes are
+# padded, and its output tile, which sizes its park.
+PLANE_K = 128
+PLANE_TILE = (128, 256)
 _INT_P = ctypes.POINTER(ctypes.c_int)
 
 
 @dataclasses.dataclass
 class LaunchCounts:
-    """Launches of the kernel in each form, and calls of the plain
-    versions on CUDA tensors (which the model paths must never make)."""
+    """Launches of the kernel in each form and of the plane route's
+    kernels (encodes, plane GEMMs), and calls of the plain versions on
+    CUDA tensors (which the model paths must never make)."""
     launches_2d: int = 0
     launches_batched: int = 0
     launches_residues: int = 0
     launches_prepared: int = 0
+    launches_encode: int = 0
+    launches_planes: int = 0
     plain_cuda_calls: int = 0
 
     def reset(self) -> None:
-        self.launches_2d = self.launches_batched = 0
-        self.launches_residues = self.launches_prepared = 0
-        self.plain_cuda_calls = 0
+        for f in dataclasses.fields(self):
+            setattr(self, f.name, 0)
 
 
 COUNTS = LaunchCounts()
@@ -120,6 +135,33 @@ def fused_residue_matmul_plain(a_res, b_res, moduli):
     return torch.stack(outs)
 
 
+def plane_k(k: int) -> int:
+    """K padded to the plane GEMM's K tile."""
+    return -(-k // PLANE_K) * PLANE_K
+
+
+def encode_planes_plain(x, scale, moduli):
+    """The encode kernel's function in plain torch ops (CPU or CUDA): the
+    balanced residues of trunc(x * scale) for an (R, K) operand with its
+    row scales (R, 1), as (p, R, Kp) int8 planes padded with zero
+    residues along K."""
+    if x.is_cuda:
+        COUNTS.plain_cuda_calls += 1
+    res = scheme2.balanced_residues(torch.trunc(x * scale), moduli)
+    k = x.shape[-1]
+    return torch.nn.functional.pad(res, (0, plane_k(k) - k))
+
+
+def plane_matmul_plain(a_planes, b_planes, mu, nu, moduli, out_dtype):
+    """The plane GEMM's function in plain torch ops (CPU or CUDA): the
+    planes (p, M, Kp) and (p, N, Kp) of A and of B^T, one exact product
+    per modulus, its reduction, the CRT, then / (mu * nu)."""
+    if a_planes.is_cuda:
+        COUNTS.plain_cuda_calls += 1
+    return scheme2.residue_matmul(a_planes, b_planes.transpose(-1, -2), mu,
+                                  nu, moduli, out_dtype)
+
+
 @lru_cache(maxsize=None)
 def _crt_args(moduli: tuple[int, ...]):
     """The moduli and Garner's inverse table as ctypes int arrays."""
@@ -154,6 +196,131 @@ def _bind_residues(lib: ctypes.CDLL):
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def _bind_encode(lib: ctypes.CDLL):
+    fn = lib.emugemm2_encode
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3 + [_INT_P]
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _bind_planes(lib: ctypes.CDLL):
+    fn = lib.emugemm2_planes
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [_INT_P] * 2
+                   + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch_encode(xr, xi, scale, moduli, planes_per_modulus):
+    """Launch the encode kernel on the (R, K) part views xr and xi (xi
+    None for a real operand) with row scales (R, 1): planes
+    (p, planes_per_modulus, R, Kp) int8."""
+    from repro_torch.kernels import build
+    r, k = xr.shape
+    p = len(moduli)
+    planes = torch.empty((p, planes_per_modulus, r, plane_k(k)),
+                         dtype=torch.int8, device=xr.device)
+    scale = scale.contiguous()
+    mods, _ = _crt_args(moduli)
+    rc = _bind_encode(build.load("emugemm2_planes"))(
+        xr.data_ptr(), xi.data_ptr() if xi is not None else None,
+        scale.data_ptr(), planes.data_ptr(), r, k, planes.shape[-1],
+        xr.stride(0), xr.stride(1), int(planes_per_modulus == 3),
+        int(xr.dtype == torch.float64), p, mods,
+        torch.cuda.current_stream(xr.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"emugemm2 encode failed (code {rc}) for "
+                           f"{(r, k)} {xr.dtype} moduli={moduli}")
+    return planes
+
+
+def launch_planes(a_planes, b_planes, mu, nu, moduli, out, epilogue=True):
+    """Launch the plane GEMM on planes (p, T, M, Kp) and (p, T, N, Kp)
+    (T = 3: the 3M products, into a complex ``out``) with scales mu (M, 1)
+    and nu (1, N); ``epilogue=False`` stops after the mainloop, which
+    leaves ``out`` unwritten (for timing the two apart)."""
+    from repro_torch.kernels import build
+    p, phases, m, kp = a_planes.shape
+    n = b_planes.shape[2]
+    tiles = -(-m // PLANE_TILE[0]) * -(-n // PLANE_TILE[1])
+    park = torch.empty(tiles * (2 if phases == 3 else 1) * p
+                       * PLANE_TILE[0] * PLANE_TILE[1], dtype=torch.uint8,
+                       device=a_planes.device)
+    mu, nu = mu.contiguous(), nu.contiguous()
+    part = torch.view_as_real(out) if out.is_complex() else out
+    mods, inv = _crt_args(moduli)
+    rc = _bind_planes(build.load("emugemm2_planes"))(
+        a_planes.data_ptr(), b_planes.data_ptr(), mu.data_ptr(),
+        nu.data_ptr(), part.data_ptr(), park.data_ptr(), m, n, kp,
+        int(phases == 3), int(mu.dtype == torch.float64),
+        int(part.dtype == torch.float64), p, mods, inv, int(epilogue),
+        torch.cuda.current_stream(a_planes.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"emugemm2 plane GEMM failed (code {rc}) for "
+                           f"{(m, kp, n)} moduli={moduli}")
+    return out
+
+
+def encode_planes(x: torch.Tensor, scale: torch.Tensor,
+                  moduli) -> torch.Tensor:
+    """A float64 (R, K) operand with its row scales (R, 1) -> its (p, R,
+    Kp) int8 balanced residue planes (B enters as B^T with nu^T).
+
+    CPU tensors take the plain version; CUDA tensors launch the encode
+    kernel or raise.
+    """
+    moduli = tuple(int(m) for m in moduli)
+    if x.device.type == "cpu":
+        return encode_planes_plain(x, scale, moduli)
+    if (x.dim() != 2 or x.dtype != torch.float64 or not x.is_cuda
+            or scale.dtype != x.dtype or scale.shape != (x.shape[0], 1)
+            or x.shape[1] == 0):
+        raise ValueError(f"emugemm2 encode: {tuple(x.shape)} {x.dtype} on "
+                         f"{x.device}, scale {tuple(scale.shape)} "
+                         f"{scale.dtype}")
+    check_moduli(moduli)
+    planes = launch_encode(x, None, scale, moduli, 1)[:, 0]
+    COUNTS.launches_encode += 1
+    return planes
+
+
+def plane_matmul(a_planes: torch.Tensor, b_planes: torch.Tensor,
+                 mu: torch.Tensor, nu: torch.Tensor, moduli,
+                 out_dtype: torch.dtype) -> torch.Tensor:
+    """The planes (p, M, Kp) of A and (p, N, Kp) of B^T with float64
+    scales mu (M, 1) and nu (1, N) -> (M, N) in ``out_dtype`` (float64 or
+    float32).
+
+    CPU tensors take the plain version; CUDA tensors launch the plane
+    GEMM or raise.
+    """
+    moduli = tuple(int(m) for m in moduli)
+    if a_planes.device.type == "cpu":
+        return plane_matmul_plain(a_planes, b_planes, mu, nu, moduli,
+                                  out_dtype)
+    p, m, kp = a_planes.shape
+    n = b_planes.shape[1]
+    if (b_planes.shape != (p, n, kp) or p != len(moduli)
+            or kp % PLANE_K or not a_planes.is_contiguous()
+            or not b_planes.is_contiguous()
+            or {a_planes.dtype, b_planes.dtype} != {torch.int8}
+            or mu.shape != (m, 1) or nu.shape != (1, n)
+            or {mu.dtype, nu.dtype} != {torch.float64}
+            or out_dtype not in (torch.float64, torch.float32)
+            or len({x.device for x in (a_planes, b_planes, mu, nu)}) != 1):
+        raise ValueError(f"emugemm2 plane GEMM: {tuple(a_planes.shape)} @ "
+                         f"{tuple(b_planes.shape)}, mu {tuple(mu.shape)} "
+                         f"{mu.dtype}, nu {tuple(nu.shape)}, {len(moduli)} "
+                         f"moduli -> {out_dtype}")
+    check_moduli(moduli)
+    out = torch.empty((m, n), dtype=out_dtype, device=a_planes.device)
+    launch_planes(a_planes[:, None], b_planes[:, None], mu, nu, moduli, out)
+    COUNTS.launches_planes += 1
+    return out
 
 
 def _check(a, b, mu, nu, moduli, out_dtype, b_type=None):
@@ -212,6 +379,22 @@ def _launch(a3, b3, mu3, nu3, moduli, out_dtype):
     return out
 
 
+def _dgemm(a, b, mu, nu, moduli, out_dtype):
+    """The plane route of a float64 (M, K) @ (K, N): encode A and B^T,
+    then the plane GEMM."""
+    m, k = a.shape
+    n = b.shape[1]
+    if b.shape[0] != k or mu.shape != (m, 1) or nu.shape != (1, n):
+        raise ValueError(f"emugemm2: shapes {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}, mu {tuple(mu.shape)}, "
+                         f"nu {tuple(nu.shape)}")
+    if m * n == 0 or k == 0:
+        return torch.zeros((m, n), dtype=out_dtype, device=a.device)
+    return plane_matmul(encode_planes(a, mu, moduli),
+                        encode_planes(b.T, nu.T, moduli), mu, nu, moduli,
+                        out_dtype)
+
+
 def fused_matmul_scheme2(a: torch.Tensor, b: torch.Tensor, mu: torch.Tensor,
                          nu: torch.Tensor, moduli,
                          out_dtype: torch.dtype) -> torch.Tensor:
@@ -219,12 +402,14 @@ def fused_matmul_scheme2(a: torch.Tensor, b: torch.Tensor, mu: torch.Tensor,
     strided-batched (B, M, K) @ (B, K, N) -> (B, M, N) form.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    or raise.
+    (float64 2-D operands: the plane route) or raise.
     """
     moduli = tuple(int(m) for m in moduli)
     if a.device.type == "cpu":
         return fused_matmul_scheme2_plain(a, b, mu, nu, moduli, out_dtype)
     _check(a, b, mu, nu, moduli, out_dtype)
+    if a.dim() == 2 and b.dim() == 2 and a.dtype == torch.float64:
+        return _dgemm(a, b, mu, nu, moduli, out_dtype)
     if a.dim() == 2 and b.dim() == 2:
         out = _launch(a[None], b[None], mu[None], nu[None], moduli,
                       out_dtype)[0]

@@ -1,17 +1,23 @@
-"""The fused complex 3M kernels of EmuGEMM-II (``csrc/emugemm3m.cu``):
+"""The complex 3M kernels of EmuGEMM-II (the plane route of
+``csrc/emugemm2_planes.cu`` for K7g, ``csrc/emugemm3m.cu`` for K7):
 wrappers, plain versions and launch counts.
 
 * :func:`fused_matmul_3m` (K7g) takes a complex (or real) (M, K) @ (K, N)
   with float32 or float64 parts, the power-of-two scales mu (M, 1) and nu
   (1, N) that the real and imaginary parts share, and returns the complex
-  Scheme-II product with parts of ``out_dtype`` (float32 or float64): the
-  parts are integerized and carved, with the re-balanced residues of their
-  sum, in the prologue, three int8 GEMMs run per modulus, and the 3M
-  combination, two CRTs and the scaling by 1 / (mu * nu) run in the
-  epilogue. The wrapper reads a complex operand's parts in place from its
-  interleaved storage (``torch.view_as_real``) and the kernel writes the
-  complex result's storage, so nothing is copied. Its plain version is
-  ``repro_torch.core.complex3m.scaled_matmul``.
+  Scheme-II product with parts of ``out_dtype`` (float32 or float64). It
+  runs the plane route of ``csrc/emugemm2_planes.cu``: two launches of
+  :func:`encode_planes_3m`, which integerizes each operand once and
+  writes the phase residues [re, im, bal(re + im)] of every modulus as
+  K-contiguous int8 planes (p, 3, R, Kp) (B as B^T), and one of
+  :func:`plane_matmul_3m`, three TMA-fed wgmma int8 GEMMs per modulus,
+  each reduced and combined into C_re and C_im mod m, with the two CRTs
+  and the scaling by 1 / (mu * nu) in its epilogue. The encode reads a
+  complex operand's parts in place from its interleaved storage
+  (``torch.view_as_real``) and the GEMM writes the complex result's
+  storage. Its plain version is ``repro_torch.core.complex3m.
+  scaled_matmul``, which :func:`encode_planes_3m_plain` and
+  :func:`plane_matmul_3m_plain` compose.
 * :func:`fused_3m_residue_matmul` (K7) takes the (p, 3, M, K) and
   (p, 3, K, N) int8 phase stacks [re, im, re+im] of balanced residues and
   returns (c_re, c_im), each (p, M, N) balanced int8: per modulus the
@@ -32,7 +38,9 @@ import dataclasses
 import torch
 
 from repro_torch.core import complex3m, scheme2
-from repro_torch.kernels.ozaki2 import _INT_P, _crt_args, check_moduli
+from repro_torch.kernels.ozaki2 import (PLANE_K, _INT_P, _crt_args,
+                                        check_moduli, launch_encode,
+                                        launch_planes, plane_k)
 
 _PART_DTYPES = (torch.float32, torch.float64)
 
@@ -41,12 +49,14 @@ _PART_DTYPES = (torch.float32, torch.float64)
 class LaunchCounts:
     """Launches of each kernel, and calls of the plain versions on CUDA
     tensors (which the library paths must never make)."""
-    launches_2d: int = 0
+    launches_encode: int = 0
+    launches_planes: int = 0
     launches_residues: int = 0
     plain_cuda_calls: int = 0
 
     def reset(self) -> None:
-        self.launches_2d = self.launches_residues = self.plain_cuda_calls = 0
+        for f in dataclasses.fields(self):
+            setattr(self, f.name, 0)
 
 
 COUNTS = LaunchCounts()
@@ -57,6 +67,28 @@ def fused_matmul_3m_plain(a, b, mu, nu, moduli, out_dtype):
     if a.is_cuda:
         COUNTS.plain_cuda_calls += 1
     return complex3m.scaled_matmul(a, b, mu, nu, moduli, out_dtype)
+
+
+def encode_planes_3m_plain(x, scale, moduli):
+    """The 3M encode's function in plain torch ops (CPU or CUDA): the
+    phase residues (p, 3, R, Kp) of an (R, K) operand, complex or real,
+    with its row scales (R, 1), padded with zero residues along K."""
+    if x.is_cuda:
+        COUNTS.plain_cuda_calls += 1
+    k = x.shape[-1]
+    return torch.nn.functional.pad(
+        complex3m.phase_residues(x, scale, moduli), (0, plane_k(k) - k))
+
+
+def plane_matmul_3m_plain(a3, b3, mu, nu, moduli, out_dtype):
+    """The 3M plane GEMM's function in plain torch ops (CPU or CUDA): the
+    phase planes (p, 3, M, Kp) of A and (p, 3, N, Kp) of B^T, the three
+    products per modulus and their combination, the CRTs, then
+    * 1 / (mu * nu)."""
+    if a3.is_cuda:
+        COUNTS.plain_cuda_calls += 1
+    return complex3m.residue_matmul(a3, b3.transpose(-1, -2), mu, nu, moduli,
+                                    out_dtype)
 
 
 def fused_3m_residue_matmul_plain(a3, b3, moduli):
@@ -72,15 +104,6 @@ def fused_3m_residue_matmul_plain(a3, b3, moduli):
         c_re.append(complex3m._balanced(t1 - t2, m))
         c_im.append(complex3m._balanced(t3 - t1 - t2, m))
     return torch.stack(c_re), torch.stack(c_im)
-
-
-def _bind(lib: ctypes.CDLL):
-    fn = lib.emugemm3m
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
-                   + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 3
-                   + [_INT_P] * 2 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def _bind_residues(lib: ctypes.CDLL):
@@ -102,6 +125,65 @@ def _parts_view(x: torch.Tensor):
     return r[..., 0], r[..., 1]
 
 
+def encode_planes_3m(x: torch.Tensor, scale: torch.Tensor,
+                     moduli) -> torch.Tensor:
+    """An (R, K) operand, complex or real, with float32 or float64 parts
+    and its row scales (R, 1) in the part type -> its (p, 3, R, Kp) int8
+    phase planes (B enters as B^T with nu^T).
+
+    CPU tensors take the plain version; CUDA tensors launch the encode
+    kernel or raise.
+    """
+    moduli = tuple(int(m) for m in moduli)
+    if x.device.type == "cpu":
+        return encode_planes_3m_plain(x, scale, moduli)
+    xr, xi = _parts_view(x)
+    if (xr.dim() != 2 or xr.dtype not in _PART_DTYPES or not x.is_cuda
+            or scale.dtype != xr.dtype or scale.shape != (xr.shape[0], 1)
+            or scale.device != x.device or xr.shape[1] == 0):
+        raise ValueError(f"emugemm2 3M encode: {tuple(x.shape)} {x.dtype} "
+                         f"on {x.device}, scale {tuple(scale.shape)} "
+                         f"{scale.dtype}")
+    check_moduli(moduli)
+    planes = launch_encode(xr, xi, scale, moduli, 3)
+    COUNTS.launches_encode += 1
+    return planes
+
+
+def plane_matmul_3m(a3: torch.Tensor, b3: torch.Tensor, mu: torch.Tensor,
+                    nu: torch.Tensor, moduli,
+                    out_dtype: torch.dtype) -> torch.Tensor:
+    """The phase planes (p, 3, M, Kp) of A and (p, 3, N, Kp) of B^T with
+    scales mu (M, 1) and nu (1, N) in the part type -> complex (M, N)
+    with parts of ``out_dtype`` (float32 or float64).
+
+    CPU tensors take the plain version; CUDA tensors launch the plane
+    GEMM or raise.
+    """
+    moduli = tuple(int(m) for m in moduli)
+    if a3.device.type == "cpu":
+        return plane_matmul_3m_plain(a3, b3, mu, nu, moduli, out_dtype)
+    p, three, m, kp = a3.shape
+    n = b3.shape[2]
+    if (three != 3 or b3.shape != (p, 3, n, kp) or p != len(moduli)
+            or kp % PLANE_K or not a3.is_contiguous()
+            or not b3.is_contiguous() or {a3.dtype, b3.dtype} != {torch.int8}
+            or mu.shape != (m, 1) or nu.shape != (1, n)
+            or mu.dtype not in _PART_DTYPES or nu.dtype != mu.dtype
+            or out_dtype not in _PART_DTYPES
+            or len({x.device for x in (a3, b3, mu, nu)}) != 1):
+        raise ValueError(f"emugemm2 3M plane GEMM: {tuple(a3.shape)} @ "
+                         f"{tuple(b3.shape)}, mu {tuple(mu.shape)} "
+                         f"{mu.dtype}, nu {tuple(nu.shape)} {nu.dtype}, "
+                         f"{len(moduli)} moduli -> {out_dtype}")
+    check_moduli(moduli)
+    cplx = torch.complex128 if out_dtype == torch.float64 else torch.complex64
+    out = torch.empty((m, n), dtype=cplx, device=a3.device)
+    launch_planes(a3, b3, mu, nu, moduli, out)
+    COUNTS.launches_planes += 1
+    return out
+
+
 def fused_matmul_3m(a: torch.Tensor, b: torch.Tensor, mu: torch.Tensor,
                     nu: torch.Tensor, moduli,
                     out_dtype: torch.dtype) -> torch.Tensor:
@@ -109,15 +191,14 @@ def fused_matmul_3m(a: torch.Tensor, b: torch.Tensor, mu: torch.Tensor,
     shared scales mu (M, 1) and nu (1, N) -> complex (M, N) with parts of
     ``out_dtype``.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    or raise.
+    CPU tensors take the plain version; CUDA tensors launch the plane
+    route or raise.
     """
-    from repro_torch.kernels import build
     moduli = tuple(int(m) for m in moduli)
     if a.device.type == "cpu":
         return fused_matmul_3m_plain(a, b, mu, nu, moduli, out_dtype)
-    ar, ai = _parts_view(a)
-    br, bi = _parts_view(b)
+    ar, _ = _parts_view(a)
+    br, _ = _parts_view(b)
     xs = (a, b, mu, nu)
     if not all(x.is_cuda for x in xs) or len({x.device for x in xs}) != 1:
         raise ValueError("emugemm3m: all operands must be CUDA tensors on "
@@ -140,25 +221,13 @@ def fused_matmul_3m(a: torch.Tensor, b: torch.Tensor, mu: torch.Tensor,
         raise ValueError(f"emugemm3m: shapes {tuple(a.shape)} @ "
                          f"{tuple(b.shape)}, mu {tuple(mu.shape)}, nu "
                          f"{tuple(nu.shape)}")
-    cplx = torch.complex128 if out_dtype == torch.float64 else torch.complex64
-    out = torch.empty((m, n), dtype=cplx, device=a.device)
-    if out.numel() == 0 or k == 0:
-        return out.zero_()
-    mu, nu = mu.contiguous(), nu.contiguous()
-    fn = _bind(build.load("emugemm3m"))
-    mods, inv = _crt_args(moduli)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    rc = fn(ar.data_ptr(), ai.data_ptr() if ai is not None else None,
-            br.data_ptr(), bi.data_ptr() if bi is not None else None,
-            mu.data_ptr(), nu.data_ptr(), torch.view_as_real(out).data_ptr(),
-            m, n, k, ar.stride(0), ar.stride(1), br.stride(0), br.stride(1),
-            int(ar.dtype == torch.float64), int(out_dtype == torch.float64),
-            len(moduli), mods, inv, stream)
-    if rc != 0:
-        raise RuntimeError(f"emugemm3m launch failed (code {rc}) for "
-                           f"{(m, k, n)} moduli={moduli}")
-    COUNTS.launches_2d += 1
-    return out
+    if m * n == 0 or k == 0:
+        cplx = (torch.complex128 if out_dtype == torch.float64
+                else torch.complex64)
+        return torch.zeros((m, n), dtype=cplx, device=a.device)
+    return plane_matmul_3m(encode_planes_3m(a, mu, moduli),
+                           encode_planes_3m(b.T, nu.T, moduli), mu, nu,
+                           moduli, out_dtype)
 
 
 def fused_3m_residue_matmul(a3: torch.Tensor, b3: torch.Tensor, moduli):

@@ -2,7 +2,9 @@
 forms, the decomposition (K2, K2r, K11), the int8 GEMM (K9), fused
 attention (K10), EmuGEMM-II in its
 four launch forms (K5g with a float and with a residue rhs, K6, K5;
-float32, bfloat16 and float64) and its complex 3M kernels (K7g, K7)
+float32, bfloat16 and float64), the plane route of DGEMM and ZGEMM
+(the encode kernels and the plane GEMM: float64 K5g, K7g) and the
+complex residue kernel K7
 against their plain versions, bit for bit, the dispatcher's routing of
 CUDA tensors (complex 4M included), and train steps that launch them
 (a hoisted microbatch step among them).
@@ -232,8 +234,9 @@ def test_scheme2_float64_bit_identical_to_plain_on_card(cuda_device, p):
     fused = dispatch.emulated_matmul(a, b, cfg=f"ozaki2-m{p}")
     routed = ops.fused_scheme2_matmul(a, b, f"ozaki2-m{p}", out_dtype=f64)
     assert fused.dtype == f64 and torch.equal(fused, routed)
-    assert (ozaki2.COUNTS.launches_2d, ozaki2.COUNTS.launches_residues,
-            ozaki2.COUNTS.plain_cuda_calls) == (1, 1, 0)
+    assert (ozaki2.COUNTS.launches_encode, ozaki2.COUNTS.launches_planes,
+            ozaki2.COUNTS.launches_2d, ozaki2.COUNTS.launches_residues,
+            ozaki2.COUNTS.plain_cuda_calls) == (2, 1, 0, 1, 0)
 
 
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
@@ -272,6 +275,101 @@ def test_3m_kernels_bit_identical_to_plain_on_card(cuda_device, dtype, p):
         assert all(torch.equal(x, y) for x, y in zip(out, ref)), (m, k, n)
 
 
+@pytest.mark.parametrize("p", [4, 8, 16])
+def test_plane_encode_kernels_bit_identical_to_plain_on_card(cuda_device, p):
+    """The encode kernels of the plane route against their plain versions:
+    float64 (A and a transposed B^T view), complex64 and complex128 (A,
+    B^T, a real operand of a complex product), ragged and K <= 8."""
+    g = torch.Generator(device=cuda_device).manual_seed(300 + p)
+    moduli = default_moduli(p)
+    for (m, k, n) in [(200, 136, 72), (9, 5, 11), (300, 1000, 520)]:
+        a = _eq19(g, (m, k), torch.float64, cuda_device)
+        b = _eq19(g, (n, k), torch.float64, cuda_device).T
+        mu, nu = scheme2.scales(a, b, moduli)
+        for x, s in ((a, mu), (b.T, nu.T)):
+            out = ozaki2.encode_planes(x, s, moduli)
+            ref = ozaki2.encode_planes_plain(x, s, moduli)
+            torch.cuda.synchronize()
+            assert torch.equal(out, ref), (tuple(x.shape), x.stride())
+        for dtype in (torch.complex64, torch.complex128):
+            za = _eq19(g, (m, k), dtype, cuda_device)
+            zb = _eq19(g, (n, k), dtype, cuda_device).T
+            zmu, znu = complex3m.scales(za, zb, moduli)
+            for x, s in ((za, zmu), (zb.T, znu.T),
+                         (za.real.contiguous(), zmu)):
+                out = ozaki3m.encode_planes_3m(x, s, moduli)
+                ref = ozaki3m.encode_planes_3m_plain(x, s, moduli)
+                torch.cuda.synchronize()
+                assert torch.equal(out, ref), (tuple(x.shape), x.dtype)
+
+
+@pytest.mark.parametrize("p", [8, 12, 16])
+def test_plane_routes_bit_identical_to_plain_on_card(cuda_device, p):
+    """The DGEMM and ZGEMM routes (encodes + plane GEMM) against their
+    plain versions at the scientific phase's 1024^3 and a shape that is
+    ragged in every tile (M, N and K past 128, 256 and 128)."""
+    g = torch.Generator(device=cuda_device).manual_seed(400 + p)
+    moduli = default_moduli(p)
+    for (m, k, n) in [(1024, 1024, 1024), (300, 1000, 520)]:
+        for dtype in (torch.float64, torch.complex128):
+            a = _eq19(g, (m, k), dtype, cuda_device)
+            b = _eq19(g, (k, n), dtype, cuda_device)
+            if dtype == torch.float64:
+                mu, nu = scheme2.scales(a, b, moduli)
+                out = ozaki2.fused_matmul_scheme2(a, b, mu, nu, moduli,
+                                                  torch.float64)
+                ref = ozaki2.fused_matmul_scheme2_plain(a, b, mu, nu,
+                                                        moduli, torch.float64)
+            else:
+                mu, nu = complex3m.scales(a, b, moduli)
+                out = ozaki3m.fused_matmul_3m(a, b, mu, nu, moduli,
+                                              torch.float64)
+                ref = ozaki3m.fused_matmul_3m_plain(a, b, mu, nu, moduli,
+                                                    torch.float64)
+            torch.cuda.synchronize()
+            assert torch.equal(out, ref), (m, k, n, dtype)
+
+
+def test_plane_route_reduces_inside_long_k_on_card(cuda_device):
+    """K = 131200 runs past the 1023 K tiles (130944 rows of K at m = 256)
+    after which the plane GEMM reduces its accumulators mod m: still the
+    plain version's bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(500)
+    moduli = default_moduli(16)
+    a = _eq19(g, (64, 131200), torch.float64, cuda_device)
+    b = _eq19(g, (131200, 64), torch.float64, cuda_device)
+    mu = scheme2._pow2_int_scale(a, -1, 52)
+    nu = scheme2._pow2_int_scale(b, -2, 52)
+    out = ozaki2.fused_matmul_scheme2(a, b, mu, nu, moduli, torch.float64)
+    ref = ozaki2.fused_matmul_scheme2_plain(a, b, mu, nu, moduli,
+                                            torch.float64)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+def test_float64_2d_takes_the_plane_route_and_batches_do_not(cuda_device):
+    """A float64 2-D call launches two encodes and one plane GEMM and not
+    the fused kernel; a float64 batch still launches the fused kernel's
+    batched form."""
+    g = torch.Generator(device=cuda_device).manual_seed(600)
+    moduli = default_moduli(12)
+    a = _eq19(g, (100, 200), torch.float64, cuda_device)
+    b = _eq19(g, (200, 77), torch.float64, cuda_device)
+    mu, nu = scheme2.scales(a, b, moduli)
+    ozaki2.COUNTS.reset()
+    ozaki2.fused_matmul_scheme2(a, b, mu, nu, moduli, torch.float64)
+    assert (ozaki2.COUNTS.launches_encode, ozaki2.COUNTS.launches_planes,
+            ozaki2.COUNTS.launches_2d, ozaki2.COUNTS.launches_batched) == (
+                2, 1, 0, 0)
+    ozaki2.COUNTS.reset()
+    ozaki2.fused_matmul_scheme2(a[None], b[None], mu[None], nu[None], moduli,
+                                torch.float64)
+    assert (ozaki2.COUNTS.launches_encode, ozaki2.COUNTS.launches_planes,
+            ozaki2.COUNTS.launches_2d, ozaki2.COUNTS.launches_batched) == (
+                0, 0, 0, 1)
+    assert ozaki2.COUNTS.plain_cuda_calls == 0
+
+
 def test_complex_routes_on_card(cuda_device):
     """The front doors launch K7g (and ops.fused_3m_matmul K7) with no
     plain version on CUDA; complex64 under ozaki1 is four EmuGEMM-I
@@ -289,13 +387,14 @@ def test_complex_routes_on_card(cuda_device):
     routed = ops.fused_3m_matmul(a, b, "ozaki2-m12")
     assert out.dtype == torch.complex128
     assert torch.equal(out, direct) and torch.equal(out, routed)
-    assert (ozaki3m.COUNTS.launches_2d, ozaki3m.COUNTS.launches_residues,
-            ozaki3m.COUNTS.plain_cuda_calls) == (2, 1, 0)
-    # A complex batch runs one 2-D launch per element.
+    assert (ozaki3m.COUNTS.launches_encode, ozaki3m.COUNTS.launches_planes,
+            ozaki3m.COUNTS.launches_residues,
+            ozaki3m.COUNTS.plain_cuda_calls) == (4, 2, 1, 0)
+    # A complex batch runs one 2-D plane route per element.
     za = a[:64].reshape(2, 32, 160)
     zb = b[:, :32].reshape(160, 2, 16).permute(1, 0, 2)
     batched = api.einsum("bmk,bkn->bmn", za, zb, precision="ozaki2-m12")
-    assert ozaki3m.COUNTS.launches_2d == 4
+    assert ozaki3m.COUNTS.launches_planes == 4
     assert torch.equal(batched[1], api.einsum(
         "mk,kn->mn", za[1], zb[1], precision="ozaki2-m12"))
     a64, b64 = a.to(torch.complex64), b.to(torch.complex64)
