@@ -60,21 +60,23 @@ card, with no CPU fallback, in nineteen phases:
     through EmuGEMM-I's pair and mixed forms) give the float32 mean of
     the halves' per-call-cached gradients, bit for bit;
 15. scientific GEMMs: the plane route of DGEMM and ZGEMM (the encode
-    kernels and the TMA-fed wgmma plane GEMM, real and 3M), the complex
-    residue kernel K7 and EmuGEMM-II's float64 batched form are held
-    against their plain versions bit for bit (complex64 and complex128, m
-    in {4, 8, 12, 16}; float64, m in {8, 12, 16}; ragged, transposed,
-    complex @ real, rows of tiny magnitude, 1024^3, K = 131200 across the
-    plane GEMM's in-kernel reduction); the front doors (``api.einsum`` on
-    complex128, float64 and a float64 batch, the residue routes of
-    ``ops``, complex64 under ozaki1-p4) run with the launch counts read
-    around them; then DGEMM and ZGEMM at M = N = K = 4096 (m in {8, 12,
-    16}) and 8192 (m = 16) are timed beside their bounds, the plain
-    versions, torch._int_mm and cuBLAS, with the encode, the mainloop
-    (and its int8 rate) and the CRT epilogue timed apart, the fused
-    float64 kernel the DGEMM route replaced timed beside it at 4096^3,
-    m = 16, and the effective bits of the route and of cuBLAS against a
-    longdouble product of 64 sampled rows on the host;
+    kernels and the TMA-fed wgmma plane GEMM, real and 3M, 2-D and with a
+    batch coordinate), the complex residue kernel K7 and EmuGEMM-II's
+    batched form on float32 operands to a float64 output are held against
+    their plain versions bit for bit (complex64 and complex128, m in {4,
+    8, 12, 16}; float64, m in {8, 12, 16}; ragged, transposed, complex @
+    real, rows of tiny magnitude, 1024^3, K = 131200 across the plane
+    GEMM's in-kernel reduction); the front doors (``api.einsum`` on
+    complex128, float64, a float64 batch and a complex128 batch, the
+    residue routes of ``ops``, complex64 under ozaki1-p4) run with the
+    launch counts read around them, and the float64 batch (8 x 512^3,
+    m = 12) is timed beside cuBLAS's batched DGEMM with its encode /
+    mainloop / CRT split; then DGEMM and ZGEMM at M = N = K = 4096 (m in
+    {8, 12, 16}) and 8192 (m = 16) are timed beside their bounds, the
+    plain versions, torch._int_mm and cuBLAS, with the encode, the
+    mainloop (and its int8 rate) and the CRT epilogue timed apart, and the
+    effective bits of the route and of cuBLAS against a longdouble
+    product of 64 sampled rows on the host;
 16. prepared kernel: EmuGEMM-II's prepared form (a float lhs against a
     weight's int8 residue planes) is held against its plain version and
     against the float-rhs form bit for bit at olmo-1b's train shapes
@@ -105,12 +107,16 @@ card, with no CPU fallback, in nineteen phases:
     granite-3-8b's GQA (32 / 8 heads), recurrentgemma-2b's MQA (10 / 1
     heads of 256 over 4096, window 2048) and a rectangular non-causal case
     (128 / 512, D 64), within 2e-5 (float32) and 2e-2 (bf16) of its plain
-    version; each kernel is timed beside its bound, its plain version and,
+    version (bf16 on the TMA-fed wgmma kernel, float32 on the FFMA
+    kernel); each kernel is timed beside its bound, its plain version and,
     for K9 and K10, torch._int_mm and scaled_dot_product_attention.
 
-Any failure exits non-zero and prints no result. The line before the
-last is a JSON object listing each kernel; the last line is
-{"ok": true, "device": {...}}.
+Right after the build, one line names the device kernels that the
+library yardsticks (cuBLAS's batched DGEMM, scaled_dot_product_attention
+in bf16 and float32) run, from one torch.profiler pass each. Any failure
+exits non-zero and prints no result. The line before the last is a JSON
+object listing each kernel; the last line is {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -553,6 +559,51 @@ def device_summary(prof, prof_wall_ms: float, top_n: int = 4) -> dict:
             "top_device_ms": dict(top),
             "emugemm2_ms": sum(v for k, v in by_name.items()
                                if k.startswith("emugemm2"))}
+
+
+def yardstick_kernels(fn, calls: int = 10) -> dict:
+    """The device kernels that a library yardstick ran, by name, with
+    their mean device ms a call, from one torch.profiler pass over
+    ``calls`` calls after a warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            label = kernel_label(e.name)
+            names[label] = (names.get(label, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3 / calls)
+    return names
+
+
+def yardstick_phase(dev):
+    """Which device kernels the library yardsticks run: cuBLAS's batched
+    DGEMM at SCI_BATCHED and scaled_dot_product_attention at the first two
+    ATTN_CASES (bf16 and float32), on seeded inputs of those shapes. It
+    runs first: later in a long process the profiler was seen to keep only
+    some of a short pass's kernel events."""
+    gen = torch.Generator(device=dev).manual_seed(20)
+    ba = torch.randn(SCI_BATCHED, generator=gen, device=dev,
+                     dtype=torch.float64)
+    out = {f"cuBLAS batched DGEMM (torch.matmul) {SCI_BATCHED} float64":
+           yardstick_kernels(lambda: torch.matmul(ba, ba))}
+    for case in ATTN_CASES[:2]:
+        label, _, h, kvh, _, _, d, causal, _, dt = case
+        q, k, v = attn_inputs(gen, dev, case)
+        out[f"scaled_dot_product_attention {label} {dt} D={d}"] = (
+            yardstick_kernels(lambda: torch.nn.functional.
+                              scaled_dot_product_attention(
+                                  q, k, v, is_causal=causal,
+                                  enable_gqa=h != kvh)))
+    log("[yardsticks] the device kernels each library call ran, ms a call: "
+        + json.dumps(out))
 
 
 def profile_phase(dev, arch, params, view_tokens, runs):
@@ -1633,11 +1684,21 @@ def scientific_main_path(dev, gen, za, zb, da, db):
     and read just after: ZGEMM and DGEMM through ``api.einsum`` (the
     plane route: two encodes and one plane GEMM each, and no fused
     EmuGEMM-II 2-D launch) and the residue routes (K7, K5 with a float64
-    CRT), a float64 batched einsum (K6) and a complex64 GEMM under
-    ozaki1-p4 (four EmuGEMM-I launches)."""
+    CRT), a float64 and a complex128 batched einsum (K6 and batched K7g:
+    the batched plane route, two encodes and one plane GEMM each, and no
+    fused batched launch) and a complex64 GEMM under ozaki1-p4 (four
+    EmuGEMM-I launches). Then the float64 batch is timed, with its
+    encode / mainloop / CRT split, beside its bound, its plain version
+    and cuBLAS's batched DGEMM."""
     spec = f"ozaki2-m{SCI_M_FRONT}"
+    moduli = default_moduli(SCI_M_FRONT)
     ba = eq19(gen, SCI_BATCHED, torch.float64, dev)
     bb = eq19(gen, SCI_BATCHED, torch.float64, dev)
+    # The complex batch draws from a generator of its own, so that the
+    # inputs drawn after it are those of earlier runs.
+    gen18 = torch.Generator(device=dev).manual_seed(18)
+    zba = eq19(gen18, SCI_BATCHED, torch.complex128, dev)
+    zbb = eq19(gen18, SCI_BATCHED, torch.complex128, dev)
     n4m = SCI_4M_N
     ca, cb = (za[:n4m, :n4m].to(torch.complex64),
               zb[:n4m, :n4m].to(torch.complex64))
@@ -1650,6 +1711,7 @@ def scientific_main_path(dev, gen, za, zb, da, db):
         "dgemm_residues": ops.fused_scheme2_matmul(da, db, spec,
                                                    out_dtype=torch.float64),
         "batched": api.einsum("bmk,bkn->bmn", ba, bb, precision=spec),
+        "zbatched": api.einsum("bmk,bkn->bmn", zba, zbb, precision=spec),
         "4m": api.einsum("mk,kn->mn", ca, cb, precision="ozaki1-p4"),
     }
     torch.cuda.synchronize()
@@ -1667,10 +1729,10 @@ def scientific_main_path(dev, gen, za, zb, da, db):
     plain = c1.plain_cuda_calls + c2.plain_cuda_calls + c3.plain_cuda_calls
     log(f"[scientific] main path launches {json.dumps(counts)}; plain "
         f"versions on CUDA {plain}")
-    if counts != {"emugemm3m_encode": 2, "emugemm3m_planes": 1,
-                  "emugemm3m_residues": 1, "emugemm2_encode": 2,
-                  "emugemm2_planes": 1, "emugemm2_2d": 0,
-                  "emugemm2_residues": 1, "emugemm2_batched": 1,
+    if counts != {"emugemm3m_encode": 4, "emugemm3m_planes": 2,
+                  "emugemm3m_residues": 1, "emugemm2_encode": 4,
+                  "emugemm2_planes": 2, "emugemm2_2d": 0,
+                  "emugemm2_residues": 1, "emugemm2_batched": 0,
                   "emugemm1_2d": 4} or plain:
         raise AssertionError("the scientific front doors did not launch "
                              "each kernel as expected")
@@ -1682,35 +1744,71 @@ def scientific_main_path(dev, gen, za, zb, da, db):
             ca, cb, cfg="ozaki1-p4", backend="torch")):
         raise AssertionError("complex64 ozaki1-p4: four EmuGEMM-I launches "
                              "!= matmul_complex_4m on the torch backend")
-    if not torch.equal(out["batched"][-1],
-                       scheme2.matmul(ba[-1], bb[-1], api.precision(spec))):
-        raise AssertionError("float64 batched einsum != scheme2.matmul")
-    mu, nu = scheme2.scales(ba, bb, default_moduli(SCI_M_FRONT))
+    mu, nu = scheme2.scales(ba, bb, moduli)
+    if not torch.equal(out["batched"], ozaki2.fused_matmul_scheme2_plain(
+            ba, bb, mu, nu, moduli, torch.float64)):
+        raise AssertionError("float64 batched einsum != its plain version")
+    for e in range(SCI_BATCHED[0]):
+        if not torch.equal(out["batched"][e], scheme2.matmul(
+                ba[e], bb[e], api.precision(spec))):
+            raise AssertionError(f"float64 batched einsum, element {e} != "
+                                 "scheme2.matmul")
+    if not torch.equal(out["zbatched"][-1], api.einsum(
+            "mk,kn->mn", zba[-1], zbb[-1], precision=spec)):
+        raise AssertionError("complex128 batched einsum != the 2-D einsum "
+                             "of its element")
+    del zba, zbb
     b_ms = time_ms(lambda: ozaki2.fused_matmul_scheme2(
-        ba, bb, mu, nu, default_moduli(SCI_M_FRONT), torch.float64), 5)
+        ba, bb, mu, nu, moduli, torch.float64), 10)
     b_plain = time_ms(lambda: ozaki2.fused_matmul_scheme2_plain(
-        ba, bb, mu, nu, default_moduli(SCI_M_FRONT), torch.float64), 1)
+        ba, bb, mu, nu, moduli, torch.float64), 1)
     b_bms, b_by = scheme2_bound(*SCI_BATCHED, SCI_BATCHED[-1], SCI_M_FRONT,
                                 8, 8)
-    b_lib = time_ms(lambda: torch.matmul(ba, bb), 5)
-    log(f"[scientific] front doors: ZGEMM and DGEMM fused == residue route, "
-        f"4M == matmul_complex_4m, batched == scheme2.matmul, bit for bit; "
-        f"float64 batched {SCI_BATCHED} m={SCI_M_FRONT}: kernel {b_ms:.3f} "
-        f"ms, plain {b_plain:.3f} ms, bound {b_bms:.4f} ms ({b_by}), cuBLAS "
-        f"{b_lib:.3f} ms")
+    b_lib = time_ms(lambda: torch.matmul(ba, bb), 10)
+    enc_ms, main_ms, gemm_ms, _ = plane_split("dgemm", ba, bb, mu, nu, moduli,
+                                              10)
+    bt, m, k = SCI_BATCHED
+    # The same split on the wide tile, which the route leaves for the
+    # narrow one on a grid this small.
+    tile_n = ozaki2.plane_tile_n(bt, m, k, dev)
+    _, wide_main, wide_gemm, _ = plane_split("dgemm", ba, bb, mu, nu, moduli,
+                                             10, ozaki2.PLANE_TILE[1])
     batched = {"ms": b_ms, "plain_ms": b_plain, "bound_ms": b_bms,
-               "bound_by": b_by, "library_ms": b_lib}
+               "bound_by": b_by, "library_ms": b_lib, "encode_ms": enc_ms,
+               "mainloop_ms": main_ms, "planes_ms": gemm_ms,
+               "crt_ms": gemm_ms - main_ms,
+               "mainloop_tops": bt * SCI_M_FRONT * 2 * m * k * k / main_ms
+               / 1e9,
+               "encode_bound_ms": encode_bound(m, k, k, SCI_M_FRONT, 8, 1,
+                                               bt)[0],
+               "tile_n": tile_n,
+               "wide_tile": {"tile_n": ozaki2.PLANE_TILE[1],
+                             "mainloop_ms": wide_main, "planes_ms": wide_gemm,
+                             "crt_ms": wide_gemm - wide_main,
+                             "route_ms": enc_ms + wide_gemm}}
+    log(f"[scientific] front doors: ZGEMM and DGEMM fused == residue route, "
+        f"4M == matmul_complex_4m, the float64 batch == its plain version "
+        f"and scheme2.matmul per element, the complex128 batch == the 2-D "
+        f"einsum, bit for bit; float64 batched {SCI_BATCHED} "
+        f"m={SCI_M_FRONT}: route {b_ms:.4f} ms (encode {enc_ms:.4f}, "
+        f"mainloop {main_ms:.4f} at {batched['mainloop_tops']:.1f} int8 "
+        f"TOPS, CRT {gemm_ms - main_ms:.4f}; tile 128 x {tile_n}; on the "
+        f"128 x {ozaki2.PLANE_TILE[1]} tile: mainloop {wide_main:.4f}, CRT "
+        f"{wide_gemm - wide_main:.4f}, route {enc_ms + wide_gemm:.4f}), "
+        f"plain {b_plain:.3f} ms, bound {b_bms:.4f} ms ({b_by}), cuBLAS "
+        f"{b_lib:.4f} ms")
     return counts, out, batched
 
 
-def encode_bound(m, k, n, p, part_bytes, phases):
-    """Least time of the two encodes of an (M, K) @ (K, N): the operands'
-    parts and scales read once, the int8 planes (p * phases of them,
-    K padded to the plane GEMM's tile) written once."""
+def encode_bound(m, k, n, p, part_bytes, phases, batch=1):
+    """Least time of the two encodes of a ([batch,] M, K) @ ([batch,] K,
+    N): the operands' parts and scales read once, the int8 planes
+    (p * phases of them, K padded to the plane GEMM's tile) written
+    once."""
     parts = 2 if phases == 3 else 1
     moved = (part_bytes * (parts * (m * k + k * n) + m + n)
              + p * phases * ozaki2.plane_k(k) * (m + n))
-    return 1e3 * moved / HBM_BYTES_PER_S, "bytes"
+    return 1e3 * batch * moved / HBM_BYTES_PER_S, "bytes"
 
 
 def planes_bound(m, k, n, p, out_bytes, phases):
@@ -1724,29 +1822,29 @@ def planes_bound(m, k, n, p, out_bytes, phases):
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
-def plane_split(kind, a, b, mu, nu, moduli, iters):
-    """The plane route's kernels timed apart on a route's operands: (the
-    two encodes, the plane GEMM's mainloop alone, the plane GEMM with its
-    CRT epilogue), ms; and the planes."""
+def plane_split(kind, a, b, mu, nu, moduli, iters, tile_n=None):
+    """The plane route's kernels timed apart on a route's operands, 2-D or
+    batched: (the two encodes, the plane GEMM's mainloop alone, the plane
+    GEMM with its CRT epilogue), ms; and the planes. ``tile_n`` sets the
+    plane GEMM's tile width (default: the one the route chooses)."""
+    bt, nut = b.transpose(-1, -2), nu.transpose(-1, -2)
+    shape = (*a.shape[:-1], b.shape[-1])
     if kind == "dgemm":
         def enc():
             return (ozaki2.encode_planes(a, mu, moduli)[:, None],
-                    ozaki2.encode_planes(b.T, nu.T, moduli)[:, None])
-        out = torch.empty((a.shape[0], b.shape[1]), dtype=torch.float64,
-                          device=a.device)
+                    ozaki2.encode_planes(bt, nut, moduli)[:, None])
+        out = torch.empty(shape, dtype=torch.float64, device=a.device)
     else:
         def enc():
             return (ozaki3m.encode_planes_3m(a, mu, moduli),
-                    ozaki3m.encode_planes_3m(b.T, nu.T, moduli))
-        out = torch.empty((a.shape[0], b.shape[1]), dtype=torch.complex128,
-                          device=a.device)
+                    ozaki3m.encode_planes_3m(bt, nut, moduli))
+        out = torch.empty(shape, dtype=torch.complex128, device=a.device)
     enc_ms = time_ms(enc, iters)
     ap, bp = enc()
-    main_ms = time_ms(lambda: ozaki2.launch_planes(ap, bp, mu, nu, moduli,
-                                                   out, epilogue=False),
-                      iters)
-    gemm_ms = time_ms(lambda: ozaki2.launch_planes(ap, bp, mu, nu, moduli,
-                                                   out), iters)
+    main_ms = time_ms(lambda: ozaki2.launch_planes(
+        ap, bp, mu, nu, moduli, out, epilogue=False, tile_n=tile_n), iters)
+    gemm_ms = time_ms(lambda: ozaki2.launch_planes(
+        ap, bp, mu, nu, moduli, out, tile_n=tile_n), iters)
     return enc_ms, main_ms, gemm_ms, (ap, bp)
 
 
@@ -1761,9 +1859,7 @@ def scientific_phase(dev):
     the encode, the mainloop and the CRT epilogue timed apart and the
     effective bits of the route and of cuBLAS against a longdouble
     product of 64 sampled rows computed on the host. At 4096^3, m = 16,
-    the fused float64 EmuGEMM-II kernel that the DGEMM route replaced
-    (its batched launch, one batch) is timed beside it, and each plane
-    kernel beside its plain version."""
+    each plane kernel is timed beside its plain version."""
     gen = torch.Generator(device=dev).manual_seed(14)
     max_err = dict.fromkeys(("encode", "encode_3m", "3m_2d", "3m_residues",
                              "f64_2d", "f64_batched", "f64_residues"), 0.0)
@@ -1841,15 +1937,10 @@ def scientific_phase(dev):
                                                 8 if phases == 1 else 16,
                                                 phases)))}
                     if n == n0 and p == p_last:
-                        # The plane kernels beside their plain versions,
-                        # and the fused kernel the DGEMM route replaced.
+                        # The plane kernels beside their plain versions.
                         if kind == "dgemm":
                             enc_p, mm_p = (ozaki2.encode_planes_plain,
                                            ozaki2.plane_matmul_plain)
-                            split["fused_before_ms"] = time_ms(
-                                lambda: ozaki2.fused_matmul_scheme2(
-                                    a[None], b[None], mu[None], nu[None],
-                                    moduli, f64), 1)
                         else:
                             enc_p, mm_p = (ozaki3m.encode_planes_3m_plain,
                                            ozaki3m.plane_matmul_3m_plain)
@@ -2234,6 +2325,8 @@ def library_phase(dev, mcfg):
         bms, by = attn_bound(b_, h, kvh, sq, sk, d, causal, window, dtype)
         t10.append({"case": label, "shape": [b_, h, kvh, sq, sk, d],
                     "causal": causal, "window": window, "dtype": dt,
+                    "instance": dataclasses.asdict(
+                        flash_attn.instance(dtype, d)),
                     "ms": ms, "plain_ms": plain, "library_ms": lib,
                     "bound_ms": bms, "bound_by": by})
         log(f"[library] K10 {label} {dt} B={b_} H={h}/{kvh} S={sq}/{sk} "
@@ -2306,6 +2399,7 @@ def main() -> int:
     card = smi.stdout.strip()
     log(card)
     build_phase()
+    yardstick_phase(dev)
 
     arch = configs.get_config("olmo-1b")
     view_tokens = PAGE * math.ceil((PROMPT + GEN - 1 + CHUNK) / PAGE)
@@ -2458,8 +2552,8 @@ def main() -> int:
             row["launches_in_hoisted_train"] = (
                 hk.launches_2d if row["name"] == "emugemm2_2d"
                 else hk.launches_batched)
-    # The float64 entries of EmuGEMM-II's rows, the plane route of DGEMM
-    # and ZGEMM, and K7.
+    # The float64 entry of EmuGEMM-II's residue row, the plane route of
+    # DGEMM, ZGEMM and the float64 batch, and K7.
     n0, p_sci = SCI_SIZES[0][0], SCI_SIZES[0][1][-1]
     dgemm, zgemm = sci_t["dgemm", n0, p_sci], sci_t["zgemm", n0, p_sci]
     sci_per = (f"one {{}} {n0}^3 at m = {p_sci} (launches: the scientific "
@@ -2469,12 +2563,7 @@ def main() -> int:
                               "max_abs_err": sci_err["f64_residues"],
                               "launches": sci_counts["emugemm2_residues"],
                               "per": sci_per.format(
-                                  "residue GEMM of the DGEMM route")},
-        "emugemm2_batched": {**sci_batched,
-                             "max_abs_err": sci_err["f64_batched"],
-                             "launches": sci_counts["emugemm2_batched"],
-                             "per": f"one float64 batched GEMM "
-                                    f"{SCI_BATCHED} at m = {SCI_M_FRONT}"}}
+                                  "residue GEMM of the DGEMM route")}}
     for row in kernels:
         if row["name"] in f64_rows:
             row["float64"] = f64_rows[row["name"]]
@@ -2505,10 +2594,18 @@ def main() -> int:
                                  "int_mm_yardstick_ms")},
             "route_ms": t["ms"], "route_plain_ms": t["plain_ms"],
             "route_bound_ms": t["bound_ms"],
-            **({"fused_before_ms": t["fused_before_ms"]}
-               if "fused_before_ms" in t else {}),
             "per": sci_per.format(what) + "; library: cuBLAS on the "
                    "float operands; route: the encodes and the plane GEMM"})
+    kernels.append({
+        "name": "emugemm2_planes_batched", **common, "source": SOURCE_PLANES,
+        "replaces": "src/repro/kernels/backends/gpu.py:409",
+        "launches": sci_counts["emugemm2_planes"],
+        "max_abs_err": sci_err["f64_batched"], **sci_batched,
+        "per": f"one float64 batched GEMM {SCI_BATCHED} at m = "
+               f"{SCI_M_FRONT}: the route, its 2 encodes and the plane GEMM "
+               "with the batch coordinate; library: cuBLAS batched DGEMM "
+               "(launches: the plane GEMM's on the scientific front doors, "
+               "the DGEMM's and the float64 batch's)"})
     kernels.append({
         "name": "emugemm3m_residues", **common, "source": SOURCE3M,
         "replaces": "src/repro/kernels/ozaki3m.py:72",

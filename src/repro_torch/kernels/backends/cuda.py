@@ -1,6 +1,6 @@
 """The 'cuda' backend: Scheme I on the hand-written EmuGEMM-I kernel,
-Scheme II on EmuGEMM-II (a float64 2-D product and complex Scheme II on
-its plane route).
+Scheme II on EmuGEMM-II (float64 products, 2-D or batched, and complex
+Scheme II on its plane route).
 
 The torch counterpart of ``repro.kernels.backends.gpu``:
 ``choose_blocks_gpu`` (here :func:`choose_blocks_cuda`),
@@ -104,8 +104,9 @@ class CudaBackend(KernelBackend):
                                            out_dtype)
 
     def _matmul_complex(self, a, b, cfg, out_dtype, blocks):
-        """(M, K) @ (K, N) with a complex operand -> complex: the 3M route
-        under Scheme II; under Scheme I, which has no complex kernel,
+        """([Bt,] M, K) @ ([Bt,] K, N) with a complex operand -> complex:
+        the 3M route under Scheme II (a batch on its batch coordinate);
+        under Scheme I (2-D only), which has no complex kernel,
         C_re = Ar Br - Ai Bi and C_im = Ar Bi + Ai Br from four EmuGEMM-I
         launches (4M, as the reference's dispatcher runs it)."""
         if cfg.scheme == "ozaki2":

@@ -13,10 +13,10 @@
 // form, whose grid runs over the p moduli on blockIdx.z and which takes
 // int8 residues in and writes balanced int8 residues out.
 //
-// Operand types: float32 and bfloat16 (attention scores) and float64
-// (DGEMM-grade batches); outputs float32, bfloat16 and float64. A 2-D
-// float64 product (a DGEMM) takes the plane route of emugemm2_planes.cu
-// instead (kernels/ozaki2.py).
+// Operand types: float32 and bfloat16 (attention scores), and a float64
+// lhs in the prepared form; outputs float32, bfloat16 and float64. A
+// product of float64 operands, 2-D (a DGEMM) or batched, takes the plane
+// route of emugemm2_planes.cu instead (kernels/ozaki2.py).
 //
 // What one block of the fused forms computes, for its (BM, BN) output tile:
 //   * prologue, once per K strip of BK: stage a (BM, BK) strip of A and a
@@ -65,9 +65,9 @@
 // about 0.5 us at 3.35 TB/s and the 6 int8 GEMMs about 0.01 us at the
 // int8 peak, so the form is bound by bytes and, in practice, by latency:
 // 128 blocks, one per SM, each a chain of strip loads, carves, MMAs and
-// the CRT epilogue. A float64 batch (8 x 512^3 at p = 12) is bound by its
-// int8 GEMMs, and the kernel by its per-element integer work (a carve per
-// staged element and modulus, a fold per strip and modulus). The design
+// the CRT epilogue. The kernel is bound by its per-element integer work (a
+// carve per staged element and modulus, a fold per strip and modulus). The
+// design
 // keeps the (p, M, K) residues and the (p, M, N) int32 products out of
 // device memory: only the float operands are read and the output
 // written, as the paper's fusion asks. It does not pipeline loads or use
@@ -346,21 +346,25 @@ int launch_ab(int ta, int tb, const void* a, const void* b, const void* mu, cons
 }
 
 // The instances: float32 and bf16 operands in any pairing with a float32,
-// bf16 or float64 output; float64 operands (both) with a float64 or
-// float32 output. In the prepared form "operand B's type" is that of nu.
+// bf16 or float64 output; in the prepared form also a float64 lhs against
+// a float64 weight with a float64 or float32 output ("operand B's type" is
+// that of nu). Two float64 operands take the plane route
+// (emugemm2_planes.cu), so the fused forms have no float64 instance.
 template <bool RES>
 int launch_types(int ta, int tb, int to, const void* a, const void* b, const void* mu,
                  const void* nu, void* out, int batch, int M, int N, int K, long long sab,
                  long long sam, long long sak, long long sbb, long long sbk, long long sbn,
                  const Crt& crt, cudaStream_t st) {
   if (ta == F64 || tb == F64) {
-    if (ta != F64 || tb != F64) return -1;
-    if (to == F64)
-      return launch<double, double, double, RES>(a, b, mu, nu, out, batch, M, N, K, sab, sam, sak,
-                                                 sbb, sbk, sbn, crt, st);
-    if (to == F32)
-      return launch<double, double, float, RES>(a, b, mu, nu, out, batch, M, N, K, sab, sam, sak,
-                                                sbb, sbk, sbn, crt, st);
+    if constexpr (RES) {
+      if (ta != F64 || tb != F64) return -1;
+      if (to == F64)
+        return launch<double, double, double, RES>(a, b, mu, nu, out, batch, M, N, K, sab, sam,
+                                                   sak, sbb, sbk, sbn, crt, st);
+      if (to == F32)
+        return launch<double, double, float, RES>(a, b, mu, nu, out, batch, M, N, K, sab, sam,
+                                                  sak, sbb, sbk, sbn, crt, st);
+    }
     return -1;
   }
   if (to == F32)
@@ -384,7 +388,7 @@ int launch_types(int ta, int tb, int to, const void* a, const void* b, const voi
 // The fused forms: A (batch, M, K) and B (batch, K, N) through strides,
 // mu (batch, M) in A's type and nu (batch, N) in B's type, contiguous; out
 // (batch, M, N) contiguous. Types: 0 float32, 1 bfloat16, 2 float64, for
-// A, B and out (instances: launch_types). moduli[p] and the Garner table
+// A, B and out (instances: launch_types; no float64 operands). moduli[p] and the Garner table
 // inv[p * p] are host arrays.
 extern "C" int emugemm2(const void* a, const void* b, const void* mu, const void* nu, void* out,
                         int batch, int M, int N, int K, long long sab, long long sam,

@@ -4,27 +4,35 @@
 // Replaces, for float64 operands and for every complex product, the Pallas
 // kernels of the JAX package
 //   src/repro/kernels/backends/gpu.py  fused_matmul_scheme2 (_kernel2), float64 2-D launch
-//   src/repro/kernels/backends/gpu.py  fused_matmul_3m (_kernel2_3m)
-// (the float32 / bf16, prepared, batched and residue forms stay on
-// emugemm2.cu; the complex residue form K7 on emugemm3m.cu).
+//   src/repro/kernels/backends/gpu.py  fused_matmul_scheme2_batched, float64 operands
+//   src/repro/kernels/backends/gpu.py  fused_matmul_3m (_kernel2_3m), 2-D and batched
+// (the float32 / bf16 forms, the prepared and residue forms, and float32
+// operands to a float64 output stay on emugemm2.cu; the complex residue
+// form K7 on emugemm3m.cu).
+//
+// Every product carries a batch coordinate Bt; a 2-D product is Bt = 1.
 //
 // encode: one pass over an operand, read through its strides, writes the
-// balanced int8 residues of every modulus as K-contiguous planes: an (R, K)
-// operand with a per-row scale s (A with mu; B as B^T with nu) becomes
-// planes (p, T, R, Kp), T = 1 ([x]) or, for 3M, T = 3 ([re, im,
-// bal(re + im)], complex3m.phase_residues); Kp is K padded with zero
-// residues to the plane GEMM's K tile. Each element is integerized once,
+// balanced int8 residues of every modulus as K-contiguous planes: a
+// (Bt, R, K) operand with a per-row scale s (A with mu; B as B^T with nu)
+// becomes planes (p, T, Bt, R, Kp), T = 1 ([x]) or, for 3M, T = 3 ([re,
+// im, bal(re + im)], complex3m.phase_residues); Kp is K padded with zero
+// residues to the plane GEMM's K tile; the batch element is blockIdx.z.
+// Each element is integerized once,
 // trunc(x * s) in its type, and carved p times (the fused kernel it
 // replaces integerized it N / 64 times and carved it 64 * p times), by
 // integer arithmetic alone: a float64 value as four 16-bit limbs, each
 // residue a Barrett quotient. Bound by bytes: (8 + p) bytes an element for
 // float64, (16 + 3p) for complex128.
 //
-// planes: one block per (BM, BN) = (128, 256) output tile, 384 threads:
+// planes: one block per (BM, BN) = (128, 256) output tile of one batch
+// element (128 x 128 when those still fit in one wave of the SMs, as at 8
+// x 512^3: the CRT epilogue then runs on twice the SMs), 384 threads:
 //   * one producer thread keeps a ring of 4 shared stages filled by TMA
 //     (cp.async.bulk.tensor, 128-byte swizzle, mbarriers): the (128, 128)
 //     A tile and (256, 128) B tile of one plane and K tile, 48 KB a stage;
-//     rows past M or N arrive as zeros;
+//     the tensor maps are 4-D (Kp, rows, Bt, planes), so rows past M or N
+//     arrive as zeros in every batch element;
 //   * two consumer warpgroups, 64 rows each, run wgmma m64n128k32
 //     s32.s8.s8 (two a k-step, one per 128 columns) on the arrived tiles,
 //     modulus-outer and K-inner: for each modulus (for 3M each of the 3p
@@ -64,11 +72,11 @@
 // repro_torch.kernels.ozaki2.encode_planes_plain / plane_matmul_plain and
 // repro_torch.kernels.ozaki3m.encode_planes_3m_plain / plane_matmul_3m_plain.
 
-#include <cuda.h>
-
+#include "hopper.cuh"
 #include "scheme2_common.cuh"
 
 using namespace s2;
+using namespace hopper;
 
 namespace {
 
@@ -164,12 +172,14 @@ __device__ __forceinline__ int residue(const Limbs& x, const Barrett& br, int m,
 }
 
 // xi: the imaginary part (CPLX; null for a real operand of a complex
-// product, whose imaginary residues are zero); planes (p, T, R, Kp).
+// product, whose imaginary residues are zero); planes (p, T, Bt, R, Kp).
+// Batch element blockIdx.z reads x at z * sb and its scales at z * ssb.
 template <typename T, bool CPLX>
 __global__ void __launch_bounds__(NT)
 encode_kernel(const T* __restrict__ xr, const T* __restrict__ xi, const T* __restrict__ scale,
               int8_t* __restrict__ planes, int R, int K, int Kp, long long sr, long long sk,
-              const __grid_constant__ Crt crt, const __grid_constant__ Barrett br) {
+              long long sb, long long ssb, const __grid_constant__ Crt crt,
+              const __grid_constant__ Barrett br) {
   using W = typename Num<T>::W;
   using S = typename Num<T>::S;
   constexpr int TP = CPLX ? 3 : 1;
@@ -180,7 +190,11 @@ encode_kernel(const T* __restrict__ xr, const T* __restrict__ xi, const T* __res
 
   const int r0 = blockIdx.y * ER;
   const int k0 = blockIdx.x * EK;
+  const int bt = blockIdx.z, batch = gridDim.z;
   const int tid = threadIdx.x;
+  xr += bt * sb;
+  if (xi) xi += bt * sb;
+  scale += bt * ssb;
   if (tid < ER) sS[tid] = r0 + tid < R ? widen(scale[r0 + tid]) : W(0);
   __syncthreads();
 
@@ -231,8 +245,9 @@ encode_kernel(const T* __restrict__ xr, const T* __restrict__ xi, const T* __res
       }
 #pragma unroll
       for (int t = 0; t < TP; ++t)
-        *reinterpret_cast<uint2*>(planes + ((static_cast<long long>(l) * TP + t) * R + r0 + rr) * Kp +
-                                  k0 + kc) = make_uint2(b[t][0], b[t][1]);
+        *reinterpret_cast<uint2*>(
+            planes + (((static_cast<long long>(l) * TP + t) * batch + bt) * R + r0 + rr) * Kp + k0 +
+            kc) = make_uint2(b[t][0], b[t][1]);
     }
   }
 }
@@ -240,90 +255,26 @@ encode_kernel(const T* __restrict__ xr, const T* __restrict__ xi, const T* __res
 // ---- the plane GEMM ----------------------------------------------------------
 
 constexpr int PBM = 128;                  // output tile rows: two consumer warpgroups
-constexpr int PBN = 256;                  // output tile columns: two m64n128 per k-step
 constexpr int PBK = 128;                  // K tile: one 128-byte swizzle row
 constexpr int STAGES = 4;
 constexpr int A_BYTES = PBM * PBK;
-constexpr int B_BYTES = PBN * PBK;
-constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
 constexpr int CONSUMER_THREADS = 256;
 constexpr int PT = CONSUMER_THREADS + 128;   // and one producer warpgroup
-constexpr int GROUPS = PBM * PBN / CONSUMER_THREADS / 4;   // 4-element groups a thread: 32
-constexpr int PARK_SLOT = PBM * PBN;      // bytes of one park slot of a tile
 constexpr int GROUP_M = 16;               // tile rows of a raster group
-constexpr int PLANES_SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Waits for the phase of the given parity to complete. A wait that never
-// ends (a lost copy or arrival) traps after about 2^30 polls instead of
-// hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  for (uint32_t polls = 0; !done; ++polls) {
-    if (polls == (1u << 30)) __trap();
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// A shared-memory matrix descriptor of a K-major tile of 128-byte rows in
-// the 128-byte swizzle TMA writes: 8-row atoms 1024 bytes apart.
-__device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
-  return static_cast<uint64_t>((smem_u32(tile) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |            // leading offset (unused here)
-         (static_cast<uint64_t>(1024 >> 4) << 32) |    // stride offset: one atom
-         (static_cast<uint64_t>(1) << 62);             // 128-byte swizzle
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving accumulator reads or writes across the
-// asynchronous MMAs.
-__device__ __forceinline__ void reg_fence(int (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
+// The output tile's columns: NH halves of 128, one m64n128 each per
+// k-step. NH = 2 (128 x 256) is the tile; NH = 1 (128 x 128) is for grids
+// whose narrow tiles still fit in one wave, where it doubles the blocks
+// that run the CRT epilogue (kernels/ozaki2.py plane_tile_n chooses).
+template <int NH>
+struct Tile {
+  static constexpr int BN = 128 * NH;
+  static constexpr int B_BYTES = BN * PBK;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int GROUPS = PBM * BN / CONSUMER_THREADS / 4;   // 4-element groups a thread
+  static constexpr int PARK_SLOT = PBM * BN;                      // bytes of a tile's park slot
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
+};
 
 // D (64 x 128 int32, the warpgroup's accumulator fragment) += A (64 x 32
 // int8) * B (32 x 128 int8), both K-major in shared memory.
@@ -353,8 +304,9 @@ __device__ __forceinline__ void wgmma_m64n128k32(int (&d)[64], uint64_t da, uint
 // The word of residue group g (four bytes, one an element) in park slot
 // s: each consumer thread owns one word a group, and a warp's words are
 // contiguous.
+template <int NH>
 __device__ __forceinline__ uint32_t* park_word(uint8_t* tile_park, int s, int g, int ct) {
-  return reinterpret_cast<uint32_t*>(tile_park + static_cast<long long>(s) * PARK_SLOT) +
+  return reinterpret_cast<uint32_t*>(tile_park + static_cast<long long>(s) * Tile<NH>::PARK_SLOT) +
          g * CONSUMER_THREADS + ct;
 }
 
@@ -410,16 +362,20 @@ __device__ __forceinline__ void direct_digits(const Crt& crt, const Digits& dg, 
 }
 
 // T: the scales' type; O: the output part type; CPLX: 3M (planes
-// (p, 3, ., Kp), a complex output of interleaved parts). park: tiles * S *
-// PARK_SLOT bytes, S = p (2p for 3M). kr: K tiles between reductions.
-template <typename T, typename O, bool CPLX>
+// (p, 3, Bt, ., Kp), a complex output of interleaved parts). park: Bt *
+// tiles * S * PARK_SLOT bytes, S = p (2p for 3M). kr: K tiles between
+// reductions. Batch element z reads mu at z * smu, nu at z * snu and
+// writes out at z * sout (in output parts).
+template <typename T, typename O, bool CPLX, int NH>
 __global__ void __launch_bounds__(PT, 1)
 planes_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
               const T* __restrict__ mu, const T* __restrict__ nu, O* __restrict__ out,
-              uint8_t* park, int M, int N, int nk, int kr, int epilogue,
-              const __grid_constant__ Crt crt, const __grid_constant__ Barrett br,
-              const __grid_constant__ Digits dg) {
+              uint8_t* park, int M, int N, int nk, int kr, int epilogue, long long smu,
+              long long snu, long long sout, const __grid_constant__ Crt crt,
+              const __grid_constant__ Barrett br, const __grid_constant__ Digits dg) {
   constexpr int TP = CPLX ? 3 : 1;
+  constexpr int PBN = Tile<NH>::BN, STAGE_BYTES = Tile<NH>::STAGE_BYTES;
+  constexpr int GROUPS = Tile<NH>::GROUPS;
   using V = typename Out<O>::V;
   extern __shared__ __align__(16) uint8_t ring_smem[];
   const uint32_t pad = (1024 - (smem_u32(ring_smem) & 1023)) & 1023;
@@ -428,11 +384,13 @@ planes_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__
   uint64_t* empty = full + STAGES;
 
   const int p = crt.p;
-  // Tiles run in groups of GROUP_M tile rows, column by column, so that
-  // the blocks resident together read a few row and column slabs of each
-  // plane, which stay in L2 while they work through the moduli.
+  // Batch elements run one after another, and inside one the tiles run in
+  // groups of GROUP_M tile rows, column by column, so that the blocks
+  // resident together read a few row and column slabs of each plane, which
+  // stay in L2 while they work through the moduli.
   const int tiles_m = (M + PBM - 1) / PBM, tiles_n = (N + PBN - 1) / PBN;
-  const int tile = blockIdx.x;
+  const int bt = blockIdx.x / (tiles_m * tiles_n);
+  const int tile = blockIdx.x % (tiles_m * tiles_n);
   const int first = (tile / (GROUP_M * tiles_n)) * GROUP_M;
   const int rows = min(tiles_m - first, GROUP_M);
   const int in_group = tile % (GROUP_M * tiles_n);
@@ -459,8 +417,8 @@ planes_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__
           mbar_wait(&empty[stage], phase ^ 1);
           mbar_expect_tx(&full[stage], STAGE_BYTES);
           uint8_t* st = ring + stage * STAGE_BYTES;
-          tma_load_3d(st, &map_a, &full[stage], kt * PBK, m0, pl);
-          tma_load_3d(st + A_BYTES, &map_b, &full[stage], kt * PBK, n0, pl);
+          tma_load_4d(st, &map_a, &full[stage], kt * PBK, m0, bt, pl);
+          tma_load_4d(st + A_BYTES, &map_b, &full[stage], kt * PBK, n0, bt, pl);
           if (++stage == STAGES) {
             stage = 0;
             phase ^= 1;
@@ -472,31 +430,34 @@ planes_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int ct = threadIdx.x;                    // consumer thread, 0..255
     const int lane = ct % 32;
-    uint8_t* tile_park = park + static_cast<long long>(tile) * (CPLX ? 2 : 1) * p * PARK_SLOT;
-    int acc[2][64];
+    uint8_t* tile_park =
+        park + static_cast<long long>(blockIdx.x) * (CPLX ? 2 : 1) * p * Tile<NH>::PARK_SLOT;
+    int acc[NH][64];
     int stage = 0, phase = 0;
     for (int l = 0; l < p; ++l) {
       const int m = crt.m[l];
       for (int t = 0; t < TP; ++t) {
 #pragma unroll
-        for (int i = 0; i < 64; ++i) acc[0][i] = acc[1][i] = 0;
+        for (int h = 0; h < NH; ++h)
+#pragma unroll
+          for (int i = 0; i < 64; ++i) acc[h][i] = 0;
         for (int kt = 0; kt < nk; ++kt) {
           mbar_wait(&full[stage], phase);
           const uint8_t* st = ring + stage * STAGE_BYTES;
           const uint64_t da = desc_sw128(st + wg * 64 * PBK);
           const uint64_t db = desc_sw128(st + A_BYTES);
-          reg_fence(acc[0]);
-          reg_fence(acc[1]);
+#pragma unroll
+          for (int h = 0; h < NH; ++h) reg_fence(acc[h]);
           wgmma_fence();
 #pragma unroll
-          for (int ks = 0; ks < PBK / 32; ++ks) {
-            wgmma_m64n128k32(acc[0], da + 2 * ks, db + 2 * ks);
-            wgmma_m64n128k32(acc[1], da + 2 * ks, db + (128 * PBK >> 4) + 2 * ks);
-          }
+          for (int ks = 0; ks < PBK / 32; ++ks)
+#pragma unroll
+            for (int h = 0; h < NH; ++h)
+              wgmma_m64n128k32(acc[h], da + 2 * ks, db + h * (128 * PBK >> 4) + 2 * ks);
           wgmma_commit();
           wgmma_wait_all();
-          reg_fence(acc[0]);
-          reg_fence(acc[1]);
+#pragma unroll
+          for (int h = 0; h < NH; ++h) reg_fence(acc[h]);
           if (lane == 0) mbar_arrive(&empty[stage]);
           if (++stage == STAGES) {
             stage = 0;
@@ -504,10 +465,9 @@ planes_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__
           }
           if ((kt + 1) % kr == 0 && kt + 1 < nk) {
 #pragma unroll
-            for (int i = 0; i < 64; ++i) {
-              acc[0][i] = mod_full(acc[0][i], br, m, l);
-              acc[1][i] = mod_full(acc[1][i], br, m, l);
-            }
+            for (int h = 0; h < NH; ++h)
+#pragma unroll
+              for (int i = 0; i < 64; ++i) acc[h][i] = mod_full(acc[h][i], br, m, l);
           }
         }
         // Reduce this product into [0, m) and park it; for 3M combine it
@@ -520,7 +480,7 @@ planes_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__
           uint32_t prev[8];
           if (CPLX && t > 0) {
 #pragma unroll
-            for (int q = 0; q < 8; ++q) prev[q] = *park_word(tile_park, t == 1 ? l : p + l, 8 * c + q, ct);
+            for (int q = 0; q < 8; ++q) prev[q] = *park_word<NH>(tile_park, t == 1 ? l : p + l, 8 * c + q, ct);
           }
 #pragma unroll
           for (int q = 0; q < 8; ++q) {
@@ -529,7 +489,7 @@ planes_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__
 #pragma unroll
             for (int w = 0; w < 4; ++w) v[w] = mod_full(acc[g / 16][4 * (g % 16) + w], br, m, l);
             if (!CPLX || t == 0) {
-              *park_word(tile_park, l, g, ct) = pack4(v[0], v[1], v[2], v[3]);
+              *park_word<NH>(tile_park, l, g, ct) = pack4(v[0], v[1], v[2], v[3]);
             } else if (t == 1) {
               int re[4], s[4];
 #pragma unroll
@@ -538,8 +498,8 @@ planes_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__
                 re[w] = x - v[w] < 0 ? x - v[w] + m : x - v[w];
                 s[w] = x + v[w] >= m ? x + v[w] - m : x + v[w];
               }
-              *park_word(tile_park, l, g, ct) = pack4(re[0], re[1], re[2], re[3]);
-              *park_word(tile_park, p + l, g, ct) = pack4(s[0], s[1], s[2], s[3]);
+              *park_word<NH>(tile_park, l, g, ct) = pack4(re[0], re[1], re[2], re[3]);
+              *park_word<NH>(tile_park, p + l, g, ct) = pack4(s[0], s[1], s[2], s[3]);
             } else {
               int im[4];
 #pragma unroll
@@ -547,7 +507,7 @@ planes_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__
                 const int x = v[w] - byte_of(prev[q], w);
                 im[w] = x < 0 ? x + m : x;
               }
-              *park_word(tile_park, p + l, g, ct) = pack4(im[0], im[1], im[2], im[3]);
+              *park_word<NH>(tile_park, p + l, g, ct) = pack4(im[0], im[1], im[2], im[3]);
             }
           }
         }
@@ -556,6 +516,9 @@ planes_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__
     if (!epilogue) return;
 
     // CRT epilogue: each thread rebuilds the elements it parked.
+    mu += bt * smu;
+    nu += bt * snu;
+    out += bt * sout;
     const int row0 = m0 + wg * 64 + ((ct % 128) / 32) * 16 + lane / 4;
     const int col0 = n0 + (lane % 4) * 2;
     for (int g = 0; g < GROUPS; ++g) {
@@ -573,7 +536,7 @@ planes_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__
       for (int part = 0; part < (CPLX ? 2 : 1); ++part) {
         uint32_t res[MAXP];
 #pragma unroll
-        for (int l = 0; l < MAXP; ++l) res[l] = l < p ? *park_word(tile_park, part * p + l, g, ct) : 0;
+        for (int l = 0; l < MAXP; ++l) res[l] = l < p ? *park_word<NH>(tile_park, part * p + l, g, ct) : 0;
         int d[4][MAXP];
         direct_digits<4>(crt, dg, br, [&](int w, int i) { return byte_of(res[i], w); }, d);
         V c[4];
@@ -595,39 +558,20 @@ planes_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__
 
 // ---- host side -------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, looked up through the runtime (no -lcuda).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* sym = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &sym, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &sym, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(sym);
-  }
-  return fn;
-}
-
-// The planes (planes, rows, Kp) int8 as a 3-D tensor map with (PBK, box_rows, 1) boxes.
-int plane_map(CUtensorMap* map, const int8_t* planes, int n_planes, int rows, int Kp, int box_rows) {
+// The planes (planes, Bt, rows, Kp) int8 as a 4-D tensor map with (PBK,
+// box_rows, 1, 1) boxes: rows past `rows` arrive as zeros in every batch
+// element (a flattened (Bt * rows) axis would bring the next element's).
+int plane_map(CUtensorMap* map, const int8_t* planes, int n_planes, int batch, int rows, int Kp,
+              int box_rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return -2;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(Kp), static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(n_planes)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(Kp),
-                                 static_cast<cuuint64_t>(Kp) * static_cast<cuuint64_t>(rows)};
-  const cuuint32_t box[3] = {PBK, static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<int8_t*>(planes), dims,
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(Kp), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batch), static_cast<cuuint64_t>(n_planes)};
+  const cuuint64_t row = static_cast<cuuint64_t>(Kp);
+  const cuuint64_t strides[3] = {row, row * rows, row * rows * batch};
+  const cuuint32_t box[4] = {PBK, static_cast<cuuint32_t>(box_rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<int8_t*>(planes), dims,
                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -635,9 +579,9 @@ int plane_map(CUtensorMap* map, const int8_t* planes, int n_planes, int rows, in
 }
 
 template <typename T, bool CPLX>
-int launch_encode(const void* xr, const void* xi, const void* scale, int8_t* planes, int R, int K,
-                  int Kp, long long sr, long long sk, const Crt& crt, const Barrett& br,
-                  cudaStream_t st) {
+int launch_encode(const void* xr, const void* xi, const void* scale, int8_t* planes, int batch,
+                  int R, int K, int Kp, long long sr, long long sk, long long sb, long long ssb,
+                  const Crt& crt, const Barrett& br, cudaStream_t st) {
   constexpr int smem = encode_smem<T, CPLX>();
   static bool configured = false;
   if (!configured) {
@@ -646,28 +590,30 @@ int launch_encode(const void* xr, const void* xi, const void* scale, int8_t* pla
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const dim3 grid(Kp / EK, (R + ER - 1) / ER);
+  const dim3 grid(Kp / EK, (R + ER - 1) / ER, batch);
   encode_kernel<T, CPLX><<<grid, NT, smem, st>>>(
       static_cast<const T*>(xr), static_cast<const T*>(xi), static_cast<const T*>(scale), planes,
-      R, K, Kp, sr, sk, crt, br);
+      R, K, Kp, sr, sk, sb, ssb, crt, br);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename O, bool CPLX>
+template <typename T, typename O, bool CPLX, int NH>
 int launch_planes(const CUtensorMap& ma, const CUtensorMap& mb, const void* mu, const void* nu,
-                  void* out, uint8_t* park, int M, int N, int nk, int kr, int epilogue,
-                  const Crt& crt, const Barrett& br, const Digits& dg, cudaStream_t st) {
+                  void* out, uint8_t* park, int batch, int M, int N, int nk, int kr,
+                  int epilogue, long long smu, long long snu, long long sout, const Crt& crt,
+                  const Barrett& br, const Digits& dg, cudaStream_t st) {
+  constexpr int smem = Tile<NH>::SMEM;
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        planes_kernel<T, O, CPLX>, cudaFuncAttributeMaxDynamicSharedMemorySize, PLANES_SMEM);
+        planes_kernel<T, O, CPLX, NH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const int tiles = ((M + PBM - 1) / PBM) * ((N + PBN - 1) / PBN);
-  planes_kernel<T, O, CPLX><<<tiles, PT, PLANES_SMEM, st>>>(
+  const int tiles = batch * ((M + PBM - 1) / PBM) * ((N + Tile<NH>::BN - 1) / Tile<NH>::BN);
+  planes_kernel<T, O, CPLX, NH><<<tiles, PT, smem, st>>>(
       ma, mb, static_cast<const T*>(mu), static_cast<const T*>(nu), static_cast<O*>(out), park, M,
-      N, nk, kr, epilogue, crt, br, dg);
+      N, nk, kr, epilogue, smu, snu, sout, crt, br, dg);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -678,40 +624,49 @@ int launch_planes(const CUtensorMap& ma, const CUtensorMap& mb, const void* mu, 
 // no compiled instance, and -2 / -3 if libcuda's tensor-map encoder is
 // missing / refused the planes.
 //
-// Encode: x (R, K) through strides (sr, sk) in elements, xi its imaginary
-// part (cplx; null for a real operand) with the same strides, scale (R)
-// contiguous in x's type (f64 = 1: float64, else float32; a real encode
-// takes float64 only); planes (p, T, R, Kp) int8 contiguous, Kp a multiple
-// of 128 >= K. moduli[p] is a host array.
+// Encode: x (batch, R, K) through strides (sb, sr, sk) in elements, xi its
+// imaginary part (cplx; null for a real operand) with the same strides,
+// scale (batch, R) with batch stride ssb and rows contiguous, in x's type
+// (f64 = 1: float64, else float32; a real encode takes float64 only);
+// planes (p, T, batch, R, Kp) int8 contiguous, Kp a multiple of 128 >= K.
+// moduli[p] is a host array.
 extern "C" int emugemm2_encode(const void* xr, const void* xi, const void* scale, int8_t* planes,
-                               int R, int K, int Kp, long long sr, long long sk, int cplx, int f64,
-                               int p, const int* moduli, void* stream) {
-  if (R <= 0 || K <= 0 || Kp < K || Kp % PBK != 0) return -1;
+                               int batch, int R, int K, int Kp, long long sb, long long sr,
+                               long long sk, long long ssb, int cplx, int f64, int p,
+                               const int* moduli, void* stream) {
+  if (batch <= 0 || batch > 65535 || R <= 0 || K <= 0 || Kp < K || Kp % PBK != 0) return -1;
   Crt crt;
   if (make_crt(p, moduli, nullptr, crt) != 0) return -1;
   Barrett br;
   make_barrett(crt, br);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!cplx)
-    return f64 ? launch_encode<double, false>(xr, nullptr, scale, planes, R, K, Kp, sr, sk, crt,
-                                              br, st)
+    return f64 ? launch_encode<double, false>(xr, nullptr, scale, planes, batch, R, K, Kp, sr, sk,
+                                              sb, ssb, crt, br, st)
                : -1;
-  return f64 ? launch_encode<double, true>(xr, xi, scale, planes, R, K, Kp, sr, sk, crt, br, st)
-             : launch_encode<float, true>(xr, xi, scale, planes, R, K, Kp, sr, sk, crt, br, st);
+  return f64 ? launch_encode<double, true>(xr, xi, scale, planes, batch, R, K, Kp, sr, sk, sb, ssb,
+                                           crt, br, st)
+             : launch_encode<float, true>(xr, xi, scale, planes, batch, R, K, Kp, sr, sk, sb, ssb,
+                                          crt, br, st);
 }
 
-// The plane GEMM: a_planes (p, T, M, Kp) and b_planes (p, T, N, Kp) int8
-// from emugemm2_encode, mu (M) and nu (N) contiguous in the scale type
-// (f64), out (M, N) contiguous (complex parts interleaved if cplx; float64
-// parts if out_f64, else float32), park tiles * S * 32768 bytes of scratch
-// (tiles = ceil(M / 128) * ceil(N / 256), S = p, 2p if cplx). epilogue = 0
-// stops after the mainloop (the park holds the residues; for timing).
-// moduli[p] and the Garner table inv[p * p] are host arrays.
+// The plane GEMM: a_planes (p, T, batch, M, Kp) and b_planes (p, T, batch,
+// N, Kp) int8 from emugemm2_encode, mu (batch, M) and nu (batch, N) with
+// batch strides smu, snu and rows contiguous, in the scale type (f64); out
+// (batch, M, N) with batch stride sout in output parts and rows contiguous
+// (complex parts interleaved if cplx; float64 parts if out_f64, else
+// float32); tile_n, the output tile's columns, 256 or 128; park batch *
+// tiles * S * 128 * tile_n bytes of scratch (tiles = ceil(M / 128) *
+// ceil(N / tile_n), S = p, 2p if cplx). epilogue = 0 stops after the
+// mainloop (the park holds the residues; for timing). moduli[p] and the
+// Garner table inv[p * p] are host arrays.
 extern "C" int emugemm2_planes(const int8_t* a_planes, const int8_t* b_planes, const void* mu,
-                               const void* nu, void* out, uint8_t* park, int M, int N, int Kp,
+                               const void* nu, void* out, uint8_t* park, int batch, int M, int N,
+                               int Kp, long long smu, long long snu, long long sout, int tile_n,
                                int cplx, int f64, int out_f64, int p, const int* moduli,
                                const int* inv, int epilogue, void* stream) {
-  if (M <= 0 || N <= 0 || Kp <= 0 || Kp % PBK != 0) return -1;
+  if (batch <= 0 || M <= 0 || N <= 0 || Kp <= 0 || Kp % PBK != 0) return -1;
+  if (tile_n != 128 && tile_n != 256) return -1;
   Crt crt;
   if (make_crt(p, moduli, inv, crt) != 0) return -1;
   Barrett br;
@@ -725,14 +680,18 @@ extern "C" int emugemm2_planes(const int8_t* a_planes, const int8_t* b_planes, c
   const int kr = static_cast<int>((2147483647ll - 256) / (static_cast<long long>(half) * half * PBK));
   const int T = cplx ? 3 : 1;
   CUtensorMap ma, mb;
-  int rc = plane_map(&ma, a_planes, p * T, M, Kp, PBM);
-  if (rc == 0) rc = plane_map(&mb, b_planes, p * T, N, Kp, PBN);
+  int rc = plane_map(&ma, a_planes, p * T, batch, M, Kp, PBM);
+  if (rc == 0) rc = plane_map(&mb, b_planes, p * T, batch, N, Kp, tile_n);
   if (rc != 0) return rc;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nk = Kp / PBK;
-#define EMUGEMM2_PLANES(T_, O_, C_) \
-  return launch_planes<T_, O_, C_>(ma, mb, mu, nu, out, park, M, N, nk, kr, epilogue, crt, br, dg, \
-                                   st)
+#define EMUGEMM2_PLANES(T_, O_, C_)                                                             \
+  return tile_n == 256 ? launch_planes<T_, O_, C_, 2>(ma, mb, mu, nu, out, park, batch, M, N, nk,  \
+                                                      kr, epilogue, smu, snu, sout, crt, br, dg,  \
+                                                      st)                                          \
+                       : launch_planes<T_, O_, C_, 1>(ma, mb, mu, nu, out, park, batch, M, N, nk,  \
+                                                      kr, epilogue, smu, snu, sout, crt, br, dg,  \
+                                                      st)
   if (!cplx) {
     if (!f64) return -1;
     if (out_f64) EMUGEMM2_PLANES(double, double, false);

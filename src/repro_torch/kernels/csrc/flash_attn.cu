@@ -5,25 +5,42 @@
 // Replaces the Pallas kernel of the JAX package
 //   src/repro/kernels/flash_attn.py  flash_attention (_kernel)
 //
-// What one block computes: one (b, h, q-tile of BQ = 64 rows), in four
-// warps of 16 rows each, with a loop over the k tiles of BK keys. The
-// score tile, the running max m, the running denominator l and the output
-// accumulator stay on chip (registers; the float32 path also parks each
-// warp's probabilities in shared memory), so only q, k, v and o touch
-// device memory. The kv head is h / (H / KVH): k and v are read in place
-// for every q head of their group, never repeated in memory.
+// Both kernels keep the score tile, the running max m, the running
+// denominator l and the output accumulator on chip, so only q, k, v and o
+// touch device memory. The kv head is h / (H / KVH): k and v are read in
+// place for every q head of their group, never repeated in memory.
 //
-//   * bf16: S = Q K^T and O += P V on bf16 mma.sync m16n8k16 with float32
-//     accumulate. Q and K are row-major in shared memory; V is stored
-//     transposed (d, key) so that a B fragment is one 32-bit load. The
-//     score accumulators are in the A-fragment layout of the next MMA, so
-//     P goes from registers to the PV product without shared memory.
-//   * float32: the same fragment layout (each thread owns rows g and g+8
-//     of its warp and columns 2t, 2t+1 of every 8-wide tile), computed with
-//     FFMA in true float32 from shared memory: TF32 would miss the 2e-5 bar.
+// bf16 (head dims 32, 64, 128, 256): one block per (b, h, 128-query
+// tile), three warpgroups.
+//   * A producer warpgroup, its registers cut with setmaxnreg, in which
+//     one thread loads the q tile once and streams the k and v tiles of
+//     BK keys through a ring of STAGES shared stages by TMA
+//     (cp.async.bulk.tensor, full and empty mbarriers, k and v on barriers
+//     of their own so that Q K^T starts before v lands). The tensor maps
+//     are 3-D, (B H, Sq, D) for q and (B KVH, Sk, D) for k and v, in
+//     rows of 64 (D = 32: 32) elements swizzled by TMA; rows past Sq or Sk
+//     arrive as zeros, and the row coordinate names the kv head.
+//   * Two consumer warpgroups of 64 query rows each, their registers raised
+//     with setmaxnreg: S = Q K^T on wgmma m64n{BK}k16 bf16 -> float32 with
+//     both operands in shared memory; the online softmax in registers; P
+//     rounded to bf16 in registers is wgmma's A operand for O += P V, and V
+//     is read in place as an MN-major B (16-bit types allow it), so
+//     nothing is transposed by hand.
+//   * BK = 128 keys a tile (64 at D = 256, where O alone is 128 floats a
+//     thread), 3 stages at D <= 64, 2 above. ptxas gives every thread of a
+//     384-thread block 168 registers, whatever setmaxnreg asks, so D = 256
+//     spills some 420 bytes a thread, and there is no room to overlap one
+//     tile's softmax with the previous tile's P V (PERF.md).
+//   * Blocks run heaviest q tile first: under a causal mask the last q
+//     tiles see the most keys, so the tail of the grid is short.
+// float32: one block per (b, h, 64-query tile) of four warps of 16 rows,
+// k and v tiles loaded by the threads themselves, each thread owning rows
+// g and g + 8 of its warp and columns 2t, 2t + 1 of every 8-wide tile,
+// computed with FFMA in true float32 from shared memory: TF32 would miss
+// the 2e-5 bar.
 //
 // Numerics, as the reference kernel and its oracle (src/repro/kernels/
-// ref.py flash_attention):
+// ref.py flash_attention), in both kernels:
 //   * a masked score is the finite -1e30, never -inf: a row whose keys are
 //     all masked (a window, Sq > Sk) averages v uniformly, as the reference
 //     does; keys past Sk in the last tile are left out (probability 0);
@@ -39,59 +56,63 @@
 //
 // Bound: operations for long sequences (4 B H Sq Sk D flops over the
 // unmasked pairs, at the bf16 tensor-core or the float32 FFMA peak) and
-// bytes for short ones. This first version uses mma.sync with one tile in
-// flight and no pipelining, so it stays above that bound (PERF.md).
+// bytes for short ones. In bf16 each warpgroup runs its score product,
+// softmax and P V product in series, so the tensor cores idle while both
+// warpgroups are in their softmax (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "hopper.cuh"
+
+using namespace hopper;
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int NWARPS = 4;
-constexpr int NT = NWARPS * 32;
 constexpr float NEG_INF = -1e30f;
 
-template <typename T, int D>
-struct Layout {
-  static constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
-  static constexpr int BK = D == 256 ? 32 : 64;
-  static constexpr int PAD = BF16 ? 8 : 4;         // keeps 16-byte rows, shifts banks
-  static constexpr int QLD = D + PAD;              // sQ (BQ, D)
-  static constexpr int KLD = D + PAD;              // sK (BK, D)
-  static constexpr int VLD = BF16 ? BK + 8 : D + PAD;  // sV: (D, BK) bf16, (BK, D) f32
-  static constexpr int VROWS = BF16 ? D : BK;
-  static constexpr int PLD = BK + 4;               // sP (f32 only): (NWARPS, 16, BK)
-  static constexpr int Q_OFF = 0;
-  static constexpr int K_OFF = Q_OFF + BQ * QLD;
-  static constexpr int V_OFF = K_OFF + BK * KLD;
-  static constexpr int P_OFF = V_OFF + VROWS * VLD;
-  static constexpr int ELEMS = BF16 ? P_OFF : P_OFF + NWARPS * 16 * PLD;
-  static constexpr size_t BYTES = static_cast<size_t>(ELEMS) * (BF16 ? 2 : 4);
+// The keys a query row qq can see are [lo(qq), hi(qq)]; both ends grow with
+// qq, and lo - hi is largest at an end row of a tile (it falls, then
+// rises). The k tiles [kt0, kt1) of BK keys that a q tile [q0, qlast]
+// visits: those some row sees, or all when some row sees none.
+struct Mask {
+  int Sk, causal, has_window, window;
+  __device__ int lo(int qq) const { return has_window ? max(0, qq - window + 1) : 0; }
+  __device__ int hi(int qq) const { return causal ? min(Sk - 1, qq) : Sk - 1; }
+  __device__ bool masked(int qq, int kc) const {
+    const int rel = qq - kc;
+    return (causal && rel < 0) || (has_window && rel >= window);
+  }
+  __device__ void tiles(int q0, int qlast, int BK, int& kt0, int& kt1) const {
+    const bool empty_row = lo(q0) > hi(q0) || lo(qlast) > hi(qlast);
+    kt0 = 0;
+    kt1 = (Sk + BK - 1) / BK;
+    if (!empty_row) {
+      kt0 = lo(q0) / BK;
+      kt1 = hi(qlast) / BK + 1;
+    }
+  }
 };
 
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+// ---- float32: FFMA ---------------------------------------------------------
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
+constexpr int BQ32 = 64;
+constexpr int NWARPS32 = 4;
+constexpr int NT32 = NWARPS32 * 32;
 
-// c += a b for one m16n8k16 tile: bf16 operands, float32 accumulate.
-__device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
+template <int D>
+struct Layout32 {
+  static constexpr int BK = D == 256 ? 32 : 64;
+  static constexpr int LD = D + 4;                 // keeps 16-byte rows, shifts banks
+  static constexpr int PLD = BK + 4;               // sP: (NWARPS, 16, BK)
+  static constexpr int Q_OFF = 0;
+  static constexpr int K_OFF = Q_OFF + BQ32 * LD;
+  static constexpr int V_OFF = K_OFF + BK * LD;
+  static constexpr int P_OFF = V_OFF + BK * LD;
+  static constexpr size_t BYTES = static_cast<size_t>(P_OFF + NWARPS32 * 16 * PLD) * 4;
+};
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float c) {
   c = fmaf(a.x, b.x, c);
@@ -102,78 +123,47 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float c) {
 
 // Copy rows [r0, r0 + rows) of a (S, D) matrix into shared memory with row
 // stride ld, zeros past S; 16 bytes a thread at a time.
-template <typename T, int D>
-__device__ __forceinline__ void load_rows(T* dst, int ld, const T* __restrict__ src, int r0,
+template <int D>
+__device__ __forceinline__ void load_rows(float* dst, int ld, const float* __restrict__ src, int r0,
                                           int rows, int S) {
-  constexpr int VEC = 16 / sizeof(T);
-  for (int c = threadIdx.x; c < rows * (D / VEC); c += NT) {
-    const int r = c / (D / VEC), d = (c % (D / VEC)) * VEC;
-    int4 v = make_int4(0, 0, 0, 0);
-    if (r0 + r < S) v = *reinterpret_cast<const int4*>(src + static_cast<long long>(r0 + r) * D + d);
-    *reinterpret_cast<int4*>(dst + r * ld + d) = v;
+  for (int c = threadIdx.x; c < rows * (D / 4); c += NT32) {
+    const int r = c / (D / 4), d = (c % (D / 4)) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < S) v = *reinterpret_cast<const float4*>(src + static_cast<long long>(r0 + r) * D + d);
+    *reinterpret_cast<float4*>(dst + r * ld + d) = v;
   }
 }
 
-// The same for bf16 V, stored transposed: dst[d * ld + key]. Threads walk
-// the keys, so neighbouring threads store neighbouring halves.
-template <int D, int BK>
-__device__ __forceinline__ void load_vt(__nv_bfloat16* dst, int ld,
-                                        const __nv_bfloat16* __restrict__ src, int r0, int S) {
-  for (int c = threadIdx.x; c < BK * (D / 8); c += NT) {
-    const int key = c % BK, d = (c / BK) * 8;
-    int4 v = make_int4(0, 0, 0, 0);
-    if (r0 + key < S)
-      v = *reinterpret_cast<const int4*>(src + static_cast<long long>(r0 + key) * D + d);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[(d + i) * ld + key] = e[i];
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ o, int H, int KVH, int Sq, int Sk, float scale, int causal,
-             int has_window, int window) {
-  using L = Layout<T, D>;
+template <int D>
+__global__ void __launch_bounds__(NT32)
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int H, int KVH, int Sq,
+                 int Sk, float scale, const Mask mask) {
+  using L = Layout32<D>;
   constexpr int BK = L::BK;
   constexpr int NS = BK / 8;   // 8-wide score tiles of a row block
   constexpr int ND = D / 8;    // 8-wide output tiles
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  T* sQ = smem + L::Q_OFF;
-  T* sK = smem + L::K_OFF;
-  T* sV = smem + L::V_OFF;
+  float* smem = reinterpret_cast<float*>(smem_raw);
+  float* sQ = smem + L::Q_OFF;
+  float* sK = smem + L::K_OFF;
+  float* sV = smem + L::V_OFF;
 
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * BQ32;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (H / KVH);
-  const T* qb = q + static_cast<long long>(b * H + h) * Sq * D;
-  const T* kb = k + static_cast<long long>(b * KVH + kh) * Sk * D;
-  const T* vb = v + static_cast<long long>(b * KVH + kh) * Sk * D;
-  T* ob = o + static_cast<long long>(b * H + h) * Sq * D;
+  const float* qb = q + static_cast<long long>(b * H + h) * Sq * D;
+  const float* kb = k + static_cast<long long>(b * KVH + kh) * Sk * D;
+  const float* vb = v + static_cast<long long>(b * KVH + kh) * Sk * D;
+  float* ob = o + static_cast<long long>(b * H + h) * Sq * D;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int qr0 = q0 + warp * 16 + g, qr1 = qr0 + 8;
+  int kt0, kt1;
+  mask.tiles(q0, min(q0 + BQ32, Sq) - 1, BK, kt0, kt1);
 
-  // The keys a row qq can see are [lo(qq), hi(qq)]; both ends grow with qq.
-  auto lo_of = [&](int qq) { return has_window ? max(0, qq - window + 1) : 0; };
-  auto hi_of = [&](int qq) { return causal ? min(Sk - 1, qq) : Sk - 1; };
-  auto masked = [&](int qq, int kc) {
-    const int rel = qq - kc;
-    return (causal && rel < 0) || (has_window && rel >= window);
-  };
-  // lo - hi is largest at an end row of the tile (it falls, then rises).
-  const int qlast = min(q0 + BQ, Sq) - 1;
-  const bool empty_row = lo_of(q0) > hi_of(q0) || lo_of(qlast) > hi_of(qlast);
-  int kt0 = 0, kt1 = (Sk + BK - 1) / BK;
-  if (!empty_row) {
-    kt0 = lo_of(q0) / BK;
-    kt1 = hi_of(qlast) / BK + 1;
-  }
-
-  load_rows<T, D>(sQ, L::QLD, qb, q0, BQ, Sq);
+  load_rows<D>(sQ, L::LD, qb, q0, BQ32, Sq);
 
   float acc[ND][4];
 #pragma unroll
@@ -182,45 +172,27 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 
   for (int kt = kt0; kt < kt1; ++kt) {
     const int k0 = kt * BK;
-    load_rows<T, D>(sK, L::KLD, kb, k0, BK, Sk);
-    if constexpr (L::BF16)
-      load_vt<D, BK>(sV, L::VLD, vb, k0, Sk);
-    else
-      load_rows<T, D>(sV, L::VLD, vb, k0, BK, Sk);
+    load_rows<D>(sK, L::LD, kb, k0, BK, Sk);
+    load_rows<D>(sV, L::LD, vb, k0, BK, Sk);
     __syncthreads();
 
     // S = Q K^T for this warp's 16 rows.
     float s[NS][4];
 #pragma unroll
     for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-    const T* qw = sQ + warp * 16 * L::QLD;
-    if constexpr (L::BF16) {
-#pragma unroll 4
-      for (int kd = 0; kd < D; kd += 16) {
-        const uint32_t a0 = lds32(qw + g * L::QLD + kd + 2 * t);
-        const uint32_t a1 = lds32(qw + (g + 8) * L::QLD + kd + 2 * t);
-        const uint32_t a2 = lds32(qw + g * L::QLD + kd + 2 * t + 8);
-        const uint32_t a3 = lds32(qw + (g + 8) * L::QLD + kd + 2 * t + 8);
-#pragma unroll
-        for (int n = 0; n < NS; ++n) {
-          const T* kr = sK + (8 * n + g) * L::KLD + kd + 2 * t;
-          mma_bf16(s[n], a0, a1, a2, a3, lds32(kr), lds32(kr + 8));
-        }
-      }
-    } else {
+    const float* qw = sQ + warp * 16 * L::LD;
 #pragma unroll 2
-      for (int d = 0; d < D; d += 4) {
-        const float4 qa = *reinterpret_cast<const float4*>(qw + g * L::QLD + d);
-        const float4 qc = *reinterpret_cast<const float4*>(qw + (g + 8) * L::QLD + d);
+    for (int d = 0; d < D; d += 4) {
+      const float4 qa = *reinterpret_cast<const float4*>(qw + g * L::LD + d);
+      const float4 qc = *reinterpret_cast<const float4*>(qw + (g + 8) * L::LD + d);
 #pragma unroll
-        for (int n = 0; n < NS; ++n) {
-          const float4 ka = *reinterpret_cast<const float4*>(sK + (8 * n + 2 * t) * L::KLD + d);
-          const float4 kc = *reinterpret_cast<const float4*>(sK + (8 * n + 2 * t + 1) * L::KLD + d);
-          s[n][0] = dot4(qa, ka, s[n][0]);
-          s[n][1] = dot4(qa, kc, s[n][1]);
-          s[n][2] = dot4(qc, ka, s[n][2]);
-          s[n][3] = dot4(qc, kc, s[n][3]);
-        }
+      for (int n = 0; n < NS; ++n) {
+        const float4 ka = *reinterpret_cast<const float4*>(sK + (8 * n + 2 * t) * L::LD + d);
+        const float4 kc = *reinterpret_cast<const float4*>(sK + (8 * n + 2 * t + 1) * L::LD + d);
+        s[n][0] = dot4(qa, ka, s[n][0]);
+        s[n][1] = dot4(qa, kc, s[n][1]);
+        s[n][2] = dot4(qc, ka, s[n][2]);
+        s[n][3] = dot4(qc, kc, s[n][3]);
       }
     }
 
@@ -234,8 +206,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
         const int kc = k0 + 8 * n + 2 * t + j;
         float x0 = -INFINITY, x1 = -INFINITY;    // a key past Sk: probability 0
         if (kc < Sk) {
-          x0 = masked(qr0, kc) ? NEG_INF : s[n][j] * scale;
-          x1 = masked(qr1, kc) ? NEG_INF : s[n][2 + j] * scale;
+          x0 = mask.masked(qr0, kc) ? NEG_INF : s[n][j] * scale;
+          x1 = mask.masked(qr1, kc) ? NEG_INF : s[n][2 + j] * scale;
         }
         s[n][j] = x0;
         s[n][2 + j] = x1;
@@ -276,111 +248,342 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
       acc[n][3] *= al1;
     }
 
-    // O += P V.
-    if constexpr (L::BF16) {
+    // O += P V, P parked per warp in shared memory.
+    float* pw = smem + L::P_OFF + warp * 16 * L::PLD;
 #pragma unroll
-      for (int kc = 0; kc < BK / 16; ++kc) {
-        // Two adjacent score tiles are one A fragment (keys 16 kc .. +15).
-        const uint32_t a0 = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-        const uint32_t a1 = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-        const uint32_t a2 = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-        const uint32_t a3 = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-#pragma unroll
-        for (int n = 0; n < ND; ++n) {
-          const T* vr = sV + (8 * n + g) * L::VLD + 16 * kc + 2 * t;
-          mma_bf16(acc[n], a0, a1, a2, a3, lds32(vr), lds32(vr + 8));
-        }
-      }
-    } else {
-      float* pw = reinterpret_cast<float*>(smem) + L::P_OFF + warp * 16 * L::PLD;
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        *reinterpret_cast<float2*>(pw + g * L::PLD + 8 * n + 2 * t) = make_float2(s[n][0], s[n][1]);
-        *reinterpret_cast<float2*>(pw + (g + 8) * L::PLD + 8 * n + 2 * t) =
-            make_float2(s[n][2], s[n][3]);
-      }
-      __syncwarp();
+    for (int n = 0; n < NS; ++n) {
+      *reinterpret_cast<float2*>(pw + g * L::PLD + 8 * n + 2 * t) = make_float2(s[n][0], s[n][1]);
+      *reinterpret_cast<float2*>(pw + (g + 8) * L::PLD + 8 * n + 2 * t) =
+          make_float2(s[n][2], s[n][3]);
+    }
+    __syncwarp();
 #pragma unroll 2
-      for (int j = 0; j < BK; ++j) {
-        const float p0 = pw[g * L::PLD + j], p1 = pw[(g + 8) * L::PLD + j];
+    for (int j = 0; j < BK; ++j) {
+      const float p0 = pw[g * L::PLD + j], p1 = pw[(g + 8) * L::PLD + j];
 #pragma unroll
-        for (int n = 0; n < ND; ++n) {
-          const float2 vv = *reinterpret_cast<const float2*>(sV + j * L::VLD + 8 * n + 2 * t);
-          acc[n][0] = fmaf(p0, vv.x, acc[n][0]);
-          acc[n][1] = fmaf(p0, vv.y, acc[n][1]);
-          acc[n][2] = fmaf(p1, vv.x, acc[n][2]);
-          acc[n][3] = fmaf(p1, vv.y, acc[n][3]);
-        }
+      for (int n = 0; n < ND; ++n) {
+        const float2 vv = *reinterpret_cast<const float2*>(sV + j * L::LD + 8 * n + 2 * t);
+        acc[n][0] = fmaf(p0, vv.x, acc[n][0]);
+        acc[n][1] = fmaf(p0, vv.y, acc[n][1]);
+        acc[n][2] = fmaf(p1, vv.x, acc[n][2]);
+        acc[n][3] = fmaf(p1, vv.y, acc[n][3]);
       }
     }
-    __syncthreads();   // every warp is done with sK, sV (and its sP) before the next load
+    __syncthreads();   // every warp is done with sK, sV and its sP before the next load
   }
 
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
     const int col = 8 * n + 2 * t;
-    if constexpr (L::BF16) {
-      if (qr0 < Sq)
-        *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<long long>(qr0) * D + col) =
-            __floats2bfloat162_rn(acc[n][0] / d0, acc[n][1] / d0);
-      if (qr1 < Sq)
-        *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<long long>(qr1) * D + col) =
-            __floats2bfloat162_rn(acc[n][2] / d1, acc[n][3] / d1);
-    } else {
-      if (qr0 < Sq)
-        *reinterpret_cast<float2*>(ob + static_cast<long long>(qr0) * D + col) =
-            make_float2(acc[n][0] / d0, acc[n][1] / d0);
-      if (qr1 < Sq)
-        *reinterpret_cast<float2*>(ob + static_cast<long long>(qr1) * D + col) =
-            make_float2(acc[n][2] / d1, acc[n][3] / d1);
+    if (qr0 < Sq)
+      *reinterpret_cast<float2*>(ob + static_cast<long long>(qr0) * D + col) =
+          make_float2(acc[n][0] / d0, acc[n][1] / d0);
+    if (qr1 < Sq)
+      *reinterpret_cast<float2*>(ob + static_cast<long long>(qr1) * D + col) =
+          make_float2(acc[n][2] / d1, acc[n][3] / d1);
+  }
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int KVH, int Sq,
+               int Sk, float scale, const Mask& mask, cudaStream_t st) {
+  using L = Layout32<D>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L::BYTES));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((Sq + BQ32 - 1) / BQ32, H, B);
+  flash_f32_kernel<D><<<grid, NT32, L::BYTES, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), H, KVH, Sq, Sk, scale, mask);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- bf16: TMA, warp specialisation, wgmma -----------------------------------
+
+constexpr int BQ = 128;                   // query rows of a block: two consumer warpgroups
+constexpr int CONSUMERS = 256;
+constexpr int NT = CONSUMERS + 128;       // and one producer warpgroup
+
+template <int D>
+struct Tiles {
+  static constexpr int BK = D == 256 ? 64 : 128;
+  static constexpr int STAGES = D <= 64 ? 3 : 2;
+  static constexpr int SW = D >= 64 ? 128 : 64;    // swizzle bytes: one row block
+  static constexpr int SWE = SW / 2;               // its bf16 elements
+  static constexpr int Q_BYTES = BQ * D * 2;       // [D / SWE][BQ][SWE], swizzled
+  static constexpr int KV_BYTES = BK * D * 2;      // [D / SWE][BK][SWE], swizzled
+  static constexpr int BARS = 1 + 3 * STAGES;      // q, full k, full v, empty
+  static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + BARS * 8 + 1024;
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                  const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ o, int H,
+                  int KVH, int Sq, int Sk, float scale, const Mask mask) {
+  using L = Tiles<D>;
+  constexpr int BK = L::BK, STAGES = L::STAGES, SW = L::SW, SWE = L::SWE;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t pad = (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
+  uint8_t* sQ = smem_raw + pad;                          // 1024-aligned swizzle atoms
+  uint8_t* sK = sQ + L::Q_BYTES;                         // [STAGES][KV_BYTES]
+  uint8_t* sV = sK + STAGES * L::KV_BYTES;               // [STAGES][KV_BYTES]
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sV + STAGES * L::KV_BYTES);
+  uint64_t* full_k = qbar + 1;
+  uint64_t* full_v = full_k + STAGES;
+  uint64_t* empty = full_v + STAGES;
+
+  // Heaviest q tile first: block x runs q tile nq - 1 - x / (B H).
+  const int nq = (Sq + BQ - 1) / BQ;
+  const int slices = gridDim.x / nq;                     // B * H
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x) / slices) * BQ;
+  const int bh = blockIdx.x % slices;
+  const int kv_slice = (bh / H) * KVH + (bh % H) / (H / KVH);
+  int kt0, kt1;
+  mask.tiles(q0, min(q0 + BQ, Sq) - 1, BK, kt0, kt1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty[s], CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS / 128) {
+    // The producer: one thread loads q, then streams the k and v tiles.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == CONSUMERS) {
+      mbar_expect_tx(qbar, L::Q_BYTES);
+      for (int c = 0; c < D / SWE; ++c) tma_load_3d(sQ + c * BQ * SW, &map_q, qbar, c * SWE, q0, bh);
+      int stage = 0, phase = 0;
+      for (int kt = kt0; kt < kt1; ++kt) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        uint8_t* k_st = sK + stage * L::KV_BYTES;
+        uint8_t* v_st = sV + stage * L::KV_BYTES;
+        mbar_expect_tx(&full_k[stage], L::KV_BYTES);
+        for (int c = 0; c < D / SWE; ++c)
+          tma_load_3d(k_st + c * BK * SW, &map_k, &full_k[stage], c * SWE, kt * BK, kv_slice);
+        mbar_expect_tx(&full_v[stage], L::KV_BYTES);
+        for (int c = 0; c < D / SWE; ++c)
+          tma_load_3d(v_st + c * BK * SW, &map_v, &full_v[stage], c * SWE, kt * BK, kv_slice);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+    const int row_lo = q0 + wg * 64;                     // this warpgroup's 64 rows
+    const int r0 = row_lo + ((threadIdx.x % 128) / 32) * 16 + g, r1 = r0 + 8;
+    const uint8_t* q_wg = sQ + wg * 64 * SW;
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+    mbar_wait(qbar, 0);
+
+    int stage = 0, phase = 0;
+    for (int kt = kt0; kt < kt1; ++kt) {
+      const int k0 = kt * BK;
+      // S = Q K^T: D / 16 k-steps; a step moves 32 bytes along a swizzled
+      // row block, and past it to the next block.
+      float s[BK / 2];
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+      mbar_wait(&full_k[stage], phase);
+      const uint8_t* k_st = sK + stage * L::KV_BYTES;
+      reg_fence(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = kk * 16 / SWE, off = (kk * 16 % SWE) * 2;
+        wgmma_bf16_ss<BK>(s, smem_desc(q_wg + c * BQ * SW + off, 16, 8 * SW, SW),
+                          smem_desc(k_st + c * BK * SW + off, 16, 8 * SW, SW), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(s);
+
+      // Scale, mask, and the online softmax update of rows r0 and r1:
+      // s[4 n + j] is (r0, k0 + 8 n + 2 t + j), s[4 n + 2 + j] is r1's. The
+      // mask is tested only on tiles where some row of the warpgroup needs
+      // it.
+      const bool edge = k0 + BK > Sk || (mask.causal && k0 + BK - 1 > row_lo) ||
+                        (mask.has_window && row_lo + 63 - k0 >= mask.window);
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float x0 = s[4 * n + j] * scale, x1 = s[4 * n + 2 + j] * scale;
+          if (edge) {
+            const int kc = k0 + 8 * n + 2 * t + j;
+            if (kc >= Sk) {
+              x0 = x1 = -INFINITY;                      // a key past Sk: probability 0
+            } else {
+              x0 = mask.masked(r0, kc) ? NEG_INF : x0;
+              x1 = mask.masked(r1, kc) ? NEG_INF : x1;
+            }
+          }
+          s[4 * n + j] = x0;
+          s[4 * n + 2 + j] = x1;
+          mx0 = fmaxf(mx0, x0);
+          mx1 = fmaxf(mx1, x1);
+        }
+#pragma unroll
+      for (int off = 1; off < 4; off *= 2) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          s[4 * n + j] = expf(s[4 * n + j] - mn0);
+          s[4 * n + 2 + j] = expf(s[4 * n + 2 + j] - mn1);
+          sum0 += s[4 * n + j];
+          sum1 += s[4 * n + 2 + j];
+        }
+#pragma unroll
+      for (int off = 1; off < 4; off *= 2) {
+        sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
+        sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
+      }
+      l0 = l0 * al0 + sum0;
+      l1 = l1 * al1 + sum1;
+      m0 = mn0;
+      m1 = mn1;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        acc[4 * n] *= al0;
+        acc[4 * n + 1] *= al0;
+        acc[4 * n + 2] *= al1;
+        acc[4 * n + 3] *= al1;
+      }
+
+      // O += P V: the score fragments of keys 16 kk .. 16 kk + 15 are the
+      // A fragment of k-step kk; V's rows step 16 keys along K.
+      mbar_wait(&full_v[stage], phase);
+      const uint8_t* v_st = sV + stage * L::KV_BYTES;
+      reg_fence(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint32_t a[4] = {pack_bf16(s[8 * kk], s[8 * kk + 1]),
+                               pack_bf16(s[8 * kk + 2], s[8 * kk + 3]),
+                               pack_bf16(s[8 * kk + 4], s[8 * kk + 5]),
+                               pack_bf16(s[8 * kk + 6], s[8 * kk + 7])};
+        wgmma_bf16_rs<D>(acc, a, smem_desc(v_st + kk * 16 * SW, BK * SW, 8 * SW, SW));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(acc);
+      if (lane == 0) mbar_arrive(&empty[stage]);
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+    __nv_bfloat16* ob = o + static_cast<long long>(bh) * Sq * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int col = 8 * n + 2 * t;
+      if (r0 < Sq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<long long>(r0) * D + col) =
+            __floats2bfloat162_rn(acc[4 * n] / d0, acc[4 * n + 1] / d0);
+      if (r1 < Sq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<long long>(r1) * D + col) =
+            __floats2bfloat162_rn(acc[4 * n + 2] / d1, acc[4 * n + 3] / d1);
     }
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KVH, int Sq,
-           int Sk, float scale, int causal, int has_window, int window, cudaStream_t st) {
-  using L = Layout<T, D>;
-  cudaError_t e = cudaFuncSetAttribute(flash_kernel<T, D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(L::BYTES));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_kernel<T, D><<<grid, NT, L::BYTES, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, KVH, Sq, Sk, scale, causal, has_window, window);
-  return static_cast<int>(cudaGetLastError());
+// (slices, rows, D) bf16 as a 3-D tensor map of (SWE, box_rows, 1) boxes in
+// the swizzle of SW bytes; rows past `rows` arrive as zeros.
+template <int D>
+int attn_map(CUtensorMap* map, const void* base, int slices, int rows, int box_rows) {
+  using L = Tiles<D>;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return -2;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(slices)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(D) * 2 * static_cast<cuuint64_t>(rows)};
+  const cuuint32_t box[3] = {L::SWE, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        L::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -3;
 }
 
-template <typename T>
-int launch_d(int D, const void* q, const void* k, const void* v, void* o, int B, int H, int KVH,
-             int Sq, int Sk, float scale, int causal, int has_window, int window,
-             cudaStream_t st) {
-  switch (D) {
-    case 32: return launch<T, 32>(q, k, v, o, B, H, KVH, Sq, Sk, scale, causal, has_window, window, st);
-    case 64: return launch<T, 64>(q, k, v, o, B, H, KVH, Sq, Sk, scale, causal, has_window, window, st);
-    case 128: return launch<T, 128>(q, k, v, o, B, H, KVH, Sq, Sk, scale, causal, has_window, window, st);
-    case 256: return launch<T, 256>(q, k, v, o, B, H, KVH, Sq, Sk, scale, causal, has_window, window, st);
-    default: return -1;
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int H, int KVH,
+                int Sq, int Sk, float scale, const Mask& mask, cudaStream_t st) {
+  using L = Tiles<D>;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
   }
+  CUtensorMap mq, mk, mv;
+  int rc = attn_map<D>(&mq, q, B * H, Sq, BQ);
+  if (rc == 0) rc = attn_map<D>(&mk, k, B * KVH, Sk, L::BK);
+  if (rc == 0) rc = attn_map<D>(&mv, v, B * KVH, Sk, L::BK);
+  if (rc != 0) return rc;
+  const long long blocks = static_cast<long long>((Sq + BQ - 1) / BQ) * B * H;
+  if (blocks > 0x7fffffffll) return -1;
+  flash_bf16_kernel<D><<<static_cast<unsigned>(blocks), NT, L::SMEM, st>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), H, KVH, Sq, Sk, scale, mask);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C entry point, bound with ctypes: contiguous q (B, H, Sq, D), k and
 // v (B, KVH, Sk, D), o (B, H, Sq, D), 16-byte aligned. Returns 0 on
-// success, a cudaError_t code if the launch was refused, and -1 for sizes
-// or a head dim that have no compiled instance.
+// success, a cudaError_t code if the launch was refused, -1 for sizes or a
+// head dim that have no compiled instance, and -2 / -3 if libcuda's
+// tensor-map encoder is missing / refused the bf16 operands.
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o, int B,
                                int H, int KVH, int Sq, int Sk, int D, int is_bf16,
                                float scale, int causal, int has_window, int window,
                                void* stream) {
   if (B <= 0 || H <= 0 || KVH <= 0 || H % KVH != 0 || Sq <= 0 || Sk <= 0) return -1;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_d<__nv_bfloat16>(D, q, k, v, o, B, H, KVH, Sq, Sk, scale, causal, has_window,
-                                   window, st);
-  return launch_d<float>(D, q, k, v, o, B, H, KVH, Sq, Sk, scale, causal, has_window, window,
-                         st);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Mask mask{Sk, causal, has_window, window};
+#define FLASH_D(D_)                                                                          \
+  case D_:                                                                                   \
+    return is_bf16 ? launch_bf16<D_>(q, k, v, o, B, H, KVH, Sq, Sk, scale, mask, st)         \
+                   : launch_f32<D_>(q, k, v, o, B, H, KVH, Sq, Sk, scale, mask, st);
+  switch (D) {
+    FLASH_D(32)
+    FLASH_D(64)
+    FLASH_D(128)
+    FLASH_D(256)
+    default:
+      return -1;
+  }
+#undef FLASH_D
 }

@@ -20,8 +20,10 @@ Complex operands run with a real interior: the output type of a complex
 problem is the real type of its parts, and the backend assembles the
 complex result (Scheme II: the 3M plane route, block-cache key
 'ozaki2-3m'; Scheme I: 4M, four real launches). A batched complex problem
-runs as one 2-D route per batch element, which is what the reference's
-vmap fallback computes (it has no batched 3M kernel either).
+under Scheme II runs as one batched 3M plane route (two encodes and one
+plane GEMM with the batch as their batch coordinate), under Scheme I as
+one 4M route per batch element; both compute what the reference's vmap
+fallback computes, bit for bit (it has no batched 3M kernel).
 """
 
 from __future__ import annotations
@@ -169,14 +171,14 @@ def plan_emulated_batched(a: torch.Tensor, b: torch.Tensor,
                           cfg: EmulationConfig, out_dtype=None,
                           backend: str | None = None) -> GemmPlan:
     """Backend, output type and blocks for one (B, M, K) @ (B, K, N) of
-    real operands."""
+    real operands, or of complex ones under Scheme II."""
     _refuse_cfg(cfg)
     batch, m, k = a.shape
     n = b.shape[-1]
     out_dtype = _out_dtype(cfg, a, b, out_dtype)
     name = backends.resolve_backend_name(backend, cfg, a.device)
     blocks = select_blocks(m, n, k, _p_eff(cfg), out_dtype.itemsize, name,
-                           batch, cfg.scheme)
+                           batch, _scheme_key(cfg, a, b))
     return GemmPlan(cfg, m, n, k, out_dtype, blocks, name, batch)
 
 
@@ -263,8 +265,9 @@ def emulated_matmul_batched(a: torch.Tensor, b: torch.Tensor, *, cfg=None,
 
     * ``b`` 2-D: leading dims of ``a`` flatten into M — one 2-D launch;
     * matching leading axes: ONE strided-batched launch over the
-      collapsed leading axes; complex operands, one 2-D launch per batch
-      element.
+      collapsed leading axes (complex operands under Scheme II: the
+      batched 3M plane route); complex operands under Scheme I, one 2-D
+      4M route per batch element.
     """
     if b.dim() == 2:
         lead = a.shape[:-1]
@@ -283,7 +286,7 @@ def emulated_matmul_batched(a: torch.Tensor, b: torch.Tensor, *, cfg=None,
         out = _promoted(cfg, a, b, out_dtype)
         return torch.matmul(a3.to(out), b3.to(out)).reshape(
             *lead, a.shape[-2], b.shape[-1])
-    if _complex(a3, b3):
+    if _complex(a3, b3) and cfg.scheme != "ozaki2":
         out = torch.stack([emulated_matmul(x, y, cfg=cfg, out_dtype=out_dtype,
                                            backend=backend)
                            for x, y in zip(a3, b3)])

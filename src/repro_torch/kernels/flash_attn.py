@@ -16,8 +16,13 @@ finite -1e30, as in the reference, so a row whose keys are all masked
 (a window, or Sq > Sk) averages v uniformly instead of giving NaN.
 
 The kernel replaces the Pallas kernel ``repro.kernels.flash_attn.
-flash_attention``. The CUDA kernel is compiled for head dims 32, 64, 128
-and 256 (recurrentgemma-2b's); any other raises.
+flash_attention``. ``csrc/flash_attn.cu`` holds two kernels, each compiled
+for head dims 32, 64, 128 and 256 (recurrentgemma-2b's), and
+:func:`instance` names the one a call runs: bfloat16 on the TMA-fed,
+warp-specialised ``wgmma`` kernel (128 query rows a block, k and v tiles
+of ``bk`` keys in a ring of ``stages``), float32 on the FFMA kernel (64
+query rows a block), which keeps true float32 products. Any other dtype or
+head dim raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -31,6 +36,32 @@ import torch
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128, 256)
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+@dataclasses.dataclass(frozen=True)
+class Instance:
+    """The compiled kernel a (dtype, head dim) runs on, with its tiles
+    (``csrc/flash_attn.cu``: ``Tiles`` and ``Layout32``)."""
+    kernel: str        # "wgmma" (bf16) or "ffma" (float32)
+    bq: int            # query rows of a block
+    bk: int            # keys of a k/v tile
+    stages: int        # k/v tiles in flight
+
+
+def instance(dtype: torch.dtype, d: int) -> Instance:
+    """The kernel instance for q, k, v of ``dtype`` and head dim ``d``;
+    raises for what has none."""
+    if dtype not in _KERNEL_DTYPES:
+        raise NotImplementedError(
+            f"flash_attention takes float32 or bfloat16 q, k, v, got {dtype}")
+    if d not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention is compiled for head dims {HEAD_DIMS}, got "
+            f"D={d} (another instance is ROADMAP.md § 2 item 5)")
+    if dtype == torch.bfloat16:
+        return Instance("wgmma", 128, 64 if d == 256 else 128,
+                        3 if d <= 64 else 2)
+    return Instance("ffma", 64, 32 if d == 256 else 64, 1)
 
 
 @dataclasses.dataclass
@@ -118,15 +149,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention: q, k and v must be on one CUDA "
                          "device")
-    if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
+    if k.dtype != q.dtype or v.dtype != q.dtype:
         raise NotImplementedError(
-            f"flash_attention takes float32 or bfloat16 q, k, v of one type, "
-            f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if d not in HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash_attention is compiled for head dims {HEAD_DIMS}, got "
-            f"D={d} (another instance is ROADMAP.md § 2 item 5)")
+            f"flash_attention takes q, k, v of one type, got {q.dtype}, "
+            f"{k.dtype}, {v.dtype}")
+    instance(q.dtype, d)
     scale = softmax_scale or 1.0 / math.sqrt(d)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)

@@ -8,15 +8,16 @@ versions and launch counts.
   integerize and carve residues in the prologue, one int8 GEMM per
   modulus, modular reduction and the CRT in the epilogue. The kernel
   takes float32 and bfloat16 operands in any pairing with a float32,
-  bfloat16 or float64 output, and float64 operands (both) with a float64
-  or float32 output. Its plain version is
+  bfloat16 or float64 output; float64 operands (both, with a float64 or
+  float32 output) take the plane route below. Its plain version is
   ``repro_torch.core.scheme2.scaled_matmul``.
 * :func:`fused_matmul_scheme2_prepared` takes an (M, K) float lhs with
   its scale mu (M, 1) and a prepared weight: its (p, Kp, Np) balanced
   int8 residues (K and N padded past the logical dims with zero
   residues) and its scale nu (1, Np) in the weight's type. The prologue
   integerizes and carves only the lhs; each modulus's rhs tile is read
-  from its residue plane. It takes the lhs types of the 2-D form. Its
+  from its residue plane. It takes the lhs types of the 2-D form and a
+  float64 lhs against a float64 weight. Its
   plain version is the reference's XLA expansion of a prepared operand
   (``repro.kernels.prepared.matmul_prepared_scheme2``).
 * :func:`fused_residue_matmul` takes (p, M, K) and (p, K, N) balanced int8
@@ -24,14 +25,15 @@ versions and launch counts.
   products mod each modulus. Its plain version is the reference's oracle
   ``repro.kernels.ref.scheme2_residues``.
 
-The 2-D form with float64 operands (a DGEMM) takes the plane route
+Float64 operands (a DGEMM, or a batch of them) take the plane route
 (``csrc/emugemm2_planes.cu``) instead of the fused kernel: two launches of
 :func:`encode_planes`, which writes an operand's balanced residues once
-as K-contiguous int8 planes (p, R, Kp), K padded with zero residues to
-``PLANE_K``, and one of :func:`plane_matmul`, a TMA-fed wgmma int8 GEMM
-per modulus with the reduction and the CRT in its epilogue. Their plain
-versions are :func:`encode_planes_plain` and :func:`plane_matmul_plain`;
-together they are ``scheme2.scaled_matmul``.
+as K-contiguous int8 planes (p, [Bt,] R, Kp), K padded with zero residues
+to ``PLANE_K``, and one of :func:`plane_matmul`, a TMA-fed wgmma int8 GEMM
+per modulus with the reduction and the CRT in its epilogue; a leading
+batch axis is the kernels' batch coordinate. Their plain versions are
+:func:`encode_planes_plain` and :func:`plane_matmul_plain`; together they
+are ``scheme2.scaled_matmul``.
 
 On a CUDA tensor a wrapper launches the kernel or raises; on a CPU tensor
 it runs the plain version. The kernel replaces the Pallas kernels
@@ -57,9 +59,11 @@ MAX_MODULI = 16
 # The kernel's type codes (csrc/emugemm2.cu).
 TYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 # The plane GEMM's K tile (csrc/emugemm2_planes.cu), to which planes are
-# padded, and its output tile, which sizes its park.
+# padded, and its output tile, which sizes its park; PLANE_NARROW_N is the
+# width of its narrow tile (plane_tile_n).
 PLANE_K = 128
 PLANE_TILE = (128, 256)
+PLANE_NARROW_N = 128
 _INT_P = ctypes.POINTER(ctypes.c_int)
 
 
@@ -142,9 +146,9 @@ def plane_k(k: int) -> int:
 
 def encode_planes_plain(x, scale, moduli):
     """The encode kernel's function in plain torch ops (CPU or CUDA): the
-    balanced residues of trunc(x * scale) for an (R, K) operand with its
-    row scales (R, 1), as (p, R, Kp) int8 planes padded with zero
-    residues along K."""
+    balanced residues of trunc(x * scale) for an ([Bt,] R, K) operand with
+    its row scales ([Bt,] R, 1), as (p, [Bt,] R, Kp) int8 planes padded
+    with zero residues along K."""
     if x.is_cuda:
         COUNTS.plain_cuda_calls += 1
     res = scheme2.balanced_residues(torch.trunc(x * scale), moduli)
@@ -154,8 +158,8 @@ def encode_planes_plain(x, scale, moduli):
 
 def plane_matmul_plain(a_planes, b_planes, mu, nu, moduli, out_dtype):
     """The plane GEMM's function in plain torch ops (CPU or CUDA): the
-    planes (p, M, Kp) and (p, N, Kp) of A and of B^T, one exact product
-    per modulus, its reduction, the CRT, then / (mu * nu)."""
+    planes (p, [Bt,] M, Kp) and (p, [Bt,] N, Kp) of A and of B^T, one
+    exact product per modulus, its reduction, the CRT, then / (mu * nu)."""
     if a_planes.is_cuda:
         COUNTS.plain_cuda_calls += 1
     return scheme2.residue_matmul(a_planes, b_planes.transpose(-1, -2), mu,
@@ -200,8 +204,8 @@ def _bind_residues(lib: ctypes.CDLL):
 
 def _bind_encode(lib: ctypes.CDLL):
     fn = lib.emugemm2_encode
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3 + [_INT_P]
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 3 + [_INT_P]
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -209,66 +213,96 @@ def _bind_encode(lib: ctypes.CDLL):
 
 def _bind_planes(lib: ctypes.CDLL):
     fn = lib.emugemm2_planes
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [_INT_P] * 2
-                   + [ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 5
+                   + [_INT_P] * 2 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
+# The encode's grid carries the batch on gridDim.z.
+MAX_BATCH = 65535
+
+
+def _batch_stride(x: torch.Tensor) -> int:
+    """The stride of a 3-D tensor's batch axis; 0 for a 2-D one."""
+    return x.stride(0) if x.dim() == 3 else 0
+
+
 def launch_encode(xr, xi, scale, moduli, planes_per_modulus):
-    """Launch the encode kernel on the (R, K) part views xr and xi (xi
-    None for a real operand) with row scales (R, 1): planes
-    (p, planes_per_modulus, R, Kp) int8."""
+    """Launch the encode kernel on the ([Bt,] R, K) part views xr and xi
+    (xi None for a real operand) with row scales ([Bt,] R, 1): planes
+    (p, planes_per_modulus, [Bt,] R, Kp) int8."""
     from repro_torch.kernels import build
-    r, k = xr.shape
+    *lead, r, k = xr.shape
     p = len(moduli)
-    planes = torch.empty((p, planes_per_modulus, r, plane_k(k)),
+    planes = torch.empty((p, planes_per_modulus, *lead, r, plane_k(k)),
                          dtype=torch.int8, device=xr.device)
     scale = scale.contiguous()
     mods, _ = _crt_args(moduli)
     rc = _bind_encode(build.load("emugemm2_planes"))(
         xr.data_ptr(), xi.data_ptr() if xi is not None else None,
-        scale.data_ptr(), planes.data_ptr(), r, k, planes.shape[-1],
-        xr.stride(0), xr.stride(1), int(planes_per_modulus == 3),
+        scale.data_ptr(), planes.data_ptr(), lead[0] if lead else 1, r, k,
+        planes.shape[-1], _batch_stride(xr), xr.stride(-2), xr.stride(-1),
+        _batch_stride(scale), int(planes_per_modulus == 3),
         int(xr.dtype == torch.float64), p, mods,
         torch.cuda.current_stream(xr.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"emugemm2 encode failed (code {rc}) for "
-                           f"{(r, k)} {xr.dtype} moduli={moduli}")
+                           f"{tuple(xr.shape)} {xr.dtype} moduli={moduli}")
     return planes
 
 
-def launch_planes(a_planes, b_planes, mu, nu, moduli, out, epilogue=True):
-    """Launch the plane GEMM on planes (p, T, M, Kp) and (p, T, N, Kp)
-    (T = 3: the 3M products, into a complex ``out``) with scales mu (M, 1)
-    and nu (1, N); ``epilogue=False`` stops after the mainloop, which
-    leaves ``out`` unwritten (for timing the two apart)."""
+def plane_tile_n(batch: int, m: int, n: int, device) -> int:
+    """The plane GEMM's tile width for a ([batch,] M, N) output: 256
+    columns, or 128 when the narrow tiles still fit in one wave of the
+    card's SMs, which then run twice the blocks (each tile's CRT epilogue
+    runs after its mainloop, on its own SM)."""
+    narrow = batch * -(-m // PLANE_TILE[0]) * -(-n // PLANE_NARROW_N)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return PLANE_NARROW_N if narrow <= sms else PLANE_TILE[1]
+
+
+def launch_planes(a_planes, b_planes, mu, nu, moduli, out, epilogue=True,
+                  tile_n=None):
+    """Launch the plane GEMM on planes (p, T, [Bt,] M, Kp) and
+    (p, T, [Bt,] N, Kp) (T = 3: the 3M products, into a complex ``out``)
+    with scales mu ([Bt,] M, 1) and nu ([Bt,] 1, N) into ``out`` ([Bt,]
+    M, N); ``epilogue=False`` stops after the mainloop, which leaves
+    ``out`` unwritten (for timing the two apart); ``tile_n`` sets the tile
+    width instead of :func:`plane_tile_n` (for timing the widths apart)."""
     from repro_torch.kernels import build
-    p, phases, m, kp = a_planes.shape
-    n = b_planes.shape[2]
-    tiles = -(-m // PLANE_TILE[0]) * -(-n // PLANE_TILE[1])
+    p, phases, *lead, m, kp = a_planes.shape
+    n = b_planes.shape[-2]
+    batch = lead[0] if lead else 1
+    if tile_n is None:
+        tile_n = plane_tile_n(batch, m, n, a_planes.device)
+    tiles = batch * -(-m // PLANE_TILE[0]) * -(-n // tile_n)
     park = torch.empty(tiles * (2 if phases == 3 else 1) * p
-                       * PLANE_TILE[0] * PLANE_TILE[1], dtype=torch.uint8,
+                       * PLANE_TILE[0] * tile_n, dtype=torch.uint8,
                        device=a_planes.device)
     mu, nu = mu.contiguous(), nu.contiguous()
     part = torch.view_as_real(out) if out.is_complex() else out
     mods, inv = _crt_args(moduli)
     rc = _bind_planes(build.load("emugemm2_planes"))(
         a_planes.data_ptr(), b_planes.data_ptr(), mu.data_ptr(),
-        nu.data_ptr(), part.data_ptr(), park.data_ptr(), m, n, kp,
-        int(phases == 3), int(mu.dtype == torch.float64),
-        int(part.dtype == torch.float64), p, mods, inv, int(epilogue),
+        nu.data_ptr(), part.data_ptr(), park.data_ptr(), batch, m, n, kp,
+        _batch_stride(mu), _batch_stride(nu),
+        part.stride(0) if lead else 0, tile_n, int(phases == 3),
+        int(mu.dtype == torch.float64), int(part.dtype == torch.float64), p,
+        mods, inv, int(epilogue),
         torch.cuda.current_stream(a_planes.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"emugemm2 plane GEMM failed (code {rc}) for "
-                           f"{(m, kp, n)} moduli={moduli}")
+                           f"{(batch, m, kp, n)} moduli={moduli}")
     return out
 
 
 def encode_planes(x: torch.Tensor, scale: torch.Tensor,
                   moduli) -> torch.Tensor:
-    """A float64 (R, K) operand with its row scales (R, 1) -> its (p, R,
-    Kp) int8 balanced residue planes (B enters as B^T with nu^T).
+    """A float64 ([Bt,] R, K) operand with its row scales ([Bt,] R, 1) ->
+    its (p, [Bt,] R, Kp) int8 balanced residue planes (B enters as B^T
+    with nu^T).
 
     CPU tensors take the plain version; CUDA tensors launch the encode
     kernel or raise.
@@ -276,9 +310,10 @@ def encode_planes(x: torch.Tensor, scale: torch.Tensor,
     moduli = tuple(int(m) for m in moduli)
     if x.device.type == "cpu":
         return encode_planes_plain(x, scale, moduli)
-    if (x.dim() != 2 or x.dtype != torch.float64 or not x.is_cuda
-            or scale.dtype != x.dtype or scale.shape != (x.shape[0], 1)
-            or x.shape[1] == 0):
+    if (x.dim() not in (2, 3) or x.dtype != torch.float64 or not x.is_cuda
+            or scale.dtype != x.dtype or scale.shape != (*x.shape[:-1], 1)
+            or scale.device != x.device or x.shape[-1] == 0
+            or (x.dim() == 3 and not 0 < x.shape[0] <= MAX_BATCH)):
         raise ValueError(f"emugemm2 encode: {tuple(x.shape)} {x.dtype} on "
                          f"{x.device}, scale {tuple(scale.shape)} "
                          f"{scale.dtype}")
@@ -291,9 +326,9 @@ def encode_planes(x: torch.Tensor, scale: torch.Tensor,
 def plane_matmul(a_planes: torch.Tensor, b_planes: torch.Tensor,
                  mu: torch.Tensor, nu: torch.Tensor, moduli,
                  out_dtype: torch.dtype) -> torch.Tensor:
-    """The planes (p, M, Kp) of A and (p, N, Kp) of B^T with float64
-    scales mu (M, 1) and nu (1, N) -> (M, N) in ``out_dtype`` (float64 or
-    float32).
+    """The planes (p, [Bt,] M, Kp) of A and (p, [Bt,] N, Kp) of B^T with
+    float64 scales mu ([Bt,] M, 1) and nu ([Bt,] 1, N) -> ([Bt,] M, N) in
+    ``out_dtype`` (float64 or float32).
 
     CPU tensors take the plain version; CUDA tensors launch the plane
     GEMM or raise.
@@ -302,13 +337,13 @@ def plane_matmul(a_planes: torch.Tensor, b_planes: torch.Tensor,
     if a_planes.device.type == "cpu":
         return plane_matmul_plain(a_planes, b_planes, mu, nu, moduli,
                                   out_dtype)
-    p, m, kp = a_planes.shape
-    n = b_planes.shape[1]
-    if (b_planes.shape != (p, n, kp) or p != len(moduli)
-            or kp % PLANE_K or not a_planes.is_contiguous()
-            or not b_planes.is_contiguous()
+    p, *lead, m, kp = a_planes.shape
+    n = b_planes.shape[-2]
+    if (len(lead) > 1 or b_planes.shape != (p, *lead, n, kp)
+            or p != len(moduli) or kp % PLANE_K
+            or not a_planes.is_contiguous() or not b_planes.is_contiguous()
             or {a_planes.dtype, b_planes.dtype} != {torch.int8}
-            or mu.shape != (m, 1) or nu.shape != (1, n)
+            or mu.shape != (*lead, m, 1) or nu.shape != (*lead, 1, n)
             or {mu.dtype, nu.dtype} != {torch.float64}
             or out_dtype not in (torch.float64, torch.float32)
             or len({x.device for x in (a_planes, b_planes, mu, nu)}) != 1):
@@ -317,7 +352,7 @@ def plane_matmul(a_planes: torch.Tensor, b_planes: torch.Tensor,
                          f"{mu.dtype}, nu {tuple(nu.shape)}, {len(moduli)} "
                          f"moduli -> {out_dtype}")
     check_moduli(moduli)
-    out = torch.empty((m, n), dtype=out_dtype, device=a_planes.device)
+    out = torch.empty((*lead, m, n), dtype=out_dtype, device=a_planes.device)
     launch_planes(a_planes[:, None], b_planes[:, None], mu, nu, moduli, out)
     COUNTS.launches_planes += 1
     return out
@@ -380,19 +415,21 @@ def _launch(a3, b3, mu3, nu3, moduli, out_dtype):
 
 
 def _dgemm(a, b, mu, nu, moduli, out_dtype):
-    """The plane route of a float64 (M, K) @ (K, N): encode A and B^T,
-    then the plane GEMM."""
-    m, k = a.shape
-    n = b.shape[1]
-    if b.shape[0] != k or mu.shape != (m, 1) or nu.shape != (1, n):
+    """The plane route of a float64 ([Bt,] M, K) @ ([Bt,] K, N): encode A
+    and B^T, then the plane GEMM."""
+    *lead, m, k = a.shape
+    n = b.shape[-1]
+    if (b.shape != (*lead, k, n) or mu.shape != (*lead, m, 1)
+            or nu.shape != (*lead, 1, n)):
         raise ValueError(f"emugemm2: shapes {tuple(a.shape)} @ "
                          f"{tuple(b.shape)}, mu {tuple(mu.shape)}, "
                          f"nu {tuple(nu.shape)}")
-    if m * n == 0 or k == 0:
-        return torch.zeros((m, n), dtype=out_dtype, device=a.device)
+    if m * n == 0 or k == 0 or 0 in lead:
+        return torch.zeros((*lead, m, n), dtype=out_dtype, device=a.device)
     return plane_matmul(encode_planes(a, mu, moduli),
-                        encode_planes(b.T, nu.T, moduli), mu, nu, moduli,
-                        out_dtype)
+                        encode_planes(b.transpose(-1, -2),
+                                      nu.transpose(-1, -2), moduli),
+                        mu, nu, moduli, out_dtype)
 
 
 def fused_matmul_scheme2(a: torch.Tensor, b: torch.Tensor, mu: torch.Tensor,
@@ -402,13 +439,13 @@ def fused_matmul_scheme2(a: torch.Tensor, b: torch.Tensor, mu: torch.Tensor,
     strided-batched (B, M, K) @ (B, K, N) -> (B, M, N) form.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (float64 2-D operands: the plane route) or raise.
+    (float64 operands, 2-D or batched: the plane route) or raise.
     """
     moduli = tuple(int(m) for m in moduli)
     if a.device.type == "cpu":
         return fused_matmul_scheme2_plain(a, b, mu, nu, moduli, out_dtype)
     _check(a, b, mu, nu, moduli, out_dtype)
-    if a.dim() == 2 and b.dim() == 2 and a.dtype == torch.float64:
+    if a.dim() == b.dim() and a.dim() in (2, 3) and a.dtype == torch.float64:
         return _dgemm(a, b, mu, nu, moduli, out_dtype)
     if a.dim() == 2 and b.dim() == 2:
         out = _launch(a[None], b[None], mu[None], nu[None], moduli,

@@ -2,14 +2,16 @@
 ``csrc/emugemm2_planes.cu`` for K7g, ``csrc/emugemm3m.cu`` for K7):
 wrappers, plain versions and launch counts.
 
-* :func:`fused_matmul_3m` (K7g) takes a complex (or real) (M, K) @ (K, N)
-  with float32 or float64 parts, the power-of-two scales mu (M, 1) and nu
-  (1, N) that the real and imaginary parts share, and returns the complex
-  Scheme-II product with parts of ``out_dtype`` (float32 or float64). It
-  runs the plane route of ``csrc/emugemm2_planes.cu``: two launches of
-  :func:`encode_planes_3m`, which integerizes each operand once and
-  writes the phase residues [re, im, bal(re + im)] of every modulus as
-  K-contiguous int8 planes (p, 3, R, Kp) (B as B^T), and one of
+* :func:`fused_matmul_3m` (K7g) takes a complex (or real) (M, K) @ (K, N),
+  or a batch of them, (Bt, M, K) @ (Bt, K, N), with float32 or float64
+  parts, the power-of-two scales mu ([Bt,] M, 1) and nu ([Bt,] 1, N) that
+  the real and imaginary parts share, and returns the complex Scheme-II
+  product with parts of ``out_dtype`` (float32 or float64). It runs the
+  plane route of ``csrc/emugemm2_planes.cu``, the batch as its batch
+  coordinate: two launches of :func:`encode_planes_3m`, which integerizes
+  each operand once and writes the phase residues [re, im, bal(re + im)]
+  of every modulus as K-contiguous int8 planes (p, 3, [Bt,] R, Kp) (B as
+  B^T), and one of
   :func:`plane_matmul_3m`, three TMA-fed wgmma int8 GEMMs per modulus,
   each reduced and combined into C_re and C_im mod m, with the two CRTs
   and the scaling by 1 / (mu * nu) in its epilogue. The encode reads a
@@ -38,9 +40,9 @@ import dataclasses
 import torch
 
 from repro_torch.core import complex3m, scheme2
-from repro_torch.kernels.ozaki2 import (PLANE_K, _INT_P, _crt_args,
-                                        check_moduli, launch_encode,
-                                        launch_planes, plane_k)
+from repro_torch.kernels.ozaki2 import (MAX_BATCH, PLANE_K, _INT_P,
+                                        _crt_args, check_moduli,
+                                        launch_encode, launch_planes, plane_k)
 
 _PART_DTYPES = (torch.float32, torch.float64)
 
@@ -71,8 +73,9 @@ def fused_matmul_3m_plain(a, b, mu, nu, moduli, out_dtype):
 
 def encode_planes_3m_plain(x, scale, moduli):
     """The 3M encode's function in plain torch ops (CPU or CUDA): the
-    phase residues (p, 3, R, Kp) of an (R, K) operand, complex or real,
-    with its row scales (R, 1), padded with zero residues along K."""
+    phase residues (p, 3, [Bt,] R, Kp) of an ([Bt,] R, K) operand, complex
+    or real, with its row scales ([Bt,] R, 1), padded with zero residues
+    along K."""
     if x.is_cuda:
         COUNTS.plain_cuda_calls += 1
     k = x.shape[-1]
@@ -82,8 +85,8 @@ def encode_planes_3m_plain(x, scale, moduli):
 
 def plane_matmul_3m_plain(a3, b3, mu, nu, moduli, out_dtype):
     """The 3M plane GEMM's function in plain torch ops (CPU or CUDA): the
-    phase planes (p, 3, M, Kp) of A and (p, 3, N, Kp) of B^T, the three
-    products per modulus and their combination, the CRTs, then
+    phase planes (p, 3, [Bt,] M, Kp) of A and (p, 3, [Bt,] N, Kp) of B^T,
+    the three products per modulus and their combination, the CRTs, then
     * 1 / (mu * nu)."""
     if a3.is_cuda:
         COUNTS.plain_cuda_calls += 1
@@ -127,9 +130,9 @@ def _parts_view(x: torch.Tensor):
 
 def encode_planes_3m(x: torch.Tensor, scale: torch.Tensor,
                      moduli) -> torch.Tensor:
-    """An (R, K) operand, complex or real, with float32 or float64 parts
-    and its row scales (R, 1) in the part type -> its (p, 3, R, Kp) int8
-    phase planes (B enters as B^T with nu^T).
+    """An ([Bt,] R, K) operand, complex or real, with float32 or float64
+    parts and its row scales ([Bt,] R, 1) in the part type -> its
+    (p, 3, [Bt,] R, Kp) int8 phase planes (B enters as B^T with nu^T).
 
     CPU tensors take the plain version; CUDA tensors launch the encode
     kernel or raise.
@@ -138,9 +141,11 @@ def encode_planes_3m(x: torch.Tensor, scale: torch.Tensor,
     if x.device.type == "cpu":
         return encode_planes_3m_plain(x, scale, moduli)
     xr, xi = _parts_view(x)
-    if (xr.dim() != 2 or xr.dtype not in _PART_DTYPES or not x.is_cuda
-            or scale.dtype != xr.dtype or scale.shape != (xr.shape[0], 1)
-            or scale.device != x.device or xr.shape[1] == 0):
+    if (xr.dim() not in (2, 3) or xr.dtype not in _PART_DTYPES
+            or not x.is_cuda or scale.dtype != xr.dtype
+            or scale.shape != (*xr.shape[:-1], 1)
+            or scale.device != x.device or xr.shape[-1] == 0
+            or (xr.dim() == 3 and not 0 < xr.shape[0] <= MAX_BATCH)):
         raise ValueError(f"emugemm2 3M encode: {tuple(x.shape)} {x.dtype} "
                          f"on {x.device}, scale {tuple(scale.shape)} "
                          f"{scale.dtype}")
@@ -153,9 +158,10 @@ def encode_planes_3m(x: torch.Tensor, scale: torch.Tensor,
 def plane_matmul_3m(a3: torch.Tensor, b3: torch.Tensor, mu: torch.Tensor,
                     nu: torch.Tensor, moduli,
                     out_dtype: torch.dtype) -> torch.Tensor:
-    """The phase planes (p, 3, M, Kp) of A and (p, 3, N, Kp) of B^T with
-    scales mu (M, 1) and nu (1, N) in the part type -> complex (M, N)
-    with parts of ``out_dtype`` (float32 or float64).
+    """The phase planes (p, 3, [Bt,] M, Kp) of A and (p, 3, [Bt,] N, Kp)
+    of B^T with scales mu ([Bt,] M, 1) and nu ([Bt,] 1, N) in the part
+    type -> complex ([Bt,] M, N) with parts of ``out_dtype`` (float32 or
+    float64).
 
     CPU tensors take the plain version; CUDA tensors launch the plane
     GEMM or raise.
@@ -163,12 +169,12 @@ def plane_matmul_3m(a3: torch.Tensor, b3: torch.Tensor, mu: torch.Tensor,
     moduli = tuple(int(m) for m in moduli)
     if a3.device.type == "cpu":
         return plane_matmul_3m_plain(a3, b3, mu, nu, moduli, out_dtype)
-    p, three, m, kp = a3.shape
-    n = b3.shape[2]
-    if (three != 3 or b3.shape != (p, 3, n, kp) or p != len(moduli)
-            or kp % PLANE_K or not a3.is_contiguous()
+    p, three, *lead, m, kp = a3.shape
+    n = b3.shape[-2]
+    if (three != 3 or len(lead) > 1 or b3.shape != (p, 3, *lead, n, kp)
+            or p != len(moduli) or kp % PLANE_K or not a3.is_contiguous()
             or not b3.is_contiguous() or {a3.dtype, b3.dtype} != {torch.int8}
-            or mu.shape != (m, 1) or nu.shape != (1, n)
+            or mu.shape != (*lead, m, 1) or nu.shape != (*lead, 1, n)
             or mu.dtype not in _PART_DTYPES or nu.dtype != mu.dtype
             or out_dtype not in _PART_DTYPES
             or len({x.device for x in (a3, b3, mu, nu)}) != 1):
@@ -178,7 +184,7 @@ def plane_matmul_3m(a3: torch.Tensor, b3: torch.Tensor, mu: torch.Tensor,
                          f"{len(moduli)} moduli -> {out_dtype}")
     check_moduli(moduli)
     cplx = torch.complex128 if out_dtype == torch.float64 else torch.complex64
-    out = torch.empty((m, n), dtype=cplx, device=a3.device)
+    out = torch.empty((*lead, m, n), dtype=cplx, device=a3.device)
     launch_planes(a3, b3, mu, nu, moduli, out)
     COUNTS.launches_planes += 1
     return out
@@ -187,9 +193,9 @@ def plane_matmul_3m(a3: torch.Tensor, b3: torch.Tensor, mu: torch.Tensor,
 def fused_matmul_3m(a: torch.Tensor, b: torch.Tensor, mu: torch.Tensor,
                     nu: torch.Tensor, moduli,
                     out_dtype: torch.dtype) -> torch.Tensor:
-    """Complex (M, K) @ (K, N), either operand complex or real, with the
-    shared scales mu (M, 1) and nu (1, N) -> complex (M, N) with parts of
-    ``out_dtype``.
+    """Complex ([Bt,] M, K) @ ([Bt,] K, N), either operand complex or
+    real, with the shared scales mu ([Bt,] M, 1) and nu ([Bt,] 1, N) ->
+    complex ([Bt,] M, N) with parts of ``out_dtype``.
 
     CPU tensors take the plain version; CUDA tensors launch the plane
     route or raise.
@@ -212,22 +218,24 @@ def fused_matmul_3m(a: torch.Tensor, b: torch.Tensor, mu: torch.Tensor,
             f"got {a.dtype} @ {b.dtype}, mu {mu.dtype}, nu {nu.dtype} -> "
             f"{out_dtype}")
     check_moduli(moduli)
-    if ar.dim() != 2 or br.dim() != 2:
-        raise ValueError(f"emugemm3m is 2-D; got {tuple(a.shape)} @ "
-                         f"{tuple(b.shape)}")
-    m, k = ar.shape
+    if ar.dim() != br.dim() or ar.dim() not in (2, 3):
+        raise ValueError(f"emugemm3m is 2-D or batched 3-D; got "
+                         f"{tuple(a.shape)} @ {tuple(b.shape)}")
+    *lead, m, k = ar.shape
     n = br.shape[-1]
-    if br.shape[0] != k or mu.shape != (m, 1) or nu.shape != (1, n):
+    if (br.shape != (*lead, k, n) or mu.shape != (*lead, m, 1)
+            or nu.shape != (*lead, 1, n)):
         raise ValueError(f"emugemm3m: shapes {tuple(a.shape)} @ "
                          f"{tuple(b.shape)}, mu {tuple(mu.shape)}, nu "
                          f"{tuple(nu.shape)}")
-    if m * n == 0 or k == 0:
+    if m * n == 0 or k == 0 or 0 in lead:
         cplx = (torch.complex128 if out_dtype == torch.float64
                 else torch.complex64)
-        return torch.zeros((m, n), dtype=cplx, device=a.device)
+        return torch.zeros((*lead, m, n), dtype=cplx, device=a.device)
     return plane_matmul_3m(encode_planes_3m(a, mu, moduli),
-                           encode_planes_3m(b.T, nu.T, moduli), mu, nu,
-                           moduli, out_dtype)
+                           encode_planes_3m(b.transpose(-1, -2),
+                                            nu.transpose(-1, -2), moduli),
+                           mu, nu, moduli, out_dtype)
 
 
 def fused_3m_residue_matmul(a3: torch.Tensor, b3: torch.Tensor, moduli):

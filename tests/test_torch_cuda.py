@@ -1,10 +1,10 @@
 """The port's CUDA kernels on the card: EmuGEMM-I in its four launch
 forms, the decomposition (K2, K2r, K11), the int8 GEMM (K9), fused
-attention (K10), EmuGEMM-II in its
-four launch forms (K5g with a float and with a residue rhs, K6, K5;
-float32, bfloat16 and float64), the plane route of DGEMM and ZGEMM
-(the encode kernels and the plane GEMM: float64 K5g, K7g) and the
-complex residue kernel K7
+attention (K10: the bf16 wgmma kernel and the float32 FFMA kernel),
+EmuGEMM-II in its four launch forms (K5g with a float and with a residue
+rhs, K6, K5; float32 and bfloat16, a float64 prepared lhs), the plane
+route of DGEMM and ZGEMM, 2-D and batched (the encode kernels and the
+plane GEMM: float64 K5g and K6, K7g) and the complex residue kernel K7
 against their plain versions, bit for bit, the dispatcher's routing of
 CUDA tensors (complex 4M included), and train steps that launch them
 (a hoisted microbatch step among them).
@@ -207,8 +207,10 @@ def _eq19(g, shape, dtype, dev):
 @pytest.mark.parametrize("p", [8, 12, 16])
 def test_scheme2_float64_bit_identical_to_plain_on_card(cuda_device, p):
     """EmuGEMM-II in float64: K5g (2-D; float64 out, float32 out, and
-    float32 operands to a float64 out), K6 (batched, transposed views) and
-    the residue route of ops.fused_scheme2_matmul."""
+    float32 operands to a float64 out), K6 (batched, transposed views;
+    float64 operands on the plane route, float32 operands to a float64
+    out on the fused kernel) and the residue route of
+    ops.fused_scheme2_matmul."""
     g = torch.Generator(device=cuda_device).manual_seed(100 + p)
     moduli = default_moduli(p)
     f64 = torch.float64
@@ -347,10 +349,57 @@ def test_plane_route_reduces_inside_long_k_on_card(cuda_device):
     assert torch.equal(out, ref)
 
 
+@pytest.mark.parametrize("p", [8, 12, 16])
+def test_batched_plane_routes_bit_identical_to_plain_on_card(cuda_device, p):
+    """The batched plane route (the batch as the kernels' batch
+    coordinate) against its plain version, bit for bit: float64 and
+    complex128, ragged M, N and K in every element, B transposed, the
+    scientific phase's 8 x 512^3, and Bt = 1 against the 2-D route."""
+    g = torch.Generator(device=cuda_device).manual_seed(450 + p)
+    moduli = default_moduli(p)
+    for (bt, m, k, n, trans) in [(3, 200, 136, 72, False),
+                                 (5, 37, 300, 260, True),
+                                 (8, 512, 512, 512, False),
+                                 (1, 300, 1000, 520, False)]:
+        for dtype in (torch.float64, torch.complex128):
+            a = _eq19(g, (bt, m, k), dtype, cuda_device)
+            b = (_eq19(g, (bt, n, k), dtype, cuda_device).transpose(1, 2)
+                 if trans else _eq19(g, (bt, k, n), dtype, cuda_device))
+            if dtype == torch.float64:
+                mu, nu = scheme2.scales(a, b, moduli)
+                run, plain = (ozaki2.fused_matmul_scheme2,
+                              ozaki2.fused_matmul_scheme2_plain)
+            else:
+                mu, nu = complex3m.scales(a, b, moduli)
+                run, plain = (ozaki3m.fused_matmul_3m,
+                              ozaki3m.fused_matmul_3m_plain)
+            out = run(a, b, mu, nu, moduli, torch.float64)
+            torch.cuda.synchronize()
+            assert torch.equal(out, plain(a, b, mu, nu, moduli,
+                                          torch.float64)), (bt, m, k, n)
+            if bt == 1:
+                assert torch.equal(out[0], run(a[0], b[0], mu[0], nu[0],
+                                               moduli, torch.float64))
+            # Both tile widths of the plane GEMM give the same bits.
+            encode = (ozaki2.encode_planes if dtype == torch.float64
+                      else ozaki3m.encode_planes_3m)
+            ap = encode(a, mu, moduli)
+            bp = encode(b.transpose(1, 2), nu.transpose(1, 2), moduli)
+            if dtype == torch.float64:
+                ap, bp = ap[:, None], bp[:, None]
+            for tile_n in (128, 256):
+                other = torch.empty_like(out)
+                ozaki2.launch_planes(ap, bp, mu, nu, moduli, other,
+                                     tile_n=tile_n)
+                torch.cuda.synchronize()
+                assert torch.equal(other, out), (bt, m, k, n, tile_n)
+
+
 def test_float64_2d_takes_the_plane_route_and_batches_do_not(cuda_device):
     """A float64 2-D call launches two encodes and one plane GEMM and not
-    the fused kernel; a float64 batch still launches the fused kernel's
-    batched form."""
+    the fused kernel; so does a float64 batch (the batch is the plane
+    route's batch coordinate), while a batch of float32 operands with a
+    float64 output still launches the fused kernel's batched form."""
     g = torch.Generator(device=cuda_device).manual_seed(600)
     moduli = default_moduli(12)
     a = _eq19(g, (100, 200), torch.float64, cuda_device)
@@ -362,11 +411,19 @@ def test_float64_2d_takes_the_plane_route_and_batches_do_not(cuda_device):
             ozaki2.COUNTS.launches_2d, ozaki2.COUNTS.launches_batched) == (
                 2, 1, 0, 0)
     ozaki2.COUNTS.reset()
-    ozaki2.fused_matmul_scheme2(a[None], b[None], mu[None], nu[None], moduli,
-                                torch.float64)
+    out = ozaki2.fused_matmul_scheme2(a[None], b[None], mu[None], nu[None],
+                                      moduli, torch.float64)
     assert (ozaki2.COUNTS.launches_encode, ozaki2.COUNTS.launches_planes,
             ozaki2.COUNTS.launches_2d, ozaki2.COUNTS.launches_batched) == (
-                0, 0, 0, 1)
+                2, 1, 0, 0)
+    assert torch.equal(out[0], ozaki2.fused_matmul_scheme2(
+        a, b, mu, nu, moduli, torch.float64))
+    x, y = a.float()[None], b.float()[None]
+    xmu, ynu = scheme2.scales(x, y, moduli)
+    ozaki2.COUNTS.reset()
+    ozaki2.fused_matmul_scheme2(x, y, xmu, ynu, moduli, torch.float64)
+    assert (ozaki2.COUNTS.launches_encode, ozaki2.COUNTS.launches_planes,
+            ozaki2.COUNTS.launches_batched) == (0, 0, 1)
     assert ozaki2.COUNTS.plain_cuda_calls == 0
 
 
@@ -390,11 +447,12 @@ def test_complex_routes_on_card(cuda_device):
     assert (ozaki3m.COUNTS.launches_encode, ozaki3m.COUNTS.launches_planes,
             ozaki3m.COUNTS.launches_residues,
             ozaki3m.COUNTS.plain_cuda_calls) == (4, 2, 1, 0)
-    # A complex batch runs one 2-D plane route per element.
+    # A complex batch runs one batched plane route: 2 encodes + 1 GEMM.
     za = a[:64].reshape(2, 32, 160)
     zb = b[:, :32].reshape(160, 2, 16).permute(1, 0, 2)
     batched = api.einsum("bmk,bkn->bmn", za, zb, precision="ozaki2-m12")
-    assert ozaki3m.COUNTS.launches_planes == 4
+    assert (ozaki3m.COUNTS.launches_encode,
+            ozaki3m.COUNTS.launches_planes) == (6, 3)
     assert torch.equal(batched[1], api.einsum(
         "mk,kn->mn", za[1], zb[1], precision="ozaki2-m12"))
     a64, b64 = a.to(torch.complex64), b.to(torch.complex64)
@@ -563,6 +621,33 @@ def test_flash_attention_on_card(cuda_device, dtype, tol, d):
         assert out.dtype == dtype and out.shape == q.shape
         torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
                                    atol=tol)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_flash_wgmma_edges_on_card(cuda_device, d):
+    """The bf16 wgmma kernel at its edges, within 2e-2 of the plain
+    version: Sk past a 64- and 128-key tile edge, Sq > Sk under a causal
+    mask, one query row, a window inside and across tiles with GQA, MQA
+    over many q tiles (heaviest first), one key."""
+    from repro_torch.kernels import flash_attn
+    assert flash_attn.instance(torch.bfloat16, d).kernel == "wgmma"
+    g = torch.Generator(device=cuda_device).manual_seed(1000 + d)
+    cases = [(1, 2, 2, 100, 333, True, None), (1, 4, 2, 333, 100, True, None),
+             (1, 2, 2, 1, 77, False, None), (2, 4, 1, 257, 257, True, 96),
+             (1, 6, 3, 200, 200, False, 130), (1, 4, 1, 1100, 1100, True, None),
+             (1, 2, 2, 128, 1, True, None)]
+    for (b, h, kvh, sq, sk, causal, window) in cases:
+        q, k, v = (torch.randn(b, n, s, d, generator=g,
+                               device=cuda_device).to(torch.bfloat16)
+                   for n, s in ((h, sq), (kvh, sk), (kvh, sk)))
+        flash_attn.COUNTS.reset()
+        out = flash_attn.flash_attention(q, k, v, causal=causal,
+                                         window=window, bq=sq, bk=sk)
+        assert flash_attn.COUNTS.launches == 1
+        ref = flash_attn.flash_attention_plain(q, k, v, causal, window)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                                   atol=2e-2)
 
 
 def test_library_kernels_refuse_what_they_were_not_built_for(cuda_device):

@@ -100,3 +100,50 @@ def test_flash_scale_and_refusals():
                                    tv[:, :1].repeat(1, 3, 1, 1))
     with pytest.raises(ValueError, match="divide"):
         flash_attn.flash_attention(tq[:, :, :48], tk, tv, bq=32)
+
+
+@pytest.mark.parametrize("dtype,d,expected", [
+    ("bfloat16", 32, ("wgmma", 128, 128, 3)),
+    ("bfloat16", 64, ("wgmma", 128, 128, 3)),
+    ("bfloat16", 128, ("wgmma", 128, 128, 2)),
+    ("bfloat16", 256, ("wgmma", 128, 64, 2)),
+    ("float32", 32, ("ffma", 64, 64, 1)),
+    ("float32", 128, ("ffma", 64, 64, 1)),
+    ("float32", 256, ("ffma", 64, 32, 1)),
+])
+def test_flash_instance_choice(dtype, d, expected):
+    """bf16 runs the wgmma kernel at every compiled head dim (k/v tiles of
+    64 keys at D = 256, where O is 128 floats a thread, 3 stages at
+    D <= 64), float32 the FFMA kernel."""
+    inst = flash_attn.instance(getattr(torch, dtype), d)
+    assert (inst.kernel, inst.bq, inst.bk, inst.stages) == expected
+
+
+@pytest.mark.parametrize("dtype,d", [("float16", 64), ("float64", 64),
+                                     ("bfloat16", 48), ("float32", 96),
+                                     ("bfloat16", 512)])
+def test_flash_instance_refusals(dtype, d):
+    """A dtype or head dim with no compiled instance raises; nothing falls
+    back."""
+    with pytest.raises(NotImplementedError):
+        flash_attn.instance(getattr(torch, dtype), d)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 48)])
+def test_flash_sk_not_a_multiple_of_64(dtype, tol, causal, window):
+    """Sk = 100 and Sq = 150 (past a 64- and a 128-key tile edge, GQA 4 /
+    2): the plain version against the reference kernel with whole-sequence
+    blocks and against its oracle."""
+    q, k, v = _qkv(5, 1, 4, 2, 150, 100, 64)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(x, dtype) for x in (q, k, v))
+    ref = jflash.flash_attention(jq, jk, jv, causal=causal, window=window,
+                                 bq=150, bk=100)
+    out = flash_attn.flash_attention(tq, tk, tv, causal=causal,
+                                     window=window, bq=150, bk=100)
+    assert out.shape == (1, 4, 150, 64) and out.dtype == getattr(torch, dtype)
+    _compare(out, ref, tol)
+    if dtype == "float32":
+        _compare(out, jref.flash_attention(jq, jk, jv, causal=causal,
+                                           window=window), 1e-6)

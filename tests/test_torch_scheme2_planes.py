@@ -12,7 +12,9 @@ held against the reference's ``scheme2.integerize`` and
 and the planes, multiplied per modulus, reduced (3M: combined) and
 reconstructed by the plane GEMM's plain version, against the reference's
 fused GPU lowerings (``gpu.fused_matmul_scheme2``, ``gpu.fused_matmul_3m``)
-in interpret mode. float64 and complex128 are compared inside
+in interpret mode; with a leading batch axis (planes (p, Bt, R, Kp)),
+against ``gpu.fused_matmul_scheme2_batched`` and ``gpu.fused_matmul_3m``
+per element. float64 and complex128 are compared inside
 ``jax.enable_x64(True)``, the context manager only (tests share worker
 processes). The kernels themselves are held to these plain versions on
 the card in tests/test_torch_cuda.py.
@@ -211,5 +213,114 @@ def test_plane_wrappers_count_no_launch_on_cpu():
     assert (ozaki2.COUNTS.launches_encode, ozaki2.COUNTS.launches_planes,
             ozaki2.COUNTS.launches_2d, ozaki2.COUNTS.plain_cuda_calls) == (
                 0, 0, 0, 0)
+    assert (ozaki3m.COUNTS.launches_encode, ozaki3m.COUNTS.launches_planes,
+            ozaki3m.COUNTS.plain_cuda_calls) == (0, 0, 0)
+
+
+# The batch coordinate of the plane route (Bt, M, K, N): ragged M, N and K
+# in every element, so that a row leaking from one element into the next
+# would show.
+BATCHED = (3, 37, 70, 29)
+
+
+@pytest.mark.parametrize("case", ["ragged", "B transposed", "Bt = 1"])
+@pytest.mark.parametrize("p", MODULI_COUNTS)
+def test_batched_plane_route_matches_reference_gpu_kernel(p, case):
+    """Batched planes of A and B^T -> the plane GEMM's plain version
+    equals the reference's batched fused GPU kernel
+    (``gpu.fused_matmul_scheme2_batched``) in interpret mode, element by
+    element; the planes of each element are those of its 2-D encode; at
+    Bt = 1 the batched route equals the 2-D route."""
+    bt, m, k, n = (1,) + BATCHED[1:] if case == "Bt = 1" else BATCHED
+    moduli = default_moduli(p)
+    rng = np.random.default_rng(50 + p)
+    a = _f64(rng, (bt, m, k))
+    b = (np.ascontiguousarray(np.swapaxes(_f64(rng, (bt, n, k)), 1, 2))
+         if case == "B transposed" else _f64(rng, (bt, k, n)))
+    ta = t(a)
+    tb = (t(np.ascontiguousarray(np.swapaxes(b, 1, 2))).transpose(1, 2)
+          if case == "B transposed" else t(b))
+    mu, nu = scheme2.scales(ta, tb, moduli)
+    with jax.enable_x64(True):
+        ref = jgpu.fused_matmul_scheme2_batched(
+            jnp.asarray(a), jnp.asarray(b), jnp.asarray(mu.numpy()),
+            jnp.asarray(nu.numpy()), moduli, JBlocks(m, n, k),
+            out_dtype=jnp.float64)
+    a_planes = ozaki2.encode_planes(ta, mu, moduli)
+    b_planes = ozaki2.encode_planes(tb.transpose(1, 2), nu.transpose(1, 2),
+                                    moduli)
+    assert a_planes.shape == (p, bt, m, 128)
+    assert b_planes.shape == (p, bt, n, 128)
+    for e in range(bt):
+        assert torch.equal(a_planes[:, e],
+                           ozaki2.encode_planes(ta[e], mu[e], moduli))
+        assert torch.equal(b_planes[:, e], ozaki2.encode_planes(
+            tb[e].T, nu[e].T, moduli))
+    got = ozaki2.plane_matmul(a_planes, b_planes, mu, nu, moduli, F64)
+    _same(got, ref)
+    assert torch.equal(got, ozaki2.fused_matmul_scheme2(ta, tb, mu, nu,
+                                                        moduli, F64))
+    if case == "Bt = 1":
+        assert torch.equal(got[0], ozaki2.fused_matmul_scheme2(
+            ta[0], tb[0], mu[0], nu[0], moduli, F64))
+
+
+@pytest.mark.parametrize("p", MODULI_COUNTS)
+def test_batched_plane_route_3m_matches_reference_per_element(p):
+    """Batched 3M phase planes -> the 3M plane GEMM's plain version equals
+    the reference's fused 3M GPU kernel run on each element (what the
+    reference's vmap computes), complex128 under x64; the batch through
+    the dispatcher under ozaki2 is the same route."""
+    from repro_torch.kernels import dispatch
+    bt, m, k, n = BATCHED
+    moduli = default_moduli(p)
+    rng = np.random.default_rng(60 + p)
+    a, b = _cplx(rng, (bt, m, k)), _cplx(rng, (bt, k, n))
+    ta, tb = t(a), t(b)
+    mu, nu = complex3m.scales(ta, tb, moduli)
+    with jax.enable_x64(True):
+        refs = []
+        for e in range(bt):
+            ja, jb = jnp.asarray(a[e]), jnp.asarray(b[e])
+            c_re, c_im = jgpu.fused_matmul_3m(
+                jnp.real(ja), jnp.imag(ja), jnp.real(jb), jnp.imag(jb),
+                jnp.asarray(mu[e].numpy()), jnp.asarray(nu[e].numpy()),
+                moduli, JBlocks(m, n, k), out_dtype=jnp.float64)
+            refs.append(np.asarray(jax.lax.complex(c_re, c_im)))
+    a3 = ozaki3m.encode_planes_3m(ta, mu, moduli)
+    b3 = ozaki3m.encode_planes_3m(tb.transpose(1, 2), nu.transpose(1, 2),
+                                  moduli)
+    assert a3.shape == (p, 3, bt, m, 128) and b3.shape == (p, 3, bt, n, 128)
+    got = ozaki3m.plane_matmul_3m(a3, b3, mu, nu, moduli, F64)
+    _same(got, np.stack(refs))
+    assert torch.equal(got, ozaki3m.fused_matmul_3m(ta, tb, mu, nu, moduli,
+                                                    F64))
+    assert torch.equal(got, dispatch.emulated_matmul_batched(
+        ta, tb, cfg=f"ozaki2-m{p}"))
+
+
+def test_batched_plane_wrappers_count_no_launch_on_cpu():
+    """On CPU tensors the batched wrappers of the plane route take their
+    plain versions: no launch is counted, and no plain call as one made on
+    CUDA."""
+    moduli = default_moduli(8)
+    rng = np.random.default_rng(70)
+    a, b = t(_f64(rng, (2, 20, 30))), t(_f64(rng, (2, 30, 10)))
+    za, zb = t(_cplx(rng, (2, 20, 30))), t(_cplx(rng, (2, 30, 10)))
+    ozaki2.COUNTS.reset()
+    ozaki3m.COUNTS.reset()
+    mu, nu = scheme2.scales(a, b, moduli)
+    out = ozaki2.fused_matmul_scheme2(a, b, mu, nu, moduli, F64)
+    assert out.shape == (2, 20, 10)
+    assert torch.equal(out, ozaki2.plane_matmul(
+        ozaki2.encode_planes(a, mu, moduli),
+        ozaki2.encode_planes(b.transpose(1, 2), nu.transpose(1, 2), moduli),
+        mu, nu, moduli, F64))
+    zmu, znu = complex3m.scales(za, zb, moduli)
+    zout = ozaki3m.fused_matmul_3m(za, zb, zmu, znu, moduli, F64)
+    assert zout.shape == (2, 20, 10) and zout.dtype == torch.complex128
+    assert (ozaki2.COUNTS.launches_encode, ozaki2.COUNTS.launches_planes,
+            ozaki2.COUNTS.launches_batched, ozaki2.COUNTS.plain_cuda_calls
+            ) == (0, 0, 0, 0)
     assert (ozaki3m.COUNTS.launches_encode, ozaki3m.COUNTS.launches_planes,
             ozaki3m.COUNTS.plain_cuda_calls) == (0, 0, 0)
