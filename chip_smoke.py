@@ -77,18 +77,23 @@ card, with no CPU fallback, in nineteen phases:
     mainloop (and its int8 rate) and the CRT epilogue timed apart, and the
     effective bits of the route and of cuBLAS against a longdouble
     product of 64 sampled rows on the host;
-16. prepared kernel: EmuGEMM-II's prepared form (a float lhs against a
-    weight's int8 residue planes) is held against its plain version and
+16. prepared kernel: EmuGEMM-II's prepared form on the plane route (a
+    float lhs encoded once, a plane GEMM against the weight's (p, N, Kp)
+    int8 planes, which one encode launch wrote when it was prepared) is
+    held against its plain version on the reference-layout stack and
     against the float-rhs form bit for bit at olmo-1b's train shapes
     (forward and dA at 1024 and 512 tokens, ragged M, N and K, the tied
-    head), bf16 and float32 at m in {6, 8, 16} and float64 at m = 16, and
-    timed per hoisted step beside its bound, its plain version and the
+    head), bf16 and float32 at m in {6, 8, 16}, float32 against a bf16
+    weight and float64 at m = 16, with each call's launches counted, and
+    timed per hoisted step (lhs encode, mainloop and CRT apart, and the
+    weights' encodes) beside its bound, its plain version and the
     float-rhs form;
 17. hoisted train: full-width olmo-1b under ozaki2-m6+cached with 2
     microbatches of 4 x 128 tokens: one warm-up and three timed steps
-    with the launch counts by kernel form and the prepare_rhs calls read
-    around them (each weight prepared once a step), then three steps
-    traced by torch.profiler (device activity only);
+    with the launch counts by kernel form (prepared calls, encodes and
+    plane GEMMs) and the prepare_rhs calls read around them (each weight
+    prepared once a step), then three steps traced by torch.profiler
+    (device activity only: idle share, top kernels);
 18. hoisted train parity: under deterministic algorithms, one step's loss
     and float32 gradients with the hoisted preps equal the mean of the
     halves' per-call-cached ones, the uncached ozaki2-m6 ones, and those
@@ -105,15 +110,20 @@ card, with no CPU fallback, in nineteen phases:
     which must equal K1, and fused attention (K10) at olmo-1b's heads
     (2 x 16 x 2048 x 128, causal, bf16 and float32, and a window of 1024),
     granite-3-8b's GQA (32 / 8 heads), recurrentgemma-2b's MQA (10 / 1
-    heads of 256 over 4096, window 2048) and a rectangular non-causal case
-    (128 / 512, D 64), within 2e-5 (float32) and 2e-2 (bf16) of its plain
-    version (bf16 on the TMA-fed wgmma kernel, float32 on the FFMA
-    kernel); each kernel is timed beside its bound, its plain version and,
-    for K9 and K10, torch._int_mm and scaled_dot_product_attention.
+    heads of 256 over 4096, window 2048, bf16 and float32) and a
+    rectangular non-causal case (128 / 512, D 64), within 2e-5 (float32)
+    and 2e-2 (bf16) of its plain version (bf16 on the TMA-fed wgmma
+    kernel, float32 on the 3xTF32 wgmma kernel after its pre-pass, which
+    is held bit for bit against its plain version, and on the FFMA kernel
+    at D = 256); each kernel is timed beside its bound (the float32 ones
+    also beside the FFMA bound, with the device kernels a call runs),
+    its plain version and, for K9 and K10, torch._int_mm and
+    scaled_dot_product_attention.
 
 Right after the build, one line names the device kernels that the
 library yardsticks (cuBLAS's batched DGEMM, scaled_dot_product_attention
-in bf16 and float32) run, from one torch.profiler pass each. Any failure
+in bf16 and float32) run, and one those of the port's float32 attention,
+from one torch.profiler pass each. Any failure
 exits non-zero and prints no result. The line before the last is a JSON
 object listing each kernel; the last line is {"ok": true, "device":
 {...}}.
@@ -159,10 +169,12 @@ from repro_torch.serving import ContinuousEngine, Request  # noqa: E402
 from repro_torch.utils.tree import tree_flatten  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, int8 ops/s,
-# bf16 tensor-core flop/s and float32 flop/s outside the tensor cores.
+# bf16 and TF32 tensor-core flop/s and float32 flop/s outside the tensor
+# cores.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 BF16_FLOPS_PER_S = 989e12
+TF32_FLOPS_PER_S = 495e12
 FP32_FLOPS_PER_S = 67e12
 L2_BYTES = 50 * 2 ** 20
 
@@ -224,6 +236,8 @@ ATTN_CASES = (
     ("recurrentgemma-2b MQA window 2048", 1, 10, 1, 4096, 4096, 256, True,
      2048, "bfloat16"),
     ("rectangular full", 1, 4, 4, 128, 512, 64, False, None, "float32"),
+    ("recurrentgemma-2b MQA window 2048", 1, 10, 1, 4096, 4096, 256, True,
+     2048, "float32"),
 )
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -586,9 +600,11 @@ def yardstick_kernels(fn, calls: int = 10) -> dict:
 def yardstick_phase(dev):
     """Which device kernels the library yardsticks run: cuBLAS's batched
     DGEMM at SCI_BATCHED and scaled_dot_product_attention at the first two
-    ATTN_CASES (bf16 and float32), on seeded inputs of those shapes. It
-    runs first: later in a long process the profiler was seen to keep only
-    some of a short pass's kernel events."""
+    ATTN_CASES (bf16 and float32), on seeded inputs of those shapes, and
+    the port's float32 K10 (its pre-pass and 3xTF32 kernel, by device
+    time) at the second; returns the latter. It runs first: later in a
+    long process the profiler was seen to keep only some of a short
+    pass's kernel events."""
     gen = torch.Generator(device=dev).manual_seed(20)
     ba = torch.randn(SCI_BATCHED, generator=gen, device=dev,
                      dtype=torch.float64)
@@ -604,6 +620,13 @@ def yardstick_phase(dev):
                                   enable_gqa=h != kvh)))
     log("[yardsticks] the device kernels each library call ran, ms a call: "
         + json.dumps(out))
+    # The port's float32 K10 in the same pass: its pre-pass and kernel by
+    # device time (CUDA events time the call with its host work).
+    attn = yardstick_kernels(lambda: flash_attn.flash_attention(
+        q, k, v, causal=causal))
+    log(f"[yardsticks] the port's K10 {label} {dt} D={d}, device ms a call: "
+        + json.dumps(attn))
+    return attn
 
 
 def profile_phase(dev, arch, params, view_tokens, runs):
@@ -1269,13 +1292,18 @@ def hoisted_shapes(mcfg):
 
 
 def hoisted_launches(mcfg):
-    """Launches and preps per hoisted step, by kernel form."""
+    """Launches and preps per hoisted step, by kernel form: each prepared
+    GEMM is an lhs encode and a plane GEMM, each prep (with its twin) two
+    encodes."""
     w = sum(c for _, _, tr, c in weight_shapes(mcfg) if not tr)
-    return {"prepared": sum(c for *_, c in hoisted_shapes(mcfg)),
+    prepared_ = sum(c for *_, c in hoisted_shapes(mcfg))
+    preps = w + HOIST_MICRO                      # the head, per microbatch
+    return {"prepared": prepared_, "planes": prepared_,
+            "encode": prepared_ + 2 * preps,
             "2d": HOIST_MICRO * (w + 1),                      # dB
             "batched": HOIST_MICRO * 2 * 4 * chunk_pairs(mcfg, TRAIN_SEQ)
             * mcfg.n_layers,                     # attn_qk and attn_av
-            "preps": w + HOIST_MICRO}            # the head, per microbatch
+            "preps": preps}
 
 
 def prepared_bound(m, k, n, p, in_bytes, out_bytes):
@@ -1289,38 +1317,55 @@ def prepared_bound(m, k, n, p, in_bytes, out_bytes):
 
 
 def prepared_kernel_phase(dev, mcfg):
-    """The prepared form against its plain version bit for bit, and
-    against the float-rhs form on the same operands, at olmo-1b's train
-    shapes (forward and dA, 1024 tokens and the hoisted step's 512),
-    ragged M, N and K, the tied head, bf16 and float32 at m in
-    HOIST_M_CHECK, float64 at one shape; then timed per hoisted step
-    beside its bound, its plain version and the float-rhs form."""
+    """The prepared form on the plane route (one lhs encode and one plane
+    GEMM against the weight's (p, N, Kp) planes, which one encode launch
+    wrote) against its plain version on the reference-layout stack and
+    against the float-rhs form on the same operands, bit for bit, at
+    olmo-1b's train shapes (forward and dA, 1024 tokens and the hoisted
+    step's 512), ragged M, N and K, the tied head, bf16 and float32 at m
+    in HOIST_M_CHECK, float32 against a bf16 weight, float64 at one shape,
+    every CUDA prep in the planes layout and every call's launches
+    counted; then timed per hoisted step (the lhs encode, the plane
+    GEMM's mainloop and its CRT apart, the weight encodes) beside its
+    bound, its plain version and the float-rhs form."""
     gen = torch.Generator(device=dev).manual_seed(15)
     d, f = mcfg.d_model, mcfg.d_ff
     vp = pad_vocab(mcfg.vocab)
     max_err = {"prepared": 0.0}
     checks = 0
 
-    def case(m, k, n, dtype, p, tr=False):
+    def case(m, k, n, dtype, p, tr=False, w_dtype=None):
+        w_dtype = w_dtype or dtype
         moduli = default_moduli(p)
         cfg = api.precision(f"ozaki2-m{p}")
-        b = make_weight(gen, k, n, tr, dtype, dev)
+        b = make_weight(gen, k, n, tr, w_dtype, dev)
         a = conditioned(gen, (m, k), dtype, dev)
+        what = f"emugemm2 prepared {(m, k, n)} {dtype} @ {w_dtype} m={p}"
+        reset_counts()
         prep = prepared.prepare_rhs(b, cfg)
-        if prep.layout != "fused":
-            raise AssertionError(f"a CUDA weight prepared as {prep.layout}")
+        if (prep.layout != "planes"
+                or prep.residues.shape != (p, n, ozaki2.plane_k(k))):
+            raise AssertionError(f"{what}: a CUDA weight prepared as "
+                                 f"{prep.layout} {tuple(prep.residues.shape)}")
         mu = scheme2._pow2_int_scale(a, -1, min(
             prep.budget_bits, scheme2.MANTISSA[dtype]))
         out = ozaki2.fused_matmul_scheme2_prepared(
             a, prep.residues, mu, prep.scale, moduli, dtype, n)
+        c = ozaki2.COUNTS
+        got = (c.launches_encode, c.launches_planes, c.launches_prepared,
+               c.launches_2d, c.launches_batched, c.plain_cuda_calls)
+        if got != (2, 1, 1, 0, 0, 0):
+            raise AssertionError(f"{what}: launches (encode, planes, "
+                                 f"prepared, 2d, batched, plain) {got}")
         ref = ozaki2.fused_matmul_scheme2_prepared_plain(
-            a, prep.residues, mu, prep.scale, moduli, dtype, n)
-        what = f"emugemm2 prepared {(m, k, n)} {dtype} m={p}"
+            a, prep.stacked(), mu, prep.scale, moduli, dtype, n)
         check_equal(what, out, ref, max_err, "prepared")
-        mu2, nu2 = scheme2.scales(a, b, moduli)
-        float_rhs = ozaki2.fused_matmul_scheme2(a, b, mu2, nu2, moduli, dtype)
-        if not torch.equal(out, float_rhs):
-            raise AssertionError(f"{what}: != the float-rhs form")
+        if w_dtype == dtype:
+            mu2, nu2 = scheme2.scales(a, b, moduli)
+            float_rhs = ozaki2.fused_matmul_scheme2(a, b, mu2, nu2, moduli,
+                                                    dtype)
+            if not torch.equal(out, float_rhs):
+                raise AssertionError(f"{what}: != the float-rhs form")
 
     cases = [(mm, k, n) for mm in (TOKENS, TOKENS // HOIST_MICRO)
              for k, n in ((d, d), (d, f), (f, d))]
@@ -1330,56 +1375,93 @@ def prepared_kernel_phase(dev, mcfg):
             for m, k, n in cases:
                 case(m, k, n, dtype, p)
                 checks += 1
+    for m, k, n in cases[3:6] + cases[-3:]:
+        case(m, k, n, torch.float32, M_MAIN, w_dtype=torch.bfloat16)
+        checks += 1
     for m, k, n, tr in ((TOKENS // HOIST_MICRO, d, vp, True),
                         (TOKENS // HOIST_MICRO, vp, d, False)):
         case(m, k, n, torch.bfloat16, M_MAIN, tr)
         checks += 1
     case(TOKENS, d, d, torch.float64, 16)
     checks += 1
-    log(f"[prepared-kernel] {checks} shape/type/moduli cases bit-identical "
-        "to the plain version and to the float-rhs form")
+    log(f"[prepared-kernel] {checks} shape/type/moduli cases on the plane "
+        "route (2 encodes a case, the weight's and the lhs's, and 1 plane "
+        "GEMM; every prep in the planes layout) bit-identical to the plain "
+        "version on the reference-layout stack and, for one operand type, "
+        "to the float-rhs form")
 
     # Timing at the hoisted step's configuration (bf16, m = 6), per shape
     # and summed over one step; each weight's planes rotate past the L2.
     bf, moduli = torch.bfloat16, default_moduli(M_MAIN)
     cfg = api.precision(f"ozaki2-m{M_MAIN}")
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
-              "ops_ms": 0.0, "yardstick_ms": 0.0, "float_rhs_ms": 0.0}
+              "ops_ms": 0.0, "yardstick_ms": 0.0, "float_rhs_ms": 0.0,
+              "encode_ms": 0.0, "planes_ms": 0.0, "mainloop_ms": 0.0,
+              "weight_encode_ms": 0.0}
     for lbl, m, k, n, tr, count in hoisted_shapes(mcfg):
         copies = max(1, math.ceil(2 * L2_BYTES / (M_MAIN * k * n)))
         bs = [make_weight(gen, k, n, tr, bf, dev) for _ in range(copies)]
         preps = [prepared.prepare_rhs(b, cfg) for b in bs]
+        stacks = [pr.stacked() for pr in preps]
         a = conditioned(gen, (m, k), bf, dev)
         mu = scheme2._pow2_int_scale(a, -1, preps[0].budget_bits)
         nus = [scheme2._pow2_int_scale(b, -2, preps[0].budget_bits)
                for b in bs]
+        ap = ozaki2.encode_planes(a, mu, moduli)
+        out = torch.empty((m, n), dtype=bf, device=dev)
         it = iter(range(10 ** 9))
 
         def rot(fn):
             def run():
                 i = next(it) % copies
-                fn(bs[i], nus[i], preps[i])
+                fn(bs[i], nus[i], preps[i], stacks[i])
             return run
 
-        ms = time_ms(rot(lambda b, nu, pr: ozaki2.fused_matmul_scheme2_prepared(
-            a, pr.residues, mu, pr.scale, moduli, bf, n)), 10)
+        ms = time_ms(rot(lambda b, nu, pr, st: ozaki2.
+                         fused_matmul_scheme2_prepared(
+                             a, pr.residues, mu, pr.scale, moduli, bf, n)), 10)
+        enc = time_ms(lambda: ozaki2.encode_planes(a, mu, moduli), 10)
+        planes = time_ms(rot(lambda b, nu, pr, st: ozaki2.plane_matmul(
+            ap, pr.residues, mu, pr.scale[:, :n], moduli, bf)), 10)
+        main = time_ms(rot(lambda b, nu, pr, st: ozaki2.launch_planes(
+            ap[:, None], pr.residues[:, None], mu, pr.scale[:, :n], moduli,
+            out, epilogue=False)), 10)
         plain = time_ms(rot(
-            lambda b, nu, pr: ozaki2.fused_matmul_scheme2_prepared_plain(
-                a, pr.residues, mu, pr.scale, moduli, bf, n)), 2)
-        float_rhs = time_ms(rot(lambda b, nu, pr: ozaki2.fused_matmul_scheme2(
-            a, b, mu, nu, moduli, bf)), 5)
+            lambda b, nu, pr, st: ozaki2.fused_matmul_scheme2_prepared_plain(
+                a, st, mu, pr.scale, moduli, bf, n)), 2)
+        float_rhs = time_ms(rot(lambda b, nu, pr, st: ozaki2.
+                                fused_matmul_scheme2(a, b, mu, nu, moduli,
+                                                     bf)), 5)
         yard = time_ms(int_mm_yardstick(gen, dev, 1, m, k, n, M_MAIN), 3)
         bms, by = prepared_bound(m, k, n, M_MAIN, 2, 2)
         _add(totals, count, ms, plain, yard, bms, by)
-        totals["float_rhs_ms"] += count * float_rhs
+        for key, t in (("float_rhs_ms", float_rhs), ("encode_ms", enc),
+                       ("planes_ms", planes), ("mainloop_ms", main)):
+            totals[key] += count * t
+        # The weight's encode (planes and twin): once a step for a layer
+        # weight (at its forward entry), once a microbatch for the head.
+        wenc = 0.0
+        if lbl.startswith("fwd"):
+            wenc = time_ms(rot(lambda b, nu, pr, st: prepared.prepare_rhs(
+                b, cfg, with_twin=True)), 5)
+            reps = HOIST_MICRO if tr else count // (HOIST_MICRO * 2)
+            totals["weight_encode_ms"] += reps * wenc
         log(f"[prepared-kernel] {lbl} M={m}{' (B transposed)' if tr else ''}"
-            f" x{count}/step: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"float-rhs form {float_rhs:.4f} ms, bound {bms:.4f} ms ({by}), "
-            f"yardstick torch._int_mm x{M_MAIN} {yard:.4f} ms")
-        del bs, preps
-    log(f"[prepared-kernel] per hoisted step: kernel {totals['ms']:.3f} ms, "
-        f"plain {totals['plain_ms']:.3f} ms, float-rhs form "
-        f"{totals['float_rhs_ms']:.3f} ms, bound {totals['bound_ms']:.3f} ms")
+            f" x{count}/step: route {ms:.4f} ms (lhs encode {enc:.4f}, plane "
+            f"GEMM {planes:.4f}: mainloop {main:.4f}, CRT {planes - main:.4f}"
+            f"), plain {plain:.4f} ms, float-rhs form {float_rhs:.4f} ms, "
+            f"bound {bms:.4f} ms ({by}), yardstick torch._int_mm x{M_MAIN} "
+            f"{yard:.4f} ms" + (f"; weight + twin encode {wenc:.4f} ms"
+                                if wenc else ""))
+        del bs, preps, stacks
+    totals["crt_ms"] = totals["planes_ms"] - totals["mainloop_ms"]
+    log(f"[prepared-kernel] per hoisted step: route {totals['ms']:.3f} ms "
+        f"(lhs encodes {totals['encode_ms']:.3f}, plane GEMMs "
+        f"{totals['planes_ms']:.3f}: mainloop {totals['mainloop_ms']:.3f}, "
+        f"CRT {totals['crt_ms']:.3f}), weight encodes "
+        f"{totals['weight_encode_ms']:.3f} ms, plain {totals['plain_ms']:.3f}"
+        f" ms, float-rhs form {totals['float_rhs_ms']:.3f} ms, bound "
+        f"{totals['bound_ms']:.3f} ms")
     return max_err, totals
 
 
@@ -1408,8 +1490,9 @@ def hoisted_train_phase(dev, arch, card: str):
     tok_s = TRAIN_STEPS * TOKENS / sum(walls)
     n_run = 1 + TRAIN_STEPS
     plain = k1.plain_cuda_calls + k2.plain_cuda_calls + k3.plain_cuda_calls
-    launches = {"prepared": k3.launches_prepared, "2d": k3.launches_2d,
-                "batched": k3.launches_batched,
+    launches = {"prepared": k3.launches_prepared,
+                "encode": k3.launches_encode, "planes": k3.launches_planes,
+                "2d": k3.launches_2d, "batched": k3.launches_batched,
                 "residues": k3.launches_residues,
                 "emugemm1": k1.launches_2d + k1.launches_batched
                 + k1.launches_mixed,
@@ -1424,10 +1507,10 @@ def hoisted_train_phase(dev, arch, card: str):
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite training loss {losses}")
     expect = hoisted_launches(mcfg)
-    got = (k3.launches_prepared, k3.launches_2d, k3.launches_batched,
-           n_preps)
-    want = tuple(n_run * expect[k]
-                 for k in ("prepared", "2d", "batched", "preps"))
+    got = (k3.launches_prepared, k3.launches_encode, k3.launches_planes,
+           k3.launches_2d, k3.launches_batched, n_preps)
+    want = tuple(n_run * expect[k] for k in ("prepared", "encode", "planes",
+                                             "2d", "batched", "preps"))
     if got != want or launches["emugemm1"] or launches["decompose"]:
         raise AssertionError(f"launches or preps {got} differ from the "
                              f"per-step accounting {want} ({expect})")
@@ -2071,16 +2154,29 @@ def int8_bound(m, k, n):
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
-def attn_bound(b, h, kvh, sq, sk, d, causal, window, dtype):
+def attn_bound(b, h, kvh, sq, sk, d, causal, window, kernel):
     """q, k, v and o moved once, against 4 D flops for every (q, k) pair
     a head sees (half the pairs, plus the diagonal, when causal with
-    S_q = S_k) at the bf16 tensor-core or the float32 peak."""
-    size = 2 if dtype == torch.bfloat16 else 4
+    S_q = S_k) at the peak of the kernel's arithmetic: the bf16 tensor
+    cores ('wgmma'), three times the flops at the TF32 peak
+    ('wgmma-3xtf32'), or float32 outside the tensor cores ('ffma')."""
+    size = 2 if kernel == "wgmma" else 4
     moved = size * d * (2 * b * h * sq + 2 * b * kvh * sk)
     pairs = int(flash_attn.visible(sq, sk, causal, window).sum())
-    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
-    t_b, t_o = moved / HBM_BYTES_PER_S, 4 * b * h * d * pairs / peak
+    flops = 4 * b * h * d * pairs
+    t_b = moved / HBM_BYTES_PER_S
+    t_o = {"wgmma": flops / BF16_FLOPS_PER_S,
+           "wgmma-3xtf32": 3 * flops / TF32_FLOPS_PER_S,
+           "ffma": flops / FP32_FLOPS_PER_S}[kernel]
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def split_bound(b, h, kvh, sq, sk, d):
+    """The 3xTF32 pre-pass: float32 q, k, v read once, both parts of q, k
+    and of v^T (keys padded to 32) written once."""
+    skp = -(-sk // 32) * 32
+    moved = 4 * d * (3 * b * h * sq + 4 * b * kvh * sk + 2 * b * kvh * skp)
+    return 1e3 * moved / HBM_BYTES_PER_S, "bytes"
 
 
 def library_counts():
@@ -2145,7 +2241,8 @@ def library_phase(dev, mcfg):
     through the library's entry points with the counts read around them,
     and timed beside their bounds and library calls."""
     gen = torch.Generator(device=dev).manual_seed(19)
-    max_err = {"interleaved": 0.0, "lhs": 0.0, "int8": 0.0, "flash": 0.0}
+    max_err = {"interleaved": 0.0, "lhs": 0.0, "int8": 0.0, "flash": 0.0,
+               "flash_f32": 0.0, "split": 0.0}
     shapes = dense_shapes(mcfg)
 
     # (a) K11 and K8, bit for bit: against the plain versions, K11 + K2r
@@ -2224,15 +2321,21 @@ def library_phase(dev, mcfg):
     counts = library_counts()
     e1, dc = counts["emugemm1"], counts["decompose"]
     n_mm = p * (p + 1) // 2
+    kernels = [flash_attn.instance(getattr(torch, c[9]), c[6]).kernel
+               for c in ATTN_CASES]
     log(f"[library] main path: K8 {e1.launches_interleaved}, K11 "
         f"{dc.launches_lhs}, K2r {dc.launches_rhs}, K9 "
-        f"{counts['int8'].launches}, K10 {counts['flash'].launches}, K1 "
-        f"{e1.launches_2d}, plain versions on CUDA "
-        f"{sum(c.plain_cuda_calls for c in counts.values())}")
+        f"{counts['int8'].launches}, K10 {counts['flash'].launches} "
+        f"({', '.join(kernels)}; the 3xTF32 pre-pass "
+        f"{counts['flash'].launches_split}), K1 {e1.launches_2d}, plain "
+        f"versions on CUDA {sum(c.plain_cuda_calls for c in counts.values())}")
+    fl = counts["flash"]
     expected = (2 * len(shapes), len(shapes), len(shapes), n_mm,
-                len(ATTN_CASES), 0)
+                len(ATTN_CASES), kernels.count("wgmma-3xtf32"),
+                kernels.count("ffma"), kernels.count("wgmma-3xtf32"), 0)
     got = (e1.launches_interleaved, dc.launches_lhs, dc.launches_rhs,
-           counts["int8"].launches, counts["flash"].launches, e1.launches_2d)
+           counts["int8"].launches, fl.launches, fl.launches_3xtf32,
+           fl.launches_ffma, fl.launches_split, e1.launches_2d)
     if got != expected:
         raise AssertionError(f"library main path launches {got}, expected "
                              f"{expected}")
@@ -2248,11 +2351,21 @@ def library_phase(dev, mcfg):
         raise AssertionError("the naive K9 composition != K1")
     for c, (q, k, v), out in zip(ATTN_CASES, qkvs, attn):
         check_close(f"K10 {c}", out, flash_attn.flash_attention_plain(
-            q, k, v, c[7], c[8]), ATTN_TOL[c[9]], max_err, "flash")
+            q, k, v, c[7], c[8]), ATTN_TOL[c[9]], max_err,
+            "flash" if c[9] == "bfloat16" else "flash_f32")
+    for c, (q, k, v), kernel in zip(ATTN_CASES, qkvs, kernels):
+        if kernel == "wgmma-3xtf32":
+            parts = flash_attn.split_3xtf32(q, k, v)
+            plain = flash_attn.split_3xtf32_plain(q, k, v)
+            for x, y in zip(parts, plain):
+                check_equal(f"K10 3xTF32 pre-pass {c}", x, y, max_err,
+                            "split")
+            del parts, plain
     log(f"[library] on the main path the 'xla' route == K11 + K2r -> K8 == "
         f"K1, the naive K9 composition at {NAIVE_N}^3 == K1, and K10 within "
-        f"its bars in {len(ATTN_CASES)} cases (max |diff| "
-        f"{max_err['flash']:.3g})")
+        f"its bars in {len(ATTN_CASES)} cases (max |diff| bf16 "
+        f"{max_err['flash']:.3g}, float32 {max_err['flash_f32']:.3g}); the "
+        "3xTF32 pre-pass bit-identical to its plain version")
     del routed, composed, naive, attn
 
     # Times. K8 and K11 summed over one launch at each dense shape.
@@ -2307,13 +2420,16 @@ def library_phase(dev, mcfg):
 
     # K10 beside its bound and, where it runs the case without an explicit
     # mask, scaled_dot_product_attention (the library call).
+    # The float32 rows also beside the FFMA bound, with the pre-pass timed
+    # alone and the device kernels one call runs (torch.profiler).
     t10 = []
-    for c, (q, k, v) in zip(ATTN_CASES, qkvs):
+    for c, (q, k, v), kernel in zip(ATTN_CASES, qkvs, kernels):
         label, b_, h, kvh, sq, sk, d, causal, window, dt = c
-        dtype = getattr(torch, dt)
-        fast = dtype == torch.bfloat16
-        ms = time_ms(lambda: flash_attn.flash_attention(
-            q, k, v, causal=causal, window=window), 10 if fast else 3)
+
+        def run():
+            return flash_attn.flash_attention(q, k, v, causal=causal,
+                                              window=window)
+        ms = time_ms(run, 10)
         plain = time_ms(lambda: flash_attn.flash_attention_plain(
             q, k, v, causal, window), 3)
         lib = None
@@ -2321,19 +2437,36 @@ def library_phase(dev, mcfg):
             lib = time_ms(lambda: torch.nn.functional.
                           scaled_dot_product_attention(
                               q, k, v, is_causal=causal,
-                              enable_gqa=h != kvh), 10 if fast else 3)
-        bms, by = attn_bound(b_, h, kvh, sq, sk, d, causal, window, dtype)
-        t10.append({"case": label, "shape": [b_, h, kvh, sq, sk, d],
-                    "causal": causal, "window": window, "dtype": dt,
-                    "instance": dataclasses.asdict(
-                        flash_attn.instance(dtype, d)),
-                    "ms": ms, "plain_ms": plain, "library_ms": lib,
-                    "bound_ms": bms, "bound_by": by})
+                              enable_gqa=h != kvh), 10)
+        bms, by = attn_bound(b_, h, kvh, sq, sk, d, causal, window, kernel)
+        row = {"case": label, "shape": [b_, h, kvh, sq, sk, d],
+               "causal": causal, "window": window, "dtype": dt,
+               "instance": dataclasses.asdict(
+                   flash_attn.instance(getattr(torch, dt), d)),
+               "ms": ms, "plain_ms": plain, "library_ms": lib,
+               "bound_ms": bms, "bound_by": by}
+        if dt == "float32":
+            row["bound_ffma_ms"] = attn_bound(b_, h, kvh, sq, sk, d, causal,
+                                              window, "ffma")[0]
+            row["device_kernels_ms"] = yardstick_kernels(run, 3)
+        if kernel == "wgmma-3xtf32":
+            row["split_ms"] = time_ms(
+                lambda: flash_attn.split_3xtf32(q, k, v), 10)
+            row["split_plain_ms"] = time_ms(
+                lambda: flash_attn.split_3xtf32_plain(q, k, v), 3)
+            row["split_bound_ms"] = split_bound(b_, h, kvh, sq, sk, d)[0]
+        t10.append(row)
         log(f"[library] K10 {label} {dt} B={b_} H={h}/{kvh} S={sq}/{sk} "
-            f"D={d}: kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa "
-            f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
-            f"{bms:.4f} ms ({by})")
+            f"D={d} ({kernel}): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"sdpa {'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
+            f"{bms:.4f} ms ({by})" + "".join(
+                f", {key} {row[key]}" for key in (
+                    "bound_ffma_ms", "split_ms", "split_plain_ms",
+                    "split_bound_ms", "device_kernels_ms") if key in row))
     del qkvs
+
+    f32 = next(r for r in t10 if r["instance"]["kernel"] == "wgmma-3xtf32")
+    ffma = next(r for r in t10 if r["instance"]["kernel"] == "ffma")
 
     def totals(t):
         return {"ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -2364,14 +2497,42 @@ def library_phase(dev, mcfg):
          "cases": t9, "naive_fig4_ms": naive_ms, "fused_k1_ms": fused_ms},
         {"name": "flash_attention", **common, "source": SOURCE_FLASH,
          "replaces": "src/repro/kernels/flash_attn.py:75",
-         "launches": counts["flash"].launches,
+         "launches": fl.launches - fl.launches_3xtf32 - fl.launches_ffma,
          "max_abs_err": max_err["flash"],
          **{key: t10[0][key] for key in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
          "per": f"one call at {ATTN_CASES[0][0]} {ATTN_CASES[0][9]} "
-                f"{list(t10[0]['shape'])}; library: "
-                "scaled_dot_product_attention (launches: one per case)",
+                f"{list(t10[0]['shape'])} on the bf16 wgmma kernel; "
+                "library: scaled_dot_product_attention (launches: one per "
+                "bf16 case)",
          "cases": t10},
+        {"name": "flash_attention_3xtf32", **common, "source": SOURCE_FLASH,
+         "replaces": "src/repro/kernels/flash_attn.py:75",
+         "launches": fl.launches_3xtf32, "max_abs_err": max_err["flash_f32"],
+         **{key: f32[key] for key in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms",
+                                      "bound_ffma_ms", "split_ms")},
+         "per": f"one call at {f32['case']} float32 {list(f32['shape'])}: "
+                "the pre-pass and the 3xTF32 wgmma kernel; bound: 3 TF32 "
+                "products at the TF32 peak; library: "
+                "scaled_dot_product_attention (launches: one per float32 "
+                "case at D <= 128)"},
+        {"name": "flash_split_3xtf32", **common, "source": SOURCE_FLASH,
+         "replaces": "src/repro/kernels/flash_attn.py:75",
+         "launches": fl.launches_split, "max_abs_err": max_err["split"],
+         "ms": f32["split_ms"], "plain_ms": f32["split_plain_ms"],
+         "bound_ms": f32["split_bound_ms"], "bound_by": "bytes",
+         "library_ms": None,
+         "per": f"the 3xTF32 pre-pass of one call at {f32['case']} float32 "
+                "(launches: one per 3xTF32 call)"},
+        {"name": "flash_attention_ffma", **common, "source": SOURCE_FLASH,
+         "replaces": "src/repro/kernels/flash_attn.py:75",
+         "launches": fl.launches_ffma, "max_abs_err": max_err["flash_f32"],
+         **{key: ffma[key] for key in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")},
+         "per": f"one call at {ffma['case']} float32 {list(ffma['shape'])} "
+                "(D = 256: the 3xTF32 kernel's q parts would not fit); "
+                "library: none without an explicit mask"},
     ]
 
 
@@ -2399,7 +2560,7 @@ def main() -> int:
     card = smi.stdout.strip()
     log(card)
     build_phase()
-    yardstick_phase(dev)
+    k10_f32_kernels = yardstick_phase(dev)
 
     arch = configs.get_config("olmo-1b")
     view_tokens = PAGE * math.ceil((PROMPT + GEN - 1 + CHUNK) / PAGE)
@@ -2540,13 +2701,20 @@ def main() -> int:
                  f"tokens; launches: the warm-up and {TRAIN_STEPS} timed "
                  "steps)")
     kernels.append({
-        "name": "emugemm2_prepared", **common, "source": SOURCE2,
+        "name": "emugemm2_prepared", **common, "source": SOURCE_PLANES,
         "replaces": "src/repro/kernels/backends/gpu.py:359",
         "launches": hk.launches_prepared, "max_abs_err": p_err["prepared"],
         "ms": p_totals["ms"], "plain_ms": p_totals["plain_ms"],
         "bound_ms": p_totals["bound_ms"], "bound_by": bound_by(p_totals),
-        "float_rhs_ms": p_totals["float_rhs_ms"],
-        "int_mm_yardstick_ms": p_totals["yardstick_ms"], "per": hoist_per})
+        **{k: p_totals[k] for k in ("encode_ms", "planes_ms", "mainloop_ms",
+                                    "crt_ms", "weight_encode_ms",
+                                    "float_rhs_ms")},
+        "launches_encode": hk.launches_encode,
+        "launches_planes": hk.launches_planes,
+        "int_mm_yardstick_ms": p_totals["yardstick_ms"],
+        "per": hoist_per + "; the plane route: an lhs encode (real float32 "
+               "/ bf16 instances) and a plane GEMM a call, the weights' "
+               "encodes apart"})
     for row in kernels:
         if row["name"] in ("emugemm2_2d", "emugemm2_batched"):
             row["launches_in_hoisted_train"] = (
@@ -2613,6 +2781,11 @@ def main() -> int:
         "max_abs_err": sci_err["3m_residues"], **sci_res["3m_residues"],
         "int_mm_yardstick_ms": zgemm["int_mm_yardstick_ms"],
         "per": sci_per.format("3p-product residue GEMM of the ZGEMM route")})
+    for row in library_rows:
+        if row["name"] in ("flash_attention_3xtf32", "flash_split_3xtf32"):
+            row["device_kernels_ms"] = {
+                k: v for k, v in k10_f32_kernels.items()
+                if ("split" in k) == (row["name"] == "flash_split_3xtf32")}
     kernels += library_rows
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

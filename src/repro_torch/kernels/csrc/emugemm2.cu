@@ -2,21 +2,18 @@
 //
 // Replaces the Pallas kernels of the JAX package
 //   src/repro/kernels/backends/gpu.py  fused_matmul_scheme2 (_kernel2, float rhs), 2-D launch
-//   src/repro/kernels/backends/gpu.py  fused_matmul_scheme2 (_kernel2, b_res), prepared launch
 //   src/repro/kernels/backends/gpu.py  fused_matmul_scheme2_batched, batched launch
 //   src/repro/kernels/ozaki2.py        fused_residue_matmul (_kernel), residue launch
-// with one source and four launch forms: a 2-D grid over (BN, BM) output
-// tiles; the prepared form, the same grid with the rhs given as its
-// (p, K, N) int8 balanced residues (a prepared weight), whose planes are
-// read straight into the MMA tiles, so the prologue integerizes only the
-// lhs; the 2-D grid strided over a batch on blockIdx.z; and the residue
+// with one source and three launch forms: a 2-D grid over (BN, BM) output
+// tiles; the 2-D grid strided over a batch on blockIdx.z; and the residue
 // form, whose grid runs over the p moduli on blockIdx.z and which takes
 // int8 residues in and writes balanced int8 residues out.
 //
-// Operand types: float32 and bfloat16 (attention scores), and a float64
-// lhs in the prepared form; outputs float32, bfloat16 and float64. A
-// product of float64 operands, 2-D (a DGEMM) or batched, takes the plane
-// route of emugemm2_planes.cu instead (kernels/ozaki2.py).
+// Operand types: float32 and bfloat16 (attention scores, dB of a prepared
+// weight); outputs float32, bfloat16 and float64. A product of float64
+// operands, 2-D (a DGEMM) or batched, and the prepared form (a float lhs
+// against a weight's stored residue planes) take the plane route of
+// emugemm2_planes.cu instead (kernels/ozaki2.py).
 //
 // What one block of the fused forms computes, for its (BM, BN) output tile:
 //   * prologue, once per K strip of BK: stage a (BM, BK) strip of A and a
@@ -40,11 +37,7 @@
 // Rows, columns and K steps past the edge are staged as zeros: a zero
 // element has zero residues, so ragged shapes need no padding copy.
 // Operands are read through strides, so the transposed views of the
-// batched backward (B^T, A^T) are read in place. The prepared form skips
-// the rhs half of the prologue: per modulus, the (BK, BN) tile of that
-// modulus's residue plane is copied into the MMA tile as it is stored
-// (four bytes at a time when the rows allow), so the weight is read p
-// bytes an element instead of once in its float type, and never carved.
+// batched backward (B^T, A^T) are read in place.
 //
 // Registers and shared memory: the moduli run INSIDE the strip loop, one
 // at a time. With up to 16 moduli and a 64x64 tile, holding every
@@ -54,8 +47,7 @@
 // into the modulus's parked residue tile, p * BM * BN bytes of dynamic
 // shared memory (64 KB at p = 16). Each strip is read from device memory
 // and integerized once for all p moduli; only the carve (a modulo per
-// element and modulus) repeats, from shared memory. A float64 strip pair
-// takes 66 KB, twice the int32 pair.
+// element and modulus) repeats, from shared memory.
 //
 // Numerics: see scheme2_common.cuh. The plain version is
 // repro_torch.kernels.ozaki2.fused_matmul_scheme2_plain.
@@ -83,30 +75,23 @@ constexpr int BK = 64;          // the K strip, staged once for all moduli
 constexpr int LDA = BK + 1;     // strip row strides, padded so that
 constexpr int LDB = BN + 1;     // column walks hit distinct banks
 
-// The prepared form (RES) stages no rhs strip: its residues are read per
-// modulus.
-template <typename TA, typename TB, bool RES>
+// The integerized strips of A and B (int32 for float32 and bf16).
+template <typename TA, typename TB>
 __host__ __device__ constexpr int strip_bytes() {
-  return BM * LDA * sizeof(typename Num<TA>::S) +
-         (RES ? 0 : BK * LDB * sizeof(typename Num<TB>::S));
+  return BM * LDA * sizeof(typename Num<TA>::S) + BK * LDB * sizeof(typename Num<TB>::S);
 }
 
-// Three blocks a streaming multiprocessor for float32 and bf16 (80
+// Three blocks a streaming multiprocessor for a float32 or bf16 output (80
 // registers, no spills at the -O3 of kernels/build.py), which the shared
-// memory allows up to p = 6; one where float64 is involved (its strips and
-// double-double need more of both).
-template <typename TA, typename TB, typename O>
+// memory allows up to p = 6; one for a float64 output (its double-double
+// needs more registers).
+template <typename O>
 __host__ __device__ constexpr int min_blocks() {
-  return sizeof(typename Num<TA>::W) == 8 || sizeof(typename Num<TB>::W) == 8 || sizeof(O) == 8
-             ? 1
-             : 3;
+  return sizeof(O) == 8 ? 1 : 3;
 }
 
-// RES: b points at the (p, K, N) int8 residue stack of a prepared weight,
-// sbb is its plane stride and sbn must be 1; nu is still in TB, the
-// weight's type.
-template <typename TA, typename TB, typename O, bool RES>
-__global__ void __launch_bounds__(NT, (min_blocks<TA, TB, O>()))
+template <typename TA, typename TB, typename O>
+__global__ void __launch_bounds__(NT, (min_blocks<O>()))
 emugemm2_kernel(const TA* __restrict__ a, const TB* __restrict__ b,
                 const TA* __restrict__ mu, const TB* __restrict__ nu,
                 O* __restrict__ out, int M, int N, int K,
@@ -124,13 +109,13 @@ emugemm2_kernel(const TA* __restrict__ a, const TB* __restrict__ b,
   extern __shared__ __align__(128) uint8_t dyn[];
   SA* sAi = reinterpret_cast<SA*>(dyn);                               // [BM][LDA]
   SB* sBi = reinterpret_cast<SB*>(dyn + BM * LDA * sizeof(SA));       // [BK][LDB]
-  uint8_t* park = dyn + strip_bytes<TA, TB, RES>();                   // [p][BM * BN]
+  uint8_t* park = dyn + strip_bytes<TA, TB>();                        // [p][BM * BN]
 
   const long long bz = blockIdx.z;
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
   a += bz * sab;
-  if constexpr (!RES) b += bz * sbb;
+  b += bz * sbb;
   mu += bz * M;
   nu += bz * N;
   out += bz * M * static_cast<long long>(N);
@@ -142,11 +127,6 @@ emugemm2_kernel(const TA* __restrict__ a, const TB* __restrict__ b,
   for (int i = tid; i < BM; i += NT) sMu[i] = m0 + i < M ? widen(mu[m0 + i]) : WA(0);
   for (int i = tid; i < BN; i += NT) sNu[i] = n0 + i < N ? widen(nu[n0 + i]) : WB(0);
   for (int i = tid; i < p * BM * BN / 4; i += NT) reinterpret_cast<int*>(park)[i] = 0;
-  // The prepared form reads its residue rows four bytes at a time where
-  // they and the base are 4-byte aligned.
-  const int8_t* res = reinterpret_cast<const int8_t*>(b);
-  const bool vec_res = RES && (N & 3) == 0 && (sbk & 3) == 0 && (sbb & 3) == 0 &&
-                       (reinterpret_cast<uintptr_t>(res) & 3) == 0;
   __syncthreads();
 
   for (int k0 = 0; k0 < K; k0 += BK) {
@@ -160,15 +140,13 @@ emugemm2_kernel(const TA* __restrict__ a, const TB* __restrict__ b,
       sAi[mm * LDA + kk] =
           gm < M && gk < K ? integerize(widen(a[gm * sam + gk * sak]), sMu[mm], TA()) : SA(0);
     }
-    if constexpr (!RES) {
 #pragma unroll 4
-      for (int e = tid; e < BK * BN; e += NT) {
-        int kk, nn;
-        if (sbn == 1) { kk = e / BN; nn = e % BN; } else { nn = e / BK; kk = e % BK; }
-        const int gk = k0 + kk, gn = n0 + nn;
-        sBi[kk * LDB + nn] =
-            gk < K && gn < N ? integerize(widen(b[gk * sbk + gn * sbn]), sNu[nn], TB()) : SB(0);
-      }
+    for (int e = tid; e < BK * BN; e += NT) {
+      int kk, nn;
+      if (sbn == 1) { kk = e / BN; nn = e % BN; } else { nn = e / BK; kk = e % BK; }
+      const int gk = k0 + kk, gn = n0 + nn;
+      sBi[kk * LDB + nn] =
+          gk < K && gn < N ? integerize(widen(b[gk * sbk + gn * sbn]), sNu[nn], TB()) : SB(0);
     }
     __syncthreads();
 
@@ -179,29 +157,10 @@ emugemm2_kernel(const TA* __restrict__ a, const TB* __restrict__ b,
         const int mm = e / BK, kk = e % BK;
         sA[a_off(mm, kk)] = balanced(sAi[mm * LDA + kk], md);
       }
-      if constexpr (RES) {
-        // The prepared weight's plane l, as stored.
-        const int8_t* plane = res + l * sbb;
-        if (vec_res) {
-          for (int e = tid; e < BK * BN / 4; e += NT) {
-            const int kk = e / (BN / 4), nn = (e % (BN / 4)) * 4;
-            const int gk = k0 + kk, gn = n0 + nn;
-            *reinterpret_cast<int*>(sB + b_off(kk, nn)) =
-                gk < K && gn < N ? *reinterpret_cast<const int*>(plane + gk * sbk + gn) : 0;
-          }
-        } else {
-          for (int e = tid; e < BK * BN; e += NT) {
-            const int kk = e / BN, nn = e % BN;
-            const int gk = k0 + kk, gn = n0 + nn;
-            sB[b_off(kk, nn)] = gk < K && gn < N ? plane[gk * sbk + gn] : int8_t(0);
-          }
-        }
-      } else {
 #pragma unroll 4
-        for (int e = tid; e < BK * BN; e += NT) {
-          const int kk = e / BN, nn = e % BN;
-          sB[b_off(kk, nn)] = balanced(sBi[kk * LDB + nn], md);
-        }
+      for (int e = tid; e < BK * BN; e += NT) {
+        const int kk = e / BN, nn = e % BN;
+        sB[b_off(kk, nn)] = balanced(sBi[kk * LDB + nn], md);
       }
       __syncthreads();
       FragAcc acc[FW];
@@ -305,21 +264,21 @@ emugemm2_residues_kernel(const int8_t* __restrict__ a, const int8_t* __restrict_
   });
 }
 
-template <typename TA, typename TB, typename O, bool RES>
+template <typename TA, typename TB, typename O>
 int launch(const void* a, const void* b, const void* mu, const void* nu, void* out, int batch,
            int M, int N, int K, long long sab, long long sam, long long sak, long long sbb,
            long long sbk, long long sbn, const Crt& crt, cudaStream_t stream) {
-  constexpr int strip = strip_bytes<TA, TB, RES>();
+  constexpr int strip = strip_bytes<TA, TB>();
   static bool configured = false;
   if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(emugemm2_kernel<TA, TB, O, RES>,
+    const cudaError_t err = cudaFuncSetAttribute(emugemm2_kernel<TA, TB, O>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  strip + MAXP * BM * BN);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, batch);
-  emugemm2_kernel<TA, TB, O, RES><<<grid, NT, strip + crt.p * BM * BN, stream>>>(
+  emugemm2_kernel<TA, TB, O><<<grid, NT, strip + crt.p * BM * BN, stream>>>(
       static_cast<const TA*>(a), static_cast<const TB*>(b), static_cast<const TA*>(mu),
       static_cast<const TB*>(nu), static_cast<O*>(out), M, N, K, sab, sam, sak, sbb, sbk, sbn,
       crt);
@@ -329,14 +288,14 @@ int launch(const void* a, const void* b, const void* mu, const void* nu, void* o
 // Operand types: 0 float32, 1 bfloat16, 2 float64.
 enum { F32 = 0, BF16 = 1, F64 = 2 };
 
-template <typename O, bool RES>
+template <typename O>
 int launch_ab(int ta, int tb, const void* a, const void* b, const void* mu, const void* nu,
               void* out, int batch, int M, int N, int K, long long sab, long long sam,
               long long sak, long long sbb, long long sbk, long long sbn, const Crt& crt,
               cudaStream_t st) {
 #define EMUGEMM2_LAUNCH(TA_, TB_)                                                          \
-  return launch<TA_, TB_, O, RES>(a, b, mu, nu, out, batch, M, N, K, sab, sam, sak, sbb, sbk, \
-                                  sbn, crt, st)
+  return launch<TA_, TB_, O>(a, b, mu, nu, out, batch, M, N, K, sab, sam, sak, sbb, sbk, \
+                             sbn, crt, st)
   if (ta == F32 && tb == F32) EMUGEMM2_LAUNCH(float, float);
   if (ta == F32 && tb == BF16) EMUGEMM2_LAUNCH(float, __nv_bfloat16);
   if (ta == BF16 && tb == F32) EMUGEMM2_LAUNCH(__nv_bfloat16, float);
@@ -346,36 +305,22 @@ int launch_ab(int ta, int tb, const void* a, const void* b, const void* mu, cons
 }
 
 // The instances: float32 and bf16 operands in any pairing with a float32,
-// bf16 or float64 output; in the prepared form also a float64 lhs against
-// a float64 weight with a float64 or float32 output ("operand B's type" is
-// that of nu). Two float64 operands take the plane route
-// (emugemm2_planes.cu), so the fused forms have no float64 instance.
-template <bool RES>
+// bf16 or float64 output. Float64 operands take the plane route
+// (emugemm2_planes.cu), so there is no float64 operand instance.
 int launch_types(int ta, int tb, int to, const void* a, const void* b, const void* mu,
                  const void* nu, void* out, int batch, int M, int N, int K, long long sab,
                  long long sam, long long sak, long long sbb, long long sbk, long long sbn,
                  const Crt& crt, cudaStream_t st) {
-  if (ta == F64 || tb == F64) {
-    if constexpr (RES) {
-      if (ta != F64 || tb != F64) return -1;
-      if (to == F64)
-        return launch<double, double, double, RES>(a, b, mu, nu, out, batch, M, N, K, sab, sam,
-                                                   sak, sbb, sbk, sbn, crt, st);
-      if (to == F32)
-        return launch<double, double, float, RES>(a, b, mu, nu, out, batch, M, N, K, sab, sam,
-                                                  sak, sbb, sbk, sbn, crt, st);
-    }
-    return -1;
-  }
+  if (ta == F64 || tb == F64) return -1;
   if (to == F32)
-    return launch_ab<float, RES>(ta, tb, a, b, mu, nu, out, batch, M, N, K, sab, sam, sak, sbb,
-                                 sbk, sbn, crt, st);
+    return launch_ab<float>(ta, tb, a, b, mu, nu, out, batch, M, N, K, sab, sam, sak, sbb, sbk,
+                            sbn, crt, st);
   if (to == BF16)
-    return launch_ab<__nv_bfloat16, RES>(ta, tb, a, b, mu, nu, out, batch, M, N, K, sab, sam,
-                                         sak, sbb, sbk, sbn, crt, st);
+    return launch_ab<__nv_bfloat16>(ta, tb, a, b, mu, nu, out, batch, M, N, K, sab, sam, sak,
+                                    sbb, sbk, sbn, crt, st);
   if (to == F64)
-    return launch_ab<double, RES>(ta, tb, a, b, mu, nu, out, batch, M, N, K, sab, sam, sak, sbb,
-                                  sbk, sbn, crt, st);
+    return launch_ab<double>(ta, tb, a, b, mu, nu, out, batch, M, N, K, sab, sam, sak, sbb, sbk,
+                             sbn, crt, st);
   return -1;
 }
 
@@ -397,25 +342,8 @@ extern "C" int emugemm2(const void* a, const void* b, const void* mu, const void
   if (batch <= 0 || M <= 0 || N <= 0 || K <= 0) return -1;
   Crt crt;
   if (make_crt(p, moduli, inv, crt) != 0) return -1;
-  return launch_types<false>(ta, tb, to, a, b, mu, nu, out, batch, M, N, K, sab, sam, sak, sbb,
-                             sbk, sbn, crt, static_cast<cudaStream_t>(stream));
-}
-
-// The prepared form: A (M, K) through strides, mu (M) in A's type; the
-// weight's p balanced int8 residue planes b_res, plane l at b_res + l *
-// sbp, element (k, n) at k * sbk + n (K and N may be padded past the
-// logical M, N, K given here; the padding is never read); nu (N) in type
-// tb, contiguous; out (M, N) contiguous.
-extern "C" int emugemm2_prepared(const void* a, const int8_t* b_res, const void* mu,
-                                 const void* nu, void* out, int M, int N, int K, long long sam,
-                                 long long sak, long long sbp, long long sbk, int ta, int tb,
-                                 int to, int p, const int* moduli, const int* inv,
-                                 void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0) return -1;
-  Crt crt;
-  if (make_crt(p, moduli, inv, crt) != 0) return -1;
-  return launch_types<true>(ta, tb, to, a, b_res, mu, nu, out, 1, M, N, K, 0, sam, sak, sbp, sbk,
-                            1, crt, static_cast<cudaStream_t>(stream));
+  return launch_types(ta, tb, to, a, b, mu, nu, out, batch, M, N, K, sab, sam, sak, sbb, sbk, sbn,
+                      crt, static_cast<cudaStream_t>(stream));
 }
 
 // The residue form: a_res (p, M, K) and b_res (p, K, N) int8 through

@@ -1,14 +1,18 @@
-// EmuGEMM-II's plane route for Hopper (sm_90a): DGEMM- and ZGEMM-grade
-// Scheme II as an encode kernel and a TMA-fed wgmma plane GEMM.
+// EmuGEMM-II's plane route for Hopper (sm_90a): Scheme II as an encode
+// kernel and a TMA-fed wgmma plane GEMM.
 //
-// Replaces, for float64 operands and for every complex product, the Pallas
-// kernels of the JAX package
+// Replaces, for float64 operands, for every complex product and for the
+// prepared form, the Pallas kernels of the JAX package
 //   src/repro/kernels/backends/gpu.py  fused_matmul_scheme2 (_kernel2), float64 2-D launch
+//   src/repro/kernels/backends/gpu.py  fused_matmul_scheme2 (_kernel2, b_res), prepared launch
 //   src/repro/kernels/backends/gpu.py  fused_matmul_scheme2_batched, float64 operands
 //   src/repro/kernels/backends/gpu.py  fused_matmul_3m (_kernel2_3m), 2-D and batched
-// (the float32 / bf16 forms, the prepared and residue forms, and float32
+// (float32 / bf16 products with a float rhs, the residue form and float32
 // operands to a float64 output stay on emugemm2.cu; the complex residue
-// form K7 on emugemm3m.cu).
+// form K7 on emugemm3m.cu). The prepared form is a float32, bf16 or
+// float64 lhs encoded here against a weight whose planes were encoded here
+// once, when it was prepared (kernels/prepared.py), with float32 scales for
+// a float32 / bf16 pair (a bf16 power of two widens exactly).
 //
 // Every product carries a batch coordinate Bt; a 2-D product is Bt = 1.
 //
@@ -19,11 +23,14 @@
 // im, bal(re + im)], complex3m.phase_residues); Kp is K padded with zero
 // residues to the plane GEMM's K tile; the batch element is blockIdx.z.
 // Each element is integerized once,
-// trunc(x * s) in its type, and carved p times (the fused kernel it
-// replaces integerized it N / 64 times and carved it 64 * p times), by
-// integer arithmetic alone: a float64 value as four 16-bit limbs, each
-// residue a Barrett quotient. Bound by bytes: (8 + p) bytes an element for
-// float64, (16 + 3p) for complex128.
+// trunc(x * s) in its type (a bf16 element widens to float32 exactly on
+// load, and its product rounds to bf16 before the truncation), and carved
+// p times (the fused kernel it replaces integerized it N / 64 times and
+// carved it 64 * p times), by integer arithmetic alone: a float32 or bf16
+// value as the int it truncates to (|x| < 2^24), a float64 value as four
+// 16-bit limbs, each residue a Barrett quotient. Bound by bytes: (8 + p)
+// bytes an element for float64, (2 + p) for bf16, (16 + 3p) for
+// complex128.
 //
 // planes: one block per (BM, BN) = (128, 256) output tile of one batch
 // element (128 x 128 when those still fit in one wave of the SMs, as at 8
@@ -51,8 +58,9 @@
 //   * epilogue: four elements at a time, balanced Garner digits in exact
 //     int32 in direct form (one Barrett reduction a digit, no
 //     conversions) and the double-double Horner of scheme2_common.cuh op
-//     for op, then / (mu * nu) (real) or * 1 / (mu * nu) (3M), rounded to
-//     the output type.
+//     for op (float64 for a float64 output, float32 otherwise; a bf16
+//     output rounds every op to bf16 through float32), then / (mu * nu)
+//     (real) or * 1 / (mu * nu) (3M), rounded to the output type.
 // The park: a shared one (p * BM * BN bytes, 2p for 3M) would not fit
 // beside the ring at p = 16 even at 128 x 128 (256 KB), and a smaller
 // tile re-reads each plane more often (L2 traffic per modulus M*K*N/BN +
@@ -66,7 +74,11 @@
 // the peak rate. The epilogue (p(p-1)/2 multiply-adds, p reductions and
 // p - 1 double-double Horner steps an element, twice for 3M) runs after
 // the tile's mainloop, in series with it. Tiles are rastered in groups of
-// GROUP_M tile rows for L2 reuse (PERF.md measures all of it).
+// GROUP_M tile rows for L2 reuse (PERF.md measures all of it). A prepared
+// GEMM of olmo-1b's hoisted train step (512 x 2048 x 2048, m = 6, bf16) is
+// 6 int8 GEMMs, 0.013 ms at the int8 peak, against 0.006 ms for its bytes;
+// its 64 narrow tiles fill half the SMs once, so one tile's mainloop and
+// CRT in series set its time.
 //
 // Numerics: see scheme2_common.cuh. The plain versions are
 // repro_torch.kernels.ozaki2.encode_planes_plain / plane_matmul_plain and
@@ -79,6 +91,9 @@ using namespace s2;
 using namespace hopper;
 
 namespace {
+
+// Operand and output types of the entry points (kernels/ozaki2.py TYPE_CODE).
+enum { F32 = 0, BF16 = 1, F64 = 2 };
 
 // ---- Barrett floor moduli --------------------------------------------------
 // Per-modulus constants for the exact floor modulo of integers without a
@@ -361,7 +376,8 @@ __device__ __forceinline__ void direct_digits(const Crt& crt, const Digits& dg, 
   }
 }
 
-// T: the scales' type; O: the output part type; CPLX: 3M (planes
+// T: the scales' type (double, or float for float32 and bf16 operands); O:
+// the output part type; CPLX: 3M (planes
 // (p, 3, Bt, ., Kp), a complex output of interleaved parts). park: Bt *
 // tiles * S * PARK_SLOT bytes, S = p (2p for 3M). kr: K tiles between
 // reductions. Batch element z reads mu at z * smu, nu at z * snu and
@@ -627,12 +643,12 @@ int launch_planes(const CUtensorMap& ma, const CUtensorMap& mb, const void* mu, 
 // Encode: x (batch, R, K) through strides (sb, sr, sk) in elements, xi its
 // imaginary part (cplx; null for a real operand) with the same strides,
 // scale (batch, R) with batch stride ssb and rows contiguous, in x's type
-// (f64 = 1: float64, else float32; a real encode takes float64 only);
-// planes (p, T, batch, R, Kp) int8 contiguous, Kp a multiple of 128 >= K.
-// moduli[p] is a host array.
+// (type: 0 float32, 1 bfloat16, 2 float64; a complex encode takes float32
+// or float64 parts); planes (p, T, batch, R, Kp) int8 contiguous, Kp a
+// multiple of 128 >= K. moduli[p] is a host array.
 extern "C" int emugemm2_encode(const void* xr, const void* xi, const void* scale, int8_t* planes,
                                int batch, int R, int K, int Kp, long long sb, long long sr,
-                               long long sk, long long ssb, int cplx, int f64, int p,
+                               long long sk, long long ssb, int cplx, int type, int p,
                                const int* moduli, void* stream) {
   if (batch <= 0 || batch > 65535 || R <= 0 || K <= 0 || Kp < K || Kp % PBK != 0) return -1;
   Crt crt;
@@ -640,22 +656,27 @@ extern "C" int emugemm2_encode(const void* xr, const void* xi, const void* scale
   Barrett br;
   make_barrett(crt, br);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!cplx)
-    return f64 ? launch_encode<double, false>(xr, nullptr, scale, planes, batch, R, K, Kp, sr, sk,
-                                              sb, ssb, crt, br, st)
-               : -1;
-  return f64 ? launch_encode<double, true>(xr, xi, scale, planes, batch, R, K, Kp, sr, sk, sb, ssb,
-                                           crt, br, st)
-             : launch_encode<float, true>(xr, xi, scale, planes, batch, R, K, Kp, sr, sk, sb, ssb,
-                                          crt, br, st);
+#define EMUGEMM2_ENCODE(T_, C_) \
+  return launch_encode<T_, C_>(xr, xi, scale, planes, batch, R, K, Kp, sr, sk, sb, ssb, crt, br, st)
+  if (!cplx) {
+    if (type == F64) EMUGEMM2_ENCODE(double, false);
+    if (type == F32) EMUGEMM2_ENCODE(float, false);
+    if (type == BF16) EMUGEMM2_ENCODE(__nv_bfloat16, false);
+    return -1;
+  }
+  if (type == F64) EMUGEMM2_ENCODE(double, true);
+  if (type == F32) EMUGEMM2_ENCODE(float, true);
+  return -1;
+#undef EMUGEMM2_ENCODE
 }
 
 // The plane GEMM: a_planes (p, T, batch, M, Kp) and b_planes (p, T, batch,
 // N, Kp) int8 from emugemm2_encode, mu (batch, M) and nu (batch, N) with
-// batch strides smu, snu and rows contiguous, in the scale type (f64); out
-// (batch, M, N) with batch stride sout in output parts and rows contiguous
-// (complex parts interleaved if cplx; float64 parts if out_f64, else
-// float32); tile_n, the output tile's columns, 256 or 128; park batch *
+// batch strides smu, snu and rows contiguous, in the scale type (f64: float64,
+// else float32); out (batch, M, N) with batch stride sout in output parts
+// and rows contiguous (complex parts interleaved if cplx; out_type: 0
+// float32, 1 bfloat16 (real products with float32 scales), 2 float64);
+// tile_n, the output tile's columns, 256 or 128; park batch *
 // tiles * S * 128 * tile_n bytes of scratch (tiles = ceil(M / 128) *
 // ceil(N / tile_n), S = p, 2p if cplx). epilogue = 0 stops after the
 // mainloop (the park holds the residues; for timing). moduli[p] and the
@@ -663,7 +684,7 @@ extern "C" int emugemm2_encode(const void* xr, const void* xi, const void* scale
 extern "C" int emugemm2_planes(const int8_t* a_planes, const int8_t* b_planes, const void* mu,
                                const void* nu, void* out, uint8_t* park, int batch, int M, int N,
                                int Kp, long long smu, long long snu, long long sout, int tile_n,
-                               int cplx, int f64, int out_f64, int p, const int* moduli,
+                               int cplx, int f64, int out_type, int p, const int* moduli,
                                const int* inv, int epilogue, void* stream) {
   if (batch <= 0 || M <= 0 || N <= 0 || Kp <= 0 || Kp % PBK != 0) return -1;
   if (tile_n != 128 && tile_n != 256) return -1;
@@ -693,13 +714,20 @@ extern "C" int emugemm2_planes(const int8_t* a_planes, const int8_t* b_planes, c
                                                       kr, epilogue, smu, snu, sout, crt, br, dg,  \
                                                       st)
   if (!cplx) {
-    if (!f64) return -1;
-    if (out_f64) EMUGEMM2_PLANES(double, double, false);
-    EMUGEMM2_PLANES(double, float, false);
+    if (f64) {
+      if (out_type == F64) EMUGEMM2_PLANES(double, double, false);
+      if (out_type == F32) EMUGEMM2_PLANES(double, float, false);
+      return -1;
+    }
+    if (out_type == F32) EMUGEMM2_PLANES(float, float, false);
+    if (out_type == BF16) EMUGEMM2_PLANES(float, __nv_bfloat16, false);
+    if (out_type == F64) EMUGEMM2_PLANES(float, double, false);
+    return -1;
   }
-  if (f64 && out_f64) EMUGEMM2_PLANES(double, double, true);
-  if (f64) EMUGEMM2_PLANES(double, float, true);
-  if (out_f64) EMUGEMM2_PLANES(float, double, true);
-  EMUGEMM2_PLANES(float, float, true);
+  if (f64 && out_type == F64) EMUGEMM2_PLANES(double, double, true);
+  if (f64 && out_type == F32) EMUGEMM2_PLANES(double, float, true);
+  if (out_type == F64) EMUGEMM2_PLANES(float, double, true);
+  if (out_type == F32) EMUGEMM2_PLANES(float, float, true);
+  return -1;
 #undef EMUGEMM2_PLANES
 }

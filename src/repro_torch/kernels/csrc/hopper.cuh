@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA-fed wgmma kernels
 // (emugemm2_planes.cu, flash_attn.cu): shared-memory addresses, mbarriers,
 // TMA tile loads, shared-memory matrix descriptors, wgmma fences and the
-// bf16 wgmma instructions, and the lookup of libcuda's tensor-map encoder.
+// bf16 and tf32 wgmma instructions, and the lookup of libcuda's tensor-map
+// encoder.
 #pragma once
 
 #include <cuda.h>
@@ -260,6 +261,122 @@ __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[N / 2], const uint32_t 
   else if constexpr (N == 64) wgmma_bf16_rs_n64(d, a, db);
   else if constexpr (N == 128) wgmma_bf16_rs_n128(d, a, db);
   else wgmma_bf16_rs_n256(d, a, db);
+}
+
+// ---- tf32 wgmma, float32 accumulate ------------------------------------------
+// m64nNk8: 32-bit operands are K-major in shared memory only (no
+// transpose). The register A fragment of tf32 holds, in warp w of the
+// warpgroup, rows 16 w + g (a[0], a[2]) and 16 w + g + 8 (a[1], a[3]) at
+// columns lane % 4 (a[0], a[1]) and lane % 4 + 4 (a[2], a[3]); the
+// accumulator fragment is that of the bf16 products above.
+
+// D (64 x 32 float32) {=, +=} A (64 x 8 tf32) * B (8 x 32 tf32), both K-major
+// in shared memory; accumulate != 0 adds.
+__device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n"
+      "}\n"
+      : WG_F16(d, 0)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 64 float32) {=, +=} A (64 x 8 tf32) * B (8 x 64 tf32), both K-major
+// in shared memory; accumulate != 0 adds.
+__device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      " %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n"
+      "}\n"
+      : WG_F32(d, 0)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 32 float32) += A (64 x 8 tf32, the warpgroup's register
+// fragment) * B (8 x 32 tf32), B K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : WG_F16(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 64 float32) += A (64 x 8 tf32, the warpgroup's register
+// fragment) * B (8 x 64 tf32), B K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      " %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : WG_F32(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128 float32) += A (64 x 8 tf32, the warpgroup's register
+// fragment) * B (8 x 128 tf32), B K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      " %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      " %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : WG_F64(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The tf32 products by width: S = Q K^T (both operands in shared memory)
+// at N in {32, 64}, O += P V (P in registers) at N in {32, 64, 128}.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  static_assert(N == 32 || N == 64, "no instance");
+  if constexpr (N == 32) wgmma_tf32_ss_n32(d, da, db, accumulate);
+  else wgmma_tf32_ss_n64(d, da, db, accumulate);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  static_assert(N == 32 || N == 64 || N == 128, "no instance");
+  if constexpr (N == 32) wgmma_tf32_rs_n32(d, a, db);
+  else if constexpr (N == 64) wgmma_tf32_rs_n64(d, a, db);
+  else wgmma_tf32_rs_n128(d, a, db);
 }
 
 #undef WG_F4

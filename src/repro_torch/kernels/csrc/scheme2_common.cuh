@@ -10,11 +10,10 @@
 //     C's % truncates toward zero, so a negative remainder gets m added.
 //     Values below 2^24 in magnitude (float32 and bfloat16 integerized
 //     operands, one strip's accumulator, Garner terms) take the quotient
-//     from a float reciprocal and correct it; float64 integerized operands
-//     (exact integers below 2^53) take it from a double reciprocal, and
-//     x - q * m is one exact fma; full-K accumulators use %. The plane
-//     route (emugemm2_planes.cu) reduces by Barrett's integer quotient
-//     instead: every exact reduction gives the same residue;
+//     from a float reciprocal and correct it; full-K accumulators use %.
+//     The plane route (emugemm2_planes.cu), which alone takes float64
+//     operands, reduces by Barrett's integer quotient instead: every
+//     exact reduction gives the same residue;
 //   * every float op of the double-double is an explicit _rn intrinsic,
 //     so nvcc cannot contract ah * bh - p into an FMA, which would break
 //     Dekker's exact product; the Veltkamp constant is 2^12 + 1 in float32
@@ -118,36 +117,20 @@ __device__ __forceinline__ int floor_mod_small(int x, int m, float rcp) {
   return r < 0 ? r + m : (r >= m ? r - m : r);
 }
 
-// Floor modulo of an exact integer |x| < 2^53 held in a double: the
-// quotient from the double reciprocal is within two of floor(x / m), and
-// x - q * m, a small integer, is exact in one fma.
-__device__ __forceinline__ int floor_mod_f64(double x, int m, double rcp) {
-  const double q = floor(__dmul_rn(x, rcp));
-  int r = static_cast<int>(__fma_rn(-q, static_cast<double>(m), x));
-  while (r < 0) r += m;
-  while (r >= m) r -= m;
-  return r;
-}
-
 // Per-modulus constants of the carve.
 struct Mod {
   int m, half;
   float rcp;
-  double rcp64;
 };
 
 __device__ __forceinline__ Mod modulus(int m) {
-  return Mod{m, m / 2, __fdiv_rn(1.0f, static_cast<float>(m)), __ddiv_rn(1.0, static_cast<double>(m))};
+  return Mod{m, m / 2, __fdiv_rn(1.0f, static_cast<float>(m))};
 }
 
-// Balanced residue ((x + m/2) mod m) - m/2 of an integerized value (int:
-// |x| < 2^24; double: an exact integer below 2^53).
+// Balanced residue ((x + m/2) mod m) - m/2 of an integerized value
+// (|x| < 2^24).
 __device__ __forceinline__ int8_t balanced(int x, const Mod& md) {
   const int r = floor_mod_small(x, md.m, md.rcp) + md.half;
-  return static_cast<int8_t>((r >= md.m ? r - md.m : r) - md.half);
-}
-__device__ __forceinline__ int8_t balanced(double x, const Mod& md) {
-  const int r = floor_mod_f64(x, md.m, md.rcp64) + md.half;
   return static_cast<int8_t>((r >= md.m ? r - md.m : r) - md.half);
 }
 

@@ -16,19 +16,25 @@ finite -1e30, as in the reference, so a row whose keys are all masked
 (a window, or Sq > Sk) averages v uniformly instead of giving NaN.
 
 The kernel replaces the Pallas kernel ``repro.kernels.flash_attn.
-flash_attention``. ``csrc/flash_attn.cu`` holds two kernels, each compiled
-for head dims 32, 64, 128 and 256 (recurrentgemma-2b's), and
-:func:`instance` names the one a call runs: bfloat16 on the TMA-fed,
-warp-specialised ``wgmma`` kernel (128 query rows a block, k and v tiles
-of ``bk`` keys in a ring of ``stages``), float32 on the FFMA kernel (64
-query rows a block), which keeps true float32 products. Any other dtype or
-head dim raises; nothing falls back.
+flash_attention``. ``csrc/flash_attn.cu`` holds three kernels, and
+:func:`instance` names the one a call runs, statically by dtype and head
+dim: bfloat16 (head dims 32, 64, 128 and 256, recurrentgemma-2b's) on the
+TMA-fed, warp-specialised ``wgmma`` kernel (128 query rows a block, k and
+v tiles of ``bk`` keys in a ring of ``stages``); float32 at head dims 32,
+64 and 128 on the same structure in 3xTF32 (``wgmma`` .tf32: every
+operand split as hi + lo, three products), after a pre-pass
+(:func:`split_3xtf32`) that writes the parts, v transposed; float32 at
+D = 256 on the FFMA kernel (64 query rows a block, true float32
+products), because the 3xTF32 kernel's two q parts alone would take all
+of a block's shared memory there. Any other dtype or head dim raises;
+nothing falls back.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 
 import torch
@@ -36,13 +42,15 @@ import torch
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128, 256)
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+# tf32 keeps the sign, the exponent and 10 of float32's 23 mantissa bits.
+TF32_MASK = -(1 << 13)
 
 
 @dataclasses.dataclass(frozen=True)
 class Instance:
     """The compiled kernel a (dtype, head dim) runs on, with its tiles
-    (``csrc/flash_attn.cu``: ``Tiles`` and ``Layout32``)."""
-    kernel: str        # "wgmma" (bf16) or "ffma" (float32)
+    (``csrc/flash_attn.cu``: ``Tiles``, ``Tiles32`` and ``Layout32``)."""
+    kernel: str        # "wgmma" (bf16), "wgmma-3xtf32" or "ffma" (float32)
     bq: int            # query rows of a block
     bk: int            # keys of a k/v tile
     stages: int        # k/v tiles in flight
@@ -61,18 +69,27 @@ def instance(dtype: torch.dtype, d: int) -> Instance:
     if dtype == torch.bfloat16:
         return Instance("wgmma", 128, 64 if d == 256 else 128,
                         3 if d <= 64 else 2)
-    return Instance("ffma", 64, 32 if d == 256 else 64, 1)
+    if d == 256:
+        return Instance("ffma", 64, 32, 1)
+    return Instance("wgmma-3xtf32", 128, 32 if d == 128 else 64,
+                    1 if d == 128 else 2)
 
 
 @dataclasses.dataclass
 class LaunchCounts:
-    """Launches of the kernel, and calls of the plain version on CUDA
-    tensors."""
+    """Launches of the attention kernels (``launches``: every call; those
+    of the 3xTF32 and the FFMA kernel also apart, the rest ran the bf16
+    kernel) and of the 3xTF32 pre-pass, and calls of the plain versions on
+    CUDA tensors."""
     launches: int = 0
+    launches_3xtf32: int = 0
+    launches_ffma: int = 0
+    launches_split: int = 0
     plain_cuda_calls: int = 0
 
     def reset(self) -> None:
-        self.launches = self.plain_cuda_calls = 0
+        for f in dataclasses.fields(self):
+            setattr(self, f.name, 0)
 
 
 COUNTS = LaunchCounts()
@@ -111,9 +128,91 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, h, sq, d).to(q.dtype)
 
 
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """float32 x as (hi, lo): hi is x with its 13 low mantissa bits
+    cleared, lo the same of x - hi (exact in float32); both are tf32
+    values, and hi + lo keeps about 22 of x's 24 significant bits."""
+    hi = (x.view(torch.int32) & TF32_MASK).view(torch.float32)
+    return hi, ((x - hi).view(torch.int32) & TF32_MASK).view(torch.float32)
+
+
+def key_order(sk_pad: int) -> torch.Tensor:
+    """The key each column of v^T's parts holds: in each group of 8,
+    column c holds key 2c (c < 4) or 2(c - 4) + 1, the order in which the
+    score accumulator hands P to wgmma's tf32 register A fragment."""
+    c = torch.arange(sk_pad)
+    within = c % 8
+    return c - within + torch.where(within < 4, 2 * within,
+                                    2 * (within - 4) + 1)
+
+
+def split_3xtf32_plain(q, k, v):
+    """The pre-pass's function in plain torch ops (CPU or CUDA): the parts
+    (qh, ql, kh, kl, vh, vl) of float32 q (B, H, Sq, D) and k, v
+    (B, KVH, Sk, D), v transposed to (B, KVH, D, Skp), Skp = Sk rounded
+    up to 32, its keys in :func:`key_order`, zeros past Sk."""
+    if q.is_cuda:
+        COUNTS.plain_cuda_calls += 1
+    sk = k.shape[2]
+    skp = -(-sk // 32) * 32
+    vp = torch.nn.functional.pad(v, (0, 0, 0, skp - sk))
+    vt = vp[:, :, key_order(skp).to(v.device)].transpose(2, 3).contiguous()
+    return (*tf32_split(q), *tf32_split(k), *tf32_split(vt))
+
+
 def _aligned(x: torch.Tensor) -> torch.Tensor:
     x = x.contiguous()
     return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    from repro_torch.kernels import build
+    lib = build.load("flash_attn")
+    lib.flash_attention.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                                    + [ctypes.c_float] + [ctypes.c_int] * 3
+                                    + [ctypes.c_void_p])
+    lib.flash_split_tf32.argtypes = ([ctypes.c_void_p] * 4
+                                     + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    lib.flash_attention_tf32.argtypes = ([ctypes.c_void_p] * 2
+                                         + [ctypes.c_int] * 7
+                                         + [ctypes.c_float]
+                                         + [ctypes.c_int] * 3
+                                         + [ctypes.c_void_p])
+    for fn in (lib.flash_attention, lib.flash_split_tf32,
+               lib.flash_attention_tf32):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _pointers(parts) -> ctypes.Array:
+    return (ctypes.c_void_p * len(parts))(*[x.data_ptr() for x in parts])
+
+
+def split_3xtf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """The 3xTF32 kernel's pre-pass: the parts of contiguous float32 q, k
+    and v (:func:`split_3xtf32_plain`). CPU tensors take the plain
+    version; CUDA tensors launch the pre-pass or raise."""
+    if q.device.type == "cpu":
+        return split_3xtf32_plain(q, k, v)
+    b, h, sq, d = q.shape
+    _, kvh, sk, _ = k.shape
+    if (q.dtype, k.dtype, v.dtype) != (torch.float32,) * 3 or d % 32 \
+            or not all(x.is_cuda and x.is_contiguous() for x in (q, k, v)):
+        raise ValueError(f"flash_attention 3xTF32 split: q {tuple(q.shape)} "
+                         f"{q.dtype}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    skp = -(-sk // 32) * 32
+    parts = [torch.empty_like(q), torch.empty_like(q), torch.empty_like(k),
+             torch.empty_like(k)]
+    parts += [k.new_empty((b, kvh, d, skp)) for _ in range(2)]
+    rc = _library().flash_split_tf32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _pointers(parts), b, h, kvh,
+        sq, sk, skp, d, torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention 3xTF32 split failed (code {rc}) "
+                           f"for q {tuple(q.shape)}, k {tuple(k.shape)}")
+    COUNTS.launches_split += 1
+    return tuple(parts)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -127,10 +226,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     refusals (Sq and Sk must divide into them, after each is capped at
     the sequence length); they do not choose the CUDA kernel's tiles,
     which are its own. The scale is ``softmax_scale or 1 / sqrt(D)``.
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise.
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (float32 at D <= 128: the pre-pass, then the 3xTF32 kernel) or raise.
     """
-    from repro_torch.kernels import build
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}; expected "
@@ -153,22 +251,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise NotImplementedError(
             f"flash_attention takes q, k, v of one type, got {q.dtype}, "
             f"{k.dtype}, {v.dtype}")
-    instance(q.dtype, d)
+    kernel = instance(q.dtype, d).kernel
     scale = softmax_scale or 1.0 / math.sqrt(d)
+    mask = (int(bool(causal)), int(window is not None),
+            0 if window is None else int(window))
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
-    fn = build.load("flash_attn").flash_attention
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                   + [ctypes.c_float] + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-            kvh, sq, sk, d, int(q.dtype == torch.bfloat16), scale,
-            int(bool(causal)), int(window is not None),
-            0 if window is None else int(window), stream)
+    if kernel == "wgmma-3xtf32":
+        parts = split_3xtf32(q, k, v)
+        rc = _library().flash_attention_tf32(
+            _pointers(parts), out.data_ptr(), b, h, kvh, sq, sk,
+            parts[4].shape[-1], d, scale, *mask, stream)
+    else:
+        rc = _library().flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
+            kvh, sq, sk, d, int(q.dtype == torch.bfloat16), scale, *mask,
+            stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed (code {rc}) for "
                            f"q {tuple(q.shape)}, k {tuple(k.shape)}")
     COUNTS.launches += 1
+    COUNTS.launches_3xtf32 += kernel == "wgmma-3xtf32"
+    COUNTS.launches_ffma += kernel == "ffma"
     return out

@@ -13,14 +13,19 @@ B^T for dA:
   Built from a single read of the weight (K2, the pair kernel; K2r twice
   when the backward runs at another slice count), consumed through the
   mixed form of the EmuGEMM-I kernel (K3).
-* :class:`PreparedResidues` (Scheme II): the (p, Kp, Np) balanced int8
-  residues of the integerized weight, padded to 16 on K and N with zero
-  residues, its (1, Np) power-of-two scale in the weight's type and the
-  budget pinned at encode time. ``layout`` 'fused' is consumed by the
-  prepared form of EmuGEMM-II (K5g with ``b_res``), whose prologue
-  carves only the lhs; 'stacked' (an ``impl='xla'`` config, or a
-  backend other than 'cuda') by its plain version. The encode runs in
-  torch ops, as the reference's runs in XLA ops.
+* :class:`PreparedResidues` (Scheme II): the balanced int8 residues of
+  the integerized weight, its (1, Np) power-of-two scale in the weight's
+  type (N padded to 16) and the budget pinned at encode time. ``layout``
+  'planes' (the 'cuda' backend) holds them as the (p, N, Kp) K-contiguous
+  planes of B^T (K padded to ``ozaki2.PLANE_K`` with zero residues),
+  written by one launch of the plane route's encode kernel and consumed
+  by the plane route of EmuGEMM-II's prepared form (K5g with ``b_res``:
+  one lhs encode and one plane GEMM). 'stacked' (an ``impl='xla'``
+  config, or a backend other than 'cuda') holds the reference's
+  (p, Kp, Np) stack, padded to 16 on K and N with zero residues, encoded
+  in torch ops as the reference's is in XLA ops and consumed by the
+  prepared form's plain version. ``stacked()`` reads either in the
+  reference's layout.
 
 :func:`prepare_rhs` builds either from a float (K, N) weight and
 :func:`matmul_prepared` consumes either. Under gradient accumulation
@@ -29,7 +34,9 @@ optimizer step and :func:`attach_step_preps` pairs each with its float
 weight (:class:`StepPrepared`), which ``models.common.dense`` sends
 through ``core.emulated.emulated_dot_prepared``.
 
-Unlike the reference, nothing is padded to 128 in Scheme I: the prepared
+The 'planes' layout is the port's (ROADMAP.md § 3): int8 wgmma reads
+both of its shared-memory operands K-major only, so the weight is stored
+as B^T. Unlike the reference, nothing is padded to 128 in Scheme I: the prepared
 layouts round K (and N in the twin) up to the kernel's tile only, with
 zero slices, and beta comes from the logical dims, which the reference's
 padded dims agree with wherever ``safe_beta`` is 7 (every dim up to
@@ -47,7 +54,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import scheme1, scheme2
 from repro_torch.core.precision import EmulationConfig
-from repro_torch.kernels import backends
+from repro_torch.kernels import backends, ozaki2
 from repro_torch.kernels.backends.cuda import KERNEL_BLOCKS
 from repro_torch.kernels.common import Blocks
 from repro_torch.kernels.decompose import TILE
@@ -92,17 +99,18 @@ class PreparedOperand:
 @dataclasses.dataclass
 class PreparedResidues:
     """A pre-encoded Scheme-II rhs operand (module doc): ``residues``
-    (p, Kp, Np) int8, ``scale`` (1, Np) in the weight's type, the
+    (the (p, N, Kp) planes of B^T for layout 'planes', the (p, K16, N16)
+    stack for 'stacked'), ``scale`` (1, N16) in the weight's type, the
     ``moduli``, the pinned ``budget_bits``, the logical ``k``/``n``,
-    ``layout`` ('fused' | 'stacked') and ``twin``. Unlike a Scheme-I
-    operand it has no block granularity: any K tile consumes the stack."""
+    ``layout`` and ``twin``. Unlike a Scheme-I operand it has no block
+    granularity."""
     residues: torch.Tensor
     scale: torch.Tensor
     moduli: tuple
     budget_bits: int
     k: int
     n: int
-    layout: str = "fused"
+    layout: str = "planes"
     twin: "PreparedResidues | None" = None
 
     TENSORS = ("residues", "scale")
@@ -113,16 +121,24 @@ class PreparedResidues:
 
     @property
     def padded_k(self) -> int:
-        return self.residues.shape[-2]
+        return -(-self.k // ALIGN) * ALIGN
 
     @property
     def padded_n(self) -> int:
-        return self.residues.shape[-1]
+        return -(-self.n // ALIGN) * ALIGN
+
+    def stacked(self) -> torch.Tensor:
+        """The residues in the reference's (p, K16, N16) layout: the stack
+        itself, or the planes transposed and padded (a copy)."""
+        if self.layout == "stacked":
+            return self.residues
+        return F.pad(self.residues.transpose(1, 2)[:, :self.padded_k],
+                     (0, self.padded_n - self.n))
 
     def reconstruct(self) -> torch.Tensor:
         """The dense (k, n) float32 weight the residues represent, exact up
         to the integerization truncation (1 / scale elementwise)."""
-        res = scheme2.modular_reduce(self.residues.to(torch.int32),
+        res = scheme2.modular_reduce(self.stacked().to(torch.int32),
                                      self.moduli)
         w_int = scheme2.crt_reconstruct(res, self.moduli, torch.float32)
         return (w_int / self.scale.float())[:self.k, :self.n]
@@ -221,17 +237,31 @@ def _pad2(x: torch.Tensor, align: int) -> torch.Tensor:
 
 
 def _encode_residues(b: torch.Tensor, moduli, k_dim: int):
-    """One Scheme-II rhs encode: the 16-aligned balanced residue stack,
-    the power-of-two scale and the pinned budget. It mirrors
-    ``scheme2.matmul``'s (integerize at the shared budget, capped by the
-    weight type's mantissa, then ``balanced_residues``), so consumption
-    is bit-identical to the unprepared product; padded rows and columns
-    encode to zero residues, which add nothing mod any modulus."""
+    """One Scheme-II rhs encode into the 'stacked' layout: the 16-aligned
+    balanced residue stack, the power-of-two scale and the pinned budget.
+    It mirrors ``scheme2.matmul``'s (integerize at the shared budget,
+    capped by the weight type's mantissa, then ``balanced_residues``), so
+    consumption is bit-identical to the unprepared product; padded rows
+    and columns encode to zero residues, which add nothing mod any
+    modulus."""
     b_pad = _pad2(b, ALIGN)
     budget = scheme2.budget_bits(moduli, k_dim, b.dtype)
     nu = scheme2._pow2_int_scale(b_pad, -2, budget)
     res = scheme2.balanced_residues(torch.trunc(b_pad * nu), moduli)
     return res, nu, budget
+
+
+def _encode_planes(b: torch.Tensor, moduli, k_dim: int):
+    """The same encode into the 'planes' layout: the scale and budget as
+    :func:`_encode_residues`, the residues as the (p, N, Kp) planes of
+    B^T, written by one launch of the plane route's encode kernel
+    (``ozaki2.encode_planes``, which reads b.T through its strides; its
+    plain version on a CPU tensor)."""
+    budget = scheme2.budget_bits(moduli, k_dim, b.dtype)
+    nu = scheme2._pow2_int_scale(_pad2(b, ALIGN), -2, budget)
+    n = b.shape[1]
+    planes = ozaki2.encode_planes(b.T, nu[:, :n].T, moduli)
+    return planes, nu, budget
 
 
 def prepare_rhs_scheme2(b: torch.Tensor, cfg: EmulationConfig, *,
@@ -241,7 +271,7 @@ def prepare_rhs_scheme2(b: torch.Tensor, cfg: EmulationConfig, *,
     ``with_twin`` also encodes B^T for the backward dA GEMM, a separate
     encode: its scale reduces over the other axis and its budget is set
     by its own contraction length N; a reduced ``cfg.bwd_p`` keeps the
-    leading ``bwd_p`` moduli. The layout is pinned now: 'fused' when the
+    leading ``bwd_p`` moduli. The layout is pinned now: 'planes' when the
     config runs fused and the backend resolves to 'cuda', else 'stacked'.
     """
     if isinstance(b, PreparedResidues):
@@ -258,12 +288,13 @@ def prepare_rhs_scheme2(b: torch.Tensor, cfg: EmulationConfig, *,
     b = scheme2.operand(b)
     k, n = b.shape
     moduli = tuple(int(m) for m in cfg.resolved_moduli())
-    layout = "fused" if _backend_name(cfg, b.device) == "cuda" else "stacked"
-    res, nu, budget = _encode_residues(b, moduli, k)
+    layout = "planes" if _backend_name(cfg, b.device) == "cuda" else "stacked"
+    encode = _encode_planes if layout == "planes" else _encode_residues
+    res, nu, budget = encode(b, moduli, k)
     twin = None
     if with_twin:
         t_moduli = moduli[:cfg.bwd_p] if cfg.bwd_p else moduli
-        t_res, tau, t_budget = _encode_residues(b.T, t_moduli, n)
+        t_res, tau, t_budget = encode(b.T, t_moduli, n)
         twin = PreparedResidues(t_res, tau, t_moduli, t_budget, n, k, layout)
     return PreparedResidues(res, nu, moduli, budget, k, n, layout, twin)
 
@@ -273,9 +304,9 @@ def matmul_prepared_scheme2(a: torch.Tensor, prep: PreparedResidues,
     """(M, K) float @ prepared Scheme-II residues (K, N) -> (M, N).
 
     The lhs integerizes in its own type at the prep's pinned budget,
-    capped by its own mantissa, and is carved in the kernel's prologue
-    while the stored planes stream as they are ('fused'; the 'cuda'
-    backend, which launches the kernel or raises); a 'stacked' prep runs
+    capped by its own mantissa, and is encoded once while the stored
+    planes stream as they are ('planes'; the 'cuda' backend's plane
+    route, which launches the kernels or raises); a 'stacked' prep runs
     the plain version on the 'torch' backend. Bit-identical to
     ``scheme2.matmul`` on the same operands whenever the lhs mantissa
     does not cap the budget below the encode-time one (any same-type
@@ -291,7 +322,7 @@ def matmul_prepared_scheme2(a: torch.Tensor, prep: PreparedResidues,
     a = scheme2.operand(a)
     budget = min(prep.budget_bits, scheme2.MANTISSA[a.dtype])
     mu = scheme2._pow2_int_scale(a, -1, budget)                # (M, 1)
-    name = "cuda" if prep.layout == "fused" else "torch"
+    name = "cuda" if prep.layout == "planes" else "torch"
     return backends.get_backend(name).matmul_prepared_residues(
         a, prep.residues, mu, prep.scale, prep.moduli, out_dtype, prep.n)
 

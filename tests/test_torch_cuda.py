@@ -1,11 +1,13 @@
 """The port's CUDA kernels on the card: EmuGEMM-I in its four launch
 forms, the decomposition (K2, K2r, K11), the int8 GEMM (K9), fused
-attention (K10: the bf16 wgmma kernel and the float32 FFMA kernel),
-EmuGEMM-II in its four launch forms (K5g with a float and with a residue
-rhs, K6, K5; float32 and bfloat16, a float64 prepared lhs), the plane
-route of DGEMM and ZGEMM, 2-D and batched (the encode kernels and the
-plane GEMM: float64 K5g and K6, K7g) and the complex residue kernel K7
-against their plain versions, bit for bit, the dispatcher's routing of
+attention (K10: the bf16 wgmma kernel, the float32 3xTF32 wgmma kernel
+and its pre-pass, the float32 FFMA kernel at D = 256), EmuGEMM-II in its
+three fused launch forms (K5g with a float rhs, K6, K5; float32 and
+bfloat16), the plane route of DGEMM and ZGEMM, 2-D and batched (the
+encode kernels and the plane GEMM: float64 K5g and K6, K7g), the plane
+route of the prepared form (K5g with a residue rhs: float32, bfloat16 and
+float64) and the complex residue kernel K7 against their plain versions,
+bit for bit (attention within its bars), the dispatcher's routing of
 CUDA tensors (complex 4M included), and train steps that launch them
 (a hoisted microbatch step among them).
 
@@ -14,6 +16,8 @@ imports no jax, so it runs where only torch is installed:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -481,39 +485,93 @@ def test_complex_routes_on_card(cuda_device):
 @pytest.mark.parametrize("p", [6, 8, 16])
 def test_scheme2_prepared_bit_identical_to_plain_on_card(cuda_device, dtype,
                                                          p):
-    """The prepared form against its plain version, and against the 2-D
-    form on the same operands, aligned, ragged and with a transposed
-    lhs."""
+    """The prepared form on the plane route (one lhs encode and one plane
+    GEMM against the weight's planes, themselves one encode launch)
+    against its plain version on the reference-layout stack, and against
+    the 2-D form on the same operands: aligned, ragged, a transposed lhs,
+    K <= 8, and a weight prepared from a transposed view."""
     from repro_torch.kernels import prepared
     g = torch.Generator(device=cuda_device).manual_seed(p)
     cfg = EmulationConfig(scheme="ozaki2", p=p)
     for m, k, n, trans in [(256, 512, 384, False), (100, 200, 77, False),
-                           (33, 130, 50, True)]:
+                           (33, 130, 50, True), (20, 7, 33, False)]:
         a = (torch.randn((k, m) if trans else (m, k), generator=g,
                          device=cuda_device, dtype=torch.float64) * 3)
         a = (a.T if trans else a).to(dtype)
         b = torch.randn(k, n, generator=g, device=cuda_device,
                         dtype=torch.float64).to(dtype)
-        prep = prepared.prepare_rhs(b, cfg)
-        assert prep.layout == "fused"
-        mu = scheme2._pow2_int_scale(a, -1, prep.budget_bits)
-        ozaki2.COUNTS.reset()
-        out = ozaki2.fused_matmul_scheme2_prepared(
-            a, prep.residues, mu, prep.scale, prep.moduli, dtype, n)
-        assert ozaki2.COUNTS.launches_prepared == 1
-        ref = ozaki2.fused_matmul_scheme2_prepared_plain(
-            a, prep.residues, mu, prep.scale, prep.moduli, dtype, n)
-        torch.cuda.synchronize()
-        assert torch.equal(out, ref), (m, k, n, trans)
-        assert torch.equal(prepared.matmul_prepared(a, prep, dtype),
-                           dispatch.emulated_matmul(a, b, cfg=cfg)), (m, k, n)
+        for w in (b, b.T.contiguous().T):
+            ozaki2.COUNTS.reset()
+            prep = prepared.prepare_rhs(w, cfg)
+            assert prep.layout == "planes"
+            assert prep.residues.shape == (p, n, ozaki2.plane_k(k))
+            assert ozaki2.COUNTS.launches_encode == 1
+            mu = scheme2._pow2_int_scale(a, -1, prep.budget_bits)
+            out = ozaki2.fused_matmul_scheme2_prepared(
+                a, prep.residues, mu, prep.scale, prep.moduli, dtype, n)
+            assert (ozaki2.COUNTS.launches_prepared,
+                    ozaki2.COUNTS.launches_encode,
+                    ozaki2.COUNTS.launches_planes,
+                    ozaki2.COUNTS.launches_2d) == (1, 2, 1, 0)
+            ref = ozaki2.fused_matmul_scheme2_prepared_plain(
+                a, prep.stacked(), mu, prep.scale, prep.moduli, dtype, n)
+            torch.cuda.synchronize()
+            assert torch.equal(out, ref), (m, k, n, trans)
+            assert torch.equal(prepared.matmul_prepared(a, prep, dtype),
+                               dispatch.emulated_matmul(a, b, cfg=cfg)), (
+                                   m, k, n)
+
+
+@pytest.mark.parametrize("p", [6, 16])
+def test_prepared_plane_kernels_bit_identical_to_plain_on_card(cuda_device,
+                                                               p):
+    """The real float32 and bf16 instances of the encode kernel (signed
+    values, subnormal rows, K <= 8, transposed views) and of the plane
+    GEMM (float32 scales of a float32 / bf16 pair, into float32, bf16 and
+    float64) against their plain versions, and the twin of a prep."""
+    from repro_torch.kernels import prepared
+    g = torch.Generator(device=cuda_device).manual_seed(700 + p)
+    moduli = default_moduli(p)
+    for (m, k, n) in [(512, 2048, 2048), (300, 1000, 520), (9, 5, 11)]:
+        for ta in (torch.float32, torch.bfloat16):
+            a = torch.randn(m, k, generator=g, device=cuda_device) * 4
+            a[:2] *= 2.0 ** -130                     # subnormal rows
+            a = a.to(ta)
+            bt = torch.randn(n, k, generator=g, device=cuda_device).to(ta)
+            for x in (a, bt, bt.T.contiguous().T):
+                s = scheme2._pow2_int_scale(x, -1, scheme2.MANTISSA[ta])
+                out = ozaki2.encode_planes(x, s, moduli)
+                torch.cuda.synchronize()
+                assert torch.equal(out, ozaki2.encode_planes_plain(
+                    x, s, moduli)), (tuple(x.shape), ta)
+            for tb in (torch.float32, torch.bfloat16):
+                b = bt.to(tb)
+                mu = scheme2._pow2_int_scale(a, -1, 8)
+                nu = scheme2._pow2_int_scale(b, -1, 8)
+                ap, bp = (ozaki2.encode_planes(x, s, moduli)
+                          for x, s in ((a, mu), (b, nu)))
+                for out_t in (torch.float32, torch.bfloat16, torch.float64):
+                    out = ozaki2.plane_matmul(ap, bp, mu, nu.T, moduli, out_t)
+                    ref = ozaki2.plane_matmul_plain(ap, bp, mu, nu.T, moduli,
+                                                    out_t)
+                    torch.cuda.synchronize()
+                    assert torch.equal(out, ref), (m, k, n, ta, tb, out_t)
+    cfg = EmulationConfig(scheme="ozaki2", p=p, bwd_p=4)
+    w = torch.randn(300, 200, generator=g, device=cuda_device)
+    prep = prepared.prepare_rhs(w, cfg, with_twin=True)
+    cpu = prepared.prepare_rhs(w.cpu(), dataclasses.replace(cfg,
+                                                            backend="cuda"),
+                               with_twin=True)
+    for x, y in ((prep, cpu), (prep.twin, cpu.twin)):
+        assert x.layout == y.layout == "planes"
+        assert torch.equal(x.residues.cpu(), y.residues)
+        assert torch.equal(x.scale.cpu(), y.scale)
 
 
 def test_hoisted_step_launches_the_prepared_form(cuda_device):
     """A microbatches=2 step under ozaki2-m6+cached prepares each weight
     once and launches the prepared form for every dense forward and dA,
     with no plain version on CUDA."""
-    import dataclasses
     from repro_torch import api, configs
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data import make_batch_iterator
@@ -534,6 +592,11 @@ def test_hoisted_step_launches_the_prepared_form(cuda_device):
     # 7 dense weights a layer: forward, recompute and dA per microbatch;
     # the tied head: forward and dA per microbatch.
     assert ozaki2.COUNTS.launches_prepared == 2 * (21 * layers + 2)
+    assert ozaki2.COUNTS.launches_planes == ozaki2.COUNTS.launches_prepared
+    # An lhs encode per prepared call; a weight and its twin encoded once
+    # a step, the head once a microbatch.
+    assert ozaki2.COUNTS.launches_encode == (
+        ozaki2.COUNTS.launches_prepared + 2 * (7 * layers + 2))
     assert ozaki2.COUNTS.launches_2d == 2 * (7 * layers + 1)   # dB
     assert ozaki2.COUNTS.plain_cuda_calls == 0
 
@@ -615,12 +678,43 @@ def test_flash_attention_on_card(cuda_device, dtype, tol, d):
         flash_attn.COUNTS.reset()
         out = flash_attn.flash_attention(q, k, v, causal=causal,
                                          window=window, bq=sq, bk=sk)
-        assert flash_attn.COUNTS.launches == 1
+        split = flash_attn.instance(dtype, d).kernel == "wgmma-3xtf32"
+        assert (flash_attn.COUNTS.launches,
+                flash_attn.COUNTS.launches_split) == (1, int(split))
         ref = flash_attn.flash_attention_plain(q, k, v, causal, window)
         torch.cuda.synchronize()
         assert out.dtype == dtype and out.shape == q.shape
         torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
                                    atol=tol)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_3xtf32_edges_on_card(cuda_device, d):
+    """The float32 3xTF32 kernel at the bf16 kernel's edges, within 2e-5
+    of the plain version, and its pre-pass bit for bit with its plain
+    version (v^T's permuted keys and zeros past Sk included)."""
+    from repro_torch.kernels import flash_attn
+    assert flash_attn.instance(torch.float32, d).kernel == "wgmma-3xtf32"
+    g = torch.Generator(device=cuda_device).manual_seed(2000 + d)
+    cases = [(1, 2, 2, 100, 333, True, None), (1, 4, 2, 333, 100, True, None),
+             (1, 2, 2, 1, 77, False, None), (2, 4, 1, 257, 257, True, 96),
+             (1, 6, 3, 200, 200, False, 130), (1, 4, 1, 1100, 1100, True, None),
+             (1, 2, 2, 128, 1, True, None)]
+    for (b, h, kvh, sq, sk, causal, window) in cases:
+        q, k, v = (torch.randn(b, n, s, d, generator=g, device=cuda_device)
+                   for n, s in ((h, sq), (kvh, sk), (kvh, sk)))
+        parts = flash_attn.split_3xtf32(q, k, v)
+        plain = flash_attn.split_3xtf32_plain(q, k, v)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(parts, plain)), (sq, sk)
+        flash_attn.COUNTS.reset()
+        out = flash_attn.flash_attention(q, k, v, causal=causal,
+                                         window=window, bq=sq, bk=sk)
+        assert (flash_attn.COUNTS.launches,
+                flash_attn.COUNTS.launches_split) == (1, 1)
+        ref = flash_attn.flash_attention_plain(q, k, v, causal, window)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.parametrize("d", [32, 64, 128, 256])

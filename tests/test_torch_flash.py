@@ -107,14 +107,17 @@ def test_flash_scale_and_refusals():
     ("bfloat16", 64, ("wgmma", 128, 128, 3)),
     ("bfloat16", 128, ("wgmma", 128, 128, 2)),
     ("bfloat16", 256, ("wgmma", 128, 64, 2)),
-    ("float32", 32, ("ffma", 64, 64, 1)),
-    ("float32", 128, ("ffma", 64, 64, 1)),
+    ("float32", 32, ("wgmma-3xtf32", 128, 64, 2)),
+    ("float32", 128, ("wgmma-3xtf32", 128, 32, 1)),
     ("float32", 256, ("ffma", 64, 32, 1)),
 ])
 def test_flash_instance_choice(dtype, d, expected):
     """bf16 runs the wgmma kernel at every compiled head dim (k/v tiles of
     64 keys at D = 256, where O is 128 floats a thread, 3 stages at
-    D <= 64), float32 the FFMA kernel."""
+    D <= 64); float32 the 3xTF32 wgmma kernel (both parts of q and of a
+    k and v tile in shared memory: 32 keys and one stage at D = 128), and
+    the FFMA kernel at D = 256, whose q parts alone would fill a block's
+    shared memory."""
     inst = flash_attn.instance(getattr(torch, dtype), d)
     assert (inst.kernel, inst.bq, inst.bk, inst.stages) == expected
 
@@ -147,3 +150,76 @@ def test_flash_sk_not_a_multiple_of_64(dtype, tol, causal, window):
     if dtype == "float32":
         _compare(out, jref.flash_attention(jq, jk, jv, causal=causal,
                                            window=window), 1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The 3xTF32 arithmetic of the float32 kernel, modelled in plain torch.
+# ---------------------------------------------------------------------------
+
+def _tf32_model(q, k, v, causal, window, passes):
+    """The float32 kernel's arithmetic: operands split by a bit mask into
+    tf32 hi and lo parts (``flash_attn.tf32_split``), S from three
+    products (Qh Kh + Qh Kl + Ql Kh) or, for ``passes=1``, one (Qh Kh),
+    the scale, the finite mask and the softmax's unnormalised P in
+    float32, P split the same way for P V, l summing the unsplit P."""
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    (qh, ql), (kh, kl), (vh, vl) = (flash_attn.tf32_split(x)
+                                    for x in (q, k, v))
+
+    def qk(x, y):
+        return torch.einsum("bkgqd,bkjd->bkgqj",
+                            x.reshape(b, kvh, h // kvh, sq, d), y)
+
+    def pv(x, y):
+        return torch.einsum("bkgqj,bkjd->bkgqd", x, y)
+
+    s = qk(qh, kh) + qk(qh, kl) + qk(ql, kh) if passes == 3 else qk(qh, kh)
+    s = torch.where(flash_attn.visible(sq, sk, causal, window),
+                    s / np.sqrt(d), torch.tensor(flash_attn.NEG_INF))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    ph, pl = flash_attn.tf32_split(p)
+    o = pv(ph, vh) + pv(ph, vl) + pv(pl, vh) if passes == 3 else pv(ph, vh)
+    o = o / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return o.reshape(b, h, sq, d)
+
+
+@pytest.mark.parametrize("h,kvh,sq,sk,d,causal,window", [
+    (4, 4, 256, 256, 128, True, None),        # olmo-1b's layout, causal
+    (4, 4, 256, 256, 64, True, 64),           # windowed
+    (8, 2, 192, 192, 128, True, None),        # GQA
+    (4, 4, 128, 320, 64, False, None),        # Sq != Sk, full
+    (2, 1, 200, 100, 128, True, 48),          # Sq > Sk: rows with no key
+])
+def test_3xtf32_model_within_the_bar(h, kvh, sq, sk, d, causal, window):
+    """Three TF32 products with a truncated (masked) hi part stay within
+    the float32 bar, 2e-5, of the plain version on seeded inputs; one TF32
+    product does not, which is why the kernel splits every operand."""
+    q, k, v = (t(x) for x in _qkv(sq + d, 1, h, kvh, sq, sk, d))
+    ref = flash_attn.flash_attention_plain(q, k, v, causal, window)
+
+    def excess(out):
+        return float(((out - ref).abs() - 2e-5 * (1 + ref.abs())).max())
+
+    assert excess(_tf32_model(q, k, v, causal, window, 3)) <= 0
+    assert excess(_tf32_model(q, k, v, causal, window, 1)) > 0
+
+
+def test_split_3xtf32_plain_layout():
+    """The pre-pass's plain version: hi and lo are tf32 values (13 low
+    bits clear) that add up to q and k within 2^-21 relative; v^T's parts
+    hold, in each group of 8 columns, keys 0, 2, 4, 6, 1, 3, 5, 7, with
+    zeros past Sk up to Skp = Sk rounded to 32."""
+    q, k, v = (t(x) for x in _qkv(7, 1, 4, 2, 64, 70, 32))
+    qh, ql, kh, kl, vh, vl = flash_attn.split_3xtf32(q, k, v)
+    assert vh.shape == vl.shape == (1, 2, 32, 96)
+    for x in (qh, ql, kh, kl, vh, vl):
+        assert not bool((x.view(torch.int32) & 0x1FFF).any())
+    for hi, lo, x in ((qh, ql, q), (kh, kl, k)):
+        assert float(((hi + lo - x).abs() / x.abs()).max()) <= 2.0 ** -21
+    order = flash_attn.key_order(96)
+    assert order[:8].tolist() == [0, 2, 4, 6, 1, 3, 5, 7]
+    vt = (vh + vl)[..., torch.argsort(order)]
+    assert not bool(vt[..., 70:].any())
+    np.testing.assert_allclose(vt[..., :70].transpose(2, 3).numpy(),
+                               v.numpy(), rtol=2.0 ** -21, atol=0)

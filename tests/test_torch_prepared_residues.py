@@ -68,12 +68,14 @@ def _cfgs(p, **kw):
 
 
 def _same_prep(tp, jp):
+    """A port prep (either layout, read through ``stacked()``, the
+    reference's (p, K16, N16) layout) against the reference's."""
     assert isinstance(tp, tprepared.PreparedResidues)
     assert (tp.moduli, tp.budget_bits, tp.k, tp.n, tp.p, tp.padded_k,
             tp.padded_n) == (tuple(jp.moduli), jp.budget_bits, jp.k, jp.n,
                              jp.p, jp.padded_k, jp.padded_n)
     assert tp.residues.dtype == torch.int8
-    _same(tp.residues, jp.residues)
+    _same(tp.stacked(), jp.residues)
     _same(tp.scale, jp.scale)
 
 
@@ -130,7 +132,7 @@ def test_layout_follows_impl_and_backend():
     assert tprepared.prepare_rhs(b, TCfg(scheme="ozaki2", p=4)).layout == \
         "stacked"                      # a CPU tensor resolves to 'torch'
     assert tprepared.prepare_rhs(b, TCfg(scheme="ozaki2", p=4,
-                                         backend="cuda")).layout == "fused"
+                                         backend="cuda")).layout == "planes"
     assert tprepared.prepare_rhs(b, TCfg(scheme="ozaki2", p=4, impl="xla",
                                          backend="cuda")).layout == "stacked"
 
@@ -189,7 +191,7 @@ def test_prepared_plain_matches_reference_gpu_kernel(mkn, p, dtype):
     jcfg, tcfg = _cfgs(p, backend="gpu")
     jp = jprepared.prepare_rhs(jb, jcfg)
     tp = tprepared.prepare_rhs(tb, dataclasses.replace(tcfg, backend="cuda"))
-    assert (jp.layout, tp.layout) == ("fused", "fused")
+    assert (jp.layout, tp.layout) == ("fused", "planes")
     _same_prep(tp, jp)
     out_j, out_t = DTYPES[dtype][1], DTYPES[dtype][0]
     ref = jprepared.matmul_prepared(ja, jp, out_dtype=out_j)
@@ -217,19 +219,22 @@ def test_prepared_plain_matches_reference_gpu_kernel(mkn, p, dtype):
 
 
 def test_prepared_form_plain_reads_padded_planes():
-    """The plain version slices the padded planes to the lhs's K and the
-    logical N instead of padding the lhs, which changes no bit."""
+    """The prepared form on a weight's planes (K padded to the plane
+    GEMM's K tile, N logical) equals the stacked plain version on the
+    16-padded stack and a padded lhs, sliced to the logical N: zero
+    residues change no bit."""
     rng = np.random.default_rng(9)
     tp = tprepared.prepare_rhs(t(conditioned(rng, (50, 30))),
-                               TCfg(scheme="ozaki2", p=6))
-    assert tp.residues.shape == (6, 64, 32)
+                               TCfg(scheme="ozaki2", p=6, backend="cuda"))
+    assert tp.residues.shape == (6, 30, ozaki2.PLANE_K)
+    assert tp.stacked().shape == (6, 64, 32)
     a = t(conditioned(rng, (7, 50)))
     mu = torch.ones(7, 1)
     out = ozaki2.fused_matmul_scheme2_prepared(a, tp.residues, mu, tp.scale,
                                                tp.moduli, torch.float32, 30)
     a_pad = torch.nn.functional.pad(a, (0, 14))
     full = ozaki2.fused_matmul_scheme2_prepared_plain(
-        a_pad, tp.residues, mu, tp.scale, tp.moduli, torch.float32)
+        a_pad, tp.stacked(), mu, tp.scale, tp.moduli, torch.float32)
     assert out.shape == (7, 30) and torch.equal(out, full[:, :30])
 
 
