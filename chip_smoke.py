@@ -5,35 +5,45 @@
 Drives repro_torch only (no jax, nothing of the reference package) on the
 card, with no CPU fallback, in nineteen phases:
 
-1. build: nvcc compiles the port's CUDA kernels from this checkout (seven
+1. build: nvcc compiles the port's CUDA kernels from this checkout (eight
    sources), one process per source, in parallel;
 2. kernel: every kernel of the serving path is held against its plain
    version bit for bit at the path's shapes (float32 and bfloat16,
-   p in {3, 4, 6}), and timed beside its bound;
+   p in {3, 4, 6}; the 2-D GEMMs on EmuGEMM-I's plane route, each of
+   their encodes against its plain version too, and one GEMM whose top
+   diagonal wraps int32), and timed beside its bound: the 2-D route with
+   its split (the encodes, the plane GEMM and its mainloop) beside the
+   fused kernel of emugemm1.cu that it replaced;
 3. serve: the continuous-batching engine serves 8 requests (prompt 48,
    16 new tokens, 4 lanes, chunk 16, page 16) on full-width olmo-1b with
-   seeded random weights under ozaki1-p4; the kernel's launch counts are
-   read around that run, and request 0 served alone must give the same
-   tokens as in the cohort;
+   seeded random weights under ozaki1-p4; the kernels' launch counts are
+   read around that run (each 2-D call two encodes and one plane GEMM),
+   and request 0 served alone must give the same tokens as in the
+   cohort;
 4. parity: one full-width mixed step on the 'cuda' backend and on the
    'torch' backend (the plain versions) gives bit-identical logits;
 5. profile: wall time of a mixed and a decode step under ozaki1-p4 and
-   native, with the device-busy share and device time by kernel from
-   torch.profiler;
-6. train kernels: the prepared-weight kernels (the pair and rhs
-   decompositions, EmuGEMM-I's mixed form) are held against their plain
-   versions bit for bit at the shapes of a train step of 8 x 128 tokens
-   (float32 and bfloat16, p in {3, 4, 6}), and timed beside their bounds;
+   native, with the device-busy share, device time by kernel and host
+   time by op from torch.profiler, the launch counts read around them;
+6. train kernels: the training path's kernels are held against their
+   plain versions bit for bit at the shapes of a train step of 8 x 128
+   tokens (float32 and bfloat16, p in {3, 4, 6}): the weights' encodes
+   into the 'planes' layout (a prep and its twin also read back through
+   stacked() against the pair decomposition's slices), EmuGEMM-I's mixed
+   route against the interleaved form's plain version, dB on the 2-D
+   route, and the pair and rhs decompositions; each is timed beside its
+   bound, the plane routes with their split;
 7. train: full-width olmo-1b, AdamW, remat, under ozaki1-p4+cached on
    seeded synthetic batches of 8 x 128 tokens: one warm-up step and
-   three timed ones, the launch counts read around them, then three
-   steps traced by torch.profiler (device activity only), then two steps
-   at the published context of 2048 tokens (2 sequences);
+   three timed ones, the launch counts read around them (mixed and 2-D
+   calls, encodes and plane GEMMs, no decomposition), then three steps
+   traced by torch.profiler (device activity only), then two steps at
+   the published context of 2048 tokens (2 sequences);
 8. train parity: under deterministic algorithms, one step's loss and
    every gradient leaf at full width are bit-identical on the 'cuda' and
    'torch' backends (at 8 x 128 and at 2 x 2048 tokens), cached and
-   uncached, and cached and uncached with bwd_p = 3 (which launches the
-   rhs decomposition);
+   uncached, and cached and uncached with bwd_p = 3 (whose twins the
+   encode writes at 3 slices);
 9. trainer: launch/train.py at smoke size on the card fails at step 2,
    resumes, and ends in the state of an uninterrupted run, bit for bit;
 10. Scheme-II kernels: EmuGEMM-II's 2-D, batched and residue forms are
@@ -105,10 +115,11 @@ card, with no CPU fallback, in nineteen phases:
     K2r -> K8 and the 'xla' route of ``ops.fused_scheme1_matmul`` against
     K1; the int8 GEMM (K9) bit for bit at 4096^3, 1024 x 2048 x 8192 and a
     ragged shape; then the library's entry points run with the counts read
-    around them: the 'xla' route and the decompositions feeding K8 (bf16,
-    p = 4), the naive Fig. 4 structure (p(p+1)/2 K9 launches) at 4096^3,
-    which must equal K1, and fused attention (K10) at olmo-1b's heads
-    (2 x 16 x 2048 x 128, causal, bf16 and float32, and a window of 1024),
+    around them: the 'xla' route and the decompositions feeding K8 (K11
+    with K2r and with K2; bf16, p = 4), the naive Fig. 4 structure
+    (p(p+1)/2 K9 launches) at 4096^3, which must equal K1, and fused
+    attention (K10) at olmo-1b's heads (2 x 16 x 2048 x 128, causal, bf16
+    and float32, and a window of 1024),
     granite-3-8b's GQA (32 / 8 heads), recurrentgemma-2b's MQA (10 / 1
     heads of 256 over 4096, window 2048, bf16 and float32) and a
     rectangular non-causal case (128 / 512, D 64), within 2e-5 (float32)
@@ -133,6 +144,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -179,6 +191,7 @@ FP32_FLOPS_PER_S = 67e12
 L2_BYTES = 50 * 2 ** 20
 
 SOURCE = "src/repro_torch/kernels/csrc/emugemm1.cu"
+SOURCE_S1_PLANES = "src/repro_torch/kernels/csrc/emugemm1_planes.cu"
 DECOMPOSE_SOURCE = "src/repro_torch/kernels/csrc/decompose.cu"
 SOURCE2 = "src/repro_torch/kernels/csrc/emugemm2.cu"
 EMU = "olmo-1b-emu"
@@ -303,15 +316,115 @@ def path_shapes(mcfg, view_tokens, chunk):
     ]
 
 
+def s1_encode_bound(rows, k, p, in_bytes):
+    """EmuGEMM-I's encode: the operand and its row scales read once, the
+    p planes (rows, Kp) written once."""
+    moved = in_bytes * rows * k + 4 * rows + p * rows * ozaki1.plane_k(k)
+    return 1e3 * moved / HBM_BYTES_PER_S, "bytes"
+
+
+def s1_planes_bound(m, k, n, p, out_bytes):
+    """EmuGEMM-I's plane GEMM: both operands' p planes and the scales read
+    once, the output written once, against p(p+1)/2 int8 GEMMs at the
+    int8 peak."""
+    moved = (p * (m + n) * ozaki1.plane_k(k) + 4 * (m + n)
+             + out_bytes * m * n)
+    ops_ = p * (p + 1) // 2 * 2 * m * n * k
+    t_b, t_o = moved / HBM_BYTES_PER_S, ops_ / INT8_OPS_PER_S
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def check_encodes(what, pairs, max_err):
+    """Each (operand, row scales, p, beta) encode against its plain version."""
+    for x, sc, p, beta in pairs:
+        out = ozaki1.encode_planes(x, sc, p, beta)
+        check_equal(f"{what} encode {tuple(x.shape)} p={p}", out,
+                    ozaki1.encode_planes_plain(x, sc, p, beta), max_err,
+                    "encode")
+
+
+def wrap_phase_case(dev, max_err):
+    """A Scheme-I GEMM whose top diagonal wraps int32 (beta = 7, K = 50688,
+    every slice near 127): the 2-D route == its plain version, and the
+    diagonal's exact sum is past 2^31."""
+    m, k, n = 128, 50688, 128
+    # 1 - 2^-24 carves to the slices 127, 127, 127, 112: the top diagonal
+    # sums 60706 a K step.
+    a = torch.full((m, k), 1 - 2 ** -24, device=dev)
+    b = torch.full((k, n), 1 - 2 ** -24, device=dev)
+    mu, nu = scheme1.pow2_scale(a, -1), scheme1.pow2_scale(b, -2)
+    out = ozaki1.fused_matmul_scheme1(a, b, mu, nu, P_MAIN, 7, torch.float32)
+    check_equal("int32-wrap case", out, ozaki1.fused_matmul_plain(
+        a, b, mu, nu, P_MAIN, 7, torch.float32), max_err, "2d")
+    pa = ozaki1.encode_planes_plain(a, mu, P_MAIN, 7).double()
+    pb = ozaki1.encode_planes_plain(b.T, nu.T, P_MAIN, 7).double()
+    top = sum(pa[i] @ pb[P_MAIN - 1 - i].T for i in range(P_MAIN))
+    if not top.max().item() > 2 ** 31 - 1:
+        raise AssertionError("the int32-wrap case did not wrap")
+    log(f"[kernel] int32-wrap case {(m, k, n)} p={P_MAIN} beta=7: the top "
+        f"diagonal's exact sum {top.max().item():.4g} > 2^31, kernel == "
+        "plain version bit for bit")
+
+
+def route_times(gen, dev, m, k, n, tr, p, bf, copies):
+    """Device ms of one 2-D EmuGEMM-I call at (m, k, n), bf16, p slices,
+    weight copies rotated past the L2: the route (2 encodes + the plane
+    GEMM), its lhs and weight encodes, the plane GEMM and its mainloop
+    alone, the plain version, and the fused kernel of emugemm1.cu that the
+    route replaced (its batched launch at batch 1)."""
+    a = conditioned(gen, (m, k), bf, dev)
+    bs = [(conditioned(gen, (n, k), bf, dev).T if tr
+           else conditioned(gen, (k, n), bf, dev)) for _ in range(copies)]
+    mu = scheme1.pow2_scale(a, -1)
+    nus = [scheme1.pow2_scale(b, -2) for b in bs]
+    pa = ozaki1.encode_planes(a, mu, p, 7)
+    pbs = [ozaki1.encode_planes(b.T, nu.T, p, 7) for b, nu in zip(bs, nus)]
+    out = torch.empty((m, n), dtype=bf, device=dev)
+    it = iter(range(10 ** 9))
+
+    def rot(fn):
+        def run():
+            i = next(it) % copies
+            fn(bs[i], nus[i], pbs[i])
+        return run
+
+    t = {
+        "ms": time_ms(rot(lambda b, nu, pb: ozaki1.fused_matmul_scheme1(
+            a, b, mu, nu, p, 7, bf)), 20),
+        "encode_a_ms": time_ms(lambda: ozaki1.encode_planes(a, mu, p, 7), 20),
+        "encode_b_ms": time_ms(rot(lambda b, nu, pb: ozaki1.encode_planes(
+            b.T, nu.T, p, 7)), 20),
+        "planes_ms": time_ms(rot(lambda b, nu, pb: ozaki1.launch_planes(
+            pa, pb, mu, nu, p, 7, out)), 20),
+        "mainloop_ms": time_ms(rot(lambda b, nu, pb: ozaki1.launch_planes(
+            pa, pb, mu, nu, p, 7, out, epilogue=False)), 20),
+        "plain_ms": time_ms(rot(lambda b, nu, pb: ozaki1.fused_matmul_plain(
+            a, b, mu, nu, p, 7, bf)), 3),
+        "encode_plain_ms": time_ms(rot(lambda b, nu, pb: (
+            ozaki1.encode_planes_plain(a, mu, p, 7),
+            ozaki1.encode_planes_plain(b.T, nu.T, p, 7))), 3),
+        "planes_plain_ms": time_ms(rot(lambda b, nu, pb: (
+            ozaki1.plane_matmul_plain(pa, pb, mu, nu, p, 7, bf))), 3),
+        "fused_ms": time_ms(rot(lambda b, nu, pb: ozaki1._launch(
+            a[None], b[None], mu[None], nu[None], p, 7, bf)), 5),
+    }
+    other = 128 if ozaki1.plane_tile_m(m) == 64 else 64
+    t[f"planes_tile{other}_ms"] = time_ms(rot(
+        lambda b, nu, pb: ozaki1.launch_planes(pa, pb, mu, nu, p, 7, out,
+                                               tile_m=other)), 20)
+    t["mainloop_tops"] = (p * (p + 1) * m * n * k / t["mainloop_ms"] / 1e9)
+    return t
+
+
 def kernel_phase(dev, mcfg, view_tokens):
     gen = torch.Generator(device=dev).manual_seed(0)
-    max_err = {"2d": 0.0, "batched": 0.0}
+    max_err = {"2d": 0.0, "batched": 0.0, "encode": 0.0}
     checks = 0
     mixed = path_shapes(mcfg, view_tokens, CHUNK)
     decode = path_shapes(mcfg, view_tokens, 1)
     # Bit-identity at every path shape, every 2-D one at M = 4 (a decode
     # step) and M = 64 (a mixed step), and on a ragged shape, for both
-    # operand types and p in {3, 4, 6}.
+    # operand types and p in {3, 4, 6}; each 2-D case's two encodes too.
     cases = [(kind, bt, mm, k, n, tr) for kind, bt, m, k, n, tr, _ in mixed
              for mm in ((4, LANES * CHUNK) if kind == "2d" else (m,))]
     cases += [(kind, bt, m, k, n, tr) for kind, bt, m, k, n, tr, _ in decode
@@ -334,15 +447,21 @@ def kernel_phase(dev, mcfg, view_tokens):
                     raise AssertionError(
                         f"kernel != plain version: {kind} {(bt, m, k, n)} "
                         f"transposed={tr} {dtype} p={p}, max |diff| {err}")
+                if kind == "2d":
+                    check_encodes("serve", ((a, mu, p, 7), (b.T, nu.T, p, 7)),
+                                  max_err)
                 checks += 1
+    wrap_phase_case(dev, max_err)
     log(f"[kernel] {checks} shape/type/p cases bit-identical to the plain "
-        "version")
+        "version (the 2-D ones on the plane route, their encodes too)")
 
     # Timing at the main path's configuration (bf16, p = 4), per shape and
     # summed over one mixed and one decode step's launches.
-    totals = {(step, kind): {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                             "bytes_ms": 0.0, "ops_ms": 0.0,
-                             "yardstick_ms": 0.0}
+    keys = ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms", "yardstick_ms",
+            "encode_ms", "planes_ms", "mainloop_ms", "fused_ms",
+            "encode_plain_ms", "planes_plain_ms", "encode_bound_ms",
+            "planes_bound_ms", "planes_ops_bound_ms", "ops")
+    totals = {(step, kind): dict.fromkeys(keys, 0.0)
               for step in ("mixed", "decode") for kind in ("2d", "batched")}
     bf = torch.bfloat16
     steps = [("mixed", sh) for sh in mixed] + [("decode", sh) for sh in decode]
@@ -350,30 +469,13 @@ def kernel_phase(dev, mcfg, view_tokens):
     for step, (kind, bt, m, k, n, tr, count) in steps:
         key = (kind, bt, m, k, n, tr)
         if key in timed:             # the logits GEMM is the same in both
-            ms, plain, yard, bms, by = timed[key]
-            _add(totals[step, kind], count, ms, plain, yard, bms, by)
+            _add_times(totals[step, kind], count, *timed[key])
             continue
         lead = () if kind == "2d" else (bt,)
         nbytes = 2 * bt * k * n
         # Rotate weight copies past the 50 MB L2, as a serve step finds
         # each weight cold.
         copies = max(1, math.ceil(2 * L2_BYTES / nbytes)) if kind == "2d" else 1
-        a = conditioned(gen, lead + (m, k), bf, dev)
-        bs = [(conditioned(gen, lead + (n, k), bf, dev).transpose(-1, -2)
-               if tr else conditioned(gen, lead + (k, n), bf, dev))
-              for _ in range(copies)]
-        mu = scheme1.pow2_scale(a, -1)
-        nus = [scheme1.pow2_scale(b, -2) for b in bs]
-        it = iter(range(10 ** 9))
-
-        def run_kernel():
-            i = next(it) % copies
-            ozaki1.fused_matmul_scheme1(a, bs[i], mu, nus[i], P_MAIN, 7, bf)
-
-        def run_plain():
-            i = next(it) % copies
-            ozaki1.fused_matmul_plain(a, bs[i], mu, nus[i], P_MAIN, 7, bf)
-
         # Library yardstick, not a kernel of the port: p(p+1)/2 int8 GEMMs
         # through torch._int_mm (which needs more than 16 rows, so M is
         # raised to 32 where smaller).
@@ -392,20 +494,52 @@ def kernel_phase(dev, mcfg, view_tokens):
                     for j in range(bt):
                         torch._int_mm(ai[j], bi)
 
-        ms = time_ms(run_kernel, 20)
-        plain = time_ms(run_plain, 3)
         yard = time_ms(run_yardstick, 5)
         bms, by = bound_ms(bt, m, k, n, P_MAIN, 2, 2)
-        timed[key] = (ms, plain, yard, bms, by)
-        _add(totals[step, kind], count, ms, plain, yard, bms, by)
+        if kind == "2d":
+            t = route_times(gen, dev, m, k, n, tr, P_MAIN, bf, copies)
+            t["encode_ms"] = t["encode_a_ms"] + t["encode_b_ms"]
+            t["encode_bound_ms"] = (s1_encode_bound(m, k, P_MAIN, 2)[0]
+                                    + s1_encode_bound(n, k, P_MAIN, 2)[0])
+            t["planes_bound_ms"], pby = s1_planes_bound(m, k, n, P_MAIN, 2)
+            t["planes_ops_bound_ms"] = (t["planes_bound_ms"]
+                                        if pby == "operations" else 0.0)
+            t["ops"] = n_mm * 2 * m * n * k
+            detail = (f", encodes {t['encode_a_ms']:.4f} + "
+                      f"{t['encode_b_ms']:.4f} ms (bound "
+                      f"{t['encode_bound_ms']:.4f}), plane GEMM "
+                      f"{t['planes_ms']:.4f} ms (mainloop "
+                      f"{t['mainloop_ms']:.4f}, {t['mainloop_tops']:.1f} "
+                      f"TOPS; bound {t['planes_bound_ms']:.4f}), the other "
+                      f"tile {[v for x, v in t.items() if 'tile' in x][0]:.4f}"
+                      f" ms, emugemm1.cu's fused kernel {t['fused_ms']:.4f} ms")
+        else:
+            a = conditioned(gen, lead + (m, k), bf, dev)
+            b = conditioned(gen, lead + (k, n), bf, dev)
+            mu, nu = scheme1.pow2_scale(a, -1), scheme1.pow2_scale(b, -2)
+            t = {"ms": time_ms(lambda: ozaki1.fused_matmul_scheme1(
+                     a, b, mu, nu, P_MAIN, 7, bf), 20),
+                 "plain_ms": time_ms(lambda: ozaki1.fused_matmul_plain(
+                     a, b, mu, nu, P_MAIN, 7, bf), 3)}
+            detail = ""
+        t.update(yardstick_ms=yard, bound_ms=bms)
+        timed[key] = (t, by)
+        _add_times(totals[step, kind], count, t, by)
         log(f"[kernel] {kind} B={bt} M={m} K={k} N={n}"
             f"{' (B transposed)' if tr else ''} x{count}/{step} step: "
-            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms "
-            f"({by}), yardstick torch._int_mm x{n_mm} {yard:.4f} ms")
+            f"route {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+            f"{bms:.4f} ms ({by}), yardstick torch._int_mm x{n_mm} "
+            f"{yard:.4f} ms" + detail)
     for (step, kind), t in totals.items():
-        log(f"[kernel] {kind} per {step} step: kernel {t['ms']:.3f} ms, "
+        extra = (f", encodes {t['encode_ms']:.3f} ms (bound "
+                 f"{t['encode_bound_ms']:.3f}), plane GEMMs "
+                 f"{t['planes_ms']:.3f} ms (mainloop {t['mainloop_ms']:.3f}, "
+                 f"{t['ops'] / t['mainloop_ms'] / 1e9:.1f} TOPS; bound "
+                 f"{t['planes_bound_ms']:.3f}), emugemm1.cu's fused kernel "
+                 f"{t['fused_ms']:.3f} ms" if kind == "2d" else "")
+        log(f"[kernel] {kind} per {step} step: route {t['ms']:.3f} ms, "
             f"plain {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms, "
-            f"yardstick {t['yardstick_ms']:.3f} ms")
+            f"yardstick {t['yardstick_ms']:.3f} ms" + extra)
     return max_err, totals
 
 
@@ -415,6 +549,15 @@ def _add(t, count, ms, plain, yard, bms, by):
     t["bound_ms"] += count * bms
     t["yardstick_ms"] += count * yard
     t["bytes_ms" if by == "bytes" else "ops_ms"] += count * bms
+
+
+def _add_times(total, count, t, by):
+    """Add ``count`` launches of the times ``t`` to ``total``; the bound
+    to the bytes or operations share, as ``by`` says."""
+    for key, v in t.items():
+        if key in total:
+            total[key] += count * v
+    total["bytes_ms" if by == "bytes" else "ops_ms"] += count * t["bound_ms"]
 
 
 # ---------------------------------------------------------------------------
@@ -440,13 +583,19 @@ def serve_phase(dev, arch, policy):
     tag = f"[serve {arch.model.name}]"
     log(f"{tag} {util['steps']} steps, {REQUESTS} requests x {GEN} tokens "
         f"in {dt:.3f} s ({REQUESTS * GEN / dt:.1f} tok/s), ttft p50 "
-        f"{ttft:.3f} s, launches: emugemm1 2-D {counts.launches_2d}, "
-        f"batched {counts.launches_batched}; emugemm2 batched "
-        f"{counts2.launches_batched}, 2-D {counts2.launches_2d}; plain "
-        f"versions on CUDA {counts.plain_cuda_calls} + "
-        f"{counts2.plain_cuda_calls}")
+        f"{ttft:.3f} s, launches: emugemm1 2-D {counts.launches_2d} "
+        f"(encodes {counts.launches_encode}, plane GEMMs "
+        f"{counts.launches_planes}), batched {counts.launches_batched}; "
+        f"emugemm2 batched {counts2.launches_batched}, 2-D "
+        f"{counts2.launches_2d}; plain versions on CUDA "
+        f"{counts.plain_cuda_calls} + {counts2.plain_cuda_calls}")
     if counts.launches_2d == 0 or counts.launches_batched == 0:
         raise AssertionError("the serve path did not launch the kernel")
+    # Every 2-D EmuGEMM-I call is the plane route: 2 encodes + 1 plane GEMM.
+    if (counts.launches_encode, counts.launches_planes) != (
+            2 * counts.launches_2d, counts.launches_2d):
+        raise AssertionError("the serve path's 2-D calls did not each launch "
+                             "two encodes and one plane GEMM")
     if scheme2_sites(eng.policy) and counts2.launches_batched == 0:
         raise AssertionError("the serve path did not launch emugemm2")
     if counts.plain_cuda_calls or counts2.plain_cuda_calls:
@@ -575,6 +724,39 @@ def device_summary(prof, prof_wall_ms: float, top_n: int = 4) -> dict:
                                if k.startswith("emugemm2"))}
 
 
+@contextlib.contextmanager
+def gc_time():
+    """The garbage collector's passes inside the block, and their ms on
+    the host's clock."""
+    out = {"collections": 0, "ms": 0.0}
+    start = {}
+
+    def tick(phase, info):
+        if phase == "start":
+            start["t"] = time.perf_counter()
+        elif "t" in start:
+            out["collections"] += 1
+            out["ms"] += (time.perf_counter() - start.pop("t")) * 1e3
+
+    gc.callbacks.append(tick)
+    try:
+        yield out
+    finally:
+        gc.callbacks.remove(tick)
+
+
+def host_summary(prof, top_n: int = 6) -> dict:
+    """Host time by op from a CPU-traced window: the ops with the most
+    self CPU time (ms, calls), and the kernel launches the host made."""
+    avgs = [e for e in prof.key_averages() if e.self_cpu_time_total > 0]
+    top = sorted(avgs, key=lambda e: -e.self_cpu_time_total)[:top_n]
+    launches = sum(e.count for e in avgs if "LaunchKernel" in e.key)
+    return {"host_self_ms": sum(e.self_cpu_time_total for e in avgs) / 1e3,
+            "top_host_ms": {e.key[:60]: [e.self_cpu_time_total / 1e3, e.count]
+                            for e in top},
+            "kernel_launch_calls": launches}
+
+
 def yardstick_kernels(fn, calls: int = 10) -> dict:
     """The device kernels that a library yardstick ran, by name, with
     their mean device ms a call, from one torch.profiler pass over
@@ -649,18 +831,35 @@ def profile_phase(dev, arch, params, view_tokens, runs):
                     M.forward_step(params, mcfg, tokens, start, nn, cache, pol)
                 torch.cuda.synchronize()
 
+            reset_counts()
             step()
-            t0 = time.perf_counter()
-            for _ in range(3):
-                step()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+            with gc_time() as gc_spent:
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    step()
+                wall_ms = (time.perf_counter() - t0) * 1e3 / 3
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 step()
                 prof_wall_ms = (time.perf_counter() - t0) * 1e3
+            # The 5 steps' EmuGEMM-I launches: each 2-D call on the plane
+            # route, no plain version on CUDA.
+            k1, _, k3 = snapshot_counts()
+            launches = {"emugemm1_2d": k1.launches_2d,
+                        "encodes": k1.launches_encode,
+                        "plane_gemms": k1.launches_planes,
+                        "plain_on_cuda": k1.plain_cuda_calls
+                        + k3.plain_cuda_calls}
+            if (launches["encodes"], launches["plane_gemms"],
+                    launches["plain_on_cuda"]) != (2 * k1.launches_2d,
+                                                   k1.launches_2d, 0):
+                raise AssertionError(f"{step_kind} step under {spec}: "
+                                     f"launches {launches}")
             entry = {"wall_ms": wall_ms,
-                     **device_summary(prof, prof_wall_ms)}
+                     **device_summary(prof, prof_wall_ms),
+                     **host_summary(prof), "gc_in_3_steps": gc_spent,
+                     "launches_in_5_steps": launches}
             report[f"{step_kind}/{spec}"] = entry
             log(f"[profile] {step_kind} step, {spec}: " + json.dumps(entry))
     return report
@@ -679,18 +878,22 @@ def weight_shapes(mcfg):
 
 
 def train_launches(mcfg):
-    """Launches per cached train step with remat, by kernel: each layer's
-    weight is prepared and multiplied in the forward and again in the
-    recompute, and its twin multiplies dA once; the head, outside the
-    checkpoints, once each. The bwd_p route (K2r) decomposes the forward
-    layout and the twin separately."""
-    n_pair = n_fwd = n_da = 0
+    """Calls per cached train step with remat, by form: each layer's
+    weight is prepared (the planes of W^T and of its twin W: two encodes)
+    and multiplied in the forward and again in the recompute, and its twin
+    multiplies dA once; the head, outside the checkpoints, once each. Each
+    mixed call is an lhs encode and a plane GEMM; each dB = A^T dC a 2-D
+    call, two encodes and a plane GEMM."""
+    n_prep = n_fwd = n_da = n_db = 0
     for _, _, tr, c in weight_shapes(mcfg):
         r = 1 if tr else 2
-        n_pair += r * c
+        n_prep += r * c
         n_fwd += r * c
         n_da += c
-    return {"pair": n_pair, "mixed": n_fwd + n_da, "rhs": 2 * n_pair}
+        n_db += c
+    mixed = n_fwd + n_da
+    return {"prep": n_prep, "mixed": mixed, "2d": n_db,
+            "encode": 2 * n_prep + mixed + 2 * n_db, "planes": mixed + n_db}
 
 
 def pair_bound(k, n, p, in_bytes):
@@ -705,7 +908,10 @@ def rhs_bound(k, n, p, in_bytes):
 
 
 def mixed_bound(m, k, n, p, in_bytes, out_bytes):
-    moved = (in_bytes * m * k + p * decompose.round_up(k) * n + 4 * (m + n)
+    """The mixed route: the lhs and the scales read once, the weight's p
+    planes read once, the output written once, against p(p+1)/2 int8
+    GEMMs at the int8 peak."""
+    moved = (in_bytes * m * k + p * ozaki1.plane_k(k) * n + 4 * (m + n)
              + out_bytes * m * n)
     ops = p * (p + 1) // 2 * 2 * m * n * k
     t_b, t_o = moved / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
@@ -719,14 +925,42 @@ def make_weight(gen, k, n, transposed, dtype, dev):
     return conditioned(gen, (k, n), dtype, dev)
 
 
+def split_times(kind, lhs, mu, weights, p, out_dtype, rhs=None, nu=None):
+    """Device ms of the plane route's pieces, rotating ``weights`` (a list
+    of (planes of B^T, nu) per copy): the lhs encode, the plane GEMM and
+    its mainloop alone; for a 2-D call (``rhs``, ``nu`` given) both
+    encodes, the rhs's as the route runs it."""
+    pa = ozaki1.encode_planes(lhs, mu, p, 7)
+    out = torch.empty((lhs.shape[0], weights[0][0].shape[1]),
+                      dtype=out_dtype, device=lhs.device)
+    it = iter(range(10 ** 9))
+
+    def rot(fn):
+        def run():
+            fn(*weights[next(it) % len(weights)])
+        return run
+
+    t = {"encode_ms": time_ms(lambda: ozaki1.encode_planes(lhs, mu, p, 7), 10),
+         "planes_ms": time_ms(rot(lambda pb, sc: ozaki1.launch_planes(
+             pa, pb, mu, sc, p, 7, out)), 10),
+         "mainloop_ms": time_ms(rot(lambda pb, sc: ozaki1.launch_planes(
+             pa, pb, mu, sc, p, 7, out, epilogue=False)), 10)}
+    if kind == "2d":
+        t["encode_ms"] += time_ms(lambda: ozaki1.encode_planes(
+            rhs.T, nu.T, p, 7), 10)
+    return t
+
+
 def train_kernel_phase(dev, mcfg):
     gen = torch.Generator(device=dev).manual_seed(2)
-    max_err = {"pair": 0.0, "rhs": 0.0, "mixed": 0.0}
+    max_err = {"pair": 0.0, "rhs": 0.0, "mixed": 0.0, "encode": 0.0,
+               "stacked": 0.0, "2d": 0.0}
     checks = 0
     cases = [(TOKENS, k, n, tr) for k, n, tr, _ in weight_shapes(mcfg)]
     cases.append((100, 1000, 77, True))                    # ragged
     for dtype in (torch.float32, torch.bfloat16):
         for p in (3, 4, 6):
+            cfg = api.precision(f"ozaki1-p{p}+cached", backend="cuda")
             for m, k, n, tr in cases:
                 b = make_weight(gen, k, n, tr, dtype, dev)
                 nu, tau = scheme1.pow2_scale(b, -2), scheme1.pow2_scale(b, -1).T
@@ -736,21 +970,38 @@ def train_kernel_phase(dev, mcfg):
                 rhs_t = decompose.decompose_interleave_rhs(b.T, tau, p, 7)
                 ref_f, ref_t = decompose.decompose_pair_plain(b, nu, tau, p,
                                                               7, 7)
+                # The 'planes' prep: the planes of W^T and of its twin W.
+                prep = prepared.prepare_rhs(b, cfg, with_twin=True)
+                if (prep.layout, prep.beta, prep.twin.beta) != ("planes", 7, 7):
+                    raise AssertionError(f"prep {prep.layout} beta "
+                                         f"{prep.beta}/{prep.twin.beta}")
                 a = conditioned(gen, (m, k), dtype, dev)
                 g = conditioned(gen, (m, n), dtype, dev)
                 mu, mug = scheme1.pow2_scale(a, -1), scheme1.pow2_scale(g, -1)
-                outs = [(ozaki1.fused_matmul_mixed(x, hat, s, sc, p, 7, dtype),
+                outs = [(ozaki1.fused_matmul_mixed(x, pl, s, sc, p, 7, dtype),
                          ozaki1.fused_matmul_mixed_plain(x, hat, s, sc, p, 7,
                                                          dtype))
-                        for x, hat, s, sc in ((a, fwd, mu, nu),
-                                              (g, twin, mug, tau))]
+                        for x, pl, hat, s, sc in (
+                            (a, prep.slices, fwd, mu, nu),
+                            (g, prep.twin.slices, twin, mug, tau))]
+                # dB = A^T dC on the 2-D route, A^T a strided view.
+                mut, nug = scheme1.pow2_scale(a.T, -1), scheme1.pow2_scale(g, -2)
+                db = (ozaki1.fused_matmul_scheme1(a.T, g, mut, nug, p, 7, dtype),
+                      ozaki1.fused_matmul_plain(a.T, g, mut, nug, p, 7, dtype))
                 torch.cuda.synchronize()
-                for name, out, ref in (("pair", fwd, ref_f),
-                                       ("pair", twin, ref_t),
-                                       ("rhs", rhs, ref_f),
-                                       ("rhs", rhs_t, ref_t),
-                                       ("mixed", *outs[0]),
-                                       ("mixed", *outs[1])):
+                for name, out, ref in (
+                        ("pair", fwd, ref_f), ("pair", twin, ref_t),
+                        ("rhs", rhs, ref_f), ("rhs", rhs_t, ref_t),
+                        ("encode", prep.slices,
+                         ozaki1.encode_planes_plain(b.T, nu.T, p, 7)),
+                        ("encode", prep.twin.slices,
+                         ozaki1.encode_planes_plain(b, tau.T, p, 7)),
+                        ("stacked", prep.stacked(),
+                         scheme1.deinterleave_k(ref_f, p, "b", decompose.TILE)),
+                        ("stacked", prep.twin.stacked(),
+                         scheme1.deinterleave_k(ref_t, p, "b", decompose.TILE)),
+                        ("mixed", *outs[0]), ("mixed", *outs[1]),
+                        ("2d", *db)):
                     err = (out.float() - ref.float()).abs().max().item()
                     max_err[name] = max(max_err[name], err)
                     if not torch.equal(out, ref):
@@ -758,16 +1009,21 @@ def train_kernel_phase(dev, mcfg):
                             f"{name} kernel != plain version: {(m, k, n)} "
                             f"transposed={tr} {dtype} p={p}, max |diff| {err}")
                     checks += 1
+                del b, fwd, twin, rhs, rhs_t, ref_f, ref_t, prep, outs, db
     log(f"[train-kernel] {checks} shape/type/p cases bit-identical to the "
-        "plain versions")
+        "plain versions (K2, K2r; the weights' planes and their twins, also "
+        "read back through stacked() against the interleaved slices; the "
+        "mixed route against the interleaved form's plain version; dB on "
+        "the 2-D route)")
 
     # Timing at the training configuration (bf16, p = 4; the twin of the
     # bwd_p route at p = 3), per shape and summed over one train step.
     bf = torch.bfloat16
     n_mm = P_MAIN * (P_MAIN + 1) // 2
-    totals = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                     "bytes_ms": 0.0, "ops_ms": 0.0, "yardstick_ms": 0.0}
-              for name in ("pair", "rhs", "mixed")}
+    keys = ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms",
+            "yardstick_ms", "encode_ms", "planes_ms", "mainloop_ms", "ops")
+    totals = {name: dict.fromkeys(keys, 0.0)
+              for name in ("pair", "rhs", "weights", "mixed", "2d")}
     for k, n, tr, count in weight_shapes(mcfg):
         r = 1 if tr else 2          # the head is not recomputed
         # Rotate weight copies past the 50 MB L2, as a step finds each
@@ -776,40 +1032,65 @@ def train_kernel_phase(dev, mcfg):
         bs = [make_weight(gen, k, n, tr, bf, dev) for _ in range(copies)]
         nus = [scheme1.pow2_scale(b, -2) for b in bs]
         taus = [scheme1.pow2_scale(b, -1).T for b in bs]
-        preps = [decompose.decompose_interleave_pair(b, nu, tau, P_MAIN, 7, 7)
-                 for b, nu, tau in zip(bs, nus, taus)]
+        hats = [decompose.decompose_interleave_pair(b, nu, tau, P_MAIN, 7, 7)
+                for b, nu, tau in zip(bs, nus, taus)]
+        planes = [(ozaki1.encode_planes(b.T, nu.T, P_MAIN, 7),
+                   ozaki1.encode_planes(b, tau.T, P_MAIN, 7))
+                  for b, nu, tau in zip(bs, nus, taus)]
         a = conditioned(gen, (TOKENS, k), bf, dev)
         g = conditioned(gen, (TOKENS, n), bf, dev)
         mu, mug = scheme1.pow2_scale(a, -1), scheme1.pow2_scale(g, -1)
+        mut, nug = scheme1.pow2_scale(a.T, -1), scheme1.pow2_scale(g, -2)
         it = iter(range(10 ** 9))
 
         def rot(fn):
             def run():
                 i = next(it) % copies
-                fn(bs[i], nus[i], taus[i], preps[i])
+                fn(bs[i], nus[i], taus[i], hats[i], planes[i])
             return run
 
+        def encode_weight(b, nu, tau, encode):
+            encode(b.T, nu.T, P_MAIN, 7)
+            encode(b, tau.T, P_MAIN, 7)
+
         runs = {
-            "pair": (rot(lambda b, nu, tau, _: decompose.decompose_interleave_pair(
+            "pair": (rot(lambda b, nu, tau, h, pl: decompose.decompose_interleave_pair(
                 b, nu, tau, P_MAIN, 7, 7)),
-                rot(lambda b, nu, tau, _: decompose.decompose_pair_plain(
+                rot(lambda b, nu, tau, h, pl: decompose.decompose_pair_plain(
                     b, nu, tau, P_MAIN, 7, 7))),
-            "rhs": (rot(lambda b, nu, tau, _: decompose.decompose_interleave_rhs(
+            "rhs": (rot(lambda b, nu, tau, h, pl: decompose.decompose_interleave_rhs(
                 b, nu, P_MAIN, 7)),
-                rot(lambda b, nu, tau, _: decompose.decompose_rhs_plain(
+                rot(lambda b, nu, tau, h, pl: decompose.decompose_rhs_plain(
                     b, nu, P_MAIN, 7))),
-            "rhs_twin": (rot(lambda b, nu, tau, _: decompose.decompose_interleave_rhs(
+            "rhs_twin": (rot(lambda b, nu, tau, h, pl: decompose.decompose_interleave_rhs(
                 b.T, tau, P_BWD, 7)),
-                rot(lambda b, nu, tau, _: decompose.decompose_rhs_plain(
+                rot(lambda b, nu, tau, h, pl: decompose.decompose_rhs_plain(
                     b.T, tau, P_BWD, 7))),
-            "fwd": (rot(lambda b, nu, tau, pr: ozaki1.fused_matmul_mixed(
-                a, pr[0], mu, nu, P_MAIN, 7, bf)),
-                rot(lambda b, nu, tau, pr: ozaki1.fused_matmul_mixed_plain(
-                    a, pr[0], mu, nu, P_MAIN, 7, bf))),
-            "da": (rot(lambda b, nu, tau, pr: ozaki1.fused_matmul_mixed(
-                g, pr[1], mug, tau, P_MAIN, 7, bf)),
-                rot(lambda b, nu, tau, pr: ozaki1.fused_matmul_mixed_plain(
-                    g, pr[1], mug, tau, P_MAIN, 7, bf))),
+            "weights": (rot(lambda b, nu, tau, h, pl: encode_weight(
+                b, nu, tau, ozaki1.encode_planes)),
+                rot(lambda b, nu, tau, h, pl: encode_weight(
+                    b, nu, tau, ozaki1.encode_planes_plain))),
+            "fwd": (rot(lambda b, nu, tau, h, pl: ozaki1.fused_matmul_mixed(
+                a, pl[0], mu, nu, P_MAIN, 7, bf)),
+                rot(lambda b, nu, tau, h, pl: ozaki1.fused_matmul_mixed_plain(
+                    a, h[0], mu, nu, P_MAIN, 7, bf))),
+            "da": (rot(lambda b, nu, tau, h, pl: ozaki1.fused_matmul_mixed(
+                g, pl[1], mug, tau, P_MAIN, 7, bf)),
+                rot(lambda b, nu, tau, h, pl: ozaki1.fused_matmul_mixed_plain(
+                    g, h[1], mug, tau, P_MAIN, 7, bf))),
+            "db": (lambda: ozaki1.fused_matmul_scheme1(
+                a.T, g, mut, nug, P_MAIN, 7, bf),
+                lambda: ozaki1.fused_matmul_plain(a.T, g, mut, nug, P_MAIN, 7,
+                                                  bf)),
+        }
+        splits = {
+            "fwd": lambda: split_times("mixed", a, mu, [
+                (pl[0], nu) for pl, nu in zip(planes, nus)], P_MAIN, bf),
+            "da": lambda: split_times("mixed", g, mug, [
+                (pl[1], tau) for pl, tau in zip(planes, taus)], P_MAIN, bf),
+            "db": lambda: split_times(
+                "2d", a.T, mut, [(ozaki1.encode_planes(g.T, nug.T, P_MAIN, 7),
+                                  nug)], P_MAIN, bf, rhs=g, nu=nug),
         }
         # Library yardstick, not a kernel of the port: the p(p+1)/2 int8
         # GEMMs of each mixed launch through torch._int_mm.
@@ -826,34 +1107,47 @@ def train_kernel_phase(dev, mcfg):
         bounds = {"pair": pair_bound(k, n, P_MAIN, 2),
                   "rhs": rhs_bound(k, n, P_MAIN, 2),
                   "rhs_twin": rhs_bound(n, k, P_BWD, 2),
+                  "weights": (s1_encode_bound(n, k, P_MAIN, 2)[0]
+                              + s1_encode_bound(k, n, P_MAIN, 2)[0], "bytes"),
                   "fwd": mixed_bound(TOKENS, k, n, P_MAIN, 2, 2),
-                  "da": mixed_bound(TOKENS, n, k, P_MAIN, 2, 2)}
+                  "da": mixed_bound(TOKENS, n, k, P_MAIN, 2, 2),
+                  "db": bound_ms(1, k, TOKENS, n, P_MAIN, 2, 2)}
+        ops_ = {"fwd": n_mm * 2 * TOKENS * k * n, "da": n_mm * 2 * TOKENS * k * n,
+                "db": n_mm * 2 * TOKENS * k * n}
         per_step = {"pair": ("pair", r * count), "rhs": ("rhs", r * count),
                     "rhs_twin": ("rhs", r * count),
-                    "fwd": ("mixed", r * count), "da": ("mixed", count)}
+                    "weights": ("weights", r * count),
+                    "fwd": ("mixed", r * count), "da": ("mixed", count),
+                    "db": ("2d", count)}
         for key, (run_k, run_p) in runs.items():
-            ms = time_ms(run_k, 10)
-            plain = time_ms(run_p, 2)
-            y = time_ms(yard[key], 3) if key in yard else 0.0
             bms, by = bounds[key]
+            t = {"ms": time_ms(run_k, 10), "plain_ms": time_ms(run_p, 2),
+                 "yardstick_ms": time_ms(yard[key], 3) if key in yard else 0.0,
+                 "bound_ms": bms}
+            if key in splits:
+                t.update(splits[key](), ops=ops_[key])
             name, c = per_step[key]
-            t = totals[name]
-            t["ms"] += c * ms
-            t["plain_ms"] += c * plain
-            t["bound_ms"] += c * bms
-            t["bytes_ms" if by == "bytes" else "ops_ms"] += c * bms
-            t["yardstick_ms"] += c * y
+            _add_times(totals[name], c, t, by)
             log(f"[train-kernel] {key} K={k} N={n}"
                 f"{' (B transposed)' if tr else ''} x{c}/step: kernel "
-                f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by})"
-                + (f", yardstick torch._int_mm x{n_mm} {y:.4f} ms"
-                   if key in yard else ""))
-        del bs, preps
+                f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+                f"{bms:.4f} ms ({by})"
+                + (f", yardstick torch._int_mm x{n_mm} "
+                   f"{t['yardstick_ms']:.4f} ms" if key in yard else "")
+                + (f"; encodes {t['encode_ms']:.4f}, plane GEMM "
+                   f"{t['planes_ms']:.4f} (mainloop {t['mainloop_ms']:.4f}, "
+                   f"{t['ops'] / t['mainloop_ms'] / 1e9:.1f} TOPS)"
+                   if key in splits else ""))
+        del bs, hats, planes
     for name, t in totals.items():
         log(f"[train-kernel] {name} per train step: kernel {t['ms']:.3f} ms, "
             f"plain {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms"
             + (f", yardstick {t['yardstick_ms']:.3f} ms"
-               if name == "mixed" else ""))
+               if name == "mixed" else "")
+            + (f"; encodes {t['encode_ms']:.3f} ms, plane GEMMs "
+               f"{t['planes_ms']:.3f} ms (mainloop {t['mainloop_ms']:.3f}, "
+               f"{t['ops'] / t['mainloop_ms'] / 1e9:.1f} TOPS)"
+               if t["ops"] else ""))
     return max_err, totals
 
 
@@ -910,7 +1204,8 @@ def train_phase(dev, arch, card: str, policy=None, long_seq: bool = True):
     # One warm-up step, then the timed window; tokens/s is every token of
     # the window over its whole wall time.
     losses, warm = run_steps(step, run, batches, 1)
-    timed, walls = run_steps(step, run, batches, TRAIN_STEPS)
+    with gc_time() as gc_spent:
+        timed, walls = run_steps(step, run, batches, TRAIN_STEPS)
     losses += timed
     k1, k2, k3 = snapshot_counts()
     peak = torch.cuda.max_memory_allocated(dev)
@@ -919,28 +1214,33 @@ def train_phase(dev, arch, card: str, policy=None, long_seq: bool = True):
         f"{label}: losses {losses}, warm-up wall s {warm[0]:.3f}, "
         f"timed step wall s {[round(w, 3) for w in walls]}, {tok_s:.1f} "
         f"tokens/s over the timed steps, peak memory "
-        f"{peak / 2 ** 30:.2f} GiB on {card}; launches: pair "
-        f"{k2.launches_pair}, "
-        f"rhs {k2.launches_rhs}, mixed {k1.launches_mixed}, 2-D "
-        f"{k1.launches_2d}, batched {k1.launches_batched}, emugemm2 batched "
-        f"{k3.launches_batched}, plain versions on CUDA "
+        f"{peak / 2 ** 30:.2f} GiB on {card}; launches: mixed "
+        f"{k1.launches_mixed}, 2-D {k1.launches_2d} (encodes "
+        f"{k1.launches_encode}, plane GEMMs {k1.launches_planes}), batched "
+        f"{k1.launches_batched}, pair {k2.launches_pair}, rhs "
+        f"{k2.launches_rhs}, emugemm2 batched {k3.launches_batched}, plain "
+        f"versions on CUDA "
         f"{k1.plain_cuda_calls + k2.plain_cuda_calls + k3.plain_cuda_calls}")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite training loss {losses}")
-    if min(k2.launches_pair, k1.launches_mixed, k1.launches_2d,
-           k1.launches_batched) == 0:
+    if min(k1.launches_mixed, k1.launches_2d, k1.launches_batched) == 0:
         raise AssertionError("the train path did not launch every kernel")
-    # The per-step times of the kernel phase count these launches.
+    # The per-step times of the kernel phase count these launches: every
+    # prep is two encodes on the plane route, none a decomposition.
     expect = train_launches(arch.model)
     n_run = 1 + TRAIN_STEPS
     # attn_qk under Scheme II: the forward, the recompute, dA and dB of
     # each chunk pair.
     qk = (4 * chunk_pairs(arch.model, TRAIN_SEQ) * arch.model.n_layers
           if scheme2_sites(policy or arch.gemm_policy()) else 0)
-    if (k2.launches_pair, k1.launches_mixed, k3.launches_batched) != (
-            n_run * expect["pair"], n_run * expect["mixed"], n_run * qk):
-        raise AssertionError(f"launches differ from the per-step accounting "
-                             f"{expect}, attn_qk {qk}")
+    got = (k1.launches_mixed, k1.launches_2d, k1.launches_encode,
+           k1.launches_planes, k2.launches_pair + k2.launches_rhs,
+           k3.launches_batched)
+    want = (n_run * expect["mixed"], n_run * expect["2d"],
+            n_run * expect["encode"], n_run * expect["planes"], 0, n_run * qk)
+    if got != want:
+        raise AssertionError(f"launches {got} differ from the per-step "
+                             f"accounting {want}: {expect}, attn_qk {qk}")
     if k1.plain_cuda_calls or k2.plain_cuda_calls or k3.plain_cuda_calls:
         raise AssertionError("the train path ran a plain version on CUDA")
     # The same number of steps again, traced: device activity only, so the
@@ -953,9 +1253,16 @@ def train_phase(dev, arch, card: str, policy=None, long_seq: bool = True):
     profiled = device_summary(prof, prof_wall_ms, top_n=6)
     profiled["step_wall_s"] = prof_walls
     log(f"{tag} {TRAIN_STEPS} profiled steps " + json.dumps(profiled))
+    # One more step traced on the host too: where the host's time goes.
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        host_losses, _ = run_steps(step, run, batches, 1)
+    log(f"{tag} 1 step traced on the host " + json.dumps(host_summary(prof)))
+    prof_losses += host_losses
     summary = {"losses": losses, "warmup_wall_s": warm[0],
                "step_wall_s": walls, "tokens_per_s": tok_s,
-               "peak_memory_bytes": peak, "profile": profiled}
+               "peak_memory_bytes": peak, "gc_in_timed_steps": gc_spent,
+               "profile": profiled}
     if not all(math.isfinite(x) for x in prof_losses):
         raise AssertionError(f"non-finite training loss {prof_losses}")
     if not long_seq:
@@ -1012,15 +1319,19 @@ def train_parity_phase(dev, arch, params):
                   for backend in ("@cuda", "@torch")))
     reset_counts()
     cached_bwd = run(TRAIN_SPEC, bwd_p=P_BWD)
-    _, k2, _ = snapshot_counts()
+    k1, k2, _ = snapshot_counts()
     grads_equal(f"(c) bwd_p={P_BWD}: cached == uncached", cached_bwd,
                 run("ozaki1-p4", bwd_p=P_BWD))
-    if k2.launches_rhs != train_launches(arch.model)["rhs"]:
-        raise AssertionError(f"the bwd_p route launched the rhs kernel "
-                             f"{k2.launches_rhs} times")
-    log(f"[train-parity] the bwd_p={P_BWD} step launched the rhs kernel "
-        f"{k2.launches_rhs} times")
-    return k2.launches_rhs
+    # The twins are encoded at bwd_p slices: the same encode launches as a
+    # step at p, and no decomposition.
+    want = train_launches(arch.model)["encode"]
+    if (k1.launches_encode, k2.launches_pair + k2.launches_rhs) != (want, 0):
+        raise AssertionError(f"the bwd_p step launched {k1.launches_encode} "
+                             f"encodes (expected {want}) and "
+                             f"{k2.launches_pair + k2.launches_rhs} "
+                             "decompositions")
+    log(f"[train-parity] the bwd_p={P_BWD} step launched the encode kernel "
+        f"{k1.launches_encode} times, the decompositions none")
 
 
 # ---------------------------------------------------------------------------
@@ -1495,7 +1806,8 @@ def hoisted_train_phase(dev, arch, card: str):
                 "2d": k3.launches_2d, "batched": k3.launches_batched,
                 "residues": k3.launches_residues,
                 "emugemm1": k1.launches_2d + k1.launches_batched
-                + k1.launches_mixed,
+                + k1.launches_mixed + k1.launches_encode
+                + k1.launches_planes,
                 "decompose": k2.launches_pair + k2.launches_rhs,
                 "plain_on_cuda": plain}
     log(f"{tag} 1 + {TRAIN_STEPS} steps of {HOIST_MICRO} x "
@@ -1808,7 +2120,9 @@ def scientific_main_path(dev, gen, za, zb, da, db):
               "emugemm2_2d": c2.launches_2d,
               "emugemm2_residues": c2.launches_residues,
               "emugemm2_batched": c2.launches_batched,
-              "emugemm1_2d": c1.launches_2d}
+              "emugemm1_2d": c1.launches_2d,
+              "emugemm1_encode": c1.launches_encode,
+              "emugemm1_planes": c1.launches_planes}
     plain = c1.plain_cuda_calls + c2.plain_cuda_calls + c3.plain_cuda_calls
     log(f"[scientific] main path launches {json.dumps(counts)}; plain "
         f"versions on CUDA {plain}")
@@ -1816,7 +2130,8 @@ def scientific_main_path(dev, gen, za, zb, da, db):
                   "emugemm3m_residues": 1, "emugemm2_encode": 4,
                   "emugemm2_planes": 2, "emugemm2_2d": 0,
                   "emugemm2_residues": 1, "emugemm2_batched": 0,
-                  "emugemm1_2d": 4} or plain:
+                  "emugemm1_2d": 4, "emugemm1_encode": 8,
+                  "emugemm1_planes": 4} or plain:
         raise AssertionError("the scientific front doors did not launch "
                              "each kernel as expected")
     for kind in ("zgemm", "dgemm"):
@@ -2306,14 +2621,21 @@ def library_phase(dev, mcfg):
     reset_counts()
     routed = [ops.fused_scheme1_matmul(a, b, scheme1_cfg(p, "xla"),
                                        out_dtype=bf) for a, b in xs]
-    composed = []
+    composed, paired = [], []
     for a, b in xs:
         beta = scheme1_cfg(p, "xla").resolved_beta(a.shape[1])
+        beta_t = scheme1_cfg(p, "xla").resolved_beta(b.shape[1])
         mu, nu = scheme1.pow2_scale(a, 1), scheme1.pow2_scale(b, 0)
+        tau = scheme1.pow2_scale(b, 1).T
+        a_hat = decompose.decompose_interleave(a, mu, p, beta)
         composed.append(ozaki1.fused_matmul_interleaved(
-            decompose.decompose_interleave(a, mu, p, beta),
-            decompose.decompose_interleave_rhs(b, nu, p, beta), mu, nu, p,
-            beta, bf))
+            a_hat, decompose.decompose_interleave_rhs(b, nu, p, beta), mu, nu,
+            p, beta, bf))
+        # The pair decomposition's forward layout feeds K8 the same way.
+        fwd, _ = decompose.decompose_interleave_pair(b, nu, tau, p, beta,
+                                                     beta_t)
+        paired.append(ozaki1.fused_matmul_interleaved(a_hat, fwd, mu, nu, p,
+                                                      beta, bf))
     naive = naive_scheme1(na, nb, p, naive_beta)
     attn = [flash_attn.flash_attention(q, k, v, causal=c[7], window=c[8])
             for c, (q, k, v) in zip(ATTN_CASES, qkvs)]
@@ -2324,26 +2646,28 @@ def library_phase(dev, mcfg):
     kernels = [flash_attn.instance(getattr(torch, c[9]), c[6]).kernel
                for c in ATTN_CASES]
     log(f"[library] main path: K8 {e1.launches_interleaved}, K11 "
-        f"{dc.launches_lhs}, K2r {dc.launches_rhs}, K9 "
+        f"{dc.launches_lhs}, K2r {dc.launches_rhs}, K2 {dc.launches_pair}, K9 "
         f"{counts['int8'].launches}, K10 {counts['flash'].launches} "
         f"({', '.join(kernels)}; the 3xTF32 pre-pass "
         f"{counts['flash'].launches_split}), K1 {e1.launches_2d}, plain "
         f"versions on CUDA {sum(c.plain_cuda_calls for c in counts.values())}")
     fl = counts["flash"]
-    expected = (2 * len(shapes), len(shapes), len(shapes), n_mm,
+    expected = (3 * len(shapes), len(shapes), len(shapes), len(shapes), n_mm,
                 len(ATTN_CASES), kernels.count("wgmma-3xtf32"),
                 kernels.count("ffma"), kernels.count("wgmma-3xtf32"), 0)
     got = (e1.launches_interleaved, dc.launches_lhs, dc.launches_rhs,
-           counts["int8"].launches, fl.launches, fl.launches_3xtf32,
-           fl.launches_ffma, fl.launches_split, e1.launches_2d)
+           dc.launches_pair, counts["int8"].launches, fl.launches,
+           fl.launches_3xtf32, fl.launches_ffma, fl.launches_split,
+           e1.launches_2d)
     if got != expected:
         raise AssertionError(f"library main path launches {got}, expected "
                              f"{expected}")
     if any(c.plain_cuda_calls for c in counts.values()):
         raise AssertionError("the library path ran a plain version on CUDA")
-    for (a, b), r, c in zip(xs, routed, composed):
-        if not (torch.equal(r, c) and torch.equal(r, ops.fused_scheme1_matmul(
-                a, b, scheme1_cfg(p, "kernel"), out_dtype=bf))):
+    for (a, b), r, c, pc in zip(xs, routed, composed, paired):
+        if not (torch.equal(r, c) and torch.equal(r, pc)
+                and torch.equal(r, ops.fused_scheme1_matmul(
+                    a, b, scheme1_cfg(p, "kernel"), out_dtype=bf))):
             raise AssertionError(f"the 'xla' route, the decompositions + K8 "
                                  f"and K1 differ at {tuple(a.shape)} @ "
                                  f"{tuple(b.shape)}")
@@ -2362,11 +2686,11 @@ def library_phase(dev, mcfg):
                             "split")
             del parts, plain
     log(f"[library] on the main path the 'xla' route == K11 + K2r -> K8 == "
-        f"K1, the naive K9 composition at {NAIVE_N}^3 == K1, and K10 within "
+        f"K11 + K2 -> K8 == K1, the naive K9 composition at {NAIVE_N}^3 == K1, and K10 within "
         f"its bars in {len(ATTN_CASES)} cases (max |diff| bf16 "
         f"{max_err['flash']:.3g}, float32 {max_err['flash_f32']:.3g}); the "
         "3xTF32 pre-pass bit-identical to its plain version")
-    del routed, composed, naive, attn
+    del routed, composed, paired, naive, attn
 
     # Times. K8 and K11 summed over one launch at each dense shape.
     t8, t11 = ({"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
@@ -2477,7 +2801,7 @@ def library_phase(dev, mcfg):
     common = {"route": "cuda"}
     lib_per = (f"one launch at each of olmo-1b's dense shapes at {TOKENS} "
                f"tokens, bf16, p = {p} (launches: phase 19's main path)")
-    return [
+    return dc, [
         {"name": "emugemm1_interleaved", **common, "source": SOURCE,
          "replaces": "src/repro/kernels/ozaki1.py:118",
          "launches": e1.launches_interleaved,
@@ -2539,8 +2863,8 @@ def library_phase(dev, mcfg):
 def build_phase():
     """nvcc for each kernel source, all started together."""
     t0 = time.perf_counter()
-    names = ("emugemm1", "decompose", "emugemm2", "emugemm2_planes",
-             "emugemm3m", "matmul_int8", "flash_attn")
+    names = ("emugemm1", "emugemm1_planes", "decompose", "emugemm2",
+             "emugemm2_planes", "emugemm3m", "matmul_int8", "flash_attn")
     with ThreadPoolExecutor(len(names)) as ex:
         for f in [ex.submit(build.build, n) for n in names]:
             f.result()
@@ -2581,7 +2905,7 @@ def main() -> int:
     log("[train] summary " + json.dumps(
         {k: v for k, v in train.items() if k != "profile"}))
     torch.use_deterministic_algorithms(True, warn_only=True)
-    rhs_launches = train_parity_phase(dev, arch, params)
+    train_parity_phase(dev, arch, params)
     del params
     trainer_phase()
     torch.use_deterministic_algorithms(False)
@@ -2626,49 +2950,102 @@ def main() -> int:
     torch.use_deterministic_algorithms(False)
 
     # The library kernels.
-    library_rows = library_phase(dev, arch.model)
+    lib_dc, library_rows = library_phase(dev, arch.model)
 
     def bound_by(t):
         return "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations"
 
     common = {"route": "cuda", "library_ms": None}
     kernels = []
-    for kind, name, replaces, launches, train_n in (
-            ("2d", "emugemm1_2d", "src/repro/kernels/ozaki1.py:143",
-             counts.launches_2d, k1.launches_2d),
-            ("batched", "emugemm1_batched",
-             "src/repro/kernels/backends/gpu.py:240",
-             counts.launches_batched, k1.launches_batched)):
-        t = totals["mixed", kind]
-        kernels.append({
-            "name": name, **common, "source": SOURCE, "replaces": replaces,
-            "launches": launches, "max_abs_err": max_err[kind],
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": bound_by(t),
-            "int_mm_yardstick_ms": t["yardstick_ms"],
-            "per": "one mixed serve step of olmo-1b (4 lanes x chunk 16)",
-            "launches_in_train_run": train_n})
+    t2, td, tt = totals["mixed", "2d"], totals["decode", "2d"], t_totals["2d"]
     train_per = (f"one {TRAIN_SPEC} train step of full-width olmo-1b "
                  f"({TRAIN_BATCH} x {TRAIN_SEQ} tokens; launches: the "
                  f"warm-up and {TRAIN_STEPS} timed steps)")
-    for key, name, source, replaces, launches, per in (
-            ("mixed", "emugemm1_mixed", SOURCE,
-             "src/repro/kernels/ozaki1.py:170", k1.launches_mixed, train_per),
+
+    def split(t):
+        return {"encode_ms": t["encode_ms"], "planes_ms": t["planes_ms"],
+                "mainloop_ms": t["mainloop_ms"],
+                "epilogue_ms": t["planes_ms"] - t["mainloop_ms"],
+                "mainloop_tops": t["ops"] / t["mainloop_ms"] / 1e9}
+
+    kernels.append({
+        "name": "emugemm1_2d", **common, "source": SOURCE_S1_PLANES,
+        "replaces": "src/repro/kernels/ozaki1.py:143",
+        "also_replaces": "src/repro/kernels/backends/gpu.py:202",
+        "launches": counts.launches_2d, "max_abs_err": max_err["2d"],
+        "ms": t2["ms"], "plain_ms": t2["plain_ms"],
+        "bound_ms": t2["bound_ms"], "bound_by": bound_by(t2), **split(t2),
+        "fused_ms": t2["fused_ms"],
+        "int_mm_yardstick_ms": t2["yardstick_ms"],
+        "per": "one mixed serve step of olmo-1b (4 lanes x chunk 16); the "
+               "route: 2 encodes + 1 plane GEMM a call; fused_ms: "
+               "emugemm1.cu's fused kernel that it replaced, on the same "
+               "inputs",
+        "per_decode_step": {k: td[k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "fused_ms")},
+        "launches_in_train_run": k1.launches_2d,
+        "per_train_step": {"ms": tt["ms"], "plain_ms": tt["plain_ms"],
+                           "bound_ms": tt["bound_ms"], **split(tt),
+                           "per": train_per + ": dB = A^T dC"}})
+    t = totals["mixed", "batched"]
+    kernels.append({
+        "name": "emugemm1_batched", **common, "source": SOURCE,
+        "replaces": "src/repro/kernels/backends/gpu.py:240",
+        "launches": counts.launches_batched, "max_abs_err": max_err["batched"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": bound_by(t), "int_mm_yardstick_ms": t["yardstick_ms"],
+        "per": "one mixed serve step of olmo-1b (4 lanes x chunk 16)",
+        "launches_in_train_run": k1.launches_batched})
+    tm = t_totals["mixed"]
+    kernels.append({
+        "name": "emugemm1_mixed", **common, "source": SOURCE_S1_PLANES,
+        "replaces": "src/repro/kernels/ozaki1.py:170",
+        "launches": k1.launches_mixed, "max_abs_err": t_err["mixed"],
+        "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
+        "bound_by": bound_by(tm), **split(tm),
+        "int_mm_yardstick_ms": tm["yardstick_ms"],
+        "weights_encode_ms": t_totals["weights"]["ms"],
+        "per": train_per + "; the route: an lhs encode + 1 plane GEMM a call "
+               "against the weight's planes (the weights' encodes apart)"})
+    kernels.append({
+        "name": "emugemm1_encode", **common, "source": SOURCE_S1_PLANES,
+        "replaces": "src/repro/kernels/ozaki1.py:143",
+        "launches": counts.launches_encode,
+        "max_abs_err": max(max_err["encode"], t_err["encode"]),
+        "ms": t2["encode_ms"], "plain_ms": t2["encode_plain_ms"],
+        "bound_ms": t2["encode_bound_ms"], "bound_by": "bytes",
+        "per": "the encodes of one mixed serve step of olmo-1b (2 a 2-D call)",
+        "launches_in_train_run": k1.launches_encode,
+        "per_train_step_ms": tt["encode_ms"] + tm["encode_ms"]
+        + t_totals["weights"]["ms"]})
+    kernels.append({
+        "name": "emugemm1_planes", **common, "source": SOURCE_S1_PLANES,
+        "replaces": "src/repro/kernels/ozaki1.py:143",
+        "launches": counts.launches_planes, "max_abs_err": max_err["2d"],
+        "ms": t2["planes_ms"], "plain_ms": t2["planes_plain_ms"],
+        "bound_ms": t2["planes_bound_ms"],
+        "bound_by": ("operations" if 2 * t2["planes_ops_bound_ms"]
+                     >= t2["planes_bound_ms"] else "bytes"),
+        "mainloop_ms": t2["mainloop_ms"],
+        "per": "the plane GEMMs of one mixed serve step of olmo-1b",
+        "launches_in_train_run": k1.launches_planes,
+        "per_train_step_ms": tt["planes_ms"] + tm["planes_ms"]})
+    for key, name, source, replaces, launches in (
             ("pair", "decompose_pair", DECOMPOSE_SOURCE,
-             "src/repro/kernels/decompose.py:106", k2.launches_pair,
-             train_per),
+             "src/repro/kernels/decompose.py:106", lib_dc.launches_pair),
             ("rhs", "decompose_rhs", DECOMPOSE_SOURCE,
-             "src/repro/kernels/decompose.py:71", rhs_launches,
-             f"one train step with bwd_p={P_BWD} (launches: the parity "
-             "step of that route)")):
+             "src/repro/kernels/decompose.py:71", lib_dc.launches_rhs)):
         t = t_totals[key]
-        row = {"name": name, **common, "source": source, "replaces": replaces,
-               "launches": launches, "max_abs_err": t_err[key],
-               "ms": t["ms"], "plain_ms": t["plain_ms"],
-               "bound_ms": t["bound_ms"], "bound_by": bound_by(t), "per": per}
-        if key == "mixed":
-            row["int_mm_yardstick_ms"] = t["yardstick_ms"]
-        kernels.append(row)
+        kernels.append({
+            "name": name, **common, "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": t_err[key],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": bound_by(t),
+            "per": f"one {TRAIN_SPEC} train step's weights decomposed "
+                   "into the 'interleaved' layout"
+                   + (f" at bwd_p={P_BWD}" if key == "rhs" else "")
+                   + "; launches: phase 19's main path, the decompositions "
+                   "feeding K8"})
     lib_per = (f"one launch at each of olmo-1b's dense shapes at {TOKENS} "
                f"tokens under ozaki2-m{M_MAIN}, bf16 (launches: the library "
                "route's run)")

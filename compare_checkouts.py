@@ -1,0 +1,121 @@
+"""Serve and train one card with two checkouts of this repository in turns.
+
+    python3 compare_checkouts.py OTHER_CHECKOUT
+
+Builds both checkouts' kernels, then measures each checkout through its
+own ``chip_smoke.py`` in separate processes, in the order other, this,
+this, other, so that both are measured on the same card: olmo-1b served
+under ozaki1-p4 (the trace's tokens/s and TTFT), the wall of a mixed and
+a decode step under ozaki1-p4 and native (5 synchronised steps each),
+three timed train steps under ozaki1-p4+cached, all before the
+process's first torch.profiler session; then the profiled phases
+(device-busy time of the steps), after which the step walls are taken
+again, to show how far walls taken later in a profiled process move.
+Each run prints one ``COMPARE {...}`` line. Needs one CUDA card.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import runpy
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def step_walls(g, dev, arch, params, view_tokens, pols) -> dict:
+    """Wall ms of 5 synchronised mixed and decode steps (after one
+    warm-up) under each policy of ``pols``, as chip_smoke's profile
+    phase builds them."""
+    import time
+    import torch
+    from repro_torch.models import model as M
+    start = torch.tensor([0, 16, 32, 47], device=dev, dtype=torch.int32)
+    out = {}
+    for kind, c, n_new in (("mixed", g["CHUNK"], [16, 16, 5, 1]),
+                           ("decode", 1, [1, 1, 1, 1])):
+        tokens = torch.ones((g["LANES"], c), device=dev, dtype=torch.int32)
+        nn = torch.tensor(n_new, device=dev, dtype=torch.int32)
+        cache = M.init_cache(arch.model, g["LANES"], view_tokens, dev)
+        for name, pol in pols.items():
+            walls = []
+            for _ in range(6):
+                t0 = time.perf_counter()
+                with torch.inference_mode():
+                    M.forward_step(params, arch.model, tokens, start, nn,
+                                   cache, pol)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            out[f"{kind}/{name}"] = walls[1:]
+    return out
+
+
+def measure(root: str) -> dict:
+    """The end-to-end numbers of the checkout at ``root``, through its
+    own chip_smoke.py (run in a fresh process: it imports that
+    checkout's package)."""
+    g = runpy.run_path(os.path.join(root, "chip_smoke.py"),
+                       run_name="chip_smoke")["main"].__globals__
+    import torch
+    from repro_torch import api, configs
+    from repro_torch.models.common import GemmPolicy
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader", "-i", "0"],
+                          capture_output=True, text=True,
+                          check=True).stdout.strip()
+    arch = configs.get_config("olmo-1b")
+    view_tokens = g["PAGE"] * math.ceil(
+        (g["PROMPT"] + g["GEN"] - 1 + g["CHUNK"]) / g["PAGE"])
+    pols = {"ozaki1-p4": GemmPolicy(default=api.precision("ozaki1-p4")),
+            "native": GemmPolicy(default=api.precision("native"))}
+    eng, _, serve = g["serve_phase"](dev, arch, pols["ozaki1-p4"])
+    walls = step_walls(g, dev, arch, eng.params, view_tokens, pols)
+    _, _, train = g["train_phase"](
+        dev, arch, card,
+        GemmPolicy(default=api.precision("ozaki1-p4+cached")),
+        long_seq=False)
+    prof = g["profile_phase"](dev, arch, eng.params, view_tokens,
+                              (("ozaki1-p4", pols["ozaki1-p4"]),))
+    walls_after = step_walls(g, dev, arch, eng.params, view_tokens, pols)
+    del eng
+    return {"root": root, "card": card, "serve": serve,
+            "step_wall_ms": walls,
+            "device_busy_ms": {k: v["device_busy_ms"]
+                               for k, v in prof.items()},
+            "train": {k: train[k] for k in ("step_wall_s", "tokens_per_s",
+                                            "peak_memory_bytes")},
+            "train_profile": {k: train["profile"][k]
+                              for k in ("device_busy_ms", "idle_share",
+                                        "profiled_wall_ms")},
+            "step_wall_ms_after_profiling": walls_after}
+
+
+def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] in ("--build", "--measure"):
+        root = os.path.abspath(sys.argv[2])
+        if sys.argv[1] == "--build":
+            runpy.run_path(os.path.join(root, "chip_smoke.py"),
+                           run_name="chip_smoke")["build_phase"]()
+        else:
+            print("COMPARE " + json.dumps(measure(root)), flush=True)
+        return 0
+    if len(sys.argv) != 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    other = os.path.abspath(sys.argv[1])
+    me = [sys.executable, os.path.abspath(__file__)]
+    builds = [subprocess.Popen(me + ["--build", r]) for r in (other, HERE)]
+    if any(p.wait() for p in builds):
+        return 1
+    for root in (other, HERE, HERE, other):
+        if subprocess.run(me + ["--measure", root]).returncode:
+            return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

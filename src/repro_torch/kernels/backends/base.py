@@ -50,19 +50,12 @@ class KernelBackend(abc.ABC):
         one launch, under ``cfg``."""
 
     @abc.abstractmethod
-    def decompose(self, b: torch.Tensor, nu: torch.Tensor,
-                  tau: torch.Tensor | None, p: int, beta_f: int,
-                  beta_b: int):
-        """A weight's interleaved forward slices and, when ``tau`` is
-        given, its K-transposed twin from the same read (else None); see
-        ``repro_torch.kernels.decompose``."""
-
-    @abc.abstractmethod
     def matmul_mixed(self, a: torch.Tensor, b_hat: torch.Tensor,
                      mu: torch.Tensor, nu: torch.Tensor, p: int, beta: int,
                      out_dtype) -> torch.Tensor:
-        """(M, K) float @ prepared interleaved int8 planes; see
-        ``repro_torch.kernels.ozaki1.fused_matmul_mixed``."""
+        """(M, K) float @ a prepared weight's int8 slices in the layout
+        this backend prepares ('planes' on 'cuda', 'interleaved' on
+        'torch'); see ``repro_torch.kernels.ozaki1.fused_matmul_mixed``."""
 
     @abc.abstractmethod
     def matmul_prepared_residues(self, a: torch.Tensor, b_res: torch.Tensor,

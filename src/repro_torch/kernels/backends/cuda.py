@@ -1,6 +1,7 @@
-"""The 'cuda' backend: Scheme I on the hand-written EmuGEMM-I kernel,
-Scheme II on EmuGEMM-II (float64 products, 2-D or batched, and complex
-Scheme II on its plane route).
+"""The 'cuda' backend: Scheme I on the hand-written EmuGEMM-I kernels
+(2-D products and prepared weights on its plane route), Scheme II on
+EmuGEMM-II (float64 products, 2-D or batched, and complex Scheme II on
+its plane route).
 
 The torch counterpart of ``repro.kernels.backends.gpu``:
 ``choose_blocks_gpu`` (here :func:`choose_blocks_cuda`),
@@ -36,7 +37,7 @@ _CAPS = BackendCapabilities(
 )
 
 # The one tile each kernel is compiled for: csrc/emugemm1.cu, whose K tile
-# is the interleave granularity of a prepared weight, csrc/emugemm2.cu,
+# is the granularity of the 'interleaved' layout, csrc/emugemm2.cu,
 # whose K step is the strip it integerizes once for all moduli (a float64
 # 2-D product runs on the plane GEMM's tile instead), and the plane GEMM
 # of csrc/emugemm2_planes.cu, which runs every complex 3M product.
@@ -121,12 +122,6 @@ class CudaBackend(KernelBackend):
         rr, ii, ri, ir = (self.matmul(x, y, cfg, out_dtype, blocks)
                           for x, y in ((ar, br), (ai, bi), (ar, bi), (ai, br)))
         return torch.complex(rr - ii, ri + ir)
-
-    def decompose(self, b, nu, tau, p, beta_f, beta_b):
-        if tau is None:
-            return decompose.decompose_interleave_rhs(b, nu, p, beta_f), None
-        return decompose.decompose_interleave_pair(b, nu, tau, p, beta_f,
-                                                   beta_b)
 
     def matmul_mixed(self, a, b_hat, mu, nu, p, beta, out_dtype):
         return ozaki1.fused_matmul_mixed(a, b_hat, mu, nu, p, beta, out_dtype)

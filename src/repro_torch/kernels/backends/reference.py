@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import complex3m, scheme1
-from repro_torch.kernels import decompose, ozaki1, ozaki2
+from repro_torch.kernels import ozaki1, ozaki2
 from repro_torch.kernels.backends.base import BackendCapabilities, KernelBackend
 from repro_torch.kernels.backends.cuda import scales, scheme2_operands
 
@@ -54,11 +54,6 @@ class TorchBackend(KernelBackend):
         beta = cfg.resolved_beta(a.shape[-1])
         mu, nu = scales(a, b)
         return ozaki1.fused_matmul_plain(a, b, mu, nu, cfg.p, beta, out_dtype)
-
-    def decompose(self, b, nu, tau, p, beta_f, beta_b):
-        if tau is None:
-            return decompose.decompose_rhs_plain(b, nu, p, beta_f), None
-        return decompose.decompose_pair_plain(b, nu, tau, p, beta_f, beta_b)
 
     def matmul_mixed(self, a, b_hat, mu, nu, p, beta, out_dtype):
         return ozaki1.fused_matmul_mixed_plain(a, b_hat, mu, nu, p, beta,

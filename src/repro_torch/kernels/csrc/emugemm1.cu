@@ -1,24 +1,23 @@
-// EmuGEMM-I: the fused Ozaki Scheme-I emulated GEMM for Hopper (sm_90a).
+// EmuGEMM-I: the fused Ozaki Scheme-I emulated GEMM for Hopper (sm_90a),
+// in the two launch forms that the plane route (emugemm1_planes.cu) does not
+// take.
 //
 // Replaces the Pallas kernels of the JAX package
-//   src/repro/kernels/ozaki1.py        fused_matmul_prologue (_kernel, a_fp=b_fp=True)
-//   src/repro/kernels/backends/gpu.py  fused_matmul_scheme1 (_kernel), 2-D launch
 //   src/repro/kernels/backends/gpu.py  fused_matmul_scheme1_batched, batched launch
-//   src/repro/kernels/ozaki1.py        fused_matmul_mixed (_kernel, a_fp only)
-//   src/repro/kernels/ozaki1.py        fused_matmul_interleaved (_kernel, neither)
-// with one kernel and four launch forms: a 2-D grid over (bN, bM) output
-// tiles, the same grid strided over a batch on blockIdx.z, the mixed
-// form, whose B operand is a prepared weight: the p int8 planes of the
-// interleaved (p*Kp, N) layout that csrc/decompose.cu writes, at the
-// kernel's K tile BK as interleave granularity (Kp = K rounded up to BK,
-// the rows past K zero), and the interleaved form, whose A operand is
-// also already sliced: the (M, p*Kp) layout of decompose.cu's lhs form
-// (switch APREP beside BPREP). The prepared forms load those planes into
-// the same shared tiles the carve would have filled, so the MMA schedule
-// and the epilogue, and with them every numerics rule below, are shared.
-// The interleaved form divides nothing: A-hat and B-hat hold slices of
-// A / mu and B / nu, so mu and nu enter only in the epilogue, and its
-// result equals the 2-D form's bit for bit on the same operands.
+//   src/repro/kernels/ozaki1.py        fused_matmul_interleaved (_kernel, neither operand float)
+// with one kernel and two launch forms: a 2-D grid over (bN, bM) output
+// tiles strided over a batch on blockIdx.z (attention's scores and values
+// under Scheme I), and the interleaved form, whose operands are already
+// sliced: A-hat (M, p*Kp) and B-hat (p*Kp, N), the p int8 planes of each
+// interleaved on K at the kernel's K tile BK (Kp = K rounded up to BK, the
+// slices past K zero), as csrc/decompose.cu writes them (switch PREP). The
+// interleaved form loads those planes into the same shared tiles the carve
+// would have filled, so the MMA schedule and the epilogue, and with them
+// every numerics rule below, are shared. It divides nothing: A-hat and
+// B-hat hold slices of A / mu and B / nu, so mu and nu enter only in the
+// epilogue, and its result equals the carving form's bit for bit on the
+// same operands. (The 2-D form and the mixed form, a float lhs against a
+// prepared weight, run on the plane route.)
 //
 // What one block computes, for its (BM, BN) output tile:
 //   * every K step stages a (BM, BK) tile of A and a (BK, BN) tile of B
@@ -32,8 +31,8 @@
 //     first, then multiplies by mu and then by nu, before the one store.
 // Rows, columns and K steps past the edge are staged as zeros: a zero
 // element carves to zero slices, so ragged shapes need no padding copy.
-// Operands are addressed through strides, so a transposed view (the tied
-// embedding's emb.T) is read in place.
+// Operands are addressed through strides, so a transposed view is read in
+// place.
 //
 // Numerics, so that the result is bit-identical to the plain version
 // (repro_torch.kernels.ozaki1.fused_matmul_plain):
@@ -44,24 +43,12 @@
 //     bf16 output rounds after every op, as the reference shift_reduce does;
 //   * the scales and beta come from the caller, computed from the logical K.
 //
-// Training (the mixed form, 1024 tokens): a (1024, K) @ (K, N) GEMM at
-// p = 4 does 10 int8 GEMMs, 2*10*1024*K*N operations, against reading
-// K*N*p bytes of planes, so it is bound by operations (about 44 us for
-// K = N = 2048 at the int8 peak); the kernel as written stays far above
-// that (PERF.md). The interleaved form reads p bytes an element of each
-// operand and does the same integer work, so it too is bound by
-// operations (about 43 us at K = N = 2048, p = 4); it skips the carve of
-// both tiles, which the other forms repeat in every block that reads them.
-//
-// Bound at the serving shapes: with M = 4..64 rows and K, N in the
-// thousands, the weight B has to be read once, and the p(p+1)/2 int8
-// GEMMs of M rows are small. At M = 4 reading the weight dominates: a
-// decode step of olmo-1b reads 2.36 GB of bf16 weights, about 0.7 ms at
-// 3.35 TB/s on an H100 SXM, before the separate pass that computes nu; at
-// M = 64 and p = 4 the int8 work at peak rate takes about as long. The design answers that only by reading each
-// weight element once per M tile (BM = 64 covers every serving step in
-// one tile row); it does not yet split K, pipeline loads or use TMA /
-// wgmma, so it runs far from that floor (PERF.md).
+// Bound: the interleaved form reads p bytes an element of each operand and
+// does p(p+1)/2 int8 GEMMs, so it is bound by operations (about 43 us at
+// M = 1024, K = N = 2048, p = 4). The batched form at attention's shapes
+// (a few rows of a head against K or N of the cached view) reads each
+// operand once per tile. Neither form splits K, pipelines loads or uses
+// TMA / wgmma, so both run far from those floors (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -133,7 +120,7 @@ __device__ __forceinline__ void carve(float r, float two_beta, int8_t* dst, int 
   }
 }
 
-template <typename T, typename O, int P, bool BPREP, bool APREP>
+template <typename T, typename O, int P, bool PREP>
 __global__ void __launch_bounds__(NWARPS * 32)
 emugemm1_kernel(const T* __restrict__ a, const void* __restrict__ bv,
                 const float* __restrict__ mu, const float* __restrict__ nu,
@@ -169,7 +156,7 @@ emugemm1_kernel(const T* __restrict__ a, const void* __restrict__ bv,
     for (int f = 0; f < FW; ++f) wmma::fill_fragment(acc[s][f], 0);
 
   for (int k0 = 0; k0 < K; k0 += BK) {
-    if constexpr (APREP) {
+    if constexpr (PREP) {
       // Load the P sliced planes of this K chunk: columns
       // (k0 / BK * P + i) * BK + kk of the interleaved (M, P*Kp) layout,
       // whose row stride is sam. Four bytes at a time where rows and base
@@ -210,7 +197,7 @@ emugemm1_kernel(const T* __restrict__ a, const void* __restrict__ bv,
         carve<P>(r, two_beta, sA + off, PLANE_A);
       }
     }
-    if constexpr (BPREP) {
+    if constexpr (PREP) {
       // Load the P prepared planes of this K chunk: rows
       // (k0 / BK * P + i) * BK + kk of the interleaved layout, whose row
       // stride is sbk. Four bytes at a time where rows and base allow.
@@ -310,26 +297,26 @@ emugemm1_kernel(const T* __restrict__ a, const void* __restrict__ bv,
   }
 }
 
-template <typename T, typename O, int P, bool BPREP, bool APREP>
+template <typename T, typename O, int P, bool PREP>
 int launch(const void* a, const void* b, const float* mu, const float* nu, void* out,
            int batch, int M, int N, int K, long long sab, long long sam, long long sak,
            long long sbb, long long sbk, long long sbn, int beta,
            cudaStream_t stream) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, batch);
-  emugemm1_kernel<T, O, P, BPREP, APREP><<<grid, NWARPS * 32, 0, stream>>>(
+  emugemm1_kernel<T, O, P, PREP><<<grid, NWARPS * 32, 0, stream>>>(
       static_cast<const T*>(a), b, mu, nu, static_cast<O*>(out), M, N, K,
       sab, sam, sak, sbb, sbk, sbn, beta);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename O, bool BPREP, bool APREP = false>
+template <typename T, typename O, bool PREP>
 int launch_p(int p, const void* a, const void* b, const float* mu, const float* nu,
              void* out, int batch, int M, int N, int K, long long sab, long long sam,
              long long sak, long long sbb, long long sbk, long long sbn, int beta,
              cudaStream_t st) {
 #define EMUGEMM1_CASE(PP) \
   case PP:                \
-    return launch<T, O, PP, BPREP, APREP>(a, b, mu, nu, out, batch, M, N, K, sab, sam, sak, sbb, sbk, sbn, beta, st);
+    return launch<T, O, PP, PREP>(a, b, mu, nu, out, batch, M, N, K, sab, sam, sak, sbb, sbk, sbn, beta, st);
   switch (p) {
     EMUGEMM1_CASE(1)
     EMUGEMM1_CASE(2)
@@ -345,18 +332,17 @@ int launch_p(int p, const void* a, const void* b, const float* mu, const float* 
 #undef EMUGEMM1_CASE
 }
 
-template <bool BPREP>
 int launch_types(int in_bf16, int out_bf16, int p, const void* a, const void* b,
-                 const float* mu, const float* nu, void* out, int batch, int M, int N,
-                 int K, long long sab, long long sam, long long sak, long long sbb,
-                 long long sbk, long long sbn, int beta, cudaStream_t st) {
+                 const float* mu, const float* nu, void* out, int batch, int M, int N, int K,
+                 long long sab, long long sam, long long sak, long long sbb, long long sbk,
+                 long long sbn, int beta, cudaStream_t st) {
   if (!in_bf16 && !out_bf16)
-    return launch_p<float, float, BPREP>(p, a, b, mu, nu, out, batch, M, N, K, sab, sam, sak, sbb, sbk, sbn, beta, st);
+    return launch_p<float, float, false>(p, a, b, mu, nu, out, batch, M, N, K, sab, sam, sak, sbb, sbk, sbn, beta, st);
   if (!in_bf16 && out_bf16)
-    return launch_p<float, __nv_bfloat16, BPREP>(p, a, b, mu, nu, out, batch, M, N, K, sab, sam, sak, sbb, sbk, sbn, beta, st);
+    return launch_p<float, __nv_bfloat16, false>(p, a, b, mu, nu, out, batch, M, N, K, sab, sam, sak, sbb, sbk, sbn, beta, st);
   if (in_bf16 && !out_bf16)
-    return launch_p<__nv_bfloat16, float, BPREP>(p, a, b, mu, nu, out, batch, M, N, K, sab, sam, sak, sbb, sbk, sbn, beta, st);
-  return launch_p<__nv_bfloat16, __nv_bfloat16, BPREP>(p, a, b, mu, nu, out, batch, M, N, K, sab, sam, sak, sbb, sbk, sbn, beta, st);
+    return launch_p<__nv_bfloat16, float, false>(p, a, b, mu, nu, out, batch, M, N, K, sab, sam, sak, sbb, sbk, sbn, beta, st);
+  return launch_p<__nv_bfloat16, __nv_bfloat16, false>(p, a, b, mu, nu, out, batch, M, N, K, sab, sam, sak, sbb, sbk, sbn, beta, st);
 }
 
 }  // namespace
@@ -370,21 +356,8 @@ extern "C" int emugemm1(const void* a, const void* b, const float* mu, const flo
                         long long sbn, int in_bf16, int out_bf16, int p, int beta,
                         void* stream) {
   if (batch <= 0 || M <= 0 || N <= 0 || K <= 0 || beta < 1 || beta > 7) return -1;
-  return launch_types<false>(in_bf16, out_bf16, p, a, b, mu, nu, out, batch, M, N, K,
-                             sab, sam, sak, sbb, sbk, sbn, beta,
-                             static_cast<cudaStream_t>(stream));
-}
-
-// The mixed form: A (M, K) float through strides, B the prepared int8
-// planes (p * Kp, N) with row stride ldb, interleaved at granularity BK.
-extern "C" int emugemm1_mixed(const void* a, const void* b_hat, const float* mu,
-                              const float* nu, void* out, int M, int N, int K,
-                              long long sam, long long sak, long long ldb, int in_bf16,
-                              int out_bf16, int p, int beta, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || beta < 1 || beta > 7) return -1;
-  return launch_types<true>(in_bf16, out_bf16, p, a, b_hat, mu, nu, out, 1, M, N, K,
-                            0, sam, sak, 0, ldb, 1, beta,
-                            static_cast<cudaStream_t>(stream));
+  return launch_types(in_bf16, out_bf16, p, a, b, mu, nu, out, batch, M, N, K, sab, sam, sak,
+                      sbb, sbk, sbn, beta, static_cast<cudaStream_t>(stream));
 }
 
 // The interleaved form: A-hat (M, p * Kp) and B-hat (p * Kp, N) int8
@@ -397,11 +370,11 @@ extern "C" int emugemm1_interleaved(const void* a_hat, const void* b_hat, const 
   if (M <= 0 || N <= 0 || Kp <= 0 || Kp % BK != 0 || beta < 1 || beta > 7) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (out_bf16)
-    return launch_p<int8_t, __nv_bfloat16, true, true>(p, a_hat, b_hat, mu, nu, out, 1, M, N, Kp,
+    return launch_p<int8_t, __nv_bfloat16, true>(p, a_hat, b_hat, mu, nu, out, 1, M, N, Kp,
                                                        0, lda, 1, 0, ldb, 1, beta, st);
-  return launch_p<int8_t, float, true, true>(p, a_hat, b_hat, mu, nu, out, 1, M, N, Kp, 0, lda,
+  return launch_p<int8_t, float, true>(p, a_hat, b_hat, mu, nu, out, 1, M, N, Kp, 0, lda,
                                              1, 0, ldb, 1, beta, st);
 }
 
-// The K tile, which is the interleave granularity the prepared forms read.
+// The K tile, which is the interleave granularity the interleaved form reads.
 extern "C" int emugemm1_bk() { return BK; }

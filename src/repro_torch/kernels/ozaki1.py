@@ -1,23 +1,32 @@
-"""The fused EmuGEMM-I kernel (``csrc/emugemm1.cu``): wrappers, plain
-versions and launch counts.
+"""EmuGEMM-I (``csrc/emugemm1.cu`` and the plane route of
+``csrc/emugemm1_planes.cu``): wrappers, plain versions and launch counts.
 
 ``fused_matmul_scheme1`` takes (M, K) @ (K, N) or, strided over a batch,
 (B, M, K) @ (B, K, N) operands in float32 or bfloat16 with their
 power-of-two scales mu (..., M, 1) and nu (..., 1, N), and returns the
-Scheme-I product in ``out_dtype``. On a CUDA tensor it launches the
-kernel; on a CPU tensor it runs the plain version, which is
-``repro_torch.core.scheme1`` — the same slicing, exact integer slice
-products and shift-reduce, as separate torch ops.
+Scheme-I product in ``out_dtype``. On a CPU tensor it runs the plain
+version, ``repro_torch.core.scheme1`` (the same slicing, exact integer
+slice products and shift-reduce, as separate torch ops). On CUDA tensors a
+2-D product takes the plane route (two encodes and one plane GEMM) and a
+batched one the fused kernel of ``csrc/emugemm1.cu``.
 
-``fused_matmul_mixed`` is the kernel's third launch form: the lhs is
-carved in the kernel as above, and the rhs is a prepared weight, the p
-int8 planes interleaved on K at granularity ``decompose.TILE`` (the
-kernel's K tile) that ``repro_torch.kernels.decompose`` writes. Its plain
-version deinterleaves them and runs the same slice products and
-shift-reduce.
+The plane route: :func:`encode_planes` writes an (R, K) operand's p
+carved slices once, scaled by its power-of-two row scale, as K-contiguous
+int8 planes (p, R, Kp), K padded with zero slices to ``PLANE_K`` (B enters
+as B^T with nu^T); :func:`plane_matmul` is a TMA-fed wgmma int8 GEMM over
+the p(p+1)/2 slice pairs, diagonal by diagonal, with the shift-reduce and
+the scales in its epilogue. Their plain versions are
+:func:`encode_planes_plain` and :func:`plane_matmul_plain`; together they
+are ``fused_matmul_plain``.
 
-``fused_matmul_interleaved`` is the fourth launch form: both operands
-are already sliced and interleaved at ``decompose.TILE`` (A-hat
+``fused_matmul_mixed`` is the plane route of a prepared weight: the lhs is
+encoded and multiplied against the (p, N, Kp) planes of the weight's B^T
+(``kernels.prepared``, layout 'planes'). ``fused_matmul_mixed_plain`` is
+the same function on the 'interleaved' layout of the 'torch' backend: the
+p int8 planes interleaved on K at granularity ``decompose.TILE``.
+
+``fused_matmul_interleaved`` is the fused kernel's interleaved form: both
+operands are already sliced and interleaved at ``decompose.TILE`` (A-hat
 (M, p * Kp) from ``decompose.decompose_interleave``, B-hat (p * Kp, N)
 from ``decompose.decompose_interleave_rhs`` or ``scheme1.interleave_k``),
 so the kernel carves nothing and applies mu and nu in the epilogue
@@ -28,39 +37,53 @@ interleaves at its ``bk``, M and N are taken as they are and the
 granularity is the kernel's K tile (the bits are the same at any
 granularity).
 
-The kernel replaces the Pallas kernels ``repro.kernels.ozaki1.
+The kernels replace the Pallas kernels ``repro.kernels.ozaki1.
 fused_matmul_prologue`` and ``repro.kernels.backends.gpu.
-fused_matmul_scheme1`` (2-D launch), ``fused_matmul_scheme1_batched``
-(batched launch), ``repro.kernels.ozaki1.fused_matmul_mixed`` (mixed
-launch) and ``fused_matmul_interleaved`` (interleaved launch).
+fused_matmul_scheme1`` (2-D launch: the plane route),
+``fused_matmul_scheme1_batched`` (batched launch),
+``repro.kernels.ozaki1.fused_matmul_mixed`` (the plane route of a
+prepared weight) and ``fused_matmul_interleaved`` (interleaved launch).
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+from functools import lru_cache
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import scheme1
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 MAX_P = 8
+# The plane route's type codes (csrc/emugemm1_planes.cu), its K tile, to
+# which planes are padded, and its output tile columns.
+TYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+PLANE_K = 128
+PLANE_N = 128
+# The encode's grid carries row blocks of 64 on gridDim.y.
+MAX_ROWS = 65535 * 64
 
 
 @dataclasses.dataclass
 class LaunchCounts:
-    """Launches of the kernel in each form, and calls of the plain
-    version on CUDA tensors (which the serving path must never make)."""
+    """Calls of each form (2-D and mixed: the plane route's front doors),
+    launches of the plane route's kernels (encodes, plane GEMMs), and
+    calls of the plain versions on CUDA tensors (which the model paths
+    must never make)."""
     launches_2d: int = 0
     launches_batched: int = 0
     launches_mixed: int = 0
     launches_interleaved: int = 0
+    launches_encode: int = 0
+    launches_planes: int = 0
     plain_cuda_calls: int = 0
 
     def reset(self) -> None:
-        self.launches_2d = self.launches_batched = self.launches_mixed = 0
-        self.launches_interleaved = self.plain_cuda_calls = 0
+        for f in dataclasses.fields(self):
+            setattr(self, f.name, 0)
 
 
 COUNTS = LaunchCounts()
@@ -82,7 +105,9 @@ def fused_matmul_mixed_plain(a: torch.Tensor, b_hat: torch.Tensor,
                              mu: torch.Tensor, nu: torch.Tensor, p: int,
                              beta: int, out_dtype: torch.dtype
                              ) -> torch.Tensor:
-    """The mixed form's function in plain torch ops (CPU or CUDA)."""
+    """The mixed form's function in plain torch ops (CPU or CUDA), on the
+    'interleaved' layout: ``b_hat`` (p * Kp, N) interleaved on K at
+    ``decompose.TILE``."""
     from repro_torch.kernels.decompose import TILE
     if a.is_cuda:
         COUNTS.plain_cuda_calls += 1
@@ -107,6 +132,37 @@ def fused_matmul_interleaved_plain(a_hat: torch.Tensor, b_hat: torch.Tensor,
     return scheme1.shift_reduce(accs, beta, mu, nu, out_dtype)
 
 
+def plane_k(k: int) -> int:
+    """K padded to the plane GEMM's K tile."""
+    return -(-k // PLANE_K) * PLANE_K
+
+
+def encode_planes_plain(x: torch.Tensor, scale: torch.Tensor, p: int,
+                        beta: int) -> torch.Tensor:
+    """The encode kernel's function in plain torch ops (CPU or CUDA): the
+    p carved slices of an (R, K) operand over its row scales (R, 1), as
+    (p, R, Kp) int8 planes padded with zero slices along K."""
+    if x.is_cuda:
+        COUNTS.plain_cuda_calls += 1
+    k = x.shape[-1]
+    r = F.pad(scheme1.widen(x) / scale, (0, plane_k(k) - k))
+    return torch.stack(scheme1.carve(r, p, beta))
+
+
+def plane_matmul_plain(a_planes: torch.Tensor, b_planes: torch.Tensor,
+                       mu: torch.Tensor, nu: torch.Tensor, p: int, beta: int,
+                       out_dtype: torch.dtype) -> torch.Tensor:
+    """The plane GEMM's function in plain torch ops (CPU or CUDA): the
+    planes (p, M, Kp) of A and (p, N, Kp) of B^T, the triangular slice
+    products (zero slices past K add nothing), the shift-reduce, then
+    mu and nu."""
+    if a_planes.is_cuda:
+        COUNTS.plain_cuda_calls += 1
+    accs = scheme1.triangular_accumulators(
+        a_planes, b_planes.transpose(-1, -2), p)
+    return scheme1.shift_reduce(accs, beta, mu, nu, out_dtype)
+
+
 def _bind(lib: ctypes.CDLL):
     fn = lib.emugemm1
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
@@ -116,25 +172,50 @@ def _bind(lib: ctypes.CDLL):
     return fn
 
 
-def _bind_prepared(lib: ctypes.CDLL, interleaved: bool = False):
-    """The mixed form's entry point, or with ``interleaved`` the
-    interleaved form's; both read planes interleaved at the K tile."""
+def _bind_interleaved(lib: ctypes.CDLL):
+    """The interleaved form's entry point, which reads planes interleaved
+    at the K tile."""
     from repro_torch.kernels.decompose import TILE
     if lib.emugemm1_bk() != TILE:
         raise RuntimeError(f"emugemm1.cu's K tile is {lib.emugemm1_bk()}, "
-                           f"the prepared layout interleaves at {TILE}")
-    if interleaved:
-        fn = lib.emugemm1_interleaved
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                       + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p])
-    else:
-        fn = lib.emugemm1_mixed
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                       + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p])
+                           f"the interleaved layout is at {TILE}")
+    fn = lib.emugemm1_interleaved
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@lru_cache(maxsize=None)
+def _bind_encode(lib: ctypes.CDLL):
+    if lib.emugemm1_plane_k() != PLANE_K:
+        raise RuntimeError(f"emugemm1_planes.cu's K tile is "
+                           f"{lib.emugemm1_plane_k()}, the wrapper pads to "
+                           f"{PLANE_K}")
+    fn = lib.emugemm1_encode
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@lru_cache(maxsize=None)
+def _bind_planes(lib: ctypes.CDLL):
+    fn = lib.emugemm1_planes
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_p_beta(p, beta):
+    if not 1 <= p <= MAX_P:
+        raise NotImplementedError(f"emugemm1 is compiled for p in 1..{MAX_P}, "
+                                  f"got p={p}")
+    if not 1 <= beta <= 7:
+        raise ValueError(f"emugemm1: beta={beta} outside 1..7")
 
 
 def _check(a, b, mu, nu, p, beta, out_dtype):
@@ -151,11 +232,7 @@ def _check(a, b, mu, nu, p, beta, out_dtype):
         raise NotImplementedError(f"emugemm1: out_dtype {out_dtype}")
     if mu.dtype != torch.float32 or nu.dtype != torch.float32:
         raise ValueError("emugemm1: scales must be float32")
-    if not 1 <= p <= MAX_P:
-        raise NotImplementedError(f"emugemm1 is compiled for p in 1..{MAX_P}, "
-                                  f"got p={p}")
-    if not 1 <= beta <= 7:
-        raise ValueError(f"emugemm1: beta={beta} outside 1..7")
+    _check_p_beta(p, beta)
 
 
 def _launch(a3, b3, mu3, nu3, p, beta, out_dtype):
@@ -185,21 +262,135 @@ def _launch(a3, b3, mu3, nu3, p, beta, out_dtype):
     return out
 
 
+def plane_tile_m(m: int) -> int:
+    """The plane GEMM's output tile rows: 64 (one consumer warpgroup) for
+    serving's M <= 64, else 128."""
+    return 64 if m <= 64 else 128
+
+
+def launch_encode(x, scale, p, beta):
+    """Launch the encode kernel on an (R, K) float view with row scales
+    (R, 1): planes (p, R, Kp) int8."""
+    from repro_torch.kernels import build
+    r, k = x.shape
+    planes = torch.empty((p, r, plane_k(k)), dtype=torch.int8,
+                         device=x.device)
+    scale = scale.contiguous()
+    rc = _bind_encode(build.load("emugemm1_planes"))(
+        x.data_ptr(), scale.data_ptr(), planes.data_ptr(), r, k,
+        planes.shape[-1], x.stride(0), x.stride(1), TYPE_CODE[x.dtype], p,
+        beta, torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"emugemm1 encode failed (code {rc}) for "
+                           f"{tuple(x.shape)} {x.dtype} p={p}")
+    return planes
+
+
+def launch_planes(a_planes, b_planes, mu, nu, p, beta, out, epilogue=True,
+                  tile_m=None):
+    """Launch the plane GEMM on planes (p, M, Kp) and (p, N, Kp) with
+    float32 scales mu (M, 1) and nu (1, N) into ``out`` (M, N);
+    ``epilogue=False`` stops after the mainloop, which leaves ``out``
+    unwritten (for timing the two apart); ``tile_m`` sets the tile rows
+    instead of :func:`plane_tile_m` (for timing the tiles apart)."""
+    from repro_torch.kernels import build
+    _, m, kp = a_planes.shape
+    n = b_planes.shape[1]
+    mu, nu = mu.contiguous(), nu.contiguous()
+    rc = _bind_planes(build.load("emugemm1_planes"))(
+        a_planes.data_ptr(), b_planes.data_ptr(), mu.data_ptr(),
+        nu.data_ptr(), out.data_ptr(), m, n, kp, TYPE_CODE[out.dtype], p,
+        beta, tile_m or plane_tile_m(m), int(epilogue),
+        torch.cuda.current_stream(a_planes.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"emugemm1 plane GEMM failed (code {rc}) for "
+                           f"{(m, kp, n)} p={p}")
+    return out
+
+
+def encode_planes(x: torch.Tensor, scale: torch.Tensor, p: int,
+                  beta: int) -> torch.Tensor:
+    """A float32 or bfloat16 (R, K) operand (any strides) with its float32
+    power-of-two row scales (R, 1) -> its (p, R, Kp) int8 slice planes
+    (B enters as B^T with nu^T).
+
+    CPU tensors take the plain version; CUDA tensors launch the encode
+    kernel or raise.
+    """
+    if x.device.type == "cpu":
+        return encode_planes_plain(x, scale, p, beta)
+    if (x.dim() != 2 or x.dtype not in TYPE_CODE or not x.is_cuda
+            or scale.dtype != torch.float32
+            or tuple(scale.shape) != (x.shape[0], 1)
+            or scale.device != x.device or x.shape[-1] == 0
+            or not 0 < x.shape[0] <= MAX_ROWS):
+        raise ValueError(f"emugemm1 encode: {tuple(x.shape)} {x.dtype} on "
+                         f"{x.device}, scale {tuple(scale.shape)} "
+                         f"{scale.dtype}")
+    _check_p_beta(p, beta)
+    planes = launch_encode(x, scale, p, beta)
+    COUNTS.launches_encode += 1
+    return planes
+
+
+def plane_matmul(a_planes: torch.Tensor, b_planes: torch.Tensor,
+                 mu: torch.Tensor, nu: torch.Tensor, p: int, beta: int,
+                 out_dtype: torch.dtype) -> torch.Tensor:
+    """The planes (p, M, Kp) of A and (p, N, Kp) of B^T with float32 scales
+    mu (M, 1) and nu (1, N) -> (M, N) float32 or bfloat16.
+
+    CPU tensors take the plain version; CUDA tensors launch the plane
+    GEMM or raise.
+    """
+    if a_planes.device.type == "cpu":
+        return plane_matmul_plain(a_planes, b_planes, mu, nu, p, beta,
+                                  out_dtype)
+    pa, m, kp = a_planes.shape
+    n = b_planes.shape[1]
+    if (tuple(b_planes.shape) != (pa, n, kp) or pa != p or kp % PLANE_K
+            or not a_planes.is_contiguous() or not b_planes.is_contiguous()
+            or {a_planes.dtype, b_planes.dtype} != {torch.int8}
+            or tuple(mu.shape) != (m, 1) or tuple(nu.shape) != (1, n)
+            or {mu.dtype, nu.dtype} != {torch.float32}
+            or out_dtype not in TYPE_CODE or m * n == 0
+            or len({x.device for x in (a_planes, b_planes, mu, nu)}) != 1):
+        raise ValueError(f"emugemm1 plane GEMM: {tuple(a_planes.shape)} "
+                         f"{a_planes.dtype} @ {tuple(b_planes.shape)} "
+                         f"{b_planes.dtype}, mu {tuple(mu.shape)} {mu.dtype}, "
+                         f"nu {tuple(nu.shape)} {nu.dtype}, p={p} -> "
+                         f"{out_dtype}")
+    _check_p_beta(p, beta)
+    out = torch.empty((m, n), dtype=out_dtype, device=a_planes.device)
+    launch_planes(a_planes, b_planes, mu, nu, p, beta, out)
+    COUNTS.launches_planes += 1
+    return out
+
+
 def fused_matmul_scheme1(a: torch.Tensor, b: torch.Tensor, mu: torch.Tensor,
                          nu: torch.Tensor, p: int, beta: int,
                          out_dtype: torch.dtype) -> torch.Tensor:
     """(M, K) @ (K, N) with scales (M, 1) / (1, N) -> (M, N), or the
     strided-batched (B, M, K) @ (B, K, N) -> (B, M, N) form.
 
-    CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise.
+    CPU tensors take the plain version; CUDA tensors launch the kernels
+    (2-D: two encodes and one plane GEMM; batched: the fused kernel) or
+    raise.
     """
     if a.device.type == "cpu":
         return fused_matmul_plain(a, b, mu, nu, p, beta, out_dtype)
     _check(a, b, mu, nu, p, beta, out_dtype)
     if a.dim() == 2 and b.dim() == 2:
-        out = _launch(a[None], b[None], mu[None], nu[None], p, beta,
-                      out_dtype)[0]
+        (m, k), n = a.shape, b.shape[-1]
+        if b.shape[0] != k or mu.shape != (m, 1) or nu.shape != (1, n):
+            raise ValueError(f"emugemm1: shapes {tuple(a.shape)} @ "
+                             f"{tuple(b.shape)}, mu {tuple(mu.shape)}, "
+                             f"nu {tuple(nu.shape)}")
+        if m * n == 0 or k == 0:
+            out = torch.zeros((m, n), dtype=out_dtype, device=a.device)
+        else:
+            out = plane_matmul(encode_planes(a, mu, p, beta),
+                               encode_planes(b.T, nu.T, p, beta), mu, nu, p,
+                               beta, out_dtype)
         COUNTS.launches_2d += 1
         return out
     if a.dim() == 3 and b.dim() == 3:
@@ -210,45 +401,35 @@ def fused_matmul_scheme1(a: torch.Tensor, b: torch.Tensor, mu: torch.Tensor,
                      f"{tuple(a.shape)} @ {tuple(b.shape)}")
 
 
-def fused_matmul_mixed(a: torch.Tensor, b_hat: torch.Tensor,
+def fused_matmul_mixed(a: torch.Tensor, b_planes: torch.Tensor,
                        mu: torch.Tensor, nu: torch.Tensor, p: int, beta: int,
                        out_dtype: torch.dtype) -> torch.Tensor:
-    """(M, K) float @ prepared (p * Kp, N) int8 planes, with scales
-    mu (M, 1) and nu (1, N) -> (M, N) ``out_dtype``.
+    """(M, K) float @ a prepared weight's (p, N, Kp) int8 planes (those of
+    its B^T, Kp = plane_k(K)), with scales mu (M, 1) and nu (1, N) ->
+    (M, N) ``out_dtype``.
 
-    ``b_hat`` is interleaved on K at granularity ``decompose.TILE``
-    with Kp = K rounded up to it. CPU tensors take the plain version;
-    CUDA tensors launch the kernel's mixed form or raise.
+    The plane route: one encode of the lhs (:func:`encode_planes`) and one
+    plane GEMM (:func:`plane_matmul`), each of which takes its plain
+    version on CPU tensors; CUDA tensors launch both kernels or raise.
     """
-    from repro_torch.kernels import build
-    from repro_torch.kernels.decompose import round_up
-    if a.device.type == "cpu":
-        return fused_matmul_mixed_plain(a, b_hat, mu, nu, p, beta, out_dtype)
-    _check(a, a, mu, nu, p, beta, out_dtype)
     m, k = a.shape
-    n = b_hat.shape[-1]
-    if (b_hat.dim() != 2 or b_hat.dtype != torch.int8
-            or b_hat.device != a.device or not b_hat.is_contiguous()
-            or b_hat.shape[0] != p * round_up(k)
-            or mu.shape != (m, 1) or nu.shape != (1, n)):
+    n = b_planes.shape[1] if b_planes.dim() == 3 else -1
+    if a.is_cuda:
+        _check(a, a, mu, nu, p, beta, out_dtype)
+    if (b_planes.dtype != torch.int8
+            or tuple(b_planes.shape) != (p, n, plane_k(k))
+            or b_planes.device != a.device
+            or tuple(mu.shape) != (m, 1) or tuple(nu.shape) != (1, n)):
         raise ValueError(f"emugemm1 mixed: a {tuple(a.shape)}, prepared "
-                         f"{tuple(b_hat.shape)} {b_hat.dtype} (expected a "
-                         f"contiguous int8 ({p} * {round_up(k)}, N)), mu "
+                         f"{tuple(b_planes.shape)} {b_planes.dtype} (expected "
+                         f"int8 ({p}, N, {plane_k(k)})), mu "
                          f"{tuple(mu.shape)}, nu {tuple(nu.shape)}")
-    mu, nu = mu.contiguous(), nu.contiguous()
-    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    if out.numel() == 0 or k == 0:
-        return out.zero_()
-    fn = _bind_prepared(build.load("emugemm1"))
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    rc = fn(a.data_ptr(), b_hat.data_ptr(), mu.data_ptr(), nu.data_ptr(),
-            out.data_ptr(), m, n, k, a.stride(0), a.stride(1),
-            b_hat.stride(0), int(a.dtype == torch.bfloat16),
-            int(out_dtype == torch.bfloat16), p, beta, stream)
-    if rc != 0:
-        raise RuntimeError(f"emugemm1 mixed launch failed (code {rc}) for "
-                           f"{(m, k, n)} p={p}")
-    COUNTS.launches_mixed += 1
+    if m * n == 0 or k == 0:
+        return torch.zeros((m, n), dtype=out_dtype, device=a.device)
+    out = plane_matmul(encode_planes(a, mu, p, beta), b_planes, mu, nu, p,
+                       beta, out_dtype)
+    if a.is_cuda:
+        COUNTS.launches_mixed += 1
     return out
 
 
@@ -274,11 +455,7 @@ def fused_matmul_interleaved(a_hat: torch.Tensor, b_hat: torch.Tensor,
         raise ValueError("emugemm1: operands on different devices")
     if out_dtype not in _KERNEL_DTYPES:
         raise NotImplementedError(f"emugemm1: out_dtype {out_dtype}")
-    if not 1 <= p <= MAX_P:
-        raise NotImplementedError(f"emugemm1 is compiled for p in 1..{MAX_P}, "
-                                  f"got p={p}")
-    if not 1 <= beta <= 7:
-        raise ValueError(f"emugemm1: beta={beta} outside 1..7")
+    _check_p_beta(p, beta)
     if a_hat.dim() != 2 or b_hat.dim() != 2:
         raise ValueError(f"emugemm1 interleaved: A-hat {tuple(a_hat.shape)} "
                          f"and B-hat {tuple(b_hat.shape)} must be 2-D")
@@ -299,7 +476,7 @@ def fused_matmul_interleaved(a_hat: torch.Tensor, b_hat: torch.Tensor,
     out = torch.empty((m, n), dtype=out_dtype, device=a_hat.device)
     if out.numel() == 0 or pk == 0:
         return out.zero_()
-    fn = _bind_prepared(build.load("emugemm1"), interleaved=True)
+    fn = _bind_interleaved(build.load("emugemm1"))
     stream = torch.cuda.current_stream(a_hat.device).cuda_stream
     rc = fn(a_hat.data_ptr(), b_hat.data_ptr(), mu.data_ptr(), nu.data_ptr(),
             out.data_ptr(), m, n, pk // p, a_hat.stride(0), b_hat.stride(0),

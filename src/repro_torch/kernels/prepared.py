@@ -5,14 +5,20 @@ and the backward dA = dC B^T. A prepared operand holds the finished
 encode instead, with ``twin``, the same weight prepared as the rhs of
 B^T for dA:
 
-* :class:`PreparedOperand` (Scheme I): the p int8 slices, interleaved
-  on K ((p * Kp, N), paper Eq. 11) at granularity ``blocks.bk``, the K
-  tile of the mixed kernel; the (1, N) float32 power-of-two column
-  scale; ``p``/``beta``, ``k``/``n`` (the logical dims), ``layout`` and
-  ``backend``, the kernel backend that prepared it and consumes it.
-  Built from a single read of the weight (K2, the pair kernel; K2r twice
-  when the backward runs at another slice count), consumed through the
-  mixed form of the EmuGEMM-I kernel (K3).
+* :class:`PreparedOperand` (Scheme I): the p int8 slices, the (1, N)
+  float32 power-of-two column scale, ``p``/``beta``, ``k``/``n`` (the
+  logical dims), ``layout`` and ``backend``, the kernel backend that
+  prepared it and consumes it. ``layout`` 'planes' (the 'cuda' backend)
+  holds them as the (p, N, Kp) K-contiguous planes of B^T (K padded to
+  ``ozaki1.PLANE_K`` with zero slices), written by one launch of the plane
+  route's encode kernel (two with the twin, whose planes are those of B,
+  (p_bwd, K, Np)) and consumed by EmuGEMM-I's plane route (one lhs encode
+  and one plane GEMM, ``ozaki1.fused_matmul_mixed``). 'interleaved' (an
+  ``impl='xla'`` config, or the 'torch' backend) holds them interleaved on
+  K ((p * Kp, N), paper Eq. 11) at granularity ``blocks.bk``
+  (``decompose.TILE``), written by the plain versions of the pair and rhs
+  decompositions (K2, K2r) and consumed by the mixed form's plain version.
+  ``stacked()`` reads either as the (p, Kp, N) slice stack.
 * :class:`PreparedResidues` (Scheme II): the balanced int8 residues of
   the integerized weight, its (1, Np) power-of-two scale in the weight's
   type (N padded to 16) and the budget pinned at encode time. ``layout``
@@ -34,13 +40,13 @@ optimizer step and :func:`attach_step_preps` pairs each with its float
 weight (:class:`StepPrepared`), which ``models.common.dense`` sends
 through ``core.emulated.emulated_dot_prepared``.
 
-The 'planes' layout is the port's (ROADMAP.md § 3): int8 wgmma reads
+The 'planes' layouts are the port's (ROADMAP.md § 3): int8 wgmma reads
 both of its shared-memory operands K-major only, so the weight is stored
-as B^T. Unlike the reference, nothing is padded to 128 in Scheme I: the prepared
-layouts round K (and N in the twin) up to the kernel's tile only, with
-zero slices, and beta comes from the logical dims, which the reference's
-padded dims agree with wherever ``safe_beta`` is 7 (every dim up to
-2^17; :func:`_beta` checks it). The reference's Scheme-I 'stacked'
+as B^T. Unlike the reference, nothing is padded to 128 in Scheme I: the
+prepared layouts round K (and N in the twin) up to their tile only,
+with zero slices, and beta comes from the logical dims, which the
+reference's padded dims agree with wherever ``safe_beta`` is 7 (every
+dim up to 2^17; :func:`_beta` checks it). The reference's Scheme-I 'stacked'
 layout of its XLA expansion has no counterpart: ``impl='xla'`` prepares
 on the ``torch`` backend, the plain versions, in the same layout.
 """
@@ -54,10 +60,13 @@ import torch.nn.functional as F
 
 from repro_torch.core import scheme1, scheme2
 from repro_torch.core.precision import EmulationConfig
-from repro_torch.kernels import backends, ozaki2
+from repro_torch.kernels import backends, decompose, ozaki1, ozaki2
 from repro_torch.kernels.backends.cuda import KERNEL_BLOCKS
 from repro_torch.kernels.common import Blocks
-from repro_torch.kernels.decompose import TILE
+from repro_torch.kernels.decompose import TILE, round_up
+
+# The plane route's tiles, whose K tile is the planes' padding.
+PLANE_BLOCKS = Blocks(bm=128, bn=ozaki1.PLANE_N, bk=ozaki1.PLANE_K)
 
 _REF_ALIGN = 128     # the reference's Scheme-I prepared padding
 ALIGN = 16           # the residue stack's padding (the reference's gpu.ALIGN)
@@ -81,7 +90,11 @@ class PreparedOperand:
     TENSORS = ("slices", "scale")
 
     def stacked(self) -> torch.Tensor:
-        """The (p, Kp, N) slice stack, deinterleaved."""
+        """The (p, Kp, N) slice stack, Kp = K rounded up to
+        ``decompose.TILE``: the interleaved slices deinterleaved, or the
+        planes transposed (a view)."""
+        if self.layout == "planes":
+            return self.slices.transpose(1, 2)[:, :round_up(self.k)]
         return scheme1.deinterleave_k(self.slices, self.p, "b",
                                       self.blocks.bk)
 
@@ -206,26 +219,31 @@ def prepare_rhs(b: torch.Tensor, cfg: EmulationConfig, *,
     if not b.is_floating_point():
         b = b.float()
     name = _backend_name(cfg, b.device)
-    be = backends.get_backend(name)
-    be.check(cfg, b, b)
+    backends.get_backend(name).check(cfg, b, b)
     k, n = b.shape
     p, beta = cfg.p, _beta(cfg, k)
     nu = scheme1.pow2_scale(b, -2)                              # (1, N)
-    if not with_twin:
-        hat, _ = be.decompose(b, nu, None, p, beta, 0)
-        return PreparedOperand(hat, nu, p, beta, KERNEL_BLOCKS,
-                               "interleaved", k, n, backend=name)
     p_bwd, beta_bwd = cfg.bwd_p or p, _beta(cfg, n)
-    tau = scheme1.pow2_scale(b, -1).T                           # (1, K)
-    if p_bwd == p:
-        hat, t_hat = be.decompose(b, nu, tau, p, beta, beta_bwd)
+    tau = scheme1.pow2_scale(b, -1).T if with_twin else None    # (1, K)
+    if name == "cuda":
+        # The planes of B^T and, for the twin, of B: one encode each.
+        layout, blocks = "planes", PLANE_BLOCKS
+        hat = ozaki1.encode_planes(b.T, nu.T, p, beta)
+        t_hat = (ozaki1.encode_planes(b, tau.T, p_bwd, beta_bwd)
+                 if with_twin else None)
     else:
-        hat, _ = be.decompose(b, nu, None, p, beta, 0)
-        t_hat, _ = be.decompose(b.T, tau, None, p_bwd, beta_bwd, 0)
-    twin = PreparedOperand(t_hat, tau, p_bwd, beta_bwd, KERNEL_BLOCKS,
-                           "interleaved", n, k, backend=name)
-    return PreparedOperand(hat, nu, p, beta, KERNEL_BLOCKS, "interleaved",
-                           k, n, twin, name)
+        # The plain versions of the pair and rhs decompositions (K2, K2r).
+        layout, blocks = "interleaved", KERNEL_BLOCKS
+        if with_twin and p_bwd == p:
+            hat, t_hat = decompose.decompose_pair_plain(b, nu, tau, p, beta,
+                                                        beta_bwd)
+        else:
+            hat = decompose.decompose_rhs_plain(b, nu, p, beta)
+            t_hat = (decompose.decompose_rhs_plain(b.T, tau, p_bwd, beta_bwd)
+                     if with_twin else None)
+    twin = (PreparedOperand(t_hat, tau, p_bwd, beta_bwd, blocks, layout, n,
+                            k, backend=name) if with_twin else None)
+    return PreparedOperand(hat, nu, p, beta, blocks, layout, k, n, twin, name)
 
 
 def _pad2(x: torch.Tensor, align: int) -> torch.Tensor:
@@ -333,8 +351,10 @@ def matmul_prepared(a: torch.Tensor, prep,
 
     A :class:`PreparedResidues` goes to :func:`matmul_prepared_scheme2`.
     A :class:`PreparedOperand` runs on the backend that prepared it: the
-    lhs is carved in the mixed kernel, the prepared planes stream as
-    they are."""
+    lhs is encoded once and the prepared planes stream as they are
+    ('planes'; the 'cuda' backend's plane route, which launches the
+    kernels or raises), or the mixed form's plain version runs on the
+    'interleaved' slices (the 'torch' backend)."""
     if isinstance(prep, PreparedResidues):
         return matmul_prepared_scheme2(a, prep, out_dtype)
     if not isinstance(prep, PreparedOperand):
@@ -346,10 +366,11 @@ def matmul_prepared(a: torch.Tensor, prep,
     if a.is_complex():
         raise ValueError("matmul_prepared is real-valued; got complex lhs "
                          f"{a.dtype}")
-    if prep.layout != "interleaved" or prep.blocks.bk != TILE:
-        raise ValueError(f"prepared operand interleaved at {prep.blocks.bk} "
-                         f"({prep.layout}); the mixed kernel reads "
-                         f"granularity {TILE}")
+    granularity = {"interleaved": TILE, "planes": ozaki1.PLANE_K}
+    if prep.blocks.bk != granularity.get(prep.layout):
+        raise ValueError(f"prepared operand {prep.layout} at granularity "
+                         f"{prep.blocks.bk}; the consumer reads granularity "
+                         f"{granularity.get(prep.layout)}")
     if not a.is_floating_point():
         a = a.float()
     mu = scheme1.pow2_scale(a, -1)                              # (M, 1)

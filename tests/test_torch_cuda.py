@@ -1,5 +1,6 @@
-"""The port's CUDA kernels on the card: EmuGEMM-I in its four launch
-forms, the decomposition (K2, K2r, K11), the int8 GEMM (K9), fused
+"""The port's CUDA kernels on the card: EmuGEMM-I (its plane route: the
+encode and the plane GEMM of the 2-D and mixed routes; its batched and
+interleaved launch forms), the decomposition (K2, K2r, K11), the int8 GEMM (K9), fused
 attention (K10: the bf16 wgmma kernel, the float32 3xTF32 wgmma kernel
 and its pre-pass, the float32 FFMA kernel at D = 256), EmuGEMM-II in its
 three fused launch forms (K5g with a float rhs, K6, K5; float32 and
@@ -75,6 +76,56 @@ def test_kernel_refuses_what_it_was_not_built_for(cuda_device):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [1, 3, 4, 8])
+def test_plane_route_bit_identical_to_plain_on_card(cuda_device, dtype, p):
+    """The encode against encode_planes_plain, the plane GEMM (both tile
+    heights) against plane_matmul_plain, and the 2-D route's launches."""
+    g = torch.Generator(device=cuda_device).manual_seed(p)
+    for (m, k, n, trans) in [(4, 2048, 2048, False), (64, 1000, 77, True),
+                             (300, 2048, 520, False), (37, 100, 29, True)]:
+        a = torch.randn(m, k, generator=g, device=cuda_device).to(dtype)
+        b = (torch.randn(n, k, generator=g, device=cuda_device).T if trans
+             else torch.randn(k, n, generator=g, device=cuda_device))
+        b = b.to(dtype)
+        mu, nu = scheme1.pow2_scale(a, -1), scheme1.pow2_scale(b, -2)
+        ozaki1.COUNTS.reset()
+        pa = ozaki1.encode_planes(a, mu, p, 6)
+        pb = ozaki1.encode_planes(b.T, nu.T, p, 6)
+        assert (ozaki1.COUNTS.launches_encode, ozaki1.COUNTS.plain_cuda_calls
+                ) == (2, 0)
+        assert torch.equal(pa, ozaki1.encode_planes_plain(a, mu, p, 6))
+        assert torch.equal(pb, ozaki1.encode_planes_plain(b.T, nu.T, p, 6))
+        ref = ozaki1.plane_matmul_plain(pa, pb, mu, nu, p, 6, dtype)
+        for tile_m in (64, 128):
+            out = torch.empty((m, n), dtype=dtype, device=cuda_device)
+            ozaki1.launch_planes(pa, pb, mu, nu, p, 6, out, tile_m=tile_m)
+            torch.cuda.synchronize()
+            assert torch.equal(out, ref), (m, k, n, tile_m)
+        ozaki1.COUNTS.reset()
+        out = ozaki1.fused_matmul_scheme1(a, b, mu, nu, p, 6, dtype)
+        assert (ozaki1.COUNTS.launches_2d, ozaki1.COUNTS.launches_encode,
+                ozaki1.COUNTS.launches_planes) == (1, 2, 1)
+        assert torch.equal(out, ozaki1.fused_matmul_plain(a, b, mu, nu, p, 6,
+                                                          dtype))
+
+
+def test_plane_gemm_wraps_int32_on_card(cuda_device):
+    """A diagonal of slice products past 2^31 wraps as the plain version's
+    int32 accumulators do."""
+    k, p = 50688, 4
+    pa = torch.full((p, 64, ozaki1.plane_k(k)), 127, dtype=torch.int8,
+                    device=cuda_device)
+    pa[:, :, k:] = 0
+    pb = pa[:, :32].contiguous()
+    mu = torch.ones(64, 1, device=cuda_device)
+    nu = torch.ones(1, 32, device=cuda_device)
+    out = ozaki1.plane_matmul(pa, pb, mu, nu, p, 7, torch.float32)
+    ref = ozaki1.plane_matmul_plain(pa, pb, mu, nu, p, 7, torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("p", [3, 4, 6])
 def test_prepared_kernels_bit_identical_to_plain_on_card(cuda_device, dtype,
                                                           p):
@@ -88,17 +139,37 @@ def test_prepared_kernels_bit_identical_to_plain_on_card(cuda_device, dtype,
         fwd, twin = decompose.decompose_interleave_pair(b, nu, tau, p, 7, 6)
         rfwd, rtwin = decompose.decompose_pair_plain(b, nu, tau, p, 7, 6)
         rhs = decompose.decompose_interleave_rhs(b, nu, p, 7)
+        planes = ozaki1.encode_planes(b.T, nu.T, p, 7)
         a = torch.randn(37, k, generator=g, device=cuda_device).to(dtype)
         mu = scheme1.pow2_scale(a, -1)
-        out = ozaki1.fused_matmul_mixed(a, fwd, mu, nu, p, 7, dtype)
+        out = ozaki1.fused_matmul_mixed(a, planes, mu, nu, p, 7, dtype)
         ref = ozaki1.fused_matmul_mixed_plain(a, fwd, mu, nu, p, 7, dtype)
         torch.cuda.synchronize()
         assert torch.equal(fwd, rfwd) and torch.equal(twin, rtwin), (k, n)
         assert torch.equal(rhs, rfwd), (k, n)
         assert torch.equal(out, ref), (k, n)
-        # The mixed form equals the 2-D form that carves B itself.
+        # The mixed route equals the 2-D route that encodes B itself.
         assert torch.equal(out, ozaki1.fused_matmul_scheme1(
             a, b, mu, nu, p, 7, dtype))
+
+
+def test_scheme1_prep_on_card_holds_the_planes(cuda_device):
+    """A Scheme-I prep of a CUDA weight is the 'planes' layout, one encode
+    a weight and one for its twin, equal to the plain encode on the CPU."""
+    from repro_torch.kernels import prepared
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    cfg = EmulationConfig(scheme="ozaki1", p=4, bwd_p=3)
+    w = torch.randn(300, 200, generator=g, device=cuda_device)
+    ozaki1.COUNTS.reset()
+    prep = prepared.prepare_rhs(w, cfg, with_twin=True)
+    assert ozaki1.COUNTS.launches_encode == 2
+    cpu = prepared.prepare_rhs(w.cpu(), dataclasses.replace(cfg,
+                                                            backend="cuda"),
+                               with_twin=True)
+    for x, y in ((prep, cpu), (prep.twin, cpu.twin)):
+        assert x.layout == y.layout == "planes"
+        assert torch.equal(x.slices.cpu(), y.slices)
+        assert torch.equal(x.scale.cpu(), y.scale)
 
 
 def test_cached_train_step_launches_the_prepared_kernels(cuda_device):
@@ -117,7 +188,9 @@ def test_cached_train_step_launches_the_prepared_kernels(cuda_device):
     decompose.COUNTS.reset()
     _, metrics = step(state, batch)
     assert torch.isfinite(metrics["loss"])
-    assert decompose.COUNTS.launches_pair > 0
+    # The weights' planes and their twins: two encodes a prepared weight.
+    assert ozaki1.COUNTS.launches_encode > 0
+    assert decompose.COUNTS.launches_pair == 0
     assert ozaki1.COUNTS.launches_mixed > 0
     assert ozaki1.COUNTS.launches_2d > 0 and ozaki1.COUNTS.launches_batched > 0
     assert ozaki1.COUNTS.plain_cuda_calls == 0
