@@ -46,19 +46,27 @@ card, with no CPU fallback, in nineteen phases:
    encode writes at 3 slices);
 9. trainer: launch/train.py at smoke size on the card fails at step 2,
    resumes, and ends in the state of an uninterrupted run, bit for bit;
-10. Scheme-II kernels: EmuGEMM-II's 2-D, batched and residue forms are
-    held against their plain versions bit for bit at the shapes of
-    olmo-1b-emu's attention scores (serve; train at 8 x 128 and 2 x 2048
-    tokens, forward and both backward transposes) and on a ragged
-    shape, float32 and bfloat16, m in {4, 6, 8, 16}, and timed beside
-    their bounds; the library routes of the 2-D and residue forms
-    (``dispatch.emulated_matmul`` and ``ops.fused_scheme2_matmul`` under
-    ozaki2-m6, on olmo-1b's dense shapes at 1024 tokens) are driven with
-    their counts read around them;
+10. Scheme-II kernels: EmuGEMM-II's float-rhs form, 2-D and batched, on
+    the plane route (two encodes and one plane GEMM a call) and its
+    residue form are held against their plain versions bit for bit at
+    the shapes of olmo-1b-emu's attention scores (serve; train at 8 x 128
+    and 2 x 2048 tokens, forward and both backward transposes) and on a
+    ragged shape, float32 and bfloat16, m in {4, 6, 8, 16}; at dB's
+    shapes in a hoisted step (X^T read through its strides, the head's
+    2048 x 50688 among them); in every operand pairing and output type;
+    the encodes alone on transposed operands. K6 is timed per serve,
+    train and 2 x 2048 step and dB per hoisted step, beside their bounds,
+    with the encodes, the plane GEMM's mainloop (its int8 rate) and its
+    CRT apart (dB at both tile widths); the library routes of the 2-D and
+    residue forms (``dispatch.emulated_matmul`` and
+    ``ops.fused_scheme2_matmul`` under ozaki2-m6, on olmo-1b's dense
+    shapes at 1024 tokens) are driven with their counts read around them
+    and timed with the same split;
 11. emu serve: full-width olmo-1b-emu under its shipped gemm_sites
     (ozaki1-p4+cached, attn_qk ozaki2-m6, attn_av ozaki1-p4) serves the
     trace of phase 3; the launch counts of both kernels' modules are read
-    around it, and request 0 alone must match the cohort;
+    around it (each Scheme-II call two encodes and one plane GEMM), and
+    request 0 alone must match the cohort;
 12. emu parity and profile: one full-width mixed step on 'cuda' and
     'torch' gives bit-identical logits; step walls and device time by
     kernel of a mixed and a decode step;
@@ -71,8 +79,8 @@ card, with no CPU fallback, in nineteen phases:
     the halves' per-call-cached gradients, bit for bit;
 15. scientific GEMMs: the plane route of DGEMM and ZGEMM (the encode
     kernels and the TMA-fed wgmma plane GEMM, real and 3M, 2-D and with a
-    batch coordinate), the complex residue kernel K7 and EmuGEMM-II's
-    batched form on float32 operands to a float64 output are held against
+    batch coordinate, float32 operands to a float64 output among them)
+    and the complex residue kernel K7 are held against
     their plain versions bit for bit (complex64 and complex128, m in {4,
     8, 12, 16}; float64, m in {8, 12, 16}; ragged, transposed, complex @
     real, rows of tiny magnitude, 1024^3, K = 131200 across the plane
@@ -91,7 +99,8 @@ card, with no CPU fallback, in nineteen phases:
     float lhs encoded once, a plane GEMM against the weight's (p, N, Kp)
     int8 planes, which one encode launch wrote when it was prepared) is
     held against its plain version on the reference-layout stack and
-    against the float-rhs form bit for bit at olmo-1b's train shapes
+    against the float-rhs form (both on the plane route) bit for bit at
+    olmo-1b's train shapes
     (forward and dA at 1024 and 512 tokens, ragged M, N and K, the tied
     head), bf16 and float32 at m in {6, 8, 16}, float32 against a bf16
     weight and float64 at m = 16, with each call's launches counted, and
@@ -100,9 +109,10 @@ card, with no CPU fallback, in nineteen phases:
     float-rhs form;
 17. hoisted train: full-width olmo-1b under ozaki2-m6+cached with 2
     microbatches of 4 x 128 tokens: one warm-up and three timed steps
-    with the launch counts by kernel form (prepared calls, encodes and
-    plane GEMMs) and the prepare_rhs calls read around them (each weight
-    prepared once a step), then three steps traced by torch.profiler
+    with the launch counts by kernel form (prepared calls, dB and
+    attention's float-rhs calls, encodes and plane GEMMs) and the
+    prepare_rhs calls read around them (each weight prepared once a
+    step), then three steps traced by torch.profiler
     (device activity only: idle share, top kernels);
 18. hoisted train parity: under deterministic algorithms, one step's loss
     and float32 gradients with the hoisted preps equal the mean of the
@@ -587,7 +597,8 @@ def serve_phase(dev, arch, policy):
         f"(encodes {counts.launches_encode}, plane GEMMs "
         f"{counts.launches_planes}), batched {counts.launches_batched}; "
         f"emugemm2 batched {counts2.launches_batched}, 2-D "
-        f"{counts2.launches_2d}; plain versions on CUDA "
+        f"{counts2.launches_2d} (encodes {counts2.launches_encode}, plane "
+        f"GEMMs {counts2.launches_planes}); plain versions on CUDA "
         f"{counts.plain_cuda_calls} + {counts2.plain_cuda_calls}")
     if counts.launches_2d == 0 or counts.launches_batched == 0:
         raise AssertionError("the serve path did not launch the kernel")
@@ -598,6 +609,7 @@ def serve_phase(dev, arch, policy):
                              "two encodes and one plane GEMM")
     if scheme2_sites(eng.policy) and counts2.launches_batched == 0:
         raise AssertionError("the serve path did not launch emugemm2")
+    check_float_rhs(counts2, "the serve path")
     if counts.plain_cuda_calls or counts2.plain_cuda_calls:
         raise AssertionError("the serve path ran a plain version on CUDA")
     if not all(len(t) == GEN and all(0 <= x < arch.model.vocab for x in t)
@@ -619,6 +631,18 @@ def serve_phase(dev, arch, policy):
 def scheme2_sites(policy) -> bool:
     return any(c is not None and c.scheme == "ozaki2"
                for c in [policy.default] + [c for _, c in policy.overrides])
+
+
+def check_float_rhs(c, what):
+    """Each float-rhs Scheme-II call (2-D or batched) launched two encodes
+    and one plane GEMM, and each prepared call one of each (``c``: the
+    counts of a path that prepares no Scheme-II weight)."""
+    calls = c.launches_2d + c.launches_batched
+    want = (2 * calls + c.launches_prepared, calls + c.launches_prepared)
+    if (c.launches_encode, c.launches_planes) != want:
+        raise AssertionError(f"{what}: EmuGEMM-II encodes and plane GEMMs "
+                             f"{(c.launches_encode, c.launches_planes)}, "
+                             f"expected {want}")
 
 
 def on_backend(policy, backend):
@@ -699,7 +723,8 @@ def kernel_label(name: str) -> str:
 def device_summary(prof, prof_wall_ms: float, top_n: int = 4) -> dict:
     """Device-busy time (the union of kernel intervals), idle share of the
     profiled wall time, the device time of the top kernels by name and
-    that of EmuGEMM-II (attn_qk under olmo-1b-emu)."""
+    that of EmuGEMM-II (its plane route's encode and plane GEMM kernels,
+    and its residue kernel)."""
     from torch.autograd import DeviceType
     spans, by_name = [], {}
     for e in prof.events():
@@ -721,7 +746,8 @@ def device_summary(prof, prof_wall_ms: float, top_n: int = 4) -> dict:
             "idle_share": (1 - busy_ms / prof_wall_ms) if spans else None,
             "top_device_ms": dict(top),
             "emugemm2_ms": sum(v for k, v in by_name.items()
-                               if k.startswith("emugemm2"))}
+                               if k.startswith(("emugemm2", "planes_kernel",
+                                                "encode_kernel")))}
 
 
 @contextlib.contextmanager
@@ -843,14 +869,18 @@ def profile_phase(dev, arch, params, view_tokens, runs):
                 t0 = time.perf_counter()
                 step()
                 prof_wall_ms = (time.perf_counter() - t0) * 1e3
-            # The 5 steps' EmuGEMM-I launches: each 2-D call on the plane
-            # route, no plain version on CUDA.
+            # The 5 steps' launches: each 2-D EmuGEMM-I call and each
+            # EmuGEMM-II call on its plane route, no plain version on CUDA.
             k1, _, k3 = snapshot_counts()
             launches = {"emugemm1_2d": k1.launches_2d,
                         "encodes": k1.launches_encode,
                         "plane_gemms": k1.launches_planes,
+                        "emugemm2_batched": k3.launches_batched,
+                        "emugemm2_encodes": k3.launches_encode,
+                        "emugemm2_plane_gemms": k3.launches_planes,
                         "plain_on_cuda": k1.plain_cuda_calls
                         + k3.plain_cuda_calls}
+            check_float_rhs(k3, f"{step_kind} step under {spec}")
             if (launches["encodes"], launches["plane_gemms"],
                     launches["plain_on_cuda"]) != (2 * k1.launches_2d,
                                                    k1.launches_2d, 0):
@@ -1218,7 +1248,9 @@ def train_phase(dev, arch, card: str, policy=None, long_seq: bool = True):
         f"{k1.launches_mixed}, 2-D {k1.launches_2d} (encodes "
         f"{k1.launches_encode}, plane GEMMs {k1.launches_planes}), batched "
         f"{k1.launches_batched}, pair {k2.launches_pair}, rhs "
-        f"{k2.launches_rhs}, emugemm2 batched {k3.launches_batched}, plain "
+        f"{k2.launches_rhs}, emugemm2 batched {k3.launches_batched} "
+        f"(encodes {k3.launches_encode}, plane GEMMs {k3.launches_planes}), "
+        f"plain "
         f"versions on CUDA "
         f"{k1.plain_cuda_calls + k2.plain_cuda_calls + k3.plain_cuda_calls}")
     if not all(math.isfinite(x) for x in losses):
@@ -1235,9 +1267,10 @@ def train_phase(dev, arch, card: str, policy=None, long_seq: bool = True):
           if scheme2_sites(policy or arch.gemm_policy()) else 0)
     got = (k1.launches_mixed, k1.launches_2d, k1.launches_encode,
            k1.launches_planes, k2.launches_pair + k2.launches_rhs,
-           k3.launches_batched)
+           k3.launches_batched, k3.launches_encode, k3.launches_planes)
     want = (n_run * expect["mixed"], n_run * expect["2d"],
-            n_run * expect["encode"], n_run * expect["planes"], 0, n_run * qk)
+            n_run * expect["encode"], n_run * expect["planes"], 0, n_run * qk,
+            2 * n_run * qk, n_run * qk)
     if got != want:
         raise AssertionError(f"launches {got} differ from the per-step "
                              f"accounting {want}: {expect}, attn_qk {qk}")
@@ -1421,11 +1454,48 @@ def check_equal(what, out, ref, max_err, key):
     return err
 
 
-def scheme2_kernel_phase(dev, mcfg, view_tokens):
+def db_shapes(mcfg):
+    """dB = X^T dC of each dense weight in one hoisted step of TOKENS
+    tokens in HOIST_MICRO microbatches, on the float-rhs form: (label, m,
+    k, n, count per step), A = X^T read through its strides (m = the
+    weight's K, k = a microbatch's tokens, n = its N), each weight once a
+    microbatch (the tied head's N is the padded vocabulary)."""
+    tokens = TOKENS // HOIST_MICRO
+    return [(f"dB K={k} N={n}", k, tokens, n, HOIST_MICRO * c)
+            for k, n, _, c in weight_shapes(mcfg)]
+
+
+def float_rhs_times(a, b, mu, nu, moduli, out_dtype, iters, tile_n=None):
+    """Device ms of one float-rhs call on the plane route (``ms``), and of
+    its kernels timed apart: the two encodes, the plane GEMM and its
+    mainloop alone (``tile_n``: the plane GEMM's tile width, default the
+    route's)."""
+    enc, main, gemm, _ = plane_split("dgemm", a, b, mu, nu, moduli, iters,
+                                     tile_n, out_dtype)
+    return {"ms": time_ms(lambda: ozaki2.fused_matmul_scheme2(
+                a, b, mu, nu, moduli, out_dtype), iters),
+            "encode_ms": enc, "planes_ms": gemm, "mainloop_ms": main}
+
+
+def scheme2_checks(dev, mcfg, view_tokens, max_err):
+    """The float-rhs form (each call 2 encodes + 1 plane GEMM) and the
+    residue form against their plain versions, bit for bit; returns the
+    number of cases."""
     gen = torch.Generator(device=dev).manual_seed(3)
-    max_err = {"2d": 0.0, "batched": 0.0, "residues": 0.0}
     checks = 0
     shapes = qk_shapes(mcfg, view_tokens)
+
+    def check(what, a, b, moduli, out_t, key):
+        mu, nu = scheme2.scales(a, b, moduli)
+        c = ozaki2.COUNTS
+        before = (c.launches_encode, c.launches_planes)
+        out = ozaki2.fused_matmul_scheme2(a, b, mu, nu, moduli, out_t)
+        if (c.launches_encode - before[0], c.launches_planes - before[1]) != (
+                2, 1):
+            raise AssertionError(f"{what}: not 2 encodes + 1 plane GEMM")
+        check_equal(what, out, ozaki2.fused_matmul_scheme2_plain(
+            a, b, mu, nu, moduli, out_t), max_err, key)
+
     for dtype in (torch.float32, torch.bfloat16):
         for p in M_CHECK:
             moduli = default_moduli(p)
@@ -1436,15 +1506,10 @@ def scheme2_kernel_phase(dev, mcfg, view_tokens):
             for lbl, lead, m, k, n, ta, tb in cases:
                 a = operand(gen, lead, m, k, ta, dtype, dev)
                 b = operand(gen, lead, k, n, tb, dtype, dev)
-                mu, nu = scheme2.scales(a, b, moduli)
-                out = ozaki2.fused_matmul_scheme2(a, b, mu, nu, moduli, dtype)
-                ref = ozaki2.fused_matmul_scheme2_plain(a, b, mu, nu, moduli,
-                                                        dtype)
-                check_equal(f"emugemm2 {lbl} {lead + (m, k, n)} {dtype} "
-                            f"m={p}", out, ref, max_err,
-                            "batched" if lead else "2d")
+                check(f"emugemm2 {lbl} {lead + (m, k, n)} {dtype} m={p}", a,
+                      b, moduli, dtype, "batched" if lead else "2d")
                 checks += 1
-                del a, b, out, ref
+                del a, b
             for m, k, n in ((100, 200, 77), (1024, 2048, 2048)):
                 a_res = torch.randint(-128, 128, (p, m, k), generator=gen,
                                       device=dev, dtype=torch.int8)
@@ -1456,40 +1521,154 @@ def scheme2_kernel_phase(dev, mcfg, view_tokens):
                                                               moduli),
                             max_err, "residues")
                 checks += 1
-    log(f"[scheme2-kernel] {checks} shape/type/moduli cases bit-identical to "
-        "the plain versions")
+    # dB's shapes (A = X^T, the head's 2048 x 50688 among them), every
+    # operand pairing and output type, and the encodes alone on
+    # transposed operands; drawn from a generator of their own.
+    gen = torch.Generator(device=dev).manual_seed(21)
+    f32, bf = torch.float32, torch.bfloat16
+    moduli = default_moduli(M_MAIN)
+    for dtype in (bf, f32):
+        for i, (lbl, m, k, n, _) in enumerate(db_shapes(mcfg)):
+            a = operand(gen, (), m, k, True, dtype, dev)
+            b = operand(gen, (), k, n, False, dtype, dev)
+            check(f"emugemm2 {lbl} (A = X^T) {(m, k, n)} {dtype} m={M_MAIN}",
+                  a, b, moduli, dtype, "2d")
+            checks += 1
+            if i == 0:
+                mu, nu = scheme2.scales(a, b, moduli)
+                for x, sc in ((a, mu), (b.T, nu.T)):
+                    check_equal(f"emugemm2 encode {tuple(x.shape)} strides "
+                                f"{x.stride()} {dtype}",
+                                ozaki2.encode_planes(x, sc, moduli),
+                                ozaki2.encode_planes_plain(x, sc, moduli),
+                                max_err, "encode")
+                    checks += 1
+            del a, b
+        lbl, bt, m, k, n, ta, tb, _ = shapes[-1]        # long dB: a^T g
+        a = operand(gen, (bt,), m, k, ta, dtype, dev)
+        mu = scheme2.scales(a, a.transpose(-1, -2), moduli)[0]
+        check_equal(f"emugemm2 encode {tuple(a.shape)} strides {a.stride()} "
+                    f"{dtype}", ozaki2.encode_planes(a, mu, moduli),
+                    ozaki2.encode_planes_plain(a, mu, moduli), max_err,
+                    "encode")
+        checks += 1
+        del a
+    for p in (M_MAIN, 16):
+        moduli = default_moduli(p)
+        for ta_t, tb_t in ((f32, f32), (bf, bf), (f32, bf), (bf, f32)):
+            for lbl, m, k, n in (("ragged", 100, 200, 77),
+                                 ("dB", 2048, TOKENS // HOIST_MICRO, 2048)):
+                a = operand(gen, (), m, k, True, ta_t, dev)
+                b = operand(gen, (), k, n, False, tb_t, dev)
+                for out_t in (f32, bf, torch.float64):
+                    check(f"emugemm2 {lbl} (A transposed) {(m, k, n)} "
+                          f"{ta_t} @ {tb_t} -> {out_t} m={p}", a, b, moduli,
+                          out_t, "2d")
+                    checks += 1
+                del a, b
+    return checks
 
-    # Timing at olmo-1b-emu's configuration (bf16, m = 6), per shape and
-    # summed per step.
+
+def scheme2_kernel_phase(dev, mcfg, view_tokens):
+    """EmuGEMM-II's float-rhs form on the plane route and its residue form
+    against their plain versions (``scheme2_checks``); then, at olmo-1b-emu's
+    configuration (bf16, m = 6), K6 timed per serve, train and long step
+    and dB (K5g) per hoisted step, each beside its bound with the route's
+    split (encodes; plane GEMM: mainloop and CRT), dB at both tile
+    widths."""
+    max_err = {"2d": 0.0, "batched": 0.0, "residues": 0.0, "encode": 0.0}
+    checks = scheme2_checks(dev, mcfg, view_tokens, max_err)
+    log(f"[scheme2-kernel] {checks} shape/type/moduli cases bit-identical to "
+        "the plain versions (each float-rhs call 2 encodes + 1 plane GEMM)")
+
+    gen = torch.Generator(device=dev).manual_seed(3)
     bf = torch.bfloat16
     moduli = default_moduli(M_MAIN)
     steps = {"serve mixed": "mixed", "serve decode": "decode",
              "train fwd": "train", "train dA": "train", "train dB": "train",
              "long fwd": "long", "long dA": "long", "long dB": "long"}
-    totals = {s: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                  "bytes_ms": 0.0, "ops_ms": 0.0, "yardstick_ms": 0.0}
-              for s in ("mixed", "decode", "train", "long")}
-    for lbl, bt, m, k, n, ta, tb, count in shapes:
+    keys = ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms",
+            "yardstick_ms", "encode_ms", "planes_ms", "mainloop_ms", "ops",
+            "encode_bound_ms")
+    totals = {s: dict.fromkeys(keys, 0.0)
+              for s in ("mixed", "decode", "train", "long", "db")}
+    # "db": dB of one hoisted step.
+
+    def add(total, count, t, bms, by, ops_, enc_bound):
+        _add(total, count, t["ms"], t["plain_ms"], t.get("yardstick_ms", 0.0),
+             bms, by)
+        for key in ("encode_ms", "planes_ms", "mainloop_ms"):
+            total[key] += count * t[key]
+        total["ops"] += count * ops_
+        total["encode_bound_ms"] += count * enc_bound
+
+    def describe(t, ops_):
+        return (f"route {t['ms']:.4f} ms (encodes {t['encode_ms']:.4f}, "
+                f"plane GEMM {t['planes_ms']:.4f}: mainloop "
+                f"{t['mainloop_ms']:.4f} at {ops_ / t['mainloop_ms'] / 1e9:.1f}"
+                f" int8 TOPS, CRT {t['planes_ms'] - t['mainloop_ms']:.4f})")
+
+    for lbl, bt, m, k, n, ta, tb, count in qk_shapes(mcfg, view_tokens):
         a = operand(gen, (bt,), m, k, ta, bf, dev)
         b = operand(gen, (bt,), k, n, tb, bf, dev)
         mu, nu = scheme2.scales(a, b, moduli)
-        ms = time_ms(lambda: ozaki2.fused_matmul_scheme2(a, b, mu, nu,
-                                                         moduli, bf), 20)
-        plain = time_ms(lambda: ozaki2.fused_matmul_scheme2_plain(
+        t = float_rhs_times(a, b, mu, nu, moduli, bf, 20)
+        t["plain_ms"] = time_ms(lambda: ozaki2.fused_matmul_scheme2_plain(
             a, b, mu, nu, moduli, bf), 3)
-        yard = time_ms(int_mm_yardstick(gen, dev, bt, m, k, n, M_MAIN), 3)
+        t["yardstick_ms"] = time_ms(int_mm_yardstick(gen, dev, bt, m, k, n,
+                                                     M_MAIN), 3)
         bms, by = scheme2_bound(bt, m, k, n, M_MAIN, 2, 2)
-        _add(totals[steps[lbl]], count, ms, plain, yard, bms, by)
+        ops_ = bt * M_MAIN * 2 * m * n * k
+        add(totals[steps[lbl]], count, t, bms, by, ops_,
+            encode_bound(m, k, n, M_MAIN, 2, 1, bt)[0])
         log(f"[scheme2-kernel] batched {lbl} B={bt} M={m} K={k} N={n}"
             f"{' (A transposed)' if ta else ''}"
-            f"{' (B transposed)' if tb else ''} x{count}/step: kernel "
-            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by}), "
-            f"yardstick torch._int_mm x{M_MAIN * bt} {yard:.4f} ms")
+            f"{' (B transposed)' if tb else ''} x{count}/step: "
+            f"{describe(t, ops_)}, plain {t['plain_ms']:.4f} ms, bound "
+            f"{bms:.4f} ms ({by}), yardstick torch._int_mm x{M_MAIN * bt} "
+            f"{t['yardstick_ms']:.4f} ms, tile 128 x "
+            f"{ozaki2.plane_tile_n(bt, m, n, dev)}")
         del a, b
-    for s, t in totals.items():
-        log(f"[scheme2-kernel] batched per {s} step: kernel {t['ms']:.3f} ms, "
-            f"plain {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms, "
-            f"yardstick {t['yardstick_ms']:.3f} ms")
+    # dB a hoisted step: X^T dC, both tile widths of the plane GEMM.
+    tiles = {}
+    for lbl, m, k, n, count in db_shapes(mcfg):
+        a = operand(gen, (), m, k, True, bf, dev)
+        b = operand(gen, (), k, n, False, bf, dev)
+        mu, nu = scheme2.scales(a, b, moduli)
+        t = float_rhs_times(a, b, mu, nu, moduli, bf, 10)
+        t["plain_ms"] = time_ms(lambda: ozaki2.fused_matmul_scheme2_plain(
+            a, b, mu, nu, moduli, bf), 2)
+        bms, by = scheme2_bound(1, m, k, n, M_MAIN, 2, 2)
+        ops_ = M_MAIN * 2 * m * n * k
+        add(totals["db"], count, t, bms, by, ops_,
+            encode_bound(m, k, n, M_MAIN, 2, 1)[0])
+        tile_n = ozaki2.plane_tile_n(1, m, n, dev)
+        for width in (ozaki2.PLANE_NARROW_N, ozaki2.PLANE_TILE[1]):
+            _, main, gemm, _ = plane_split("dgemm", a, b, mu, nu, moduli, 10,
+                                           width, bf)
+            tiles.setdefault(width, {"planes_ms": 0.0, "mainloop_ms": 0.0})
+            tiles[width]["planes_ms"] += count * gemm
+            tiles[width]["mainloop_ms"] += count * main
+            log(f"[scheme2-kernel] {lbl} on the 128 x {width} tile: plane "
+                f"GEMM {gemm:.4f} ms (mainloop {main:.4f}, CRT "
+                f"{gemm - main:.4f})")
+        park = (-(-m // ozaki2.PLANE_TILE[0]) * -(-n // tile_n) * M_MAIN
+                * ozaki2.PLANE_TILE[0] * tile_n)
+        log(f"[scheme2-kernel] {lbl} M={m} (A = X^T) K={k} x{count}/step: "
+            f"{describe(t, ops_)}, plain {t['plain_ms']:.4f} ms, bound "
+            f"{bms:.4f} ms ({by}), tile 128 x {tile_n}, park "
+            f"{park / 2 ** 20:.1f} MiB")
+        del a, b
+    totals["db"]["tiles"] = tiles
+    for s_, t in totals.items():
+        log(f"[scheme2-kernel] per {s_} step"
+            f"{' (K5g on dB)' if s_ == 'db' else ' (K6)'}: "
+            f"{describe(t, t['ops'])}, plain {t['plain_ms']:.3f} ms, bound "
+            f"{t['bound_ms']:.3f} ms, encodes' bound "
+            f"{t['encode_bound_ms']:.3f} ms, yardstick "
+            f"{t['yardstick_ms']:.3f} ms"
+            + (f"; plane GEMMs by tile width {json.dumps(tiles)}"
+               if s_ == "db" else ""))
     return max_err, totals
 
 
@@ -1502,9 +1681,10 @@ def dense_shapes(mcfg):
 def scheme2_library_phase(dev, mcfg):
     """The library routes of the 2-D and residue forms under ozaki2-m6 on
     olmo-1b's dense shapes (bf16): ``dispatch.emulated_matmul`` (the 2-D
-    form) and ``ops.fused_scheme2_matmul`` (the residue form) agree bit
-    for bit; their launches are counted around that run. Then each form
-    is timed beside its bound."""
+    form on the plane route) and ``ops.fused_scheme2_matmul`` (the residue
+    form) agree bit for bit; their launches are counted around that run.
+    Then each form is timed beside its bound, the 2-D form with its split
+    (encodes; plane GEMM: mainloop and CRT)."""
     gen = torch.Generator(device=dev).manual_seed(4)
     bf = torch.bfloat16
     spec = f"ozaki2-m{M_MAIN}"
@@ -1524,16 +1704,22 @@ def scheme2_library_phase(dev, mcfg):
     _, _, counts = snapshot_counts()
     log(f"[scheme2-library] {spec} on {len(shapes)} dense shapes: the 2-D "
         f"and residue routes agree bit for bit; launches 2-D "
-        f"{counts.launches_2d}, residues {counts.launches_residues}, plain "
-        f"versions on CUDA {counts.plain_cuda_calls}")
-    if (counts.launches_2d, counts.launches_residues) != (len(shapes),) * 2:
+        f"{counts.launches_2d} (encodes {counts.launches_encode}, plane GEMMs "
+        f"{counts.launches_planes}), residues {counts.launches_residues}, "
+        f"plain versions on CUDA {counts.plain_cuda_calls}")
+    n_ = len(shapes)
+    if (counts.launches_2d, counts.launches_encode, counts.launches_planes,
+            counts.launches_residues) != (n_, 2 * n_, n_, n_):
         raise AssertionError("the library routes did not launch each form "
-                             "once per shape")
+                             "once per shape (2 encodes + 1 plane GEMM a 2-D "
+                             "call)")
     if counts.plain_cuda_calls:
         raise AssertionError("the library routes ran a plain version on CUDA")
     totals = {f: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                   "bytes_ms": 0.0, "ops_ms": 0.0, "yardstick_ms": 0.0}
               for f in ("2d", "residues")}
+    totals["2d"].update(encode_ms=0.0, planes_ms=0.0, mainloop_ms=0.0,
+                        ops=0.0)
     for (m, k, n), (a, b) in zip(shapes, xs):
         mu, nu = scheme2.scales(a, b, moduli)
         a_res = scheme2.balanced_residues(torch.trunc(a * mu), moduli)
@@ -1553,9 +1739,20 @@ def scheme2_library_phase(dev, mcfg):
             ms = time_ms(run_k, 10)
             plain = time_ms(run_p, 3)
             _add(totals[form], 1, ms, plain, yard, bms, by)
+            extra = ""
+            if form == "2d":
+                enc, main, gemm, _ = plane_split("dgemm", a, b, mu, nu,
+                                                 moduli, 10, out_dtype=bf)
+                ops_ = M_MAIN * 2 * m * n * k
+                for key, v in (("encode_ms", enc), ("planes_ms", gemm),
+                               ("mainloop_ms", main), ("ops", ops_)):
+                    totals[form][key] += v
+                extra = (f" (encodes {enc:.4f}, plane GEMM {gemm:.4f}: "
+                         f"mainloop {main:.4f} at {ops_ / main / 1e9:.1f} "
+                         f"int8 TOPS, CRT {gemm - main:.4f})")
             log(f"[scheme2-library] {form} M={m} K={k} N={n}: kernel "
-                f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms "
-                f"({by}), yardstick torch._int_mm x{M_MAIN} {yard:.4f} ms")
+                f"{ms:.4f} ms{extra}, plain {plain:.4f} ms, bound {bms:.4f} "
+                f"ms ({by}), yardstick torch._int_mm x{M_MAIN} {yard:.4f} ms")
     return counts, totals
 
 
@@ -1604,17 +1801,18 @@ def hoisted_shapes(mcfg):
 
 def hoisted_launches(mcfg):
     """Launches and preps per hoisted step, by kernel form: each prepared
-    GEMM is an lhs encode and a plane GEMM, each prep (with its twin) two
-    encodes."""
+    GEMM is an lhs encode and a plane GEMM, each float-rhs call (dB, 2-D;
+    attention, batched) two encodes and a plane GEMM, each prep (with its
+    twin) two encodes."""
     w = sum(c for _, _, tr, c in weight_shapes(mcfg) if not tr)
     prepared_ = sum(c for *_, c in hoisted_shapes(mcfg))
     preps = w + HOIST_MICRO                      # the head, per microbatch
-    return {"prepared": prepared_, "planes": prepared_,
-            "encode": prepared_ + 2 * preps,
-            "2d": HOIST_MICRO * (w + 1),                      # dB
-            "batched": HOIST_MICRO * 2 * 4 * chunk_pairs(mcfg, TRAIN_SEQ)
-            * mcfg.n_layers,                     # attn_qk and attn_av
-            "preps": preps}
+    db = HOIST_MICRO * (w + 1)
+    batched = (HOIST_MICRO * 2 * 4 * chunk_pairs(mcfg, TRAIN_SEQ)
+               * mcfg.n_layers)                  # attn_qk and attn_av
+    return {"prepared": prepared_, "planes": prepared_ + db + batched,
+            "encode": prepared_ + 2 * preps + 2 * (db + batched),
+            "2d": db, "batched": batched, "preps": preps}
 
 
 def prepared_bound(m, k, n, p, in_bytes, out_bytes):
@@ -2077,11 +2275,11 @@ def scientific_kernel_checks(dev, gen, max_err):
 def scientific_main_path(dev, gen, za, zb, da, db):
     """The front doors a user calls, with every count zeroed just before
     and read just after: ZGEMM and DGEMM through ``api.einsum`` (the
-    plane route: two encodes and one plane GEMM each, and no fused
-    EmuGEMM-II 2-D launch) and the residue routes (K7, K5 with a float64
-    CRT), a float64 and a complex128 batched einsum (K6 and batched K7g:
-    the batched plane route, two encodes and one plane GEMM each, and no
-    fused batched launch) and a complex64 GEMM under ozaki1-p4 (four
+    plane route: two encodes and one plane GEMM each, the DGEMM one 2-D
+    front-door call) and the residue routes (K7, K5 with a float64 CRT),
+    a float64 and a complex128 batched einsum (K6 and batched K7g: the
+    batched plane route, two encodes and one plane GEMM each, the float64
+    one a batched front-door call) and a complex64 GEMM under ozaki1-p4 (four
     EmuGEMM-I launches). Then the float64 batch is timed, with its
     encode / mainloop / CRT split, beside its bound, its plain version
     and cuBLAS's batched DGEMM."""
@@ -2128,8 +2326,8 @@ def scientific_main_path(dev, gen, za, zb, da, db):
         f"versions on CUDA {plain}")
     if counts != {"emugemm3m_encode": 4, "emugemm3m_planes": 2,
                   "emugemm3m_residues": 1, "emugemm2_encode": 4,
-                  "emugemm2_planes": 2, "emugemm2_2d": 0,
-                  "emugemm2_residues": 1, "emugemm2_batched": 0,
+                  "emugemm2_planes": 2, "emugemm2_2d": 1,
+                  "emugemm2_residues": 1, "emugemm2_batched": 1,
                   "emugemm1_2d": 4, "emugemm1_encode": 8,
                   "emugemm1_planes": 4} or plain:
         raise AssertionError("the scientific front doors did not launch "
@@ -2220,18 +2418,21 @@ def planes_bound(m, k, n, p, out_bytes, phases):
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
-def plane_split(kind, a, b, mu, nu, moduli, iters, tile_n=None):
+def plane_split(kind, a, b, mu, nu, moduli, iters, tile_n=None,
+                out_dtype=torch.float64):
     """The plane route's kernels timed apart on a route's operands, 2-D or
     batched: (the two encodes, the plane GEMM's mainloop alone, the plane
-    GEMM with its CRT epilogue), ms; and the planes. ``tile_n`` sets the
-    plane GEMM's tile width (default: the one the route chooses)."""
+    GEMM with its CRT epilogue), ms; and the planes. ``kind`` "dgemm" is
+    a real product (any operand types) into ``out_dtype``, "zgemm" a 3M
+    one; ``tile_n`` sets the plane GEMM's tile width (default: the one
+    the route chooses)."""
     bt, nut = b.transpose(-1, -2), nu.transpose(-1, -2)
     shape = (*a.shape[:-1], b.shape[-1])
     if kind == "dgemm":
         def enc():
             return (ozaki2.encode_planes(a, mu, moduli)[:, None],
                     ozaki2.encode_planes(bt, nut, moduli)[:, None])
-        out = torch.empty(shape, dtype=torch.float64, device=a.device)
+        out = torch.empty(shape, dtype=out_dtype, device=a.device)
     else:
         def enc():
             return (ozaki3m.encode_planes_3m(a, mu, moduli),
@@ -3049,34 +3250,61 @@ def main() -> int:
     lib_per = (f"one launch at each of olmo-1b's dense shapes at {TOKENS} "
                f"tokens under ozaki2-m{M_MAIN}, bf16 (launches: the library "
                "route's run)")
-    for form, name, replaces, launches in (
-            ("2d", "emugemm2_2d", "src/repro/kernels/backends/gpu.py:359",
-             lib_counts.launches_2d),
-            ("residues", "emugemm2_residues", "src/repro/kernels/ozaki2.py:52",
-             lib_counts.launches_residues)):
-        t = lib_totals[form]
-        kernels.append({
-            "name": name, **common, "source": SOURCE2, "replaces": replaces,
-            "launches": launches, "max_abs_err": s2_err[form],
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": bound_by(t),
-            "int_mm_yardstick_ms": t["yardstick_ms"], "per": lib_per})
-    t = s2_totals["mixed"]
-    kernels.append({
-        "name": "emugemm2_batched", **common, "source": SOURCE2,
-        "replaces": "src/repro/kernels/backends/gpu.py:409",
-        "launches": e2.launches_batched, "max_abs_err": s2_err["batched"],
-        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": bound_by(t), "int_mm_yardstick_ms": t["yardstick_ms"],
-        "per": f"one mixed serve step of {EMU} (attn_qk, ozaki2-m{M_MAIN})",
-        "launches_in_train_run": ek3.launches_batched,
-        "per_train_step": {k: s2_totals["train"][k]
-                           for k in ("ms", "plain_ms", "bound_ms",
-                                     "yardstick_ms")}})
+    earlier = ("earlier times: PERF.md's kernel table (emugemm2.cu's fused "
+               "form, which this route replaced)")
     hoist_per = (f"one {HOIST_SPEC} train step of full-width olmo-1b "
                  f"({HOIST_MICRO} microbatches of {TOKENS // HOIST_MICRO} "
                  f"tokens; launches: the warm-up and {TRAIN_STEPS} timed "
                  "steps)")
+    t, tdb = lib_totals["2d"], s2_totals["db"]
+    kernels.append({
+        "name": "emugemm2_2d", **common, "source": SOURCE_PLANES,
+        "replaces": "src/repro/kernels/backends/gpu.py:359",
+        "launches": lib_counts.launches_2d, "max_abs_err": s2_err["2d"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": bound_by(t), **split(t),
+        "int_mm_yardstick_ms": t["yardstick_ms"],
+        "per": lib_per + "; the plane route: 2 encodes + 1 plane GEMM a call; "
+               + earlier,
+        "per_hoisted_step_db": {
+            "ms": tdb["ms"], "plain_ms": tdb["plain_ms"],
+            "bound_ms": tdb["bound_ms"], "bound_by": bound_by(tdb),
+            **split(tdb), "encode_bound_ms": tdb["encode_bound_ms"],
+            "plane_gemms_by_tile_width": tdb["tiles"],
+            "per": hoist_per + ": dB = X^T dC of every weight, X^T read "
+                   "through its strides"}})
+    t = lib_totals["residues"]
+    kernels.append({
+        "name": "emugemm2_residues", **common, "source": SOURCE2,
+        "replaces": "src/repro/kernels/ozaki2.py:52",
+        "launches": lib_counts.launches_residues,
+        "max_abs_err": s2_err["residues"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": bound_by(t), "int_mm_yardstick_ms": t["yardstick_ms"],
+        "per": lib_per})
+    t = s2_totals["mixed"]
+
+    def k6(t):
+        return {"ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": bound_by(t),
+                "yardstick_ms": t["yardstick_ms"], **split(t)}
+
+    kernels.append({
+        "name": "emugemm2_batched", **common, "source": SOURCE_PLANES,
+        "replaces": "src/repro/kernels/backends/gpu.py:409",
+        "launches": e2.launches_batched, "max_abs_err": s2_err["batched"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": bound_by(t), **split(t),
+        "int_mm_yardstick_ms": t["yardstick_ms"],
+        "per": f"one mixed serve step of {EMU} (attn_qk, ozaki2-m{M_MAIN}); "
+               "the plane route with the batch coordinate: 2 encodes + 1 "
+               "plane GEMM a call; " + earlier,
+        "launches_in_train_run": ek3.launches_batched,
+        "per_decode_step": k6(s2_totals["decode"]),
+        "per_train_step": k6(s2_totals["train"]),
+        "per_long_step": {**k6(s2_totals["long"]),
+                          "per": f"attn_qk of one {LONG_BATCH} x {LONG_SEQ} "
+                                 f"token train step of {EMU}"}})
     kernels.append({
         "name": "emugemm2_prepared", **common, "source": SOURCE_PLANES,
         "replaces": "src/repro/kernels/backends/gpu.py:359",
@@ -3097,6 +3325,8 @@ def main() -> int:
             row["launches_in_hoisted_train"] = (
                 hk.launches_2d if row["name"] == "emugemm2_2d"
                 else hk.launches_batched)
+            row["launches_in_hoisted_train_encode_planes"] = (
+                hk.launches_encode, hk.launches_planes)
     # The float64 entry of EmuGEMM-II's residue row, the plane route of
     # DGEMM, ZGEMM and the float64 batch, and K7.
     n0, p_sci = SCI_SIZES[0][0], SCI_SIZES[0][1][-1]

@@ -1,6 +1,7 @@
 """Serve and train one card with two checkouts of this repository in turns.
 
     python3 compare_checkouts.py OTHER_CHECKOUT
+    python3 compare_checkouts.py OTHER_CHECKOUT --scheme2
 
 Builds both checkouts' kernels, then measures each checkout through its
 own ``chip_smoke.py`` in separate processes, in the order other, this,
@@ -11,7 +12,15 @@ three timed train steps under ozaki1-p4+cached, all before the
 process's first torch.profiler session; then the profiled phases
 (device-busy time of the steps), after which the step walls are taken
 again, to show how far walls taken later in a profiled process move.
-Each run prints one ``COMPARE {...}`` line. Needs one CUDA card.
+Each run prints one ``COMPARE {...}`` line. With ``--scheme2`` each run
+instead times EmuGEMM-II's float-rhs form (``ozaki2.fused_matmul_scheme2``,
+bf16, m = 6, whatever route the checkout gives it) at olmo-1b-emu's
+attn_qk shapes per serve, train and 2 x 2048 step (K6), at olmo-1b's
+dense shapes at 1024 tokens (K5g) and on dB = X^T dC of every weight in
+a hoisted ozaki2-m6+cached step (K5g), then runs that checkout's hoisted
+train phase (step walls before its profiler session, device time, idle
+share, peak memory), and prints one ``COMPARE_S2 {...}`` line. Needs one
+CUDA card.
 """
 
 from __future__ import annotations
@@ -94,25 +103,83 @@ def measure(root: str) -> dict:
             "step_wall_ms_after_profiling": walls_after}
 
 
+def measure_scheme2(root: str) -> dict:
+    """EmuGEMM-II's float-rhs form per step at the shapes of the checkout
+    at ``root`` (device ms, CUDA events), then its hoisted train step."""
+    g = runpy.run_path(os.path.join(root, "chip_smoke.py"),
+                       run_name="chip_smoke")["main"].__globals__
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import scheme2
+    from repro_torch.core.precision import default_moduli
+    from repro_torch.kernels import ozaki2
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader", "-i", "0"],
+                          capture_output=True, text=True,
+                          check=True).stdout.strip()
+    arch, emu = configs.get_config("olmo-1b"), configs.get_config("olmo-1b-emu")
+    view_tokens = g["PAGE"] * math.ceil(
+        (g["PROMPT"] + g["GEN"] - 1 + g["CHUNK"]) / g["PAGE"])
+    bf, moduli = torch.bfloat16, default_moduli(g["M_MAIN"])
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tokens = g["TOKENS"] // g["HOIST_MICRO"]
+    cases = [({"serve": lbl.replace("serve ", ""), "train": "train",
+               "long": "long"}[lbl.split()[0]], lbl, (bt,), m, k, n, ta, tb,
+              count)
+             for lbl, bt, m, k, n, ta, tb, count in g["qk_shapes"](
+                 emu.model, view_tokens)]
+    cases += [("dense", f"dense {(m, k, n)}", (), m, k, n, False, False, 1)
+              for m, k, n in g["dense_shapes"](arch.model)]
+    cases += [("db", f"dB K={k} N={n}", (), k, tokens, n, True, False,
+               g["HOIST_MICRO"] * c)
+              for k, n, _, c in g["weight_shapes"](arch.model)]
+    per_step, per_case = {}, {}
+    for step, lbl, lead, m, k, n, ta, tb, count in cases:
+        a = g["operand"](gen, lead, m, k, ta, bf, dev)
+        b = g["operand"](gen, lead, k, n, tb, bf, dev)
+        mu, nu = scheme2.scales(a, b, moduli)
+        ms = g["time_ms"](lambda: ozaki2.fused_matmul_scheme2(
+            a, b, mu, nu, moduli, bf), 10)
+        per_case[lbl] = ms
+        per_step[step] = per_step.get(step, 0.0) + count * ms
+        del a, b
+    torch.cuda.empty_cache()
+    _, _, hoist = g["hoisted_train_phase"](dev, arch, card)
+    return {"root": root, "card": card, "float_rhs_ms_per_step": per_step,
+            "float_rhs_ms_per_call": per_case,
+            "hoisted": {k: hoist[k] for k in ("step_wall_s", "tokens_per_s",
+                                              "peak_memory_bytes")},
+            "hoisted_profile": {k: hoist["profile"][k]
+                                for k in ("device_busy_ms", "idle_share",
+                                          "profiled_wall_ms",
+                                          "top_device_ms")}}
+
+
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] in ("--build", "--measure"):
+    if len(sys.argv) == 3 and sys.argv[1] in ("--build", "--measure",
+                                              "--measure-scheme2"):
         root = os.path.abspath(sys.argv[2])
         if sys.argv[1] == "--build":
             runpy.run_path(os.path.join(root, "chip_smoke.py"),
                            run_name="chip_smoke")["build_phase"]()
-        else:
+        elif sys.argv[1] == "--measure":
             print("COMPARE " + json.dumps(measure(root)), flush=True)
+        else:
+            print("COMPARE_S2 " + json.dumps(measure_scheme2(root)),
+                  flush=True)
         return 0
-    if len(sys.argv) != 2:
+    if len(sys.argv) not in (2, 3) or sys.argv[2:] not in ([], ["--scheme2"]):
         print(__doc__, file=sys.stderr)
         return 2
     other = os.path.abspath(sys.argv[1])
+    how = "--measure-scheme2" if sys.argv[2:] else "--measure"
     me = [sys.executable, os.path.abspath(__file__)]
     builds = [subprocess.Popen(me + ["--build", r]) for r in (other, HERE)]
     if any(p.wait() for p in builds):
         return 1
     for root in (other, HERE, HERE, other):
-        if subprocess.run(me + ["--measure", root]).returncode:
+        if subprocess.run(me + [how, root]).returncode:
             return 1
     return 0
 

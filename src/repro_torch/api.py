@@ -196,31 +196,44 @@ def dot_general(a: torch.Tensor, b, dimension_numbers, *,
 
 
 def _parse_einsum(subscripts: str, a_ndim: int, b_ndim: int):
+    """Raise ``ValueError`` for what the reference refuses (a count of
+    operands other than two, a label repeated within one operand or in
+    the output, a rank mismatch, an output label from nowhere) and
+    ``NotImplementedError`` for what it runs and the port does not yet:
+    ellipses, an implicit output, a label summed out of one operand."""
     s = subscripts.replace(" ", "")
     ins, arrow, out = s.partition("->")
     parts = ins.split(",")
-    if not arrow or len(parts) != 2 or "." in s:
+    if len(parts) != 2:
+        raise ValueError(f"einsum takes exactly two operands; got "
+                         f"{len(parts)} in {subscripts!r}")
+    if "." in s:
         raise NotImplementedError(
-            f"einsum {subscripts!r}: the port takes explicit two-operand "
-            "subscripts without ellipses ('ab,bc->ac')")
+            f"einsum {subscripts!r}: the port takes subscripts without "
+            "ellipses ('ab,bc->ac')")
     a_lab, b_lab, out_lab = parts[0], parts[1], out
     for lab, nd, what in ((a_lab, a_ndim, "lhs"), (b_lab, b_ndim, "rhs")):
         if len(lab) != nd:
             raise ValueError(f"{what} subscript {lab!r} names {len(lab)} "
                              f"axes for a rank-{nd} operand")
-    for lab in (a_lab, b_lab, out_lab):
         if len(set(lab)) != len(lab):
-            raise NotImplementedError(
-                f"einsum {subscripts!r}: repeated labels are not supported")
+            raise ValueError(f"repeated label in {what} subscript {lab!r} "
+                             f"of {subscripts!r} (a diagonal)")
+    if not arrow:
+        raise NotImplementedError(
+            f"einsum {subscripts!r}: the port takes explicit output "
+            "subscripts ('ab,bc->ac')")
+    if len(set(out_lab)) != len(out_lab):
+        raise ValueError(f"repeated output label in {subscripts!r}")
+    for lab in out_lab:
+        if lab not in a_lab and lab not in b_lab:
+            raise ValueError(f"output label {lab!r} of {subscripts!r} "
+                             "appears in neither operand")
     for lab in a_lab + b_lab:
         if lab not in out_lab and not (lab in a_lab and lab in b_lab):
             raise NotImplementedError(
                 f"einsum {subscripts!r}: label {lab!r} is summed out of one "
                 "operand only; the port contracts shared labels only")
-    for lab in out_lab:
-        if lab not in a_lab and lab not in b_lab:
-            raise ValueError(f"output label {lab!r} of {subscripts!r} "
-                             "appears in neither operand")
     return a_lab, b_lab, out_lab
 
 

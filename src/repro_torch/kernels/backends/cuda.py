@@ -37,14 +37,12 @@ _CAPS = BackendCapabilities(
 )
 
 # The one tile each kernel is compiled for: csrc/emugemm1.cu, whose K tile
-# is the granularity of the 'interleaved' layout, csrc/emugemm2.cu,
-# whose K step is the strip it integerizes once for all moduli (a float64
-# 2-D product runs on the plane GEMM's tile instead), and the plane GEMM
-# of csrc/emugemm2_planes.cu, which runs every complex 3M product.
+# is the granularity of the 'interleaved' layout, and the plane GEMM of
+# csrc/emugemm2_planes.cu, which runs every Scheme-II product with a float
+# rhs, real or complex 3M.
 KERNEL_BLOCKS = Blocks(bm=64, bn=64, bk=decompose.TILE)
-SCHEME2_BLOCKS = Blocks(bm=64, bn=64, bk=64)
-SCHEME2_3M_BLOCKS = Blocks(bm=ozaki2.PLANE_TILE[0], bn=ozaki2.PLANE_TILE[1],
-                           bk=ozaki2.PLANE_K)
+SCHEME2_BLOCKS = Blocks(bm=ozaki2.PLANE_TILE[0], bn=ozaki2.PLANE_TILE[1],
+                        bk=ozaki2.PLANE_K)
 
 
 def choose_blocks_cuda(m: int, n: int, k: int, p: int,
@@ -56,7 +54,7 @@ def choose_blocks_cuda(m: int, n: int, k: int, p: int,
     if scheme in ("ozaki2", "ozaki2-3m"):
         if not 1 <= p <= ozaki2.MAX_MODULI:
             return None
-        return SCHEME2_BLOCKS if scheme == "ozaki2" else SCHEME2_3M_BLOCKS
+        return SCHEME2_BLOCKS
     return KERNEL_BLOCKS if 1 <= p <= ozaki1.MAX_P else None
 
 

@@ -1,18 +1,23 @@
 // EmuGEMM-II's plane route for Hopper (sm_90a): Scheme II as an encode
 // kernel and a TMA-fed wgmma plane GEMM.
 //
-// Replaces, for float64 operands, for every complex product and for the
-// prepared form, the Pallas kernels of the JAX package
-//   src/repro/kernels/backends/gpu.py  fused_matmul_scheme2 (_kernel2), float64 2-D launch
+// Replaces, for every Scheme-II product of float operands, real or complex,
+// the Pallas kernels of the JAX package
+//   src/repro/kernels/backends/gpu.py  fused_matmul_scheme2 (_kernel2), 2-D launch, float rhs
 //   src/repro/kernels/backends/gpu.py  fused_matmul_scheme2 (_kernel2, b_res), prepared launch
-//   src/repro/kernels/backends/gpu.py  fused_matmul_scheme2_batched, float64 operands
+//   src/repro/kernels/backends/gpu.py  fused_matmul_scheme2_batched, batched launch
 //   src/repro/kernels/backends/gpu.py  fused_matmul_3m (_kernel2_3m), 2-D and batched
-// (float32 / bf16 products with a float rhs, the residue form and float32
-// operands to a float64 output stay on emugemm2.cu; the complex residue
-// form K7 on emugemm3m.cu). The prepared form is a float32, bf16 or
-// float64 lhs encoded here against a weight whose planes were encoded here
-// once, when it was prepared (kernels/prepared.py), with float32 scales for
-// a float32 / bf16 pair (a bf16 power of two widens exactly).
+// (the residue forms K5 and K7 stay on emugemm2.cu and emugemm3m.cu). A
+// product with a float rhs is two encodes, A's and B^T's, both read through
+// their strides (dB's A is X^T, attention's backward reads transposed
+// views), and one plane GEMM. Operands: float64 (both, to a float64 or
+// float32 output), or float32 and bf16 in any pairing to a float32, bf16 or
+// float64 output, whose scales the plane GEMM reads as float32 (a bf16
+// power of two widens exactly); the float64 output of float32 / bf16
+// operands reconstructs in float64 double-double, as the reference does
+// under x64 (H6). The prepared form is a float lhs encoded here against a
+// weight whose planes were encoded here once, when it was prepared
+// (kernels/prepared.py).
 //
 // Every product carries a batch coordinate Bt; a 2-D product is Bt = 1.
 //
@@ -22,11 +27,11 @@
 // becomes planes (p, T, Bt, R, Kp), T = 1 ([x]) or, for 3M, T = 3 ([re,
 // im, bal(re + im)], complex3m.phase_residues); Kp is K padded with zero
 // residues to the plane GEMM's K tile; the batch element is blockIdx.z.
-// Each element is integerized once,
-// trunc(x * s) in its type (a bf16 element widens to float32 exactly on
-// load, and its product rounds to bf16 before the truncation), and carved
-// p times (the fused kernel it replaces integerized it N / 64 times and
-// carved it 64 * p times), by integer arithmetic alone: a float32 or bf16
+// Each element is integerized once, trunc(x * s) in its type (a bf16
+// element widens to float32 exactly on load, and its product rounds to
+// bf16 before the truncation), and carved p times (a fused kernel that
+// integerizes in each output tile's prologue does it N / BN times and
+// carves it BN * p times), by integer arithmetic alone: a float32 or bf16
 // value as the int it truncates to (|x| < 2^24), a float64 value as four
 // 16-bit limbs, each residue a Barrett quotient. Bound by bytes: (8 + p)
 // bytes an element for float64, (2 + p) for bf16, (16 + 3p) for
@@ -54,7 +59,10 @@
 //     C_re = (T1 - T2) mod m and parks S = (T1 + T2) mod m, and T3 turns S
 //     into C_im = (T3 - S) mod m: each product is reduced before it is
 //     combined, as the reference's (t1m - t2m) mod m and (t3m - t1m - t2m)
-//     mod m, and three full-K sums never add up in int32;
+//     mod m, and three full-K sums never add up in int32; a thread's
+//     four-element group that lies wholly past M or N (a thin tile, as
+//     attention's decode heads give: M = 1 of 128 rows) is neither parked
+//     nor rebuilt;
 //   * epilogue: four elements at a time, balanced Garner digits in exact
 //     int32 in direct form (one Barrett reduction a digit, no
 //     conversions) and the double-double Horner of scheme2_common.cuh op
@@ -78,7 +86,10 @@
 // GEMM of olmo-1b's hoisted train step (512 x 2048 x 2048, m = 6, bf16) is
 // 6 int8 GEMMs, 0.013 ms at the int8 peak, against 0.006 ms for its bytes;
 // its 64 narrow tiles fill half the SMs once, so one tile's mainloop and
-// CRT in series set its time.
+// CRT in series set its time. A float-rhs GEMM with short K, as dB = X^T dC
+// at 512 tokens (four K tiles a modulus), spends most of its plane GEMM in
+// the CRT epilogue: the mainloop no longer hides it, and overlapping the
+// two needs a persistent grid (PERF.md measures the split).
 //
 // Numerics: see scheme2_common.cuh. The plain versions are
 // repro_torch.kernels.ozaki2.encode_planes_plain / plane_matmul_plain and
@@ -351,8 +362,21 @@ __device__ __forceinline__ void direct_digits(const Crt& crt, const Digits& dg, 
   }
 }
 
-// T: the scales' type (double, or float for float32 and bf16 operands); O:
-// the output part type; CPLX: 3M (planes
+// A scale as the epilogue reads it: float64, or float32 widened from a
+// float32 or (bf16 set) a bf16 scale, exactly.
+template <typename T>
+__device__ __forceinline__ T scale_at(const void* s, long long i, int bf16) {
+  if constexpr (sizeof(T) == 8) {
+    return static_cast<const double*>(s)[i];
+  } else {
+    return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(s)[i])
+                : static_cast<const float*>(s)[i];
+  }
+}
+
+// T: the scales' type (double, or float for float32 and bf16 operands,
+// whose scales are read in their own types: scale_bf16 bit 0 marks a bf16
+// mu, bit 1 a bf16 nu); O: the output part type; CPLX: 3M (planes
 // (p, 3, Bt, ., Kp), a complex output of interleaved parts). park: Bt *
 // tiles * S * PARK_SLOT bytes, S = p (2p for 3M). kr: K tiles between
 // reductions. Batch element z reads mu at z * smu, nu at z * snu and
@@ -360,8 +384,9 @@ __device__ __forceinline__ void direct_digits(const Crt& crt, const Digits& dg, 
 template <typename T, typename O, bool CPLX, int NH>
 __global__ void __launch_bounds__(PT, 1)
 planes_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
-              const T* __restrict__ mu, const T* __restrict__ nu, O* __restrict__ out,
-              uint8_t* park, int M, int N, int nk, int kr, int epilogue, long long smu,
+              const void* __restrict__ mu, const void* __restrict__ nu, int scale_bf16,
+              O* __restrict__ out, uint8_t* park, int M, int N, int nk, int kr, int epilogue,
+              long long smu,
               long long snu, long long sout, const __grid_constant__ Crt crt,
               const __grid_constant__ Barrett br, const __grid_constant__ Digits dg) {
   constexpr int TP = CPLX ? 3 : 1;
@@ -421,6 +446,12 @@ planes_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int ct = threadIdx.x;                    // consumer thread, 0..255
     const int lane = ct % 32;
+    // This thread's fragment rows (row0, row0 + 8) and, for group g,
+    // columns (col, col + 1): a group wholly past M or N is neither parked
+    // nor rebuilt (a thin or ragged tile, as a decode step's heads give).
+    const int row0 = m0 + wg * 64 + ((ct % 128) / 32) * 16 + lane / 4;
+    const int col0 = n0 + (lane % 4) * 2;
+    auto live = [&](int g) { return row0 < M && col0 + (g / 16) * 128 + (g % 16) * 8 < N; };
     uint8_t* tile_park =
         park + static_cast<long long>(blockIdx.x) * (CPLX ? 2 : 1) * p * Tile<NH>::PARK_SLOT;
     int acc[NH][64];
@@ -471,11 +502,13 @@ planes_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__
           uint32_t prev[8];
           if (CPLX && t > 0) {
 #pragma unroll
-            for (int q = 0; q < 8; ++q) prev[q] = *park_word<NH>(tile_park, t == 1 ? l : p + l, 8 * c + q, ct);
+            for (int q = 0; q < 8; ++q)
+              prev[q] = live(8 * c + q) ? *park_word<NH>(tile_park, t == 1 ? l : p + l, 8 * c + q, ct) : 0;
           }
 #pragma unroll
           for (int q = 0; q < 8; ++q) {
             const int g = 8 * c + q;
+            if (!live(g)) continue;
             int v[4];
 #pragma unroll
             for (int w = 0; w < 4; ++w) v[w] = mod_full(acc[g / 16][4 * (g % 16) + w], br, m, l);
@@ -507,12 +540,10 @@ planes_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__
     if (!epilogue) return;
 
     // CRT epilogue: each thread rebuilds the elements it parked.
-    mu += bt * smu;
-    nu += bt * snu;
+    const long long mo = bt * smu, no = bt * snu;
     out += bt * sout;
-    const int row0 = m0 + wg * 64 + ((ct % 128) / 32) * 16 + lane / 4;
-    const int col0 = n0 + (lane % 4) * 2;
     for (int g = 0; g < GROUPS; ++g) {
+      if (!live(g)) continue;
       const int col = col0 + (g / 16) * 128 + (g % 16) * 8;
       // out(mu) * out(nu): real Scheme II divides by it, 3M multiplies
       // by its reciprocal, both rounded to the output type.
@@ -520,7 +551,8 @@ planes_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__
 #pragma unroll
       for (int w = 0; w < 4; ++w) {
         const int gm = min(row0 + 8 * (w / 2), M - 1), gn = min(col + (w % 2), N - 1);
-        scale[w] = Out<O>::mul(Out<O>::cvt(widen(mu[gm])), Out<O>::cvt(widen(nu[gn])));
+        scale[w] = Out<O>::mul(Out<O>::cvt(scale_at<T>(mu, mo + gm, scale_bf16 & 1)),
+                               Out<O>::cvt(scale_at<T>(nu, no + gn, scale_bf16 & 2)));
         if constexpr (CPLX) scale[w] = Out<O>::div(V(1), scale[w]);
       }
 #pragma unroll
@@ -590,7 +622,7 @@ int launch_encode(const void* xr, const void* xi, const void* scale, int8_t* pla
 
 template <typename T, typename O, bool CPLX, int NH>
 int launch_planes(const CUtensorMap& ma, const CUtensorMap& mb, const void* mu, const void* nu,
-                  void* out, uint8_t* park, int batch, int M, int N, int nk, int kr,
+                  int scale_bf16, void* out, uint8_t* park, int batch, int M, int N, int nk, int kr,
                   int epilogue, long long smu, long long snu, long long sout, const Crt& crt,
                   const Barrett& br, const Digits& dg, cudaStream_t st) {
   constexpr int smem = Tile<NH>::SMEM;
@@ -603,8 +635,8 @@ int launch_planes(const CUtensorMap& ma, const CUtensorMap& mb, const void* mu, 
   }
   const int tiles = batch * ((M + PBM - 1) / PBM) * ((N + Tile<NH>::BN - 1) / Tile<NH>::BN);
   planes_kernel<T, O, CPLX, NH><<<tiles, PT, smem, st>>>(
-      ma, mb, static_cast<const T*>(mu), static_cast<const T*>(nu), static_cast<O*>(out), park, M,
-      N, nk, kr, epilogue, smu, snu, sout, crt, br, dg);
+      ma, mb, mu, nu, scale_bf16, static_cast<O*>(out), park, M, N, nk, kr, epilogue, smu, snu,
+      sout, crt, br, dg);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -647,8 +679,9 @@ extern "C" int emugemm2_encode(const void* xr, const void* xi, const void* scale
 
 // The plane GEMM: a_planes (p, T, batch, M, Kp) and b_planes (p, T, batch,
 // N, Kp) int8 from emugemm2_encode, mu (batch, M) and nu (batch, N) with
-// batch strides smu, snu and rows contiguous, in the scale type (f64: float64,
-// else float32); out (batch, M, N) with batch stride sout in output parts
+// batch strides smu, snu and rows contiguous, in the scale type (f64: float64;
+// else float32, or bf16 where scale_bf16 says so: bit 0 mu, bit 1 nu); out
+// (batch, M, N) with batch stride sout in output parts
 // and rows contiguous (complex parts interleaved if cplx; out_type: 0
 // float32, 1 bfloat16 (real products with float32 scales), 2 float64);
 // tile_n, the output tile's columns, 256 or 128; park batch *
@@ -659,9 +692,10 @@ extern "C" int emugemm2_encode(const void* xr, const void* xi, const void* scale
 extern "C" int emugemm2_planes(const int8_t* a_planes, const int8_t* b_planes, const void* mu,
                                const void* nu, void* out, uint8_t* park, int batch, int M, int N,
                                int Kp, long long smu, long long snu, long long sout, int tile_n,
-                               int cplx, int f64, int out_type, int p, const int* moduli,
-                               const int* inv, int epilogue, void* stream) {
+                               int cplx, int f64, int scale_bf16, int out_type, int p,
+                               const int* moduli, const int* inv, int epilogue, void* stream) {
   if (batch <= 0 || M <= 0 || N <= 0 || Kp <= 0 || Kp % PBK != 0) return -1;
+  if (scale_bf16 < 0 || scale_bf16 > 3 || (f64 && scale_bf16)) return -1;
   if (tile_n != 128 && tile_n != 256) return -1;
   Crt crt;
   if (make_crt(p, moduli, inv, crt) != 0) return -1;
@@ -682,12 +716,11 @@ extern "C" int emugemm2_planes(const int8_t* a_planes, const int8_t* b_planes, c
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nk = Kp / PBK;
 #define EMUGEMM2_PLANES(T_, O_, C_)                                                             \
-  return tile_n == 256 ? launch_planes<T_, O_, C_, 2>(ma, mb, mu, nu, out, park, batch, M, N, nk,  \
-                                                      kr, epilogue, smu, snu, sout, crt, br, dg,  \
-                                                      st)                                          \
-                       : launch_planes<T_, O_, C_, 1>(ma, mb, mu, nu, out, park, batch, M, N, nk,  \
-                                                      kr, epilogue, smu, snu, sout, crt, br, dg,  \
-                                                      st)
+  return tile_n == 256                                                                         \
+             ? launch_planes<T_, O_, C_, 2>(ma, mb, mu, nu, scale_bf16, out, park, batch, M, N, nk, \
+                                            kr, epilogue, smu, snu, sout, crt, br, dg, st)        \
+             : launch_planes<T_, O_, C_, 1>(ma, mb, mu, nu, scale_bf16, out, park, batch, M, N, nk, \
+                                            kr, epilogue, smu, snu, sout, crt, br, dg, st)
   if (!cplx) {
     if (f64) {
       if (out_type == F64) EMUGEMM2_PLANES(double, double, false);

@@ -1,19 +1,15 @@
-// Device pieces of Ozaki Scheme II shared by EmuGEMM-II (emugemm2.cu), its
-// complex 3M kernels (emugemm3m.cu) and the plane route of DGEMM and ZGEMM
-// (emugemm2_planes.cu): operand types, exact floor moduli, the
-// integerize-and-carve prologue, int8 wmma tiles, and the Garner +
-// double-double CRT epilogue.
+// Device pieces of Ozaki Scheme II shared by the plane route
+// (emugemm2_planes.cu: the encode and the plane GEMM of every Scheme-II
+// product of float operands, real or complex 3M) and the residue kernels
+// (emugemm2.cu: K5; emugemm3m.cu: K7): operand types, integerization, the
+// double-double CRT arithmetic, exact floor moduli and int8 wmma tiles.
 //
 // Numerics, so that every kernel is bit-identical to its plain version
 // (repro_torch.core.scheme2, repro_torch.core.complex3m):
 //   * floor modulo everywhere (the sign of the divisor, as jnp.remainder);
 //     C's % truncates toward zero, so a negative remainder gets m added.
-//     Values below 2^24 in magnitude (float32 and bfloat16 integerized
-//     operands, one strip's accumulator, Garner terms) take the quotient
-//     from a float reciprocal and correct it; full-K accumulators use %.
-//     The plane route (emugemm2_planes.cu), which alone takes float64
-//     operands, reduces by Barrett's integer quotient instead: every
-//     exact reduction gives the same residue;
+//     The plane route reduces by Barrett's integer quotient: every exact
+//     reduction gives the same residue;
 //   * every float op of the double-double is an explicit _rn intrinsic,
 //     so nvcc cannot contract ah * bh - p into an FMA, which would break
 //     Dekker's exact product; the Veltkamp constant is 2^12 + 1 in float32
@@ -107,31 +103,6 @@ __device__ __forceinline__ double integerize(double x, double mu, double) {
 __device__ __forceinline__ int floor_mod(int x, int m) {
   const int r = x % m;
   return r < 0 ? r + m : r;
-}
-
-// Floor modulo for |x| < 2^24 (exact in float): the quotient from the
-// float reciprocal is off by at most one, which the correction absorbs.
-__device__ __forceinline__ int floor_mod_small(int x, int m, float rcp) {
-  const int q = __float2int_rd(__fmul_rn(__int2float_rn(x), rcp));
-  const int r = x - q * m;
-  return r < 0 ? r + m : (r >= m ? r - m : r);
-}
-
-// Per-modulus constants of the carve.
-struct Mod {
-  int m, half;
-  float rcp;
-};
-
-__device__ __forceinline__ Mod modulus(int m) {
-  return Mod{m, m / 2, __fdiv_rn(1.0f, static_cast<float>(m))};
-}
-
-// Balanced residue ((x + m/2) mod m) - m/2 of an integerized value
-// (|x| < 2^24).
-__device__ __forceinline__ int8_t balanced(int x, const Mod& md) {
-  const int r = floor_mod_small(x, md.m, md.rcp) + md.half;
-  return static_cast<int8_t>((r >= md.m ? r - md.m : r) - md.half);
 }
 
 // ---- double-double (repro.core.dd), no FMA ---------------------------------
@@ -266,28 +237,6 @@ __device__ __forceinline__ void horner(const Crt& crt, const int (&d)[W][MAXP],
   }
 #pragma unroll
   for (int w = 0; w < W; ++w) c[w] = Out<O>::add(Out<O>::cvt(hi[w]), Out<O>::cvt(lo[w]));
-}
-
-// The CRT of one element: balanced Garner digits of its residues
-// (res(i) in [0, m_i)), in exact int32, then the Horner.
-template <typename O, typename Res>
-__device__ __forceinline__ typename Out<O>::V crt_element(const Crt& crt, const float (&rcp)[MAXP],
-                                                          Res res) {
-  const int p = crt.p;
-  int d[1][MAXP];
-#pragma unroll
-  for (int i = 0; i < MAXP; ++i) {
-    if (i < p) {
-      const int mi = crt.m[i];
-      int t = res(i);
-#pragma unroll
-      for (int j = 0; j < i; ++j) t = floor_mod_small((t - d[0][j]) * crt.inv[i][j], mi, rcp[i]);
-      d[0][i] = t > mi / 2 ? t - mi : t;
-    }
-  }
-  typename Out<O>::V c[1];
-  horner<O, 1>(crt, d, c);
-  return c[0];
 }
 
 // ---- int8 tensor-core tiles ------------------------------------------------

@@ -1,43 +1,41 @@
-"""EmuGEMM-II (``csrc/emugemm2.cu`` and the plane route of
-``csrc/emugemm2_planes.cu``): wrappers, plain versions and launch counts.
+"""EmuGEMM-II (the plane route of ``csrc/emugemm2_planes.cu`` and the
+residue form of ``csrc/emugemm2.cu``): wrappers, plain versions and
+launch counts.
 
 * :func:`fused_matmul_scheme2` takes (M, K) @ (K, N) or, strided over a
   batch, (B, M, K) @ (B, K, N) operands with their power-of-two
   integerization scales mu (..., M, 1) in a's type and nu (..., 1, N) in
-  b's type, and returns the Scheme-II product in ``out_dtype``:
-  integerize and carve residues in the prologue, one int8 GEMM per
-  modulus, modular reduction and the CRT in the epilogue. The kernel
-  takes float32 and bfloat16 operands in any pairing with a float32,
-  bfloat16 or float64 output; float64 operands (both, with a float64 or
-  float32 output) take the plane route below. Its plain version is
-  ``repro_torch.core.scheme2.scaled_matmul``.
+  b's type, and returns the Scheme-II product in ``out_dtype``. It runs
+  the plane route below: an encode of A, an encode of B^T (both read
+  through their strides) and one plane GEMM. It takes float32 and
+  bfloat16 operands in any pairing with a float32, bfloat16 or float64
+  output, and float64 operands (both, with a float64 or float32 output).
+  Its plain version is ``repro_torch.core.scheme2.scaled_matmul``.
 * :func:`fused_matmul_scheme2_prepared` takes an (M, K) float lhs with
   its scale mu (M, 1) and a prepared weight: the (p, N, Kp) int8 planes
   of its B^T (K padded with zero residues to ``PLANE_K``), written once
   by :func:`encode_planes` when it was prepared, and its scale nu
   (1, Np >= N) in the weight's type. It runs the plane route: one encode
-  of the lhs and one plane GEMM. It takes the lhs types of the 2-D form
-  and a float64 lhs against a float64 weight. Its plain version on the
-  reference's (p, Kp, Np) residue stack is
+  of the lhs and one plane GEMM. It takes the lhs types of the float-rhs
+  form. Its plain version on the reference's (p, Kp, Np) residue stack is
   :func:`fused_matmul_scheme2_prepared_plain` (the reference's XLA
   expansion of a prepared operand,
   ``repro.kernels.prepared.matmul_prepared_scheme2``).
 * :func:`fused_residue_matmul` takes (p, M, K) and (p, K, N) balanced int8
   residues and returns the balanced int8 residues (p, M, N) of their
-  products mod each modulus. Its plain version is the reference's oracle
-  ``repro.kernels.ref.scheme2_residues``.
+  products mod each modulus (``csrc/emugemm2.cu``). Its plain version is
+  the reference's oracle ``repro.kernels.ref.scheme2_residues``.
 
 The plane route: :func:`encode_planes` writes an operand's balanced
 residues once as K-contiguous int8 planes (p, [Bt,] R, Kp), K padded with
 zero residues to ``PLANE_K``, and :func:`plane_matmul` is a TMA-fed wgmma
 int8 GEMM per modulus with the reduction and the CRT in its epilogue; a
-leading batch axis is the kernels' batch coordinate. Float64 operands (a
-DGEMM, or a batch of them) take it with two encodes, the prepared form
-with one. Their plain versions are :func:`encode_planes_plain` and
-:func:`plane_matmul_plain`; together they are ``scheme2.scaled_matmul``.
+leading batch axis is the kernels' batch coordinate. Their plain versions
+are :func:`encode_planes_plain` and :func:`plane_matmul_plain`; together
+they are ``scheme2.scaled_matmul``.
 
-On a CUDA tensor a wrapper launches the kernel or raises; on a CPU tensor
-it runs the plain version. The kernels replace the Pallas kernels
+On a CUDA tensor a wrapper launches the kernels or raises; on a CPU
+tensor it runs the plain version. The kernels replace the Pallas kernels
 ``repro.kernels.backends.gpu.fused_matmul_scheme2`` (2-D launch with a
 float rhs; prepared launch with a residue rhs, ``b_res``),
 ``fused_matmul_scheme2_batched`` (batched launch) and
@@ -57,7 +55,7 @@ from repro_torch.core import scheme2
 # The kernel unrolls its CRT over at most 16 moduli, each <= 256 (the
 # reference's gpu.MAX_MODULI).
 MAX_MODULI = 16
-# The kernels' type codes (csrc/emugemm2.cu, csrc/emugemm2_planes.cu).
+# The plane route's type codes (csrc/emugemm2_planes.cu).
 TYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 # The plane GEMM's K tile (csrc/emugemm2_planes.cu), to which planes are
 # padded, and its output tile, which sizes its park; PLANE_NARROW_N is the
@@ -70,10 +68,12 @@ _INT_P = ctypes.POINTER(ctypes.c_int)
 
 @dataclasses.dataclass
 class LaunchCounts:
-    """Launches of the fused kernel in each form and of the plane route's
-    kernels (encodes, plane GEMMs), calls of the prepared form (each an
-    encode and a plane GEMM), and calls of the plain versions on CUDA
-    tensors (which the model paths must never make)."""
+    """Calls of the float-rhs form's front door, 2-D and batched (each
+    two encodes and one plane GEMM), and of the prepared form (each an
+    encode and a plane GEMM); launches of the residue kernel and of the
+    plane route's kernels (encodes, plane GEMMs), whoever calls them; and
+    calls of the plain versions on CUDA tensors (which the model paths
+    must never make)."""
     launches_2d: int = 0
     launches_batched: int = 0
     launches_residues: int = 0
@@ -179,16 +179,6 @@ def _crt_args(moduli: tuple[int, ...]):
 
 
 @lru_cache(maxsize=None)
-def _bind(lib: ctypes.CDLL):
-    fn = lib.emugemm2
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                   + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 4
-                   + [_INT_P] * 2 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@lru_cache(maxsize=None)
 def _bind_residues(lib: ctypes.CDLL):
     fn = lib.emugemm2_residues
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
@@ -212,7 +202,7 @@ def _bind_encode(lib: ctypes.CDLL):
 def _bind_planes(lib: ctypes.CDLL):
     fn = lib.emugemm2_planes
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                   + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 6
                    + [_INT_P] * 2 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -266,8 +256,9 @@ def launch_planes(a_planes, b_planes, mu, nu, moduli, out, epilogue=True,
     """Launch the plane GEMM on planes (p, T, [Bt,] M, Kp) and
     (p, T, [Bt,] N, Kp) (T = 3: the 3M products, into a complex ``out``)
     with scales mu ([Bt,] M, 1) and nu ([Bt,] 1, N), both float64 or both
-    float32 / bf16 (which the kernel reads as float32: a power of two
-    widens exactly), into ``out`` ([Bt,] M, N); ``epilogue=False`` stops after the mainloop, which leaves
+    float32 / bf16 (which the kernel reads in place and widens to float32:
+    a power of two widens exactly), into ``out`` ([Bt,] M, N);
+    ``epilogue=False`` stops after the mainloop, which leaves
     ``out`` unwritten (for timing the two apart); ``tile_n`` sets the tile
     width instead of :func:`plane_tile_n` (for timing the widths apart)."""
     from repro_torch.kernels import build
@@ -281,8 +272,11 @@ def launch_planes(a_planes, b_planes, mu, nu, moduli, out, epilogue=True,
                        * PLANE_TILE[0] * tile_n, dtype=torch.uint8,
                        device=a_planes.device)
     f64 = mu.dtype == torch.float64
-    mu, nu = (x.to(torch.float64 if f64 else torch.float32).contiguous()
+    kept = (torch.float64,) if f64 else (torch.float32, torch.bfloat16)
+    mu, nu = ((x if x.dtype in kept else x.to(kept[0])).contiguous()
               for x in (mu, nu))
+    scale_bf16 = int(mu.dtype == torch.bfloat16) | 2 * int(
+        nu.dtype == torch.bfloat16)
     part = torch.view_as_real(out) if out.is_complex() else out
     mods, inv = _crt_args(moduli)
     rc = _bind_planes(build.load("emugemm2_planes"))(
@@ -290,7 +284,7 @@ def launch_planes(a_planes, b_planes, mu, nu, moduli, out, epilogue=True,
         nu.data_ptr(), part.data_ptr(), park.data_ptr(), batch, m, n, kp,
         _batch_stride(mu), _batch_stride(nu),
         part.stride(0) if lead else 0, tile_n, int(phases == 3), int(f64),
-        TYPE_CODE[part.dtype], p, mods, inv, int(epilogue),
+        scale_bf16, TYPE_CODE[part.dtype], p, mods, inv, int(epilogue),
         torch.cuda.current_stream(a_planes.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"emugemm2 plane GEMM failed (code {rc}) for "
@@ -397,37 +391,10 @@ def _check(a, b, mu, nu, moduli, out_dtype, b_type=None):
     check_moduli(moduli)
 
 
-def _launch(a3, b3, mu3, nu3, moduli, out_dtype):
-    from repro_torch.kernels import build
-    batch, m, k = a3.shape
-    n = b3.shape[-1]
-    if b3.shape[:2] != (batch, k) or mu3.shape != (batch, m, 1) \
-            or nu3.shape != (batch, 1, n):
-        raise ValueError(f"emugemm2: shapes {tuple(a3.shape)} @ "
-                         f"{tuple(b3.shape)}, mu {tuple(mu3.shape)}, "
-                         f"nu {tuple(nu3.shape)}")
-    mu3, nu3 = mu3.contiguous(), nu3.contiguous()
-    out = torch.empty((batch, m, n), dtype=out_dtype, device=a3.device)
-    if out.numel() == 0 or k == 0:
-        return out.zero_()
-    fn = _bind(build.load("emugemm2"))
-    mods, inv = _crt_args(moduli)
-    stream = torch.cuda.current_stream(a3.device).cuda_stream
-    rc = fn(a3.data_ptr(), b3.data_ptr(), mu3.data_ptr(), nu3.data_ptr(),
-            out.data_ptr(), batch, m, n, k,
-            a3.stride(0), a3.stride(1), a3.stride(2),
-            b3.stride(0), b3.stride(1), b3.stride(2),
-            TYPE_CODE[a3.dtype], TYPE_CODE[b3.dtype], TYPE_CODE[out_dtype],
-            len(moduli), mods, inv, stream)
-    if rc != 0:
-        raise RuntimeError(f"emugemm2 launch failed (code {rc}) for "
-                           f"{(batch, m, k, n)} moduli={moduli}")
-    return out
-
-
-def _dgemm(a, b, mu, nu, moduli, out_dtype):
-    """The plane route of a float64 ([Bt,] M, K) @ ([Bt,] K, N): encode A
-    and B^T, then the plane GEMM."""
+def _planes(a, b, mu, nu, moduli, out_dtype):
+    """The plane route of ([Bt,] M, K) @ ([Bt,] K, N): encode A and B^T
+    (B^T and a transposed A are read through their strides), then the
+    plane GEMM."""
     *lead, m, k = a.shape
     n = b.shape[-1]
     if (b.shape != (*lead, k, n) or mu.shape != (*lead, m, 1)
@@ -449,26 +416,22 @@ def fused_matmul_scheme2(a: torch.Tensor, b: torch.Tensor, mu: torch.Tensor,
     """(M, K) @ (K, N) with scales (M, 1) / (1, N) -> (M, N), or the
     strided-batched (B, M, K) @ (B, K, N) -> (B, M, N) form.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (float64 operands, 2-D or batched: the plane route) or raise.
+    CPU tensors take the plain version; CUDA tensors launch the plane
+    route (two encodes and one plane GEMM) or raise.
     """
     moduli = tuple(int(m) for m in moduli)
     if a.device.type == "cpu":
         return fused_matmul_scheme2_plain(a, b, mu, nu, moduli, out_dtype)
     _check(a, b, mu, nu, moduli, out_dtype)
-    if a.dim() == b.dim() and a.dim() in (2, 3) and a.dtype == torch.float64:
-        return _dgemm(a, b, mu, nu, moduli, out_dtype)
-    if a.dim() == 2 and b.dim() == 2:
-        out = _launch(a[None], b[None], mu[None], nu[None], moduli,
-                      out_dtype)[0]
+    if a.dim() != b.dim() or a.dim() not in (2, 3):
+        raise ValueError(f"emugemm2: operands must both be 2-D or both 3-D, "
+                         f"got {tuple(a.shape)} @ {tuple(b.shape)}")
+    out = _planes(a, b, mu, nu, moduli, out_dtype)
+    if a.dim() == 2:
         COUNTS.launches_2d += 1
-        return out
-    if a.dim() == 3 and b.dim() == 3:
-        out = _launch(a, b, mu, nu, moduli, out_dtype)
+    else:
         COUNTS.launches_batched += 1
-        return out
-    raise ValueError(f"emugemm2: operands must both be 2-D or both 3-D, got "
-                     f"{tuple(a.shape)} @ {tuple(b.shape)}")
+    return out
 
 
 def fused_matmul_scheme2_prepared(a: torch.Tensor, b_planes: torch.Tensor,

@@ -2,12 +2,12 @@
 encode and the plane GEMM of the 2-D and mixed routes; its batched and
 interleaved launch forms), the decomposition (K2, K2r, K11), the int8 GEMM (K9), fused
 attention (K10: the bf16 wgmma kernel, the float32 3xTF32 wgmma kernel
-and its pre-pass, the float32 FFMA kernel at D = 256), EmuGEMM-II in its
-three fused launch forms (K5g with a float rhs, K6, K5; float32 and
-bfloat16), the plane route of DGEMM and ZGEMM, 2-D and batched (the
-encode kernels and the plane GEMM: float64 K5g and K6, K7g), the plane
-route of the prepared form (K5g with a residue rhs: float32, bfloat16 and
-float64) and the complex residue kernel K7 against their plain versions,
+and its pre-pass, the float32 FFMA kernel at D = 256), EmuGEMM-II's
+residue kernel (K5), its plane route (the encode kernels and the plane
+GEMM) for every product of float operands, 2-D and batched (K5g and K6
+with a float rhs: float32, bfloat16 in any pairing and float64; K7g), and
+for the prepared form (K5g with a residue rhs: float32, bfloat16 and
+float64), and the complex residue kernel K7 against their plain versions,
 bit for bit (attention within its bars), the dispatcher's routing of
 CUDA tensors (complex 4M included), and train steps that launch them
 (a hoisted microbatch step among them).
@@ -200,8 +200,9 @@ def test_cached_train_step_launches_the_prepared_kernels(cuda_device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("p", [4, 6, 8, 16])
 def test_scheme2_kernel_bit_identical_to_plain_on_card(cuda_device, dtype, p):
-    """K5g (2-D), K6 (batched, plain strides and transposed views) and K5
-    (residues) against their plain versions."""
+    """K5g (2-D), K6 (batched, plain strides and transposed views), each
+    two encodes and one plane GEMM, and K5 (residues) against their plain
+    versions."""
     g = torch.Generator(device=cuda_device).manual_seed(p)
     moduli = default_moduli(p)
     for (m, k, n, batch, trans) in [(100, 200, 77, None, False),
@@ -215,7 +216,10 @@ def test_scheme2_kernel_bit_identical_to_plain_on_card(cuda_device, dtype, p):
              else torch.randn(lead + (k, n), generator=g, device=cuda_device))
         a, b = a.to(dtype), b.to(dtype)
         mu, nu = scheme2.scales(a, b, moduli)
+        ozaki2.COUNTS.reset()
         out = ozaki2.fused_matmul_scheme2(a, b, mu, nu, moduli, dtype)
+        assert (ozaki2.COUNTS.launches_encode,
+                ozaki2.COUNTS.launches_planes) == (2, 1)
         ref = ozaki2.fused_matmul_scheme2_plain(a, b, mu, nu, moduli, dtype)
         torch.cuda.synchronize()
         assert torch.equal(out, ref), (m, k, n, batch, trans)
@@ -238,6 +242,8 @@ def test_scheme2_routes_agree_and_refuse_on_card(cuda_device):
     via_residues = ops.fused_scheme2_matmul(a, b, "ozaki2-m6")
     assert torch.equal(fused, via_residues)
     assert ozaki2.COUNTS.launches_2d == 1
+    assert (ozaki2.COUNTS.launches_encode, ozaki2.COUNTS.launches_planes) == (
+        2, 1)
     assert ozaki2.COUNTS.launches_residues == 1
     assert ozaki2.COUNTS.plain_cuda_calls == 0
     # float64 operands come in pairs, and never with a bf16 output.
@@ -263,6 +269,8 @@ def test_emu_train_step_launches_scheme2(cuda_device):
     _, metrics = step(state, batch)
     assert torch.isfinite(metrics["loss"])
     assert ozaki2.COUNTS.launches_batched > 0
+    assert ozaki2.COUNTS.launches_planes == ozaki2.COUNTS.launches_batched
+    assert ozaki2.COUNTS.launches_encode == 2 * ozaki2.COUNTS.launches_batched
     assert ozaki1.COUNTS.launches_mixed > 0
     assert ozaki2.COUNTS.plain_cuda_calls == 0
     assert ozaki1.COUNTS.plain_cuda_calls == 0
@@ -284,9 +292,8 @@ def _eq19(g, shape, dtype, dev):
 @pytest.mark.parametrize("p", [8, 12, 16])
 def test_scheme2_float64_bit_identical_to_plain_on_card(cuda_device, p):
     """EmuGEMM-II in float64: K5g (2-D; float64 out, float32 out, and
-    float32 operands to a float64 out), K6 (batched, transposed views;
-    float64 operands on the plane route, float32 operands to a float64
-    out on the fused kernel) and the residue route of
+    float32 operands to a float64 out), K6 (batched, transposed views),
+    all on the plane route, and the residue route of
     ops.fused_scheme2_matmul."""
     g = torch.Generator(device=cuda_device).manual_seed(100 + p)
     moduli = default_moduli(p)
@@ -315,7 +322,7 @@ def test_scheme2_float64_bit_identical_to_plain_on_card(cuda_device, p):
     assert fused.dtype == f64 and torch.equal(fused, routed)
     assert (ozaki2.COUNTS.launches_encode, ozaki2.COUNTS.launches_planes,
             ozaki2.COUNTS.launches_2d, ozaki2.COUNTS.launches_residues,
-            ozaki2.COUNTS.plain_cuda_calls) == (2, 1, 0, 1, 0)
+            ozaki2.COUNTS.plain_cuda_calls) == (2, 1, 1, 1, 0)
 
 
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
@@ -473,10 +480,10 @@ def test_batched_plane_routes_bit_identical_to_plain_on_card(cuda_device, p):
 
 
 def test_float64_2d_takes_the_plane_route_and_batches_do_not(cuda_device):
-    """A float64 2-D call launches two encodes and one plane GEMM and not
-    the fused kernel; so does a float64 batch (the batch is the plane
-    route's batch coordinate), while a batch of float32 operands with a
-    float64 output still launches the fused kernel's batched form."""
+    """Every float-rhs call is a front-door call of its form and launches
+    two encodes and one plane GEMM: a float64 2-D call, a float64 batch
+    (the batch is the plane route's batch coordinate) and a batch of
+    float32 operands with a float64 output."""
     g = torch.Generator(device=cuda_device).manual_seed(600)
     moduli = default_moduli(12)
     a = _eq19(g, (100, 200), torch.float64, cuda_device)
@@ -486,13 +493,13 @@ def test_float64_2d_takes_the_plane_route_and_batches_do_not(cuda_device):
     ozaki2.fused_matmul_scheme2(a, b, mu, nu, moduli, torch.float64)
     assert (ozaki2.COUNTS.launches_encode, ozaki2.COUNTS.launches_planes,
             ozaki2.COUNTS.launches_2d, ozaki2.COUNTS.launches_batched) == (
-                2, 1, 0, 0)
+                2, 1, 1, 0)
     ozaki2.COUNTS.reset()
     out = ozaki2.fused_matmul_scheme2(a[None], b[None], mu[None], nu[None],
                                       moduli, torch.float64)
     assert (ozaki2.COUNTS.launches_encode, ozaki2.COUNTS.launches_planes,
             ozaki2.COUNTS.launches_2d, ozaki2.COUNTS.launches_batched) == (
-                2, 1, 0, 0)
+                2, 1, 0, 1)
     assert torch.equal(out[0], ozaki2.fused_matmul_scheme2(
         a, b, mu, nu, moduli, torch.float64))
     x, y = a.float()[None], b.float()[None]
@@ -500,8 +507,63 @@ def test_float64_2d_takes_the_plane_route_and_batches_do_not(cuda_device):
     ozaki2.COUNTS.reset()
     ozaki2.fused_matmul_scheme2(x, y, xmu, ynu, moduli, torch.float64)
     assert (ozaki2.COUNTS.launches_encode, ozaki2.COUNTS.launches_planes,
-            ozaki2.COUNTS.launches_batched) == (0, 0, 1)
+            ozaki2.COUNTS.launches_batched) == (2, 1, 1)
     assert ozaki2.COUNTS.plain_cuda_calls == 0
+
+
+@pytest.mark.parametrize("p", [1, 4, 6, 16])
+def test_scheme2_float_plane_route_on_card(cuda_device, p):
+    """K5g and K6 on float32 / bf16 operands on the plane route against
+    the plain versions, bit for bit: every operand pairing and output
+    type on dB's shape (A = X^T read through its strides, K = 512),
+    ragged and K <= 8 shapes, a batch read with both operands transposed
+    (attention's backward) and a batch whose rhs has batch stride 0 (an
+    expanded view); each encode alone against its plain version on a
+    transposed operand; each call two encodes and one plane GEMM."""
+    g = torch.Generator(device=cuda_device).manual_seed(700 + p)
+    moduli = default_moduli(p)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def draw(shape, dtype, transposed=False):
+        x = _eq19(g, shape[:-2] + shape[-2:][::-1] if transposed else shape,
+                  f32, cuda_device).to(dtype)
+        return x.transpose(-1, -2) if transposed else x
+
+    cases = [((), 300, 512, 520, True, False), ((), 37, 70, 29, True, True),
+             ((), 9, 5, 11, False, False), ((6,), 40, 128, 72, True, True)]
+    for lead, m, k, n, ta, tb in cases:
+        for ta_t, tb_t in ((f32, f32), (bf, bf), (f32, bf), (bf, f32)):
+            a = draw(lead + (m, k), ta_t, ta)
+            b = draw(lead + (k, n), tb_t, tb)
+            mu, nu = scheme2.scales(a, b, moduli)
+            for x, s in ((a, mu), (b.transpose(-1, -2), nu.transpose(-1, -2))):
+                out = ozaki2.encode_planes(x, s, moduli)
+                torch.cuda.synchronize()
+                assert torch.equal(out, ozaki2.encode_planes_plain(
+                    x, s, moduli)), (tuple(x.shape), x.stride(), x.dtype)
+            for out_t in (f32, bf, torch.float64):
+                ozaki2.COUNTS.reset()
+                out = ozaki2.fused_matmul_scheme2(a, b, mu, nu, moduli, out_t)
+                c = ozaki2.COUNTS
+                assert (c.launches_2d + c.launches_batched, c.launches_encode,
+                        c.launches_planes) == (1, 2, 1)
+                ref = ozaki2.fused_matmul_scheme2_plain(a, b, mu, nu, moduli,
+                                                        out_t)
+                torch.cuda.synchronize()
+                assert out.dtype == out_t
+                assert torch.equal(out, ref), (lead, m, k, n, ta_t, tb_t,
+                                               out_t)
+    a = draw((4, 16, 128), bf)
+    b = draw((1, 128, 64), bf).expand(4, 128, 64)
+    mu, nu = scheme2.scales(a, b, moduli)
+    ozaki2.COUNTS.reset()
+    out = ozaki2.fused_matmul_scheme2(a, b, mu, nu, moduli, bf)
+    c = ozaki2.COUNTS
+    assert (c.launches_batched, c.launches_encode, c.launches_planes,
+            c.plain_cuda_calls) == (1, 2, 1, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ozaki2.fused_matmul_scheme2_plain(
+        a, b, mu, nu, moduli, bf))
 
 
 def test_complex_routes_on_card(cuda_device):
@@ -664,13 +726,17 @@ def test_hoisted_step_launches_the_prepared_form(cuda_device):
     layers = arch.model.n_layers
     # 7 dense weights a layer: forward, recompute and dA per microbatch;
     # the tied head: forward and dA per microbatch.
-    assert ozaki2.COUNTS.launches_prepared == 2 * (21 * layers + 2)
-    assert ozaki2.COUNTS.launches_planes == ozaki2.COUNTS.launches_prepared
-    # An lhs encode per prepared call; a weight and its twin encoded once
-    # a step, the head once a microbatch.
-    assert ozaki2.COUNTS.launches_encode == (
-        ozaki2.COUNTS.launches_prepared + 2 * (7 * layers + 2))
-    assert ozaki2.COUNTS.launches_2d == 2 * (7 * layers + 1)   # dB
+    c = ozaki2.COUNTS
+    assert c.launches_prepared == 2 * (21 * layers + 2)
+    assert c.launches_2d == 2 * (7 * layers + 1)   # dB
+    assert c.launches_batched > 0                  # attention
+    # A plane GEMM a call; an lhs encode per prepared call, two per
+    # float-rhs call; a weight and its twin encoded once a step, the head
+    # once a microbatch.
+    float_rhs = c.launches_2d + c.launches_batched
+    assert c.launches_planes == c.launches_prepared + float_rhs
+    assert c.launches_encode == (c.launches_prepared + 2 * float_rhs
+                                 + 2 * (7 * layers + 2))
     assert ozaki2.COUNTS.plain_cuda_calls == 0
 
 
