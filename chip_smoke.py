@@ -5,7 +5,7 @@
 Drives repro_torch only (no jax, nothing of the reference package) on the
 card, with no CPU fallback, in nineteen phases:
 
-1. build: nvcc compiles the port's CUDA kernels from this checkout (eight
+1. build: nvcc compiles the port's CUDA kernels from this checkout (six
    sources), one process per source, in parallel;
 2. kernel: every kernel of the serving path is held against its plain
    version bit for bit at the path's shapes (float32 and bfloat16,
@@ -48,7 +48,9 @@ card, with no CPU fallback, in nineteen phases:
    resumes, and ends in the state of an uninterrupted run, bit for bit;
 10. Scheme-II kernels: EmuGEMM-II's float-rhs form, 2-D and batched, on
     the plane route (two encodes and one plane GEMM a call) and its
-    residue form are held against their plain versions bit for bit at
+    residue form (K5: a relayout of each operand a tensor map cannot read
+    in place and one residue plane GEMM, all in emugemm2_planes.cu) are
+    held against their plain versions bit for bit at
     the shapes of olmo-1b-emu's attention scores (serve; train at 8 x 128
     and 2 x 2048 tokens, forward and both backward transposes) and on a
     ragged shape, float32 and bfloat16, m in {4, 6, 8, 16}; at dB's
@@ -80,21 +82,26 @@ card, with no CPU fallback, in nineteen phases:
 15. scientific GEMMs: the plane route of DGEMM and ZGEMM (the encode
     kernels and the TMA-fed wgmma plane GEMM, real and 3M, 2-D and with a
     batch coordinate, float32 operands to a float64 output among them)
-    and the complex residue kernel K7 are held against
-    their plain versions bit for bit (complex64 and complex128, m in {4,
-    8, 12, 16}; float64, m in {8, 12, 16}; ragged, transposed, complex @
-    real, rows of tiny magnitude, 1024^3, K = 131200 across the plane
-    GEMM's in-kernel reduction); the front doors (``api.einsum`` on
-    complex128, float64, a float64 batch and a complex128 batch, the
-    residue routes of ``ops``, complex64 under ozaki1-p4) run with the
-    launch counts read around them, and the float64 batch (8 x 512^3,
-    m = 12) is timed beside cuBLAS's batched DGEMM with its encode /
-    mainloop / CRT split; then DGEMM and ZGEMM at M = N = K = 4096 (m in
-    {8, 12, 16}) and 8192 (m = 16) are timed beside their bounds, the
-    plain versions, torch._int_mm and cuBLAS, with the encode, the
-    mainloop (and its int8 rate) and the CRT epilogue timed apart, and the
-    effective bits of the route and of cuBLAS against a longdouble
-    product of 64 sampled rows on the host;
+    and the residue forms K7 and K5 (the relayout and the residue plane
+    GEMM) are held against their plain versions bit for bit (complex64
+    and complex128, m in {4, 8, 12, 16}; float64, m in {8, 12, 16};
+    ragged, transposed, complex @ real, rows of tiny magnitude, 1024^3, K
+    = 131200 across the plane GEMM's in-kernel reduction; K5 and K7 on
+    full-range residues at M, N in {1, 17, 129, 300}, K in {1, 15, 16,
+    127, 129, 4096}, moduli from 3 to 256, contiguous, B^T read in place,
+    strided and offset, and an int32 sum that wraps); the front doors
+    (``api.einsum`` on complex128, float64, a float64 batch and a
+    complex128 batch, the residue routes of ``ops``, complex64 under
+    ozaki1-p4) run with the launch counts read around them, and the
+    float64 batch (8 x 512^3, m = 12) is timed beside cuBLAS's batched
+    DGEMM with its encode / mainloop / CRT split; then DGEMM and ZGEMM at
+    M = N = K = 4096 (m in {8, 12, 16}) and 8192 (m = 16) are timed
+    beside their bounds, the plain versions, torch._int_mm and cuBLAS,
+    with the encode, the mainloop (and its int8 rate) and the CRT
+    epilogue timed apart, and the effective bits of the route and of
+    cuBLAS against a longdouble product of 64 sampled rows on the host;
+    K5 and K7 at 4096^3, m = 16, with their relayout / mainloop /
+    epilogue split, and the ops routes that drive them;
 16. prepared kernel: EmuGEMM-II's prepared form on the plane route (a
     float lhs encoded once, a plane GEMM against the weight's (p, N, Kp)
     int8 planes, which one encode launch wrote when it was prepared) is
@@ -203,7 +210,6 @@ L2_BYTES = 50 * 2 ** 20
 SOURCE = "src/repro_torch/kernels/csrc/emugemm1.cu"
 SOURCE_S1_PLANES = "src/repro_torch/kernels/csrc/emugemm1_planes.cu"
 DECOMPOSE_SOURCE = "src/repro_torch/kernels/csrc/decompose.cu"
-SOURCE2 = "src/repro_torch/kernels/csrc/emugemm2.cu"
 EMU = "olmo-1b-emu"
 M_MAIN = 6                       # olmo-1b-emu's attn_qk is ozaki2-m6
 M_CHECK = (4, 6, 8, 16)
@@ -221,7 +227,6 @@ P_BWD = 3
 # paper's users run (M = N = K), bit checks at m in SCI_M_CHECK (complex)
 # and F64_M_CHECK (float64), the front doors at SCI_M_FRONT, effective bits
 # on EVAL_ROWS sampled rows, bit identity at 8192 on the first SCI_ROWS.
-SOURCE3M = "src/repro_torch/kernels/csrc/emugemm3m.cu"
 SOURCE_PLANES = "src/repro_torch/kernels/csrc/emugemm2_planes.cu"
 SCI_LONG_K = 131200               # past the plane GEMM's in-kernel reduction
 SCI_SIZES = ((4096, (8, 12, 16)), (8192, (16,)))
@@ -231,6 +236,13 @@ SCI_M_FRONT = 12
 SCI_BATCHED = (8, 512, 512)
 SCI_BIG = SCI_4M_N = 1024
 EVAL_ROWS, SCI_ROWS = 64, 256
+# The residue forms' checks (K5, K7) on full-range int8 residues: every
+# (M, N, K) of these, two moduli sets (256 and moduli below 16 among
+# them), four layouts; and an int32 sum that wraps.
+RES_MN = (1, 17, 129, 300)
+RES_K = (1, 15, 16, 127, 129, 4096)
+RES_MODULI = ((3, 5, 7, 11, 13, 256), default_moduli(16))
+RES_WRAP = (128, 131200, 128, (255,))
 # Training under Scheme II with the once-per-step weight hoist: TOKENS a
 # step in HOIST_MICRO microbatches, the prepared form checked at
 # HOIST_M_CHECK moduli.
@@ -723,8 +735,8 @@ def kernel_label(name: str) -> str:
 def device_summary(prof, prof_wall_ms: float, top_n: int = 4) -> dict:
     """Device-busy time (the union of kernel intervals), idle share of the
     profiled wall time, the device time of the top kernels by name and
-    that of EmuGEMM-II (its plane route's encode and plane GEMM kernels,
-    and its residue kernel)."""
+    that of EmuGEMM-II (its plane route's kernels: the encode, the plane
+    GEMM, and the residue forms' relayout and residue plane GEMM)."""
     from torch.autograd import DeviceType
     spans, by_name = [], {}
     for e in prof.events():
@@ -746,8 +758,10 @@ def device_summary(prof, prof_wall_ms: float, top_n: int = 4) -> dict:
             "idle_share": (1 - busy_ms / prof_wall_ms) if spans else None,
             "top_device_ms": dict(top),
             "emugemm2_ms": sum(v for k, v in by_name.items()
-                               if k.startswith(("emugemm2", "planes_kernel",
-                                                "encode_kernel")))}
+                               if k.startswith(("planes_kernel",
+                                                "encode_kernel",
+                                                "residues_kernel",
+                                                "relayout_kernel")))}
 
 
 @contextlib.contextmanager
@@ -1682,9 +1696,11 @@ def scheme2_library_phase(dev, mcfg):
     """The library routes of the 2-D and residue forms under ozaki2-m6 on
     olmo-1b's dense shapes (bf16): ``dispatch.emulated_matmul`` (the 2-D
     form on the plane route) and ``ops.fused_scheme2_matmul`` (the residue
-    form) agree bit for bit; their launches are counted around that run.
-    Then each form is timed beside its bound, the 2-D form with its split
-    (encodes; plane GEMM: mainloop and CRT)."""
+    form: a relayout of B^T and the residue plane GEMM) agree bit for bit;
+    their launches are counted around that run. Then each form is timed
+    beside its bound with its split (the 2-D form: encodes; plane GEMM:
+    mainloop and CRT; the residue form: relayout; residue GEMM: mainloop
+    and epilogue)."""
     gen = torch.Generator(device=dev).manual_seed(4)
     bf = torch.bfloat16
     spec = f"ozaki2-m{M_MAIN}"
@@ -1705,14 +1721,17 @@ def scheme2_library_phase(dev, mcfg):
     log(f"[scheme2-library] {spec} on {len(shapes)} dense shapes: the 2-D "
         f"and residue routes agree bit for bit; launches 2-D "
         f"{counts.launches_2d} (encodes {counts.launches_encode}, plane GEMMs "
-        f"{counts.launches_planes}), residues {counts.launches_residues}, "
-        f"plain versions on CUDA {counts.plain_cuda_calls}")
+        f"{counts.launches_planes}), residues {counts.launches_residues} "
+        f"(relayouts {counts.launches_relayout}), plain versions on CUDA "
+        f"{counts.plain_cuda_calls}")
     n_ = len(shapes)
     if (counts.launches_2d, counts.launches_encode, counts.launches_planes,
-            counts.launches_residues) != (n_, 2 * n_, n_, n_):
+            counts.launches_residues, counts.launches_relayout) != (
+                n_, 2 * n_, n_, n_, n_):
         raise AssertionError("the library routes did not launch each form "
                              "once per shape (2 encodes + 1 plane GEMM a 2-D "
-                             "call)")
+                             "call, a relayout of B^T + 1 residue GEMM a "
+                             "residue call)")
     if counts.plain_cuda_calls:
         raise AssertionError("the library routes ran a plain version on CUDA")
     totals = {f: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
@@ -1720,6 +1739,9 @@ def scheme2_library_phase(dev, mcfg):
               for f in ("2d", "residues")}
     totals["2d"].update(encode_ms=0.0, planes_ms=0.0, mainloop_ms=0.0,
                         ops=0.0)
+    totals["residues"].update(relayout_ms=0.0, residue_gemm_ms=0.0,
+                              mainloop_ms=0.0, epilogue_ms=0.0,
+                              relayout_bound_ms=0.0, relayouts=0, ops=0.0)
     for (m, k, n), (a, b) in zip(shapes, xs):
         mu, nu = scheme2.scales(a, b, moduli)
         a_res = scheme2.balanced_residues(torch.trunc(a * mu), moduli)
@@ -1750,6 +1772,18 @@ def scheme2_library_phase(dev, mcfg):
                 extra = (f" (encodes {enc:.4f}, plane GEMM {gemm:.4f}: "
                          f"mainloop {main:.4f} at {ops_ / main / 1e9:.1f} "
                          f"int8 TOPS, CRT {gemm - main:.4f})")
+            else:
+                sp = residue_split(a_res, b_res, moduli, 10)
+                for key in ("relayout_ms", "residue_gemm_ms", "mainloop_ms",
+                            "epilogue_ms", "relayout_bound_ms", "relayouts"):
+                    totals[form][key] += sp[key]
+                totals[form]["ops"] += M_MAIN * 2 * m * n * k
+                extra = (f" (relayouts {sp['relayouts']}: "
+                         f"{sp['relayout_ms']:.4f}; residue GEMM "
+                         f"{sp['residue_gemm_ms']:.4f}: mainloop "
+                         f"{sp['mainloop_ms']:.4f} at "
+                         f"{sp['mainloop_tops']:.1f} int8 TOPS, epilogue "
+                         f"{sp['epilogue_ms']:.4f})")
             log(f"[scheme2-library] {form} M={m} K={k} N={n}: kernel "
                 f"{ms:.4f} ms{extra}, plain {plain:.4f} ms, bound {bms:.4f} "
                 f"ms ({by}), yardstick torch._int_mm x{M_MAIN} {yard:.4f} ms")
@@ -2127,6 +2161,128 @@ def threem_residue_bound(m, k, n, p):
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
+def in_place(x) -> bool:
+    """Does the residue plane GEMM read residues (p, [3,] R, K) in place
+    (else the route lays them out first)?"""
+    return ozaki2.tma_strides(x.shape, x.stride(), x.data_ptr()) is not None
+
+
+def relayout_bound(x):
+    """Least time of laying out residues (p, [3,] R, K): read once, the
+    K-padded planes written once."""
+    *_, k = x.shape
+    moved = x.numel() // k * (k + ozaki2.plane_k(k))
+    return 1e3 * moved / HBM_BYTES_PER_S, "bytes"
+
+
+def relayout_library(x):
+    """One PyTorch call that gives the relayout's planes of residues x:
+    ``F.pad`` past K (a new contiguous tensor), or where K is already a
+    whole number of K tiles (``F.pad`` by 0 keeps the strides) a
+    contiguous copy."""
+    pad = ozaki2.plane_k(x.shape[-1]) - x.shape[-1]
+    return torch.nn.functional.pad(x, (0, pad)) if pad else x.contiguous()
+
+
+def check_relayout(what, x, max_err):
+    """The relayout kernel against its plain version on residues x, bit
+    for bit, the zero residues past K included."""
+    return check_equal(f"relayout {what} {tuple(x.shape)} {x.stride()}",
+                       ozaki2.relayout_planes(x),
+                       ozaki2.relayout_planes_plain(x), max_err, "relayout")
+
+
+def residue_split(a, b, moduli, iters):
+    """The residue route's kernels timed apart on its operands (K5: (p, M,
+    K) @ (p, K, N); K7: phase stacks): the relayouts of the operands a
+    tensor map cannot read in place, the residue plane GEMM, and its
+    mainloop alone (the epilogue off), ms; the relayouts' count and
+    bound."""
+    gemm = ozaki3m.residue_planes_3m if a.dim() == 4 else ozaki2.residue_planes
+    b_t = b.transpose(-1, -2)
+    relaid = [x for x in (a, b_t) if not in_place(x)]
+
+    def prep():
+        return ozaki2._k_major(a), ozaki2._k_major(b_t)
+    relayout_ms = time_ms(prep, iters) if relaid else 0.0
+    ka, kb = prep()
+    gemm_ms = time_ms(lambda: gemm(ka, kb, moduli), iters)
+    *lead, m, k = a.shape
+    # The mainloop alone: the kernel launched with its epilogue off.
+    if a.dim() == 3:
+        ka, kb = ka[:, None], kb[:, None]
+    out_re = torch.empty((a.shape[0], m, b.shape[-1]), dtype=torch.int8,
+                         device=a.device)
+    out_im = torch.empty_like(out_re) if a.dim() == 4 else None
+    main_ms = time_ms(lambda: ozaki2.launch_residues(
+        ka, kb, tuple(moduli), out_re, out_im, epilogue=False), iters)
+    ops_ = math.prod(lead) * 2 * m * b.shape[-1] * k
+    return {"relayout_ms": relayout_ms, "residue_gemm_ms": gemm_ms,
+            "mainloop_ms": main_ms, "epilogue_ms": gemm_ms - main_ms,
+            "mainloop_tops": ops_ / main_ms / 1e9, "relayouts": len(relaid),
+            "relayout_bound_ms": sum(relayout_bound(x)[0] for x in relaid)}
+
+
+def residue_layouts(gen, dev, lead, m, k, n):
+    """(label, a, b): full-range int8 residues lead + (M, K) @ lead + (K,
+    N) in four layouts: contiguous; B as the transposed view of B^T's
+    residues; an A whose modulus (and phase) strides are not the
+    contiguous ones; an A whose base is one byte off."""
+    def res(*shape):
+        return torch.randint(-128, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+    a, b = res(*lead, m, k), res(*lead, k, n)
+    nl = len(lead)
+    a_perm = res(m, *lead, k).permute(*range(1, nl + 1), 0, nl + 1)
+    a_off = res(math.prod(lead) * m * k + 1)[1:].view(*lead, m, k)
+    return (("contiguous", a, b),
+            ("B^T view", a, res(*lead, n, k).transpose(-1, -2)),
+            ("strided A", a_perm, b), ("offset A", a_off, b))
+
+
+def residue_checks(dev, max_err):
+    """K5 and K7 on the residue route against their plain versions, bit
+    for bit, on full-range residues: every (M, N, K) of RES_MN x RES_MN x
+    RES_K with each RES_MODULI set, in the four layouts of
+    ``residue_layouts``, and the wrapping sum RES_WRAP; and in each case
+    the relayout kernel alone on A and on B^T. Returns the number of
+    cases and of the relayouts the routes launched."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    forms = (("K5", ozaki2.fused_residue_matmul,
+              ozaki2.fused_residue_matmul_plain, "residues"),
+             ("K7", ozaki3m.fused_3m_residue_matmul,
+              ozaki3m.fused_3m_residue_matmul_plain, "3m_residues"))
+    cases, relaid = 0, 0
+    for moduli in RES_MODULI:
+        p = len(moduli)
+        for m, n, k in ((m, n, k) for m in RES_MN for n in RES_MN
+                        for k in RES_K):
+            for form, run, plain, key in forms:
+                lead = (p, 3) if form == "K7" else (p,)
+                for lbl, a, b in residue_layouts(gen, dev, lead, m, k, n):
+                    before = ozaki2.COUNTS.launches_relayout
+                    out, ref = run(a, b, moduli), plain(a, b, moduli)
+                    relaid += ozaki2.COUNTS.launches_relayout - before
+                    if form == "K7":
+                        out, ref = torch.stack(out), torch.stack(ref)
+                    check_equal(f"{form} {lbl} {(m, k, n)} moduli {moduli}",
+                                out, ref, max_err, key)
+                    for x in (a, b.transpose(-1, -2)):
+                        check_relayout(f"{form} {lbl}", x, max_err)
+                    cases += 1
+    m, k, n, moduli = RES_WRAP
+    a = torch.full((1, m, k), -128, dtype=torch.int8, device=dev)
+    b = torch.full((1, k, n), -128, dtype=torch.int8, device=dev)
+    ref = ozaki2.fused_residue_matmul_plain(a, b, moduli)
+    mod = moduli[0]
+    if (ref == (k * 2 ** 14 + mod // 2) % mod - mod // 2).any():
+        raise AssertionError("the wrap case's sums do not wrap")
+    check_equal(f"K5 wrapping sums {(m, k, n)} moduli {moduli}",
+                ozaki2.fused_residue_matmul(a, b, moduli), ref, max_err,
+                "residues")
+    return cases + 1, relaid
+
+
 def extended_reference(a_rows, b, pool):
     """a_rows @ b in numpy longdouble on the host, in column chunks on a
     thread pool; returns a function that waits for the product."""
@@ -2167,7 +2323,8 @@ def scientific_kernel_checks(dev, gen, max_err):
     float64 at m in {8, 12, 16} (the 2-D plane route and the batched
     form, float64 and float32 outputs, float32 operands to a float64
     output, and the residue route) and at K = SCI_LONG_K, m = 16. One row
-    a case, with its maximum absolute difference, which must be 0."""
+    a case, with its maximum absolute difference, which must be 0; then
+    K5 and K7 on the residue route (``residue_checks``), one line."""
     rows = []
     # The plane route's own cases draw from a generator of their own, so
     # that the timed inputs are those of earlier runs.
@@ -2230,6 +2387,12 @@ def scientific_kernel_checks(dev, gen, max_err):
             ref = ozaki3m.fused_3m_residue_matmul_plain(a3, b3, moduli)
             case(f"emugemm3m residues {(p, 3, m, k, n)} m={p}",
                  torch.stack(out), torch.stack(ref), "3m_residues")
+    n_res, relaid = residue_checks(dev, max_err)
+    log(f"[scientific] residue route: {n_res} K5 / K7 cases (M, N in "
+        f"{RES_MN}, K in {RES_K}, moduli {RES_MODULI}, 4 layouts; the "
+        f"wrapping sum {RES_WRAP[:3]}) bit-identical to the plain versions, "
+        f"{relaid} relayouts; the relayout alone on each case's A and B^T "
+        f"bit-identical to its plain version")
     f64 = torch.float64
     for p in F64_M_CHECK:
         moduli = default_moduli(p)
@@ -2276,7 +2439,8 @@ def scientific_main_path(dev, gen, za, zb, da, db):
     """The front doors a user calls, with every count zeroed just before
     and read just after: ZGEMM and DGEMM through ``api.einsum`` (the
     plane route: two encodes and one plane GEMM each, the DGEMM one 2-D
-    front-door call) and the residue routes (K7, K5 with a float64 CRT),
+    front-door call) and the residue routes (K7, K5 with a float64 CRT:
+    each a relayout of B^T and one residue plane GEMM),
     a float64 and a complex128 batched einsum (K6 and batched K7g: the
     batched plane route, two encodes and one plane GEMM each, the float64
     one a batched front-door call) and a complex64 GEMM under ozaki1-p4 (four
@@ -2317,6 +2481,7 @@ def scientific_main_path(dev, gen, za, zb, da, db):
               "emugemm2_planes": c2.launches_planes,
               "emugemm2_2d": c2.launches_2d,
               "emugemm2_residues": c2.launches_residues,
+              "emugemm2_relayout": c2.launches_relayout,
               "emugemm2_batched": c2.launches_batched,
               "emugemm1_2d": c1.launches_2d,
               "emugemm1_encode": c1.launches_encode,
@@ -2324,10 +2489,13 @@ def scientific_main_path(dev, gen, za, zb, da, db):
     plain = c1.plain_cuda_calls + c2.plain_cuda_calls + c3.plain_cuda_calls
     log(f"[scientific] main path launches {json.dumps(counts)}; plain "
         f"versions on CUDA {plain}")
+    # The residue routes: B's residues arrive N-contiguous (one relayout
+    # each, K5's and K7's), A's K-contiguous at K = 4096 (read in place).
     if counts != {"emugemm3m_encode": 4, "emugemm3m_planes": 2,
                   "emugemm3m_residues": 1, "emugemm2_encode": 4,
                   "emugemm2_planes": 2, "emugemm2_2d": 1,
-                  "emugemm2_residues": 1, "emugemm2_batched": 1,
+                  "emugemm2_residues": 1, "emugemm2_relayout": 2,
+                  "emugemm2_batched": 1,
                   "emugemm1_2d": 4, "emugemm1_encode": 8,
                   "emugemm1_planes": 4} or plain:
         raise AssertionError("the scientific front doors did not launch "
@@ -2461,7 +2629,8 @@ def scientific_phase(dev):
     each plane kernel is timed beside its plain version."""
     gen = torch.Generator(device=dev).manual_seed(14)
     max_err = dict.fromkeys(("encode", "encode_3m", "3m_2d", "3m_residues",
-                             "f64_2d", "f64_batched", "f64_residues"), 0.0)
+                             "residues", "relayout", "f64_2d", "f64_batched",
+                             "f64_residues"), 0.0)
     t0 = time.perf_counter()
     scientific_kernel_checks(dev, gen, max_err)
     inputs = {(n, kind): (eq19(gen, (n, n), dtype, dev),
@@ -2580,7 +2749,9 @@ def scientific_phase(dev):
                 if n != n0:
                     del inputs[n, kind]
             torch.cuda.empty_cache()
-        # The residue forms at the DGEMM / ZGEMM shape and moduli.
+        # The residue forms at the DGEMM / ZGEMM shape and moduli, with the
+        # route's split (relayout, residue GEMM: mainloop, epilogue), and
+        # the ops routes that drive them.
         p = SCI_SIZES[0][1][-1]
         moduli = default_moduli(p)
         res = {}
@@ -2597,12 +2768,42 @@ def scientific_phase(dev):
             ms = time_ms(lambda: run_k(a_r, b_r, moduli), 3)
             plain_ms = time_ms(lambda: run_p(a_r, b_r, moduli), 1)
             bms, by = bound(n0, n0, n0, p)
+            split = residue_split(a_r, b_r, moduli, 3)
+            b_t = b_r.transpose(-1, -2)
+            if not torch.equal(relayout_library(b_t),
+                               ozaki2.relayout_planes_plain(b_t)):
+                raise AssertionError("the relayout's library call differs "
+                                     "from its plain version")
             res[form] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                         "bound_by": by}
+                         "bound_by": by, **split,
+                         "relayout_max_abs_err": check_relayout(
+                             f"{form} B^T", b_t, max_err),
+                         "relayout_plain_ms": time_ms(
+                             lambda: ozaki2.relayout_planes_plain(b_t), 1),
+                         "relayout_library_ms": time_ms(
+                             lambda: relayout_library(b_t), 3)}
             log(f"[scientific] {form} p={p} {n0}^3 (int8 in and out): "
-                f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-                f"{bms:.4f} ms ({by})")
-            del a_r, b_r
+                f"route {ms:.3f} ms (relayouts {split['relayouts']}: "
+                f"{split['relayout_ms']:.3f}, bound "
+                f"{split['relayout_bound_ms']:.3f}; residue GEMM "
+                f"{split['residue_gemm_ms']:.3f}: mainloop "
+                f"{split['mainloop_ms']:.3f} at "
+                f"{split['mainloop_tops']:.1f} int8 TOPS, epilogue "
+                f"{split['epilogue_ms']:.3f}), plain {plain_ms:.3f} ms, "
+                f"bound {bms:.4f} ms ({by}); relayout of B^T alone "
+                f"{res[form]['relayout_plain_ms']:.3f} ms plain, "
+                f"{res[form]['relayout_library_ms']:.3f} ms library")
+            del a_r, b_r, b_t
+        spec = f"ozaki2-m{p}"
+        za, zb = inputs[n0, "zgemm"]
+        da, db = inputs[n0, "dgemm"]
+        res["ops_routes_ms"] = {
+            "fused_3m_matmul": time_ms(lambda: ops.fused_3m_matmul(
+                za, zb, spec), 3),
+            "fused_scheme2_matmul": time_ms(lambda: ops.fused_scheme2_matmul(
+                da, db, spec, out_dtype=torch.float64), 3)}
+        log(f"[scientific] ops routes {n0}^3 m={p}: "
+            f"{json.dumps(res['ops_routes_ms'])}")
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
     log("[scientific] table " + json.dumps(table))
@@ -3064,8 +3265,8 @@ def library_phase(dev, mcfg):
 def build_phase():
     """nvcc for each kernel source, all started together."""
     t0 = time.perf_counter()
-    names = ("emugemm1", "emugemm1_planes", "decompose", "emugemm2",
-             "emugemm2_planes", "emugemm3m", "matmul_int8", "flash_attn")
+    names = ("emugemm1", "emugemm1_planes", "decompose", "emugemm2_planes",
+             "matmul_int8", "flash_attn")
     with ThreadPoolExecutor(len(names)) as ex:
         for f in [ex.submit(build.build, n) for n in names]:
             f.result()
@@ -3274,14 +3475,24 @@ def main() -> int:
             "per": hoist_per + ": dB = X^T dC of every weight, X^T read "
                    "through its strides"}})
     t = lib_totals["residues"]
+
+    def residue_split_of(t):
+        return {k: t[k] for k in ("relayout_ms", "residue_gemm_ms",
+                                  "mainloop_ms", "epilogue_ms",
+                                  "relayout_bound_ms", "relayouts")}
+
     kernels.append({
-        "name": "emugemm2_residues", **common, "source": SOURCE2,
+        "name": "emugemm2_residues", **common, "source": SOURCE_PLANES,
         "replaces": "src/repro/kernels/ozaki2.py:52",
         "launches": lib_counts.launches_residues,
-        "max_abs_err": s2_err["residues"], "ms": t["ms"],
-        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": bound_by(t), "int_mm_yardstick_ms": t["yardstick_ms"],
-        "per": lib_per})
+        "launches_relayout": lib_counts.launches_relayout,
+        "max_abs_err": max(s2_err["residues"], sci_err["residues"]),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": bound_by(t), **residue_split_of(t),
+        "mainloop_tops": t["ops"] / t["mainloop_ms"] / 1e9,
+        "int_mm_yardstick_ms": t["yardstick_ms"],
+        "per": lib_per + "; the residue route: a relayout of B^T (A read "
+               "in place) + 1 residue plane GEMM a call"})
     t = s2_totals["mixed"]
 
     def k6(t):
@@ -3333,8 +3544,10 @@ def main() -> int:
     dgemm, zgemm = sci_t["dgemm", n0, p_sci], sci_t["zgemm", n0, p_sci]
     sci_per = (f"one {{}} {n0}^3 at m = {p_sci} (launches: the scientific "
                f"front doors at m = {SCI_M_FRONT})")
+    ops_ms = sci_res["ops_routes_ms"]
     f64_rows = {
         "emugemm2_residues": {**sci_res["residues"], "library_ms": None,
+                              "ops_route_ms": ops_ms["fused_scheme2_matmul"],
                               "max_abs_err": sci_err["f64_residues"],
                               "launches": sci_counts["emugemm2_residues"],
                               "per": sci_per.format(
@@ -3382,12 +3595,37 @@ def main() -> int:
                "(launches: the plane GEMM's on the scientific front doors, "
                "the DGEMM's and the float64 batch's)"})
     kernels.append({
-        "name": "emugemm3m_residues", **common, "source": SOURCE3M,
+        "name": "emugemm3m_residues", **common, "source": SOURCE_PLANES,
         "replaces": "src/repro/kernels/ozaki3m.py:72",
         "launches": sci_counts["emugemm3m_residues"],
         "max_abs_err": sci_err["3m_residues"], **sci_res["3m_residues"],
         "int_mm_yardstick_ms": zgemm["int_mm_yardstick_ms"],
-        "per": sci_per.format("3p-product residue GEMM of the ZGEMM route")})
+        "ops_route_ms": ops_ms["fused_3m_matmul"],
+        "per": sci_per.format("3p-product residue GEMM of the ZGEMM route")
+        + "; the residue route: a relayout of B^T's phases (A read in "
+          "place) + 1 residue plane GEMM"})
+    # The relayout alone: B^T of K5's and of K7's 4096^2 operands, m = 16.
+    r5, r7 = sci_res["residues"], sci_res["3m_residues"]
+    kernels.append({
+        "name": "emugemm2_relayout", **common, "source": SOURCE_PLANES,
+        "replaces": "src/repro/kernels/ozaki2.py:52",
+        "also_replaces": "src/repro/kernels/ozaki3m.py:72",
+        "launches": sci_counts["emugemm2_relayout"],
+        "max_abs_err": sci_err["relayout"],
+        "ms": r5["relayout_ms"], "plain_ms": r5["relayout_plain_ms"],
+        "bound_ms": r5["relayout_bound_ms"], "bound_by": "bytes",
+        "library_ms": r5["relayout_library_ms"],
+        "k7": {"ms": r7["relayout_ms"], "plain_ms": r7["relayout_plain_ms"],
+               "bound_ms": r7["relayout_bound_ms"],
+               "library_ms": r7["relayout_library_ms"],
+               "max_abs_err": r7["relayout_max_abs_err"]},
+        "per": f"B^T of K5's (p, {n0}, {n0}) residues at m = {p_sci}; k7: "
+               "B^T of K7's phase stacks (launches: the scientific front "
+               "doors' residue routes; max_abs_err: the kernel against its "
+               "plain version, padding included, on every residue check "
+               "case's A and B^T and on these operands); library: "
+               "F.pad(x, (0, Kp - K)) of the strided view, or x.contiguous() "
+               "where Kp = K"})
     for row in library_rows:
         if row["name"] in ("flash_attention_3xtf32", "flash_split_3xtf32"):
             row["device_kernels_ms"] = {

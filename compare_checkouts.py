@@ -2,6 +2,7 @@
 
     python3 compare_checkouts.py OTHER_CHECKOUT
     python3 compare_checkouts.py OTHER_CHECKOUT --scheme2
+    python3 compare_checkouts.py OTHER_CHECKOUT --residues
 
 Builds both checkouts' kernels, then measures each checkout through its
 own ``chip_smoke.py`` in separate processes, in the order other, this,
@@ -19,8 +20,15 @@ attn_qk shapes per serve, train and 2 x 2048 step (K6), at olmo-1b's
 dense shapes at 1024 tokens (K5g) and on dB = X^T dC of every weight in
 a hoisted ozaki2-m6+cached step (K5g), then runs that checkout's hoisted
 train phase (step walls before its profiler session, device time, idle
-share, peak memory), and prints one ``COMPARE_S2 {...}`` line. Needs one
-CUDA card.
+share, peak memory), and prints one ``COMPARE_S2 {...}`` line. With
+``--residues`` each run times EmuGEMM-II's residue forms, whatever
+kernels the checkout gives them, on full-range int8 residues: K5
+(``ozaki2.fused_residue_matmul``) and K7
+(``ozaki3m.fused_3m_residue_matmul``) at 4096^3, m = 16, K5 at olmo-1b's
+dense shapes at 1024 tokens, m = 6 (summed), the ops routes that drive
+them (``ops.fused_scheme2_matmul``, ``ops.fused_3m_matmul``) at 4096^3,
+m = 16, and the float64 plane route at that shape with its plane GEMM
+apart, and prints one ``COMPARE_RES {...}`` line. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -156,24 +164,79 @@ def measure_scheme2(root: str) -> dict:
                                           "top_device_ms")}}
 
 
+def measure_residues(root: str) -> dict:
+    """The residue forms' device ms (CUDA events) in the checkout at
+    ``root``, through its own chip_smoke.py's helpers."""
+    g = runpy.run_path(os.path.join(root, "chip_smoke.py"),
+                       run_name="chip_smoke")["main"].__globals__
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import scheme2
+    from repro_torch.core.precision import default_moduli
+    from repro_torch.kernels import ops, ozaki2, ozaki3m
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader", "-i", "0"],
+                          capture_output=True, text=True,
+                          check=True).stdout.strip()
+    gen = torch.Generator(device=dev).manual_seed(22)
+    time_ms, n, p = g["time_ms"], 4096, 16
+
+    def res(*shape):
+        return torch.randint(-128, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+    moduli = default_moduli(p)
+    out = {"root": root, "card": card}
+    a3, b3 = res(p, 3, n, n), res(p, 3, n, n)
+    out["k7_4096_ms"] = time_ms(lambda: ozaki3m.fused_3m_residue_matmul(
+        a3, b3, moduli), 3)
+    del a3, b3
+    a, b = res(p, n, n), res(p, n, n)
+    out["k5_4096_ms"] = time_ms(lambda: ozaki2.fused_residue_matmul(
+        a, b, moduli), 5)
+    del a, b
+    dense, m6 = 0.0, default_moduli(g["M_MAIN"])
+    for m, k, nn in g["dense_shapes"](configs.get_config("olmo-1b").model):
+        a, b = res(len(m6), m, k), res(len(m6), k, nn)
+        dense += time_ms(lambda: ozaki2.fused_residue_matmul(a, b, m6), 10)
+    out["k5_dense_m6_ms"] = dense
+    spec = f"ozaki2-m{p}"
+    za, zb = (g["eq19"](gen, (n, n), torch.complex128, dev) for _ in "ab")
+    out["ops_fused_3m_matmul_ms"] = time_ms(
+        lambda: ops.fused_3m_matmul(za, zb, spec), 3)
+    del za, zb
+    da, db = (g["eq19"](gen, (n, n), torch.float64, dev) for _ in "ab")
+    out["ops_fused_scheme2_matmul_ms"] = time_ms(
+        lambda: ops.fused_scheme2_matmul(da, db, spec,
+                                         out_dtype=torch.float64), 3)
+    mu, nu = scheme2.scales(da, db, moduli)
+    out["dgemm_route_ms"] = time_ms(lambda: ozaki2.fused_matmul_scheme2(
+        da, db, mu, nu, moduli, torch.float64), 3)
+    _, main, gemm, _ = g["plane_split"]("dgemm", da, db, mu, nu, moduli, 3)
+    out["dgemm_plane_gemm_ms"], out["dgemm_mainloop_ms"] = gemm, main
+    return out
+
+
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] in ("--build", "--measure",
-                                              "--measure-scheme2"):
+    modes = {"--measure": ("COMPARE", measure),
+             "--measure-scheme2": ("COMPARE_S2", measure_scheme2),
+             "--measure-residues": ("COMPARE_RES", measure_residues)}
+    if len(sys.argv) == 3 and (sys.argv[1] == "--build"
+                               or sys.argv[1] in modes):
         root = os.path.abspath(sys.argv[2])
         if sys.argv[1] == "--build":
             runpy.run_path(os.path.join(root, "chip_smoke.py"),
                            run_name="chip_smoke")["build_phase"]()
-        elif sys.argv[1] == "--measure":
-            print("COMPARE " + json.dumps(measure(root)), flush=True)
         else:
-            print("COMPARE_S2 " + json.dumps(measure_scheme2(root)),
-                  flush=True)
+            tag, fn = modes[sys.argv[1]]
+            print(f"{tag} " + json.dumps(fn(root)), flush=True)
         return 0
-    if len(sys.argv) not in (2, 3) or sys.argv[2:] not in ([], ["--scheme2"]):
+    if len(sys.argv) not in (2, 3) or sys.argv[2:] not in (
+            [], ["--scheme2"], ["--residues"]):
         print(__doc__, file=sys.stderr)
         return 2
     other = os.path.abspath(sys.argv[1])
-    how = "--measure-scheme2" if sys.argv[2:] else "--measure"
+    how = "--measure-" + sys.argv[2][2:] if sys.argv[2:] else "--measure"
     me = [sys.executable, os.path.abspath(__file__)]
     builds = [subprocess.Popen(me + ["--build", r]) for r in (other, HERE)]
     if any(p.wait() for p in builds):

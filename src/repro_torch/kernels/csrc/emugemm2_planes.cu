@@ -7,7 +7,10 @@
 //   src/repro/kernels/backends/gpu.py  fused_matmul_scheme2 (_kernel2, b_res), prepared launch
 //   src/repro/kernels/backends/gpu.py  fused_matmul_scheme2_batched, batched launch
 //   src/repro/kernels/backends/gpu.py  fused_matmul_3m (_kernel2_3m), 2-D and batched
-// (the residue forms K5 and K7 stay on emugemm2.cu and emugemm3m.cu). A
+// and the residue forms, given balanced int8 residues in and out,
+//   src/repro/kernels/ozaki2.py        fused_residue_matmul (_kernel), K5
+//   src/repro/kernels/ozaki3m.py       fused_3m_residue_matmul (_kernel), K7
+// (below the plane GEMM: the relayout and the residue plane GEMM). A
 // product with a float rhs is two encodes, A's and B^T's, both read through
 // their strides (dB's A is X^T, attention's backward reads transposed
 // views), and one plane GEMM. Operands: float64 (both, to a float64 or
@@ -91,9 +94,46 @@
 // the CRT epilogue: the mainloop no longer hides it, and overlapping the
 // two needs a persistent grid (PERF.md measures the split).
 //
+// The residue forms take balanced int8 residues of any value in [-128,
+// 128) for every modulus, (p, [3,] M, K) and (p, [3,] K, N), and give the
+// balanced residues of their products, (p, M, N) (for 3M c_re and c_im):
+//   * relayout: int8 wgmma reads both operands K-major, so an operand that
+//     a tensor map cannot read in place (K not unit-stride, a row or plane
+//     stride not a multiple of 16 bytes, a base not 16-byte aligned; B as
+//     it arrives, N-contiguous) is copied once into K-contiguous planes
+//     (p, T, R, Kp), zero residues past K, B as B^T: ER x EK tiles staged
+//     in shared memory, read along the operand's unit-stride axis, written
+//     eight bytes a thread. Bound by bytes: one read and one write a
+//     residue (B of a 4096^2 operand at p = 16, 0.16 ms at 3.35 TB/s);
+//   * residues_kernel: the plane GEMM's ring and mainloop (a copy) on
+//     4-D tensor maps (K, rows, phase, modulus) through the operands' own
+//     strides, so a contiguous A, or a B that arrives as the transposed
+//     view of B^T's residues, is read in place (TMA's out-of-bounds fill
+//     gives the zeros past K and past M or N). The modulus is the batch
+//     coordinate: one block a (modulus, tile), which fills the SMs at
+//     small shapes; a 3M block runs its modulus's three phase products in
+//     turn. One int32 accumulator set covers the whole K with no
+//     reduction between K tiles and no .satfinite, so the sums wrap as
+//     the reference's int32 accumulator does (a periodic floor reduction
+//     would give other bits once a sum wraps). Epilogue: bal(x) =
+//     floor_mod(x + m/2, m) - m/2, the add wrapping in int32 as the
+//     reference's, stored as int8 pairs (two columns of a row) into (p,
+//     M, N). For 3M, bal(T1) waits in a shared park beside the ring (a
+//     word a thread and group of four elements, 32 KB at 128 x 256), T2
+//     stores C_re = bal(T1 - T2) and parks S = bal(T1 + T2), and T3
+//     stores C_im = bal(T3 - S): the balanced representative is unique,
+//     so reducing before combining gives the reference's bal(bal(T3) -
+//     bal(T1) - bal(T2)). Only the thread that parked a word reads it, so
+//     no barrier guards the park (parked in the outputs and read back,
+//     the 4096^3 epilogue took 5.4 ms instead of 1.2, PERF.md). Bound: at
+//     4096^3 and p = 16, 16 int8 GEMMs (1.1 ms at the int8 peak), 48 for
+//     3M (3.3 ms).
+//
 // Numerics: see scheme2_common.cuh. The plain versions are
-// repro_torch.kernels.ozaki2.encode_planes_plain / plane_matmul_plain and
-// repro_torch.kernels.ozaki3m.encode_planes_3m_plain / plane_matmul_3m_plain.
+// repro_torch.kernels.ozaki2.encode_planes_plain / plane_matmul_plain /
+// relayout_planes_plain / residue_planes_plain and
+// repro_torch.kernels.ozaki3m.encode_planes_3m_plain / plane_matmul_3m_plain /
+// residue_planes_3m_plain.
 
 #include "hopper.cuh"
 #include "scheme2_common.cuh"
@@ -393,6 +433,9 @@ planes_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__
   constexpr int PBN = Tile<NH>::BN, STAGE_BYTES = Tile<NH>::STAGE_BYTES;
   constexpr int GROUPS = Tile<NH>::GROUPS;
   using V = typename Out<O>::V;
+  // The ring, the raster and the K tile below have a copy in ring_init,
+  // tile_origin and mma_stage (residues_kernel's): a change to one must
+  // be made to both.
   extern __shared__ __align__(16) uint8_t ring_smem[];
   const uint32_t pad = (1024 - (smem_u32(ring_smem) & 1023)) & 1023;
   uint8_t* ring = ring_smem + pad;                                  // [STAGES][A | B], 1024-aligned
@@ -579,26 +622,294 @@ planes_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__
   }
 }
 
+// ---- the residue forms (K5, K7) ---------------------------------------------
+
+constexpr int RLD = EK + 4;   // staged row stride, 17 words: 32 rows fall in 32 banks
+
+// relayout: residues x (p, T, R, K) through strides (sp, st, sr, sk) ->
+// planes (p, T, R, Kp), K-contiguous, zero residues past K; blockIdx.z is
+// the (modulus, phase) plane.
+__global__ void __launch_bounds__(NT)
+relayout_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ planes, int T, int R, int K,
+                int Kp, long long sp, long long st, long long sr, long long sk) {
+  __shared__ __align__(16) int8_t tile[ER * RLD];
+  const int r0 = blockIdx.y * ER;
+  const int k0 = blockIdx.x * EK;
+  const int pl = blockIdx.z;
+  const int tid = threadIdx.x;
+  x += (pl / T) * sp + (pl % T) * st;
+  // Threads walk the operand's unit-stride axis.
+  const bool kwalk = sk <= sr;
+#pragma unroll 4
+  for (int e = tid; e < ER * EK; e += NT) {
+    const int rr = kwalk ? e / EK : e % ER;
+    const int kk = kwalk ? e % EK : e / ER;
+    const int gr = r0 + rr, gk = k0 + kk;
+    tile[rr * RLD + kk] = gr < R && gk < K ? x[gr * sr + gk * sk] : int8_t(0);
+  }
+  __syncthreads();
+  // Each thread writes 8 consecutive K of two rows as one 8-byte word.
+  const int kc = (tid % (EK / 8)) * 8;
+  for (int half = 0; half < 2; ++half) {
+    const int rr = tid / (EK / 8) + half * (ER / 2);
+    if (r0 + rr >= R) break;
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(tile + rr * RLD + kc);
+    *reinterpret_cast<uint2*>(planes + (static_cast<long long>(pl) * R + r0 + rr) * Kp + k0 + kc) =
+        make_uint2(w[0], w[1]);
+  }
+}
+
+// The residue plane GEMM's pieces: planes_kernel's ring, raster and K
+// tile, written once more (sharing them with planes_kernel through these
+// helpers cost its mainloop 2 %, PERF.md). The two copies must stay one
+// design: a change to one must be made to the other.
+//
+// The ring of STAGES (A | B) stages in dynamic shared memory, 1024-byte
+// aligned for the 128-byte swizzle, and its full and empty barriers; thread
+// 0 initialises the barriers, and the caller synchronises.
+template <int NH>
+__device__ __forceinline__ uint8_t* ring_init(uint8_t* smem, uint64_t*& full, uint64_t*& empty) {
+  const uint32_t pad = (1024 - (smem_u32(smem) & 1023)) & 1023;
+  uint8_t* ring = smem + pad;
+  full = reinterpret_cast<uint64_t*>(ring + STAGES * Tile<NH>::STAGE_BYTES);
+  empty = full + STAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_THREADS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  return ring;
+}
+
+// The origin of output tile `tile` of a (tiles_m, tiles_n) grid: tiles run
+// in groups of GROUP_M tile rows, column by column, so that the blocks
+// resident together read a few row and column slabs of each plane, which
+// stay in L2 while they work through it.
+template <int NH>
+__device__ __forceinline__ void tile_origin(int tile, int tiles_m, int tiles_n, int& m0, int& n0) {
+  const int first = (tile / (GROUP_M * tiles_n)) * GROUP_M;
+  const int rows = min(tiles_m - first, GROUP_M);
+  const int in_group = tile % (GROUP_M * tiles_n);
+  m0 = (first + in_group % rows) * PBM;
+  n0 = (in_group / rows) * Tile<NH>::BN;
+}
+
+// One K tile of the ring into this warpgroup's accumulators: wait for its
+// stage, run its wgmmas (two a k-step at NH = 2, one per 128 columns),
+// release the stage and step the ring.
+template <int NH>
+__device__ __forceinline__ void mma_stage(int (&acc)[NH][64], const uint8_t* ring, uint64_t* full,
+                                          uint64_t* empty, int& stage, int& phase, int wg,
+                                          int lane) {
+  mbar_wait(&full[stage], phase);
+  const uint8_t* st = ring + stage * Tile<NH>::STAGE_BYTES;
+  const uint64_t da = desc_sw128(st + wg * 64 * PBK);
+  const uint64_t db = desc_sw128(st + A_BYTES);
+#pragma unroll
+  for (int h = 0; h < NH; ++h) reg_fence(acc[h]);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < PBK / 32; ++ks)
+#pragma unroll
+    for (int h = 0; h < NH; ++h)
+      wgmma_s8_n128(acc[h], da + 2 * ks, db + h * (128 * PBK >> 4) + 2 * ks);
+  wgmma_commit();
+  wgmma_wait_all();
+#pragma unroll
+  for (int h = 0; h < NH; ++h) reg_fence(acc[h]);
+  if (lane == 0) mbar_arrive(&empty[stage]);
+  if (++stage == STAGES) {
+    stage = 0;
+    phase ^= 1;
+  }
+}
+
+// Balanced residue of any int32 sum: floor_mod(x + m/2, m) - m/2, the add
+// wrapping in int32 as the reference's does.
+__device__ __forceinline__ int bal_full(int x, const Barrett& br, int m, int l) {
+  const int half = m / 2;
+  const unsigned sum = static_cast<unsigned>(x) + static_cast<unsigned>(half);
+  return mod_full(static_cast<int>(sum), br, m, l) - half;
+}
+
+// Balanced residue of |x| < 2^21 (sums of balanced residues).
+__device__ __forceinline__ int bal_small(int x, const Barrett& br, int m, int l) {
+  return mod_small(x + m / 2, br, m, l) - m / 2;
+}
+
+// Two int8 residues at columns c and c + 1 of one row of an (M, N) output,
+// or of its last N columns (c counted from their first, an even column):
+// a 2-byte access where N is even (c is even, so it is aligned), bytes
+// otherwise (column c + 1 only below N).
+__device__ __forceinline__ void store_pair(int8_t* o, int N, int c, int x, int y) {
+  if ((N & 1) == 0) {
+    *reinterpret_cast<uint16_t*>(o) = static_cast<uint16_t>((x & 0xff) | ((y & 0xff) << 8));
+  } else {
+    o[0] = static_cast<int8_t>(x);
+    if (c + 1 < N) o[1] = static_cast<int8_t>(y);
+  }
+}
+
+// Four balanced residues as the bytes of a word, and back.
+__device__ __forceinline__ uint32_t pack_bal(const int (&v)[4]) {
+  return pack4(v[0] & 0xff, v[1] & 0xff, v[2] & 0xff, v[3] & 0xff);
+}
+
+__device__ __forceinline__ int signed_byte(uint32_t w, int i) {
+  return static_cast<int8_t>(byte_of(w, i));
+}
+
+// The residue plane GEMM. TP = 1: K5, out_re (p, M, N); TP = 3: K7, the
+// phases [re, im, re+im] into out_re and out_im. map_a (K, M, TP, p) and
+// map_b (K, N, TP, p) are the operands' tensor maps; nk K tiles cover
+// both. Block blockIdx.x is output tile blockIdx.x % tiles of modulus
+// blockIdx.x / tiles. epilogue = 0 stops after the mainloop (for timing).
+// For 3M, bal(T1) and then S wait in a shared park beside the ring, one
+// word (a group's four elements) a thread and group, which only the
+// thread that wrote it reads.
+template <int TP, int NH>
+__host__ __device__ constexpr int residues_smem() {
+  return Tile<NH>::SMEM + (TP == 3 ? Tile<NH>::PARK_SLOT : 0);
+}
+
+template <int TP, int NH>
+__global__ void __launch_bounds__(PT, 1)
+residues_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+                int8_t* __restrict__ out_re, int8_t* __restrict__ out_im, int M, int N, int nk,
+                int epilogue, const __grid_constant__ Crt crt, const __grid_constant__ Barrett br) {
+  constexpr int PBN = Tile<NH>::BN, STAGE_BYTES = Tile<NH>::STAGE_BYTES;
+  constexpr int GROUPS = Tile<NH>::GROUPS;
+  extern __shared__ __align__(16) uint8_t ring_smem[];
+  uint64_t *full, *empty;
+  uint8_t* ring = ring_init<NH>(ring_smem, full, empty);
+
+  const int tiles_m = (M + PBM - 1) / PBM, tiles_n = (N + PBN - 1) / PBN;
+  const int l = blockIdx.x / (tiles_m * tiles_n);
+  int m0, n0;
+  tile_origin<NH>(blockIdx.x % (tiles_m * tiles_n), tiles_m, tiles_n, m0, n0);
+  const int wg = threadIdx.x / 128;
+  __syncthreads();
+
+  if (wg == CONSUMER_THREADS / 128) {
+    // The producer: one thread streams (phase, K tile) pairs into the ring.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == CONSUMER_THREADS) {
+      int stage = 0, phase = 0;
+      for (int t = 0; t < TP; ++t) {
+        for (int kt = 0; kt < nk; ++kt) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], STAGE_BYTES);
+          uint8_t* st = ring + stage * STAGE_BYTES;
+          tma_load_4d(st, &map_a, &full[stage], kt * PBK, m0, t, l);
+          tma_load_4d(st + A_BYTES, &map_b, &full[stage], kt * PBK, n0, t, l);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int ct = threadIdx.x;
+    const int lane = ct % 32;
+    const int row0 = m0 + wg * 64 + ((ct % 128) / 32) * 16 + lane / 4;
+    const int col0 = n0 + (lane % 4) * 2;
+    const int m = crt.m[l];
+    const long long plane = static_cast<long long>(l) * M * N;
+    uint32_t* park = reinterpret_cast<uint32_t*>(empty + STAGES) + ct;   // [GROUPS][256]
+    int acc[NH][64];
+    int stage = 0, phase = 0;
+    for (int t = 0; t < TP; ++t) {
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[h][i] = 0;
+      for (int kt = 0; kt < nk; ++kt) mma_stage<NH>(acc, ring, full, empty, stage, phase, wg, lane);
+      if (!epilogue) continue;
+      // This thread's first element and how many rows and columns lie
+      // from it to the edge, taken afresh in every phase through an empty
+      // asm: derived from values the compiler could hoist out of the phase
+      // loop, the 64 pairs' addresses and bounds would stay live across the
+      // next phase's mainloop and spill.
+      long long first = plane + static_cast<long long>(row0) * N + col0;
+      int rows = M - row0, cols = N - col0;
+      asm volatile("" : "+l"(first), "+r"(rows), "+r"(cols));
+      // Group g holds registers 4 * (g % 16) + w of acc[g / 16]: rows r
+      // and r + 8 (w / 2), columns c and c + 1 (w % 2).
+#pragma unroll
+      for (int g = 0; g < GROUPS; ++g) {
+        int v[4];
+#pragma unroll
+        for (int w = 0; w < 4; ++w) v[w] = bal_full(acc[g / 16][4 * (g % 16) + w], br, m, l);
+        int8_t* out = out_re;
+        if (TP == 3) {
+          // T1 parks; T2 stores C_re = bal(T1 - T2) and parks S = bal(T1 +
+          // T2); T3 stores C_im = bal(T3 - S).
+          uint32_t& word = park[g * CONSUMER_THREADS];
+          if (t == 0) {
+            word = pack_bal(v);
+            continue;
+          }
+          const uint32_t prev = word;
+          if (t == 1) {
+            int sum[4];
+#pragma unroll
+            for (int w = 0; w < 4; ++w) {
+              const int x = signed_byte(prev, w);
+              sum[w] = bal_small(x + v[w], br, m, l);
+              v[w] = bal_small(x - v[w], br, m, l);
+            }
+            word = pack_bal(sum);
+          } else {
+#pragma unroll
+            for (int w = 0; w < 4; ++w) v[w] = bal_small(v[w] - signed_byte(prev, w), br, m, l);
+            out = out_im;
+          }
+        }
+        const int col = (g / 16) * 128 + (g % 16) * 8;   // from col0
+        if (col >= cols) continue;
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          if (8 * r < rows)
+            store_pair(out + first + static_cast<long long>(8 * r) * N + col, cols, col,
+                       v[2 * r], v[2 * r + 1]);
+      }
+    }
+  }
+}
+
 // ---- host side -------------------------------------------------------------
 
-// The planes (planes, Bt, rows, Kp) int8 as a 4-D tensor map with (PBK,
-// box_rows, 1, 1) boxes: rows past `rows` arrive as zeros in every batch
-// element (a flattened (Bt * rows) axis would bring the next element's).
-int plane_map(CUtensorMap* map, const int8_t* planes, int n_planes, int batch, int rows, int Kp,
-              int box_rows) {
+// An int8 (d3, d2, rows, K) tensor with byte strides (s3, s2, s_row), K
+// unit-stride, as a 4-D tensor map with (PBK, box_rows, 1, 1) boxes: rows
+// past `rows` and K past `K` arrive as zeros, in every (d2, d3) element (a
+// flattened axis would bring the next element's).
+int tile_map(CUtensorMap* map, const int8_t* base, int d3, int d2, int rows, long long K,
+             long long s3, long long s2, long long s_row, int box_rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return -2;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(Kp), static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(batch), static_cast<cuuint64_t>(n_planes)};
-  const cuuint64_t row = static_cast<cuuint64_t>(Kp);
-  const cuuint64_t strides[3] = {row, row * rows, row * rows * batch};
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(d2), static_cast<cuuint64_t>(d3)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_row), static_cast<cuuint64_t>(s2),
+                                 static_cast<cuuint64_t>(s3)};
   const cuuint32_t box[4] = {PBK, static_cast<cuuint32_t>(box_rows), 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<int8_t*>(planes), dims,
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<int8_t*>(base), dims,
                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : -3;
+}
+
+// The planes (planes, Bt, rows, Kp), contiguous.
+int plane_map(CUtensorMap* map, const int8_t* planes, int n_planes, int batch, int rows, int Kp,
+              int box_rows) {
+  const long long row = Kp;
+  return tile_map(map, planes, n_planes, batch, rows, Kp, row * rows * batch, row * rows, row,
+                  box_rows);
 }
 
 template <typename T, bool CPLX>
@@ -637,6 +948,26 @@ int launch_planes(const CUtensorMap& ma, const CUtensorMap& mb, const void* mu, 
   planes_kernel<T, O, CPLX, NH><<<tiles, PT, smem, st>>>(
       ma, mb, mu, nu, scale_bf16, static_cast<O*>(out), park, M, N, nk, kr, epilogue, smu, snu,
       sout, crt, br, dg);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int TP, int NH>
+int launch_residues(const CUtensorMap& ma, const CUtensorMap& mb, int8_t* out_re, int8_t* out_im,
+                    int p, int M, int N, int nk, int epilogue, const Crt& crt, const Barrett& br,
+                    cudaStream_t st) {
+  constexpr int smem = residues_smem<TP, NH>();
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        residues_kernel<TP, NH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const long long tiles =
+      static_cast<long long>(p) * ((M + PBM - 1) / PBM) * ((N + Tile<NH>::BN - 1) / Tile<NH>::BN);
+  if (tiles > 2147483647ll) return -1;
+  residues_kernel<TP, NH><<<static_cast<unsigned>(tiles), PT, smem, st>>>(
+      ma, mb, out_re, out_im, M, N, nk, epilogue, crt, br);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -738,4 +1069,56 @@ extern "C" int emugemm2_planes(const int8_t* a_planes, const int8_t* b_planes, c
   if (out_type == F32) EMUGEMM2_PLANES(float, float, true);
   return -1;
 #undef EMUGEMM2_PLANES
+}
+
+// The residue forms. Relayout: residues x (p, T, R, K) through strides
+// (sp, st, sr, sk) in bytes -> planes (p, T, R, Kp) int8 contiguous, Kp a
+// multiple of 128 >= K, zero residues past K.
+extern "C" int emugemm2_relayout(const int8_t* x, int8_t* planes, int p, int T, int R, int K,
+                                 int Kp, long long sp, long long st, long long sr, long long sk,
+                                 void* stream) {
+  if (p <= 0 || T <= 0 || p * T > 65535 || R <= 0 || (R + ER - 1) / ER > 65535 || K <= 0 ||
+      Kp < K || Kp % PBK != 0)
+    return -1;
+  const dim3 grid(Kp / EK, (R + ER - 1) / ER, p * T);
+  relayout_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(x, planes, T, R, K, Kp, sp,
+                                                                      st, sr, sk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The residue plane GEMM: a (p, T, M, ka) and b (p, T, N, kb) int8
+// residues, each K-contiguous with byte strides (plane, phase, row) that
+// are multiples of 16 and a 16-byte aligned base (the planes of
+// emugemm2_relayout are), past its K read as zero residues; T = phases (1:
+// K5, 3: K7). out_re and, for 3M, out_im (p, M, N) int8 contiguous;
+// tile_n 256 or 128; epilogue = 0 stops after the mainloop (for timing).
+// moduli[p] is a host array.
+extern "C" int emugemm2_residues(const int8_t* a, const int8_t* b, int8_t* out_re, int8_t* out_im,
+                                 int M, int N, int ka, int kb, long long a_sp, long long a_st,
+                                 long long a_sr, long long b_sp, long long b_st, long long b_sr,
+                                 int phases, int tile_n, int p, const int* moduli, int epilogue,
+                                 void* stream) {
+  if (M <= 0 || N <= 0 || ka <= 0 || kb <= 0 || (phases != 1 && phases != 3)) return -1;
+  if (tile_n != 128 && tile_n != 256) return -1;
+  if (((a_sp | a_st | a_sr | b_sp | b_st | b_sr) & 15) != 0 ||
+      ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) & 15) != 0)
+    return -1;
+  Crt crt;
+  if (make_crt(p, moduli, nullptr, crt) != 0) return -1;
+  Barrett br;
+  make_barrett(crt, br);
+  CUtensorMap ma, mb;
+  int rc = tile_map(&ma, a, p, phases, M, ka, a_sp, a_st, a_sr, PBM);
+  if (rc == 0) rc = tile_map(&mb, b, p, phases, N, kb, b_sp, b_st, b_sr, tile_n);
+  if (rc != 0) return rc;
+  const int nk = ((ka > kb ? ka : kb) + PBK - 1) / PBK;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define EMUGEMM2_RESIDUES(TP_)                                                                   \
+  return tile_n == 256 ? launch_residues<TP_, 2>(ma, mb, out_re, out_im, p, M, N, nk, epilogue, \
+                                                 crt, br, st)                                    \
+                       : launch_residues<TP_, 1>(ma, mb, out_re, out_im, p, M, N, nk, epilogue, \
+                                                 crt, br, st)
+  if (phases == 1) EMUGEMM2_RESIDUES(1);
+  EMUGEMM2_RESIDUES(3);
+#undef EMUGEMM2_RESIDUES
 }

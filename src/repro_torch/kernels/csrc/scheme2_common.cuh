@@ -1,14 +1,12 @@
-// Device pieces of Ozaki Scheme II shared by the plane route
-// (emugemm2_planes.cu: the encode and the plane GEMM of every Scheme-II
-// product of float operands, real or complex 3M) and the residue kernels
-// (emugemm2.cu: K5; emugemm3m.cu: K7): operand types, integerization, the
-// double-double CRT arithmetic, exact floor moduli and int8 wmma tiles.
+// Device pieces of Ozaki Scheme II for its plane route (emugemm2_planes.cu:
+// the encode and the plane GEMM of every Scheme-II product of float
+// operands, real or complex 3M, and the residue forms K5 and K7): operand
+// types, integerization and the double-double CRT arithmetic.
 //
 // Numerics, so that every kernel is bit-identical to its plain version
 // (repro_torch.core.scheme2, repro_torch.core.complex3m):
-//   * floor modulo everywhere (the sign of the divisor, as jnp.remainder);
-//     C's % truncates toward zero, so a negative remainder gets m added.
-//     The plane route reduces by Barrett's integer quotient: every exact
+//   * floor modulo everywhere (the sign of the divisor, as jnp.remainder),
+//     by Barrett's integer quotient (emugemm2_planes.cu): every exact
 //     reduction gives the same residue;
 //   * every float op of the double-double is an explicit _rn intrinsic,
 //     so nvcc cannot contract ah * bh - p into an FMA, which would break
@@ -21,22 +19,12 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace s2 {
 
-using namespace nvcuda;
-
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int NWARPS = 8;
-constexpr int NT = NWARPS * 32;
-constexpr int T16 = 16 * 16;
-constexpr int FRAGS = (BM / 16) * (BN / 16);
-constexpr int FW = FRAGS / NWARPS;
+constexpr int NT = 256;         // threads of an encode or relayout block
 constexpr int MAXP = 16;
-static_assert(FRAGS % NWARPS == 0, "fragments must split evenly over warps");
 
 // The moduli and Garner's inverse table inv[i][j] = m_j^-1 mod m_i (j < i),
 // passed by value.
@@ -96,13 +84,6 @@ __device__ __forceinline__ int integerize(float x, float mu, __nv_bfloat16) {
 }
 __device__ __forceinline__ double integerize(double x, double mu, double) {
   return trunc(__dmul_rn(x, mu));
-}
-
-// ---- floor moduli ----------------------------------------------------------
-
-__device__ __forceinline__ int floor_mod(int x, int m) {
-  const int r = x % m;
-  return r < 0 ? r + m : r;
 }
 
 // ---- double-double (repro.core.dd), no FMA ---------------------------------
@@ -237,62 +218,6 @@ __device__ __forceinline__ void horner(const Crt& crt, const int (&d)[W][MAXP],
   }
 #pragma unroll
   for (int w = 0; w < W; ++w) c[w] = Out<O>::add(Out<O>::cvt(hi[w]), Out<O>::cvt(lo[w]));
-}
-
-// ---- int8 tensor-core tiles ------------------------------------------------
-// Shared int8 tiles are stored as 16x16 sub-tiles (256 bytes each), so that
-// every wmma load is 32-byte aligned with a leading dimension of 16.
-__device__ __forceinline__ int a_off(int mm, int kk) {
-  return ((kk / 16) * (BM / 16) + mm / 16) * T16 + (mm % 16) * 16 + kk % 16;
-}
-__device__ __forceinline__ int b_off(int kk, int nn) {
-  return ((kk / 16) * (BN / 16) + nn / 16) * T16 + (kk % 16) * 16 + nn % 16;
-}
-
-using FragAcc = wmma::fragment<wmma::accumulator, 16, 16, 16, int>;
-
-// One K strip of BK of MMAs on the staged tiles, into this warp's fragments.
-template <int BK>
-__device__ __forceinline__ void mma_tile(const int8_t* sA, const int8_t* sB, FragAcc (&acc)[FW],
-                                         int warp) {
-#pragma unroll
-  for (int ks = 0; ks < BK / 16; ++ks) {
-#pragma unroll
-    for (int f = 0; f < FW; ++f) {
-      const int q = warp * FW + f;
-      const int fr = q / (BN / 16), fc = q % (BN / 16);
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::row_major> fb;
-      wmma::load_matrix_sync(fa, sA + (ks * (BM / 16) + fr) * T16, 16);
-      wmma::load_matrix_sync(fb, sB + (ks * (BN / 16) + fc) * T16, 16);
-      wmma::mma_sync(acc[f], fa, fb, acc[f]);
-    }
-  }
-}
-
-__device__ __forceinline__ void zero(FragAcc (&acc)[FW]) {
-#pragma unroll
-  for (int f = 0; f < FW; ++f) wmma::fill_fragment(acc[f], 0);
-}
-
-// Hand each of this warp's accumulator elements to fn(row, col, value),
-// through a per-warp 16x16 int32 staging tile whose layout is known.
-template <typename Fn>
-__device__ __forceinline__ void for_each_acc(FragAcc (&acc)[FW], int* sC, int warp, int lane,
-                                             Fn fn) {
-#pragma unroll
-  for (int f = 0; f < FW; ++f) {
-    const int q = warp * FW + f;
-    const int fr = q / (BN / 16), fc = q % (BN / 16);
-    wmma::store_matrix_sync(sC, acc[f], 16, wmma::mem_row_major);
-    __syncwarp();
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int idx = lane * 8 + e;
-      fn(fr * 16 + idx / 16, fc * 16 + idx % 16, sC[idx]);
-    }
-    __syncwarp();
-  }
 }
 
 }  // namespace s2

@@ -1,6 +1,5 @@
-"""EmuGEMM-II (the plane route of ``csrc/emugemm2_planes.cu`` and the
-residue form of ``csrc/emugemm2.cu``): wrappers, plain versions and
-launch counts.
+"""EmuGEMM-II (the plane route of ``csrc/emugemm2_planes.cu``, its
+residue form too): wrappers, plain versions and launch counts.
 
 * :func:`fused_matmul_scheme2` takes (M, K) @ (K, N) or, strided over a
   batch, (B, M, K) @ (B, K, N) operands with their power-of-two
@@ -23,8 +22,8 @@ launch counts.
   ``repro.kernels.prepared.matmul_prepared_scheme2``).
 * :func:`fused_residue_matmul` takes (p, M, K) and (p, K, N) balanced int8
   residues and returns the balanced int8 residues (p, M, N) of their
-  products mod each modulus (``csrc/emugemm2.cu``). Its plain version is
-  the reference's oracle ``repro.kernels.ref.scheme2_residues``.
+  products mod each modulus. It runs the residue route below. Its plain
+  version is the reference's oracle ``repro.kernels.ref.scheme2_residues``.
 
 The plane route: :func:`encode_planes` writes an operand's balanced
 residues once as K-contiguous int8 planes (p, [Bt,] R, Kp), K padded with
@@ -33,6 +32,18 @@ int8 GEMM per modulus with the reduction and the CRT in its epilogue; a
 leading batch axis is the kernels' batch coordinate. Their plain versions
 are :func:`encode_planes_plain` and :func:`plane_matmul_plain`; together
 they are ``scheme2.scaled_matmul``.
+
+The residue route: :func:`residue_planes` is the plane GEMM's mainloop on
+given residues, one block a (modulus, tile), with one int32 sum over the
+whole K that wraps as the reference's does and the balanced reduction in
+its epilogue; it reads an operand in place through a tensor map where
+:func:`tma_strides` allows (K unit-stride, 16-byte strides and base),
+and :func:`relayout_planes` first copies any other operand into
+K-contiguous planes (B as B^T: it arrives N-contiguous). Their plain
+versions are :func:`relayout_planes_plain` and
+:func:`residue_planes_plain`; together they are
+:func:`fused_residue_matmul_plain`. ``ozaki3m`` runs K7 on the same
+kernels.
 
 On a CUDA tensor a wrapper launches the kernels or raises; on a CPU
 tensor it runs the plain version. The kernels replace the Pallas kernels
@@ -70,13 +81,15 @@ _INT_P = ctypes.POINTER(ctypes.c_int)
 class LaunchCounts:
     """Calls of the float-rhs form's front door, 2-D and batched (each
     two encodes and one plane GEMM), and of the prepared form (each an
-    encode and a plane GEMM); launches of the residue kernel and of the
-    plane route's kernels (encodes, plane GEMMs), whoever calls them; and
+    encode and a plane GEMM); launches of the residue plane GEMM (one a
+    residue-form call), of the relayout and of the plane route's kernels
+    (encodes, plane GEMMs), whoever calls them; and
     calls of the plain versions on CUDA tensors (which the model paths
     must never make)."""
     launches_2d: int = 0
     launches_batched: int = 0
     launches_residues: int = 0
+    launches_relayout: int = 0
     launches_prepared: int = 0
     launches_encode: int = 0
     launches_planes: int = 0
@@ -129,17 +142,52 @@ def fused_matmul_scheme2_prepared_plain(a, b_res, mu, nu, moduli,
                            mu, nu[:, :n], out_dtype)
 
 
-def fused_residue_matmul_plain(a_res, b_res, moduli):
-    """The residue form's function in plain torch ops (CPU or CUDA)."""
-    if a_res.is_cuda:
-        COUNTS.plain_cuda_calls += 1
-    acc = scheme2.residue_gemms(a_res, b_res)
+def _balanced_products(acc, moduli):
+    """(p, M, N) int32 sums -> their balanced int8 residues, modulus by
+    modulus; the + m // 2 wraps in int32, as the reference's does."""
     outs = []
     for l, m in enumerate(moduli):
         half = int(m) // 2
         outs.append((torch.remainder(acc[l] + half, int(m)) - half)
                     .to(torch.int8))
     return torch.stack(outs)
+
+
+def fused_residue_matmul_plain(a_res, b_res, moduli):
+    """The residue form's function in plain torch ops (CPU or CUDA)."""
+    if a_res.is_cuda:
+        COUNTS.plain_cuda_calls += 1
+    return _balanced_products(scheme2.residue_gemms(a_res, b_res), moduli)
+
+
+def relayout_planes_plain(x):
+    """The relayout kernel's function in plain torch ops (CPU or CUDA):
+    int8 residues (p, [T,] R, K) through any strides -> their
+    K-contiguous planes (p, [T,] R, Kp), zero residues past K."""
+    if x.is_cuda:
+        COUNTS.plain_cuda_calls += 1
+    k = x.shape[-1]
+    return torch.nn.functional.pad(x, (0, plane_k(k) - k)).contiguous()
+
+
+def _common_k(a, b_t):
+    """Two K-major operands, the shorter padded with zero residues to the
+    other's K (a relaid plane is K padded, an operand read in place is
+    not)."""
+    k = max(a.shape[-1], b_t.shape[-1])
+    pad = torch.nn.functional.pad
+    return pad(a, (0, k - a.shape[-1])), pad(b_t, (0, k - b_t.shape[-1]))
+
+
+def residue_planes_plain(a, b_t, moduli):
+    """The residue plane GEMM's function in plain torch ops (CPU or CUDA):
+    K-major residues a (p, M, Ka) and b_t (p, N, Kb), past each one's K
+    zero residues -> (p, M, N) balanced int8 residues of a @ b_t^T."""
+    if a.is_cuda:
+        COUNTS.plain_cuda_calls += 1
+    a, b_t = _common_k(a, b_t)
+    return _balanced_products(
+        scheme2.residue_gemms(a, b_t.transpose(-1, -2)), moduli)
 
 
 def plane_k(k: int) -> int:
@@ -176,16 +224,6 @@ def _crt_args(moduli: tuple[int, ...]):
     inv = scheme2.garner_constants(moduli)
     return ((ctypes.c_int * p)(*moduli),
             (ctypes.c_int * (p * p))(*[x for row in inv for x in row]))
-
-
-@lru_cache(maxsize=None)
-def _bind_residues(lib: ctypes.CDLL):
-    fn = lib.emugemm2_residues
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                   + [ctypes.c_longlong] * 6 + [ctypes.c_int] + [_INT_P]
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
 
 
 @lru_cache(maxsize=None)
@@ -363,6 +401,153 @@ def plane_matmul(a_planes: torch.Tensor, b_planes: torch.Tensor,
     return out
 
 
+def tma_strides(shape, strides, base: int):
+    """The byte strides (s_p, s_t, s_r) through which the residue plane
+    GEMM reads int8 residues of ``shape`` (p, T, R, K) in place, or None
+    where it cannot and the operand is laid out first: a tensor map needs
+    K unit-stride, every other stride a positive multiple of 16 below
+    2^40 and a 16-byte aligned base. The stride of an axis of size 1 (and
+    of K when K = 1) is never stepped; it is replaced by the extent of the
+    axes inside it, rounded up to 16 bytes."""
+    *outer, r, k = shape
+    if base % 16 or (k > 1 and strides[-1] != 1):
+        return None
+    out, inner = [], k
+    for size, stride in zip((r, *outer[::-1]), strides[-2::-1]):
+        if size == 1:
+            stride = -(-inner // 16) * 16
+        elif stride <= 0 or stride % 16 or stride >= 2 ** 40:
+            return None
+        out.append(stride)
+        inner = stride * size
+    return tuple(out[::-1])
+
+
+def _k_major(x):
+    """Residues (p, [T,] R, K) as the residue plane GEMM reads them:
+    themselves where :func:`tma_strides` allows, else their planes
+    (:func:`relayout_planes`)."""
+    if tma_strides(x.shape, x.stride(), x.data_ptr()) is None:
+        x = relayout_planes(x)
+    return x
+
+
+@lru_cache(maxsize=None)
+def _bind_relayout(lib: ctypes.CDLL):
+    fn = lib.emugemm2_relayout
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@lru_cache(maxsize=None)
+def _bind_residues(lib: ctypes.CDLL):
+    fn = lib.emugemm2_residues
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 3 + [_INT_P]
+                   + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch_relayout(x):
+    """Launch the relayout kernel on int8 residues x (p, T, R, K), any
+    strides: planes (p, T, R, Kp)."""
+    from repro_torch.kernels import build
+    p, phases, r, k = x.shape
+    planes = torch.empty((p, phases, r, plane_k(k)), dtype=torch.int8,
+                         device=x.device)
+    rc = _bind_relayout(build.load("emugemm2_planes"))(
+        x.data_ptr(), planes.data_ptr(), p, phases, r, k, planes.shape[-1],
+        *x.stride(), torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"emugemm2 relayout failed (code {rc}) for "
+                           f"{tuple(x.shape)} strides {x.stride()}")
+    return planes
+
+
+def launch_residues(a, b_t, moduli, out_re, out_im=None, epilogue=True):
+    """Launch the residue plane GEMM on K-major residues a (p, T, M, Ka)
+    and b_t (p, T, N, Kb) that :func:`tma_strides` reads in place (T = 3:
+    K7, into ``out_im`` too), into ``out_re`` (p, M, N) int8;
+    ``epilogue=False`` stops after the mainloop, leaving the outputs
+    unwritten (for timing). The tile width is :func:`plane_tile_n`'s, the
+    moduli as its batch."""
+    from repro_torch.kernels import build
+    p, phases, m, ka = a.shape
+    n, kb = b_t.shape[-2:]
+    sa = tma_strides(a.shape, a.stride(), a.data_ptr())
+    sb = tma_strides(b_t.shape, b_t.stride(), b_t.data_ptr())
+    if sa is None or sb is None:
+        raise ValueError(f"emugemm2 residue GEMM: operands {tuple(a.shape)} "
+                         f"strides {a.stride()} and {tuple(b_t.shape)} "
+                         f"strides {b_t.stride()} are not K-major planes a "
+                         "tensor map reads")
+    tile_n = plane_tile_n(p, m, n, a.device)
+    mods, _ = _crt_args(moduli)
+    rc = _bind_residues(build.load("emugemm2_planes"))(
+        a.data_ptr(), b_t.data_ptr(), out_re.data_ptr(),
+        out_im.data_ptr() if out_im is not None else None, m, n, ka, kb,
+        *sa, *sb, phases, tile_n, p, mods, int(epilogue),
+        torch.cuda.current_stream(a.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"emugemm2 residue GEMM failed (code {rc}) for "
+                           f"{tuple(a.shape)} @ {tuple(b_t.shape)} "
+                           f"moduli={moduli}")
+
+
+def _check_residues(a, b_t, moduli, phases):
+    """Raise unless a (p, [3,] M, Ka) and b_t (p, [3,] N, Kb) are int8
+    residues on one card for these moduli."""
+    lead = (len(moduli),) + ((3,) if phases == 3 else ())
+    if (a.shape[:-2] != lead or b_t.shape[:-2] != lead
+            or a.dtype != torch.int8 or b_t.dtype != torch.int8
+            or not a.is_cuda or b_t.device != a.device):
+        raise ValueError(f"emugemm2 residues: {tuple(a.shape)} {a.dtype} @ "
+                         f"{tuple(b_t.shape)} {b_t.dtype} on {b_t.device}, "
+                         f"{len(moduli)} moduli")
+    check_moduli(moduli)
+
+
+def relayout_planes(x: torch.Tensor) -> torch.Tensor:
+    """int8 residues (p, [T,] R, K) through any strides -> their
+    K-contiguous planes (p, [T,] R, Kp), zero residues past K.
+
+    CPU tensors take the plain version; CUDA tensors launch the relayout
+    kernel or raise.
+    """
+    if x.device.type == "cpu":
+        return relayout_planes_plain(x)
+    if x.dim() not in (3, 4) or x.dtype != torch.int8 or 0 in x.shape:
+        raise ValueError(f"emugemm2 relayout: {tuple(x.shape)} {x.dtype}")
+    planes = launch_relayout(x if x.dim() == 4 else x[:, None])
+    COUNTS.launches_relayout += 1
+    return planes if x.dim() == 4 else planes[:, 0]
+
+
+def residue_planes(a: torch.Tensor, b_t: torch.Tensor,
+                   moduli) -> torch.Tensor:
+    """K-major int8 residues a (p, M, Ka) and b_t (p, N, Kb), each read in
+    place (:func:`tma_strides`; past its K zero residues) -> the (p, M, N)
+    balanced int8 residues of a @ b_t^T mod each modulus.
+
+    CPU tensors take the plain version; CUDA tensors launch the residue
+    plane GEMM or raise.
+    """
+    moduli = tuple(int(m) for m in moduli)
+    if a.device.type == "cpu":
+        return residue_planes_plain(a, b_t, moduli)
+    _check_residues(a, b_t, moduli, 1)
+    out = torch.empty((len(moduli), a.shape[1], b_t.shape[1]),
+                      dtype=torch.int8, device=a.device)
+    if out.numel() == 0 or 0 in (a.shape[-1], b_t.shape[-1]):
+        return out.zero_()
+    launch_residues(a[:, None], b_t[:, None], moduli, out)
+    COUNTS.launches_residues += 1
+    return out
+
+
 def _check(a, b, mu, nu, moduli, out_dtype, b_type=None):
     """Raise unless the kernel has an instance for these operands;
     ``b_type`` is the rhs's float type (the prepared form's b is int8,
@@ -474,34 +659,20 @@ def fused_residue_matmul(a_res: torch.Tensor, b_res: torch.Tensor,
     """(p, M, K) @ (p, K, N) balanced int8 residues -> (p, M, N) balanced
     int8 residues of the products mod each modulus.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel's
-    residue form or raise.
+    CPU tensors take the plain version; CUDA tensors launch the residue
+    route (a relayout of each operand that is not read in place, then the
+    residue plane GEMM) or raise.
     """
-    from repro_torch.kernels import build
     moduli = tuple(int(m) for m in moduli)
     if a_res.device.type == "cpu":
         return fused_residue_matmul_plain(a_res, b_res, moduli)
     p, m, k = a_res.shape
     n = b_res.shape[-1]
-    if (b_res.dim() != 3 or b_res.shape[:2] != (p, k) or p != len(moduli)
-            or a_res.dtype != torch.int8 or b_res.dtype != torch.int8
-            or not b_res.is_cuda or b_res.device != a_res.device):
-        raise ValueError(f"emugemm2 residues: {tuple(a_res.shape)} "
-                         f"{a_res.dtype} @ {tuple(b_res.shape)} {b_res.dtype}"
-                         f" on {b_res.device}, {len(moduli)} moduli")
-    check_moduli(moduli)
-    out = torch.empty((p, m, n), dtype=torch.int8, device=a_res.device)
-    if out.numel() == 0 or k == 0:
-        return out.zero_()
-    fn = _bind_residues(build.load("emugemm2"))
-    mods, _ = _crt_args(moduli)
-    stream = torch.cuda.current_stream(a_res.device).cuda_stream
-    rc = fn(a_res.data_ptr(), b_res.data_ptr(), out.data_ptr(), m, n, k,
-            a_res.stride(0), a_res.stride(1), a_res.stride(2),
-            b_res.stride(0), b_res.stride(1), b_res.stride(2), p, mods,
-            stream)
-    if rc != 0:
-        raise RuntimeError(f"emugemm2 residue launch failed (code {rc}) for "
-                           f"{(p, m, k, n)}")
-    COUNTS.launches_residues += 1
-    return out
+    if b_res.dim() != 3 or b_res.shape[:2] != (p, k):
+        raise ValueError(f"emugemm2 residues: {tuple(a_res.shape)} @ "
+                         f"{tuple(b_res.shape)}")
+    b_t = b_res.transpose(-1, -2)
+    _check_residues(a_res, b_t, moduli, 1)
+    if m * n == 0 or k == 0:
+        return torch.zeros((p, m, n), dtype=torch.int8, device=a_res.device)
+    return residue_planes(_k_major(a_res), _k_major(b_t), moduli)

@@ -1,6 +1,6 @@
 """The complex 3M kernels of EmuGEMM-II (the plane route of
-``csrc/emugemm2_planes.cu`` for K7g, ``csrc/emugemm3m.cu`` for K7):
-wrappers, plain versions and launch counts.
+``csrc/emugemm2_planes.cu``, for K7g and K7): wrappers, plain versions
+and launch counts.
 
 * :func:`fused_matmul_3m` (K7g) takes a complex (or real) (M, K) @ (K, N),
   or a batch of them, (Bt, M, K) @ (Bt, K, N), with float32 or float64
@@ -23,8 +23,15 @@ wrappers, plain versions and launch counts.
 * :func:`fused_3m_residue_matmul` (K7) takes the (p, 3, M, K) and
   (p, 3, K, N) int8 phase stacks [re, im, re+im] of balanced residues and
   returns (c_re, c_im), each (p, M, N) balanced int8: per modulus the
-  three products and their 3M combination. Its plain version is the
-  reference's oracle ``repro.kernels.ref.scheme2_3m``, in torch.
+  three products and their 3M combination. It runs the residue route of
+  ``ozaki2``: a relayout of each phase stack that a tensor map cannot
+  read in place (``ozaki2.tma_strides``; B^T's, since B arrives
+  N-contiguous) and one :func:`residue_planes_3m`, the residue plane GEMM
+  whose block runs its modulus's three phase products and combines them
+  in its epilogue. Its plain version is the reference's oracle
+  ``repro.kernels.ref.scheme2_3m``, in torch, which
+  ``ozaki2.relayout_planes_plain`` and :func:`residue_planes_3m_plain`
+  compose.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
 it runs the plain version. The kernels replace the Pallas kernels
@@ -34,23 +41,24 @@ it runs the plain version. The kernels replace the Pallas kernels
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import torch
 
 from repro_torch.core import complex3m, scheme2
-from repro_torch.kernels.ozaki2 import (MAX_BATCH, PLANE_K, _INT_P,
-                                        _crt_args, check_moduli,
-                                        launch_encode, launch_planes, plane_k)
+from repro_torch.kernels.ozaki2 import (MAX_BATCH, PLANE_K, _check_residues,
+                                        _common_k, _k_major, check_moduli,
+                                        launch_encode, launch_planes,
+                                        launch_residues, plane_k)
 
 _PART_DTYPES = (torch.float32, torch.float64)
 
 
 @dataclasses.dataclass
 class LaunchCounts:
-    """Launches of each kernel, and calls of the plain versions on CUDA
-    tensors (which the library paths must never make)."""
+    """Launches of each kernel (the residue plane GEMM's, one a K7 call;
+    K7's relayouts count in ``ozaki2.COUNTS``), and calls of the plain
+    versions on CUDA tensors (which the library paths must never make)."""
     launches_encode: int = 0
     launches_planes: int = 0
     launches_residues: int = 0
@@ -94,11 +102,10 @@ def plane_matmul_3m_plain(a3, b3, mu, nu, moduli, out_dtype):
                                     out_dtype)
 
 
-def fused_3m_residue_matmul_plain(a3, b3, moduli):
-    """K7's function in plain torch ops (CPU or CUDA): per modulus the
-    three residue products, balanced, and their 3M combination."""
-    if a3.is_cuda:
-        COUNTS.plain_cuda_calls += 1
+def _combine_3m(a3, b3, moduli):
+    """Per modulus the three residue products of the phase stacks a3
+    (p, 3, M, K) and b3 (p, 3, K, N), balanced, and their 3M
+    combination: (c_re, c_im)."""
     c_re, c_im = [], []
     for l, m in enumerate(int(m) for m in moduli):
         t1, t2, t3 = (complex3m._balanced(
@@ -109,13 +116,45 @@ def fused_3m_residue_matmul_plain(a3, b3, moduli):
     return torch.stack(c_re), torch.stack(c_im)
 
 
-def _bind_residues(lib: ctypes.CDLL):
-    fn = lib.emugemm3m_residues
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                   + [ctypes.c_longlong] * 8 + [ctypes.c_int] + [_INT_P]
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+def fused_3m_residue_matmul_plain(a3, b3, moduli):
+    """K7's function in plain torch ops (CPU or CUDA): per modulus the
+    three residue products, balanced, and their 3M combination."""
+    if a3.is_cuda:
+        COUNTS.plain_cuda_calls += 1
+    return _combine_3m(a3, b3, moduli)
+
+
+def residue_planes_3m_plain(a3, b3_t, moduli):
+    """The 3M residue plane GEMM's function in plain torch ops (CPU or
+    CUDA): K-major phase stacks a3 (p, 3, M, Ka) and b3_t (p, 3, N, Kb),
+    past each one's K zero residues -> (c_re, c_im) of a3 @ b3_t^T."""
+    if a3.is_cuda:
+        COUNTS.plain_cuda_calls += 1
+    a3, b3_t = _common_k(a3, b3_t)
+    return _combine_3m(a3, b3_t.transpose(-1, -2), moduli)
+
+
+def residue_planes_3m(a3: torch.Tensor, b3_t: torch.Tensor, moduli):
+    """K-major int8 phase stacks a3 (p, 3, M, Ka) and b3_t (p, 3, N, Kb),
+    each read in place (``ozaki2.tma_strides``; past its K zero residues)
+    -> (c_re, c_im), each (p, M, N) balanced int8: the three products of
+    a3 @ b3_t^T per modulus and their 3M combination.
+
+    CPU tensors take the plain version; CUDA tensors launch the residue
+    plane GEMM or raise.
+    """
+    moduli = tuple(int(m) for m in moduli)
+    if a3.device.type == "cpu":
+        return residue_planes_3m_plain(a3, b3_t, moduli)
+    _check_residues(a3, b3_t, moduli, 3)
+    c_re = torch.empty((len(moduli), a3.shape[2], b3_t.shape[2]),
+                       dtype=torch.int8, device=a3.device)
+    c_im = torch.empty_like(c_re)
+    if c_re.numel() == 0 or 0 in (a3.shape[-1], b3_t.shape[-1]):
+        return c_re.zero_(), c_im.zero_()
+    launch_residues(a3, b3_t, moduli, c_re, c_im)
+    COUNTS.launches_residues += 1
+    return c_re, c_im
 
 
 def _parts_view(x: torch.Tensor):
@@ -242,34 +281,21 @@ def fused_3m_residue_matmul(a3: torch.Tensor, b3: torch.Tensor, moduli):
     """(p, 3, M, K) @ (p, 3, K, N) int8 phase stacks [re, im, re+im] ->
     (c_re, c_im), each (p, M, N) balanced int8.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel's
-    residue form or raise.
+    CPU tensors take the plain version; CUDA tensors launch the residue
+    route (a relayout of each phase stack that is not read in place, then
+    the residue plane GEMM) or raise.
     """
-    from repro_torch.kernels import build
     moduli = tuple(int(m) for m in moduli)
     if a3.device.type == "cpu":
         return fused_3m_residue_matmul_plain(a3, b3, moduli)
     p, three, m, k = a3.shape
     n = b3.shape[-1]
-    if (three != 3 or b3.dim() != 4 or b3.shape[:3] != (p, 3, k)
-            or p != len(moduli) or a3.dtype != torch.int8
-            or b3.dtype != torch.int8 or not b3.is_cuda
-            or b3.device != a3.device):
-        raise ValueError(f"emugemm3m residues: {tuple(a3.shape)} {a3.dtype}"
-                         f" @ {tuple(b3.shape)} {b3.dtype} on {b3.device}, "
-                         f"{len(moduli)} moduli")
-    check_moduli(moduli)
-    c_re = torch.empty((p, m, n), dtype=torch.int8, device=a3.device)
-    c_im = torch.empty_like(c_re)
-    if c_re.numel() == 0 or k == 0:
-        return c_re.zero_(), c_im.zero_()
-    fn = _bind_residues(build.load("emugemm3m"))
-    mods, _ = _crt_args(moduli)
-    stream = torch.cuda.current_stream(a3.device).cuda_stream
-    rc = fn(a3.data_ptr(), b3.data_ptr(), c_re.data_ptr(), c_im.data_ptr(),
-            m, n, k, *a3.stride(), *b3.stride(), p, mods, stream)
-    if rc != 0:
-        raise RuntimeError(f"emugemm3m residue launch failed (code {rc}) for "
-                           f"{(p, m, k, n)}")
-    COUNTS.launches_residues += 1
-    return c_re, c_im
+    if three != 3 or b3.dim() != 4 or b3.shape[:3] != (p, 3, k):
+        raise ValueError(f"emugemm3m residues: {tuple(a3.shape)} @ "
+                         f"{tuple(b3.shape)}")
+    b3_t = b3.transpose(-1, -2)
+    _check_residues(a3, b3_t, moduli, 3)
+    if m * n == 0 or k == 0:
+        c_re = torch.zeros((p, m, n), dtype=torch.int8, device=a3.device)
+        return c_re, torch.zeros_like(c_re)
+    return residue_planes_3m(_k_major(a3), _k_major(b3_t), moduli)

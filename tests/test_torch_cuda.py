@@ -3,11 +3,12 @@ encode and the plane GEMM of the 2-D and mixed routes; its batched and
 interleaved launch forms), the decomposition (K2, K2r, K11), the int8 GEMM (K9), fused
 attention (K10: the bf16 wgmma kernel, the float32 3xTF32 wgmma kernel
 and its pre-pass, the float32 FFMA kernel at D = 256), EmuGEMM-II's
-residue kernel (K5), its plane route (the encode kernels and the plane
-GEMM) for every product of float operands, 2-D and batched (K5g and K6
+plane route (the encode kernels and the plane GEMM) for every product of
+float operands, 2-D and batched (K5g and K6
 with a float rhs: float32, bfloat16 in any pairing and float64; K7g), and
 for the prepared form (K5g with a residue rhs: float32, bfloat16 and
-float64), and the complex residue kernel K7 against their plain versions,
+float64), and its residue forms K5 and K7 (the relayout and the residue
+plane GEMM) against their plain versions,
 bit for bit (attention within its bars), the dispatcher's routing of
 CUDA tensors (complex 4M included), and train steps that launch them
 (a hoisted microbatch step among them).
@@ -19,6 +20,7 @@ imports no jax, so it runs where only torch is installed:
 """
 
 import dataclasses
+import math
 
 import pytest
 import torch
@@ -614,6 +616,94 @@ def test_complex_routes_on_card(cuda_device):
 # ---------------------------------------------------------------------------
 # EmuGEMM-II's prepared form (K5g with a residue rhs) and the hoisted step.
 # ---------------------------------------------------------------------------
+
+# (p, 3, M, K) phase stacks and (p, M, K) residues in layouts the residue
+# route reads in place or lays out first.
+RESIDUE_MODULI = {1: (255,), 6: (3, 5, 7, 11, 13, 256), 16: default_moduli(16)}
+
+
+def _residue_operands(g, dev, p, lead, m, k, n):
+    """(label, a, b) int8 residues (p, *lead, M, K) @ (p, *lead, K, N),
+    full-range: contiguous; B as the transposed view of B^T's residues;
+    an A whose modulus / phase strides are not the contiguous ones; a
+    base one byte off."""
+    def res(*shape):
+        return torch.randint(-128, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+    a, b = res(p, *lead, m, k), res(p, *lead, k, n)
+    perm = (1, 2, 0, 3) if lead else (1, 0, 2)
+    a_perm = res(m, p, *lead, k).permute(*perm)
+    a_off = res(p * math.prod(lead) * m * k + 1)[1:].view(p, *lead, m, k)
+    return [("contiguous", a, b),
+            ("B^T view", a, res(p, *lead, n, k).transpose(-1, -2)),
+            ("strided A", a_perm, b), ("offset A", a_off, b)]
+
+
+@pytest.mark.parametrize("p", [1, 6, 16])
+def test_residue_route_bit_identical_to_plain_on_card(cuda_device, p):
+    """K5 and K7 on the residue route (relayouts where a tensor map cannot
+    read an operand, then one residue plane GEMM) against their plain
+    versions, bit for bit, and the pieces against theirs (the relayout
+    alone on every case's A and B^T, the zero residues past K included)."""
+    g = torch.Generator(device=cuda_device).manual_seed(900 + p)
+    moduli = RESIDUE_MODULI[p]
+    for m, k, n in [(1, 1, 1), (17, 15, 129), (129, 127, 300), (300, 129, 17),
+                    (128, 4096, 256)]:
+        for lbl, a, b in _residue_operands(g, cuda_device, p, (), m, k, n):
+            ozaki2.COUNTS.reset()
+            out = ozaki2.fused_residue_matmul(a, b, moduli)
+            relaid = ozaki2.COUNTS.launches_relayout
+            want = sum(ozaki2.tma_strides(x.shape, x.stride(),
+                                          x.data_ptr()) is None
+                       for x in (a, b.transpose(-1, -2)))
+            assert (ozaki2.COUNTS.launches_residues, relaid) == (1, want)
+            ref = ozaki2.fused_residue_matmul_plain(a, b, moduli)
+            torch.cuda.synchronize()
+            assert torch.equal(out, ref), (lbl, m, k, n)
+            for x in (a, b.transpose(-1, -2)):
+                assert torch.equal(ozaki2.relayout_planes(x),
+                                   ozaki2.relayout_planes_plain(x)), (
+                    "relayout", lbl, m, k, n)
+        for lbl, a3, b3 in _residue_operands(g, cuda_device, p, (3,), m, k, n):
+            ozaki3m.COUNTS.reset()
+            out = ozaki3m.fused_3m_residue_matmul(a3, b3, moduli)
+            assert ozaki3m.COUNTS.launches_residues == 1
+            ref = ozaki3m.fused_3m_residue_matmul_plain(a3, b3, moduli)
+            torch.cuda.synchronize()
+            assert all(torch.equal(x, y) for x, y in zip(out, ref)), (lbl, m,
+                                                                     k, n)
+            for x in (a3, b3.transpose(-1, -2)):
+                assert torch.equal(ozaki2.relayout_planes(x),
+                                   ozaki2.relayout_planes_plain(x)), (
+                    "relayout 3m", lbl, m, k, n)
+    a = torch.randint(-128, 128, (p, 3, 100, 200), generator=g,
+                      device=cuda_device, dtype=torch.int8)
+    b_t = torch.randint(-128, 128, (p, 3, 77, 200), generator=g,
+                        device=cuda_device, dtype=torch.int8)
+    pa, pb = ozaki2.relayout_planes(a), ozaki2.relayout_planes(b_t)
+    torch.cuda.synchronize()
+    assert torch.equal(pa, ozaki2.relayout_planes_plain(a))
+    assert torch.equal(ozaki2.residue_planes(pa[:, 0], pb[:, 0], moduli),
+                       ozaki2.residue_planes_plain(pa[:, 0], pb[:, 0], moduli))
+    for x, y in zip(ozaki3m.residue_planes_3m(pa, pb, moduli),
+                    ozaki3m.residue_planes_3m_plain(pa, pb, moduli)):
+        assert torch.equal(x, y)
+    assert ozaki2.COUNTS.plain_cuda_calls > 0      # the references above
+
+
+def test_residue_route_wraps_int32_on_card(cuda_device):
+    """All -128 over K = 131200, mod 255: each int32 sum wraps, and the
+    route wraps as the plain version (and the reference) does."""
+    a = torch.full((1, 128, 131200), -128, dtype=torch.int8,
+                   device=cuda_device)
+    b = torch.full((1, 131200, 128), -128, dtype=torch.int8,
+                   device=cuda_device)
+    out = ozaki2.fused_residue_matmul(a, b, (255,))
+    ref = ozaki2.fused_residue_matmul_plain(a, b, (255,))
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert (ref != (131200 * 2 ** 14 + 127) % 255 - 127).all()
+
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float64])
