@@ -8,12 +8,17 @@ card, with no CPU fallback, in nineteen phases:
 1. build: nvcc compiles the port's CUDA kernels from this checkout (six
    sources), one process per source, in parallel;
 2. kernel: every kernel of the serving path is held against its plain
-   version bit for bit at the path's shapes (float32 and bfloat16,
-   p in {3, 4, 6}; the 2-D GEMMs on EmuGEMM-I's plane route, each of
-   their encodes against its plain version too, and one GEMM whose top
-   diagonal wraps int32), and timed beside its bound: the 2-D route with
-   its split (the encodes, the plane GEMM and its mainloop) beside the
-   fused kernel of emugemm1.cu that it replaced;
+   version bit for bit at the path's shapes (float32 and bfloat16; the
+   2-D GEMMs on EmuGEMM-I's plane route at p in {3, 4, 6}, each of their
+   encodes against its plain version too, and one GEMM whose top
+   diagonal wraps int32; the batched kernel (attn_qk, attn_av), one
+   launch a call, at p in {1, 3, 4, 6, 8} at the path's shapes of a mixed
+   and a decode step, on ragged shapes, with B read as the key cache's
+   transposed view and as the value cache's rows out of a longer buffer
+   and A through its transpose, and on one product whose top diagonal
+   wraps int32), and timed beside its bound: the 2-D route with its split
+   (the encodes, the plane GEMM and its mainloop), the batched kernel at
+   both of its tile heights;
 3. serve: the continuous-batching engine serves 8 requests (prompt 48,
    16 new tokens, 4 lanes, chunk 16, page 16) on full-width olmo-1b with
    seeded random weights under ozaki1-p4; the kernels' launch counts are
@@ -126,14 +131,16 @@ card, with no CPU fallback, in nineteen phases:
     halves' per-call-cached ones, the uncached ozaki2-m6 ones, and those
     of the 'torch' backend, bit for bit.
 19. library: the kernels no model reaches. EmuGEMM-I on interleaved
-    operands (K8) and the lhs decomposition (K11) are held against their
-    plain versions bit for bit at olmo-1b's dense shapes at 1024 tokens
-    and a ragged shape (float32 and bfloat16, p in {3, 4, 6}), and K11 +
-    K2r -> K8 and the 'xla' route of ``ops.fused_scheme1_matmul`` against
-    K1; the int8 GEMM (K9) bit for bit at 4096^3, 1024 x 2048 x 8192 and a
-    ragged shape; then the library's entry points run with the counts read
-    around them: the 'xla' route and the decompositions feeding K8 (K11
-    with K2r and with K2; bf16, p = 4), the naive Fig. 4 structure
+    operands (K8: a relayout of each operand into planes and one plane
+    GEMM) and the lhs decomposition (K11) are held against their plain
+    versions bit for bit at olmo-1b's dense shapes at 1024 tokens and a
+    ragged shape (float32 and bfloat16, p in {3, 4, 6}; each relayout
+    alone too), and K11 + K2r -> K8 and the 'xla' route of
+    ``ops.fused_scheme1_matmul`` against K1; the int8 GEMM (K9) bit for
+    bit at 4096^3, 1024 x 2048 x 8192 and a ragged shape; then the
+    library's entry points run with the counts read around them: the
+    'xla' route and the decompositions feeding K8 (K11 with K2r and with
+    K2; bf16, p = 4), the naive Fig. 4 structure
     (p(p+1)/2 K9 launches) at 4096^3, which must equal K1, and fused
     attention (K10) at olmo-1b's heads (2 x 16 x 2048 x 128, causal, bf16
     and float32, and a window of 1024),
@@ -146,7 +153,9 @@ card, with no CPU fallback, in nineteen phases:
     at D = 256); each kernel is timed beside its bound (the float32 ones
     also beside the FFMA bound, with the device kernels a call runs),
     its plain version and, for K9 and K10, torch._int_mm and
-    scaled_dot_product_attention.
+    scaled_dot_product_attention; K8 with its relayouts, plane GEMM and
+    mainloop apart, the relayouts beside one .contiguous() of the
+    permuted interleaved views.
 
 Right after the build, one line names the device kernels that the
 library yardsticks (cuBLAS's batched DGEMM, scaled_dot_product_attention
@@ -169,6 +178,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import itertools
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
@@ -207,7 +217,7 @@ TF32_FLOPS_PER_S = 495e12
 FP32_FLOPS_PER_S = 67e12
 L2_BYTES = 50 * 2 ** 20
 
-SOURCE = "src/repro_torch/kernels/csrc/emugemm1.cu"
+SOURCE_S1_BATCHED = "src/repro_torch/kernels/csrc/emugemm1_batched.cu"
 SOURCE_S1_PLANES = "src/repro_torch/kernels/csrc/emugemm1_planes.cu"
 DECOMPOSE_SOURCE = "src/repro_torch/kernels/csrc/decompose.cu"
 EMU = "olmo-1b-emu"
@@ -388,12 +398,84 @@ def wrap_phase_case(dev, max_err):
         "plain version bit for bit")
 
 
+def batched_operands(gen, dev, dtype, batch, m, k, n, layout):
+    """A (batch, m, k) and B (batch, k, n) of the batched form in one of
+    its layouts: 'contiguous' (the path's copies: B N-contiguous); 'ck' (B
+    the transposed, K-contiguous view of a key cache of n + 16 rows, so
+    that its batch stride is not n x k); 'cv' (B the first k rows of a
+    value cache of k + 16, N-contiguous); 'at' (A read through its
+    transpose, B contiguous)."""
+    if layout == "ck":
+        b = conditioned(gen, (batch, n + 16, k), dtype, dev)[:, :n].transpose(
+            1, 2)
+    elif layout == "cv":
+        b = conditioned(gen, (batch, k + 16, n), dtype, dev)[:, :k]
+    else:
+        b = conditioned(gen, (batch, k, n), dtype, dev)
+    a = (conditioned(gen, (batch, k, m), dtype, dev).transpose(1, 2)
+         if layout == "at" else conditioned(gen, (batch, m, k), dtype, dev))
+    return a, b
+
+
+def batched_checks(gen, dev, mixed, decode, max_err):
+    """The batched kernel against fused_matmul_plain, bit for bit, one
+    launch a call: every batched path shape of a mixed and a decode step
+    in every layout of ``batched_operands``, ragged shapes (batch 3, M 17,
+    N 77, K in {1, 129, 1000}), float32 and bf16 operands to both output
+    types, p in {1, 3, 4, 6, 8}; then a product whose top diagonal wraps
+    int32 at both tile heights. Returns the case count."""
+    layouts = ("contiguous", "ck", "cv", "at")
+    cases = [(bt, m, k, n) for kind, bt, m, k, n, _, _ in mixed + decode
+             if kind == "batched"]
+    cases += [(3, 17, k, 77) for k in (1, 129, 1000)]
+    checks = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for p in (1, 3, 4, 6, 8):
+            for (bt, m, k, n), layout in itertools.product(cases, layouts):
+                a, b = batched_operands(gen, dev, dtype, bt, m, k, n, layout)
+                mu, nu = scheme1.pow2_scale(a, -1), scheme1.pow2_scale(b, -2)
+                for out_dtype in (torch.float32, torch.bfloat16):
+                    ozaki1.COUNTS.reset()
+                    out = ozaki1.fused_matmul_scheme1(a, b, mu, nu, p, 7,
+                                                      out_dtype)
+                    c = ozaki1.COUNTS
+                    if (c.launches_batched, c.plain_cuda_calls) != (1, 0):
+                        raise AssertionError(f"a batched call launched {c}")
+                    ref = ozaki1.fused_matmul_plain(a, b, mu, nu, p, 7,
+                                                    out_dtype)
+                    check_equal(f"batched {(bt, m, k, n)} {layout} {dtype} "
+                                f"-> {out_dtype} p={p}", out, ref, max_err,
+                                "batched")
+                    checks += 1
+    # The wrap: 1 - 2^-24 carves to the slices 127, 127, 127, 112, so the
+    # top diagonal sums 60706 a K step.
+    bt, m, k, n = 2, 40, 50688, 70
+    a = torch.full((bt, m, k), 1 - 2 ** -24, device=dev)
+    b = torch.full((bt, k, n), 1 - 2 ** -24, device=dev)
+    mu, nu = scheme1.pow2_scale(a, -1), scheme1.pow2_scale(b, -2)
+    ref = ozaki1.fused_matmul_plain(a, b, mu, nu, P_MAIN, 7, torch.float32)
+    for tile_n in (16, 32):
+        check_equal(f"batched int32-wrap case, tile {tile_n}",
+                    ozaki1.launch_batched(a, b, mu, nu, P_MAIN, 7,
+                                          torch.float32, tile_n=tile_n),
+                    ref, max_err, "batched")
+    pa = ozaki1.encode_planes_plain(a[0], mu[0], P_MAIN, 7).double()
+    pb = ozaki1.encode_planes_plain(b[0].T, nu[0].T, P_MAIN, 7).double()
+    top = sum(pa[i] @ pb[P_MAIN - 1 - i].T for i in range(P_MAIN))
+    if not top.max().item() > 2 ** 31 - 1:
+        raise AssertionError("the batched int32-wrap case did not wrap")
+    log(f"[kernel] batched: {checks} shape/layout/type/p cases bit-identical "
+        f"to the plain version, one launch each; the int32-wrap case "
+        f"{(bt, m, k, n)} (top diagonal {top.max().item():.4g} > 2^31) at "
+        "both tile heights")
+    return checks + 2
+
+
 def route_times(gen, dev, m, k, n, tr, p, bf, copies):
     """Device ms of one 2-D EmuGEMM-I call at (m, k, n), bf16, p slices,
     weight copies rotated past the L2: the route (2 encodes + the plane
     GEMM), its lhs and weight encodes, the plane GEMM and its mainloop
-    alone, the plain version, and the fused kernel of emugemm1.cu that the
-    route replaced (its batched launch at batch 1)."""
+    alone, and the plain version."""
     a = conditioned(gen, (m, k), bf, dev)
     bs = [(conditioned(gen, (n, k), bf, dev).T if tr
            else conditioned(gen, (k, n), bf, dev)) for _ in range(copies)]
@@ -427,8 +509,6 @@ def route_times(gen, dev, m, k, n, tr, p, bf, copies):
             ozaki1.encode_planes_plain(b.T, nu.T, p, 7))), 3),
         "planes_plain_ms": time_ms(rot(lambda b, nu, pb: (
             ozaki1.plane_matmul_plain(pa, pb, mu, nu, p, 7, bf))), 3),
-        "fused_ms": time_ms(rot(lambda b, nu, pb: ozaki1._launch(
-            a[None], b[None], mu[None], nu[None], p, 7, bf)), 5),
     }
     other = 128 if ozaki1.plane_tile_m(m) == 64 else 64
     t[f"planes_tile{other}_ms"] = time_ms(rot(
@@ -444,13 +524,11 @@ def kernel_phase(dev, mcfg, view_tokens):
     checks = 0
     mixed = path_shapes(mcfg, view_tokens, CHUNK)
     decode = path_shapes(mcfg, view_tokens, 1)
-    # Bit-identity at every path shape, every 2-D one at M = 4 (a decode
-    # step) and M = 64 (a mixed step), and on a ragged shape, for both
-    # operand types and p in {3, 4, 6}; each 2-D case's two encodes too.
+    # Bit-identity at every 2-D path shape at M = 4 (a decode step) and
+    # M = 64 (a mixed step), and on a ragged shape, for both operand types
+    # and p in {3, 4, 6}; each case's two encodes too.
     cases = [(kind, bt, mm, k, n, tr) for kind, bt, m, k, n, tr, _ in mixed
-             for mm in ((4, LANES * CHUNK) if kind == "2d" else (m,))]
-    cases += [(kind, bt, m, k, n, tr) for kind, bt, m, k, n, tr, _ in decode
-              if kind == "batched"]
+             if kind == "2d" for mm in (4, LANES * CHUNK)]
     cases.append(("2d", 1, 37, 1000, 77, True))
     for dtype in (torch.float32, torch.bfloat16):
         for p in (3, 4, 6):
@@ -469,18 +547,20 @@ def kernel_phase(dev, mcfg, view_tokens):
                     raise AssertionError(
                         f"kernel != plain version: {kind} {(bt, m, k, n)} "
                         f"transposed={tr} {dtype} p={p}, max |diff| {err}")
-                if kind == "2d":
-                    check_encodes("serve", ((a, mu, p, 7), (b.T, nu.T, p, 7)),
-                                  max_err)
+                check_encodes("serve", ((a, mu, p, 7), (b.T, nu.T, p, 7)),
+                              max_err)
                 checks += 1
     wrap_phase_case(dev, max_err)
-    log(f"[kernel] {checks} shape/type/p cases bit-identical to the plain "
-        "version (the 2-D ones on the plane route, their encodes too)")
+    checks += batched_checks(gen, dev, mixed, decode, max_err)
+    log(f"[kernel] {checks} cases bit-identical to the plain version (the "
+        "2-D ones on the plane route, their encodes too; the batched ones "
+        "one launch each)")
 
     # Timing at the main path's configuration (bf16, p = 4), per shape and
     # summed over one mixed and one decode step's launches.
     keys = ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms", "yardstick_ms",
-            "encode_ms", "planes_ms", "mainloop_ms", "fused_ms",
+            "encode_ms", "planes_ms", "mainloop_ms", "other_tile_ms",
+            "events_ms",
             "encode_plain_ms", "planes_plain_ms", "encode_bound_ms",
             "planes_bound_ms", "planes_ops_bound_ms", "ops")
     totals = {(step, kind): dict.fromkeys(keys, 0.0)
@@ -534,16 +614,28 @@ def kernel_phase(dev, mcfg, view_tokens):
                       f"{t['mainloop_ms']:.4f}, {t['mainloop_tops']:.1f} "
                       f"TOPS; bound {t['planes_bound_ms']:.4f}), the other "
                       f"tile {[v for x, v in t.items() if 'tile' in x][0]:.4f}"
-                      f" ms, emugemm1.cu's fused kernel {t['fused_ms']:.4f} ms")
+                      " ms")
         else:
             a = conditioned(gen, lead + (m, k), bf, dev)
             b = conditioned(gen, lead + (k, n), bf, dev)
             mu, nu = scheme1.pow2_scale(a, -1), scheme1.pow2_scale(b, -2)
-            t = {"ms": time_ms(lambda: ozaki1.fused_matmul_scheme1(
+            # Back-to-back calls by CUDA events measure the host's wrapper
+            # at these shapes; the kernel's own time is the profiler's.
+            other = 32 if ozaki1.batched_tile_n(m) == 16 else 16
+
+            def run(tile_n=None):
+                return ozaki1.launch_batched(a, b, mu, nu, P_MAIN, 7, bf,
+                                             tile_n=tile_n)
+            t = {"events_ms": time_ms(lambda: ozaki1.fused_matmul_scheme1(
                      a, b, mu, nu, P_MAIN, 7, bf), 20),
+                 "ms": device_ms(run),
                  "plain_ms": time_ms(lambda: ozaki1.fused_matmul_plain(
-                     a, b, mu, nu, P_MAIN, 7, bf), 3)}
-            detail = ""
+                     a, b, mu, nu, P_MAIN, 7, bf), 3),
+                 "other_tile_ms": device_ms(lambda: run(other))}
+            detail = (f"; route: the kernel's device time (profiler) at "
+                      f"{ozaki1.batched_tile_n(m)} rows a tile, at {other} "
+                      f"{t['other_tile_ms']:.4f} ms; by CUDA events "
+                      f"{t['events_ms']:.4f} ms")
         t.update(yardstick_ms=yard, bound_ms=bms)
         timed[key] = (t, by)
         _add_times(totals[step, kind], count, t, by)
@@ -557,8 +649,10 @@ def kernel_phase(dev, mcfg, view_tokens):
                  f"{t['encode_bound_ms']:.3f}), plane GEMMs "
                  f"{t['planes_ms']:.3f} ms (mainloop {t['mainloop_ms']:.3f}, "
                  f"{t['ops'] / t['mainloop_ms'] / 1e9:.1f} TOPS; bound "
-                 f"{t['planes_bound_ms']:.3f}), emugemm1.cu's fused kernel "
-                 f"{t['fused_ms']:.3f} ms" if kind == "2d" else "")
+                 f"{t['planes_bound_ms']:.3f})" if kind == "2d" else
+                 f"; route by device time, the other tile height "
+                 f"{t['other_tile_ms']:.3f} ms, by CUDA events "
+                 f"{t['events_ms']:.3f} ms")
         log(f"[kernel] {kind} per {step} step: route {t['ms']:.3f} ms, "
             f"plain {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms, "
             f"yardstick {t['yardstick_ms']:.3f} ms" + extra)
@@ -817,6 +911,28 @@ def yardstick_kernels(fn, calls: int = 10) -> dict:
             names[label] = (names.get(label, 0.0) + (
                 e.time_range.end - e.time_range.start) / 1e3 / calls)
     return names
+
+
+def device_ms(fn, calls: int = 20) -> float:
+    """Mean device ms of the one kernel ``fn`` launches a call, from one
+    torch.profiler pass over ``calls`` calls: the mean of the kernel
+    events the pass kept (a pass late in a process was seen to drop one
+    of 50); raises if it kept none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    if not spans:
+        raise AssertionError(f"the profiler kept no kernel event of {calls} "
+                             "calls")
+    return sum(spans) / 1e3 / len(spans)
 
 
 def yardstick_phase(dev):
@@ -2859,6 +2975,15 @@ def trainer_phase():
 # Phase 19: the library kernels (K8, K11, K9, K10).
 # ---------------------------------------------------------------------------
 
+def s1_relayout_bound(m, k, n, p):
+    """K8's two relayouts: A-hat and B-hat (p Kp bytes a row, Kp = K padded
+    to decompose.TILE) read once, their planes (p Kp' a row, Kp' =
+    plane_k(Kp)) written once."""
+    kp = decompose.round_up(k)
+    moved = p * (m + n) * (kp + ozaki1.plane_k(kp))
+    return 1e3 * moved / HBM_BYTES_PER_S, "bytes"
+
+
 def lhs_bound(m, k, p, in_bytes):
     """K11: A and mu read once, the p planes of (M, Kp) written once."""
     moved = in_bytes * m * k + 4 * m + p * m * decompose.round_up(k)
@@ -2958,8 +3083,8 @@ def library_phase(dev, mcfg):
     through the library's entry points with the counts read around them,
     and timed beside their bounds and library calls."""
     gen = torch.Generator(device=dev).manual_seed(19)
-    max_err = {"interleaved": 0.0, "lhs": 0.0, "int8": 0.0, "flash": 0.0,
-               "flash_f32": 0.0, "split": 0.0}
+    max_err = {"interleaved": 0.0, "relayout": 0.0, "lhs": 0.0, "int8": 0.0,
+               "flash": 0.0, "flash_f32": 0.0, "split": 0.0}
     shapes = dense_shapes(mcfg)
 
     # (a) K11 and K8, bit for bit: against the plain versions, K11 + K2r
@@ -2979,6 +3104,11 @@ def library_phase(dev, mcfg):
                             decompose.decompose_lhs_plain(a, mu, p, beta),
                             max_err, "lhs")
                 b_hat = decompose.decompose_interleave_rhs(b, nu, p, beta)
+                for x, operand in ((a_hat, "a"), (b_hat, "b")):
+                    check_equal(f"K8's relayout of {operand}-hat {what}",
+                                ozaki1.relayout_interleaved(x, p, operand),
+                                ozaki1.relayout_interleaved_plain(
+                                    x, p, operand), max_err, "relayout")
                 out = ozaki1.fused_matmul_interleaved(a_hat, b_hat, mu, nu,
                                                       p, beta, dtype)
                 check_equal(f"K8 {what}", out,
@@ -2997,8 +3127,8 @@ def library_phase(dev, mcfg):
                 checks += 1
                 del a, b, a_hat, b_hat, out, routes
     log(f"[library] K11 and K8: {checks} shape/type/p cases bit-identical to "
-        "their plain versions; K11 + K2r -> K8 == K1 and the 'xla' route "
-        "== the 'kernel' route in every case")
+        "their plain versions (K8's relayouts alone too); K11 + K2r -> K8 "
+        "== K1 and the 'xla' route == the 'kernel' route in every case")
 
     # (b) K9, bit for bit.
     for m, k, n in INT8_CHECK:
@@ -3047,20 +3177,23 @@ def library_phase(dev, mcfg):
     n_mm = p * (p + 1) // 2
     kernels = [flash_attn.instance(getattr(torch, c[9]), c[6]).kernel
                for c in ATTN_CASES]
-    log(f"[library] main path: K8 {e1.launches_interleaved}, K11 "
+    log(f"[library] main path: K8 {e1.launches_interleaved} (relayouts "
+        f"{e1.launches_relayout}, plane GEMMs {e1.launches_planes}), K11 "
         f"{dc.launches_lhs}, K2r {dc.launches_rhs}, K2 {dc.launches_pair}, K9 "
         f"{counts['int8'].launches}, K10 {counts['flash'].launches} "
         f"({', '.join(kernels)}; the 3xTF32 pre-pass "
         f"{counts['flash'].launches_split}), K1 {e1.launches_2d}, plain "
         f"versions on CUDA {sum(c.plain_cuda_calls for c in counts.values())}")
     fl = counts["flash"]
-    expected = (3 * len(shapes), len(shapes), len(shapes), len(shapes), n_mm,
+    expected = (3 * len(shapes), 6 * len(shapes), 3 * len(shapes),
+                len(shapes), len(shapes), len(shapes), n_mm,
                 len(ATTN_CASES), kernels.count("wgmma-3xtf32"),
-                kernels.count("ffma"), kernels.count("wgmma-3xtf32"), 0)
-    got = (e1.launches_interleaved, dc.launches_lhs, dc.launches_rhs,
-           dc.launches_pair, counts["int8"].launches, fl.launches,
-           fl.launches_3xtf32, fl.launches_ffma, fl.launches_split,
-           e1.launches_2d)
+                kernels.count("ffma"), kernels.count("wgmma-3xtf32"), 0, 0)
+    got = (e1.launches_interleaved, e1.launches_relayout, e1.launches_planes,
+           dc.launches_lhs, dc.launches_rhs, dc.launches_pair,
+           counts["int8"].launches, fl.launches, fl.launches_3xtf32,
+           fl.launches_ffma, fl.launches_split, e1.launches_2d,
+           e1.launches_encode)
     if got != expected:
         raise AssertionError(f"library main path launches {got}, expected "
                              f"{expected}")
@@ -3094,30 +3227,84 @@ def library_phase(dev, mcfg):
         "3xTF32 pre-pass bit-identical to its plain version")
     del routed, composed, paired, naive, attn
 
-    # Times. K8 and K11 summed over one launch at each dense shape.
-    t8, t11 = ({"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
-                "ops_ms": 0.0, "yardstick_ms": 0.0} for _ in range(2))
+    # Times. K8 and K11 summed over one launch at each dense shape; K8's
+    # relayouts (beside one .contiguous() of the permuted interleaved
+    # views, which is the relayout where Kp is a whole number of K
+    # tiles), plane GEMM and mainloop apart.
+    t8, t11, trel, t2, t2r = ({"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                               "bytes_ms": 0.0, "ops_ms": 0.0,
+                               "yardstick_ms": 0.0} for _ in range(5))
+    split8 = dict.fromkeys(("relayout_ms", "planes_ms", "mainloop_ms",
+                            "library_ms", "planes_bound_ms"), 0.0)
     for (m, k, n), (a, b) in zip(shapes, xs):
         beta = scheme1_cfg(p, "xla").resolved_beta(k)
+        beta_t = scheme1_cfg(p, "xla").resolved_beta(n)
         mu, nu = scheme1.pow2_scale(a, 1), scheme1.pow2_scale(b, 0)
+        tau = scheme1.pow2_scale(b, 1).T
         a_hat = decompose.decompose_interleave(a, mu, p, beta)
         b_hat = decompose.decompose_interleave_rhs(b, nu, p, beta)
         for tot, run_k, run_p, (bms, by) in (
+                (t2r, lambda: decompose.decompose_interleave_rhs(
+                    b, nu, p, beta),
+                 lambda: decompose.decompose_rhs_plain(b, nu, p, beta),
+                 rhs_bound(k, n, p, 2)),
+                (t2, lambda: decompose.decompose_interleave_pair(
+                    b, nu, tau, p, beta, beta_t),
+                 lambda: decompose.decompose_pair_plain(
+                     b, nu, tau, p, beta, beta_t),
+                 pair_bound(k, n, p, 2)),
                 (t8, lambda: ozaki1.fused_matmul_interleaved(
                     a_hat, b_hat, mu, nu, p, beta, bf),
                  lambda: ozaki1.fused_matmul_interleaved_plain(
                      a_hat, b_hat, mu, nu, p, beta, bf),
                  bound_ms(1, m, k, n, p, p, 2)),     # p bytes an element in
+                (trel, lambda: (ozaki1.relayout_interleaved(a_hat, p, "a"),
+                                ozaki1.relayout_interleaved(b_hat, p, "b")),
+                 lambda: (ozaki1.relayout_interleaved_plain(a_hat, p, "a"),
+                          ozaki1.relayout_interleaved_plain(b_hat, p, "b")),
+                 s1_relayout_bound(m, k, n, p)),
                 (t11, lambda: decompose.decompose_interleave(a, mu, p, beta),
                  lambda: decompose.decompose_lhs_plain(a, mu, p, beta),
                  lhs_bound(m, k, p, 2))):
             _add(tot, 1, time_ms(run_k, 10), time_ms(run_p, 3), 0.0, bms, by)
-        log(f"[library] M={m} K={k} N={n} bf16 p={p}: K8 and K11 running "
-            f"totals {t8['ms']:.4f} / {t11['ms']:.4f} ms")
-    log(f"[library] K8 per {len(shapes)} dense shapes: kernel "
-        f"{t8['ms']:.4f} ms, plain {t8['plain_ms']:.4f} ms, bound "
-        f"{t8['bound_ms']:.4f} ms; K11: kernel {t11['ms']:.4f} ms, plain "
-        f"{t11['plain_ms']:.4f} ms, bound {t11['bound_ms']:.4f} ms (bytes)")
+        pa = ozaki1.relayout_interleaved(a_hat, p, "a")
+        pb = ozaki1.relayout_interleaved(b_hat, p, "b")
+        out = torch.empty((m, n), dtype=bf, device=dev)
+        kp = a_hat.shape[1] // p
+        views = (a_hat.view(m, kp // decompose.TILE, p, decompose.TILE
+                            ).permute(2, 0, 1, 3),
+                 b_hat.view(kp // decompose.TILE, p, decompose.TILE, n
+                            ).permute(1, 3, 0, 2))
+        split8["relayout_ms"] = trel["ms"]
+        split8["planes_ms"] += time_ms(lambda: ozaki1.launch_planes(
+            pa, pb, mu, nu, p, beta, out), 10)
+        split8["mainloop_ms"] += time_ms(lambda: ozaki1.launch_planes(
+            pa, pb, mu, nu, p, beta, out, epilogue=False), 10)
+        if kp % ozaki1.PLANE_K == 0 and split8["library_ms"] is not None:
+            split8["library_ms"] += time_ms(
+                lambda: [v.contiguous() for v in views], 10)
+        else:       # no single call pads K
+            split8["library_ms"] = None
+        split8["planes_bound_ms"] += s1_planes_bound(m, k, n, p, 2)[0]
+        log(f"[library] M={m} K={k} N={n} bf16 p={p}: K8, its relayouts and "
+            f"K11 running totals {t8['ms']:.4f} / {trel['ms']:.4f} / "
+            f"{t11['ms']:.4f} ms")
+        del pa, pb, out, views
+    split8["mainloop_tops"] = (p * (p + 1) * sum(
+        m * k * n for m, k, n in shapes) / split8["mainloop_ms"] / 1e9)
+    log(f"[library] K8 per {len(shapes)} dense shapes: route "
+        f"{t8['ms']:.4f} ms (relayouts {trel['ms']:.4f}, bound "
+        f"{trel['bound_ms']:.4f}, plain {trel['plain_ms']:.4f}, .contiguous() "
+        f"{split8['library_ms']}; plane GEMM {split8['planes_ms']:.4f}, "
+        f"mainloop {split8['mainloop_ms']:.4f} at "
+        f"{split8['mainloop_tops']:.1f} TOPS, bound "
+        f"{split8['planes_bound_ms']:.4f}), plain {t8['plain_ms']:.4f} ms, "
+        f"bound {t8['bound_ms']:.4f} ms; K11: kernel {t11['ms']:.4f} ms, "
+        f"plain {t11['plain_ms']:.4f} ms, bound {t11['bound_ms']:.4f} ms "
+        "(bytes); "
+        f"K2r {t2r['ms']:.4f} ms (plain {t2r['plain_ms']:.4f}, bound "
+        f"{t2r['bound_ms']:.4f}), K2 {t2['ms']:.4f} ms (plain "
+        f"{t2['plain_ms']:.4f}, bound {t2['bound_ms']:.4f})")
     del xs
 
     # K9 beside torch._int_mm (the library call) and its bound.
@@ -3203,12 +3390,23 @@ def library_phase(dev, mcfg):
     common = {"route": "cuda"}
     lib_per = (f"one launch at each of olmo-1b's dense shapes at {TOKENS} "
                f"tokens, bf16, p = {p} (launches: phase 19's main path)")
-    return dc, [
-        {"name": "emugemm1_interleaved", **common, "source": SOURCE,
+    return dc, {"pair": totals(t2), "rhs": totals(t2r)}, [
+        {"name": "emugemm1_interleaved", **common, "source": SOURCE_S1_PLANES,
          "replaces": "src/repro/kernels/ozaki1.py:118",
          "launches": e1.launches_interleaved,
          "max_abs_err": max_err["interleaved"], **totals(t8),
-         "library_ms": None, "per": lib_per},
+         "library_ms": None, **{k_: v for k_, v in split8.items()
+                                if k_ != "library_ms"},
+         "per": lib_per + "; the route: a relayout of A-hat and of B-hat + 1 "
+                "plane GEMM a call, relayout_ms their sum"},
+        {"name": "emugemm1_relayout", **common, "source": SOURCE_S1_PLANES,
+         "replaces": "src/repro/kernels/ozaki1.py:118",
+         "launches": e1.launches_relayout, "max_abs_err": max_err["relayout"],
+         **totals(trel), "library_ms": split8["library_ms"],
+         "per": "the relayouts of A-hat and B-hat into planes at each of "
+                f"olmo-1b's dense shapes at {TOKENS} tokens, bf16, p = {p}, "
+                "summed; library: .contiguous() of the permuted interleaved "
+                "views"},
         {"name": "decompose_lhs", **common, "source": DECOMPOSE_SOURCE,
          "replaces": "src/repro/kernels/decompose.py:42",
          "launches": dc.launches_lhs, "max_abs_err": max_err["lhs"],
@@ -3265,8 +3463,8 @@ def library_phase(dev, mcfg):
 def build_phase():
     """nvcc for each kernel source, all started together."""
     t0 = time.perf_counter()
-    names = ("emugemm1", "emugemm1_planes", "decompose", "emugemm2_planes",
-             "matmul_int8", "flash_attn")
+    names = ("emugemm1_batched", "emugemm1_planes", "decompose",
+             "emugemm2_planes", "matmul_int8", "flash_attn")
     with ThreadPoolExecutor(len(names)) as ex:
         for f in [ex.submit(build.build, n) for n in names]:
             f.result()
@@ -3352,7 +3550,7 @@ def main() -> int:
     torch.use_deterministic_algorithms(False)
 
     # The library kernels.
-    lib_dc, library_rows = library_phase(dev, arch.model)
+    lib_dc, lib_dec, library_rows = library_phase(dev, arch.model)
 
     def bound_by(t):
         return "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations"
@@ -3377,26 +3575,30 @@ def main() -> int:
         "launches": counts.launches_2d, "max_abs_err": max_err["2d"],
         "ms": t2["ms"], "plain_ms": t2["plain_ms"],
         "bound_ms": t2["bound_ms"], "bound_by": bound_by(t2), **split(t2),
-        "fused_ms": t2["fused_ms"],
         "int_mm_yardstick_ms": t2["yardstick_ms"],
         "per": "one mixed serve step of olmo-1b (4 lanes x chunk 16); the "
-               "route: 2 encodes + 1 plane GEMM a call; fused_ms: "
-               "emugemm1.cu's fused kernel that it replaced, on the same "
-               "inputs",
-        "per_decode_step": {k: td[k] for k in ("ms", "plain_ms", "bound_ms",
-                                               "fused_ms")},
+               "route: 2 encodes + 1 plane GEMM a call",
+        "per_decode_step": {k: td[k] for k in ("ms", "plain_ms",
+                                               "bound_ms")},
         "launches_in_train_run": k1.launches_2d,
         "per_train_step": {"ms": tt["ms"], "plain_ms": tt["plain_ms"],
                            "bound_ms": tt["bound_ms"], **split(tt),
                            "per": train_per + ": dB = A^T dC"}})
-    t = totals["mixed", "batched"]
+    t, tdb = totals["mixed", "batched"], totals["decode", "batched"]
     kernels.append({
-        "name": "emugemm1_batched", **common, "source": SOURCE,
+        "name": "emugemm1_batched", **common, "source": SOURCE_S1_BATCHED,
         "replaces": "src/repro/kernels/backends/gpu.py:240",
         "launches": counts.launches_batched, "max_abs_err": max_err["batched"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": bound_by(t), "int_mm_yardstick_ms": t["yardstick_ms"],
-        "per": "one mixed serve step of olmo-1b (4 lanes x chunk 16)",
+        "other_tile_ms": t["other_tile_ms"], "events_ms": t["events_ms"],
+        "per": "one mixed serve step of olmo-1b (4 lanes x chunk 16): attn_qk "
+               "and attn_av, one launch a call; ms: the kernel's device time "
+               "(torch.profiler), events_ms: back-to-back calls by CUDA "
+               "events (the host's wrapper at these shapes); other_tile_ms: "
+               "the same launches at the other tile height (device)",
+        "per_decode_step": {k: tdb[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                "other_tile_ms", "events_ms")},
         "launches_in_train_run": k1.launches_batched})
     tm = t_totals["mixed"]
     kernels.append({
@@ -3440,14 +3642,16 @@ def main() -> int:
         t = t_totals[key]
         kernels.append({
             "name": name, **common, "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": t_err[key],
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": bound_by(t),
-            "per": f"one {TRAIN_SPEC} train step's weights decomposed "
-                   "into the 'interleaved' layout"
-                   + (f" at bwd_p={P_BWD}" if key == "rhs" else "")
-                   + "; launches: phase 19's main path, the decompositions "
-                   "feeding K8"})
+            "launches": launches, "max_abs_err": t_err[key], **lib_dec[key],
+            "per": f"one launch at each of olmo-1b's dense shapes at "
+                   f"{TOKENS} tokens, bf16, p = {P_MAIN}, summed (launches: "
+                   "phase 19's main path, the decompositions feeding K8)",
+            "per_train_step_weights": {
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"],
+                "per": f"one {TRAIN_SPEC} train step's weights decomposed "
+                       "into the 'interleaved' layout"
+                       + (f" at bwd_p={P_BWD}" if key == "rhs" else "")}})
     lib_per = (f"one launch at each of olmo-1b's dense shapes at {TOKENS} "
                f"tokens under ozaki2-m{M_MAIN}, bf16 (launches: the library "
                "route's run)")

@@ -3,6 +3,7 @@
     python3 compare_checkouts.py OTHER_CHECKOUT
     python3 compare_checkouts.py OTHER_CHECKOUT --scheme2
     python3 compare_checkouts.py OTHER_CHECKOUT --residues
+    python3 compare_checkouts.py OTHER_CHECKOUT --scheme1
 
 Builds both checkouts' kernels, then measures each checkout through its
 own ``chip_smoke.py`` in separate processes, in the order other, this,
@@ -28,7 +29,18 @@ kernels the checkout gives them, on full-range int8 residues: K5
 dense shapes at 1024 tokens, m = 6 (summed), the ops routes that drive
 them (``ops.fused_scheme2_matmul``, ``ops.fused_3m_matmul``) at 4096^3,
 m = 16, and the float64 plane route at that shape with its plane GEMM
-apart, and prints one ``COMPARE_RES {...}`` line. Needs one CUDA card.
+apart, and prints one ``COMPARE_RES {...}`` line. With ``--scheme1`` each
+run times EmuGEMM-I's batched form (``ozaki1.fused_matmul_scheme1`` on
+(B, M, K) @ (B, K, N), bf16, p = 4) at the batched shapes of a mixed and a
+decode serve step of olmo-1b (attn_qk and attn_av, summed with their
+launch counts) and its interleaved form (``ozaki1.fused_matmul_interleaved``
+on the lhs and rhs decompositions' layouts) at olmo-1b's dense shapes at
+1024 tokens (one call each, summed), whatever kernels the checkout gives
+them, K4 also per call at training's attention chunks, at one batch
+element and at p = 1 and 8, the plane route's encode at four shapes, and
+K4 and the encode by their kernels' device time from torch.profiler (CUDA
+events over back-to-back calls measure the host's wrapper at those
+shapes), and prints one ``COMPARE_S1 {...}`` line. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -217,10 +229,117 @@ def measure_residues(root: str) -> dict:
     return out
 
 
+def kernel_device_ms(fn, calls: int) -> float:
+    """Mean device ms of the one kernel ``fn`` launches a call (either
+    checkout's batched form), from one torch.profiler pass: the mean of the
+    kernel events the pass kept."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return sum(spans) / 1e3 / len(spans)
+
+
+def measure_scheme1(root: str) -> dict:
+    """EmuGEMM-I's batched and interleaved forms' device ms (CUDA events) in
+    the checkout at ``root``, through its own chip_smoke.py's helpers."""
+    g = runpy.run_path(os.path.join(root, "chip_smoke.py"),
+                       run_name="chip_smoke")["main"].__globals__
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import scheme1
+    from repro_torch.kernels import decompose, ozaki1
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader", "-i", "0"],
+                          capture_output=True, text=True,
+                          check=True).stdout.strip()
+    gen = torch.Generator(device=dev).manual_seed(23)
+    time_ms, conditioned = g["time_ms"], g["conditioned"]
+    mcfg = configs.get_config("olmo-1b").model
+    bf, p = torch.bfloat16, g["P_MAIN"]
+    view_tokens = g["PAGE"] * math.ceil(
+        (g["PROMPT"] + g["GEN"] - 1 + g["CHUNK"]) / g["PAGE"])
+    out = {"root": root, "card": card}
+    for step, chunk in (("mixed", g["CHUNK"]), ("decode", 1)):
+        total, device, per_call = 0.0, 0.0, {}
+        for kind, bt, m, k, n, _, count in g["path_shapes"](
+                mcfg, view_tokens, chunk):
+            if kind != "batched":
+                continue
+            a = conditioned(gen, (bt, m, k), bf, dev)
+            b = conditioned(gen, (bt, k, n), bf, dev)
+            mu, nu = scheme1.pow2_scale(a, -1), scheme1.pow2_scale(b, -2)
+            def run():
+                return ozaki1.fused_matmul_scheme1(a, b, mu, nu, p, 7, bf)
+            # CUDA events over back-to-back calls, and the kernels' device
+            # time from one profiler pass (the former is the host's at
+            # these shapes).
+            ms, dev_ms = time_ms(run, 20), kernel_device_ms(run, 20)
+            per_call[f"{(bt, m, k, n)}"] = [ms, dev_ms]
+            total += count * ms
+            device += count * dev_ms
+        out[f"k4_{step}_step_ms"], out[f"k4_{step}_step_device_ms"] = (
+            total, device)
+        out[f"k4_{step}_per_call_ms"] = per_call
+    # Training's chunked attention (q and kv chunks of 1024): one train
+    # step of 8 x 128 tokens and one of 2 x 2048, per call.
+    for bt, m, k, n in ((128, 128, 128, 128), (32, 1024, 128, 1024),
+                        (32, 1024, 1024, 128)):
+        a = conditioned(gen, (bt, m, k), bf, dev)
+        b = conditioned(gen, (bt, k, n), bf, dev)
+        mu, nu = scheme1.pow2_scale(a, -1), scheme1.pow2_scale(b, -2)
+
+        def run():
+            return ozaki1.fused_matmul_scheme1(a, b, mu, nu, p, 7, bf)
+        out[f"k4_train_call_ms {(bt, m, k, n)}"] = [
+            time_ms(run, 10), kernel_device_ms(run, 10)]
+        del a, b
+    # What sets a serve launch's time: one batch element (one block a
+    # column tile), and the slice count.
+    for label, bt, pp in (("batch 1", 1, p), ("p 1", 64, 1), ("p 8", 64, 8)):
+        a = conditioned(gen, (bt, 16, 128), bf, dev)
+        b = conditioned(gen, (bt, 128, 80), bf, dev)
+        mu, nu = scheme1.pow2_scale(a, -1), scheme1.pow2_scale(b, -2)
+        out[f"k4_probe_device_ms {label} {(bt, 16, 128, 80)}"] = \
+            kernel_device_ms(lambda: ozaki1.fused_matmul_scheme1(
+                a, b, mu, nu, pp, 7, bf), 20)
+    # The plane route's encode (a 2-D product's operands, a weight).
+    for r, k in ((64, 2048), (2048, 2048), (8192, 2048), (1024, 8192)):
+        x = conditioned(gen, (r, k), bf, dev)
+        sc = scheme1.pow2_scale(x, -1)
+        out[f"encode_device_ms {(r, k)}"] = kernel_device_ms(
+            lambda: ozaki1.launch_encode(x, sc, p, 7), 20)
+    total, per_call = 0.0, {}
+    for m, k, n in g["dense_shapes"](mcfg):
+        a = conditioned(gen, (m, k), bf, dev)
+        b = conditioned(gen, (k, n), bf, dev)
+        beta = g["scheme1_cfg"](p, "xla").resolved_beta(k)
+        mu, nu = scheme1.pow2_scale(a, 1), scheme1.pow2_scale(b, 0)
+        a_hat = decompose.decompose_interleave(a, mu, p, beta)
+        b_hat = decompose.decompose_interleave_rhs(b, nu, p, beta)
+        ms = time_ms(lambda: ozaki1.fused_matmul_interleaved(
+            a_hat, b_hat, mu, nu, p, beta, bf), 10)
+        per_call[f"{(m, k, n)}"] = ms
+        total += ms
+        del a, b, a_hat, b_hat
+    out["k8_dense_ms"], out["k8_dense_per_call_ms"] = total, per_call
+    return out
+
+
 def main() -> int:
     modes = {"--measure": ("COMPARE", measure),
              "--measure-scheme2": ("COMPARE_S2", measure_scheme2),
-             "--measure-residues": ("COMPARE_RES", measure_residues)}
+             "--measure-residues": ("COMPARE_RES", measure_residues),
+             "--measure-scheme1": ("COMPARE_S1", measure_scheme1)}
     if len(sys.argv) == 3 and (sys.argv[1] == "--build"
                                or sys.argv[1] in modes):
         root = os.path.abspath(sys.argv[2])
@@ -232,7 +351,7 @@ def main() -> int:
             print(f"{tag} " + json.dumps(fn(root)), flush=True)
         return 0
     if len(sys.argv) not in (2, 3) or sys.argv[2:] not in (
-            [], ["--scheme2"], ["--residues"]):
+            [], ["--scheme2"], ["--residues"], ["--scheme1"]):
         print(__doc__, file=sys.stderr)
         return 2
     other = os.path.abspath(sys.argv[1])

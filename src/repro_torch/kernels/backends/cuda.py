@@ -36,10 +36,10 @@ _CAPS = BackendCapabilities(
                               torch.complex64, torch.complex128}),
 )
 
-# The one tile each kernel is compiled for: csrc/emugemm1.cu, whose K tile
-# is the granularity of the 'interleaved' layout, and the plane GEMM of
-# csrc/emugemm2_planes.cu, which runs every Scheme-II product with a float
-# rhs, real or complex 3M.
+# The tile each scheme's plan names: Scheme I's, whose K tile is the
+# granularity of the 'interleaved' layout (the kernels choose their own
+# tiles), and the plane GEMM of csrc/emugemm2_planes.cu, which runs every
+# Scheme-II product with a float rhs, real or complex 3M.
 KERNEL_BLOCKS = Blocks(bm=64, bn=64, bk=decompose.TILE)
 SCHEME2_BLOCKS = Blocks(bm=ozaki2.PLANE_TILE[0], bn=ozaki2.PLANE_TILE[1],
                         bk=ozaki2.PLANE_K)

@@ -3,7 +3,7 @@
 ``Blocks`` is the tile plan the dispatcher caches and hands to a
 backend. The truncate-subtract recurrence of the reference's
 ``carve_slices`` lives once in ``repro_torch.core.scheme1.carve``; the
-CUDA kernel mirrors it element by element (``csrc/emugemm1.cu``).
+CUDA kernels mirror it element by element (``csrc/scheme1_common.cuh``).
 """
 
 from __future__ import annotations

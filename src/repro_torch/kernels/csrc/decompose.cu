@@ -1,7 +1,7 @@
 // Scheme-I decomposition for Hopper (sm_90a): one read of an operand
-// writes its int8 slices in the interleaved layouts that csrc/emugemm1.cu
-// streams (a weight B (K, N) for the mixed form, both operands for the
-// interleaved form).
+// writes its int8 slices in the interleaved layouts of the library's
+// interleaved form (both operands, relaid into planes by
+// csrc/emugemm1_planes.cu) and of the 'torch' backend's prepared weights.
 //
 // Replaces the Pallas kernels of the JAX package
 //   src/repro/kernels/decompose.py  decompose_interleave_pair (_kernel_pair)
@@ -18,7 +18,7 @@
 //     scale nu[n], carved into p slices with beta_f by the truncate-
 //     subtract recurrence of repro.kernels.common.carve_slices, slice i
 //     written to rows (k / TK * p + i) * TK + k % TK (paper Eq. 11 at
-//     granularity TK, the matmul kernel's K tile);
+//     granularity TK);
 //   * with the twin, the K-transposed layout (p * Np, K) of B^T, which
 //     the backward dA = dC B^T contracts over N: the same tile divided by
 //     the row scale tau[k], carved with beta_b, slice i of element (k, n)
@@ -33,10 +33,11 @@
 // the next tile are written as zero slices, so a consumer needs no masking
 // there.
 //
-// Numerics: the same as the carve in emugemm1.cu (exact division by a
-// power of two with __fdiv_rn, exact shifts and truncation, no FMA), so
-// the planes are bit-identical to repro_torch.kernels.decompose's plain
-// version and to the slices the 2-D kernel carves in its prologue.
+// Numerics: exact division by a power of two with __fdiv_rn, exact shifts
+// and truncation, no FMA, so the planes are bit-identical to
+// repro_torch.kernels.decompose's plain version and to the slices the
+// Scheme-I encodes carve (x times the exact reciprocal, which rounds as
+// the quotient does).
 //
 // Bound: bytes. The operand is read once (2 or 4 bytes an element) and
 // p bytes an element are written per layout: for a 2048 x 8192 bf16

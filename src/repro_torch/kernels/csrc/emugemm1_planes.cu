@@ -1,15 +1,19 @@
 // EmuGEMM-I's plane route for Hopper (sm_90a): Ozaki Scheme I as an encode
-// kernel and a TMA-fed int8 wgmma plane GEMM.
+// kernel and a TMA-fed int8 wgmma plane GEMM, and the interleaved form's
+// relayout into the plane GEMM's planes.
 //
 // Replaces the Pallas kernels of the JAX package
 //   src/repro/kernels/ozaki1.py        fused_matmul_prologue (_kernel, a_fp=b_fp=True)
 //   src/repro/kernels/backends/gpu.py  fused_matmul_scheme1 (_kernel), 2-D launch
 //   src/repro/kernels/ozaki1.py        fused_matmul_mixed (_kernel, a_fp only)
-// (the batched launch and the interleaved form stay on emugemm1.cu). A 2-D
-// product is two encodes and one plane GEMM; the mixed form, whose rhs is a
-// prepared weight, one encode of the lhs and one plane GEMM against the
-// planes that an encode wrote once, when the weight was prepared
-// (kernels/prepared.py, layout 'planes').
+//   src/repro/kernels/ozaki1.py        fused_matmul_interleaved (_kernel, neither operand float)
+// (the batched launch is emugemm1_batched.cu). A 2-D product is two
+// encodes and one plane GEMM; the mixed form, whose rhs is a prepared
+// weight, one encode of the lhs and one plane GEMM against the planes that
+// an encode wrote once, when the weight was prepared (kernels/prepared.py,
+// layout 'planes'); the interleaved form, whose operands arrive sliced and
+// interleaved on K (A-hat, B-hat), a relayout of each into planes and one
+// plane GEMM, mu and nu entering only in its epilogue.
 //
 // encode: one pass over a float32 or bf16 operand (R, K), read through its
 // strides, with a power-of-two row scale s (mu of A; B enters as B^T with
@@ -59,37 +63,15 @@
 //     bf16 output rounds after every op, as the reference shift_reduce does;
 //   * the scales and beta come from the caller, computed from the logical K.
 
-#include <cuda_bf16.h>
+#include <algorithm>
 
 #include "hopper.cuh"
+#include "scheme1_common.cuh"
 
 using namespace hopper;
+using namespace scheme1;
 
 namespace {
-
-// Operand and output types of the entry points (kernels/ozaki1.py TYPE_CODE).
-enum { F32 = 0, BF16 = 1 };
-constexpr int MAXP = 8;
-
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// Exact 2^e for a normal exponent e, built from the exponent field.
-__device__ __forceinline__ float pow2(int e) { return __int_as_float((127 + e) << 23); }
-
-// 1 / s for a power of two s = 2^(E - 127) (biased exponent E in 1..254)
-// or +inf, exact: 2^(127 - E), normal for E <= 253 and the subnormal 2^-127
-// for E = 254; 1 / inf = 0.
-__device__ __forceinline__ float recip_pow2(float s) {
-  const int e = (__float_as_int(s) >> 23) & 0xff;
-  if (e == 255) return 0.f;
-  if (e == 254) return __int_as_float(1 << 22);
-  return __int_as_float((254 - e) << 23);
-}
 
 // ---- encode ----------------------------------------------------------------
 
@@ -137,19 +119,8 @@ emugemm1_encode_kernel(const T* __restrict__ x, const float* __restrict__ scale,
 #pragma unroll
     for (int j = 0; j < 8; ++j) r[j] = sx[rr * ELD + kc + j];
     int8_t* dst = planes + static_cast<long long>(r0 + rr) * Kp + k0 + kc;
-#pragma unroll
-    for (int i = 0; i < MAXP; ++i) {
-      if (i >= p) break;
-      uint32_t w[2] = {0, 0};
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float sh = __fmul_rn(r[j], two_beta);
-        const float t = truncf(sh);
-        w[j / 4] |= static_cast<uint32_t>(static_cast<int>(t) & 0xff) << (8 * (j % 4));
-        r[j] = __fsub_rn(sh, t);
-      }
-      *reinterpret_cast<uint2*>(dst + i * plane) = make_uint2(w[0], w[1]);
-    }
+    carve8(r, two_beta, p,
+           [&](int i, uint2 w) { *reinterpret_cast<uint2*>(dst + i * plane) = w; });
   }
 }
 
@@ -169,40 +140,6 @@ struct Tile {
   static constexpr int CONSUMERS = 128 * WG;
   static constexpr int THREADS = CONSUMERS + 128;   // and one producer warpgroup
   static constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
-};
-
-template <typename O>
-struct Epilogue;
-
-template <>
-struct Epilogue<float> {
-  static __device__ __forceinline__ float step(float c, int acc, float w) {
-    return __fadd_rn(c, __fmul_rn(w, __int2float_rn(acc)));
-  }
-  static __device__ __forceinline__ float scale(float c, float mu, float nu) {
-    return __fmul_rn(__fmul_rn(c, mu), nu);
-  }
-  static __device__ __forceinline__ void store(float* o, float c) { *o = c; }
-  static __device__ __forceinline__ void store2(float* o, float c0, float c1) {
-    *reinterpret_cast<float2*>(o) = make_float2(c0, c1);
-  }
-};
-
-template <>
-struct Epilogue<__nv_bfloat16> {
-  static __device__ __forceinline__ float step(float c, int acc, float w) {
-    const float cv = round_bf16(__int2float_rn(acc));
-    return round_bf16(__fadd_rn(c, round_bf16(__fmul_rn(w, cv))));
-  }
-  static __device__ __forceinline__ float scale(float c, float mu, float nu) {
-    return round_bf16(__fmul_rn(round_bf16(__fmul_rn(c, mu)), nu));
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* o, float c) {
-    *o = __float2bfloat16_rn(c);
-  }
-  static __device__ __forceinline__ void store2(__nv_bfloat16* o, float c0, float c1) {
-    *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(c0, c1);
-  }
 };
 
 // A (M, Kp) and B^T (N, Kp) planes as 3-D tensor maps; mu (M) and nu (N)
@@ -345,6 +282,117 @@ emugemm1_planes_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
+// ---- the interleaved form (K8): relayout into planes ---------------------------
+//
+// A-hat (M, p Kp) and B-hat (p Kp, N) hold the p slices interleaved on K
+// at granularity IT = 32 (decompose.cu): K chunk c of slice i is the 32
+// columns (rows) (c p + i) IT of the layout. The relayout writes them as the
+// plane GEMM's K-contiguous planes (p, R, Kpp), Kpp = Kp padded to PBK with
+// zero slices: A-hat's rows as they are, B-hat transposed (B^T's planes).
+// Both kernels read and write 16 bytes or more a thread along rows of 32 or
+// more contiguous bytes; B-hat's transpose goes through a (128, 128)
+// shared tile, 4 x 4 bytes transposed in registers a thread. Bound by
+// bytes: p Kp bytes read and p Kpp written a row.
+
+constexpr int IT = 32;            // the interleave granularity
+constexpr int RNT = 256;          // threads of a relayout block
+constexpr int RT = 128;           // B-hat relayout tile: 128 K x 128 N bytes
+
+// Source row (A-hat: column) of slice i at K index k of the interleaved layout.
+__device__ __forceinline__ long long interleaved(int k, int i, int p) {
+  return static_cast<long long>((k / IT) * p + i) * IT + k % IT;
+}
+
+// A-hat (R, p Kp), row stride ld -> planes (p, R, Kpp): one 16-byte group a
+// thread, a grid-stride walk; vec: ld and the base 16-byte aligned.
+__global__ void __launch_bounds__(RNT)
+relayout_lhs_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ planes, int R, int Kp,
+                    int Kpp, long long ld, int p, int vec) {
+  const int groups = Kpp / 16;
+  const long long units = static_cast<long long>(p) * R * groups;
+  for (long long u = blockIdx.x * static_cast<long long>(RNT) + threadIdx.x; u < units;
+       u += static_cast<long long>(gridDim.x) * RNT) {
+    const int k = static_cast<int>(u % groups) * 16;
+    const long long row = u / groups;             // i R + r
+    const int r = static_cast<int>(row % R), i = static_cast<int>(row / R);
+    uint4 w = make_uint4(0, 0, 0, 0);
+    if (k < Kp) {
+      const int8_t* src = x + r * ld + interleaved(k, i, p);
+      if (vec) {
+        w = *reinterpret_cast<const uint4*>(src);
+      } else {
+        uint32_t b[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          b[j / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(src[j])) << (8 * (j % 4));
+        w = make_uint4(b[0], b[1], b[2], b[3]);
+      }
+    }
+    *reinterpret_cast<uint4*>(planes + row * Kpp + k) = w;
+  }
+}
+
+// The word of local row n (N axis) holding K bytes 4 kw .. 4 kw + 3 in the
+// shared tile, swizzled so that both passes below are free of bank
+// conflicts: the first stores a word of 32 rows 4 apart, the second loads
+// one word of each 16-byte group of 4 neighbouring rows.
+__device__ __forceinline__ int tile_word(int n, int kw) {
+  return n * (RT / 4) + (kw ^ ((n >> 2) ^ (n & 3)));
+}
+
+// B-hat (p Kp, N), row stride ld -> B^T's planes (p, N, Kpp); block
+// (K tile, N tile, slice). vec: ld and the base 4-byte aligned.
+__global__ void __launch_bounds__(RNT)
+relayout_rhs_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ planes, int N, int Kp,
+                    int Kpp, long long ld, int p, int vec) {
+  __shared__ uint32_t tile[RT * RT / 4];
+  const int k0 = blockIdx.x * RT, n0 = blockIdx.y * RT, i = blockIdx.z;
+  const int tid = threadIdx.x;
+  // Each thread loads a 4 (K) x 4 (N) block of bytes, a warp 128 bytes of
+  // each of 4 rows, and transposes it in registers.
+  const int nb = tid % 32;
+  const int n = n0 + 4 * nb;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int kw = tid / 32 + 8 * j;
+    uint32_t v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int k = k0 + 4 * kw + q;
+      v[q] = 0;
+      if (k >= Kp || n >= N) continue;
+      const int8_t* src = x + interleaved(k, i, p) * ld + n;
+      if (vec && n + 3 < N) {
+        v[q] = *reinterpret_cast<const uint32_t*>(src);
+      } else {
+        for (int c = 0; c < 4 && n + c < N; ++c)
+          v[q] |= static_cast<uint32_t>(static_cast<uint8_t>(src[c])) << (8 * c);
+      }
+    }
+    const uint32_t t0 = __byte_perm(v[0], v[1], 0x5140), t1 = __byte_perm(v[0], v[1], 0x7362);
+    const uint32_t t2 = __byte_perm(v[2], v[3], 0x5140), t3 = __byte_perm(v[2], v[3], 0x7362);
+    tile[tile_word(4 * nb, kw)] = __byte_perm(t0, t2, 0x5410);
+    tile[tile_word(4 * nb + 1, kw)] = __byte_perm(t0, t2, 0x7632);
+    tile[tile_word(4 * nb + 2, kw)] = __byte_perm(t1, t3, 0x5410);
+    tile[tile_word(4 * nb + 3, kw)] = __byte_perm(t1, t3, 0x7632);
+  }
+  __syncthreads();
+  // Each thread stores 16 K bytes of a row, 8 threads a row's 128 bytes.
+  const int g = tid % 8;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int nn = tid / 8 + 32 * j;
+    if (n0 + nn >= N) break;
+    uint4 w;
+    w.x = tile[tile_word(nn, 4 * g)];
+    w.y = tile[tile_word(nn, 4 * g + 1)];
+    w.z = tile[tile_word(nn, 4 * g + 2)];
+    w.w = tile[tile_word(nn, 4 * g + 3)];
+    *reinterpret_cast<uint4*>(planes + (static_cast<long long>(i) * N + n0 + nn) * Kpp + k0 +
+                              16 * g) = w;
+  }
+}
+
 // ---- host side -------------------------------------------------------------
 
 // The planes (p, rows, Kp) int8 as a 3-D tensor map with (PBK, box_rows, 1)
@@ -441,3 +489,30 @@ extern "C" int emugemm1_planes(const int8_t* a_planes, const int8_t* b_planes, c
 
 // The K tile, to which planes are padded.
 extern "C" int emugemm1_plane_k() { return PBK; }
+
+// The interleaved form's relayout: x, A-hat (R, p Kp) (rhs = 0) or B-hat
+// (p Kp, R) (rhs = 1), int8 with row stride ld (bytes), Kp a multiple of
+// the interleave granularity -> planes (p, R, Kpp) int8 contiguous, Kpp a
+// multiple of the K tile >= Kp.
+extern "C" int emugemm1_relayout(const int8_t* x, int8_t* planes, int R, int Kp, int Kpp,
+                                 long long ld, int p, int rhs, void* stream) {
+  if (R <= 0 || Kp <= 0 || Kp % IT != 0 || Kpp < Kp || Kpp % PBK != 0) return -1;
+  if (p < 1 || p > MAXP) return -1;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uintptr_t base = reinterpret_cast<uintptr_t>(x);
+  if (rhs) {
+    if ((R + RT - 1) / RT > 65535) return -1;
+    const dim3 grid(Kpp / RT, (R + RT - 1) / RT, p);
+    relayout_rhs_kernel<<<grid, RNT, 0, st>>>(x, planes, R, Kp, Kpp, ld, p,
+                                              ld % 4 == 0 && base % 4 == 0);
+  } else {
+    const long long units = static_cast<long long>(p) * R * (Kpp / 16);
+    const int blocks = static_cast<int>(std::min<long long>((units + RNT - 1) / RNT, 132 * 16));
+    relayout_lhs_kernel<<<blocks, RNT, 0, st>>>(x, planes, R, Kp, Kpp, ld, p,
+                                                ld % 16 == 0 && base % 16 == 0);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The interleave granularity the relayout reads.
+extern "C" int emugemm1_interleave() { return IT; }

@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks shared by the port's TMA-fed wgmma kernels
-// (emugemm1_planes.cu, emugemm2_planes.cu, flash_attn.cu): shared-memory
-// addresses, mbarriers, TMA tile loads, shared-memory matrix descriptors,
-// wgmma fences and waits, the int8, bf16 and tf32 wgmma instructions, and
-// the lookup of libcuda's tensor-map encoder.
+// Hopper (sm_90a) building blocks shared by the port's wgmma kernels
+// (emugemm1_planes.cu, emugemm1_batched.cu, emugemm2_planes.cu,
+// flash_attn.cu): shared-memory addresses, mbarriers, TMA tile loads,
+// shared-memory matrix descriptors, wgmma fences and waits, the int8, bf16
+// and tf32 wgmma instructions, and the lookup of libcuda's tensor-map
+// encoder.
 #pragma once
 
 #include <cuda.h>
@@ -104,6 +105,12 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
+// Orders this thread's generic-proxy writes to shared memory before the
+// async proxy's reads (wgmma operands written by threads, not by TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Keeps the compiler from moving accumulator reads or writes across the
 // asynchronous MMAs.
 template <int N>
@@ -144,6 +151,43 @@ __device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da, uint64_
         "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
         "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(da), "l"(db), "r"(1));
+}
+
+// D (64 x 16 int32) += A (64 x 32 int8) * B (32 x 16 int8), both K-major in
+// shared memory.
+__device__ __forceinline__ void wgmma_s8_n16(int (&d)[8], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D (64 x 32 int32) += A (64 x 32 int8) * B (32 x 32 int8), both K-major in
+// shared memory.
+__device__ __forceinline__ void wgmma_s8_n32(int (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// The int8 products by width N in {16, 32}.
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t da, uint64_t db) {
+  static_assert(N == 16 || N == 32, "no instance");
+  if constexpr (N == 16) wgmma_s8_n16(d, da, db);
+  else wgmma_s8_n32(d, da, db);
 }
 
 // ---- bf16 wgmma, float32 accumulate ------------------------------------------

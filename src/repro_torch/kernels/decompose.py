@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from repro_torch.core import scheme1
 
 # The interleave granularity of both layouts: the tile of csrc/decompose.cu,
-# equal to the K tile of csrc/emugemm1.cu that the mixed form reads.
+# which the interleaved form's relayout (csrc/emugemm1_planes.cu) reads.
 TILE = 32
 MAX_P = 8
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)

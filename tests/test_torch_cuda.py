@@ -1,8 +1,8 @@
 """The port's CUDA kernels on the card: EmuGEMM-I (its plane route: the
-encode and the plane GEMM of the 2-D and mixed routes; its batched and
-interleaved launch forms), the decomposition (K2, K2r, K11), the int8 GEMM (K9), fused
-attention (K10: the bf16 wgmma kernel, the float32 3xTF32 wgmma kernel
-and its pre-pass, the float32 FFMA kernel at D = 256), EmuGEMM-II's
+encode and the plane GEMM of the 2-D and mixed routes, and the relayout of
+the interleaved form's route; its batched kernel), the decomposition (K2,
+K2r, K11), the int8 GEMM (K9), fused attention (K10: the bf16 wgmma
+kernel, the float32 3xTF32 wgmma kernel and its pre-pass, the float32 FFMA kernel at D = 256), EmuGEMM-II's
 plane route (the encode kernels and the plane GEMM) for every product of
 float operands, 2-D and batched (K5g and K6
 with a float rhs: float32, bfloat16 in any pairing and float64; K7g), and
@@ -125,6 +125,93 @@ def test_plane_gemm_wraps_int32_on_card(cuda_device):
     ref = ozaki1.plane_matmul_plain(pa, pb, mu, nu, p, 7, torch.float32)
     torch.cuda.synchronize()
     assert torch.equal(out, ref)
+
+
+def _batched_operands(g, dev, dtype, batch, m, k, n, layout):
+    """A (batch, m, k) and B (batch, k, n) in one of the batched kernel's
+    operand layouts: 'contiguous'; 'ck' (B a transposed K-contiguous view
+    of a (batch, n, k) cache); 'cv' (B the N-contiguous rows of a
+    (batch, k, n) cache); 'sliced' (both sliced out of larger buffers, so
+    that each batch stride exceeds rows x row stride)."""
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+    if layout == "sliced":
+        a = randn(batch, m + 3, k + 5)[:, 1:m + 1, 2:k + 2]
+        b = randn(batch, k + 2, n + 7)[:, 1:k + 1, 3:n + 3]
+    else:
+        a = randn(batch, m, k)
+        b = randn(batch, n, k).transpose(1, 2) if layout == "ck" else \
+            randn(batch, k, n)
+    return a, b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [1, 3, 4, 6, 8])
+def test_batched_kernel_bit_identical_to_plain_on_card(cuda_device, dtype, p):
+    """The batched kernel, one launch a call, against fused_matmul_plain
+    at serving's attn_qk / attn_av shapes (mixed and decode), ragged
+    shapes and every operand layout, in both output types."""
+    g = torch.Generator(device=cuda_device).manual_seed(p)
+    cases = [(64, 16, 128, 80, "ck"), (64, 16, 80, 128, "cv"),
+             (64, 1, 128, 80, "ck"), (64, 1, 80, 128, "cv"),
+             (3, 17, 1, 77, "contiguous"), (3, 17, 129, 77, "sliced"),
+             (3, 17, 1000, 77, "ck"), (2, 100, 300, 65, "cv")]
+    for batch, m, k, n, layout in cases:
+        a, b = _batched_operands(g, cuda_device, dtype, batch, m, k, n,
+                                 layout)
+        mu, nu = scheme1.pow2_scale(a, -1), scheme1.pow2_scale(b, -2)
+        for out_dtype in (dtype, torch.float32):
+            ozaki1.COUNTS.reset()
+            out = ozaki1.fused_matmul_scheme1(a, b, mu, nu, p, 7, out_dtype)
+            assert (ozaki1.COUNTS.launches_batched,
+                    ozaki1.COUNTS.plain_cuda_calls) == (1, 0)
+            ref = ozaki1.fused_matmul_plain(a, b, mu, nu, p, 7, out_dtype)
+            torch.cuda.synchronize()
+            assert torch.equal(out, ref), (batch, m, k, n, layout, out_dtype)
+
+
+def test_batched_kernel_wraps_int32_on_card(cuda_device):
+    """A batched product whose top diagonal passes 2^31 wraps as the plain
+    version's int32 accumulators do (both tile heights)."""
+    k, p = 50688, 4
+    a = torch.full((2, 40, k), 1 - 2 ** -24, device=cuda_device)
+    b = torch.full((2, k, 70), 1 - 2 ** -24, device=cuda_device)
+    mu, nu = scheme1.pow2_scale(a, -1), scheme1.pow2_scale(b, -2)
+    ref = ozaki1.fused_matmul_plain(a, b, mu, nu, p, 7, torch.float32)
+    for tile_n in (16, 32):
+        out = ozaki1.launch_batched(a, b, mu, nu, p, 7, torch.float32,
+                                    tile_n=tile_n)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), tile_n
+
+
+@pytest.mark.parametrize("p", [1, 4, 8])
+def test_interleaved_relayout_and_route_on_card(cuda_device, p):
+    """K8's route: each relayout against relayout_interleaved_plain, the
+    route (2 relayouts + 1 plane GEMM) against
+    fused_matmul_interleaved_plain, bit for bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(p)
+    for (m, k, n) in [(256, 2048, 512), (37, 1000, 77), (1, 33, 5),
+                      (130, 96, 258)]:
+        a = torch.randn(m, k, generator=g, device=cuda_device)
+        b = torch.randn(k, n, generator=g, device=cuda_device)
+        mu, nu = scheme1.pow2_scale(a, 1), scheme1.pow2_scale(b, 0)
+        a_hat = decompose.decompose_interleave(a, mu, p, 7)
+        b_hat = decompose.decompose_interleave_rhs(b, nu, p, 7)
+        for x, operand in ((a_hat, "a"), (b_hat, "b")):
+            assert torch.equal(ozaki1.relayout_interleaved(x, p, operand),
+                               ozaki1.relayout_interleaved_plain(x, p,
+                                                                 operand))
+        ozaki1.COUNTS.reset()
+        out = ozaki1.fused_matmul_interleaved(a_hat, b_hat, mu, nu, p, 7,
+                                              torch.bfloat16)
+        c = ozaki1.COUNTS
+        assert (c.launches_interleaved, c.launches_relayout, c.launches_planes,
+                c.plain_cuda_calls) == (1, 2, 1, 0)
+        ref = ozaki1.fused_matmul_interleaved_plain(a_hat, b_hat, mu, nu, p,
+                                                    7, torch.bfloat16)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), (m, k, n)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
