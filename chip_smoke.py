@@ -5,7 +5,7 @@
 Drives repro_torch only (no jax, nothing of the reference package) on the
 card, with no CPU fallback, in nineteen phases:
 
-1. build: nvcc compiles the port's CUDA kernels from this checkout (six
+1. build: nvcc compiles the port's CUDA kernels from this checkout (five
    sources), one process per source, in parallel;
 2. kernel: every kernel of the serving path is held against its plain
    version bit for bit at the path's shapes (float32 and bfloat16; the
@@ -132,12 +132,15 @@ card, with no CPU fallback, in nineteen phases:
     of the 'torch' backend, bit for bit.
 19. library: the kernels no model reaches. EmuGEMM-I on interleaved
     operands (K8: a relayout of each operand into planes and one plane
-    GEMM) and the lhs decomposition (K11) are held against their plain
-    versions bit for bit at olmo-1b's dense shapes at 1024 tokens and a
-    ragged shape (float32 and bfloat16, p in {3, 4, 6}; each relayout
-    alone too), and K11 + K2r -> K8 and the 'xla' route of
-    ``ops.fused_scheme1_matmul`` against K1; the int8 GEMM (K9) bit for
-    bit at 4096^3, 1024 x 2048 x 8192 and a ragged shape; then the
+    GEMM) and the decompositions (K11, K2r and K2) are held against their
+    plain versions bit for bit at olmo-1b's dense shapes at 1024 tokens
+    and a ragged shape (float32 and bfloat16, p in {3, 4, 6}; each
+    relayout alone too), and K11 + K2r -> K8 and the 'xla' route of
+    ``ops.fused_scheme1_matmul`` against K1; the int8 GEMM (K9: a
+    relayout of each operand its tensor map cannot read in place and the
+    plane GEMM's int32 instance) bit for bit at 4096^3, 1024 x 2048 x
+    8192 and a ragged shape, B as a transposed view (no relayout), A
+    misaligned (relaid) and an int32 sum that wraps; then the
     library's entry points run with the counts read around them: the
     'xla' route and the decompositions feeding K8 (K11 with K2r and with
     K2; bf16, p = 4), the naive Fig. 4 structure
@@ -152,10 +155,12 @@ card, with no CPU fallback, in nineteen phases:
     is held bit for bit against its plain version, and on the FFMA kernel
     at D = 256); each kernel is timed beside its bound (the float32 ones
     also beside the FFMA bound, with the device kernels a call runs),
-    its plain version and, for K9 and K10, torch._int_mm and
+    its plain version and, for K9 and K10, torch._int_mm (its device
+    kernel named from one profiler pass) and
     scaled_dot_product_attention; K8 with its relayouts, plane GEMM and
     mainloop apart, the relayouts beside one .contiguous() of the
-    permuted interleaved views.
+    permuted interleaved views; K9 at 4096^3 and 8192^3 with B's
+    relayout, the plane GEMM, its mainloop and both tile heights apart.
 
 Right after the build, one line names the device kernels that the
 library yardsticks (cuBLAS's batched DGEMM, scaled_dot_product_attention
@@ -264,7 +269,6 @@ HOIST_M_CHECK = (6, 8, 16)
 # slices; the int8 GEMM checked at INT8_CHECK and timed at INT8_TIMED,
 # the naive Fig. 4 structure at NAIVE_N^3; attention at ATTN_CASES:
 # (label, B, H, KVH, S_q, S_k, D, causal, window, dtype).
-SOURCE_INT8 = "src/repro_torch/kernels/csrc/matmul_int8.cu"
 SOURCE_FLASH = "src/repro_torch/kernels/csrc/flash_attn.cu"
 LIB_P = (3, 4, 6)
 LIB_RAGGED = (100, 1000, 77)
@@ -935,19 +939,46 @@ def device_ms(fn, calls: int = 20) -> float:
     return sum(spans) / 1e3 / len(spans)
 
 
+def queued_ms(fn, iters: int = 10) -> float:
+    """Mean device time of ``fn()`` over ``iters`` calls, CUDA events,
+    with the calls queued behind a spin kernel (``torch.cuda._sleep``,
+    about 3 ms) so that the host has enqueued them all before the first
+    runs: the wrappers' host work, which back-to-back CUDA events time
+    at small shapes, is not measured, and no profiler is needed (late in
+    a long process a pass was seen to keep no kernel event)."""
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(5_000_000)
+    e0.record()
+    for _ in range(iters):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
 def yardstick_phase(dev):
     """Which device kernels the library yardsticks run: cuBLAS's batched
-    DGEMM at SCI_BATCHED and scaled_dot_product_attention at the first two
-    ATTN_CASES (bf16 and float32), on seeded inputs of those shapes, and
-    the port's float32 K10 (its pre-pass and 3xTF32 kernel, by device
-    time) at the second; returns the latter. It runs first: later in a
-    long process the profiler was seen to keep only some of a short
-    pass's kernel events."""
+    DGEMM at SCI_BATCHED, torch._int_mm at INT8_TIMED[0]^3 and
+    scaled_dot_product_attention at the first two ATTN_CASES (bf16 and
+    float32), on seeded inputs of those shapes, and the port's float32
+    K10 (its pre-pass and 3xTF32 kernel, by device time) at the second;
+    returns the last two. It runs first: later in a long process the
+    profiler was seen to keep only some, or none, of a short pass's
+    kernel events."""
     gen = torch.Generator(device=dev).manual_seed(20)
     ba = torch.randn(SCI_BATCHED, generator=gen, device=dev,
                      dtype=torch.float64)
+    n9 = INT8_TIMED[0]
+    a8 = torch.randint(-128, 128, (n9, n9), generator=gen, device=dev,
+                       dtype=torch.int8)
+    int_mm = yardstick_kernels(lambda: torch._int_mm(a8, a8), 3)
+    del a8
     out = {f"cuBLAS batched DGEMM (torch.matmul) {SCI_BATCHED} float64":
-           yardstick_kernels(lambda: torch.matmul(ba, ba))}
+           yardstick_kernels(lambda: torch.matmul(ba, ba)),
+           f"torch._int_mm {n9}^3 int8": int_mm}
     for case in ATTN_CASES[:2]:
         label, _, h, kvh, _, _, d, causal, _, dt = case
         q, k, v = attn_inputs(gen, dev, case)
@@ -964,7 +995,7 @@ def yardstick_phase(dev):
         q, k, v, causal=causal))
     log(f"[yardsticks] the port's K10 {label} {dt} D={d}, device ms a call: "
         + json.dumps(attn))
-    return attn
+    return {"k10_f32": attn, "int_mm": int_mm}
 
 
 def profile_phase(dev, arch, params, view_tokens, runs):
@@ -3084,7 +3115,8 @@ def library_phase(dev, mcfg):
     and timed beside their bounds and library calls."""
     gen = torch.Generator(device=dev).manual_seed(19)
     max_err = {"interleaved": 0.0, "relayout": 0.0, "lhs": 0.0, "int8": 0.0,
-               "flash": 0.0, "flash_f32": 0.0, "split": 0.0}
+               "rhs": 0.0, "pair": 0.0, "flash": 0.0, "flash_f32": 0.0,
+               "split": 0.0}
     shapes = dense_shapes(mcfg)
 
     # (a) K11 and K8, bit for bit: against the plain versions, K11 + K2r
@@ -3104,6 +3136,16 @@ def library_phase(dev, mcfg):
                             decompose.decompose_lhs_plain(a, mu, p, beta),
                             max_err, "lhs")
                 b_hat = decompose.decompose_interleave_rhs(b, nu, p, beta)
+                check_equal(f"K2r {what}", b_hat,
+                            decompose.decompose_rhs_plain(b, nu, p, beta),
+                            max_err, "rhs")
+                tau = scheme1.pow2_scale(b, 1).T
+                beta_t = scheme1_cfg(p, "xla").resolved_beta(n)
+                for x, y in zip(decompose.decompose_interleave_pair(
+                        b, nu, tau, p, beta, beta_t),
+                        decompose.decompose_pair_plain(b, nu, tau, p, beta,
+                                                       beta_t)):
+                    check_equal(f"K2 {what}", x, y, max_err, "pair")
                 for x, operand in ((a_hat, "a"), (b_hat, "b")):
                     check_equal(f"K8's relayout of {operand}-hat {what}",
                                 ozaki1.relayout_interleaved(x, p, operand),
@@ -3126,19 +3168,44 @@ def library_phase(dev, mcfg):
                                          f"!= 'kernel' at {what}")
                 checks += 1
                 del a, b, a_hat, b_hat, out, routes
-    log(f"[library] K11 and K8: {checks} shape/type/p cases bit-identical to "
-        "their plain versions (K8's relayouts alone too); K11 + K2r -> K8 "
-        "== K1 and the 'xla' route == the 'kernel' route in every case")
+    log(f"[library] K11, K2r, K2 and K8: {checks} shape/type/p cases "
+        "bit-identical to their plain versions (K8's relayouts alone too); "
+        "K11 + K2r -> K8 == K1 and the 'xla' route == the 'kernel' route in "
+        "every case")
 
-    # (b) K9, bit for bit.
-    for m, k, n in INT8_CHECK:
-        a8 = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
-                           dtype=torch.int8)
-        b8 = torch.randint(-128, 128, (k, n), generator=gen, device=dev,
-                           dtype=torch.int8)
-        check_equal(f"K9 {(m, k, n)}", matmul_int8.int8_matmul(a8, b8),
-                    matmul_int8.int8_matmul_plain(a8, b8), max_err, "int8")
-    log(f"[library] K9 bit-identical to its plain version at {INT8_CHECK}")
+    # (b) K9, bit for bit, with its relayouts counted: INT8_CHECK (A read
+    # in place unless its row stride is misaligned, B relaid), B as the
+    # transposed view of an aligned (N, K) buffer (read in place, no
+    # relayout), A's base misaligned (relaid), and an int32 sum that wraps.
+    def i8(*shape):
+        return torch.randint(-128, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+    n9 = INT8_CHECK[0][0]
+    cases = [(f"{(m, k, n)}", i8(m, k), i8(k, n), None)
+             for m, k, n in INT8_CHECK]
+    cases += [("B a transposed view", i8(n9, n9), i8(n9, n9).T, 0),
+              ("A misaligned", i8(n9, n9 + 1)[:, 1:], i8(n9, n9), 2),
+              (f"wrapping, K = {SCI_LONG_K}",
+               torch.full((128, SCI_LONG_K), -128, dtype=torch.int8,
+                          device=dev),
+               torch.full((SCI_LONG_K, 128), -128, dtype=torch.int8,
+                          device=dev), 1)]
+    relaid = {}
+    for what, a8, b8, expect in cases:
+        before = matmul_int8.COUNTS.launches_relayout
+        out = matmul_int8.int8_matmul(a8, b8)
+        relaid[what] = matmul_int8.COUNTS.launches_relayout - before
+        if expect is not None and relaid[what] != expect:
+            raise AssertionError(f"K9 {what}: {relaid[what]} relayouts, "
+                                 f"expected {expect}")
+        check_equal(f"K9 {what}", out, matmul_int8.int8_matmul_plain(a8, b8),
+                    max_err, "int8")
+        if what.startswith("wrapping") and int(out[0, 0]) != (
+                SCI_LONG_K * 128 * 128 - 2 ** 32):
+            raise AssertionError(f"K9 {what}: {int(out[0, 0])} did not wrap")
+        del a8, b8, out
+    log(f"[library] K9 bit-identical to its plain version in {len(cases)} "
+        f"cases, relayouts a call: {json.dumps(relaid)}")
 
     # The main path: the library's entry points, counts zeroed just before
     # and read just after. Nothing here compares with a plain version.
@@ -3180,20 +3247,23 @@ def library_phase(dev, mcfg):
     log(f"[library] main path: K8 {e1.launches_interleaved} (relayouts "
         f"{e1.launches_relayout}, plane GEMMs {e1.launches_planes}), K11 "
         f"{dc.launches_lhs}, K2r {dc.launches_rhs}, K2 {dc.launches_pair}, K9 "
-        f"{counts['int8'].launches}, K10 {counts['flash'].launches} "
+        f"{counts['int8'].launches} (relayouts "
+        f"{counts['int8'].launches_relayout}), K10 {counts['flash'].launches} "
         f"({', '.join(kernels)}; the 3xTF32 pre-pass "
         f"{counts['flash'].launches_split}), K1 {e1.launches_2d}, plain "
         f"versions on CUDA {sum(c.plain_cuda_calls for c in counts.values())}")
     fl = counts["flash"]
+    # The naive structure's K9 calls read A's slices in place and relay
+    # each B slice (N-contiguous) into B^T's plane.
     expected = (3 * len(shapes), 6 * len(shapes), 3 * len(shapes),
-                len(shapes), len(shapes), len(shapes), n_mm,
+                len(shapes), len(shapes), len(shapes), n_mm, n_mm,
                 len(ATTN_CASES), kernels.count("wgmma-3xtf32"),
                 kernels.count("ffma"), kernels.count("wgmma-3xtf32"), 0, 0)
     got = (e1.launches_interleaved, e1.launches_relayout, e1.launches_planes,
            dc.launches_lhs, dc.launches_rhs, dc.launches_pair,
-           counts["int8"].launches, fl.launches, fl.launches_3xtf32,
-           fl.launches_ffma, fl.launches_split, e1.launches_2d,
-           e1.launches_encode)
+           counts["int8"].launches, counts["int8"].launches_relayout,
+           fl.launches, fl.launches_3xtf32, fl.launches_ffma,
+           fl.launches_split, e1.launches_2d, e1.launches_encode)
     if got != expected:
         raise AssertionError(f"library main path launches {got}, expected "
                              f"{expected}")
@@ -3267,6 +3337,11 @@ def library_phase(dev, mcfg):
                  lambda: decompose.decompose_lhs_plain(a, mu, p, beta),
                  lhs_bound(m, k, p, 2))):
             _add(tot, 1, time_ms(run_k, 10), time_ms(run_p, 3), 0.0, bms, by)
+            if any(tot is x for x in (t2r, t2, t11)):
+                # Their device time too: at the smaller shapes CUDA events
+                # over back-to-back calls time the wrapper's host work.
+                tot["device_ms"] = tot.get("device_ms", 0.0) + queued_ms(
+                    run_k)
         pa = ozaki1.relayout_interleaved(a_hat, p, "a")
         pb = ozaki1.relayout_interleaved(b_hat, p, "b")
         out = torch.empty((m, n), dtype=bf, device=dev)
@@ -3299,30 +3374,49 @@ def library_phase(dev, mcfg):
         f"mainloop {split8['mainloop_ms']:.4f} at "
         f"{split8['mainloop_tops']:.1f} TOPS, bound "
         f"{split8['planes_bound_ms']:.4f}), plain {t8['plain_ms']:.4f} ms, "
-        f"bound {t8['bound_ms']:.4f} ms; K11: kernel {t11['ms']:.4f} ms, "
-        f"plain {t11['plain_ms']:.4f} ms, bound {t11['bound_ms']:.4f} ms "
-        "(bytes); "
-        f"K2r {t2r['ms']:.4f} ms (plain {t2r['plain_ms']:.4f}, bound "
-        f"{t2r['bound_ms']:.4f}), K2 {t2['ms']:.4f} ms (plain "
-        f"{t2['plain_ms']:.4f}, bound {t2['bound_ms']:.4f})")
+        f"bound {t8['bound_ms']:.4f} ms; " + "; ".join(
+            f"{name}: device {t['device_ms']:.4f} ms (CUDA events "
+            f"{t['ms']:.4f}), plain {t['plain_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms (bytes)"
+            for name, t in (("K11", t11), ("K2r", t2r), ("K2", t2))))
     del xs
 
-    # K9 beside torch._int_mm (the library call) and its bound.
+    # K9 beside torch._int_mm (the library call; yardstick_phase names
+    # its device kernel) and its bound: the route, B's relayout, the plane
+    # GEMM and its mainloop apart (A is read in place), at each of its
+    # output tiles, and the route and the relayout by device time (the
+    # wrapper's host work sets a lone relayout's CUDA-event time).
     t9 = []
     for n_ in INT8_TIMED:
-        a8 = torch.randint(-128, 128, (n_, n_), generator=gen, device=dev,
-                           dtype=torch.int8)
-        b8 = torch.randint(-128, 128, (n_, n_), generator=gen, device=dev,
-                           dtype=torch.int8)
-        ms = time_ms(lambda: matmul_int8.int8_matmul(a8, b8), 10)
-        plain = time_ms(lambda: matmul_int8.int8_matmul_plain(a8, b8), 3)
-        lib = time_ms(lambda: torch._int_mm(a8, b8), 10)
-        bms, by = int8_bound(n_, n_, n_)
-        t9.append({"n": n_, "ms": ms, "plain_ms": plain, "library_ms": lib,
-                   "bound_ms": bms, "bound_by": by})
-        log(f"[library] K9 {n_}^3: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"torch._int_mm {lib:.4f} ms, bound {bms:.4f} ms ({by})")
-        del a8, b8
+        a8, b8 = i8(n_, n_), i8(n_, n_)
+        out = torch.empty((n_, n_), dtype=torch.int32, device=dev)
+        a, lda, _ = matmul_int8.operand_plane(a8)
+        bt, ldb, _ = matmul_int8.operand_plane(b8.T)
+        row = {"n": n_,
+               "ms": time_ms(lambda: matmul_int8.int8_matmul(a8, b8), 10),
+               "plain_ms": time_ms(
+                   lambda: matmul_int8.int8_matmul_plain(a8, b8), 3),
+               "library_ms": time_ms(lambda: torch._int_mm(a8, b8), 10),
+               "device_ms": queued_ms(
+                   lambda: matmul_int8.int8_matmul(a8, b8)),
+               "relayout_ms": queued_ms(
+                   lambda: matmul_int8.operand_plane(b8.T)),
+               "gemm_ms": time_ms(lambda: matmul_int8.launch(
+                   a, lda, bt, ldb, n_, out), 10),
+               "mainloop_ms": time_ms(lambda: matmul_int8.launch(
+                   a, lda, bt, ldb, n_, out, epilogue=False), 10),
+               "gemm_by_tile_ms": {f"{tm} x {tn}": time_ms(
+                   lambda: matmul_int8.launch(a, lda, bt, ldb, n_, out,
+                                              tile_mn=(tm, tn)), 10)
+                   for tm, tn in ((128, 256), (64, 128))}}
+        row["epilogue_ms"] = row["gemm_ms"] - row["mainloop_ms"]
+        row["mainloop_tops"] = 2 * n_ ** 3 / row["mainloop_ms"] / 1e9
+        row["relayout_bound_ms"] = 1e3 * (n_ * n_ + n_ * ozaki1.plane_k(
+            n_)) / HBM_BYTES_PER_S
+        row["bound_ms"], row["bound_by"] = int8_bound(n_, n_, n_)
+        t9.append(row)
+        log(f"[library] K9 {n_}^3: " + json.dumps(row))
+        del a8, b8, a, bt, out
     naive_ms = time_ms(lambda: naive_scheme1(na, nb, p, naive_beta), 3)
     fused_ms = time_ms(lambda: fused_scheme1(na, nb, p, naive_beta), 3)
     log(f"[library] Fig. 4 at {NAIVE_N}^3, float32, p={p}: naive ({n_mm} K9 "
@@ -3382,15 +3476,19 @@ def library_phase(dev, mcfg):
     ffma = next(r for r in t10 if r["instance"]["kernel"] == "ffma")
 
     def totals(t):
-        return {"ms": t["ms"], "plain_ms": t["plain_ms"],
+        """ms: device time (torch.profiler) where taken, events_ms: CUDA
+        events over back-to-back calls."""
+        return {"ms": t.get("device_ms", t["ms"]), "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"],
                 "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"]
-                else "operations"}
+                else "operations",
+                **({"events_ms": t["ms"]} if "device_ms" in t else {})}
 
     common = {"route": "cuda"}
     lib_per = (f"one launch at each of olmo-1b's dense shapes at {TOKENS} "
                f"tokens, bf16, p = {p} (launches: phase 19's main path)")
-    return dc, {"pair": totals(t2), "rhs": totals(t2r)}, [
+    return dc, {"pair": {**totals(t2), "max_abs_err": max_err["pair"]},
+                "rhs": {**totals(t2r), "max_abs_err": max_err["rhs"]}}, [
         {"name": "emugemm1_interleaved", **common, "source": SOURCE_S1_PLANES,
          "replaces": "src/repro/kernels/ozaki1.py:118",
          "launches": e1.launches_interleaved,
@@ -3411,14 +3509,21 @@ def library_phase(dev, mcfg):
          "replaces": "src/repro/kernels/decompose.py:42",
          "launches": dc.launches_lhs, "max_abs_err": max_err["lhs"],
          **totals(t11), "library_ms": None, "per": lib_per},
-        {"name": "int8_matmul", **common, "source": SOURCE_INT8,
+        {"name": "int8_matmul", **common, "source": SOURCE_S1_PLANES,
          "replaces": "src/repro/kernels/matmul_int8.py:38",
-         "launches": counts["int8"].launches, "max_abs_err": max_err["int8"],
-         **{key: t9[0][key] for key in ("ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms")},
-         "per": f"one {INT8_TIMED[0]}^3 GEMM; library: torch._int_mm "
-                f"(launches: the naive Fig. 4 structure at {NAIVE_N}^3)",
-         "cases": t9, "naive_fig4_ms": naive_ms, "fused_k1_ms": fused_ms},
+         "launches": counts["int8"].launches,
+         "launches_relayout": counts["int8"].launches_relayout,
+         "max_abs_err": max_err["int8"],
+         **{key: t9[0][key] for key in (
+             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "relayout_ms", "gemm_ms", "mainloop_ms",
+             "epilogue_ms", "mainloop_tops")},
+         "per": f"one {INT8_TIMED[0]}^3 GEMM: a relayout of B + the plane "
+                "GEMM's int32 instance (A read in place); library: "
+                f"torch._int_mm (launches: the naive Fig. 4 structure at "
+                f"{NAIVE_N}^3)",
+         "relayouts_by_check": relaid, "cases": t9,
+         "naive_fig4_ms": naive_ms, "fused_k1_ms": fused_ms},
         {"name": "flash_attention", **common, "source": SOURCE_FLASH,
          "replaces": "src/repro/kernels/flash_attn.py:75",
          "launches": fl.launches - fl.launches_3xtf32 - fl.launches_ffma,
@@ -3464,7 +3569,7 @@ def build_phase():
     """nvcc for each kernel source, all started together."""
     t0 = time.perf_counter()
     names = ("emugemm1_batched", "emugemm1_planes", "decompose",
-             "emugemm2_planes", "matmul_int8", "flash_attn")
+             "emugemm2_planes", "flash_attn")
     with ThreadPoolExecutor(len(names)) as ex:
         for f in [ex.submit(build.build, n) for n in names]:
             f.result()
@@ -3484,7 +3589,7 @@ def main() -> int:
     card = smi.stdout.strip()
     log(card)
     build_phase()
-    k10_f32_kernels = yardstick_phase(dev)
+    yardsticks = yardstick_phase(dev)
 
     arch = configs.get_config("olmo-1b")
     view_tokens = PAGE * math.ceil((PROMPT + GEN - 1 + CHUNK) / PAGE)
@@ -3642,7 +3747,8 @@ def main() -> int:
         t = t_totals[key]
         kernels.append({
             "name": name, **common, "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": t_err[key], **lib_dec[key],
+            "launches": launches, **lib_dec[key],
+            "max_abs_err": max(t_err[key], lib_dec[key]["max_abs_err"]),
             "per": f"one launch at each of olmo-1b's dense shapes at "
                    f"{TOKENS} tokens, bf16, p = {P_MAIN}, summed (launches: "
                    "phase 19's main path, the decompositions feeding K8)",
@@ -3831,9 +3937,11 @@ def main() -> int:
                "F.pad(x, (0, Kp - K)) of the strided view, or x.contiguous() "
                "where Kp = K"})
     for row in library_rows:
+        if row["name"] == "int8_matmul":
+            row["library_kernels_ms"] = yardsticks["int_mm"]
         if row["name"] in ("flash_attention_3xtf32", "flash_split_3xtf32"):
             row["device_kernels_ms"] = {
-                k: v for k, v in k10_f32_kernels.items()
+                k: v for k, v in yardsticks["k10_f32"].items()
                 if ("split" in k) == (row["name"] == "flash_split_3xtf32")}
     kernels += library_rows
     print(json.dumps({"kernels": kernels}))

@@ -4,6 +4,7 @@
     python3 compare_checkouts.py OTHER_CHECKOUT --scheme2
     python3 compare_checkouts.py OTHER_CHECKOUT --residues
     python3 compare_checkouts.py OTHER_CHECKOUT --scheme1
+    python3 compare_checkouts.py OTHER_CHECKOUT --library
 
 Builds both checkouts' kernels, then measures each checkout through its
 own ``chip_smoke.py`` in separate processes, in the order other, this,
@@ -40,7 +41,16 @@ them, K4 also per call at training's attention chunks, at one batch
 element and at p = 1 and 8, the plane route's encode at four shapes, and
 K4 and the encode by their kernels' device time from torch.profiler (CUDA
 events over back-to-back calls measure the host's wrapper at those
-shapes), and prints one ``COMPARE_S1 {...}`` line. Needs one CUDA card.
+shapes), and prints one ``COMPARE_S1 {...}`` line. With ``--library`` each
+run times the library kernels that no model path reaches, whatever kernels
+the checkout gives them: the int8 GEMM (K9, ``matmul_int8.int8_matmul``)
+at 4096^3 and 8192^3 beside ``torch._int_mm`` in the same process, the
+naive Fig. 4 structure (p(p+1)/2 K9 calls) beside one EmuGEMM-I call (K1)
+at 4096^3, float32, p = 4, and the decompositions K2, K2r and K11 (bf16,
+p = 4) at olmo-1b's three dense shapes at 1024 tokens (one call each,
+summed), each by CUDA events and by its kernels' device time from
+torch.profiler, and prints one ``COMPARE_LIB {...}`` line. Needs one CUDA
+card.
 """
 
 from __future__ import annotations
@@ -335,11 +345,87 @@ def measure_scheme1(root: str) -> dict:
     return out
 
 
+def device_ms_per_call(fn, calls: int) -> float:
+    """Device ms of every kernel ``fn`` launches, summed a call, from one
+    torch.profiler pass over ``calls`` calls (either checkout's K9 is one
+    or two kernels a call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.end - e.time_range.start for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3 / calls
+
+
+def measure_library(root: str) -> dict:
+    """The library kernels' device ms (CUDA events) in the checkout at
+    ``root``, through its own chip_smoke.py's helpers."""
+    g = runpy.run_path(os.path.join(root, "chip_smoke.py"),
+                       run_name="chip_smoke")["main"].__globals__
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import scheme1
+    from repro_torch.kernels import decompose, matmul_int8
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader", "-i", "0"],
+                          capture_output=True, text=True,
+                          check=True).stdout.strip()
+    gen = torch.Generator(device=dev).manual_seed(24)
+    time_ms, conditioned = g["time_ms"], g["conditioned"]
+    out = {"root": root, "card": card}
+    for n in (4096, 8192):
+        a8, b8 = (torch.randint(-128, 128, (n, n), generator=gen, device=dev,
+                                dtype=torch.int8) for _ in "ab")
+        out[f"k9_{n}_ms"] = time_ms(lambda: matmul_int8.int8_matmul(a8, b8),
+                                    10)
+        out[f"k9_{n}_device_ms"] = device_ms_per_call(
+            lambda: matmul_int8.int8_matmul(a8, b8), 5)
+        out[f"int_mm_{n}_ms"] = time_ms(lambda: torch._int_mm(a8, b8), 10)
+        del a8, b8
+    p, n = g["P_MAIN"], g["NAIVE_N"]
+    na, nb = (conditioned(gen, (n, n), torch.float32, dev) for _ in "ab")
+    beta = g["scheme1_cfg"](p, "xla").resolved_beta(n)
+    out["naive_fig4_ms"] = time_ms(
+        lambda: g["naive_scheme1"](na, nb, p, beta), 3)
+    out["fused_k1_ms"] = time_ms(
+        lambda: g["fused_scheme1"](na, nb, p, beta), 3)
+    del na, nb
+    bf, per_call = torch.bfloat16, {}
+    for key in ("k2", "k2r", "k11"):
+        out[f"{key}_dense_ms"] = out[f"{key}_dense_device_ms"] = 0.0
+    for m, k, n in g["dense_shapes"](configs.get_config("olmo-1b").model):
+        a = conditioned(gen, (m, k), bf, dev)
+        b = conditioned(gen, (k, n), bf, dev)
+        mu, nu = scheme1.pow2_scale(a, 1), scheme1.pow2_scale(b, 0)
+        tau = scheme1.pow2_scale(b, 1).T
+        for key, fn in (
+                ("k2", lambda: decompose.decompose_interleave_pair(
+                    b, nu, tau, p, 7, 7)),
+                ("k2r", lambda: decompose.decompose_interleave_rhs(
+                    b, nu, p, 7)),
+                ("k11", lambda: decompose.decompose_interleave(a, mu, p, 7))):
+            ms, dev_ms = time_ms(fn, 10), kernel_device_ms(fn, 10)
+            per_call[f"{key} {(m, k, n)}"] = [ms, dev_ms]
+            out[f"{key}_dense_ms"] += ms
+            out[f"{key}_dense_device_ms"] += dev_ms
+        del a, b
+    out["decompose_per_call_ms"] = per_call
+    return out
+
+
 def main() -> int:
     modes = {"--measure": ("COMPARE", measure),
              "--measure-scheme2": ("COMPARE_S2", measure_scheme2),
              "--measure-residues": ("COMPARE_RES", measure_residues),
-             "--measure-scheme1": ("COMPARE_S1", measure_scheme1)}
+             "--measure-scheme1": ("COMPARE_S1", measure_scheme1),
+             "--measure-library": ("COMPARE_LIB", measure_library)}
     if len(sys.argv) == 3 and (sys.argv[1] == "--build"
                                or sys.argv[1] in modes):
         root = os.path.abspath(sys.argv[2])
@@ -351,7 +437,7 @@ def main() -> int:
             print(f"{tag} " + json.dumps(fn(root)), flush=True)
         return 0
     if len(sys.argv) not in (2, 3) or sys.argv[2:] not in (
-            [], ["--scheme2"], ["--residues"], ["--scheme1"]):
+            [], ["--scheme2"], ["--residues"], ["--scheme1"], ["--library"]):
         print(__doc__, file=sys.stderr)
         return 2
     other = os.path.abspath(sys.argv[1])

@@ -7,13 +7,15 @@
 //   src/repro/kernels/backends/gpu.py  fused_matmul_scheme1 (_kernel), 2-D launch
 //   src/repro/kernels/ozaki1.py        fused_matmul_mixed (_kernel, a_fp only)
 //   src/repro/kernels/ozaki1.py        fused_matmul_interleaved (_kernel, neither operand float)
+//   src/repro/kernels/matmul_int8.py   int8_matmul (_kernel), the int8 GEMM (K9)
 // (the batched launch is emugemm1_batched.cu). A 2-D product is two
 // encodes and one plane GEMM; the mixed form, whose rhs is a prepared
 // weight, one encode of the lhs and one plane GEMM against the planes that
 // an encode wrote once, when the weight was prepared (kernels/prepared.py,
 // layout 'planes'); the interleaved form, whose operands arrive sliced and
 // interleaved on K (A-hat, B-hat), a relayout of each into planes and one
-// plane GEMM, mu and nu entering only in its epilogue.
+// plane GEMM, mu and nu entering only in its epilogue. The int8 GEMM (K9)
+// is the plane GEMM's int32 instance at p = 1 (below).
 //
 // encode: one pass over a float32 or bf16 operand (R, K), read through its
 // strides, with a power-of-two row scale s (mu of A; B enters as B^T with
@@ -54,6 +56,19 @@
 // M = 4 and 64 rows run one tile row (BM = 64) over N / 128 tiles, so the
 // grid fills few SMs (PERF.md measures both).
 //
+// The int8 GEMM (K9), (M, K) int8 @ (K, N) int8 -> (M, N) int32: the same
+// kernel at p = 1 with an int32 output type, whose epilogue stores the raw
+// accumulator (no fold, no mu or nu) as 8-byte pairs, on a (128, 256)
+// output tile (two column halves of m64n128k32 a consumer, 4 stages of
+// 48 KB) where M > 64: its consumers hold no float partial results, so
+// 128 accumulators fit; A, and B^T, are each a single plane. An operand whose rows are K-contiguous with a 16-byte
+// aligned base and row stride is read in place through its tensor map (K
+// past the edge arrives as zeros); otherwise one relayout (below, at p = 1
+// with a logical K) writes its (1, R, Kpp) plane first: B (K, N) as it
+// arrives, N-contiguous, always. Bound: operations at large shapes, 2 M N K
+// at the int8 peak (4096^3: 69 us); the int32 output (4 M N bytes) is
+// written in series with the mainloop on a one-block-per-SM grid.
+//
 // Numerics, so that the result is bit-identical to the plain versions
 // (repro_torch.kernels.ozaki1.encode_planes_plain, plane_matmul_plain):
 //   * exact powers of two come from the exponent field, never exp2f;
@@ -64,6 +79,7 @@
 //   * the scales and beta come from the caller, computed from the logical K.
 
 #include <algorithm>
+#include <type_traits>
 
 #include "hopper.cuh"
 #include "scheme1_common.cuh"
@@ -128,15 +144,18 @@ emugemm1_encode_kernel(const T* __restrict__ x, const float* __restrict__ scale,
 
 constexpr int PBN = 128;                  // output tile columns: one m64n128 a k-step
 constexpr int PBK = 128;                  // K tile: one 128-byte swizzle row
-constexpr int STAGES = 6;
 constexpr int GROUP_M = 16;               // tile rows of a raster group
 
-// WG consumer warpgroups of 64 rows each.
-template <int WG>
+// WG consumer warpgroups of 64 rows each, NH column halves of 128 (NH = 2,
+// a 256-column tile, only for the int8 GEMM's int32 instance, whose
+// consumers hold no float partial results beside the accumulators).
+template <int WG, int NH = 1>
 struct Tile {
   static constexpr int BM = 64 * WG;
+  static constexpr int BN = PBN * NH;
   static constexpr int A_BYTES = BM * PBK;
-  static constexpr int STAGE_BYTES = A_BYTES + PBN * PBK;
+  static constexpr int STAGE_BYTES = A_BYTES + BN * PBK;
+  static constexpr int STAGES = NH == 1 ? 6 : 4;
   static constexpr int CONSUMERS = 128 * WG;
   static constexpr int THREADS = CONSUMERS + 128;   // and one producer warpgroup
   static constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
@@ -144,14 +163,18 @@ struct Tile {
 
 // A (M, Kp) and B^T (N, Kp) planes as 3-D tensor maps; mu (M) and nu (N)
 // contiguous; out (M, N) row-major. epilogue = 0 stops after the mainloop
-// and stores nothing (for timing the two apart).
-template <typename O, int WG>
-__global__ void __launch_bounds__(Tile<WG>::THREADS, 1)
+// and stores nothing (for timing the two apart). O = int32_t is the int8
+// GEMM: p = 1, the accumulator stored as it is, mu and nu unread.
+template <typename O, int WG, int NH>
+__global__ void __launch_bounds__(Tile<WG, NH>::THREADS, 1)
 emugemm1_planes_kernel(const __grid_constant__ CUtensorMap map_a,
                        const __grid_constant__ CUtensorMap map_b, const float* __restrict__ mu,
                        const float* __restrict__ nu, O* __restrict__ out, int M, int N, int nk,
                        int p, int beta, int epilogue) {
-  using TL = Tile<WG>;
+  using TL = Tile<WG, NH>;
+  constexpr int STAGES = TL::STAGES;
+  constexpr bool RAW = std::is_same<O, int32_t>::value;
+  static_assert(NH == 1 || RAW, "a 256-column tile only for the int32 instance");
   extern __shared__ __align__(16) uint8_t ring_smem[];
   const uint32_t pad = (1024 - (smem_u32(ring_smem) & 1023)) & 1023;
   uint8_t* ring = ring_smem + pad;                                  // [STAGES][A | B], 1024-aligned
@@ -161,13 +184,13 @@ emugemm1_planes_kernel(const __grid_constant__ CUtensorMap map_a,
   // Tiles run in groups of GROUP_M tile rows, column by column, so that
   // the blocks resident together read a few row and column slabs of each
   // plane, which stay in L2 across the plane-pair passes.
-  const int tiles_m = (M + TL::BM - 1) / TL::BM, tiles_n = (N + PBN - 1) / PBN;
+  const int tiles_m = (M + TL::BM - 1) / TL::BM, tiles_n = (N + TL::BN - 1) / TL::BN;
   const int tile = blockIdx.x;
   const int first = (tile / (GROUP_M * tiles_n)) * GROUP_M;
   const int rows = min(tiles_m - first, GROUP_M);
   const int in_group = tile % (GROUP_M * tiles_n);
   const int m0 = (first + in_group % rows) * TL::BM;
-  const int n0 = (in_group / rows) * PBN;
+  const int n0 = (in_group / rows) * TL::BN;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -208,11 +231,13 @@ emugemm1_planes_kernel(const __grid_constant__ CUtensorMap map_a,
     float c[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) c[i] = 0.f;
-    int acc[64];
+    int acc[NH][64];
     int stage = 0, phase = 0;
     for (int s = 0; s < p; ++s) {
 #pragma unroll
-      for (int i = 0; i < 64; ++i) acc[i] = 0;
+      for (int h = 0; h < NH; ++h)
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[h][i] = 0;
       int prev = -1;
       for (int kt = 0; kt < nk; ++kt) {
         for (int i = 0; i <= s; ++i) {
@@ -220,15 +245,20 @@ emugemm1_planes_kernel(const __grid_constant__ CUtensorMap map_a,
           const uint8_t* st = ring + stage * TL::STAGE_BYTES;
           const uint64_t da = desc_sw128(st + wg * 64 * PBK);
           const uint64_t db = desc_sw128(st + TL::A_BYTES);
-          reg_fence(acc);
+#pragma unroll
+          for (int h = 0; h < NH; ++h) reg_fence(acc[h]);
           wgmma_fence();
 #pragma unroll
-          for (int ks = 0; ks < PBK / 32; ++ks) wgmma_s8_n128(acc, da + 2 * ks, db + 2 * ks);
+          for (int ks = 0; ks < PBK / 32; ++ks)
+#pragma unroll
+            for (int h = 0; h < NH; ++h)
+              wgmma_s8_n128(acc[h], da + 2 * ks, db + h * (PBN * PBK >> 4) + 2 * ks);
           wgmma_commit();
           // The previous stage's products are done once at most this
           // group is in flight: hand that stage back to the producer.
           wgmma_wait<1>();
-          reg_fence(acc);
+#pragma unroll
+          for (int h = 0; h < NH; ++h) reg_fence(acc[h]);
           if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
           prev = stage;
           if (++stage == STAGES) {
@@ -238,12 +268,15 @@ emugemm1_planes_kernel(const __grid_constant__ CUtensorMap map_a,
         }
       }
       wgmma_wait_all();
-      reg_fence(acc);
-      if (lane == 0) mbar_arrive(&empty[prev]);
-      if (epilogue) {
-        const float w = pow2(-beta * (s + 2));
 #pragma unroll
-        for (int i = 0; i < 64; ++i) c[i] = Epilogue<O>::step(c[i], acc[i], w);
+      for (int h = 0; h < NH; ++h) reg_fence(acc[h]);
+      if (lane == 0) mbar_arrive(&empty[prev]);
+      if constexpr (!RAW) {
+        if (epilogue) {
+          const float w = pow2(-beta * (s + 2));
+#pragma unroll
+          for (int i = 0; i < 64; ++i) c[i] = Epilogue<O>::step(c[i], acc[0][i], w);
+        }
       }
     }
     if (!epilogue) return;
@@ -253,29 +286,55 @@ emugemm1_planes_kernel(const __grid_constant__ CUtensorMap map_a,
     const int row0 = m0 + wg * 64 + ((ct % 128) / 32) * 16 + lane / 4;
     const int col0 = n0 + (lane % 4) * 2;
     const bool pairs = (N & 1) == 0;
+    if constexpr (RAW) {
+      // The int8 GEMM: a warp stores 8 rows of 32 contiguous bytes an
+      // instruction, one 8-byte pair a lane.
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int col = col0 + 8 * j;
-      if (col >= N) continue;
-      const bool two = col + 1 < N;
-      const float nu0 = nu[col], nu1 = two ? nu[col + 1] : 0.f;
+      for (int q = 0; q < NH; ++q) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = row0 + 8 * h;
-        if (row >= M) continue;
-        const float m = mu[row];
-        O* o = out + static_cast<long long>(row) * N + col;
-        const float v0 = Epilogue<O>::scale(c[4 * j + 2 * h], m, nu0);
-        if (two) {
-          const float v1 = Epilogue<O>::scale(c[4 * j + 2 * h + 1], m, nu1);
-          if (pairs) {
-            Epilogue<O>::store2(o, v0, v1);
+        for (int j = 0; j < 16; ++j) {
+          const int col = col0 + PBN * q + 8 * j;
+          if (col >= N) continue;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = row0 + 8 * h;
+            if (row >= M) continue;
+            O* o = out + static_cast<long long>(row) * N + col;
+            const int* d = &acc[q][4 * j + 2 * h];
+            if (pairs) {
+              *reinterpret_cast<int2*>(o) = make_int2(d[0], d[1]);
+            } else {
+              o[0] = d[0];
+              if (col + 1 < N) o[1] = d[1];
+            }
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = col0 + 8 * j;
+        if (col >= N) continue;
+        const bool two = col + 1 < N;
+        const float nu0 = nu[col], nu1 = two ? nu[col + 1] : 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row0 + 8 * h;
+          if (row >= M) continue;
+          const float m = mu[row];
+          O* o = out + static_cast<long long>(row) * N + col;
+          const float v0 = Epilogue<O>::scale(c[4 * j + 2 * h], m, nu0);
+          if (two) {
+            const float v1 = Epilogue<O>::scale(c[4 * j + 2 * h + 1], m, nu1);
+            if (pairs) {
+              Epilogue<O>::store2(o, v0, v1);
+            } else {
+              Epilogue<O>::store(o, v0);
+              Epilogue<O>::store(o + 1, v1);
+            }
           } else {
             Epilogue<O>::store(o, v0);
-            Epilogue<O>::store(o + 1, v1);
           }
-        } else {
-          Epilogue<O>::store(o, v0);
         }
       }
     }
@@ -289,6 +348,9 @@ emugemm1_planes_kernel(const __grid_constant__ CUtensorMap map_a,
 // columns (rows) (c p + i) IT of the layout. The relayout writes them as the
 // plane GEMM's K-contiguous planes (p, R, Kpp), Kpp = Kp padded to PBK with
 // zero slices: A-hat's rows as they are, B-hat transposed (B^T's planes).
+// At p = 1 the layout is the operand itself and K is any logical K, the
+// bytes past it zeros: the int8 GEMM's relayout of an operand that its
+// tensor map cannot read in place (B (K, N), or a misaligned A).
 // Both kernels read and write 16 bytes or more a thread along rows of 32 or
 // more contiguous bytes; B-hat's transpose goes through a (128, 128)
 // shared tile, 4 x 4 bytes transposed in registers a thread. Bound by
@@ -308,6 +370,7 @@ __device__ __forceinline__ long long interleaved(int k, int i, int p) {
 __global__ void __launch_bounds__(RNT)
 relayout_lhs_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ planes, int R, int Kp,
                     int Kpp, long long ld, int p, int vec) {
+  // Kp: the K of a slice (a multiple of IT when p > 1).
   const int groups = Kpp / 16;
   const long long units = static_cast<long long>(p) * R * groups;
   for (long long u = blockIdx.x * static_cast<long long>(RNT) + threadIdx.x; u < units;
@@ -318,13 +381,14 @@ relayout_lhs_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ planes, i
     uint4 w = make_uint4(0, 0, 0, 0);
     if (k < Kp) {
       const int8_t* src = x + r * ld + interleaved(k, i, p);
-      if (vec) {
+      if (vec && k + 16 <= Kp) {
         w = *reinterpret_cast<const uint4*>(src);
       } else {
         uint32_t b[4] = {0, 0, 0, 0};
+        const int n = min(16, Kp - k);
 #pragma unroll
         for (int j = 0; j < 16; ++j)
-          b[j / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(src[j])) << (8 * (j % 4));
+          if (j < n) b[j / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(src[j])) << (8 * (j % 4));
         w = make_uint4(b[0], b[1], b[2], b[3]);
       }
     }
@@ -395,14 +459,16 @@ relayout_rhs_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ planes, i
 
 // ---- host side -------------------------------------------------------------
 
-// The planes (p, rows, Kp) int8 as a 3-D tensor map with (PBK, box_rows, 1)
-// boxes: rows past `rows` arrive as zeros.
-int plane_map(CUtensorMap* map, const int8_t* planes, int p, int rows, int Kp, int box_rows) {
+// The planes (p, rows, K) int8, row stride ld bytes, as a 3-D tensor map
+// with (PBK, box_rows, 1) boxes: rows past `rows` and K past `K` arrive as
+// zeros.
+int plane_map(CUtensorMap* map, const int8_t* planes, int p, int rows, int K, long long ld,
+              int box_rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return -2;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(Kp), static_cast<cuuint64_t>(rows),
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(p)};
-  const cuuint64_t row = static_cast<cuuint64_t>(Kp);
+  const cuuint64_t row = static_cast<cuuint64_t>(ld);
   const cuuint64_t strides[2] = {row, row * rows};
   const cuuint32_t box[3] = {PBK, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t unit[3] = {1, 1, 1};
@@ -422,20 +488,21 @@ int launch_encode(const void* x, const float* scale, int8_t* planes, int R, int 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename O, int WG>
+template <typename O, int WG, int NH = 1>
 int launch_planes(const CUtensorMap& ma, const CUtensorMap& mb, const float* mu, const float* nu,
                   void* out, int M, int N, int nk, int p, int beta, int epilogue,
                   cudaStream_t st) {
-  using TL = Tile<WG>;
+  using TL = Tile<WG, NH>;
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        emugemm1_planes_kernel<O, WG>, cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM);
+        emugemm1_planes_kernel<O, WG, NH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        TL::SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const int tiles = ((M + TL::BM - 1) / TL::BM) * ((N + PBN - 1) / PBN);
-  emugemm1_planes_kernel<O, WG><<<tiles, TL::THREADS, TL::SMEM, st>>>(
+  const int tiles = ((M + TL::BM - 1) / TL::BM) * ((N + TL::BN - 1) / TL::BN);
+  emugemm1_planes_kernel<O, WG, NH><<<tiles, TL::THREADS, TL::SMEM, st>>>(
       ma, mb, mu, nu, static_cast<O*>(out), M, N, nk, p, beta, epilogue);
   return static_cast<int>(cudaGetLastError());
 }
@@ -472,8 +539,8 @@ extern "C" int emugemm1_planes(const int8_t* a_planes, const int8_t* b_planes, c
   if (M <= 0 || N <= 0 || Kp <= 0 || Kp % PBK != 0) return -1;
   if (p < 1 || p > MAXP || beta < 1 || beta > 7 || (tile_m != 64 && tile_m != 128)) return -1;
   CUtensorMap ma, mb;
-  int rc = plane_map(&ma, a_planes, p, M, Kp, tile_m);
-  if (rc == 0) rc = plane_map(&mb, b_planes, p, N, Kp, PBN);
+  int rc = plane_map(&ma, a_planes, p, M, Kp, Kp, tile_m);
+  if (rc == 0) rc = plane_map(&mb, b_planes, p, N, Kp, Kp, PBN);
   if (rc != 0) return rc;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nk = Kp / PBK;
@@ -487,16 +554,39 @@ extern "C" int emugemm1_planes(const int8_t* a_planes, const int8_t* b_planes, c
 #undef EMUGEMM1_PLANES
 }
 
+// The int8 GEMM (K9): a (M, K) and bt (N, K) int8, K-contiguous rows with
+// row strides lda and ldb (bytes; each a multiple of 16, each base 16-byte
+// aligned: the operand itself or its plane from emugemm1_relayout) ->
+// out (M, N) int32 row-major, the sums wrapping as int32 adds do; the
+// output tile (tile_m, tile_n): (128, 256) or (64, 128). epilogue = 0
+// stops after the mainloop.
+extern "C" int emugemm1_int8(const int8_t* a, const int8_t* bt, int32_t* out, int M, int N,
+                             int K, long long lda, long long ldb, int tile_m, int tile_n,
+                             int epilogue, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0) return -1;
+  if (!(tile_m == 128 && tile_n == 256) && !(tile_m == 64 && tile_n == 128)) return -1;
+  CUtensorMap ma, mb;
+  int rc = plane_map(&ma, a, 1, M, K, lda, tile_m);
+  if (rc == 0) rc = plane_map(&mb, bt, 1, N, K, ldb, tile_n);
+  if (rc != 0) return rc;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nk = (K + PBK - 1) / PBK;
+  return tile_m == 128
+             ? launch_planes<int32_t, 2, 2>(ma, mb, nullptr, nullptr, out, M, N, nk, 1, 1, epilogue,
+                                            st)
+             : launch_planes<int32_t, 1>(ma, mb, nullptr, nullptr, out, M, N, nk, 1, 1, epilogue, st);
+}
+
 // The K tile, to which planes are padded.
 extern "C" int emugemm1_plane_k() { return PBK; }
 
 // The interleaved form's relayout: x, A-hat (R, p Kp) (rhs = 0) or B-hat
 // (p Kp, R) (rhs = 1), int8 with row stride ld (bytes), Kp a multiple of
-// the interleave granularity -> planes (p, R, Kpp) int8 contiguous, Kpp a
-// multiple of the K tile >= Kp.
+// the interleave granularity when p > 1 (at p = 1 any logical K) -> planes
+// (p, R, Kpp) int8 contiguous, Kpp a multiple of the K tile >= Kp.
 extern "C" int emugemm1_relayout(const int8_t* x, int8_t* planes, int R, int Kp, int Kpp,
                                  long long ld, int p, int rhs, void* stream) {
-  if (R <= 0 || Kp <= 0 || Kp % IT != 0 || Kpp < Kp || Kpp % PBK != 0) return -1;
+  if (R <= 0 || Kp <= 0 || (p > 1 && Kp % IT != 0) || Kpp < Kp || Kpp % PBK != 0) return -1;
   if (p < 1 || p > MAXP) return -1;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uintptr_t base = reinterpret_cast<uintptr_t>(x);

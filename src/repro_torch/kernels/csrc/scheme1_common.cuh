@@ -1,7 +1,7 @@
 // Scheme-I pieces shared by EmuGEMM-I's kernels (emugemm1_planes.cu,
-// emugemm1_batched.cu): operand and output types, exact powers of two, the
-// carve of eight scaled elements into packed int8 slices, and the
-// shift-reduce epilogue's steps.
+// emugemm1_batched.cu) and the decomposition (decompose.cu): operand and
+// output types, exact powers of two, the carve of eight scaled elements
+// into packed int8 slices, and the shift-reduce epilogue's steps.
 //
 // Numerics, so that every kernel is bit-identical to its plain version
 // (repro_torch.kernels.ozaki1):

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from functools import lru_cache
 
 import torch
 import torch.nn.functional as F
@@ -96,6 +97,7 @@ def decompose_pair_plain(b, nu, tau, p, beta_f, beta_b):
             _interleaved(w.T / tau, p, beta_b))
 
 
+@lru_cache(maxsize=None)
 def _bind(lib: ctypes.CDLL, lhs: bool = False):
     """The rhs/pair entry point, or with ``lhs`` the lhs form's."""
     if lib.decompose_tile() != TILE:

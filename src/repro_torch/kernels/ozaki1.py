@@ -42,7 +42,9 @@ slice products and shift-reduce, as the reference's oracle
 :func:`plane_matmul_plain` is the same function. Unlike the reference,
 which needs M, N and K aligned to its blocks and interleaves at its
 ``bk``, M and N are taken as they are and the granularity is
-``decompose.TILE`` (the bits are the same at any granularity).
+``decompose.TILE`` (the bits are the same at any granularity). At p = 1
+the relayout also writes the int8 GEMM's operand planes
+(``kernels.matmul_int8``, with a logical K).
 
 The kernels replace the Pallas kernels ``repro.kernels.ozaki1.
 fused_matmul_prologue`` and ``repro.kernels.backends.gpu.
@@ -179,11 +181,13 @@ def relayout_interleaved_plain(x_hat: torch.Tensor, p: int,
     A-hat (R, p * Kp) (``operand`` 'a') or B-hat (p * Kp, R) ('b'),
     interleaved on K at ``decompose.TILE``, as the plane GEMM's
     K-contiguous planes (p, R, plane_k(Kp)), zero slices past Kp (B-hat
-    transposed: the planes of B^T)."""
+    transposed: the planes of B^T). At p = 1 the layout is the operand
+    itself and Kp any K (the int8 GEMM's relayout)."""
     from repro_torch.kernels.decompose import TILE
     if x_hat.is_cuda:
         COUNTS.plain_cuda_calls += 1
-    planes = scheme1.deinterleave_k(x_hat, p, operand, TILE)
+    planes = (x_hat[None] if p == 1
+              else scheme1.deinterleave_k(x_hat, p, operand, TILE))
     if operand == "b":
         planes = planes.transpose(-1, -2)
     k = planes.shape[-1]
@@ -342,8 +346,10 @@ def launch_planes(a_planes, b_planes, mu, nu, p, beta, out, epilogue=True,
 
 
 def launch_relayout(x_hat, p, operand):
-    """Launch the relayout kernel on a contiguous int8 A-hat (R, p * Kp)
-    (``operand`` 'a') or B-hat (p * Kp, R) ('b'): planes (p, R, Kp')."""
+    """Launch the relayout kernel on an int8 A-hat (R, p * Kp)
+    (``operand`` 'a') or B-hat (p * Kp, R) ('b'), unit stride along its
+    rows, any row stride: planes (p, R, Kp'); at p = 1 Kp is any K (the
+    int8 GEMM's operands)."""
     from repro_torch.kernels import build
     rhs = operand == "b"
     r, kp = (x_hat.shape[1], x_hat.shape[0] // p) if rhs else (

@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card: EmuGEMM-I (its plane route: the
 encode and the plane GEMM of the 2-D and mixed routes, and the relayout of
 the interleaved form's route; its batched kernel), the decomposition (K2,
-K2r, K11), the int8 GEMM (K9), fused attention (K10: the bf16 wgmma
+K2r, K11), the int8 GEMM (K9, the plane GEMM's int32 instance), fused attention (K10: the bf16 wgmma
 kernel, the float32 3xTF32 wgmma kernel and its pre-pass, the float32 FFMA kernel at D = 256), EmuGEMM-II's
 plane route (the encode kernels and the plane GEMM) for every product of
 float operands, 2-D and batched (K5g and K6
@@ -953,27 +953,95 @@ def test_library_scheme1_kernels_bit_identical_on_card(cuda_device, dtype, p):
 
 
 def test_int8_matmul_bit_identical_on_card(cuda_device):
+    """K9 on the plane GEMM's int32 instance against its plain version, bit
+    for bit, with its launches counted: one plane GEMM a call and one
+    relayout for each operand the tensor map cannot read in place (B as it
+    arrives, N-contiguous; A where its base or row stride is not 16-byte
+    aligned); a transposed view of an aligned (N, K) buffer is read in
+    place; an int32 sum that wraps."""
     from repro_torch.kernels import matmul_int8
     g = torch.Generator(device=cuda_device).manual_seed(9)
-    for (m, k, n) in [(512, 1024, 768), (37, 1000, 77), (130, 4096, 200),
-                      (1, 7, 3)]:
-        a = torch.randint(-128, 128, (m, k), generator=g, device=cuda_device,
-                          dtype=torch.int8)
-        b = torch.randint(-128, 128, (k, n), generator=g, device=cuda_device,
-                          dtype=torch.int8)
+
+    def i8(*shape):
+        return torch.randint(-128, 128, shape, generator=g,
+                             device=cuda_device, dtype=torch.int8)
+    wide = i8(37, 1025)
+    cases = [(i8(512, 1024), i8(1024, 768), 1), (i8(37, 1000), i8(1000, 77), 2),
+             (i8(130, 4096), i8(4096, 200), 1), (i8(1, 7), i8(7, 3), 1),
+             (i8(37, 1000), i8(77, 1000).T, 2),   # both misaligned
+             (i8(37, 1024), i8(77, 1024).T, 0),   # B^T read in place
+             (wide[:, 1:], i8(1024, 64), 2),      # A's base misaligned
+             (i8(1000, 3000), i8(3000, 777), 2)]
+    for a, b, relayouts in cases:
         matmul_int8.COUNTS.reset()
         out = matmul_int8.int8_matmul(a, b)
-        assert matmul_int8.COUNTS.launches == 1
+        c = matmul_int8.COUNTS
+        assert (c.launches, c.launches_relayout, c.plain_cuda_calls) == (
+            1, relayouts, 0), (tuple(a.shape), tuple(b.shape))
         ref = matmul_int8.int8_matmul_plain(a, b)
         torch.cuda.synchronize()
-        assert torch.equal(out, ref), (m, k, n)
-    # A transposed rhs view is read through a contiguous copy.
-    bt = torch.randint(-128, 128, (77, 1000), generator=g, device=cuda_device,
-                       dtype=torch.int8)
-    a = torch.randint(-128, 128, (37, 1000), generator=g, device=cuda_device,
-                      dtype=torch.int8)
-    assert torch.equal(matmul_int8.int8_matmul(a, bt.T),
-                       matmul_int8.int8_matmul_plain(a, bt.T))
+        assert torch.equal(out, ref), (tuple(a.shape), tuple(b.shape))
+    # 131200 * (-128)^2 passes 2^31: the int32 sum wraps, as the
+    # reference's does.
+    a = torch.full((128, 131200), -128, dtype=torch.int8, device=cuda_device)
+    out = matmul_int8.int8_matmul(a, a.T.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(out, matmul_int8.int8_matmul_plain(a, a.T))
+    assert int(out[0, 0]) == 131200 * 128 * 128 - 2 ** 32
+
+
+def _decompose_operand(g, k, n, layout, dtype, dev):
+    """A (K, N) operand: contiguous, the transposed view of an (N, K)
+    table (emb.T), or columns 1..N of a wider buffer (strided, base
+    misaligned)."""
+    if layout == "emb.T":
+        return torch.randn(n, k, generator=g, device=dev).to(dtype).T
+    if layout == "strided":
+        return torch.randn(k, n + 3, generator=g, device=dev).to(dtype)[:, 1:n + 1]
+    return torch.randn(k, n, generator=g, device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("p", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_decomposition_bit_identical_on_card(cuda_device, p):
+    """K2, K2r and K11 against their plain versions, bit for bit: ragged K
+    and N around the kernel's 64 tile and the 32 interleave, contiguous,
+    emb.T-style and strided operands, float32 and bf16, beta 1 and 7, and
+    scales of 2^127, whose reciprocal is subnormal."""
+    g = torch.Generator(device=cuda_device).manual_seed(700 + p)
+    dims = [(1, 1), (31, 33), (33, 31), (127, 129), (129, 127), (1000, 1000)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for beta in (1, 7):
+            for k, n in dims:
+                for layout in ("rows", "emb.T", "strided"):
+                    b = _decompose_operand(g, k, n, layout, dtype, cuda_device)
+                    scales = [(scheme1.pow2_scale(b, -2),
+                               scheme1.pow2_scale(b, -1).T)]
+                    if (k, n) == (127, 129):    # 1 / 2^127 is subnormal
+                        b = (b.float() * 2.0 ** 120).to(dtype)
+                        big = torch.tensor(2.0 ** 127, device=cuda_device)
+                        scales = [(big.expand(1, n), big.expand(1, k))]
+                    for nu, tau in scales:
+                        what = (k, n, layout, dtype, beta)
+                        decompose.COUNTS.reset()
+                        fwd, twin = decompose.decompose_interleave_pair(
+                            b, nu, tau, p, beta, 8 - beta)
+                        rhs = decompose.decompose_interleave_rhs(b, nu, p,
+                                                                 beta)
+                        mu = tau.T
+                        lhs = decompose.decompose_interleave(b, mu, p, beta)
+                        c = decompose.COUNTS
+                        assert (c.launches_pair, c.launches_rhs,
+                                c.launches_lhs, c.plain_cuda_calls) == (
+                                    1, 1, 1, 0), what
+                        rf, rt = decompose.decompose_pair_plain(
+                            b, nu, tau, p, beta, 8 - beta)
+                        torch.cuda.synchronize()
+                        assert torch.equal(fwd, rf), what
+                        assert torch.equal(twin, rt), what
+                        assert torch.equal(rhs, decompose.decompose_rhs_plain(
+                            b, nu, p, beta)), what
+                        assert torch.equal(lhs, decompose.decompose_lhs_plain(
+                            b, mu, p, beta)), what
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
