@@ -3,7 +3,10 @@
     python3 chip_smoke.py
 
 Drives repro_torch only (no jax, nothing of the reference package) on the
-card, with no CPU fallback, in nineteen phases:
+card, with no CPU fallback, in twenty-four phases. Phases 20-23 run right
+after the build, so that every wall they take comes before the process's
+first torch.profiler session; phase 24 follows the yardsticks, and the
+others follow in their order:
 
 1. build: nvcc compiles the port's CUDA kernels from this checkout (five
    sources), one process per source, in parallel;
@@ -51,6 +54,9 @@ card, with no CPU fallback, in nineteen phases:
    encode writes at 3 slices);
 9. trainer: launch/train.py at smoke size on the card fails at step 2,
    resumes, and ends in the state of an uninterrupted run, bit for bit;
+   then a Trainer with handle_sigterm gets SIGTERM from a step hook inside
+   step 1: the step finishes, its checkpoint is written, run returns, and
+   a resumed Trainer ends in the uninterrupted run's state, bit for bit;
 10. Scheme-II kernels: EmuGEMM-II's float-rhs form, 2-D and batched, on
     the plane route (two encodes and one plane GEMM a call) and its
     residue form (K5: a relayout of each operand a tensor map cannot read
@@ -161,8 +167,37 @@ card, with no CPU fallback, in nineteen phases:
     mainloop apart, the relayouts beside one .contiguous() of the
     permuted interleaved views; K9 at 4096^3 and 8192^3 with B's
     relayout, the plane GEMM, its mainloop and both tile heights apart.
+20. granite-3-8b serve: full width (40 layers, d 4096, 32 heads over 8 KV
+    heads of 128, d_ff 12800, vocab 49155 padded to 49664, bf16, seeded
+    random weights) under ozaki1-p4+cached: the continuous engine prepares
+    the untied head once (one encode into planes), then serves phase 3's
+    trace with one mixed call (K3: an lhs encode + one plane GEMM) a step
+    for the logits, 2 encodes + 1 plane GEMM for every other dense GEMM
+    and the batched kernel (K4) at 4 query heads a KV head, the launches
+    of the run checked against those counts; tokens/s, TTFT p50, peak
+    memory, mixed and decode step walls; request 0 alone == in its
+    cohort; prepared == unprepared (the logits site's output in float32,
+    which the prepared form returns before the cast to bf16) in tokens
+    and in a mixed step's logits, bit for bit (against ozaki1-p4's bf16
+    head epilogue the logits' difference and the trace's equal tokens are
+    reported); one mixed step on the 'cuda' and 'torch' backends (each
+    with its own head prep), bit for bit;
+21. lockstep: LockstepEngine on granite-3-8b (head prepared) and olmo-1b,
+    8 prompts of 48 tokens, 16 new, under ozaki1-p4 on both backends:
+    tokens and prefill logits bit for bit, the launches of the prefill
+    and of one decode step checked; prefill and decode step walls;
+22. olmo-1b's trace served under ozaki1-p3, ozaki1-p6 and native: tok/s,
+    each emulated spec's launches checked and request 0 alone == cohort;
+23. deepseek-coder-33b at its published widths (d 7168, 56 heads over 8
+    KV heads of 128, d_ff 19200, vocab 32256), 2 of its 62 layers: one
+    lockstep generate with the head prepared, cuda == torch tokens and
+    logits bit for bit;
+24. granite kernels (after the first profiler session): a mixed and a
+    decode step profiled (device-busy, idle share, top kernels), K3
+    against the prepared head, K4 at g = 4 and K1 at granite's dense
+    shapes against their plain versions and timed beside their bounds.
 
-Right after the build, one line names the device kernels that the
+After phases 20-23, one line names the device kernels that the
 library yardsticks (cuBLAS's batched DGEMM, scaled_dot_product_attention
 in bf16 and float32) run, and one those of the port's float32 attention,
 from one torch.profiler pass each. Any failure
@@ -180,6 +215,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -209,7 +245,9 @@ from repro_torch.launch import steps as S, train as train_cli  # noqa: E402
 from repro_torch.launch.serve import build_trace  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.common import GemmPolicy, pad_vocab  # noqa: E402
-from repro_torch.serving import ContinuousEngine, Request  # noqa: E402
+from repro_torch.runtime import Trainer  # noqa: E402
+from repro_torch.serving import (ContinuousEngine, LockstepEngine,  # noqa
+                                 Request)
 from repro_torch.utils.tree import tree_flatten  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, int8 ops/s,
@@ -289,6 +327,14 @@ ATTN_CASES = (
      2048, "float32"),
 )
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# granite-3-8b served at full width with its untied head prepared once
+# (GRANITE_SPEC), and on the lockstep path; deepseek-coder-33b at its
+# published widths, DEEPSEEK_LAYERS of its 62 layers deep (a second
+# backend's run must fit the run's time); olmo-1b's trace also under
+# SPEC_SERVES.
+GRANITE, GRANITE_SPEC = "granite-3-8b", "ozaki1-p4+cached"
+DEEPSEEK, DEEPSEEK_LAYERS = "deepseek-coder-33b", 2
+SPEC_SERVES = ("ozaki1-p3", "ozaki1-p6", "native")
 
 
 def log(*args):
@@ -965,7 +1011,8 @@ def yardstick_phase(dev):
     scaled_dot_product_attention at the first two ATTN_CASES (bf16 and
     float32), on seeded inputs of those shapes, and the port's float32
     K10 (its pre-pass and 3xTF32 kernel, by device time) at the second;
-    returns the last two. It runs first: later in a long process the
+    returns the last two. It runs early, right after phases 20-23 (whose
+    walls come before any profiler session): later in a long process the
     profiler was seen to keep only some, or none, of a short pass's
     kernel events."""
     gen = torch.Generator(device=dev).manual_seed(20)
@@ -2998,8 +3045,67 @@ def trainer_phase():
             raise AssertionError(f"resumed state differs: {bad[:5]}")
         log(f"[trainer] failed at step 2, resumed, final state == "
             f"uninterrupted run's ({len(a)} leaves bit-identical)")
+        preempted_run(os.path.join(tmp, "pre"), a)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def preempted_run(ckpt_dir, want, device="cuda"):
+    """The trainer phase's run preempted: a step hook sends SIGTERM to the
+    process inside step 1; the step finishes, its checkpoint is written
+    and ``run`` returns; a new Trainer resumes from it and ends in the
+    uninterrupted run's state (``want``, step 3), bit for bit."""
+    arch = configs.get_smoke_config("olmo-1b")
+    step = S.make_train_step(arch, policy=GemmPolicy(
+        default=api.precision(TRAIN_SPEC)))
+    shape = ShapeSpec("cli", 32, 2, "train")
+
+    def trainer(hook=None, **kw):
+        calls = iter(range(10 ** 9))
+
+        def step_fn(state, batch):
+            out = step(state, batch)
+            if hook is not None:
+                hook(next(calls))
+            return out
+
+        return Trainer(step_fn=step_fn,
+                       init_state_fn=lambda: S.init_state(arch, 0, device),
+                       batch_iterator=make_batch_iterator(arch, shape, 0),
+                       ckpt_dir=ckpt_dir, device=device, ckpt_every=2, **kw)
+
+    def hook(i):
+        if i == 1:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    before = signal.getsignal(signal.SIGTERM)
+    tr = trainer(hook, handle_sigterm=True)
+    try:
+        log_pre = tr.run(4)
+    finally:
+        tr.close()
+    if signal.getsignal(signal.SIGTERM) != before:
+        raise AssertionError("the Trainer left its SIGTERM handler behind")
+    if ([m["step"] for m in log_pre] != [0, 1]
+            or CheckpointManager(ckpt_dir).latest_step() != 1):
+        raise AssertionError(f"preempted run: steps {log_pre}, checkpoint "
+                             f"{CheckpointManager(ckpt_dir).latest_step()}")
+    tr = trainer()
+    try:
+        if tr.start_step != 2:
+            raise AssertionError(f"resumed at step {tr.start_step}")
+        tr.run(2)
+    finally:
+        tr.close()
+    got = tree_flatten(CheckpointManager(ckpt_dir).restore(3))
+    bad = [k for k in want if not (want[k].dtype == got[k].dtype
+                                   and torch.equal(want[k], got[k]))]
+    if sorted(want) != sorted(got) or bad:
+        raise AssertionError(f"preempted and resumed state differs: "
+                             f"{bad[:5]}")
+    log("[trainer] SIGTERM inside step 1: the step finished, its "
+        "checkpoint was written and run returned; resumed, the final "
+        f"state == the uninterrupted run's ({len(got)} leaves)")
 
 
 # ---------------------------------------------------------------------------
@@ -3425,8 +3531,8 @@ def library_phase(dev, mcfg):
         f"{naive_ms / fused_ms:.3f}")
     del na, nb
 
-    # K10 beside its bound and, where it runs the case without an explicit
-    # mask, scaled_dot_product_attention (the library call).
+    # K10 beside its bound and scaled_dot_product_attention (the library
+    # call; a window as an explicit boolean mask).
     # The float32 rows also beside the FFMA bound, with the pre-pass timed
     # alone and the device kernels one call runs (torch.profiler).
     t10 = []
@@ -3439,12 +3545,20 @@ def library_phase(dev, mcfg):
         ms = time_ms(run, 10)
         plain = time_ms(lambda: flash_attn.flash_attention_plain(
             q, k, v, causal, window), 3)
-        lib = None
         if window is None:
             lib = time_ms(lambda: torch.nn.functional.
                           scaled_dot_product_attention(
                               q, k, v, is_causal=causal,
                               enable_gqa=h != kvh), 10)
+        else:                       # the window as an explicit mask
+            rel = (torch.arange(sq, device=q.device)[:, None]
+                   - torch.arange(sk, device=q.device)[None, :])
+            mask = (rel >= 0) & (rel < window)
+            lib = time_ms(lambda: torch.nn.functional.
+                          scaled_dot_product_attention(
+                              q, k, v, attn_mask=mask,
+                              enable_gqa=h != kvh), 10)
+            del mask
         bms, by = attn_bound(b_, h, kvh, sq, sk, d, causal, window, kernel)
         row = {"case": label, "shape": [b_, h, kvh, sq, sk, d],
                "causal": causal, "window": window, "dtype": dt,
@@ -3561,8 +3675,449 @@ def library_phase(dev, mcfg):
                                        "bound_by", "library_ms")},
          "per": f"one call at {ffma['case']} float32 {list(ffma['shape'])} "
                 "(D = 256: the 3xTF32 kernel's q parts would not fit); "
-                "library: none without an explicit mask"},
+                "library: scaled_dot_product_attention with the window as an "
+                "explicit boolean mask"},
     ]
+
+
+# ---------------------------------------------------------------------------
+# Phases 20-24: granite-3-8b served with its untied head prepared once, the
+# lockstep (prefill / decode) path, deepseek-coder-33b at its widths, and
+# olmo-1b under more specs. Phases 20-23 run right after the build: every
+# wall they take comes before the process's first torch.profiler session.
+# ---------------------------------------------------------------------------
+
+def s1_counts():
+    return ozaki1.LaunchCounts(**vars(ozaki1.COUNTS))
+
+
+def step_launches(mcfg, prepared_head: bool, steps: int = 1) -> dict:
+    """EmuGEMM-I launches of ``steps`` forward passes of a dense model
+    under one Scheme-I spec: seven projections a layer and the head on
+    the 2-D route (2 encodes + 1 plane GEMM each) unless the head is
+    prepared (then one mixed call: an lhs encode + 1 plane GEMM), and
+    attn_qk / attn_av on the batched kernel."""
+    n2d = 7 * mcfg.n_layers + (0 if prepared_head else 1)
+    mixed = 1 if prepared_head else 0
+    return {k: steps * v for k, v in {
+        "2d": n2d, "mixed": mixed, "batched": 2 * mcfg.n_layers,
+        "encodes": 2 * n2d + mixed, "plane_gemms": n2d + mixed}.items()}
+
+
+def launches_of(c) -> dict:
+    return {"2d": c.launches_2d, "mixed": c.launches_mixed,
+            "batched": c.launches_batched, "encodes": c.launches_encode,
+            "plane_gemms": c.launches_planes}
+
+
+def check_launches(what, c, want):
+    got = launches_of(c)
+    if got != want or c.plain_cuda_calls:
+        raise AssertionError(f"{what}: EmuGEMM-I launches {got}, plain "
+                             f"versions on CUDA {c.plain_cuda_calls}; "
+                             f"expected {want} and none")
+
+
+def head_prepared(params) -> bool:
+    return isinstance(params.get("head"), prepared.PreparedOperand)
+
+
+def serve_trace(dev, arch, params, policy, check=False):
+    """Serve phase 3's trace (a '+cached' policy prepares nothing that
+    ``params`` holds prepared already); returns (engine, trace, tokens,
+    metrics, counts), the EmuGEMM-I launches checked when ``check``."""
+    eng = ContinuousEngine(arch, max_seq=PROMPT + GEN, policy=policy,
+                           params=params, max_lanes=LANES, chunk=CHUNK,
+                           page_size=PAGE, device=dev)
+    trace = build_trace(np.random.default_rng(0), arch.model.vocab, REQUESTS,
+                        PROMPT, GEN, 0.0)
+    torch.cuda.synchronize()
+    eng.reset_clock()
+    reset_counts()
+    t0 = time.perf_counter()
+    results = eng.run(trace)
+    dt = time.perf_counter() - t0
+    counts = s1_counts()
+    toks = [results[r.rid].tokens for r in trace]
+    if not all(len(t) == GEN and all(0 <= x < arch.model.vocab for x in t)
+               for t in toks):
+        raise AssertionError(f"malformed tokens {toks}")
+    steps = eng.utilization()["steps"]
+    metrics = {"steps": steps, "seconds": dt, "tok_per_s": REQUESTS * GEN / dt,
+               "ttft_p50_s": float(np.median([results[r.rid].ttft
+                                              for r in trace]))}
+    if check:
+        check_launches(f"{arch.model.name} serve", counts,
+                       step_launches(arch.model, head_prepared(eng.params),
+                                     steps))
+    return eng, trace, toks, metrics, counts
+
+
+def alone_equals_cohort(dev, arch, eng, trace, toks, tag):
+    alone = ContinuousEngine(arch, max_seq=PROMPT + GEN, policy=eng.policy,
+                             params=eng.params, prepare=False,
+                             max_lanes=LANES, chunk=CHUNK, page_size=PAGE,
+                             device=dev)
+    r0 = Request(prompt=trace[0].prompt, max_new_tokens=GEN)
+    if alone.run([r0])[r0.rid].tokens != toks[0]:
+        raise AssertionError(f"{tag}: request 0 alone differs from the "
+                             "cohort")
+
+
+def mixed_step_inputs(dev, mcfg, view_tokens):
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, mcfg.vocab, (LANES, CHUNK), generator=gen,
+                           device=dev, dtype=torch.int32)
+    start = torch.tensor([0, 16, 32, 47], device=dev, dtype=torch.int32)
+    n_new = torch.tensor([16, 16, 5, 1], device=dev, dtype=torch.int32)
+    cache = M.init_cache(mcfg, LANES, view_tokens, dev)
+    for leaf in cache["layers"]["b0"].values():
+        leaf.normal_(generator=gen)
+    return tokens, start, n_new, cache
+
+
+def mixed_step_logits(mcfg, params, policy, inputs):
+    tokens, start, n_new, cache = inputs
+    views = {"layers": {"b0": {k: v.clone() for k, v in
+                               cache["layers"]["b0"].items()}}}
+    with torch.inference_mode():
+        logits, _ = M.forward_step(params, mcfg, tokens, start, n_new, views,
+                                   policy)
+    torch.cuda.synchronize()
+    return logits
+
+
+def step_walls(dev, mcfg, params, policy, view_tokens, prepared_head):
+    """Wall ms of a mixed and a decode step (mean of 3 after a warm-up),
+    each step's EmuGEMM-I launches checked."""
+    out = {}
+    for kind, c, n_new in (("mixed", CHUNK, [16, 16, 5, 1]),
+                           ("decode", 1, [1, 1, 1, 1])):
+        tokens = torch.ones((LANES, c), device=dev, dtype=torch.int32)
+        start = torch.tensor([0, 16, 32, 47], device=dev, dtype=torch.int32)
+        nn = torch.tensor(n_new, device=dev, dtype=torch.int32)
+        cache = M.init_cache(mcfg, LANES, view_tokens, dev)
+
+        def step():
+            with torch.inference_mode():
+                M.forward_step(params, mcfg, tokens, start, nn, cache, policy)
+            torch.cuda.synchronize()
+
+        reset_counts()
+        step()
+        check_launches(f"{mcfg.name} {kind} step", s1_counts(),
+                       step_launches(mcfg, prepared_head))
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step()
+        out[f"{kind}_step_ms"] = (time.perf_counter() - t0) * 1e3 / 3
+    return out
+
+
+def head_f32_policy(spec):
+    """``spec`` everywhere, the logits site's output in float32: the
+    unprepared head GEMM then rounds once to bf16, as the prepared one
+    (float32 out, then cast, as the reference's ``prepared_dot``) does."""
+    return GemmPolicy(default=api.precision(spec), overrides=(
+        ("logits", api.precision(spec, out_dtype="float32")),))
+
+
+def granite_serve_phase(dev, arch, params, view_tokens):
+    """granite-3-8b at full width under GRANITE_SPEC: the untied head
+    prepared once, then served (one K3 call a step); prepared == the
+    unprepared head with a float32 logits output, tokens and logits bit
+    for bit; request 0 alone == in its cohort; one mixed step on the
+    'cuda' and 'torch' backends bit for bit; step walls."""
+    mcfg = arch.model
+    tag = f"[serve {mcfg.name}]"
+    torch.cuda.reset_peak_memory_stats()
+    policy = GemmPolicy(default=api.precision(GRANITE_SPEC))
+    reset_counts()
+    t0 = time.perf_counter()
+    eng = ContinuousEngine(arch, max_seq=PROMPT + GEN, policy=policy,
+                           params=params, max_lanes=LANES, chunk=CHUNK,
+                           page_size=PAGE, device=dev)
+    torch.cuda.synchronize()
+    prep_ms = (time.perf_counter() - t0) * 1e3
+    head = eng.params["head"]
+    prep_encodes = ozaki1.COUNTS.launches_encode
+    if not (eng.prepared and isinstance(head, prepared.PreparedOperand)
+            and head.layout == "planes" and prep_encodes == 1):
+        raise AssertionError(f"{tag}: the head was not prepared once into "
+                             f"planes ({type(head).__name__}, "
+                             f"{prep_encodes} encodes)")
+    eng, trace, toks, serve, counts = serve_trace(
+        dev, arch, eng.params, policy, check=True)
+    serve["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    serve["head_prepare_ms"] = prep_ms
+    serve["launches"] = launches_of(counts)
+    serve["launches_per_step"] = step_launches(mcfg, True)
+    log(f"{tag} {GRANITE_SPEC}: head prepared once ({prep_encodes} encode, "
+        f"{prep_ms:.1f} ms), {serve['steps']} steps, {REQUESTS} requests x "
+        f"{GEN} tokens in {serve['seconds']:.3f} s "
+        f"({serve['tok_per_s']:.1f} tok/s), ttft p50 "
+        f"{serve['ttft_p50_s']:.3f} s, peak {serve['peak_gib']:.2f} GiB; "
+        f"launches {serve['launches']} (per step "
+        f"{serve['launches_per_step']})")
+    alone_equals_cohort(dev, arch, eng, trace, toks, tag)
+    _, _, plain_toks, plain, _ = serve_trace(
+        dev, arch, params, head_f32_policy(SPEC), check=True)
+    if plain_toks != toks:
+        raise AssertionError(f"{tag}: prepared tokens differ from the "
+                             "unprepared head's")
+    inputs = mixed_step_inputs(dev, mcfg, view_tokens)
+    got = mixed_step_logits(mcfg, eng.params, policy, inputs)
+    want = mixed_step_logits(mcfg, params, head_f32_policy(SPEC), inputs)
+    bf16_head = mixed_step_logits(mcfg, params,
+                                  GemmPolicy(default=api.precision(SPEC)),
+                                  inputs)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{tag}: prepared logits differ from the "
+                             "unprepared head's")
+    # Reported, not asserted: the bf16 epilogue rounds every shift-reduce
+    # op of the unprepared head (ROADMAP.md § 3 R6).
+    _, _, bf16_toks, _, _ = serve_trace(
+        dev, arch, params, GemmPolicy(default=api.precision(SPEC)),
+        check=True)
+    serve["bf16_head_logits"] = {
+        "max_abs_diff": (got.float() - bf16_head.float()).abs().max().item(),
+        "argmax_equal_lanes": int((got[:, :mcfg.vocab].argmax(-1)
+                                   == bf16_head[:, :mcfg.vocab].argmax(-1))
+                                  .sum().item()),
+        "equal_tokens_of_trace": sum(x == y for a, b in zip(toks, bf16_toks)
+                                     for x, y in zip(a, b))}
+    log(f"{tag} request 0 alone == in cohort; prepared == unprepared "
+        f"(logits site float32 out) tokens and a mixed step's logits bit "
+        f"for bit ({plain['tok_per_s']:.1f} tok/s unprepared); against "
+        f"{SPEC}'s bf16 head epilogue: {serve['bf16_head_logits']}")
+    torch_params = prepared.prepare_params(params, on_backend(policy,
+                                                              "torch"))
+    a = mixed_step_logits(mcfg, eng.params, on_backend(policy, "cuda"),
+                          inputs)
+    b = mixed_step_logits(mcfg, torch_params, on_backend(policy, "torch"),
+                          inputs)
+    if torch_params["head"].layout != "interleaved" or not torch.equal(a, b):
+        raise AssertionError(f"{tag}: cuda and torch backend logits differ")
+    if not torch.isfinite(a).all() or a.shape != (LANES,
+                                                  pad_vocab(mcfg.vocab)):
+        raise AssertionError(f"{tag}: bad logits {a.shape}")
+    del torch_params
+    log(f"{tag} one mixed step: cuda == torch backend logits bit for bit "
+        "(each backend's head prep)")
+    serve.update(step_walls(dev, mcfg, eng.params, policy, view_tokens,
+                            True))
+    log(f"{tag} summary " + json.dumps(serve))
+    return eng.params, serve
+
+
+def lockstep_phase(dev, arch, params, spec, prepare, tag):
+    """LockstepEngine on the 'cuda' and 'torch' backends: REQUESTS prompts
+    of PROMPT tokens, GEN new; tokens and prefill logits bit for bit, the
+    launches of the prefill and of a decode step checked, their walls."""
+    mcfg = arch.model
+    prompts = np.random.default_rng(2).integers(
+        0, mcfg.vocab, (REQUESTS, PROMPT)).astype(np.int32)
+    pt = torch.as_tensor(prompts, device=dev)
+    policy = GemmPolicy(default=api.precision(spec))
+    out, res = {}, {}
+    for backend in ("cuda", "torch"):
+        eng = LockstepEngine(arch, None, PROMPT + GEN,
+                             on_backend(policy, backend), params=params,
+                             prepare=prepare, device=dev)
+        if backend == "cuda":
+            eng.prefill(pt)                       # warm-up
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            logits, cache = eng.prefill(pt)
+            torch.cuda.synchronize()
+            res["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+            check_launches(f"{tag} prefill", s1_counts(),
+                           step_launches(mcfg, prepare))
+            tok = torch.argmax(logits[:, -1:, :mcfg.vocab], -1)
+            reset_counts()
+            t0 = time.perf_counter()
+            eng.decode(tok, PROMPT, cache)
+            torch.cuda.synchronize()
+            res["decode_step_ms"] = (time.perf_counter() - t0) * 1e3
+            check_launches(f"{tag} decode step", s1_counts(),
+                           step_launches(mcfg, prepare))
+            del cache
+            t0 = time.perf_counter()
+            toks = eng.generate(prompts, GEN)
+            res["generate_s"] = time.perf_counter() - t0
+            res["tok_per_s"] = REQUESTS * GEN / res["generate_s"]
+        else:
+            logits, _ = eng.prefill(pt)
+            toks = eng.generate(prompts, GEN)
+        torch.cuda.synchronize()
+        out[backend] = (logits, toks)
+        del eng
+    (la, ta), (lb, tb) = out["cuda"], out["torch"]
+    if not torch.equal(la, lb) or not np.array_equal(ta, tb):
+        raise AssertionError(f"{tag}: lockstep cuda and torch backends "
+                             "differ")
+    if (ta.shape != (REQUESTS, GEN) or not torch.isfinite(la).all()
+            or ((ta < 0) | (ta >= mcfg.vocab)).any()):
+        raise AssertionError(f"{tag}: malformed lockstep output")
+    res["launches_per_step"] = step_launches(mcfg, prepare)
+    log(f"{tag} lockstep {spec}{' (head prepared)' if prepare else ''}: "
+        f"{REQUESTS} x {PROMPT} prompts, {GEN} new: cuda == torch tokens "
+        f"and prefill logits bit for bit; prefill {res['prefill_ms']:.1f} "
+        f"ms, decode step {res['decode_step_ms']:.1f} ms, generate "
+        f"{res['generate_s']:.3f} s ({res['tok_per_s']:.1f} tok/s); "
+        f"launches a prefill and a decode step {res['launches_per_step']}")
+    return res
+
+
+def olmo_spec_serves_phase(dev, arch, params):
+    """olmo-1b's trace under each of SPEC_SERVES: tok/s; each emulated
+    spec's launches checked and request 0 alone == its cohort; native
+    launches no EmuGEMM-I kernel."""
+    out = {}
+    for spec in SPEC_SERVES:
+        emulated = spec != "native"
+        eng, trace, toks, m, c = serve_trace(
+            dev, arch, params, GemmPolicy(default=api.precision(spec)),
+            check=emulated)
+        if not emulated and any(launches_of(c).values()):
+            raise AssertionError(f"native serve launched {launches_of(c)}")
+        if emulated:
+            alone_equals_cohort(dev, arch, eng, trace, toks,
+                                f"olmo-1b {spec}")
+        out[spec] = m
+        log(f"[serve olmo-1b] {spec}: {m['steps']} steps, "
+            f"{m['tok_per_s']:.1f} tok/s, ttft p50 {m['ttft_p50_s']:.3f} s"
+            + ("; request 0 alone == in cohort" if emulated else ""))
+    return out
+
+
+def new_path_phases(dev, view_tokens):
+    """Phases 20-23 (walls only); returns granite's raw and prepared
+    params, and the report."""
+    report = {}
+    granite = configs.get_config(GRANITE)
+    t0 = time.perf_counter()
+    params = M.init_params(granite.model, 0, dev)
+    torch.cuda.synchronize()
+    log(f"[{GRANITE}] {M.param_count(params) / 1e9:.3f} B parameters "
+        f"(bf16, {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB) drawn "
+        f"on the card in {time.perf_counter() - t0:.1f} s")
+    prepped, report["granite_serve"] = granite_serve_phase(
+        dev, granite, params, view_tokens)
+    report["granite_lockstep"] = lockstep_phase(
+        dev, granite, params, SPEC, True, f"[{GRANITE}]")
+    olmo = configs.get_config("olmo-1b")
+    oparams = M.init_params(olmo.model, 0, dev)
+    report["olmo_lockstep"] = lockstep_phase(dev, olmo, oparams, SPEC, False,
+                                             "[olmo-1b]")
+    report["olmo_specs"] = olmo_spec_serves_phase(dev, olmo, oparams)
+    del oparams
+    ds = configs.get_config(DEEPSEEK)
+    ds = dataclasses.replace(ds, model=dataclasses.replace(
+        ds.model, n_layers=DEEPSEEK_LAYERS))
+    dparams = M.init_params(ds.model, 0, dev)
+    log(f"[{DEEPSEEK}] published widths (d {ds.model.d_model}, "
+        f"{ds.model.n_heads} heads over {ds.model.n_kv_heads} KV heads, d_ff "
+        f"{ds.model.d_ff}, vocab {ds.model.vocab}), depth cut from 62 to "
+        f"{DEEPSEEK_LAYERS} layers: {M.param_count(dparams) / 1e9:.3f} B "
+        "parameters")
+    report["deepseek_lockstep"] = lockstep_phase(
+        dev, ds, dparams, SPEC, True, f"[{DEEPSEEK} {DEEPSEEK_LAYERS}L]")
+    del dparams
+    log("[new paths] summary " + json.dumps(report))
+    return params, prepped, report
+
+
+def granite_kernel_phase(dev, arch, params, prepped, view_tokens):
+    """After the walls: one granite mixed and one decode step under
+    torch.profiler (device-busy, idle share, top kernels), and the times
+    of K3 against the prepared head, K4 at g = 4 and K1 at granite's dense
+    shapes beside their bounds and plain versions."""
+    from torch.profiler import ProfilerActivity, profile
+    mcfg = arch.model
+    policy = GemmPolicy(default=api.precision(GRANITE_SPEC))
+    out = {}
+    for kind, c, n_new in (("mixed", CHUNK, [16, 16, 5, 1]),
+                           ("decode", 1, [1, 1, 1, 1])):
+        tokens = torch.ones((LANES, c), device=dev, dtype=torch.int32)
+        start = torch.tensor([0, 16, 32, 47], device=dev, dtype=torch.int32)
+        nn = torch.tensor(n_new, device=dev, dtype=torch.int32)
+        cache = M.init_cache(mcfg, LANES, view_tokens, dev)
+        with torch.inference_mode():
+            M.forward_step(prepped, mcfg, tokens, start, nn, cache, policy)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                M.forward_step(prepped, mcfg, tokens, start, nn, cache,
+                               policy)
+            torch.cuda.synchronize()
+            prof_wall = (time.perf_counter() - t0) * 1e3
+        out[f"{kind}_profile"] = device_summary(prof, prof_wall)
+        log(f"[{GRANITE}] profiled {kind} step: "
+            + json.dumps(out[f"{kind}_profile"]))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    bf = torch.bfloat16
+    # K3: the logits GEMM of a step, 4 lanes against the prepared head.
+    head = prepped["head"]
+    d, vp = mcfg.d_model, pad_vocab(mcfg.vocab)
+    a = conditioned(gen, (LANES, d), bf, dev)
+    torch_head = prepared.prepare_rhs(params["head"], api.precision(
+        SPEC, backend="torch"))
+    k3 = {"ms": time_ms(lambda: prepared.matmul_prepared(
+              a, head, torch.float32), 20),
+          "plain_ms": time_ms(lambda: prepared.matmul_prepared(
+              a, torch_head, torch.float32), 3)}
+    if not torch.equal(prepared.matmul_prepared(a, head, torch.float32),
+                       prepared.matmul_prepared(a, torch_head,
+                                                torch.float32)):
+        raise AssertionError("K3 on the prepared head != its plain version")
+    k3["bound_ms"], k3["bound_by"] = mixed_bound(LANES, d, vp, P_MAIN, 2, 4)
+    del torch_head
+    out["k3_head"] = k3
+    # K4 at g = 4: attn_qk and attn_av of a mixed and a decode step.
+    hd, bkv = mcfg.resolved_head_dim, LANES * mcfg.n_kv_heads
+    g = mcfg.n_heads // mcfg.n_kv_heads
+    k4 = {}
+    for kind, c in (("mixed", CHUNK), ("decode", 1)):
+        t = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+        for m, k, n in ((c * g, hd, view_tokens), (c * g, view_tokens, hd)):
+            x = conditioned(gen, (bkv, m, k), bf, dev)
+            y = conditioned(gen, (bkv, k, n), bf, dev)
+            mu, nu = scheme1.pow2_scale(x, -1), scheme1.pow2_scale(y, -2)
+            ref = ozaki1.fused_matmul_plain(x, y, mu, nu, P_MAIN, 7, bf)
+            got = ozaki1.fused_matmul_scheme1(x, y, mu, nu, P_MAIN, 7, bf)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"K4 at g = {g} != plain {(m, k, n)}")
+            t["ms"] += mcfg.n_layers * device_ms(
+                lambda: ozaki1.launch_batched(x, y, mu, nu, P_MAIN, 7, bf))
+            t["plain_ms"] += mcfg.n_layers * time_ms(
+                lambda: ozaki1.fused_matmul_plain(x, y, mu, nu, P_MAIN, 7,
+                                                  bf), 3)
+            t["bound_ms"] += mcfg.n_layers * bound_ms(bkv, m, k, n, P_MAIN,
+                                                      2, 2)[0]
+        k4[kind] = t
+    out["k4_g4"] = k4
+    # K1 at granite's dense shapes, a mixed step's M, weights cold.
+    m = LANES * CHUNK
+    k1 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "encode_ms": 0.0,
+          "planes_ms": 0.0, "mainloop_ms": 0.0}
+    for k, n, count in ((d, d, 2), (d, mcfg.n_kv_heads * hd, 2),
+                        (d, mcfg.d_ff, 2), (mcfg.d_ff, d, 1)):
+        copies = max(1, math.ceil(2 * L2_BYTES / (2 * k * n)))
+        t = route_times(gen, dev, m, k, n, False, P_MAIN, bf, copies)
+        t["encode_ms"] = t["encode_a_ms"] + t["encode_b_ms"]
+        for key in k1:
+            if key != "bound_ms":
+                k1[key] += count * mcfg.n_layers * t[key]
+        k1["bound_ms"] += count * mcfg.n_layers * bound_ms(
+            1, m, k, n, P_MAIN, 2, 2)[0]
+    out["k1_mixed_step"] = k1
+    log(f"[{GRANITE}] kernels: " + json.dumps({k: v for k, v in out.items()
+                                              if "profile" not in k}))
+    return out
 
 
 def build_phase():
@@ -3589,10 +4144,15 @@ def main() -> int:
     card = smi.stdout.strip()
     log(card)
     build_phase()
+    view_tokens = PAGE * math.ceil((PROMPT + GEN - 1 + CHUNK) / PAGE)
+    # Phases 20-23 first: their walls come before any profiler session.
+    gparams, gprepped, new_paths = new_path_phases(dev, view_tokens)
     yardsticks = yardstick_phase(dev)
+    gk = granite_kernel_phase(dev, configs.get_config(GRANITE), gparams,
+                              gprepped, view_tokens)
+    del gparams, gprepped
 
     arch = configs.get_config("olmo-1b")
-    view_tokens = PAGE * math.ceil((PROMPT + GEN - 1 + CHUNK) / PAGE)
     spec_policy = GemmPolicy(default=api.precision(SPEC))
     max_err, totals = kernel_phase(dev, arch.model, view_tokens)
     eng, (counts, _), serve = serve_phase(dev, arch, spec_policy)
@@ -3686,6 +4246,14 @@ def main() -> int:
         "per_decode_step": {k: td[k] for k in ("ms", "plain_ms",
                                                "bound_ms")},
         "launches_in_train_run": k1.launches_2d,
+        "granite_serve": {
+            **gk["k1_mixed_step"],
+            "launches": new_paths["granite_serve"]["launches"]["2d"],
+            "launches_per_step": new_paths["granite_serve"][
+                "launches_per_step"]["2d"],
+            "per": f"the 2-D calls of one mixed serve step of {GRANITE} "
+                   f"(4 lanes x chunk 16, 7 a layer), timed at their shapes "
+                   f"with weights cold; launches: its {GRANITE_SPEC} serve"},
         "per_train_step": {"ms": tt["ms"], "plain_ms": tt["plain_ms"],
                            "bound_ms": tt["bound_ms"], **split(tt),
                            "per": train_per + ": dB = A^T dC"}})
@@ -3704,7 +4272,13 @@ def main() -> int:
                "the same launches at the other tile height (device)",
         "per_decode_step": {k: tdb[k] for k in ("ms", "plain_ms", "bound_ms",
                                                 "other_tile_ms", "events_ms")},
-        "launches_in_train_run": k1.launches_batched})
+        "launches_in_train_run": k1.launches_batched,
+        "granite_serve_g4": {
+            **gk["k4_g4"],
+            "launches": new_paths["granite_serve"]["launches"]["batched"],
+            "per": f"attn_qk and attn_av of one mixed (and decode) serve step "
+                   f"of {GRANITE}, 4 query heads a KV head; ms: device time "
+                   f"(torch.profiler); launches: its {GRANITE_SPEC} serve"}})
     tm = t_totals["mixed"]
     kernels.append({
         "name": "emugemm1_mixed", **common, "source": SOURCE_S1_PLANES,
@@ -3715,7 +4289,16 @@ def main() -> int:
         "int_mm_yardstick_ms": tm["yardstick_ms"],
         "weights_encode_ms": t_totals["weights"]["ms"],
         "per": train_per + "; the route: an lhs encode + 1 plane GEMM a call "
-               "against the weight's planes (the weights' encodes apart)"})
+               "against the weight's planes (the weights' encodes apart)",
+        "granite_head": {
+            **gk["k3_head"],
+            "launches": new_paths["granite_serve"]["launches"]["mixed"],
+            "head_prepare_ms": new_paths["granite_serve"]["head_prepare_ms"],
+            "per": f"the logits GEMM of one serve step of {GRANITE}: 4 lanes "
+                   f"against the head's planes (4096 x 49664, prepared once "
+                   f"a session, one encode); plain: the interleaved prep's "
+                   f"mixed form; launches: its {GRANITE_SPEC} serve, one a "
+                   "step"}})
     kernels.append({
         "name": "emugemm1_encode", **common, "source": SOURCE_S1_PLANES,
         "replaces": "src/repro/kernels/ozaki1.py:143",

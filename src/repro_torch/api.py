@@ -12,12 +12,14 @@ and emulated einsum.
   The platform default is native.
 * :func:`dot_general` / :func:`einsum` — emulated two-operand
   contractions, canonicalized (permute + reshape) onto the 2-D core or,
-  with batch axes, onto the strided-batched core. Contractions the
-  canonicalization cannot express (repeated labels, ellipses, summed
-  free axes, broadcasting) raise. The rhs may be a prepared operand
-  (``kernels.prepared``) of the config's scheme, in its fixed (K, N)
-  layout: ``(((k,), (0,)), ((), ()))``, or ``'...k,kn->...n'``-shaped
-  subscripts.
+  with batch axes, onto the strided-batched core. ``einsum`` takes what
+  the reference's does: ellipses, an implicit output, free axes summed
+  out of one operand (summed before the product) and size-1
+  broadcasting; a label repeated within one operand (a diagonal) and
+  more than two operands raise ``ValueError``. The rhs may be a prepared
+  operand (``kernels.prepared``) of the config's scheme, in its fixed
+  (K, N) layout: ``(((k,), (0,)), ((), ()))``, or ``'...k,kn->...n'``-
+  shaped subscripts.
 """
 
 from __future__ import annotations
@@ -195,89 +197,150 @@ def dot_general(a: torch.Tensor, b, dimension_numbers, *,
     return out.reshape(batch_shape + a_free_shape + b_free_shape)
 
 
+_EINSUM_HINT = ("repro_torch.einsum covers two-operand contractions "
+                "without repeated in-operand labels; use torch.einsum for "
+                "diagonals/traces and more than two operands")
+
+
+def _expand_operand(part: str, ndim: int, what: str) -> list[str]:
+    """One operand's subscript -> per-axis labels ('...<i>' for the
+    ellipsis axes, right-aligned as numpy's)."""
+    if part.count(".") not in (0, 3) or (".." in part and "..." not in part):
+        raise ValueError(f"bad ellipsis in {what} subscript {part!r}")
+    if "..." in part:
+        head, _, tail = part.partition("...")
+        n_ell = ndim - len(head) - len(tail)
+        if n_ell < 0:
+            raise ValueError(f"{what} subscript {part!r} names more axes "
+                             f"than the rank-{ndim} operand has")
+        labels = (list(head) + [f"...{i}" for i in range(-n_ell, 0)]
+                  + list(tail))
+    else:
+        if len(part) != ndim:
+            raise ValueError(f"{what} subscript {part!r} names {len(part)} "
+                             f"axes for a rank-{ndim} operand")
+        labels = list(part)
+    for lab in labels:
+        if len(lab) == 1 and not lab.isalpha():
+            raise ValueError(f"bad label {lab!r} in {what} subscript "
+                             f"{part!r}")
+    single = [lab for lab in labels if len(lab) == 1]
+    if len(set(single)) != len(single):
+        raise ValueError(f"repeated label in {what} subscript {part!r} (a "
+                         f"diagonal); {_EINSUM_HINT}")
+    return labels
+
+
 def _parse_einsum(subscripts: str, a_ndim: int, b_ndim: int):
-    """Raise ``ValueError`` for what the reference refuses (a count of
-    operands other than two, a label repeated within one operand or in
-    the output, a rank mismatch, an output label from nowhere) and
-    ``NotImplementedError`` for what it runs and the port does not yet:
-    ellipses, an implicit output, a label summed out of one operand."""
+    """'bik,bkj->bij' -> (a_labels, b_labels, out_labels), raising
+    ``ValueError`` where the reference does."""
     s = subscripts.replace(" ", "")
     ins, arrow, out = s.partition("->")
     parts = ins.split(",")
     if len(parts) != 2:
         raise ValueError(f"einsum takes exactly two operands; got "
-                         f"{len(parts)} in {subscripts!r}")
-    if "." in s:
-        raise NotImplementedError(
-            f"einsum {subscripts!r}: the port takes subscripts without "
-            "ellipses ('ab,bc->ac')")
-    a_lab, b_lab, out_lab = parts[0], parts[1], out
-    for lab, nd, what in ((a_lab, a_ndim, "lhs"), (b_lab, b_ndim, "rhs")):
-        if len(lab) != nd:
-            raise ValueError(f"{what} subscript {lab!r} names {len(lab)} "
-                             f"axes for a rank-{nd} operand")
-        if len(set(lab)) != len(lab):
-            raise ValueError(f"repeated label in {what} subscript {lab!r} "
-                             f"of {subscripts!r} (a diagonal)")
+                         f"{len(parts)} in {subscripts!r} ({_EINSUM_HINT})")
+    a_labels = _expand_operand(parts[0], a_ndim, "lhs")
+    b_labels = _expand_operand(parts[1], b_ndim, "rhs")
+    ell = [lab for lab in a_labels + b_labels if lab.startswith("...")]
+    ell_out = sorted(set(ell), key=lambda lab: int(lab[3:]))
     if not arrow:
-        raise NotImplementedError(
-            f"einsum {subscripts!r}: the port takes explicit output "
-            "subscripts ('ab,bc->ac')")
-    if len(set(out_lab)) != len(out_lab):
+        # numpy's implicit output: the ellipsis axes, then the letters
+        # that appear exactly once across both operands, in order.
+        letters = [lab for lab in a_labels + b_labels
+                   if not lab.startswith("...")]
+        return a_labels, b_labels, ell_out + sorted(
+            lab for lab in set(letters) if letters.count(lab) == 1)
+    if "..." in out:
+        head, _, tail = out.partition("...")
+        out_labels = list(head) + ell_out + list(tail)
+    else:
+        if ell_out:
+            raise ValueError(f"output subscript of {subscripts!r} drops "
+                             f"ellipsis dims; {_EINSUM_HINT}")
+        out_labels = list(out)
+    if len(set(out_labels)) != len(out_labels):
         raise ValueError(f"repeated output label in {subscripts!r}")
-    for lab in out_lab:
-        if lab not in a_lab and lab not in b_lab:
+    for lab in out_labels:
+        if lab not in a_labels and lab not in b_labels:
             raise ValueError(f"output label {lab!r} of {subscripts!r} "
                              "appears in neither operand")
-    for lab in a_lab + b_lab:
-        if lab not in out_lab and not (lab in a_lab and lab in b_lab):
-            raise NotImplementedError(
-                f"einsum {subscripts!r}: label {lab!r} is summed out of one "
-                "operand only; the port contracts shared labels only")
-    return a_lab, b_lab, out_lab
+    return a_labels, b_labels, out_labels
 
 
-def einsum(subscripts: str, a: torch.Tensor, b: torch.Tensor, *,
+def _presum(x: torch.Tensor, labels, other, out):
+    """Sum out the free axes the output drops (``'ij,jk->k'`` sums i):
+    they do not meet the contraction. The terms add one at a time in
+    index order (row-major over the dropped axes), the order of the
+    reference's reduction on the CPU, so the emulated product that
+    follows gets the same operand bit for bit."""
+    drop = [i for i, lab in enumerate(labels)
+            if lab not in other and lab not in out]
+    if not drop:
+        return x, labels
+    keep = [i for i in range(x.dim()) if i not in drop]
+    kept = tuple(x.shape[i] for i in keep)
+    total = torch.zeros(kept, dtype=x.dtype, device=x.device)
+    for term in x.permute(drop + keep).reshape((-1,) + kept).unbind(0):
+        total = total + term
+    return total, [labels[i] for i in keep]
+
+
+def einsum(subscripts: str, a: torch.Tensor, b, *,
            precision: str | EmulationConfig | None = None,
            out_dtype=None, backend: str | None = None) -> torch.Tensor:
     """Emulated two-operand einsum through :func:`dot_general`.
 
     Shared labels kept in the output are batch axes, shared labels
-    dropped from it are contracted, and every other label is a free
-    axis; e.g. ``bqkgd,bjkd->bkgqj`` (attention scores) and
-    ``bkgqj,bjkd->bkgqd`` (weighted values). A prepared ``b`` takes
-    ``...k,kn->...n``-shaped subscripts.
+    dropped from it are contracted, free labels the output drops are
+    summed out of their operand first, and a size-1 axis meeting a
+    larger one under the same label broadcasts; e.g. ``bqkgd,bjkd->bkgqj``
+    (attention scores), ``...k,kn->...n``, ``ij,jk`` (implicit output
+    ``ik``). A prepared ``b`` takes ``...k,kn->...n``-shaped subscripts.
     """
     from repro_torch.kernels.dispatch import _is_prepared
-    if _is_prepared(b):
-        a_lab, (k, n), out_lab = _parse_einsum(subscripts, a.dim(), 2)
-        if not (k in a_lab and k not in out_lab and n in out_lab
-                and n not in a_lab):
+    prep = _is_prepared(b)
+    a_labels, b_labels, out_labels = _parse_einsum(
+        subscripts, a.dim(), 2 if prep else b.dim())
+    a_set, b_set, out_set = set(a_labels), set(b_labels), set(out_labels)
+    if prep:
+        k, n = b_labels
+        if not (k in a_set and k not in out_set and n in out_set
+                and n not in a_set):
             raise ValueError(
                 f"a prepared rhs supports only '...k,kn->...n'-shaped "
                 f"subscripts (fixed (K, N) layout); got {subscripts!r}")
-        out = dot_general(a, b, (((a_lab.index(k),), (0,)), ((), ())),
-                          precision=precision, out_dtype=out_dtype)
-        canon = [lab for lab in a_lab if lab != k] + [n]
-        return out.permute(tuple(canon.index(x) for x in out_lab))
-    a_lab, b_lab, out_lab = _parse_einsum(subscripts, a.dim(), b.dim())
-    shared = [lab for lab in a_lab if lab in b_lab]
-    batch = [lab for lab in shared if lab in out_lab]
-    contract = [lab for lab in shared if lab not in out_lab]
-    for lab in batch + contract:
-        if a.shape[a_lab.index(lab)] != b.shape[b_lab.index(lab)]:
-            raise NotImplementedError(
-                f"einsum {subscripts!r}: label {lab!r} has sizes "
-                f"{a.shape[a_lab.index(lab)]} and {b.shape[b_lab.index(lab)]}"
-                " (broadcasting is not supported)")
-    dnums = ((tuple(a_lab.index(x) for x in contract),
-              tuple(b_lab.index(x) for x in contract)),
-             (tuple(a_lab.index(x) for x in batch),
-              tuple(b_lab.index(x) for x in batch)))
-    out = dot_general(a, b, dnums, precision=precision, out_dtype=out_dtype,
-                      backend=backend)
-    canon = (batch + [x for x in a_lab if x not in shared]
-             + [x for x in b_lab if x not in shared])
-    if canon != list(out_lab):
-        out = out.permute(tuple(canon.index(x) for x in out_lab))
+        a, a_labels = _presum(a, a_labels, b_set, out_set)
+        out = dot_general(a, b, (((a_labels.index(k),), (0,)), ((), ())),
+                          precision=precision, out_dtype=out_dtype,
+                          backend=backend)
+        canon = [lab for lab in a_labels if lab != k] + [n]
+    else:
+        a, a_labels = _presum(a, a_labels, b_set, out_set)
+        b, b_labels = _presum(b, b_labels, a_set, out_set)
+        shared = [lab for lab in a_labels if lab in b_labels]
+        batch = [lab for lab in shared if lab in out_set]
+        contract = [lab for lab in shared if lab not in out_set]
+        lc = tuple(a_labels.index(lab) for lab in contract)
+        rc = tuple(b_labels.index(lab) for lab in contract)
+        lb = tuple(a_labels.index(lab) for lab in batch)
+        rb = tuple(b_labels.index(lab) for lab in batch)
+        # A size-1 axis meeting a larger one under the same label
+        # broadcasts, as in einsum; dot_general stays strict.
+        a_shape, b_shape = list(a.shape), list(b.shape)
+        for dl, dr in zip(lb + lc, rb + rc):
+            if a_shape[dl] == 1 and b_shape[dr] != 1:
+                a_shape[dl] = b_shape[dr]
+            elif b_shape[dr] == 1 and a_shape[dl] != 1:
+                b_shape[dr] = a_shape[dl]
+        if a_shape != list(a.shape):
+            a = a.expand(a_shape).contiguous()
+        if b_shape != list(b.shape):
+            b = b.expand(b_shape).contiguous()
+        out = dot_general(a, b, ((lc, rc), (lb, rb)), precision=precision,
+                          out_dtype=out_dtype, backend=backend)
+        canon = (batch + [lab for lab in a_labels if lab not in shared]
+                 + [lab for lab in b_labels if lab not in shared])
+    if canon != out_labels:
+        out = out.permute(tuple(canon.index(lab) for lab in out_labels))
     return out

@@ -1,7 +1,8 @@
 """Architecture registry of the port: ``--arch <id>`` -> ArchConfig.
 
-olmo-1b and olmo-1b-emu (olmo-1b with its GEMM sites under Scheme I and
-Scheme II) are ported; every other id of the reference's registry raises
+olmo-1b, olmo-1b-emu (olmo-1b with its GEMM sites under Scheme I and
+Scheme II), granite-3-8b and deepseek-coder-33b (dense GQA decoders) are
+ported; every other id of the reference's registry raises
 NotImplementedError naming its ROADMAP.md item.
 """
 
@@ -12,18 +13,18 @@ import importlib
 from repro_torch.configs.base import (ALL_SHAPES, ArchConfig,  # noqa: F401
                                       ModelConfig, ShapeSpec, TrainPolicy)
 
-ARCH_IDS = ("olmo-1b", "olmo-1b-emu")
+ARCH_IDS = ("granite-3-8b", "deepseek-coder-33b", "olmo-1b", "olmo-1b-emu")
 
-_MODULES = {"olmo-1b": "repro_torch.configs.olmo_1b",
-            "olmo-1b-emu": "repro_torch.configs.olmo_1b_emu"}
+_MODULES = {a: "repro_torch.configs." + a.replace("-", "_")
+            for a in ARCH_IDS}
 
 # The reference's other ids, each waiting on the ROADMAP.md § 1 item that
 # ports what it needs.
 _NOT_PORTED = {
-    "hubert-xlarge": 4, "granite-3-8b": 4, "deepseek-coder-33b": 4,
-    "qwen1.5-32b": 4, "internvl2-1b": 4, "qwen2-moe-a2.7b": 4,
-    "deepseek-v3-671b": 4, "recurrentgemma-2b": 4, "mamba2-780m": 4,
-    "qwen2-moe-a2.7b-emu": 4,
+    "qwen1.5-32b": "4.2", "hubert-xlarge": "4.3", "internvl2-1b": "4.3",
+    "qwen2-moe-a2.7b": "4.4", "qwen2-moe-a2.7b-emu": "4.4",
+    "recurrentgemma-2b": "4.5", "mamba2-780m": "4.5",
+    "deepseek-v3-671b": "4.6",
 }
 
 

@@ -233,3 +233,9 @@ def emulated_dot_batched(a: torch.Tensor, b: torch.Tensor,
     if _differentiated(a, b):
         return _EmulatedDotBatched.apply(a, b, cfg)
     return _batched(a, b, cfg)
+
+
+def emulated_einsum_proj(x: torch.Tensor, w: torch.Tensor,
+                         cfg: EmulationConfig = NATIVE) -> torch.Tensor:
+    """Convenience for '...k,kn->...n' projections used by the model zoo."""
+    return emulated_dot(x, w, cfg)

@@ -176,6 +176,17 @@ def matmul(a: torch.Tensor, b: torch.Tensor, cfg: EmulationConfig,
     return shift_reduce(accs, beta, mu, nu, out_dtype)
 
 
+def fused_matmul(a: torch.Tensor, b: torch.Tensor, cfg: EmulationConfig,
+                 out_dtype=None) -> torch.Tensor:
+    """Scheme-I GEMM on the EmuGEMM-I kernels, via the dispatcher (on a
+    CUDA tensor the plane route; on a CPU tensor its plain version)."""
+    import dataclasses
+    from repro_torch.kernels import dispatch
+    if cfg.scheme != "ozaki1":
+        cfg = dataclasses.replace(cfg, scheme="ozaki1")
+    return dispatch.emulated_matmul(a, b, cfg=cfg, out_dtype=out_dtype)
+
+
 def check_complex_4m(a: torch.Tensor, b: torch.Tensor) -> None:
     """Raise unless Scheme I's 4M runs these operands: complex64, or a
     complex64 with a float32 real operand."""

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import warnings
 
 import torch
 
@@ -306,6 +307,15 @@ def auto_fused_matmul(a: torch.Tensor, b: torch.Tensor, cfg: EmulationConfig):
     if a.dim() != 2 or b.dim() != 2 or cfg.scheme == "native":
         return None
     return emulated_matmul(a, b, cfg=cfg)
+
+
+def maybe_emulated_matmul(a: torch.Tensor, b, cfg: EmulationConfig):
+    """Deprecated name for :func:`auto_fused_matmul`."""
+    warnings.warn(
+        "maybe_emulated_matmul is deprecated; call auto_fused_matmul "
+        "(or the repro_torch.dot_general/einsum front door)",
+        DeprecationWarning, stacklevel=2)
+    return auto_fused_matmul(a, b, cfg)
 
 
 def resolve_policy(policy):

@@ -1,12 +1,16 @@
-"""Serve CLI of the port: continuous batching over the EmuGEMM-I kernel.
+"""Serve CLI of the port: continuous batching over the emulated GEMMs.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \\
       --gemm ozaki1-p4 --requests 8 --prompt-len 48 --gen 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \\
+      --smoke --lockstep --gemm ozaki1-p4+cached --device cpu
 
 The flags are the reference's (``repro.launch.serve``) plus ``--device``
-(default ``cuda``; ``cpu`` runs the kernels' plain versions). Flags whose
-subsystem is not ported yet raise: ``--lockstep`` (the legacy engine),
-``--metrics-port`` / ``--metrics-jsonl`` (telemetry, ROADMAP.md § 1
+(default ``cuda``; ``cpu`` runs the kernels' plain versions).
+``--lockstep`` runs the legacy whole-batch engine (``ServeEngine``).
+``--prepare``, or a ``+cached`` spec on the continuous engine, prepares
+the 2-D dense weights (an untied head) once a session. The telemetry
+flags ``--metrics-port`` / ``--metrics-jsonl`` raise (ROADMAP.md § 1
 item 6).
 """
 
@@ -19,7 +23,10 @@ import numpy as np
 
 from repro_torch import api, configs
 from repro_torch.models.common import GemmPolicy
-from repro_torch.serving import ContinuousEngine, Request
+from repro_torch.serving import ContinuousEngine, LockstepEngine, Request
+
+# The reference's name for the legacy whole-batch engine.
+ServeEngine = LockstepEngine
 
 
 def build_trace(rng: np.random.Generator, vocab: int, requests: int,
@@ -44,8 +51,10 @@ def main(argv=None):
                     help="precision spec (e.g. ozaki1-p4); omitted, the "
                          "ambient REPRO_TORCH_EMULATION env decides")
     ap.add_argument("--prepare", action="store_true",
-                    help="decompose dense weights once per session (a no-op "
-                         "on olmo-1b, as in the reference)")
+                    help="prepare the 2-D dense weights (an untied head) "
+                         "once per session; the continuous engine also does "
+                         "so for +cached specs (a no-op on olmo-1b, as in "
+                         "the reference)")
     ap.add_argument("--lanes", type=int, default=4)
     ap.add_argument("--chunk", type=int, default=16)
     ap.add_argument("--page-size", type=int, default=16)
@@ -53,7 +62,8 @@ def main(argv=None):
     ap.add_argument("--poisson", type=float, default=0.0)
     ap.add_argument("--queue-policy", default="fcfs", choices=("fcfs", "spf"))
     ap.add_argument("--token-budget", type=int, default=None)
-    ap.add_argument("--lockstep", action="store_true")
+    ap.add_argument("--lockstep", action="store_true",
+                    help="run the legacy whole-batch engine instead")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--metrics-port", type=int, default=None)
     ap.add_argument("--metrics-jsonl", default=None)
@@ -61,9 +71,6 @@ def main(argv=None):
                     help="cuda (the kernels) or cpu (their plain versions)")
     args = ap.parse_args(argv)
 
-    if args.lockstep:
-        raise NotImplementedError("the legacy lockstep engine is not ported; "
-                                  "the continuous engine serves")
     if args.metrics_port is not None or args.metrics_jsonl:
         raise NotImplementedError("telemetry is not ported yet (ROADMAP.md "
                                   "§ 1 item 6)")
@@ -72,28 +79,40 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     policy = (GemmPolicy(default=api.precision(args.gemm))
               if args.gemm else None)
-    trace = build_trace(rng, arch.model.vocab, args.requests,
-                        args.prompt_len, args.gen, args.poisson)
-    eng = ContinuousEngine(
-        arch, max_seq=args.prompt_len + args.gen, policy=policy,
-        seed=args.seed, prepare=True if args.prepare else None,
-        max_lanes=args.lanes, chunk=args.chunk, page_size=args.page_size,
-        num_pages=args.num_pages, queue_policy=args.queue_policy,
-        token_budget=args.token_budget, device=args.device)
-    t0 = time.time()
-    results = eng.run(trace)
-    dt = time.time() - t0
-    toks = [results[r.rid].tokens for r in trace if r.rid in results]
-    util = eng.utilization()
-    ttfts = [results[r.rid].ttft for r in trace
-             if r.rid in results and results[r.rid].ttft is not None]
-    print(f"[serve] {util['steps']} steps, {util['evictions']} evictions, "
-          f"page high-water {util['kv']['high_water']}/"
-          f"{util['kv']['num_pages']}, "
-          + (f"ttft p50 {np.median(ttfts):.3f}s" if ttfts
-             else "no tokens emitted"))
+    max_seq = args.prompt_len + args.gen
+    if args.lockstep:
+        prompts = rng.integers(0, arch.model.vocab,
+                               (args.requests, args.prompt_len)
+                               ).astype(np.int32)
+        eng = LockstepEngine(arch, None, max_seq, policy, seed=args.seed,
+                             prepare=args.prepare, device=args.device)
+        t0 = time.time()
+        toks = eng.generate(prompts, args.gen).tolist()
+        dt = time.time() - t0
+    else:
+        trace = build_trace(rng, arch.model.vocab, args.requests,
+                            args.prompt_len, args.gen, args.poisson)
+        eng = ContinuousEngine(
+            arch, max_seq=max_seq, policy=policy, seed=args.seed,
+            prepare=True if args.prepare else None, max_lanes=args.lanes,
+            chunk=args.chunk, page_size=args.page_size,
+            num_pages=args.num_pages, queue_policy=args.queue_policy,
+            token_budget=args.token_budget, device=args.device)
+        t0 = time.time()
+        results = eng.run(trace)
+        dt = time.time() - t0
+        toks = [results[r.rid].tokens for r in trace if r.rid in results]
+        util = eng.utilization()
+        ttfts = [results[r.rid].ttft for r in trace
+                 if r.rid in results and results[r.rid].ttft is not None]
+        print(f"[serve] {util['steps']} steps, {util['evictions']} "
+              f"evictions, page high-water {util['kv']['high_water']}/"
+              f"{util['kv']['num_pages']}, "
+              + (f"ttft p50 {np.median(ttfts):.3f}s" if ttfts
+                 else "no tokens emitted"))
     print(f"[serve] {args.requests} requests x {args.gen} tokens in "
-          f"{dt:.2f}s ({args.requests * args.gen / dt:.1f} tok/s)")
+          f"{dt:.2f}s ({args.requests * args.gen / dt:.1f} tok/s)"
+          + (" with prepared weights" if eng.prepared else ""))
     if toks:
         print("[serve] sample:", toks[0][:12])
     return toks

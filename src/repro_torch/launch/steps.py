@@ -1,10 +1,12 @@
-"""The training step of the port (``repro.launch.steps``), on one card.
+"""The training and serve steps of the port (``repro.launch.steps``), on
+one card.
 
-``make_loss_fn`` and ``make_train_step`` mirror the reference's, without
-its shardings and ``jit``: PyTorch runs eagerly, and the slice trains on
-one card. The step is pure, as the reference's jitted one is: it takes a
-state {"params", "opt"} and a batch of numpy arrays and returns a new
-state and its metrics, leaving the old state as it was.
+``make_loss_fn``, ``make_train_step``, ``make_prefill_step`` and
+``make_decode_step`` mirror the reference's, without its shardings and
+``jit``: PyTorch runs eagerly, and the slice runs on one card. The train
+step is pure, as the reference's jitted one is: it takes a state
+{"params", "opt"} and a batch of numpy arrays and returns a new state
+and its metrics, leaving the old state as it was.
 
 With ``TrainPolicy.microbatches`` > 1 the step accumulates gradients over
 that many slices of the batch, as the reference's microbatch scan does,
@@ -17,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.kernels import dispatch, prepared
 from repro_torch.models import model as M
 from repro_torch.models.common import GemmPolicy, cross_entropy_loss
@@ -85,6 +87,15 @@ def batch_to(batch: dict, device) -> dict:
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
+def _one_card_policy(arch: ArchConfig, mesh, policy):
+    """The resolved policy of a step; ``mesh`` must be None."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "multi-device meshes are not ported yet (ROADMAP.md § 1 item 8)")
+    return dispatch.resolve_policy(
+        policy if policy is not None else arch.gemm_policy())
+
+
 def make_train_step(arch: ArchConfig, mesh=None,
                     policy: GemmPolicy | None = None):
     """The step function ``(state, batch) -> (state, metrics)``.
@@ -93,12 +104,7 @@ def make_train_step(arch: ArchConfig, mesh=None,
     to the ambient resolver when empty. ``mesh`` must be None: the slice
     trains on one card.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device meshes are not ported yet (ROADMAP.md § 1 item 8)")
-    if policy is None:
-        policy = arch.gemm_policy()
-    policy = dispatch.resolve_policy(policy)
+    policy = _one_card_policy(arch, mesh, policy)
     loss_fn = make_loss_fn(arch, policy)
     _, opt_update = make_optimizer(arch.train.optimizer)
     n_micro = arch.train.microbatches
@@ -124,6 +130,40 @@ def make_train_step(arch: ArchConfig, mesh=None,
         return {"params": new_params, "opt": new_opt}, metrics
 
     return train_step
+
+
+def make_prefill_step(arch: ArchConfig, shape: ShapeSpec, mesh=None,
+                      policy: GemmPolicy | None = None):
+    """``prefill(params, inputs) -> (logits (B, 1, vocab_padded), cache)``
+    with a contiguous cache of ``shape.seq_len`` positions. ``mesh``
+    must be None."""
+    policy = _one_card_policy(arch, mesh, policy)
+    mcfg = arch.model
+    if not mcfg.causal:
+        raise NotImplementedError(
+            "encoder prefill (a plain forward) waits on the encoder "
+            "front ends (ROADMAP.md § 1 item 4.3)")
+
+    @torch.no_grad()
+    def prefill(params, inputs):
+        return M.forward_prefill(params, mcfg, inputs, shape.seq_len, policy)
+
+    return prefill
+
+
+def make_decode_step(arch: ArchConfig, shape: ShapeSpec, mesh=None,
+                     policy: GemmPolicy | None = None):
+    """``decode(params, cache, tokens, pos) -> (logits (B, 1,
+    vocab_padded), cache)``; the cache is updated in place, as the
+    reference's donated one is. ``mesh`` must be None."""
+    policy = _one_card_policy(arch, mesh, policy)
+    mcfg = arch.model
+
+    @torch.no_grad()
+    def decode(params, cache, tokens, pos):
+        return M.forward_decode(params, mcfg, tokens, pos, cache, policy)
+
+    return decode
 
 
 def init_state(arch: ArchConfig, seed: int = 0, device="cuda"):

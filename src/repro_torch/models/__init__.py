@@ -1,0 +1,17 @@
+"""The port's model zoo (``repro.models``): dense attention decoders over
+stacked layers, in training, ragged serving, prefill and decode."""
+
+from repro_torch.models.model import (  # noqa: F401
+    forward_decode,
+    forward_prefill,
+    forward_train,
+    init_cache,
+    init_params,
+    param_count,
+)
+from repro_torch.models.common import (  # noqa: F401
+    GemmPolicy,
+    NATIVE_POLICY,
+    cross_entropy_loss,
+    parse_gemm_spec,
+)

@@ -1,13 +1,15 @@
 """Grouped-query attention of the port (``repro.models.attention``): the
 chunked online-softmax ``flash_attention`` and ``attention_train`` of
-the training path, and the serving step (``_project_qkv``,
-``_store_step``, ``attention_step``).
+the training path, the ragged serving step of the continuous engine
+(``_project_qkv``, ``_store_step``, ``attention_step``), and the
+whole-batch prefill and single-token decode against a contiguous cache
+(``_store``, ``attention_prefill``, ``attention_decode``).
 
 ``flash_attention`` is plain torch, as the reference's is plain JAX (its
-Pallas flash kernel is not on this path). The reference's prefill and
-single-token decode paths come with serving's remaining items
-(ROADMAP.md § 1 item 2); int8 and ring-buffer KV caches and sequence
-parallelism with the model zoo and multi-device items (4, 8).
+Pallas flash kernel is not on this path). Global attention only: the
+int8 KV cache and the ring-buffer window cache wait on the model zoo
+(ROADMAP.md § 1 items 4.2 and 4.5), sequence parallelism on
+multi-device (item 8).
 """
 
 from __future__ import annotations
@@ -182,6 +184,72 @@ def init_cache(cfg: AttnConfig, batch: int, max_seq: int, dtype, device,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _refuse_cache(cfg: AttnConfig) -> None:
+    if cfg.cache_int8:
+        raise NotImplementedError(
+            "the int8 KV cache is not ported yet (ROADMAP.md § 1 item 4.2)")
+    if cfg.window is not None:
+        raise NotImplementedError(
+            "the ring-buffer window KV cache is not ported yet (ROADMAP.md "
+            "§ 1 item 4.5)")
+
+
+def _store(cache, k, v, slot):
+    """Write fresh k/v (B, S, KVH, D) at ``slot`` along every lane's
+    sequence axis, in place. The slot clamps so the write stays in
+    bounds, as ``lax.dynamic_update_slice`` does."""
+    s, length = k.shape[1], cache["k"].shape[1]
+    slot = min(max(int(slot), 0), length - s)
+    cache["k"][:, slot:slot + s] = k
+    cache["v"][:, slot:slot + s] = v
+    return cache
+
+
+def attention_prefill(params, cfg: AttnConfig, x, positions,
+                      policy: GemmPolicy, cache):
+    """Forward over the prompt: x (B, S, D) -> (out (B, S, D), cache
+    filled to S). ``cache`` is the contiguous {"k", "v"} (B, max_seq,
+    KVH, D) view to fill in place (one layer of the model's cache)."""
+    _refuse_cache(cfg)
+    b, s, _ = x.shape
+    if s > cache["k"].shape[1]:
+        raise ValueError(f"a prompt of {s} tokens does not fit a cache of "
+                         f"{cache['k'].shape[1]}")
+    q, k, v = _project_qkv(params, cfg, x, positions, policy)
+    pos1d = positions[0]
+    out = flash_attention(cfg, q, k, v, pos1d, pos1d, policy=policy)
+    cache = _store(cache, k, v, 0)
+    return dense(out.reshape(b, s, -1), params["wo"], policy, "attn"), cache
+
+
+def attention_decode(params, cfg: AttnConfig, x, pos, cache,
+                     policy: GemmPolicy):
+    """One-token step. x: (B, 1, D); pos: the int index every lane writes
+    (its absolute position). Updates the contiguous {"k", "v"} (B, L,
+    KVH, D) cache in place; returns (out (B, 1, D), cache)."""
+    _refuse_cache(cfg)
+    b = x.shape[0]
+    pos = int(pos)
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(params, cfg, x, positions, policy)
+    cache = _store(cache, k, v, pos)
+    ck, cv = cache["k"], cache["v"]
+    clen = ck.shape[1]
+    kvh, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    qh = q.reshape(b, kvh, g, cfg.head_dim)
+    s = policy_einsum("bkgd,bjkd->bkgj", qh, ck, policy, "attn_qk",
+                      pet=torch.float32) * cfg.scale
+    k_positions = torch.arange(clen, dtype=torch.int32, device=x.device)
+    mask = _chunk_mask(cfg, positions[0], k_positions)[0]        # (clen,)
+    mask &= k_positions < pos + 1
+    s = torch.where(mask[None, None, None], s, torch.full_like(s, NEG_INF))
+    w = torch.softmax(s, dim=-1)
+    out = policy_einsum("bkgj,bjkd->bkgd", w.to(cv.dtype), cv, policy,
+                        "attn_av", pet=torch.float32)
+    out = out.reshape(b, 1, cfg.n_heads * cfg.head_dim).to(x.dtype)
+    return dense(out, params["wo"], policy, "attn"), cache
+
+
 def _store_step(cache, k, v, start):
     """Write each lane's fresh k/v (B, C, KVH, D) at its own ``start``.
 
@@ -209,10 +277,7 @@ def attention_step(params, cfg: AttnConfig, x, start, n_new, cache,
     views. Per-lane results depend only on that lane's tokens and cache
     rows. Returns (out (B, C, D), updated cache view).
     """
-    if cfg.cache_int8 or cfg.window is not None:
-        raise NotImplementedError(
-            "int8 and ring-buffer KV caches are not ported yet (ROADMAP.md "
-            "§ 1 item 4)")
+    _refuse_cache(cfg)
     b, c, _ = x.shape
     positions = start[:, None] + torch.arange(c, dtype=torch.int32,
                                               device=x.device)

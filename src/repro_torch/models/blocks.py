@@ -1,6 +1,8 @@
 """Residual blocks of the port (``repro.models.blocks``): the attention
 block, pre-norm attention + pre-norm dense FFN, in its training forward
-(``block_train``) and its serving step (``block_step``)."""
+(``block_train``), its ragged serving step (``block_step``), and its
+whole-batch prefill and single-token decode against a contiguous cache
+(``init_block_cache``, ``block_prefill``, ``block_decode``)."""
 
 from __future__ import annotations
 
@@ -33,10 +35,10 @@ def check_supported(mcfg: ModelConfig) -> None:
 def init_block(gen, mcfg: ModelConfig, dtype, device, lead: tuple = ()):
     d = mcfg.d_model
     return {
-        "ln1": init_norm(mcfg.norm, d, dtype, device),
+        "ln1": init_norm(mcfg.norm, d, dtype, device, lead),
         "mixer": attention.init_attention(gen, attn_config(mcfg), dtype,
                                           device, lead),
-        "ln2": init_norm(mcfg.norm, d, dtype, device),
+        "ln2": init_norm(mcfg.norm, d, dtype, device, lead),
         "ffn": init_ffn(gen, d, mcfg.d_ff, mcfg.act, dtype, device, lead),
     }
 
@@ -46,13 +48,17 @@ def _ffn_part(params, mcfg: ModelConfig, x, policy: GemmPolicy):
     return x + apply_ffn(params["ffn"], h, mcfg.act, policy)
 
 
+def _check_kind(kind: str) -> None:
+    if kind != "attn":
+        raise NotImplementedError(
+            f"block kind {kind!r} is not ported yet (ROADMAP.md § 1 item 4)")
+
+
 def block_train(params, kind: str, mcfg: ModelConfig, x, positions,
                 policy: GemmPolicy):
     """One block's training forward; returns (x, aux loss). Only the
     dense attention block is ported (``check_supported``)."""
-    if kind != "attn":
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP.md § 1 item 4)")
+    _check_kind(kind)
     h = apply_norm(mcfg.norm, params["ln1"], x)
     x = x + attention.attention_train(params["mixer"], attn_config(mcfg), h,
                                       positions, policy)
@@ -66,4 +72,35 @@ def block_step(params, mcfg: ModelConfig, x, start, n_new, cache,
     h = apply_norm(mcfg.norm, params["ln1"], x)
     mix, cache = attention.attention_step(params["mixer"], attn_config(mcfg),
                                           h, start, n_new, cache, policy)
+    return _ffn_part(params, mcfg, x + mix, policy), cache
+
+
+def init_block_cache(kind: str, mcfg: ModelConfig, batch: int, max_seq: int,
+                     dtype, device, lead: tuple = ()):
+    """A block's contiguous KV cache, stacked on ``lead`` (layer) axes."""
+    _check_kind(kind)
+    return attention.init_cache(attn_config(mcfg), batch, max_seq, dtype,
+                                device, lead)
+
+
+def block_prefill(params, kind: str, mcfg: ModelConfig, x, positions,
+                  policy: GemmPolicy, cache):
+    """One block over the whole prompt; fills ``cache`` (one layer's
+    contiguous {"k", "v"} view) in place."""
+    _check_kind(kind)
+    h = apply_norm(mcfg.norm, params["ln1"], x)
+    mix, cache = attention.attention_prefill(params["mixer"],
+                                             attn_config(mcfg), h, positions,
+                                             policy, cache)
+    return _ffn_part(params, mcfg, x + mix, policy), cache
+
+
+def block_decode(params, kind: str, mcfg: ModelConfig, x, pos, cache,
+                 policy: GemmPolicy):
+    """One block's single-token step at position ``pos``."""
+    _check_kind(kind)
+    h = apply_norm(mcfg.norm, params["ln1"], x)
+    mix, cache = attention.attention_decode(params["mixer"],
+                                            attn_config(mcfg), h, pos, cache,
+                                            policy)
     return _ffn_part(params, mcfg, x + mix, policy), cache

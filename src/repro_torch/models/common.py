@@ -9,14 +9,17 @@ family by a :class:`GemmPolicy`.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Mapping
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.emulated import emulated_dot, emulated_dot_prepared
+from repro_torch.core.emulated import (emulated_dot, emulated_dot_prepared,
+                                       prepared_dot)
 from repro_torch.core.precision import NATIVE, EmulationConfig
-from repro_torch.kernels.prepared import StepPrepared
+from repro_torch.kernels.prepared import (PreparedOperand, PreparedResidues,
+                                          StepPrepared)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +49,30 @@ class GemmPolicy:
 NATIVE_POLICY = GemmPolicy(default=NATIVE)
 
 
+def parse_gemm_spec(spec: str) -> EmulationConfig:
+    """Deprecated: use ``repro_torch.api.precision`` (the spec grammar).
+
+    The historical grammar: 'native', 'ozaki1-p4', 'ozaki2-p9' and a
+    '-cached' suffix (Scheme I only), pinned to ``impl='xla'``.
+    """
+    warnings.warn(
+        "parse_gemm_spec is deprecated; use repro_torch.api.precision("
+        "'<spec>') (note the '+cached' spelling)",
+        DeprecationWarning, stacklevel=2)
+    if spec == "native":
+        return NATIVE
+    cached = spec.endswith("-cached")
+    if cached:
+        spec = spec[:-len("-cached")]
+    scheme, _, ps = spec.partition("-p")
+    if scheme not in ("ozaki1", "ozaki2") or not ps.isdigit():
+        raise ValueError(f"bad gemm spec {spec!r}")
+    if cached and scheme != "ozaki1":
+        raise ValueError("'-cached' is a Scheme-I (ozaki1) feature")
+    return EmulationConfig(scheme=scheme, p=int(ps), impl="xla",
+                           cache_weights=cached)
+
+
 def dense(x: torch.Tensor, w, policy: GemmPolicy, site: str,
           bias: torch.Tensor | None = None) -> torch.Tensor:
     """x: (..., K) @ w: (K, N) under the policy's emulation config.
@@ -53,10 +80,16 @@ def dense(x: torch.Tensor, w, policy: GemmPolicy, site: str,
     ``w`` may be a :class:`~repro_torch.kernels.prepared.StepPrepared`
     pair (float weight + once-per-step prep, attached by
     ``launch/steps.py``), sent through ``emulated_dot_prepared``: the
-    forward streams the prep and dB still reaches the weight."""
+    forward streams the prep and dB still reaches the weight. It may
+    also be a bare ``PreparedOperand`` / ``PreparedResidues``
+    (``prepared.prepare_params``, once a serve session), consumed as it
+    is whatever the policy says: the scheme was chosen when it was
+    prepared, and serving never differentiates."""
     cfg = policy.for_site(site)
     if isinstance(w, StepPrepared):
         out = emulated_dot_prepared(x, w.w, w.prep, cfg).to(x.dtype)
+    elif isinstance(w, (PreparedOperand, PreparedResidues)):
+        out = prepared_dot(x, w).to(x.dtype)
     elif cfg.scheme == "native":
         out = torch.matmul(x, w)
     else:
@@ -107,12 +140,14 @@ def emb_init(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
 # Norms. 'nonparam' is OLMo-style non-parametric LayerNorm (no scale/bias).
 # ---------------------------------------------------------------------------
 
-def init_norm(kind: str, d: int, dtype, device):
+def init_norm(kind: str, d: int, dtype, device, lead: tuple = ()):
+    """A norm's parameters; ``lead`` stacks them on leading (layer) axes,
+    as the reference's vmapped layer init does."""
     if kind == "rms":
-        return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+        return {"scale": torch.ones(lead + (d,), dtype=dtype, device=device)}
     if kind == "layernorm":
-        return {"scale": torch.ones((d,), dtype=dtype, device=device),
-                "bias": torch.zeros((d,), dtype=dtype, device=device)}
+        return {"scale": torch.ones(lead + (d,), dtype=dtype, device=device),
+                "bias": torch.zeros(lead + (d,), dtype=dtype, device=device)}
     if kind == "nonparam":
         return {}
     raise ValueError(f"unknown norm kind {kind!r}")

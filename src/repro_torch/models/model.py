@@ -1,13 +1,14 @@
 """Top-level language model of the port (``repro.models.model``):
-embeddings -> stacked blocks -> head, for the training forward and the
-serving step.
+embeddings -> stacked blocks -> head, for the training forward, the
+ragged serving step, and the whole-batch prefill and single-token decode.
 
 Parameters keep the reference's pytree layout: ``params["layers"]["b0"]``
 holds each block weight stacked on a leading layer axis, and the
 reference's ``lax.scan`` over it becomes a Python loop over that axis.
 
 Entry points: ``init_params``, ``init_cache``, ``forward_train``,
-``forward_step``, ``logits_from_hidden``. They run on ``device="cuda"``
+``forward_step``, ``forward_prefill``, ``forward_decode``,
+``logits_from_hidden``, ``param_count``. They run on ``device="cuda"``
 unless the caller asks for the CPU, and raise when CUDA is asked for and
 absent.
 """
@@ -20,10 +21,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.prepared import StepPrepared
 from repro_torch.models import blocks as B
-from repro_torch.models.attention import init_cache as attn_init_cache
 from repro_torch.models.common import (GemmPolicy, NATIVE_POLICY, apply_norm,
                                        dense, emb_init, he_init, init_norm,
                                        pad_vocab)
+from repro_torch.utils.tree import tree_leaves
 
 
 def resolve_device(device) -> torch.device:
@@ -80,9 +81,9 @@ def init_cache(mcfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
     (n_layers, batch, max_seq, n_kv_heads, head_dim)."""
     B.check_supported(mcfg)
     device = resolve_device(device)
-    return {"layers": {"b0": attn_init_cache(
-        B.attn_config(mcfg), batch, max_seq, getattr(torch, mcfg.dtype),
-        device, lead=(mcfg.n_layers,))}}
+    return {"layers": {"b0": B.init_block_cache(
+        "attn", mcfg, batch, max_seq, getattr(torch, mcfg.dtype), device,
+        lead=(mcfg.n_layers,))}}
 
 
 def embed_inputs(params, mcfg: ModelConfig, inputs: dict):
@@ -121,9 +122,45 @@ def forward_train(params, mcfg: ModelConfig, inputs: dict,
 
 def logits_from_hidden(params, mcfg: ModelConfig, x, policy: GemmPolicy):
     x = apply_norm(mcfg.norm, params["ln_f"], x)
-    # emb.T is a strided view: the kernel reads it in place.
+    # emb.T is a strided view: the kernel reads it in place. An untied
+    # head may be a session's prepared operand (prepare_params), which
+    # dense() consumes as it is.
     w = params["emb"].T if mcfg.tie_embeddings else params["head"]
     return dense(x, w, policy, "logits")
+
+
+def forward_prefill(params, mcfg: ModelConfig, inputs: dict, max_seq: int,
+                    policy: GemmPolicy = NATIVE_POLICY):
+    """Whole-batch prefill: (logits (B, 1, vocab_padded) at the last
+    prompt position, the contiguous cache of :func:`init_cache` filled
+    with the prompt's keys and values)."""
+    B.check_supported(mcfg)
+    x, positions = embed_inputs(params, mcfg, inputs)
+    cache = init_cache(mcfg, x.shape[0], max_seq, x.device)
+    kv = cache["layers"]["b0"]
+    for i, lp in enumerate(unstack_layers(params, mcfg.n_layers)):
+        view = {"k": kv["k"][i], "v": kv["v"][i]}
+        x, _ = B.block_prefill(lp, "attn", mcfg, x, positions, policy, view)
+    return logits_from_hidden(params, mcfg, x[:, -1:], policy), cache
+
+
+def forward_decode(params, mcfg: ModelConfig, token, pos, cache,
+                   policy: GemmPolicy = NATIVE_POLICY):
+    """token: (B, 1) int32, each lane's next id; pos: the int position
+    they all take. The cache is updated in place. Returns (logits (B, 1,
+    vocab_padded), cache)."""
+    B.check_supported(mcfg)
+    x = params["emb"][token.long()]
+    kv = cache["layers"]["b0"]
+    for i, lp in enumerate(unstack_layers(params, mcfg.n_layers)):
+        view = {"k": kv["k"][i], "v": kv["v"][i]}
+        x, _ = B.block_decode(lp, "attn", mcfg, x, pos, view, policy)
+    return logits_from_hidden(params, mcfg, x, policy), cache
+
+
+def param_count(params) -> int:
+    """Elements of every parameter tensor of a float parameter tree."""
+    return sum(leaf.numel() for leaf in tree_leaves(params))
 
 
 def forward_step(params, mcfg: ModelConfig, tokens, start, n_new, cache,

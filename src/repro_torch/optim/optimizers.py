@@ -3,7 +3,7 @@
 States mirror the parameter tree (float32 moments beside each leaf and
 an int32 step count). Updates are pure, as in the reference: they return
 new trees and leave their arguments as they are. Adafactor is not ported
-yet (ROADMAP.md § 1 item 2).
+yet (ROADMAP.md § 1 item 4.6, with deepseek-v3).
 """
 
 from __future__ import annotations
@@ -79,5 +79,5 @@ def make_optimizer(kind: str):
         return adamw_init, adamw_update
     if kind == "adafactor":
         raise NotImplementedError(
-            "adafactor is not ported yet (ROADMAP.md § 1 item 2)")
+            "adafactor is not ported yet (ROADMAP.md § 1 item 4.6)")
     raise ValueError(f"unknown optimizer {kind!r}")

@@ -5,16 +5,19 @@
 * failure injection: ``FailureInjector`` raises at a chosen step, so a
   test can assert bit-exact continuation after a restart;
 * straggler detection: per-step wall time against the mean and spread of
-  the earlier steps; slow steps are logged and counted.
+  the earlier steps; slow steps are logged and counted;
+* preemption: with ``handle_sigterm`` a SIGTERM lets the current step
+  finish, writes a checkpoint of it synchronously and returns from
+  ``run``; ``close`` puts the previous handler back.
 
-The reference's SIGTERM preemption checkpoint is not ported yet
-(ROADMAP.md § 1 item 2), nor its guard retry (``+guard`` specs) and
-telemetry records (items 5 and 6); a guarded spec is refused earlier, by
-``kernels.dispatch.resolve_policy``.
+The reference's guard retry (``+guard`` specs) and telemetry records are
+not ported yet (ROADMAP.md § 1 items 5 and 6); a guarded spec is refused
+earlier, by ``kernels.dispatch.resolve_policy``.
 """
 
 from __future__ import annotations
 
+import signal
 import time
 
 import numpy as np
@@ -60,7 +63,8 @@ class Trainer:
 
     def __init__(self, *, step_fn, init_state_fn, batch_iterator,
                  ckpt_dir: str, device="cuda", ckpt_every: int = 50,
-                 failure: FailureInjector | None = None):
+                 failure: FailureInjector | None = None,
+                 handle_sigterm: bool = False):
         self.step_fn = step_fn
         self.batch_iterator = batch_iterator
         self.ckpt = CheckpointManager(ckpt_dir)
@@ -68,6 +72,8 @@ class Trainer:
         self.failure = failure or FailureInjector()
         self.monitor = StragglerMonitor()
         self.metrics_log: list[dict] = []
+        self._preempted = False
+        self._prev_sigterm = None
 
         latest = self.ckpt.latest_step()
         if latest is not None:
@@ -77,6 +83,13 @@ class Trainer:
         else:
             self.state = init_state_fn()
             self.start_step = 0
+
+        if handle_sigterm:
+            self._prev_sigterm = signal.signal(signal.SIGTERM,
+                                               self._on_sigterm)
+
+    def _on_sigterm(self, *_):
+        self._preempted = True
 
     def run(self, n_steps: int) -> list[dict]:
         step = self.start_step
@@ -102,12 +115,19 @@ class Trainer:
                 print(f"[trainer] step {step} "
                       f"loss {metrics.get('loss', float('nan')):.4f} "
                       f"({dt:.2f}s)")
-            if (step + 1) % self.ckpt_every == 0 or step + 1 == end:
+            if ((step + 1) % self.ckpt_every == 0 or step + 1 == end
+                    or self._preempted):
                 self.ckpt.save(step, self.state)
             step += 1
+            if self._preempted:
+                print(f"[trainer] preempted; checkpointed at step {step - 1}")
+                break
         self.ckpt.wait()
         self.start_step = step
         return self.metrics_log
 
     def close(self):
+        if self._prev_sigterm is not None:
+            signal.signal(signal.SIGTERM, self._prev_sigterm)
+            self._prev_sigterm = None
         self.ckpt.close()

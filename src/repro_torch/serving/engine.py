@@ -1,4 +1,4 @@
-"""Continuous-batching engine of the port (``repro.serving.engine``).
+"""Serving engines of the port (``repro.serving.engine``).
 
 :class:`ContinuousEngine` executes the scheduler's fixed-shape plans —
 a mixed ``(max_lanes, chunk)`` prefill+decode step and a
@@ -7,11 +7,20 @@ lane's tokens are bit-identical whatever the rest of the cohort is
 doing (every model row is computed independently), so continuous
 batching changes throughput, never results.
 
-Not ported from the reference: the per-request guard isolation replay
-(ROADMAP.md § 1 item 5), telemetry (item 6) and the legacy
-``LockstepEngine``. ``+cached`` prepares nothing on olmo-1b, as in the
-reference (its projection weights are 3-D layer stacks and its head is
-the tied embedding; ROADMAP.md § 3 R4).
+:class:`LockstepEngine` is the reference's legacy whole-batch engine:
+prefill the batch at once, then decode every lane in lockstep against
+a contiguous cache.
+
+When the policy caches weights (``+cached``) or ``prepare`` is asked
+for, ``prepared.prepare_params`` prepares the 2-D dense weights once a
+session, as the reference does; every step then streams the prepared
+operand. Those are the untied heads (granite-3-8b, deepseek-coder-33b):
+olmo-1b's projection weights are 3-D layer stacks and its head is the
+tied embedding, so nothing is prepared there (ROADMAP.md § 3 R4).
+
+Not ported from the reference: the guard retries (ROADMAP.md § 1 item
+5; ``+guard`` specs are refused by ``dispatch.resolve_policy``) and the
+telemetry records (item 6).
 """
 
 from __future__ import annotations
@@ -23,7 +32,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import dispatch, prepared
 from repro_torch.models import model as M
 from repro_torch.serving.kv_cache import PagedKVCache
 from repro_torch.serving.queue import Request, RequestQueue, RequestState
@@ -52,17 +61,6 @@ class RequestResult:
                    ttft=ttft, tpot=tpot, evictions=s.evictions)
 
 
-def _refuse_prepared(params) -> None:
-    """The reference's ``prepare_params`` wraps 2-D dense weights only;
-    olmo-1b has none (stacked layers, tied head), so preparing is a no-op
-    there. Serving an architecture where it would do work is not ported
-    (``kernels.prepared.prepare_params`` is, for training's tests)."""
-    if "head" in params:
-        raise NotImplementedError(
-            "serving prepared weights ('+cached' / --prepare on an untied "
-            "head) is not ported yet (ROADMAP.md § 1 item 2)")
-
-
 class ContinuousEngine:
     def __init__(self, arch, mesh=None, *, max_seq: int, policy=None,
                  params=None, seed: int = 0, prepare: bool | None = None,
@@ -81,12 +79,11 @@ class ContinuousEngine:
             policy if policy is not None else arch.gemm_policy())
         self.params = params if params is not None else M.init_params(
             self.mcfg, seed, self.device)
-        caches = any(c is not None and c.cache_weights for c in
-                     [self.policy.default]
-                     + [c for _, c in self.policy.overrides])
-        self.prepared = bool(caches if prepare is None else prepare)
+        if prepare is None:       # auto: +cached specs stream preps
+            prepare = prepared.policy_caches_weights(self.policy)
+        self.prepared = bool(prepare)
         if self.prepared:
-            _refuse_prepared(self.params)
+            self.params = prepared.prepare_params(self.params, self.policy)
         if num_pages is None:     # worst case: every lane at max_seq
             num_pages = 1 + max_lanes * math.ceil(max_seq / page_size)
         self.kv = PagedKVCache(self.mcfg, page_size=page_size,
@@ -181,3 +178,57 @@ class ContinuousEngine:
                 "evictions": self.sched.evictions,
                 "admissions": self.sched.admissions,
                 "kv": self.kv.stats()}
+
+
+class LockstepEngine:
+    """Legacy whole-batch engine: prefill the full batch once, decode all
+    lanes in lockstep against a contiguous cache (``repro_torch.launch.
+    serve.ServeEngine``). ``prepare`` prepares the dense weights once a
+    session, as in the reference; unlike :class:`ContinuousEngine` it is
+    never automatic."""
+
+    def __init__(self, arch, mesh, max_seq: int, policy=None, params=None,
+                 seed: int = 0, prepare: bool = False, device="cuda"):
+        if mesh is not None:
+            raise NotImplementedError(
+                "multi-device meshes are not ported yet (ROADMAP.md § 1 "
+                "item 8); the slice serves on one card")
+        self.device = M.resolve_device(device)
+        self.arch = arch
+        self.mcfg = arch.model
+        self.max_seq = max_seq
+        self.policy = dispatch.resolve_policy(
+            policy if policy is not None else arch.gemm_policy())
+        self.params = params if params is not None else M.init_params(
+            self.mcfg, seed, self.device)
+        self.prepared = bool(prepare)
+        if self.prepared:
+            self.params = prepared.prepare_params(self.params, self.policy)
+
+    @torch.inference_mode()
+    def prefill(self, prompts: torch.Tensor):
+        """(logits (B, 1, vocab_padded), cache) of a (B, S) prompt batch."""
+        return M.forward_prefill(self.params, self.mcfg, {"tokens": prompts},
+                                 self.max_seq, self.policy)
+
+    @torch.inference_mode()
+    def decode(self, tokens: torch.Tensor, pos: int, cache):
+        """One lockstep step: (B, 1) ids at position ``pos``."""
+        return M.forward_decode(self.params, self.mcfg, tokens, pos, cache,
+                                self.policy)
+
+    def _greedy(self, logits):
+        return torch.argmax(logits[:, -1:, :self.mcfg.vocab], dim=-1)
+
+    def generate(self, prompts: np.ndarray, n_tokens: int) -> np.ndarray:
+        """prompts: (B, S) int32. Returns (B, n_tokens) greedy ids."""
+        s = prompts.shape[1]
+        logits, cache = self.prefill(
+            torch.as_tensor(prompts, dtype=torch.int32, device=self.device))
+        tok = self._greedy(logits)
+        out = [tok]
+        for i in range(1, n_tokens):
+            logits, cache = self.decode(tok, s + i - 1, cache)
+            tok = self._greedy(logits)
+            out.append(tok)
+        return torch.cat(out, dim=1).to(torch.int32).cpu().numpy()

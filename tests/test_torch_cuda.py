@@ -11,7 +11,9 @@ float64), and its residue forms K5 and K7 (the relayout and the residue
 plane GEMM) against their plain versions,
 bit for bit (attention within its bars), the dispatcher's routing of
 CUDA tensors (complex 4M included), and train steps that launch them
-(a hoisted microbatch step among them).
+(a hoisted microbatch step among them); the prefill / decode path at 4
+query heads a KV head on both backends, and K3 against granite-3-8b's
+prepared head.
 
 These tests need an NVIDIA GPU and nvcc; they skip elsewhere. This file
 imports no jax, so it runs where only torch is installed:
@@ -1145,3 +1147,72 @@ def test_library_kernels_refuse_what_they_were_not_built_for(cuda_device):
     mu = torch.ones(8, 1, device=cuda_device)
     with pytest.raises(ValueError):         # 64 is not p * Kp for p = 3
         ozaki1.fused_matmul_interleaved(x, x.T.contiguous(), mu, mu.T, 3, 7)
+
+
+@pytest.mark.parametrize("m", [1, 4, 48])
+def test_prepared_head_k3_on_card(cuda_device, m):
+    """The served logits GEMM of granite-3-8b: a (m, 4096) bf16 lhs
+    against the head's planes (4096 x 49664, one encode when prepared)
+    is one mixed call (an lhs encode + one plane GEMM), equal bit for bit
+    to the unprepared product on the 'torch' backend (plain versions)."""
+    from repro_torch.kernels import prepared
+    g = torch.Generator(device=cuda_device).manual_seed(m)
+    cfg = EmulationConfig(scheme="ozaki1", p=4)
+    head = (0.02 * torch.randn(4096, 49664, generator=g,
+                               device=cuda_device)).to(torch.bfloat16)
+    ozaki1.COUNTS.reset()
+    prep = prepared.prepare_rhs(head, cfg)
+    assert prep.layout == "planes" and ozaki1.COUNTS.launches_encode == 1
+    a = torch.randn(m, 4096, generator=g, device=cuda_device,
+                    dtype=torch.bfloat16)
+    ozaki1.COUNTS.reset()
+    out = prepared.matmul_prepared(a, prep, torch.float32)
+    assert (ozaki1.COUNTS.launches_mixed, ozaki1.COUNTS.launches_encode,
+            ozaki1.COUNTS.launches_planes) == (1, 1, 1)
+    ref = dispatch.emulated_matmul(a, head, cfg=cfg, out_dtype=torch.float32,
+                                   backend="torch")
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("spec", ["ozaki1-p4", "ozaki1-p4+cached"])
+def test_gqa_prefill_and_decode_cuda_equals_torch_on_card(cuda_device, spec):
+    """deepseek-coder-33b's smoke widths, 8 query heads over 2 KV heads
+    (g = 4): forward_prefill and three forward_decode steps on the
+    'cuda' backend equal the 'torch' backend's, bit for bit; the cached
+    spec prepares the untied head and streams it through the mixed form."""
+    from repro_torch import api, configs
+    from repro_torch.kernels import prepared
+    from repro_torch.models import model as M
+    from repro_torch.models.common import GemmPolicy
+    arch = configs.get_smoke_config("deepseek-coder-33b")
+    mcfg = arch.model
+    assert mcfg.n_heads // mcfg.n_kv_heads == 4
+    params = M.init_params(mcfg, seed=0, device=cuda_device)
+    toks = torch.randint(0, mcfg.vocab, (3, 11), device=cuda_device,
+                         generator=torch.Generator(device=cuda_device)
+                         .manual_seed(1), dtype=torch.int32)
+    logits = {}
+    for backend in ("cuda", "torch"):
+        policy = GemmPolicy(default=api.precision(spec, backend=backend))
+        p = (prepared.prepare_params(params, policy)
+             if policy.default.cache_weights else params)
+        ozaki1.COUNTS.reset()
+        with torch.no_grad():
+            out, cache = M.forward_prefill(p, mcfg, {"tokens": toks}, 16,
+                                           policy)
+            seq = [out]
+            tok = torch.argmax(out[:, :, :mcfg.vocab], -1).to(torch.int32)
+            for pos in range(11, 14):
+                out, cache = M.forward_decode(p, mcfg, tok, pos, cache,
+                                              policy)
+                seq.append(out)
+                tok = torch.argmax(out[:, :, :mcfg.vocab], -1).to(torch.int32)
+        torch.cuda.synchronize()
+        logits[backend] = torch.cat(seq, 1)
+        if backend == "cuda":
+            assert ozaki1.COUNTS.plain_cuda_calls == 0
+            assert ozaki1.COUNTS.launches_batched > 0
+            assert ozaki1.COUNTS.launches_mixed == (
+                4 if policy.default.cache_weights else 0)
+    assert torch.equal(logits["cuda"], logits["torch"])

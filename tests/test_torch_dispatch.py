@@ -67,13 +67,79 @@ def test_native_einsum_matches_torch():
     torch.testing.assert_close(out, torch.einsum("bqkgd,bjkd->bkgqj", x, y))
 
 
-@pytest.mark.parametrize("eq", ["ij,jk", "ij,jk->k", "...k,kn->...n"])
-def test_einsum_outside_the_canonical_core_raises(eq):
-    """What the reference runs and the port does not yet: an implicit
-    output, a label summed out of one operand, ellipses."""
-    x = torch.ones(3, 3)
-    with pytest.raises(NotImplementedError):
-        tapi.einsum(eq, x, x, precision="ozaki1-p4")
+# The reference's einsum forms beyond the canonical core (the cases of
+# tests/test_api.py): (subscripts, lhs shape, rhs shape).
+EINSUM_FORMS = [
+    ("ij,jk", (16, 24), (24, 8)),                       # implicit output
+    ("ij,jk->k", (16, 24), (24, 8)),                    # presum of i
+    ("...k,kn->...n", (2, 3, 32), (32, 16)),            # ellipsis
+    ("...ij,...jk->...ik", (2, 3, 5, 16), (2, 3, 16, 4)),
+    ("bij,bjk->bik", (1, 4, 8), (3, 8, 5)),             # size-1 batch
+    ("ij,jk->ik", (4, 1), (8, 5)),                      # size-1 K
+    ("ij,kl->jl", (3, 10), (5, 7)),                     # presum both
+    ("i,j->ij", (9,), (11,)),                           # outer, K = 1
+]
+
+
+@pytest.mark.parametrize("eq,sa,sb", EINSUM_FORMS,
+                         ids=[f[0] for f in EINSUM_FORMS])
+def test_einsum_outside_the_canonical_core_raises(eq, sa, sb):
+    """What the port used to refuse (an implicit output, a label summed
+    out of one operand, ellipses, size-1 broadcasting) now runs as the
+    reference's does, bit for bit against ``repro.einsum`` under +xla."""
+    rng = np.random.default_rng(len(eq) + len(sa))
+    x, y = conditioned(rng, sa), conditioned(rng, sb)
+    ref = japi.einsum(eq, jnp.asarray(x), jnp.asarray(y),
+                      precision="ozaki1-p4+xla")
+    out = tapi.einsum(eq, t(x), t(y), precision="ozaki1-p4")
+    assert tuple(out.shape) == ref.shape
+    np.testing.assert_array_equal(bits(out), bits(ref))
+
+
+@pytest.mark.parametrize("eq,sa", [("...k,kn->...n", (2, 3, 32)),
+                                   ("kb,kn->bn", (32, 4)),
+                                   ("bsk,kn->bn", (2, 3, 32))])
+def test_einsum_prepared_rhs_forms_bit_identical(eq, sa):
+    """A prepared rhs in '...k,kn->...n'-shaped subscripts, a free lhs
+    axis pre-summed, against the reference's prepared einsum."""
+    from repro.kernels import prepared as jprepared
+    from repro_torch.kernels import prepared as tprepared
+    rng = np.random.default_rng(11)
+    x, w = conditioned(rng, sa), conditioned(rng, (32, 16))
+    jprep = jprepared.prepare_rhs(jnp.asarray(w), japi.precision("ozaki1-p4"))
+    ref = japi.einsum(eq, jnp.asarray(x), jprep, precision="ozaki1-p4")
+    tprep = tprepared.prepare_rhs(t(w), tapi.precision("ozaki1-p4"))
+    out = tapi.einsum(eq, t(x), tprep, precision="ozaki1-p4")
+    assert tuple(out.shape) == ref.shape
+    np.testing.assert_array_equal(bits(out), bits(ref))
+    with pytest.raises(ValueError, match="prepared rhs"):
+        tapi.einsum("bn,kn->bk", t(conditioned(rng, (4, 16))), tprep,
+                    precision="ozaki1-p4")
+
+
+def test_deprecated_shims_warn_and_equal_their_targets():
+    from repro_torch.core import emulated, scheme1
+    from repro_torch.models.common import dense, parse_gemm_spec
+    rng = np.random.default_rng(5)
+    a, b = t(conditioned(rng, (7, 40))), t(conditioned(rng, (40, 9)))
+    cfg = tapi.precision("ozaki1-p4")
+    with pytest.warns(DeprecationWarning):
+        out = dispatch.maybe_emulated_matmul(a, b, cfg)
+    assert torch.equal(out, dispatch.auto_fused_matmul(a, b, cfg))
+    assert torch.equal(scheme1.fused_matmul(a, b, cfg),
+                       dispatch.emulated_matmul(a, b, cfg=cfg))
+    assert torch.equal(scheme1.fused_matmul(a, b, tapi.precision("ozaki2-m4")),
+                       dispatch.emulated_matmul(a, b, cfg=cfg))
+    assert torch.equal(emulated.emulated_einsum_proj(a, b, cfg),
+                       emulated.emulated_dot(a, b, cfg))
+    with pytest.warns(DeprecationWarning):
+        spec = parse_gemm_spec("ozaki1-p4-cached")
+    assert spec == EmulationConfig(scheme="ozaki1", p=4, impl="xla",
+                                   cache_weights=True)
+    assert torch.equal(dense(a, b, GemmPolicy(default=spec), "ffn"),
+                       emulated.emulated_dot(a, b, spec))
+    with pytest.warns(DeprecationWarning), pytest.raises(ValueError):
+        parse_gemm_spec("ozaki2-p6-cached")
 
 
 @pytest.mark.parametrize("eq", ["ii,ij->j", "ij,jk,kl->il"])
