@@ -3,10 +3,11 @@
     python3 chip_smoke.py
 
 Drives repro_torch only (no jax, nothing of the reference package) on the
-card, with no CPU fallback, in twenty-four phases. Phases 20-23 run right
+card, with no CPU fallback, in twenty-five phases. Phases 20-23 run right
 after the build, so that every wall they take comes before the process's
-first torch.profiler session; phase 24 follows the yardsticks, and the
-others follow in their order:
+first torch.profiler session; phase 24 follows the yardsticks, phase 25
+follows phase 15 (on its DGEMM and ZGEMM operands), and the others follow
+in their order:
 
 1. build: nvcc compiles the port's CUDA kernels from this checkout (five
    sources), one process per source, in parallel;
@@ -195,7 +196,28 @@ others follow in their order:
 24. granite kernels (after the first profiler session): a mixed and a
     decode step profiled (device-busy, idle share, top kernels), K3
     against the prepared head, K4 at g = 4 and K1 at granite's dense
-    shapes against their plain versions and timed beside their bounds.
+    shapes against their plain versions and timed beside their bounds;
+25. Scheme I wide: the float64 instances (the encode carving in float64
+    with float64 scales, the plane GEMM's float64 output on its (128, 64)
+    tile), p = 9..16 and the float16 output, held against their plain
+    versions bit for bit (NaN where NaN): phase 15's float64 GEMM of
+    4096^3 (paper Eq. 19 inputs) at p in {8, 12, 16}, the same rounded to
+    float32 at p = 12, to bf16 at p = 10 and to float16 under ozaki1-p4,
+    phase 15's complex128 ZGEMM under ozaki1-p8 (4M), a float64 batch of
+    8 x 512^3 at p in {8, 16}
+    (K4), the library paths K11 -> K2 -> K8 and K11 -> K2r -> K8 and a
+    prepared float64 weight
+    (K3, twin included) at olmo-1b's dense shapes at p = 12; each timed by
+    CUDA events beside its bound, the route bound (p(p+1)/2 int8 GEMMs
+    at the int8 peak plus the encodes' bytes), its plain version and
+    cuBLAS (DGEMM, ZGEMM, batched DGEMM; torch.matmul in the narrow
+    types), the DGEMM with its encode / plane GEMM / mainloop split, and
+    the effective bits of the DGEMM and ZGEMM against phase 15's
+    longdouble product of 64 sampled rows, beside cuBLAS's and Scheme
+    II's at m = 16 there;
+    then the front doors (einsum in each type, the batch, 4M, K11 -> K2 /
+    K2r -> K8, prepare_rhs + emulated_dot_prepared with its backward) with
+    the launches read around each.
 
 After phases 20-23, one line names the device kernels that the
 library yardsticks (cuBLAS's batched DGEMM, scaled_dot_product_attention
@@ -3002,7 +3024,11 @@ def scientific_phase(dev):
         pool.shutdown(wait=True, cancel_futures=True)
     log("[scientific] table " + json.dumps(table))
     log(f"[scientific] phase took {time.perf_counter() - t0:.1f} s")
-    return max_err, counts, timings, res, batched
+    # Phase 25 runs Scheme I on the same 4096^3 operands and holds it to
+    # the same longdouble rows.
+    shared = {kind: (*inputs[n0, kind], samples[n0, kind],
+                     exact[n0, kind]()) for kind in ("dgemm", "zgemm")}
+    return max_err, counts, timings, res, batched, shared
 
 
 def emu_train_parity_phase(dev, arch, params):
@@ -3173,8 +3199,8 @@ def naive_scheme1(a, b, p, beta):
     """Paper Fig. 4's naive emulation: split both operands, p(p+1)/2 int8
     GEMMs (K9), each written to device memory, summed into p int32
     accumulators, then a separate shift-reduce."""
-    a_sl, mu = scheme1.split(a, p, beta, dim=1)
-    b_sl, nu = scheme1.split(b, p, beta, dim=0)
+    a_sl, mu = scheme1.split(a, p, beta, axis=1)
+    b_sl, nu = scheme1.split(b, p, beta, axis=0)
     accs = []
     for s in range(p):
         acc = ops.int8_matmul(a_sl[0], b_sl[s])
@@ -4120,6 +4146,485 @@ def granite_kernel_phase(dev, arch, params, prepped, view_tokens):
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 25: Scheme I in float64, at p = 9..16 and with float16 (the
+# float64 / complex128 / float16 instances of the encode, the plane GEMM,
+# the batched kernel and the decompositions).
+# ---------------------------------------------------------------------------
+
+S1W_F64_P = (8, 12, 16)
+S1W_CASES = (("f32", torch.float32, 12), ("bf16", torch.bfloat16, 10),
+             ("f16", torch.float16, 4))
+S1W_BATCHED = (8, 512, 512)
+S1W_BATCHED_P = (8, 16)
+S1W_LIB_P = 12                    # the library path and the prepared weight
+
+
+def s1w_route_bound(m, k, n, p, in_bytes, products=1):
+    """The issue's route bound: p(p+1)/2 int8 GEMMs a real product at the
+    int8 peak, plus the encodes' bytes (each operand read once, its p
+    planes written once) at the HBM rate, in series."""
+    ops_ = products * p * (p + 1) // 2 * 2 * m * n * k
+    enc = products * (in_bytes * (m * k + k * n)
+                      + p * ozaki1.plane_k(k) * (m + n))
+    return 1e3 * (ops_ / INT8_OPS_PER_S + enc / HBM_BYTES_PER_S)
+
+
+def s1w_equal(what, out, ref, max_err, key):
+    """Bit for bit, NaN where NaN (a float16 shift-reduce makes inf - inf);
+    records 0 in max_err[key] or raises."""
+    o = torch.view_as_real(out) if out.is_complex() else out
+    r = torch.view_as_real(ref) if ref.is_complex() else ref
+    nan = r.isnan()
+    if (o.dtype != r.dtype or not torch.equal(o.isnan(), nan)
+            or not torch.equal(o.masked_fill(nan, 0), r.masked_fill(nan, 0))):
+        diff = (o.double() - r.double()).abs().nan_to_num(float("inf"))
+        raise AssertionError(f"[scheme1 wide] {what}: the kernel differs from "
+                             f"its plain version (max |diff| "
+                             f"{diff.max().item():.3e})")
+    max_err.setdefault(key, 0.0)
+
+
+def s1w_split(a, b, mu, nu, p, beta, out_dtype, iters=3):
+    """EmuGEMM-I's 2-D route timed apart: the two encodes, the plane GEMM,
+    its mainloop alone, ms."""
+    bt, nut = b.T, nu.T
+
+    def enc():
+        return (ozaki1.encode_planes(a, mu, p, beta),
+                ozaki1.encode_planes(bt, nut, p, beta))
+    enc_ms = time_ms(enc, iters)
+    pa, pb = enc()
+    out = torch.empty((a.shape[0], b.shape[1]), dtype=out_dtype,
+                      device=a.device)
+    planes_ms = time_ms(lambda: ozaki1.launch_planes(
+        pa, pb, mu, nu, p, beta, out), iters)
+    main_ms = time_ms(lambda: ozaki1.launch_planes(
+        pa, pb, mu, nu, p, beta, out, epilogue=False), iters)
+    return {"encode_ms": enc_ms, "planes_ms": planes_ms,
+            "mainloop_ms": main_ms,
+            "mainloop_tops": p * (p + 1) // 2 * 2 * a.shape[0] * b.shape[1]
+            * a.shape[1] / main_ms / 1e9}
+
+
+def s1w_counts_of(c) -> dict:
+    return {f.name: getattr(c, f.name) for f in dataclasses.fields(c)
+            if getattr(c, f.name)}
+
+
+def s1w_main_path(what, fn, want, dec_want=None):
+    """One segment of phase 25's main path: every count set to 0 just
+    before, read just after, and held to ``want`` (EmuGEMM-I) and
+    ``dec_want`` (the decompositions); no plain version on CUDA."""
+    ozaki1.COUNTS.reset()
+    decompose.COUNTS.reset()
+    out = fn()
+    torch.cuda.synchronize()
+    got, dec = s1w_counts_of(ozaki1.COUNTS), s1w_counts_of(decompose.COUNTS)
+    if got != want or dec != (dec_want or {}):
+        raise AssertionError(f"[scheme1 wide] {what}: launches {got} "
+                             f"{dec}, expected {want} {dec_want or {}}")
+    log(f"[scheme1 wide] main path {what}: launches {got} {dec}")
+    return out, got, dec
+
+
+def scheme1_wide_phase(dev, mcfg, shared, sci_t):
+    """Phase 25: each new Scheme-I instance against its plain version bit
+    for bit on the card, timed beside its bound and cuBLAS, then driven
+    through the front doors with its launches counted. ``shared`` holds
+    phase 15's 4096^3 DGEMM and ZGEMM operands, its sampled rows and
+    their longdouble products, and ``sci_t`` its timings (cuBLAS and
+    Scheme II at m = 16 on the same operands, with their bits). Returns
+    the rows of the kernels line."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(25)
+    f64, c128 = torch.float64, torch.complex128
+    max_err: dict = {}
+    rows = []
+    common = {"route": "cuda"}
+    a, b, samples, ref_rows = shared["dgemm"]
+    n = a.shape[0]
+    s2 = sci_t["dgemm", n, 16]
+    lib_ms, bits_cublas = s2["library_ms"], s2["library_bits"]
+    s2_ms, bits_s2 = s2["ms"], s2["bits"]
+    mu, nu = scheme1.pow2_scale(a, -1), scheme1.pow2_scale(b, -2)
+    beta = api.precision("ozaki1-p8").resolved_beta(n)
+    by_p = {}
+    for p in S1W_F64_P:
+        out = ozaki1.fused_matmul_scheme1(a, b, mu, nu, p, beta, f64)
+        plain_ms, ref = timed(lambda: ozaki1.fused_matmul_plain(
+            a, b, mu, nu, p, beta, f64))
+        s1w_equal(f"DGEMM {n}^3 p={p}", out, ref, max_err, "f64")
+        del ref
+        ms = time_ms(lambda: ozaki1.fused_matmul_scheme1(
+            a, b, mu, nu, p, beta, f64), 3)
+        bms, by = bound_ms(1, n, n, n, p, 8, 8)
+        split = s1w_split(a, b, mu, nu, p, beta, f64)
+        enc_bms, _ = s1_encode_bound(n, n, p, 8)
+        by_p[p] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                   "bound_by": by, "route_bound_ms": s1w_route_bound(
+                       n, n, n, p, 8), **split,
+                   "encode_bound_ms": 2 * enc_bms,
+                   "bits": effective_bits(out[samples], ref_rows)}
+        if p == S1W_F64_P[-1]:
+            enc_plain_ms = timed(lambda: (
+                ozaki1.encode_planes_plain(a, mu, p, beta),
+                ozaki1.encode_planes_plain(b.T, nu.T, p, beta)))[0]
+            by_p[p]["encode_plain_ms"] = enc_plain_ms
+        log(f"[scheme1 wide] DGEMM {n}^3 ozaki1-p{p}: route {ms:.3f} ms "
+            f"(encodes {split['encode_ms']:.3f}, plane GEMM "
+            f"{split['planes_ms']:.3f}, mainloop {split['mainloop_ms']:.3f}"
+            f" at {split['mainloop_tops']:.1f} int8 TOPS), bound "
+            f"{bms:.3f} ms ({by}), route bound "
+            f"{by_p[p]['route_bound_ms']:.3f} ms, plain {plain_ms:.1f} ms, "
+            f"cuBLAS DGEMM {lib_ms:.3f} ms; effective bits "
+            f"{by_p[p]['bits']:.2f} (cuBLAS {bits_cublas:.2f}, "
+            f"ozaki2-m16 {bits_s2:.2f} in {s2_ms:.3f} ms, phase 15)")
+        del out
+    top = by_p[S1W_F64_P[-1]]
+    dgemm_extra = {"library_ms": lib_ms, "library_bits": bits_cublas,
+                   "scheme2_m16_ms": s2_ms, "scheme2_m16_bits": bits_s2}
+    # float32 at p = 12, bf16 at p = 10, float16 under ozaki1-p4 at the
+    # same shape (float16 operands widen to float32; its output rounds
+    # every op in float16, so |C_s| >= 65520 is inf, as in the
+    # reference).
+    narrow = {}
+    for tag, dt, p in S1W_CASES:
+        x, y = a.to(dt), b.to(dt)
+        xw, yw = (x.float(), y.float()) if dt == torch.float16 else (x, y)
+        xmu, ynu = scheme1.pow2_scale(xw, -1), scheme1.pow2_scale(yw, -2)
+        out = ozaki1.fused_matmul_scheme1(xw, yw, xmu, ynu, p, beta, dt)
+        plain_ms, ref = timed(lambda: ozaki1.fused_matmul_plain(
+            xw, yw, xmu, ynu, p, beta, dt))
+        s1w_equal(f"{tag} {n}^3 p={p}", out, ref, max_err, tag)
+        finite = float(out.isfinite().float().mean())
+        del ref, out
+        ms = time_ms(lambda: ozaki1.fused_matmul_scheme1(
+            xw, yw, xmu, ynu, p, beta, dt), 3)
+        in_b, out_b = x.element_size(), x.element_size()
+        bms, by = bound_ms(1, n, n, n, p, in_b, out_b)
+        split = s1w_split(xw, yw, xmu, ynu, p, beta, dt)
+        lib = time_ms(lambda: x @ y, 5)
+        narrow[tag] = {"p": p, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bms, "bound_by": by,
+                       "route_bound_ms": s1w_route_bound(
+                           n, n, n, p, xw.element_size()),
+                       "library_ms": lib, "finite_share": finite, **split}
+        log(f"[scheme1 wide] {tag} {n}^3 ozaki1-p{p}: route {ms:.3f} ms "
+            f"(encodes {split['encode_ms']:.3f}, plane GEMM "
+            f"{split['planes_ms']:.3f}), bound {bms:.3f} ms ({by}), "
+            f"plain {plain_ms:.1f} ms, torch.matmul {lib:.3f} ms; finite "
+            f"outputs {finite:.4f}")
+        del x, y, xw, yw
+    # ZGEMM: complex128 under ozaki1-p8, 4M of float64 parts.
+    del a, b, mu, nu
+    za, zb, zsamples, zref_rows = shared["zgemm"]
+    zs2 = sci_t["zgemm", n, 16]
+    zout = api.einsum("mk,kn->mn", za, zb, precision="ozaki1-p8")
+    zplain_ms, zref = timed(lambda: api.einsum(
+        "mk,kn->mn", za, zb, precision="ozaki1-p8", backend="torch"))
+    s1w_equal(f"ZGEMM {n}^3 ozaki1-p8", zout, zref, max_err, "c128")
+    del zref
+    zms = time_ms(lambda: api.einsum("mk,kn->mn", za, zb,
+                                     precision="ozaki1-p8"), 3)
+    zbits = {"bits": effective_bits(zout[zsamples], zref_rows),
+             "library_bits": zs2["library_bits"],
+             "scheme2_m16_bits": zs2["bits"]}
+    zt_b = 16 * 3 * n * n / HBM_BYTES_PER_S
+    zt_o = 4 * 36 * 2 * n ** 3 / INT8_OPS_PER_S
+    zb_ms = 1e3 * max(zt_b, zt_o)
+    zrow = {"ms": zms, "plain_ms": zplain_ms, "bound_ms": zb_ms,
+            "bound_by": "bytes" if zt_b >= zt_o else "operations",
+            "library_ms": zs2["library_ms"],
+            "route_bound_ms": s1w_route_bound(n, n, n, 8, 8, products=4),
+            "scheme2_m16_ms": zs2["ms"], **zbits}
+    log(f"[scheme1 wide] ZGEMM {n}^3 ozaki1-p8 (4M): {zms:.3f} ms, bound "
+        f"{zb_ms:.3f} ms, route bound {zrow['route_bound_ms']:.3f} ms, "
+        f"plain {zplain_ms:.1f} ms, cuBLAS ZGEMM {zrow['library_ms']:.3f} "
+        f"ms; effective bits {zbits['bits']:.2f} (cuBLAS "
+        f"{zbits['library_bits']:.2f}, ozaki2-m16 3M "
+        f"{zbits['scheme2_m16_bits']:.2f} in {zs2['ms']:.3f} ms, phase "
+        "15)")
+    del za, zb, zout
+    torch.cuda.empty_cache()
+
+    # K4: a float64 batch of 8 x 512^3 at p = 8 (32-row tiles, two
+    # buffers) and p = 16 (16-row tiles, one buffer).
+    bt, m, k = S1W_BATCHED
+    ba, bb = eq19(gen, (bt, m, k), f64, dev), eq19(gen, (bt, k, m), f64, dev)
+    bmu, bnu = scheme1.pow2_scale(ba, -1), scheme1.pow2_scale(bb, -2)
+    bbeta = api.precision("ozaki1-p8").resolved_beta(k)
+    batched = {}
+    blib = time_ms(lambda: torch.bmm(ba, bb), 5)
+    for p in S1W_BATCHED_P:
+        out = ozaki1.fused_matmul_scheme1(ba, bb, bmu, bnu, p, bbeta, f64)
+        plain_ms, ref = timed(lambda: ozaki1.fused_matmul_plain(
+            ba, bb, bmu, bnu, p, bbeta, f64))
+        s1w_equal(f"batched {S1W_BATCHED} p={p}", out, ref, max_err,
+                  "batched")
+        ms = time_ms(lambda: ozaki1.fused_matmul_scheme1(
+            ba, bb, bmu, bnu, p, bbeta, f64), 5)
+        bms, by = bound_ms(bt, m, k, m, p, 8, 8)
+        batched[p] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                      "bound_by": by, "tile_n": ozaki1.batched_tile_n(m, p)}
+        log(f"[scheme1 wide] batched float64 {S1W_BATCHED} ozaki1-p{p}: "
+            f"{ms:.3f} ms (tile {batched[p]['tile_n']} rows of C), bound "
+            f"{bms:.3f} ms ({by}), plain {plain_ms:.1f} ms, cuBLAS batched "
+            f"DGEMM {blib:.3f} ms")
+        del out, ref
+
+    # The library path K11 -> K2 -> K8 and a prepared float64 weight (K3,
+    # twin included) at olmo-1b's dense shapes, p = 12.
+    p = S1W_LIB_P
+    lib = {key: dict.fromkeys(("ms", "plain_ms", "bound_ms"), 0.0)
+           for key in ("lhs", "pair", "rhs", "k8", "mixed")}
+    for (m, k, nn) in dense_shapes(mcfg):
+        x, w = eq19(gen, (m, k), f64, dev), eq19(gen, (k, nn), f64, dev)
+        xmu, wnu = scheme1.pow2_scale(x, 1), scheme1.pow2_scale(w, 0)
+        wtau = scheme1.pow2_scale(w, 1).T
+        beta_f = api.precision(f"ozaki1-p{p}").resolved_beta(k)
+        beta_b = api.precision(f"ozaki1-p{p}").resolved_beta(nn)
+        a_hat = decompose.decompose_interleave(x, xmu, p, beta_f)
+        s1w_equal(f"K11 {(m, k)}", a_hat, decompose.decompose_lhs_plain(
+            x, xmu, p, beta_f), max_err, "lhs")
+        fwd, twin = decompose.decompose_interleave_pair(w, wnu, wtau, p,
+                                                        beta_f, beta_b)
+        rf, rt = decompose.decompose_pair_plain(w, wnu, wtau, p, beta_f,
+                                                beta_b)
+        s1w_equal(f"K2 {(k, nn)}", fwd, rf, max_err, "pair")
+        s1w_equal(f"K2 twin {(k, nn)}", twin, rt, max_err, "pair")
+        s1w_equal(f"K2r {(k, nn)}", decompose.decompose_interleave_rhs(
+            w, wnu, p, beta_f), rf, max_err, "rhs")
+        out = ozaki1.fused_matmul_interleaved(a_hat, fwd, xmu, wnu, p,
+                                              beta_f, f64)
+        s1w_equal(f"K8 {(m, k, nn)}", out, ozaki1.fused_matmul_interleaved_plain(
+            a_hat, fwd, xmu, wnu, p, beta_f, f64), max_err, "k8")
+        s1w_equal(f"K8 == K1 {(m, k, nn)}", out, ozaki1.fused_matmul_scheme1(
+            x, w, xmu, wnu, p, beta_f, f64), max_err, "k8")
+        prep = prepared.prepare_rhs(w, api.precision(f"ozaki1-p{p}"),
+                                    with_twin=True)
+        out3 = prepared.matmul_prepared(x, prep, f64)
+        s1w_equal(f"K3 {(m, k, nn)}", out3, out, max_err, "mixed")
+        g = eq19(gen, (m, nn), f64, dev)
+        s1w_equal(f"K3 twin {(m, nn, k)}", prepared.matmul_prepared(
+            g, prep.twin, f64), api.einsum("mk,kn->mn", g, w.T,
+                                           precision=f"ozaki1-p{p}"),
+            max_err, "mixed")
+        for key, run, plain, (bms, _) in (
+                ("lhs", lambda: decompose.decompose_interleave(
+                    x, xmu, p, beta_f),
+                 lambda: decompose.decompose_lhs_plain(x, xmu, p, beta_f),
+                 lhs_bound(m, k, p, 8)),
+                ("pair", lambda: decompose.decompose_interleave_pair(
+                    w, wnu, wtau, p, beta_f, beta_b),
+                 lambda: decompose.decompose_pair_plain(
+                     w, wnu, wtau, p, beta_f, beta_b), pair_bound(k, nn, p, 8)),
+                ("rhs", lambda: decompose.decompose_interleave_rhs(
+                    w, wnu, p, beta_f),
+                 lambda: decompose.decompose_rhs_plain(w, wnu, p, beta_f),
+                 rhs_bound(k, nn, p, 8)),
+                ("k8", lambda: ozaki1.fused_matmul_interleaved(
+                    a_hat, fwd, xmu, wnu, p, beta_f, f64),
+                 lambda: ozaki1.fused_matmul_interleaved_plain(
+                     a_hat, fwd, xmu, wnu, p, beta_f, f64),
+                 bound_ms(1, m, k, nn, p, p, 8)),
+                ("mixed", lambda: prepared.matmul_prepared(x, prep, f64),
+                 lambda: ozaki1.fused_matmul_plain(x, w, xmu, wnu, p, beta_f,
+                                                   f64),
+                 mixed_bound(m, k, nn, p, 8, 8))):
+            lib[key]["ms"] += time_ms(run, 3)
+            lib[key]["plain_ms"] += timed(plain)[0]
+            lib[key]["bound_ms"] += bms
+        del x, w, a_hat, fwd, twin, rf, rt, out, out3, prep, g
+    for key, t in lib.items():
+        t["bound_by"] = ("bytes" if key in ("lhs", "pair", "rhs") else
+                         bound_ms(1, *dense_shapes(mcfg)[0], p, p, 8)[1])
+        log(f"[scheme1 wide] {key} float64 p={p} at olmo-1b's dense shapes "
+            f"(summed): {t['ms']:.3f} ms, bound {t['bound_ms']:.3f} ms, "
+            f"plain {t['plain_ms']:.1f} ms")
+    torch.cuda.empty_cache()
+
+    # The main path: the front doors, segment by segment, counts read
+    # around each.
+    def operands(shape_a, shape_b, dt):
+        x, y = eq19(gen, shape_a, f64, dev), eq19(gen, shape_b, f64, dev)
+        return x.to(dt), y.to(dt)
+
+    two_d = {"launches_2d": 1, "launches_encode": 2, "launches_planes": 1}
+    launches = {}
+    x, y = operands((n, n), (n, n), f64)
+    for p in S1W_F64_P:
+        _, launches[f"f64_p{p}"], _ = s1w_main_path(
+            f"einsum float64 ozaki1-p{p}", lambda: api.einsum(
+                "mk,kn->mn", x, y, precision=f"ozaki1-p{p}"), two_d)
+    for tag, dt, p in S1W_CASES:
+        xd, yd = x.to(dt), y.to(dt)
+        _, launches[tag], _ = s1w_main_path(
+            f"einsum {tag} ozaki1-p{p}", lambda: api.einsum(
+                "mk,kn->mn", xd, yd, precision=f"ozaki1-p{p}"), two_d)
+    del x, y, xd, yd
+    z, zz = operands((1024, 1024), (1024, 1024), c128)
+    _, launches["c128"], _ = s1w_main_path(
+        "einsum complex128 ozaki1-p8 (4M)", lambda: api.einsum(
+            "mk,kn->mn", z, zz, precision="ozaki1-p8"),
+        {k: 4 * v for k, v in two_d.items()})
+    del z, zz
+    for p in S1W_BATCHED_P:
+        _, launches[f"batched_p{p}"], _ = s1w_main_path(
+            f"einsum float64 batch {S1W_BATCHED} ozaki1-p{p}",
+            lambda: api.einsum("bmk,bkn->bmn", ba, bb,
+                               precision=f"ozaki1-p{p}"),
+            {"launches_batched": 1})
+    del ba, bb
+    p = S1W_LIB_P
+    m, k, nn = dense_shapes(mcfg)[0]
+    x, w = operands((m, k), (k, nn), f64)
+    g = eq19(gen, (m, nn), f64, dev)
+    cfg = api.precision(f"ozaki1-p{p}+cached")
+
+    def library_route():
+        xmu, wnu = scheme1.pow2_scale(x, 1), scheme1.pow2_scale(w, 0)
+        beta_f, beta_b = cfg.resolved_beta(k), cfg.resolved_beta(nn)
+        fwd, _ = decompose.decompose_interleave_pair(
+            w, wnu, scheme1.pow2_scale(w, 1).T, p, beta_f, beta_b)
+        return ozaki1.fused_matmul_interleaved(
+            decompose.decompose_interleave(x, xmu, p, beta_f), fwd, xmu, wnu,
+            p, beta_f, f64)
+
+    k8_launches = {"launches_interleaved": 1, "launches_relayout": 2,
+                   "launches_planes": 1}
+    _, launches["library"], launches["library_dec"] = s1w_main_path(
+        f"K11 -> K2 -> K8 float64 p={p}", library_route, k8_launches,
+        {"launches_lhs": 1, "launches_pair": 1})
+
+    def library_rhs_route():
+        xmu, wnu = scheme1.pow2_scale(x, 1), scheme1.pow2_scale(w, 0)
+        beta_f = cfg.resolved_beta(k)
+        return ozaki1.fused_matmul_interleaved(
+            decompose.decompose_interleave(x, xmu, p, beta_f),
+            decompose.decompose_interleave_rhs(w, wnu, p, beta_f), xmu, wnu,
+            p, beta_f, f64)
+
+    _, _, launches["library_rhs_dec"] = s1w_main_path(
+        f"K11 -> K2r -> K8 float64 p={p}", library_rhs_route, k8_launches,
+        {"launches_lhs": 1, "launches_rhs": 1})
+
+    def prepared_route():
+        from repro_torch.core import emulated
+        prep = prepared.prepare_rhs(w, cfg, with_twin=True)
+        xr = x.clone().requires_grad_()
+        out = emulated.emulated_dot_prepared(xr, w, prep, cfg)
+        out.backward(g)
+        return out
+
+    _, launches["prepared"], _ = s1w_main_path(
+        f"prepare_rhs + emulated_dot_prepared float64 p={p} (forward and "
+        "dA from the twin)", prepared_route,
+        {"launches_mixed": 2, "launches_encode": 4, "launches_planes": 2})
+    del x, w, g
+
+    log(f"[scheme1 wide] max_abs_err {json.dumps(max_err)}")
+    log(f"[scheme1 wide] phase took {time.perf_counter() - t0:.1f} s")
+    lib_per = (f"olmo-1b's dense shapes at {TOKENS} tokens, float64, p = "
+               f"{S1W_LIB_P}, summed")
+    rows += [
+        {"name": "emugemm1_2d_f64", **common, "source": SOURCE_S1_PLANES,
+         "replaces": "src/repro/kernels/ozaki1.py:143",
+         "also_replaces": "src/repro/kernels/backends/gpu.py:202",
+         "launches": launches[f"f64_p{S1W_F64_P[-1]}"]["launches_2d"],
+         "max_abs_err": max_err["f64"],
+         **{key: top[key] for key in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "route_bound_ms",
+                                      "encode_ms", "planes_ms", "mainloop_ms",
+                                      "mainloop_tops", "bits")},
+         **dgemm_extra, "by_p": by_p,
+         "per": f"one float64 GEMM {n}^3 (paper Eq. 19 inputs) at p = "
+                f"{S1W_F64_P[-1]}; by_p: p = {S1W_F64_P}; the route: 2 "
+                "encodes + 1 plane GEMM (its float64 tile, (128, 64)); "
+                "library: cuBLAS DGEMM; bits against a longdouble product "
+                f"of {EVAL_ROWS} rows, beside Scheme II's at m = 16"},
+        {"name": "emugemm1_encode_f64", **common, "source": SOURCE_S1_PLANES,
+         "replaces": "src/repro/kernels/ozaki1.py:143",
+         "launches": launches[f"f64_p{S1W_F64_P[-1]}"]["launches_encode"],
+         "max_abs_err": max_err["f64"], "ms": top["encode_ms"],
+         "plain_ms": top["encode_plain_ms"],
+         "bound_ms": top["encode_bound_ms"], "bound_by": "bytes",
+         "library_ms": None,
+         "per": f"the two encodes of the float64 GEMM {n}^3 at p = "
+                f"{S1W_F64_P[-1]} ((8 + p) bytes an element)"}]
+    for tag, _, p in S1W_CASES:
+        t = narrow[tag]
+        rows.append({
+            "name": f"emugemm1_2d_{tag}_p{p}", **common,
+            "source": SOURCE_S1_PLANES,
+            "replaces": "src/repro/kernels/backends/gpu.py:202",
+            "launches": launches[tag]["launches_2d"],
+            "max_abs_err": max_err[tag],
+            **{key: t[key] for key in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms",
+                                       "route_bound_ms", "encode_ms",
+                                       "planes_ms", "mainloop_ms",
+                                       "finite_share")},
+            "per": f"one {tag} GEMM {n}^3 (Eq. 19 inputs rounded to {tag}) "
+                   f"under ozaki1-p{p}" + (", widened to float32 on entry, "
+                                          "output float16" if tag == "f16"
+                                          else "") + "; library: "
+                   "torch.matmul in the operand type"})
+    rows.append({
+        "name": "emugemm1_4m_c128", **common, "source": SOURCE_S1_PLANES,
+        "replaces": "src/repro/kernels/backends/gpu.py:202",
+        "launches": launches["c128"]["launches_2d"],
+        "max_abs_err": max_err["c128"], **zrow,
+        "per": f"one complex128 GEMM {n}^3 under ozaki1-p8: 4M, four "
+               "float64 products on the 2-D route; library: cuBLAS ZGEMM; "
+               f"bits against a longdouble product of {EVAL_ROWS} rows "
+               "(launches: a 1024^3 product on the main path)"})
+    top_b = batched[S1W_BATCHED_P[-1]]
+    rows.append({
+        "name": "emugemm1_batched_f64", **common,
+        "source": SOURCE_S1_BATCHED,
+        "replaces": "src/repro/kernels/backends/gpu.py:240",
+        "launches": sum(launches[f"batched_p{p}"]["launches_batched"]
+                        for p in S1W_BATCHED_P),
+        "max_abs_err": max_err["batched"],
+        **{key: top_b[key] for key in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by")},
+        "library_ms": blib, "by_p": batched,
+        "per": f"one float64 batched GEMM {S1W_BATCHED} at p = "
+               f"{S1W_BATCHED_P[-1]} (16-row tiles, one shared buffer); "
+               f"by_p: p = {S1W_BATCHED_P}; library: cuBLAS batched DGEMM "
+               "(torch.bmm)"})
+    for key, name, source, replaces, n_launch in (
+            ("lhs", "decompose_lhs_f64", DECOMPOSE_SOURCE,
+             "src/repro/kernels/decompose.py:42",
+             launches["library_dec"]["launches_lhs"]),
+            ("pair", "decompose_pair_f64", DECOMPOSE_SOURCE,
+             "src/repro/kernels/decompose.py:106",
+             launches["library_dec"]["launches_pair"]),
+            ("rhs", "decompose_rhs_f64", DECOMPOSE_SOURCE,
+             "src/repro/kernels/decompose.py:71",
+             launches["library_rhs_dec"]["launches_rhs"]),
+            ("k8", "emugemm1_interleaved_f64", SOURCE_S1_PLANES,
+             "src/repro/kernels/ozaki1.py:118",
+             launches["library"]["launches_interleaved"]),
+            ("mixed", "emugemm1_mixed_f64", SOURCE_S1_PLANES,
+             "src/repro/kernels/ozaki1.py:170",
+             launches["prepared"]["launches_mixed"])):
+        rows.append({"name": name, **common, "source": source,
+                     "replaces": replaces, "launches": n_launch,
+                     "max_abs_err": max_err[key], "library_ms": None,
+                     **lib[key],
+                     "per": lib_per + {
+                         "lhs": "", "pair": " (forward and twin)",
+                         "rhs": " (the forward layout alone)",
+                         "k8": " (2 relayouts + 1 plane GEMM, float64 "
+                               "scales)",
+                         "mixed": " (an lhs encode + 1 plane GEMM against "
+                                  "the prepared planes)"}[key]})
+    return rows
+
+
 def build_phase():
     """nvcc for each kernel source, all started together."""
     t0 = time.perf_counter()
@@ -4197,7 +4702,12 @@ def main() -> int:
     torch.use_deterministic_algorithms(False)
 
     # DGEMM- and ZGEMM-grade Scheme II.
-    sci_err, sci_counts, sci_t, sci_res, sci_batched = scientific_phase(dev)
+    sci_err, sci_counts, sci_t, sci_res, sci_batched, sci_shared = \
+        scientific_phase(dev)
+    # Scheme I in float64, at p = 9..16, with float16 and 4M, on the same
+    # DGEMM / ZGEMM operands.
+    wide_rows = scheme1_wide_phase(dev, arch.model, sci_shared, sci_t)
+    del sci_shared
 
     # olmo-1b trained under ozaki2-m6+cached with gradient accumulation:
     # EmuGEMM-II's prepared form and the once-per-step hoist.
@@ -4526,7 +5036,7 @@ def main() -> int:
             row["device_kernels_ms"] = {
                 k: v for k, v in yardsticks["k10_f32"].items()
                 if ("split" in k) == (row["name"] == "flash_split_3xtf32")}
-    kernels += library_rows
+    kernels += library_rows + wide_rows
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

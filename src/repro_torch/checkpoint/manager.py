@@ -5,10 +5,13 @@ Layout: ``<dir>/step_<N>/state.pt`` + ``manifest.json``, written into a
 temporary directory and renamed into place when complete, so a reader
 never sees half a checkpoint. ``torch.save`` stores each tensor with its
 dtype and values exactly; ``restore`` loads onto the device asked for.
-Saves run on a background thread: the state is copied to host memory
-first, the previous save is joined before a new one starts, and
-``wait`` / ``close`` join the last. The reference's re-sharding onto
-another mesh has no counterpart on one card.
+With ``async_save`` (the default) saves run on a background thread: the
+state is copied to host memory first, the previous save is joined before
+a new one starts, and ``wait`` / ``close`` join the last; without it
+``save`` returns once the checkpoint is published. ``restore(step,
+like)`` checks the saved tree against ``like``'s structure and puts each
+tensor where ``like``'s leaf is. The reference's re-sharding onto another
+mesh (``shardings``) has no counterpart on one card.
 """
 
 from __future__ import annotations
@@ -24,9 +27,11 @@ from repro_torch.utils.tree import tree_flatten, tree_map
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3,
+                 async_save: bool = True):
         self.dir = directory
         self.keep = keep
+        self.async_save = async_save
         self._thread: threading.Thread | None = None
         os.makedirs(directory, exist_ok=True)
 
@@ -52,6 +57,9 @@ class CheckpointManager:
             os.rename(tmp, final)   # atomic publish
             self._gc()
 
+        if not self.async_save:
+            write()
+            return
         self._thread = threading.Thread(target=write, daemon=True)
         self._thread.start()
 
@@ -79,11 +87,27 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, device="cpu"):
-        """The state saved at ``step``, its tensors on ``device``."""
+    def restore(self, step: int, like=None, shardings=None, *,
+                device="cpu"):
+        """The state saved at ``step``: its tensors on ``device``, or, with
+        ``like`` (a tree of the same structure), each on the device of
+        ``like``'s leaf. ``shardings`` must be None (one card)."""
+        if shardings is not None:
+            raise NotImplementedError(
+                "re-sharding onto a mesh is not ported (ROADMAP.md § 1 "
+                "item 8)")
         path = os.path.join(self.dir, f"step_{step:08d}", "state.pt")
-        return torch.load(path, map_location=torch.device(device),
-                          weights_only=True)
+        state = torch.load(path, map_location=torch.device(device),
+                           weights_only=True)
+        if like is None:
+            return state
+        want, got = tree_flatten(like), tree_flatten(state)
+        if sorted(want) != sorted(got):
+            raise ValueError(f"checkpoint step {step} holds "
+                             f"{sorted(set(got) ^ set(want))[:8]} unlike "
+                             "the tree it is restored into")
+        return tree_map(lambda x, ref: x.to(ref.device)
+                        if isinstance(ref, torch.Tensor) else x, state, like)
 
     def close(self) -> None:
         self.wait()

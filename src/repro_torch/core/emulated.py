@@ -4,7 +4,7 @@
 ``cfg``: 'native' is a plain matmul, 'ozaki1' the Scheme-I and 'ozaki2' the
 Scheme-II emulation on the selected kernel backend. Leading batch dims of
 ``a`` flatten into M. Operands may be float64 or complex (Scheme II: 3M;
-Scheme I: 4M of complex64); complex ones run forward only.
+Scheme I: 4M).
 
 Both front doors are differentiable through ``torch.autograd.Function``s
 that mirror the reference's custom VJPs: dA = dC B^T and dB = A^T dC run
@@ -24,6 +24,16 @@ As in the reference, a call that is not differentiated (no grad mode, or
 no operand requiring grad) runs the plain forward, which prepares
 nothing: ``+cached`` only changes how a differentiated step runs, never
 its bits.
+
+Complex gradients. The reference's VJP transposes without conjugating:
+given the cotangent g it returns g B^T and A^T g, JAX's convention for a
+holomorphic product. PyTorch's complex autograd passes and expects the
+conjugate Wirtinger gradient, g B^H and A^H g. So for a complex problem
+the backward runs the reference's VJP on conj(g) and conjugates what it
+returns: the port's gradient is conj(ref_vjp(conj(g))), bit for bit
+(conjugation is exact, and the same emulated GEMMs run on the same
+operands). A real operand of a complex product takes the real part, as
+the reference's cast to its type does.
 """
 
 from __future__ import annotations
@@ -95,12 +105,26 @@ def _save_with_twin(ctx, a, b, twin) -> None:
     ctx.save_for_backward(a, b, *tensors)
 
 
+def _as_grad(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A reference-convention cotangent ``x`` for an operand ``like``:
+    conjugated when the problem is complex (module doc), in ``like``'s
+    type (a real operand takes the real part)."""
+    if x.is_complex():
+        x = torch.conj_physical(x)
+        if not like.is_complex():
+            x = x.real
+    return x.to(like.dtype)
+
+
 def _bwd_core(ctx, g):
     """Shared backward (the reference's ``_bwd_core``): dA = dC B^T from
     the twin when one was saved, else through the emulated GEMM; dB =
-    A^T dC."""
+    A^T dC; of a complex problem, conj(g) in and the results conjugated
+    (module doc)."""
     from repro_torch.kernels import prepared
     a, b, *twin_tensors = ctx.saved_tensors
+    if g.is_complex():
+        g = torch.conj_physical(g)
     cfg = _bwd_cfg(ctx.cfg)
     a2 = a.reshape(-1, a.shape[-1])
     g2 = g.reshape(-1, g.shape[-1])
@@ -111,9 +135,9 @@ def _bwd_core(ctx, g):
             da = prepared_dot(g2, twin, _out_dtype(cfg, g2, b))
         else:
             da = _dot_2d(g2, b.T, cfg)
-        da = da.reshape(a.shape).to(a.dtype)
+        da = _as_grad(da.reshape(a.shape), a)
     if ctx.needs_input_grad[1]:
-        db = _dot_2d(a2.T, g2, cfg).to(b.dtype)
+        db = _as_grad(_dot_2d(a2.T, g2, cfg), b)
     return da, db
 
 
@@ -158,18 +182,8 @@ class _EmulatedDotPrepared(torch.autograd.Function):
 
 
 def _differentiated(*xs) -> bool:
-    """Will autograd record this call? A complex operand that would be
-    differentiated raises: the reference's VJP transposes without
-    conjugating, PyTorch's complex autograd conjugates, so the port has no
-    complex backward yet (ROADMAP.md § 1 item 3)."""
-    if not (torch.is_grad_enabled() and any(x.requires_grad for x in xs)):
-        return False
-    if any(x.is_complex() for x in xs):
-        raise NotImplementedError(
-            "emulated complex GEMMs run forward only in the port: the "
-            "reference's VJP transposes without conjugating, PyTorch's "
-            "complex autograd conjugates (ROADMAP.md § 1 item 3)")
-    return True
+    """Will autograd record this call?"""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
 
 
 def emulated_dot(a: torch.Tensor, b: torch.Tensor,
@@ -218,11 +232,13 @@ class _EmulatedDotBatched(torch.autograd.Function):
     def backward(ctx, g):
         a, b = ctx.saved_tensors
         cfg = _bwd_cfg(ctx.cfg)
+        if g.is_complex():
+            g = torch.conj_physical(g)
         da = db = None
         if ctx.needs_input_grad[0]:
-            da = _batched(g, b.transpose(-1, -2), cfg).to(a.dtype)
+            da = _as_grad(_batched(g, b.transpose(-1, -2), cfg), a)
         if ctx.needs_input_grad[1]:
-            db = _batched(a.transpose(-1, -2), g, cfg).to(b.dtype)
+            db = _as_grad(_batched(a.transpose(-1, -2), g, cfg), b)
         return da, db, None
 
 

@@ -85,11 +85,12 @@ def carve(r: torch.Tensor, p: int, beta: int) -> list[torch.Tensor]:
     return slices
 
 
-def split(a: torch.Tensor, p: int, beta: int, dim: int):
+def split(a: torch.Tensor, p: int, beta: int, axis: int):
     """(slices (p, *a.shape) int8, scale) with
-    a ~= scale * sum_i 2^{-beta (i+1)} slices[i]."""
+    a ~= scale * sum_i 2^{-beta (i+1)} slices[i], the scale along
+    ``axis``."""
     a = widen(a)
-    scale = pow2_scale(a, dim)
+    scale = pow2_scale(a, axis)
     return torch.stack(carve(a / scale, p, beta)), scale
 
 
@@ -156,10 +157,15 @@ def shift_reduce(accs: torch.Tensor, beta: int, scale_a: torch.Tensor,
                  scale_b: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
     """Paper Eq. 3: C = diag(mu) (sum_s 2^{-beta(s+2)} C_s) diag(nu),
     summed highest weight first in ``out_dtype``, every op rounded to it
-    (int32 -> bf16 goes through float32, as torch converts)."""
+    (int32 -> bf16 or float16 goes through float32, as torch converts).
+    The weight is rounded to ``out_dtype`` first, as the reference's
+    ``jnp.asarray(w, dtype=out_dtype)``: exact in float32, bf16 and
+    float64 down to p = 16 (2^-119), in float16 subnormal at s = 1 and
+    zero from s = 2 at beta = 7."""
     c = torch.zeros(accs.shape[1:], dtype=out_dtype, device=accs.device)
     for s in range(accs.shape[0]):
-        c = c + accs[s].to(out_dtype) * (2.0 ** (-beta * (s + 2)))
+        w = torch.tensor(2.0 ** (-beta * (s + 2)), dtype=out_dtype).item()
+        c = c + accs[s].to(out_dtype) * w
     return c * scale_a.to(out_dtype) * scale_b.to(out_dtype)
 
 
@@ -170,10 +176,15 @@ def matmul(a: torch.Tensor, b: torch.Tensor, cfg: EmulationConfig,
     if out_dtype is None:
         out_dtype = torch.promote_types(a.dtype, b.dtype)
     beta = cfg.resolved_beta(a.shape[-1])
-    a_sl, mu = split(a, cfg.p, beta, dim=-1)
-    b_sl, nu = split(b, cfg.p, beta, dim=-2)
+    a_sl, mu = split(a, cfg.p, beta, axis=-1)
+    b_sl, nu = split(b, cfg.p, beta, axis=-2)
     accs = triangular_accumulators(a_sl, b_sl, cfg.p)
     return shift_reduce(accs, beta, mu, nu, out_dtype)
+
+
+def decomposition_residual_bound(p: int, beta: int) -> float:
+    """Elementwise |a - reconstruction| <= scale * 2^{-beta p}."""
+    return float(2.0 ** (-beta * p))
 
 
 def fused_matmul(a: torch.Tensor, b: torch.Tensor, cfg: EmulationConfig,
@@ -187,28 +198,17 @@ def fused_matmul(a: torch.Tensor, b: torch.Tensor, cfg: EmulationConfig,
     return dispatch.emulated_matmul(a, b, cfg=cfg, out_dtype=out_dtype)
 
 
-def check_complex_4m(a: torch.Tensor, b: torch.Tensor) -> None:
-    """Raise unless Scheme I's 4M runs these operands: complex64, or a
-    complex64 with a float32 real operand."""
-    if torch.float64 in (a.real.dtype, b.real.dtype):
-        raise NotImplementedError(
-            f"ozaki1 complex (4M) takes complex64 operands in the port, got "
-            f"{a.dtype} @ {b.dtype}: complex128 needs Scheme I in float64 "
-            "(ROADMAP.md § 1 item 3); an ozaki2 spec runs it (3M)")
-
-
 def matmul_complex_4m(a: torch.Tensor, b: torch.Tensor, cfg: EmulationConfig,
                       out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Scheme-I complex GEMM via the 4M formulation (paper Sec. V-D:
     'EmuGEMM-I uses the 4M formulation'):
-    C_re = Ar Br - Ai Bi, C_im = Ar Bi + Ai Br, four real emulated GEMMs.
-
-    complex64 (and float32 parts) only: complex128 needs Scheme I in
-    float64, which EmuGEMM-I does not run (ROADMAP.md § 1 item 3).
+    C_re = Ar Br - Ai Bi, C_im = Ar Bi + Ai Br, four real emulated GEMMs:
+    of float32 parts for complex64, of float64 parts for complex128 (the
+    parts' type by default, as the reference's ``out_dtype=None``).
     """
-    check_complex_4m(a, b)
     if out_dtype is None:
-        out_dtype = torch.float32
+        out_dtype = (torch.float32 if a.dtype == torch.complex64
+                     else torch.float64)
     ar, ai = complex_parts(a)
     br, bi = complex_parts(b)
     rr = matmul(ar, br, cfg, out_dtype)

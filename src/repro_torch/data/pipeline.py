@@ -39,8 +39,15 @@ class SyntheticLMDataset:
         return {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
 
 
-def make_batch_iterator(arch: ArchConfig, shape: ShapeSpec, seed: int = 0):
-    """Yields (step, batch dict) of numpy arrays."""
+def make_batch_iterator(arch: ArchConfig, shape: ShapeSpec, seed: int = 0,
+                        host: int = 0, n_hosts: int = 1,
+                        batch_override: int | None = None):
+    """Yields (step, batch dict) of numpy arrays, ``batch_override`` rows
+    a batch instead of the shape's global batch when set. One host: the
+    reference's ``host`` / ``n_hosts`` must be 0 and 1."""
+    if (host, n_hosts) != (0, 1):
+        raise NotImplementedError(
+            "multi-host input is not ported yet (ROADMAP.md § 1 item 8)")
     m = arch.model
     if m.frontend != "none":
         raise NotImplementedError(
@@ -49,5 +56,5 @@ def make_batch_iterator(arch: ArchConfig, shape: ShapeSpec, seed: int = 0):
     ds = SyntheticLMDataset(m.vocab, shape.seq_len, seed)
     step = 0
     while True:
-        yield step, ds.batch(step, shape.global_batch)
+        yield step, ds.batch(step, batch_override or shape.global_batch)
         step += 1

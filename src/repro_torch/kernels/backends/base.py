@@ -21,7 +21,7 @@ class BackendCapabilities:
     """What a backend runs: its Ozaki schemes and operand types (Scheme
     II narrows the real ones to float32, bfloat16 and float64 on both
     backends, ``repro_torch.core.scheme2.operand``; a complex operand runs
-    as 3M under Scheme II and as 4M of complex64 under Scheme I).
+    as 3M under Scheme II and as 4M under Scheme I).
     Both built-in backends take every shape as it is (the CUDA kernel
     masks ragged edges itself), so, unlike the reference, there is no
     alignment to pad to."""
@@ -38,7 +38,7 @@ class KernelBackend(abc.ABC):
         ...
 
     @abc.abstractmethod
-    def choose_blocks(self, m: int, n: int, k: int, p: int,
+    def choose_blocks(self, m: int, n: int, k: int, p: int, *,
                       scheme: str = "ozaki1") -> Blocks | None:
         """Tiles for an (m, k) @ (k, n) problem with ``p`` slices (Scheme
         I) or moduli (Scheme II), or None."""

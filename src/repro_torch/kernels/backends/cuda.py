@@ -1,5 +1,8 @@
 """The 'cuda' backend: Scheme I on the hand-written EmuGEMM-I kernels
-(2-D products and prepared weights on its plane route), Scheme II on
+(2-D products and prepared weights on its plane route; float32, bfloat16
+and float64 operands, p in 1..16, and float16 ones widened to float32 on
+entry with the output in the promoted type, as the reference's ``_widen``
+does), Scheme II on
 EmuGEMM-II (float64 products, 2-D or batched, and complex Scheme II on
 its plane route).
 
@@ -32,8 +35,9 @@ from repro_torch.kernels.common import Blocks
 
 _CAPS = BackendCapabilities(
     schemes=frozenset({"ozaki1", "ozaki2"}),
-    operand_dtypes=frozenset({torch.float32, torch.bfloat16, torch.float64,
-                              torch.complex64, torch.complex128}),
+    operand_dtypes=frozenset({torch.float32, torch.bfloat16, torch.float16,
+                              torch.float64, torch.complex64,
+                              torch.complex128}),
 )
 
 # The tile each scheme's plan names: Scheme I's, whose K tile is the
@@ -81,8 +85,17 @@ class CudaBackend(KernelBackend):
     def capabilities(self) -> BackendCapabilities:
         return _CAPS
 
-    def choose_blocks(self, m, n, k, p, scheme="ozaki1"):
+    def choose_blocks(self, m, n, k, p, *, scheme="ozaki1"):
         return choose_blocks_cuda(m, n, k, p, scheme)
+
+    def check(self, cfg, a, b):
+        super().check(cfg, a, b)
+        if cfg.scheme == "ozaki2" and torch.float16 in (a.dtype, b.dtype):
+            raise NotImplementedError(
+                "backend 'cuda' runs float16 operands under ozaki1 only: "
+                "Scheme II with float16 at an 11-bit budget is ROADMAP.md "
+                "§ 1 item 3 (its CPU core and an encode instance of K5g and "
+                "K6)")
 
     def matmul(self, a, b, cfg, out_dtype, blocks):
         self.check(cfg, a, b)
@@ -94,6 +107,8 @@ class CudaBackend(KernelBackend):
             a, b, mu, nu = scheme2_operands(a, b, moduli)
             return ozaki2.fused_matmul_scheme2(a, b, mu, nu, moduli,
                                                out_dtype)
+        # float16 widens to float32 (bf16 stays: the kernels widen it).
+        a, b = (x.float() if x.dtype == torch.float16 else x for x in (a, b))
         if a.dtype != b.dtype:
             common = torch.promote_types(a.dtype, b.dtype)
             a, b = a.to(common), b.to(common)
@@ -107,14 +122,14 @@ class CudaBackend(KernelBackend):
         the 3M route under Scheme II (a batch on its batch coordinate);
         under Scheme I (2-D only), which has no complex kernel,
         C_re = Ar Br - Ai Bi and C_im = Ar Bi + Ai Br from four EmuGEMM-I
-        launches (4M, as the reference's dispatcher runs it)."""
+        launches (4M, as the reference's dispatcher runs it: of float64
+        parts for complex128)."""
         if cfg.scheme == "ozaki2":
             moduli = cfg.resolved_moduli()
             ozaki2.check_moduli(moduli)
             scheme2.check_exact_k(a.shape[-1], moduli)
             mu, nu = complex3m.scales(a, b, moduli)
             return ozaki3m.fused_matmul_3m(a, b, mu, nu, moduli, out_dtype)
-        scheme1.check_complex_4m(a, b)
         ar, ai = scheme1.complex_parts(a)
         br, bi = scheme1.complex_parts(b)
         rr, ii, ri, ir = (self.matmul(x, y, cfg, out_dtype, blocks)

@@ -37,7 +37,7 @@ class TorchBackend(KernelBackend):
     def capabilities(self) -> BackendCapabilities:
         return _CAPS
 
-    def choose_blocks(self, m, n, k, p, scheme="ozaki1"):
+    def choose_blocks(self, m, n, k, p, *, scheme="ozaki1"):
         return None          # no tiles: whole-array torch ops
 
     def matmul(self, a, b, cfg, out_dtype, blocks):

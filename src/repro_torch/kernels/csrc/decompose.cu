@@ -11,9 +11,9 @@
 // the lhs form, which reads A (M, K) as its transpose (K, M) through the
 // strides and writes the same planes transposed (below).
 //
-// What the kernel computes for each (TK, TN) tile of B (f32 or bf16, bf16
-// widened exactly; read through strides, so the tied head's emb.T is read
-// in place):
+// What the kernel computes for each (TK, TN) tile of B (f32, bf16 or f64,
+// bf16 widened exactly, f64 carved in f64 with f64 scales; read through
+// strides, so the tied head's emb.T is read in place; p up to 16):
 //   * the forward layout (p * Kp, N): the tile times the exact reciprocal
 //     of the column scale nu[n], carved into p slices with beta_f by the
 //     truncate-subtract recurrence of repro.kernels.common.carve_slices,
@@ -38,7 +38,8 @@
 //     elements: one 16-byte load in bf16, two in f32), scalar loads where
 //     the strides or the edge do not allow it;
 //   * a (64, 64) tile a block pass, staged once in shared memory as float
-//     with rows padded to 65 words, so that reading it along either axis
+//     (double for f64) with rows padded to 65 elements, so that reading it
+//     along either axis
 //     (8 consecutive n at one k, or 8 consecutive k at one n) is free of
 //     bank conflicts (checked in a numpy model of the lane mapping below);
 //   * a grid-stride walk over the tiles, each block resident on its SM
@@ -83,7 +84,7 @@ __device__ __forceinline__ void granule(int tid, int q, int& along, int& across)
 }
 
 template <typename T>
-__device__ __forceinline__ void load8_vec(float (&v)[8], const T* src);
+__device__ __forceinline__ void load8_vec(typename Work<T>::type (&v)[8], const T* src);
 
 template <>
 __device__ __forceinline__ void load8_vec(float (&v)[8], const float* src) {
@@ -104,10 +105,21 @@ __device__ __forceinline__ void load8_vec(float (&v)[8], const __nv_bfloat16* sr
   }
 }
 
+template <>
+__device__ __forceinline__ void load8_vec(double (&v)[8], const double* src) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const double2 x = __ldg(reinterpret_cast<const double2*>(src) + j);
+    v[2 * j] = x.x;
+    v[2 * j + 1] = x.y;
+  }
+}
+
 // The p slices of eight consecutive output bytes: one 8-byte word a slice
 // at dst + i * step, or `count` < 8 single bytes (a ragged edge, or a row
 // length that is not a multiple of 8).
-__device__ __forceinline__ void carve_store(float (&r)[8], float two_beta, int p, int8_t* dst,
+template <typename W>
+__device__ __forceinline__ void carve_store(W (&r)[8], W two_beta, int p, int8_t* dst,
                                            long long step, int count, bool vec) {
   carve8(r, two_beta, p, [&](int i, uint2 w) {
     int8_t* d = dst + i * step;
@@ -132,12 +144,13 @@ struct Args {
 
 template <typename T, bool TWIN, bool LHS>
 __global__ void __launch_bounds__(NT)
-decompose_kernel(const T* __restrict__ b, const float* __restrict__ nu,
-                 const float* __restrict__ tau, int8_t* __restrict__ fwd,
+decompose_kernel(const T* __restrict__ b, const typename Work<T>::type* __restrict__ nu,
+                 const typename Work<T>::type* __restrict__ tau, int8_t* __restrict__ fwd,
                  int8_t* __restrict__ twin, const Args args) {
-  __shared__ float tile[TK * LD];
-  __shared__ float s_nu[TN];      // 1 / nu of the tile's columns (mu of its rows of A)
-  __shared__ float s_tau[TK];     // 1 / tau of the tile's rows
+  using W = typename Work<T>::type;
+  __shared__ W tile[TK * LD];
+  __shared__ W s_nu[TN];          // 1 / nu of the tile's columns (mu of its rows of A)
+  __shared__ W s_tau[TK];         // 1 / tau of the tile's rows
   const int K = args.K, N = args.N, p = args.p;
   const int tid = threadIdx.x;
   const int tiles_n = (N + TN - 1) / TN;
@@ -146,8 +159,8 @@ decompose_kernel(const T* __restrict__ b, const float* __restrict__ nu,
 
   // This thread's share of a tile, held in registers between the fetch
   // and the stash: UNITS granules and one scale.
-  float v[UNITS][8];
-  float sc = 0.f;
+  W v[UNITS][8];
+  W sc = 0;
   auto fetch = [&](int t) {
     const int k0 = (t / tiles_n) * TK, n0 = (t % tiles_n) * TN;
 #pragma unroll
@@ -161,23 +174,23 @@ decompose_kernel(const T* __restrict__ b, const float* __restrict__ nu,
       const long long step = args.along_n ? args.sbn : args.sbk;
       const T* src = b + k * args.sbk + n * args.sbn;
       if (args.vec_load && count == 8) {
-        load8_vec(v[q], src);
+        load8_vec<T>(v[q], src);
       } else {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) v[q][j] = j < count ? widen(src[j * step]) : 0.f;
+        for (int j = 0; j < 8; ++j) v[q][j] = j < count ? widen(src[j * step]) : W(0);
       }
     }
     if (tid < TN) {
-      sc = n0 + tid < N ? recip_pow2(nu[n0 + tid]) : 0.f;
+      sc = n0 + tid < N ? recip_pow2(nu[n0 + tid]) : W(0);
     } else if (TWIN && tid < TN + TK) {
-      sc = k0 + tid - TN < K ? recip_pow2(tau[k0 + tid - TN]) : 0.f;
+      sc = k0 + tid - TN < K ? recip_pow2(tau[k0 + tid - TN]) : W(0);
     }
   };
 
   int t = blockIdx.x;
   if (t >= tiles) return;
   fetch(t);
-  const float tf = pow2(args.beta_f);
+  const W tf = pow2_of<W>(args.beta_f);
   for (; t < tiles; t += gridDim.x) {
     const int k0 = (t / tiles_n) * TK, n0 = (t % tiles_n) * TN;
     __syncthreads();                       // the previous tile's readers are done
@@ -204,10 +217,10 @@ decompose_kernel(const T* __restrict__ b, const float* __restrict__ nu,
         granule(tid, q, kk, nn);
         const int k = k0 + kk, m = n0 + nn;
         if (m >= N || k >= Kp) continue;
-        const float inv = s_nu[nn];
-        float r[8];
+        const W inv = s_nu[nn];
+        W r[8];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) r[j] = __fmul_rn(tile[(kk + j) * LD + nn], inv);
+        for (int j = 0; j < 8; ++j) r[j] = mul_rn(tile[(kk + j) * LD + nn], inv);
         carve_store(r, tf, p, fwd + m * args.ld + (k / IT * p) * IT + k % IT, IT, 8, true);
       }
     } else {
@@ -219,9 +232,9 @@ decompose_kernel(const T* __restrict__ b, const float* __restrict__ nu,
         granule(tid, q, nn, kk);
         const int k = k0 + kk, n = n0 + nn;
         if (k >= Kp || n >= N) continue;
-        float r[8];
+        W r[8];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) r[j] = __fmul_rn(tile[kk * LD + nn + j], s_nu[nn + j]);
+        for (int j = 0; j < 8; ++j) r[j] = mul_rn(tile[kk * LD + nn + j], s_nu[nn + j]);
         carve_store(r, tf, p, fwd + (static_cast<long long>(k / IT * p) * IT + k % IT) * N + n,
                     static_cast<long long>(IT) * N, min(8, N - n), vec);
       }
@@ -229,7 +242,7 @@ decompose_kernel(const T* __restrict__ b, const float* __restrict__ nu,
 
     if constexpr (TWIN) {
       // Twin layout: 8 consecutive k of one row n of B^T.
-      const float tb = pow2(args.beta_b);
+      const W tb = pow2_of<W>(args.beta_b);
       const bool vec = K % 8 == 0;
 #pragma unroll
       for (int q = 0; q < UNITS; ++q) {
@@ -237,9 +250,9 @@ decompose_kernel(const T* __restrict__ b, const float* __restrict__ nu,
         granule(tid, q, kk, nn);
         const int k = k0 + kk, n = n0 + nn;
         if (n >= Np || k >= K) continue;
-        float r[8];
+        W r[8];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) r[j] = __fmul_rn(tile[(kk + j) * LD + nn], s_tau[kk + j]);
+        for (int j = 0; j < 8; ++j) r[j] = mul_rn(tile[(kk + j) * LD + nn], s_tau[kk + j]);
         carve_store(r, tb, p, twin + (static_cast<long long>(n / IT * p) * IT + n % IT) * K + k,
                     static_cast<long long>(IT) * K, min(8, K - k), vec);
       }
@@ -248,8 +261,9 @@ decompose_kernel(const T* __restrict__ b, const float* __restrict__ nu,
 }
 
 template <typename T, bool TWIN, bool LHS>
-int launch(const void* b, const float* nu, const float* tau, void* fwd, void* twin,
+int launch(const void* b, const void* nu, const void* tau, void* fwd, void* twin,
            const Args& args, cudaStream_t st) {
+  using W = typename Work<T>::type;
   static int grid_cap = 0;     // resident blocks of this instance on the card
   if (grid_cap == 0) {
     int dev = 0, sms = 0, per_sm = 0;
@@ -266,8 +280,8 @@ int launch(const void* b, const float* nu, const float* tau, void* fwd, void* tw
   if (tiles > 0x7fffffffLL) return -1;
   const int grid = static_cast<int>(tiles < grid_cap ? tiles : grid_cap);
   decompose_kernel<T, TWIN, LHS><<<grid, NT, 0, st>>>(
-      static_cast<const T*>(b), nu, tau, static_cast<int8_t*>(fwd), static_cast<int8_t*>(twin),
-      args);
+      static_cast<const T*>(b), static_cast<const W*>(nu), static_cast<const W*>(tau),
+      static_cast<int8_t*>(fwd), static_cast<int8_t*>(twin), args);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -282,41 +296,52 @@ void load_mode(Args& args, const void* b, int elem) {
 }
 
 template <bool TWIN, bool LHS>
-int dispatch(int in_bf16, const void* b, const float* nu, const float* tau, void* fwd, void* twin,
+int dispatch(int in_type, const void* b, const void* nu, const void* tau, void* fwd, void* twin,
              Args& args, cudaStream_t st) {
-  load_mode(args, b, in_bf16 ? 2 : 4);
-  return in_bf16 ? launch<__nv_bfloat16, TWIN, LHS>(b, nu, tau, fwd, twin, args, st)
-                 : launch<float, TWIN, LHS>(b, nu, tau, fwd, twin, args, st);
+  if (in_type == F32) {
+    load_mode(args, b, 4);
+    return launch<float, TWIN, LHS>(b, nu, tau, fwd, twin, args, st);
+  }
+  if (in_type == BF16) {
+    load_mode(args, b, 2);
+    return launch<__nv_bfloat16, TWIN, LHS>(b, nu, tau, fwd, twin, args, st);
+  }
+  if (in_type == F64) {
+    load_mode(args, b, 8);
+    return launch<double, TWIN, LHS>(b, nu, tau, fwd, twin, args, st);
+  }
+  return -1;
 }
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes. twin == nullptr compiles the
-// twin output out (K2r). Returns 0 on success, a cudaError_t code if the
-// launch was refused, and -1 for an argument combination that has no
-// compiled instance.
-extern "C" int decompose_interleave(const void* b, const float* nu, const float* tau,
+// Plain C entry point, bound with ctypes. B is float32, bfloat16 or
+// float64 (in_type: 0, 1, 2), its scales float32 (float64 for float64 B);
+// p in 1..16. twin == nullptr compiles the twin output out (K2r). Returns
+// 0 on success, a cudaError_t code if the launch was refused, and -1 for
+// an argument combination that has no compiled instance.
+extern "C" int decompose_interleave(const void* b, const void* nu, const void* tau,
                                     void* fwd, void* twin, int K, int N, long long sbk,
-                                    long long sbn, int in_bf16, int p, int beta_f,
+                                    long long sbn, int in_type, int p, int beta_f,
                                     int beta_b, void* stream) {
   if (K <= 0 || N <= 0 || p < 1 || p > MAXP || beta_f < 1 || beta_f > 7) return -1;
   if (twin != nullptr && (beta_b < 1 || beta_b > 7)) return -1;
   Args args{K, N, sbk, sbn, 0, 0, p, beta_f, beta_b, 0};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (twin == nullptr) return dispatch<false, false>(in_bf16, b, nu, tau, fwd, twin, args, st);
-  return dispatch<true, false>(in_bf16, b, nu, tau, fwd, twin, args, st);
+  if (twin == nullptr) return dispatch<false, false>(in_type, b, nu, tau, fwd, twin, args, st);
+  return dispatch<true, false>(in_type, b, nu, tau, fwd, twin, args, st);
 }
 
 // The lhs form: A (M, K) through its strides, mu (M, 1) -> A-hat
 // (M, p * Kp), Kp = K rounded up to the interleave. Same return codes.
-extern "C" int decompose_interleave_lhs(const void* a, const float* mu, void* a_hat, int M,
-                                        int K, long long sam, long long sak, int in_bf16,
+extern "C" int decompose_interleave_lhs(const void* a, const void* mu, void* a_hat, int M,
+                                        int K, long long sam, long long sak, int in_type,
                                         int p, int beta, void* stream) {
   if (M <= 0 || K <= 0 || p < 1 || p > MAXP || beta < 1 || beta > 7) return -1;
   // A read as A^T (K, M): its row stride is A's column stride.
   Args args{K, M, sak, sam, 0, 0, p, beta, 0,
             static_cast<long long>(p) * ((K + IT - 1) / IT * IT)};
-  return dispatch<false, true>(in_bf16, a, mu, nullptr, a_hat, nullptr, args,
+  return dispatch<false, true>(in_type, a, mu, nullptr, a_hat, nullptr, args,
                                static_cast<cudaStream_t>(stream));
 }
 

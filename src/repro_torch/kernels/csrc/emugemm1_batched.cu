@@ -15,10 +15,19 @@
 // rows are 64 columns of C (B^T on wgmma's A side, n0 .. n0 + 63) and its
 // n side is NB rows of C (A on wgmma's B side, m0 .. m0 + NB - 1), NB = 16
 // for M <= 16 and 32 above. The accumulators of all p diagonals fit one
-// warpgroup's registers (MAXP x NB / 2 a thread), so the kernel makes one
-// pass over K, the paper's triangular schedule without re-reading, and
-// stores C^T's tile transposed. The per-element sums and the fold order do
-// not depend on the orientation, so the bits are those of C.
+// warpgroup's registers (PM x NB / 2 a thread, PM = 8 the instances' most
+// slices), so the kernel makes one pass over K, the paper's triangular
+// schedule without re-reading, and stores C^T's tile transposed. The
+// per-element sums and the fold order do not depend on the orientation, so
+// the bits are those of C.
+//
+// At 8 < p <= 16 the instances take PM = 16 and NB = 16 (128 accumulators
+// a thread, as PM = 8 at NB = 32 holds) and one shared buffer instead of
+// two: the p slices of a chunk are p (64 + NB) 128 bytes, 160 KB at p = 16,
+// so the next chunk is carved only after the current one's products are
+// done. Operands are float32, bf16 or float64 (carved in float64 with
+// float64 scales, scheme1_common.cuh); outputs float32, bf16 or float16 of
+// a float32 or bf16 operand, float64 of a float64 one.
 //
 // One block of one warpgroup per (batch element, output tile); its K loop
 // walks K in chunks of 128:
@@ -110,6 +119,16 @@ struct Vec<__nv_bfloat16> {
     }
   }
 };
+template <>
+struct Vec<double> {
+  static __device__ __forceinline__ void load(const double* x, double (&v)[8]) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const double2 a = reinterpret_cast<const double2*>(x)[j];
+      v[2 * j] = a.x, v[2 * j + 1] = a.y;
+    }
+  }
+};
 
 // One operand tile of a K chunk: R rows, row r and K index k at
 // x[r * sr + k * sk] (zero for r >= rows or k >= kn), with its rows'
@@ -118,7 +137,7 @@ struct Vec<__nv_bfloat16> {
 template <typename T>
 struct Tile {
   const T* x;
-  const float* scale;
+  const typename Work<T>::type* scale;
   long long sr, sk;
   int rows;
   bool kwalk, vec;
@@ -127,16 +146,16 @@ struct Tile {
 // Load unit u of an R-row tile (8 consecutive K of one row, 16 units a
 // row): its elements and the reciprocal of its row's scale, and where its
 // bytes go in each shared plane.
-template <typename T, int R>
-__device__ __forceinline__ void load_unit(const Tile<T>& t, int kn, int u, float (&v)[8],
-                                          float& inv, int& off) {
+template <typename T, int R, typename W = typename Work<T>::type>
+__device__ __forceinline__ void load_unit(const Tile<T>& t, int kn, int u, W (&v)[8], W& inv,
+                                          int& off) {
   const int r = t.kwalk ? u / (KC / 8) : u % R;
   const int g = t.kwalk ? u % (KC / 8) : u / R;
   const int k = 8 * g;
   off = swizzled(r, k);
-  inv = 0.f;
+  inv = 0;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) v[j] = 0.f;
+  for (int j = 0; j < 8; ++j) v[j] = 0;
   if (r >= t.rows || k >= kn) return;
   inv = recip_pow2(t.scale[r]);
   const T* src = t.x + r * t.sr + k * t.sk;
@@ -144,15 +163,16 @@ __device__ __forceinline__ void load_unit(const Tile<T>& t, int kn, int u, float
     Vec<T>::load(src, v);
   } else {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = k + j < kn ? widen(src[j * t.sk]) : 0.f;
+    for (int j = 0; j < 8; ++j) v[j] = k + j < kn ? widen(src[j * t.sk]) : W(0);
   }
 }
 
 // Scale a loaded unit, carve it, and store its p slices (8 bytes each).
-__device__ __forceinline__ void carve_unit(float (&v)[8], float inv, uint8_t* dst, int plane,
-                                           int p, float two_beta) {
+template <typename W>
+__device__ __forceinline__ void carve_unit(W (&v)[8], W inv, uint8_t* dst, int plane, int p,
+                                           W two_beta) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) v[j] = __fmul_rn(v[j], inv);
+  for (int j = 0; j < 8; ++j) v[j] = mul_rn(v[j], inv);
   carve8(v, two_beta, p,
          [&](int i, uint2 w) { *reinterpret_cast<uint2*>(dst + i * plane) = w; });
 }
@@ -162,17 +182,20 @@ __device__ __forceinline__ void carve_unit(float (&v)[8], float inv, uint8_t* ds
 // are all issued before the first is carved, so that a chunk waits about
 // one load latency (two batches at NB = 32, whose accumulators leave
 // fewer registers: its instances spill 48-56 bytes, and three batches
-// spilled more at the same speed).
-template <typename T, int NB>
+// spilled more at the same speed). The float64 instances and those at
+// PM = 16, whose 128 accumulators or float64 units leave fewer registers
+// still, take batches of two units.
+template <typename T, int NB, int PM, typename W = typename Work<T>::type>
 __device__ __forceinline__ void carve_chunk(const Tile<T>& tx, const Tile<T>& ty, int kn,
                                             uint8_t* x_planes, uint8_t* y_planes, int p,
-                                            float two_beta) {
+                                            W two_beta) {
   constexpr int UX = XR * (KC / 8) / NT, UY = NB * (KC / 8) / NT;
-  constexpr int U = UX + UY, BATCH = NB == 16 ? U : U / 2;
+  constexpr int U = UX + UY;
+  constexpr int BATCH = (PM > 8 || sizeof(W) == 8) ? 2 : NB == 16 ? U : U / 2;
   static_assert(U % BATCH == 0, "batches must split the units");
 #pragma unroll
   for (int q0 = 0; q0 < U; q0 += BATCH) {
-    float v[BATCH][8], inv[BATCH];
+    W v[BATCH][8], inv[BATCH];
     int off[BATCH];
 #pragma unroll
     for (int q = 0; q < BATCH; ++q) {
@@ -198,13 +221,17 @@ struct Strides {
 
 // flags: bit 0, A's K axis is unit-stride with 16-byte aligned rows; bit 1,
 // the same of B; bit 2, A is walked along K; bit 3, B is walked along K.
-template <typename T, typename O, int NB>
+// PM: the instance's most slices (8 or 16); BUFS: shared buffers (2 or 1).
+template <typename T, typename O, int NB, int PM, int BUFS>
 __global__ void __launch_bounds__(NT, 1)
 emugemm1_batched_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                        const float* __restrict__ mu, const float* __restrict__ nu,
-                        O* __restrict__ out, int M, int N, int K, int tiles_m, int tiles_n,
-                        Strides st, int p, int beta, int flags) {
+                        const typename Work<T>::type* __restrict__ mu,
+                        const typename Work<T>::type* __restrict__ nu, O* __restrict__ out,
+                        int M, int N, int K, int tiles_m, int tiles_n, Strides st, int p,
+                        int beta, int flags) {
   using CH = Chunk<NB>;
+  using W = typename Work<T>::type;
+  using Acc = typename Epilogue<O>::Acc;
   extern __shared__ __align__(16) uint8_t chunk_smem[];
   const uint32_t pad = (1024 - (smem_u32(chunk_smem) & 1023)) & 1023;
   uint8_t* buffers = chunk_smem + pad;
@@ -227,36 +254,36 @@ emugemm1_batched_kernel(const T* __restrict__ a, const T* __restrict__ b,
   // 8 j + 2 (lane % 4) + e (a row m of C).
   const int tid = threadIdx.x, lane = tid % 32;
   const int nr = (tid / 32) * 16 + lane / 4, mc = 2 * (lane % 4);
-  float nv[2], mv[NB / 8][2];
+  W nv[2], mv[NB / 8][2];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) nv[h] = n0 + nr + 8 * h < N ? nu[nr + 8 * h] : 0.f;
+  for (int h = 0; h < 2; ++h) nv[h] = n0 + nr + 8 * h < N ? nu[nr + 8 * h] : W(0);
 #pragma unroll
   for (int j = 0; j < NB / 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 2; ++e) mv[j][e] = m0 + 8 * j + mc + e < M ? mu[8 * j + mc + e] : 0.f;
+    for (int e = 0; e < 2; ++e) mv[j][e] = m0 + 8 * j + mc + e < M ? mu[8 * j + mc + e] : W(0);
 
-  const float two_beta = pow2(beta);
-  int acc[MAXP][NB / 2];
+  const W two_beta = pow2_of<W>(beta);
+  int acc[PM][NB / 2];
 #pragma unroll
-  for (int s = 0; s < MAXP; ++s)
+  for (int s = 0; s < PM; ++s)
 #pragma unroll
     for (int e = 0; e < NB / 2; ++e) acc[s][e] = 0;
 
   for (int t = 0; t < nch; ++t) {
-    uint8_t* x_planes = buffers + (t & 1) * chunk_bytes;
+    uint8_t* x_planes = buffers + (BUFS == 2 ? (t & 1) : 0) * chunk_bytes;
     uint8_t* y_planes = x_planes + p * CH::X_BYTES;
     const int k0 = t * KC;
     Tile<T> cx = tx, cy = ty;
     cx.x += k0 * st.bk;
     cy.x += k0 * st.ak;
-    carve_chunk<T, NB>(cx, cy, min(KC, K - k0), x_planes, y_planes, p, two_beta);
+    carve_chunk<T, NB, PM>(cx, cy, min(KC, K - k0), x_planes, y_planes, p, two_beta);
     fence_proxy_async();
     __syncthreads();
 #pragma unroll
-    for (int s = 0; s < MAXP; ++s) reg_fence(acc[s]);
+    for (int s = 0; s < PM; ++s) reg_fence(acc[s]);
     wgmma_fence();
 #pragma unroll
-    for (int s = 0; s < MAXP; ++s) {
+    for (int s = 0; s < PM; ++s) {
       if (s >= p) break;
 #pragma unroll
       for (int i = 0; i <= s; ++i) {
@@ -268,24 +295,24 @@ emugemm1_batched_kernel(const T* __restrict__ a, const T* __restrict__ b,
     }
     wgmma_commit();
     // The previous chunk's products are done once at most this group is
-    // in flight; once every warp has seen that, its buffer takes the next
-    // chunk's carve.
-    wgmma_wait<1>();
+    // in flight (with one buffer: this chunk's too); once every warp has
+    // seen that, its buffer takes the next chunk's carve.
+    wgmma_wait<BUFS - 1>();
 #pragma unroll
-    for (int s = 0; s < MAXP; ++s) reg_fence(acc[s]);
+    for (int s = 0; s < PM; ++s) reg_fence(acc[s]);
     __syncthreads();
   }
   wgmma_wait_all();
 #pragma unroll
-  for (int s = 0; s < MAXP; ++s) reg_fence(acc[s]);
+  for (int s = 0; s < PM; ++s) reg_fence(acc[s]);
 
-  float c[NB / 2];
+  Acc c[NB / 2];
 #pragma unroll
-  for (int e = 0; e < NB / 2; ++e) c[e] = 0.f;
+  for (int e = 0; e < NB / 2; ++e) c[e] = 0;
 #pragma unroll
-  for (int s = 0; s < MAXP; ++s) {
+  for (int s = 0; s < PM; ++s) {
     if (s >= p) break;
-    const float w = pow2(-beta * (s + 2));
+    const Acc w = pow2_of<Acc>(-beta * (s + 2));
 #pragma unroll
     for (int e = 0; e < NB / 2; ++e) c[e] = Epilogue<O>::step(c[e], acc[s][e], w);
   }
@@ -307,26 +334,28 @@ emugemm1_batched_kernel(const T* __restrict__ a, const T* __restrict__ b,
   }
 }
 
-template <typename T, typename O, int NB>
-int launch(const void* a, const void* b, const float* mu, const float* nu, void* out, int batch,
+template <typename T, typename O, int NB, int PM, int BUFS>
+int launch(const void* a, const void* b, const void* mu, const void* nu, void* out, int batch,
            int M, int N, int K, const Strides& st, int p, int beta, int flags,
            cudaStream_t stream) {
   using CH = Chunk<NB>;
+  using W = typename Work<T>::type;
   static bool configured = false;
   if (!configured) {
     const cudaError_t err =
-        cudaFuncSetAttribute(emugemm1_batched_kernel<T, O, NB>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, CH::smem(MAXP, 2));
+        cudaFuncSetAttribute(emugemm1_batched_kernel<T, O, NB, PM, BUFS>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, CH::smem(PM, BUFS));
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const int tiles_m = (M + NB - 1) / NB, tiles_n = (N + XR - 1) / XR;
   const long long blocks = static_cast<long long>(batch) * tiles_m * tiles_n;
   if (blocks > 0x7fffffffLL) return -1;
-  const int smem = CH::smem(p, std::min((K + KC - 1) / KC, 2));
-  emugemm1_batched_kernel<T, O, NB><<<static_cast<int>(blocks), NT, smem, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b), mu, nu, static_cast<O*>(out), M, N, K,
-      tiles_m, tiles_n, st, p, beta, flags);
+  const int smem = CH::smem(p, std::min((K + KC - 1) / KC, BUFS));
+  emugemm1_batched_kernel<T, O, NB, PM, BUFS><<<static_cast<int>(blocks), NT, smem, stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<const W*>(mu),
+      static_cast<const W*>(nu), static_cast<O*>(out), M, N, K, tiles_m, tiles_n, st, p, beta,
+      flags);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -337,20 +366,40 @@ bool vec_rows(const void* x, long long sb, long long sr, long long sk, int elt) 
          reinterpret_cast<uintptr_t>(x) % 16 == 0;
 }
 
+// The instance of an output type: nb = 16 or 32 at p <= 8 (two buffers),
+// nb = 16 at p > 8 (PM = 16, one buffer).
+template <typename T, typename O>
+int launch_tile(int nb, const void* a, const void* b, const void* mu, const void* nu, void* out,
+                int batch, int M, int N, int K, const Strides& st, int p, int beta, int flags,
+                cudaStream_t stream) {
+  if (p > 8)
+    return nb == 16 ? launch<T, O, 16, 16, 1>(a, b, mu, nu, out, batch, M, N, K, st, p, beta,
+                                              flags, stream)
+                    : -1;
+  if (nb == 16)
+    return launch<T, O, 16, 8, 2>(a, b, mu, nu, out, batch, M, N, K, st, p, beta, flags, stream);
+  if (nb == 32)
+    return launch<T, O, 32, 8, 2>(a, b, mu, nu, out, batch, M, N, K, st, p, beta, flags, stream);
+  return -1;
+}
+
 template <typename T>
-int launch_out(int out_type, int nb, const void* a, const void* b, const float* mu,
-               const float* nu, void* out, int batch, int M, int N, int K, const Strides& st,
+int launch_out(int out_type, int nb, const void* a, const void* b, const void* mu,
+               const void* nu, void* out, int batch, int M, int N, int K, const Strides& st,
                int p, int beta, cudaStream_t stream) {
   const int elt = sizeof(T);
   const int flags = (vec_rows(a, st.ab, st.am, st.ak, elt) ? 1 : 0) |
                     (vec_rows(b, st.bb, st.bn, st.bk, elt) ? 2 : 0) | (st.ak <= st.am ? 4 : 0) |
                     (st.bk <= st.bn ? 8 : 0);
-#define EMUGEMM1_BATCHED(O_, NB_) \
-  return launch<T, O_, NB_>(a, b, mu, nu, out, batch, M, N, K, st, p, beta, flags, stream)
-  if (out_type == F32 && nb == 16) EMUGEMM1_BATCHED(float, 16);
-  if (out_type == F32 && nb == 32) EMUGEMM1_BATCHED(float, 32);
-  if (out_type == BF16 && nb == 16) EMUGEMM1_BATCHED(__nv_bfloat16, 16);
-  if (out_type == BF16 && nb == 32) EMUGEMM1_BATCHED(__nv_bfloat16, 32);
+#define EMUGEMM1_BATCHED(O_) \
+  return launch_tile<T, O_>(nb, a, b, mu, nu, out, batch, M, N, K, st, p, beta, flags, stream)
+  if constexpr (sizeof(T) == 8) {
+    if (out_type == F64) EMUGEMM1_BATCHED(double);
+  } else {
+    if (out_type == F32) EMUGEMM1_BATCHED(float);
+    if (out_type == BF16) EMUGEMM1_BATCHED(__nv_bfloat16);
+    if (out_type == F16) EMUGEMM1_BATCHED(__half);
+  }
 #undef EMUGEMM1_BATCHED
   return -1;
 }
@@ -361,12 +410,14 @@ int launch_out(int out_type, int nb, const void* a, const void* b, const float* 
 // cudaError_t code if the launch was refused, -1 for arguments that have no
 // compiled instance.
 //
-// a (batch, M, K) and b (batch, K, N) float32 or bfloat16 (in_type: 0, 1)
-// through strides in elements (sab, sam, sak), (sbb, sbk, sbn), all >= 0;
-// mu (batch, M) and nu (batch, N) float32 powers of two, contiguous; out
-// (batch, M, N) contiguous, float32 or bfloat16 (out_type: 0, 1); nb, the
-// tile's rows of C, 16 or 32.
-extern "C" int emugemm1_batched(const void* a, const void* b, const float* mu, const float* nu,
+// a (batch, M, K) and b (batch, K, N) float32, bfloat16 or float64
+// (in_type: 0, 1, 2) through strides in elements (sab, sam, sak),
+// (sbb, sbk, sbn), all >= 0; mu (batch, M) and nu (batch, N) powers of two,
+// contiguous, float32 (float64 for float64 operands); out (batch, M, N)
+// contiguous, float32, bfloat16 or float16 (out_type: 0, 1, 3) of float32
+// or bfloat16 operands, float64 (2) of float64 ones; p in 1..16; nb, the
+// tile's rows of C, 16 or 32 (16 at p > 8).
+extern "C" int emugemm1_batched(const void* a, const void* b, const void* mu, const void* nu,
                                 void* out, int batch, int M, int N, int K, long long sab,
                                 long long sam, long long sak, long long sbb, long long sbk,
                                 long long sbn, int in_type, int out_type, int p, int beta,
@@ -380,5 +431,7 @@ extern "C" int emugemm1_batched(const void* a, const void* b, const float* mu, c
   if (in_type == BF16)
     return launch_out<__nv_bfloat16>(out_type, nb, a, b, mu, nu, out, batch, M, N, K, st, p,
                                      beta, s);
+  if (in_type == F64)
+    return launch_out<double>(out_type, nb, a, b, mu, nu, out, batch, M, N, K, st, p, beta, s);
   return -1;
 }

@@ -17,17 +17,19 @@
 // plane GEMM, mu and nu entering only in its epilogue. The int8 GEMM (K9)
 // is the plane GEMM's int32 instance at p = 1 (below).
 //
-// encode: one pass over a float32 or bf16 operand (R, K), read through its
-// strides, with a power-of-two row scale s (mu of A; B enters as B^T with
-// nu^T, the twin as B with tau), writes its p carved slices as K-contiguous
+// encode: one pass over a float32, bf16 or float64 operand (R, K), read
+// through its strides, with a power-of-two row scale s (float32, or float64
+// for a float64 operand: mu of A; B enters as B^T with nu^T, the twin as B
+// with tau), writes its p carved slices (p <= 16) as K-contiguous
 // int8 planes (p, R, Kp), Kp = K padded with zero slices to the plane
 // GEMM's K tile. Each element is read, scaled and carved once (the fused
 // kernel it replaces carved each A tile N / 64 times and each B tile M / 64
 // times): x * (1 / s), the reciprocal exact from s's exponent field (a
 // product by an exact power of two rounds as the quotient does), then the
 // truncate-subtract recurrence of repro.kernels.common.carve_slices, every
-// op an _rn intrinsic. A bf16 element widens to float32 exactly on load.
-// Bound by bytes: (in + p) bytes an element.
+// op an _rn intrinsic. A bf16 element widens to float32 exactly on load; a
+// float64 one is carved in float64 (scheme1_common.cuh). Bound by bytes:
+// (in + p) bytes an element, (8 + p) in float64.
 //
 // planes: one block per (BM, 128) output tile, BM = 128 (two consumer
 // warpgroups) or 64 (one, for M <= 64: serving's rows), and one producer
@@ -44,8 +46,15 @@
 //     running float result, c = c + 2^(-beta (s + 2)) C_s, highest weight
 //     first, before the next diagonal starts; one wgmma group stays in
 //     flight while the next stage is awaited;
-//   * last, c * mu * nu, rounded as the output type, stored from registers.
-// The p(p+1)/2 plane-pair passes re-read the planes from L2 and never carve.
+//   * last, c * mu * nu, rounded as the output type (float32, bf16,
+//     float16 or float64), stored from registers.
+// The p(p+1)/2 plane-pair passes re-read the planes from L2 and never carve;
+// p runs to 16 (136 passes), which only lengthens the loop.
+// A float64 output keeps its running sum in float64 and takes float64 mu
+// and nu: 64 float64 partial results would be 128 registers beside the 64
+// accumulators, past the 168 a 384-thread block may use, so its tile is
+// (BM, 64) on wgmma m64n64k32 (32 accumulators and 32 float64 partials,
+// 64 + 32 registers a consumer thread) and its stage 24 KB at BM = 128.
 // The accumulators wrap as int32 adds do (no .satfinite), as the
 // reference's triangular_accumulators: a diagonal of s + 1 products can
 // pass 2^31 (4 * 50688 * 127^2 at the tied head's dA), and addition modulo
@@ -98,15 +107,16 @@ constexpr int ENT = 256;
 
 template <typename T>
 __global__ void __launch_bounds__(ENT)
-emugemm1_encode_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+emugemm1_encode_kernel(const T* __restrict__ x, const typename Work<T>::type* __restrict__ scale,
                        int8_t* __restrict__ planes, int R, int K, int Kp, long long sr,
                        long long sk, int p, int beta) {
-  __shared__ float sx[ER * ELD];
-  __shared__ float sinv[ER];
+  using W = typename Work<T>::type;
+  __shared__ W sx[ER * ELD];
+  __shared__ W sinv[ER];
   const int r0 = blockIdx.y * ER;
   const int k0 = blockIdx.x * EK;
   const int tid = threadIdx.x;
-  if (tid < ER) sinv[tid] = r0 + tid < R ? recip_pow2(scale[r0 + tid]) : 0.f;
+  if (tid < ER) sinv[tid] = r0 + tid < R ? recip_pow2(scale[r0 + tid]) : W(0);
   __syncthreads();
 
   // Scale the tile once; threads walk the operand's unit-stride axis.
@@ -116,8 +126,8 @@ emugemm1_encode_kernel(const T* __restrict__ x, const float* __restrict__ scale,
     const int rr = kwalk ? e / EK : e % ER;
     const int kk = kwalk ? e % EK : e / ER;
     const int gr = r0 + rr, gk = k0 + kk;
-    float v = 0.f;
-    if (gr < R && gk < K) v = __fmul_rn(widen(x[gr * sr + gk * sk]), sinv[rr]);
+    W v = 0;
+    if (gr < R && gk < K) v = mul_rn(widen(x[gr * sr + gk * sk]), sinv[rr]);
     sx[rr * ELD + kk] = v;
   }
   __syncthreads();
@@ -125,13 +135,13 @@ emugemm1_encode_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   // Each thread carves 8 consecutive K of two rows, held in registers
   // across the slices, and stores each (row, slice) as one 8-byte word: a
   // warp writes 4 rows of 64 contiguous bytes.
-  const float two_beta = pow2(beta);
+  const W two_beta = pow2_of<W>(beta);
   const int kc = (tid % (EK / 8)) * 8;
   const long long plane = static_cast<long long>(R) * Kp;
   for (int half = 0; half < 2; ++half) {
     const int rr = tid / (EK / 8) + half * (ER / 2);
     if (r0 + rr >= R) break;
-    float r[8];
+    W r[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) r[j] = sx[rr * ELD + kc + j];
     int8_t* dst = planes + static_cast<long long>(r0 + rr) * Kp + k0 + kc;
@@ -143,16 +153,18 @@ emugemm1_encode_kernel(const T* __restrict__ x, const float* __restrict__ scale,
 // ---- the plane GEMM ----------------------------------------------------------
 
 constexpr int PBN = 128;                  // output tile columns: one m64n128 a k-step
+constexpr int PBN64 = 64;                 // the float64 output's: one m64n64
 constexpr int PBK = 128;                  // K tile: one 128-byte swizzle row
 constexpr int GROUP_M = 16;               // tile rows of a raster group
 
-// WG consumer warpgroups of 64 rows each, NH column halves of 128 (NH = 2,
-// a 256-column tile, only for the int8 GEMM's int32 instance, whose
-// consumers hold no float partial results beside the accumulators).
-template <int WG, int NH = 1>
+// WG consumer warpgroups of 64 rows each, NH column parts of NW = 128 or
+// 64 (NH = 2, a 256-column tile, only for the int8 GEMM's int32 instance,
+// whose consumers hold no float partial results beside the accumulators;
+// NW = 64 for the float64 output).
+template <int WG, int NH = 1, int NW = PBN>
 struct Tile {
   static constexpr int BM = 64 * WG;
-  static constexpr int BN = PBN * NH;
+  static constexpr int BN = NW * NH;
   static constexpr int A_BYTES = BM * PBK;
   static constexpr int STAGE_BYTES = A_BYTES + BN * PBK;
   static constexpr int STAGES = NH == 1 ? 6 : 4;
@@ -161,17 +173,32 @@ struct Tile {
   static constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
 };
 
+// The scales' type of an output: float64 for a float64 output, else float32.
+template <typename O>
+using ScaleOf = typename std::conditional<std::is_same<O, double>::value, double, float>::type;
+
+// The running sum's type of an output (none for the int8 GEMM's int32).
+template <typename O>
+struct AccOf {
+  using type = typename Epilogue<O>::Acc;
+};
+template <>
+struct AccOf<int32_t> {
+  using type = float;
+};
+
 // A (M, Kp) and B^T (N, Kp) planes as 3-D tensor maps; mu (M) and nu (N)
 // contiguous; out (M, N) row-major. epilogue = 0 stops after the mainloop
 // and stores nothing (for timing the two apart). O = int32_t is the int8
 // GEMM: p = 1, the accumulator stored as it is, mu and nu unread.
-template <typename O, int WG, int NH>
-__global__ void __launch_bounds__(Tile<WG, NH>::THREADS, 1)
+template <typename O, int WG, int NH, int NW>
+__global__ void __launch_bounds__(Tile<WG, NH, NW>::THREADS, 1)
 emugemm1_planes_kernel(const __grid_constant__ CUtensorMap map_a,
-                       const __grid_constant__ CUtensorMap map_b, const float* __restrict__ mu,
-                       const float* __restrict__ nu, O* __restrict__ out, int M, int N, int nk,
-                       int p, int beta, int epilogue) {
-  using TL = Tile<WG, NH>;
+                       const __grid_constant__ CUtensorMap map_b,
+                       const ScaleOf<O>* __restrict__ mu, const ScaleOf<O>* __restrict__ nu,
+                       O* __restrict__ out, int M, int N, int nk, int p, int beta, int epilogue) {
+  using TL = Tile<WG, NH, NW>;
+  using S = ScaleOf<O>;
   constexpr int STAGES = TL::STAGES;
   constexpr bool RAW = std::is_same<O, int32_t>::value;
   static_assert(NH == 1 || RAW, "a 256-column tile only for the int32 instance");
@@ -228,16 +255,18 @@ emugemm1_planes_kernel(const __grid_constant__ CUtensorMap map_a,
     if constexpr (WG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int ct = threadIdx.x;                    // consumer thread
     const int lane = ct % 32;
-    float c[64];
+    constexpr int NA = NW / 2;                     // accumulators a part
+    using Acc = typename AccOf<O>::type;
+    Acc c[RAW ? 1 : NA];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) c[i] = 0.f;
-    int acc[NH][64];
+    for (int i = 0; i < (RAW ? 1 : NA); ++i) c[i] = 0;
+    int acc[NH][NA];
     int stage = 0, phase = 0;
     for (int s = 0; s < p; ++s) {
 #pragma unroll
       for (int h = 0; h < NH; ++h)
 #pragma unroll
-        for (int i = 0; i < 64; ++i) acc[h][i] = 0;
+        for (int i = 0; i < NA; ++i) acc[h][i] = 0;
       int prev = -1;
       for (int kt = 0; kt < nk; ++kt) {
         for (int i = 0; i <= s; ++i) {
@@ -251,8 +280,12 @@ emugemm1_planes_kernel(const __grid_constant__ CUtensorMap map_a,
 #pragma unroll
           for (int ks = 0; ks < PBK / 32; ++ks)
 #pragma unroll
-            for (int h = 0; h < NH; ++h)
-              wgmma_s8_n128(acc[h], da + 2 * ks, db + h * (PBN * PBK >> 4) + 2 * ks);
+            for (int h = 0; h < NH; ++h) {
+              if constexpr (NW == PBN)
+                wgmma_s8_n128(acc[h], da + 2 * ks, db + h * (NW * PBK >> 4) + 2 * ks);
+              else
+                wgmma_s8_n64(acc[h], da + 2 * ks, db + h * (NW * PBK >> 4) + 2 * ks);
+            }
           wgmma_commit();
           // The previous stage's products are done once at most this
           // group is in flight: hand that stage back to the producer.
@@ -273,16 +306,16 @@ emugemm1_planes_kernel(const __grid_constant__ CUtensorMap map_a,
       if (lane == 0) mbar_arrive(&empty[prev]);
       if constexpr (!RAW) {
         if (epilogue) {
-          const float w = pow2(-beta * (s + 2));
+          const Acc w = pow2_of<Acc>(-beta * (s + 2));
 #pragma unroll
-          for (int i = 0; i < 64; ++i) c[i] = Epilogue<O>::step(c[i], acc[0][i], w);
+          for (int i = 0; i < NA; ++i) c[i] = Epilogue<O>::step(c[i], acc[0][i], w);
         }
       }
     }
     if (!epilogue) return;
 
     // Register 4 j + 2 h + e of the fragment is row r + 8 h, column
-    // 8 j + 2 (lane % 4) + e of the warpgroup's 64 x 128 tile.
+    // 8 j + 2 (lane % 4) + e of the warpgroup's 64 x NW tile.
     const int row0 = m0 + wg * 64 + ((ct % 128) / 32) * 16 + lane / 4;
     const int col0 = n0 + (lane % 4) * 2;
     const bool pairs = (N & 1) == 0;
@@ -292,8 +325,8 @@ emugemm1_planes_kernel(const __grid_constant__ CUtensorMap map_a,
 #pragma unroll
       for (int q = 0; q < NH; ++q) {
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const int col = col0 + PBN * q + 8 * j;
+        for (int j = 0; j < NW / 8; ++j) {
+          const int col = col0 + NW * q + 8 * j;
           if (col >= N) continue;
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
@@ -312,20 +345,20 @@ emugemm1_planes_kernel(const __grid_constant__ CUtensorMap map_a,
       }
     } else {
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < NW / 8; ++j) {
         const int col = col0 + 8 * j;
         if (col >= N) continue;
         const bool two = col + 1 < N;
-        const float nu0 = nu[col], nu1 = two ? nu[col + 1] : 0.f;
+        const S nu0 = nu[col], nu1 = two ? nu[col + 1] : S(0);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int row = row0 + 8 * h;
           if (row >= M) continue;
-          const float m = mu[row];
+          const S m = mu[row];
           O* o = out + static_cast<long long>(row) * N + col;
-          const float v0 = Epilogue<O>::scale(c[4 * j + 2 * h], m, nu0);
+          const Acc v0 = Epilogue<O>::scale(c[4 * j + 2 * h], m, nu0);
           if (two) {
-            const float v1 = Epilogue<O>::scale(c[4 * j + 2 * h + 1], m, nu1);
+            const Acc v1 = Epilogue<O>::scale(c[4 * j + 2 * h + 1], m, nu1);
             if (pairs) {
               Epilogue<O>::store2(o, v0, v1);
             } else {
@@ -480,30 +513,32 @@ int plane_map(CUtensorMap* map, const int8_t* planes, int p, int rows, int K, lo
 }
 
 template <typename T>
-int launch_encode(const void* x, const float* scale, int8_t* planes, int R, int K, int Kp,
+int launch_encode(const void* x, const void* scale, int8_t* planes, int R, int K, int Kp,
                   long long sr, long long sk, int p, int beta, cudaStream_t st) {
   const dim3 grid(Kp / EK, (R + ER - 1) / ER);
-  emugemm1_encode_kernel<T><<<grid, ENT, 0, st>>>(static_cast<const T*>(x), scale, planes, R, K, Kp, sr,
-                                          sk, p, beta);
+  emugemm1_encode_kernel<T><<<grid, ENT, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const typename Work<T>::type*>(scale), planes, R, K,
+      Kp, sr, sk, p, beta);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename O, int WG, int NH = 1>
-int launch_planes(const CUtensorMap& ma, const CUtensorMap& mb, const float* mu, const float* nu,
+template <typename O, int WG, int NH = 1, int NW = PBN>
+int launch_planes(const CUtensorMap& ma, const CUtensorMap& mb, const void* mu, const void* nu,
                   void* out, int M, int N, int nk, int p, int beta, int epilogue,
                   cudaStream_t st) {
-  using TL = Tile<WG, NH>;
+  using TL = Tile<WG, NH, NW>;
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        emugemm1_planes_kernel<O, WG, NH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        emugemm1_planes_kernel<O, WG, NH, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         TL::SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const int tiles = ((M + TL::BM - 1) / TL::BM) * ((N + TL::BN - 1) / TL::BN);
-  emugemm1_planes_kernel<O, WG, NH><<<tiles, TL::THREADS, TL::SMEM, st>>>(
-      ma, mb, mu, nu, static_cast<O*>(out), M, N, nk, p, beta, epilogue);
+  emugemm1_planes_kernel<O, WG, NH, NW><<<tiles, TL::THREADS, TL::SMEM, st>>>(
+      ma, mb, static_cast<const ScaleOf<O>*>(mu), static_cast<const ScaleOf<O>*>(nu),
+      static_cast<O*>(out), M, N, nk, p, beta, epilogue);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -514,10 +549,11 @@ int launch_planes(const CUtensorMap& ma, const CUtensorMap& mb, const float* mu,
 // no compiled instance, and -2 / -3 if libcuda's tensor-map encoder is
 // missing / refused the planes.
 //
-// Encode: x (R, K) through strides (sr, sk) in elements, in float32 or
-// bfloat16 (type: 0, 1); scale (R) float32 powers of two, contiguous;
-// planes (p, R, Kp) int8 contiguous, Kp a multiple of the K tile >= K.
-extern "C" int emugemm1_encode(const void* x, const float* scale, int8_t* planes, int R, int K,
+// Encode: x (R, K) through strides (sr, sk) in elements, in float32,
+// bfloat16 or float64 (type: 0, 1, 2); scale (R) powers of two, contiguous,
+// float32 (float64 for a float64 x); planes (p, R, Kp) int8 contiguous, Kp
+// a multiple of the K tile >= K; p in 1..16.
+extern "C" int emugemm1_encode(const void* x, const void* scale, int8_t* planes, int R, int K,
                                int Kp, long long sr, long long sk, int type, int p, int beta,
                                void* stream) {
   if (R <= 0 || R > 65535 * ER || K <= 0 || Kp < K || Kp % PBK != 0) return -1;
@@ -526,33 +562,41 @@ extern "C" int emugemm1_encode(const void* x, const float* scale, int8_t* planes
   if (type == F32) return launch_encode<float>(x, scale, planes, R, K, Kp, sr, sk, p, beta, st);
   if (type == BF16)
     return launch_encode<__nv_bfloat16>(x, scale, planes, R, K, Kp, sr, sk, p, beta, st);
+  if (type == F64) return launch_encode<double>(x, scale, planes, R, K, Kp, sr, sk, p, beta, st);
   return -1;
 }
 
 // The plane GEMM: a_planes (p, M, Kp) and b_planes (p, N, Kp) int8 from
-// emugemm1_encode (A and B^T), mu (M) and nu (N) float32, out (M, N)
-// row-major in float32 or bfloat16 (out_type: 0, 1); tile_m, the output
-// tile's rows, 128 or 64. epilogue = 0 stops after the mainloop.
-extern "C" int emugemm1_planes(const int8_t* a_planes, const int8_t* b_planes, const float* mu,
-                               const float* nu, void* out, int M, int N, int Kp, int out_type,
+// emugemm1_encode (A and B^T), p in 1..16, mu (M) and nu (N) float32
+// (float64 for a float64 output), out (M, N) row-major in float32,
+// bfloat16, float64 or float16 (out_type: 0, 1, 2, 3); tile_m, the output
+// tile's rows, 128 or 64 (its columns: 128, 64 for float64). epilogue = 0
+// stops after the mainloop.
+extern "C" int emugemm1_planes(const int8_t* a_planes, const int8_t* b_planes, const void* mu,
+                               const void* nu, void* out, int M, int N, int Kp, int out_type,
                                int p, int beta, int tile_m, int epilogue, void* stream) {
   if (M <= 0 || N <= 0 || Kp <= 0 || Kp % PBK != 0) return -1;
   if (p < 1 || p > MAXP || beta < 1 || beta > 7 || (tile_m != 64 && tile_m != 128)) return -1;
+  if (out_type < F32 || out_type > F16) return -1;
   CUtensorMap ma, mb;
   int rc = plane_map(&ma, a_planes, p, M, Kp, Kp, tile_m);
-  if (rc == 0) rc = plane_map(&mb, b_planes, p, N, Kp, Kp, PBN);
+  if (rc == 0) rc = plane_map(&mb, b_planes, p, N, Kp, Kp, out_type == F64 ? PBN64 : PBN);
   if (rc != 0) return rc;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nk = Kp / PBK;
-#define EMUGEMM1_PLANES(O_)                                                                       \
+#define EMUGEMM1_PLANES(O_, NW_)                                                                  \
   return tile_m == 128                                                                             \
-             ? launch_planes<O_, 2>(ma, mb, mu, nu, out, M, N, nk, p, beta, epilogue, st)          \
-             : launch_planes<O_, 1>(ma, mb, mu, nu, out, M, N, nk, p, beta, epilogue, st)
-  if (out_type == F32) EMUGEMM1_PLANES(float);
-  if (out_type == BF16) EMUGEMM1_PLANES(__nv_bfloat16);
-  return -1;
+             ? launch_planes<O_, 2, 1, NW_>(ma, mb, mu, nu, out, M, N, nk, p, beta, epilogue, st)  \
+             : launch_planes<O_, 1, 1, NW_>(ma, mb, mu, nu, out, M, N, nk, p, beta, epilogue, st)
+  if (out_type == F32) EMUGEMM1_PLANES(float, PBN);
+  if (out_type == BF16) EMUGEMM1_PLANES(__nv_bfloat16, PBN);
+  if (out_type == F16) EMUGEMM1_PLANES(__half, PBN);
+  EMUGEMM1_PLANES(double, PBN64);
 #undef EMUGEMM1_PLANES
 }
+
+// The plane GEMM's output tile columns for an output type.
+extern "C" int emugemm1_plane_n(int out_type) { return out_type == F64 ? PBN64 : PBN; }
 
 // The int8 GEMM (K9): a (M, K) and bt (N, K) int8, K-contiguous rows with
 // row strides lda and ldb (bytes; each a multiple of 16, each base 16-byte

@@ -37,8 +37,10 @@ from repro_torch.core import scheme1
 # The interleave granularity of both layouts: the tile of csrc/decompose.cu,
 # which the interleaved form's relayout (csrc/emugemm1_planes.cu) reads.
 TILE = 32
-MAX_P = 8
-_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+MAX_P = 16
+# Operand type codes (csrc/scheme1_common.cuh); a float64 operand takes
+# float64 scales, the others float32.
+_TYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 
 
 @dataclasses.dataclass
@@ -117,13 +119,17 @@ def _bind(lib: ctypes.CDLL, lhs: bool = False):
     return fn
 
 
+def _scale_dtype(dtype):
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def _check_operand(x, p):
     if x.dim() != 2 or not x.is_cuda:
         raise ValueError(f"decompose: the operand must be a 2-D CUDA tensor, "
                          f"got {tuple(x.shape)} on {x.device}")
-    if x.dtype not in _KERNEL_DTYPES:
-        raise NotImplementedError(f"decompose takes float32 or bfloat16, got "
-                                  f"{x.dtype}")
+    if x.dtype not in _TYPE_CODE:
+        raise NotImplementedError(f"decompose takes float32, bfloat16 or "
+                                  f"float64, got {x.dtype}")
     if not 1 <= p <= MAX_P:
         raise NotImplementedError(f"decompose is compiled for p in "
                                   f"1..{MAX_P}, got p={p}")
@@ -135,11 +141,12 @@ def _launch(b, nu, tau, p, beta_f, beta_b):
     k, n = b.shape
     scales = [(nu, (1, n), beta_f)] + ([] if tau is None
                                        else [(tau, (1, k), beta_b)])
+    scale = _scale_dtype(b.dtype)
     for s, shape, beta in scales:
-        if (s.device != b.device or s.dtype != torch.float32
+        if (s.device != b.device or s.dtype != scale
                 or tuple(s.shape) != shape):
             raise ValueError(f"decompose: scale {tuple(s.shape)} {s.dtype} "
-                             f"on {s.device}, expected float32 {shape}")
+                             f"on {s.device}, expected {scale} {shape}")
         if not 1 <= beta <= 7:
             raise ValueError(f"decompose: beta={beta} outside 1..7")
     nu = nu.contiguous()
@@ -154,7 +161,7 @@ def _launch(b, nu, tau, p, beta_f, beta_b):
     rc = fn(b.data_ptr(), nu.data_ptr(),
             None if tau is None else tau.data_ptr(), fwd.data_ptr(),
             None if twin is None else twin.data_ptr(), k, n,
-            b.stride(0), b.stride(1), int(b.dtype == torch.bfloat16), p,
+            b.stride(0), b.stride(1), _TYPE_CODE[b.dtype], p,
             beta_f, beta_b if tau is not None else 0, stream)
     if rc != 0:
         raise RuntimeError(f"decompose launch failed (code {rc}) for "
@@ -164,7 +171,8 @@ def _launch(b, nu, tau, p, beta_f, beta_b):
 
 def decompose_interleave_rhs(b: torch.Tensor, nu: torch.Tensor, p: int,
                              beta: int) -> torch.Tensor:
-    """b (K, N) float, nu (1, N) float32 -> (p * Kp, N) int8.
+    """b (K, N) float32, bfloat16 or float64, nu (1, N) float32 (float64
+    for a float64 b), p in 1..16 -> (p * Kp, N) int8.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     or raise.
@@ -177,24 +185,26 @@ def decompose_interleave_rhs(b: torch.Tensor, nu: torch.Tensor, p: int,
 
 
 def decompose_interleave_pair(b: torch.Tensor, nu: torch.Tensor,
-                              tau: torch.Tensor, p: int, beta_f: int,
-                              beta_b: int):
-    """b (K, N) float, nu (1, N), tau (1, K) float32 ->
+                              tau: torch.Tensor, p: int, beta_fwd: int,
+                              beta_bwd: int):
+    """b (K, N) float, nu (1, N), tau (1, K) (float32; float64 for a
+    float64 b) ->
     (forward (p * Kp, N), twin (p * Np, K)) int8, from one read of b.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     or raise.
     """
     if b.device.type == "cpu":
-        return decompose_pair_plain(b, nu, tau, p, beta_f, beta_b)
-    out = _launch(b, nu, tau, p, beta_f, beta_b)
+        return decompose_pair_plain(b, nu, tau, p, beta_fwd, beta_bwd)
+    out = _launch(b, nu, tau, p, beta_fwd, beta_bwd)
     COUNTS.launches_pair += 1
     return out
 
 
 def decompose_interleave(a: torch.Tensor, mu: torch.Tensor, p: int,
                          beta: int) -> torch.Tensor:
-    """a (M, K) float, mu (M, 1) float32 -> A-hat (M, p * Kp) int8.
+    """a (M, K) float, mu (M, 1) (float32; float64 for a float64 a) ->
+    A-hat (M, p * Kp) int8.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel's
     lhs form or raise.
@@ -204,10 +214,11 @@ def decompose_interleave(a: torch.Tensor, mu: torch.Tensor, p: int,
         return decompose_lhs_plain(a, mu, p, beta)
     _check_operand(a, p)
     m, k = a.shape
-    if (mu.device != a.device or mu.dtype != torch.float32
+    scale = _scale_dtype(a.dtype)
+    if (mu.device != a.device or mu.dtype != scale
             or tuple(mu.shape) != (m, 1)):
         raise ValueError(f"decompose: scale {tuple(mu.shape)} {mu.dtype} on "
-                         f"{mu.device}, expected float32 {(m, 1)}")
+                         f"{mu.device}, expected {scale} {(m, 1)}")
     if not 1 <= beta <= 7:
         raise ValueError(f"decompose: beta={beta} outside 1..7")
     mu = mu.contiguous()
@@ -217,7 +228,7 @@ def decompose_interleave(a: torch.Tensor, mu: torch.Tensor, p: int,
     fn = _bind(build.load("decompose"), lhs=True)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     rc = fn(a.data_ptr(), mu.data_ptr(), out.data_ptr(), m, k, a.stride(0),
-            a.stride(1), int(a.dtype == torch.bfloat16), p, beta, stream)
+            a.stride(1), _TYPE_CODE[a.dtype], p, beta, stream)
     if rc != 0:
         raise RuntimeError(f"decompose lhs launch failed (code {rc}) for "
                            f"{(m, k)} p={p}")

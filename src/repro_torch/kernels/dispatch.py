@@ -75,7 +75,8 @@ def select_blocks(m: int, n: int, k: int, p: int, out_bytes: int,
         cache.hits += 1
         return cache.data[key]
     cache.misses += 1
-    blocks = backends.get_backend(backend).choose_blocks(m, n, k, p, scheme)
+    blocks = backends.get_backend(backend).choose_blocks(m, n, k, p,
+                                                         scheme=scheme)
     cache.put(key, blocks)
     return blocks
 
@@ -187,8 +188,23 @@ def plan_emulated_batched(a: torch.Tensor, b: torch.Tensor,
 # Entry points.
 # ---------------------------------------------------------------------------
 
-def _resolve_cfg(cfg) -> EmulationConfig:
+def _resolve_cfg(cfg, scheme=None, precision=None) -> EmulationConfig:
+    """This call's config through ``api.resolve_config``; ``scheme=`` /
+    ``precision=`` are the reference's deprecated pre-spec kwargs, which
+    keep working with a DeprecationWarning."""
     from repro_torch import api
+    if scheme is not None or precision is not None:
+        if cfg is not None:
+            raise TypeError("pass either cfg= or the deprecated "
+                            "scheme=/precision= kwargs, not both")
+        warnings.warn(
+            "emulated_matmul(scheme=..., precision=...) is deprecated; "
+            "pass cfg=repro_torch.precision('<scheme>-p<N>') or wrap the "
+            "call in `with repro_torch.emulation(...)`",
+            DeprecationWarning, stacklevel=3)
+        return EmulationConfig(
+            scheme=scheme if scheme is not None else "ozaki1",
+            p=precision if precision is not None else 4)
     return api.resolve_config(cfg, default=_LEGACY_DEFAULT)
 
 
@@ -225,14 +241,16 @@ def check_prepared(b, cfg: EmulationConfig) -> None:
 
 
 def emulated_matmul(a: torch.Tensor, b, *, cfg=None, out_dtype=None,
-                    backend: str | None = None) -> torch.Tensor:
+                    backend: str | None = None, scheme: str | None = None,
+                    precision: int | None = None) -> torch.Tensor:
     """Emulated (M, K) @ (K, N) on the selected backend (argument >
     ``REPRO_TORCH_BACKEND`` > ``cfg.backend`` > the operands' device).
 
     ``b`` may be a prepared operand of the config's scheme: its finished
     encode streams as it is, on the backend pinned when it was prepared,
-    and only the lhs is carved."""
-    cfg = _resolve_cfg(cfg)
+    and only the lhs is carved. ``scheme`` / ``precision`` are the
+    reference's deprecated kwargs (:func:`_resolve_cfg`)."""
+    cfg = _resolve_cfg(cfg, scheme, precision)
     if _is_prepared(b):
         from repro_torch.kernels import prepared
         _refuse_cfg(cfg)
@@ -318,15 +336,18 @@ def maybe_emulated_matmul(a: torch.Tensor, b, cfg: EmulationConfig):
     return auto_fused_matmul(a, b, cfg)
 
 
-def resolve_policy(policy):
+def resolve_policy(policy, mesh=None):
     """Check a model ``GemmPolicy`` against what the port runs.
 
     The single-card slice has nothing to clamp (the reference's mesh and
-    GSPMD clamps do not apply). An unset default materializes the
+    GSPMD clamps do not apply; ``mesh`` must be None). An unset default materializes the
     ambient config now, as the reference does, and every site's config
     that the port cannot run raises here, before any weight is touched.
     """
     from repro_torch import api
+    if mesh is not None:
+        raise NotImplementedError(
+            "multi-device meshes are not ported yet (ROADMAP.md § 1 item 8)")
     if policy.default is None:
         default = api.resolve_config()
         if default.scheme != "native":

@@ -6,9 +6,13 @@ and the slicing in the kernel (the 2-D form of
 ``ozaki1.fused_matmul_scheme1``); under 'xla' both operands are split in
 torch, interleaved on K at ``decompose.TILE`` (K padded with zero
 slices) and multiplied by the kernel's interleaved form
-(``ozaki1.fused_matmul_interleaved``), the paper's Sec. III-A pipeline.
-The two routes give the same bits. No spec token sets ``decomp``, so a
-caller reaches 'xla' through ``EmulationConfig(decomp='xla')``.
+(``ozaki1.fused_matmul_interleaved``), the paper's Sec. III-A pipeline,
+with the scales narrowed to float32 as the reference's route narrows
+them. The two routes give the same bits wherever the scales are float32
+numbers (every float32 and bf16 operand, and a float64 one within
+2^+-126). Operands are float32, bf16, float16 (widened to float32) or
+float64, p in 1..16. No spec token sets ``decomp``, so a caller reaches
+'xla' through ``EmulationConfig(decomp='xla')``.
 
 :func:`int8_matmul` is ``matmul_int8.int8_matmul``, re-exported.
 
@@ -70,26 +74,23 @@ def fused_scheme1_matmul(a: torch.Tensor, b: torch.Tensor, cfg=None,
     if blocks is not None and blocks != KERNEL_BLOCKS:
         raise ValueError(f"fused_scheme1_matmul: the kernel runs one tile, "
                          f"{KERNEL_BLOCKS}; got blocks={blocks}")
-    if torch.float64 in (a.dtype, b.dtype):
-        raise NotImplementedError(
-            "ozaki1 takes float32 and narrower operands in the port, got "
-            f"{a.dtype} @ {b.dtype}: Scheme I in float64 is ROADMAP.md § 1 "
-            "item 3")
     k = a.shape[1]
     p, beta = cfg.p, cfg.resolved_beta(k)
     if cfg.decomp in ("auto", "kernel"):
         if a.dtype != b.dtype or a.dtype != torch.bfloat16:
             a, b = scheme1.widen(a), scheme1.widen(b)   # bf16 @ bf16 stays
+            common = torch.promote_types(a.dtype, b.dtype)
+            a, b = a.to(common), b.to(common)
         mu, nu = scheme1.pow2_scale(a, 1), scheme1.pow2_scale(b, 0)
         return ozaki1.fused_matmul_scheme1(a, b, mu, nu, p, beta, out_dtype)
-    a_sl, mu = scheme1.split(a, p, beta, dim=1)
-    b_sl, nu = scheme1.split(b, p, beta, dim=0)
+    a_sl, mu = scheme1.split(a, p, beta, axis=1)
+    b_sl, nu = scheme1.split(b, p, beta, axis=0)
     pad = decompose.round_up(k) - k
     a_hat = scheme1.interleave_k(F.pad(a_sl, (0, pad)), "a", decompose.TILE)
     b_hat = scheme1.interleave_k(F.pad(b_sl, (0, 0, 0, pad)), "b",
                                  decompose.TILE)
-    return ozaki1.fused_matmul_interleaved(a_hat, b_hat, mu, nu, p, beta,
-                                           out_dtype)
+    return ozaki1.fused_matmul_interleaved(a_hat, b_hat, mu.float(),
+                                           nu.float(), p, beta, out_dtype)
 
 
 def fused_scheme2_matmul(a: torch.Tensor, b: torch.Tensor, cfg=None,

@@ -3,9 +3,12 @@ interleaved form's relayout, and ``csrc/emugemm1_batched.cu``, the batched
 form): wrappers, plain versions and launch counts.
 
 ``fused_matmul_scheme1`` takes (M, K) @ (K, N) or, strided over a batch,
-(B, M, K) @ (B, K, N) operands in float32 or bfloat16 with their
-power-of-two scales mu (..., M, 1) and nu (..., 1, N), and returns the
-Scheme-I product in ``out_dtype``. On a CPU tensor it runs the plain
+(B, M, K) @ (B, K, N) operands in float32, bfloat16 or float64 with their
+power-of-two scales mu (..., M, 1) and nu (..., 1, N) (float32; float64
+for float64 operands, :func:`scale_dtype`), and returns the Scheme-I
+product, p in 1..16, in ``out_dtype`` (float32, bfloat16, float16 or
+float64; a float16 operand is widened to float32 by the caller, as the
+reference's ``_widen`` does). On a CPU tensor it runs the plain
 version, ``repro_torch.core.scheme1`` (the same slicing, exact integer
 slice products and shift-reduce, as separate torch ops). On CUDA tensors a
 2-D product takes the plane route (two encodes and one plane GEMM) and a
@@ -66,13 +69,22 @@ import torch.nn.functional as F
 
 from repro_torch.core import scheme1
 
-_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-MAX_P = 8
-# The plane route's type codes (csrc/emugemm1_planes.cu), its K tile, to
-# which planes are padded, and its output tile columns.
-TYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# The operand types the kernels carve, the most slices, and the kernels'
+# type codes of operands and outputs (csrc/scheme1_common.cuh).
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
+MAX_P = 16
+TYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2,
+             torch.float16: 3}
+# The plane route's K tile, to which planes are padded, and its output
+# tile columns (64 for a float64 output).
 PLANE_K = 128
 PLANE_N = 128
+# The batched kernel's (operand, output) instances; another pair runs the
+# plane route per batch element.
+_BATCHED_PAIRS = frozenset(
+    [(t, o) for t in (torch.float32, torch.bfloat16)
+     for o in (torch.float32, torch.bfloat16, torch.float16)]
+    + [(torch.float64, torch.float64)])
 # The encode's grid carries row blocks of 64 on gridDim.y.
 MAX_ROWS = 65535 * 64
 
@@ -99,6 +111,13 @@ class LaunchCounts:
 
 
 COUNTS = LaunchCounts()
+
+
+def scale_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The power-of-two scales' type of an operand type, as
+    ``scheme1.pow2_scale`` gives them: float64 for float64, else
+    float32."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
 
 
 def fused_matmul_plain(a: torch.Tensor, b: torch.Tensor, mu: torch.Tensor,
@@ -248,6 +267,12 @@ def _check_p(p):
                                   f"got p={p}")
 
 
+def _check_out(out_dtype):
+    if out_dtype not in TYPE_CODE:
+        raise NotImplementedError(f"emugemm1: out_dtype {out_dtype} (float32, "
+                                  "bfloat16, float16 or float64)")
+
+
 def _check_p_beta(p, beta):
     _check_p(p)
     if not 1 <= beta <= 7:
@@ -261,25 +286,27 @@ def _check(a, b, mu, nu, p, beta, out_dtype):
         raise ValueError("emugemm1: operands on different devices")
     if a.dtype not in _KERNEL_DTYPES or b.dtype != a.dtype:
         raise NotImplementedError(
-            f"emugemm1 takes float32 or bfloat16 operands of one type, got "
-            f"{a.dtype} @ {b.dtype} (float64 is not on this slice's path; "
-            "ROADMAP.md § 1)")
-    if out_dtype not in _KERNEL_DTYPES:
-        raise NotImplementedError(f"emugemm1: out_dtype {out_dtype}")
-    if mu.dtype != torch.float32 or nu.dtype != torch.float32:
-        raise ValueError("emugemm1: scales must be float32")
+            f"emugemm1 takes float32, bfloat16 or float64 operands of one "
+            f"type, got {a.dtype} @ {b.dtype} (a float16 operand is widened "
+            "to float32 by the caller)")
+    _check_out(out_dtype)
+    scale = scale_dtype(a.dtype)
+    if mu.dtype != scale or nu.dtype != scale:
+        raise ValueError(f"emugemm1: the scales of {a.dtype} operands must be "
+                         f"{scale}, got {mu.dtype} and {nu.dtype}")
     _check_p_beta(p, beta)
 
 
-def batched_tile_n(m: int) -> int:
+def batched_tile_n(m: int, p: int = 1) -> int:
     """The batched kernel's rows of C a block: 16 (wgmma n16) for
-    attention's M <= 16 in serving, else 32."""
-    return 16 if m <= 16 else 32
+    attention's M <= 16 in serving, and at p > 8 (whose instances hold 16
+    diagonals' accumulators), else 32."""
+    return 16 if m <= 16 or p > 8 else 32
 
 
 def launch_batched(a3, b3, mu3, nu3, p, beta, out_dtype, tile_n=None):
     """Launch the batched kernel on (B, M, K) @ (B, K, N) float views (any
-    strides) with float32 scales (B, M, 1) and (B, 1, N): one launch,
+    strides) with their scales (B, M, 1) and (B, 1, N): one launch,
     (B, M, N) ``out_dtype``; ``tile_n`` sets the tile's rows of C instead
     of :func:`batched_tile_n` (for timing the tiles apart)."""
     from repro_torch.kernels import build
@@ -291,7 +318,7 @@ def launch_batched(a3, b3, mu3, nu3, p, beta, out_dtype, tile_n=None):
         a3.data_ptr(), b3.data_ptr(), mu3.data_ptr(), nu3.data_ptr(),
         out.data_ptr(), batch, m, n, k, *a3.stride(), *b3.stride(),
         TYPE_CODE[a3.dtype], TYPE_CODE[out_dtype], p, beta,
-        tile_n or batched_tile_n(m),
+        tile_n or batched_tile_n(m, p),
         torch.cuda.current_stream(a3.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"emugemm1 batched launch failed (code {rc}) for "
@@ -307,7 +334,7 @@ def plane_tile_m(m: int) -> int:
 
 def launch_encode(x, scale, p, beta):
     """Launch the encode kernel on an (R, K) float view with row scales
-    (R, 1): planes (p, R, Kp) int8."""
+    (R, 1) of ``scale_dtype(x.dtype)``: planes (p, R, Kp) int8."""
     from repro_torch.kernels import build
     r, k = x.shape
     planes = torch.empty((p, r, plane_k(k)), dtype=torch.int8,
@@ -326,14 +353,21 @@ def launch_encode(x, scale, p, beta):
 def launch_planes(a_planes, b_planes, mu, nu, p, beta, out, epilogue=True,
                   tile_m=None):
     """Launch the plane GEMM on planes (p, M, Kp) and (p, N, Kp) with
-    float32 scales mu (M, 1) and nu (1, N) into ``out`` (M, N);
+    float32 or float64 scales mu (M, 1) and nu (1, N) into ``out`` (M, N);
     ``epilogue=False`` stops after the mainloop, which leaves ``out``
     unwritten (for timing the two apart); ``tile_m`` sets the tile rows
-    instead of :func:`plane_tile_m` (for timing the tiles apart)."""
+    instead of :func:`plane_tile_m` (for timing the tiles apart).
+
+    The epilogue takes its scales in float64 for a float64 output and in
+    float32 otherwise: they are converted here as the plain version's
+    ``scale.to(out_dtype)`` converts them (a float32 power of two is exact
+    in float64, and the kernel rounds a float32 one to bf16 or float16 as
+    torch rounds a float64 one)."""
     from repro_torch.kernels import build
     _, m, kp = a_planes.shape
     n = b_planes.shape[1]
-    mu, nu = mu.contiguous(), nu.contiguous()
+    scale = scale_dtype(out.dtype)
+    mu, nu = mu.to(scale).contiguous(), nu.to(scale).contiguous()
     rc = _bind_planes(build.load("emugemm1_planes"))(
         a_planes.data_ptr(), b_planes.data_ptr(), mu.data_ptr(),
         nu.data_ptr(), out.data_ptr(), m, n, kp, TYPE_CODE[out.dtype], p,
@@ -398,17 +432,18 @@ def relayout_interleaved(x_hat: torch.Tensor, p: int,
 
 def encode_planes(x: torch.Tensor, scale: torch.Tensor, p: int,
                   beta: int) -> torch.Tensor:
-    """A float32 or bfloat16 (R, K) operand (any strides) with its float32
-    power-of-two row scales (R, 1) -> its (p, R, Kp) int8 slice planes
-    (B enters as B^T with nu^T).
+    """A float32, bfloat16 or float64 (R, K) operand (any strides) with its
+    power-of-two row scales (R, 1) (float32; float64 for a float64
+    operand) -> its (p, R, Kp) int8 slice planes (B enters as B^T with
+    nu^T).
 
     CPU tensors take the plain version; CUDA tensors launch the encode
     kernel or raise.
     """
     if x.device.type == "cpu":
         return encode_planes_plain(x, scale, p, beta)
-    if (x.dim() != 2 or x.dtype not in TYPE_CODE or not x.is_cuda
-            or scale.dtype != torch.float32
+    if (x.dim() != 2 or x.dtype not in _KERNEL_DTYPES or not x.is_cuda
+            or scale.dtype != scale_dtype(x.dtype)
             or tuple(scale.shape) != (x.shape[0], 1)
             or scale.device != x.device or x.shape[-1] == 0
             or not 0 < x.shape[0] <= MAX_ROWS):
@@ -424,8 +459,9 @@ def encode_planes(x: torch.Tensor, scale: torch.Tensor, p: int,
 def plane_matmul(a_planes: torch.Tensor, b_planes: torch.Tensor,
                  mu: torch.Tensor, nu: torch.Tensor, p: int, beta: int,
                  out_dtype: torch.dtype) -> torch.Tensor:
-    """The planes (p, M, Kp) of A and (p, N, Kp) of B^T with float32 scales
-    mu (M, 1) and nu (1, N) -> (M, N) float32 or bfloat16.
+    """The planes (p, M, Kp) of A and (p, N, Kp) of B^T with float32 or
+    float64 scales mu (M, 1) and nu (1, N) -> (M, N) float32, bfloat16,
+    float16 or float64.
 
     CPU tensors take the plain version; CUDA tensors launch the plane
     GEMM or raise.
@@ -439,7 +475,7 @@ def plane_matmul(a_planes: torch.Tensor, b_planes: torch.Tensor,
             or not a_planes.is_contiguous() or not b_planes.is_contiguous()
             or {a_planes.dtype, b_planes.dtype} != {torch.int8}
             or tuple(mu.shape) != (m, 1) or tuple(nu.shape) != (1, n)
-            or {mu.dtype, nu.dtype} != {torch.float32}
+            or not {mu.dtype, nu.dtype} <= {torch.float32, torch.float64}
             or out_dtype not in TYPE_CODE or m * n == 0
             or len({x.device for x in (a_planes, b_planes, mu, nu)}) != 1):
         raise ValueError(f"emugemm1 plane GEMM: {tuple(a_planes.shape)} "
@@ -490,8 +526,16 @@ def fused_matmul_scheme1(a: torch.Tensor, b: torch.Tensor, mu: torch.Tensor,
                              f"nu {tuple(nu.shape)}")
         if batch * m * n == 0 or k == 0:
             out = torch.zeros((batch, m, n), dtype=out_dtype, device=a.device)
-        else:
+        elif (a.dtype, out_dtype) in _BATCHED_PAIRS:
             out = launch_batched(a, b, mu, nu, p, beta, out_dtype)
+        else:
+            # No batched instance for this (operand, output) pair: the
+            # plane route per element.
+            out = torch.stack([
+                plane_matmul(encode_planes(a[i], mu[i], p, beta),
+                             encode_planes(b[i].T, nu[i].T, p, beta), mu[i],
+                             nu[i], p, beta, out_dtype)
+                for i in range(batch)])
         COUNTS.launches_batched += 1
         return out
     raise ValueError(f"emugemm1: operands must both be 2-D or both 3-D, got "
@@ -502,8 +546,9 @@ def fused_matmul_mixed(a: torch.Tensor, b_planes: torch.Tensor,
                        mu: torch.Tensor, nu: torch.Tensor, p: int, beta: int,
                        out_dtype: torch.dtype) -> torch.Tensor:
     """(M, K) float @ a prepared weight's (p, N, Kp) int8 planes (those of
-    its B^T, Kp = plane_k(K)), with scales mu (M, 1) and nu (1, N) ->
-    (M, N) ``out_dtype``.
+    its B^T, Kp = plane_k(K)), with scales mu (M, 1) (of the lhs's type,
+    :func:`scale_dtype`) and nu (1, N) (of the weight's) -> (M, N)
+    ``out_dtype``.
 
     The plane route: one encode of the lhs (:func:`encode_planes`) and one
     plane GEMM (:func:`plane_matmul`), each of which takes its plain
@@ -512,8 +557,9 @@ def fused_matmul_mixed(a: torch.Tensor, b_planes: torch.Tensor,
     m, k = a.shape
     n = b_planes.shape[1] if b_planes.dim() == 3 else -1
     if a.is_cuda:
-        _check(a, a, mu, nu, p, beta, out_dtype)
+        _check(a, a, mu, mu, p, beta, out_dtype)
     if (b_planes.dtype != torch.int8
+            or nu.dtype not in (torch.float32, torch.float64)
             or tuple(b_planes.shape) != (p, n, plane_k(k))
             or b_planes.device != a.device
             or tuple(mu.shape) != (m, 1) or tuple(nu.shape) != (1, n)):
@@ -549,8 +595,7 @@ def fused_matmul_interleaved(a_hat: torch.Tensor, b_hat: torch.Tensor,
         raise ValueError("emugemm1: all operands must be CUDA tensors")
     if len({a_hat.device, b_hat.device, mu.device, nu.device}) != 1:
         raise ValueError("emugemm1: operands on different devices")
-    if out_dtype not in _KERNEL_DTYPES:
-        raise NotImplementedError(f"emugemm1: out_dtype {out_dtype}")
+    _check_out(out_dtype)
     _check_p_beta(p, beta)
     if a_hat.dim() != 2 or b_hat.dim() != 2:
         raise ValueError(f"emugemm1 interleaved: A-hat {tuple(a_hat.shape)} "
@@ -559,15 +604,15 @@ def fused_matmul_interleaved(a_hat: torch.Tensor, b_hat: torch.Tensor,
     if (a_hat.dtype != torch.int8
             or b_hat.dtype != torch.int8 or b_hat.shape[0] != pk
             or pk % (p * TILE) or not a_hat.is_contiguous()
-            or not b_hat.is_contiguous() or mu.dtype != torch.float32
-            or nu.dtype != torch.float32 or tuple(mu.shape) != (m, 1)
-            or tuple(nu.shape) != (1, n)):
+            or not b_hat.is_contiguous()
+            or not {mu.dtype, nu.dtype} <= {torch.float32, torch.float64}
+            or tuple(mu.shape) != (m, 1) or tuple(nu.shape) != (1, n)):
         raise ValueError(
             f"emugemm1 interleaved: A-hat {tuple(a_hat.shape)} {a_hat.dtype}, "
             f"B-hat {tuple(b_hat.shape)} {b_hat.dtype} (expected contiguous "
             f"int8 (M, {p} * Kp) and ({p} * Kp, N), Kp a multiple of {TILE}),"
             f" mu {tuple(mu.shape)} {mu.dtype}, nu {tuple(nu.shape)} "
-            f"{nu.dtype} (float32 (M, 1), (1, N))")
+            f"{nu.dtype} (float32 or float64 (M, 1), (1, N))")
     if m * n == 0 or pk == 0:
         out = torch.zeros((m, n), dtype=out_dtype, device=a_hat.device)
     else:

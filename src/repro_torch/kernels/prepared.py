@@ -5,8 +5,9 @@ and the backward dA = dC B^T. A prepared operand holds the finished
 encode instead, with ``twin``, the same weight prepared as the rhs of
 B^T for dA:
 
-* :class:`PreparedOperand` (Scheme I): the p int8 slices, the (1, N)
-  float32 power-of-two column scale, ``p``/``beta``, ``k``/``n`` (the
+* :class:`PreparedOperand` (Scheme I): the p int8 slices (p <= 16), the
+  (1, N) power-of-two column scale (float32; float64 for a float64
+  weight, whose slices are carved in float64), ``p``/``beta``, ``k``/``n`` (the
   logical dims), ``layout`` and ``backend``, the kernel backend that
   prepared it and consumes it. ``layout`` 'planes' (the 'cuda' backend)
   holds them as the (p, N, Kp) K-contiguous planes of B^T (K padded to
@@ -410,12 +411,12 @@ def _map_with_path(fn, tree, path=()):
     return fn(path, tree)
 
 
-def _site_of(path) -> str:
+def _site_of(path, site_default: str = "ffn") -> str:
     if "mixer" in path:
         return "attn"
     if "head" in path or "emb" in path:
         return "logits"
-    return "ffn"
+    return site_default
 
 
 def _step_cacheable(cfg) -> bool:
@@ -448,26 +449,31 @@ DENSE_WEIGHT_NAMES = frozenset({
 })
 
 
-def build_step_preps(params, policy) -> dict:
+def build_step_preps(params, policy, *, site_default: str = "ffn",
+                     names=None) -> dict:
     """Prepare every cacheable dense weight once, keyed by tree path.
 
     Returns {path: prepared operand (with twin)} for the float leaves in
-    ``DENSE_WEIGHT_NAMES`` whose site config caches weights. A 3-D stack
+    ``names`` (``DENSE_WEIGHT_NAMES`` by default) whose site config caches
+    weights; a leaf that is neither under a mixer nor the head takes the
+    site ``site_default``. A 3-D stack
     under 'layers' is prepared per layer into a list, which the model's
     layer loop pairs with its weight's per-layer views (the reference
     stacks them for its layer scan; an eager loop needs no stack). MoE
     leaves are skipped (their experts are consumed through raw einsums).
     Nothing here is differentiated.
     """
+    if names is None:
+        names = DENSE_WEIGHT_NAMES
     preps: dict = {}
 
     def visit(path, leaf):
         ndim = getattr(leaf, "ndim", 0)
         stacked = ndim == 3 and "layers" in path
-        if (not path or path[-1] not in DENSE_WEIGHT_NAMES or "moe" in path
+        if (not path or path[-1] not in names or "moe" in path
                 or not (ndim == 2 or stacked) or not leaf.is_floating_point()):
             return leaf
-        cfg = policy.for_site(_site_of(path))
+        cfg = policy.for_site(_site_of(path, site_default))
         if not _step_cacheable(cfg):
             return leaf
         w = leaf.detach()
@@ -499,18 +505,20 @@ def attach_step_preps(params, preps: dict):
 # Whole-model preparation (once-per-session serving reuse).
 # ---------------------------------------------------------------------------
 
-def prepare_params(params, policy):
-    """Wrap a model's 2-D dense projection weights as prepared operands
-    (either scheme), once per serve session. Scan-stacked (3-D) layer
-    leaves pass through untouched, so on olmo-1b, whose projections are
-    layer stacks and whose head is the tied embedding, no leaf is
-    prepared (ROADMAP.md § 3 R4)."""
+def prepare_params(params, policy, *, site_default: str = "ffn",
+                   names=DENSE_WEIGHT_NAMES):
+    """Wrap a model's 2-D dense projection weights (the leaves in
+    ``names``; ``site_default`` is the site of those neither under a mixer
+    nor the head) as prepared operands (either scheme), once per serve
+    session. Scan-stacked (3-D) layer leaves pass through untouched, so on
+    olmo-1b, whose projections are layer stacks and whose head is the
+    tied embedding, no leaf is prepared (ROADMAP.md § 3 R4)."""
     def wrap(path, leaf):
-        if (not path or path[-1] not in DENSE_WEIGHT_NAMES
+        if (not path or path[-1] not in names
                 or getattr(leaf, "ndim", 0) != 2
                 or not leaf.is_floating_point()):
             return leaf
-        cfg = policy.for_site(_site_of(path))
+        cfg = policy.for_site(_site_of(path, site_default))
         if cfg.scheme not in ("ozaki1", "ozaki2"):
             return leaf
         with torch.no_grad():

@@ -97,13 +97,21 @@ def _one_card_policy(arch: ArchConfig, mesh, policy):
 
 
 def make_train_step(arch: ArchConfig, mesh=None,
-                    policy: GemmPolicy | None = None):
-    """The step function ``(state, batch) -> (state, metrics)``.
+                    shape: ShapeSpec | None = None,
+                    policy: GemmPolicy | None = None, donate: bool = True):
+    """The step function ``(state, batch) -> (state, metrics)``, with the
+    reference's call form ``(arch, mesh, shape, policy, donate)``.
 
     ``policy`` None takes the arch config's ``gemm_sites``, which defer
     to the ambient resolver when empty. ``mesh`` must be None: the slice
-    trains on one card.
+    trains on one card. ``shape`` and ``donate`` are taken and have no
+    effect in eager torch: the reference uses ``shape`` only to shard the
+    batch across its mesh (``in_shardings``), and ``donate`` to let XLA
+    reuse the state's buffers for the new state; the eager step builds a
+    new state of new tensors either way, and the caller's old state stays
+    valid until it drops it.
     """
+    del shape, donate
     policy = _one_card_policy(arch, mesh, policy)
     loss_fn = make_loss_fn(arch, policy)
     _, opt_update = make_optimizer(arch.train.optimizer)
@@ -152,10 +160,15 @@ def make_prefill_step(arch: ArchConfig, shape: ShapeSpec, mesh=None,
 
 
 def make_decode_step(arch: ArchConfig, shape: ShapeSpec, mesh=None,
-                     policy: GemmPolicy | None = None):
+                     policy: GemmPolicy | None = None, donate: bool = True):
     """``decode(params, cache, tokens, pos) -> (logits (B, 1,
     vocab_padded), cache)``; the cache is updated in place, as the
-    reference's donated one is. ``mesh`` must be None."""
+    reference's donated one is. ``mesh`` must be None. ``donate`` is
+    taken and has no effect: the eager step writes the cache in place
+    whether or not the reference would donate it (with ``donate=False``
+    the reference keeps the old cache valid; here the caller copies it
+    first if it needs it)."""
+    del donate
     policy = _one_card_policy(arch, mesh, policy)
     mcfg = arch.model
 

@@ -37,10 +37,10 @@ class AttnConfig:
     window: int | None = None
     rope_theta: float = 10000.0
     use_rope: bool = True
-    softmax_scale: float | None = None
-    cache_int8: bool = False
     q_chunk: int = 1024
     kv_chunk: int = 1024
+    softmax_scale: float | None = None
+    cache_int8: bool = False
 
     @property
     def scale(self) -> float:

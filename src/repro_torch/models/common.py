@@ -171,7 +171,8 @@ def apply_norm(kind: str, params: Mapping[str, torch.Tensor],
 # Rotary position embeddings.
 # ---------------------------------------------------------------------------
 
-def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
+def rope_frequencies(head_dim: int, theta: float = 10000.0,
+                     device=None) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
     return 1.0 / (theta ** exps)

@@ -59,16 +59,19 @@ class StragglerMonitor:
 
 
 class Trainer:
-    LOG_EVERY = 10
+    """The reference's Trainer on one card: ``keep`` checkpoints are kept
+    (``CheckpointManager``), and a progress line is printed every
+    ``log_every`` steps; ``device`` is where a resumed state is put."""
 
     def __init__(self, *, step_fn, init_state_fn, batch_iterator,
                  ckpt_dir: str, device="cuda", ckpt_every: int = 50,
-                 failure: FailureInjector | None = None,
-                 handle_sigterm: bool = False):
+                 keep: int = 3, failure: FailureInjector | None = None,
+                 log_every: int = 10, handle_sigterm: bool = False):
         self.step_fn = step_fn
         self.batch_iterator = batch_iterator
-        self.ckpt = CheckpointManager(ckpt_dir)
+        self.ckpt = CheckpointManager(ckpt_dir, keep=keep)
         self.ckpt_every = ckpt_every
+        self.log_every = log_every
         self.failure = failure or FailureInjector()
         self.monitor = StragglerMonitor()
         self.metrics_log: list[dict] = []
@@ -77,7 +80,7 @@ class Trainer:
 
         latest = self.ckpt.latest_step()
         if latest is not None:
-            self.state = self.ckpt.restore(latest, device)
+            self.state = self.ckpt.restore(latest, device=device)
             self.start_step = latest + 1
             print(f"[trainer] resumed from step {latest}")
         else:
@@ -111,7 +114,7 @@ class Trainer:
             self.metrics_log.append(metrics)
             if slow:
                 print(f"[trainer] straggler step {step}: {dt:.3f}s")
-            if step % self.LOG_EVERY == 0:
+            if step % self.log_every == 0:
                 print(f"[trainer] step {step} "
                       f"loss {metrics.get('loss', float('nan')):.4f} "
                       f"({dt:.2f}s)")

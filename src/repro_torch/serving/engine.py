@@ -220,8 +220,13 @@ class LockstepEngine:
     def _greedy(self, logits):
         return torch.argmax(logits[:, -1:, :self.mcfg.vocab], dim=-1)
 
-    def generate(self, prompts: np.ndarray, n_tokens: int) -> np.ndarray:
-        """prompts: (B, S) int32. Returns (B, n_tokens) greedy ids."""
+    def generate(self, prompts: np.ndarray, n_tokens: int,
+                 greedy: bool = True) -> np.ndarray:
+        """prompts: (B, S) int32. Returns (B, n_tokens) greedy ids.
+
+        ``greedy`` is the reference's call form; as there, decoding is
+        greedy whatever it says (the reference's argmax never reads it)."""
+        del greedy
         s = prompts.shape[1]
         logits, cache = self.prefill(
             torch.as_tensor(prompts, dtype=torch.int32, device=self.device))

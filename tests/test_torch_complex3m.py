@@ -238,10 +238,17 @@ def test_complex64_4m_bit_identical(side):
 
 
 def test_complex128_under_scheme1_raises():
-    a = torch.ones(4, 8, dtype=torch.complex128)
-    for backend in ("cuda", "torch"):
-        with pytest.raises(NotImplementedError, match="complex128"):
-            dispatch.emulated_matmul(a, a.T, cfg="ozaki1-p4", backend=backend)
+    """complex128 under Scheme I no longer raises: both backends run 4M of
+    float64 parts, with the same bits (the reference comparison is in
+    tests/test_torch_scheme1_wide.py)."""
+    a = torch.complex(torch.linspace(-1, 1, 32, dtype=torch.float64),
+                      torch.linspace(2, -3, 32, dtype=torch.float64))
+    a = a.reshape(4, 8)
+    outs = [dispatch.emulated_matmul(a, a.T, cfg="ozaki1-p4", backend=backend)
+            for backend in ("cuda", "torch")]
+    assert outs[0].dtype == torch.complex128
+    assert torch.equal(outs[0], outs[1])
+    torch.testing.assert_close(outs[0], a @ a.T, rtol=1e-6, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -274,10 +281,15 @@ def test_einsum_and_dot_general_on_complex_operands(spec, dtype):
 
 
 def test_complex_autograd_raises():
+    """A differentiated complex product no longer raises: its gradient is
+    PyTorch's conjugate one (held against the reference's VJP in
+    tests/test_torch_scheme1_wide.py); without grad it runs forward."""
     a = torch.ones(4, 8, dtype=torch.complex64, requires_grad=True)
     b = torch.ones(8, 3, dtype=torch.complex64)
-    with pytest.raises(NotImplementedError, match="forward only"):
-        tapi.einsum("mk,kn->mn", a, b, precision="ozaki2-m8")
+    out = tapi.einsum("mk,kn->mn", a, b, precision="ozaki2-m8")
+    out.backward(torch.full((4, 3), 1 + 1j, dtype=torch.complex64))
+    torch.testing.assert_close(a.grad, torch.full((4, 8), 3 + 3j,
+                                                  dtype=torch.complex64))
     with torch.no_grad():
         out = tapi.einsum("mk,kn->mn", a, b, precision="ozaki2-m8")
     assert out.dtype == torch.complex64 and out.shape == (4, 3)

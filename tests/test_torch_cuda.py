@@ -16,7 +16,9 @@ query heads a KV head on both backends, and K3 against granite-3-8b's
 prepared head.
 
 These tests need an NVIDIA GPU and nvcc; they skip elsewhere. This file
-imports no jax, so it runs where only torch is installed:
+imports no jax, so it runs where only torch is installed. The instances
+of Scheme I in float64, at p = 9..16 and with a float16 output are held
+against their plain versions at the end (``test_scheme1_wide_*``):
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
@@ -69,14 +71,15 @@ def test_cuda_tensors_launch_the_kernel(cuda_device):
 
 
 def test_kernel_refuses_what_it_was_not_built_for(cuda_device):
-    a = torch.randn(8, 16, device=cuda_device, dtype=torch.float64)
+    """float16 operands (the backends widen them first) and p past 16."""
+    a = torch.randn(8, 16, device=cuda_device, dtype=torch.float16)
     mu = scheme1.pow2_scale(a, -1)
     with pytest.raises(NotImplementedError):
-        ozaki1.fused_matmul_scheme1(a, a.T, mu, mu.T, 4, 7, torch.float64)
+        ozaki1.fused_matmul_scheme1(a, a.T, mu, mu.T, 4, 7, torch.float16)
     b = torch.randn(8, 16, device=cuda_device)
     s = scheme1.pow2_scale(b, -1)
     with pytest.raises(NotImplementedError):
-        ozaki1.fused_matmul_scheme1(b, b.T, s, s.T, 9, 7, torch.float32)
+        ozaki1.fused_matmul_scheme1(b, b.T, s, s.T, 17, 7, torch.float32)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -660,8 +663,8 @@ def test_scheme2_float_plane_route_on_card(cuda_device, p):
 def test_complex_routes_on_card(cuda_device):
     """The front doors launch K7g (and ops.fused_3m_matmul K7) with no
     plain version on CUDA; complex64 under ozaki1 is four EmuGEMM-I
-    launches equal to matmul_complex_4m; what the port does not run
-    raises instead of falling back."""
+    launches equal to matmul_complex_4m (complex128 too, of float64
+    parts); what the port does not run raises instead of falling back."""
     from repro_torch import api
     g = torch.Generator(device=cuda_device).manual_seed(7)
     a = _eq19(g, (96, 160), torch.complex128, cuda_device)
@@ -692,14 +695,22 @@ def test_complex_routes_on_card(cuda_device):
     assert ozaki1.COUNTS.plain_cuda_calls == 0
     assert torch.equal(out, dispatch.emulated_matmul(a64, b64, cfg="ozaki1-p4",
                                                      backend="torch"))
-    with pytest.raises(NotImplementedError, match="complex128"):
-        dispatch.emulated_matmul(a, b, cfg="ozaki1-p4")
+    ozaki1.COUNTS.reset()
+    out = dispatch.emulated_matmul(a, b, cfg="ozaki1-p4")   # complex128: 4M
+    assert (ozaki1.COUNTS.launches_2d, ozaki1.COUNTS.plain_cuda_calls) == (4, 0)
+    assert torch.equal(out, dispatch.emulated_matmul(a, b, cfg="ozaki1-p4",
+                                                     backend="torch"))
     cfg17 = EmulationConfig(scheme="ozaki2", p=17,
                             moduli=DEFAULT_MODULI + (181,))
     with pytest.raises(NotImplementedError, match="at most 16 moduli"):
         dispatch.emulated_matmul(a, b, cfg=cfg17)
-    with pytest.raises(NotImplementedError, match="forward only"):
-        api.einsum("mk,kn->mn", a.requires_grad_(), b, precision="ozaki2-m8")
+    # A differentiated complex product: conj of the reference's VJP of
+    # conj(g), through the kernels.
+    x = a.clone().requires_grad_()
+    gc = _eq19(g, (96, 40), torch.complex128, cuda_device)
+    api.einsum("mk,kn->mn", x, b, precision="ozaki2-m8").backward(gc)
+    assert torch.equal(x.grad, api.einsum(
+        "mk,kn->mn", gc.conj_physical(), b.T, precision="ozaki2-m8").conj())
 
 
 # ---------------------------------------------------------------------------
@@ -1132,11 +1143,12 @@ def test_flash_wgmma_edges_on_card(cuda_device, d):
 
 def test_library_kernels_refuse_what_they_were_not_built_for(cuda_device):
     from repro_torch.kernels import flash_attn
-    a = torch.randn(8, 16, device=cuda_device, dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        ops.fused_scheme1_matmul(a, a.T)
+    a = torch.randn(8, 16, device=cuda_device, dtype=torch.float16)
     with pytest.raises(NotImplementedError):
         decompose.decompose_interleave(a, scheme1.pow2_scale(a, 1), 4, 7)
+    x = a.double()
+    with pytest.raises(NotImplementedError):
+        decompose.decompose_interleave(x, scheme1.pow2_scale(x, 1), 17, 7)
     q = torch.randn(1, 2, 64, 48, device=cuda_device)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         flash_attn.flash_attention(q, q, q)
@@ -1216,3 +1228,204 @@ def test_gqa_prefill_and_decode_cuda_equals_torch_on_card(cuda_device, spec):
             assert ozaki1.COUNTS.launches_mixed == (
                 4 if policy.default.cache_weights else 0)
     assert torch.equal(logits["cuda"], logits["torch"])
+
+
+# ---------------------------------------------------------------------------
+# Scheme I in float64, at p = 9..16 and with a float16 output.
+# ---------------------------------------------------------------------------
+
+def _same_bits(out, ref):
+    """Equal bits, NaN where NaN (a float16 shift-reduce makes inf - inf;
+    the NaN's sign bit is the hardware's)."""
+    nan = ref.isnan()
+    return (out.dtype == ref.dtype and torch.equal(out.isnan(), nan)
+            and torch.equal(out.masked_fill(nan, 0), ref.masked_fill(nan, 0)))
+
+
+_WIDE = [(torch.float64, 8, torch.float64), (torch.float64, 12, torch.float64),
+         (torch.float64, 16, torch.float64), (torch.float64, 12, torch.float32),
+         (torch.float32, 9, torch.float32), (torch.float32, 16, torch.float64),
+         (torch.bfloat16, 10, torch.bfloat16), (torch.float32, 4, torch.float16),
+         (torch.bfloat16, 16, torch.float16)]
+
+
+@pytest.mark.parametrize("dtype,p,out_t", _WIDE)
+def test_scheme1_wide_plane_route_on_card(cuda_device, dtype, p, out_t):
+    """The encode (float64 carved in float64 with float64 scales, p up to
+    16) and the plane GEMM (float64 output on its 64-column tile, float16
+    output, both tile heights) against their plain versions."""
+    g = torch.Generator(device=cuda_device).manual_seed(900 + p)
+    for (m, k, n, trans) in [(4, 2048, 520, False), (64, 1000, 77, True),
+                             (300, 384, 130, False), (37, 100, 29, True)]:
+        a = _eq19(g, (m, k), torch.float64, cuda_device).to(dtype)
+        b = (_eq19(g, (n, k), torch.float64, cuda_device).T if trans
+             else _eq19(g, (k, n), torch.float64, cuda_device)).to(dtype)
+        mu, nu = scheme1.pow2_scale(a, -1), scheme1.pow2_scale(b, -2)
+        beta = 7 if k < 1000 else 6
+        ozaki1.COUNTS.reset()
+        pa = ozaki1.encode_planes(a, mu, p, beta)
+        pb = ozaki1.encode_planes(b.T, nu.T, p, beta)
+        assert torch.equal(pa, ozaki1.encode_planes_plain(a, mu, p, beta))
+        assert torch.equal(pb, ozaki1.encode_planes_plain(b.T, nu.T, p,
+                                                          beta))
+        ref = ozaki1.plane_matmul_plain(pa, pb, mu, nu, p, beta, out_t)
+        for tile_m in (64, 128):
+            out = torch.empty((m, n), dtype=out_t, device=cuda_device)
+            ozaki1.launch_planes(pa, pb, mu, nu, p, beta, out, tile_m=tile_m)
+            torch.cuda.synchronize()
+            assert _same_bits(out, ref), (m, k, n, tile_m)
+        ozaki1.COUNTS.reset()
+        out = ozaki1.fused_matmul_scheme1(a, b, mu, nu, p, beta, out_t)
+        assert (ozaki1.COUNTS.launches_2d, ozaki1.COUNTS.launches_encode,
+                ozaki1.COUNTS.launches_planes,
+                ozaki1.COUNTS.plain_cuda_calls) == (1, 2, 1, 0)
+        assert _same_bits(out, ozaki1.fused_matmul_plain(a, b, mu, nu, p,
+                                                         beta, out_t))
+
+
+@pytest.mark.parametrize("dtype,p,out_t", _WIDE)
+def test_scheme1_wide_batched_on_card(cuda_device, dtype, p, out_t):
+    """The batched kernel (K4) in float64, at p > 8 (16-row tiles, one
+    shared buffer) and to float16, one launch a call, against
+    fused_matmul_plain in every operand layout; a pair without a batched
+    instance (float32 to float64) runs the plane route per element."""
+    g = torch.Generator(device=cuda_device).manual_seed(950 + p)
+    cases = [(8, 64, 512, 96, "contiguous"), (64, 16, 128, 80, "ck"),
+             (64, 1, 80, 128, "cv"), (3, 17, 129, 77, "sliced"),
+             (2, 100, 300, 65, "cv")]
+    batched = (dtype, out_t) in ozaki1._BATCHED_PAIRS
+    for batch, m, k, n, layout in cases:
+        a, b = _batched_operands(g, cuda_device, torch.float64, batch, m, k,
+                                 n, layout)
+        a, b = a.to(dtype), b.to(dtype)
+        mu, nu = scheme1.pow2_scale(a, -1), scheme1.pow2_scale(b, -2)
+        ref = ozaki1.fused_matmul_plain(a, b, mu, nu, p, 7, out_t)
+        ozaki1.COUNTS.reset()
+        out = ozaki1.fused_matmul_scheme1(a, b, mu, nu, p, 7, out_t)
+        torch.cuda.synchronize()
+        assert (ozaki1.COUNTS.launches_batched, ozaki1.COUNTS.launches_planes,
+                ozaki1.COUNTS.plain_cuda_calls) == (
+                    1, 0 if batched else batch, 0)
+        assert _same_bits(out, ref), (batch, m, k, n, layout)
+        if batched and p <= 8:
+            for tile_n in (16, 32):
+                out = ozaki1.launch_batched(a, b, mu, nu, p, 7, out_t,
+                                            tile_n=tile_n)
+                torch.cuda.synchronize()
+                assert _same_bits(out, ref), (batch, m, k, n, tile_n)
+
+
+@pytest.mark.parametrize("p", [9, 12, 16])
+def test_scheme1_wide_decomposition_on_card(cuda_device, p):
+    """K2, K2r and K11 in float64 with float64 scales (2^1023 among them,
+    whose reciprocal is subnormal) and in float32 / bf16 at p > 8, then
+    K8's relayouts and route on them, against the plain versions."""
+    g = torch.Generator(device=cuda_device).manual_seed(980 + p)
+    for dtype in (torch.float64, torch.float32, torch.bfloat16):
+        for k, n in [(31, 33), (129, 127), (1000, 300)]:
+            for layout in ("rows", "emb.T", "strided"):
+                b = _decompose_operand(g, k, n, layout, torch.float64,
+                                       cuda_device).to(dtype)
+                scales = [(scheme1.pow2_scale(b, -2),
+                           scheme1.pow2_scale(b, -1).T)]
+                if dtype == torch.float64 and (k, n) == (129, 127):
+                    b = b * 2.0 ** 1000
+                    big = torch.tensor(2.0 ** 1023, device=cuda_device,
+                                       dtype=torch.float64)
+                    scales = [(big.expand(1, n), big.expand(1, k))]
+                for nu, tau in scales:
+                    what = (k, n, layout, dtype)
+                    fwd, twin = decompose.decompose_interleave_pair(
+                        b, nu, tau, p, 7, 6)
+                    rf, rt = decompose.decompose_pair_plain(b, nu, tau, p, 7,
+                                                            6)
+                    rhs = decompose.decompose_interleave_rhs(b, nu, p, 7)
+                    lhs = decompose.decompose_interleave(b, tau.T, p, 7)
+                    torch.cuda.synchronize()
+                    assert torch.equal(fwd, rf) and torch.equal(twin, rt), what
+                    assert torch.equal(rhs, decompose.decompose_rhs_plain(
+                        b, nu, p, 7)), what
+                    assert torch.equal(lhs, decompose.decompose_lhs_plain(
+                        b, tau.T, p, 7)), what
+        a = _eq19(g, (130, 300), torch.float64, cuda_device).to(dtype)
+        b = _eq19(g, (300, 258), torch.float64, cuda_device).to(dtype)
+        mu, nu = scheme1.pow2_scale(a, 1), scheme1.pow2_scale(b, 0)
+        a_hat = decompose.decompose_interleave(a, mu, p, 7)
+        b_hat = decompose.decompose_interleave_rhs(b, nu, p, 7)
+        for x, operand in ((a_hat, "a"), (b_hat, "b")):
+            assert torch.equal(ozaki1.relayout_interleaved(x, p, operand),
+                               ozaki1.relayout_interleaved_plain(x, p,
+                                                                 operand))
+        out_t = torch.float64 if dtype == torch.float64 else torch.float32
+        out = ozaki1.fused_matmul_interleaved(a_hat, b_hat, mu, nu, p, 7,
+                                              out_t)
+        ref = ozaki1.fused_matmul_interleaved_plain(a_hat, b_hat, mu, nu, p,
+                                                    7, out_t)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), dtype
+        assert torch.equal(out, ozaki1.fused_matmul_plain(a, b, mu, nu, p, 7,
+                                                          out_t))
+
+
+def test_scheme1_wide_front_doors_on_card(cuda_device):
+    """The front doors on the card equal the 'torch' backend: float64 at
+    p = 12 (2-D, batched, ops both decomps), float16 under ozaki1-p4
+    (widened, float16 out), complex128 under ozaki1-p8 (4M of float64
+    parts: 8 encodes + 4 plane GEMMs), a float64 prepared weight with its
+    twin at p = 12, and float16 under ozaki2 refused."""
+    from repro_torch import api
+    from repro_torch.core import emulated
+    from repro_torch.kernels import prepared
+    g = torch.Generator(device=cuda_device).manual_seed(99)
+    f64 = torch.float64
+    a = _eq19(g, (100, 300), f64, cuda_device)
+    b = _eq19(g, (300, 70), f64, cuda_device)
+    for spec, x, y in (("ozaki1-p12", a, b),
+                       ("ozaki1-p4", a.half(), b.half()),
+                       ("ozaki1-p8", _eq19(g, (40, 96), torch.complex128,
+                                           cuda_device),
+                        _eq19(g, (96, 24), torch.complex128, cuda_device))):
+        ozaki1.COUNTS.reset()
+        out = api.einsum("mk,kn->mn", x, y, precision=spec)
+        c = ozaki1.COUNTS
+        launches = (c.launches_2d, c.launches_encode, c.launches_planes,
+                    c.plain_cuda_calls)
+        assert launches == ((4, 8, 4, 0) if x.is_complex() else (1, 2, 1, 0))
+        ref = api.einsum("mk,kn->mn", x, y, precision=spec, backend="torch")
+        assert out.dtype == ref.dtype == (x.dtype if x.is_complex()
+                                          else torch.promote_types(x.dtype,
+                                                                   y.dtype))
+        assert _same_bits(torch.view_as_real(out) if out.is_complex()
+                          else out, torch.view_as_real(ref)
+                          if ref.is_complex() else ref), spec
+    a3 = _eq19(g, (4, 33, 200), f64, cuda_device)
+    b3 = _eq19(g, (4, 200, 65), f64, cuda_device)
+    ozaki1.COUNTS.reset()
+    out = api.einsum("bmk,bkn->bmn", a3, b3, precision="ozaki1-p12")
+    assert ozaki1.COUNTS.launches_batched == 1
+    assert torch.equal(out, api.einsum("bmk,bkn->bmn", a3, b3,
+                                       precision="ozaki1-p12",
+                                       backend="torch"))
+    cfg = EmulationConfig(scheme="ozaki1", p=12)
+    routes = [ops.fused_scheme1_matmul(a, b, dataclasses.replace(
+        cfg, decomp=d), out_dtype=f64) for d in ("kernel", "xla")]
+    assert torch.equal(routes[0], routes[1])
+    assert torch.equal(routes[0], api.einsum("mk,kn->mn", a, b,
+                                             precision="ozaki1-p12"))
+    w = _eq19(g, (300, 70), f64, cuda_device)
+    prep = prepared.prepare_rhs(w, cfg, with_twin=True)
+    assert prep.layout == "planes" and prep.scale.dtype == f64
+    ref_prep = prepared.prepare_rhs(w.cpu(), dataclasses.replace(
+        cfg, backend="cuda"), with_twin=True)
+    assert torch.equal(prep.slices.cpu(), ref_prep.slices)
+    assert torch.equal(prep.twin.slices.cpu(), ref_prep.twin.slices)
+    out = emulated.emulated_dot_prepared(a, w, prep, cfg)
+    assert torch.equal(out, api.einsum("mk,kn->mn", a, w,
+                                       precision="ozaki1-p12"))
+    g2 = _eq19(g, (100, 70), f64, cuda_device)
+    da = prepared.matmul_prepared(g2, prep.twin, f64)
+    assert torch.equal(da, api.einsum("mk,kn->mn", g2, w.T,
+                                      precision="ozaki1-p12"))
+    h = a.half()
+    with pytest.raises(NotImplementedError, match="item 3"):
+        api.einsum("mk,kn->mn", h, h.T, precision="ozaki2-m8")

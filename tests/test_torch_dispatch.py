@@ -212,7 +212,8 @@ def test_ozaki2_cached_spec_runs():
 def test_native_and_complex():
     """Native is a plain matmul (complex stays complex); complex64 runs as
     Scheme I's 4M and Scheme II's 3M (their parity with the reference:
-    tests/test_torch_complex3m.py); complex128 under Scheme I raises."""
+    tests/test_torch_complex3m.py); complex128 under Scheme I runs 4M of
+    float64 parts."""
     from repro_torch.core import complex3m, scheme1
     a, b = torch.randn(4, 8), torch.randn(8, 3)
     torch.testing.assert_close(
@@ -227,6 +228,8 @@ def test_native_and_complex():
     assert torch.equal(
         dispatch.emulated_matmul(ac, bc, cfg="ozaki2-m6"),
         complex3m.matmul(ac, bc, EmulationConfig(scheme="ozaki2", p=6)))
-    with pytest.raises(NotImplementedError, match="complex128"):
-        dispatch.emulated_matmul(ac.to(torch.complex128),
-                                 bc.to(torch.complex128), cfg="ozaki1-p4")
+    z, zb = ac.to(torch.complex128), bc.to(torch.complex128)
+    out = dispatch.emulated_matmul(z, zb, cfg="ozaki1-p4")
+    assert out.dtype == torch.complex128
+    assert torch.equal(out, scheme1.matmul_complex_4m(
+        z, zb, EmulationConfig(scheme="ozaki1")))

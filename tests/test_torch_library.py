@@ -177,9 +177,14 @@ def test_fused_scheme1_routes_agree_on_ragged_shape(dtype):
 
 
 def test_fused_scheme1_matmul_refuses():
+    """What the wrapper refuses; float64 it now runs (as the 2-D front
+    door does)."""
     a = torch.randn(8, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.fused_scheme1_matmul(a.double(), a.T.double())
+    out = ops.fused_scheme1_matmul(a.double(), a.T.double(),
+                                   out_dtype=torch.float64)
+    assert out.dtype == torch.float64
+    assert torch.equal(out, dispatch.emulated_matmul(
+        a.double(), a.T.double(), cfg="ozaki1-p4", out_dtype=torch.float64))
     with pytest.raises(ValueError, match="one tile"):
         ops.fused_scheme1_matmul(a, a.T, blocks=JBlocks(128, 128, 128))
     with pytest.raises(ValueError, match="ozaki1-only"):

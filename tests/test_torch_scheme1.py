@@ -89,7 +89,7 @@ def test_exact_pow2_is_exact_and_clamped():
 
 def test_split_reconstructs_within_residual_bound():
     a = t(conditioned(np.random.default_rng(0), (16, 64)))
-    sl, mu = scheme1.split(a, 4, 7, dim=-1)
+    sl, mu = scheme1.split(a, 4, 7, axis=-1)
     w = torch.tensor([2.0 ** (-7 * (i + 1)) for i in range(4)],
                      dtype=torch.float64)
     recon = (sl.double() * w[:, None, None]).sum(0) * mu.double()
