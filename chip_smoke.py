@@ -3,11 +3,12 @@
     python3 chip_smoke.py
 
 Drives repro_torch only (no jax, nothing of the reference package) on the
-card, with no CPU fallback, in twenty-five phases. Phases 20-23 run right
-after the build, so that every wall they take comes before the process's
-first torch.profiler session; phase 24 follows the yardsticks, phase 25
-follows phase 15 (on its DGEMM and ZGEMM operands), and the others follow
-in their order:
+card, with no CPU fallback, in twenty-six phases. Phase 26's walls and
+phases 20-23 run right after the build, so that every wall they take
+comes before the process's first torch.profiler session; phase 24 and
+phase 26's profiled steps and kernel times follow the yardsticks, phase
+25 follows phase 15 (on its DGEMM and ZGEMM operands), and the others
+follow in their order:
 
 1. build: nvcc compiles the port's CUDA kernels from this checkout (five
    sources), one process per source, in parallel;
@@ -217,7 +218,30 @@ in their order:
     II's at m = 16 there;
     then the front doors (einsum in each type, the batch, 4M, K11 -> K2 /
     K2r -> K8, prepare_rhs + emulated_dot_prepared with its backward) with
-    the launches read around each.
+    the launches read around each;
+26. qwen2-moe-a2.7b-emu (models/moe.py) at its published widths and depth
+    (24 layers, d 2048, 16 heads of 128 with qkv bias, 60 routed experts
+    padded to 64, top-4, expert d_ff 1408, 4 gated shared experts of
+    5632, vocab 151936 padded to 152064, bf16; seeded random weights)
+    under its gemm_sites (ozaki1-p4+cached, the experts ozaki1-p4 on K4,
+    the router ozaki2-m6 on K5g, attn_qk ozaki2-m6, attn_av ozaki1-p4):
+    the head prepared once, phase 3's trace served with every launch
+    checked (a step: 168 2-D EmuGEMM-I calls, 1 K3, 96 K4, 24 K5g, 24
+    K6), tokens/s, TTFT p50, step walls, peak memory; request 0 alone ==
+    in its cohort; one mixed step on 'cuda' and 'torch' bit for bit;
+    LockstepEngine on qwen2-moe-a2.7b under ozaki1-p4+cached (8 x 48, 16
+    new: prefill and decode step walls, launches, prefill logits cuda ==
+    torch); 2 of the 24 layers trained at full width with the config's
+    2 microbatches (a warm-up and 2 timed steps of 8 x 128 tokens, one of
+    2 x 2048, where groups of 4 tokens drop slots), and under strict
+    deterministic algorithms the loss and every gradient leaf on 'cuda'
+    and 'torch' bit for bit at both sizes; after the yardsticks, a mixed
+    and a decode step profiled (idle share, device and host time by
+    kernel and op), K4 at the expert stacks (64, 4 and 384 rows; dense
+    and mostly-zero rows) and K5g at the router's shapes against their
+    plain versions bit for bit, each timed with K1, K3 and K6 at a step's
+    shapes beside its bound and torch.bmm / torch.matmul in bf16 and
+    float32.
 
 After phases 20-23, one line names the device kernels that the
 library yardsticks (cuBLAS's batched DGEMM, scaled_dot_product_attention
@@ -265,7 +289,7 @@ from repro_torch.kernels import (build, decompose, dispatch,  # noqa: E402
                                  ozaki3m, prepared)
 from repro_torch.launch import steps as S, train as train_cli  # noqa: E402
 from repro_torch.launch.serve import build_trace  # noqa: E402
-from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import model as M, moe  # noqa: E402
 from repro_torch.models.common import GemmPolicy, pad_vocab  # noqa: E402
 from repro_torch.runtime import Trainer  # noqa: E402
 from repro_torch.serving import (ContinuousEngine, LockstepEngine,  # noqa
@@ -986,25 +1010,31 @@ def yardstick_kernels(fn, calls: int = 10) -> dict:
 
 
 def device_ms(fn, calls: int = 20) -> float:
-    """Mean device ms of the one kernel ``fn`` launches a call, from one
+    """Mean device ms of the one kernel ``fn`` launches a call, from a
     torch.profiler pass over ``calls`` calls: the mean of the kernel
     events the pass kept (a pass late in a process was seen to drop one
-    of 50); raises if it kept none."""
+    of 50, and one after many sessions to keep none). A pass that kept
+    none is made once more; if that keeps none either, the time is
+    ``queued_ms``'s (CUDA events behind a spin kernel) and a line says
+    so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
-    if not spans:
-        raise AssertionError(f"the profiler kept no kernel event of {calls} "
-                             "calls")
-    return sum(spans) / 1e3 / len(spans)
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start
+                 for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if spans:
+            return sum(spans) / 1e3 / len(spans)
+    ms = queued_ms(fn)
+    log(f"[device_ms] two profiler passes kept no kernel event of {calls} "
+        f"calls; {ms:.4f} ms a call by CUDA events behind a spin kernel")
+    return ms
 
 
 def queued_ms(fn, iters: int = 10) -> float:
@@ -3717,17 +3747,42 @@ def s1_counts():
     return ozaki1.LaunchCounts(**vars(ozaki1.COUNTS))
 
 
+def site_launches(mcfg, policy, prepared_head: bool, steps: int = 1):
+    """(EmuGEMM-I, EmuGEMM-II) launches of ``steps`` forward passes under
+    ``policy``. A layer: q, k, v, o ('attn') and the (shared experts')
+    gate, up and down ('ffn') as 2-D products, attn_qk and attn_av
+    batched; with a MoE, the router ('moe_gate') a 2-D float32 product
+    and the three expert stacks ('moe_expert') batched; the head one 2-D
+    call, or one mixed call when prepared. A 2-D EmuGEMM-I call is 2
+    encodes + 1 plane GEMM, a mixed call 1 + 1, an EmuGEMM-II call
+    2 + 1."""
+    L = mcfg.n_layers
+    s1 = {"2d": 0, "mixed": 0, "batched": 0}
+    s2 = {"2d": 0, "batched": 0}
+    sites = [("attn", "2d", 4 * L), ("ffn", "2d", 3 * L),
+             ("attn_qk", "batched", L), ("attn_av", "batched", L),
+             ("logits", "mixed" if prepared_head else "2d", 1)]
+    if mcfg.moe is not None:
+        sites += [("moe_gate", "2d", L), ("moe_expert", "batched", 3 * L)]
+    for site, form, n in sites:
+        scheme = policy.for_site(site).scheme
+        if scheme == "ozaki1":
+            s1[form] += n
+        elif scheme == "ozaki2":
+            s2[form] += n
+    s1["encodes"] = 2 * s1["2d"] + s1["mixed"]
+    s1["plane_gemms"] = s1["2d"] + s1["mixed"]
+    s2["encodes"] = 2 * (s2["2d"] + s2["batched"])
+    s2["plane_gemms"] = s2["2d"] + s2["batched"]
+    return ({k: steps * v for k, v in s1.items()},
+            {k: steps * v for k, v in s2.items()})
+
+
 def step_launches(mcfg, prepared_head: bool, steps: int = 1) -> dict:
-    """EmuGEMM-I launches of ``steps`` forward passes of a dense model
-    under one Scheme-I spec: seven projections a layer and the head on
-    the 2-D route (2 encodes + 1 plane GEMM each) unless the head is
-    prepared (then one mixed call: an lhs encode + 1 plane GEMM), and
-    attn_qk / attn_av on the batched kernel."""
-    n2d = 7 * mcfg.n_layers + (0 if prepared_head else 1)
-    mixed = 1 if prepared_head else 0
-    return {k: steps * v for k, v in {
-        "2d": n2d, "mixed": mixed, "batched": 2 * mcfg.n_layers,
-        "encodes": 2 * n2d + mixed, "plane_gemms": n2d + mixed}.items()}
+    """EmuGEMM-I launches of ``steps`` forward passes under one Scheme-I
+    spec (``site_launches`` with every site on EmuGEMM-I)."""
+    return site_launches(mcfg, GemmPolicy(default=api.precision(SPEC)),
+                         prepared_head, steps)[0]
 
 
 def launches_of(c) -> dict:
@@ -3813,9 +3868,15 @@ def mixed_step_logits(mcfg, params, policy, inputs):
     return logits
 
 
-def step_walls(dev, mcfg, params, policy, view_tokens, prepared_head):
+def step_walls(dev, mcfg, params, policy, view_tokens, prepared_head,
+               check=None):
     """Wall ms of a mixed and a decode step (mean of 3 after a warm-up),
-    each step's EmuGEMM-I launches checked."""
+    each step's launches checked: by ``check(what)`` when given, else the
+    EmuGEMM-I launches of a dense model."""
+    if check is None:
+        def check(what):
+            check_launches(what, s1_counts(),
+                           step_launches(mcfg, prepared_head))
     out = {}
     for kind, c, n_new in (("mixed", CHUNK, [16, 16, 5, 1]),
                            ("decode", 1, [1, 1, 1, 1])):
@@ -3831,8 +3892,7 @@ def step_walls(dev, mcfg, params, policy, view_tokens, prepared_head):
 
         reset_counts()
         step()
-        check_launches(f"{mcfg.name} {kind} step", s1_counts(),
-                       step_launches(mcfg, prepared_head))
+        check(f"{mcfg.name} {kind} step")
         t0 = time.perf_counter()
         for _ in range(3):
             step()
@@ -4145,6 +4205,449 @@ def granite_kernel_phase(dev, arch, params, prepped, view_tokens):
                                               if "profile" not in k}))
     return out
 
+
+# ---------------------------------------------------------------------------
+# Phase 26: qwen2-moe-a2.7b-emu (models/moe.py) at its published widths and
+# depth: the router on K5g, the expert stacks on K4. Its walls are taken
+# right after the build (moe_phase), before any profiler session; its
+# profiled steps and kernel times come after phase 24 (moe_kernel_phase).
+# ---------------------------------------------------------------------------
+
+MOE, MOE_EMU = "qwen2-moe-a2.7b", "qwen2-moe-a2.7b-emu"
+MOE_SPEC = "ozaki1-p4+cached"     # the lockstep run's; the -emu default
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 2
+# The expert stacks' rows (G * C, one token a group): a mixed serve step
+# (4 lanes x chunk 16), a decode step, a lockstep prefill of 8 x 48.
+MOE_TOKENS = (("mixed", LANES * CHUNK), ("decode", LANES),
+              ("prefill", REQUESTS * PROMPT))
+
+
+def moe_launches_of():
+    c2 = ozaki2.COUNTS
+    return (launches_of(ozaki1.COUNTS),
+            {"2d": c2.launches_2d, "batched": c2.launches_batched,
+             "encodes": c2.launches_encode, "plane_gemms": c2.launches_planes})
+
+
+def check_moe_launches(what, want):
+    got = moe_launches_of()
+    plain = ozaki1.COUNTS.plain_cuda_calls + ozaki2.COUNTS.plain_cuda_calls
+    if got != want or plain:
+        raise AssertionError(f"{what}: launches (EmuGEMM-I, EmuGEMM-II) "
+                             f"{got}, plain versions on CUDA {plain}; "
+                             f"expected {want} and none")
+
+
+def moe_serve_phase(dev, params, view_tokens):
+    """qwen2-moe-a2.7b-emu under its gemm_sites: the untied head prepared
+    once (one encode), then phase 3's trace served, its launches checked
+    against ``site_launches``; request 0 alone == in its cohort; step
+    walls; one mixed step on the 'cuda' and 'torch' backends (each with
+    its own head prep), bit for bit."""
+    arch = configs.get_config(MOE_EMU)
+    mcfg = arch.model
+    tag = f"[serve {MOE_EMU}]"
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    eng = ContinuousEngine(arch, max_seq=PROMPT + GEN, params=params,
+                           max_lanes=LANES, chunk=CHUNK, page_size=PAGE,
+                           device=dev)
+    torch.cuda.synchronize()
+    prep_ms = (time.perf_counter() - t0) * 1e3
+    policy, head = eng.policy, eng.params["head"]
+    if not (eng.prepared and isinstance(head, prepared.PreparedOperand)
+            and head.layout == "planes"
+            and ozaki1.COUNTS.launches_encode == 1):
+        raise AssertionError(f"{tag}: the head was not prepared once into "
+                             f"planes ({type(head).__name__}, "
+                             f"{ozaki1.COUNTS.launches_encode} encodes)")
+    eng, trace, toks, serve, _ = serve_trace(dev, arch, eng.params, policy)
+    check_moe_launches(f"{tag} serve", site_launches(
+        mcfg, policy, True, serve["steps"]))
+    serve["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    serve["head_prepare_ms"] = prep_ms
+    serve["launches"] = moe_launches_of()
+    serve["launches_per_step"] = site_launches(mcfg, policy, True)
+    log(f"{tag} its gemm_sites: head prepared once (1 encode, "
+        f"{prep_ms:.1f} ms), {serve['steps']} steps, {REQUESTS} requests x "
+        f"{GEN} tokens in {serve['seconds']:.3f} s "
+        f"({serve['tok_per_s']:.1f} tok/s), ttft p50 "
+        f"{serve['ttft_p50_s']:.3f} s, peak {serve['peak_gib']:.2f} GiB; "
+        f"launches (EmuGEMM-I, EmuGEMM-II) {serve['launches']}, per step "
+        f"{serve['launches_per_step']}")
+    alone_equals_cohort(dev, arch, eng, trace, toks, tag)
+    serve.update(step_walls(
+        dev, mcfg, eng.params, policy, view_tokens, True,
+        check=lambda what: check_moe_launches(
+            what, site_launches(mcfg, policy, True))))
+    inputs = mixed_step_inputs(dev, mcfg, view_tokens)
+    torch_params = prepared.prepare_params(params,
+                                           on_backend(policy, "torch"))
+    a = mixed_step_logits(mcfg, eng.params, on_backend(policy, "cuda"),
+                          inputs)
+    b = mixed_step_logits(mcfg, torch_params, on_backend(policy, "torch"),
+                          inputs)
+    if torch_params["head"].layout != "interleaved" or not torch.equal(a, b):
+        raise AssertionError(f"{tag}: cuda and torch backend logits differ")
+    if not torch.isfinite(a).all() or a.shape != (LANES,
+                                                  pad_vocab(mcfg.vocab)):
+        raise AssertionError(f"{tag}: bad logits {a.shape}")
+    log(f"{tag} request 0 alone == in cohort; one mixed step: cuda == torch "
+        f"backend logits bit for bit; mixed step {serve['mixed_step_ms']:.1f}"
+        f" ms, decode step {serve['decode_step_ms']:.1f} ms")
+    return serve
+
+
+def moe_lockstep_phase(dev, params):
+    """LockstepEngine on qwen2-moe-a2.7b under MOE_SPEC, the head prepared:
+    REQUESTS prompts of PROMPT tokens (one token a group), GEN new; the
+    launches of the prefill and of a decode step checked, their walls;
+    the prefill's logits on the 'cuda' and 'torch' backends bit for
+    bit."""
+    arch = configs.get_config(MOE)
+    mcfg = arch.model
+    tag = f"[{MOE}]"
+    prompts = np.random.default_rng(2).integers(
+        0, mcfg.vocab, (REQUESTS, PROMPT)).astype(np.int32)
+    pt = torch.as_tensor(prompts, device=dev)
+    policy = GemmPolicy(default=api.precision(MOE_SPEC))
+    want = site_launches(mcfg, policy, True)
+    res = {}
+    eng = LockstepEngine(arch, None, PROMPT + GEN, on_backend(policy, "cuda"),
+                         params=params, prepare=True, device=dev)
+    eng.prefill(pt)                               # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = eng.prefill(pt)
+    torch.cuda.synchronize()
+    res["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    check_moe_launches(f"{tag} prefill", want)
+    tok = torch.argmax(logits[:, -1:, :mcfg.vocab], -1)
+    reset_counts()
+    t0 = time.perf_counter()
+    eng.decode(tok, PROMPT, cache)
+    torch.cuda.synchronize()
+    res["decode_step_ms"] = (time.perf_counter() - t0) * 1e3
+    check_moe_launches(f"{tag} decode step", want)
+    del cache
+    t0 = time.perf_counter()
+    toks = eng.generate(prompts, GEN)
+    res["generate_s"] = time.perf_counter() - t0
+    res["tok_per_s"] = REQUESTS * GEN / res["generate_s"]
+    del eng
+    ref = LockstepEngine(arch, None, PROMPT + GEN,
+                         on_backend(policy, "torch"), params=params,
+                         prepare=True, device=dev)
+    ref_logits, _ = ref.prefill(pt)
+    torch.cuda.synchronize()
+    del ref
+    if not torch.equal(logits, ref_logits):
+        raise AssertionError(f"{tag}: lockstep prefill logits differ between "
+                             "the cuda and torch backends")
+    if (toks.shape != (REQUESTS, GEN) or not torch.isfinite(logits).all()
+            or ((toks < 0) | (toks >= mcfg.vocab)).any()):
+        raise AssertionError(f"{tag}: malformed lockstep output")
+    res["launches_per_step"] = want
+    log(f"{tag} lockstep {MOE_SPEC} (head prepared): {REQUESTS} x {PROMPT} "
+        f"prompts, {GEN} new: prefill {res['prefill_ms']:.1f} ms, decode "
+        f"step {res['decode_step_ms']:.1f} ms, generate "
+        f"{res['generate_s']:.3f} s ({res['tok_per_s']:.1f} tok/s); prefill "
+        f"logits cuda == torch bit for bit; launches a prefill and a decode "
+        f"step {want}")
+    return res
+
+
+def moe_train_phase(dev):
+    """2 of the 24 layers of qwen2-moe-a2.7b-emu at full width under its
+    gemm_sites, AdamW, the config's 2 microbatches (its dense weights
+    prepared once a step): a warm-up and MOE_TRAIN_STEPS timed steps of 8
+    x 128 tokens (512 a microbatch: 512 groups of one token), one of 2 x
+    2048 (2048 a microbatch: 512 groups of 4 tokens at capacity 1, so
+    slots are dropped); then, under deterministic algorithms (an op
+    without a deterministic CUDA implementation raises), the loss and
+    every gradient leaf on the 'cuda' and 'torch' backends bit for bit at
+    both sizes."""
+    base = configs.get_config(MOE_EMU)
+    arch = dataclasses.replace(base, model=dataclasses.replace(
+        base.model, n_layers=MOE_TRAIN_LAYERS))
+    tag = f"[train {MOE_EMU} {MOE_TRAIN_LAYERS}L]"
+    policy = dispatch.resolve_policy(arch.gemm_policy())
+    step = S.make_train_step(arch)
+    run = {"state": S.init_state(arch, 0, dev)}
+    batches = train_batches(arch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    losses, warm = run_steps(step, run, batches, 1)
+    timed, walls = run_steps(step, run, batches, MOE_TRAIN_STEPS)
+    losses += timed
+    launches = moe_launches_of()
+    plain = ozaki1.COUNTS.plain_cuda_calls + ozaki2.COUNTS.plain_cuda_calls
+    peak = torch.cuda.max_memory_allocated(dev)
+    if plain or not (launches[0]["batched"] and launches[1]["2d"]):
+        raise AssertionError(f"{tag}: launches {launches}, plain versions on "
+                             f"CUDA {plain}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    long_losses, long_walls = run_steps(
+        step, run, train_batches(arch, LONG_BATCH, LONG_SEQ), 1)
+    long_peak = torch.cuda.max_memory_allocated(dev)
+    if not all(math.isfinite(x) for x in losses + long_losses):
+        raise AssertionError(f"{tag}: non-finite loss {losses + long_losses}")
+    res = {"losses": losses, "warmup_wall_s": warm[0], "step_wall_s": walls,
+           "tokens_per_s": MOE_TRAIN_STEPS * TOKENS / sum(walls),
+           "peak_gib": peak / 2 ** 30,
+           "launches_in_warmup_and_timed_steps": launches,
+           "long_seq": {"tokens": LONG_BATCH * LONG_SEQ,
+                        "losses": long_losses, "step_wall_s": long_walls,
+                        "peak_gib": long_peak / 2 ** 30}}
+    log(f"{tag} {arch.train.microbatches} microbatches, AdamW: "
+        f"{json.dumps(res)}")
+    params = run["state"]["params"]
+    del run, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for b, s in ((TRAIN_BATCH, TRAIN_SEQ), (LONG_BATCH, LONG_SEQ)):
+            _, batch = next(train_batches(arch, b, s))
+            halves = S.split_batch(S.batch_to(batch, dev),
+                                   arch.train.microbatches)
+
+            def grads(backend):
+                pol = on_backend(policy, backend)
+                return S.accumulate_grads(
+                    S.make_loss_fn(arch, pol), params, halves,
+                    prepared.build_step_preps(params, pol))
+
+            grads_equal(f"({MOE_EMU} {MOE_TRAIN_LAYERS}L, {b} x {s} tokens "
+                        f"in {arch.train.microbatches} microbatches) cuda == "
+                        "torch backend", grads("cuda"), grads("torch"))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return res
+
+
+def moe_phase(dev, view_tokens):
+    """Phase 26's walls (right after the build): full-width, full-depth
+    qwen2-moe-a2.7b-emu drawn on the card, served, the lockstep path on
+    its weights, then 2 of its layers trained."""
+    arch = configs.get_config(MOE_EMU)
+    mcfg = arch.model
+    t0 = time.perf_counter()
+    params = M.init_params(mcfg, 0, dev)
+    torch.cuda.synchronize()
+    log(f"[{MOE_EMU}] published widths and depth ({mcfg.n_layers} layers, "
+        f"d {mcfg.d_model}, {mcfg.n_heads} heads of "
+        f"{mcfg.resolved_head_dim}, {mcfg.moe.n_experts} routed experts "
+        f"padded to {moe.padded_experts(mcfg.moe)}, top-{mcfg.moe.top_k}, "
+        f"expert d_ff {mcfg.moe.d_ff_expert}, {mcfg.moe.n_shared} shared of "
+        f"{mcfg.moe.d_ff_shared}, vocab {mcfg.vocab} padded to "
+        f"{pad_vocab(mcfg.vocab)}): {M.param_count(params) / 1e9:.3f} B "
+        f"parameters ({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB) "
+        f"drawn on the card in {time.perf_counter() - t0:.1f} s")
+    report = {"serve": moe_serve_phase(dev, params, view_tokens),
+              "lockstep": moe_lockstep_phase(dev, params)}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["train"] = moe_train_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{MOE_EMU}] summary " + json.dumps(report))
+    return report
+
+
+def moe_kernel_phase(dev, view_tokens):
+    """Phase 26 after the profiler sessions: a mixed and a decode step of
+    qwen2-moe-a2.7b-emu profiled (device-busy, idle share, top kernels);
+    K4 at the expert stacks (MOE_TOKENS rows; dense rows and the
+    dispatched stacks' zero rows) and K5g at the router's shapes against
+    their plain versions bit for bit; each of them, and K1, K3 and K6 at
+    a mixed step's shapes, timed beside its bound and torch.bmm /
+    torch.matmul of the same shapes in bf16 and float32."""
+    from torch.profiler import ProfilerActivity, profile
+    arch = configs.get_config(MOE_EMU)
+    mcfg = arch.model
+    L = mcfg.n_layers
+    policy = dispatch.resolve_policy(arch.gemm_policy())
+    params = prepared.prepare_params(M.init_params(mcfg, 0, dev), policy)
+    out = {}
+    for kind, c, n_new in (("mixed", CHUNK, [16, 16, 5, 1]),
+                           ("decode", 1, [1, 1, 1, 1])):
+        tokens = torch.ones((LANES, c), device=dev, dtype=torch.int32)
+        start = torch.tensor([0, 16, 32, 47], device=dev, dtype=torch.int32)
+        nn = torch.tensor(n_new, device=dev, dtype=torch.int32)
+        cache = M.init_cache(mcfg, LANES, view_tokens, dev)
+        with torch.inference_mode():
+            M.forward_step(params, mcfg, tokens, start, nn, cache, policy)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                M.forward_step(params, mcfg, tokens, start, nn, cache,
+                               policy)
+            torch.cuda.synchronize()
+            prof_wall = (time.perf_counter() - t0) * 1e3
+        out[f"{kind}_profile"] = {**device_summary(prof, prof_wall, 6),
+                                  **host_summary(prof)}
+        log(f"[{MOE_EMU}] profiled {kind} step: "
+            + json.dumps(out[f"{kind}_profile"]))
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(26)
+    bf, f32 = torch.bfloat16, torch.float32
+    e, d = moe.padded_experts(mcfg.moe), mcfg.d_model
+    f, vp = mcfg.moe.d_ff_expert, pad_vocab(mcfg.vocab)
+    max_err = {"k4": 0.0, "k5g": 0.0, "k3": 0.0, "k6": 0.0}
+    # K4: gate and up (E, T, d) @ (E, d, f), down (E, T, f) @ (E, f, d).
+    k4 = {}
+    weights = {(k, n): conditioned(gen, (e, k, n), bf, dev)
+               for k, n in ((d, f), (f, d))}
+    for kind, rows in MOE_TOKENS:
+        per = {}
+        for name, (k, n), count in (("gate_up", (d, f), 2),
+                                    ("down", (f, d), 1)):
+            y = weights[(k, n)]
+            nu = scheme1.pow2_scale(y, -2)
+            x = conditioned(gen, (e, rows, k), bf, dev)
+            # The dispatched stacks: a slot holds a token only where one
+            # was routed to the expert; the others are zero rows.
+            routed = x * (torch.rand((e, rows, 1), generator=gen,
+                                     device=dev) < 0.1)
+            for a in (x, routed):
+                mu = scheme1.pow2_scale(a, -1)
+                before = ozaki1.COUNTS.launches_batched
+                got = ozaki1.fused_matmul_scheme1(a, y, mu, nu, P_MAIN, 7, bf)
+                if ozaki1.COUNTS.launches_batched != before + 1:
+                    raise AssertionError("K4 at the expert stacks: not one "
+                                         "launch")
+                check_equal(f"K4 {kind} {name} {(e, rows, k, n)}", got,
+                            ozaki1.fused_matmul_plain(a, y, mu, nu, P_MAIN,
+                                                      7, bf), max_err, "k4")
+            mu = scheme1.pow2_scale(x, -1)
+            xf, yf = x.float(), y.float()
+            bms, by = bound_ms(e, rows, k, n, P_MAIN, 2, 2)
+            per[name] = {
+                "shape": [e, rows, k, n], "launches_per_step": count * L,
+                "ms": queued_ms(lambda: ozaki1.launch_batched(
+                    x, y, mu, nu, P_MAIN, 7, bf)),
+                "plain_ms": time_ms(lambda: ozaki1.fused_matmul_plain(
+                    x, y, mu, nu, P_MAIN, 7, bf), 3),
+                "bound_ms": bms, "bound_by": by,
+                "library_bf16_ms": time_ms(lambda: torch.bmm(x, y), 10),
+                "library_f32_ms": time_ms(lambda: torch.bmm(xf, yf), 10)}
+            del xf, yf
+        step = {key: sum(per[nm][key] * per[nm]["launches_per_step"]
+                         for nm in per)
+                for key in ("ms", "plain_ms", "bound_ms", "library_bf16_ms",
+                            "library_f32_ms")}
+        k4[kind] = {"per_launch": per, "per_step": step}
+    del weights
+    out["k4"] = k4
+    # K5g: the router, (T, d) @ (d, E) in float32 at m = 6.
+    moduli = default_moduli(M_MAIN)
+    router = conditioned(gen, (d, e), f32, dev)
+    k5g = {}
+    for kind, rows in MOE_TOKENS:
+        a = conditioned(gen, (rows, d), f32, dev)
+        mu, nu = scheme2.scales(a, router, moduli)
+        c = ozaki2.COUNTS
+        before = (c.launches_2d, c.launches_encode, c.launches_planes)
+        got = ozaki2.fused_matmul_scheme2(a, router, mu, nu, moduli, f32)
+        if (c.launches_2d, c.launches_encode, c.launches_planes) != (
+                before[0] + 1, before[1] + 2, before[2] + 1):
+            raise AssertionError("K5g at the router: not 2 encodes + 1 plane "
+                                 "GEMM")
+        check_equal(f"K5g router {(rows, d, e)}", got,
+                    ozaki2.fused_matmul_scheme2_plain(a, router, mu, nu,
+                                                      moduli, f32),
+                    max_err, "k5g")
+        bms, by = scheme2_bound(1, rows, d, e, M_MAIN, 4, 4)
+        ab, rb = a.to(bf), router.to(bf)
+        k5g[kind] = {
+            "shape": [rows, d, e], "launches_per_step": L,
+            "ms": queued_ms(lambda: ozaki2.fused_matmul_scheme2(
+                a, router, mu, nu, moduli, f32)),
+            "events_ms": time_ms(lambda: ozaki2.fused_matmul_scheme2(
+                a, router, mu, nu, moduli, f32), 20),
+            "plain_ms": time_ms(lambda: ozaki2.fused_matmul_scheme2_plain(
+                a, router, mu, nu, moduli, f32), 3),
+            "bound_ms": bms, "bound_by": by,
+            "library_f32_ms": time_ms(lambda: torch.matmul(a, router), 20),
+            "library_bf16_ms": time_ms(lambda: torch.matmul(ab, rb), 20)}
+    out["k5g"] = k5g
+    # K1: the 2-D calls of a mixed step (q, k, v, o; the shared experts'
+    # gate, up and down), weights rotated past the L2.
+    m = LANES * CHUNK
+    k1 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "encode_ms": 0.0,
+          "planes_ms": 0.0, "mainloop_ms": 0.0, "library_bf16_ms": 0.0,
+          "library_f32_ms": 0.0, "launches_per_step": 7 * L}
+    fs = mcfg.moe.d_ff_shared
+    for k, n, count in ((d, d, 4), (d, fs, 2), (fs, d, 1)):
+        copies = max(1, math.ceil(2 * L2_BYTES / (2 * k * n)))
+        t = route_times(gen, dev, m, k, n, False, P_MAIN, bf, copies)
+        t["encode_ms"] = t["encode_a_ms"] + t["encode_b_ms"]
+        a, b = conditioned(gen, (m, k), bf, dev), conditioned(gen, (k, n),
+                                                               bf, dev)
+        af, bf32 = a.float(), b.float()
+        t["library_bf16_ms"] = time_ms(lambda: torch.matmul(a, b), 20)
+        t["library_f32_ms"] = time_ms(lambda: torch.matmul(af, bf32), 20)
+        for key in k1:
+            if key in t:
+                k1[key] += count * L * t[key]
+        k1["bound_ms"] += count * L * bound_ms(1, m, k, n, P_MAIN, 2, 2)[0]
+    out["k1_mixed_step"] = k1
+    # K3: the logits of a step, 4 lanes against the prepared head.
+    a = conditioned(gen, (LANES, d), bf, dev)
+    w = conditioned(gen, (d, vp), bf, dev)
+    head = prepared.prepare_rhs(w, api.precision(SPEC))
+    torch_head = prepared.prepare_rhs(w, api.precision(SPEC,
+                                                       backend="torch"))
+    check_equal("K3 on the head", prepared.matmul_prepared(a, head, f32),
+                prepared.matmul_prepared(a, torch_head, f32), max_err, "k3")
+    af, wf = a.float(), w.float()
+    bms, by = mixed_bound(LANES, d, vp, P_MAIN, 2, 4)
+    out["k3_head"] = {
+        "shape": [LANES, d, vp], "launches_per_step": 1,
+        "ms": queued_ms(lambda: prepared.matmul_prepared(a, head, f32)),
+        "plain_ms": time_ms(lambda: prepared.matmul_prepared(
+            a, torch_head, f32), 3),
+        "bound_ms": bms, "bound_by": by,
+        "library_bf16_ms": time_ms(lambda: torch.matmul(a, w), 20),
+        "library_f32_ms": time_ms(lambda: torch.matmul(af, wf), 20)}
+    del w, wf, head, torch_head
+    # K6: attn_qk of a mixed and a decode step (16 KV heads of 128 a lane,
+    # one query head each) at m = 6.
+    bkv, hd = LANES * mcfg.n_kv_heads, mcfg.resolved_head_dim
+    k6 = {}
+    for kind, c in (("mixed", CHUNK), ("decode", 1)):
+        q = conditioned(gen, (bkv, c, hd), bf, dev)
+        kt = conditioned(gen, (bkv, view_tokens, hd), bf, dev).transpose(
+            -1, -2)
+        mu, nu = scheme2.scales(q, kt, moduli)
+        check_equal(f"K6 attn_qk {kind}", ozaki2.fused_matmul_scheme2(
+            q, kt, mu, nu, moduli, bf), ozaki2.fused_matmul_scheme2_plain(
+            q, kt, mu, nu, moduli, bf), max_err, "k6")
+        qf, ktf = q.float(), kt.float()
+        bms, by = scheme2_bound(bkv, c, hd, view_tokens, M_MAIN, 2, 2)
+        k6[kind] = {
+            "shape": [bkv, c, hd, view_tokens], "launches_per_step": L,
+            "ms": queued_ms(lambda: ozaki2.fused_matmul_scheme2(
+                q, kt, mu, nu, moduli, bf)),
+            "plain_ms": time_ms(lambda: ozaki2.fused_matmul_scheme2_plain(
+                q, kt, mu, nu, moduli, bf), 3),
+            "bound_ms": bms, "bound_by": by,
+            "library_bf16_ms": time_ms(lambda: torch.bmm(q, kt), 20),
+            "library_f32_ms": time_ms(lambda: torch.bmm(qf, ktf), 20)}
+    out["k6_attn_qk"] = k6
+    out["max_abs_err"] = max_err
+    log(f"[{MOE_EMU}] kernels: " + json.dumps(
+        {k: v for k, v in out.items() if "profile" not in k}))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4650,12 +5153,15 @@ def main() -> int:
     log(card)
     build_phase()
     view_tokens = PAGE * math.ceil((PROMPT + GEN - 1 + CHUNK) / PAGE)
-    # Phases 20-23 first: their walls come before any profiler session.
+    # Phases 26 and 20-23 first: their walls come before any profiler
+    # session.
+    moe_walls = moe_phase(dev, view_tokens)
     gparams, gprepped, new_paths = new_path_phases(dev, view_tokens)
     yardsticks = yardstick_phase(dev)
     gk = granite_kernel_phase(dev, configs.get_config(GRANITE), gparams,
                               gprepped, view_tokens)
     del gparams, gprepped
+    mk = moe_kernel_phase(dev, view_tokens)
 
     arch = configs.get_config("olmo-1b")
     spec_policy = GemmPolicy(default=api.precision(SPEC))
@@ -5037,6 +5543,43 @@ def main() -> int:
                 k: v for k, v in yardsticks["k10_f32"].items()
                 if ("split" in k) == (row["name"] == "flash_split_3xtf32")}
     kernels += library_rows + wide_rows
+    # Phase 26: qwen2-moe-a2.7b-emu's shapes beside each kernel's row.
+    s1_run, s2_run = moe_walls["serve"]["launches"]
+    moe_serve = (f"launches: the {MOE_EMU} serve of phase 3's trace "
+                 f"({moe_walls['serve']['steps']} steps)")
+    moe_rows = {
+        "emugemm1_batched": {"qwen2_moe_experts": {
+            **mk["k4"], "max_abs_err": mk["max_abs_err"]["k4"],
+            "launches": s1_run["batched"],
+            "per": f"the expert stacks (E, T, d) @ (E, d, f) (gate, up) and "
+                   f"(E, T, f) @ (E, f, d) (down), bf16, p = {P_MAIN}, at T "
+                   f"rows of a mixed step, a decode step and a lockstep "
+                   f"prefill; ms: CUDA events behind a spin kernel; "
+                   f"{moe_serve}: 3 expert launches and attn_av a layer"}},
+        "emugemm2_2d": {"qwen2_moe_router": {
+            **mk["k5g"], "max_abs_err": mk["max_abs_err"]["k5g"],
+            "launches": s2_run["2d"],
+            "per": f"the router (T, d) @ (d, E), float32, m = {M_MAIN}; ms: "
+                   f"the call's device time (2 encodes + 1 plane GEMM) "
+                   f"behind a spin kernel, events_ms: back to back; "
+                   f"{moe_serve}"}},
+        "emugemm1_2d": {"qwen2_moe_serve": {
+            **mk["k1_mixed_step"], "launches": s1_run["2d"],
+            "per": f"the 2-D calls of one mixed serve step (q, k, v, o, the "
+                   f"shared experts' gate, up, down; 7 a layer), weights "
+                   f"cold; {moe_serve}"}},
+        "emugemm1_mixed": {"qwen2_moe_head": {
+            **mk["k3_head"], "max_abs_err": mk["max_abs_err"]["k3"],
+            "launches": s1_run["mixed"],
+            "per": f"the logits GEMM of a serve step against the head's "
+                   f"planes, prepared once a session; {moe_serve}"}},
+        "emugemm2_batched": {"qwen2_moe_attn_qk": {
+            **mk["k6_attn_qk"], "max_abs_err": mk["max_abs_err"]["k6"],
+            "launches": s2_run["batched"],
+            "per": f"attn_qk of a mixed and a decode step, m = {M_MAIN}; "
+                   f"{moe_serve}"}}}
+    for row in kernels:
+        row.update(moe_rows.get(row["name"], {}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

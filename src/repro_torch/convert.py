@@ -7,6 +7,9 @@ parameters: the same nested dicts of tensors, in the same layout. The
 stacked ``layers`` axis is kept by default, as the port's model indexes
 it; ``split_layers=True`` returns one dict per layer under ``"blocks"``
 instead, for callers that want per-layer tensors.
+
+Each leaf keeps its own dtype, as in the reference's tree: a bf16
+model's MoE router is float32 there and stays float32 here.
 """
 
 from __future__ import annotations
@@ -19,14 +22,15 @@ from repro_torch.models import blocks as B
 from repro_torch.models import model as M
 
 
-def _to_torch(tree, dtype: torch.dtype, device):
+def _to_torch(tree, device):
     if isinstance(tree, dict):
-        return {k: _to_torch(v, dtype, device) for k, v in tree.items()}
+        return {k: _to_torch(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_to_torch(v, dtype, device) for v in tree]
+        return [_to_torch(v, device) for v in tree]
     arr = np.asarray(tree)
+    dtype = None
     if arr.dtype.name == "bfloat16":      # ml_dtypes: widen exactly first
-        arr = arr.astype(np.float32)
+        arr, dtype = arr.astype(np.float32), torch.bfloat16
     # A copy: jax hands out read-only buffers.
     return torch.from_numpy(np.array(arr, copy=True)).to(device=device,
                                                          dtype=dtype)
@@ -42,7 +46,7 @@ def params_from_jax(tree, mcfg: ModelConfig, device="cuda",
         raise NotImplementedError(
             f"parameter groups {sorted(extra)} have no counterpart in the "
             "port yet (ROADMAP.md § 1 item 4)")
-    params = _to_torch(tree, getattr(torch, mcfg.dtype), device)
+    params = _to_torch(tree, device)
     if split_layers:
         params["blocks"] = M.unstack_layers(params, mcfg.n_layers)
         del params["layers"]

@@ -1,5 +1,6 @@
 """Residual blocks of the port (``repro.models.blocks``): the attention
-block, pre-norm attention + pre-norm dense FFN, in its training forward
+block, pre-norm attention + pre-norm dense FFN or MoE (``models.moe``,
+softmax routing), in its training forward
 (``block_train``), its ragged serving step (``block_step``), and its
 whole-batch prefill and single-token decode against a contiguous cache
 (``init_block_cache``, ``block_prefill``, ``block_decode``)."""
@@ -7,7 +8,7 @@ whole-batch prefill and single-token decode against a contiguous cache
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention
+from repro_torch.models import attention, moe
 from repro_torch.models.attention import AttnConfig
 from repro_torch.models.common import (GemmPolicy, apply_ffn, apply_norm,
                                        init_ffn, init_norm)
@@ -25,27 +26,41 @@ def attn_config(mcfg: ModelConfig) -> AttnConfig:
 
 def check_supported(mcfg: ModelConfig) -> None:
     """Raise for anything of the reference's block zoo outside the slice."""
-    if (set(mcfg.block_pattern) != {"attn"} or mcfg.moe is not None
-            or mcfg.mla is not None or mcfg.frontend != "none" or mcfg.mtp):
+    if (set(mcfg.block_pattern) != {"attn"} or mcfg.mla is not None
+            or mcfg.frontend != "none" or mcfg.mtp):
         raise NotImplementedError(
-            f"{mcfg.name}: only dense attention blocks are ported yet "
-            "(ROADMAP.md § 1 item 4)")
+            f"{mcfg.name}: only attention blocks with a dense FFN or a "
+            "softmax-routed MoE are ported yet (ROADMAP.md § 1 item 4)")
+    if mcfg.moe is not None and mcfg.moe.scoring != "softmax":
+        raise NotImplementedError(
+            f"{mcfg.name}: {mcfg.moe.scoring} MoE scoring is not ported yet "
+            "(ROADMAP.md § 1 item 4.6)")
 
 
 def init_block(gen, mcfg: ModelConfig, dtype, device, lead: tuple = ()):
     d = mcfg.d_model
-    return {
+    p = {
         "ln1": init_norm(mcfg.norm, d, dtype, device, lead),
         "mixer": attention.init_attention(gen, attn_config(mcfg), dtype,
                                           device, lead),
         "ln2": init_norm(mcfg.norm, d, dtype, device, lead),
-        "ffn": init_ffn(gen, d, mcfg.d_ff, mcfg.act, dtype, device, lead),
     }
+    if mcfg.moe is not None:
+        p["moe"] = moe.init_moe(gen, d, mcfg.moe, mcfg.act, dtype, device,
+                                lead)
+    else:
+        p["ffn"] = init_ffn(gen, d, mcfg.d_ff, mcfg.act, dtype, device, lead)
+    return p
 
 
 def _ffn_part(params, mcfg: ModelConfig, x, policy: GemmPolicy):
+    """The pre-norm FFN or MoE residual: (x, aux loss)."""
     h = apply_norm(mcfg.norm, params["ln2"], x)
-    return x + apply_ffn(params["ffn"], h, mcfg.act, policy)
+    if "moe" in params:
+        out, aux = moe.apply_moe(params["moe"], h, mcfg.moe, mcfg.act, policy)
+    else:
+        out, aux = apply_ffn(params["ffn"], h, mcfg.act, policy), 0.0
+    return x + out, aux
 
 
 def _check_kind(kind: str) -> None:
@@ -57,12 +72,12 @@ def _check_kind(kind: str) -> None:
 def block_train(params, kind: str, mcfg: ModelConfig, x, positions,
                 policy: GemmPolicy):
     """One block's training forward; returns (x, aux loss). Only the
-    dense attention block is ported (``check_supported``)."""
+    attention block is ported (``check_supported``)."""
     _check_kind(kind)
     h = apply_norm(mcfg.norm, params["ln1"], x)
     x = x + attention.attention_train(params["mixer"], attn_config(mcfg), h,
                                       positions, policy)
-    return _ffn_part(params, mcfg, x, policy), 0.0
+    return _ffn_part(params, mcfg, x, policy)
 
 
 def block_step(params, mcfg: ModelConfig, x, start, n_new, cache,
@@ -72,7 +87,7 @@ def block_step(params, mcfg: ModelConfig, x, start, n_new, cache,
     h = apply_norm(mcfg.norm, params["ln1"], x)
     mix, cache = attention.attention_step(params["mixer"], attn_config(mcfg),
                                           h, start, n_new, cache, policy)
-    return _ffn_part(params, mcfg, x + mix, policy), cache
+    return _ffn_part(params, mcfg, x + mix, policy)[0], cache
 
 
 def init_block_cache(kind: str, mcfg: ModelConfig, batch: int, max_seq: int,
@@ -92,7 +107,7 @@ def block_prefill(params, kind: str, mcfg: ModelConfig, x, positions,
     mix, cache = attention.attention_prefill(params["mixer"],
                                              attn_config(mcfg), h, positions,
                                              policy, cache)
-    return _ffn_part(params, mcfg, x + mix, policy), cache
+    return _ffn_part(params, mcfg, x + mix, policy)[0], cache
 
 
 def block_decode(params, kind: str, mcfg: ModelConfig, x, pos, cache,
@@ -103,4 +118,4 @@ def block_decode(params, kind: str, mcfg: ModelConfig, x, pos, cache,
     mix, cache = attention.attention_decode(params["mixer"],
                                             attn_config(mcfg), h, pos, cache,
                                             policy)
-    return _ffn_part(params, mcfg, x + mix, policy), cache
+    return _ffn_part(params, mcfg, x + mix, policy)[0], cache

@@ -118,4 +118,4 @@ def test_outside_the_slice_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tconfigs.get_config("mamba2-780m")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tconfigs.get_config("qwen2-moe-a2.7b-emu")
+        tconfigs.get_config("deepseek-v3-671b")

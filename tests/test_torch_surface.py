@@ -86,6 +86,7 @@ SPECIFIC = {
     "models.common.init_norm": "dtype and device from the caller",
     "models.common.emb_init": "dtype and device from the caller",
     "models.common.he_init": "dtype and device from the caller",
+    "models.moe.init_moe": "dtype and device from the caller",
 }
 
 # Modules of the port with no counterpart in the reference.
