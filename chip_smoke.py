@@ -3,9 +3,10 @@
     python3 chip_smoke.py
 
 Drives repro_torch only (no jax, nothing of the reference package) on the
-card, with no CPU fallback, in twenty-six phases. Phase 26's walls and
-phases 20-23 run right after the build, so that every wall they take
-comes before the process's first torch.profiler session; phase 24 and
+card, with no CPU fallback, in twenty-seven phases. Phase 27 (while
+nothing else is resident on the card), phase 26's walls and phases 20-23
+run right after the build, so that every wall they take comes before
+the process's first torch.profiler session; phase 24 and
 phase 26's profiled steps and kernel times follow the yardsticks, phase
 25 follows phase 15 (on its DGEMM and ZGEMM operands), and the others
 follow in their order:
@@ -242,6 +243,26 @@ follow in their order:
     plain versions bit for bit, each timed with K1, K3 and K6 at a step's
     shapes beside its bound and torch.bmm / torch.matmul in bf16 and
     float32.
+
+27. qwen1.5-32b at its published widths and depth (64 layers, d 5120,
+    40 heads over 40 KV heads of 128 with qkv bias, d_ff 27392, vocab
+    152064, bf16, 35.2 B parameters drawn on the card; the int8 KV
+    cache): phase 3's trace served under ozaki1-p4+cached with the head
+    prepared once (every launch checked: 448 2-D EmuGEMM-I calls, 1 K3,
+    128 K4 a step) and under native: tok/s, TTFT p50, step walls, peak
+    memory; request 0 alone == in its cohort, tokens and int8 pool rows
+    bit for bit; LockstepEngine on the head-prepared weights (8 x 48, 16
+    new: prefill and decode walls, launches; layer 0's int8 cache rows
+    == the continuous engine's pool rows); 2 of its 64 layers at full
+    width, one mixed step on 'cuda' and 'torch' (each with its own head
+    prep): logits and int8 caches bit for bit; quantize_kv on the card
+    == on the CPU; K1, K3, K4 and K10 at its shapes against their plain
+    versions, timed beside their bounds and the library calls; then
+    Scheme II with float16 operands: K5g (float32 and float16 outputs),
+    K6 and the prepared form with a float16 lhs, bit for bit (NaN where
+    NaN) at olmo-1b's dense shapes, 4096^3 and two batches under
+    ozaki2-m6, the front doors' launches counted, each timed behind a
+    spin kernel beside its bound, its plain version and cuBLAS's HGEMM.
 
 After phases 20-23, one line names the device kernels that the
 library yardsticks (cuBLAS's batched DGEMM, scaled_dot_product_attention
@@ -3803,13 +3824,28 @@ def head_prepared(params) -> bool:
     return isinstance(params.get("head"), prepared.PreparedOperand)
 
 
-def serve_trace(dev, arch, params, policy, check=False):
+def keep_rows(eng, rows: dict):
+    """Have ``eng`` put each request's pool rows (its gathered per-lane
+    view, every cache leaf) into ``rows[rid]`` as it releases them."""
+    release = eng.kv.release
+
+    def keep(rid):
+        rows[rid] = {k: v[:, 0] for k, v in eng.kv.gather(
+            eng.pools, eng.kv.tables_for([rid]))["layers"]["b0"].items()}
+        release(rid)
+    eng.kv.release = keep
+
+
+def serve_trace(dev, arch, params, policy, check=False, rows=None):
     """Serve phase 3's trace (a '+cached' policy prepares nothing that
     ``params`` holds prepared already); returns (engine, trace, tokens,
-    metrics, counts), the EmuGEMM-I launches checked when ``check``."""
+    metrics, counts), the EmuGEMM-I launches checked when ``check``; each
+    request's pool rows go into ``rows`` when given (``keep_rows``)."""
     eng = ContinuousEngine(arch, max_seq=PROMPT + GEN, policy=policy,
                            params=params, max_lanes=LANES, chunk=CHUNK,
                            page_size=PAGE, device=dev)
+    if rows is not None:
+        keep_rows(eng, rows)
     trace = build_trace(np.random.default_rng(0), arch.model.vocab, REQUESTS,
                         PROMPT, GEN, 0.0)
     torch.cuda.synchronize()
@@ -3852,8 +3888,13 @@ def mixed_step_inputs(dev, mcfg, view_tokens):
     start = torch.tensor([0, 16, 32, 47], device=dev, dtype=torch.int32)
     n_new = torch.tensor([16, 16, 5, 1], device=dev, dtype=torch.int32)
     cache = M.init_cache(mcfg, LANES, view_tokens, dev)
-    for leaf in cache["layers"]["b0"].values():
-        leaf.normal_(generator=gen)
+    for name, leaf in cache["layers"]["b0"].items():
+        if leaf.dtype == torch.int8:             # an int8 cache's values
+            leaf.random_(-127, 128, generator=gen)
+        elif name.endswith("_scale"):            # and their scales
+            leaf.uniform_(0.001, 0.05, generator=gen)
+        else:
+            leaf.normal_(generator=gen)
     return tokens, start, n_new, cache
 
 
@@ -4651,6 +4692,461 @@ def moe_kernel_phase(dev, view_tokens):
 
 
 # ---------------------------------------------------------------------------
+# Phase 27: qwen1.5-32b at full width with its int8 KV cache, and Scheme II
+# with float16 operands (the float16 instances of K5g, K6 and K5g's
+# prepared form).
+# ---------------------------------------------------------------------------
+
+QWEN, QWEN_SPEC = "qwen1.5-32b", "ozaki1-p4+cached"
+QWEN_CHECK_LAYERS = 2           # cuda == torch (the plain versions) depth
+QWEN_ATTN = ("qwen1.5-32b MHA causal", 1, 40, 40, 2048, 2048, 128, True,
+             None, "bfloat16")
+F16_4096 = (4096, 4096, 4096)
+F16_BATCHED = ((LANES * 16, CHUNK, 128, 64), (8, 512, 512, 512))
+F16_TAG = "[float16 Scheme II]"
+
+
+def none_launched(what):
+    """No EmuGEMM-I or -II launch (a native run)."""
+    got = {**launches_of(ozaki1.COUNTS),
+           **{"s2_" + k: v for k, v in vars(ozaki2.COUNTS).items()}}
+    if any(got.values()):
+        raise AssertionError(f"{what}: launched {got}")
+
+
+def same_rows(what, a: dict, b: dict):
+    """Every cache leaf equal bit for bit."""
+    for name, leaf in a.items():
+        if not torch.equal(leaf, b[name]):
+            raise AssertionError(f"{what}: cache leaf {name} differs")
+
+
+def qwen_serve_phase(dev, arch, params, view_tokens):
+    """qwen1.5-32b under QWEN_SPEC (the head prepared once) and native:
+    phase 3's trace with every launch checked, tok/s, TTFT p50, peak
+    memory, step walls; the int8 pools' rows of request 0 alone == in its
+    cohort, bit for bit."""
+    mcfg = arch.model
+    tag = f"[serve {QWEN}]"
+    torch.cuda.reset_peak_memory_stats()
+    policy = GemmPolicy(default=api.precision(QWEN_SPEC))
+    reset_counts()
+    t0 = time.perf_counter()
+    eng = ContinuousEngine(arch, max_seq=PROMPT + GEN, policy=policy,
+                           params=params, max_lanes=LANES, chunk=CHUNK,
+                           page_size=PAGE, device=dev)
+    torch.cuda.synchronize()
+    prep_ms = (time.perf_counter() - t0) * 1e3
+    head = eng.params["head"]
+    if not (eng.prepared and isinstance(head, prepared.PreparedOperand)
+            and head.layout == "planes"
+            and ozaki1.COUNTS.launches_encode == 1):
+        raise AssertionError(f"{tag}: the head was not prepared once into "
+                             "planes")
+    pools = eng.pools["layers"]["b0"]
+    if pools["k"].dtype != torch.int8 or pools["k_scale"].shape[-1] != 1:
+        raise AssertionError(f"{tag}: the pools are not the int8 cache's")
+    prepped = eng.params
+    del eng
+    rows = {}
+    eng, trace, toks, serve, counts = serve_trace(
+        dev, arch, prepped, policy, check=True, rows=rows)
+    serve["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    serve["head_prepare_ms"] = prep_ms
+    serve["launches"] = launches_of(counts)
+    serve["launches_per_step"] = step_launches(mcfg, True)
+    log(f"{tag} {QWEN_SPEC}: head prepared once (1 encode, {prep_ms:.1f} "
+        f"ms), {serve['steps']} steps, {REQUESTS} requests x {GEN} tokens "
+        f"in {serve['seconds']:.3f} s ({serve['tok_per_s']:.2f} tok/s), "
+        f"ttft p50 {serve['ttft_p50_s']:.3f} s, peak "
+        f"{serve['peak_gib']:.2f} GiB; launches {serve['launches']} (per "
+        f"step {serve['launches_per_step']})")
+    r0 = trace[0]
+    alone_rows = {}
+    alone = ContinuousEngine(arch, max_seq=PROMPT + GEN, policy=policy,
+                             params=prepped, prepare=False, max_lanes=LANES,
+                             chunk=CHUNK, page_size=PAGE, device=dev)
+    keep_rows(alone, alone_rows)
+    req = Request(prompt=r0.prompt, max_new_tokens=GEN)
+    if alone.run([req])[req.rid].tokens != toks[0]:
+        raise AssertionError(f"{tag}: request 0 alone differs from the "
+                             "cohort")
+    # The rows it wrote: its prompt and every token but the last.
+    used = len(r0.prompt) + GEN - 1
+    same_rows(f"{tag} request 0's int8 pool rows alone vs in its cohort",
+              {k: v[:, :used] for k, v in alone_rows[req.rid].items()},
+              {k: v[:, :used] for k, v in rows[r0.rid].items()})
+    del alone, alone_rows
+    serve.update(step_walls(dev, mcfg, prepped, policy, view_tokens, True))
+    log(f"{tag} request 0 alone == in cohort: tokens and int8 pool rows "
+        f"bit for bit; mixed step {serve['mixed_step_ms']:.1f} ms, decode "
+        f"step {serve['decode_step_ms']:.1f} ms")
+    native = GemmPolicy(default=api.precision("native"))
+    _, _, ntoks, nserve, _ = serve_trace(dev, arch, params, native)
+    none_launched(f"{tag} native serve")
+    nserve.update(step_walls(dev, mcfg, params, native, view_tokens, False,
+                             check=none_launched))
+    serve["native"] = nserve
+    log(f"{tag} native: {nserve['steps']} steps, "
+        f"{nserve['tok_per_s']:.2f} tok/s, ttft p50 "
+        f"{nserve['ttft_p50_s']:.3f} s; mixed step "
+        f"{nserve['mixed_step_ms']:.1f} ms, decode step "
+        f"{nserve['decode_step_ms']:.1f} ms")
+    return prepped, trace, rows[r0.rid], serve
+
+
+def qwen_lockstep_phase(dev, arch, prepped, trace, pool_rows):
+    """LockstepEngine on the head-prepared weights: the trace's 8 prompts
+    of 48 tokens, 16 new; prefill and decode walls, launches checked.
+    Layer 0's int8 cache rows of request 0's prompt equal its pool rows
+    from the continuous engine bit for bit; the deeper layers' differ by
+    design: the lockstep prefill attends with the fresh k and v, a
+    continuous step with its chunk as the int8 cache holds it (the
+    reference's asymmetry)."""
+    mcfg = arch.model
+    tag = f"[{QWEN}]"
+    prompts = np.array([r.prompt for r in trace], np.int32)
+    pt = torch.as_tensor(prompts, device=dev)
+    policy = GemmPolicy(default=api.precision(SPEC))
+    eng = LockstepEngine(arch, None, PROMPT + GEN, policy, params=prepped,
+                         prepare=False, device=dev)
+    res = {}
+    eng.prefill(pt)                                   # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = eng.prefill(pt)
+    torch.cuda.synchronize()
+    res["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    check_launches(f"{tag} prefill", s1_counts(), step_launches(mcfg, True))
+    kv = cache["layers"]["b0"]
+    layer0 = {k: v[0, 0, :PROMPT] for k, v in kv.items()}
+    same_rows(f"{tag} layer 0's lockstep cache rows vs the continuous "
+              "engine's pool rows", layer0,
+              {k: v[0, :PROMPT] for k, v in pool_rows.items()})
+    res["equal_rows_deeper_layers"] = int(sum(
+        bool(torch.equal(kv["k"][i, 0, j], pool_rows["k"][i, j]))
+        for i in range(1, mcfg.n_layers) for j in range(PROMPT)))
+    tok = torch.argmax(logits[:, -1:, :mcfg.vocab], -1)
+    reset_counts()
+    t0 = time.perf_counter()
+    eng.decode(tok, PROMPT, cache)
+    torch.cuda.synchronize()
+    res["decode_step_ms"] = (time.perf_counter() - t0) * 1e3
+    check_launches(f"{tag} decode step", s1_counts(),
+                   step_launches(mcfg, True))
+    del cache, kv
+    t0 = time.perf_counter()
+    toks = eng.generate(prompts, GEN)
+    res["generate_s"] = time.perf_counter() - t0
+    res["tok_per_s"] = REQUESTS * GEN / res["generate_s"]
+    if (toks.shape != (REQUESTS, GEN) or not torch.isfinite(logits).all()
+            or ((toks < 0) | (toks >= mcfg.vocab)).any()):
+        raise AssertionError(f"{tag}: malformed lockstep output")
+    res["launches_per_step"] = step_launches(mcfg, True)
+    log(f"{tag} lockstep {SPEC} (head prepared): {REQUESTS} x {PROMPT} "
+        f"prompts, {GEN} new: prefill {res['prefill_ms']:.1f} ms, decode "
+        f"step {res['decode_step_ms']:.1f} ms, generate "
+        f"{res['generate_s']:.3f} s ({res['tok_per_s']:.2f} tok/s); layer "
+        f"0's cache rows == the continuous engine's pool rows bit for bit "
+        f"({res['equal_rows_deeper_layers']} of "
+        f"{(mcfg.n_layers - 1) * PROMPT} deeper rows equal)")
+    return res
+
+
+def qwen_step(mcfg, params, policy, inputs):
+    """One mixed step: (logits, the updated cache views)."""
+    tokens, start, n_new, cache = inputs
+    views = {"layers": {"b0": {k: v.clone() for k, v in
+                               cache["layers"]["b0"].items()}}}
+    with torch.inference_mode():
+        logits, views = M.forward_step(params, mcfg, tokens, start, n_new,
+                                       views, policy)
+    torch.cuda.synchronize()
+    return logits, views["layers"]["b0"]
+
+
+def qwen_parity_phase(dev, arch, view_tokens):
+    """QWEN_CHECK_LAYERS layers at full width: one mixed step on the 'cuda'
+    and 'torch' backends (each with its own head prep) gives equal logits
+    and int8 caches, bit for bit; quantize_kv on the card == on the CPU."""
+    tag = f"[{QWEN} {QWEN_CHECK_LAYERS}L]"
+    mcfg = dataclasses.replace(arch.model, n_layers=QWEN_CHECK_LAYERS)
+    params = M.init_params(mcfg, 0, dev)
+    policy = GemmPolicy(default=api.precision(QWEN_SPEC))
+    inputs = mixed_step_inputs(dev, mcfg, view_tokens)
+    out = {}
+    for backend in ("cuda", "torch"):
+        pol = on_backend(policy, backend)
+        out[backend] = qwen_step(mcfg, prepared.prepare_params(params, pol),
+                                 pol, inputs)
+    (la, ca), (lb, cb) = out["cuda"], out["torch"]
+    if not torch.equal(la, lb):
+        raise AssertionError(f"{tag}: cuda and torch backend logits differ")
+    same_rows(f"{tag} cuda vs torch backend caches", ca, cb)
+    if not torch.isfinite(la).all() or la.shape != (LANES,
+                                                    pad_vocab(mcfg.vocab)):
+        raise AssertionError(f"{tag}: bad logits {la.shape}")
+    gen = torch.Generator(device=dev).manual_seed(27)
+    x = (torch.randn((LANES, view_tokens, mcfg.n_kv_heads,
+                      mcfg.resolved_head_dim), generator=gen, device=dev)
+         * 3).to(torch.bfloat16)
+    x[0, 0] = 0
+    from repro_torch.models import attention
+    q, s = attention.quantize_kv(x)
+    qc, sc = attention.quantize_kv(x.cpu())
+    if not (torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc)):
+        raise AssertionError(f"{tag}: quantize_kv on the card differs from "
+                             "the CPU's")
+    del params, out
+    log(f"{tag} one mixed step: cuda == torch backend logits and int8 "
+        "caches bit for bit (each backend's head prep); quantize_kv on the "
+        "card == on the CPU, bit for bit")
+
+
+def qwen_kernel_times(dev, mcfg, view_tokens):
+    """K1 (a mixed step's 2-D calls), K3 (the head), K4 (attn_qk and
+    attn_av on the dequantized cache, one query head a KV head) and K10
+    (a 2048-token causal prefill of qwen's heads) at qwen1.5-32b's
+    shapes, held against their plain versions (K10 within its bar) and
+    timed beside their bounds and the library calls."""
+    gen = torch.Generator(device=dev).manual_seed(28)
+    bf, f32 = torch.bfloat16, torch.float32
+    d, f, L = mcfg.d_model, mcfg.d_ff, mcfg.n_layers
+    vp = pad_vocab(mcfg.vocab)
+    max_err = {"k1": 0.0, "k3": 0.0, "k4": 0.0, "k10": 0.0}
+    out = {}
+    m = LANES * CHUNK
+    k1 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "encode_ms": 0.0,
+          "planes_ms": 0.0, "mainloop_ms": 0.0, "library_bf16_ms": 0.0,
+          "launches_per_step": 7 * L}
+    for k, n, count in ((d, d, 4), (d, f, 2), (f, d, 1)):
+        t = route_times(gen, dev, m, k, n, False, P_MAIN, bf, 1)
+        t["encode_ms"] = t["encode_a_ms"] + t["encode_b_ms"]
+        a, b = conditioned(gen, (m, k), bf, dev), conditioned(gen, (k, n),
+                                                               bf, dev)
+        mu, nu = scheme1.pow2_scale(a, -1), scheme1.pow2_scale(b, -2)
+        check_equal(f"K1 {(m, k, n)}", ozaki1.fused_matmul_scheme1(
+            a, b, mu, nu, P_MAIN, 7, bf), ozaki1.fused_matmul_plain(
+            a, b, mu, nu, P_MAIN, 7, bf), max_err, "k1")
+        t["library_bf16_ms"] = time_ms(lambda: torch.matmul(a, b), 20)
+        for key in k1:
+            if key in t:
+                k1[key] += count * L * t[key]
+        k1["bound_ms"] += count * L * bound_ms(1, m, k, n, P_MAIN, 2, 2)[0]
+        del a, b
+    out["k1_mixed_step"] = k1
+    a = conditioned(gen, (LANES, d), bf, dev)
+    w = conditioned(gen, (d, vp), bf, dev)
+    head = prepared.prepare_rhs(w, api.precision(SPEC))
+    torch_head = prepared.prepare_rhs(w, api.precision(SPEC,
+                                                       backend="torch"))
+    check_equal("K3 on the head", prepared.matmul_prepared(a, head, f32),
+                prepared.matmul_prepared(a, torch_head, f32), max_err, "k3")
+    bms, by = mixed_bound(LANES, d, vp, P_MAIN, 2, 4)
+    out["k3_head"] = {
+        "shape": [LANES, d, vp], "launches_per_step": 1,
+        "ms": queued_ms(lambda: prepared.matmul_prepared(a, head, f32)),
+        "plain_ms": time_ms(lambda: prepared.matmul_prepared(
+            a, torch_head, f32), 3),
+        "bound_ms": bms, "bound_by": by,
+        "library_bf16_ms": time_ms(lambda: torch.matmul(a, w), 20)}
+    del w, head, torch_head
+    gc.collect()
+    torch.cuda.empty_cache()
+    bkv, hd = LANES * mcfg.n_kv_heads, mcfg.resolved_head_dim
+    k4 = {}
+    for kind, c in (("mixed", CHUNK), ("decode", 1)):
+        per = {}
+        for site, (k, n) in (("attn_qk", (hd, view_tokens)),
+                             ("attn_av", (view_tokens, hd))):
+            x = conditioned(gen, (bkv, c, k), bf, dev)
+            y = conditioned(gen, (bkv, k, n), bf, dev)
+            mu, nu = scheme1.pow2_scale(x, -1), scheme1.pow2_scale(y, -2)
+            before = ozaki1.COUNTS.launches_batched
+            got = ozaki1.fused_matmul_scheme1(x, y, mu, nu, P_MAIN, 7, f32)
+            if ozaki1.COUNTS.launches_batched != before + 1:
+                raise AssertionError("K4 at qwen's attention: not one launch")
+            check_equal(f"K4 {kind} {site}", got, ozaki1.fused_matmul_plain(
+                x, y, mu, nu, P_MAIN, 7, f32), max_err, "k4")
+            bms, by = bound_ms(bkv, c, k, n, P_MAIN, 2, 4)
+            per[site] = {
+                "shape": [bkv, c, k, n], "launches_per_step": L,
+                "ms": queued_ms(lambda: ozaki1.launch_batched(
+                    x, y, mu, nu, P_MAIN, 7, f32)),
+                "plain_ms": time_ms(lambda: ozaki1.fused_matmul_plain(
+                    x, y, mu, nu, P_MAIN, 7, f32), 3),
+                "bound_ms": bms, "bound_by": by,
+                "library_bf16_ms": time_ms(lambda: torch.bmm(x, y), 20)}
+        k4[kind] = {"per_launch": per, "per_step": {
+            key: L * sum(per[s][key] for s in per)
+            for key in ("ms", "plain_ms", "bound_ms", "library_bf16_ms")}}
+    out["k4"] = k4
+    label, b, h, kvh, sq, sk, dd, causal, window, _ = QWEN_ATTN
+    q, kk, v = attn_inputs(gen, dev, QWEN_ATTN)
+    got = flash_attn.flash_attention(q, kk, v, causal=causal)
+    check_close(f"K10 {label}", got, flash_attn.flash_attention_plain(
+        q, kk, v, causal=causal), ATTN_TOL["bfloat16"], max_err, "k10")
+    bms, by = attn_bound(b, h, kvh, sq, sk, dd, causal, window, "wgmma")
+    out["k10_prefill"] = {
+        "shape": [b, h, kvh, sq, sk, dd], "causal": causal,
+        "ms": queued_ms(lambda: flash_attn.flash_attention(q, kk, v,
+                                                           causal=causal)),
+        "plain_ms": time_ms(lambda: flash_attn.flash_attention_plain(
+            q, kk, v, causal=causal), 3),
+        "bound_ms": bms, "bound_by": by,
+        "library_ms": time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, kk, v, is_causal=causal), 20)}
+    out["max_abs_err"] = max_err
+    log(f"[{QWEN}] kernels at its shapes: " + json.dumps(out))
+    return out
+
+
+def f16_scheme2_phase(dev, mcfg):
+    """K5g and K6 with float16 operands at olmo-1b's dense shapes (1024
+    tokens) and 4096^3 under ozaki2-m6, float16 and float32 outputs, and
+    the prepared form with a float16 lhs, each bit for bit against its
+    plain version; the main path (the front doors: 2-D, batched and a
+    prepared weight) with its launches counted; each timed behind the
+    spin kernel beside its bound, its plain version and cuBLAS's HGEMM."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    moduli = default_moduli(M_MAIN)
+    f16, f32 = torch.float16, torch.float32
+    max_err = {"2d": 0.0, "batched": 0.0, "prepared": 0.0}
+    out = {"2d": [], "batched": [], "prepared": []}
+    cfg = api.precision(f"ozaki2-m{M_MAIN}")
+
+    def both_outputs(what, a, b, mu, nu, key):
+        for out_t in (f32, f16):
+            s1w_equal(f"{what} -> {out_t}", ozaki2.fused_matmul_scheme2(
+                a, b, mu, nu, moduli, out_t), ozaki2.fused_matmul_scheme2_plain(
+                a, b, mu, nu, moduli, out_t), max_err, key, tag=F16_TAG)
+
+    for (m, k, n) in dense_shapes(mcfg) + [F16_4096]:
+        a, b = conditioned(gen, (m, k), f16, dev), conditioned(gen, (k, n),
+                                                               f16, dev)
+        mu, nu = scheme2.scales(a, b, moduli)
+        both_outputs(f"K5g {(m, k, n)}", a, b, mu, nu, "2d")
+        prep = prepared.prepare_rhs(b, cfg)
+        got = prepared.matmul_prepared(a, prep, f32)
+        s1w_equal(f"K5g b_res {(m, k, n)}", got,
+                  ozaki2.fused_matmul_scheme2_prepared_plain(
+                      a, prep.stacked(), mu, prep.scale, moduli, f32, n),
+                  max_err, "prepared", tag=F16_TAG)
+        s1w_equal(f"K5g b_res {(m, k, n)} == unprepared", got,
+                  ozaki2.fused_matmul_scheme2(a, b, mu, nu, moduli, f32),
+                  max_err, "prepared", tag=F16_TAG)
+        t = {"shape": [m, k, n],
+             "ms": queued_ms(lambda: ozaki2.fused_matmul_scheme2(
+                 a, b, mu, nu, moduli, f32)),
+             "f16_out_ms": queued_ms(lambda: ozaki2.fused_matmul_scheme2(
+                 a, b, mu, nu, moduli, f16)),
+             "plain_ms": time_ms(lambda: ozaki2.fused_matmul_scheme2_plain(
+                 a, b, mu, nu, moduli, f32), 3),
+             "library_ms": time_ms(lambda: torch.matmul(a, b), 20)}
+        t["bound_ms"], t["bound_by"] = scheme2_bound(1, m, k, n, M_MAIN, 2, 4)
+        out["2d"].append(t)
+        pt = {"shape": [m, k, n],
+              "ms": queued_ms(lambda: prepared.matmul_prepared(a, prep, f32)),
+              "plain_ms": time_ms(
+                  lambda: ozaki2.fused_matmul_scheme2_prepared_plain(
+                      a, prep.stacked(), mu, prep.scale, moduli, f32, n), 3),
+              "library_ms": t["library_ms"]}
+        pt["bound_ms"], pt["bound_by"] = prepared_bound(m, k, n, M_MAIN, 2, 4)
+        out["prepared"].append(pt)
+        del a, b, prep
+    for (bt, m, k, n) in F16_BATCHED:
+        a = conditioned(gen, (bt, m, k), f16, dev)
+        b = conditioned(gen, (bt, k, n), f16, dev)
+        mu, nu = scheme2.scales(a, b, moduli)
+        both_outputs(f"K6 {(bt, m, k, n)}", a, b, mu, nu, "batched")
+        t = {"shape": [bt, m, k, n],
+             "ms": queued_ms(lambda: ozaki2.fused_matmul_scheme2(
+                 a, b, mu, nu, moduli, f32)),
+             "plain_ms": time_ms(lambda: ozaki2.fused_matmul_scheme2_plain(
+                 a, b, mu, nu, moduli, f32), 3),
+             "library_ms": time_ms(lambda: torch.bmm(a, b), 20)}
+        t["bound_ms"], t["bound_by"] = scheme2_bound(bt, m, k, n, M_MAIN, 2,
+                                                     4)
+        out["batched"].append(t)
+    # The main path: the front doors, the counts set to 0 just before and
+    # read just after.
+    (m, k, n), (bt, bm, bk, bn) = dense_shapes(mcfg)[0], F16_BATCHED[0]
+    a, w = conditioned(gen, (m, k), f16, dev), conditioned(gen, (k, n), f16,
+                                                           dev)
+    a3 = conditioned(gen, (bt, bm, bk), f16, dev)
+    b3 = conditioned(gen, (bt, bk, bn), f16, dev)
+    prep = prepared.prepare_rhs(w, cfg)
+    torch.cuda.synchronize()
+    ozaki2.COUNTS.reset()
+    api.einsum("mk,kn->mn", a, w, precision=cfg, out_dtype=f32)
+    api.einsum("bmk,bkn->bmn", a3, b3, precision=cfg, out_dtype=f32)
+    prepared.matmul_prepared(a, prep, f32)
+    torch.cuda.synchronize()
+    c = ozaki2.COUNTS
+    got = (c.launches_2d, c.launches_batched, c.launches_prepared,
+           c.launches_encode, c.launches_planes, c.plain_cuda_calls)
+    if got != (1, 1, 1, 5, 3, 0):
+        raise AssertionError(f"[float16 Scheme II] main path launches {got}")
+    out["launches"] = {"2d": c.launches_2d, "batched": c.launches_batched,
+                       "prepared": c.launches_prepared,
+                       "encodes": c.launches_encode,
+                       "plane_gemms": c.launches_planes}
+    out["max_abs_err"] = max_err
+    log("[float16 Scheme II] K5g, K6 and the prepared form (float16 lhs) "
+        "bit for bit (NaN where NaN) at olmo-1b's dense shapes, 4096^3 and "
+        "the batches, float32 and float16 outputs; main path launches "
+        + json.dumps(out["launches"]) + "; " + json.dumps(
+            {k: v for k, v in out.items() if k in ("2d", "batched",
+                                                   "prepared")}))
+    return out
+
+
+def qwen_phase(dev, view_tokens):
+    """Phase 27 (first after the build, while nothing else is resident):
+    qwen1.5-32b at its published widths and depth drawn on the card,
+    served and run in lockstep with its int8 KV cache; then 2 of its
+    layers on both backends, its kernels at its shapes, and Scheme II
+    with float16 operands."""
+    arch = configs.get_config(QWEN)
+    mcfg = arch.model
+    t0 = time.perf_counter()
+    params = M.init_params(mcfg, 0, dev)
+    torch.cuda.synchronize()
+    report = {"init_s": time.perf_counter() - t0,
+              "params_b": M.param_count(params) / 1e9,
+              "weights_gib": torch.cuda.memory_allocated() / 2 ** 30}
+    log(f"[{QWEN}] published widths and depth ({mcfg.n_layers} layers, d "
+        f"{mcfg.d_model}, {mcfg.n_heads} heads over {mcfg.n_kv_heads} KV "
+        f"heads of {mcfg.resolved_head_dim}, qkv bias, d_ff {mcfg.d_ff}, "
+        f"vocab {mcfg.vocab} padded to {pad_vocab(mcfg.vocab)}, bf16, "
+        f"{mcfg.kv_cache_dtype} KV cache): {report['params_b']:.3f} B "
+        f"parameters ({report['weights_gib']:.2f} GiB) drawn on the card in "
+        f"{report['init_s']:.1f} s")
+    prepped, trace, pool_rows, report["serve"] = qwen_serve_phase(
+        dev, arch, params, view_tokens)
+    report["lockstep"] = qwen_lockstep_phase(dev, arch, prepped, trace,
+                                             pool_rows)
+    del params, prepped, pool_rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    qwen_parity_phase(dev, arch, view_tokens)
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["kernels"] = qwen_kernel_times(dev, mcfg, view_tokens)
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["f16"] = f16_scheme2_phase(dev, configs.get_config("olmo-1b")
+                                      .model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{QWEN}] summary " + json.dumps(
+        {k: v for k, v in report.items() if k not in ("kernels", "f16")}))
+    return report
+
+
+# ---------------------------------------------------------------------------
 # Phase 25: Scheme I in float64, at p = 9..16 and with float16 (the
 # float64 / complex128 / float16 instances of the encode, the plane GEMM,
 # the batched kernel and the decompositions).
@@ -4674,16 +5170,17 @@ def s1w_route_bound(m, k, n, p, in_bytes, products=1):
     return 1e3 * (ops_ / INT8_OPS_PER_S + enc / HBM_BYTES_PER_S)
 
 
-def s1w_equal(what, out, ref, max_err, key):
-    """Bit for bit, NaN where NaN (a float16 shift-reduce makes inf - inf);
-    records 0 in max_err[key] or raises."""
+def s1w_equal(what, out, ref, max_err, key, tag="[scheme1 wide]"):
+    """Bit for bit, NaN where NaN (a float16 shift-reduce makes inf - inf,
+    a float16 Scheme-II output inf / inf); records 0 in max_err[key] or
+    raises."""
     o = torch.view_as_real(out) if out.is_complex() else out
     r = torch.view_as_real(ref) if ref.is_complex() else ref
     nan = r.isnan()
     if (o.dtype != r.dtype or not torch.equal(o.isnan(), nan)
             or not torch.equal(o.masked_fill(nan, 0), r.masked_fill(nan, 0))):
         diff = (o.double() - r.double()).abs().nan_to_num(float("inf"))
-        raise AssertionError(f"[scheme1 wide] {what}: the kernel differs from "
+        raise AssertionError(f"{tag} {what}: the kernel differs from "
                              f"its plain version (max |diff| "
                              f"{diff.max().item():.3e})")
     max_err.setdefault(key, 0.0)
@@ -5153,8 +5650,10 @@ def main() -> int:
     log(card)
     build_phase()
     view_tokens = PAGE * math.ceil((PROMPT + GEN - 1 + CHUNK) / PAGE)
-    # Phases 26 and 20-23 first: their walls come before any profiler
-    # session.
+    # Phases 27, 26 and 20-23 first: their walls come before any profiler
+    # session, and phase 27's 64 layers of qwen1.5-32b while nothing else
+    # is resident on the card.
+    qwen = qwen_phase(dev, view_tokens)
     moe_walls = moe_phase(dev, view_tokens)
     gparams, gprepped, new_paths = new_path_phases(dev, view_tokens)
     yardsticks = yardstick_phase(dev)
@@ -5580,6 +6079,58 @@ def main() -> int:
                    f"{moe_serve}"}}}
     for row in kernels:
         row.update(moe_rows.get(row["name"], {}))
+    # Phase 27: qwen1.5-32b's shapes, and Scheme II's float16 instances.
+    qk, f16, q_serve = qwen["kernels"], qwen["f16"], qwen["serve"]
+    q_per = (f"launches: the {QWEN} {QWEN_SPEC} serve of phase 3's trace "
+             f"({q_serve['steps']} steps, 64 layers, int8 KV cache)")
+    f16_per = (f"float16 operands under ozaki2-m{M_MAIN}, a float32 output "
+               "(f16_out_ms: a float16 one), at olmo-1b's dense shapes "
+               f"({TOKENS} tokens) and {F16_4096[0]}^3; ms: behind a spin "
+               "kernel; library: cuBLAS's HGEMM (torch.matmul in float16); "
+               "launches: the front doors' main path")
+    qwen_rows = {
+        "emugemm1_2d": {"qwen1_5_32b_serve": {
+            **qk["k1_mixed_step"], "max_abs_err": qk["max_abs_err"]["k1"],
+            "launches": q_serve["launches"]["2d"],
+            "per": f"the 2-D calls of one mixed serve step (q, k, v, o, "
+                   f"gate, up, down: 7 a layer, 64 layers), weights cold; "
+                   f"{q_per}"}},
+        "emugemm1_mixed": {"qwen1_5_32b_head": {
+            **qk["k3_head"], "max_abs_err": qk["max_abs_err"]["k3"],
+            "launches": q_serve["launches"]["mixed"],
+            "per": f"the logits GEMM of a serve step: 4 lanes against the "
+                   f"untied head's planes (5120 x 152064), prepared once; "
+                   f"{q_per}"}},
+        "emugemm1_batched": {"qwen1_5_32b_attn": {
+            **qk["k4"], "max_abs_err": qk["max_abs_err"]["k4"],
+            "launches": q_serve["launches"]["batched"],
+            "per": f"attn_qk and attn_av on the dequantized int8 cache, one "
+                   f"query head a KV head (40 a lane), a mixed and a decode "
+                   f"step; ms: behind a spin kernel; {q_per}"}},
+        "flash_attention": {"qwen1_5_32b_prefill": {
+            **qk["k10_prefill"], "max_abs_err": qk["max_abs_err"]["k10"],
+            "per": "a 2048-token causal prefill at qwen1.5-32b's 40 heads "
+                   "of 128, bf16, within 2e-2 of its plain version (the "
+                   "model's prefill runs the plain chunked attention, as "
+                   "the reference's does, so it launches none)"}},
+        "emugemm2_2d": {"float16": {
+            "per_shape": f16["2d"], "max_abs_err": f16["max_abs_err"]["2d"],
+            "launches": f16["launches"]["2d"], "per": f16_per}},
+        "emugemm2_batched": {"float16": {
+            "per_shape": f16["batched"],
+            "max_abs_err": f16["max_abs_err"]["batched"],
+            "launches": f16["launches"]["batched"],
+            "per": f"float16 batches (olmo-1b-emu's attn_qk of a mixed "
+                   f"step, and 8 x 512^3) under ozaki2-m{M_MAIN}; library: "
+                   "torch.bmm in float16"}},
+        "emugemm2_prepared": {"float16_lhs": {
+            "per_shape": f16["prepared"],
+            "max_abs_err": f16["max_abs_err"]["prepared"],
+            "launches": f16["launches"]["prepared"],
+            "per": "a float16 lhs against a prepared float16 weight (the "
+                   "b_res form): one lhs encode + 1 plane GEMM; " + f16_per}}}
+    for row in kernels:
+        row.update(qwen_rows.get(row["name"], {}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

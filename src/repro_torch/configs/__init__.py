@@ -2,6 +2,7 @@
 
 olmo-1b, olmo-1b-emu (olmo-1b with its GEMM sites under Scheme I and
 Scheme II), granite-3-8b and deepseek-coder-33b (dense GQA decoders),
+qwen1.5-32b (dense MHA with QKV bias and an int8 KV cache),
 qwen2-moe-a2.7b and qwen2-moe-a2.7b-emu (softmax top-4 MoE with gated
 shared experts) are ported; every other id of the reference's registry raises
 NotImplementedError naming its ROADMAP.md item.
@@ -15,7 +16,7 @@ from repro_torch.configs.base import (ALL_SHAPES, ArchConfig,  # noqa: F401
                                       ModelConfig, ShapeSpec, TrainPolicy)
 
 ARCH_IDS = ("granite-3-8b", "deepseek-coder-33b", "olmo-1b", "olmo-1b-emu",
-            "qwen2-moe-a2.7b", "qwen2-moe-a2.7b-emu")
+            "qwen1.5-32b", "qwen2-moe-a2.7b", "qwen2-moe-a2.7b-emu")
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
             for a in ARCH_IDS}
@@ -23,7 +24,7 @@ _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
 # The reference's other ids, each waiting on the ROADMAP.md § 1 item that
 # ports what it needs.
 _NOT_PORTED = {
-    "qwen1.5-32b": "4.2", "hubert-xlarge": "4.3", "internvl2-1b": "4.3",
+    "hubert-xlarge": "4.3", "internvl2-1b": "4.3",
     "recurrentgemma-2b": "4.5", "mamba2-780m": "4.5",
     "deepseek-v3-671b": "4.6",
 }

@@ -24,6 +24,7 @@ _FLOAT_LAYOUT = {
     torch.float32: (127, -126, 128, 23, torch.int32),
     torch.float64: (1023, -1022, 1024, 52, torch.int64),
     torch.bfloat16: (127, -126, 128, 7, torch.int16),
+    torch.float16: (15, -14, 16, 10, torch.int16),
 }
 
 

@@ -39,9 +39,11 @@ from repro_torch.core.scheme1 import exact_pow2
 # Operand types of the port's Scheme II, with their mantissa bits + 1
 # (``jnp.finfo(dtype).nmant + 1``), which cap the integer budget, and
 # their ``finfo.maxexp``, which caps the scales.
-MANTISSA = {torch.float32: 24, torch.bfloat16: 8, torch.float64: 53}
-_MAXEXP = {torch.float32: 128, torch.bfloat16: 128, torch.float64: 1024}
-OUT_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
+MANTISSA = {torch.float32: 24, torch.bfloat16: 8, torch.float64: 53,
+            torch.float16: 11}
+_MAXEXP = {torch.float32: 128, torch.bfloat16: 128, torch.float64: 1024,
+           torch.float16: 16}
+OUT_DTYPES = (torch.float32, torch.bfloat16, torch.float64, torch.float16)
 
 
 def operand(x: torch.Tensor) -> torch.Tensor:
@@ -51,8 +53,8 @@ def operand(x: torch.Tensor) -> torch.Tensor:
         x = x.to(torch.float32)
     if x.dtype not in MANTISSA:
         raise NotImplementedError(
-            f"Scheme II takes float32, bfloat16 or float64 operands in the "
-            f"port, got {x.dtype}")
+            f"Scheme II takes float32, bfloat16, float16 or float64 operands "
+            f"in the port, got {x.dtype}")
     return x
 
 
@@ -70,7 +72,7 @@ def _pow2_int_scale(a: torch.Tensor, axis: int,
     subnormal-only lines integerize to zeros."""
     amax = torch.amax(torch.abs(a), dim=axis, keepdim=True)
     if amax.dtype != torch.float64:
-        amax = amax.float()          # exact; frexp takes no bfloat16
+        amax = amax.float()          # exact; frexp takes no half type
     _, exp = torch.frexp(torch.where(amax == 0, torch.ones_like(amax), amax))
     e = torch.clamp(budget_bits - exp, max=_MAXEXP[a.dtype] - 1)
     return exact_pow2(e, a.dtype)
@@ -85,14 +87,24 @@ def integerize(a: torch.Tensor, axis: int, budget_bits: int):
 def balanced_residues(a_int: torch.Tensor, moduli) -> torch.Tensor:
     """(p, *a.shape) int8 balanced residues of an exact-integer float
     array, reduced in int64 for float64 (integers up to 2^53) and in
-    int32 otherwise."""
+    int32 otherwise.
+
+    A float16 array is the one whose finite operands can overflow their
+    type: a float16 rhs integerized at a float32 lhs's budget (> 16
+    bits) rounds to +-inf. Its conversion saturates, as XLA's does, and
+    the + m // 2 below then wraps in int32 as the reference's does
+    (ROADMAP.md § 3 R9)."""
     oversized = [int(m) for m in moduli if int(m) > 256]
     if oversized:
         raise ValueError(
             f"moduli {oversized} exceed 256: balanced residues must fit "
             "int8 — no backend lowers wider moduli")
-    ai = a_int.to(torch.int64 if a_int.dtype == torch.float64
-                  else torch.int32)
+    if a_int.dtype == torch.float16:
+        a_int = a_int.double().clamp(-2 ** 31, 2 ** 31 - 1)
+        ai = a_int.to(torch.int32)
+    else:
+        ai = a_int.to(torch.int64 if a_int.dtype == torch.float64
+                      else torch.int32)
     outs = []
     for m in moduli:
         half = int(m) // 2
@@ -199,7 +211,7 @@ def scaled_matmul(a: torch.Tensor, b: torch.Tensor, mu: torch.Tensor,
     if out_dtype not in OUT_DTYPES:
         raise NotImplementedError(
             f"Scheme II out_dtype {out_dtype}: the port reconstructs into "
-            "float32, bfloat16 or float64")
+            "float32, bfloat16, float16 or float64")
     moduli = tuple(int(m) for m in moduli)
     return residue_matmul(balanced_residues(torch.trunc(a * mu), moduli),
                           balanced_residues(torch.trunc(b * nu), moduli),

@@ -3,8 +3,9 @@
 and float64 operands, p in 1..16, and float16 ones widened to float32 on
 entry with the output in the promoted type, as the reference's ``_widen``
 does), Scheme II on
-EmuGEMM-II (float64 products, 2-D or batched, and complex Scheme II on
-its plane route).
+EmuGEMM-II (float32, bfloat16, float16 and float64 products, 2-D or
+batched, each operand integerized in its own type, and complex Scheme II,
+all on its plane route).
 
 The torch counterpart of ``repro.kernels.backends.gpu``:
 ``choose_blocks_gpu`` (here :func:`choose_blocks_cuda`),
@@ -87,15 +88,6 @@ class CudaBackend(KernelBackend):
 
     def choose_blocks(self, m, n, k, p, *, scheme="ozaki1"):
         return choose_blocks_cuda(m, n, k, p, scheme)
-
-    def check(self, cfg, a, b):
-        super().check(cfg, a, b)
-        if cfg.scheme == "ozaki2" and torch.float16 in (a.dtype, b.dtype):
-            raise NotImplementedError(
-                "backend 'cuda' runs float16 operands under ozaki1 only: "
-                "Scheme II with float16 at an 11-bit budget is ROADMAP.md "
-                "§ 1 item 3 (its CPU core and an encode instance of K5g and "
-                "K6)")
 
     def matmul(self, a, b, cfg, out_dtype, blocks):
         self.check(cfg, a, b)

@@ -135,6 +135,9 @@
 // repro_torch.kernels.ozaki3m.encode_planes_3m_plain / plane_matmul_3m_plain /
 // residue_planes_3m_plain.
 
+#include <climits>
+#include <type_traits>
+
 #include "hopper.cuh"
 #include "scheme2_common.cuh"
 
@@ -144,7 +147,7 @@ using namespace hopper;
 namespace {
 
 // Operand and output types of the entry points (kernels/ozaki2.py TYPE_CODE).
-enum { F32 = 0, BF16 = 1, F64 = 2 };
+enum { F32 = 0, BF16 = 1, F64 = 2, F16 = 3 };
 
 // ---- Barrett floor moduli --------------------------------------------------
 // Per-modulus constants for the exact floor modulo of integers without a
@@ -298,6 +301,14 @@ encode_kernel(const T* __restrict__ xr, const T* __restrict__ xi, const T* __res
       for (int j = 0; j < 8; ++j) {
         const int sh = 8 * (j % 4);
         int re = residue(vr[j], br, m, l);
+        if constexpr (std::is_same<T, __half>::value) {
+          // A saturated +inf: the reference's INT_MAX + m // 2 wraps in
+          // int32, so its residue is that of -2^31 - 1.
+          if (vr[j] == INT_MAX) {
+            re = residue(INT_MIN, br, m, l);
+            re = re == 0 ? m - 1 : re - 1;
+          }
+        }
         re = re >= top ? re - m : re;
         b[0][j / 4] |= static_cast<uint32_t>(re & 0xff) << sh;
         if constexpr (CPLX) {
@@ -402,21 +413,22 @@ __device__ __forceinline__ void direct_digits(const Crt& crt, const Digits& dg, 
   }
 }
 
-// A scale as the epilogue reads it: float64, or float32 widened from a
-// float32 or (bf16 set) a bf16 scale, exactly.
+// A scale as the epilogue reads it: float64, or float32 widened exactly
+// from a float32 (code 0), bf16 (1) or float16 (2) scale.
 template <typename T>
-__device__ __forceinline__ T scale_at(const void* s, long long i, int bf16) {
+__device__ __forceinline__ T scale_at(const void* s, long long i, int code) {
   if constexpr (sizeof(T) == 8) {
     return static_cast<const double*>(s)[i];
   } else {
-    return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(s)[i])
-                : static_cast<const float*>(s)[i];
+    return code == 1   ? __bfloat162float(static_cast<const __nv_bfloat16*>(s)[i])
+           : code == 2 ? __half2float(static_cast<const __half*>(s)[i])
+                       : static_cast<const float*>(s)[i];
   }
 }
 
-// T: the scales' type (double, or float for float32 and bf16 operands,
-// whose scales are read in their own types: scale_bf16 bit 0 marks a bf16
-// mu, bit 1 a bf16 nu); O: the output part type; CPLX: 3M (planes
+// T: the scales' type (double, or float for float32, bf16 and float16
+// operands, whose scales are read in their own types: scale_types bits
+// 0-1 hold mu's code, bits 2-3 nu's); O: the output part type; CPLX: 3M (planes
 // (p, 3, Bt, ., Kp), a complex output of interleaved parts). park: Bt *
 // tiles * S * PARK_SLOT bytes, S = p (2p for 3M). kr: K tiles between
 // reductions. Batch element z reads mu at z * smu, nu at z * snu and
@@ -424,7 +436,7 @@ __device__ __forceinline__ T scale_at(const void* s, long long i, int bf16) {
 template <typename T, typename O, bool CPLX, int NH>
 __global__ void __launch_bounds__(PT, 1)
 planes_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
-              const void* __restrict__ mu, const void* __restrict__ nu, int scale_bf16,
+              const void* __restrict__ mu, const void* __restrict__ nu, int scale_types,
               O* __restrict__ out, uint8_t* park, int M, int N, int nk, int kr, int epilogue,
               long long smu,
               long long snu, long long sout, const __grid_constant__ Crt crt,
@@ -594,8 +606,8 @@ planes_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__
 #pragma unroll
       for (int w = 0; w < 4; ++w) {
         const int gm = min(row0 + 8 * (w / 2), M - 1), gn = min(col + (w % 2), N - 1);
-        scale[w] = Out<O>::mul(Out<O>::cvt(scale_at<T>(mu, mo + gm, scale_bf16 & 1)),
-                               Out<O>::cvt(scale_at<T>(nu, no + gn, scale_bf16 & 2)));
+        scale[w] = Out<O>::mul(Out<O>::cvt(scale_at<T>(mu, mo + gm, scale_types & 3)),
+                               Out<O>::cvt(scale_at<T>(nu, no + gn, scale_types >> 2)));
         if constexpr (CPLX) scale[w] = Out<O>::div(V(1), scale[w]);
       }
 #pragma unroll
@@ -933,7 +945,7 @@ int launch_encode(const void* xr, const void* xi, const void* scale, int8_t* pla
 
 template <typename T, typename O, bool CPLX, int NH>
 int launch_planes(const CUtensorMap& ma, const CUtensorMap& mb, const void* mu, const void* nu,
-                  int scale_bf16, void* out, uint8_t* park, int batch, int M, int N, int nk, int kr,
+                  int scale_types, void* out, uint8_t* park, int batch, int M, int N, int nk, int kr,
                   int epilogue, long long smu, long long snu, long long sout, const Crt& crt,
                   const Barrett& br, const Digits& dg, cudaStream_t st) {
   constexpr int smem = Tile<NH>::SMEM;
@@ -946,7 +958,7 @@ int launch_planes(const CUtensorMap& ma, const CUtensorMap& mb, const void* mu, 
   }
   const int tiles = batch * ((M + PBM - 1) / PBM) * ((N + Tile<NH>::BN - 1) / Tile<NH>::BN);
   planes_kernel<T, O, CPLX, NH><<<tiles, PT, smem, st>>>(
-      ma, mb, mu, nu, scale_bf16, static_cast<O*>(out), park, M, N, nk, kr, epilogue, smu, snu,
+      ma, mb, mu, nu, scale_types, static_cast<O*>(out), park, M, N, nk, kr, epilogue, smu, snu,
       sout, crt, br, dg);
   return static_cast<int>(cudaGetLastError());
 }
@@ -981,7 +993,7 @@ int launch_residues(const CUtensorMap& ma, const CUtensorMap& mb, int8_t* out_re
 // Encode: x (batch, R, K) through strides (sb, sr, sk) in elements, xi its
 // imaginary part (cplx; null for a real operand) with the same strides,
 // scale (batch, R) with batch stride ssb and rows contiguous, in x's type
-// (type: 0 float32, 1 bfloat16, 2 float64; a complex encode takes float32
+// (type: 0 float32, 1 bfloat16, 2 float64, 3 float16; a complex encode takes float32
 // or float64 parts); planes (p, T, batch, R, Kp) int8 contiguous, Kp a
 // multiple of 128 >= K. moduli[p] is a host array.
 extern "C" int emugemm2_encode(const void* xr, const void* xi, const void* scale, int8_t* planes,
@@ -1000,6 +1012,7 @@ extern "C" int emugemm2_encode(const void* xr, const void* xi, const void* scale
     if (type == F64) EMUGEMM2_ENCODE(double, false);
     if (type == F32) EMUGEMM2_ENCODE(float, false);
     if (type == BF16) EMUGEMM2_ENCODE(__nv_bfloat16, false);
+    if (type == F16) EMUGEMM2_ENCODE(__half, false);
     return -1;
   }
   if (type == F64) EMUGEMM2_ENCODE(double, true);
@@ -1011,10 +1024,12 @@ extern "C" int emugemm2_encode(const void* xr, const void* xi, const void* scale
 // The plane GEMM: a_planes (p, T, batch, M, Kp) and b_planes (p, T, batch,
 // N, Kp) int8 from emugemm2_encode, mu (batch, M) and nu (batch, N) with
 // batch strides smu, snu and rows contiguous, in the scale type (f64: float64;
-// else float32, or bf16 where scale_bf16 says so: bit 0 mu, bit 1 nu); out
+// else float32, bf16 or float16 as scale_types says: bits 0-1 mu's code,
+// bits 2-3 nu's, 0 float32, 1 bf16, 2 float16); out
 // (batch, M, N) with batch stride sout in output parts
 // and rows contiguous (complex parts interleaved if cplx; out_type: 0
-// float32, 1 bfloat16 (real products with float32 scales), 2 float64);
+// float32, 1 bfloat16 and 3 float16 (real products with float32 scales),
+// 2 float64);
 // tile_n, the output tile's columns, 256 or 128; park batch *
 // tiles * S * 128 * tile_n bytes of scratch (tiles = ceil(M / 128) *
 // ceil(N / tile_n), S = p, 2p if cplx). epilogue = 0 stops after the
@@ -1023,10 +1038,11 @@ extern "C" int emugemm2_encode(const void* xr, const void* xi, const void* scale
 extern "C" int emugemm2_planes(const int8_t* a_planes, const int8_t* b_planes, const void* mu,
                                const void* nu, void* out, uint8_t* park, int batch, int M, int N,
                                int Kp, long long smu, long long snu, long long sout, int tile_n,
-                               int cplx, int f64, int scale_bf16, int out_type, int p,
+                               int cplx, int f64, int scale_types, int out_type, int p,
                                const int* moduli, const int* inv, int epilogue, void* stream) {
   if (batch <= 0 || M <= 0 || N <= 0 || Kp <= 0 || Kp % PBK != 0) return -1;
-  if (scale_bf16 < 0 || scale_bf16 > 3 || (f64 && scale_bf16)) return -1;
+  if (scale_types < 0 || (scale_types & 3) > 2 || scale_types >> 2 > 2 || (f64 && scale_types))
+    return -1;
   if (tile_n != 128 && tile_n != 256) return -1;
   Crt crt;
   if (make_crt(p, moduli, inv, crt) != 0) return -1;
@@ -1048,9 +1064,9 @@ extern "C" int emugemm2_planes(const int8_t* a_planes, const int8_t* b_planes, c
   const int nk = Kp / PBK;
 #define EMUGEMM2_PLANES(T_, O_, C_)                                                             \
   return tile_n == 256                                                                         \
-             ? launch_planes<T_, O_, C_, 2>(ma, mb, mu, nu, scale_bf16, out, park, batch, M, N, nk, \
+             ? launch_planes<T_, O_, C_, 2>(ma, mb, mu, nu, scale_types, out, park, batch, M, N, nk, \
                                             kr, epilogue, smu, snu, sout, crt, br, dg, st)        \
-             : launch_planes<T_, O_, C_, 1>(ma, mb, mu, nu, scale_bf16, out, park, batch, M, N, nk, \
+             : launch_planes<T_, O_, C_, 1>(ma, mb, mu, nu, scale_types, out, park, batch, M, N, nk, \
                                             kr, epilogue, smu, snu, sout, crt, br, dg, st)
   if (!cplx) {
     if (f64) {
@@ -1060,6 +1076,7 @@ extern "C" int emugemm2_planes(const int8_t* a_planes, const int8_t* b_planes, c
     }
     if (out_type == F32) EMUGEMM2_PLANES(float, float, false);
     if (out_type == BF16) EMUGEMM2_PLANES(float, __nv_bfloat16, false);
+    if (out_type == F16) EMUGEMM2_PLANES(float, __half, false);
     if (out_type == F64) EMUGEMM2_PLANES(float, double, false);
     return -1;
   }

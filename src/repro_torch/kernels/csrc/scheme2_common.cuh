@@ -14,10 +14,13 @@
 //     and 2^27 + 1 in float64 (repro.core.dd: 2^((nmant + 2) // 2) + 1);
 //   * a float64 output reconstructs in float64 double-double, any other in
 //     float32 (ROADMAP.md § 3 H6); residues, digits and products are int32;
-//   * a bf16 output rounds every op to bf16, as the plain torch ops do.
+//   * a bf16 or float16 output rounds every op to its type, as the plain
+//     torch ops do (float32 carries more than 2 * 11 + 2 bits, so a float32
+//     op rounded to float16 is the correctly rounded float16 op).
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -61,6 +64,11 @@ struct Num<__nv_bfloat16> {
   using S = int;
 };
 template <>
+struct Num<__half> {
+  using W = float;
+  using S = int;
+};
+template <>
 struct Num<double> {
   using W = double;
   using S = double;
@@ -68,19 +76,26 @@ struct Num<double> {
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float widen(__half x) { return __half2float(x); }
 __device__ __forceinline__ double widen(double x) { return x; }
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
+__device__ __forceinline__ float round_f16(float x) { return __half2float(__float2half_rn(x)); }
 
-// trunc(x * mu) in the operand's type T (x, mu already widened): a bf16
-// product rounds to bf16 before the truncation.
+// trunc(x * mu) in the operand's type T (x, mu already widened): a bf16 or
+// float16 product rounds to its type before the truncation. A float16
+// product can round to +-inf (a float16 rhs at a float32 lhs's budget),
+// which converts saturating, to INT_MAX / INT_MIN, as XLA converts.
 __device__ __forceinline__ int integerize(float x, float mu, float) {
   return static_cast<int>(truncf(__fmul_rn(x, mu)));
 }
 __device__ __forceinline__ int integerize(float x, float mu, __nv_bfloat16) {
   return static_cast<int>(truncf(round_bf16(__fmul_rn(x, mu))));
+}
+__device__ __forceinline__ int integerize(float x, float mu, __half) {
+  return __float2int_rz(round_f16(__fmul_rn(x, mu)));
 }
 __device__ __forceinline__ double integerize(double x, double mu, double) {
   return trunc(__dmul_rn(x, mu));
@@ -175,6 +190,17 @@ struct Out<__nv_bfloat16> {
   static __device__ __forceinline__ void store(__nv_bfloat16* o, float c) {
     *o = __float2bfloat16_rn(c);
   }
+};
+
+template <>
+struct Out<__half> {
+  using V = float;
+  using D = float;
+  static __device__ __forceinline__ float cvt(float x) { return round_f16(x); }
+  static __device__ __forceinline__ float mul(float a, float b) { return round_f16(__fmul_rn(a, b)); }
+  static __device__ __forceinline__ float div(float a, float b) { return round_f16(__fdiv_rn(a, b)); }
+  static __device__ __forceinline__ float add(float a, float b) { return round_f16(__fadd_rn(a, b)); }
+  static __device__ __forceinline__ void store(__half* o, float c) { *o = __float2half_rn(c); }
 };
 
 template <>

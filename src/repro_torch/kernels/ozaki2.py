@@ -6,9 +6,10 @@ residue form too): wrappers, plain versions and launch counts.
   integerization scales mu (..., M, 1) in a's type and nu (..., 1, N) in
   b's type, and returns the Scheme-II product in ``out_dtype``. It runs
   the plane route below: an encode of A, an encode of B^T (both read
-  through their strides) and one plane GEMM. It takes float32 and
-  bfloat16 operands in any pairing with a float32, bfloat16 or float64
-  output, and float64 operands (both, with a float64 or float32 output).
+  through their strides) and one plane GEMM. It takes float32, bfloat16
+  and float16 operands in any pairing with a float32, bfloat16, float16
+  or float64 output, and float64 operands (both, with a float64 or
+  float32 output).
   Its plain version is ``repro_torch.core.scheme2.scaled_matmul``.
 * :func:`fused_matmul_scheme2_prepared` takes an (M, K) float lhs with
   its scale mu (M, 1) and a prepared weight: the (p, N, Kp) int8 planes
@@ -67,7 +68,11 @@ from repro_torch.core import scheme2
 # reference's gpu.MAX_MODULI).
 MAX_MODULI = 16
 # The plane route's type codes (csrc/emugemm2_planes.cu).
-TYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
+TYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2,
+             torch.float16: 3}
+# The plane GEMM's codes of a float32, bfloat16 or float16 scale, read in
+# place and widened to float32 (exactly: a power of two).
+_SCALE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # The plane GEMM's K tile (csrc/emugemm2_planes.cu), to which planes are
 # padded, and its output tile, which sizes its park; PLANE_NARROW_N is the
 # width of its narrow tile (plane_tile_n).
@@ -294,8 +299,8 @@ def launch_planes(a_planes, b_planes, mu, nu, moduli, out, epilogue=True,
     """Launch the plane GEMM on planes (p, T, [Bt,] M, Kp) and
     (p, T, [Bt,] N, Kp) (T = 3: the 3M products, into a complex ``out``)
     with scales mu ([Bt,] M, 1) and nu ([Bt,] 1, N), both float64 or both
-    float32 / bf16 (which the kernel reads in place and widens to float32:
-    a power of two widens exactly), into ``out`` ([Bt,] M, N);
+    float32 / bf16 / float16 (which the kernel reads in place and widens
+    to float32: a power of two widens exactly), into ``out`` ([Bt,] M, N);
     ``epilogue=False`` stops after the mainloop, which leaves
     ``out`` unwritten (for timing the two apart); ``tile_n`` sets the tile
     width instead of :func:`plane_tile_n` (for timing the widths apart)."""
@@ -310,11 +315,11 @@ def launch_planes(a_planes, b_planes, mu, nu, moduli, out, epilogue=True,
                        * PLANE_TILE[0] * tile_n, dtype=torch.uint8,
                        device=a_planes.device)
     f64 = mu.dtype == torch.float64
-    kept = (torch.float64,) if f64 else (torch.float32, torch.bfloat16)
+    kept = (torch.float64,) if f64 else tuple(_SCALE_CODE)
     mu, nu = ((x if x.dtype in kept else x.to(kept[0])).contiguous()
               for x in (mu, nu))
-    scale_bf16 = int(mu.dtype == torch.bfloat16) | 2 * int(
-        nu.dtype == torch.bfloat16)
+    scale_types = 0 if f64 else (_SCALE_CODE[mu.dtype]
+                                 | _SCALE_CODE[nu.dtype] << 2)
     part = torch.view_as_real(out) if out.is_complex() else out
     mods, inv = _crt_args(moduli)
     rc = _bind_planes(build.load("emugemm2_planes"))(
@@ -322,7 +327,7 @@ def launch_planes(a_planes, b_planes, mu, nu, moduli, out, epilogue=True,
         nu.data_ptr(), part.data_ptr(), park.data_ptr(), batch, m, n, kp,
         _batch_stride(mu), _batch_stride(nu),
         part.stride(0) if lead else 0, tile_n, int(phases == 3), int(f64),
-        scale_bf16, TYPE_CODE[part.dtype], p, mods, inv, int(epilogue),
+        scale_types, TYPE_CODE[part.dtype], p, mods, inv, int(epilogue),
         torch.cuda.current_stream(a_planes.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"emugemm2 plane GEMM failed (code {rc}) for "
@@ -332,9 +337,9 @@ def launch_planes(a_planes, b_planes, mu, nu, moduli, out, epilogue=True,
 
 def encode_planes(x: torch.Tensor, scale: torch.Tensor,
                   moduli) -> torch.Tensor:
-    """A float32, bfloat16 or float64 ([Bt,] R, K) operand with its row
-    scales ([Bt,] R, 1) in its type -> its (p, [Bt,] R, Kp) int8 balanced
-    residue planes (B enters as B^T with nu^T).
+    """A float32, bfloat16, float16 or float64 ([Bt,] R, K) operand with
+    its row scales ([Bt,] R, 1) in its type -> its (p, [Bt,] R, Kp) int8
+    balanced residue planes (B enters as B^T with nu^T).
 
     CPU tensors take the plain version; CUDA tensors launch the encode
     kernel or raise.
@@ -361,8 +366,7 @@ def _plane_types(mu_type, nu_type, out_dtype) -> bool:
     if torch.float64 in (mu_type, nu_type):
         return mu_type == nu_type and out_dtype in (torch.float64,
                                                     torch.float32)
-    return ({mu_type, nu_type} <= {torch.float32, torch.bfloat16}
-            and out_dtype in TYPE_CODE)
+    return {mu_type, nu_type} <= set(_SCALE_CODE) and out_dtype in TYPE_CODE
 
 
 def plane_matmul(a_planes: torch.Tensor, b_planes: torch.Tensor,
@@ -370,9 +374,9 @@ def plane_matmul(a_planes: torch.Tensor, b_planes: torch.Tensor,
                  out_dtype: torch.dtype) -> torch.Tensor:
     """The planes (p, [Bt,] M, Kp) of A and (p, [Bt,] N, Kp) of B^T with
     scales mu ([Bt,] M, 1) and nu ([Bt,] 1, N) -> ([Bt,] M, N) in
-    ``out_dtype``: float64 scales to a float64 or float32 output, float32
-    or bfloat16 ones (any pairing) to a float32, bfloat16 or float64
-    output.
+    ``out_dtype``: float64 scales to a float64 or float32 output, float32,
+    bfloat16 or float16 ones (any pairing) to a float32, bfloat16, float16
+    or float64 output.
 
     CPU tensors take the plain version; CUDA tensors launch the plane
     GEMM or raise.
@@ -560,8 +564,8 @@ def _check(a, b, mu, nu, moduli, out_dtype, b_type=None):
         raise ValueError("emugemm2: operands on different devices")
     if a.dtype not in TYPE_CODE or b_type not in TYPE_CODE:
         raise NotImplementedError(
-            f"emugemm2 takes float32, bfloat16 or float64 operands, got "
-            f"{a.dtype} @ {b_type}")
+            f"emugemm2 takes float32, bfloat16, float16 or float64 "
+            f"operands, got {a.dtype} @ {b_type}")
     if mu.dtype != a.dtype or nu.dtype != b_type:
         raise ValueError(f"emugemm2: scales in the operands' types, got mu "
                          f"{mu.dtype} for {a.dtype}, nu {nu.dtype} for "

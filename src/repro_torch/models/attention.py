@@ -5,11 +5,16 @@ the training path, the ragged serving step of the continuous engine
 whole-batch prefill and single-token decode against a contiguous cache
 (``_store``, ``attention_prefill``, ``attention_decode``).
 
+The cache holds k and v in the model's type or, with ``cache_int8``, as
+int8 with a float32 scale per (token, head) (``quantize_kv``): the
+stores quantize, and the step and the decode read the whole view
+dequantized, while the prefill attends with its fresh, unquantized k
+and v, as in the reference.
+
 ``flash_attention`` is plain torch, as the reference's is plain JAX (its
 Pallas flash kernel is not on this path). Global attention only: the
-int8 KV cache and the ring-buffer window cache wait on the model zoo
-(ROADMAP.md § 1 items 4.2 and 4.5), sequence parallelism on
-multi-device (item 8).
+ring-buffer window cache waits on the model zoo (ROADMAP.md § 1 item
+4.5), sequence parallelism on multi-device (item 8).
 """
 
 from __future__ import annotations
@@ -177,31 +182,77 @@ def attention_train(params, cfg: AttnConfig, x, positions,
     return dense(out.reshape(b, s, -1), params["wo"], policy, "attn")
 
 
+def cache_shape(cfg: AttnConfig, batch: int, max_seq: int):
+    """Local-window layers allocate a ring buffer of window size."""
+    length = min(max_seq, cfg.window) if cfg.window else max_seq
+    return (batch, length, cfg.n_kv_heads, cfg.head_dim)
+
+
+def cache_leaves(cfg: AttnConfig, dtype) -> dict:
+    """The cache's leaves, name -> (dtype, last dim): k and v in
+    ``dtype``, or int8 k and v with float32 scales (last dim 1)."""
+    hd = cfg.head_dim
+    if cfg.cache_int8:
+        return {"k": (torch.int8, hd), "v": (torch.int8, hd),
+                "k_scale": (torch.float32, 1), "v_scale": (torch.float32, 1)}
+    return {"k": (dtype, hd), "v": (dtype, hd)}
+
+
 def init_cache(cfg: AttnConfig, batch: int, max_seq: int, dtype, device,
                lead: tuple = ()):
-    shape = lead + (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    shape = lead + cache_shape(cfg, batch, max_seq)[:-1]
+    return {name: torch.zeros(shape + (last,), dtype=t, device=device)
+            for name, (t, last) in cache_leaves(cfg, dtype).items()}
+
+
+def quantize_kv(x):
+    """Per-(token, head) symmetric int8 quantization (B, S, KVH, D):
+    (int8 values, float32 scales (B, S, KVH, 1)); the max is taken in
+    x's type, the rest in float32 IEEE arithmetic, as the reference
+    does. The 127 is a tensor on x's device: a CUDA division by a Python
+    scalar multiplies by its rounded reciprocal instead."""
+    scale = torch.amax(torch.abs(x), dim=-1, keepdim=True).to(torch.float32)
+    scale = torch.clamp(scale, min=1e-8) / scale.new_full((), 127.0)
+    q = torch.clamp(torch.round(x.to(torch.float32) / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q, scale, dtype):
+    return (q.to(torch.float32) * scale).to(dtype)
 
 
 def _refuse_cache(cfg: AttnConfig) -> None:
-    if cfg.cache_int8:
-        raise NotImplementedError(
-            "the int8 KV cache is not ported yet (ROADMAP.md § 1 item 4.2)")
     if cfg.window is not None:
         raise NotImplementedError(
             "the ring-buffer window KV cache is not ported yet (ROADMAP.md "
             "§ 1 item 4.5)")
 
 
-def _store(cache, k, v, slot):
-    """Write fresh k/v (B, S, KVH, D) at ``slot`` along every lane's
-    sequence axis, in place. The slot clamps so the write stays in
-    bounds, as ``lax.dynamic_update_slice`` does."""
+def _fresh(cfg: AttnConfig, k, v) -> dict:
+    """The cache leaves of fresh k / v: themselves, or quantized."""
+    if cfg.cache_int8:
+        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+        return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    return {"k": k, "v": v}
+
+
+def _read(cfg: AttnConfig, cache, dtype):
+    """The whole cache view's k and v, dequantized into ``dtype`` when
+    the cache is int8."""
+    if cfg.cache_int8:
+        return (dequantize_kv(cache["k"], cache["k_scale"], dtype),
+                dequantize_kv(cache["v"], cache["v_scale"], dtype))
+    return cache["k"], cache["v"]
+
+
+def _store(cfg: AttnConfig, cache, k, v, slot):
+    """Write fresh k/v (B, S, KVH, D), quantized with an int8 cache, at
+    ``slot`` along every lane's sequence axis, in place. The slot clamps
+    so the write stays in bounds, as ``lax.dynamic_update_slice`` does."""
     s, length = k.shape[1], cache["k"].shape[1]
     slot = min(max(int(slot), 0), length - s)
-    cache["k"][:, slot:slot + s] = k
-    cache["v"][:, slot:slot + s] = v
+    for name, val in _fresh(cfg, k, v).items():
+        cache[name][:, slot:slot + s] = val
     return cache
 
 
@@ -218,22 +269,23 @@ def attention_prefill(params, cfg: AttnConfig, x, positions,
     q, k, v = _project_qkv(params, cfg, x, positions, policy)
     pos1d = positions[0]
     out = flash_attention(cfg, q, k, v, pos1d, pos1d, policy=policy)
-    cache = _store(cache, k, v, 0)
+    cache = _store(cfg, cache, k, v, 0)
     return dense(out.reshape(b, s, -1), params["wo"], policy, "attn"), cache
 
 
 def attention_decode(params, cfg: AttnConfig, x, pos, cache,
                      policy: GemmPolicy):
     """One-token step. x: (B, 1, D); pos: the int index every lane writes
-    (its absolute position). Updates the contiguous {"k", "v"} (B, L,
-    KVH, D) cache in place; returns (out (B, 1, D), cache)."""
+    (its absolute position). Updates the contiguous (B, L, KVH, ...)
+    cache in place and attends to all of it (dequantized when int8);
+    returns (out (B, 1, D), cache)."""
     _refuse_cache(cfg)
     b = x.shape[0]
     pos = int(pos)
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(params, cfg, x, positions, policy)
-    cache = _store(cache, k, v, pos)
-    ck, cv = cache["k"], cache["v"]
+    cache = _store(cfg, cache, k, v, pos)
+    ck, cv = _read(cfg, cache, x.dtype)
     clen = ck.shape[1]
     kvh, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
     qh = q.reshape(b, kvh, g, cfg.head_dim)
@@ -250,8 +302,9 @@ def attention_decode(params, cfg: AttnConfig, x, pos, cache,
     return dense(out, params["wo"], policy, "attn"), cache
 
 
-def _store_step(cache, k, v, start):
-    """Write each lane's fresh k/v (B, C, KVH, D) at its own ``start``.
+def _store_step(cfg: AttnConfig, cache, k, v, start):
+    """Write each lane's fresh k/v (B, C, KVH, D), quantized with an
+    int8 cache, at its own ``start``.
 
     Updates the per-lane views in place (they are the engine's gathered
     copies, not its pools). Starts clamp so the chunk stays in bounds,
@@ -262,8 +315,8 @@ def _store_step(cache, k, v, start):
     st = torch.clamp(start.long(), 0, length - c)
     rows = torch.arange(b, device=k.device)[:, None]
     cols = st[:, None] + torch.arange(c, device=k.device)[None, :]
-    cache["k"][rows, cols] = k
-    cache["v"][rows, cols] = v
+    for name, val in _fresh(cfg, k, v).items():
+        cache[name][rows, cols] = val
     return cache
 
 
@@ -273,17 +326,20 @@ def attention_step(params, cfg: AttnConfig, x, start, n_new, cache,
 
     x: (B, C, D), each lane's next chunk of fresh tokens, left-aligned;
     start: (B,) absolute position of each lane's first fresh token;
-    n_new: (B,) valid counts. cache: {"k", "v"} per-lane (B, L, KVH, D)
-    views. Per-lane results depend only on that lane's tokens and cache
-    rows. Returns (out (B, C, D), updated cache view).
+    n_new: (B,) valid counts. cache: per-lane (B, L, KVH, ...) views of
+    k and v, with their scales when int8: the fresh chunk is stored
+    first, then the whole view is read (dequantized), so a prefill chunk
+    attends to its own tokens as the cache holds them. Per-lane results
+    depend only on that lane's tokens and cache rows. Returns (out
+    (B, C, D), updated cache view).
     """
     _refuse_cache(cfg)
     b, c, _ = x.shape
     positions = start[:, None] + torch.arange(c, dtype=torch.int32,
                                               device=x.device)
     q, k, v = _project_qkv(params, cfg, x, positions, policy)
-    cache = _store_step(cache, k, v, start)
-    ck, cv = cache["k"], cache["v"]
+    cache = _store_step(cfg, cache, k, v, start)
+    ck, cv = _read(cfg, cache, x.dtype)
     clen = ck.shape[1]
     kvh, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
     qh = q.reshape(b, c, kvh, g, cfg.head_dim)

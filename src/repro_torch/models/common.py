@@ -126,9 +126,25 @@ def policy_einsum(eq: str, x: torch.Tensor, y: torch.Tensor,
 
 def he_init(gen: torch.Generator, shape, dtype, device,
             fan_in: int | None = None) -> torch.Tensor:
+    """He-normal weights in ``dtype``, drawn in float32. A stack (a
+    leading layer axis) is drawn one layer at a time into the finished
+    tensor, so that no full-width stack (qwen1.5-32b's FFN: 64 x 5120 x
+    27392) has a float32 copy of its own size; the layout, the dtype and
+    the scale are the reference's (ROADMAP.md § 3)."""
     fan = fan_in if fan_in is not None else shape[-2]
-    x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-    return (x * (2.0 / max(1, fan)) ** 0.5).to(dtype)
+    std = (2.0 / max(1, fan)) ** 0.5
+
+    def draw(part_shape):
+        x = torch.randn(part_shape, generator=gen, device=device,
+                        dtype=torch.float32)
+        return (x * std).to(dtype)
+
+    if len(shape) <= 2:
+        return draw(shape)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for part in out:
+        part.copy_(draw(shape[1:]))
+    return out
 
 
 def emb_init(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:

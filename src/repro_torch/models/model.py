@@ -78,7 +78,9 @@ def init_params(mcfg: ModelConfig, seed: int = 0, device="cuda"):
 
 def init_cache(mcfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
     """Per-lane KV cache views: {"layers": {"b0": {"k", "v"}}}, each
-    (n_layers, batch, max_seq, n_kv_heads, head_dim)."""
+    (n_layers, batch, max_seq, n_kv_heads, head_dim), in the model's
+    type; an int8 cache (``kv_cache_dtype="int8"``) holds int8 k and v
+    and their float32 scales "k_scale", "v_scale" (..., n_kv_heads, 1)."""
     B.check_supported(mcfg)
     device = resolve_device(device)
     return {"layers": {"b0": B.init_block_cache(
@@ -139,7 +141,7 @@ def forward_prefill(params, mcfg: ModelConfig, inputs: dict, max_seq: int,
     cache = init_cache(mcfg, x.shape[0], max_seq, x.device)
     kv = cache["layers"]["b0"]
     for i, lp in enumerate(unstack_layers(params, mcfg.n_layers)):
-        view = {"k": kv["k"][i], "v": kv["v"][i]}
+        view = {name: leaf[i] for name, leaf in kv.items()}
         x, _ = B.block_prefill(lp, "attn", mcfg, x, positions, policy, view)
     return logits_from_hidden(params, mcfg, x[:, -1:], policy), cache
 
@@ -153,7 +155,7 @@ def forward_decode(params, mcfg: ModelConfig, token, pos, cache,
     x = params["emb"][token.long()]
     kv = cache["layers"]["b0"]
     for i, lp in enumerate(unstack_layers(params, mcfg.n_layers)):
-        view = {"k": kv["k"][i], "v": kv["v"][i]}
+        view = {name: leaf[i] for name, leaf in kv.items()}
         x, _ = B.block_decode(lp, "attn", mcfg, x, pos, view, policy)
     return logits_from_hidden(params, mcfg, x, policy), cache
 
@@ -178,7 +180,7 @@ def forward_step(params, mcfg: ModelConfig, tokens, start, n_new, cache,
     x = params["emb"][tokens.long()]
     kv = cache["layers"]["b0"]
     for i, lp in enumerate(unstack_layers(params, mcfg.n_layers)):
-        view = {"k": kv["k"][i], "v": kv["v"][i]}
+        view = {name: leaf[i] for name, leaf in kv.items()}
         x, _ = B.block_step(lp, mcfg, x, start, n_new, view, policy)
     idx = torch.clamp(n_new.long() - 1, 0, c - 1)
     x_last = x[torch.arange(b, device=x.device), idx][:, None]    # (B, 1, D)

@@ -40,16 +40,6 @@ def padded_experts(cfg: MoEConfig) -> int:
     return ((cfg.n_experts + mult - 1) // mult) * mult
 
 
-def _he_stack(gen, lead: tuple, shape: tuple, dtype, device, fan_in: int):
-    """``he_init`` of ``lead + shape``, drawn one ``shape`` at a time into
-    the finished tensor, so that a full-width expert stack (24 x 64 x 2048
-    x 1408) never has a float32 copy of its own size."""
-    out = torch.empty(lead + shape, dtype=dtype, device=device)
-    for part in out.view((-1,) + shape):
-        part.copy_(he_init(gen, shape, dtype, device, fan_in=fan_in))
-    return out
-
-
 def init_moe(gen, d_model: int, cfg: MoEConfig, act: str, dtype, device,
              lead: tuple = ()):
     """The layer's parameters, stacked on ``lead`` (layer) axes. The router
@@ -60,9 +50,9 @@ def init_moe(gen, d_model: int, cfg: MoEConfig, act: str, dtype, device,
     e, f = padded_experts(cfg), cfg.d_ff_expert
     params = {
         "router": he_init(gen, lead + (d_model, e), torch.float32, device),
-        "wi_gate": _he_stack(gen, lead, (e, d_model, f), dtype, device, e),
-        "wi_up": _he_stack(gen, lead, (e, d_model, f), dtype, device, e),
-        "wo": _he_stack(gen, lead, (e, f, d_model), dtype, device, f),
+        "wi_gate": he_init(gen, lead + (e, d_model, f), dtype, device, e),
+        "wi_up": he_init(gen, lead + (e, d_model, f), dtype, device, e),
+        "wo": he_init(gen, lead + (e, f, d_model), dtype, device, f),
     }
     if cfg.n_shared:
         params["shared"] = init_ffn(gen, d_model, cfg.d_ff_shared, act,

@@ -1,7 +1,8 @@
 """Paged KV cache of the port (``repro.serving.kv_cache``): fixed-size
 pages, free-list allocator, block tables.
 
-Every model cache leaf (n_layers, B, S, KVH, D) is re-laid-out into a
+Every model cache leaf (n_layers, B, S, KVH, D; D is 1 for the scales of
+an int8 cache) is re-laid-out into a
 **pool** (n_layers, num_pages * page_size, KVH, D) whose token axis is
 physical slots; each request owns an ordered page list recorded in a
 block table. A serving step then
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention
 from repro_torch.models import blocks as B
 from repro_torch.models import model as M
 
@@ -166,14 +168,18 @@ class PagedKVCache:
 
     def init_pools(self):
         """{"layers": {"b0": {"k", "v"}}}, each (n_layers,
-        num_pages * page_size, n_kv_heads, head_dim)."""
+        num_pages * page_size, n_kv_heads, head_dim) in the model's type;
+        an int8 cache's pools are int8 k and v and float32 "k_scale",
+        "v_scale" (..., n_kv_heads, 1). Every pool starts at zero, so a
+        stale or scratch row of an int8 pool dequantizes to zero."""
         m = self.mcfg
-        shape = (m.n_layers, self.num_pages * self.page_size, m.n_kv_heads,
-                 m.resolved_head_dim)
-        dtype = getattr(torch, m.dtype)
+        shape = (m.n_layers, self.num_pages * self.page_size, m.n_kv_heads)
+        leaves = attention.cache_leaves(B.attn_config(m),
+                                        getattr(torch, m.dtype))
         return {"layers": {"b0": {
-            name: torch.zeros(shape, dtype=dtype, device=self.device)
-            for name in ("k", "v")}}}
+            name: torch.zeros(shape + (last,), dtype=dtype,
+                              device=self.device)
+            for name, (dtype, last) in leaves.items()}}}
 
     def gather(self, pools, tables: torch.Tensor):
         """Pools + (B, view_pages) tables -> per-lane contiguous views."""

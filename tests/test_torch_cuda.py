@@ -1372,7 +1372,7 @@ def test_scheme1_wide_front_doors_on_card(cuda_device):
     p = 12 (2-D, batched, ops both decomps), float16 under ozaki1-p4
     (widened, float16 out), complex128 under ozaki1-p8 (4M of float64
     parts: 8 encodes + 4 plane GEMMs), a float64 prepared weight with its
-    twin at p = 12, and float16 under ozaki2 refused."""
+    twin at p = 12, and float16 under ozaki2 (2 encodes + 1 plane GEMM)."""
     from repro_torch import api
     from repro_torch.core import emulated
     from repro_torch.kernels import prepared
@@ -1427,5 +1427,99 @@ def test_scheme1_wide_front_doors_on_card(cuda_device):
     assert torch.equal(da, api.einsum("mk,kn->mn", g2, w.T,
                                       precision="ozaki1-p12"))
     h = a.half()
-    with pytest.raises(NotImplementedError, match="item 3"):
-        api.einsum("mk,kn->mn", h, h.T, precision="ozaki2-m8")
+    ozaki2.COUNTS.reset()
+    out = api.einsum("mk,kn->mn", h, h.T, precision="ozaki2-m8",
+                     out_dtype=torch.float32)
+    c = ozaki2.COUNTS
+    assert (c.launches_2d, c.launches_encode, c.launches_planes,
+            c.plain_cuda_calls) == (1, 2, 1, 0)
+    assert torch.equal(out, api.einsum("mk,kn->mn", h, h.T,
+                                       precision="ozaki2-m8",
+                                       out_dtype=torch.float32,
+                                       backend="torch"))
+
+
+# ---------------------------------------------------------------------------
+# Scheme II with float16 operands (K5g, K6, K5g's prepared form) and the
+# int8 KV cache.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("p", [6, 16])
+def test_scheme2_float16_instances_bit_identical_on_card(cuda_device, p):
+    """The float16 encode (subnormal-only rows, rows below 2^-5, a float16
+    rhs that overflows at a float32 lhs's budget, transposed views) and
+    the plane GEMM's float16 scale reads and float16 output, 2-D and
+    batched, in every pairing with float32 and bf16, and the prepared
+    form with a float16 lhs, against their plain versions."""
+    from repro_torch.kernels import prepared
+    g = torch.Generator(device=cuda_device).manual_seed(900 + p)
+    moduli = default_moduli(p)
+    f16, f32, bf = torch.float16, torch.float32, torch.bfloat16
+    for lead, (m, k, n) in [((), (300, 1000, 520)), ((), (9, 5, 11)),
+                            ((3,), (37, 70, 29))]:
+        a = torch.randn(lead + (m, k), generator=g, device=cuda_device) * 4
+        a[..., 1, :] *= 2.0 ** -26
+        a[..., 2, :] *= 2.0 ** -16
+        bt = torch.randn(lead + (n, k), generator=g, device=cuda_device) * 4
+        for ta, tb in ((f16, f16), (f16, f32), (f32, f16), (bf, f16),
+                       (f16, bf)):
+            x, y = a.to(ta), bt.to(tb).transpose(-1, -2)
+            for xx in (x, x.transpose(-1, -2).contiguous().transpose(-1, -2)):
+                mu, nu = scheme2.scales(xx, y, moduli)
+                for out_t in (f32, f16, bf):
+                    ozaki2.COUNTS.reset()
+                    out = ozaki2.fused_matmul_scheme2(xx, y, mu, nu, moduli,
+                                                      out_t)
+                    ref = ozaki2.fused_matmul_scheme2_plain(xx, y, mu, nu,
+                                                            moduli, out_t)
+                    torch.cuda.synchronize()
+                    assert _same_bits(out, ref), (lead, m, k, n, ta, tb,
+                                                  out_t)
+                    assert (ozaki2.COUNTS.launches_encode,
+                            ozaki2.COUNTS.launches_planes) == (2, 1)
+    cfg = EmulationConfig(scheme="ozaki2", p=p)
+    w = torch.randn(1000, 520, generator=g, device=cuda_device).half()
+    prep = prepared.prepare_rhs(w, cfg)
+    assert prep.layout == "planes" and prep.scale.dtype == f16
+    x = (torch.randn(300, 1000, generator=g, device=cuda_device) * 4).half()
+    out = prepared.matmul_prepared(x, prep, f32)
+    assert torch.equal(out, ozaki2.fused_matmul_scheme2_prepared_plain(
+        x, prep.stacked(), scheme2._pow2_int_scale(x, -1, prep.budget_bits),
+        prep.scale, moduli, f32, 520))
+    assert torch.equal(out, ozaki2.fused_matmul_scheme2(
+        x, w, *scheme2.scales(x, w, moduli), moduli, f32))
+
+
+def test_int8_kv_cache_on_card(cuda_device):
+    """quantize_kv on the card equals it on the CPU bit for bit; a smoke
+    qwen1.5-32b with the int8 cache prefills and decodes on both
+    backends under ozaki1-p4 with equal logits and caches."""
+    from repro_torch import api, configs
+    from repro_torch.models import attention, model as M
+    from repro_torch.models.common import GemmPolicy
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = (torch.randn(4, 48, 40, 128, generator=g, device=cuda_device)
+         * 3).to(torch.bfloat16)
+    x[0, 0] = 0
+    q, s = attention.quantize_kv(x)
+    qc, sc = attention.quantize_kv(x.cpu())
+    assert torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc)
+    arch = configs.get_smoke_config("qwen1.5-32b")
+    mcfg = dataclasses.replace(arch.model, kv_cache_dtype="int8")
+    params = M.init_params(mcfg, 0, cuda_device)
+    toks = torch.randint(0, mcfg.vocab, (2, 9), generator=g,
+                         device=cuda_device, dtype=torch.int32)
+    out = {}
+    for backend in ("cuda", "torch"):
+        policy = GemmPolicy(default=api.precision("ozaki1-p4",
+                                                  backend=backend))
+        logits, cache = M.forward_prefill(params, mcfg, {"tokens": toks}, 16,
+                                          policy)
+        logits2, cache = M.forward_decode(params, mcfg, toks[:, :1], 9,
+                                          cache, policy)
+        out[backend] = (logits, logits2, cache["layers"]["b0"])
+    assert out["cuda"][2]["k"].dtype == torch.int8
+    assert torch.equal(out["cuda"][0], out["torch"][0])
+    assert torch.equal(out["cuda"][1], out["torch"][1])
+    for name, leaf in out["cuda"][2].items():
+        assert torch.equal(leaf, out["torch"][2][name]), name

@@ -162,9 +162,15 @@ def test_float16_under_ozaki1_matches_widened_reference():
 
 
 def test_float16_under_ozaki2_raises_on_the_cuda_backend():
+    """float16 under ozaki2 on the 'cuda' backend no longer raises: it
+    runs Scheme II at the 11-bit budget and equals the 'torch' backend
+    (tests/test_torch_scheme2_f16.py holds both to the reference)."""
     h = torch.ones(8, 16, dtype=torch.float16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md § 1 item 3"):
-        dispatch.emulated_matmul(h, h.T, cfg="ozaki2-m8", backend="cuda")
+    outs = [dispatch.emulated_matmul(h, h.T, cfg="ozaki2-m8", backend=bk,
+                                     out_dtype=torch.float32)
+            for bk in ("cuda", "torch")]
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0], torch.full((8, 8), 16.0))
 
 
 def test_complex128_4m_matches_reference():

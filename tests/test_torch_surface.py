@@ -320,3 +320,25 @@ def test_dispatch_and_data_call_forms():
     with pytest.raises(NotImplementedError, match="item 8"):
         next(make_batch_iterator(arch, shape, 0, 1, 2))
     assert torch.equal(rope_frequencies(64), rope_frequencies(64, 10000.0))
+
+
+def test_int8_cache_call_forms():
+    """The int8 KV cache's functions in the reference's positional forms
+    (``cache_shape(cfg, batch, max_seq)``, ``quantize_kv(x)``,
+    ``dequantize_kv(q, scale, dtype)``): a window layer's ring length, an
+    int8 ``init_cache``'s leaves, and a quantize / dequantize round trip
+    within half a step of the scale."""
+    from repro_torch.models import attention as TA
+    cfg = TA.AttnConfig(80, 5, 5, 16, cache_int8=True)
+    assert TA.cache_shape(cfg, 2, 32) == (2, 32, 5, 16)
+    assert TA.cache_shape(dataclasses.replace(cfg, window=8), 2, 32) == (
+        2, 8, 5, 16)
+    cache = TA.init_cache(cfg, 2, 32, torch.float32, "cpu")
+    assert {k: (tuple(v.shape), v.dtype) for k, v in cache.items()} == {
+        "k": ((2, 32, 5, 16), torch.int8), "v": ((2, 32, 5, 16), torch.int8),
+        "k_scale": ((2, 32, 5, 1), torch.float32),
+        "v_scale": ((2, 32, 5, 1), torch.float32)}
+    x = torch.randn(2, 3, 5, 16)
+    q, scale = TA.quantize_kv(x)
+    back = TA.dequantize_kv(q, scale, torch.float32)
+    assert ((back - x).abs() <= scale / 2 + 1e-7).all()
