@@ -3,9 +3,9 @@
     python3 chip_smoke.py
 
 Drives repro_torch only (no jax, nothing of the reference package) on the
-card, with no CPU fallback, in twenty-seven phases. Phase 27 (while
-nothing else is resident on the card), phase 26's walls and phases 20-23
-run right after the build, so that every wall they take comes before
+card, with no CPU fallback, in twenty-eight phases. Phase 27 (while
+nothing else is resident on the card), phase 28, phase 26's walls and
+phases 20-23 run right after the build, so that every wall they take comes before
 the process's first torch.profiler session; phase 24 and
 phase 26's profiled steps and kernel times follow the yardsticks, phase
 25 follows phase 15 (on its DGEMM and ZGEMM operands), and the others
@@ -263,6 +263,27 @@ follow in their order:
     NaN) at olmo-1b's dense shapes, 4096^3 and two batches under
     ozaki2-m6, the front doors' launches counted, each timed behind a
     spin kernel beside its bound, its plain version and cuBLAS's HGEMM.
+28. the rest of the zoo at its published widths and depth, one
+    architecture at a time (each freed before the next): recurrentgemma-2b
+    (26 layers, (rec, rec, attn) x 8 + (rec, rec), local attention over
+    a 2048-row ring) and mamba2-780m (48 SSD layers) in LockstepEngine,
+    4 prompts of 2304 and 2048 tokens (recurrentgemma's past its window:
+    the prefill rotates the ring, the decode wraps it), 32 new, under
+    ozaki1-p4+cached (the 2-D weights prepared once) and native;
+    internvl2-1b's make_prefill_step on a pipeline batch of 4 x 2048
+    with 256 projected image tokens, 32 make_decode_step steps, and a
+    LockstepEngine text run; hubert-xlarge's encoder prefill step (a
+    plain forward) on 2 x 2048 frames of 512 under ozaki1-p4+cached and
+    native: prefill and decode walls, tok/s, TTFT, peak memory, launches
+    by form a step; every EmuGEMM-I call signature of those steps (K1's
+    route, K3, K4 at g = 10 and D = 256, at D = 80, and at the SSD
+    decode's N = 1) on Eq. 19 operands of its shape, type and layout,
+    bit for bit against its plain version and timed beside its bound
+    and torch.matmul / torch.bmm; each architecture at full width and
+    reduced depth (recurrentgemma-2b: a whole group and a tail block,
+    its window shrunk so the ring rotates and wraps), float32 native on
+    the card against the CPU port on the same weights, and bf16 under
+    ozaki1-p4+cached on the 'cuda' and 'torch' backends, bit for bit.
 
 After phases 20-23, one line names the device kernels that the
 library yardsticks (cuBLAS's batched DGEMM, scaled_dot_product_attention
@@ -881,6 +902,8 @@ def on_backend(policy, backend):
 def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
 
@@ -5147,6 +5170,515 @@ def qwen_phase(dev, view_tokens):
 
 
 # ---------------------------------------------------------------------------
+# Phase 28: the rest of the zoo at full width and depth: recurrentgemma-2b
+# (RG-LRU blocks and local attention over a ring-buffer KV cache) and
+# mamba2-780m (Mamba-2 SSD blocks) served by the lockstep engine,
+# internvl2-1b (the vision stub) through the prefill / decode steps and
+# the lockstep engine, and hubert-xlarge (the audio stub, a bidirectional
+# encoder) through its prefill step, a plain forward.
+# ---------------------------------------------------------------------------
+
+ZOO_SPEC = "ozaki1-p4+cached"
+ZOO_LANES, ZOO_GEN = 4, 32
+ZOO_PROMPTS = {"recurrentgemma-2b": 2304, "mamba2-780m": 2048,
+               "internvl2-1b": 2048}
+ZOO_TEXT_PROMPT = 512           # internvl2-1b's lockstep text run
+HUBERT_FRAMES = (2, 2048)
+# Reduced-depth checks at full width: the layers kept, the tokens, and
+# what is shrunk so that the CPU run sees the same code path (a ring that
+# rotates and wraps; several SSD chunks and a ragged one).
+ZOO_CHECK = {"recurrentgemma-2b": (4, {"attn_window": 16}),
+             "mamba2-780m": (2, {"ssd_chunk": 16}),
+             "internvl2-1b": (2, {}), "hubert-xlarge": (2, {})}
+ZOO_CHECK_B, ZOO_CHECK_S, ZOO_CHECK_DECODES = 2, 40, 3
+ZOO_CPU_TOL = 1e-4              # the CPU parity tests' bar on logits
+
+
+@contextlib.contextmanager
+def recorded_calls():
+    """Count the EmuGEMM-I front-door calls made inside the block by
+    signature: ('2d' | 'batched', batch, m, k, n, operand dtype, output
+    dtype, B read through its transpose) and ('mixed', 1, m, k, n, ...)
+    for a prepared weight. The calls go on to the wrappers unchanged."""
+    calls = {}
+    s1, mixed = ozaki1.fused_matmul_scheme1, ozaki1.fused_matmul_mixed
+
+    def rec_s1(a, b, mu, nu, p, beta, out_dtype):
+        lead = (a.shape[0],) if a.dim() == 3 else (1,)
+        tr = b.shape[-1] > 1 and b.stride(-2) == 1 and b.shape[-2] > 1
+        key = ("batched" if a.dim() == 3 else "2d", *lead, a.shape[-2],
+               a.shape[-1], b.shape[-1], a.dtype, out_dtype, tr)
+        calls[key] = calls.get(key, 0) + 1
+        return s1(a, b, mu, nu, p, beta, out_dtype)
+
+    def rec_mixed(a, b_planes, mu, nu, p, beta, out_dtype):
+        key = ("mixed", 1, a.shape[0], a.shape[1], b_planes.shape[1],
+               a.dtype, out_dtype, False)
+        calls[key] = calls.get(key, 0) + 1
+        return mixed(a, b_planes, mu, nu, p, beta, out_dtype)
+
+    ozaki1.fused_matmul_scheme1 = rec_s1
+    ozaki1.fused_matmul_mixed = rec_mixed
+    try:
+        yield calls
+    finally:
+        ozaki1.fused_matmul_scheme1 = s1
+        ozaki1.fused_matmul_mixed = mixed
+
+
+def zoo_kernel_times(dev, tag, steps: dict, max_err: dict) -> dict:
+    """Each EmuGEMM-I signature that ``steps`` ({step name: recorded
+    calls}) made, on Eq. 19 operands of its shape, type and layout: the
+    kernel against its plain version bit for bit, one front-door call
+    the expected launches; timed (device, behind a spin kernel) beside
+    its bound, its plain version and torch.matmul / torch.bmm on the
+    same operands; then summed over each step's calls."""
+    gen = torch.Generator(device=dev).manual_seed(28)
+    per_sig = {}
+    for sig in sorted({s for calls in steps.values() for s in calls},
+                      key=str):
+        form, batch, m, k, n, dt, out_dt, tr = sig
+        lead = (batch,) if form == "batched" else ()
+        a = conditioned(gen, lead + (m, k), dt, dev)
+        if form == "mixed":
+            w = conditioned(gen, (k, n), dt, dev)
+            prep = prepared.prepare_rhs(w, api.precision(SPEC))
+            plain_prep = prepared.prepare_rhs(
+                w, api.precision(SPEC, backend="torch"))
+            c = ozaki1.COUNTS
+            before = (c.launches_mixed, c.launches_encode, c.launches_planes)
+            got = prepared.matmul_prepared(a, prep, out_dt)
+            if (c.launches_mixed, c.launches_encode, c.launches_planes) != (
+                    before[0] + 1, before[1] + 1, before[2] + 1):
+                raise AssertionError(f"{tag} K3 {sig}: not 1 encode + 1 "
+                                     "plane GEMM")
+            check_equal(f"{tag} K3 {sig[:5]}", got, prepared.matmul_prepared(
+                a, plain_prep, out_dt), max_err, "k3")
+            bms, by = mixed_bound(m, k, n, P_MAIN, a.element_size(),
+                                  torch.empty((), dtype=out_dt).element_size())
+            per_sig[sig] = {
+                "ms": queued_ms(lambda: prepared.matmul_prepared(a, prep,
+                                                                 out_dt)),
+                "plain_ms": time_ms(lambda: prepared.matmul_prepared(
+                    a, plain_prep, out_dt), 3),
+                "bound_ms": bms, "bound_by": by,
+                "library_ms": time_ms(lambda: torch.matmul(a, w), 10)}
+            del w, prep, plain_prep
+            continue
+        shape_b = lead + ((n, k) if tr else (k, n))
+        b = conditioned(gen, shape_b, dt, dev)
+        b = b.transpose(-1, -2) if tr else b
+        mu, nu = scheme1.pow2_scale(a, -1), scheme1.pow2_scale(b, -2)
+        c = ozaki1.COUNTS
+        key = "launches_batched" if form == "batched" else "launches_2d"
+        before = getattr(c, key)
+        got = ozaki1.fused_matmul_scheme1(a, b, mu, nu, P_MAIN, 7, out_dt)
+        if getattr(c, key) != before + 1:
+            raise AssertionError(f"{tag} {sig}: not one front-door call")
+        kid = "k4" if form == "batched" else "k1"
+        check_equal(f"{tag} {kid.upper()} {sig[:5]} {dt}", got,
+                    ozaki1.fused_matmul_plain(a, b, mu, nu, P_MAIN, 7,
+                                              out_dt), max_err, kid)
+        bms, by = bound_ms(batch, m, k, n, P_MAIN, a.element_size(),
+                           torch.empty((), dtype=out_dt).element_size())
+        lib = torch.bmm if form == "batched" else torch.matmul
+        per_sig[sig] = {
+            "ms": queued_ms(lambda: ozaki1.fused_matmul_scheme1(
+                a, b, mu, nu, P_MAIN, 7, out_dt)),
+            "plain_ms": time_ms(lambda: ozaki1.fused_matmul_plain(
+                a, b, mu, nu, P_MAIN, 7, out_dt), 3),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": time_ms(lambda: lib(a, b), 10)}
+        del a, b, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    for step, calls in steps.items():
+        rows = {}
+        for form, kid in (("2d", "k1"), ("mixed", "k3"), ("batched", "k4")):
+            sigs = {s: n for s, n in calls.items() if s[0] == form}
+            if not sigs:
+                continue
+            rows[kid] = {
+                "launches_per_step": sum(sigs.values()),
+                **{key: sum(n * per_sig[s][key] for s, n in sigs.items())
+                   for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+                "shapes": [[*s[1:5], str(s[5])[6:], str(s[6])[6:],
+                            "B^T" if s[7] else "B", n, per_sig[s]["ms"]]
+                           for s, n in sigs.items()]}
+        out[step] = rows
+    return out
+
+
+def zoo_lockstep(dev, arch, params, prompt_len, spec, tag):
+    """LockstepEngine on ZOO_LANES seeded prompts of ``prompt_len``
+    tokens, ZOO_GEN new: the prefill (after a warm-up) and one decode
+    step timed with their launches read around them and their EmuGEMM-I
+    calls recorded; then generate timed (tok/s; TTFT, the prefill's wall:
+    every lane's first token comes from its logits); peak memory."""
+    mcfg = arch.model
+    cached = spec == ZOO_SPEC
+    policy = GemmPolicy(default=api.precision(spec))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    eng = LockstepEngine(arch, None, prompt_len + ZOO_GEN, policy,
+                         params=params, prepare=cached, device=dev)
+    torch.cuda.synchronize()
+    res = {"prepare_ms": (time.perf_counter() - t0) * 1e3,
+           "prepared_leaves": sum(isinstance(v, prepared.PreparedOperand)
+                                  for v in tree_flatten(eng.params).values()),
+           "prepare_encodes": ozaki1.COUNTS.launches_encode}
+    prompts = np.random.default_rng(0).integers(
+        0, mcfg.vocab, (ZOO_LANES, prompt_len)).astype(np.int32)
+    pt = torch.as_tensor(prompts, device=dev)
+    eng.prefill(pt)                                   # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    with recorded_calls() as pre_calls:
+        t0 = time.perf_counter()
+        logits, cache = eng.prefill(pt)
+        torch.cuda.synchronize()
+        res["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    res["prefill_launches"] = launches_of(s1_counts())
+    if not cached:
+        none_launched(f"{tag} native prefill")
+    tok = torch.argmax(logits[:, -1:, :mcfg.vocab], -1)
+    reset_counts()
+    with recorded_calls() as dec_calls:
+        t0 = time.perf_counter()
+        eng.decode(tok, prompt_len, cache)
+        torch.cuda.synchronize()
+        res["decode_step_ms"] = (time.perf_counter() - t0) * 1e3
+    res["decode_launches"] = launches_of(s1_counts())
+    if cached:
+        for what, calls in (("prefill", pre_calls), ("decode", dec_calls)):
+            got = res[f"{what}_launches"]
+            want = {f: sum(n for s, n in calls.items() if s[0] == f)
+                    for f in ("2d", "mixed", "batched")}
+            if ({f: got[f] for f in want} != want or not want["2d"]
+                    or s1_counts().plain_cuda_calls):
+                raise AssertionError(f"{tag} {what}: launches {got}, "
+                                     f"recorded calls {want}")
+    else:
+        none_launched(f"{tag} native decode")
+    del cache
+    t0 = time.perf_counter()
+    toks = eng.generate(prompts, ZOO_GEN)
+    res["generate_s"] = time.perf_counter() - t0
+    res["tok_per_s"] = ZOO_LANES * ZOO_GEN / res["generate_s"]
+    res["ttft_s"] = res["prefill_ms"] / 1e3
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if (toks.shape != (ZOO_LANES, ZOO_GEN) or not torch.isfinite(logits).all()
+            or ((toks < 0) | (toks >= mcfg.vocab)).any()):
+        raise AssertionError(f"{tag}: malformed lockstep output")
+    log(f"{tag} lockstep {spec}: {ZOO_LANES} x {prompt_len} prompts, "
+        f"{ZOO_GEN} new: prefill {res['prefill_ms']:.1f} ms (launches "
+        f"{res['prefill_launches']}), decode step "
+        f"{res['decode_step_ms']:.1f} ms (launches {res['decode_launches']}),"
+        f" generate {res['generate_s']:.3f} s ({res['tok_per_s']:.2f} "
+        f"tok/s), peak {res['peak_gib']:.2f} GiB; {res['prepared_leaves']} "
+        f"leaves prepared in {res['prepare_ms']:.1f} ms")
+    del eng
+    return res, {"prefill": pre_calls, "decode": dec_calls}
+
+
+def zoo_check_inputs(mcfg, seed=29):
+    """Seeded numpy inputs of the reduced-depth checks: ids (the vision
+    stub's with image embeddings) or the audio stub's frames."""
+    rng = np.random.default_rng(seed)
+    b, s = ZOO_CHECK_B, ZOO_CHECK_S
+    if mcfg.frontend == "audio_stub":
+        return {"tokens": rng.standard_normal(
+            (b, s, mcfg.frontend_dim)).astype(np.float32)}
+    out = {"tokens": rng.integers(0, mcfg.vocab, (b, s)).astype(np.int32)}
+    if mcfg.frontend == "vision_stub":
+        out["image_embeds"] = rng.standard_normal(
+            (b, mcfg.n_image_tokens, mcfg.frontend_dim)).astype(np.float32)
+    return out
+
+
+def zoo_run(mcfg, params, policy, inputs, dev):
+    """The reduced model's logits: an encoder's forward, or a prefill and
+    ZOO_CHECK_DECODES greedy decodes (each step's logits, in float32)."""
+    dtype = getattr(torch, mcfg.dtype)
+    x = {k: torch.as_tensor(v, device=dev) for k, v in inputs.items()}
+    x = {k: v.to(dtype) if v.is_floating_point() else v
+         for k, v in x.items()}          # stub features in the model type
+    with torch.inference_mode():
+        if not mcfg.causal:
+            return [M.forward_train(params, mcfg, x, policy,
+                                    remat=False)[0].float().cpu()]
+        s = x["tokens"].shape[1]
+        logits, cache = M.forward_prefill(params, mcfg, x,
+                                          s + ZOO_CHECK_DECODES, policy)
+        outs = [logits.float().cpu()]
+        for i in range(ZOO_CHECK_DECODES):
+            tok = torch.argmax(outs[-1][:, -1:, :mcfg.vocab], -1).to(
+                torch.int32)
+            logits, cache = M.forward_decode(params, mcfg, tok.to(dev),
+                                             s + i, cache, policy)
+            outs.append(logits.float().cpu())
+    return outs
+
+
+def zoo_check_phase(dev, arch_id):
+    """The architecture at full width and reduced depth (ZOO_CHECK): in
+    float32 native on the card against the CPU port on the same weights,
+    within ZOO_CPU_TOL x max|logits|; in bf16 under ZOO_SPEC (the
+    2-D weights prepared) on the 'cuda' backend against the 'torch'
+    backend (the plain versions, on the card), bit for bit."""
+    n_layers, shrink = ZOO_CHECK[arch_id]
+    mcfg = configs.get_config(arch_id).model
+    rep = {"n_layers": n_layers}
+    if "attn_window" in shrink:
+        rep["attn_window"] = shrink["attn_window"]
+        mcfg = dataclasses.replace(mcfg, attn_window=shrink["attn_window"])
+    if "ssd_chunk" in shrink:
+        rep["ssd_chunk"] = shrink["ssd_chunk"]
+        mcfg = dataclasses.replace(mcfg, ssd=dataclasses.replace(
+            mcfg.ssd, chunk=shrink["ssd_chunk"]))
+    tag = f"[{arch_id} {n_layers}L]"
+    inputs = zoo_check_inputs(mcfg)
+    f32 = dataclasses.replace(mcfg, n_layers=n_layers, dtype="float32")
+    params = M.init_params(f32, 0, dev)
+    native = GemmPolicy(default=api.precision("native"))
+    card = zoo_run(f32, params, native, inputs, dev)
+    cpu_params = tree_map(lambda x: x.cpu(), params)
+    del params
+    host = zoo_run(f32, cpu_params, native, inputs, torch.device("cpu"))
+    del cpu_params
+    err = 0.0
+    for a, b in zip(card, host):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{tag}: non-finite logits on the card")
+        err = max(err, ((a - b).abs().max() / b.abs().max()).item())
+    if err > ZOO_CPU_TOL:
+        raise AssertionError(f"{tag}: card vs CPU logits {err:.3g} of "
+                             f"max|logits| > {ZOO_CPU_TOL}")
+    rep["card_vs_cpu_rel_err"] = err
+    bf = dataclasses.replace(mcfg, n_layers=n_layers)
+    params = M.init_params(bf, 0, dev)
+    policy = GemmPolicy(default=api.precision(ZOO_SPEC))
+    outs = {}
+    for backend in ("cuda", "torch"):
+        pol = on_backend(policy, backend)
+        outs[backend] = zoo_run(bf, prepared.prepare_params(params, pol),
+                                pol, inputs, dev)
+    for a, b in zip(outs["cuda"], outs["torch"]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{tag}: cuda and torch backend logits "
+                                 "differ")
+    del params, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{tag} full width, {n_layers} layers"
+        + (f" ({shrink})" if shrink else "") + f": float32 card vs CPU "
+        f"logits within {err:.3g} of max|logits| (bar {ZOO_CPU_TOL}); "
+        f"{ZOO_SPEC} bf16: cuda == torch backend logits bit for bit "
+        f"({1 + ZOO_CHECK_DECODES * mcfg.causal} steps)")
+    return rep
+
+
+def zoo_arch(dev, arch_id, max_err):
+    """One architecture of phase 28 at full width and depth: its run(s),
+    its kernels at their shapes, its reduced-depth checks."""
+    arch = configs.get_config(arch_id)
+    mcfg = arch.model
+    tag = f"[{arch_id}]"
+    t0 = time.perf_counter()
+    params = M.init_params(mcfg, 0, dev)
+    torch.cuda.synchronize()
+    rep = {"init_s": time.perf_counter() - t0,
+           "params_b": M.param_count(params) / 1e9,
+           "weights_gib": torch.cuda.memory_allocated() / 2 ** 30}
+    log(f"{tag} published widths and depth ({mcfg.n_layers} layers, "
+        f"pattern {mcfg.block_pattern}, d {mcfg.d_model}, vocab "
+        f"{mcfg.vocab}, bf16): {rep['params_b']:.3f} B parameters "
+        f"({rep['weights_gib']:.2f} GiB) drawn on the card in "
+        f"{rep['init_s']:.1f} s")
+    if arch_id in ("recurrentgemma-2b", "mamba2-780m"):
+        rep["lockstep"], calls = zoo_lockstep(
+            dev, arch, params, ZOO_PROMPTS[arch_id], ZOO_SPEC, tag)
+        rep["lockstep_native"], _ = zoo_lockstep(
+            dev, arch, params, ZOO_PROMPTS[arch_id], "native", tag)
+    elif arch_id == "internvl2-1b":
+        rep["steps"], calls = zoo_vlm_steps(dev, arch, params, tag)
+        rep["lockstep_text"], _ = zoo_lockstep(
+            dev, arch, params, ZOO_TEXT_PROMPT, ZOO_SPEC, tag)
+    else:
+        rep["encoder"], calls = zoo_encoder(dev, arch, params, tag)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo_check_launches(tag, mcfg, rep)
+    rep["kernels"] = zoo_kernel_times(dev, tag, calls, max_err)
+    rep["check"] = zoo_check_phase(dev, arch_id)
+    log(f"{tag} kernels a step at its shapes: " + json.dumps(rep["kernels"]))
+    return rep
+
+
+def zoo_check_launches(tag, mcfg, rep):
+    """The forms each path must launch under ZOO_SPEC: K4 at every
+    attention layer (attn_qk, attn_av) and at mamba2's decode state read
+    ('ssd_state'), K3 for every prepared weight (the untied heads and
+    recurrentgemma-2b's 2-D tail), K1 for the rest."""
+    kinds = mcfg.pattern_for_layers()
+    n_attn, n_ssd = kinds.count("attn"), kinds.count("ssd")
+    tail = M._groups(mcfg)[2]
+    mixed = (0 if mcfg.tie_embeddings else 1) + 6 * len(tail)
+    runs = []
+    if "lockstep" in rep:
+        runs += [("prefill", rep["lockstep"]["prefill_launches"]),
+                 ("decode", rep["lockstep"]["decode_launches"])]
+    if "steps" in rep:
+        runs += [("prefill", rep["steps"]["prefill_launches"]),
+                 ("decode", rep["steps"]["decode_launches"])]
+    if "encoder" in rep:
+        runs += [("forward", rep["encoder"][ZOO_SPEC]["launches"])]
+    for what, got in runs:
+        want_b = n_attn and got["batched"] >= 2 * n_attn or (
+            not n_attn and got["batched"] == (n_ssd if what == "decode"
+                                              else 0))
+        if got["mixed"] != mixed or not want_b or not got["2d"]:
+            raise AssertionError(f"{tag} {what}: launches {got}; expected "
+                                 f"{mixed} mixed, K4 at {n_attn} attention "
+                                 f"/ {n_ssd} ssd layers")
+
+
+def zoo_vlm_steps(dev, arch, params, tag):
+    """internvl2-1b: make_prefill_step on a pipeline batch of ZOO_LANES x
+    its prompt with n_image_tokens projected image tokens, then ZOO_GEN
+    make_decode_step steps, under ZOO_SPEC with the head prepared once."""
+    mcfg = arch.model
+    s = ZOO_PROMPTS[arch.model.name]
+    policy = GemmPolicy(default=api.precision(ZOO_SPEC))
+    prepped = prepared.prepare_params(params, policy)
+    shape = ShapeSpec("zoo", s + ZOO_GEN, ZOO_LANES, "prefill")
+    _, batch = next(make_batch_iterator(
+        arch, ShapeSpec("zoo", s, ZOO_LANES, "prefill"), 0))
+    if batch["image_embeds"].shape[1] != mcfg.n_image_tokens:
+        raise AssertionError(f"{tag}: the batch has no image tokens")
+    inputs = S.batch_to({k: v for k, v in batch.items() if k != "labels"},
+                        dev)
+    prefill = S.make_prefill_step(arch, shape, None, policy)
+    decode = S.make_decode_step(arch, shape, None, policy)
+    torch.cuda.reset_peak_memory_stats()
+    prefill(prepped, inputs)                          # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    with recorded_calls() as pre_calls:
+        t0 = time.perf_counter()
+        logits, cache = prefill(prepped, inputs)
+        torch.cuda.synchronize()
+        res = {"prefill_ms": (time.perf_counter() - t0) * 1e3}
+    res["prefill_launches"] = launches_of(s1_counts())
+    toks = []
+    walls = []
+    dec_calls = None
+    for i in range(ZOO_GEN):
+        tok = torch.argmax(logits[:, -1:, :mcfg.vocab], -1).to(torch.int32)
+        toks.append(tok)
+        reset_counts()
+        with recorded_calls() as calls:
+            t0 = time.perf_counter()
+            logits, cache = decode(prepped, cache, tok, s + i)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        if dec_calls is None:
+            dec_calls = calls
+            res["decode_launches"] = launches_of(s1_counts())
+    toks = torch.cat(toks, 1)
+    if (not torch.isfinite(logits).all() or toks.shape != (ZOO_LANES, ZOO_GEN)
+            or ((toks < 0) | (toks >= mcfg.vocab)).any()):
+        raise AssertionError(f"{tag}: malformed steps' output")
+    res.update({"decode_step_ms": float(np.mean(walls[1:])),
+                "tok_per_s": ZOO_LANES * ZOO_GEN / (
+                    res["prefill_ms"] + sum(walls)) * 1e3,
+                "ttft_s": res["prefill_ms"] / 1e3,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+    if res["prefill_launches"]["mixed"] != 1 or not res["prefill_launches"][
+            "batched"]:
+        raise AssertionError(f"{tag}: prefill launches "
+                             f"{res['prefill_launches']}")
+    log(f"{tag} steps {ZOO_SPEC}: prefill of {ZOO_LANES} x {s} tokens "
+        f"({mcfg.n_image_tokens} image tokens) {res['prefill_ms']:.1f} ms "
+        f"(launches {res['prefill_launches']}), {ZOO_GEN} decode steps "
+        f"{res['decode_step_ms']:.1f} ms each (launches "
+        f"{res['decode_launches']}), {res['tok_per_s']:.2f} tok/s, peak "
+        f"{res['peak_gib']:.2f} GiB")
+    del prepped, cache
+    return res, {"prefill": pre_calls, "decode": dec_calls}
+
+
+def zoo_encoder(dev, arch, params, tag):
+    """hubert-xlarge: the encoder's make_prefill_step (a plain forward)
+    on HUBERT_FRAMES frames of frontend_dim from the pipeline, in the
+    model's type (the reference's input_specs), under ZOO_SPEC with the
+    head prepared once, and native."""
+    mcfg = arch.model
+    b, s = HUBERT_FRAMES
+    _, batch = next(make_batch_iterator(arch, ShapeSpec("zoo", s, b,
+                                                        "prefill"), 0))
+    frames = torch.as_tensor(batch["tokens"], device=dev).to(
+        getattr(torch, mcfg.dtype))
+    res = {}
+    calls = None
+    for spec in (ZOO_SPEC, "native"):
+        policy = GemmPolicy(default=api.precision(spec))
+        prepped = prepared.prepare_params(params, policy)
+        step = S.make_prefill_step(arch, ShapeSpec("zoo", s, b, "prefill"),
+                                   None, policy)
+        torch.cuda.reset_peak_memory_stats()
+        step(prepped, {"tokens": frames})             # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        with recorded_calls() as rec:
+            t0 = time.perf_counter()
+            logits = step(prepped, {"tokens": frames})
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        if logits.shape != (b, s, pad_vocab(mcfg.vocab)) or not torch.isfinite(
+                logits).all():
+            raise AssertionError(f"{tag}: bad logits {tuple(logits.shape)}")
+        r = {"forward_ms": wall, "frames_per_s": b * s / wall * 1e3,
+             "launches": launches_of(s1_counts()),
+             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        if spec == ZOO_SPEC:
+            calls = {"forward": rec}
+            if r["launches"]["mixed"] != 1 or not r["launches"]["batched"]:
+                raise AssertionError(f"{tag}: launches {r['launches']}")
+        else:
+            none_launched(f"{tag} native")
+        res[spec] = r
+        log(f"{tag} encoder prefill step {spec}: {b} x {s} frames of "
+            f"{mcfg.frontend_dim} in {wall:.1f} ms ({r['frames_per_s']:.0f} "
+            f"frames/s), launches {r['launches']}, peak "
+            f"{r['peak_gib']:.2f} GiB")
+        del prepped, logits
+    return res, calls
+
+
+def zoo_phase(dev):
+    """Phase 28 (after phase 27, before any profiler session; each
+    architecture frees its weights before the next)."""
+    max_err = {"k1": 0.0, "k3": 0.0, "k4": 0.0}
+    report = {}
+    for arch_id in ("recurrentgemma-2b", "mamba2-780m", "internvl2-1b",
+                    "hubert-xlarge"):
+        t0 = time.perf_counter()
+        report[arch_id] = zoo_arch(dev, arch_id, max_err)
+        report[arch_id]["phase_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["max_abs_err"] = max_err
+    log("[zoo] summary " + json.dumps(
+        {a: {k: v for k, v in r.items() if k != "kernels"}
+         for a, r in report.items() if a != "max_abs_err"}))
+    return report
+
+
+# ---------------------------------------------------------------------------
 # Phase 25: Scheme I in float64, at p = 9..16 and with float16 (the
 # float64 / complex128 / float16 instances of the encode, the plane GEMM,
 # the batched kernel and the decompositions).
@@ -5654,6 +6186,7 @@ def main() -> int:
     # session, and phase 27's 64 layers of qwen1.5-32b while nothing else
     # is resident on the card.
     qwen = qwen_phase(dev, view_tokens)
+    zoo = zoo_phase(dev)
     moe_walls = moe_phase(dev, view_tokens)
     gparams, gprepped, new_paths = new_path_phases(dev, view_tokens)
     yardsticks = yardstick_phase(dev)
@@ -6131,6 +6664,28 @@ def main() -> int:
                    "b_res form): one lhs encode + 1 plane GEMM; " + f16_per}}}
     for row in kernels:
         row.update(qwen_rows.get(row["name"], {}))
+    # Phase 28: the zoo's paths, per step, each form's calls summed at
+    # their shapes.
+    zoo_per = {
+        "k1": "the 2-D EmuGEMM-I calls of each step",
+        "k3": "the calls against prepared weights (the untied heads, "
+              "recurrentgemma-2b's 2-D tail)",
+        "k4": "the batched calls (attn_qk, attn_av; mamba2-780m's "
+              "ssd_state, N = 1)"}
+    for name, kid in (("emugemm1_2d", "k1"), ("emugemm1_mixed", "k3"),
+                      ("emugemm1_batched", "k4")):
+        per_arch = {a: {step: rows[kid] for step, rows in
+                        zoo[a]["kernels"].items() if kid in rows}
+                    for a in ZOO_CHECK}
+        for row in kernels:
+            if row["name"] == name:
+                row["zoo"] = {
+                    **per_arch, "max_abs_err": zoo["max_abs_err"][kid],
+                    "per": f"{zoo_per[kid]} under {ZOO_SPEC}, on Eq. 19 "
+                           "operands of each call's shape, type and layout "
+                           "(ms behind a spin kernel); library: "
+                           "torch.matmul / torch.bmm on the same operands; "
+                           "launches_per_step: the phase's own run"}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

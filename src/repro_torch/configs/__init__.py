@@ -1,11 +1,16 @@
 """Architecture registry of the port: ``--arch <id>`` -> ArchConfig.
 
-olmo-1b, olmo-1b-emu (olmo-1b with its GEMM sites under Scheme I and
-Scheme II), granite-3-8b and deepseek-coder-33b (dense GQA decoders),
-qwen1.5-32b (dense MHA with QKV bias and an int8 KV cache),
+Ported: olmo-1b, olmo-1b-emu (olmo-1b with its GEMM sites under Scheme I
+and Scheme II), granite-3-8b and deepseek-coder-33b (dense GQA
+decoders), qwen1.5-32b (dense MHA with QKV bias and an int8 KV cache),
 qwen2-moe-a2.7b and qwen2-moe-a2.7b-emu (softmax top-4 MoE with gated
-shared experts) are ported; every other id of the reference's registry raises
-NotImplementedError naming its ROADMAP.md item.
+shared experts), recurrentgemma-2b (RG-LRU blocks and local attention
+over a ring-buffer KV cache, (rec, rec, attn) x 8 + (rec, rec)),
+mamba2-780m (Mamba-2 SSD blocks), internvl2-1b (a decoder behind the
+vision stub: projected patch embeddings over the first tokens) and
+hubert-xlarge (a bidirectional encoder behind the audio stub: projected
+frame embeddings). deepseek-v3-671b raises NotImplementedError naming
+its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -16,18 +21,16 @@ from repro_torch.configs.base import (ALL_SHAPES, ArchConfig,  # noqa: F401
                                       ModelConfig, ShapeSpec, TrainPolicy)
 
 ARCH_IDS = ("granite-3-8b", "deepseek-coder-33b", "olmo-1b", "olmo-1b-emu",
-            "qwen1.5-32b", "qwen2-moe-a2.7b", "qwen2-moe-a2.7b-emu")
+            "qwen1.5-32b", "qwen2-moe-a2.7b", "qwen2-moe-a2.7b-emu",
+            "recurrentgemma-2b", "mamba2-780m", "internvl2-1b",
+            "hubert-xlarge")
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
             for a in ARCH_IDS}
 
-# The reference's other ids, each waiting on the ROADMAP.md § 1 item that
+# The reference's other id, waiting on the ROADMAP.md § 1 item that
 # ports what it needs.
-_NOT_PORTED = {
-    "hubert-xlarge": "4.3", "internvl2-1b": "4.3",
-    "recurrentgemma-2b": "4.5", "mamba2-780m": "4.5",
-    "deepseek-v3-671b": "4.6",
-}
+_NOT_PORTED = {"deepseek-v3-671b": "4.6"}
 
 
 def _module(arch: str):

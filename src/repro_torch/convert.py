@@ -6,10 +6,14 @@ on the JAX side — this module never imports jax) and returns the port's
 parameters: the same nested dicts of tensors, in the same layout. The
 stacked ``layers`` axis is kept by default, as the port's model indexes
 it; ``split_layers=True`` returns one dict per layer under ``"blocks"``
-instead, for callers that want per-layer tensors.
+instead (every group's blocks in execution order, then the tail), for
+callers that want per-layer tensors.
 
-Each leaf keeps its own dtype, as in the reference's tree: a bf16
-model's MoE router is float32 there and stays float32 here.
+The tree's groups ``layers/b0 .. b{k-1}``, its ``tail`` list of
+unstacked blocks and a stub front end's ``frontend_proj`` carry over as
+they are. Each leaf keeps its own dtype, as in the reference's tree: a
+bf16 model's MoE router, and its RG-LRU ``lam`` and SSD ``a_log``,
+``dt_bias`` and ``d_skip``, are float32 there and stay float32 here.
 """
 
 from __future__ import annotations
@@ -41,13 +45,15 @@ def params_from_jax(tree, mcfg: ModelConfig, device="cuda",
     """The reference's parameter pytree (numpy leaves) -> the port's."""
     B.check_supported(mcfg)
     device = M.resolve_device(device)
-    extra = set(tree) - {"emb", "ln_f", "head", "layers"}
+    extra = set(tree) - {"emb", "ln_f", "head", "layers", "tail",
+                         "frontend_proj"}
     if extra:
         raise NotImplementedError(
             f"parameter groups {sorted(extra)} have no counterpart in the "
-            "port yet (ROADMAP.md § 1 item 4)")
+            "port yet (ROADMAP.md § 1 item 4.6)")
     params = _to_torch(tree, device)
     if split_layers:
-        params["blocks"] = M.unstack_layers(params, mcfg.n_layers)
-        del params["layers"]
+        params["blocks"] = M.unstack_layers(params, mcfg)
+        params.pop("layers", None)
+        params.pop("tail", None)
     return params

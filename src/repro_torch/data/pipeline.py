@@ -1,11 +1,13 @@
-"""Deterministic synthetic LM data (``repro.data.pipeline``, token front
-end only).
+"""Deterministic synthetic LM data (``repro.data.pipeline``).
 
-Batches are numpy int32 arrays keyed by (seed, step), the same numbers
-the reference draws for host 0, so a resumed run fast-forwards to the
-same stream and the parity tests feed both packages one batch. One card
-is one host: sharding the stream across hosts waits for multi-device
-training (ROADMAP.md § 1 item 8).
+Batches are numpy arrays keyed by (seed, step), the same numbers the
+reference draws for host 0, so a resumed run fast-forwards to the same
+stream and the parity tests feed both packages one batch: int32 token
+ids and labels; for the audio stub, float32 Gaussian frames (B, S, F)
+in place of the ids; for the vision stub, the ids plus float32 Gaussian
+``image_embeds`` (B, n_image_tokens, F). One card is one host: sharding
+the stream across hosts waits for multi-device training (ROADMAP.md § 1
+item 8).
 """
 
 from __future__ import annotations
@@ -49,12 +51,20 @@ def make_batch_iterator(arch: ArchConfig, shape: ShapeSpec, seed: int = 0,
         raise NotImplementedError(
             "multi-host input is not ported yet (ROADMAP.md § 1 item 8)")
     m = arch.model
-    if m.frontend != "none":
-        raise NotImplementedError(
-            f"the {m.frontend} front end is not ported yet (ROADMAP.md § 1 "
-            "item 4)")
+    bsz = batch_override or shape.global_batch
     ds = SyntheticLMDataset(m.vocab, shape.seq_len, seed)
     step = 0
+    # The stub front ends' features: one stream for the run, as the
+    # reference's (keyed by seed + 1 and the host).
+    rng = np.random.default_rng(np.random.SeedSequence([seed + 1, host]))
     while True:
-        yield step, ds.batch(step, batch_override or shape.global_batch)
+        batch = ds.batch(step, bsz)
+        if m.frontend == "audio_stub":
+            batch = {"tokens": rng.standard_normal(
+                (bsz, shape.seq_len, m.frontend_dim), dtype=np.float32),
+                "labels": batch["labels"]}
+        elif m.frontend == "vision_stub":
+            batch["image_embeds"] = rng.standard_normal(
+                (bsz, m.n_image_tokens, m.frontend_dim), dtype=np.float32)
+        yield step, batch
         step += 1

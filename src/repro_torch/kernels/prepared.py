@@ -404,10 +404,13 @@ class StepPrepared:
 
 
 def _map_with_path(fn, tree, path=()):
-    """``fn(path, leaf)`` over a tree of dicts, ``path`` the tuple of
-    keys down to the leaf."""
+    """``fn(path, leaf)`` over a tree of dicts and lists (the model's
+    ``tail``), ``path`` the tuple of keys and list indices down to the
+    leaf."""
     if isinstance(tree, dict):
         return {k: _map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_with_path(fn, v, path + (i,)) for i, v in enumerate(tree)]
     return fn(path, tree)
 
 
@@ -512,7 +515,9 @@ def prepare_params(params, policy, *, site_default: str = "ffn",
     nor the head) as prepared operands (either scheme), once per serve
     session. Scan-stacked (3-D) layer leaves pass through untouched, so on
     olmo-1b, whose projections are layer stacks and whose head is the
-    tied embedding, no leaf is prepared (ROADMAP.md § 3 R4)."""
+    tied embedding, no leaf is prepared (ROADMAP.md § 3 R4); the 2-D
+    leaves of a model's unstacked ``tail`` blocks (recurrentgemma-2b's
+    last two) are prepared, as in the reference."""
     def wrap(path, leaf):
         if (not path or path[-1] not in names
                 or getattr(leaf, "ndim", 0) != 2

@@ -4,10 +4,15 @@
       --gemm ozaki1-p4 --requests 8 --prompt-len 48 --gen 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \\
       --smoke --lockstep --gemm ozaki1-p4+cached --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch recurrentgemma-2b --smoke --lockstep --device cpu
 
 The flags are the reference's (``repro.launch.serve``) plus ``--device``
 (default ``cuda``; ``cpu`` runs the kernels' plain versions).
-``--lockstep`` runs the legacy whole-batch engine (``ServeEngine``).
+``--lockstep`` runs the legacy whole-batch engine (``ServeEngine``), the
+only one for recurrent blocks (recurrentgemma-2b, mamba2-780m: their
+state caches are not paged) and the vision stub (internvl2-1b, text
+prompts). An encoder-only arch (hubert-xlarge) exits: it has no decode.
 ``--prepare``, or a ``+cached`` spec on the continuous engine, prepares
 the 2-D dense weights (an untied head) once a session. The telemetry
 flags ``--metrics-port`` / ``--metrics-jsonl`` raise (ROADMAP.md § 1
@@ -76,6 +81,8 @@ def main(argv=None):
                                   "§ 1 item 6)")
     arch = (configs.get_smoke_config(args.arch) if args.smoke
             else configs.get_config(args.arch))
+    if not arch.model.causal:
+        raise SystemExit(f"{args.arch} is encoder-only: no decode serving")
     rng = np.random.default_rng(args.seed)
     policy = (GemmPolicy(default=api.precision(args.gemm))
               if args.gemm else None)

@@ -47,10 +47,14 @@ def make_loss_fn(arch: ArchConfig, policy: GemmPolicy):
 def value_and_grad(loss_fn, params, batch, *args):
     """(loss, gradient tree) of ``loss_fn(params, batch, *args)``, like
     ``jax.value_and_grad``: only the leaves of ``params`` are
-    differentiated, and ``params`` keeps no gradient state."""
+    differentiated, and ``params`` keeps no gradient state. A leaf the
+    loss does not use (the token embedding behind the audio stub) gets
+    zeros, as in JAX."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     loss = loss_fn(tree_unflatten(params, leaves), batch, *args)
-    grads = torch.autograd.grad(loss, leaves)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
     return loss.detach(), tree_unflatten(params, grads)
 
 
@@ -143,14 +147,20 @@ def make_train_step(arch: ArchConfig, mesh=None,
 def make_prefill_step(arch: ArchConfig, shape: ShapeSpec, mesh=None,
                       policy: GemmPolicy | None = None):
     """``prefill(params, inputs) -> (logits (B, 1, vocab_padded), cache)``
-    with a contiguous cache of ``shape.seq_len`` positions. ``mesh``
-    must be None."""
+    with a contiguous cache of ``shape.seq_len`` positions; for an
+    encoder (``causal=False``) a plain forward, ``prefill(params,
+    inputs) -> logits (B, S, vocab_padded)``, as the reference's.
+    ``mesh`` must be None."""
     policy = _one_card_policy(arch, mesh, policy)
     mcfg = arch.model
+
     if not mcfg.causal:
-        raise NotImplementedError(
-            "encoder prefill (a plain forward) waits on the encoder "
-            "front ends (ROADMAP.md § 1 item 4.3)")
+        @torch.no_grad()
+        def prefill(params, inputs):
+            logits, _, _ = M.forward_train(params, mcfg, inputs, policy,
+                                           remat=False)
+            return logits
+        return prefill
 
     @torch.no_grad()
     def prefill(params, inputs):

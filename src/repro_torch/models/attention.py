@@ -11,10 +11,16 @@ stores quantize, and the step and the decode read the whole view
 dequantized, while the prefill attends with its fresh, unquantized k
 and v, as in the reference.
 
+A local-attention layer (``window``) keeps a ring buffer of
+min(max_seq, window) rows: the prefill stores the prompt's last rows
+rolled so that position p sits at slot p % length, and the decode writes
+slot pos % length and rebuilds each slot's absolute position for the
+mask, as the reference does. The ragged serving step takes global
+layers only (the continuous engine refuses a ring).
+
 ``flash_attention`` is plain torch, as the reference's is plain JAX (its
-Pallas flash kernel is not on this path). Global attention only: the
-ring-buffer window cache waits on the model zoo (ROADMAP.md § 1 item
-4.5), sequence parallelism on multi-device (item 8).
+Pallas flash kernel is not on this path). Sequence parallelism waits on
+multi-device (ROADMAP.md § 1 item 8).
 """
 
 from __future__ import annotations
@@ -221,13 +227,6 @@ def dequantize_kv(q, scale, dtype):
     return (q.to(torch.float32) * scale).to(dtype)
 
 
-def _refuse_cache(cfg: AttnConfig) -> None:
-    if cfg.window is not None:
-        raise NotImplementedError(
-            "the ring-buffer window KV cache is not ported yet (ROADMAP.md "
-            "§ 1 item 4.5)")
-
-
 def _fresh(cfg: AttnConfig, k, v) -> dict:
     """The cache leaves of fresh k / v: themselves, or quantized."""
     if cfg.cache_int8:
@@ -259,41 +258,61 @@ def _store(cfg: AttnConfig, cache, k, v, slot):
 def attention_prefill(params, cfg: AttnConfig, x, positions,
                       policy: GemmPolicy, cache):
     """Forward over the prompt: x (B, S, D) -> (out (B, S, D), cache
-    filled to S). ``cache`` is the contiguous {"k", "v"} (B, max_seq,
-    KVH, D) view to fill in place (one layer of the model's cache)."""
-    _refuse_cache(cfg)
+    filled to S). ``cache`` is the contiguous {"k", "v"} (B, L, KVH, D)
+    view to fill in place (one layer of the model's cache). A window
+    layer's ring shorter than the prompt keeps the prompt's last L rows,
+    rolled so that position p sits at slot p % L (the decode's
+    contract)."""
     b, s, _ = x.shape
-    if s > cache["k"].shape[1]:
+    clen = cache["k"].shape[1]
+    if s > clen and cfg.window is None:
         raise ValueError(f"a prompt of {s} tokens does not fit a cache of "
-                         f"{cache['k'].shape[1]}")
+                         f"{clen}")
     q, k, v = _project_qkv(params, cfg, x, positions, policy)
     pos1d = positions[0]
     out = flash_attention(cfg, q, k, v, pos1d, pos1d, policy=policy)
-    cache = _store(cfg, cache, k, v, 0)
+    if clen >= s:
+        cache = _store(cfg, cache, k, v, 0)
+    else:
+        shift = (s - clen) % clen
+        cache = _store(cfg, cache, torch.roll(k[:, s - clen:], shift, 1),
+                       torch.roll(v[:, s - clen:], shift, 1), 0)
     return dense(out.reshape(b, s, -1), params["wo"], policy, "attn"), cache
 
 
 def attention_decode(params, cfg: AttnConfig, x, pos, cache,
                      policy: GemmPolicy):
-    """One-token step. x: (B, 1, D); pos: the int index every lane writes
-    (its absolute position). Updates the contiguous (B, L, KVH, ...)
-    cache in place and attends to all of it (dequantized when int8);
-    returns (out (B, 1, D), cache)."""
-    _refuse_cache(cfg)
+    """One-token step. x: (B, 1, D); pos: the int absolute position every
+    lane takes. A global layer writes row ``pos``, a window layer's ring
+    row ``pos % L``. Updates the contiguous (B, L, KVH, ...) cache in
+    place and attends to all of it (dequantized when int8); returns
+    (out (B, 1, D), cache)."""
     b = x.shape[0]
     pos = int(pos)
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(params, cfg, x, positions, policy)
-    cache = _store(cfg, cache, k, v, pos)
+    clen = cache["k"].shape[1]
+    slot = pos % clen if cfg.window else pos
+    cache = _store(cfg, cache, k, v, slot)
     ck, cv = _read(cfg, cache, x.dtype)
-    clen = ck.shape[1]
+    idx = torch.arange(clen, dtype=torch.int32, device=x.device)
+    if cfg.window and pos >= clen:
+        # A wrapped ring: the absolute position of slot i given the write
+        # position.
+        k_positions = torch.where(idx <= slot, pos - slot + idx,
+                                  pos - slot - clen + idx)
+    else:
+        k_positions = idx
     kvh, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
     qh = q.reshape(b, kvh, g, cfg.head_dim)
     s = policy_einsum("bkgd,bjkd->bkgj", qh, ck, policy, "attn_qk",
                       pet=torch.float32) * cfg.scale
-    k_positions = torch.arange(clen, dtype=torch.int32, device=x.device)
     mask = _chunk_mask(cfg, positions[0], k_positions)[0]        # (clen,)
-    mask &= k_positions < pos + 1
+    if not cfg.window:
+        # With a window, unwritten ring rows fail the causal mask by their
+        # positions (the reference's expression masks by ``valid`` only
+        # without one).
+        mask &= idx < pos + 1
     s = torch.where(mask[None, None, None], s, torch.full_like(s, NEG_INF))
     w = torch.softmax(s, dim=-1)
     out = policy_einsum("bkgj,bjkd->bkgd", w.to(cv.dtype), cv, policy,
@@ -330,10 +349,11 @@ def attention_step(params, cfg: AttnConfig, x, start, n_new, cache,
     k and v, with their scales when int8: the fresh chunk is stored
     first, then the whole view is read (dequantized), so a prefill chunk
     attends to its own tokens as the cache holds them. Per-lane results
-    depend only on that lane's tokens and cache rows. Returns (out
-    (B, C, D), updated cache view).
+    depend only on that lane's tokens and cache rows. A window layer's
+    ring has no per-lane paged layout: the continuous engine refuses
+    such architectures, and the step masks causally only, as the
+    reference's does. Returns (out (B, C, D), updated cache view).
     """
-    _refuse_cache(cfg)
     b, c, _ = x.shape
     positions = start[:, None] + torch.arange(c, dtype=torch.int32,
                                               device=x.device)

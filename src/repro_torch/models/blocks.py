@@ -1,55 +1,74 @@
-"""Residual blocks of the port (``repro.models.blocks``): the attention
-block, pre-norm attention + pre-norm dense FFN or MoE (``models.moe``,
-softmax routing), in its training forward
-(``block_train``), its ragged serving step (``block_step``), and its
-whole-batch prefill and single-token decode against a contiguous cache
-(``init_block_cache``, ``block_prefill``, ``block_decode``)."""
+"""Residual blocks of the port (``repro.models.blocks``): (pre-norm
+mixer) + (pre-norm FFN or MoE), per block kind:
+
+  attn — GQA attention (global, or local over a ring-buffer cache) + a
+         dense FFN or ``models.moe``'s softmax-routed MoE
+  rec  — RG-LRU recurrent mixer (``models.rglru``) + a dense FFN
+  ssd  — Mamba-2 SSD mixer (``models.ssd``), no separate FFN
+
+in the training forward (``block_train``), the ragged serving step
+(``block_step``, attention only), and the whole-batch prefill and
+single-token decode against a contiguous cache (``init_block_cache``,
+``block_prefill``, ``block_decode``). The prefill and the decode write
+the caller's cache view in place: an attention block's k / v rows, a
+recurrent block's state."""
 
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, moe
+from repro_torch.models import attention, moe, rglru, ssd
 from repro_torch.models.attention import AttnConfig
 from repro_torch.models.common import (GemmPolicy, apply_ffn, apply_norm,
                                        init_ffn, init_norm)
 
 
-def attn_config(mcfg: ModelConfig) -> AttnConfig:
+def attn_config(mcfg: ModelConfig, local: bool = False) -> AttnConfig:
     return AttnConfig(
         d_model=mcfg.d_model, n_heads=mcfg.n_heads,
         n_kv_heads=mcfg.n_kv_heads, head_dim=mcfg.resolved_head_dim,
         qkv_bias=mcfg.qkv_bias, causal=mcfg.causal,
-        window=mcfg.attn_window, rope_theta=mcfg.rope_theta,
-        use_rope=mcfg.causal, q_chunk=mcfg.q_chunk, kv_chunk=mcfg.kv_chunk,
+        window=mcfg.attn_window if local or mcfg.attn_window else None,
+        rope_theta=mcfg.rope_theta, use_rope=mcfg.causal,
+        q_chunk=mcfg.q_chunk, kv_chunk=mcfg.kv_chunk,
         cache_int8=mcfg.kv_cache_dtype == "int8")
 
 
 def check_supported(mcfg: ModelConfig) -> None:
-    """Raise for anything of the reference's block zoo outside the slice."""
-    if (set(mcfg.block_pattern) != {"attn"} or mcfg.mla is not None
-            or mcfg.frontend != "none" or mcfg.mtp):
+    """Raise for what of the reference's block zoo is not ported: MLA,
+    sigmoid MoE routing and multi-token prediction (deepseek-v3-671b)."""
+    if mcfg.mla is not None or mcfg.mtp:
         raise NotImplementedError(
-            f"{mcfg.name}: only attention blocks with a dense FFN or a "
-            "softmax-routed MoE are ported yet (ROADMAP.md § 1 item 4)")
+            f"{mcfg.name}: MLA attention and multi-token prediction are not "
+            "ported yet (ROADMAP.md § 1 item 4.6)")
     if mcfg.moe is not None and mcfg.moe.scoring != "softmax":
         raise NotImplementedError(
             f"{mcfg.name}: {mcfg.moe.scoring} MoE scoring is not ported yet "
             "(ROADMAP.md § 1 item 4.6)")
 
 
-def init_block(gen, mcfg: ModelConfig, dtype, device, lead: tuple = ()):
+def init_block(gen, kind: str, mcfg: ModelConfig, dtype, device,
+               lead: tuple = ()):
     d = mcfg.d_model
-    p = {
-        "ln1": init_norm(mcfg.norm, d, dtype, device, lead),
-        "mixer": attention.init_attention(gen, attn_config(mcfg), dtype,
-                                          device, lead),
-        "ln2": init_norm(mcfg.norm, d, dtype, device, lead),
-    }
-    if mcfg.moe is not None:
-        p["moe"] = moe.init_moe(gen, d, mcfg.moe, mcfg.act, dtype, device,
+    p = {"ln1": init_norm(mcfg.norm, d, dtype, device, lead)}
+    if kind == "attn":
+        p["mixer"] = attention.init_attention(gen, attn_config(mcfg), dtype,
+                                              device, lead)
+        p["ln2"] = init_norm(mcfg.norm, d, dtype, device, lead)
+        if mcfg.moe is not None:
+            p["moe"] = moe.init_moe(gen, d, mcfg.moe, mcfg.act, dtype,
+                                    device, lead)
+        else:
+            p["ffn"] = init_ffn(gen, d, mcfg.d_ff, mcfg.act, dtype, device,
                                 lead)
-    else:
+    elif kind == "rec":
+        p["mixer"] = rglru.init_rglru(gen, d, mcfg.rglru, dtype, device,
+                                      lead)
+        p["ln2"] = init_norm(mcfg.norm, d, dtype, device, lead)
         p["ffn"] = init_ffn(gen, d, mcfg.d_ff, mcfg.act, dtype, device, lead)
+    elif kind == "ssd":
+        p["mixer"] = ssd.init_ssd(gen, d, mcfg.ssd, dtype, device, lead)
+    else:
+        raise ValueError(f"unknown block kind {kind!r}")
     return p
 
 
@@ -63,27 +82,35 @@ def _ffn_part(params, mcfg: ModelConfig, x, policy: GemmPolicy):
     return x + out, aux
 
 
-def _check_kind(kind: str) -> None:
-    if kind != "attn":
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP.md § 1 item 4)")
-
-
 def block_train(params, kind: str, mcfg: ModelConfig, x, positions,
                 policy: GemmPolicy):
-    """One block's training forward; returns (x, aux loss). Only the
-    attention block is ported (``check_supported``)."""
-    _check_kind(kind)
+    """One block's training forward; returns (x, aux loss)."""
     h = apply_norm(mcfg.norm, params["ln1"], x)
-    x = x + attention.attention_train(params["mixer"], attn_config(mcfg), h,
-                                      positions, policy)
-    return _ffn_part(params, mcfg, x, policy)
+    if kind == "attn":
+        x = x + attention.attention_train(params["mixer"], attn_config(mcfg),
+                                          h, positions, policy)
+        return _ffn_part(params, mcfg, x, policy)
+    if kind == "rec":
+        x = x + rglru.rglru_block_train(params["mixer"], mcfg.rglru, h,
+                                        policy)
+        return _ffn_part(params, mcfg, x, policy)
+    if kind == "ssd":
+        return x + ssd.ssd_block_train(params["mixer"], mcfg.d_model,
+                                       mcfg.ssd, h, policy), 0.0
+    raise ValueError(kind)
 
 
-def block_step(params, mcfg: ModelConfig, x, start, n_new, cache,
+def block_step(params, kind: str, mcfg: ModelConfig, x, start, n_new, cache,
                policy: GemmPolicy):
     """Ragged serving step of one attention block (see
-    ``attention.attention_step``)."""
+    ``attention.attention_step``). Only attention blocks have a paged
+    per-lane cache: rec / ssd state caches are refused by the serving
+    engine up front."""
+    if kind != "attn":
+        raise NotImplementedError(
+            f"block kind {kind!r} has no ragged serving step: rec/ssd state "
+            "caches are lane-bound, not paged (repro_torch.serving supports "
+            "attention-family architectures)")
     h = apply_norm(mcfg.norm, params["ln1"], x)
     mix, cache = attention.attention_step(params["mixer"], attn_config(mcfg),
                                           h, start, n_new, cache, policy)
@@ -92,30 +119,63 @@ def block_step(params, mcfg: ModelConfig, x, start, n_new, cache,
 
 def init_block_cache(kind: str, mcfg: ModelConfig, batch: int, max_seq: int,
                      dtype, device, lead: tuple = ()):
-    """A block's contiguous KV cache, stacked on ``lead`` (layer) axes."""
-    _check_kind(kind)
-    return attention.init_cache(attn_config(mcfg), batch, max_seq, dtype,
-                                device, lead)
+    """A block's contiguous cache, stacked on ``lead`` (layer) axes: an
+    attention block's k / v (a window's ring of min(max_seq, window)
+    rows), a rec block's {"h", "conv"}, an ssd block's {"conv", "ssm"}."""
+    if kind == "attn":
+        return attention.init_cache(attn_config(mcfg), batch, max_seq, dtype,
+                                    device, lead)
+    if kind == "rec":
+        return rglru.init_rglru_cache(mcfg.rglru, mcfg.d_model, batch, dtype,
+                                      device, lead)
+    if kind == "ssd":
+        return ssd.init_ssd_cache(mcfg.ssd, mcfg.d_model, batch, dtype,
+                                  device, lead)
+    raise ValueError(kind)
+
+
+def _write(view: dict, new: dict) -> dict:
+    """Copy a recurrent block's new state into its cache view."""
+    for name, leaf in new.items():
+        view[name].copy_(leaf)
+    return view
 
 
 def block_prefill(params, kind: str, mcfg: ModelConfig, x, positions,
                   policy: GemmPolicy, cache):
     """One block over the whole prompt; fills ``cache`` (one layer's
-    contiguous {"k", "v"} view) in place."""
-    _check_kind(kind)
+    contiguous view of :func:`init_block_cache`) in place."""
     h = apply_norm(mcfg.norm, params["ln1"], x)
-    mix, cache = attention.attention_prefill(params["mixer"],
-                                             attn_config(mcfg), h, positions,
-                                             policy, cache)
-    return _ffn_part(params, mcfg, x + mix, policy)[0], cache
+    if kind == "attn":
+        mix, cache = attention.attention_prefill(
+            params["mixer"], attn_config(mcfg), h, positions, policy, cache)
+        return _ffn_part(params, mcfg, x + mix, policy)[0], cache
+    if kind == "rec":
+        mix, new = rglru.rglru_block_prefill(params["mixer"], mcfg.rglru, h,
+                                             policy)
+        return _ffn_part(params, mcfg, x + mix, policy)[0], _write(cache, new)
+    if kind == "ssd":
+        mix, new = ssd.ssd_block_prefill(params["mixer"], mcfg.d_model,
+                                         mcfg.ssd, h, policy)
+        return x + mix, _write(cache, new)
+    raise ValueError(kind)
 
 
 def block_decode(params, kind: str, mcfg: ModelConfig, x, pos, cache,
                  policy: GemmPolicy):
-    """One block's single-token step at position ``pos``."""
-    _check_kind(kind)
+    """One block's single-token step at position ``pos``; updates
+    ``cache`` in place."""
     h = apply_norm(mcfg.norm, params["ln1"], x)
-    mix, cache = attention.attention_decode(params["mixer"],
-                                            attn_config(mcfg), h, pos, cache,
-                                            policy)
-    return _ffn_part(params, mcfg, x + mix, policy)[0], cache
+    if kind == "attn":
+        mix, cache = attention.attention_decode(
+            params["mixer"], attn_config(mcfg), h, pos, cache, policy)
+        return _ffn_part(params, mcfg, x + mix, policy)[0], cache
+    if kind == "rec":
+        mix, new = rglru.rglru_block_decode(params["mixer"], mcfg.rglru, h,
+                                            cache, policy)
+        return _ffn_part(params, mcfg, x + mix, policy)[0], _write(cache, new)
+    if kind == "ssd":
+        mix, new = ssd.ssd_block_decode(params["mixer"], mcfg.d_model,
+                                        mcfg.ssd, h, cache, policy)
+        return x + mix, _write(cache, new)
+    raise ValueError(kind)

@@ -91,6 +91,9 @@ def dense(x: torch.Tensor, w, policy: GemmPolicy, site: str,
     elif isinstance(w, (PreparedOperand, PreparedResidues)):
         out = prepared_dot(x, w).to(x.dtype)
     elif cfg.scheme == "native":
+        if x.dtype != w.dtype:      # jnp.einsum's type promotion
+            t = torch.promote_types(x.dtype, w.dtype)
+            x, w = x.to(t), w.to(t)
         out = torch.matmul(x, w)
     else:
         out = emulated_dot(x, w, cfg).to(x.dtype)

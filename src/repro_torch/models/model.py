@@ -1,16 +1,25 @@
 """Top-level language model of the port (``repro.models.model``):
-embeddings -> stacked blocks -> head, for the training forward, the
+embeddings -> grouped blocks -> head, for the training forward, the
 ragged serving step, and the whole-batch prefill and single-token decode.
 
-Parameters keep the reference's pytree layout: ``params["layers"]["b0"]``
-holds each block weight stacked on a leading layer axis, and the
-reference's ``lax.scan`` over it becomes a Python loop over that axis.
+Layers are grouped by the (possibly heterogeneous) ``block_pattern``, as
+in the reference: ``params["layers"]`` holds ``{"b0", ..., "b{k-1}"}``,
+one per pattern entry, each leaf stacked on a leading ``n_groups`` axis,
+and ``params["tail"]`` the list of the ``n_layers % k`` trailing blocks,
+unstacked (recurrentgemma-2b: (rec, rec, attn) x 8 + (rec, rec)). The
+reference's ``lax.scan`` over the groups becomes a Python loop: group by
+group, each group's blocks in pattern order, then the tail. The cache
+follows the same layout.
+
+Front ends: token ids, the audio stub ((B, S, F) frames projected by
+``frontend_proj``) and the vision stub (token ids, with projected
+``image_embeds`` written over the first ``n_image_tokens`` positions).
 
 Entry points: ``init_params``, ``init_cache``, ``forward_train``,
 ``forward_step``, ``forward_prefill``, ``forward_decode``,
-``logits_from_hidden``, ``param_count``. They run on ``device="cuda"``
-unless the caller asks for the CPU, and raise when CUDA is asked for and
-absent.
+``embed_inputs``, ``logits_from_hidden``, ``param_count``. They run on
+``device="cuda"`` unless the caller asks for the CPU, and raise when
+CUDA is asked for and absent.
 """
 
 from __future__ import annotations
@@ -37,23 +46,45 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def unstack_layers(params, n_layers: int) -> list:
-    """Every layer's block parameters, views from one ``unbind`` of each
-    stacked leaf (in training, one gradient buffer per leaf, not one per
-    layer); a once-per-step ``StepPrepared`` stack splits into per-layer
-    pairs of weight view and prep."""
-    def split(tree):
-        if isinstance(tree, dict):
-            return {k: split(v) for k, v in tree.items()}
-        if isinstance(tree, StepPrepared):
-            return tree.unbind()
-        return torch.unbind(tree)
-    def pick(tree, i):
-        if isinstance(tree, dict):
-            return {k: pick(v, i) for k, v in tree.items()}
-        return tree[i]
-    parts = split(params["layers"]["b0"])
-    return [pick(parts, i) for i in range(n_layers)]
+def _groups(mcfg: ModelConfig):
+    """(pattern, n_groups, tail kinds), as the reference groups layers."""
+    pat = list(mcfg.block_pattern)
+    n_groups = mcfg.n_layers // len(pat)
+    tail = mcfg.pattern_for_layers()[n_groups * len(pat):]
+    return pat, n_groups, tail
+
+
+def _split(tree):
+    """Each stacked leaf of a group as its list of per-group views (one
+    ``unbind``: in training one gradient buffer per leaf, not per layer);
+    a once-per-step ``StepPrepared`` stack as per-group pairs."""
+    if isinstance(tree, dict):
+        return {k: _split(v) for k, v in tree.items()}
+    if isinstance(tree, StepPrepared):
+        return tree.unbind()
+    return torch.unbind(tree)
+
+
+def _pick(tree, i):
+    if isinstance(tree, dict):
+        return {k: _pick(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def unstack_layers(params, mcfg: ModelConfig) -> list:
+    """Every layer's block parameters in execution order (group by group,
+    each in pattern order, then the tail), views of the stacked leaves;
+    ``mcfg.pattern_for_layers()`` gives their kinds. Works on a cache
+    tree of the same layout too."""
+    pat, n_groups, tail = _groups(mcfg)
+    out = []
+    if n_groups:
+        parts = [_split(params["layers"][f"b{j}"]) for j in range(len(pat))]
+        for g in range(n_groups):
+            out += [_pick(part, g) for part in parts]
+    if tail:
+        out += list(params["tail"])
+    return out
 
 
 def init_params(mcfg: ModelConfig, seed: int = 0, device="cuda"):
@@ -64,6 +95,7 @@ def init_params(mcfg: ModelConfig, seed: int = 0, device="cuda"):
     B.check_supported(mcfg)
     device = resolve_device(device)
     dtype = getattr(torch, mcfg.dtype)
+    pat, n_groups, tail = _groups(mcfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     params = {"emb": emb_init(gen, (pad_vocab(mcfg.vocab), mcfg.d_model),
                               dtype, device),
@@ -71,32 +103,70 @@ def init_params(mcfg: ModelConfig, seed: int = 0, device="cuda"):
     if not mcfg.tie_embeddings:
         params["head"] = he_init(gen, (mcfg.d_model, pad_vocab(mcfg.vocab)),
                                  dtype, device)
-    params["layers"] = {"b0": B.init_block(gen, mcfg, dtype, device,
-                                           lead=(mcfg.n_layers,))}
+    if mcfg.frontend in ("audio_stub", "vision_stub"):
+        params["frontend_proj"] = he_init(
+            gen, (mcfg.frontend_dim, mcfg.d_model), dtype, device)
+    if n_groups:
+        params["layers"] = {
+            f"b{j}": B.init_block(gen, kind, mcfg, dtype, device,
+                                  lead=(n_groups,))
+            for j, kind in enumerate(pat)}
+    if tail:
+        params["tail"] = [B.init_block(gen, kind, mcfg, dtype, device)
+                          for kind in tail]
     return params
 
 
 def init_cache(mcfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
-    """Per-lane KV cache views: {"layers": {"b0": {"k", "v"}}}, each
-    (n_layers, batch, max_seq, n_kv_heads, head_dim), in the model's
-    type; an int8 cache (``kv_cache_dtype="int8"``) holds int8 k and v
-    and their float32 scales "k_scale", "v_scale" (..., n_kv_heads, 1)."""
+    """The contiguous cache: {"layers": {"b0": ..., ...}} stacked on
+    n_groups as the parameters are, and a "tail" list. An attention
+    block's leaves are k and v (batch, L, n_kv_heads, head_dim) in the
+    model's type, L = max_seq, or a window's ring of min(max_seq,
+    window) rows; an int8 cache (``kv_cache_dtype="int8"``) holds int8 k
+    and v and their float32 scales "k_scale", "v_scale" (..., 1). A rec
+    block holds {"h" float32, "conv"}, an ssd block {"conv", "ssm"
+    float32}."""
     B.check_supported(mcfg)
     device = resolve_device(device)
-    return {"layers": {"b0": B.init_block_cache(
-        "attn", mcfg, batch, max_seq, getattr(torch, mcfg.dtype), device,
-        lead=(mcfg.n_layers,))}}
+    dtype = getattr(torch, mcfg.dtype)
+    pat, n_groups, tail = _groups(mcfg)
+    cache = {}
+    if n_groups:
+        cache["layers"] = {
+            f"b{j}": B.init_block_cache(kind, mcfg, batch, max_seq, dtype,
+                                        device, lead=(n_groups,))
+            for j, kind in enumerate(pat)}
+    if tail:
+        cache["tail"] = [B.init_block_cache(kind, mcfg, batch, max_seq,
+                                            dtype, device) for kind in tail]
+    return cache
+
+
+def _project(x, w):
+    """``jnp.einsum("...f,fd->...d", x, w)``: in the promoted type."""
+    t = torch.promote_types(x.dtype, w.dtype)
+    return torch.matmul(x.to(t), w.to(t))
 
 
 def embed_inputs(params, mcfg: ModelConfig, inputs: dict):
-    """Token front end: (embeddings (B, S, D), positions (B, S) int32)."""
-    if mcfg.frontend != "none":
-        raise NotImplementedError(
-            f"the {mcfg.frontend} front end is not ported yet (ROADMAP.md "
-            "§ 1 item 4)")
-    ids = inputs["tokens"]
-    b, s = ids.shape
-    x = params["emb"][ids.long()]
+    """The front end: (embeddings (B, S, D), positions (B, S) int32).
+
+    The audio stub projects (B, S, F) frames (``inputs["tokens"]``) with
+    ``frontend_proj``; token ids are looked up in ``emb``, and the vision
+    stub writes the projected ``image_embeds`` (B, n, F), cast to the
+    embeddings' type, over positions 0..n-1."""
+    if mcfg.frontend == "audio_stub":
+        x = _project(inputs["tokens"], params["frontend_proj"])
+        b, s = x.shape[:2]
+    else:
+        ids = inputs["tokens"]
+        b, s = ids.shape
+        x = params["emb"][ids.long()]
+        if mcfg.frontend == "vision_stub" and "image_embeds" in inputs:
+            img = _project(inputs["image_embeds"],
+                           params["frontend_proj"]).to(x.dtype)
+            n = min(img.shape[1], s)
+            x = torch.cat([img[:, :n], x[:, n:]], dim=1)
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
     return x, positions
@@ -105,19 +175,21 @@ def embed_inputs(params, mcfg: ModelConfig, inputs: dict):
 def forward_train(params, mcfg: ModelConfig, inputs: dict,
                   policy: GemmPolicy = NATIVE_POLICY, remat: bool = True):
     """Training forward: (logits (B, S, vocab_padded), mtp logits (None),
-    aux loss). With ``remat`` each layer runs under a non-reentrant
+    aux loss). With ``remat`` each block runs under a non-reentrant
     activation checkpoint, as the reference wraps each scanned group in
-    ``jax.checkpoint``: only the layer inputs stay alive, and the
-    backward recomputes each layer, its weight preparation included."""
+    ``jax.checkpoint``: only the block inputs stay alive, and the
+    backward recomputes each block, its weight preparation included.
+    An encoder (``causal=False``) attends bidirectionally."""
     B.check_supported(mcfg)
     x, positions = embed_inputs(params, mcfg, inputs)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in unstack_layers(params, mcfg.n_layers):
+    for kind, lp in zip(mcfg.pattern_for_layers(),
+                        unstack_layers(params, mcfg)):
         if remat:
-            x, a = checkpoint(B.block_train, lp, "attn", mcfg, x, positions,
+            x, a = checkpoint(B.block_train, lp, kind, mcfg, x, positions,
                               policy, use_reentrant=False)
         else:
-            x, a = B.block_train(lp, "attn", mcfg, x, positions, policy)
+            x, a = B.block_train(lp, kind, mcfg, x, positions, policy)
         aux = aux + a
     return logits_from_hidden(params, mcfg, x, policy), None, aux
 
@@ -135,28 +207,31 @@ def forward_prefill(params, mcfg: ModelConfig, inputs: dict, max_seq: int,
                     policy: GemmPolicy = NATIVE_POLICY):
     """Whole-batch prefill: (logits (B, 1, vocab_padded) at the last
     prompt position, the contiguous cache of :func:`init_cache` filled
-    with the prompt's keys and values)."""
+    with the prompt's keys and values and the recurrent blocks' states)."""
     B.check_supported(mcfg)
     x, positions = embed_inputs(params, mcfg, inputs)
     cache = init_cache(mcfg, x.shape[0], max_seq, x.device)
-    kv = cache["layers"]["b0"]
-    for i, lp in enumerate(unstack_layers(params, mcfg.n_layers)):
-        view = {name: leaf[i] for name, leaf in kv.items()}
-        x, _ = B.block_prefill(lp, "attn", mcfg, x, positions, policy, view)
+    for kind, lp, view in zip(mcfg.pattern_for_layers(),
+                              unstack_layers(params, mcfg),
+                              unstack_layers(cache, mcfg)):
+        x, _ = B.block_prefill(lp, kind, mcfg, x, positions, policy, view)
     return logits_from_hidden(params, mcfg, x[:, -1:], policy), cache
 
 
 def forward_decode(params, mcfg: ModelConfig, token, pos, cache,
                    policy: GemmPolicy = NATIVE_POLICY):
-    """token: (B, 1) int32, each lane's next id; pos: the int position
-    they all take. The cache is updated in place. Returns (logits (B, 1,
-    vocab_padded), cache)."""
+    """token: (B, 1) int32, each lane's next id (the audio stub: (B, 1, F)
+    frames); pos: the int position they all take. The cache is updated
+    in place. Returns (logits (B, 1, vocab_padded), cache)."""
     B.check_supported(mcfg)
-    x = params["emb"][token.long()]
-    kv = cache["layers"]["b0"]
-    for i, lp in enumerate(unstack_layers(params, mcfg.n_layers)):
-        view = {name: leaf[i] for name, leaf in kv.items()}
-        x, _ = B.block_decode(lp, "attn", mcfg, x, pos, view, policy)
+    if mcfg.frontend == "audio_stub":
+        x = _project(token, params["frontend_proj"])
+    else:
+        x = params["emb"][token.long()]
+    for kind, lp, view in zip(mcfg.pattern_for_layers(),
+                              unstack_layers(params, mcfg),
+                              unstack_layers(cache, mcfg)):
+        x, _ = B.block_decode(lp, kind, mcfg, x, pos, view, policy)
     return logits_from_hidden(params, mcfg, x, policy), cache
 
 
@@ -174,14 +249,20 @@ def forward_step(params, mcfg: ModelConfig, tokens, start, n_new, cache,
     fresh token; n_new: (B,) valid counts. cache: per-lane views (the
     pytree of :func:`init_cache`), updated in place. Returns (logits
     (B, vocab_padded) at each lane's last valid fresh position, cache).
+    Token ids only: a stub front end raises, and so does a rec / ssd
+    block (``blocks.block_step``).
     """
     B.check_supported(mcfg)
+    if mcfg.frontend != "none":
+        raise NotImplementedError(
+            "serving steps take token ids only; stub frontends "
+            f"({mcfg.frontend!r}) have no ragged chunk path")
     b, c = tokens.shape
     x = params["emb"][tokens.long()]
-    kv = cache["layers"]["b0"]
-    for i, lp in enumerate(unstack_layers(params, mcfg.n_layers)):
-        view = {name: leaf[i] for name, leaf in kv.items()}
-        x, _ = B.block_step(lp, mcfg, x, start, n_new, view, policy)
+    for kind, lp, view in zip(mcfg.pattern_for_layers(),
+                              unstack_layers(params, mcfg),
+                              unstack_layers(cache, mcfg)):
+        x, _ = B.block_step(lp, kind, mcfg, x, start, n_new, view, policy)
     idx = torch.clamp(n_new.long() - 1, 0, c - 1)
     x_last = x[torch.arange(b, device=x.device), idx][:, None]    # (B, 1, D)
     logits = logits_from_hidden(params, mcfg, x_last, policy)

@@ -16,7 +16,15 @@ for, ``prepared.prepare_params`` prepares the 2-D dense weights once a
 session, as the reference does; every step then streams the prepared
 operand. Those are the untied heads (granite-3-8b, deepseek-coder-33b):
 olmo-1b's projection weights are 3-D layer stacks and its head is the
-tied embedding, so nothing is prepared there (ROADMAP.md § 3 R4).
+tied embedding, so nothing is prepared there (ROADMAP.md § 3 R4);
+recurrentgemma-2b's two unstacked tail blocks are 2-D and are.
+
+:class:`ContinuousEngine` serves attention-family token models only: it
+refuses up front (``NotImplementedError``) every arch with a rec / ssd
+state or a window ring in its cache, and every stub front end, as the
+reference's paged cache does. :class:`LockstepEngine` serves those with
+a contiguous cache (recurrentgemma-2b, mamba2-780m; internvl2-1b on text
+prompts).
 
 Not ported from the reference: the guard retries (ROADMAP.md § 1 item
 5; ``+guard`` specs are refused by ``dispatch.resolve_policy``) and the
@@ -34,7 +42,7 @@ import torch
 
 from repro_torch.kernels import dispatch, prepared
 from repro_torch.models import model as M
-from repro_torch.serving.kv_cache import PagedKVCache
+from repro_torch.serving.kv_cache import PagedKVCache, check_pageable
 from repro_torch.serving.queue import Request, RequestQueue, RequestState
 from repro_torch.serving.scheduler import ScheduleConfig, Scheduler, StepPlan
 
@@ -72,6 +80,7 @@ class ContinuousEngine:
             raise NotImplementedError(
                 "multi-device meshes are not ported yet (ROADMAP.md § 1 "
                 "item 8); the slice serves on one card")
+        check_pageable(arch.model)
         self.device = M.resolve_device(device)
         self.arch = arch
         self.mcfg = arch.model

@@ -16,8 +16,12 @@ Page 0 is a scratch page that is never allocated: padded table entries
 and invalid writes land there, and the causal mask never reads it.
 
 The reference discovers each leaf's batch and sequence axes with
-``jax.eval_shape``; the port's only cache layout is the attention
-block's, whose axes are fixed (batch 1, sequence 2).
+``jax.eval_shape`` and refuses a leaf with no sequence axis; the port's
+only pageable layout is the global attention block's, whose axes are
+fixed (batch 1, sequence 2), and :class:`PagedKVCache` refuses every
+other up front with ``NotImplementedError``: a rec / ssd state and a
+window layer's ring are lane-bound, and a stub front end has no ragged
+token path.
 """
 
 from __future__ import annotations
@@ -33,6 +37,25 @@ from repro_torch.models import blocks as B
 from repro_torch.models import model as M
 
 SCRATCH_PAGE = 0
+
+
+def check_pageable(mcfg: ModelConfig) -> None:
+    """Raise NotImplementedError unless every cache leaf of ``mcfg`` is a
+    global attention layer's k / v (or scales), and its inputs are token
+    ids."""
+    lane_bound = sorted(set(mcfg.block_pattern) - {"attn"})
+    if lane_bound or mcfg.attn_window:
+        what = (f"{'/'.join(lane_bound)} state" if lane_bound
+                else "the local-attention window ring")
+        raise NotImplementedError(
+            f"{mcfg.name}: {what} has no sequence axis; its cache is "
+            "lane-bound (rec/ssd/window ring) and cannot be paged; "
+            "repro_torch.serving pages attention-family caches only (use "
+            "LockstepEngine)")
+    if mcfg.frontend != "none":
+        raise NotImplementedError(
+            f"{mcfg.name}: serving steps take token ids only; stub "
+            f"frontends ({mcfg.frontend!r}) have no ragged chunk path")
 
 
 class PageAllocator:
@@ -107,6 +130,7 @@ class PagedKVCache:
         if page_size < 1 or chunk < 1:
             raise ValueError("page_size and chunk must be >= 1")
         B.check_supported(mcfg)
+        check_pageable(mcfg)
         self.mcfg = mcfg
         self.page_size = page_size
         self.num_pages = num_pages

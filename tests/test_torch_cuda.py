@@ -1523,3 +1523,84 @@ def test_int8_kv_cache_on_card(cuda_device):
     assert torch.equal(out["cuda"][1], out["torch"][1])
     for name, leaf in out["cuda"][2].items():
         assert torch.equal(leaf, out["torch"][2][name]), name
+
+
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.float32, (4, 3072, 128, 1)),      # mamba2's ssd_state, N = 1
+    (torch.float32, (3, 17, 40, 1)),
+    (torch.bfloat16, (32, 1024, 80, 1024)),  # hubert's attn_qk, K = 80
+    (torch.bfloat16, (32, 1024, 1024, 80)),  # its attn_av, N = 80
+    (torch.bfloat16, (4, 10, 256, 2048))])   # recurrentgemma's decode qk
+def test_batched_kernel_at_the_zoo_shapes(cuda_device, dtype, shape):
+    """K4 bit for bit against its plain version, one launch a call, at
+    shapes the zoo's paths give it: one output column (the SSD decode's
+    state read, float32) and a head dim of 80 (a partial 64-column tile
+    in either operand), also through the einsum front door."""
+    from repro_torch import api
+    batch, m, k, n = shape
+    g = torch.Generator(device=cuda_device).manual_seed(m + n)
+    a = torch.randn(batch, m, k, generator=g, device=cuda_device).to(dtype)
+    b = torch.randn(batch, k, n, generator=g, device=cuda_device).to(dtype)
+    mu, nu = scheme1.pow2_scale(a, -1), scheme1.pow2_scale(b, -2)
+    ozaki1.COUNTS.reset()
+    out = ozaki1.fused_matmul_scheme1(a, b, mu, nu, 4, 7, torch.float32)
+    assert ozaki1.COUNTS.launches_batched == 1
+    ref = ozaki1.fused_matmul_plain(a, b, mu, nu, 4, 7, torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    if n == 1:
+        heads = 8 if m % 8 == 0 else 1
+        state = a.reshape(batch, heads, m // heads, k)
+        got = api.einsum("bhpn,bn->bhp", state, b[..., 0],
+                         precision="ozaki1-p4")
+        want = api.einsum("bhpn,bn->bhp", state, b[..., 0],
+                          precision=api.precision("ozaki1-p4",
+                                                  backend="torch"))
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_ring_buffer_decode_past_the_window_on_card(cuda_device, int8):
+    """recurrentgemma-2b's smoke config (window 32, a (rec, rec, attn)
+    group and a (rec, rec) tail) on the card against the CPU port on the
+    same float32 weights: a 40-token prompt (the ring rotates) and 30
+    decodes of seeded ids (it wraps), native, logits within 1e-4 of their
+    max (with the float cache: an int8 cache rounds k and v to a step of
+    max|row| / 127, so a float32 ulp between the devices can move a value
+    a whole step); then under ozaki1-p4 the 'cuda' and 'torch' backends
+    on the card, bit for bit, with and without the int8 cache."""
+    from repro_torch import api, configs
+    from repro_torch.models import model as M
+    from repro_torch.models.common import GemmPolicy
+    from repro_torch.utils.tree import tree_map
+    mcfg = configs.get_smoke_config("recurrentgemma-2b").model
+    mcfg = dataclasses.replace(
+        mcfg, kv_cache_dtype="int8" if int8 else "auto")
+    params = M.init_params(mcfg, 0, cuda_device)
+    g = torch.Generator().manual_seed(11)
+    toks = torch.randint(0, mcfg.vocab, (2, 70), generator=g,
+                         dtype=torch.int32)
+
+    def run(params, policy, device):
+        toks_d = toks.to(device)
+        logits, cache = M.forward_prefill(params, mcfg,
+                                          {"tokens": toks_d[:, :40]}, 72,
+                                          policy)
+        outs = [logits.float().cpu()]
+        for i in range(30):
+            logits, cache = M.forward_decode(params, mcfg,
+                                             toks_d[:, 40 + i:41 + i],
+                                             40 + i, cache, policy)
+            outs.append(logits.float().cpu())
+        assert cache["layers"]["b2"]["k"].shape[2] == 32
+        return torch.stack(outs)
+
+    native = GemmPolicy(default=api.precision("native"))
+    with torch.inference_mode():
+        if not int8:
+            card = run(params, native, cuda_device)
+            host = run(tree_map(lambda x: x.cpu(), params), native, "cpu")
+            assert (card - host).abs().max() <= 1e-4 * host.abs().max()
+        out = {b: run(params, GemmPolicy(default=api.precision(
+            "ozaki1-p4", backend=b)), cuda_device) for b in ("cuda", "torch")}
+    assert torch.equal(out["cuda"], out["torch"])

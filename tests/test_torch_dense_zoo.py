@@ -70,10 +70,7 @@ def test_configs_are_the_references(arch_id):
     assert arch_id in tconfigs.ARCH_IDS
 
 
-@pytest.mark.parametrize("arch_id,item", [
-    ("hubert-xlarge", "4.3"),
-    ("internvl2-1b", "4.3"), ("recurrentgemma-2b", "4.5"),
-    ("mamba2-780m", "4.5"), ("deepseek-v3-671b", "4.6")])
+@pytest.mark.parametrize("arch_id,item", [("deepseek-v3-671b", "4.6")])
 def test_other_archs_raise_naming_their_item(arch_id, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         tconfigs.get_config(arch_id)

@@ -173,7 +173,8 @@ def test_lockstep_engine_matches_reference_prepared_head():
 def test_prefill_and_decode_steps():
     """make_prefill_step / make_decode_step on one card (mesh None) are
     forward_prefill / forward_decode under the arch's policy; a mesh
-    raises naming the multi-device item, an encoder the front ends'."""
+    raises naming the multi-device item; an encoder's prefill step is a
+    plain forward (forward_train's logits), as the reference's."""
     arch = tconfigs.get_smoke_config("granite-3-8b")
     shape = ShapeSpec("smoke", MAX_SEQ, B, "prefill")
     policy = TPolicy(default=tapi.precision("ozaki1-p4"))
@@ -198,8 +199,11 @@ def test_prefill_and_decode_steps():
     import dataclasses
     enc = dataclasses.replace(arch, model=dataclasses.replace(
         arch.model, causal=False))
-    with pytest.raises(NotImplementedError, match="item 4.3"):
-        S.make_prefill_step(enc, shape)
+    want, _, _ = TM.forward_train(params, enc.model, {"tokens": toks},
+                                  policy, remat=False)
+    got = S.make_prefill_step(enc, shape, None, policy)(params,
+                                                        {"tokens": toks})
+    assert torch.equal(got, want) and got.shape == (B, PROMPT, 512)
 
 
 def test_serve_cli_lockstep_in_process(capsys):

@@ -115,7 +115,11 @@ def test_init_params_layout_and_determinism():
 
 
 def test_outside_the_slice_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tconfigs.get_config("mamba2-780m")
+    """deepseek-v3-671b's id, and its MLA and multi-token prediction on
+    any config, raise naming their ROADMAP.md item."""
+    import dataclasses
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tconfigs.get_config("deepseek-v3-671b")
+    m = tconfigs.get_smoke_config("olmo-1b").model
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TM.init_params(dataclasses.replace(m, mtp=True), device="cpu")

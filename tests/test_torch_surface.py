@@ -74,12 +74,6 @@ SPECIFIC = {
         "writes into the caller's cache instead of allocating max_seq",
     "models.blocks.block_prefill":
         "writes into the caller's cache instead of allocating max_seq",
-    "models.blocks.block_step":
-        "one block kind (attn) in the ported model families (§ 1 item 4)",
-    "models.blocks.init_block":
-        "one block kind (attn) in the ported model families (§ 1 item 4)",
-    "models.blocks.attn_config":
-        "local attention is recurrentgemma's, not ported (§ 1 item 4)",
     "models.attention.init_attention": "dtype and device from the caller",
     "models.attention.init_cache": "dtype and device from the caller",
     "models.common.init_ffn": "dtype and device from the caller",
@@ -342,3 +336,34 @@ def test_int8_cache_call_forms():
     q, scale = TA.quantize_kv(x)
     back = TA.dequantize_kv(q, scale, torch.float32)
     assert ((back - x).abs() <= scale / 2 + 1e-7).all()
+
+
+def test_block_kinds_and_local_attention_call_forms():
+    """The reference's block call forms: init_block(gen, kind, ...),
+    block_step(params, kind, ...) (a rec / ssd kind raises, naming its
+    lane-bound cache), attn_config(mcfg, local=True) (the window), and
+    the recurrent modules' own (init_rglru / init_ssd with their
+    reference defaults, d_inner, n_heads)."""
+    from repro_torch.models import blocks as TB, rglru as TR, ssd as TS
+    rg = tconfigs.get_smoke_config("recurrentgemma-2b").model
+    assert TB.attn_config(rg).window == rg.attn_window == 32
+    olmo = tconfigs.get_smoke_config(ARCH).model
+    assert TB.attn_config(olmo).window is None
+    assert TB.attn_config(dataclasses.replace(olmo, attn_window=8),
+                          local=True).window == 8
+    gen = torch.Generator().manual_seed(0)
+    p = TB.init_block(gen, "rec", rg, torch.float32, "cpu")
+    assert set(p) == {"ln1", "mixer", "ln2", "ffn"}
+    with pytest.raises(NotImplementedError, match="lane-bound"):
+        TB.block_step(p, "rec", rg, torch.zeros(1, 2, rg.d_model),
+                      torch.zeros(1, dtype=torch.int32),
+                      torch.ones(1, dtype=torch.int32), {},
+                      GemmPolicy(default=tapi.precision("native")))
+    m2 = tconfigs.get_smoke_config("mamba2-780m").model
+    assert set(TB.init_block(gen, "ssd", m2, torch.float32, "cpu")) == {
+        "ln1", "mixer"}
+    assert TR.init_rglru(gen, 16, rg.rglru, device="cpu")["lam"].dtype == \
+        torch.float32
+    sp = TS.init_ssd(gen, 16, m2.ssd, device="cpu")
+    assert sp["w_in"].dtype == torch.float32
+    assert (TS.d_inner(16, m2.ssd), TS.n_heads(16, m2.ssd)) == (32, 2)
