@@ -3,13 +3,13 @@
     python3 chip_smoke.py
 
 Drives repro_torch only (no jax, nothing of the reference package) on the
-card, with no CPU fallback, in twenty-eight phases. Phase 27 (while
-nothing else is resident on the card), phase 28, phase 26's walls and
-phases 20-23 run right after the build, so that every wall they take comes before
-the process's first torch.profiler session; phase 24 and
-phase 26's profiled steps and kernel times follow the yardsticks, phase
-25 follows phase 15 (on its DGEMM and ZGEMM operands), and the others
-follow in their order:
+card, with no CPU fallback, in twenty-nine phases. Phase 27 (while
+nothing else is resident on the card), phase 29, phase 28, phase 26's
+walls and phases 20-23 run right after the build, so that every wall
+they take comes before the process's first torch.profiler session;
+phase 24 and phase 26's profiled steps and kernel times follow the
+yardsticks, phase 25 follows phase 15 (on its DGEMM and ZGEMM operands),
+and the others follow in their order:
 
 1. build: nvcc compiles the port's CUDA kernels from this checkout (five
    sources), one process per source, in parallel;
@@ -284,6 +284,33 @@ follow in their order:
     its window shrunk so the ring rotates and wraps), float32 native on
     the card against the CPU port on the same weights, and bf16 under
     ozaki1-p4+cached on the 'cuda' and 'torch' backends, bit for bit.
+29. deepseek-v3-671b (models/mla.py: Multi-head Latent Attention over a
+    latent KV cache of 512 + 64 a token; 256 routed experts of 2048 by
+    sigmoid with a selection-only router_bias, top-8, one shared
+    expert; vocab 129280 padded to 129536; bf16) at its published widths,
+    2 of its 61 layers and no MTP block (serving never reads it): 24.9 B
+    parameters drawn on the card; phase 3's trace served under
+    ozaki1-p4+cached with the untied head prepared once (every launch
+    checked: a layer's 8 2-D EmuGEMM-I calls (wq_a, wq_b, wkv_a, wo, the
+    float32 router, the shared expert's gate, up, down) and 3 K4 on the
+    expert stacks, then 1 K3 for the head) and under native: tok/s, TTFT
+    p50, step walls, peak memory; request 0 alone == in its cohort;
+    LockstepEngine on the same weights (8 x 48, 16 new: prefill, with 2
+    mla_latent decompressions a layer on K1, and decode walls and
+    launches); every EmuGEMM-I call signature of a mixed step, a decode
+    step and a lockstep prefill (K4 at 256 experts and 64, 4 and 384
+    rows) on Eq. 19 operands, bit for bit against its plain version,
+    timed beside its bound and torch.matmul / torch.bmm in bf16; at 1
+    layer and 16 of the 256 experts (every other width published) a
+    mixed step and a lockstep prefill in float32 native on the card
+    against the CPU port, and in bf16 on the 'cuda' and 'torch' backends,
+    logits and latent caches bit for bit; that layer and the MTP block
+    trained with Adafactor and the config's 16 microbatches (16 x 128
+    tokens, the weights prepared once a step: a warm-up and 2 timed
+    steps), the loss with its MTP term and every gradient leaf of a
+    microbatch on 'cuda' and 'torch' bit for bit under strict
+    deterministic algorithms, and Adafactor on the card against the CPU
+    on leaves of ranks 1 to 4 within 1e-6.
 
 After phases 20-23, one line names the device kernels that the
 library yardsticks (cuBLAS's batched DGEMM, scaled_dot_product_attention
@@ -456,7 +483,14 @@ def bound_ms(batch, m, k, n, p, in_bytes, out_bytes):
 
 
 def conditioned(gen, shape, dtype, device):
-    """Paper Eq. 19 matrices, (rand - 0.5) * exp(2 randn)."""
+    """Paper Eq. 19 matrices, (rand - 0.5) * exp(2 randn); a stack of more
+    than 2^28 entries (deepseek-v3's 256 experts) a matrix at a time, so
+    that its float32 temporaries stay the size of one."""
+    if len(shape) >= 3 and math.prod(shape) > 2 ** 28:
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for part in out:
+            part.copy_(conditioned(gen, shape[1:], dtype, device))
+        return out
     x = (torch.rand(shape, generator=gen, device=device) - 0.5) * torch.exp(
         2 * torch.randn(shape, generator=gen, device=device))
     return x.to(dtype)
@@ -5226,14 +5260,42 @@ def recorded_calls():
         ozaki1.fused_matmul_mixed = mixed
 
 
-def zoo_kernel_times(dev, tag, steps: dict, max_err: dict) -> dict:
+def plain_scheme1(a, b, mu, nu, out_dt):
+    """``ozaki1.fused_matmul_plain`` at p = P_MAIN; a batch whose float64
+    slice products would pass 2^28 entries of B a group of batch elements
+    at a time (each element's product is its own, so the bits are the
+    same)."""
+    step = a.shape[0] if a.dim() < 3 else max(1, 2 ** 28 // b[0].numel())
+    if a.dim() < 3 or step >= a.shape[0]:
+        return ozaki1.fused_matmul_plain(a, b, mu, nu, P_MAIN, 7, out_dt)
+    return torch.cat([ozaki1.fused_matmul_plain(
+        a[i:i + step], b[i:i + step], mu[i:i + step], nu[i:i + step],
+        P_MAIN, 7, out_dt) for i in range(0, a.shape[0], step)])
+
+
+def zoo_kernel_times(dev, tag, steps: dict, max_err: dict,
+                     plain_iters: int = 3) -> dict:
     """Each EmuGEMM-I signature that ``steps`` ({step name: recorded
     calls}) made, on Eq. 19 operands of its shape, type and layout: the
     kernel against its plain version bit for bit, one front-door call
     the expected launches; timed (device, behind a spin kernel) beside
-    its bound, its plain version and torch.matmul / torch.bmm on the
-    same operands; then summed over each step's calls."""
+    its bound, its plain version (``plain_iters`` calls after two
+    warm-ups, or with 0 the checking call alone, by CUDA events) and
+    torch.matmul / torch.bmm on the same operands; then summed over each
+    step's calls."""
     gen = torch.Generator(device=dev).manual_seed(28)
+
+    def plain_ms(fn):
+        if plain_iters:
+            return None, time_ms(fn, plain_iters)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return out, e0.elapsed_time(e1)
+
     per_sig = {}
     for sig in sorted({s for calls in steps.values() for s in calls},
                       key=str):
@@ -5252,16 +5314,18 @@ def zoo_kernel_times(dev, tag, steps: dict, max_err: dict) -> dict:
                     before[0] + 1, before[1] + 1, before[2] + 1):
                 raise AssertionError(f"{tag} K3 {sig}: not 1 encode + 1 "
                                      "plane GEMM")
-            check_equal(f"{tag} K3 {sig[:5]}", got, prepared.matmul_prepared(
-                a, plain_prep, out_dt), max_err, "k3")
+            ref, p_ms = plain_ms(lambda: prepared.matmul_prepared(
+                a, plain_prep, out_dt))
+            check_equal(f"{tag} K3 {sig[:5]}", got, ref if ref is not None
+                        else prepared.matmul_prepared(a, plain_prep, out_dt),
+                        max_err, "k3")
+            del ref
             bms, by = mixed_bound(m, k, n, P_MAIN, a.element_size(),
                                   torch.empty((), dtype=out_dt).element_size())
             per_sig[sig] = {
                 "ms": queued_ms(lambda: prepared.matmul_prepared(a, prep,
                                                                  out_dt)),
-                "plain_ms": time_ms(lambda: prepared.matmul_prepared(
-                    a, plain_prep, out_dt), 3),
-                "bound_ms": bms, "bound_by": by,
+                "plain_ms": p_ms, "bound_ms": bms, "bound_by": by,
                 "library_ms": time_ms(lambda: torch.matmul(a, w), 10)}
             del w, prep, plain_prep
             continue
@@ -5276,18 +5340,18 @@ def zoo_kernel_times(dev, tag, steps: dict, max_err: dict) -> dict:
         if getattr(c, key) != before + 1:
             raise AssertionError(f"{tag} {sig}: not one front-door call")
         kid = "k4" if form == "batched" else "k1"
+        ref, p_ms = plain_ms(lambda: plain_scheme1(a, b, mu, nu, out_dt))
         check_equal(f"{tag} {kid.upper()} {sig[:5]} {dt}", got,
-                    ozaki1.fused_matmul_plain(a, b, mu, nu, P_MAIN, 7,
-                                              out_dt), max_err, kid)
+                    ref if ref is not None
+                    else plain_scheme1(a, b, mu, nu, out_dt), max_err, kid)
+        del ref
         bms, by = bound_ms(batch, m, k, n, P_MAIN, a.element_size(),
                            torch.empty((), dtype=out_dt).element_size())
         lib = torch.bmm if form == "batched" else torch.matmul
         per_sig[sig] = {
             "ms": queued_ms(lambda: ozaki1.fused_matmul_scheme1(
                 a, b, mu, nu, P_MAIN, 7, out_dt)),
-            "plain_ms": time_ms(lambda: ozaki1.fused_matmul_plain(
-                a, b, mu, nu, P_MAIN, 7, out_dt), 3),
-            "bound_ms": bms, "bound_by": by,
+            "plain_ms": p_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": time_ms(lambda: lib(a, b), 10)}
         del a, b, got
     gc.collect()
@@ -5675,6 +5739,405 @@ def zoo_phase(dev):
     log("[zoo] summary " + json.dumps(
         {a: {k: v for k, v in r.items() if k != "kernels"}
          for a, r in report.items() if a != "max_abs_err"}))
+    return report
+
+
+# ---------------------------------------------------------------------------
+# Phase 29: deepseek-v3-671b (MLA over a latent KV cache, sigmoid-routed
+# top-8 MoE over 256 experts with a shared expert, multi-token prediction,
+# Adafactor) at its published widths, DSV3_LAYERS of its 61 layers deep.
+# ---------------------------------------------------------------------------
+
+DSV3, DSV3_SPEC = "deepseek-v3-671b", "ozaki1-p4+cached"
+# 2 x 11.50 B in the layers and 1.86 B in the embedding and head: 46.3
+# GiB of bf16 weights, and the head's planes 3.46 GiB; a third layer
+# (about 71 GiB before any temporary) leaves no room.
+DSV3_LAYERS = 2
+# The reduced config of the checks and of training: 1 layer and 16 of
+# the 256 experts (top-8 kept), every other width published.
+DSV3_CHECK_LAYERS, DSV3_CHECK_EXPERTS = 1, 16
+DSV3_TRAIN_BATCH, DSV3_TRAIN_SEQ, DSV3_TRAIN_STEPS = 16, 128, 2
+DSV3_ADAFACTOR_LR = 1e-3
+# One leaf of each rank for Adafactor on the card against the CPU: 1-D
+# (a norm scale, the router bias), 2-D (a projection, a stacked norm),
+# 3-D (the MTP block's expert stack) and 4-D (the layer's).
+DSV3_ADAFACTOR_LEAVES = ("mtp/ln/scale", "mtp/block/moe/router_bias",
+                         "mtp/proj", "layers/b0/ln1/scale",
+                         "mtp/block/moe/wo", "layers/b0/moe/wi_gate")
+
+
+def dsv3_arch(n_layers, n_experts=None, mtp=False):
+    """deepseek-v3-671b's config, ``n_layers`` deep, with ``n_experts``
+    routed experts (top-8 kept) and the MTP block only with ``mtp``."""
+    base = configs.get_config(DSV3)
+    mcfg = dataclasses.replace(base.model, n_layers=n_layers, mtp=mtp)
+    if n_experts:
+        mcfg = dataclasses.replace(mcfg, moe=dataclasses.replace(
+            mcfg.moe, n_experts=n_experts))
+    return dataclasses.replace(base, model=mcfg)
+
+
+def dsv3_launches(mcfg, prepared_head: bool, latent: int = 0) -> dict:
+    """EmuGEMM-I launches of one forward pass under one Scheme-I spec. A
+    layer: wq_a, wq_b, wkv_a, wo ('attn'), the router ('moe_gate', float32)
+    and the shared expert's gate, up and down ('ffn') as 2-D calls, and
+    ``latent`` 'mla_latent' decompressions (2 a KV chunk of a prefill or
+    a training forward; none in the absorbed step and decode); the three
+    expert stacks ('moe_expert') batched; the head one mixed call when
+    prepared. A 2-D call is 2 encodes + 1 plane GEMM, a mixed one 1 + 1;
+    MLA's score and output products are plain einsums, as the
+    reference's."""
+    L = mcfg.n_layers
+    s1 = {"2d": (8 + latent) * L + (0 if prepared_head else 1),
+          "mixed": int(prepared_head), "batched": 3 * L}
+    s1["encodes"] = 2 * s1["2d"] + s1["mixed"]
+    s1["plane_gemms"] = s1["2d"] + s1["mixed"]
+    return s1
+
+
+def dsv3_decode_inputs(dev, mcfg, view_tokens):
+    """A pure decode step's inputs: one token a lane at the lanes' mixed
+    step positions, on a zero cache."""
+    return (torch.ones((LANES, 1), device=dev, dtype=torch.int32),
+            torch.tensor([0, 16, 32, 47], device=dev, dtype=torch.int32),
+            torch.ones(LANES, device=dev, dtype=torch.int32),
+            M.init_cache(mcfg, LANES, view_tokens, dev))
+
+
+def dsv3_serve(dev, arch, params, view_tokens):
+    """The served model (DSV3_LAYERS deep, no MTP block) under DSV3_SPEC:
+    the head prepared once, phase 3's trace served with every launch
+    checked; request 0 alone == in its cohort; step walls; the EmuGEMM-I
+    calls of a mixed and a decode step recorded; then native."""
+    mcfg = arch.model
+    tag = f"[serve {DSV3} {mcfg.n_layers}L]"
+    policy = GemmPolicy(default=api.precision(DSV3_SPEC))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    eng = ContinuousEngine(arch, max_seq=PROMPT + GEN, policy=policy,
+                           params=params, max_lanes=LANES, chunk=CHUNK,
+                           page_size=PAGE, device=dev)
+    torch.cuda.synchronize()
+    prep_ms = (time.perf_counter() - t0) * 1e3
+    head = eng.params["head"]
+    if not (eng.prepared and isinstance(head, prepared.PreparedOperand)
+            and head.layout == "planes"
+            and ozaki1.COUNTS.launches_encode == 1):
+        raise AssertionError(f"{tag}: the head was not prepared once into "
+                             f"planes ({type(head).__name__}, "
+                             f"{ozaki1.COUNTS.launches_encode} encodes)")
+    pools = eng.pools["layers"]["b0"]
+    if {k: v.shape[-1] for k, v in pools.items()} != {
+            "c_kv": mcfg.mla.kv_lora_rank, "k_pe": mcfg.mla.qk_rope_dim}:
+        raise AssertionError(f"{tag}: pools {list(pools)}")
+    prepped = eng.params
+    eng, trace, toks, serve, counts = serve_trace(dev, arch, prepped, policy)
+    per_step = dsv3_launches(mcfg, True)
+    check_launches(f"{tag} serve", counts,
+                   {k: serve["steps"] * v for k, v in per_step.items()})
+    serve.update(peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 head_prepare_ms=prep_ms, launches=launches_of(counts),
+                 launches_per_step=per_step)
+    log(f"{tag} {DSV3_SPEC}: head prepared once (1 encode, {prep_ms:.1f} "
+        f"ms), {serve['steps']} steps, {REQUESTS} requests x {GEN} tokens in "
+        f"{serve['seconds']:.3f} s ({serve['tok_per_s']:.2f} tok/s), ttft "
+        f"p50 {serve['ttft_p50_s']:.3f} s, peak {serve['peak_gib']:.2f} GiB; "
+        f"launches {serve['launches']} (per step {per_step})")
+    alone_equals_cohort(dev, arch, eng, trace, toks, tag)
+    del eng
+    serve.update(step_walls(
+        dev, mcfg, prepped, policy, view_tokens, True,
+        check=lambda what: check_launches(what, s1_counts(), per_step)))
+    calls = {}
+    for kind, inputs in (("mixed", mixed_step_inputs(dev, mcfg, view_tokens)),
+                         ("decode", dsv3_decode_inputs(dev, mcfg,
+                                                       view_tokens))):
+        with recorded_calls() as calls[kind]:
+            logits = mixed_step_logits(mcfg, prepped, policy, inputs)
+        if not torch.isfinite(logits).all() or logits.shape != (
+                LANES, pad_vocab(mcfg.vocab)):
+            raise AssertionError(f"{tag} {kind} step: bad logits")
+    native = GemmPolicy(default=api.precision("native"))
+    reset_counts()
+    _, _, _, nat, _ = serve_trace(dev, arch, params, native)
+    none_launched(f"{tag} native serve")
+    nat.update(step_walls(dev, mcfg, params, native, view_tokens, False,
+                          check=none_launched))
+    serve["native"] = nat
+    log(f"{tag} request 0 alone == in cohort; mixed / decode step "
+        f"{serve['mixed_step_ms']:.1f} / {serve['decode_step_ms']:.1f} ms; "
+        f"native: {nat['tok_per_s']:.2f} tok/s, ttft p50 "
+        f"{nat['ttft_p50_s']:.3f} s, mixed / decode step "
+        f"{nat['mixed_step_ms']:.1f} / {nat['decode_step_ms']:.1f} ms")
+    return prepped, serve, calls
+
+
+def dsv3_lockstep(dev, arch, prepped):
+    """LockstepEngine on the served weights (the head prepared): REQUESTS
+    prompts of PROMPT tokens, GEN new; the prefill (its KV chunk
+    decompressed through 'mla_latent' on K1) and a decode step timed with
+    their launches checked and the prefill's calls recorded."""
+    mcfg = arch.model
+    tag = f"[{DSV3} {mcfg.n_layers}L]"
+    policy = GemmPolicy(default=api.precision(DSV3_SPEC))
+    prompts = np.random.default_rng(2).integers(
+        0, mcfg.vocab, (REQUESTS, PROMPT)).astype(np.int32)
+    pt = torch.as_tensor(prompts, device=dev)
+    eng = LockstepEngine(arch, None, PROMPT + GEN, policy, params=prepped,
+                         device=dev)
+    eng.prefill(pt)                               # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    res = {}
+    with recorded_calls() as pre_calls:
+        t0 = time.perf_counter()
+        logits, cache = eng.prefill(pt)
+        torch.cuda.synchronize()
+        res["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    n_chunks = PROMPT // min(mcfg.kv_chunk, PROMPT)
+    latent = n_chunks * (n_chunks + 1)    # 2 a (query, KV) chunk pair
+    res["prefill_launches"] = launches_of(s1_counts())
+    check_launches(f"{tag} lockstep prefill", s1_counts(),
+                   dsv3_launches(mcfg, True, latent))
+    tok = torch.argmax(logits[:, -1:, :mcfg.vocab], -1)
+    reset_counts()
+    t0 = time.perf_counter()
+    eng.decode(tok, PROMPT, cache)
+    torch.cuda.synchronize()
+    res["decode_step_ms"] = (time.perf_counter() - t0) * 1e3
+    res["decode_launches"] = launches_of(s1_counts())
+    check_launches(f"{tag} lockstep decode", s1_counts(),
+                   dsv3_launches(mcfg, True))
+    del cache
+    t0 = time.perf_counter()
+    toks = eng.generate(prompts, GEN)
+    res["generate_s"] = time.perf_counter() - t0
+    res["tok_per_s"] = REQUESTS * GEN / res["generate_s"]
+    if (toks.shape != (REQUESTS, GEN) or not torch.isfinite(logits).all()
+            or ((toks < 0) | (toks >= mcfg.vocab)).any()):
+        raise AssertionError(f"{tag}: malformed lockstep output")
+    log(f"{tag} lockstep {DSV3_SPEC} (head prepared): {REQUESTS} x {PROMPT} "
+        f"prompts, {GEN} new: prefill {res['prefill_ms']:.1f} ms (launches "
+        f"{res['prefill_launches']}, {latent} mla_latent a layer), decode "
+        f"step {res['decode_step_ms']:.1f} ms (launches "
+        f"{res['decode_launches']}), generate {res['generate_s']:.3f} s "
+        f"({res['tok_per_s']:.2f} tok/s)")
+    return res, pre_calls
+
+
+def dsv3_step(mcfg, params, policy, inputs):
+    """A mixed step's logits and the latent views it wrote (float32 on the
+    host), on a copy of the inputs' cache."""
+    tokens, start, n_new, cache = inputs
+    views = tree_map(torch.clone, cache)
+    with torch.inference_mode():
+        logits, views = M.forward_step(params, mcfg, tokens, start, n_new,
+                                       views, policy)
+    return [logits.float().cpu()] + [
+        v.float().cpu() for v in views["layers"]["b0"].values()]
+
+
+def dsv3_prefill(mcfg, params, policy, prompts):
+    """A lockstep prefill's last logits and latent cache (float32 on the
+    host)."""
+    with torch.inference_mode():
+        logits, cache = M.forward_prefill(params, mcfg, {"tokens": prompts},
+                                          prompts.shape[1], policy)
+    return [logits.float().cpu()] + [
+        v.float().cpu() for v in cache["layers"]["b0"].values()]
+
+
+def dsv3_check_phase(dev, view_tokens):
+    """The reduced config (DSV3_CHECK_LAYERS layer, DSV3_CHECK_EXPERTS
+    experts, every other width published): a mixed step and a lockstep
+    prefill in float32 native on the card against the CPU port on the
+    same weights, logits within ZOO_CPU_TOL x max|logits|; in bf16 under
+    DSV3_SPEC (the head prepared) on the 'cuda' and 'torch' backends,
+    logits and latent caches bit for bit."""
+    mcfg = dsv3_arch(DSV3_CHECK_LAYERS, DSV3_CHECK_EXPERTS).model
+    tag = f"[{DSV3} {DSV3_CHECK_LAYERS}L {DSV3_CHECK_EXPERTS}E]"
+    prompts = torch.as_tensor(np.random.default_rng(29).integers(
+        0, mcfg.vocab, (REQUESTS, PROMPT)).astype(np.int32), device=dev)
+    f32 = dataclasses.replace(mcfg, dtype="float32")
+    params = M.init_params(f32, 0, dev)
+    native = GemmPolicy(default=api.precision("native"))
+    step_in = mixed_step_inputs(dev, f32, view_tokens)
+    card = (dsv3_step(f32, params, native, step_in)[:1]
+            + dsv3_prefill(f32, params, native, prompts[:2])[:1])
+    cpu = torch.device("cpu")
+    cpu_params = tree_map(lambda x: x.cpu(), params)
+    del params
+    host = (dsv3_step(f32, cpu_params, native,
+                      [tree_map(lambda x: x.cpu(), x) for x in step_in])[:1]
+            + dsv3_prefill(f32, cpu_params, native, prompts[:2].to(cpu))[:1])
+    del cpu_params
+    err = max(((a - b).abs().max() / b.abs().max()).item()
+              for a, b in zip(card, host))
+    if err > ZOO_CPU_TOL or not all(torch.isfinite(a).all() for a in card):
+        raise AssertionError(f"{tag}: card vs CPU logits {err:.3g} of "
+                             f"max|logits| > {ZOO_CPU_TOL}")
+    params = M.init_params(mcfg, 0, dev)
+    policy = GemmPolicy(default=api.precision(DSV3_SPEC))
+    step_in = mixed_step_inputs(dev, mcfg, view_tokens)
+    outs = {}
+    for backend in ("cuda", "torch"):
+        pol = on_backend(policy, backend)
+        prepped = prepared.prepare_params(params, pol)
+        outs[backend] = (dsv3_step(mcfg, prepped, pol, step_in)
+                         + dsv3_prefill(mcfg, prepped, pol, prompts))
+        del prepped
+    for a, b in zip(outs["cuda"], outs["torch"]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{tag}: cuda and torch backends differ")
+    del params, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{tag} full width: float32 native card vs CPU logits (a mixed "
+        f"step, a prefill of 2 x {PROMPT}) within {err:.3g} of max|logits| "
+        f"(bar {ZOO_CPU_TOL}); {DSV3_SPEC} bf16: a mixed step and a "
+        f"{REQUESTS} x {PROMPT} lockstep prefill, logits and latent caches "
+        f"cuda == torch bit for bit")
+    return {"card_vs_cpu_rel_err": err}
+
+
+def dsv3_train_phase(dev):
+    """DSV3_CHECK_LAYERS layer and the MTP block at the reduced config's
+    widths under DSV3_SPEC, Adafactor and the config's 16 microbatches
+    (its dense weights prepared once a step): a warm-up and
+    DSV3_TRAIN_STEPS timed steps of DSV3_TRAIN_BATCH x DSV3_TRAIN_SEQ
+    tokens; under strict deterministic algorithms the loss (its MTP term
+    included) and every gradient leaf of one microbatch with the step's
+    preps on 'cuda' and 'torch' bit for bit (each backend's gradients
+    kept on the host: the plain versions' float64 products of the head
+    need the room); Adafactor on the card against the CPU on
+    DSV3_ADAFACTOR_LEAVES of those gradients."""
+    from repro_torch import optim
+    arch = dsv3_arch(DSV3_CHECK_LAYERS, DSV3_CHECK_EXPERTS, mtp=True)
+    tag = f"[train {DSV3} {DSV3_CHECK_LAYERS}L {DSV3_CHECK_EXPERTS}E + MTP]"
+    policy = GemmPolicy(default=api.precision(DSV3_SPEC))
+    step = S.make_train_step(arch, policy=policy)
+    run = {"state": S.init_state(arch, 0, dev)}
+    n_params = M.param_count(run["state"]["params"])
+    batches = train_batches(arch, DSV3_TRAIN_BATCH, DSV3_TRAIN_SEQ)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    losses, warm = run_steps(step, run, batches, 1)
+    timed, walls = run_steps(step, run, batches, DSV3_TRAIN_STEPS)
+    launches = launches_of(s1_counts())
+    if (s1_counts().plain_cuda_calls or not all(launches.values())
+            or not all(math.isfinite(x) for x in losses + timed)):
+        raise AssertionError(f"{tag}: launches {launches}, losses "
+                             f"{losses + timed}")
+    tokens = DSV3_TRAIN_BATCH * DSV3_TRAIN_SEQ
+    res = {"params_b": n_params / 1e9, "losses": losses + timed,
+           "warmup_wall_s": warm[0], "step_wall_s": walls,
+           "tokens_per_s": DSV3_TRAIN_STEPS * tokens / sum(walls),
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "launches_in_warmup_and_timed_steps": launches,
+           "opt_step": int(run["state"]["opt"]["step"])}
+    log(f"{tag} {arch.train.microbatches} microbatches, "
+        f"{arch.train.optimizer}: {json.dumps(res)}")
+    params = run["state"]["params"]
+    del run, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, batch = next(train_batches(arch, DSV3_TRAIN_BATCH, DSV3_TRAIN_SEQ))
+    mb = S.split_batch(S.batch_to(batch, dev), arch.train.microbatches)[0]
+    torch.use_deterministic_algorithms(True)
+    try:
+        def grads(backend):
+            pol = on_backend(policy, backend)
+            loss, g = S.value_and_grad(S.make_loss_fn(arch, pol), params, mb,
+                                       prepared.build_step_preps(params, pol))
+            return loss.cpu(), tree_map(lambda x: x.cpu(), g)
+
+        got = grads("cuda")
+        grads_equal(f"({DSV3} {DSV3_CHECK_LAYERS}L {DSV3_CHECK_EXPERTS}E + "
+                    f"MTP, a microbatch of {DSV3_TRAIN_SEQ} tokens with the "
+                    "step's preps) cuda == torch backend", got,
+                    grads("torch"))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    flat_g = tree_flatten(got[1])
+    if not flat_g["mtp/proj"].abs().sum() > 0:
+        raise AssertionError(f"{tag}: no gradient reaches the MTP block")
+    flat_p = tree_flatten(params)
+    sub_p = {k: flat_p[k].float() for k in DSV3_ADAFACTOR_LEAVES}
+    sub_g = {k: flat_g[k] for k in DSV3_ADAFACTOR_LEAVES}
+    del got, flat_g, params, flat_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        p = {k: v.to(device) for k, v in sub_p.items()}
+        g = {k: v.to(device) for k, v in sub_g.items()}
+        state = dict(optim.adafactor_init(p), step=torch.tensor(
+            10, dtype=torch.int32, device=device))
+        new, state = optim.adafactor_update(g, state, p, DSV3_ADAFACTOR_LR)
+        outs.append(tree_map(lambda x: x.cpu(), {"params": new, **state}))
+    card, host = (tree_flatten(o) for o in outs)
+    err = 0.0
+    for key, want in host.items():
+        if want.dtype == torch.int32:
+            if not torch.equal(card[key], want):
+                raise AssertionError(f"{tag}: Adafactor {key} differs")
+            continue
+        err = max(err, ((card[key] - want).abs().max()
+                        / want.abs().max().clamp(min=1e-30)).item())
+    if err > 1e-6:
+        raise AssertionError(f"{tag}: Adafactor on the card vs the CPU "
+                             f"{err:.3g} > 1e-6 of max|leaf|")
+    res["adafactor_card_vs_cpu_rel_err"] = err
+    log(f"{tag} Adafactor on the card vs the CPU on "
+        f"{len(DSV3_ADAFACTOR_LEAVES)} leaves (ranks 1-4): parameters and "
+        f"vr / vc within {err:.3g} of max|leaf|")
+    return res
+
+
+def dsv3_phase(dev, view_tokens):
+    """Phase 29 (after phase 27, before any profiler session): the served
+    model drawn on the card, served, run in lockstep and freed; its
+    kernels at its shapes; the reduced config's checks and training."""
+    t_phase = time.perf_counter()
+    arch = dsv3_arch(DSV3_LAYERS)
+    mcfg = arch.model
+    t0 = time.perf_counter()
+    params = M.init_params(mcfg, 0, dev)
+    torch.cuda.synchronize()
+    report = {"init_s": time.perf_counter() - t0,
+              "params_b": M.param_count(params) / 1e9,
+              "weights_gib": torch.cuda.memory_allocated() / 2 ** 30}
+    log(f"[{DSV3}] published widths, {mcfg.n_layers} of 61 layers, no MTP "
+        f"block (d {mcfg.d_model}, {mcfg.n_heads} MLA heads, q_lora "
+        f"{mcfg.mla.q_lora_rank}, kv_lora {mcfg.mla.kv_lora_rank}, "
+        f"{mcfg.moe.n_experts} routed experts of {mcfg.moe.d_ff_expert} "
+        f"top-{mcfg.moe.top_k} by sigmoid, 1 shared, vocab {mcfg.vocab} "
+        f"padded to {pad_vocab(mcfg.vocab)}, bf16): {report['params_b']:.3f} "
+        f"B parameters ({report['weights_gib']:.2f} GiB) drawn on the card "
+        f"in {report['init_s']:.1f} s")
+    prepped, report["serve"], calls = dsv3_serve(dev, arch, params,
+                                                 view_tokens)
+    report["lockstep"], calls["prefill"] = dsv3_lockstep(dev, arch, prepped)
+    del params, prepped
+    gc.collect()
+    torch.cuda.empty_cache()
+    max_err = {"k1": 0.0, "k3": 0.0, "k4": 0.0}
+    t0 = time.perf_counter()
+    report["kernels"] = zoo_kernel_times(dev, f"[{DSV3}]", calls, max_err,
+                                         plain_iters=0)
+    report["kernels_s"] = time.perf_counter() - t0
+    report["max_abs_err"] = max_err
+    log(f"[{DSV3}] kernels a step at its shapes: "
+        + json.dumps(report["kernels"]))
+    report["check"] = dsv3_check_phase(dev, view_tokens)
+    report["train"] = dsv3_train_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"[{DSV3}] summary " + json.dumps(
+        {k: v for k, v in report.items() if k != "kernels"}))
     return report
 
 
@@ -6182,10 +6645,11 @@ def main() -> int:
     log(card)
     build_phase()
     view_tokens = PAGE * math.ceil((PROMPT + GEN - 1 + CHUNK) / PAGE)
-    # Phases 27, 26 and 20-23 first: their walls come before any profiler
-    # session, and phase 27's 64 layers of qwen1.5-32b while nothing else
-    # is resident on the card.
+    # Phases 27, 29, 28, 26 and 20-23 first: their walls come before any
+    # profiler session, and phase 27's 64 layers of qwen1.5-32b and phase
+    # 29's 24.9 B parameters while nothing else is resident on the card.
     qwen = qwen_phase(dev, view_tokens)
+    dsv3 = dsv3_phase(dev, view_tokens)
     zoo = zoo_phase(dev)
     moe_walls = moe_phase(dev, view_tokens)
     gparams, gprepped, new_paths = new_path_phases(dev, view_tokens)
@@ -6686,6 +7150,35 @@ def main() -> int:
                            "(ms behind a spin kernel); library: "
                            "torch.matmul / torch.bmm on the same operands; "
                            "launches_per_step: the phase's own run"}
+    # Phase 29: deepseek-v3-671b's paths, per step, each form's calls
+    # summed at their shapes.
+    ds_serve = dsv3["serve"]
+    ds_per = (f"launches: the {DSV3} {DSV3_SPEC} serve of phase 3's trace "
+              f"({ds_serve['steps']} steps, {DSV3_LAYERS} of 61 layers at "
+              "full width)")
+    for name, kid, what in (
+            ("emugemm1_2d", "k1", "the 2-D calls of a mixed and a decode "
+             "serve step (8 a layer: wq_a, wq_b, wkv_a, wo, the float32 "
+             "router, the shared expert's gate, up, down) and of a lockstep "
+             "prefill (+2 a layer: mla_latent, K = 512)"),
+            ("emugemm1_mixed", "k3", "the logits GEMM against the untied "
+             "head's planes (7168 x 129536), prepared once a session"),
+            ("emugemm1_batched", "k4", "the expert stacks (256, G*C, 7168) "
+             "@ (256, 7168, 2048) (gate, up) and (256, G*C, 2048) @ (256, "
+             "2048, 7168) (down), 3 a layer")):
+        for row in kernels:
+            if row["name"] == name:
+                row["deepseek_v3"] = {
+                    **{step: rows[kid] for step, rows in
+                       dsv3["kernels"].items() if kid in rows},
+                    "max_abs_err": dsv3["max_abs_err"][kid],
+                    "launches": ds_serve["launches"][
+                        {"k1": "2d", "k3": "mixed", "k4": "batched"}[kid]],
+                    "per": f"{what}; on Eq. 19 operands of each call's "
+                           "shape, type and layout, ms behind a spin "
+                           "kernel, plain_ms the checking call by CUDA "
+                           "events; library: torch.matmul / torch.bmm in "
+                           f"bf16 on the same operands; {ds_per}"}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,8 +9,9 @@ over a ring-buffer KV cache, (rec, rec, attn) x 8 + (rec, rec)),
 mamba2-780m (Mamba-2 SSD blocks), internvl2-1b (a decoder behind the
 vision stub: projected patch embeddings over the first tokens) and
 hubert-xlarge (a bidirectional encoder behind the audio stub: projected
-frame embeddings). deepseek-v3-671b raises NotImplementedError naming
-its ROADMAP.md item.
+frame embeddings) and deepseek-v3-671b (MLA attention over a latent KV
+cache, sigmoid-routed top-8 MoE with a shared expert, multi-token
+prediction, Adafactor): every id of the reference's registry.
 """
 
 from __future__ import annotations
@@ -23,21 +24,13 @@ from repro_torch.configs.base import (ALL_SHAPES, ArchConfig,  # noqa: F401
 ARCH_IDS = ("granite-3-8b", "deepseek-coder-33b", "olmo-1b", "olmo-1b-emu",
             "qwen1.5-32b", "qwen2-moe-a2.7b", "qwen2-moe-a2.7b-emu",
             "recurrentgemma-2b", "mamba2-780m", "internvl2-1b",
-            "hubert-xlarge")
+            "hubert-xlarge", "deepseek-v3-671b")
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
             for a in ARCH_IDS}
 
-# The reference's other id, waiting on the ROADMAP.md § 1 item that
-# ports what it needs.
-_NOT_PORTED = {"deepseek-v3-671b": "4.6"}
-
 
 def _module(arch: str):
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ROADMAP.md § 1 item "
-            f"{_NOT_PORTED[arch]}); ported: {ARCH_IDS}")
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
     return importlib.import_module(_MODULES[arch])

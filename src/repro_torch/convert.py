@@ -10,10 +10,12 @@ instead (every group's blocks in execution order, then the tail), for
 callers that want per-layer tensors.
 
 The tree's groups ``layers/b0 .. b{k-1}``, its ``tail`` list of
-unstacked blocks and a stub front end's ``frontend_proj`` carry over as
-they are. Each leaf keeps its own dtype, as in the reference's tree: a
-bf16 model's MoE router, and its RG-LRU ``lam`` and SSD ``a_log``,
-``dt_bias`` and ``d_skip``, are float32 there and stay float32 here.
+unstacked blocks, a stub front end's ``frontend_proj`` and the
+multi-token prediction group ``mtp`` carry over as they are. Each leaf
+keeps its own dtype, as in the reference's tree: a bf16 model's MoE
+router and sigmoid ``router_bias``, and its RG-LRU ``lam`` and SSD
+``a_log``, ``dt_bias`` and ``d_skip``, are float32 there and stay
+float32 here.
 """
 
 from __future__ import annotations
@@ -22,7 +24,6 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import blocks as B
 from repro_torch.models import model as M
 
 
@@ -43,14 +44,12 @@ def _to_torch(tree, device):
 def params_from_jax(tree, mcfg: ModelConfig, device="cuda",
                     split_layers: bool = False):
     """The reference's parameter pytree (numpy leaves) -> the port's."""
-    B.check_supported(mcfg)
     device = M.resolve_device(device)
     extra = set(tree) - {"emb", "ln_f", "head", "layers", "tail",
-                         "frontend_proj"}
+                         "frontend_proj", "mtp"}
     if extra:
-        raise NotImplementedError(
-            f"parameter groups {sorted(extra)} have no counterpart in the "
-            "port yet (ROADMAP.md § 1 item 4.6)")
+        raise ValueError(f"parameter groups {sorted(extra)} are not the "
+                         "reference model's")
     params = _to_torch(tree, device)
     if split_layers:
         params["blocks"] = M.unstack_layers(params, mcfg)

@@ -12,7 +12,9 @@ With ``TrainPolicy.microbatches`` > 1 the step accumulates gradients over
 that many slices of the batch, as the reference's microbatch scan does,
 and a policy that caches weights prepares them once per optimizer step,
 before the loop (``kernels.prepared.build_step_preps``), instead of once
-per microbatch and again in each recompute.
+per microbatch and again in each recompute. A model with multi-token
+prediction adds ``MTP_WEIGHT`` times the cross-entropy of its MTP logits
+against the labels shifted once more.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ from repro_torch.optim import (clip_by_global_norm, make_optimizer,
                                warmup_cosine)
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
+MTP_WEIGHT = 0.3
+
 
 def make_loss_fn(arch: ArchConfig, policy: GemmPolicy):
     mcfg = arch.model
@@ -39,7 +43,15 @@ def make_loss_fn(arch: ArchConfig, policy: GemmPolicy):
             params = prepared.attach_step_preps(params, preps)
         logits, mtp_logits, aux = M.forward_train(
             params, mcfg, batch, policy, remat=arch.train.remat)
-        return cross_entropy_loss(logits, batch["labels"], mcfg.vocab) + aux
+        loss = cross_entropy_loss(logits, batch["labels"], mcfg.vocab)
+        if mtp_logits is not None:
+            # MTP predicts token t+2: shift next-token labels once more.
+            labels = batch["labels"]
+            mtp_labels = torch.cat([labels[:, 1:],
+                                    -torch.ones_like(labels[:, :1])], dim=1)
+            loss = loss + MTP_WEIGHT * cross_entropy_loss(
+                mtp_logits, mtp_labels, mcfg.vocab)
+        return loss + aux
 
     return loss_fn
 

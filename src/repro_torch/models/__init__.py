@@ -1,8 +1,8 @@
-"""The port's model zoo (``repro.models``): attention decoders (dense FFN
-or MoE), the RG-LRU hybrid, Mamba-2 SSD blocks and a bidirectional
-encoder over grouped, stacked layers, with token, audio-stub and
-vision-stub front ends, in training, ragged serving, prefill and
-decode."""
+"""The port's model zoo (``repro.models``): attention decoders (GQA or
+MLA; dense FFN or MoE), the RG-LRU hybrid, Mamba-2 SSD blocks and a
+bidirectional encoder over grouped, stacked layers, with token,
+audio-stub and vision-stub front ends, in training, ragged serving,
+prefill and decode."""
 
 from repro_torch.models.model import (  # noqa: F401
     forward_decode,

@@ -1,8 +1,9 @@
 """Residual blocks of the port (``repro.models.blocks``): (pre-norm
 mixer) + (pre-norm FFN or MoE), per block kind:
 
-  attn — GQA attention (global, or local over a ring-buffer cache) + a
-         dense FFN or ``models.moe``'s softmax-routed MoE
+  attn — GQA attention (global, or local over a ring-buffer cache), or
+         MLA (``models.mla``, when ``mcfg.mla`` is set), + a dense FFN or
+         ``models.moe``'s MoE
   rec  — RG-LRU recurrent mixer (``models.rglru``) + a dense FFN
   ssd  — Mamba-2 SSD mixer (``models.ssd``), no separate FFN
 
@@ -11,12 +12,12 @@ in the training forward (``block_train``), the ragged serving step
 single-token decode against a contiguous cache (``init_block_cache``,
 ``block_prefill``, ``block_decode``). The prefill and the decode write
 the caller's cache view in place: an attention block's k / v rows, a
-recurrent block's state."""
+MLA block's latents, a recurrent block's state."""
 
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, moe, rglru, ssd
+from repro_torch.models import attention, mla, moe, rglru, ssd
 from repro_torch.models.attention import AttnConfig
 from repro_torch.models.common import (GemmPolicy, apply_ffn, apply_norm,
                                        init_ffn, init_norm)
@@ -33,26 +34,17 @@ def attn_config(mcfg: ModelConfig, local: bool = False) -> AttnConfig:
         cache_int8=mcfg.kv_cache_dtype == "int8")
 
 
-def check_supported(mcfg: ModelConfig) -> None:
-    """Raise for what of the reference's block zoo is not ported: MLA,
-    sigmoid MoE routing and multi-token prediction (deepseek-v3-671b)."""
-    if mcfg.mla is not None or mcfg.mtp:
-        raise NotImplementedError(
-            f"{mcfg.name}: MLA attention and multi-token prediction are not "
-            "ported yet (ROADMAP.md § 1 item 4.6)")
-    if mcfg.moe is not None and mcfg.moe.scoring != "softmax":
-        raise NotImplementedError(
-            f"{mcfg.name}: {mcfg.moe.scoring} MoE scoring is not ported yet "
-            "(ROADMAP.md § 1 item 4.6)")
-
-
 def init_block(gen, kind: str, mcfg: ModelConfig, dtype, device,
                lead: tuple = ()):
     d = mcfg.d_model
     p = {"ln1": init_norm(mcfg.norm, d, dtype, device, lead)}
     if kind == "attn":
-        p["mixer"] = attention.init_attention(gen, attn_config(mcfg), dtype,
-                                              device, lead)
+        if mcfg.mla is not None:
+            p["mixer"] = mla.init_mla(gen, d, mcfg.n_heads, mcfg.mla, dtype,
+                                      device, lead)
+        else:
+            p["mixer"] = attention.init_attention(gen, attn_config(mcfg),
+                                                  dtype, device, lead)
         p["ln2"] = init_norm(mcfg.norm, d, dtype, device, lead)
         if mcfg.moe is not None:
             p["moe"] = moe.init_moe(gen, d, mcfg.moe, mcfg.act, dtype,
@@ -87,9 +79,14 @@ def block_train(params, kind: str, mcfg: ModelConfig, x, positions,
     """One block's training forward; returns (x, aux loss)."""
     h = apply_norm(mcfg.norm, params["ln1"], x)
     if kind == "attn":
-        x = x + attention.attention_train(params["mixer"], attn_config(mcfg),
-                                          h, positions, policy)
-        return _ffn_part(params, mcfg, x, policy)
+        if mcfg.mla is not None:
+            mix = mla.mla_train(params["mixer"], mcfg.mla, mcfg.n_heads, h,
+                                positions, policy, mcfg.kv_chunk)
+        else:
+            mix = attention.attention_train(params["mixer"],
+                                            attn_config(mcfg), h, positions,
+                                            policy)
+        return _ffn_part(params, mcfg, x + mix, policy)
     if kind == "rec":
         x = x + rglru.rglru_block_train(params["mixer"], mcfg.rglru, h,
                                         policy)
@@ -112,8 +109,13 @@ def block_step(params, kind: str, mcfg: ModelConfig, x, start, n_new, cache,
             "caches are lane-bound, not paged (repro_torch.serving supports "
             "attention-family architectures)")
     h = apply_norm(mcfg.norm, params["ln1"], x)
-    mix, cache = attention.attention_step(params["mixer"], attn_config(mcfg),
-                                          h, start, n_new, cache, policy)
+    if mcfg.mla is not None:
+        mix, cache = mla.mla_step(params["mixer"], mcfg.mla, mcfg.n_heads, h,
+                                  start, n_new, cache, policy)
+    else:
+        mix, cache = attention.attention_step(
+            params["mixer"], attn_config(mcfg), h, start, n_new, cache,
+            policy)
     return _ffn_part(params, mcfg, x + mix, policy)[0], cache
 
 
@@ -121,8 +123,12 @@ def init_block_cache(kind: str, mcfg: ModelConfig, batch: int, max_seq: int,
                      dtype, device, lead: tuple = ()):
     """A block's contiguous cache, stacked on ``lead`` (layer) axes: an
     attention block's k / v (a window's ring of min(max_seq, window)
-    rows), a rec block's {"h", "conv"}, an ssd block's {"conv", "ssm"}."""
+    rows), an MLA block's {"c_kv", "k_pe"}, a rec block's {"h", "conv"},
+    an ssd block's {"conv", "ssm"}."""
     if kind == "attn":
+        if mcfg.mla is not None:
+            return mla.init_mla_cache(mcfg.mla, batch, max_seq, dtype,
+                                      device, lead)
         return attention.init_cache(attn_config(mcfg), batch, max_seq, dtype,
                                     device, lead)
     if kind == "rec":
@@ -147,8 +153,14 @@ def block_prefill(params, kind: str, mcfg: ModelConfig, x, positions,
     contiguous view of :func:`init_block_cache`) in place."""
     h = apply_norm(mcfg.norm, params["ln1"], x)
     if kind == "attn":
-        mix, cache = attention.attention_prefill(
-            params["mixer"], attn_config(mcfg), h, positions, policy, cache)
+        if mcfg.mla is not None:
+            mix, cache = mla.mla_prefill(params["mixer"], mcfg.mla,
+                                         mcfg.n_heads, h, positions, policy,
+                                         cache, mcfg.kv_chunk)
+        else:
+            mix, cache = attention.attention_prefill(
+                params["mixer"], attn_config(mcfg), h, positions, policy,
+                cache)
         return _ffn_part(params, mcfg, x + mix, policy)[0], cache
     if kind == "rec":
         mix, new = rglru.rglru_block_prefill(params["mixer"], mcfg.rglru, h,
@@ -167,8 +179,12 @@ def block_decode(params, kind: str, mcfg: ModelConfig, x, pos, cache,
     ``cache`` in place."""
     h = apply_norm(mcfg.norm, params["ln1"], x)
     if kind == "attn":
-        mix, cache = attention.attention_decode(
-            params["mixer"], attn_config(mcfg), h, pos, cache, policy)
+        if mcfg.mla is not None:
+            mix, cache = mla.mla_decode(params["mixer"], mcfg.mla,
+                                        mcfg.n_heads, h, pos, cache, policy)
+        else:
+            mix, cache = attention.attention_decode(
+                params["mixer"], attn_config(mcfg), h, pos, cache, policy)
         return _ffn_part(params, mcfg, x + mix, policy)[0], cache
     if kind == "rec":
         mix, new = rglru.rglru_block_decode(params["mixer"], mcfg.rglru, h,

@@ -129,11 +129,12 @@ def policy_einsum(eq: str, x: torch.Tensor, y: torch.Tensor,
 
 def he_init(gen: torch.Generator, shape, dtype, device,
             fan_in: int | None = None) -> torch.Tensor:
-    """He-normal weights in ``dtype``, drawn in float32. A stack (a
-    leading layer axis) is drawn one layer at a time into the finished
-    tensor, so that no full-width stack (qwen1.5-32b's FFN: 64 x 5120 x
-    27392) has a float32 copy of its own size; the layout, the dtype and
-    the scale are the reference's (ROADMAP.md § 3)."""
+    """He-normal weights in ``dtype``, drawn in float32. A stack (leading
+    layer and expert axes) is drawn one 2-D matrix at a time into the
+    finished tensor, so that no full-width stack (deepseek-v3's experts:
+    L x 256 x 7168 x 2048) has a float32 copy of a layer's size; the
+    layout, the dtype and the scale are the reference's (ROADMAP.md
+    § 3)."""
     fan = fan_in if fan_in is not None else shape[-2]
     std = (2.0 / max(1, fan)) ** 0.5
 
@@ -145,8 +146,8 @@ def he_init(gen: torch.Generator, shape, dtype, device,
     if len(shape) <= 2:
         return draw(shape)
     out = torch.empty(shape, dtype=dtype, device=device)
-    for part in out:
-        part.copy_(draw(shape[1:]))
+    for part in out.view(-1, *shape[-2:]):
+        part.copy_(draw(shape[-2:]))
     return out
 
 

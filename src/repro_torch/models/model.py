@@ -6,7 +6,9 @@ Layers are grouped by the (possibly heterogeneous) ``block_pattern``, as
 in the reference: ``params["layers"]`` holds ``{"b0", ..., "b{k-1}"}``,
 one per pattern entry, each leaf stacked on a leading ``n_groups`` axis,
 and ``params["tail"]`` the list of the ``n_layers % k`` trailing blocks,
-unstacked (recurrentgemma-2b: (rec, rec, attn) x 8 + (rec, rec)). The
+unstacked (recurrentgemma-2b: (rec, rec, attn) x 8 + (rec, rec)), and
+with ``mtp`` (deepseek-v3-671b) ``params["mtp"]``, the multi-token
+prediction group {"proj", "block", "ln"} that only training reads. The
 reference's ``lax.scan`` over the groups becomes a Python loop: group by
 group, each group's blocks in pattern order, then the tail. The cache
 follows the same layout.
@@ -92,7 +94,6 @@ def init_params(mcfg: ModelConfig, seed: int = 0, device="cuda"):
     ``torch.Generator`` draws them on ``device``; the numbers differ
     from ``jax.random``'s — use :mod:`repro_torch.convert` to carry JAX
     parameters over)."""
-    B.check_supported(mcfg)
     device = resolve_device(device)
     dtype = getattr(torch, mcfg.dtype)
     pat, n_groups, tail = _groups(mcfg)
@@ -114,6 +115,13 @@ def init_params(mcfg: ModelConfig, seed: int = 0, device="cuda"):
     if tail:
         params["tail"] = [B.init_block(gen, kind, mcfg, dtype, device)
                           for kind in tail]
+    if mcfg.mtp:
+        d = mcfg.d_model
+        params["mtp"] = {
+            "proj": he_init(gen, (2 * d, d), dtype, device),
+            "block": B.init_block(gen, "attn", mcfg, dtype, device),
+            "ln": init_norm(mcfg.norm, d, dtype, device),
+        }
     return params
 
 
@@ -122,11 +130,11 @@ def init_cache(mcfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
     n_groups as the parameters are, and a "tail" list. An attention
     block's leaves are k and v (batch, L, n_kv_heads, head_dim) in the
     model's type, L = max_seq, or a window's ring of min(max_seq,
-    window) rows; an int8 cache (``kv_cache_dtype="int8"``) holds int8 k
-    and v and their float32 scales "k_scale", "v_scale" (..., 1). A rec
-    block holds {"h" float32, "conv"}, an ssd block {"conv", "ssm"
-    float32}."""
-    B.check_supported(mcfg)
+    window) rows, an MLA block's c_kv (batch, L, kv_lora_rank) and k_pe
+    (batch, L, qk_rope_dim); an int8 cache (``kv_cache_dtype="int8"``)
+    holds int8 k and v and their float32 scales "k_scale", "v_scale"
+    (..., 1). A rec block holds {"h" float32, "conv"}, an ssd block
+    {"conv", "ssm" float32}."""
     device = resolve_device(device)
     dtype = getattr(torch, mcfg.dtype)
     pat, n_groups, tail = _groups(mcfg)
@@ -174,13 +182,18 @@ def embed_inputs(params, mcfg: ModelConfig, inputs: dict):
 
 def forward_train(params, mcfg: ModelConfig, inputs: dict,
                   policy: GemmPolicy = NATIVE_POLICY, remat: bool = True):
-    """Training forward: (logits (B, S, vocab_padded), mtp logits (None),
-    aux loss). With ``remat`` each block runs under a non-reentrant
-    activation checkpoint, as the reference wraps each scanned group in
-    ``jax.checkpoint``: only the block inputs stay alive, and the
-    backward recomputes each block, its weight preparation included.
-    An encoder (``causal=False``) attends bidirectionally."""
-    B.check_supported(mcfg)
+    """Training forward: (logits (B, S, vocab_padded), mtp logits (B, S,
+    vocab_padded) or None, aux loss). With ``remat`` each block runs under
+    a non-reentrant activation checkpoint, as the reference wraps each
+    scanned group in ``jax.checkpoint``: only the block inputs stay alive,
+    and the backward recomputes each block, its weight preparation
+    included. An encoder (``causal=False``) attends bidirectionally.
+
+    With ``mtp`` (DeepSeek-V3 multi-token prediction) one more attention
+    block, outside the checkpoints as in the reference, sees the final
+    hidden state, normed, fused with the embedding of the *next* token,
+    and predicts token t + 2 through the shared head; its aux loss is
+    dropped."""
     x, positions = embed_inputs(params, mcfg, inputs)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, lp in zip(mcfg.pattern_for_layers(),
@@ -191,7 +204,16 @@ def forward_train(params, mcfg: ModelConfig, inputs: dict,
         else:
             x, a = B.block_train(lp, kind, mcfg, x, positions, policy)
         aux = aux + a
-    return logits_from_hidden(params, mcfg, x, policy), None, aux
+    mtp_logits = None
+    if mcfg.mtp:
+        mtp = params["mtp"]
+        h = apply_norm(mcfg.norm, mtp["ln"], x)
+        e = params["emb"][torch.roll(inputs["tokens"], -1, dims=1).long()]
+        fused = dense(torch.cat([h, e], dim=-1), mtp["proj"], policy, "ffn")
+        fused, _ = B.block_train(mtp["block"], "attn", mcfg, fused,
+                                 positions, policy)
+        mtp_logits = logits_from_hidden(params, mcfg, fused, policy)
+    return logits_from_hidden(params, mcfg, x, policy), mtp_logits, aux
 
 
 def logits_from_hidden(params, mcfg: ModelConfig, x, policy: GemmPolicy):
@@ -208,7 +230,6 @@ def forward_prefill(params, mcfg: ModelConfig, inputs: dict, max_seq: int,
     """Whole-batch prefill: (logits (B, 1, vocab_padded) at the last
     prompt position, the contiguous cache of :func:`init_cache` filled
     with the prompt's keys and values and the recurrent blocks' states)."""
-    B.check_supported(mcfg)
     x, positions = embed_inputs(params, mcfg, inputs)
     cache = init_cache(mcfg, x.shape[0], max_seq, x.device)
     for kind, lp, view in zip(mcfg.pattern_for_layers(),
@@ -223,7 +244,6 @@ def forward_decode(params, mcfg: ModelConfig, token, pos, cache,
     """token: (B, 1) int32, each lane's next id (the audio stub: (B, 1, F)
     frames); pos: the int position they all take. The cache is updated
     in place. Returns (logits (B, 1, vocab_padded), cache)."""
-    B.check_supported(mcfg)
     if mcfg.frontend == "audio_stub":
         x = _project(token, params["frontend_proj"])
     else:
@@ -252,7 +272,6 @@ def forward_step(params, mcfg: ModelConfig, tokens, start, n_new, cache,
     Token ids only: a stub front end raises, and so does a rec / ssd
     block (``blocks.block_step``).
     """
-    B.check_supported(mcfg)
     if mcfg.frontend != "none":
         raise NotImplementedError(
             "serving steps take token ids only; stub frontends "

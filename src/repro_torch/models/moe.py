@@ -7,9 +7,10 @@ strided-batched einsums over the (E, G*C, D) stacks (site 'moe_expert'),
 the router one 2-D product (site 'moe_gate'). Every expert computes every
 slot of its stack, as in the reference: the dense dispatch is kept.
 
-The port keeps the reference's qwen2-moe routing (softmax top-k, gated
-shared experts); deepseek-v3's sigmoid scoring waits on ROADMAP.md § 1
-item 4.6 (``blocks.check_supported`` refuses it).
+Both of the reference's routing styles: qwen2-moe's softmax top-k with
+gated shared experts, and deepseek-v3's sigmoid scores with a float32
+``router_bias`` that shifts which experts are selected but not their
+weights (the aux-loss-free balancing hook), and an ungated shared expert.
 
 Where the reference's ops have no order that torch promises, the port
 spells out the reference's: ``jax.lax.top_k`` takes the lower index
@@ -43,7 +44,8 @@ def padded_experts(cfg: MoEConfig) -> int:
 def init_moe(gen, d_model: int, cfg: MoEConfig, act: str, dtype, device,
              lead: tuple = ()):
     """The layer's parameters, stacked on ``lead`` (layer) axes. The router
-    is float32 in a model of any dtype. The reference draws ``wi_gate``
+    is float32 in a model of any dtype, and so is sigmoid scoring's
+    zero-initialized ``router_bias`` (e,). The reference draws ``wi_gate``
     and ``wi_up`` with its ``he_init``'s default fan, the first axis of
     (e, d, f), i.e. the expert count (ROADMAP.md § 3 R8): kept, with the
     fan passed explicitly."""
@@ -54,6 +56,9 @@ def init_moe(gen, d_model: int, cfg: MoEConfig, act: str, dtype, device,
         "wi_up": he_init(gen, lead + (e, d_model, f), dtype, device, e),
         "wo": he_init(gen, lead + (e, f, d_model), dtype, device, f),
     }
+    if cfg.scoring == "sigmoid":
+        params["router_bias"] = torch.zeros(lead + (e,), dtype=torch.float32,
+                                            device=device)
     if cfg.n_shared:
         params["shared"] = init_ffn(gen, d_model, cfg.d_ff_shared, act,
                                     dtype, device, lead)
@@ -73,9 +78,17 @@ def _route(params, cfg: MoEConfig, x_f32: torch.Tensor,
     if e_pad != cfg.n_experts:             # mask padding experts out
         dead = torch.arange(e_pad, device=logits.device) >= cfg.n_experts
         logits = logits.masked_fill(dead, -1e30)
-    scores = torch.softmax(logits, dim=-1)
+    if cfg.scoring == "sigmoid":           # deepseek-v3 style
+        # torch.sigmoid, not the reference's spelled-out 1 / (1 + exp(-x)):
+        # XLA's CPU exp and torch's differ in the last bit for ~10 % of
+        # float32 inputs, so torch's formula matches jax.nn.sigmoid in
+        # ~96 % of them and torch.sigmoid in ~99.6 %.
+        scores = torch.sigmoid(logits)
+        sel = scores + params["router_bias"]  # bias affects selection only
+    else:
+        scores = sel = torch.softmax(logits, dim=-1)
     # jax.lax.top_k: descending, the lower index first among ties.
-    idx = torch.sort(scores, dim=-1, descending=True,
+    idx = torch.sort(sel, dim=-1, descending=True,
                      stable=True).indices[..., :cfg.top_k]
     w = (scores[..., None, :] * F.one_hot(idx, e_pad).to(scores.dtype)).sum(-1)
     if cfg.norm_topk:

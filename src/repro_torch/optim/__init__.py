@@ -2,6 +2,8 @@
 (``repro.optim``), over trees of tensors."""
 
 from repro_torch.optim.optimizers import (  # noqa: F401
+    adafactor_init,
+    adafactor_update,
     adamw_init,
     adamw_update,
     clip_by_global_norm,

@@ -1,11 +1,11 @@
 """Paged KV cache of the port (``repro.serving.kv_cache``): fixed-size
 pages, free-list allocator, block tables.
 
-Every model cache leaf (n_layers, B, S, KVH, D; D is 1 for the scales of
-an int8 cache) is re-laid-out into a
-**pool** (n_layers, num_pages * page_size, KVH, D) whose token axis is
-physical slots; each request owns an ordered page list recorded in a
-block table. A serving step then
+Every model cache leaf (n_layers, B, S, *rest: an attention layer's
+(KVH, D), D 1 for the scales of an int8 cache; an MLA layer's latent
+width) is re-laid-out into a **pool** (n_layers, num_pages * page_size,
+*rest) whose token axis is physical slots; each request owns an ordered
+page list recorded in a block table. A serving step then
 
   gather  — block table -> contiguous per-lane views in the exact layout
             of :func:`repro_torch.models.model.init_cache`;
@@ -17,10 +17,10 @@ and invalid writes land there, and the causal mask never reads it.
 
 The reference discovers each leaf's batch and sequence axes with
 ``jax.eval_shape`` and refuses a leaf with no sequence axis; the port's
-only pageable layout is the global attention block's, whose axes are
-fixed (batch 1, sequence 2), and :class:`PagedKVCache` refuses every
-other up front with ``NotImplementedError``: a rec / ssd state and a
-window layer's ring are lane-bound, and a stub front end has no ragged
+only pageable layouts are the global attention and MLA blocks', whose
+axes are fixed (batch 1, sequence 2), and :class:`PagedKVCache` refuses
+every other up front with ``NotImplementedError``: a rec / ssd state and
+a window layer's ring are lane-bound, and a stub front end has no ragged
 token path.
 """
 
@@ -32,7 +32,6 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention
 from repro_torch.models import blocks as B
 from repro_torch.models import model as M
 
@@ -129,7 +128,6 @@ class PagedKVCache:
                  max_seq: int, chunk: int, device="cuda"):
         if page_size < 1 or chunk < 1:
             raise ValueError("page_size and chunk must be >= 1")
-        B.check_supported(mcfg)
         check_pageable(mcfg)
         self.mcfg = mcfg
         self.page_size = page_size
@@ -191,19 +189,21 @@ class PagedKVCache:
     # ---- device-side pools ---------------------------------------------
 
     def init_pools(self):
-        """{"layers": {"b0": {"k", "v"}}}, each (n_layers,
-        num_pages * page_size, n_kv_heads, head_dim) in the model's type;
-        an int8 cache's pools are int8 k and v and float32 "k_scale",
-        "v_scale" (..., n_kv_heads, 1). Every pool starts at zero, so a
-        stale or scratch row of an int8 pool dequantizes to zero."""
+        """{"layers": {"b0": {...}}}: a pool (n_layers, num_pages *
+        page_size, *rest) for each leaf of the block's cache (batch,
+        seq, *rest), in the leaf's type: "k", "v" (n_kv_heads, head_dim)
+        in the model's type, or int8 with float32 "k_scale", "v_scale"
+        (n_kv_heads, 1); an MLA block's "c_kv" (kv_lora_rank) and "k_pe"
+        (qk_rope_dim). Every pool starts at zero, so a stale or scratch
+        row of an int8 pool dequantizes to zero."""
         m = self.mcfg
-        shape = (m.n_layers, self.num_pages * self.page_size, m.n_kv_heads)
-        leaves = attention.cache_leaves(B.attn_config(m),
-                                        getattr(torch, m.dtype))
+        slots = self.num_pages * self.page_size
+        leaves = B.init_block_cache("attn", m, 1, 1, getattr(torch, m.dtype),
+                                    "meta")
         return {"layers": {"b0": {
-            name: torch.zeros(shape + (last,), dtype=dtype,
-                              device=self.device)
-            for name, (dtype, last) in leaves.items()}}}
+            name: torch.zeros((m.n_layers, slots) + tuple(leaf.shape[2:]),
+                              dtype=leaf.dtype, device=self.device)
+            for name, leaf in leaves.items()}}}
 
     def gather(self, pools, tables: torch.Tensor):
         """Pools + (B, view_pages) tables -> per-lane contiguous views."""

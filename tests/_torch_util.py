@@ -14,6 +14,19 @@ def cuda_device():
     return torch.device("cuda")
 
 
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """torch on one intra-op thread for a module, then as it was. The
+    suite runs its files in parallel workers on a few cores, where every
+    worker's full-size pool oversubscribes them: a file of many small
+    torch ops (an engine's steps on smoke widths) then ran 10-300x
+    slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def t(x: np.ndarray, dtype=None) -> torch.Tensor:
     """numpy -> CPU tensor (a copy; jax hands out read-only arrays)."""
     out = torch.from_numpy(np.array(x, copy=True))

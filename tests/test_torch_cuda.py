@@ -12,8 +12,9 @@ plane GEMM) against their plain versions,
 bit for bit (attention within its bars), the dispatcher's routing of
 CUDA tensors (complex 4M included), and train steps that launch them
 (a hoisted microbatch step among them); the prefill / decode path at 4
-query heads a KV head on both backends, and K3 against granite-3-8b's
-prepared head.
+query heads a KV head on both backends, K3 against granite-3-8b's
+prepared head, and K4 at deepseek-v3-671b's expert stacks, K1 at MLA's
+latent decompression and deepseek-v3's smoke model on both backends.
 
 These tests need an NVIDIA GPU and nvcc; they skip elsewhere. This file
 imports no jax, so it runs where only torch is installed. The instances
@@ -1604,3 +1605,84 @@ def test_ring_buffer_decode_past_the_window_on_card(cuda_device, int8):
         out = {b: run(params, GemmPolicy(default=api.precision(
             "ozaki1-p4", backend=b)), cuda_device) for b in ("cuda", "torch")}
     assert torch.equal(out["cuda"], out["torch"])
+
+
+@pytest.mark.parametrize("rows,k,n", [(64, 7168, 2048), (4, 7168, 2048),
+                                      (64, 2048, 7168)])
+def test_batched_kernel_at_deepseek_v3_expert_stacks(cuda_device, rows, k, n):
+    """K4 at deepseek-v3-671b's moe_expert shapes: 256 experts, K = 7168
+    (gate, up) and 2048 (down), at a mixed step's 64 rows and a decode
+    step's 4, bf16 in, one launch a call, bit for bit against its plain
+    version (drawn, and held, 32 experts at a time: the stack is 7.5 GB
+    in bf16, and the plain version's float64 slice products of the whole
+    of it would not fit)."""
+    g = torch.Generator(device=cuda_device).manual_seed(rows + k)
+    a = torch.randn(256, rows, k, generator=g, device=cuda_device).to(
+        torch.bfloat16)
+    b = torch.empty(256, k, n, dtype=torch.bfloat16, device=cuda_device)
+    for i in range(0, 256, 32):
+        b[i:i + 32] = torch.randn(32, k, n, generator=g,
+                                  device=cuda_device) * k ** -0.5
+    mu, nu = scheme1.pow2_scale(a, -1), scheme1.pow2_scale(b, -2)
+    ozaki1.COUNTS.reset()
+    out = ozaki1.fused_matmul_scheme1(a, b, mu, nu, 4, 7, torch.bfloat16)
+    assert ozaki1.COUNTS.launches_batched == 1
+    for i in range(0, 256, 32):
+        e = slice(i, i + 32)
+        ref = ozaki1.fused_matmul_plain(a[e], b[e], mu[e], nu[e], 4, 7,
+                                        torch.bfloat16)
+        assert torch.equal(out[e], ref), i
+
+
+def test_mla_latent_and_deepseek_v3_smoke_on_card(cuda_device):
+    """K1 at MLA's 'mla_latent' decompression (K = 512 against W_UK, a
+    strided view of wkv_b: 128 heads x 128) bit for bit against its plain
+    version, one 2-D call; then deepseek-v3-671b's smoke config (MLA,
+    sigmoid routing with a nonzero router_bias, MTP) under ozaki1-p4 on
+    the 'cuda' and 'torch' backends on the card: forward_train's logits
+    and MTP logits, a prefill and three decodes, bit for bit."""
+    from repro_torch import api, configs
+    from repro_torch.models import model as M
+    from repro_torch.models.common import GemmPolicy, policy_einsum
+    g = torch.Generator(device=cuda_device).manual_seed(512)
+    cj = torch.randn(4, 16, 512, generator=g, device=cuda_device).to(
+        torch.bfloat16)
+    wkv_b = (torch.randn(512, 128 * 256, generator=g, device=cuda_device)
+             / 512 ** 0.5).to(torch.bfloat16)
+    w_uk = wkv_b.reshape(512, 128, 256)[..., :128]
+    outs = {}
+    for backend in ("cuda", "torch"):
+        ozaki1.COUNTS.reset()
+        outs[backend] = policy_einsum(
+            "blc,chd->blhd", cj, w_uk, GemmPolicy(default=api.precision(
+                "ozaki1-p4", backend=backend)), "mla_latent")
+        if backend == "cuda":
+            assert ozaki1.COUNTS.launches_2d == 1
+    torch.cuda.synchronize()
+    assert outs["cuda"].shape == (4, 16, 128, 128)
+    assert torch.equal(outs["cuda"], outs["torch"])
+
+    mcfg = configs.get_smoke_config("deepseek-v3-671b").model
+    params = M.init_params(mcfg, 0, cuda_device)
+    params["layers"]["b0"]["moe"]["router_bias"].uniform_(-0.3, 0.3,
+                                                          generator=g)
+    toks = torch.randint(0, mcfg.vocab, (2, 40), generator=g,
+                         device=cuda_device, dtype=torch.int32)
+    res = {}
+    for backend in ("cuda", "torch"):
+        pol = GemmPolicy(default=api.precision("ozaki1-p4", backend=backend))
+        with torch.inference_mode():
+            logits, mtp, _ = M.forward_train(params, mcfg,
+                                             {"tokens": toks[:, :32]}, pol,
+                                             remat=False)
+            pre, cache = M.forward_prefill(params, mcfg,
+                                           {"tokens": toks[:, :32]}, 40, pol)
+            steps = [pre]
+            for i in range(3):
+                out, cache = M.forward_decode(params, mcfg,
+                                              toks[:, 32 + i:33 + i],
+                                              32 + i, cache, pol)
+                steps.append(out)
+        res[backend] = (logits, mtp, torch.cat(steps, 1))
+    for a, b in zip(res["cuda"], res["torch"]):
+        assert torch.isfinite(a).all() and torch.equal(a, b)

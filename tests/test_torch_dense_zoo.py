@@ -72,8 +72,15 @@ def test_configs_are_the_references(arch_id):
 
 @pytest.mark.parametrize("arch_id,item", [("deepseek-v3-671b", "4.6")])
 def test_other_archs_raise_naming_their_item(arch_id, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tconfigs.get_config(arch_id)
+    """The last id of the reference's registry (ROADMAP.md § 1 item 4.6)
+    is ported: its configs are the reference's, so no id raises but an
+    unknown one, which names the known ids."""
+    for get in ("get_config", "get_smoke_config"):
+        assert (dataclasses.asdict(getattr(tconfigs, get)(arch_id))
+                == dataclasses.asdict(getattr(jconfigs, get)(arch_id)))
+    assert set(jconfigs.ARCH_IDS) <= set(tconfigs.ARCH_IDS)
+    with pytest.raises(KeyError, match=arch_id):
+        tconfigs.get_config(f"not-{item}")
 
 
 @pytest.mark.parametrize("arch_id", ARCHS)

@@ -115,11 +115,23 @@ def test_init_params_layout_and_determinism():
 
 
 def test_outside_the_slice_raises():
-    """deepseek-v3-671b's id, and its MLA and multi-token prediction on
-    any config, raise naming their ROADMAP.md item."""
+    """deepseek-v3-671b's id and its multi-token prediction are ported
+    (ROADMAP.md § 1 item 4.6): on olmo-1b's smoke config ``mtp`` adds the
+    reference's mtp group, and forward_train returns MTP logits of the
+    logits' shape; an unknown block kind still raises."""
     import dataclasses
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tconfigs.get_config("deepseek-v3-671b")
-    m = tconfigs.get_smoke_config("olmo-1b").model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.init_params(dataclasses.replace(m, mtp=True), device="cpu")
+    assert tconfigs.get_config("deepseek-v3-671b").model.mtp
+    m = dataclasses.replace(tconfigs.get_smoke_config("olmo-1b").model,
+                            mtp=True)
+    params = TM.init_params(m, device="cpu")
+    jshapes = jax.eval_shape(lambda: JM.init_params(
+        jax.random.PRNGKey(0), dataclasses.replace(
+            jconfigs.get_smoke_config("olmo-1b").model, mtp=True)))
+    assert (jax.tree.map(lambda x: tuple(x.shape), params["mtp"])
+            == jax.tree.map(lambda x: tuple(x.shape), jshapes["mtp"]))
+    toks = torch.zeros((1, 8), dtype=torch.int32)
+    logits, mtp_logits, _ = TM.forward_train(params, m, {"tokens": toks})
+    assert mtp_logits.shape == logits.shape
+    with pytest.raises(ValueError, match="unknown block kind"):
+        TM.init_params(dataclasses.replace(m, block_pattern=("moe",)),
+                       device="cpu")

@@ -118,14 +118,26 @@ def test_configs_are_the_references(arch_id):
 
 
 def test_sigmoid_scoring_is_refused_naming_its_item():
-    """deepseek-v3's sigmoid routing (and its router_bias) is item 4.6."""
+    """deepseek-v3's sigmoid routing (ROADMAP.md § 1 item 4.6) is ported:
+    on qwen2-moe's smoke config it adds the reference's float32
+    router_bias (zeros, one per padded expert and layer), and the
+    forward runs; deepseek-v3-671b's config scores by sigmoid."""
     m = tconfigs.get_smoke_config(BASE).model
     m = dataclasses.replace(m, moe=dataclasses.replace(m.moe,
                                                        scoring="sigmoid"))
-    with pytest.raises(NotImplementedError, match="item 4.6"):
-        TM.init_params(m, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4.6"):
-        tconfigs.get_config("deepseek-v3-671b")
+    params = TM.init_params(m, device="cpu")
+    bias = params["layers"]["b0"]["moe"]["router_bias"]
+    jm = jconfigs.get_smoke_config(BASE).model
+    jbias = jax.eval_shape(lambda: JM.init_params(
+        jax.random.PRNGKey(0), dataclasses.replace(jm, moe=dataclasses.replace(
+            jm.moe, scoring="sigmoid"))))["layers"]["b0"]["moe"]["router_bias"]
+    assert (tuple(bias.shape), bias.dtype) == (jbias.shape, torch.float32)
+    assert not bias.any()
+    logits, _, aux = TM.forward_train(
+        params, m, {"tokens": torch.zeros((1, 8), dtype=torch.int32)})
+    assert torch.isfinite(logits).all() and float(aux) > 0
+    assert tconfigs.get_config("deepseek-v3-671b").model.moe.scoring == \
+        "sigmoid"
 
 
 @pytest.mark.parametrize("arch_id", ARCHS)

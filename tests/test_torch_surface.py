@@ -74,6 +74,8 @@ SPECIFIC = {
         "writes into the caller's cache instead of allocating max_seq",
     "models.blocks.block_prefill":
         "writes into the caller's cache instead of allocating max_seq",
+    "models.mla.mla_prefill":
+        "writes into the caller's cache instead of allocating max_seq",
     "models.attention.init_attention": "dtype and device from the caller",
     "models.attention.init_cache": "dtype and device from the caller",
     "models.common.init_ffn": "dtype and device from the caller",
@@ -166,6 +168,11 @@ def test_signatures_match_the_reference():
         if why is not None and name not in SPECIFIC:
             bad[name] = why
     assert not bad, bad
+    # MLA and Adafactor (deepseek-v3-671b's modules) are among the pairs.
+    assert {f"models.mla.{f}" for f in (
+        "init_mla", "init_mla_cache", "mla_train", "mla_prefill", "mla_step",
+        "mla_decode")} | {"optim.optimizers.adafactor_init",
+                          "optim.optimizers.adafactor_update"} <= seen
     # Every allowlisted deviation is still one (no stale entries).
     assert set(SPECIFIC) <= seen, sorted(set(SPECIFIC) - seen)
     stale = [n for n, tv, rv in _pairs() if n in SPECIFIC

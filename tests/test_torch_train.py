@@ -145,12 +145,22 @@ def test_failure_injection_and_bitexact_resume(tmp_path):
 
 
 def test_train_step_refuses_what_is_not_ported():
+    """Adafactor (ROADMAP.md § 1 item 4.6) is ported: a step runs and
+    keeps the reference's state (vr, vc, step); the guard (§ 1 item 5)
+    is still refused."""
     import dataclasses
     arch = tconfigs.get_smoke_config("olmo-1b")
     ada = dataclasses.replace(
         arch, train=dataclasses.replace(arch.train, optimizer="adafactor"))
-    with pytest.raises(NotImplementedError, match="adafactor"):
-        TS.make_train_step(ada)
+    state = TS.init_state(ada, 0, "cpu")
+    assert set(state["opt"]) == {"vr", "vc", "step"}
+    _, batch = next(t_batches(ada, ShapeSpec("s", 16, 2, "train"), 0))
+    new, metrics = TS.make_train_step(ada)(state, batch)
+    assert np.isfinite(float(metrics["loss"]))
+    assert int(new["opt"]["step"]) == 1 and int(state["opt"]["step"]) == 0
+    wo = new["opt"]["vr"]["layers"]["b0"]["mixer"]["wo"]
+    assert wo.shape == state["params"]["layers"]["b0"]["mixer"]["wo"].shape[
+        :-1] and wo.gt(0).all()
     with pytest.raises(NotImplementedError, match="§ 1 item 5"):
         TS.make_train_step(arch, policy=TPolicy(
             default=tapi.precision("ozaki1-p4+guard")))
