@@ -3,16 +3,21 @@
     python3 chip_smoke.py
 
 Drives repro_torch only (no jax, nothing of the reference package) on the
-card, with no CPU fallback, in twenty-nine phases. Phase 27 (while
-nothing else is resident on the card), phase 29, phase 28, phase 26's
-walls and phases 20-23 run right after the build, so that every wall
-they take comes before the process's first torch.profiler session;
+card, with no CPU fallback, in thirty phases. Phases 29, 30 and 28 (while
+emugemm2_planes.cu still compiles), phase 27 (each with nothing else
+resident on the card), phase 26's walls and phases 20-23 run first, so
+that every wall they take comes before the process's first
+torch.profiler session;
 phase 24 and phase 26's profiled steps and kernel times follow the
 yardsticks, phase 25 follows phase 15 (on its DGEMM and ZGEMM operands),
 and the others follow in their order:
 
 1. build: nvcc compiles the port's CUDA kernels from this checkout (five
-   sources), one process per source, in parallel;
+   sources), one process per source, all started together; phases 29,
+   30 and 28, which need EmuGEMM-I alone, run while the longest,
+   emugemm2_planes.cu, compiles (nvcc then shares the host's cores with
+   their host-bound steps, so their walls are not those of an idle
+   host);
 2. kernel: every kernel of the serving path is held against its plain
    version bit for bit at the path's shapes (float32 and bfloat16; the
    2-D GEMMs on EmuGEMM-I's plane route at p in {3, 4, 6}, each of their
@@ -311,6 +316,30 @@ and the others follow in their order:
     microbatch on 'cuda' and 'torch' bit for bit under strict
     deterministic algorithms, and Adafactor on the card against the CPU
     on leaves of ranks 1 to 4 within 1e-6.
+30. the guard and the telemetry (right after phase 29): full-width
+    olmo-1b serves phase 3's trace under ozaki1-p4 and under
+    ozaki1-p4+guard with telemetry on and a JSONL sink: the same tokens
+    bit for bit and the same K1 and K4 calls, each call signature then
+    held against its plain version bit for bit and timed; every guarded
+    call verified without a trip (113 dense calls a step on the eager
+    ladder, and attn_qk / attn_av one K4 launch a layer each whose 64
+    (lane, head) elements are verified and counted one by one: 2161 a
+    step), the telemetry's emulated calls == K1's and K4's launch
+    counts, one record a step; tok/s, step walls, host syncs a step and
+    peak memory beside the unguarded serve; at olmo-1b's dense shapes,
+    NaN/Inf rows and columns through K1 NaN exactly where torch.matmul
+    is non-finite (every other entry K1's bits), a guarded call against
+    a prepared weight (one K3) verifies, injected faults under '+xla'
+    trip and recover in one rung bit for bit (Scheme II at olmo-1b's
+    shape; Scheme I at (64, 96) @ (96, 48): at olmo-1b's shapes the
+    verifier's bound passes a Scheme-I fault, and an all-zero product,
+    whose verdicts are read), an exhausted '+guard:strict' ladder raises
+    and '+guard' falls back to the native dot with one warning; the Trainer
+    under ozaki1-p4+guard:strict (2 steps of 2 x 128 tokens) gives the
+    unguarded run's losses bit for bit, no trip, one record a step. The
+    library phase (19) also holds K10 in float16 and at head dims 80
+    (hubert-xlarge) and 192 (deepseek-v3), which run on the instances of
+    128 and 256.
 
 After phases 20-23, one line names the device kernels that the
 library yardsticks (cuBLAS's batched DGEMM, scaled_dot_product_attention
@@ -440,8 +469,21 @@ ATTN_CASES = (
     ("rectangular full", 1, 4, 4, 128, 512, 64, False, None, "float32"),
     ("recurrentgemma-2b MQA window 2048", 1, 10, 1, 4096, 4096, 256, True,
      2048, "float32"),
+    # float16 and the head dims without an instance of their own (80 on
+    # the 128 instance, 192 on the 256 one).
+    ("olmo-1b causal", 2, 16, 16, 2048, 2048, 128, True, None, "float16"),
+    ("hubert-xlarge full", 1, 16, 16, 2048, 2048, 80, False, None,
+     "bfloat16"),
+    ("hubert-xlarge full", 1, 16, 16, 2048, 2048, 80, False, None,
+     "float32"),
+    ("deepseek-v3 causal", 1, 128, 128, 2048, 2048, 192, True, None,
+     "bfloat16"),
 )
-ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# float16 is held 8x tighter than bf16: its 11 significant bits against
+# bf16's 8 make the rounding of P before P V and of the output 8x finer.
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 2.5e-3}
+ATTN_ERR_KEY = {"float32": "flash_f32", "bfloat16": "flash",
+                "float16": "flash_f16"}
 # granite-3-8b served at full width with its untied head prepared once
 # (GRANITE_SPEC), and on the lockstep path; deepseek-coder-33b at its
 # published widths, DEEPSEEK_LAYERS of its 62 layers deep (a second
@@ -3356,7 +3398,7 @@ def library_phase(dev, mcfg):
     gen = torch.Generator(device=dev).manual_seed(19)
     max_err = {"interleaved": 0.0, "relayout": 0.0, "lhs": 0.0, "int8": 0.0,
                "rhs": 0.0, "pair": 0.0, "flash": 0.0, "flash_f32": 0.0,
-               "split": 0.0}
+               "flash_f16": 0.0, "split": 0.0}
     shapes = dense_shapes(mcfg)
 
     # (a) K11 and K8, bit for bit: against the plain versions, K11 + K2r
@@ -3521,7 +3563,7 @@ def library_phase(dev, mcfg):
     for c, (q, k, v), out in zip(ATTN_CASES, qkvs, attn):
         check_close(f"K10 {c}", out, flash_attn.flash_attention_plain(
             q, k, v, c[7], c[8]), ATTN_TOL[c[9]], max_err,
-            "flash" if c[9] == "bfloat16" else "flash_f32")
+            ATTN_ERR_KEY[c[9]])
     for c, (q, k, v), kernel in zip(ATTN_CASES, qkvs, kernels):
         if kernel == "wgmma-3xtf32":
             parts = flash_attn.split_3xtf32(q, k, v)
@@ -3533,7 +3575,8 @@ def library_phase(dev, mcfg):
     log(f"[library] on the main path the 'xla' route == K11 + K2r -> K8 == "
         f"K11 + K2 -> K8 == K1, the naive K9 composition at {NAIVE_N}^3 == K1, and K10 within "
         f"its bars in {len(ATTN_CASES)} cases (max |diff| bf16 "
-        f"{max_err['flash']:.3g}, float32 {max_err['flash_f32']:.3g}); the "
+        f"{max_err['flash']:.3g}, float16 {max_err['flash_f16']:.3g}, "
+        f"float32 {max_err['flash_f32']:.3g}); the "
         "3xTF32 pre-pass bit-identical to its plain version")
     del routed, composed, paired, naive, attn
 
@@ -3776,12 +3819,15 @@ def library_phase(dev, mcfg):
          "replaces": "src/repro/kernels/flash_attn.py:75",
          "launches": fl.launches - fl.launches_3xtf32 - fl.launches_ffma,
          "max_abs_err": max_err["flash"],
+         "max_abs_err_float16": max_err["flash_f16"],
          **{key: t10[0][key] for key in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
          "per": f"one call at {ATTN_CASES[0][0]} {ATTN_CASES[0][9]} "
                 f"{list(t10[0]['shape'])} on the bf16 wgmma kernel; "
                 "library: scaled_dot_product_attention (launches: one per "
-                "bf16 case)",
+                "bf16 or float16 case; cases: every case, float16 and the "
+                "head dims 80 and 192 among them, each beside SDPA and its "
+                "bound)",
          "cases": t10},
         {"name": "flash_attention_3xtf32", **common, "source": SOURCE_FLASH,
          "replaces": "src/repro/kernels/flash_attn.py:75",
@@ -5161,7 +5207,7 @@ def f16_scheme2_phase(dev, mcfg):
 
 
 def qwen_phase(dev, view_tokens):
-    """Phase 27 (first after the build, while nothing else is resident):
+    """Phase 27 (after phases 29, 30 and 28, with nothing else resident):
     qwen1.5-32b at its published widths and depth drawn on the card,
     served and run in lockstep with its int8 KV cache; then 2 of its
     layers on both backends, its kernels at its shapes, and Scheme II
@@ -5724,7 +5770,7 @@ def zoo_encoder(dev, arch, params, tag):
 
 
 def zoo_phase(dev):
-    """Phase 28 (after phase 27, before any profiler session; each
+    """Phase 28 (after phase 30, before any profiler session; each
     architecture frees its weights before the next)."""
     max_err = {"k1": 0.0, "k3": 0.0, "k4": 0.0}
     report = {}
@@ -6097,7 +6143,7 @@ def dsv3_train_phase(dev):
 
 
 def dsv3_phase(dev, view_tokens):
-    """Phase 29 (after phase 27, before any profiler session): the served
+    """Phase 29 (first, before any profiler session): the served
     model drawn on the card, served, run in lockstep and freed; its
     kernels at its shapes; the reduced config's checks and training."""
     t_phase = time.perf_counter()
@@ -6620,16 +6666,455 @@ def scheme1_wide_phase(dev, mcfg, shared, sci_t):
     return rows
 
 
+BUILD_NAMES = ("emugemm1_batched", "emugemm1_planes", "decompose",
+               "emugemm2_planes", "flash_attn")
+
+
+def start_builds():
+    """nvcc for each kernel source, all started together: (the pool,
+    {name: future}, the start time)."""
+    ex = ThreadPoolExecutor(len(BUILD_NAMES))
+    return ex, {n: ex.submit(build.build, n) for n in BUILD_NAMES}, \
+        time.perf_counter()
+
+
+def wait_builds(builds, names):
+    """Wait for the named sources' libraries (raising a failed nvcc)."""
+    ex, futures, t0 = builds
+    for n in names:
+        futures[n].result()
+    log(f"[build] {', '.join(n + '.cu' for n in names)} built "
+        f"{time.perf_counter() - t0:.1f} s after the builds started")
+
+
 def build_phase():
-    """nvcc for each kernel source, all started together."""
+    """nvcc for each kernel source, all started together, waited for."""
+    builds = start_builds()
+    wait_builds(builds, BUILD_NAMES)
+    builds[0].shutdown()
+
+
+# ---------------------------------------------------------------------------
+# Phase 30: the guard and the telemetry on the card. olmo-1b served at full
+# width under GUARD_SPEC with telemetry on, beside the unguarded serve of
+# the same process; the ladder at olmo-1b's dense shapes; the Trainer under
+# GUARD_TRAIN_SPEC beside the unguarded run. Right after phase 29: its
+# walls come before any profiler session.
+# ---------------------------------------------------------------------------
+
+GUARD_SPEC = "ozaki1-p4+guard"
+GUARD_TRAIN_SPEC = "ozaki1-p4+guard:strict"
+GUARD_REQUESTS = REQUESTS // 2     # of phase 3's trace: one wave of 4
+GUARD_TRAIN = (2, 2, 128)          # steps, batch, seq
+GUARD_ROWS = LANES * CHUNK         # rows of the ladder's operands
+GUARD_DTYPE = torch.bfloat16       # the ladder's NaN/Inf and K3 operands
+
+
+def kernel_launches(*counts):
+    """The nonzero kernel launch counts of ``counts`` (a plain version's
+    calls on the card are not launches)."""
+    return {f: v for c in counts for f, v in vars(c).items()
+            if v and f != "plain_cuda_calls"}
+
+
+def guard_serve(dev, arch, params, spec):
+    """Phase 3's trace (its first GUARD_REQUESTS requests) under ``spec``,
+    one engine step at a time: tokens, step walls, launches, guard
+    counters, host syncs, the telemetry's emulated calls, peak memory,
+    and the EmuGEMM-I calls by signature (``recorded_calls``)."""
+    from repro_torch import guard, telemetry
+    from repro_torch.guard import ladder
+    trace = build_trace(np.random.default_rng(0), arch.model.vocab, REQUESTS,
+                        PROMPT, GEN, 0.0)[:GUARD_REQUESTS]
+    eng = ContinuousEngine(arch, max_seq=PROMPT + GEN, policy=GemmPolicy(
+        default=api.precision(spec)), params=params, max_lanes=LANES,
+        chunk=CHUNK, page_size=PAGE, device=dev)
+    for r in trace:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    guard.stats_clear()
+    ladder.SYNCS.reset()
+    calls0 = telemetry.REGISTRY.total("repro_emulated_calls_total")
+    walls = []
     t0 = time.perf_counter()
-    names = ("emugemm1_batched", "emugemm1_planes", "decompose",
-             "emugemm2_planes", "flash_attn")
-    with ThreadPoolExecutor(len(names)) as ex:
-        for f in [ex.submit(build.build, n) for n in names]:
-            f.result()
-    log(f"[build] {', '.join(n + '.cu' for n in names)} built in "
-        f"{time.perf_counter() - t0:.1f} s")
+    with recorded_calls() as calls:
+        while eng.sched.has_work():
+            t = time.perf_counter()
+            if eng.step_once() is None:
+                raise AssertionError("an idle step on an all-at-once trace")
+            walls.append(time.perf_counter() - t)
+    dt = time.perf_counter() - t0
+    counts = s1_counts()
+    stats = guard.stats()
+    results = eng._results
+    return {"tokens": [results[r.rid].tokens for r in trace],
+            "steps": len(walls), "seconds": dt,
+            "tok_per_s": len(trace) * GEN / dt,
+            "step_ms": {"mean": 1e3 * float(np.mean(walls)),
+                        "p50": 1e3 * float(np.median(walls)),
+                        "max": 1e3 * float(np.max(walls))},
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "launches": {"2d": counts.launches_2d,
+                         "batched": counts.launches_batched,
+                         "mixed": counts.launches_mixed,
+                         "plain": counts.plain_cuda_calls},
+            "guard": dataclasses.asdict(stats),
+            "syncs": ladder.SYNCS.n,
+            "telemetry_calls": telemetry.REGISTRY.total(
+                "repro_emulated_calls_total") - calls0,
+            "calls": calls}
+
+
+def guard_serve_phase(dev, arch, params):
+    """(a) The guarded serve == the unguarded one, bit for bit, with the
+    same EmuGEMM-I calls (each signature then held against its plain
+    version), every guarded call verified without a trip, the
+    telemetry's calls == K1's and K4's launch counts, one JSONL record a
+    step."""
+    from repro_torch import telemetry
+    mcfg = arch.model
+    plain = guard_serve(dev, arch, params, SPEC)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_guard_") as tmp:
+        sink = os.path.join(tmp, "serve.jsonl")
+        with telemetry.recording(sink):
+            guarded = guard_serve(dev, arch, params, GUARD_SPEC)
+        guarded["records"] = sum(1 for _ in open(sink, encoding="utf-8"))
+    g, n = guarded["guard"], guarded["steps"]
+    # A step's guarded calls: q, k, v, o, gate, up, down a layer and the
+    # tied head (2-D, K1: the eager ladder, 3 host syncs a call), and
+    # attn_qk / attn_av, one K4 launch a layer each whose (lane, head)
+    # elements are verified and counted one by one (1 sync a call).
+    dense = 7 * mcfg.n_layers + 1
+    batched = 2 * mcfg.n_layers
+    per_elem = batched * LANES * mcfg.n_heads
+    per_step = dense + per_elem
+    launched = guarded["launches"]["2d"] + guarded["launches"]["batched"]
+    log(f"[guard] serve olmo-1b: {GUARD_SPEC} {n} steps, "
+        f"{guarded['tok_per_s']:.2f} tok/s, step {guarded['step_ms']} ms, "
+        f"{guarded['syncs'] / n:.1f} syncs a step, peak "
+        f"{guarded['peak_gib']:.2f} GiB, guard {g}, launches "
+        f"{guarded['launches']}, telemetry calls "
+        f"{guarded['telemetry_calls']:.0f}, {guarded['records']} records; "
+        f"unguarded {plain['steps']} steps, {plain['tok_per_s']:.2f} tok/s, "
+        f"step {plain['step_ms']} ms, peak {plain['peak_gib']:.2f} GiB, "
+        f"launches {plain['launches']}")
+    if guarded["tokens"] != plain["tokens"] or n != plain["steps"]:
+        raise AssertionError("the guarded serve's tokens differ from the "
+                             "unguarded serve's")
+    if not all(len(t) == GEN and all(0 <= x < mcfg.vocab for x in t)
+               for t in guarded["tokens"]):
+        raise AssertionError("malformed tokens under the guard")
+    def shapes(calls):
+        # By form, shape and types: the guard's sanitized copies may lay
+        # an operand out otherwise than the view the unguarded call read.
+        out = {}
+        for sig, k in calls.items():
+            out[sig[:7]] = out.get(sig[:7], 0) + k
+        return out
+    if shapes(guarded["calls"]) != shapes(plain["calls"]) or \
+            guarded["launches"] != plain["launches"]:
+        raise AssertionError("the guarded serve's EmuGEMM-I calls differ "
+                             "from the unguarded serve's")
+    if g["trips"] or g["escalations"] or g["masked"] or not (
+            g["calls"] == g["verified"] == n * per_step
+            and guarded["launches"]["2d"] == n * dense
+            and guarded["launches"]["batched"] == n * batched):
+        raise AssertionError(f"guard counters {g}, launches "
+                             f"{guarded['launches']}, expected {n} x "
+                             f"{per_step} verified calls on {n} x {dense} "
+                             f"K1 and {n} x {batched} K4 launches")
+    if guarded["launches"]["plain"] or guarded["launches"]["mixed"]:
+        raise AssertionError("a plain version ran on the card, or K3")
+    if guarded["telemetry_calls"] != launched:
+        raise AssertionError("the telemetry's emulated calls != K1's and "
+                             "K4's launch counts")
+    if guarded["records"] != n:
+        raise AssertionError(f"{guarded['records']} JSONL records for {n} "
+                             "steps")
+    if guarded["syncs"] != n * (3 * dense + batched):
+        raise AssertionError(f"{guarded['syncs']} host syncs: expected 3 a "
+                             "dense call and 1 a batched call")
+    # Every EmuGEMM-I signature of the guarded serve, on Eq. 19 operands
+    # of its shape, type and layout: the kernel against its plain version
+    # bit for bit, timed beside its bound.
+    max_err = {"k1": 0.0, "k3": 0.0, "k4": 0.0}
+    t0 = time.perf_counter()
+    kernels = zoo_kernel_times(dev, "[guard]", {"serve": guarded["calls"]},
+                               max_err, plain_iters=0)["serve"]
+    for rows in kernels.values():
+        rows["launches_in_serve"] = rows.pop("launches_per_step")
+    log(f"[guard] the guarded serve == the unguarded serve bit for bit, "
+        f"with the same EmuGEMM-I calls; {g['calls']} calls == verified == "
+        f"{n} x {per_step} on {n} x {dense} K1 and {n} x {batched} K4 "
+        f"launches, no trip; telemetry calls == K1 + K4 launches; one "
+        f"record a step; its {len(guarded['calls'])} call signatures bit "
+        f"for bit against the plain version ({max_err}, "
+        f"{time.perf_counter() - t0:.1f} s): " + json.dumps(kernels))
+    drop = ("tokens", "calls")
+    return {"guarded": {k: v for k, v in guarded.items() if k not in drop},
+            "unguarded": {k: v for k, v in plain.items() if k not in drop},
+            "calls_per_step": per_step, "kernels": kernels,
+            "max_abs_err": max_err}
+
+
+def guard_ladder_phase(dev, mcfg):
+    """(b) The ladder on the card at olmo-1b's dense shapes: NaN/Inf lanes
+    through the real K1, a guarded call against a prepared weight (K3),
+    injected faults under '+xla' tripping and recovering in one rung bit
+    for bit, an exhausted strict ladder raising, and '+guard' falling back
+    to the native dot with one warning."""
+    import warnings
+    from repro_torch import guard
+    gen = torch.Generator(device=dev).manual_seed(30)
+    bf = GUARD_DTYPE
+    report = {"nan_inf": []}
+    for _, k, n in dense_shapes(mcfg):
+        a = eq19(gen, (GUARD_ROWS, k), torch.float32, dev).to(bf)
+        b = eq19(gen, (k, n), torch.float32, dev).to(bf)
+        a[3, 5], a[17, 0], b[2, 7] = math.nan, math.inf, -math.inf
+        native = torch.matmul(a.float(), b.float())
+        reset_counts()
+        guard.stats_clear()
+        out = dispatch.emulated_matmul(a, b, cfg=GUARD_SPEC)
+        launched = s1_counts().launches_2d
+        ref = dispatch.emulated_matmul(
+            guard.sentinel.sanitize(a), guard.sentinel.sanitize(b), cfg=SPEC)
+        torch.cuda.synchronize()
+        nan = torch.isnan(out)
+        clean = ~nan
+        s = guard.stats()
+        if not (torch.equal(nan, ~torch.isfinite(native))
+                and int(nan.sum()) == 2 * n + GUARD_ROWS - 2
+                and torch.equal(out[clean], ref[clean]) and launched == 1
+                and (s.calls, s.verified, s.trips, s.masked) == (1, 1, 0, 1)):
+            raise AssertionError(f"NaN/Inf masking through K1 at "
+                                 f"({GUARD_ROWS}, {k}) @ ({k}, {n}): {s}")
+        report["nan_inf"].append([GUARD_ROWS, k, n])
+    log(f"[guard] NaN/Inf rows and columns through K1 at olmo-1b's dense "
+        f"shapes: NaN exactly where torch.matmul is non-finite, every other "
+        f"entry K1's bits on the sanitized operands ({report['nan_inf']})")
+
+    # A guarded call against a prepared weight: one K3 launch, verified
+    # against reconstruct().
+    _, k, n = dense_shapes(mcfg)[0]
+    a = eq19(gen, (GUARD_ROWS, k), torch.float32, dev).to(bf)
+    w = eq19(gen, (k, n), torch.float32, dev).to(bf)
+    prep = prepared.prepare_rhs(w, api.precision(SPEC))
+    reset_counts()
+    guard.stats_clear()
+    out = dispatch.emulated_matmul(a, prep, cfg=GUARD_SPEC)
+    mixed = s1_counts().launches_mixed
+    s = guard.stats()
+    if not (torch.equal(out, dispatch.emulated_matmul(a, prep, cfg=SPEC))
+            and mixed == 1 and (s.calls, s.verified, s.trips) == (1, 1, 0)):
+        raise AssertionError(f"the guarded prepared call: {s}, K3 {mixed}")
+    report["prepared"] = {"launches_mixed": mixed, "guard":
+                          dataclasses.asdict(s)}
+    log(f"[guard] a guarded call against a prepared weight: one K3 launch, "
+        f"verified against reconstruct(), the unguarded bits ({s})")
+
+    # Injected faults on the reference route ('+xla': the plain version on
+    # the card, where the hooks are), integer operands: every config is
+    # exact, so recovery is bit-identity with the clean result. At
+    # olmo-1b's (64, 2048) @ (2048, 2048) a Scheme-II fault (a wrong
+    # residue makes the CRT return garbage) trips. A Scheme-I fault moves
+    # A's entries by at most their own size, and the verifier's bound
+    # (the reference's: the residual normalised by sums over all of B,
+    # against 16 (K + N) eps) does not see it at K + N = 4096: with
+    # entries in [-8, 8] and beta = 7 the top slice plane holds all of A,
+    # so zeroing it makes C = 0, and the bound passes an all-zero product
+    # there (read below). Those cases are pinned to their verdict, no
+    # trip and the faulty product returned; the Scheme-I recovery runs at
+    # guard.smoke's (64, 96) @ (96, 48), where the faults trip. None of
+    # these cases launches a kernel.
+    verdicts = []
+    real_verify = guard.verify.verify_gemm
+
+    def spy(*args, **kw):
+        res = real_verify(*args, **kw)
+        verdicts.append((float(res.err), res.tol))
+        return res
+    rng = np.random.default_rng(30)
+    report["inject"] = {}
+    s1_trips = 0 if k + n >= 4096 else 1    # olmo-1b's: K + N = 4096
+    guard.verify.verify_gemm = spy
+    try:
+        for shape, scheme, plane, kind, trips in (
+                ((GUARD_ROWS, k, n), "ozaki1-p4", 0, "zero_modulus",
+                 s1_trips),
+                ((GUARD_ROWS, k, n), "ozaki2-m6", 1, "zero_modulus", 1),
+                ((GUARD_ROWS, k, n), "ozaki2-m6", 1, "bitflip_slice", 1),
+                ((GUARD_ROWS, k, n), "ozaki1-p4", 0, "bitflip_slice",
+                 s1_trips),
+                ((64, 96, 48), "ozaki1-p4", 0, "bitflip_slice", 1),
+                ((64, 96, 48), "ozaki1-p4", 0, "zero_modulus", 1)):
+            m_, k_, n_ = shape
+            t_case = time.perf_counter()
+            ai = torch.as_tensor(rng.integers(-8, 9, (m_, k_)),
+                                 dtype=torch.float32, device=dev)
+            bi = torch.as_tensor(rng.integers(-8, 9, (k_, n_)),
+                                 dtype=torch.float32, device=dev)
+            spec = scheme + "+xla+guard"
+            clean = dispatch.emulated_matmul(ai, bi, cfg=scheme,
+                                             backend="torch")
+            guard.stats_clear()
+            verdicts.clear()
+            reset_counts()
+            with guard.inject(kind, count=1, plane=plane) as fault:
+                out = dispatch.emulated_matmul(ai, bi, cfg=spec)
+            s = guard.stats()
+            if not (fault.fired == 1 and (s.trips, s.escalations,
+                                          s.recoveries, s.native_fallbacks)
+                    == (trips, trips, trips, 0)
+                    and torch.equal(out, clean) == bool(trips)
+                    and not kernel_launches(ozaki1.COUNTS, ozaki2.COUNTS)):
+                raise AssertionError(f"inject {kind} under {spec} at "
+                                     f"{shape}: {s}, fired {fault.fired}, "
+                                     f"(err, tol) {verdicts}")
+            key = f"{scheme} {kind} {m_}x{k_}x{n_}"
+            report["inject"][key] = {"guard": dataclasses.asdict(s),
+                                     "err_tol": list(verdicts)}
+            log(f"[guard] inject {kind} under {spec} at ({m_}, {k_}) @ "
+                f"({k_}, {n_}): {'tripped, recovered in one rung' if trips
+                                 else 'below the bound: no trip, the '
+                                 'faulty product returned'}; (err, "
+                f"tol) of each verification {verdicts} "
+                f"({time.perf_counter() - t_case:.1f} s)")
+    finally:
+        guard.verify.verify_gemm = real_verify
+    # The verifier's verdict on an all-zero product at each dense shape,
+    # on the integer operands above and on Eq. 19 operands.
+    report["zero_product"] = {}
+    for _, k_, n_ in dense_shapes(mcfg):
+        for what, x, y in (
+                ("integers", *(torch.as_tensor(rng.integers(-8, 9, sh)).to(
+                    device=dev, dtype=torch.float32)
+                    for sh in ((GUARD_ROWS, k_), (k_, n_)))),
+                ("eq19", eq19(gen, (GUARD_ROWS, k_), torch.float32, dev),
+                 eq19(gen, (k_, n_), torch.float32, dev))):
+            v = guard.verify.verify_gemm(
+                x, y, torch.zeros(GUARD_ROWS, n_, device=dev), SPEC)
+            report["zero_product"][f"{what} {GUARD_ROWS}x{k_}x{n_}"] = {
+                "passes": bool(v.ok), "err": float(v.err), "tol": v.tol}
+    log("[guard] the verifier's verdict on an all-zero product: "
+        + json.dumps(report["zero_product"]))
+    ai = torch.as_tensor(rng.integers(-8, 9, (GUARD_ROWS, k)),
+                         dtype=torch.float32, device=dev)
+    bi = torch.as_tensor(rng.integers(-8, 9, (k, n)), dtype=torch.float32,
+                         device=dev)
+
+    # An exhausted ladder: strict raises, 'on' falls back to native with
+    # one warning.
+    guard.stats_clear()
+    try:
+        with guard.inject("zero_modulus", count=99, plane=1):
+            dispatch.emulated_matmul(ai, bi, cfg="ozaki2-m6+xla+guard:strict")
+    except guard.EmulationAccuracyError:
+        pass
+    else:
+        raise AssertionError("an exhausted strict ladder did not raise")
+    strict = guard.stats()
+    dispatch.fallback_warnings_clear()
+    guard.stats_clear()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        with guard.inject("zero_modulus", count=99, plane=1):
+            outs = [dispatch.emulated_matmul(ai, bi, cfg="ozaki2-m6+xla+guard")
+                    for _ in range(2)]
+    native = [x for x in rec if "native" in str(x.message)]
+    s = guard.stats()
+    if not (strict.trips == 1 and strict.recoveries == 0
+            and len(native) == 1 and s.native_fallbacks == 2
+            and all(torch.equal(o, torch.matmul(ai, bi)) for o in outs)):
+        raise AssertionError(f"exhausted ladders: strict {strict}, 'on' {s}, "
+                             f"{len(native)} warnings")
+    report["strict"] = dataclasses.asdict(strict)
+    report["native_fallback"] = dataclasses.asdict(s)
+    log(f"[guard] an exhausted ladder: +guard:strict raised "
+        f"EmulationAccuracyError ({strict}); +guard fell back to the native "
+        f"dot twice with one warning ({s})")
+    return report
+
+
+def guard_train_phase(dev, arch):
+    """(c) The Trainer on full-width olmo-1b under GUARD_TRAIN_SPEC beside
+    the unguarded run: the same losses bit for bit, no trip, one JSONL
+    record a step."""
+    from repro_torch import telemetry
+    steps, batch, seq = GUARD_TRAIN
+    shape = ShapeSpec("chip", seq, batch, "train")
+    runs = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_guard_") as tmp:
+            for spec in (SPEC, GUARD_TRAIN_SPEC):
+                sink = os.path.join(tmp, f"{spec}.jsonl")
+                tr = Trainer(
+                    step_fn=S.make_train_step(arch, policy=GemmPolicy(
+                        default=api.precision(spec))),
+                    init_state_fn=lambda: S.init_state(arch, 0, dev),
+                    batch_iterator=make_batch_iterator(arch, shape, seed=0),
+                    ckpt_dir=os.path.join(tmp, spec), device=dev,
+                    ckpt_every=10 ** 6, metrics_jsonl=sink,
+                    tokens_per_step=batch * seq)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    log_ = tr.run(steps)
+                finally:
+                    tr.close()
+                with open(sink, encoding="utf-8") as fh:
+                    records = [json.loads(x) for x in fh]
+                runs[spec] = {
+                    "losses": [r["loss"] for r in log_],
+                    "seconds": time.perf_counter() - t0,
+                    "step_s": [r["seconds"] for r in log_],
+                    "trips": [r["guard_trips"] for r in log_],
+                    "guard_calls": [r["guard"].get("calls", 0)
+                                    for r in records],
+                    "records": len(records), "trip_steps":
+                    tr.guard_monitor.trip_steps}
+                del tr
+    finally:
+        torch.use_deterministic_algorithms(False)
+        telemetry.disable()
+    g, p = runs[GUARD_TRAIN_SPEC], runs[SPEC]
+    log(f"[guard] train olmo-1b {steps} steps of {batch} x {seq} tokens: "
+        f"{GUARD_TRAIN_SPEC} losses {g['losses']} ({g['step_s']} s a step, "
+        f"guard calls {g['guard_calls']} a step, trips {g['trips']}); "
+        f"{SPEC} losses {p['losses']} ({p['step_s']} s a step)")
+    if g["losses"] != p["losses"] or any(g["trips"]) or g["trip_steps"] \
+            or not all(np.isfinite(g["losses"])):
+        raise AssertionError("the guarded Trainer's losses differ from the "
+                             "unguarded run's, or a step tripped")
+    if g["records"] != steps or p["records"] != steps or \
+            not all(c > 0 for c in g["guard_calls"]):
+        raise AssertionError("not one JSONL record a step, or a step "
+                             "without guarded calls")
+    log("[guard] the guarded Trainer's losses == the unguarded run's bit "
+        "for bit; GuardMonitor: no trip; one record a step")
+    return runs
+
+
+def guard_phase(dev):
+    """Phase 30: (a), (b) and (c) above."""
+    t_phase = time.perf_counter()
+    arch = configs.get_config("olmo-1b")
+    params = M.init_params(arch.model, 0, dev)
+    report = {"serve": guard_serve_phase(dev, arch, params)}
+    del params
+    walls = {"serve": time.perf_counter() - t_phase}
+    report["ladder"] = guard_ladder_phase(dev, arch.model)
+    walls["ladder"] = time.perf_counter() - t_phase - sum(walls.values())
+    report["train"] = guard_train_phase(dev, arch)
+    walls["train"] = time.perf_counter() - t_phase - sum(walls.values())
+    torch.cuda.empty_cache()
+    report["walls_s"] = walls
+    report["seconds"] = time.perf_counter() - t_phase
+    log("[guard] summary " + json.dumps(report))
+    return report
 
 
 def main() -> int:
@@ -6643,14 +7128,27 @@ def main() -> int:
                          capture_output=True, text=True, check=True)
     card = smi.stdout.strip()
     log(card)
-    build_phase()
+    builds = start_builds()
     view_tokens = PAGE * math.ceil((PROMPT + GEN - 1 + CHUNK) / PAGE)
-    # Phases 27, 29, 28, 26 and 20-23 first: their walls come before any
-    # profiler session, and phase 27's 64 layers of qwen1.5-32b and phase
-    # 29's 24.9 B parameters while nothing else is resident on the card.
-    qwen = qwen_phase(dev, view_tokens)
+    # Phases 29, 30, 28, 27, 26 and 20-23 first: their walls come before
+    # any profiler session. Phases 29, 30 and 28 need EmuGEMM-I alone, so
+    # they run while emugemm2_planes.cu, the longest nvcc, compiles (on
+    # the same cores as their host-bound steps); each
+    # frees what it drew, so phase 27's 64 layers of qwen1.5-32b and
+    # phase 29's 24.9 B parameters each have the card to themselves.
+    wait_builds(builds, ("emugemm1_batched", "emugemm1_planes", "decompose",
+                         "flash_attn"))
     dsv3 = dsv3_phase(dev, view_tokens)
+    guard_report = guard_phase(dev)
     zoo = zoo_phase(dev)
+    wait_builds(builds, ("emugemm2_planes",))
+    builds[0].shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[qwen1.5-32b] the card before the phase: "
+        f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved(dev) / 2 ** 30:.2f} GiB reserved")
+    qwen = qwen_phase(dev, view_tokens)
     moe_walls = moe_phase(dev, view_tokens)
     gparams, gprepped, new_paths = new_path_phases(dev, view_tokens)
     yardsticks = yardstick_phase(dev)
@@ -7179,6 +7677,40 @@ def main() -> int:
                            "kernel, plain_ms the checking call by CUDA "
                            "events; library: torch.matmul / torch.bmm in "
                            f"bf16 on the same operands; {ds_per}"}
+    # Phase 30: the guard's calls on K1, K4 and K3; K10's repaired cases.
+    gs = guard_report["serve"]
+    for row in kernels:
+        kid = {"emugemm1_2d": ("k1", "2d", "every dense call (q, k, v, o, "
+                               "gate, up, down, the tied head), each on "
+                               "the eager ladder; plus one NaN/Inf call a "
+                               "dense shape in the ladder checks"),
+               "emugemm1_batched": ("k4", "batched", "attn_qk / attn_av, "
+                                    "one launch a layer each, each (lane, "
+                                    "head) element verified")}.get(
+            row["name"])
+        if kid is not None:
+            row["guard_phase"] = {
+                **gs["kernels"].get(kid[0], {}),
+                "max_abs_err": gs["max_abs_err"][kid[0]],
+                "launches": gs["guarded"]["launches"][kid[1]],
+                "launches_unguarded": gs["unguarded"]["launches"][kid[1]],
+                "steps": gs["guarded"]["steps"],
+                "per": f"olmo-1b's serve of phase 3's first {GUARD_REQUESTS} "
+                       f"requests under {GUARD_SPEC}: {kid[2]}; the "
+                       "unguarded serve makes the same calls; ms, "
+                       "plain_ms, bound_ms and library_ms summed over the "
+                       "serve's calls, each signature on Eq. 19 operands "
+                       "of its shape, type and layout, held bit for bit"}
+        elif row["name"] == "emugemm1_mixed":
+            row["guard_phase"] = {
+                "launches": guard_report["ladder"]["prepared"][
+                    "launches_mixed"],
+                "per": "one guarded call against a prepared olmo-1b weight, "
+                       "verified against reconstruct()"}
+        elif row["name"] == "flash_attention":
+            row["repaired_cases"] = [
+                c for c in row["cases"] if c["dtype"] == "float16"
+                or c["shape"][5] not in flash_attn.HEAD_DIMS]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

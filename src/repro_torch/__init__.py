@@ -12,10 +12,12 @@ The public surface:
   repro_torch.emulated_dot(a, b, cfg)         (..., K) @ (K, N), differentiable
   repro_torch.plan_precision(bits, k)         Fig.-7 scheme/slice planner
   repro_torch.GemmPolicy / prepare_rhs        model policies / prepared weights
+  repro_torch.guard / "+guard" spec suffix    numerical guardrails
+  repro_torch.verify_gemm(a, b, c, cfg)       a posteriori residual check
+  repro_torch.telemetry                       metrics registry and sinks
 
 It imports torch and never jax, nor anything of ``repro``. Module paths
-mirror the reference's. The reference's ``guard``, ``verify_gemm`` and
-``telemetry`` are not ported yet (ROADMAP.md § 1 items 5-6).
+mirror the reference's.
 """
 
 from repro_torch.api import (
@@ -54,7 +56,12 @@ __all__ = [
     "GemmPolicy",
     "prepare_rhs",
     "PreparedOperand",
+    # numerical guardrails
+    "guard",
     "EmulationAccuracyError",
+    "verify_gemm",
+    # observability
+    "telemetry",
 ]
 
 # The kernel stack resolves lazily, so `import repro_torch` stays cheap and
@@ -67,8 +74,11 @@ _LAZY = {
     "GemmPolicy": ("repro_torch.models.common", "GemmPolicy"),
     "prepare_rhs": ("repro_torch.kernels.prepared", "prepare_rhs"),
     "PreparedOperand": ("repro_torch.kernels.prepared", "PreparedOperand"),
+    "guard": ("repro_torch.guard", None),  # the subpackage itself
     "EmulationAccuracyError": ("repro_torch.core.precision",
                                "EmulationAccuracyError"),
+    "verify_gemm": ("repro_torch.guard.verify", "verify_gemm"),
+    "telemetry": ("repro_torch.telemetry", None),  # the subpackage itself
 }
 
 
@@ -79,7 +89,8 @@ def __getattr__(name):
         raise AttributeError(f"module 'repro_torch' has no attribute "
                              f"{name!r}") from None
     import importlib
-    value = getattr(importlib.import_module(module), attr)
+    mod = importlib.import_module(module)
+    value = mod if attr is None else getattr(mod, attr)
     globals()[name] = value     # cache for later lookups
     return value
 

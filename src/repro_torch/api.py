@@ -145,6 +145,14 @@ def _dot_general_prepared(a, b, dimension_numbers, cfg, out_dtype):
         out_dtype = getattr(torch, cfg.out_dtype)
     if out_dtype is None:
         out_dtype = torch.promote_types(a.dtype, torch.float32)
+    if cfg.guard is not None:
+        # Guarded prepared consumption goes through the dispatcher's guard
+        # seam (verification reconstructs the dense weight).
+        from repro_torch.kernels import dispatch
+        lead = a.shape[:-1]
+        out = dispatch.emulated_matmul(a.reshape(-1, a.shape[-1]), b,
+                                       cfg=cfg, out_dtype=out_dtype)
+        return out.reshape(*lead, b.n)
     return prepared_dot(a, b, out_dtype=out_dtype)
 
 

@@ -25,6 +25,13 @@ no operand requiring grad) runs the plain forward, which prepares
 nothing: ``+cached`` only changes how a differentiated step runs, never
 its bits.
 
+A ``+guard`` config routes every 2-D product (``_dot_2d``: the forward
+and both backward GEMMs) through the guard's ladder
+(``repro_torch.guard``), and is never cached: the ladder may re-plan the
+slice count, which a weight prepared up front would pin. The backward
+re-enters the telemetry call site its forward ran under
+(``telemetry.site_scope``), as the reference's rules carry it.
+
 Complex gradients. The reference's VJP transposes without conjugating:
 given the cotangent g it returns g B^T and A^T g, JAX's convention for a
 holomorphic product. PyTorch's complex autograd passes and expects the
@@ -43,6 +50,7 @@ import dataclasses
 import torch
 
 from repro_torch.core.precision import NATIVE, EmulationConfig
+from repro_torch.telemetry import record as _tele
 
 
 def _out_dtype(cfg: EmulationConfig, a, b) -> torch.dtype:
@@ -64,14 +72,22 @@ def prepared_dot(x: torch.Tensor, w, out_dtype=None) -> torch.Tensor:
 
 def _cacheable(a, b, cfg: EmulationConfig) -> bool:
     # Scheme I caches int8 slices, Scheme II balanced residues; complex
-    # problems run the 4M / 3M expansions, never a prepared operand.
+    # problems run the 4M / 3M expansions, never a prepared operand. A
+    # guarded call is never cached (module doc).
     return (cfg.scheme in ("ozaki1", "ozaki2") and cfg.cache_weights
-            and b.dim() == 2 and not a.is_complex() and not b.is_complex())
+            and cfg.guard is None and b.dim() == 2 and not a.is_complex()
+            and not b.is_complex())
 
 
 def _dot_2d(a: torch.Tensor, b: torch.Tensor,
             cfg: EmulationConfig) -> torch.Tensor:
     """Dispatch a single (M, K) @ (K, N) according to cfg."""
+    if (cfg.guard is not None and cfg.scheme != "native"
+            and not a.is_complex() and not b.is_complex()):
+        # The guard seam of the front doors and both backward GEMMs: the
+        # ladder re-enters _dot_2d with the guard stripped for every rung.
+        from repro_torch.guard import ladder
+        return ladder.guarded_dot_2d(a, b, cfg)
     if cfg.scheme == "native":
         out_dtype = _out_dtype(cfg, a, b)
         return torch.matmul(a.to(out_dtype), b.to(out_dtype))
@@ -120,9 +136,14 @@ def _bwd_core(ctx, g):
     """Shared backward (the reference's ``_bwd_core``): dA = dC B^T from
     the twin when one was saved, else through the emulated GEMM; dB =
     A^T dC; of a complex problem, conj(g) in and the results conjugated
-    (module doc)."""
-    from repro_torch.kernels import prepared
+    (module doc), under the forward's telemetry call site."""
     a, b, *twin_tensors = ctx.saved_tensors
+    with _tele.site_scope(ctx.site):
+        return _bwd_grads(ctx, a, b, twin_tensors, g)
+
+
+def _bwd_grads(ctx, a, b, twin_tensors, g):
+    from repro_torch.kernels import prepared
     if g.is_complex():
         g = torch.conj_physical(g)
     cfg = _bwd_cfg(ctx.cfg)
@@ -147,7 +168,7 @@ class _EmulatedDot(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a, b, cfg):
-        ctx.cfg = cfg
+        ctx.cfg, ctx.site = cfg, _tele.current_site()
         if not _cacheable(a, b, cfg):
             ctx.twin = None
             ctx.save_for_backward(a, b)
@@ -171,7 +192,7 @@ class _EmulatedDotPrepared(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a, b, prep, cfg):
-        ctx.cfg = cfg
+        ctx.cfg, ctx.site = cfg, _tele.current_site()
         out = prepared_dot(a, prep, _out_dtype(cfg, a, b))
         _save_with_twin(ctx, a, b, prep.twin)
         return out
@@ -224,7 +245,7 @@ class _EmulatedDotBatched(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a, b, cfg):
-        ctx.cfg = cfg
+        ctx.cfg, ctx.site = cfg, _tele.current_site()
         ctx.save_for_backward(a, b)
         return _batched(a, b, cfg)
 
@@ -235,10 +256,11 @@ class _EmulatedDotBatched(torch.autograd.Function):
         if g.is_complex():
             g = torch.conj_physical(g)
         da = db = None
-        if ctx.needs_input_grad[0]:
-            da = _as_grad(_batched(g, b.transpose(-1, -2), cfg), a)
-        if ctx.needs_input_grad[1]:
-            db = _as_grad(_batched(a.transpose(-1, -2), g, cfg), b)
+        with _tele.site_scope(ctx.site):
+            if ctx.needs_input_grad[0]:
+                da = _as_grad(_batched(g, b.transpose(-1, -2), cfg), a)
+            if ctx.needs_input_grad[1]:
+                db = _as_grad(_batched(a.transpose(-1, -2), g, cfg), b)
         return da, db, None
 
 

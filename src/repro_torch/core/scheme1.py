@@ -92,7 +92,17 @@ def split(a: torch.Tensor, p: int, beta: int, axis: int):
     ``axis``."""
     a = widen(a)
     scale = pow2_scale(a, axis)
-    return torch.stack(carve(a / scale, p, beta)), scale
+    return carve_stack(a / scale, p, beta), scale
+
+
+def carve_stack(r: torch.Tensor, p: int, beta: int) -> torch.Tensor:
+    """:func:`carve`'s slices as one (p, *r.shape) stack, handed to the
+    guard's fault-injection hook (``guard.inject``), which corrupts it
+    while a fault is armed: the decomposition of :func:`split` and of the
+    plain versions of the EmuGEMM-I kernels. The kernels carve inside a
+    launch and are never injected."""
+    from repro_torch.guard.inject import maybe_corrupt_slices
+    return maybe_corrupt_slices(torch.stack(carve(r, p, beta)))
 
 
 def interleave_k(slices: torch.Tensor, operand: str, t_k: int) -> torch.Tensor:

@@ -21,8 +21,8 @@ float64 double-double and any other in float32. That is the reference's
 arithmetic without x64 for float32 and bfloat16, and with x64 for
 float64 (DGEMM-grade Scheme II). ``matmul`` is the plain version of the
 fused EmuGEMM-II kernel (``repro_torch.kernels.ozaki2``) and what the
-'torch' backend runs. The reference's guard hook in
-``balanced_residues`` is not ported (ROADMAP.md § 1 item 5).
+'torch' backend runs. ``balanced_residues`` hands its stack to the
+guard's fault-injection hook (``guard.inject``), as in the reference.
 """
 
 from __future__ import annotations
@@ -110,7 +110,8 @@ def balanced_residues(a_int: torch.Tensor, moduli) -> torch.Tensor:
         half = int(m) // 2
         outs.append((torch.remainder(ai + half, int(m)) - half)
                     .to(torch.int8))
-    return torch.stack(outs)
+    from repro_torch.guard.inject import maybe_corrupt_residues
+    return maybe_corrupt_residues(torch.stack(outs))
 
 
 def check_exact_k(k_dim: int, moduli) -> None:

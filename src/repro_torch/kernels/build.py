@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LOCK = threading.Lock()
 _LOADED: dict[str, ctypes.CDLL] = {}
+_BUILDING: dict[str, threading.Lock] = {}
 
 
 def nvcc_path() -> str:
@@ -52,7 +53,15 @@ def library_path(name: str) -> Path:
 
 
 def build(name: str, verbose: bool = False) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built."""
+    """Compile ``csrc/<name>.cu`` unless its library is already built; a
+    second caller of the same name waits for the first's compile."""
+    with _LOCK:
+        lock = _BUILDING.setdefault(name, threading.Lock())
+    with lock:
+        return _build(name, verbose)
+
+
+def _build(name: str, verbose: bool) -> Path:
     out = library_path(name)
     if out.exists():
         return out
@@ -74,6 +83,9 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     with _LOCK:
         lib = _LOADED.get(name)
-        if lib is None:
-            lib = _LOADED[name] = ctypes.CDLL(str(build(name)))
-        return lib
+    if lib is None:
+        path = build(name)
+        with _LOCK:
+            lib = _LOADED.get(name) or ctypes.CDLL(str(path))
+            _LOADED[name] = lib
+    return lib

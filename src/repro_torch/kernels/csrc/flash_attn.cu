@@ -1,6 +1,15 @@
 // Fused flash attention for Hopper (sm_90a): softmax(q k^T * scale, masked)
-// v for q (B, H, Sq, D) against k and v (B, KVH, Sk, D), float32 or bf16,
-// with grouped-query heads and causal and/or sliding-window masks.
+// v for q (B, H, Sq, D) against k and v (B, KVH, Sk, D), float32, bf16 or
+// float16, with grouped-query heads and causal and/or sliding-window masks.
+//
+// Head dims: any D <= 256 that is a multiple of 8 runs on the instance
+// compiled for the next of 32, 64, 128 and 256 (Di). Only the true D
+// reaches device memory: the tensor maps' inner extent is D and their
+// boxes Di wide, so TMA fills the columns past D with zeros in shared
+// memory (a zero column adds nothing to Q K^T, and P V's columns past D
+// are never stored); the FFMA kernel and the 3xTF32 pre-pass zero them by
+// hand. Rows of q, k, v and o are D elements apart (D a multiple of 8
+// keeps them 16-byte aligned, as TMA wants).
 //
 // Replaces the Pallas kernel of the JAX package
 //   src/repro/kernels/flash_attn.py  flash_attention (_kernel)
@@ -11,7 +20,8 @@
 // and v are read in place for every q head of their group, never repeated
 // in memory.
 //
-// bf16 (head dims 32, 64, 128, 256): one block per (b, h, 128-query
+// bf16 and float16 (instances 32, 64, 128, 256): one kernel, the .bf16 or
+// the .f16 form of the same wgmma shapes; one block per (b, h, 128-query
 // tile), three warpgroups.
 //   * A producer warpgroup, its registers cut with setmaxnreg, in which
 //     one thread loads the q tile once and streams the k and v tiles of
@@ -22,9 +32,10 @@
 //     rows of 64 (D = 32: 32) elements swizzled by TMA; rows past Sq or Sk
 //     arrive as zeros, and the row coordinate names the kv head.
 //   * Two consumer warpgroups of 64 query rows each, their registers raised
-//     with setmaxnreg: S = Q K^T on wgmma m64n{BK}k16 bf16 -> float32 with
-//     both operands in shared memory; the online softmax in registers; P
-//     rounded to bf16 in registers is wgmma's A operand for O += P V, and V
+//     with setmaxnreg: S = Q K^T on wgmma m64n{BK}k16 bf16 (f16) -> float32
+//     with both operands in shared memory; the online softmax in registers;
+//     P rounded to v's type in registers is wgmma's A operand for O += P V,
+//     and V
 //     is read in place as an MN-major B (16-bit types allow it), so
 //     nothing is transposed by hand.
 //   * BK = 128 keys a tile (64 at D = 256, where O alone is 128 floats a
@@ -34,7 +45,7 @@
 //     tile's softmax with the previous tile's P V (PERF.md).
 //   * Blocks run heaviest q tile first: under a causal mask the last q
 //     tiles see the most keys, so the tail of the grid is short.
-// float32 (head dims 32, 64, 128): 3xTF32 on wgmma, the bf16 kernel's
+// float32 (instances 32, 64, 128): 3xTF32 on wgmma, the bf16 kernel's
 // structure. One TF32 product keeps 11 significant bits, far from the 2e-5
 // bar; three keep about 22. Every operand x is split as x = hi + lo, hi =
 // x with its 13 low mantissa bits cleared (a tf32 value, so that the
@@ -62,7 +73,7 @@
 //     empty barriers of their own, so the next k tile loads while the
 //     current one's softmax and P V run. D = 256 does not fit (its q parts
 //     alone take 256 KB) and stays on the FFMA kernel below.
-// float32 at D = 256: one block per (b, h, 64-query tile) of four warps of
+// float32 at the instance 256: one block per (b, h, 64-query tile) of four warps of
 // 16 rows, k and v tiles loaded by the threads themselves, each thread
 // owning rows g and g + 8 of its warp and columns 2t, 2t + 1 of every
 // 8-wide tile, computed with FFMA in true float32 from shared memory.
@@ -75,7 +86,7 @@
 //   * masks are top-left aligned: rel = q_pos - k_pos, both from 0; causal
 //     keeps rel >= 0, a window keeps rel < window;
 //   * the scale multiplies the float32 score; the output divides by
-//     max(l, 1e-30); P is rounded (bf16) or split (3xTF32) for the PV
+//     max(l, 1e-30); P is rounded (bf16, float16) or split (3xTF32) for the PV
 //     product while l sums the unrounded probabilities, as the reference's
 //     p.astype(v);
 //   * expf, not __expf, and no --use_fast_math.
@@ -91,6 +102,7 @@
 // softmax (PERF.md).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -152,15 +164,17 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float c) {
   return fmaf(a.w, b.w, c);
 }
 
-// Copy rows [r0, r0 + rows) of a (S, D) matrix into shared memory with row
-// stride ld, zeros past S; 16 bytes a thread at a time.
+// Copy rows [r0, r0 + rows) of a (S, Dt) matrix into shared memory as rows
+// of D with row stride ld, zeros past S and past Dt; 16 bytes a thread at a
+// time.
 template <int D>
 __device__ __forceinline__ void load_rows(float* dst, int ld, const float* __restrict__ src, int r0,
-                                          int rows, int S) {
+                                          int rows, int S, int Dt) {
   for (int c = threadIdx.x; c < rows * (D / 4); c += NT32) {
     const int r = c / (D / 4), d = (c % (D / 4)) * 4;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < S) v = *reinterpret_cast<const float4*>(src + static_cast<long long>(r0 + r) * D + d);
+    if (r0 + r < S && d < Dt)
+      v = *reinterpret_cast<const float4*>(src + static_cast<long long>(r0 + r) * Dt + d);
     *reinterpret_cast<float4*>(dst + r * ld + d) = v;
   }
 }
@@ -169,7 +183,7 @@ template <int D>
 __global__ void __launch_bounds__(NT32)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int H, int KVH, int Sq,
-                 int Sk, float scale, const Mask mask) {
+                 int Sk, int Dt, float scale, const Mask mask) {
   using L = Layout32<D>;
   constexpr int BK = L::BK;
   constexpr int NS = BK / 8;   // 8-wide score tiles of a row block
@@ -183,10 +197,10 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = blockIdx.x * BQ32;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (H / KVH);
-  const float* qb = q + static_cast<long long>(b * H + h) * Sq * D;
-  const float* kb = k + static_cast<long long>(b * KVH + kh) * Sk * D;
-  const float* vb = v + static_cast<long long>(b * KVH + kh) * Sk * D;
-  float* ob = o + static_cast<long long>(b * H + h) * Sq * D;
+  const float* qb = q + static_cast<long long>(b * H + h) * Sq * Dt;
+  const float* kb = k + static_cast<long long>(b * KVH + kh) * Sk * Dt;
+  const float* vb = v + static_cast<long long>(b * KVH + kh) * Sk * Dt;
+  float* ob = o + static_cast<long long>(b * H + h) * Sq * Dt;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
@@ -194,7 +208,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   int kt0, kt1;
   mask.tiles(q0, min(q0 + BQ32, Sq) - 1, BK, kt0, kt1);
 
-  load_rows<D>(sQ, L::LD, qb, q0, BQ32, Sq);
+  load_rows<D>(sQ, L::LD, qb, q0, BQ32, Sq, Dt);
 
   float acc[ND][4];
 #pragma unroll
@@ -203,8 +217,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int kt = kt0; kt < kt1; ++kt) {
     const int k0 = kt * BK;
-    load_rows<D>(sK, L::LD, kb, k0, BK, Sk);
-    load_rows<D>(sV, L::LD, vb, k0, BK, Sk);
+    load_rows<D>(sK, L::LD, kb, k0, BK, Sk, Dt);
+    load_rows<D>(sV, L::LD, vb, k0, BK, Sk, Dt);
     __syncthreads();
 
     // S = Q K^T for this warp's 16 rows.
@@ -307,18 +321,19 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
     const int col = 8 * n + 2 * t;
+    if (col >= Dt) continue;
     if (qr0 < Sq)
-      *reinterpret_cast<float2*>(ob + static_cast<long long>(qr0) * D + col) =
+      *reinterpret_cast<float2*>(ob + static_cast<long long>(qr0) * Dt + col) =
           make_float2(acc[n][0] / d0, acc[n][1] / d0);
     if (qr1 < Sq)
-      *reinterpret_cast<float2*>(ob + static_cast<long long>(qr1) * D + col) =
+      *reinterpret_cast<float2*>(ob + static_cast<long long>(qr1) * Dt + col) =
           make_float2(acc[n][2] / d1, acc[n][3] / d1);
   }
 }
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int KVH, int Sq,
-               int Sk, float scale, const Mask& mask, cudaStream_t st) {
+               int Sk, int Dt, float scale, const Mask& mask, cudaStream_t st) {
   using L = Layout32<D>;
   const cudaError_t e = cudaFuncSetAttribute(
       flash_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L::BYTES));
@@ -326,11 +341,11 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int 
   const dim3 grid((Sq + BQ32 - 1) / BQ32, H, B);
   flash_f32_kernel<D><<<grid, NT32, L::BYTES, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), H, KVH, Sq, Sk, scale, mask);
+      static_cast<float*>(o), H, KVH, Sq, Sk, Dt, scale, mask);
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- bf16: TMA, warp specialisation, wgmma -----------------------------------
+// ---- bf16 and float16: TMA, warp specialisation, wgmma -----------------------
 
 constexpr int BQ = 128;                   // query rows of a block: two consumer warpgroups
 constexpr int CONSUMERS = 256;
@@ -348,17 +363,44 @@ struct Tiles {
   static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + BARS * 8 + 1024;
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
+// The kernel's two 16-bit types: the wgmma form, the tensor maps' type, P
+// packed for the A fragment and a pair of outputs stored.
+template <typename T>
+struct Half16;
 
-template <int D>
+template <>
+struct Half16<__nv_bfloat16> {
+  static constexpr bool F16 = false;
+  static constexpr CUtensorMapDataType MAP = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  __device__ static uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+  __device__ static void store(__nv_bfloat16* at, float lo, float hi) {
+    *reinterpret_cast<__nv_bfloat162*>(at) = __floats2bfloat162_rn(lo, hi);
+  }
+};
+
+template <>
+struct Half16<__half> {
+  static constexpr bool F16 = true;
+  static constexpr CUtensorMapDataType MAP = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  __device__ static uint32_t pack(float lo, float hi) {
+    __half2 h = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+  __device__ static void store(__half* at, float lo, float hi) {
+    *reinterpret_cast<__half2*>(at) = __floats2half2_rn(lo, hi);
+  }
+};
+
+template <int D, typename T>
 __global__ void __launch_bounds__(NT, 1)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
-                  const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ o, int H,
-                  int KVH, int Sq, int Sk, float scale, const Mask mask) {
+                  const __grid_constant__ CUtensorMap map_v, T* __restrict__ o, int H, int KVH,
+                  int Sq, int Sk, int Dt, float scale, const Mask mask) {
   using L = Tiles<D>;
+  using E = Half16<T>;
   constexpr int BK = L::BK, STAGES = L::STAGES, SW = L::SW, SWE = L::SWE;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t pad = (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
@@ -441,7 +483,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_consta
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int c = kk * 16 / SWE, off = (kk * 16 % SWE) * 2;
-        wgmma_bf16_ss<BK>(s, smem_desc(q_wg + c * BQ * SW + off, 16, 8 * SW, SW),
+        wgmma_bf16_ss<BK, E::F16>(s, smem_desc(q_wg + c * BQ * SW + off, 16, 8 * SW, SW),
                           smem_desc(k_st + c * BK * SW + off, 16, 8 * SW, SW), kk > 0);
       }
       wgmma_commit();
@@ -516,11 +558,11 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_consta
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
-        const uint32_t a[4] = {pack_bf16(s[8 * kk], s[8 * kk + 1]),
-                               pack_bf16(s[8 * kk + 2], s[8 * kk + 3]),
-                               pack_bf16(s[8 * kk + 4], s[8 * kk + 5]),
-                               pack_bf16(s[8 * kk + 6], s[8 * kk + 7])};
-        wgmma_bf16_rs<D>(acc, a, smem_desc(v_st + kk * 16 * SW, BK * SW, 8 * SW, SW));
+        const uint32_t a[4] = {E::pack(s[8 * kk], s[8 * kk + 1]),
+                               E::pack(s[8 * kk + 2], s[8 * kk + 3]),
+                               E::pack(s[8 * kk + 4], s[8 * kk + 5]),
+                               E::pack(s[8 * kk + 6], s[8 * kk + 7])};
+        wgmma_bf16_rs<D, E::F16>(acc, a, smem_desc(v_st + kk * 16 * SW, BK * SW, 8 * SW, SW));
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -533,61 +575,70 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_consta
     }
 
     const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-    __nv_bfloat16* ob = o + static_cast<long long>(bh) * Sq * D;
+    T* ob = o + static_cast<long long>(bh) * Sq * Dt;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       const int col = 8 * n + 2 * t;
-      if (r0 < Sq)
-        *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<long long>(r0) * D + col) =
-            __floats2bfloat162_rn(acc[4 * n] / d0, acc[4 * n + 1] / d0);
-      if (r1 < Sq)
-        *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<long long>(r1) * D + col) =
-            __floats2bfloat162_rn(acc[4 * n + 2] / d1, acc[4 * n + 3] / d1);
+      if (col >= Dt) continue;                         // the instance's columns past D
+      if (r0 < Sq) E::store(ob + static_cast<long long>(r0) * Dt + col, acc[4 * n] / d0,
+                            acc[4 * n + 1] / d0);
+      if (r1 < Sq) E::store(ob + static_cast<long long>(r1) * Dt + col, acc[4 * n + 2] / d1,
+                            acc[4 * n + 3] / d1);
     }
   }
 }
 
-// (slices, rows, D) bf16 as a 3-D tensor map of (SWE, box_rows, 1) boxes in
-// the swizzle of SW bytes; rows past `rows` arrive as zeros.
-template <int D>
-int attn_map(CUtensorMap* map, const void* base, int slices, int rows, int box_rows) {
+// (slices, rows, Dt) of 16-bit T as a 3-D tensor map of (SWE, box_rows, 1)
+// boxes in the swizzle of SW bytes for the instance D; rows past `rows` and
+// columns past Dt arrive as zeros.
+template <int D, typename T>
+int attn_map(CUtensorMap* map, const void* base, int slices, int rows, int box_rows, int Dt) {
   using L = Tiles<D>;
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return -2;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows),
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(Dt), static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(slices)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(D) * 2 * static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(Dt) * 2,
+                                 static_cast<cuuint64_t>(Dt) * 2 * static_cast<cuuint64_t>(rows)};
   const cuuint32_t box[3] = {L::SWE, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+  const CUresult r = fn(map, Half16<T>::MAP, 3, const_cast<void*>(base), dims,
                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         L::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : -3;
 }
 
-template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int H, int KVH,
-                int Sq, int Sk, float scale, const Mask& mask, cudaStream_t st) {
+template <int D, typename T>
+int launch_16(const void* q, const void* k, const void* v, void* o, int B, int H, int KVH, int Sq,
+              int Sk, int Dt, float scale, const Mask& mask, cudaStream_t st) {
   using L = Tiles<D>;
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+        flash_bf16_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
   CUtensorMap mq, mk, mv;
-  int rc = attn_map<D>(&mq, q, B * H, Sq, BQ);
-  if (rc == 0) rc = attn_map<D>(&mk, k, B * KVH, Sk, L::BK);
-  if (rc == 0) rc = attn_map<D>(&mv, v, B * KVH, Sk, L::BK);
+  int rc = attn_map<D, T>(&mq, q, B * H, Sq, BQ, Dt);
+  if (rc == 0) rc = attn_map<D, T>(&mk, k, B * KVH, Sk, L::BK, Dt);
+  if (rc == 0) rc = attn_map<D, T>(&mv, v, B * KVH, Sk, L::BK, Dt);
   if (rc != 0) return rc;
   const long long blocks = static_cast<long long>((Sq + BQ - 1) / BQ) * B * H;
   if (blocks > 0x7fffffffll) return -1;
-  flash_bf16_kernel<D><<<static_cast<unsigned>(blocks), NT, L::SMEM, st>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), H, KVH, Sq, Sk, scale, mask);
+  flash_bf16_kernel<D, T><<<static_cast<unsigned>(blocks), NT, L::SMEM, st>>>(
+      mq, mk, mv, static_cast<T*>(o), H, KVH, Sq, Sk, Dt, scale, mask);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_16_any(const void* q, const void* k, const void* v, void* o, int B, int H, int KVH,
+                  int Sq, int Sk, int Dt, float scale, const Mask& mask, cudaStream_t st) {
+  if (Dt <= 32) return launch_16<32, T>(q, k, v, o, B, H, KVH, Sq, Sk, Dt, scale, mask, st);
+  if (Dt <= 64) return launch_16<64, T>(q, k, v, o, B, H, KVH, Sq, Sk, Dt, scale, mask, st);
+  if (Dt <= 128) return launch_16<128, T>(q, k, v, o, B, H, KVH, Sq, Sk, Dt, scale, mask, st);
+  return launch_16<256, T>(q, k, v, o, B, H, KVH, Sq, Sk, Dt, scale, mask, st);
 }
 
 // ---- float32: 3xTF32 on TMA, warp specialisation and wgmma -------------------
@@ -622,8 +673,8 @@ __global__ void __launch_bounds__(NT, 1)
 flash_tf32_kernel(const __grid_constant__ CUtensorMap map_qh, const __grid_constant__ CUtensorMap map_ql,
                   const __grid_constant__ CUtensorMap map_kh, const __grid_constant__ CUtensorMap map_kl,
                   const __grid_constant__ CUtensorMap map_vh, const __grid_constant__ CUtensorMap map_vl,
-                  float* __restrict__ o, int H, int KVH, int Sq, int Sk, float scale,
-                  const Mask mask) {
+                  float* __restrict__ o, int H, int KVH, int Sq, int Sk, int Dt,
+                  float scale, const Mask mask) {
   using L = Tiles32<D>;
   constexpr int BK = L::BK, STAGES = L::STAGES;
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -824,15 +875,16 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap map_qh, const __grid_const
     }
 
     const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-    float* ob = o + static_cast<long long>(bh) * Sq * D;
+    float* ob = o + static_cast<long long>(bh) * Sq * Dt;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       const int col = 8 * n + 2 * t;
+      if (col >= Dt) continue;                         // the instance's columns past D
       if (r0 < Sq)
-        *reinterpret_cast<float2*>(ob + static_cast<long long>(r0) * D + col) =
+        *reinterpret_cast<float2*>(ob + static_cast<long long>(r0) * Dt + col) =
             make_float2(acc[4 * n] / d0, acc[4 * n + 1] / d0);
       if (r1 < Sq)
-        *reinterpret_cast<float2*>(ob + static_cast<long long>(r1) * D + col) =
+        *reinterpret_cast<float2*>(ob + static_cast<long long>(r1) * Dt + col) =
             make_float2(acc[4 * n + 2] / d1, acc[4 * n + 3] / d1);
     }
   }
@@ -853,7 +905,8 @@ split_rows_kernel(const float4* __restrict__ x, float4* __restrict__ hi, float4*
 
 // The parts of v^T: a (32 keys, 32 dims) tile of slice blockIdx.z through
 // shared memory, written as (dims, keys) rows of Skp with the keys of each
-// group of 8 permuted (the module comment) and zeros past Sk.
+// group of 8 permuted (the module comment) and zeros past Sk; D rows, the
+// true head dim (a multiple of 8: the last tile's dims past D are skipped).
 __global__ void __launch_bounds__(256)
 split_vt_kernel(const float* __restrict__ v, float* __restrict__ vh, float* __restrict__ vl,
                 int Sk, int Skp, int D) {
@@ -864,7 +917,8 @@ split_vt_kernel(const float* __restrict__ v, float* __restrict__ vh, float* __re
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int key = k0 + ty + 8 * i;
-    tile[ty + 8 * i][tx] = key < Sk ? vz[static_cast<long long>(key) * D + d0 + tx] : 0.f;
+    tile[ty + 8 * i][tx] =
+        key < Sk && d0 + tx < D ? vz[static_cast<long long>(key) * D + d0 + tx] : 0.f;
   }
   __syncthreads();
   const int c = tx % 8;
@@ -872,6 +926,7 @@ split_vt_kernel(const float* __restrict__ v, float* __restrict__ vh, float* __re
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int d = d0 + ty + 8 * i;
+    if (d >= D) break;
     const float x = tile[src][ty + 8 * i];
     const long long at = (static_cast<long long>(z) * D + d) * Skp + k0 + tx;
     vh[at] = __uint_as_float(tf32_hi(x));
@@ -900,7 +955,7 @@ int f32_map(CUtensorMap* map, const void* base, int slices, int rows, int inner,
 
 template <int D>
 int launch_tf32(const void* const* parts, void* o, int B, int H, int KVH, int Sq, int Sk, int Skp,
-                float scale, const Mask& mask, cudaStream_t st) {
+                int Dt, float scale, const Mask& mask, cudaStream_t st) {
   using L = Tiles32<D>;
   static bool configured = false;
   if (!configured) {
@@ -911,14 +966,17 @@ int launch_tf32(const void* const* parts, void* o, int B, int H, int KVH, int Sq
   }
   CUtensorMap m[6];
   int rc = 0;
-  for (int i = 0; i < 2 && rc == 0; ++i) rc = f32_map(&m[i], parts[i], B * H, Sq, D, BQ);
-  for (int i = 2; i < 4 && rc == 0; ++i) rc = f32_map(&m[i], parts[i], B * KVH, Sk, D, L::BK);
-  for (int i = 4; i < 6 && rc == 0; ++i) rc = f32_map(&m[i], parts[i], B * KVH, D, Skp, D);
+  // The parts hold the true head dim Dt: q and k rows of Dt, v^T Dt rows;
+  // the instance's columns (rows of v^T) past Dt arrive as zeros.
+  for (int i = 0; i < 2 && rc == 0; ++i) rc = f32_map(&m[i], parts[i], B * H, Sq, Dt, BQ);
+  for (int i = 2; i < 4 && rc == 0; ++i) rc = f32_map(&m[i], parts[i], B * KVH, Sk, Dt, L::BK);
+  for (int i = 4; i < 6 && rc == 0; ++i) rc = f32_map(&m[i], parts[i], B * KVH, Dt, Skp, D);
   if (rc != 0) return rc;
   const long long blocks = static_cast<long long>((Sq + BQ - 1) / BQ) * B * H;
   if (blocks > 0x7fffffffll) return -1;
   flash_tf32_kernel<D><<<static_cast<unsigned>(blocks), NT, L::SMEM, st>>>(
-      m[0], m[1], m[2], m[3], m[4], m[5], static_cast<float*>(o), H, KVH, Sq, Sk, scale, mask);
+      m[0], m[1], m[2], m[3], m[4], m[5], static_cast<float*>(o), H, KVH, Sq, Sk, Dt, scale,
+      mask);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -927,24 +985,31 @@ int launch_tf32(const void* const* parts, void* o, int B, int H, int KVH, int Sq
 // Plain C entry points, bound with ctypes. Each returns 0 on success, a
 // cudaError_t code if a launch was refused, -1 for sizes or a head dim
 // that have no compiled instance, and -2 / -3 if libcuda's tensor-map
-// encoder is missing / refused the operands.
-//
+// encoder is missing / refused the operands. D is the true head dim: a
+// multiple of 8, at most 256 (instance_dim).
+
+namespace {
+
+bool head_dim_ok(int D) { return D >= 8 && D <= 256 && D % 8 == 0; }
+
+}  // namespace
+
 // flash_attention: contiguous q (B, H, Sq, D), k and v (B, KVH, Sk, D), o
-// (B, H, Sq, D), 16-byte aligned; bf16 at D in {32, 64, 128, 256}, float32
-// at D = 256 (the FFMA kernel).
+// (B, H, Sq, D), 16-byte aligned; dtype 1 = bf16, 2 = float16 at any D
+// (the wgmma kernel), 0 = float32 at 128 < D <= 256 (the FFMA kernel).
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o, int B,
-                               int H, int KVH, int Sq, int Sk, int D, int is_bf16,
+                               int H, int KVH, int Sq, int Sk, int D, int dtype,
                                float scale, int causal, int has_window, int window,
                                void* stream) {
-  if (B <= 0 || H <= 0 || KVH <= 0 || H % KVH != 0 || Sq <= 0 || Sk <= 0) return -1;
+  if (B <= 0 || H <= 0 || KVH <= 0 || H % KVH != 0 || Sq <= 0 || Sk <= 0 || !head_dim_ok(D))
+    return -1;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Mask mask{Sk, causal, has_window, window};
-  if (!is_bf16) return D == 256 ? launch_f32<256>(q, k, v, o, B, H, KVH, Sq, Sk, scale, mask, st) : -1;
-  switch (D) {
-    case 32: return launch_bf16<32>(q, k, v, o, B, H, KVH, Sq, Sk, scale, mask, st);
-    case 64: return launch_bf16<64>(q, k, v, o, B, H, KVH, Sq, Sk, scale, mask, st);
-    case 128: return launch_bf16<128>(q, k, v, o, B, H, KVH, Sq, Sk, scale, mask, st);
-    case 256: return launch_bf16<256>(q, k, v, o, B, H, KVH, Sq, Sk, scale, mask, st);
+  switch (dtype) {
+    case 0: return D > 128 ? launch_f32<256>(q, k, v, o, B, H, KVH, Sq, Sk, D, scale, mask, st) : -1;
+    case 1:
+      return launch_16_any<__nv_bfloat16>(q, k, v, o, B, H, KVH, Sq, Sk, D, scale, mask, st);
+    case 2: return launch_16_any<__half>(q, k, v, o, B, H, KVH, Sq, Sk, D, scale, mask, st);
     default: return -1;
   }
 }
@@ -955,7 +1020,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
 extern "C" int flash_split_tf32(const void* q, const void* k, const void* v, void* const* parts,
                                 int B, int H, int KVH, int Sq, int Sk, int Skp, int D,
                                 void* stream) {
-  if (B <= 0 || H <= 0 || KVH <= 0 || Sq <= 0 || Sk <= 0 || D % 32 != 0 || Skp % 32 != 0 ||
+  if (B <= 0 || H <= 0 || KVH <= 0 || Sq <= 0 || Sk <= 0 || !head_dim_ok(D) || Skp % 32 != 0 ||
       Skp < Sk || static_cast<long long>(B) * KVH > 65535)
     return -1;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -968,26 +1033,23 @@ extern "C" int flash_split_tf32(const void* q, const void* k, const void* v, voi
   split_rows_kernel<<<blocks(nk), 256, 0, st>>>(
       static_cast<const float4*>(k), static_cast<float4*>(parts[2]),
       static_cast<float4*>(parts[3]), nk);
-  split_vt_kernel<<<dim3(Skp / 32, D / 32, B * KVH), 256, 0, st>>>(
+  split_vt_kernel<<<dim3(Skp / 32, (D + 31) / 32, B * KVH), 256, 0, st>>>(
       static_cast<const float*>(v), static_cast<float*>(parts[4]), static_cast<float*>(parts[5]),
       Sk, Skp, D);
   return static_cast<int>(cudaGetLastError());
 }
 
 // flash_attention_tf32: the 3xTF32 kernel on the parts of flash_split_tf32
-// (16-byte aligned) into o (B, H, Sq, D) float32, D in {32, 64, 128}.
+// (16-byte aligned) into o (B, H, Sq, D) float32, D <= 128.
 extern "C" int flash_attention_tf32(const void* const* parts, void* o, int B, int H, int KVH,
                                     int Sq, int Sk, int Skp, int D, float scale, int causal,
                                     int has_window, int window, void* stream) {
   if (B <= 0 || H <= 0 || KVH <= 0 || H % KVH != 0 || Sq <= 0 || Sk <= 0 || Skp % 32 != 0 ||
-      Skp < Sk)
+      Skp < Sk || !head_dim_ok(D) || D > 128)
     return -1;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Mask mask{Sk, causal, has_window, window};
-  switch (D) {
-    case 32: return launch_tf32<32>(parts, o, B, H, KVH, Sq, Sk, Skp, scale, mask, st);
-    case 64: return launch_tf32<64>(parts, o, B, H, KVH, Sq, Sk, Skp, scale, mask, st);
-    case 128: return launch_tf32<128>(parts, o, B, H, KVH, Sq, Sk, Skp, scale, mask, st);
-    default: return -1;
-  }
+  if (D <= 32) return launch_tf32<32>(parts, o, B, H, KVH, Sq, Sk, Skp, D, scale, mask, st);
+  if (D <= 64) return launch_tf32<64>(parts, o, B, H, KVH, Sq, Sk, Skp, D, scale, mask, st);
+  return launch_tf32<128>(parts, o, B, H, KVH, Sq, Sk, Skp, D, scale, mask, st);
 }

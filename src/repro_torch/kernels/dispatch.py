@@ -11,6 +11,15 @@ The torch counterpart of ``repro.kernels.dispatch``:
   points for a 2-D and a strided-batched emulated GEMM;
 * :func:`auto_fused_matmul` — the 'auto' hook of ``emulated_dot``.
 
+A ``+guard`` config (``repro_torch.guard``) wraps the 2-D entry point in
+the guard's ladder (sanitize, run, verify, escalate), which re-enters it
+with the guard stripped for every rung; a guarded batched call runs the
+unguarded batched launch once and verifies, masks and counts each batch
+element (``guard.ladder.guarded_matmul_batched``). With telemetry enabled
+(``repro_torch.telemetry``) every call records its plan and execution
+counters (``record_gemm``), block-cache lookups and batched launches, and
+runs under a profiler scope while a profiler runs.
+
 Both backends take every shape as it is: the CUDA kernel zero-fills
 ragged edges in the kernel, so nothing is padded (the reference pads to
 its backend's alignment), and 'auto' never sends a CUDA tensor to the
@@ -34,9 +43,11 @@ import warnings
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core.precision import EmulationConfig
 from repro_torch.kernels import backends
 from repro_torch.kernels.common import Blocks
+from repro_torch.telemetry import record as _tele
 
 BLOCK_CACHE_MAXSIZE = 4096
 
@@ -73,8 +84,12 @@ def select_blocks(m: int, n: int, k: int, p: int, out_bytes: int,
     key = (m, n, k, p, out_bytes, batch, scheme)
     if key in cache.data:
         cache.hits += 1
+        telemetry.record_event(_tele.BLOCK_CACHE,
+                               {"backend": backend, "result": "hit"})
         return cache.data[key]
     cache.misses += 1
+    telemetry.record_event(_tele.BLOCK_CACHE,
+                           {"backend": backend, "result": "miss"})
     blocks = backends.get_backend(backend).choose_blocks(m, n, k, p,
                                                          scheme=scheme)
     cache.put(key, blocks)
@@ -102,13 +117,6 @@ def block_cache_clear(backend: str | None = None) -> None:
 # Plans.
 # ---------------------------------------------------------------------------
 
-def _refuse_cfg(cfg: EmulationConfig) -> None:
-    """Raise for the parts of a config the port does not run yet."""
-    if cfg.guard is not None:
-        raise NotImplementedError(
-            "'+guard' is not ported yet (ROADMAP.md § 1 item 5)")
-
-
 @dataclasses.dataclass(frozen=True)
 class GemmPlan:
     cfg: EmulationConfig
@@ -119,6 +127,7 @@ class GemmPlan:
     blocks: Blocks | None
     backend: str
     batch: int = 1
+    probe: object = None     # guard.sentinel.SentinelProbe when asked for
 
 
 def _complex(a, b) -> bool:
@@ -157,16 +166,26 @@ def _out_dtype(cfg: EmulationConfig, a, b, out_dtype) -> torch.dtype:
 
 
 def plan_emulated(a: torch.Tensor, b: torch.Tensor, cfg: EmulationConfig,
-                  out_dtype=None, backend: str | None = None) -> GemmPlan:
-    """Backend, output type and cached blocks for one 2-D GEMM."""
-    _refuse_cfg(cfg)
+                  out_dtype=None, backend: str | None = None,
+                  probe: bool = False) -> GemmPlan:
+    """Backend, output type and cached blocks for one 2-D GEMM.
+
+    ``probe=True`` also runs the guard's input sentinel (finite masks and
+    the exponent-spread estimate, O(MK + KN) elementwise) and attaches it
+    as ``GemmPlan.probe``: the pre-dispatch leg of the ``+guard``
+    pipeline."""
     m, k = a.shape
     n = b.shape[1]
     out_dtype = _out_dtype(cfg, a, b, out_dtype)
     name = backends.resolve_backend_name(backend, cfg, a.device)
     blocks = select_blocks(m, n, k, _p_eff(cfg), out_dtype.itemsize, name,
                            scheme=_scheme_key(cfg, a, b))
-    return GemmPlan(cfg, m, n, k, out_dtype, blocks, name)
+    sentinel_probe = None
+    if probe:
+        from repro_torch.guard import sentinel
+        sentinel_probe = sentinel.probe_operands(a, b)
+    return GemmPlan(cfg, m, n, k, out_dtype, blocks, name,
+                    probe=sentinel_probe)
 
 
 def plan_emulated_batched(a: torch.Tensor, b: torch.Tensor,
@@ -174,7 +193,6 @@ def plan_emulated_batched(a: torch.Tensor, b: torch.Tensor,
                           backend: str | None = None) -> GemmPlan:
     """Backend, output type and blocks for one (B, M, K) @ (B, K, N) of
     real operands, or of complex ones under Scheme II."""
-    _refuse_cfg(cfg)
     batch, m, k = a.shape
     n = b.shape[-1]
     out_dtype = _out_dtype(cfg, a, b, out_dtype)
@@ -182,6 +200,44 @@ def plan_emulated_batched(a: torch.Tensor, b: torch.Tensor,
     blocks = select_blocks(m, n, k, _p_eff(cfg), out_dtype.itemsize, name,
                            batch, _scheme_key(cfg, a, b))
     return GemmPlan(cfg, m, n, k, out_dtype, blocks, name, batch)
+
+
+def _scope_scheme(cfg: EmulationConfig, cplx: bool) -> tuple[str, int]:
+    """(scheme tag, residue count) of one call, for its labels."""
+    if cfg.scheme == "ozaki2":
+        return ("ozaki2-3m" if cplx else "ozaki2",
+                len(cfg.resolved_moduli()))
+    return ("ozaki1-4m" if cplx else cfg.scheme, cfg.p)
+
+
+def _run_plan(plan: GemmPlan, a, b) -> torch.Tensor:
+    """The plan's backend on (a, b): the telemetry record (a no-op unless
+    enabled) and a profiler scope (only while a profiler runs)."""
+    scheme, count = _scope_scheme(plan.cfg, _complex(a, b))
+    impl = "kernel" if plan.backend == "cuda" else "torch"
+    if telemetry.enabled():
+        batch = plan.batch if a.dim() == 3 else None
+        if batch is not None:
+            telemetry.record_event(_tele.BATCHED_LAUNCHES, {
+                "backend": plan.backend, "scheme": scheme,
+                "shape_class": _tele.shape_class(plan.m, plan.k, plan.n,
+                                                 batch=batch)})
+        telemetry.record_gemm(
+            scheme=scheme, count=count, backend=plan.backend, impl=impl,
+            m=plan.m, k=plan.k, n=plan.n, out_bytes=plan.out_dtype.itemsize,
+            batch=batch)
+    with telemetry.gemm_scope(scheme, count, plan.backend, impl):
+        return backends.get_backend(plan.backend).matmul(
+            a, b, plan.cfg, plan.out_dtype, plan.blocks)
+
+
+def _guarded(cfg: EmulationConfig, a, b) -> bool:
+    """The reference's guard seam condition: a guarded emulation config
+    on real operands (invalid shapes fall through to the usual
+    refusals)."""
+    return (cfg.guard is not None and cfg.scheme != "native"
+            and not a.is_complex()
+            and (_is_prepared(b) or not b.is_complex()))
 
 
 # ---------------------------------------------------------------------------
@@ -251,9 +307,15 @@ def emulated_matmul(a: torch.Tensor, b, *, cfg=None, out_dtype=None,
     and only the lhs is carved. ``scheme`` / ``precision`` are the
     reference's deprecated kwargs (:func:`_resolve_cfg`)."""
     cfg = _resolve_cfg(cfg, scheme, precision)
+    if (_guarded(cfg, a, b) and a.dim() == 2
+            and (_is_prepared(b) or b.dim() == 2)):
+        # The guard pipeline wraps this entry point and re-enters it with
+        # the guard stripped for every ladder rung.
+        from repro_torch import guard
+        return guard.guarded_matmul(a, b, cfg, out_dtype=out_dtype,
+                                    backend=backend)
     if _is_prepared(b):
         from repro_torch.kernels import prepared
-        _refuse_cfg(cfg)
         check_prepared(b, cfg)
         if a.dim() != 2:
             raise ValueError(
@@ -272,9 +334,7 @@ def emulated_matmul(a: torch.Tensor, b, *, cfg=None, out_dtype=None,
     if cfg.scheme == "native":
         out = _promoted(cfg, a, b, out_dtype)
         return torch.matmul(a.to(out), b.to(out))
-    plan = plan_emulated(a, b, cfg, out_dtype, backend)
-    return backends.get_backend(plan.backend).matmul(
-        a, b, cfg, plan.out_dtype, plan.blocks)
+    return _run_plan(plan_emulated(a, b, cfg, out_dtype, backend), a, b)
 
 
 def emulated_matmul_batched(a: torch.Tensor, b: torch.Tensor, *, cfg=None,
@@ -301,6 +361,13 @@ def emulated_matmul_batched(a: torch.Tensor, b: torch.Tensor, *, cfg=None,
     lead = a.shape[:-2]
     a3 = a.reshape((-1,) + tuple(a.shape[-2:]))
     b3 = b.reshape((-1,) + tuple(b.shape[-2:]))
+    if _guarded(cfg, a3, b3):
+        # The reference vmaps the 2-D dispatch under a guard: the traced
+        # (counting) semantics, each element verified and counted.
+        from repro_torch.guard import ladder
+        out = ladder.guarded_matmul_batched(a3, b3, cfg, out_dtype=out_dtype,
+                                            backend=backend)
+        return out.reshape(*lead, out.shape[-2], out.shape[-1])
     if cfg.scheme == "native":
         out = _promoted(cfg, a, b, out_dtype)
         return torch.matmul(a3.to(out), b3.to(out)).reshape(
@@ -310,10 +377,28 @@ def emulated_matmul_batched(a: torch.Tensor, b: torch.Tensor, *, cfg=None,
                                            backend=backend)
                            for x, y in zip(a3, b3)])
         return out.reshape(*lead, out.shape[-2], out.shape[-1])
-    plan = plan_emulated_batched(a3, b3, cfg, out_dtype, backend)
-    out = backends.get_backend(plan.backend).matmul(
-        a3, b3, cfg, plan.out_dtype, plan.blocks)
+    out = _run_plan(plan_emulated_batched(a3, b3, cfg, out_dtype, backend),
+                    a3, b3)
     return out.reshape(*lead, out.shape[-2], out.shape[-1])
+
+
+# Fallback RuntimeWarnings are deduped by (reason, shape class) on the
+# telemetry registry's one-shot store (always active, whether or not
+# telemetry is enabled), under keys namespaced "fallback". The port falls
+# back silently nowhere; the guard's spread and native-fallback warnings
+# use this machinery.
+
+
+def fallback_warnings_clear() -> None:
+    """Forget which fallback warnings fired (tests/log hygiene)."""
+    telemetry.REGISTRY.forget_once("fallback")
+
+
+def _warn_fallback_once(reason: tuple, shape_class: tuple, message: str,
+                        stacklevel: int = 3) -> None:
+    if not telemetry.REGISTRY.once(("fallback", reason, shape_class)):
+        return
+    warnings.warn(message, RuntimeWarning, stacklevel=stacklevel)
 
 
 def auto_fused_matmul(a: torch.Tensor, b: torch.Tensor, cfg: EmulationConfig):
@@ -340,9 +425,8 @@ def resolve_policy(policy, mesh=None):
     """Check a model ``GemmPolicy`` against what the port runs.
 
     The single-card slice has nothing to clamp (the reference's mesh and
-    GSPMD clamps do not apply; ``mesh`` must be None). An unset default materializes the
-    ambient config now, as the reference does, and every site's config
-    that the port cannot run raises here, before any weight is touched.
+    GSPMD clamps do not apply; ``mesh`` must be None). An unset default
+    materializes the ambient config now, as the reference does.
     """
     from repro_torch import api
     if mesh is not None:
@@ -352,7 +436,4 @@ def resolve_policy(policy, mesh=None):
         default = api.resolve_config()
         if default.scheme != "native":
             policy = dataclasses.replace(policy, default=default)
-    for cfg in [policy.default] + [c for _, c in policy.overrides]:
-        if cfg is not None and cfg.scheme != "native":
-            _refuse_cfg(cfg)
     return policy

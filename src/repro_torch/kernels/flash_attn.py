@@ -3,8 +3,8 @@ and launch count.
 
 :func:`flash_attention` takes q (B, H, Sq, D) and k, v (B, KVH, Sk, D)
 with H % KVH == 0 (grouped-query heads: q head h reads kv head
-h // (H / KVH)), float32 or bfloat16, causal and/or a sliding window, and
-returns (B, H, Sq, D) in q's dtype. On a CUDA tensor it launches the
+h // (H / KVH)), float32, bfloat16 or float16, causal and/or a sliding
+window, and returns (B, H, Sq, D) in q's dtype. On a CUDA tensor it launches the
 kernel, which keeps the score tile, the softmax statistics and the output
 accumulator on chip; on a CPU tensor it runs the plain version, the
 reference oracle's math in torch (``repro.kernels.ref.flash_attention``):
@@ -16,18 +16,24 @@ finite -1e30, as in the reference, so a row whose keys are all masked
 (a window, or Sq > Sk) averages v uniformly instead of giving NaN.
 
 The kernel replaces the Pallas kernel ``repro.kernels.flash_attn.
-flash_attention``. ``csrc/flash_attn.cu`` holds three kernels, and
-:func:`instance` names the one a call runs, statically by dtype and head
-dim: bfloat16 (head dims 32, 64, 128 and 256, recurrentgemma-2b's) on the
-TMA-fed, warp-specialised ``wgmma`` kernel (128 query rows a block, k and
-v tiles of ``bk`` keys in a ring of ``stages``); float32 at head dims 32,
-64 and 128 on the same structure in 3xTF32 (``wgmma`` .tf32: every
-operand split as hi + lo, three products), after a pre-pass
-(:func:`split_3xtf32`) that writes the parts, v transposed; float32 at
-D = 256 on the FFMA kernel (64 query rows a block, true float32
-products), because the 3xTF32 kernel's two q parts alone would take all
-of a block's shared memory there. Any other dtype or head dim raises;
-nothing falls back.
+flash_attention``. ``csrc/flash_attn.cu`` holds three kernels, each
+compiled for the head dims 32, 64, 128 and 256, and :func:`instance` names
+the one a call runs, statically by dtype and head dim. Any head dim
+D <= 256 that is a multiple of 8 runs on the instance of the next
+compiled dim ``Instance.d`` (hubert-xlarge's D = 80 on 128, deepseek-v3's
+D = 192 on 256): the tensor maps' inner extent is the true D and their
+boxes ``d`` wide, so TMA fills the columns past D with zeros on chip, and
+only D columns are stored; nothing is padded in device memory, and the
+scale is ``1 / sqrt(D)`` of the true D. bfloat16 and float16 (the .f16
+form of the same ``wgmma`` shapes) run on the TMA-fed, warp-specialised
+``wgmma`` kernel (128 query rows a block, k and v tiles of ``bk`` keys in
+a ring of ``stages``); float32 at D <= 128 on the same structure in
+3xTF32 (``wgmma`` .tf32: every operand split as hi + lo, three products),
+after a pre-pass (:func:`split_3xtf32`) that writes the parts, v
+transposed; float32 at 128 < D <= 256 on the FFMA kernel (64 query rows
+a block, true float32 products), because the 3xTF32 kernel's two q parts
+alone would take all of a block's shared memory there. Any other dtype,
+a ragged head dim or one past 256 raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -40,8 +46,9 @@ import math
 import torch
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128, 256)
-_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+HEAD_DIMS = (32, 64, 128, 256)          # the compiled instances
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # tf32 keeps the sign, the exponent and 10 of float32's 23 mantissa bits.
 TF32_MASK = -(1 << 13)
 
@@ -50,10 +57,11 @@ TF32_MASK = -(1 << 13)
 class Instance:
     """The compiled kernel a (dtype, head dim) runs on, with its tiles
     (``csrc/flash_attn.cu``: ``Tiles``, ``Tiles32`` and ``Layout32``)."""
-    kernel: str        # "wgmma" (bf16), "wgmma-3xtf32" or "ffma" (float32)
+    kernel: str        # "wgmma" (bf16, float16), "wgmma-3xtf32" or "ffma"
     bq: int            # query rows of a block
     bk: int            # keys of a k/v tile
     stages: int        # k/v tiles in flight
+    d: int             # the compiled head dim that runs the call
 
 
 def instance(dtype: torch.dtype, d: int) -> Instance:
@@ -61,18 +69,21 @@ def instance(dtype: torch.dtype, d: int) -> Instance:
     raises for what has none."""
     if dtype not in _KERNEL_DTYPES:
         raise NotImplementedError(
-            f"flash_attention takes float32 or bfloat16 q, k, v, got {dtype}")
-    if d not in HEAD_DIMS:
+            f"flash_attention takes float32, bfloat16 or float16 q, k, v, "
+            f"got {dtype}")
+    if not (0 < d <= HEAD_DIMS[-1] and d % 8 == 0):
         raise NotImplementedError(
-            f"flash_attention is compiled for head dims {HEAD_DIMS}, got "
-            f"D={d} (another instance is ROADMAP.md § 2 item 5)")
-    if dtype == torch.bfloat16:
-        return Instance("wgmma", 128, 64 if d == 256 else 128,
-                        3 if d <= 64 else 2)
-    if d == 256:
-        return Instance("ffma", 64, 32, 1)
-    return Instance("wgmma-3xtf32", 128, 32 if d == 128 else 64,
-                    1 if d == 128 else 2)
+            f"flash_attention runs head dims D <= {HEAD_DIMS[-1]} that are "
+            f"multiples of 8, got D={d} (a ragged or wider head is "
+            "ROADMAP.md § 2 item 5)")
+    di = next(x for x in HEAD_DIMS if x >= d)
+    if dtype != torch.float32:
+        return Instance("wgmma", 128, 64 if di == 256 else 128,
+                        3 if di <= 64 else 2, di)
+    if di == 256:
+        return Instance("ffma", 64, 32, 1, di)
+    return Instance("wgmma-3xtf32", 128, 32 if di == 128 else 64,
+                    1 if di == 128 else 2, di)
 
 
 @dataclasses.dataclass
@@ -111,7 +122,8 @@ def visible(sq: int, sk: int, causal: bool, window: int | None,
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True, window: int | None = None,
                           softmax_scale: float | None = None) -> torch.Tensor:
-    """The kernel's function in plain torch ops (CPU or CUDA)."""
+    """The kernel's function in plain torch ops (CPU or CUDA), of any
+    dtype and head dim: float32 scores, the output cast to q's dtype."""
     if q.is_cuda:
         COUNTS.plain_cuda_calls += 1
     b, h, sq, d = q.shape
@@ -197,7 +209,7 @@ def split_3xtf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
         return split_3xtf32_plain(q, k, v)
     b, h, sq, d = q.shape
     _, kvh, sk, _ = k.shape
-    if (q.dtype, k.dtype, v.dtype) != (torch.float32,) * 3 or d % 32 \
+    if (q.dtype, k.dtype, v.dtype) != (torch.float32,) * 3 or d % 8 \
             or not all(x.is_cuda and x.is_contiguous() for x in (q, k, v)):
         raise ValueError(f"flash_attention 3xTF32 split: q {tuple(q.shape)} "
                          f"{q.dtype}, k {tuple(k.shape)}, v {tuple(v.shape)}")
@@ -227,7 +239,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the sequence length); they do not choose the CUDA kernel's tiles,
     which are its own. The scale is ``softmax_scale or 1 / sqrt(D)``.
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (float32 at D <= 128: the pre-pass, then the 3xTF32 kernel) or raise.
+    (float32 at D <= 128: the pre-pass, then the 3xTF32 kernel) or raise
+    (a ragged head dim, or one past 256: :func:`instance`).
     """
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
@@ -266,8 +279,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         rc = _library().flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-            kvh, sq, sk, d, int(q.dtype == torch.bfloat16), scale, *mask,
-            stream)
+            kvh, sq, sk, d, _DTYPE_CODE[q.dtype], scale, *mask, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed (code {rc}) for "
                            f"q {tuple(q.shape)}, k {tuple(k.shape)}")

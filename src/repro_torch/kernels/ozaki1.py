@@ -126,8 +126,8 @@ def fused_matmul_plain(a: torch.Tensor, b: torch.Tensor, mu: torch.Tensor,
     """The kernel's function in plain torch ops (CPU or CUDA)."""
     if a.is_cuda:
         COUNTS.plain_cuda_calls += 1
-    a_sl = scheme1.carve(scheme1.widen(a) / mu, p, beta)
-    b_sl = scheme1.carve(scheme1.widen(b) / nu, p, beta)
+    a_sl = scheme1.carve_stack(scheme1.widen(a) / mu, p, beta)
+    b_sl = scheme1.carve_stack(scheme1.widen(b) / nu, p, beta)
     accs = scheme1.triangular_accumulators(a_sl, b_sl, p)
     return scheme1.shift_reduce(accs, beta, mu, nu, out_dtype)
 
@@ -144,7 +144,7 @@ def fused_matmul_mixed_plain(a: torch.Tensor, b_hat: torch.Tensor,
         COUNTS.plain_cuda_calls += 1
     k = a.shape[-1]
     b_sl = scheme1.deinterleave_k(b_hat, p, "b", TILE)[:, :k]
-    a_sl = scheme1.carve(scheme1.widen(a) / mu, p, beta)
+    a_sl = scheme1.carve_stack(scheme1.widen(a) / mu, p, beta)
     accs = scheme1.triangular_accumulators(a_sl, b_sl, p)
     return scheme1.shift_reduce(accs, beta, mu, nu, out_dtype)
 

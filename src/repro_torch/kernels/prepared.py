@@ -59,12 +59,28 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch import telemetry
 from repro_torch.core import scheme1, scheme2
 from repro_torch.core.precision import EmulationConfig
 from repro_torch.kernels import backends, decompose, ozaki1, ozaki2
 from repro_torch.kernels.backends.cuda import KERNEL_BLOCKS
 from repro_torch.kernels.common import Blocks
 from repro_torch.kernels.decompose import TILE, round_up
+from repro_torch.telemetry import record as _tele
+
+
+def _record_consume(scheme: str, count: int, backend: str, route: str,
+                    reason: str, m: int, k: int, prep) -> None:
+    """One prepared-consume route (the fused kernel, or the plain version
+    on the 'torch' backend) and its GEMM, when telemetry is enabled."""
+    if not telemetry.enabled():
+        return
+    telemetry.record_event(_tele.PREPARED_CONSUME, {
+        "scheme": scheme, "route": route, "reason": reason})
+    telemetry.record_gemm(
+        scheme=scheme, count=count, backend=backend,
+        impl="prepared-kernel" if route == "fused" else "prepared-torch",
+        m=m, k=k, n=prep.n)
 
 # The plane route's tiles, whose K tile is the planes' padding.
 PLANE_BLOCKS = Blocks(bm=128, bn=ozaki1.PLANE_N, bk=ozaki1.PLANE_K)
@@ -221,6 +237,9 @@ def prepare_rhs(b: torch.Tensor, cfg: EmulationConfig, *,
         b = b.float()
     name = _backend_name(cfg, b.device)
     backends.get_backend(name).check(cfg, b, b)
+    telemetry.record_event(_tele.PREPARED_BUILD, {
+        "scheme": "ozaki1",
+        "layout": "planes" if name == "cuda" else "interleaved"})
     k, n = b.shape
     p, beta = cfg.p, _beta(cfg, k)
     nu = scheme1.pow2_scale(b, -2)                              # (1, N)
@@ -308,6 +327,8 @@ def prepare_rhs_scheme2(b: torch.Tensor, cfg: EmulationConfig, *,
     k, n = b.shape
     moduli = tuple(int(m) for m in cfg.resolved_moduli())
     layout = "planes" if _backend_name(cfg, b.device) == "cuda" else "stacked"
+    telemetry.record_event(_tele.PREPARED_BUILD,
+                           {"scheme": "ozaki2", "layout": layout})
     encode = _encode_planes if layout == "planes" else _encode_residues
     res, nu, budget = encode(b, moduli, k)
     twin = None
@@ -342,8 +363,15 @@ def matmul_prepared_scheme2(a: torch.Tensor, prep: PreparedResidues,
     budget = min(prep.budget_bits, scheme2.MANTISSA[a.dtype])
     mu = scheme2._pow2_int_scale(a, -1, budget)                # (M, 1)
     name = "cuda" if prep.layout == "planes" else "torch"
-    return backends.get_backend(name).matmul_prepared_residues(
-        a, prep.residues, mu, prep.scale, prep.moduli, out_dtype, prep.n)
+    route = "fused" if name == "cuda" else "torch"
+    count = len(prep.moduli)
+    _record_consume("ozaki2", count, name, route,
+                    "-" if name == "cuda" else "stacked_layout", m, k, prep)
+    with telemetry.gemm_scope("ozaki2", count, name, "prepared-" + (
+            "kernel" if name == "cuda" else "torch")):
+        return backends.get_backend(name).matmul_prepared_residues(
+            a, prep.residues, mu, prep.scale, prep.moduli, out_dtype,
+            prep.n)
 
 
 def matmul_prepared(a: torch.Tensor, prep,
@@ -375,8 +403,14 @@ def matmul_prepared(a: torch.Tensor, prep,
     if not a.is_floating_point():
         a = a.float()
     mu = scheme1.pow2_scale(a, -1)                              # (M, 1)
-    return backends.get_backend(prep.backend).matmul_mixed(
-        a, prep.slices, mu, prep.scale, prep.p, prep.beta, out_dtype)
+    fused = prep.backend == "cuda"
+    _record_consume("ozaki1", prep.p, prep.backend,
+                    "fused" if fused else "torch",
+                    "-" if fused else "interleaved_layout", m, k, prep)
+    with telemetry.gemm_scope("ozaki1", prep.p, prep.backend, "prepared-" + (
+            "kernel" if fused else "torch")):
+        return backends.get_backend(prep.backend).matmul_mixed(
+            a, prep.slices, mu, prep.scale, prep.p, prep.beta, out_dtype)
 
 
 # ---------------------------------------------------------------------------

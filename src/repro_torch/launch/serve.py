@@ -14,9 +14,12 @@ only one for recurrent blocks (recurrentgemma-2b, mamba2-780m: their
 state caches are not paged) and the vision stub (internvl2-1b, text
 prompts). An encoder-only arch (hubert-xlarge) exits: it has no decode.
 ``--prepare``, or a ``+cached`` spec on the continuous engine, prepares
-the 2-D dense weights (an untied head) once a session. The telemetry
-flags ``--metrics-port`` / ``--metrics-jsonl`` raise (ROADMAP.md § 1
-item 6).
+the 2-D dense weights (an untied head) once a session. A guarded spec
+(``--gemm ozaki1-p4+guard``) verifies every emulated GEMM and prints a
+``[serve] guard:`` counter line; ``--metrics-jsonl FILE`` writes one
+telemetry record a step (``python -m repro_torch.telemetry.report FILE``
+aggregates it) and ``--metrics-port N`` serves Prometheus text on
+127.0.0.1:N (both enable telemetry).
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import time
 
 import numpy as np
 
-from repro_torch import api, configs
+from repro_torch import api, configs, guard, telemetry
 from repro_torch.models.common import GemmPolicy
 from repro_torch.serving import ContinuousEngine, LockstepEngine, Request
 
@@ -70,15 +73,36 @@ def main(argv=None):
     ap.add_argument("--lockstep", action="store_true",
                     help="run the legacy whole-batch engine instead")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--metrics-port", type=int, default=None)
-    ap.add_argument("--metrics-jsonl", default=None)
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="serve Prometheus text-format metrics on this "
+                         "port of 127.0.0.1 (GET /metrics; implies "
+                         "telemetry; 0 picks a free port)")
+    ap.add_argument("--metrics-jsonl", default=None,
+                    help="write one telemetry record per serve step to "
+                         "this JSONL file (implies telemetry)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     args = ap.parse_args(argv)
 
-    if args.metrics_port is not None or args.metrics_jsonl:
-        raise NotImplementedError("telemetry is not ported yet (ROADMAP.md "
-                                  "§ 1 item 6)")
+    metrics_server = sink = None
+    if args.metrics_port is not None:
+        telemetry.enable()
+        metrics_server = telemetry.serve_metrics(args.metrics_port)
+        print(f"[serve] metrics on http://127.0.0.1:"
+              f"{metrics_server.port}/metrics")
+    if args.metrics_jsonl:
+        telemetry.enable()
+        sink = telemetry.jsonl_sink(args.metrics_jsonl)
+    try:
+        return _serve(args)
+    finally:
+        if sink is not None:
+            sink.close()
+        if metrics_server is not None:
+            metrics_server.close()
+
+
+def _serve(args):
     arch = (configs.get_smoke_config(args.arch) if args.smoke
             else configs.get_config(args.arch))
     if not arch.model.causal:
@@ -96,9 +120,12 @@ def main(argv=None):
         t0 = time.time()
         toks = eng.generate(prompts, args.gen).tolist()
         dt = time.time() - t0
+        if eng.last_guard.get("calls"):
+            print("[serve] guard:", eng.last_guard)
     else:
         trace = build_trace(rng, arch.model.vocab, args.requests,
                             args.prompt_len, args.gen, args.poisson)
+        before = guard.stats()
         eng = ContinuousEngine(
             arch, max_seq=max_seq, policy=policy, seed=args.seed,
             prepare=True if args.prepare else None, max_lanes=args.lanes,
@@ -117,6 +144,15 @@ def main(argv=None):
               f"{util['kv']['num_pages']}, "
               + (f"ttft p50 {np.median(ttfts):.3f}s" if ttfts
                  else "no tokens emitted"))
+        trips = sum(r.guard_trips for r in results.values())
+        if trips:
+            print(f"[serve] guard trips (per-request): {trips}")
+        after = guard.stats()
+        if after.calls > before.calls:
+            print("[serve] guard:", {
+                f: getattr(after, f) - getattr(before, f)
+                for f in ("calls", "verified", "trips", "escalations",
+                          "recoveries", "native_fallbacks", "masked")})
     print(f"[serve] {args.requests} requests x {args.gen} tokens in "
           f"{dt:.2f}s ({args.requests * args.gen / dt:.1f} tok/s)"
           + (" with prepared weights" if eng.prepared else ""))

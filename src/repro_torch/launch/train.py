@@ -8,10 +8,12 @@ fault-tolerant Trainer with auto-resume.
 The flags are the reference's plus ``--device`` (default ``cuda``;
 ``cpu`` runs the kernels' plain versions). ``--smoke`` takes the reduced
 config. ``--fail-at N`` injects a failure at step N; running the same
-command again resumes from the newest checkpoint in ``--ckpt-dir``.
-Flags whose subsystem is not ported yet raise: ``--metrics-jsonl`` /
-``--metrics-prom`` (telemetry, ROADMAP.md § 1 item 6) and
-``--model-parallel`` above 1 (multi-device, item 8).
+command again resumes from the newest checkpoint in ``--ckpt-dir``. A
+guarded spec (``--gemm ozaki1-p4+guard:strict``) retries a step whose
+ladder ran out; ``--metrics-jsonl FILE`` writes one telemetry record a
+step, and with telemetry enabled the final Prometheus text goes to
+``--metrics-prom FILE`` (stdout without it). ``--model-parallel`` above
+1 raises (multi-device, ROADMAP.md § 1 item 8).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import argparse
 import os
 import tempfile
 
-from repro_torch import api, configs
+from repro_torch import api, configs, telemetry
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.data import make_batch_iterator
 from repro_torch.launch import steps as S
@@ -50,15 +52,18 @@ def main(argv=None):
     ap.add_argument("--fail-at", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--model-parallel", type=int, default=1)
-    ap.add_argument("--metrics-jsonl", default=None)
-    ap.add_argument("--metrics-prom", default=None)
+    ap.add_argument("--metrics-jsonl", default=None,
+                    help="write one telemetry record per step to this "
+                         "JSONL file (implies telemetry; aggregate with "
+                         "python -m repro_torch.telemetry.report)")
+    ap.add_argument("--metrics-prom", default=None,
+                    help="dump the final Prometheus text-format metrics "
+                         "to this file at exit (stdout when telemetry is "
+                         "enabled and no path is given)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     args = ap.parse_args(argv)
 
-    if args.metrics_jsonl or args.metrics_prom:
-        raise NotImplementedError("telemetry is not ported yet (ROADMAP.md "
-                                  "§ 1 item 6)")
     if args.model_parallel != 1:
         raise NotImplementedError("model parallelism is not ported yet "
                                   "(ROADMAP.md § 1 item 8)")
@@ -74,7 +79,9 @@ def main(argv=None):
         init_state_fn=lambda: S.init_state(arch, args.seed, device),
         batch_iterator=make_batch_iterator(arch, shape, args.seed),
         ckpt_dir=args.ckpt_dir, device=device, ckpt_every=args.ckpt_every,
-        failure=FailureInjector(args.fail_at))
+        failure=FailureInjector(args.fail_at),
+        metrics_jsonl=args.metrics_jsonl,
+        tokens_per_step=args.batch * args.seq)
     try:
         log = trainer.run(max(0, args.steps - trainer.start_step))
     finally:
@@ -82,6 +89,15 @@ def main(argv=None):
     if log:
         print(f"[train] loss {log[0]['loss']:.4f} -> {log[-1]['loss']:.4f} "
               f"over {len(log)} steps")
+    if telemetry.enabled():
+        text = telemetry.render_prometheus()
+        if args.metrics_prom:
+            with open(args.metrics_prom, "w", encoding="utf-8") as fh:
+                fh.write(text)
+            print(f"[train] metrics dumped to {args.metrics_prom}")
+        else:
+            print("[train] final metrics (Prometheus text format):")
+            print(text, end="")
     return log
 
 

@@ -84,7 +84,20 @@ def dense(x: torch.Tensor, w, policy: GemmPolicy, site: str,
     also be a bare ``PreparedOperand`` / ``PreparedResidues``
     (``prepared.prepare_params``, once a serve session), consumed as it
     is whatever the policy says: the scheme was chosen when it was
-    prepared, and serving never differentiates."""
+    prepared, and serving never differentiates.
+
+    With telemetry enabled the call runs inside
+    ``telemetry.call_site(site)``, so every emulated GEMM and guard event
+    it dispatches carries the site's label."""
+    from repro_torch import telemetry
+    if telemetry.enabled():
+        with telemetry.call_site(site):
+            return _dense(x, w, policy, site, bias)
+    return _dense(x, w, policy, site, bias)
+
+
+def _dense(x: torch.Tensor, w, policy: GemmPolicy, site: str,
+           bias: torch.Tensor | None = None) -> torch.Tensor:
     cfg = policy.for_site(site)
     if isinstance(w, StepPrepared):
         out = emulated_dot_prepared(x, w.w, w.prep, cfg).to(x.dtype)
@@ -108,7 +121,8 @@ def policy_einsum(eq: str, x: torch.Tensor, y: torch.Tensor,
     ``preferred_element_type``); emulated calls go through
     ``repro_torch.api.einsum``, whose batched core is one strided-batched
     kernel launch. ``+cached`` is dropped here as in the reference: these
-    sites have no weight to prepare.
+    sites have no weight to prepare. With telemetry enabled the call is
+    labeled with ``site``, as in :func:`dense`.
     """
     cfg = policy.for_site(site)
     if cfg.scheme == "native":
@@ -117,8 +131,12 @@ def policy_einsum(eq: str, x: torch.Tensor, y: torch.Tensor,
         return torch.einsum(eq, x, y)
     if cfg.cache_weights:
         cfg = dataclasses.replace(cfg, cache_weights=False)
-    from repro_torch import api
-    out = api.einsum(eq, x, y, precision=cfg)
+    from repro_torch import api, telemetry
+    if telemetry.enabled():
+        with telemetry.call_site(site):
+            out = api.einsum(eq, x, y, precision=cfg)
+    else:
+        out = api.einsum(eq, x, y, precision=cfg)
     return out if pet is None else out.to(pet)
 
 

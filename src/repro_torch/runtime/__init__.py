@@ -2,6 +2,7 @@
 
 from repro_torch.runtime.trainer import (  # noqa: F401
     FailureInjector,
+    GuardMonitor,
     StragglerMonitor,
     Trainer,
 )

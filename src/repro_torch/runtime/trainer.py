@@ -6,13 +6,18 @@
   test can assert bit-exact continuation after a restart;
 * straggler detection: per-step wall time against the mean and spread of
   the earlier steps; slow steps are logged and counted;
+* guard consumption: when emulated GEMMs run with a ``+guard`` spec,
+  ``GuardMonitor`` folds the per-step delta of ``repro_torch.guard.
+  stats()`` into the metrics log, and a strict-mode accuracy trip
+  (``EmulationAccuracyError``) becomes a step-level retry with backoff
+  instead of a run abort (the step function is pure: state in, state
+  out);
+* telemetry: with ``metrics_jsonl`` (which enables telemetry) or with
+  telemetry already enabled, one step record a step
+  (``telemetry.StepTracker``; ``tokens_per_step`` gives its tokens/s);
 * preemption: with ``handle_sigterm`` a SIGTERM lets the current step
   finish, writes a checkpoint of it synchronously and returns from
   ``run``; ``close`` puts the previous handler back.
-
-The reference's guard retry (``+guard`` specs) and telemetry records are
-not ported yet (ROADMAP.md § 1 items 5 and 6); a guarded spec is refused
-earlier, by ``kernels.dispatch.resolve_policy``.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import time
 import numpy as np
 
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.core.precision import EmulationAccuracyError
 
 
 class FailureInjector:
@@ -58,6 +64,31 @@ class StragglerMonitor:
         return False
 
 
+class GuardMonitor:
+    """Per-step deltas of the process-wide ``repro_torch.guard`` counters.
+
+    ``observe(step)`` is called after the step's metrics reached the host,
+    so every guard event of the step has been recorded. Steps whose delta
+    shows a trip are collected in ``trip_steps``.
+    """
+
+    def __init__(self):
+        from repro_torch import guard
+        self._stats = guard.stats
+        self._last = self._stats()
+        self.trip_steps: list[tuple[int, int]] = []
+
+    def observe(self, step: int) -> dict[str, int]:
+        now = self._stats()
+        delta = {f: getattr(now, f) - getattr(self._last, f)
+                 for f in ("calls", "trips", "escalations", "recoveries",
+                           "native_fallbacks", "masked")}
+        self._last = now
+        if delta["trips"]:
+            self.trip_steps.append((step, delta["trips"]))
+        return delta
+
+
 class Trainer:
     """The reference's Trainer on one card: ``keep`` checkpoints are kept
     (``CheckpointManager``), and a progress line is printed every
@@ -66,7 +97,11 @@ class Trainer:
     def __init__(self, *, step_fn, init_state_fn, batch_iterator,
                  ckpt_dir: str, device="cuda", ckpt_every: int = 50,
                  keep: int = 3, failure: FailureInjector | None = None,
-                 log_every: int = 10, handle_sigterm: bool = False):
+                 log_every: int = 10, handle_sigterm: bool = False,
+                 guard_retries: int = 2, guard_backoff: float = 0.25,
+                 metrics_jsonl: str | None = None,
+                 tokens_per_step: int | None = None):
+        from repro_torch import telemetry
         self.step_fn = step_fn
         self.batch_iterator = batch_iterator
         self.ckpt = CheckpointManager(ckpt_dir, keep=keep)
@@ -74,9 +109,19 @@ class Trainer:
         self.log_every = log_every
         self.failure = failure or FailureInjector()
         self.monitor = StragglerMonitor()
+        self.guard_monitor = GuardMonitor()
+        self.guard_retries = guard_retries
+        self.guard_backoff = guard_backoff
         self.metrics_log: list[dict] = []
         self._preempted = False
         self._prev_sigterm = None
+        self._tokens_per_step = tokens_per_step
+        self._sink = None
+        if metrics_jsonl:
+            telemetry.enable()
+            self._sink = telemetry.jsonl_sink(metrics_jsonl)
+        self._tracker = telemetry.StepTracker() if telemetry.enabled() \
+            else None
 
         latest = self.ckpt.latest_step()
         if latest is not None:
@@ -105,13 +150,38 @@ class Trainer:
             _, batch = next(it)
             t0 = time.time()
             self.failure.check(step)
-            new_state, metrics = self.step_fn(self.state, batch)
-            metrics = {k: float(v) for k, v in metrics.items()}
+            # A strict guard raises EmulationAccuracyError when its ladder
+            # runs out; the step is retried with backoff before giving up,
+            # and self.state only advances once metrics have synced.
+            attempt = 0
+            while True:
+                try:
+                    new_state, metrics = self.step_fn(self.state, batch)
+                    metrics = {k: float(v) for k, v in metrics.items()}
+                    break
+                except EmulationAccuracyError as e:
+                    if attempt >= self.guard_retries:
+                        raise
+                    attempt += 1
+                    pause = self.guard_backoff * attempt
+                    print(f"[trainer] guard trip at step {step} "
+                          f"(retry {attempt}/{self.guard_retries} "
+                          f"after {pause:.2f}s): {e}")
+                    time.sleep(pause)
             self.state = new_state
             dt = time.time() - t0
             slow = self.monitor.observe(step, dt)
-            metrics.update(step=step, seconds=dt)
+            metrics.update(step=step, seconds=dt, guard_retries=attempt,
+                           **{f"guard_{k}": v for k, v in
+                              self.guard_monitor.observe(step).items()
+                              if k in ("trips", "native_fallbacks")})
             self.metrics_log.append(metrics)
+            if self._tracker is not None:
+                self._tracker.step_metrics(
+                    step, dt, kind="train", tokens=self._tokens_per_step,
+                    loss=metrics.get("loss"),
+                    extra={"guard_retries": attempt,
+                           "straggler": bool(slow)})
             if slow:
                 print(f"[trainer] straggler step {step}: {dt:.3f}s")
             if step % self.log_every == 0:
@@ -130,6 +200,9 @@ class Trainer:
         return self.metrics_log
 
     def close(self):
+        if self._sink is not None:
+            self._sink.close()
+            self._sink = None
         if self._prev_sigterm is not None:
             signal.signal(signal.SIGTERM, self._prev_sigterm)
             self._prev_sigterm = None

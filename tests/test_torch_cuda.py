@@ -1059,7 +1059,8 @@ def test_decomposition_bit_identical_on_card(cuda_device, p):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
-                                       (torch.bfloat16, 2e-2)])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 2.5e-3)])
 @pytest.mark.parametrize("d", [32, 64, 128, 256])
 def test_flash_attention_on_card(cuda_device, dtype, tol, d):
     from repro_torch.kernels import flash_attn
@@ -1084,6 +1085,48 @@ def test_flash_attention_on_card(cuda_device, dtype, tol, d):
         assert out.dtype == dtype and out.shape == q.shape
         torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
                                    atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 2.5e-3)])
+@pytest.mark.parametrize("d", [8, 40, 80, 120, 136, 192, 248])
+def test_flash_attention_any_head_dim_on_card(cuda_device, dtype, tol, d):
+    """A head dim without an instance of its own runs on the next one:
+    the tensor maps read only D columns (the rest arrive as zeros) and
+    the kernels store only D; within the bars of the plain version, the
+    3xTF32 pre-pass bit for bit with its plain version (v^T's D rows),
+    every output finite, and o's row stride D. Ragged D and D > 256 raise
+    on the card too, before any launch."""
+    from repro_torch.kernels import flash_attn
+    g = torch.Generator(device=cuda_device).manual_seed(3000 + d)
+    for (b, h, kvh, sq, sk, causal, window) in [
+            (1, 4, 2, 200, 200, True, None), (1, 2, 2, 100, 333, False, None),
+            (2, 4, 1, 257, 257, True, 96)]:
+        q, k, v = (torch.randn(b, n, s, d, generator=g, device=cuda_device)
+                   .to(dtype) for n, s in ((h, sq), (kvh, sk), (kvh, sk)))
+        kernel = flash_attn.instance(dtype, d).kernel
+        if kernel == "wgmma-3xtf32":
+            parts = flash_attn.split_3xtf32(q, k, v)
+            plain = flash_attn.split_3xtf32_plain(q, k, v)
+            torch.cuda.synchronize()
+            assert all(torch.equal(x, y) for x, y in zip(parts, plain))
+        flash_attn.COUNTS.reset()
+        out = flash_attn.flash_attention(q, k, v, causal=causal,
+                                         window=window, bq=sq, bk=sk)
+        assert flash_attn.COUNTS.launches == 1
+        ref = flash_attn.flash_attention_plain(q, k, v, causal, window)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and out.shape == q.shape
+        assert out.stride()[-2] == d and bool(torch.isfinite(out).all())
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
+                                   atol=tol)
+    for bad in (44, 264):
+        x = torch.randn(1, 2, 64, bad, device=cuda_device).to(dtype)
+        flash_attn.COUNTS.reset()
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            flash_attn.flash_attention(x, x, x)
+        assert flash_attn.COUNTS.launches == 0
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])
@@ -1150,10 +1193,10 @@ def test_library_kernels_refuse_what_they_were_not_built_for(cuda_device):
     x = a.double()
     with pytest.raises(NotImplementedError):
         decompose.decompose_interleave(x, scheme1.pow2_scale(x, 1), 17, 7)
-    q = torch.randn(1, 2, 64, 48, device=cuda_device)
+    q = torch.randn(1, 2, 64, 44, device=cuda_device)     # ragged D
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         flash_attn.flash_attention(q, q, q)
-    q = torch.randn(1, 2, 64, 64, device=cuda_device, dtype=torch.float16)
+    q = torch.randn(1, 2, 64, 64, device=cuda_device, dtype=torch.float64)
     with pytest.raises(NotImplementedError):
         flash_attn.flash_attention(q, q, q)
     x = torch.zeros(8, 64, device=cuda_device, dtype=torch.int8)
@@ -1686,3 +1729,87 @@ def test_mla_latent_and_deepseek_v3_smoke_on_card(cuda_device):
         res[backend] = (logits, mtp, torch.cat(steps, 1))
     for a, b in zip(res["cuda"], res["torch"]):
         assert torch.isfinite(a).all() and torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The guard and the telemetry on the card.
+# ---------------------------------------------------------------------------
+
+def test_guard_on_card(cuda_device):
+    """A guarded 2-D call is one K1 launch and the unguarded bits; NaN /
+    Inf lanes are masked exactly where torch.matmul is non-finite; a
+    guarded call against a prepared weight is one K3 launch; a guarded
+    batched call is one K4 launch and one counted verification per
+    element, and no K1."""
+    import math as m_
+    from repro_torch import guard
+    from repro_torch.kernels import prepared
+    g = torch.Generator(device=cuda_device).manual_seed(31)
+    a = torch.randn(64, 512, generator=g, device=cuda_device).bfloat16()
+    b = torch.randn(512, 384, generator=g, device=cuda_device).bfloat16()
+    guard.stats_clear()
+    ozaki1.COUNTS.reset()
+    out = dispatch.emulated_matmul(a, b, cfg="ozaki1-p4+guard")
+    assert ozaki1.COUNTS.launches_2d == 1
+    assert torch.equal(out, dispatch.emulated_matmul(a, b, cfg="ozaki1-p4"))
+    s = guard.stats()
+    assert (s.calls, s.verified, s.trips) == (1, 1, 0)
+    a2, b2 = a.clone(), b.clone()
+    a2[3, 5], b2[7, 9] = m_.nan, -m_.inf
+    out = dispatch.emulated_matmul(a2, b2, cfg="ozaki1-p4+guard")
+    native = torch.matmul(a2.float(), b2.float())
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(out), ~torch.isfinite(native))
+    prep = prepared.prepare_rhs(b, EmulationConfig(scheme="ozaki1", p=4))
+    ozaki1.COUNTS.reset()
+    guard.stats_clear()
+    out = dispatch.emulated_matmul(a, prep, cfg="ozaki1-p4+guard")
+    assert ozaki1.COUNTS.launches_mixed == 1
+    assert torch.equal(out, dispatch.emulated_matmul(a, prep, cfg="ozaki1-p4"))
+    assert guard.stats().verified == 1
+    a3 = torch.randn(6, 32, 128, generator=g, device=cuda_device).bfloat16()
+    b3 = torch.randn(6, 128, 48, generator=g, device=cuda_device).bfloat16()
+    ozaki1.COUNTS.reset()
+    guard.stats_clear()
+    out = dispatch.emulated_matmul_batched(a3, b3, cfg="ozaki1-p4+guard")
+    assert (ozaki1.COUNTS.launches_2d, ozaki1.COUNTS.launches_batched) \
+        == (0, 1)
+    assert (guard.stats().calls, guard.stats().trips) == (6, 0)
+    assert torch.equal(out, dispatch.emulated_matmul_batched(
+        a3, b3, cfg="ozaki1-p4"))
+
+
+def test_guard_smoke_and_telemetry_on_card(cuda_device, capsys):
+    """``python -m repro_torch.guard.smoke``'s checks on the card; with
+    telemetry enabled, the emulated calls recorded equal the kernels'
+    launch counts, and the verification runs in full float32 whatever the
+    process's TF32 setting."""
+    from repro_torch import telemetry
+    from repro_torch.guard import smoke, verify
+    assert smoke.main([]) == 0
+    assert "smoke OK on cuda" in capsys.readouterr().out
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(32)
+    a = torch.randn(64, 256, generator=g, device=dev)
+    b = torch.randn(256, 128, generator=g, device=dev)
+    with telemetry.recording():
+        calls0 = telemetry.REGISTRY.total("repro_emulated_calls_total")
+        ozaki1.COUNTS.reset()
+        dispatch.emulated_matmul(a, b, cfg="ozaki1-p4")
+        dispatch.emulated_matmul_batched(a.reshape(2, 32, 256),
+                                         b.expand(2, 256, 128).contiguous(),
+                                         cfg="ozaki1-p4")
+        calls = telemetry.REGISTRY.total("repro_emulated_calls_total") - calls0
+    assert calls == ozaki1.COUNTS.launches_2d + ozaki1.COUNTS.launches_batched \
+        == 2
+    c = a @ b
+    prev = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("high")
+        tf32 = verify.verify_gemm(a, b, c, cfg="ozaki1-p4")
+        assert torch.get_float32_matmul_precision() == "high"
+        torch.set_float32_matmul_precision("highest")
+        full = verify.verify_gemm(a, b, c, cfg="ozaki1-p4")
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    assert torch.equal(tf32.err, full.err)

@@ -191,9 +191,12 @@ def test_block_cache_counts_per_backend():
     assert dispatch.block_cache_info().currsize == 0
 
 
-@pytest.mark.parametrize("spec,err", [("ozaki1-p4+guard", NotImplementedError),
+@pytest.mark.parametrize("spec,err", [("ozaki1-p4@xla", KeyError),
                                       ("ozaki1-p4@tpu", KeyError)])
 def test_outside_the_slice_raises(spec, err):
+    """The reference's backend names are not the port's ('cuda' and
+    'torch'): nothing falls back silently. ('+guard' runs since the guard
+    was ported: tests/test_torch_guard.py.)"""
     with pytest.raises(err):
         dispatch.emulated_matmul(torch.ones(4, 8), torch.ones(8, 4), cfg=spec)
 

@@ -6,7 +6,10 @@ On CPU tensors the wrapper runs its plain version. The bars are the
 reference test's own (``tests/test_flash_kernel.py``): float32 within
 2e-5, bfloat16 within 2e-2 against the Pallas kernel, whose online softmax
 sums in another order; float32 within 1e-6 against the oracle, which does
-the same math as the plain version.
+the same math as the plain version. float16 is held within 2.5e-3, eight
+times tighter than bfloat16: its 11 significant bits against bfloat16's 8
+make both the rounding of P before P V and that of the output eight times
+finer.
 """
 
 import jax.numpy as jnp
@@ -110,26 +113,58 @@ def test_flash_scale_and_refusals():
     ("float32", 32, ("wgmma-3xtf32", 128, 64, 2)),
     ("float32", 128, ("wgmma-3xtf32", 128, 32, 1)),
     ("float32", 256, ("ffma", 64, 32, 1)),
+    ("float16", 128, ("wgmma", 128, 128, 2)),
+    ("bfloat16", 80, ("wgmma", 128, 128, 2)),
+    ("float32", 80, ("wgmma-3xtf32", 128, 32, 1)),
+    ("bfloat16", 192, ("wgmma", 128, 64, 2)),
+    ("float32", 192, ("ffma", 64, 32, 1)),
+    ("float16", 8, ("wgmma", 128, 128, 3)),
 ])
 def test_flash_instance_choice(dtype, d, expected):
-    """bf16 runs the wgmma kernel at every compiled head dim (k/v tiles of
-    64 keys at D = 256, where O is 128 floats a thread, 3 stages at
-    D <= 64); float32 the 3xTF32 wgmma kernel (both parts of q and of a
-    k and v tile in shared memory: 32 keys and one stage at D = 128), and
-    the FFMA kernel at D = 256, whose q parts alone would fill a block's
-    shared memory."""
+    """bf16 and float16 run the wgmma kernel at every compiled head dim
+    (k/v tiles of 64 keys at D = 256, where O is 128 floats a thread, 3
+    stages at D <= 64); float32 the 3xTF32 wgmma kernel (both parts of q
+    and of a k and v tile in shared memory: 32 keys and one stage at
+    D = 128), and the FFMA kernel at D = 256, whose q parts alone would
+    fill a block's shared memory. Another head dim that is a multiple of
+    8 runs on the next compiled one (hubert-xlarge's 80 on 128,
+    deepseek-v3's 192 on 256)."""
     inst = flash_attn.instance(getattr(torch, dtype), d)
     assert (inst.kernel, inst.bq, inst.bk, inst.stages) == expected
+    assert inst.d == next(x for x in flash_attn.HEAD_DIMS if x >= d)
 
 
-@pytest.mark.parametrize("dtype,d", [("float16", 64), ("float64", 64),
-                                     ("bfloat16", 48), ("float32", 96),
-                                     ("bfloat16", 512)])
+@pytest.mark.parametrize("dtype,d", [("float64", 64), ("bfloat16", 44),
+                                     ("float32", 100), ("bfloat16", 512),
+                                     ("float16", 264)])
 def test_flash_instance_refusals(dtype, d):
-    """A dtype or head dim with no compiled instance raises; nothing falls
-    back."""
-    with pytest.raises(NotImplementedError):
+    """A dtype without a kernel, a ragged head dim or one past 256 raises,
+    naming the roadmap item; nothing falls back."""
+    with pytest.raises(NotImplementedError, match="ROADMAP|float16 q"):
         flash_attn.instance(getattr(torch, dtype), d)
+
+
+@pytest.mark.parametrize("dtype,d,causal,sq,tol", [
+    ("float16", 128, True, 256, 2.5e-3),      # olmo-1b's heads in float16
+    ("float16", 80, False, 128, 2.5e-3),
+    ("bfloat16", 80, False, 256, 2e-2),       # hubert-xlarge's heads
+    ("float32", 80, False, 256, 2e-5),
+    ("bfloat16", 192, True, 128, 2e-2),       # deepseek-v3's q/k heads
+    ("float32", 192, True, 128, 2e-5),
+])
+def test_flash_new_dtypes_and_head_dims(dtype, d, causal, sq, tol):
+    """float16 and the head dims 80 and 192 (no compiled instance of their
+    own): the plain version against the reference's Pallas kernel in
+    interpret mode, in q's dtype."""
+    import jax
+    q, k, v = _qkv(d + sq, 1, 4, 2, sq, sq, d)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(x, dtype) for x in (q, k, v))
+    ref = jax.jit(lambda a, b, c: jflash.flash_attention(
+        a, b, c, causal=causal, bq=128, bk=128))(jq, jk, jv)
+    out = flash_attn.flash_attention(tq, tk, tv, causal=causal, bq=128,
+                                     bk=128)
+    assert out.shape == (1, 4, sq, d) and out.dtype == getattr(torch, dtype)
+    _compare(out, ref, tol)
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 2e-2)])

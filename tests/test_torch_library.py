@@ -226,18 +226,21 @@ def test_int8_matmul_ragged_exact_and_refusals():
 # ---------------------------------------------------------------------------
 
 def test_package_surface_matches_reference():
-    left_out = {"guard", "verify_gemm", "telemetry"}
-    assert repro_torch.__all__ == [n for n in repro.__all__
-                                   if n not in left_out]
+    assert repro_torch.__all__ == repro.__all__
     for name in repro_torch.__all__:
         assert getattr(repro_torch, name) is not None, name
+    from repro_torch import guard as tguard, telemetry as ttele
     from repro_torch.core.emulated import emulated_dot
     from repro_torch.kernels.prepared import PreparedOperand
     assert repro_torch.emulated_dot is emulated_dot
     assert repro_torch.PreparedOperand is PreparedOperand
     assert repro_torch.emulated_matmul is dispatch.emulated_matmul
+    assert repro_torch.guard is tguard and repro_torch.telemetry is ttele
+    assert repro_torch.verify_gemm is tguard.verify_gemm
+    assert tguard.__all__ == repro.guard.__all__
+    assert ttele.__all__ == repro.telemetry.__all__
     with pytest.raises(AttributeError):
-        repro_torch.guard  # noqa: B018
+        repro_torch.no_such_name  # noqa: B018
     a = t(_conditioned(3, (16, 32)))
     b = t(_conditioned(4, (32, 8)))
     np.testing.assert_array_equal(

@@ -37,7 +37,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_util import t
+from _torch_util import one_torch_thread, t  # noqa: F401
 from repro import api as japi, configs as jconfigs
 from repro.data import SyntheticLMDataset as JDataset
 from repro.launch import steps as JS
@@ -50,6 +50,9 @@ from repro_torch.models import model as TM, moe as tmoe
 from repro_torch.models.common import GemmPolicy as TPolicy
 from repro_torch.serving import ContinuousEngine, Request
 from repro_torch.utils.tree import tree_flatten
+
+# torch on one thread: the parallel suite's workers share a few cores.
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ARCHS = ("qwen2-moe-a2.7b", "qwen2-moe-a2.7b-emu")
 BASE, EMU = ARCHS

@@ -40,6 +40,10 @@ from repro_torch.models.common import GemmPolicy as TPolicy
 from repro_torch.optim import optimizers as topt
 from repro_torch.kernels import prepared as tprepared
 from repro_torch.utils.tree import tree_flatten
+from _torch_util import one_torch_thread  # noqa: F401
+
+# torch on one thread: the parallel suite's workers share a few cores.
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 BATCH, SEQ = 4, 32
 SPECS = ["ozaki1-p4+cached", "ozaki2-m6+cached"]

@@ -147,7 +147,8 @@ def test_failure_injection_and_bitexact_resume(tmp_path):
 def test_train_step_refuses_what_is_not_ported():
     """Adafactor (ROADMAP.md § 1 item 4.6) is ported: a step runs and
     keeps the reference's state (vr, vc, step); the guard (§ 1 item 5)
-    is still refused."""
+    is ported too: a clean guarded step gives the unguarded step's loss
+    and state bit for bit (its tests: tests/test_torch_guard.py)."""
     import dataclasses
     arch = tconfigs.get_smoke_config("olmo-1b")
     ada = dataclasses.replace(
@@ -161,6 +162,9 @@ def test_train_step_refuses_what_is_not_ported():
     wo = new["opt"]["vr"]["layers"]["b0"]["mixer"]["wo"]
     assert wo.shape == state["params"]["layers"]["b0"]["mixer"]["wo"].shape[
         :-1] and wo.gt(0).all()
-    with pytest.raises(NotImplementedError, match="§ 1 item 5"):
-        TS.make_train_step(arch, policy=TPolicy(
-            default=tapi.precision("ozaki1-p4+guard")))
+    outs = [TS.make_train_step(arch, policy=TPolicy(
+        default=tapi.precision(spec)))(TS.init_state(arch, 0, "cpu"), batch)
+        for spec in ("ozaki1-p4+guard", "ozaki1-p4")]
+    assert float(outs[0][1]["loss"]) == float(outs[1][1]["loss"])
+    flat = [tree_flatten(o[0]) for o in outs]
+    assert all(torch.equal(v, flat[1][k]) for k, v in flat[0].items())
