@@ -3,11 +3,11 @@
     python3 chip_smoke.py
 
 Drives repro_torch only (no jax, nothing of the reference package) on the
-card, with no CPU fallback, in thirty phases. Phases 29, 30 and 28 (while
+card, with no CPU fallback, in thirty-one phases. Phases 29, 30 and 28 (while
 emugemm2_planes.cu still compiles), phase 27 (each with nothing else
 resident on the card), phase 26's walls and phases 20-23 run first, so
 that every wall they take comes before the process's first
-torch.profiler session;
+torch.profiler session, which is phase 31's (right after them);
 phase 24 and phase 26's profiled steps and kernel times follow the
 yardsticks, phase 25 follows phase 15 (on its DGEMM and ZGEMM operands),
 and the others follow in their order:
@@ -340,6 +340,27 @@ and the others follow in their order:
     library phase (19) also holds K10 in float16 and at head dims 80
     (hubert-xlarge) and 192 (deepseek-v3), which run on the instances of
     128 and 256.
+31. K10's last head dims, the measurement layer and the examples (right
+    after phases 20-23, before the yardsticks; perf_probe's profiles are
+    the process's first torch.profiler sessions): at
+    16 heads and 2048 queries and keys, causal and full, D = 72 in bf16,
+    float16 and float32, D = 100 in float32 (a ragged head: zero-padded
+    copies at the next multiple of 8) and D = 320 and 512 in bf16 and
+    float32 (one block a 256-column slice of the output: bf16 on the
+    wgmma-wide kernel, q and k streamed in chunks, float32 on the FFMA
+    kernel) against the plain version within its bars, one launch a
+    call and no plain version on the card, each timed beside SDPA and
+    its bound (the pad copies timed apart and inside the call's time);
+    then utils.perf_probe on full-width, full-depth olmo-1b: train_4k at
+    batch 1 under ozaki1-p4+cached and decode_32k at batch 4 under
+    ozaki1-p4 (the step at position 32767), each step profiled, device
+    time per emulation tag and call site beside its bound (the share of
+    the bound must not exceed 1.05, and the tagged ranges must cover the
+    step's emulation-kernel time within 5 %), model FLOPs and mfu; then
+    the four examples/*_torch.py at their default sizes (serve_lm_torch
+    on olmo-1b's smoke config, train_emulated_lm_torch --small --steps
+    20), each on the kernels (launch counts read around them, no plain
+    version on the card).
 
 After phases 20-23, one line names the device kernels that the
 library yardsticks (cuBLAS's batched DGEMM, scaled_dot_product_attention
@@ -1046,12 +1067,12 @@ def device_summary(prof, prof_wall_ms: float, top_n: int = 4) -> dict:
     """Device-busy time (the union of kernel intervals), idle share of the
     profiled wall time, the device time of the top kernels by name and
     that of EmuGEMM-II (its plane route's kernels: the encode, the plane
-    GEMM, and the residue forms' relayout and residue plane GEMM)."""
-    from torch.autograd import DeviceType
+    GEMM, and the residue forms' relayout and residue plane GEMM). The
+    device spans the profiler draws for user annotations (an emulated
+    GEMM's ``gemm_scope``) are no kernels and are left out."""
+    from repro_torch.utils.perf_probe import device_kernels
     spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
+    for e in device_kernels(list(prof.events())):
         s, t = e.time_range.start, e.time_range.end
         spans.append((s, t))
         label = kernel_label(e.name)
@@ -7117,6 +7138,186 @@ def guard_phase(dev):
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 31: K10's ragged and wide head dims, utils.perf_probe on olmo-1b's
+# train_4k and decode_32k cells, and the four examples/*_torch.py. After
+# every wall of phases 20-30: perf_probe's profiles are the process's
+# first torch.profiler sessions.
+# ---------------------------------------------------------------------------
+
+K10_NEW = (("bfloat16", 72), ("float16", 72), ("float32", 72),
+           ("float32", 100), ("bfloat16", 320), ("float32", 320),
+           ("bfloat16", 512), ("float32", 512))
+K10_NEW_SHAPE = (1, 16, 16, 2048, 2048)       # B, H, KVH, S_q, S_k
+PROBE_CELLS = (("train_4k", "ozaki1-p4+cached", 1),
+               ("decode_32k", "ozaki1-p4", 4))
+PROBE_SHARE_MAX = 1.05
+PROBE_COVERAGE_TOL = 0.05
+EXAMPLES = (("quickstart_torch", []), ("scientific_dgemm_torch", []),
+            ("serve_lm_torch", ["--arch", "olmo-1b"]),
+            ("train_emulated_lm_torch", ["--small", "--steps", "20"]))
+
+
+def k10_new_phase(dev):
+    """K10 at the new head dims: the main path (every case once, the
+    counts read around it), each case against the plain version within
+    ATTN_TOL, then timed beside SDPA and the bound of its type (16-bit:
+    the bf16 tensor-core peak; float32: the peak of the kernel's
+    arithmetic)."""
+    gen = torch.Generator(device=dev).manual_seed(31)
+    b, h, kvh, sq, sk = K10_NEW_SHAPE
+    inputs = {}
+    for dt, d in K10_NEW:
+        inputs[dt, d] = attn_inputs(gen, dev, ("", b, h, kvh, sq, sk, d,
+                                               True, None, dt))
+    cases = [(dt, d, causal) for dt, d in K10_NEW for causal in (True, False)]
+    torch.cuda.synchronize()
+    flash_attn.COUNTS.reset()
+    outs = [flash_attn.flash_attention(*inputs[dt, d], causal=causal)
+            for dt, d, causal in cases]
+    torch.cuda.synchronize()
+    c = flash_attn.LaunchCounts(**vars(flash_attn.COUNTS))
+    kernels = [flash_attn.instance(getattr(torch, dt), d).kernel
+               for dt, d, _ in cases]
+    want = (len(cases), kernels.count("ffma"), kernels.count("wgmma-3xtf32"),
+            kernels.count("wgmma-3xtf32"), 0)
+    got = (c.launches, c.launches_ffma, c.launches_3xtf32, c.launches_split,
+           c.plain_cuda_calls)
+    if got != want:
+        raise AssertionError(f"[k10 new] launches {got}, expected {want}")
+    max_err = dict.fromkeys(ATTN_ERR_KEY.values(), 0.0)
+    rows = []
+    for (dt, d, causal), out, kernel in zip(cases, outs, kernels):
+        q, k, v = inputs[dt, d]
+        err = check_close(f"K10 D={d} {dt} causal={causal}", out,
+                          flash_attn.flash_attention_plain(q, k, v, causal),
+                          ATTN_TOL[dt], max_err, ATTN_ERR_KEY[dt])
+        inst = flash_attn.instance(q.dtype, d)
+
+        def run():
+            return flash_attn.flash_attention(q, k, v, causal=causal)
+        bms, by = attn_bound(b, h, kvh, sq, sk, d, causal, None,
+                             kernel if dt == "float32" else "wgmma")
+        row = {"dtype": dt, "d": d, "causal": causal,
+               "shape": [b, h, kvh, sq, sk, d],
+               "instance": dataclasses.asdict(inst), "max_abs_err": err,
+               "ms": time_ms(run, 10),
+               "plain_ms": time_ms(lambda: flash_attn.flash_attention_plain(
+                   q, k, v, causal), 2),
+               "library_ms": time_ms(lambda: torch.nn.functional.
+                                     scaled_dot_product_attention(
+                                         q, k, v, is_causal=causal), 10),
+               "bound_ms": bms, "bound_by": by}
+        if inst.width != d:
+            row["pad_ms"] = time_ms(lambda: [
+                torch.nn.functional.pad(x, (0, inst.width - d))
+                for x in (q, k, v)], 10)
+        if inst.slices > 1:
+            # Q K^T computed once a slice: the flops past the bound's.
+            pairs = int(flash_attn.visible(sq, sk, causal, None).sum())
+            row["recomputed_qk_flops"] = (inst.slices - 1) * 2 * b * h \
+                * pairs * inst.width
+        rows.append(row)
+        log(f"[k10 new] D={d} {dt} causal={causal} ({kernel}, width "
+            f"{inst.width}, {inst.slices} slice(s)): kernel {row['ms']:.4f} "
+            f"ms, plain {row['plain_ms']:.4f} ms, sdpa "
+            f"{row['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}), max "
+            f"|diff| {err:.3g}" + (f", pads {row['pad_ms']:.4f} ms"
+                                   if "pad_ms" in row else ""))
+    del inputs, outs
+    return c, max_err, rows
+
+
+def probe_phase(dev):
+    """utils.perf_probe on olmo-1b's two cells: per tag and site the
+    share of the bound (at most PROBE_SHARE_MAX) and the tagged ranges'
+    cover of the step's emulation-kernel time (within
+    PROBE_COVERAGE_TOL)."""
+    from repro_torch.utils import perf_probe
+    out = {}
+    for shape, spec, batch in PROBE_CELLS:
+        t0 = time.perf_counter()
+        res = perf_probe.probe("olmo-1b", shape, spec, batch=batch,
+                               device=dev)
+        s = perf_probe.summary(res)
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+        s["phase_s"] = time.perf_counter() - t0
+        log(f"[probe] olmo-1b {shape} batch {batch} under {spec}, "
+            f"{s['layers']} layers: step {s['wall_s']:.4f} s, model flops "
+            f"{s['model_flops']:.4e}, mfu {s['mfu']}; emulation "
+            f"kernels {s['emulation_kernel_ms']:.3f} ms, in tagged ranges "
+            f"{s['tagged_emulation_kernel_ms']:.3f} ms (coverage "
+            f"{s['coverage']})")
+        for r in s["rows"]:
+            log(f"[probe] {shape} {r['tag']} {r['site']}: {r['calls']} "
+                f"calls, modeled {r['modeled_gb']:.4f} GB, device "
+                f"{r['device_ms']:.4f} ms (emulation kernels "
+                f"{r['emu_kernel_ms']:.4f}), bound {r['bound_ms']:.4f} ms, "
+                f"share {r['share']}, paired {r['paired']}")
+        if not s["rows"] or s["coverage"] is None:
+            raise AssertionError(f"[probe] {shape}: no emulation rows or "
+                                 "no emulation-kernel time in the trace")
+        high = [(r["tag"], r["site"], r["share"]) for r in s["rows"]
+                if r["share"] is None or r["share"] > PROBE_SHARE_MAX]
+        if high:
+            raise AssertionError(f"[probe] {shape}: shares of the bound "
+                                 f"above {PROBE_SHARE_MAX} (or no device "
+                                 f"time): {high}")
+        if abs(1.0 - s["coverage"]) > PROBE_COVERAGE_TOL:
+            raise AssertionError(
+                f"[probe] {shape}: the tagged ranges hold "
+                f"{s['tagged_emulation_kernel_ms']:.3f} ms of the step's "
+                f"{s['emulation_kernel_ms']:.3f} ms of emulation kernels")
+        out[shape] = s
+    return out
+
+
+def examples_phase(dev):
+    """The four examples at their default sizes on the card, the kernel
+    modules' launch counts read around each (no plain version on the
+    card)."""
+    import importlib.util
+    mods = (ozaki1, ozaki2, ozaki3m, decompose, matmul_int8, flash_attn)
+    out = {}
+    for name, argv in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(HERE, "examples", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        for m in mods:
+            m.COUNTS.reset()
+        t0 = time.perf_counter()
+        mod.main(argv + ["--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {f"{m.__name__.rsplit('.', 1)[1]}.{f}": v for m in mods
+                    for f, v in kernel_launches(m.COUNTS).items()}
+        if any(m.COUNTS.plain_cuda_calls for m in mods):
+            raise AssertionError(f"[examples] {name} ran a plain version on "
+                                 "the card")
+        out[name] = {"argv": argv, "wall_s": wall, "launches": launches}
+        log(f"[examples] {name} {' '.join(argv)}: {wall:.2f} s, launches "
+            f"{launches}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    if not all(v["launches"] for k, v in out.items()
+               if k != "serve_lm_torch"):
+        raise AssertionError(f"[examples] an emulated example launched no "
+                             f"kernel: {out}")
+    return out
+
+
+def phase31(dev):
+    t0 = time.perf_counter()
+    k10 = k10_new_phase(dev)
+    probe = probe_phase(dev)
+    examples = examples_phase(dev)
+    log(f"[phase 31] {time.perf_counter() - t0:.1f} s")
+    return k10, probe, examples
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -7151,6 +7352,9 @@ def main() -> int:
     qwen = qwen_phase(dev, view_tokens)
     moe_walls = moe_phase(dev, view_tokens)
     gparams, gprepped, new_paths = new_path_phases(dev, view_tokens)
+    # Phase 31: its perf_probe profiles are the process's first profiler
+    # sessions, after every wall of phases 20-30.
+    (k10_counts, k10_err, k10_rows), probe, examples = phase31(dev)
     yardsticks = yardstick_phase(dev)
     gk = granite_kernel_phase(dev, configs.get_config(GRANITE), gparams,
                               gprepped, view_tokens)
@@ -7711,6 +7915,30 @@ def main() -> int:
             row["repaired_cases"] = [
                 c for c in row["cases"] if c["dtype"] == "float16"
                 or c["shape"][5] not in flash_attn.HEAD_DIMS]
+    # Phase 31: K10's ragged and wide heads, by the kernel that ran them.
+    k10_new = {"flash_attention": (("wgmma", "wgmma-wide"), k10_counts.launches
+                                   - k10_counts.launches_ffma
+                                   - k10_counts.launches_3xtf32),
+               "flash_attention_3xtf32": (("wgmma-3xtf32",),
+                                          k10_counts.launches_3xtf32),
+               "flash_attention_ffma": (("ffma",), k10_counts.launches_ffma),
+               "flash_split_3xtf32": ((), k10_counts.launches_split)}
+    for row in kernels:
+        if row["name"] in k10_new:
+            kernel, launches = k10_new[row["name"]]
+            row["phase31"] = {
+                "launches": launches,
+                "max_abs_err": {k: v for k, v in k10_err.items() if v},
+                "cases": [c for c in k10_rows
+                          if c["instance"]["kernel"] in kernel],
+                "per": "K10's ragged (D % 8 != 0: zero-padded copies at "
+                       "the next multiple of 8, pad_ms inside ms) and wide "
+                       "(D > 256: one block a 256-column output slice; "
+                       "bf16 / float16 on the wgmma-wide kernel) "
+                       f"heads at {list(K10_NEW_SHAPE)}, causal and full, "
+                       "one call each on the main path; library: "
+                       "scaled_dot_product_attention"}
+    print(json.dumps({"probe": probe, "examples": examples}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,9 +24,12 @@ class BackendCapabilities:
     as 3M under Scheme II and as 4M under Scheme I).
     Both built-in backends take every shape as it is (the CUDA kernel
     masks ragged edges itself), so, unlike the reference, there is no
-    alignment to pad to."""
+    alignment to pad to. ``peak_key`` is the key of the backend's
+    hardware into ``repro_torch.core.traffic.BACKEND_PEAKS`` ('gpu' for
+    both: the plain versions run on the same card as the kernels)."""
     schemes: frozenset
     operand_dtypes: frozenset
+    peak_key: str
 
 
 class KernelBackend(abc.ABC):

@@ -27,6 +27,7 @@ _CAPS = BackendCapabilities(
     operand_dtypes=frozenset({torch.float32, torch.bfloat16, torch.float16,
                               torch.float64, torch.complex64,
                               torch.complex128}),
+    peak_key="gpu",
 )
 
 

@@ -225,7 +225,7 @@ def _run_plan(plan: GemmPlan, a, b) -> torch.Tensor:
         telemetry.record_gemm(
             scheme=scheme, count=count, backend=plan.backend, impl=impl,
             m=plan.m, k=plan.k, n=plan.n, out_bytes=plan.out_dtype.itemsize,
-            batch=batch)
+            batch=batch, in_bytes=a.element_size())
     with telemetry.gemm_scope(scheme, count, plan.backend, impl):
         return backends.get_backend(plan.backend).matmul(
             a, b, plan.cfg, plan.out_dtype, plan.blocks)

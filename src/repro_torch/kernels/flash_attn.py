@@ -16,24 +16,34 @@ finite -1e30, as in the reference, so a row whose keys are all masked
 (a window, or Sq > Sk) averages v uniformly instead of giving NaN.
 
 The kernel replaces the Pallas kernel ``repro.kernels.flash_attn.
-flash_attention``. ``csrc/flash_attn.cu`` holds three kernels, each
-compiled for the head dims 32, 64, 128 and 256, and :func:`instance` names
-the one a call runs, statically by dtype and head dim. Any head dim
-D <= 256 that is a multiple of 8 runs on the instance of the next
-compiled dim ``Instance.d`` (hubert-xlarge's D = 80 on 128, deepseek-v3's
-D = 192 on 256): the tensor maps' inner extent is the true D and their
-boxes ``d`` wide, so TMA fills the columns past D with zeros on chip, and
-only D columns are stored; nothing is padded in device memory, and the
-scale is ``1 / sqrt(D)`` of the true D. bfloat16 and float16 (the .f16
-form of the same ``wgmma`` shapes) run on the TMA-fed, warp-specialised
-``wgmma`` kernel (128 query rows a block, k and v tiles of ``bk`` keys in
-a ring of ``stages``); float32 at D <= 128 on the same structure in
-3xTF32 (``wgmma`` .tf32: every operand split as hi + lo, three products),
-after a pre-pass (:func:`split_3xtf32`) that writes the parts, v
-transposed; float32 at 128 < D <= 256 on the FFMA kernel (64 query rows
-a block, true float32 products), because the 3xTF32 kernel's two q parts
-alone would take all of a block's shared memory there. Any other dtype,
-a ragged head dim or one past 256 raises; nothing falls back.
+flash_attention``. ``csrc/flash_attn.cu`` holds three kernels, and
+:func:`instance` names the one a call runs, statically by dtype and head
+dim; every D >= 1 runs on one of them, as the reference runs any D.
+
+The kernels read rows of ``Instance.width`` elements, D rounded up to 8:
+a tensor map wants 16-byte row strides, so a ragged head (D % 8 != 0)
+runs on zero-padded copies of q, k and v (torch data movement before the
+launch, counted in the call's time). Zero columns add nothing to q k^T;
+the scale stays ``1 / sqrt(D)`` of the true D, and the kernel writes the
+output at the true D. A width up to 256 runs on the instance compiled for
+the next of 32, 64, 128 and 256, ``Instance.d`` (hubert-xlarge's D = 80
+on 128, deepseek-v3's D = 192 on 256): the tensor maps' inner extent is
+the width and their boxes ``d`` wide, so TMA fills the columns past it
+with zeros on chip. bfloat16 and float16 (the .f16 form of the same
+``wgmma`` shapes) run on the TMA-fed, warp-specialised ``wgmma`` kernel
+(128 query rows a block, k and v tiles of ``bk`` keys in a ring of
+``stages``); float32 at widths up to 128 on the same structure in 3xTF32
+(``wgmma`` .tf32: every operand split as hi + lo, three products), after
+a pre-pass (:func:`split_3xtf32`) that writes the parts, v transposed;
+float32 past 128 on the FFMA kernel (64 query rows a block, true float32
+products), because the 3xTF32 kernel's two q parts alone would take all
+of a block's shared memory at 256. Past 256 a query tile runs on
+``Instance.slices`` blocks, one for each 256-column slice of the output,
+each computing the scores over the whole width, so q k^T is computed
+once a slice: bfloat16 and float16 on the ``wgmma-wide`` kernel (q and k
+streamed by TMA in 64-column chunks through a ring of ``stages``, v's
+slice after them), float32 on the FFMA kernel (q and k in chunks of
+256). Any other dtype raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -57,33 +67,40 @@ TF32_MASK = -(1 << 13)
 class Instance:
     """The compiled kernel a (dtype, head dim) runs on, with its tiles
     (``csrc/flash_attn.cu``: ``Tiles``, ``Tiles32`` and ``Layout32``)."""
-    kernel: str        # "wgmma" (bf16, float16), "wgmma-3xtf32" or "ffma"
+    kernel: str        # "wgmma", "wgmma-wide" (bf16, float16), "wgmma-3xtf32"
+                       # or "ffma"
     bq: int            # query rows of a block
     bk: int            # keys of a k/v tile
-    stages: int        # k/v tiles in flight
-    d: int             # the compiled head dim that runs the call
+    stages: int        # k/v tiles in flight (wide: q/k chunks)
+    d: int             # the compiled head dim (columns of a slice) that runs
+    width: int         # the rows the kernel reads: D rounded up to 8
+    slices: int = 1    # blocks a query tile, one a 256-column output slice
 
 
 def instance(dtype: torch.dtype, d: int) -> Instance:
     """The kernel instance for q, k, v of ``dtype`` and head dim ``d``;
-    raises for what has none."""
+    raises for a dtype without one."""
     if dtype not in _KERNEL_DTYPES:
         raise NotImplementedError(
             f"flash_attention takes float32, bfloat16 or float16 q, k, v, "
             f"got {dtype}")
-    if not (0 < d <= HEAD_DIMS[-1] and d % 8 == 0):
-        raise NotImplementedError(
-            f"flash_attention runs head dims D <= {HEAD_DIMS[-1]} that are "
-            f"multiples of 8, got D={d} (a ragged or wider head is "
-            "ROADMAP.md § 2 item 5)")
-    di = next(x for x in HEAD_DIMS if x >= d)
+    if d < 1:
+        raise ValueError(f"flash_attention: head dim D={d}")
+    width = -(-d // 8) * 8
+    if width > HEAD_DIMS[-1]:
+        slices = -(-width // HEAD_DIMS[-1])
+        if dtype == torch.float32:
+            return Instance("ffma", 64, 32, 1, HEAD_DIMS[-1], width, slices)
+        return Instance("wgmma-wide", 128, 64, 4, HEAD_DIMS[-1], width,
+                        slices)
+    di = next(x for x in HEAD_DIMS if x >= width)
     if dtype != torch.float32:
         return Instance("wgmma", 128, 64 if di == 256 else 128,
-                        3 if di <= 64 else 2, di)
+                        3 if di <= 64 else 2, di, width)
     if di == 256:
-        return Instance("ffma", 64, 32, 1, di)
+        return Instance("ffma", 64, 32, 1, di, width)
     return Instance("wgmma-3xtf32", 128, 32 if di == 128 else 64,
-                    1 if di == 128 else 2, di)
+                    1 if di == 128 else 2, di, width)
 
 
 @dataclasses.dataclass
@@ -104,6 +121,10 @@ class LaunchCounts:
 
 
 COUNTS = LaunchCounts()
+# Callables that get each launched call's shape (b, h, kvh, sq, sk, d,
+# causal, window, dtype), empty unless a measurement runs
+# (``utils.roofline.analyze_step`` counts the kernel's work from them).
+OBSERVERS: list = []
 
 
 def visible(sq: int, sk: int, causal: bool, window: int | None,
@@ -172,7 +193,11 @@ def split_3xtf32_plain(q, k, v):
     return (*tf32_split(q), *tf32_split(k), *tf32_split(vt))
 
 
-def _aligned(x: torch.Tensor) -> torch.Tensor:
+def _aligned(x: torch.Tensor, width: int) -> torch.Tensor:
+    """``x`` contiguous and 16-byte aligned, its last axis zero-padded to
+    ``width`` (a copy where it is ragged)."""
+    if x.shape[-1] != width:
+        return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
     x = x.contiguous()
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
@@ -181,13 +206,13 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
 def _library():
     from repro_torch.kernels import build
     lib = build.load("flash_attn")
-    lib.flash_attention.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+    lib.flash_attention.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                                     + [ctypes.c_float] + [ctypes.c_int] * 3
                                     + [ctypes.c_void_p])
     lib.flash_split_tf32.argtypes = ([ctypes.c_void_p] * 4
                                      + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.flash_attention_tf32.argtypes = ([ctypes.c_void_p] * 2
-                                         + [ctypes.c_int] * 7
+                                         + [ctypes.c_int] * 8
                                          + [ctypes.c_float]
                                          + [ctypes.c_int] * 3
                                          + [ctypes.c_void_p])
@@ -239,8 +264,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the sequence length); they do not choose the CUDA kernel's tiles,
     which are its own. The scale is ``softmax_scale or 1 / sqrt(D)``.
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (float32 at D <= 128: the pre-pass, then the 3xTF32 kernel) or raise
-    (a ragged head dim, or one past 256: :func:`instance`).
+    (float32 at widths up to 128: the pre-pass, then the 3xTF32 kernel;
+    a ragged D on zero-padded copies, :func:`instance`) or raise.
     """
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
@@ -264,26 +289,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise NotImplementedError(
             f"flash_attention takes q, k, v of one type, got {q.dtype}, "
             f"{k.dtype}, {v.dtype}")
-    kernel = instance(q.dtype, d).kernel
+    inst = instance(q.dtype, d)
+    kernel, width = inst.kernel, inst.width
     scale = softmax_scale or 1.0 / math.sqrt(d)
     mask = (int(bool(causal)), int(window is not None),
             0 if window is None else int(window))
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    out = torch.empty_like(q)
+    q, k, v = (_aligned(x, width) for x in (q, k, v))
+    out = q.new_empty((b, h, sq, d))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if kernel == "wgmma-3xtf32":
         parts = split_3xtf32(q, k, v)
         rc = _library().flash_attention_tf32(
             _pointers(parts), out.data_ptr(), b, h, kvh, sq, sk,
-            parts[4].shape[-1], d, scale, *mask, stream)
+            parts[4].shape[-1], width, d, scale, *mask, stream)
     else:
         rc = _library().flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-            kvh, sq, sk, d, _DTYPE_CODE[q.dtype], scale, *mask, stream)
+            kvh, sq, sk, width, d, _DTYPE_CODE[q.dtype], scale, *mask,
+            stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed (code {rc}) for "
                            f"q {tuple(q.shape)}, k {tuple(k.shape)}")
     COUNTS.launches += 1
     COUNTS.launches_3xtf32 += kernel == "wgmma-3xtf32"
     COUNTS.launches_ffma += kernel == "ffma"
+    for observe in OBSERVERS:
+        observe({"b": b, "h": h, "kvh": kvh, "sq": sq, "sk": sk, "d": d,
+                 "causal": bool(causal), "window": window,
+                 "dtype": out.dtype})
     return out

@@ -70,9 +70,10 @@ from repro_torch.telemetry import record as _tele
 
 
 def _record_consume(scheme: str, count: int, backend: str, route: str,
-                    reason: str, m: int, k: int, prep) -> None:
+                    reason: str, m: int, k: int, prep, in_bytes: int) -> None:
     """One prepared-consume route (the fused kernel, or the plain version
-    on the 'torch' backend) and its GEMM, when telemetry is enabled."""
+    on the 'torch' backend) and its GEMM, when telemetry is enabled;
+    ``in_bytes`` is the lhs's element size."""
     if not telemetry.enabled():
         return
     telemetry.record_event(_tele.PREPARED_CONSUME, {
@@ -80,7 +81,7 @@ def _record_consume(scheme: str, count: int, backend: str, route: str,
     telemetry.record_gemm(
         scheme=scheme, count=count, backend=backend,
         impl="prepared-kernel" if route == "fused" else "prepared-torch",
-        m=m, k=k, n=prep.n)
+        m=m, k=k, n=prep.n, in_bytes=in_bytes)
 
 # The plane route's tiles, whose K tile is the planes' padding.
 PLANE_BLOCKS = Blocks(bm=128, bn=ozaki1.PLANE_N, bk=ozaki1.PLANE_K)
@@ -366,7 +367,8 @@ def matmul_prepared_scheme2(a: torch.Tensor, prep: PreparedResidues,
     route = "fused" if name == "cuda" else "torch"
     count = len(prep.moduli)
     _record_consume("ozaki2", count, name, route,
-                    "-" if name == "cuda" else "stacked_layout", m, k, prep)
+                    "-" if name == "cuda" else "stacked_layout", m, k, prep,
+                    a.element_size())
     with telemetry.gemm_scope("ozaki2", count, name, "prepared-" + (
             "kernel" if name == "cuda" else "torch")):
         return backends.get_backend(name).matmul_prepared_residues(
@@ -406,7 +408,8 @@ def matmul_prepared(a: torch.Tensor, prep,
     fused = prep.backend == "cuda"
     _record_consume("ozaki1", prep.p, prep.backend,
                     "fused" if fused else "torch",
-                    "-" if fused else "interleaved_layout", m, k, prep)
+                    "-" if fused else "interleaved_layout", m, k, prep,
+                    a.element_size())
     with telemetry.gemm_scope("ozaki1", prep.p, prep.backend, "prepared-" + (
             "kernel" if fused else "torch")):
         return backends.get_backend(prep.backend).matmul_mixed(

@@ -1,8 +1,10 @@
 """The training and serve steps of the port (``repro.launch.steps``), on
 one card.
 
-``make_loss_fn``, ``make_train_step``, ``make_prefill_step`` and
-``make_decode_step`` mirror the reference's, without its shardings and
+``make_loss_fn``, ``make_train_step``, ``make_prefill_step``,
+``make_decode_step`` and the abstract state (``abstract_params``,
+``abstract_opt``, ``abstract_cache``, on the meta device) mirror the
+reference's, without its shardings and
 ``jit``: PyTorch runs eagerly, and the slice runs on one card. The train
 step is pure, as the reference's jitted one is: it takes a state
 {"params", "opt"} and a batch of numpy arrays and returns a new state
@@ -30,6 +32,27 @@ from repro_torch.optim import (clip_by_global_norm, make_optimizer,
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 MTP_WEIGHT = 0.3
+
+
+# ---------------------------------------------------------------------------
+# Abstract state: meta tensors of the reference's shapes and dtypes (its
+# jax.eval_shape trees), built without drawing or allocating anything, so
+# that deepseek-v3-671b's 671 B parameters can be counted on any host. The
+# reference's state_specs / batch_specs / named are mesh-shaped and wait
+# for the port's meshes (ROADMAP.md § 1 item 8).
+# ---------------------------------------------------------------------------
+
+def abstract_params(arch: ArchConfig):
+    return M.init_params(arch.model, device="meta")
+
+
+def abstract_opt(arch: ArchConfig, params):
+    opt_init, _ = make_optimizer(arch.train.optimizer)
+    return opt_init(params)
+
+
+def abstract_cache(arch: ArchConfig, batch: int, max_seq: int):
+    return M.init_cache(arch.model, batch, max_seq, device="meta")
 
 
 def make_loss_fn(arch: ArchConfig, policy: GemmPolicy):

@@ -142,7 +142,8 @@ def policy_einsum(eq: str, x: torch.Tensor, y: torch.Tensor,
 
 # ---------------------------------------------------------------------------
 # Initializers: a torch.Generator on the target device, so full-width
-# weights are drawn where they live.
+# weights are drawn where they live (None on the meta device, where
+# nothing is drawn).
 # ---------------------------------------------------------------------------
 
 def he_init(gen: torch.Generator, shape, dtype, device,
@@ -153,6 +154,8 @@ def he_init(gen: torch.Generator, shape, dtype, device,
     L x 256 x 7168 x 2048) has a float32 copy of a layer's size; the
     layout, the dtype and the scale are the reference's (ROADMAP.md
     § 3)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     fan = fan_in if fan_in is not None else shape[-2]
     std = (2.0 / max(1, fan)) ** 0.5
 

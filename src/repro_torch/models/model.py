@@ -93,11 +93,14 @@ def init_params(mcfg: ModelConfig, seed: int = 0, device="cuda"):
     """Seeded random parameters in the reference's layout (a
     ``torch.Generator`` draws them on ``device``; the numbers differ
     from ``jax.random``'s — use :mod:`repro_torch.convert` to carry JAX
-    parameters over)."""
+    parameters over). On ``device="meta"`` nothing is drawn and no memory
+    is touched: the tree holds meta tensors of the reference's shapes and
+    dtypes (``launch.steps.abstract_params``)."""
     device = resolve_device(device)
     dtype = getattr(torch, mcfg.dtype)
     pat, n_groups, tail = _groups(mcfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = (None if device.type == "meta"
+           else torch.Generator(device=device).manual_seed(seed))
     params = {"emb": emb_init(gen, (pad_vocab(mcfg.vocab), mcfg.d_model),
                               dtype, device),
               "ln_f": init_norm(mcfg.norm, mcfg.d_model, dtype, device)}

@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Any, Iterator, Mapping
+from typing import Any, Callable, Iterator, Mapping
 
 from repro_torch.telemetry import registry as _reg
 from repro_torch.telemetry.registry import REGISTRY
@@ -160,6 +160,12 @@ def modeled_gemm_bytes(
     return mult * traffic.scheme1_fused_bytes(s, int(count), out_bytes)
 
 
+# Callables that get every recorded GEMM call (record_gemm), empty unless
+# a measurement runs: utils.perf_probe and utils.roofline.analyze_step
+# append one for their step and remove it after.
+OBSERVERS: list[Callable[[dict], None]] = []
+
+
 def record_gemm(
     *,
     scheme: str,
@@ -172,11 +178,15 @@ def record_gemm(
     mesh_shape: Any = None,
     out_bytes: int = 4,
     batch: int | None = None,
+    in_bytes: int | None = None,
 ) -> None:
     """Record one emulated GEMM call: the plan counters (traces, modeled
     bytes by tag) and the execution counters (calls, modeled HBM bytes),
     both now. ``batch`` marks a strided-batched launch: it enters the
-    shape class ('BxMxKxN') and multiplies the modeled bytes."""
+    shape class ('BxMxKxN') and multiplies the modeled bytes. Each of
+    :data:`OBSERVERS` then gets the call's fields as a dict (tag, site,
+    scheme, count, m, k, n, batch, out_bytes, ``in_bytes``: the operands'
+    element size, modeled_bytes)."""
     if not _reg.enabled():
         return
     labels = gemm_labels(scheme, backend, impl, m, k, n, mesh_shape, batch)
@@ -193,6 +203,11 @@ def record_gemm(
     REGISTRY.inc(EMULATED_CALLS, 1, labels)
     if nbytes:
         REGISTRY.inc(MODELED_HBM_BYTES, nbytes, labels)
+    for observe in OBSERVERS:
+        observe({"tag": tag, "site": labels["site"], "scheme": scheme,
+                 "count": int(count), "m": int(m), "k": int(k), "n": int(n),
+                 "batch": batch, "out_bytes": int(out_bytes),
+                 "in_bytes": in_bytes, "modeled_bytes": int(nbytes)})
 
 
 def record_collective(kind: str, mesh_shape: Any, nbytes_per_device: int) -> None:

@@ -1096,8 +1096,7 @@ def test_flash_attention_any_head_dim_on_card(cuda_device, dtype, tol, d):
     the tensor maps read only D columns (the rest arrive as zeros) and
     the kernels store only D; within the bars of the plain version, the
     3xTF32 pre-pass bit for bit with its plain version (v^T's D rows),
-    every output finite, and o's row stride D. Ragged D and D > 256 raise
-    on the card too, before any launch."""
+    every output finite, and o's row stride D."""
     from repro_torch.kernels import flash_attn
     g = torch.Generator(device=cuda_device).manual_seed(3000 + d)
     for (b, h, kvh, sq, sk, causal, window) in [
@@ -1121,12 +1120,39 @@ def test_flash_attention_any_head_dim_on_card(cuda_device, dtype, tol, d):
         assert out.stride()[-2] == d and bool(torch.isfinite(out).all())
         torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
                                    atol=tol)
-    for bad in (44, 264):
-        x = torch.randn(1, 2, 64, bad, device=cuda_device).to(dtype)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 2.5e-3)])
+@pytest.mark.parametrize("d", [1, 44, 71, 100, 257, 264, 320, 512])
+def test_flash_attention_ragged_and_wide_on_card(cuda_device, dtype, tol, d):
+    """A ragged head (D % 8 != 0) runs on zero-padded copies at the next
+    width and is written at the true D (odd D one element at a time); a
+    head past 256 runs on the FFMA kernel, one block a 256-column slice
+    of the output, each over the whole width's scores. One launch a
+    call, no plain version on the card, within the plain version's bars,
+    o's row stride the true D."""
+    from repro_torch.kernels import flash_attn
+    g = torch.Generator(device=cuda_device).manual_seed(4000 + d)
+    inst = flash_attn.instance(dtype, d)
+    for (b, h, kvh, sq, sk, causal, window) in [
+            (1, 4, 2, 200, 200, True, None), (1, 2, 2, 100, 333, False, None),
+            (2, 4, 1, 257, 257, True, 96)]:
+        q, k, v = (torch.randn(b, n, s, d, generator=g, device=cuda_device)
+                   .to(dtype) for n, s in ((h, sq), (kvh, sk), (kvh, sk)))
         flash_attn.COUNTS.reset()
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            flash_attn.flash_attention(x, x, x)
-        assert flash_attn.COUNTS.launches == 0
+        out = flash_attn.flash_attention(q, k, v, causal=causal,
+                                         window=window, bq=sq, bk=sk)
+        c = flash_attn.COUNTS
+        assert (c.launches, c.launches_ffma, c.plain_cuda_calls) == (
+            1, int(inst.kernel == "ffma"), 0)
+        ref = flash_attn.flash_attention_plain(q, k, v, causal, window)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and out.shape == q.shape
+        assert out.stride()[-2] == d and bool(torch.isfinite(out).all())
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
+                                   atol=tol)
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])
@@ -1193,9 +1219,6 @@ def test_library_kernels_refuse_what_they_were_not_built_for(cuda_device):
     x = a.double()
     with pytest.raises(NotImplementedError):
         decompose.decompose_interleave(x, scheme1.pow2_scale(x, 1), 17, 7)
-    q = torch.randn(1, 2, 64, 44, device=cuda_device)     # ragged D
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flash_attn.flash_attention(q, q, q)
     q = torch.randn(1, 2, 64, 64, device=cuda_device, dtype=torch.float64)
     with pytest.raises(NotImplementedError):
         flash_attn.flash_attention(q, q, q)

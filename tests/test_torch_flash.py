@@ -106,19 +106,27 @@ def test_flash_scale_and_refusals():
 
 
 @pytest.mark.parametrize("dtype,d,expected", [
-    ("bfloat16", 32, ("wgmma", 128, 128, 3)),
-    ("bfloat16", 64, ("wgmma", 128, 128, 3)),
-    ("bfloat16", 128, ("wgmma", 128, 128, 2)),
-    ("bfloat16", 256, ("wgmma", 128, 64, 2)),
-    ("float32", 32, ("wgmma-3xtf32", 128, 64, 2)),
-    ("float32", 128, ("wgmma-3xtf32", 128, 32, 1)),
-    ("float32", 256, ("ffma", 64, 32, 1)),
-    ("float16", 128, ("wgmma", 128, 128, 2)),
-    ("bfloat16", 80, ("wgmma", 128, 128, 2)),
-    ("float32", 80, ("wgmma-3xtf32", 128, 32, 1)),
-    ("bfloat16", 192, ("wgmma", 128, 64, 2)),
-    ("float32", 192, ("ffma", 64, 32, 1)),
-    ("float16", 8, ("wgmma", 128, 128, 3)),
+    ("bfloat16", 32, ("wgmma", 128, 128, 3, 32, 32, 1)),
+    ("bfloat16", 64, ("wgmma", 128, 128, 3, 64, 64, 1)),
+    ("bfloat16", 128, ("wgmma", 128, 128, 2, 128, 128, 1)),
+    ("bfloat16", 256, ("wgmma", 128, 64, 2, 256, 256, 1)),
+    ("float32", 32, ("wgmma-3xtf32", 128, 64, 2, 32, 32, 1)),
+    ("float32", 128, ("wgmma-3xtf32", 128, 32, 1, 128, 128, 1)),
+    ("float32", 256, ("ffma", 64, 32, 1, 256, 256, 1)),
+    ("float16", 128, ("wgmma", 128, 128, 2, 128, 128, 1)),
+    ("bfloat16", 80, ("wgmma", 128, 128, 2, 128, 80, 1)),
+    ("float32", 80, ("wgmma-3xtf32", 128, 32, 1, 128, 80, 1)),
+    ("bfloat16", 192, ("wgmma", 128, 64, 2, 256, 192, 1)),
+    ("float32", 192, ("ffma", 64, 32, 1, 256, 192, 1)),
+    ("float16", 8, ("wgmma", 128, 128, 3, 32, 8, 1)),
+    # Ragged heads run on zero-padded copies at the next multiple of 8;
+    # heads past 256 one block a 256-column output slice, 16-bit types on
+    # the wgmma-wide kernel (q and k streamed in chunks), float32 on FFMA.
+    ("bfloat16", 44, ("wgmma", 128, 128, 3, 64, 48, 1)),
+    ("float32", 100, ("wgmma-3xtf32", 128, 32, 1, 128, 104, 1)),
+    ("bfloat16", 512, ("wgmma-wide", 128, 64, 4, 256, 512, 2)),
+    ("float16", 264, ("wgmma-wide", 128, 64, 4, 256, 264, 2)),
+    ("float32", 320, ("ffma", 64, 32, 1, 256, 320, 2)),
 ])
 def test_flash_instance_choice(dtype, d, expected):
     """bf16 and float16 run the wgmma kernel at every compiled head dim
@@ -126,21 +134,21 @@ def test_flash_instance_choice(dtype, d, expected):
     stages at D <= 64); float32 the 3xTF32 wgmma kernel (both parts of q
     and of a k and v tile in shared memory: 32 keys and one stage at
     D = 128), and the FFMA kernel at D = 256, whose q parts alone would
-    fill a block's shared memory. Another head dim that is a multiple of
-    8 runs on the next compiled one (hubert-xlarge's 80 on 128,
-    deepseek-v3's 192 on 256)."""
+    fill a block's shared memory. Another head dim runs on the next
+    compiled one at its width, D rounded up to 8 (hubert-xlarge's 80 on
+    128, deepseek-v3's 192 on 256, a ragged 44 on 64 at width 48), and a
+    width past 256 one block a 256-column slice of the output: bf16 and
+    float16 on the wgmma-wide kernel, float32 on the FFMA kernel."""
     inst = flash_attn.instance(getattr(torch, dtype), d)
-    assert (inst.kernel, inst.bq, inst.bk, inst.stages) == expected
-    assert inst.d == next(x for x in flash_attn.HEAD_DIMS if x >= d)
+    assert (inst.kernel, inst.bq, inst.bk, inst.stages, inst.d, inst.width,
+            inst.slices) == expected
 
 
-@pytest.mark.parametrize("dtype,d", [("float64", 64), ("bfloat16", 44),
-                                     ("float32", 100), ("bfloat16", 512),
-                                     ("float16", 264)])
+@pytest.mark.parametrize("dtype,d", [("float64", 64)])
 def test_flash_instance_refusals(dtype, d):
-    """A dtype without a kernel, a ragged head dim or one past 256 raises,
-    naming the roadmap item; nothing falls back."""
-    with pytest.raises(NotImplementedError, match="ROADMAP|float16 q"):
+    """A dtype without a kernel raises; nothing falls back. Every head
+    dim of the three kernel dtypes has an instance."""
+    with pytest.raises(NotImplementedError, match="float16 q"):
         flash_attn.instance(getattr(torch, dtype), d)
 
 
@@ -151,11 +159,13 @@ def test_flash_instance_refusals(dtype, d):
     ("float32", 80, False, 256, 2e-5),
     ("bfloat16", 192, True, 128, 2e-2),       # deepseek-v3's q/k heads
     ("float32", 192, True, 128, 2e-5),
+    ("bfloat16", 44, True, 128, 2e-2),        # a ragged head
+    ("float32", 300, False, 128, 2e-5),       # past 256: two slices
 ])
 def test_flash_new_dtypes_and_head_dims(dtype, d, causal, sq, tol):
-    """float16 and the head dims 80 and 192 (no compiled instance of their
-    own): the plain version against the reference's Pallas kernel in
-    interpret mode, in q's dtype."""
+    """float16 and the head dims 80, 192, 44 and 300 (no compiled
+    instance of their own): the plain version against the reference's
+    Pallas kernel in interpret mode, in q's dtype."""
     import jax
     q, k, v = _qkv(d + sq, 1, 4, 2, sq, sq, d)
     (jq, tq), (jk, tk), (jv, tv) = (_both(x, dtype) for x in (q, k, v))

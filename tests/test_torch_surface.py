@@ -18,6 +18,7 @@ form runs in the port and does what the keyword form does.
 import dataclasses
 import importlib
 import inspect
+import os
 import pkgutil
 import warnings
 
@@ -46,7 +47,7 @@ MESH_AND_HOST = {   # one card, one host (ROADMAP.md § 1 item 8)
 GUARD_AND_TELEMETRY: set[str] = set()   # ported: nothing left out
 PALLAS_BLOCKS = {   # the CUDA kernels choose their own tiles (§ 3)
     "blocks", "bm", "bn", "bk", "bt", "prologue_a", "prologue_b", "fixed_bk",
-    "m_hint", "align", "staging_budget", "accumulator_budget", "peak_key",
+    "m_hint", "align", "staging_budget", "accumulator_budget",
     "shardable", "batched", "p_eff", "out_bytes"}
 JAX_KEY = {"key"}   # a torch.Generator or an int seed instead (§ 3)
 OMITTED = MESH_AND_HOST | GUARD_AND_TELEMETRY | PALLAS_BLOCKS | JAX_KEY
@@ -81,12 +82,37 @@ SPECIFIC = {
     "models.common.emb_init": "dtype and device from the caller",
     "models.common.he_init": "dtype and device from the caller",
     "models.moe.init_moe": "dtype and device from the caller",
+    "telemetry.record.record_gemm":
+        "in_bytes, the operands' element size, for the per-site bounds of "
+        "utils.perf_probe (its observers)",
+    "utils.perf_probe.attribute":
+        "attributes a profiled eager step (prof), not compiled HLO text",
+    "utils.perf_probe.attribute_emulation":
+        "a profiled eager step and telemetry's calls of it, not HLO text",
+    "utils.perf_probe.main": "argv, so that a caller can run the CLI",
 }
 
 # Modules of the port with no counterpart in the reference.
 PORT_ONLY = {"repro_torch.convert", "repro_torch.kernels.backends.cuda",
              "repro_torch.kernels.backends.reference",
              "repro_torch.kernels.build", "repro_torch.utils.tree"}
+
+
+def _reference_module(name: str):
+    """The reference's module, imported with the environment kept: its
+    ``utils.perf_probe`` sets XLA_FLAGS to 512 host devices at import,
+    which must not reach this process's jax (initialised first) or the
+    subprocesses of later tests."""
+    import jax
+    jax.devices()
+    env = os.environ.get("XLA_FLAGS")
+    try:
+        return importlib.import_module(name)
+    finally:
+        if env is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = env
 
 
 def _pairs():
@@ -96,7 +122,7 @@ def _pairs():
     for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
         tm = importlib.import_module(info.name)
         try:
-            rm = importlib.import_module("repro" + info.name[11:])
+            rm = _reference_module("repro" + info.name[11:])
         except ModuleNotFoundError:
             missing.add(info.name)
             continue
