@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Drives repro_torch only (no jax, nothing of the reference package) on the
-card, with no CPU fallback, in thirty-one phases. Phases 29, 30 and 28 (while
+card, with no CPU fallback, in thirty-two phases. Phases 29, 30 and 28 (while
 emugemm2_planes.cu still compiles), phase 27 (each with nothing else
 resident on the card), phase 26's walls and phases 20-23 run first, so
 that every wall they take comes before the process's first
@@ -361,6 +361,28 @@ and the others follow in their order:
     on olmo-1b's smoke config, train_emulated_lm_torch --small --steps
     20), each on the kernels (launch counts read around them, no plain
     version on the card).
+
+32. meshes on torch.distributed (right after the last build, before
+    phase 27): ranks spawned as processes (a FileStore in a temporary
+    directory) that share cuda:0 over gloo (NCCL with a card a rank);
+    world 2: full-width, full-depth olmo-1b served tensor-parallel on
+    make_host_mesh(model_parallel=2), mesh (1, 2), phase 3's trace under
+    ozaki1-p4 and ozaki1-p4+cached, each rank's tokens bit for bit the
+    one-rank serve's (this process's, before the ranks start), every
+    dense call a column partition with 2 encodes + 1 plane GEMM on the
+    rank's tile, each rank's K1 / K4 launch counts, partition events and
+    modeled collective bytes printed; sharded_matmul at olmo-1b's dense
+    shapes on (1, 2) and (2, 1) (column bit for bit, the row partition
+    at N = 2049 bit for bit the sum of the pinned partials, the tied
+    head's localized prepared planes one K3 a rank, bit for bit), one
+    rank's K1 tile against the plain versions; compressed_psum the same
+    bits on every rank and the integer sum's; a 4-layer olmo-1b
+    data-parallel train step on (2, 1) (2 x 128, ozaki1-p4+cached,
+    AdamW): both ranks' parameters bit for bit equal after 2 steps, the
+    losses within 1e-5 of the one-rank full-batch steps; world 4:
+    sharded_matmul on (2, 2) and (1, 4) (4 row partials, each the same
+    bits on every rank, their sum within 1e-6 of the largest magnitude)
+    and compressed_psum. The walls are those of ranks sharing one card.
 
 After phases 20-23, one line names the device kernels that the
 library yardsticks (cuBLAS's batched DGEMM, scaled_dot_product_attention
@@ -7318,6 +7340,455 @@ def phase31(dev):
     return k10, probe, examples
 
 
+# ---------------------------------------------------------------------------
+# Phase 32: the port's meshes on torch.distributed, one process a rank.
+# The ranks are spawned processes (torch.multiprocessing, a FileStore in
+# a temporary directory) that load the libraries this process built. On
+# one card they share cuda:0 over gloo (NCCL refuses two ranks on one
+# GPU); with a card a rank they run over NCCL. Their walls are
+# correctness timings of ranks that share one card, not multi-card
+# numbers.
+# ---------------------------------------------------------------------------
+
+# (a)'s serves: (arch, layers (None: full depth), spec). granite-3-8b's
+# untied head is the dense weight a serve prepares (olmo-1b's head is tied
+# and layer stacks stay unprepared, R4), so under '+cached' each rank
+# prepares its head tile and runs K3 against it.
+MP_SERVES = (("olmo-1b", None, "ozaki1-p4"),
+             ("granite-3-8b", 4, "ozaki1-p4+cached"))
+MP_LABELS = tuple(f"{a} {s}" for a, _, s in MP_SERVES)
+MP_DENSE = ((2048, 2048), (2048, 8192), (8192, 2048))   # olmo-1b's (K, N)
+MP_ROW = (2048, 2049)              # K divides, N does not: a row partition
+MP_HEAD = (2048, 50304)            # the tied head's (K, padded vocab)
+MP_ROWS = LANES * CHUNK            # rows of a mixed serve step
+MP_PSUM = 1 << 16
+# steps, batch, seq, layers: the warmup's first learning rate is 0, so
+# the third loss follows a nonzero update.
+MP_TRAIN = (3, 2, 128, 4)
+# The losses of the first two steps (taken where the parameters have not
+# moved) against the one-rank full-batch steps'.
+MP_LOSS_RTOL = 1e-5
+
+
+def mp_backend(world: int) -> str:
+    return "nccl" if torch.cuda.device_count() >= world else "gloo"
+
+
+def mp_entry(rank, world, store_path, queue, program, args):
+    """One rank: join the group, run ``program``, put its result (or the
+    traceback) on the queue."""
+    import torch.distributed as dist
+    try:
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+        dist.init_process_group(mp_backend(world),
+                                store=dist.FileStore(store_path, world),
+                                rank=rank, world_size=world)
+        result = program(rank, world, dev, *args)
+        dist.barrier()
+        dist.destroy_process_group()
+        queue.put((rank, "ok", result))
+    except BaseException:
+        queue.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def mp_world(program, world: int, *args) -> list:
+    """``program(rank, world, dev, *args)`` on ``world`` spawned ranks;
+    every rank's result, or the first failure raised here. Every process
+    is joined (or killed) before it returns."""
+    import queue as queue_mod
+    import torch.multiprocessing as tmp
+    ctx = tmp.get_context("spawn")
+    queue = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        procs = tmp.start_processes(
+            mp_entry, args=(world, os.path.join(tmpdir, "store"), queue,
+                            program, args),
+            nprocs=world, join=False, start_method="spawn")
+        results, failure = {}, None
+        try:
+            while len(results) < world and failure is None:
+                try:
+                    rank, status, value = queue.get(timeout=5)
+                except queue_mod.Empty:
+                    dead = [p.exitcode for p in procs.processes
+                            if p.exitcode not in (None, 0)]
+                    if dead:
+                        failure = f"a rank exited with {dead}"
+                    continue
+                if status != "ok":
+                    failure = f"rank {rank}:\n{value}"
+                results[rank] = value
+        finally:
+            if failure is not None:
+                for p in procs.processes:
+                    p.kill()
+            for p in procs.processes:
+                p.join(60)
+                if p.is_alive():
+                    p.kill()
+        if failure is not None:
+            raise AssertionError(f"[phase 32] {failure}")
+    return [results[r] for r in range(world)]
+
+
+def mp_counts() -> dict:
+    c = ozaki1.COUNTS
+    return {"2d": c.launches_2d, "encode": c.launches_encode,
+            "planes": c.launches_planes, "batched": c.launches_batched,
+            "mixed": c.launches_mixed, "plain_cuda": c.plain_cuda_calls}
+
+
+def mp_arch(arch_id: str, layers):
+    arch = configs.get_config(arch_id)
+    if layers is None:
+        return arch
+    return dataclasses.replace(arch, model=dataclasses.replace(
+        arch.model, n_layers=layers))
+
+
+def mp_serve_once(arch, spec, dev, mesh=None):
+    """(tokens, seconds, engine) of phase 3's trace served on ``mesh``
+    (None: one rank) from seed-0 weights."""
+    eng = ContinuousEngine(arch, mesh, max_seq=PROMPT + GEN,
+                           policy=GemmPolicy(default=api.precision(spec)),
+                           seed=0, max_lanes=LANES, chunk=CHUNK,
+                           page_size=PAGE, device=dev)
+    trace = build_trace(np.random.default_rng(0), arch.model.vocab,
+                        REQUESTS, PROMPT, GEN, 0.0)
+    torch.cuda.synchronize()
+    eng.reset_clock()
+    reset_counts()
+    t0 = time.perf_counter()
+    results = eng.run(trace)
+    torch.cuda.synchronize()
+    return ([results[r.rid].tokens for r in trace],
+            time.perf_counter() - t0, eng)
+
+
+def mp_serve(rank, dev, want):
+    """(a): each of MP_SERVES tensor-parallel on
+    make_host_mesh(model_parallel=2), phase 3's trace, its tokens against
+    the one-rank serve's: olmo-1b at full width and depth, and
+    granite-3-8b's head tile prepared on each rank (K3)."""
+    from repro_torch import telemetry
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.common import pad_vocab
+    from repro_torch.telemetry import record as rec
+    mesh = make_host_mesh(model_parallel=2)
+    out = {}
+    for label, (arch_id, layers, spec) in zip(MP_LABELS, MP_SERVES):
+        arch = mp_arch(arch_id, layers)
+        telemetry.enable()
+        telemetry.REGISTRY.clear()
+        toks, dt, eng = mp_serve_once(arch, spec, dev, mesh)
+        counts = mp_counts()
+        parts = {lab["kind"]: v for lab, v in telemetry.REGISTRY.series(
+            rec.SHARD_PARTITION)}
+        coll = {lab["kind"]: v for lab, v in telemetry.REGISTRY.series(
+            rec.MODELED_COLLECTIVE_BYTES)}
+        telemetry.disable()
+        if toks != want[label]:
+            raise AssertionError(f"{label}: rank {rank}'s tokens differ "
+                                 "from the one-rank serve's")
+        if counts["2d"] == 0 or counts["batched"] == 0:
+            raise AssertionError(f"{label}: the serve launched no K1 / K4")
+        # K1: 2 encodes + 1 plane GEMM a call; K3: 1 encode (the lhs) + 1.
+        if (counts["encode"], counts["planes"]) != (
+                2 * counts["2d"] + counts["mixed"],
+                counts["2d"] + counts["mixed"]):
+            raise AssertionError(f"{label}: the encodes and plane GEMMs "
+                                 f"{counts} are not K1's and K3's")
+        if counts["plain_cuda"]:
+            raise AssertionError(f"{label}: a plain version ran on the card")
+        if set(parts) != {"column"}:
+            raise AssertionError(f"{label}: partitions {parts}: every "
+                                 "dense N divides 2")
+        head = eng.params.get("head")
+        if spec.endswith("+cached"):
+            vp = pad_vocab(arch.model.vocab)
+            if not (eng.prepared and isinstance(head, prepared.PreparedOperand)
+                    and head.n * 2 == vp and head.mesh_shape
+                    == (("data", 1), ("model", 2))):
+                raise AssertionError(f"{label}: the head is not this rank's "
+                                     "prepared tile")
+            if counts["mixed"] == 0:
+                raise AssertionError(f"{label}: no K3 against the prepared "
+                                     "head tile")
+        w = eng.params["layers"]["b0"]["mixer"]["wq"]
+        out[label] = {"seconds": dt, "tok_per_s": REQUESTS * GEN / dt,
+                      "steps": eng.utilization()["steps"],
+                      "launches": counts, "partitions": parts,
+                      "collective_bytes": coll, "prepared": eng.prepared,
+                      "head": (f"prepared tile n={head.n}"
+                               if eng.prepared else "tied"),
+                      "wq_tile": list(w.shape),
+                      "tensors_on": str(w.device)}
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def mp_matmul(rank, world, dev, shapes):
+    """(b): sharded_matmul at olmo-1b's dense shapes on each mesh: column
+    partitions bit for bit the one-rank product; the row partition bit
+    for bit the sum of the pinned partials (2 ranks) or within 1e-6 of
+    the largest magnitude (4), every partial the same bits on every rank;
+    the localized prepared head (K3) bit for bit; one rank's K1 tile
+    against the plain versions."""
+    from repro_torch.launch.mesh import axis_index, make_live_mesh
+    from repro_torch.parallel import comm, shard_gemm
+    cfg = api.precision(SPEC)
+    gen = torch.Generator(device=dev).manual_seed(32)
+    a = conditioned(gen, (MP_ROWS, 8192), torch.bfloat16, dev)
+    ws = {kn: conditioned(gen, kn, torch.bfloat16, dev) for kn in MP_DENSE}
+    a32 = conditioned(gen, (MP_ROWS, MP_ROW[0]), torch.float32, dev)
+    w_row = conditioned(gen, MP_ROW, torch.float32, dev)
+    head = conditioned(gen, MP_HEAD, torch.bfloat16, dev)
+    out = {"cases": {}}
+    for shape in shapes:
+        mesh = make_live_mesh(shape, ("data", "model"))
+        tag = f"{shape[0]}x{shape[1]}"
+        tp = shape[1]
+        for (k, n), w in ws.items():
+            x = a[:, :k].contiguous()
+            ref = dispatch.emulated_matmul(x, w, cfg=cfg)
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = shard_gemm.sharded_matmul(x, w, cfg, mesh)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if not torch.equal(got, ref):
+                raise AssertionError(f"{tag} ({k}, {n}): the partitioned "
+                                     "product differs from the one-rank one")
+            out["cases"][f"{tag} {k}x{n}"] = {"ms": ms,
+                                              "launches": mp_counts()}
+        if tp > 1:
+            k = MP_ROW[0]
+            pinned = shard_gemm._pin_row_cfg(cfg, k)
+            step = k // tp
+            parts = [dispatch.emulated_matmul(
+                a32[:, i * step:(i + 1) * step],
+                w_row[i * step:(i + 1) * step], cfg=pinned)
+                for i in range(tp)]
+            got = shard_gemm.sharded_matmul(a32, w_row, cfg, mesh)
+            mine = parts[axis_index(mesh, "model")]
+            every = comm.gather_raw(mine[None], 0, mesh, "model")
+            if not all(torch.equal(every[i], parts[i]) for i in range(tp)):
+                raise AssertionError(f"{tag}: a row partial differs")
+            total = parts[0]
+            for part in parts[1:]:
+                total = total + part
+            scale = float(total.abs().max())
+            err = float((got - total).abs().max())
+            if (tp == 2 and not torch.equal(got, total)) or err > 1e-6 * scale:
+                raise AssertionError(f"{tag}: the row sum is off by {err}")
+            out["cases"][f"{tag} row {k}x{MP_ROW[1]}"] = {
+                "max_abs_err": err, "rel": err / scale}
+            prep = prepared.prepare_rhs(head, cfg)
+            x = a[:, :MP_HEAD[0]].contiguous()
+            ref = prepared.matmul_prepared(x, prep)
+            reset_counts()
+            got = shard_gemm.sharded_dense(x, prep, cfg, mesh)
+            if got is None or not torch.equal(got, ref):
+                raise AssertionError(f"{tag}: the localized head differs")
+            out["cases"][f"{tag} head {MP_HEAD[0]}x{MP_HEAD[1]}"] = {
+                "launches": mp_counts()}
+    # This rank's K1 tile (a column tile of q's weight, one of the world's)
+    # on the card, once, against the plain versions on the host.
+    k, n = MP_DENSE[0]
+    cols = n // world
+    w_tile = ws[(k, n)][:, rank * cols:(rank + 1) * cols]
+    x = a[:, :k].contiguous()
+    reset_counts()
+    card = dispatch.emulated_matmul(x, w_tile, cfg=cfg)
+    launched = mp_counts()
+    plain = dispatch.emulated_matmul(x.cpu(), w_tile.cpu(), cfg=cfg,
+                                     backend="cuda")
+    if (launched["encode"], launched["planes"]) != (2, 1) \
+            or not torch.equal(card.cpu(), plain):
+        raise AssertionError("this rank's K1 tile differs from the plain "
+                             "versions")
+    out["k1_tile"] = {"shape": [MP_ROWS, k, cols], "launches": launched}
+    return out
+
+
+def mp_psum(rank, world, dev):
+    """(c): compressed_psum over every rank: the same bits on each, equal
+    to the one-process integer sum of every rank's residues."""
+    from repro_torch.launch.mesh import make_live_mesh
+    from repro_torch.parallel import comm, compress
+    mesh = make_live_mesh((1, world), ("data", "model"))
+    xs = [conditioned(torch.Generator(device=dev).manual_seed(320 + r),
+                      (MP_PSUM,), torch.float32, dev) for r in range(world)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = compress.compressed_psum(xs[rank], (mesh, "model"), world)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    every = comm.gather_raw(got[None], 0, mesh, "model")
+    moduli = default_moduli(6)
+    amax = torch.max(torch.stack([x.abs().max() for x in xs]))
+    scale = compress._scale(amax, compress._budget(moduli, world))
+    res = [compress.residues_of(x, scale, moduli) for x in xs]
+    sums = [sum(r[j] for r in res) for j in range(len(moduli))]
+    plain = compress.reconstruct(sums, scale, moduli)
+    if not all(torch.equal(e, plain) for e in every):
+        raise AssertionError(f"compressed_psum over {world} ranks differs "
+                             "from the integer sum")
+    err = float((plain.double() - sum(x.double() for x in xs)).abs().max())
+    return {"ms": ms, "max_abs_err_vs_float64_sum": err}
+
+
+def mp_train(rank, dev):
+    """(d): data-parallel olmo-1b train steps on mesh (2, 1), each rank
+    its half of the batch. Against the one-rank steps over the same two
+    halves as microbatches (the same sums in the same order): every loss,
+    parameter and AdamW moment the same bits, on both ranks. Against the
+    one-rank full-batch steps (whose dB products contract the whole batch
+    at once): the first two losses within MP_LOSS_RTOL; the third loss,
+    the moments and the parameters' differences are reported."""
+    from repro_torch.launch.mesh import make_live_mesh
+    from repro_torch.parallel import comm
+    steps, batch, seq, layers = MP_TRAIN
+    arch = mp_arch("olmo-1b", layers)
+    policy = GemmPolicy(default=api.precision(TRAIN_SPEC))
+    shape = ShapeSpec("mp", seq, batch, "train")
+    mesh = make_live_mesh((2, 1), ("data", "model"))
+    step = S.make_train_step(arch, mesh, shape, policy)
+    state = S.init_state(arch, 0, dev, mesh)
+    it = make_batch_iterator(arch, shape, 0, rank, 2)
+    losses, walls = [], []
+    reset_counts()
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, next(it)[1])
+        losses.append(float(metrics["loss"]))
+        walls.append(time.perf_counter() - t0)
+    counts = mp_counts()
+    for key, leaf in tree_flatten(state["params"]).items():
+        both = comm.gather_raw(leaf[None], 0, mesh, "data")
+        if not torch.equal(both[0], both[1]):
+            raise AssertionError(f"the ranks' {key} differ after {steps} "
+                                 "steps")
+
+    def one_rank(micro: int):
+        """(losses, state) of the one-rank steps on the whole batch, both
+        halves host by host, in ``micro`` microbatches."""
+        a = dataclasses.replace(arch, train=dataclasses.replace(
+            arch.train, microbatches=micro))
+        fn = S.make_train_step(a, None, shape, policy)
+        halves = [make_batch_iterator(arch, shape, 0, r, 2)
+                  for r in range(2)]
+        st, out = S.init_state(arch, 0, dev), []
+        for _ in range(steps):
+            parts = [next(h)[1] for h in halves]
+            st, m = fn(st, {k: np.concatenate([p[k] for p in parts])
+                            for k in parts[0]})
+            out.append(float(m["loss"]))
+        return out, st
+
+    def gaps(ref):
+        """The largest difference of each moment from ``ref``'s over its
+        largest, and the count of parameters that differ."""
+        out = {}
+        for name in ("m", "v"):
+            got, exp = (tree_flatten(st["opt"][name]) for st in (state, ref))
+            out[name] = max(float((got[k] - exp[k]).abs().max()
+                                  / exp[k].abs().max()) for k in exp)
+        got, exp = tree_flatten(state["params"]), tree_flatten(ref["params"])
+        out["params_differ"] = sum(int((got[k] != exp[k]).sum()) for k in exp)
+        return out
+
+    micro_losses, ref = one_rank(2)
+    micro = gaps(ref)
+    del ref
+    want, ref = one_rank(1)
+    full = gaps(ref)
+    start = tree_flatten(S.init_state(arch, 0, dev)["params"])
+    full["params_moved"] = sum(int((v != start[k]).sum()) for k, v in
+                               tree_flatten(ref["params"]).items())
+    del ref, state, start
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+    report = {"losses": losses, "one_rank_micro_losses": micro_losses,
+              "one_rank_losses": want, "rel": rel, "vs_micro": micro,
+              "vs_full_batch": full, "walls_s": walls, "launches": counts}
+    if losses != micro_losses or micro != {"m": 0.0, "v": 0.0,
+                                           "params_differ": 0}:
+        raise AssertionError("the data-parallel steps differ from the "
+                             f"one-rank microbatched steps: {report}")
+    if max(rel[:2]) > MP_LOSS_RTOL:
+        raise AssertionError(f"data-parallel losses off the one-rank full-"
+                             f"batch steps': {report}")
+    return report
+
+
+def mp_rank(rank, world, dev, want):
+    import torch.distributed as dist
+    out = {"backend": dist.get_backend(), "device": str(dev)}
+    if world == 2:
+        out["serve"] = mp_serve(rank, dev, want)
+        out["matmul"] = mp_matmul(rank, world, dev, ((1, 2), (2, 1)))
+        out["psum"] = mp_psum(rank, world, dev)
+        out["train"] = mp_train(rank, dev)
+    else:
+        out["matmul"] = mp_matmul(rank, world, dev, ((2, 2), (1, 4)))
+        out["psum"] = mp_psum(rank, world, dev)
+    return out
+
+
+def phase32(dev):
+    """(a)-(d) over worlds of 2 and 4 ranks, after every build."""
+    t0 = time.perf_counter()
+    want, one_rank_s = {}, {}
+    for label, (arch_id, layers, spec) in zip(MP_LABELS, MP_SERVES):
+        want[label], one_rank_s[label], eng = mp_serve_once(
+            mp_arch(arch_id, layers), spec, dev)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[phase 32] one-rank serve of phase 3's trace, {label}: "
+            f"{one_rank_s[label]:.2f} s")
+    report = {"one_rank_serve_s": one_rank_s, "worlds": {}}
+    for w in (2, 4):
+        t1 = time.perf_counter()
+        ranks = mp_world(mp_rank, w, want)
+        log(f"[phase 32] world {w}: {time.perf_counter() - t1:.1f} s")
+        for r, out in enumerate(ranks):
+            log(f"[phase 32] world {w} rank {r}: backend {out['backend']}, "
+                f"tensors on {out['device']}")
+            if "serve" in out:
+                for label, s in out["serve"].items():
+                    log(f"[phase 32] rank {r} {label}: {s['steps']} steps "
+                        f"in {s['seconds']:.2f} s ({s['tok_per_s']:.1f} "
+                        f"tok/s; one rank {one_rank_s[label]:.2f} s), "
+                        f"tokens == one-rank; launches {s['launches']}, "
+                        f"partitions {s['partitions']}, modeled collective "
+                        f"bytes {s['collective_bytes']}, wq tile "
+                        f"{s['wq_tile']} on {s['tensors_on']}, head "
+                        f"{s['head']}")
+                t = out["train"]
+                log(f"[phase 32] rank {r} train (2, 1): losses {t['losses']}"
+                    f" == the one-rank microbatched steps' (params and "
+                    f"AdamW moments the same bits); one-rank full batch "
+                    f"{t['one_rank_losses']} (rel {t['rel']}), moments and "
+                    f"params vs it {t['vs_full_batch']}; walls "
+                    f"{[round(x, 2) for x in t['walls_s']]} s, launches "
+                    f"{t['launches']}; params equal on both ranks")
+            log(f"[phase 32] rank {r} sharded_matmul: "
+                + json.dumps(out["matmul"]))
+            log(f"[phase 32] rank {r} compressed_psum over {w}: "
+                + json.dumps(out["psum"]))
+        report["worlds"][w] = ranks
+    report["seconds"] = time.perf_counter() - t0
+    log(f"[phase 32] {report['seconds']:.1f} s")
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -7346,6 +7817,8 @@ def main() -> int:
     builds[0].shutdown()
     gc.collect()
     torch.cuda.empty_cache()
+    # Phase 32: its ranks load the libraries built above.
+    mp = phase32(dev)
     log(f"[qwen1.5-32b] the card before the phase: "
         f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.2f} GiB allocated, "
         f"{torch.cuda.memory_reserved(dev) / 2 ** 30:.2f} GiB reserved")
@@ -7938,6 +8411,32 @@ def main() -> int:
                        f"heads at {list(K10_NEW_SHAPE)}, causal and full, "
                        "one call each on the main path; library: "
                        "scaled_dot_product_attention"}
+    # Phase 32: each rank's launches on the tensor-parallel serve (a) and
+    # in sharded_matmul's cases (b).
+    ranks2 = mp["worlds"][2]
+    for row in kernels:
+        key = {"emugemm1_2d": "2d", "emugemm1_encode": "encode",
+               "emugemm1_planes": "planes", "emugemm1_batched": "batched",
+               "emugemm1_mixed": "mixed"}.get(row["name"])
+        if key is None:
+            continue
+        row["phase32"] = {
+            "tp_serve_launches_per_rank": {
+                label: [r["serve"][label]["launches"][key] for r in ranks2]
+                for label in MP_LABELS},
+            "sharded_matmul_launches_per_rank": {
+                case: [r["matmul"]["cases"][case]["launches"][key]
+                       for r in ranks]
+                for ranks in mp["worlds"].values()
+                for case, c in ranks[0]["matmul"]["cases"].items()
+                if "launches" in c},
+            "per": "phase 32: olmo-1b (full depth) and granite-3-8b (4 "
+                   "layers, its head tile prepared on each rank) served "
+                   "tensor-parallel on mesh (1, 2) (launches per rank), "
+                   "and sharded_matmul at "
+                   "its dense shapes and the localized tied-head shape on "
+                   "meshes (1, 2), (2, 1), (2, 2), (1, 4); ranks share one "
+                   "card over " + ranks2[0]["backend"]}
     print(json.dumps({"probe": probe, "examples": examples}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -120,7 +120,27 @@ def _norm_dims(dims, ndim: int, what: str) -> tuple[int, ...]:
     return out
 
 
-def _dot_general_prepared(a, b, dimension_numbers, cfg, out_dtype):
+def _sharded_2d(a2, b, cfg, mesh):
+    """(..., K) @ (K, N), both whole on every rank, partitioned over a
+    live multi-device ``mesh`` (``parallel.shard_gemm.sharded_dense``)
+    when the config emulates on the kernel route; None means not
+    partitioned here, and the caller takes the unsharded route. A guard
+    verifies each rank's tile, the ranks agreeing on every verdict
+    (``guard.ladder.consensus``); a guarded prepared rhs, whose guard
+    reconstructs the whole weight, runs unsharded."""
+    if mesh is None:
+        return None
+    from repro_torch.kernels import dispatch
+    if (not dispatch._shardable_mesh(mesh) or cfg.scheme == "native"
+            or cfg.impl == "xla"
+            or (cfg.guard is not None and dispatch._is_prepared(b))):
+        return None
+    from repro_torch.parallel import shard_gemm
+    return shard_gemm.sharded_dense(a2, b, cfg, mesh)
+
+
+def _dot_general_prepared(a, b, dimension_numbers, cfg, out_dtype,
+                          mesh=None):
     """A prepared rhs: only (..., K) x prepared (K, N) exists, its layout
     fixed when it was prepared."""
     from repro_torch.core.emulated import prepared_dot
@@ -145,6 +165,9 @@ def _dot_general_prepared(a, b, dimension_numbers, cfg, out_dtype):
         out_dtype = getattr(torch, cfg.out_dtype)
     if out_dtype is None:
         out_dtype = torch.promote_types(a.dtype, torch.float32)
+    out = _sharded_2d(a, b, cfg, mesh)
+    if out is not None:
+        return out.to(out_dtype)
     if cfg.guard is not None:
         # Guarded prepared consumption goes through the dispatcher's guard
         # seam (verification reconstructs the dense weight).
@@ -158,7 +181,8 @@ def _dot_general_prepared(a, b, dimension_numbers, cfg, out_dtype):
 
 def dot_general(a: torch.Tensor, b, dimension_numbers, *,
                 precision: str | EmulationConfig | None = None,
-                out_dtype=None, backend: str | None = None) -> torch.Tensor:
+                out_dtype=None, backend: str | None = None,
+                mesh=None) -> torch.Tensor:
     """Emulated ``lax.dot_general``: the output is laid out
     ``(*batch, *lhs_free, *rhs_free)``.
 
@@ -166,13 +190,17 @@ def dot_general(a: torch.Tensor, b, dimension_numbers, *,
     (batch..., K, N); without batch axes it runs on the 2-D core, with
     them the lhs free axes fold into M and the whole stack runs as ONE
     strided-batched launch. A prepared ``b`` runs on the backend it was
-    prepared for.
+    prepared for. ``mesh`` (a live multi-device mesh, ``launch.mesh``,
+    both operands whole on every rank) partitions the 2-D core over its
+    ranks (``parallel.shard_gemm.sharded_dense``) where a mesh axis
+    divides it.
     """
     from repro_torch.core.emulated import emulated_dot, emulated_dot_batched
     from repro_torch.kernels.dispatch import _is_prepared
     cfg = resolve_config(precision)
     if _is_prepared(b):
-        return _dot_general_prepared(a, b, dimension_numbers, cfg, out_dtype)
+        return _dot_general_prepared(a, b, dimension_numbers, cfg, out_dtype,
+                                     mesh)
     if backend is not None:
         cfg = dataclasses.replace(cfg, backend=backend)
     if out_dtype is not None:
@@ -197,7 +225,9 @@ def dot_general(a: torch.Tensor, b, dimension_numbers, *,
     a2 = a.permute(lb + a_free + lc).reshape(batch_shape + a_free_shape + (k,))
     b2 = b.permute(rb + rc + b_free).reshape(batch_shape + (k, n))
     if not lb:
-        out = emulated_dot(a2, b2, cfg)
+        out = _sharded_2d(a2, b2, cfg, mesh)
+        if out is None:
+            out = emulated_dot(a2, b2, cfg)
     else:
         bsz = math.prod(batch_shape)
         out = emulated_dot_batched(a2.reshape(bsz, -1, k),
@@ -296,7 +326,8 @@ def _presum(x: torch.Tensor, labels, other, out):
 
 def einsum(subscripts: str, a: torch.Tensor, b, *,
            precision: str | EmulationConfig | None = None,
-           out_dtype=None, backend: str | None = None) -> torch.Tensor:
+           out_dtype=None, backend: str | None = None,
+           mesh=None) -> torch.Tensor:
     """Emulated two-operand einsum through :func:`dot_general`.
 
     Shared labels kept in the output are batch axes, shared labels
@@ -305,6 +336,7 @@ def einsum(subscripts: str, a: torch.Tensor, b, *,
     larger one under the same label broadcasts; e.g. ``bqkgd,bjkd->bkgqj``
     (attention scores), ``...k,kn->...n``, ``ij,jk`` (implicit output
     ``ik``). A prepared ``b`` takes ``...k,kn->...n``-shaped subscripts.
+    ``mesh`` as in :func:`dot_general`.
     """
     from repro_torch.kernels.dispatch import _is_prepared
     prep = _is_prepared(b)
@@ -321,7 +353,7 @@ def einsum(subscripts: str, a: torch.Tensor, b, *,
         a, a_labels = _presum(a, a_labels, b_set, out_set)
         out = dot_general(a, b, (((a_labels.index(k),), (0,)), ((), ())),
                           precision=precision, out_dtype=out_dtype,
-                          backend=backend)
+                          backend=backend, mesh=mesh)
         canon = [lab for lab in a_labels if lab != k] + [n]
     else:
         a, a_labels = _presum(a, a_labels, b_set, out_set)
@@ -346,7 +378,7 @@ def einsum(subscripts: str, a: torch.Tensor, b, *,
         if b_shape != list(b.shape):
             b = b.expand(b_shape).contiguous()
         out = dot_general(a, b, ((lc, rc), (lb, rb)), precision=precision,
-                          out_dtype=out_dtype, backend=backend)
+                          out_dtype=out_dtype, backend=backend, mesh=mesh)
         canon = (batch + [lab for lab in a_labels if lab not in shared]
                  + [lab for lab in b_labels if lab not in shared])
     if canon != out_labels:

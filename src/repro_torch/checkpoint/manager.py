@@ -10,8 +10,10 @@ state is copied to host memory first, the previous save is joined before
 a new one starts, and ``wait`` / ``close`` join the last; without it
 ``save`` returns once the checkpoint is published. ``restore(step,
 like)`` checks the saved tree against ``like``'s structure and puts each
-tensor where ``like``'s leaf is. The reference's re-sharding onto another
-mesh (``shardings``) has no counterpart on one card.
+tensor where ``like``'s leaf is. ``restore(..., shardings=)`` re-shards
+every leaf of the saved (whole) state onto a possibly different mesh,
+the elastic path: each rank keeps its slice under the leaf's
+``NamedSharding`` (``parallel.sharding``).
 """
 
 from __future__ import annotations
@@ -91,14 +93,24 @@ class CheckpointManager:
                 device="cpu"):
         """The state saved at ``step``: its tensors on ``device``, or, with
         ``like`` (a tree of the same structure), each on the device of
-        ``like``'s leaf. ``shardings`` must be None (one card)."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "re-sharding onto a mesh is not ported (ROADMAP.md § 1 "
-                "item 8)")
+        ``like``'s leaf. ``shardings`` (a tree of ``NamedSharding`` of
+        the same structure, ``parallel.sharding.shardings``) keeps only
+        this rank's slice of each whole leaf under its spec, which may be
+        of another mesh than the one that saved it; the file is then
+        mapped, not read, and only the slices are copied to ``device``, so
+        no rank holds the whole state."""
         path = os.path.join(self.dir, f"step_{step:08d}", "state.pt")
-        state = torch.load(path, map_location=torch.device(device),
-                           weights_only=True)
+        if shardings is None:
+            state = torch.load(path, map_location=torch.device(device),
+                               weights_only=True)
+        else:
+            from repro_torch.parallel import sharding as shd
+            state = torch.load(path, map_location="cpu", mmap=True,
+                               weights_only=True)
+            state = shd._map(
+                lambda ns, x: shd.shard_leaf(x, ns.spec, ns.mesh).to(
+                    device, copy=True) if isinstance(x, torch.Tensor) else x,
+                shardings, state)
         if like is None:
             return state
         want, got = tree_flatten(like), tree_flatten(state)

@@ -1,5 +1,6 @@
 """Configuration schema of the port (``repro.configs.base`` without its
-jax import and the dry-run's ``input_specs``).
+jax import; ``input_specs`` gives meta tensors where the reference gives
+``jax.ShapeDtypeStruct``s).
 
 Every architecture is an ``ArchConfig`` in its own module under
 ``repro_torch.configs``; ``repro_torch.configs.get_config`` maps
@@ -173,3 +174,33 @@ class ArchConfig:
                 continue
             out.append(s)
         return out
+
+    def input_specs(self, shape: ShapeSpec, batch: int | None = None):
+        """Meta-tensor stand-ins for every model input (the dry run's
+        ``jax.ShapeDtypeStruct``s in the reference): shape and dtype, no
+        storage."""
+        import torch
+
+        def meta(shp, dtype):
+            return torch.empty(shp, dtype=dtype, device="meta")
+
+        m = self.model
+        b = batch if batch is not None else shape.global_batch
+        i32 = torch.int32
+        if shape.kind == "train":
+            specs = {"tokens": meta((b, shape.seq_len), i32),
+                     "labels": meta((b, shape.seq_len), i32)}
+        elif shape.kind == "prefill":
+            specs = {"tokens": meta((b, shape.seq_len), i32)}
+        else:  # decode: one new token against a seq_len cache
+            specs = {"tokens": meta((b, 1), i32)}
+        if m.frontend == "audio_stub":
+            # precomputed frame embeddings replace the token stream
+            specs["tokens"] = meta(
+                (b, shape.seq_len if shape.kind != "decode" else 1,
+                 m.frontend_dim), getattr(torch, m.dtype))
+        if m.frontend == "vision_stub" and shape.kind != "decode":
+            specs["image_embeds"] = meta(
+                (b, m.n_image_tokens, m.frontend_dim),
+                getattr(torch, m.dtype))
+        return specs

@@ -448,7 +448,7 @@ def sharded_gemm_traffic(s: GemmShape, p: int, mesh_shape,
     shard_map'ed emulated (M, K) @ (K, N) on a mesh.
 
     ``mesh_shape`` is a mesh's axis sizes (a mapping or ``((axis, size),
-    ...)`` tuples: the port has no mesh yet, ROADMAP.md § 1 item 8);
+    ...)`` tuples, ``kernels.dispatch._mesh_shape_tuple`` of a mesh);
     ``partition`` is one of the reference's ``GemmPartition`` kinds
     ('column' | 'row' | 'batch').  The fused bytes
     are the paper's Eq. 10/15/18 models evaluated on the *shard-local*

@@ -38,10 +38,19 @@ Every host read of a device value (a verdict, the masked flag, the
 exponent spread) synchronizes with the card; :data:`SYNCS` counts them:
 three per eager call, one per batched call (the reference's one debug
 callback).
+
+On a mesh every rank guards its own tile of each product, and the
+runtime layers act on each process's own counters and exceptions. So
+the ranks agree on every eager verdict (:func:`consensus`, which the
+step functions of a live mesh enter): a check passes only where it
+passes on every rank, and every rank climbs the same rungs, counts the
+same trips and escalations and raises at the same call, where the
+reference's one program has one verdict.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -71,6 +80,60 @@ def _host(x: torch.Tensor):
     """One device value on the host: a sync, counted."""
     SYNCS.n += 1
     return x.item()
+
+
+# The meshes whose ranks agree on each verdict (:func:`consensus`); the
+# outermost decides.
+_CONSENSUS: list = []
+
+
+@contextlib.contextmanager
+def consensus(mesh):
+    """Within it, every eager verdict of :func:`guarded_call` is that of
+    all of ``mesh``'s ranks: a failed check on one fails it on all (a sum
+    of the failures over the mesh), so that the ranks, which run the same
+    sequence of guarded calls, take the same path through the ladder. A
+    no-op without a live mesh of several ranks, and inside another
+    consensus (the outer, wider one holds). Every rank enters it at the
+    same point of its program."""
+    from repro_torch.launch import mesh as mesh_mod
+    if isinstance(mesh, mesh_mod.RowsLocal):
+        mesh = mesh.mesh
+    if (_CONSENSUS or not mesh_mod.is_live(mesh)
+            or mesh_mod.axis_sizes(mesh) == {}
+            or max(mesh_mod.axis_sizes(mesh).values()) == 1):
+        yield
+        return
+    _CONSENSUS.append(mesh)
+    try:
+        yield
+    finally:
+        _CONSENSUS.pop()
+
+
+def mesh_max(counts: list[int], mesh) -> list[int]:
+    """``counts`` at their largest over the ranks of a live ``mesh``
+    (every rank calls it), reduced on the host under gloo and on the
+    rank's card under NCCL; as they are without a live mesh."""
+    from repro_torch.launch import mesh as mesh_mod
+    if not mesh_mod.is_live(mesh):
+        return list(counts)
+    import torch.distributed as dist
+    group = mesh_mod.axis_group(mesh, tuple(mesh_mod.axis_sizes(mesh)))
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dist.get_backend(group) == "nccl" else torch.device("cpu"))
+    t = torch.tensor(counts, dtype=torch.int64, device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return t.tolist()
+
+
+def _agree(ok: torch.Tensor) -> bool:
+    """A verdict on the host: this rank's, or under :func:`consensus`
+    that of every rank of the mesh."""
+    ok = bool(_host(ok))
+    if _CONSENSUS:
+        ok = not mesh_max([int(not ok)], _CONSENSUS[0])[0]
+    return ok
 
 
 def strip_guard(cfg: EmulationConfig) -> EmulationConfig:
@@ -154,7 +217,7 @@ def guarded_call(a: torch.Tensor, b, cfg: EmulationConfig, run,
             "verification trip or request more bits via a 'bits=' spec)")
     ver = check(c0, base)
     policy_mod.record("verified")
-    if _host(ver.ok):
+    if _agree(ver.ok):
         return sentinel.apply_special_values(c0, probe)
 
     policy_mod.record("trips")
@@ -173,7 +236,7 @@ def guarded_call(a: torch.Tensor, b, cfg: EmulationConfig, run,
         c = run(a_s, b_s, rung_cfg)
         ver = check(c, rung_cfg)
         policy_mod.record("verified")
-        if _host(ver.ok):
+        if _agree(ver.ok):
             policy_mod.record("recoveries")
             return sentinel.apply_special_values(c, probe)
 
@@ -221,6 +284,8 @@ def guarded_batched_call(a: torch.Tensor, b: torch.Tensor,
     masked_any = torch.any(row_mask, dim=-1) | torch.any(col_mask, dim=-1)
     SYNCS.n += 1
     trips, masked = torch.stack([(~ver.ok).sum(), masked_any.sum()]).tolist()
+    if _CONSENSUS:                      # every rank counts the same
+        trips, masked = mesh_max([trips, masked], _CONSENSUS[0])
     n = a.shape[0]
     policy_mod.record("calls", n)
     policy_mod.record("verified", n)
@@ -233,7 +298,7 @@ def guarded_batched_call(a: torch.Tensor, b: torch.Tensor,
                                         device=c.device), c)
 
 
-def _dispatch_runner(out_dtype, backend):
+def _dispatch_runner(out_dtype, backend, mesh_shape=None):
     from repro_torch.kernels import dispatch
 
     def run(aa, bb, rung_cfg):
@@ -241,7 +306,8 @@ def _dispatch_runner(out_dtype, backend):
         # backend's plain version, as core.emulated._dot_2d routes it.
         be = "torch" if rung_cfg.impl == "xla" else backend
         return dispatch.emulated_matmul(aa, bb, cfg=rung_cfg,
-                                        out_dtype=out_dtype, backend=be)
+                                        out_dtype=out_dtype, backend=be,
+                                        mesh_shape=mesh_shape)
     return run
 
 
@@ -250,17 +316,18 @@ def guarded_matmul(a: torch.Tensor, b, cfg: EmulationConfig, *,
                    mesh_shape: tuple | None = None) -> torch.Tensor:
     """The dispatch-level guard seam: ``dispatch.emulated_matmul`` routes
     here when ``cfg.guard`` is set, and every rung routes back through
-    ``emulated_matmul`` with the guard stripped. ``mesh_shape`` must be
-    None (one card)."""
+    ``emulated_matmul`` with the guard stripped. ``mesh_shape`` marks
+    (a, b) as a rank's tiles of a partitioned GEMM: every rung carries it
+    (the block cache and the labels key on it), and each rank verifies
+    its own tile."""
     from repro_torch.kernels import dispatch
-    if mesh_shape is not None:
-        raise NotImplementedError(
-            "multi-device meshes are not ported yet (ROADMAP.md § 1 item 8)")
     probe = None
     if not hasattr(b, "reconstruct"):
         probe = dispatch.plan_emulated(a, b, strip_guard(cfg), out_dtype,
-                                       backend, probe=True).probe
-    return guarded_call(a, b, cfg, _dispatch_runner(out_dtype, backend),
+                                       backend, mesh_shape=mesh_shape,
+                                       probe=True).probe
+    return guarded_call(a, b, cfg,
+                        _dispatch_runner(out_dtype, backend, mesh_shape),
                         probe=probe)
 
 

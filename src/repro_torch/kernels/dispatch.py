@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 import warnings
 
 import torch
@@ -76,12 +77,16 @@ BlockCacheInfo = collections.namedtuple(
 
 def select_blocks(m: int, n: int, k: int, p: int, out_bytes: int,
                   backend: str, batch: int = 1,
-                  scheme: str = "ozaki1") -> Blocks | None:
+                  scheme: str = "ozaki1",
+                  mesh_shape: tuple | None = None) -> Blocks | None:
     """Cached block selection through the backend registry; ``p`` is the
     slice count (Scheme I) or the modulus count (Scheme II), and
-    ``scheme`` keys the cache as in the reference."""
+    ``scheme`` keys the cache as in the reference. ``mesh_shape`` is the
+    launch mesh's ((axis, size), ...) when (m, n, k) are a rank's local
+    dims of a partitioned GEMM: the same local shape on two meshes keys
+    two entries (None on one device)."""
     cache = _BLOCK_CACHES.setdefault(backend, _BlockCache())
-    key = (m, n, k, p, out_bytes, batch, scheme)
+    key = (m, n, k, p, out_bytes, batch, scheme, mesh_shape)
     if key in cache.data:
         cache.hits += 1
         telemetry.record_event(_tele.BLOCK_CACHE,
@@ -128,6 +133,10 @@ class GemmPlan:
     backend: str
     batch: int = 1
     probe: object = None     # guard.sentinel.SentinelProbe when asked for
+    # The launch mesh's ((axis, size), ...) when (m, n, k) are a rank's
+    # local dims of a partitioned GEMM (keys the block cache; None on one
+    # device).
+    mesh_shape: tuple | None = None
 
 
 def _complex(a, b) -> bool:
@@ -167,25 +176,28 @@ def _out_dtype(cfg: EmulationConfig, a, b, out_dtype) -> torch.dtype:
 
 def plan_emulated(a: torch.Tensor, b: torch.Tensor, cfg: EmulationConfig,
                   out_dtype=None, backend: str | None = None,
+                  mesh_shape: tuple | None = None,
                   probe: bool = False) -> GemmPlan:
     """Backend, output type and cached blocks for one 2-D GEMM.
 
-    ``probe=True`` also runs the guard's input sentinel (finite masks and
-    the exponent-spread estimate, O(MK + KN) elementwise) and attaches it
-    as ``GemmPlan.probe``: the pre-dispatch leg of the ``+guard``
-    pipeline."""
+    ``mesh_shape`` marks (a, b) as a rank's tiles of a partitioned GEMM
+    (:func:`select_blocks`). ``probe=True`` also runs the guard's input
+    sentinel (finite masks and the exponent-spread estimate, O(MK + KN)
+    elementwise) and attaches it as ``GemmPlan.probe``: the pre-dispatch
+    leg of the ``+guard`` pipeline."""
     m, k = a.shape
     n = b.shape[1]
     out_dtype = _out_dtype(cfg, a, b, out_dtype)
     name = backends.resolve_backend_name(backend, cfg, a.device)
     blocks = select_blocks(m, n, k, _p_eff(cfg), out_dtype.itemsize, name,
-                           scheme=_scheme_key(cfg, a, b))
+                           scheme=_scheme_key(cfg, a, b),
+                           mesh_shape=mesh_shape)
     sentinel_probe = None
     if probe:
         from repro_torch.guard import sentinel
         sentinel_probe = sentinel.probe_operands(a, b)
     return GemmPlan(cfg, m, n, k, out_dtype, blocks, name,
-                    probe=sentinel_probe)
+                    probe=sentinel_probe, mesh_shape=mesh_shape)
 
 
 def plan_emulated_batched(a: torch.Tensor, b: torch.Tensor,
@@ -224,8 +236,9 @@ def _run_plan(plan: GemmPlan, a, b) -> torch.Tensor:
                                                  batch=batch)})
         telemetry.record_gemm(
             scheme=scheme, count=count, backend=plan.backend, impl=impl,
-            m=plan.m, k=plan.k, n=plan.n, out_bytes=plan.out_dtype.itemsize,
-            batch=batch, in_bytes=a.element_size())
+            m=plan.m, k=plan.k, n=plan.n, mesh_shape=plan.mesh_shape,
+            out_bytes=plan.out_dtype.itemsize, batch=batch,
+            in_bytes=a.element_size())
     with telemetry.gemm_scope(scheme, count, plan.backend, impl):
         return backends.get_backend(plan.backend).matmul(
             a, b, plan.cfg, plan.out_dtype, plan.blocks)
@@ -298,14 +311,18 @@ def check_prepared(b, cfg: EmulationConfig) -> None:
 
 def emulated_matmul(a: torch.Tensor, b, *, cfg=None, out_dtype=None,
                     backend: str | None = None, scheme: str | None = None,
-                    precision: int | None = None) -> torch.Tensor:
+                    precision: int | None = None,
+                    mesh_shape: tuple | None = None) -> torch.Tensor:
     """Emulated (M, K) @ (K, N) on the selected backend (argument >
     ``REPRO_TORCH_BACKEND`` > ``cfg.backend`` > the operands' device).
 
     ``b`` may be a prepared operand of the config's scheme: its finished
     encode streams as it is, on the backend pinned when it was prepared,
     and only the lhs is carved. ``scheme`` / ``precision`` are the
-    reference's deprecated kwargs (:func:`_resolve_cfg`)."""
+    reference's deprecated kwargs (:func:`_resolve_cfg`). ``mesh_shape``
+    (the launch mesh's axis sizes) marks the operands as a rank's tiles
+    of a partitioned GEMM; it keys the block cache and the telemetry
+    labels."""
     cfg = _resolve_cfg(cfg, scheme, precision)
     if (_guarded(cfg, a, b) and a.dim() == 2
             and (_is_prepared(b) or b.dim() == 2)):
@@ -313,7 +330,7 @@ def emulated_matmul(a: torch.Tensor, b, *, cfg=None, out_dtype=None,
         # the guard stripped for every ladder rung.
         from repro_torch import guard
         return guard.guarded_matmul(a, b, cfg, out_dtype=out_dtype,
-                                    backend=backend)
+                                    backend=backend, mesh_shape=mesh_shape)
     if _is_prepared(b):
         from repro_torch.kernels import prepared
         check_prepared(b, cfg)
@@ -334,11 +351,13 @@ def emulated_matmul(a: torch.Tensor, b, *, cfg=None, out_dtype=None,
     if cfg.scheme == "native":
         out = _promoted(cfg, a, b, out_dtype)
         return torch.matmul(a.to(out), b.to(out))
-    return _run_plan(plan_emulated(a, b, cfg, out_dtype, backend), a, b)
+    return _run_plan(plan_emulated(a, b, cfg, out_dtype, backend,
+                                   mesh_shape), a, b)
 
 
 def emulated_matmul_batched(a: torch.Tensor, b: torch.Tensor, *, cfg=None,
-                            out_dtype=None, backend: str | None = None
+                            out_dtype=None, backend: str | None = None,
+                            mesh_shape: tuple | None = None
                             ) -> torch.Tensor:
     """Batched emulated GEMM.
 
@@ -346,12 +365,15 @@ def emulated_matmul_batched(a: torch.Tensor, b: torch.Tensor, *, cfg=None,
     * matching leading axes: ONE strided-batched launch over the
       collapsed leading axes (complex operands under Scheme II: the
       batched 3M plane route); complex operands under Scheme I, one 2-D
-      4M route per batch element.
+      4M route per batch element;
+    * under a ``mesh_shape`` (a rank's tiles), one 2-D dispatch per batch
+      element, as the reference's shard-local tiles dispatch.
     """
     if b.dim() == 2:
         lead = a.shape[:-1]
         out = emulated_matmul(a.reshape(-1, a.shape[-1]), b, cfg=cfg,
-                              out_dtype=out_dtype, backend=backend)
+                              out_dtype=out_dtype, backend=backend,
+                              mesh_shape=mesh_shape)
         return out.reshape(*lead, b.shape[-1])
     if a.dim() != b.dim() or a.shape[:-2] != b.shape[:-2]:
         raise ValueError(
@@ -361,6 +383,12 @@ def emulated_matmul_batched(a: torch.Tensor, b: torch.Tensor, *, cfg=None,
     lead = a.shape[:-2]
     a3 = a.reshape((-1,) + tuple(a.shape[-2:]))
     b3 = b.reshape((-1,) + tuple(b.shape[-2:]))
+    if mesh_shape is not None:
+        out = torch.stack([emulated_matmul(x, y, cfg=cfg, out_dtype=out_dtype,
+                                           backend=backend,
+                                           mesh_shape=mesh_shape)
+                           for x, y in zip(a3, b3)])
+        return out.reshape(*lead, out.shape[-2], out.shape[-1])
     if _guarded(cfg, a3, b3):
         # The reference vmaps the 2-D dispatch under a guard: the traced
         # (counting) semantics, each element verified and counted.
@@ -421,19 +449,92 @@ def maybe_emulated_matmul(a: torch.Tensor, b, cfg: EmulationConfig):
     return auto_fused_matmul(a, b, cfg)
 
 
-def resolve_policy(policy, mesh=None):
-    """Check a model ``GemmPolicy`` against what the port runs.
+# ---------------------------------------------------------------------------
+# Launch-layer policy resolution.
+# ---------------------------------------------------------------------------
 
-    The single-card slice has nothing to clamp (the reference's mesh and
-    GSPMD clamps do not apply; ``mesh`` must be None). An unset default
-    materializes the ambient config now, as the reference does.
+def _mesh_devices(mesh) -> int:
+    """Device count of a launch mesh: a live ``DeviceMesh`` (its
+    ``size()``), a device-free mesh (``.size``), or anything with a
+    ``shape`` mapping ({axis: size}) or tuple of sizes; None means this
+    process's world (1 without a process group)."""
+    if mesh is None:
+        import torch.distributed as dist
+        return dist.get_world_size() if dist.is_initialized() else 1
+    size = getattr(mesh, "size", None)
+    if callable(size):                       # DeviceMesh.size()
+        return int(size())
+    if size is not None:
+        return int(size)
+    shape = getattr(mesh, "shape", None)
+    if hasattr(shape, "values"):
+        return math.prod(int(s) for s in shape.values())
+    if shape is not None:
+        try:
+            return math.prod(int(s) for s in shape)
+        except (TypeError, ValueError):
+            pass
+    return 1
+
+
+def _mesh_shape_tuple(mesh) -> tuple | None:
+    """((axis, size), ...) of a mesh, or None: the hashable mesh identity
+    the block cache and prepared-operand pinning key on."""
+    if mesh is None:
+        return None
+    names = getattr(mesh, "mesh_dim_names", None)
+    shape = getattr(mesh, "shape", None)
+    if names is not None and shape is not None:          # DeviceMesh
+        return tuple((str(a), int(s)) for a, s in zip(names, shape))
+    if hasattr(shape, "items"):
+        return tuple((str(a), int(s)) for a, s in shape.items())
+    if shape is not None:
+        try:
+            return tuple((str(i), int(s)) for i, s in enumerate(shape))
+        except (TypeError, ValueError):
+            return None
+    return None
+
+
+def _shardable_mesh(mesh) -> bool:
+    """Can emulated call sites run per rank on this mesh? A live mesh
+    (process groups behind named axes) of more than one device; a
+    device-free mesh (the dry run) has no ranks to run on."""
+    from repro_torch.launch.mesh import is_live
+    return (is_live(mesh) and _mesh_devices(mesh) > 1
+            and bool(_mesh_shape_tuple(mesh)))
+
+
+def resolve_policy(policy, mesh=None):
+    """Check a model ``GemmPolicy`` against the launch target.
+
+    An unset default materializes the ambient config now, as the
+    reference does. On a live mesh of more than one device (``launch.
+    mesh``) the mesh is recorded on the returned policy
+    (``GemmPolicy.mesh``), whatever the sites emulate (the reference
+    records it only for a fused site): ``models.common.dense`` then runs
+    each projection partitioned over its ranks (``parallel.shard_gemm``),
+    which is the only route that reads the ranks' weight tiles. On a device-free mesh of several devices
+    (the dry run, which executes nothing) the emulated sites rewrite to
+    ``impl='xla'``, the reference's clamp; one device changes nothing.
     """
     from repro_torch import api
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device meshes are not ported yet (ROADMAP.md § 1 item 8)")
     if policy.default is None:
         default = api.resolve_config()
         if default.scheme != "native":
             policy = dataclasses.replace(policy, default=default)
-    return policy
+    if mesh is None or _mesh_devices(mesh) <= 1:
+        return policy
+    if _shardable_mesh(mesh):
+        # Recorded whatever the sites emulate: on a live mesh the weights
+        # are each rank's tiles, which only the partitioned dense reads.
+        return dataclasses.replace(policy, mesh=mesh)
+
+    def fix(cfg):
+        if cfg is None or cfg.scheme == "native" or cfg.impl == "xla":
+            return cfg
+        return dataclasses.replace(cfg, impl="xla")
+
+    return dataclasses.replace(
+        policy, default=fix(policy.default),
+        overrides=tuple((s, fix(c)) for s, c in policy.overrides))

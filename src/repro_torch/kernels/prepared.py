@@ -103,6 +103,9 @@ class PreparedOperand:
     n: int
     twin: "PreparedOperand | None" = None
     backend: str = "cuda"
+    # The launch mesh's ((axis, size), ...) this operand was prepared
+    # under (a rank's tile), or None.
+    mesh_shape: tuple | None = None
 
     # The tensor fields, which autograd saves (core.emulated).
     TENSORS = ("slices", "scale")
@@ -143,6 +146,7 @@ class PreparedResidues:
     n: int
     layout: str = "planes"
     twin: "PreparedResidues | None" = None
+    mesh_shape: tuple | None = None    # as PreparedOperand's
 
     TENSORS = ("residues", "scale")
 
@@ -206,8 +210,17 @@ def _backend_name(cfg: EmulationConfig, device) -> str:
     return backends.resolve_backend_name(None, cfg, device)
 
 
+def _pin_mesh(prep, mesh):
+    """``prep`` pinned to the launch mesh it was prepared under."""
+    if mesh is None:
+        return prep
+    from repro_torch.kernels import dispatch
+    return dataclasses.replace(prep,
+                               mesh_shape=dispatch._mesh_shape_tuple(mesh))
+
+
 def prepare_rhs(b: torch.Tensor, cfg: EmulationConfig, *,
-                with_twin: bool = False):
+                with_twin: bool = False, mesh=None):
     """Decompose a (K, N) float rhs once, for reuse across GEMMs: a
     :class:`PreparedOperand` under Scheme I, a :class:`PreparedResidues`
     under Scheme II (:func:`prepare_rhs_scheme2`).
@@ -216,10 +229,11 @@ def prepare_rhs(b: torch.Tensor, cfg: EmulationConfig, *,
     comes too. Under Scheme I it comes from the same read of b (the pair
     kernel) when forward and backward share p, else from a second rhs
     decomposition of b.T at ``cfg.bwd_p`` (b.T is a strided view, never
-    copied).
+    copied). ``mesh`` records the launch mesh it is prepared under
+    (``mesh_shape``): a rank's tile is refused on another mesh.
     """
     if cfg.scheme == "ozaki2":
-        return prepare_rhs_scheme2(b, cfg, with_twin=with_twin)
+        return prepare_rhs_scheme2(b, cfg, with_twin=with_twin, mesh=mesh)
     if isinstance(b, PreparedResidues):
         raise ValueError("got a PreparedResidues (Scheme-II) operand "
                          f"under scheme={cfg.scheme!r}; pass the float "
@@ -264,7 +278,8 @@ def prepare_rhs(b: torch.Tensor, cfg: EmulationConfig, *,
                      if with_twin else None)
     twin = (PreparedOperand(t_hat, tau, p_bwd, beta_bwd, blocks, layout, n,
                             k, backend=name) if with_twin else None)
-    return PreparedOperand(hat, nu, p, beta, blocks, layout, k, n, twin, name)
+    return _pin_mesh(PreparedOperand(hat, nu, p, beta, blocks, layout, k, n,
+                                     twin, name), mesh)
 
 
 def _pad2(x: torch.Tensor, align: int) -> torch.Tensor:
@@ -304,7 +319,8 @@ def _encode_planes(b: torch.Tensor, moduli, k_dim: int):
 
 
 def prepare_rhs_scheme2(b: torch.Tensor, cfg: EmulationConfig, *,
-                        with_twin: bool = False) -> PreparedResidues:
+                        with_twin: bool = False,
+                        mesh=None) -> PreparedResidues:
     """Encode a (K, N) float rhs's balanced Scheme-II residues once.
 
     ``with_twin`` also encodes B^T for the backward dA GEMM, a separate
@@ -337,7 +353,8 @@ def prepare_rhs_scheme2(b: torch.Tensor, cfg: EmulationConfig, *,
         t_moduli = moduli[:cfg.bwd_p] if cfg.bwd_p else moduli
         t_res, tau, t_budget = encode(b.T, t_moduli, n)
         twin = PreparedResidues(t_res, tau, t_moduli, t_budget, n, k, layout)
-    return PreparedResidues(res, nu, moduli, budget, k, n, layout, twin)
+    return _pin_mesh(PreparedResidues(res, nu, moduli, budget, k, n, layout,
+                                      twin), mesh)
 
 
 def matmul_prepared_scheme2(a: torch.Tensor, prep: PreparedResidues,
@@ -490,7 +507,7 @@ DENSE_WEIGHT_NAMES = frozenset({
 
 
 def build_step_preps(params, policy, *, site_default: str = "ffn",
-                     names=None) -> dict:
+                     names=None, mesh=None) -> dict:
     """Prepare every cacheable dense weight once, keyed by tree path.
 
     Returns {path: prepared operand (with twin)} for the float leaves in
@@ -505,6 +522,8 @@ def build_step_preps(params, policy, *, site_default: str = "ffn",
     """
     if names is None:
         names = DENSE_WEIGHT_NAMES
+    if mesh is None:
+        mesh = getattr(policy, "mesh", None)
     preps: dict = {}
 
     def visit(path, leaf):
@@ -518,10 +537,12 @@ def build_step_preps(params, policy, *, site_default: str = "ffn",
             return leaf
         w = leaf.detach()
         if stacked:
-            preps[_path_key(path)] = [prepare_rhs(w[g], cfg, with_twin=True)
+            preps[_path_key(path)] = [prepare_rhs(w[g], cfg, with_twin=True,
+                                                  mesh=mesh)
                                       for g in range(w.shape[0])]
         else:
-            preps[_path_key(path)] = prepare_rhs(w, cfg, with_twin=True)
+            preps[_path_key(path)] = prepare_rhs(w, cfg, with_twin=True,
+                                                 mesh=mesh)
         return leaf
 
     with torch.no_grad():
@@ -546,7 +567,7 @@ def attach_step_preps(params, preps: dict):
 # ---------------------------------------------------------------------------
 
 def prepare_params(params, policy, *, site_default: str = "ffn",
-                   names=DENSE_WEIGHT_NAMES):
+                   names=DENSE_WEIGHT_NAMES, mesh=None):
     """Wrap a model's 2-D dense projection weights (the leaves in
     ``names``; ``site_default`` is the site of those neither under a mixer
     nor the head) as prepared operands (either scheme), once per serve
@@ -554,7 +575,11 @@ def prepare_params(params, policy, *, site_default: str = "ffn",
     olmo-1b, whose projections are layer stacks and whose head is the
     tied embedding, no leaf is prepared (ROADMAP.md § 3 R4); the 2-D
     leaves of a model's unstacked ``tail`` blocks (recurrentgemma-2b's
-    last two) are prepared, as in the reference."""
+    last two) are prepared, as in the reference. ``mesh`` (default: the
+    policy's launch mesh) pins each prep to the mesh its tile lives on."""
+    if mesh is None:
+        mesh = getattr(policy, "mesh", None)
+
     def wrap(path, leaf):
         if (not path or path[-1] not in names
                 or getattr(leaf, "ndim", 0) != 2
@@ -564,6 +589,6 @@ def prepare_params(params, policy, *, site_default: str = "ffn",
         if cfg.scheme not in ("ozaki1", "ozaki2"):
             return leaf
         with torch.no_grad():
-            return prepare_rhs(leaf.detach(), cfg)
+            return prepare_rhs(leaf.detach(), cfg, mesh=mesh)
 
     return _map_with_path(wrap, params)

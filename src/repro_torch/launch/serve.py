@@ -20,6 +20,11 @@ the 2-D dense weights (an untied head) once a session. A guarded spec
 telemetry record a step (``python -m repro_torch.telemetry.report FILE``
 aggregates it) and ``--metrics-port N`` serves Prometheus text on
 127.0.0.1:N (both enable telemetry).
+
+On N ranks (``torchrun --nproc-per-node N -m repro_torch.launch.serve
+...``) the engines get ``make_host_mesh()``, the data-only mesh (N, 1),
+as the reference's CLI builds it: every rank serves the same trace and
+each dense call splits its rows over the ranks. Only rank 0 prints.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import time
 import numpy as np
 
 from repro_torch import api, configs, guard, telemetry
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.common import GemmPolicy
 from repro_torch.serving import ContinuousEngine, LockstepEngine, Request
 
@@ -102,11 +108,21 @@ def main(argv=None):
             metrics_server.close()
 
 
+def _say(mesh):
+    """print on rank 0 of a mesh (every rank serves the same trace)."""
+    from repro_torch.launch.mesh import axis_index, axis_sizes, is_live
+    if is_live(mesh) and axis_index(mesh, tuple(axis_sizes(mesh))) != 0:
+        return lambda *a, **k: None
+    return print
+
+
 def _serve(args):
     arch = (configs.get_smoke_config(args.arch) if args.smoke
             else configs.get_config(args.arch))
     if not arch.model.causal:
         raise SystemExit(f"{args.arch} is encoder-only: no decode serving")
+    mesh = make_host_mesh()
+    say = _say(mesh)
     rng = np.random.default_rng(args.seed)
     policy = (GemmPolicy(default=api.precision(args.gemm))
               if args.gemm else None)
@@ -115,19 +131,19 @@ def _serve(args):
         prompts = rng.integers(0, arch.model.vocab,
                                (args.requests, args.prompt_len)
                                ).astype(np.int32)
-        eng = LockstepEngine(arch, None, max_seq, policy, seed=args.seed,
+        eng = LockstepEngine(arch, mesh, max_seq, policy, seed=args.seed,
                              prepare=args.prepare, device=args.device)
         t0 = time.time()
         toks = eng.generate(prompts, args.gen).tolist()
         dt = time.time() - t0
         if eng.last_guard.get("calls"):
-            print("[serve] guard:", eng.last_guard)
+            say("[serve] guard:", eng.last_guard)
     else:
         trace = build_trace(rng, arch.model.vocab, args.requests,
                             args.prompt_len, args.gen, args.poisson)
         before = guard.stats()
         eng = ContinuousEngine(
-            arch, max_seq=max_seq, policy=policy, seed=args.seed,
+            arch, mesh, max_seq=max_seq, policy=policy, seed=args.seed,
             prepare=True if args.prepare else None, max_lanes=args.lanes,
             chunk=args.chunk, page_size=args.page_size,
             num_pages=args.num_pages, queue_policy=args.queue_policy,
@@ -139,25 +155,25 @@ def _serve(args):
         util = eng.utilization()
         ttfts = [results[r.rid].ttft for r in trace
                  if r.rid in results and results[r.rid].ttft is not None]
-        print(f"[serve] {util['steps']} steps, {util['evictions']} "
+        say(f"[serve] {util['steps']} steps, {util['evictions']} "
               f"evictions, page high-water {util['kv']['high_water']}/"
               f"{util['kv']['num_pages']}, "
               + (f"ttft p50 {np.median(ttfts):.3f}s" if ttfts
                  else "no tokens emitted"))
         trips = sum(r.guard_trips for r in results.values())
         if trips:
-            print(f"[serve] guard trips (per-request): {trips}")
+            say(f"[serve] guard trips (per-request): {trips}")
         after = guard.stats()
         if after.calls > before.calls:
-            print("[serve] guard:", {
+            say("[serve] guard:", {
                 f: getattr(after, f) - getattr(before, f)
                 for f in ("calls", "verified", "trips", "escalations",
                           "recoveries", "native_fallbacks", "masked")})
-    print(f"[serve] {args.requests} requests x {args.gen} tokens in "
+    say(f"[serve] {args.requests} requests x {args.gen} tokens in "
           f"{dt:.2f}s ({args.requests * args.gen / dt:.1f} tok/s)"
           + (" with prepared weights" if eng.prepared else ""))
     if toks:
-        print("[serve] sample:", toks[0][:12])
+        say("[serve] sample:", toks[0][:12])
     return toks
 
 

@@ -12,8 +12,14 @@ command again resumes from the newest checkpoint in ``--ckpt-dir``. A
 guarded spec (``--gemm ozaki1-p4+guard:strict``) retries a step whose
 ladder ran out; ``--metrics-jsonl FILE`` writes one telemetry record a
 step, and with telemetry enabled the final Prometheus text goes to
-``--metrics-prom FILE`` (stdout without it). ``--model-parallel`` above
-1 raises (multi-device, ROADMAP.md § 1 item 8).
+``--metrics-prom FILE`` (stdout without it).
+
+On N ranks (``torchrun --nproc-per-node N -m repro_torch.launch.train
+...``, or any launcher that sets ``RANK`` / ``WORLD_SIZE``) the mesh is
+(N / mp, mp) over ("data", "model"), mp = ``--model-parallel``: each
+data rank reads its own rows of every batch, each model rank holds its
+tiles of the dense weights, and rank 0 writes whole checkpoints, which
+a resume on another mesh re-shards.
 """
 
 from __future__ import annotations
@@ -26,7 +32,10 @@ from repro_torch import api, configs, telemetry
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.data import make_batch_iterator
 from repro_torch.launch import steps as S
+from repro_torch.launch.mesh import (axis_index, axis_sizes, is_live,
+                                     make_host_mesh)
 from repro_torch.models import model as M
+from repro_torch.parallel import sharding as shd
 from repro_torch.models.common import GemmPolicy
 from repro_torch.runtime import FailureInjector, Trainer
 
@@ -64,21 +73,31 @@ def main(argv=None):
                     help="cuda (the kernels) or cpu (their plain versions)")
     args = ap.parse_args(argv)
 
-    if args.model_parallel != 1:
-        raise NotImplementedError("model parallelism is not ported yet "
-                                  "(ROADMAP.md § 1 item 8)")
+    mesh = make_host_mesh(args.model_parallel)
     device = M.resolve_device(args.device)
+    if device.type == "cuda" and device.index is None:
+        from repro_torch.launch.mesh import rank_device
+        device = rank_device("cuda")
     arch = (configs.get_smoke_config(args.arch) if args.smoke
             else configs.get_config(args.arch))
     shape = ShapeSpec("cli", args.seq, args.batch, "train")
     policy = (GemmPolicy(default=api.precision(args.gemm))
               if args.gemm else None)
-    step_fn = S.make_train_step(arch, policy=policy)
+    live = is_live(mesh)          # a process group of several ranks
+    step_fn = S.make_train_step(arch, mesh if live else None, shape, policy,
+                                donate=False)
+    sizes = axis_sizes(mesh)
+    host = axis_index(mesh, shd.data_axes(mesh)) if live else 0
+    state_sh = (S.named(S.tile_state_specs(arch, mesh), mesh) if live
+                else None)
     trainer = Trainer(
         step_fn=step_fn,
-        init_state_fn=lambda: S.init_state(arch, args.seed, device),
-        batch_iterator=make_batch_iterator(arch, shape, args.seed),
-        ckpt_dir=args.ckpt_dir, device=device, ckpt_every=args.ckpt_every,
+        init_state_fn=lambda: S.init_state(arch, args.seed, device,
+                                           mesh if live else None),
+        batch_iterator=make_batch_iterator(arch, shape, args.seed, host,
+                                           sizes.get("data", 1)),
+        ckpt_dir=args.ckpt_dir, state_shardings=state_sh, device=device,
+        ckpt_every=args.ckpt_every,
         failure=FailureInjector(args.fail_at),
         metrics_jsonl=args.metrics_jsonl,
         tokens_per_step=args.batch * args.seq)
@@ -88,7 +107,8 @@ def main(argv=None):
         trainer.close()
     if log:
         print(f"[train] loss {log[0]['loss']:.4f} -> {log[-1]['loss']:.4f} "
-              f"over {len(log)} steps")
+              f"over {len(log)} steps"
+              + (f" on mesh {sizes}" if live else ""))
     if telemetry.enabled():
         text = telemetry.render_prometheus()
         if args.metrics_prom:

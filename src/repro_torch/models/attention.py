@@ -19,8 +19,10 @@ mask, as the reference does. The ragged serving step takes global
 layers only (the continuous engine refuses a ring).
 
 ``flash_attention`` is plain torch, as the reference's is plain JAX (its
-Pallas flash kernel is not on this path). Sequence parallelism waits on
-multi-device (ROADMAP.md § 1 item 8).
+Pallas flash kernel is not on this path). ``AttnConfig.sp`` is the reference's sequence-parallel flag (an arch
+with ``attn_sharding="sp"``): carried, and a no-op, since every rank of
+the port holds the whole activations and the reference's sharding
+constraints then change nothing it computes (ROADMAP.md § 3).
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ class AttnConfig:
     kv_chunk: int = 1024
     softmax_scale: float | None = None
     cache_int8: bool = False
+    sp: bool = False               # sequence parallel: carried, a no-op
 
     @property
     def scale(self) -> float:

@@ -31,7 +31,8 @@ def attn_config(mcfg: ModelConfig, local: bool = False) -> AttnConfig:
         window=mcfg.attn_window if local or mcfg.attn_window else None,
         rope_theta=mcfg.rope_theta, use_rope=mcfg.causal,
         q_chunk=mcfg.q_chunk, kv_chunk=mcfg.kv_chunk,
-        cache_int8=mcfg.kv_cache_dtype == "int8")
+        cache_int8=mcfg.kv_cache_dtype == "int8",
+        sp=mcfg.attn_sharding == "sp")
 
 
 def init_block(gen, kind: str, mcfg: ModelConfig, dtype, device,
@@ -70,7 +71,8 @@ def _ffn_part(params, mcfg: ModelConfig, x, policy: GemmPolicy):
     if "moe" in params:
         out, aux = moe.apply_moe(params["moe"], h, mcfg.moe, mcfg.act, policy)
     else:
-        out, aux = apply_ffn(params["ffn"], h, mcfg.act, policy), 0.0
+        out, aux = apply_ffn(params["ffn"], h, mcfg.act, policy,
+                             sp=mcfg.attn_sharding == "sp"), 0.0
     return x + out, aux
 
 

@@ -8,6 +8,7 @@ family by a :class:`GemmPolicy`.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import warnings
 from typing import Mapping
@@ -30,11 +31,17 @@ class GemmPolicy:
     'logits' (output head), 'attn_qk' / 'attn_av' (score and
     weighted-value contractions). Anything absent falls back to
     ``default``; a ``default`` of None defers to the ambient resolver
-    (``repro_torch.api.resolve_config``). The reference's ``mesh`` field
-    has no counterpart: the slice runs on one card.
+    (``repro_torch.api.resolve_config``).
+
+    ``mesh`` is the live launch mesh, set by ``dispatch.resolve_policy``
+    on a mesh of more than one rank: the model's dense weights are then
+    each rank's tiles (``parallel.sharding.tile_pspecs``) and ``dense``
+    runs each projection partitioned over the ranks
+    (``parallel.shard_gemm.tile_dense``); None on one device.
     """
     default: EmulationConfig | None = None
     overrides: tuple[tuple[str, EmulationConfig], ...] = ()
+    mesh: object | None = None
 
     def for_site(self, site: str) -> EmulationConfig:
         for name, cfg in self.overrides:
@@ -88,7 +95,14 @@ def dense(x: torch.Tensor, w, policy: GemmPolicy, site: str,
 
     With telemetry enabled the call runs inside
     ``telemetry.call_site(site)``, so every emulated GEMM and guard event
-    it dispatches carries the site's label."""
+    it dispatches carries the site's label.
+
+    When the policy carries a ``mesh``, ``w`` is this rank's tile of the
+    weight and the projection runs partitioned over the ranks
+    (``parallel.shard_gemm.tile_dense``), whatever the site's config
+    (a native site multiplies its tile natively); a whole weight whose
+    rows do not split either takes the direct routes below on every
+    rank."""
     from repro_torch import telemetry
     if telemetry.enabled():
         with telemetry.call_site(site):
@@ -99,6 +113,12 @@ def dense(x: torch.Tensor, w, policy: GemmPolicy, site: str,
 def _dense(x: torch.Tensor, w, policy: GemmPolicy, site: str,
            bias: torch.Tensor | None = None) -> torch.Tensor:
     cfg = policy.for_site(site)
+    if policy.mesh is not None:
+        from repro_torch.parallel import shard_gemm
+        out = shard_gemm.tile_dense(x, w, cfg, policy.mesh)
+        if out is not None:
+            out = out.to(x.dtype)
+            return out if bias is None else out + bias
     if isinstance(w, StepPrepared):
         out = emulated_dot_prepared(x, w.w, w.prep, cfg).to(x.dtype)
     elif isinstance(w, (PreparedOperand, PreparedResidues)):
@@ -146,6 +166,29 @@ def policy_einsum(eq: str, x: torch.Tensor, y: torch.Tensor,
 # nothing is drawn).
 # ---------------------------------------------------------------------------
 
+class _Draws:
+    """The per-rank cuts of :func:`he_init`'s draws (:func:`cut_draws`):
+    ``cuts`` yields, for each call in draw order, the (dim, start, length)
+    of the block of each drawn 2-D matrix that is kept (dim 0 or 1 of the
+    matrix), or None to keep it whole; ``seen`` collects the meta leaves
+    of a meta pass, in draw order."""
+    cuts = None
+    seen = None
+
+
+@contextlib.contextmanager
+def cut_draws(cuts=None, seen=None):
+    """Within it, :func:`he_init` keeps only the blocks ``cuts`` names
+    (``models.model.init_rank_params``), or records its meta leaves in
+    ``seen``."""
+    prev = _Draws.cuts, _Draws.seen
+    _Draws.cuts, _Draws.seen = cuts, seen
+    try:
+        yield
+    finally:
+        _Draws.cuts, _Draws.seen = prev
+
+
 def he_init(gen: torch.Generator, shape, dtype, device,
             fan_in: int | None = None) -> torch.Tensor:
     """He-normal weights in ``dtype``, drawn in float32. A stack (leading
@@ -153,21 +196,30 @@ def he_init(gen: torch.Generator, shape, dtype, device,
     finished tensor, so that no full-width stack (deepseek-v3's experts:
     L x 256 x 7168 x 2048) has a float32 copy of a layer's size; the
     layout, the dtype and the scale are the reference's (ROADMAP.md
-    § 3)."""
+    § 3). Under :func:`cut_draws` each matrix is drawn whole, so that the
+    generator's stream is the same, and only its cut is kept."""
     if torch.device(device).type == "meta":
-        return torch.empty(shape, dtype=dtype, device=device)
+        out = torch.empty(shape, dtype=dtype, device=device)
+        if _Draws.seen is not None:
+            _Draws.seen.append(out)
+        return out
+    cut = next(_Draws.cuts) if _Draws.cuts is not None else None
     fan = fan_in if fan_in is not None else shape[-2]
     std = (2.0 / max(1, fan)) ** 0.5
 
     def draw(part_shape):
         x = torch.randn(part_shape, generator=gen, device=device,
                         dtype=torch.float32)
-        return (x * std).to(dtype)
+        x = (x * std).to(dtype)
+        return x if cut is None else x.narrow(*cut)
 
     if len(shape) <= 2:
-        return draw(shape)
-    out = torch.empty(shape, dtype=dtype, device=device)
-    for part in out.view(-1, *shape[-2:]):
+        return draw(shape).contiguous()
+    kept = list(shape)
+    if cut is not None:
+        kept[len(shape) - 2 + cut[0]] = cut[2]
+    out = torch.empty(kept, dtype=dtype, device=device)
+    for part in out.view(-1, *kept[-2:]):
         part.copy_(draw(shape[-2:]))
     return out
 
@@ -251,8 +303,20 @@ def init_ffn(gen, d_model: int, d_ff: int, act: str, dtype, device,
             "wo": he_init(gen, lead + (d_ff, d_model), dtype, device)}
 
 
+def _pin(x, spec_parts):
+    """The reference's ``with_sharding_constraint`` on an activation: a
+    no-op here, where every rank holds the whole activations (ROADMAP.md
+    § 3)."""
+    del spec_parts
+    return x
+
+
 def apply_ffn(params, x: torch.Tensor, act: str, policy: GemmPolicy,
-              site: str = "ffn") -> torch.Tensor:
+              site: str = "ffn", sp: bool = False) -> torch.Tensor:
+    """The FFN. ``sp`` is the reference's Megatron-SP flag, which pins the
+    hidden activation to the model axis; it is taken and changes nothing
+    here (:func:`_pin`)."""
+    del sp
     if act in ("swiglu", "geglu"):
         gate = dense(x, params["wi_gate"], policy, site)
         up = dense(x, params["wi_up"], policy, site)

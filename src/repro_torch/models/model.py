@@ -128,6 +128,31 @@ def init_params(mcfg: ModelConfig, seed: int = 0, device="cuda"):
     return params
 
 
+def init_rank_params(mcfg: ModelConfig, seed: int = 0, device="cuda",
+                     mesh=None):
+    """This rank's parameters on ``mesh``: the whole :func:`init_params`
+    tree with each dense weight cut to the rank's tile
+    (``parallel.sharding.tile_params``), bit for bit, but drawn tile by
+    tile. Every 2-D matrix is drawn whole, one at a time, and only the
+    rank's block is kept, so no rank ever holds the whole model. A meta
+    pass first finds which draw is which leaf. Without a live mesh of
+    several model ranks it is :func:`init_params`."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import common as C
+    from repro_torch.parallel import sharding
+    if not (mesh_mod.is_live(mesh)
+            and mesh_mod.axis_sizes(mesh).get("model", 1) > 1):
+        return init_params(mcfg, seed, device)
+    seen = []
+    with C.cut_draws(seen=seen):
+        meta = init_params(mcfg, seed, "meta")
+    cut_of = sharding.tile_cuts(meta, mesh)
+    if not set(cut_of) <= {id(t) for t in seen}:
+        raise AssertionError("a tiled weight is not drawn by he_init")
+    with C.cut_draws(cuts=iter([cut_of.get(id(t)) for t in seen])):
+        return init_params(mcfg, seed, device)
+
+
 def init_cache(mcfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
     """The contiguous cache: {"layers": {"b0": ..., ...}} stacked on
     n_groups as the parameters are, and a "tail" list. An attention
@@ -223,8 +248,15 @@ def logits_from_hidden(params, mcfg: ModelConfig, x, policy: GemmPolicy):
     x = apply_norm(mcfg.norm, params["ln_f"], x)
     # emb.T is a strided view: the kernel reads it in place. An untied
     # head may be a session's prepared operand (prepare_params), which
-    # dense() consumes as it is.
-    w = params["emb"].T if mcfg.tie_embeddings else params["head"]
+    # dense() consumes as it is. On a mesh the table stays whole on every
+    # rank (the lookup) and the tied head is the rank's tile of it.
+    if not mcfg.tie_embeddings:
+        w = params["head"]
+    elif policy.mesh is not None:
+        from repro_torch.parallel import shard_gemm
+        w = shard_gemm.tied_head(params["emb"], policy.mesh)
+    else:
+        w = params["emb"].T
     return dense(x, w, policy, "logits")
 
 

@@ -17,7 +17,12 @@
   (``telemetry.StepTracker``; ``tokens_per_step`` gives its tokens/s);
 * preemption: with ``handle_sigterm`` a SIGTERM lets the current step
   finish, writes a checkpoint of it synchronously and returns from
-  ``run``; ``close`` puts the previous handler back.
+  ``run``; ``close`` puts the previous handler back;
+* meshes: with ``state_shardings`` (a tree of ``parallel.sharding.
+  NamedSharding`` of the state as the ranks hold it) every rank joins in
+  gathering each sharded leaf whole before a save, rank 0 alone writes
+  the whole state, and a resume gives each rank its slice of it, on
+  whatever mesh the shardings name (the elastic path).
 """
 
 from __future__ import annotations
@@ -95,7 +100,8 @@ class Trainer:
     ``log_every`` steps; ``device`` is where a resumed state is put."""
 
     def __init__(self, *, step_fn, init_state_fn, batch_iterator,
-                 ckpt_dir: str, device="cuda", ckpt_every: int = 50,
+                 ckpt_dir: str, state_shardings=None, device="cuda",
+                 ckpt_every: int = 50,
                  keep: int = 3, failure: FailureInjector | None = None,
                  log_every: int = 10, handle_sigterm: bool = False,
                  guard_retries: int = 2, guard_backoff: float = 0.25,
@@ -103,6 +109,7 @@ class Trainer:
                  tokens_per_step: int | None = None):
         from repro_torch import telemetry
         self.step_fn = step_fn
+        self.state_shardings = state_shardings
         self.batch_iterator = batch_iterator
         self.ckpt = CheckpointManager(ckpt_dir, keep=keep)
         self.ckpt_every = ckpt_every
@@ -125,7 +132,8 @@ class Trainer:
 
         latest = self.ckpt.latest_step()
         if latest is not None:
-            self.state = self.ckpt.restore(latest, device=device)
+            self.state = self.ckpt.restore(latest, device=device,
+                                           shardings=state_shardings)
             self.start_step = latest + 1
             print(f"[trainer] resumed from step {latest}")
         else:
@@ -190,14 +198,34 @@ class Trainer:
                       f"({dt:.2f}s)")
             if ((step + 1) % self.ckpt_every == 0 or step + 1 == end
                     or self._preempted):
-                self.ckpt.save(step, self.state)
+                self._save(step)
             step += 1
             if self._preempted:
                 print(f"[trainer] preempted; checkpointed at step {step - 1}")
                 break
         self.ckpt.wait()
+        self._barrier()
         self.start_step = step
         return self.metrics_log
+
+    def _save(self, step: int) -> None:
+        """A checkpoint of the whole state: on a mesh gathered by every
+        rank, written by rank 0."""
+        if self.state_shardings is None:
+            self.ckpt.save(step, self.state)
+            return
+        import torch.distributed as dist
+        from repro_torch.parallel import sharding as shd
+        whole = shd._map(lambda ns, x: shd.unshard_leaf(x, ns.spec, ns.mesh),
+                         self.state_shardings, self.state)
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            self.ckpt.save(step, whole)
+
+    def _barrier(self) -> None:
+        """On a mesh, no rank reads a checkpoint before rank 0 wrote it."""
+        import torch.distributed as dist
+        if self.state_shardings is not None and dist.is_initialized():
+            dist.barrier()
 
     def close(self):
         if self._sink is not None:

@@ -26,6 +26,13 @@ reference's paged cache does. :class:`LockstepEngine` serves those with
 a contiguous cache (recurrentgemma-2b, mamba2-780m; internvl2-1b on text
 prompts).
 
+On a live mesh of several ranks (``launch.mesh``; one process a rank,
+every rank running the same requests) each rank holds the tiles of the
+dense weights that ``parallel.sharding.tile_pspecs`` gives it, a
+prepared head prepared from its own tile, and the whole paged cache and
+activations; every dense projection runs partitioned over the ranks
+(``parallel.shard_gemm``), and every rank samples the same tokens.
+
 Per-request guard retry, as in the reference: the engine polls
 ``guard.stats()`` deltas per step, and a step whose delta shows a trip
 or an escalation (or that raised ``EmulationAccuracyError`` under
@@ -91,6 +98,29 @@ class RequestResult:
                    evictions=s.evictions)
 
 
+def _rank_device(device, mesh) -> torch.device:
+    """The engine's device: on a live mesh under NCCL each rank's own card
+    (``launch.mesh.rank_device``), else ``device`` as it is."""
+    from repro_torch.launch import mesh as mesh_mod
+    dev = M.resolve_device(device)
+    if (dev.type == "cuda" and dev.index is None and mesh_mod.is_live(mesh)
+            and torch.cuda.device_count() > 1):
+        return mesh_mod.rank_device("cuda")
+    return dev
+
+
+def _place(params, policy):
+    """Whole parameters given to an engine, as this rank holds them: on a
+    policy that carries a mesh, each dense weight's tile
+    (``parallel.sharding.tile_pspecs``), everything else whole; unchanged
+    on one device. Seeded ones are drawn tile by tile
+    (``models.model.init_rank_params``)."""
+    if policy.mesh is None:
+        return params
+    from repro_torch.parallel import sharding
+    return sharding.tile_params(params, policy.mesh)
+
+
 class ContinuousEngine:
     def __init__(self, arch, mesh=None, *, max_seq: int, policy=None,
                  params=None, seed: int = 0, prepare: bool | None = None,
@@ -99,18 +129,16 @@ class ContinuousEngine:
                  token_budget: int | None = None, guard_retries: int = 1,
                  guard_backoff: float = 0.0, wave_admission: bool = False,
                  clock=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device meshes are not ported yet (ROADMAP.md § 1 "
-                "item 8); the slice serves on one card")
         check_pageable(arch.model)
-        self.device = M.resolve_device(device)
+        self.mesh = mesh
+        self.device = _rank_device(device, mesh)
         self.arch = arch
         self.mcfg = arch.model
         self.policy = dispatch.resolve_policy(
-            policy if policy is not None else arch.gemm_policy())
-        self.params = params if params is not None else M.init_params(
-            self.mcfg, seed, self.device)
+            policy if policy is not None else arch.gemm_policy(), mesh)
+        self.params = (_place(params, self.policy) if params is not None
+                       else M.init_rank_params(self.mcfg, seed, self.device,
+                                               self.policy.mesh))
         if prepare is None:       # auto: +cached specs stream preps
             prepare = prepared.policy_caches_weights(self.policy)
         self.prepared = bool(prepare)
@@ -152,8 +180,9 @@ class ContinuousEngine:
             slots back into the pools (in place) and returns the greedy
             tokens and the pools."""
             views = kv.gather(pools, tables)
-            logits, views = M.forward_step(params, mcfg, tokens, start,
-                                           n_new, views, self.policy)
+            with guard.ladder.consensus(self.policy.mesh):
+                logits, views = M.forward_step(params, mcfg, tokens, start,
+                                               n_new, views, self.policy)
             pools = kv.scatter(pools, tables, views, start, n_new, c)
             return torch.argmax(logits[:, :mcfg.vocab], dim=-1), pools
 
@@ -166,23 +195,30 @@ class ContinuousEngine:
                 torch.from_numpy(np.ascontiguousarray(start)).to(dev),
                 torch.from_numpy(np.ascontiguousarray(n_new)).to(dev))
 
-    def _guard_delta(self, before) -> dict[str, int]:
+    def _guard_delta(self, before, raised: bool = False) -> dict[str, int]:
+        """The guard counters' change since ``before``; ``raised`` (a strict
+        raise) counts as a trip. On a mesh, the largest over the ranks,
+        so that every rank replays (or not) together."""
         after = guard.stats()
-        return {f: getattr(after, f) - getattr(before, f)
-                for f in _GUARD_FIELDS}
+        delta = {f: getattr(after, f) - getattr(before, f)
+                 for f in _GUARD_FIELDS}
+        delta["trips"] = max(delta["trips"], int(raised))
+        return dict(zip(delta, guard.ladder.mesh_max(list(delta.values()),
+                                                     self.policy.mesh)))
 
     def _execute(self, plan: StepPlan, tables) -> np.ndarray:
         before = guard.stats()
+        raised = False
         try:
             tok, pools = self._step_fns[plan.chunk](*self._args(
                 tables, plan.tokens, plan.start, plan.n_new))
             sampled = tok.to(torch.int32).cpu().numpy()
             self.pools = pools
-            delta = self._guard_delta(before)
         except EmulationAccuracyError:
             # A strict trip whose ladder ran out: fall straight to
             # per-lane isolation.
-            delta = {"trips": 1}
+            raised = True
+        delta = self._guard_delta(before, raised)
         self.last_guard = delta
         if delta.get("trips", 0) or delta.get("escalations", 0):
             sampled = self._isolation_replay(plan, tables)
@@ -220,26 +256,27 @@ class ContinuousEngine:
                 try:
                     tok, pools = self._step_fns[plan.chunk](*self._args(
                         t1, toks, st, nn))
-                    delta = self._guard_delta(before)
-                    trips = delta.get("trips", 0)
-                    if trips:
-                        state.guard_trips += trips
-                        _rec.record_event(_rec.SERVE_GUARD_TRIPS,
-                                          {"rid": state.rid}, trips)
+                    raised = False
+                except EmulationAccuracyError:
+                    raised = True
+                # A raise (every rank's at once) counts one trip.
+                delta = self._guard_delta(before, raised)
+                trips = 1 if raised else delta["trips"]
+                if trips:
+                    state.guard_trips += trips
+                    _rec.record_event(_rec.SERVE_GUARD_TRIPS,
+                                      {"rid": state.rid}, trips)
+                if not raised:
                     sampled[lane] = int(tok[lane])
                     self.pools = pools
                     break
-                except EmulationAccuracyError:
-                    state.guard_trips += 1
-                    _rec.record_event(_rec.SERVE_GUARD_TRIPS,
-                                      {"rid": state.rid}, 1)
-                    if attempt >= self.guard_retries:
-                        self._fail_lane(lane, state)
-                        plan.rids[lane] = None
-                        break
-                    attempt += 1
-                    if self.guard_backoff:
-                        time.sleep(self.guard_backoff * attempt)
+                if attempt >= self.guard_retries:
+                    self._fail_lane(lane, state)
+                    plan.rids[lane] = None
+                    break
+                attempt += 1
+                if self.guard_backoff:
+                    time.sleep(self.guard_backoff * attempt)
         return sampled
 
     def _fail_lane(self, lane: int, state: RequestState) -> None:
@@ -368,18 +405,16 @@ class LockstepEngine:
     def __init__(self, arch, mesh, max_seq: int, policy=None, params=None,
                  seed: int = 0, prepare: bool = False, guard_retries: int = 1,
                  guard_backoff: float = 0.25, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device meshes are not ported yet (ROADMAP.md § 1 "
-                "item 8); the slice serves on one card")
-        self.device = M.resolve_device(device)
+        self.mesh = mesh
+        self.device = _rank_device(device, mesh)
         self.arch = arch
         self.mcfg = arch.model
         self.max_seq = max_seq
         self.policy = dispatch.resolve_policy(
-            policy if policy is not None else arch.gemm_policy())
-        self.params = params if params is not None else M.init_params(
-            self.mcfg, seed, self.device)
+            policy if policy is not None else arch.gemm_policy(), mesh)
+        self.params = (_place(params, self.policy) if params is not None
+                       else M.init_rank_params(self.mcfg, seed, self.device,
+                                               self.policy.mesh))
         self.prepared = bool(prepare)
         if self.prepared:
             self.params = prepared.prepare_params(self.params, self.policy)
@@ -396,14 +431,17 @@ class LockstepEngine:
     @torch.inference_mode()
     def prefill(self, prompts: torch.Tensor):
         """(logits (B, 1, vocab_padded), cache) of a (B, S) prompt batch."""
-        return M.forward_prefill(self.params, self.mcfg, {"tokens": prompts},
-                                 self.max_seq, self.policy)
+        with guard.ladder.consensus(self.policy.mesh):
+            return M.forward_prefill(self.params, self.mcfg,
+                                     {"tokens": prompts}, self.max_seq,
+                                     self.policy)
 
     @torch.inference_mode()
     def decode(self, tokens: torch.Tensor, pos: int, cache):
         """One lockstep step: (B, 1) ids at position ``pos``."""
-        return M.forward_decode(self.params, self.mcfg, tokens, pos, cache,
-                                self.policy)
+        with guard.ladder.consensus(self.policy.mesh):
+            return M.forward_decode(self.params, self.mcfg, tokens, pos,
+                                    cache, self.policy)
 
     def _greedy(self, logits):
         return torch.argmax(logits[:, -1:, :self.mcfg.vocab], dim=-1)

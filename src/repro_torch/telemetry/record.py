@@ -10,7 +10,7 @@ The label schema is the reference's (docs/observability.md):
                 'prepared-torch')
     shape_class 'MxKxN' of the logical 2-D contraction, or 'BxMxKxN'
                 when the call ran as one strided-batched launch
-    mesh_shape  always '-': the port runs on one card
+    mesh_shape  'axis=size,...' of a partitioned GEMM's mesh, else '-'
 
 The reference records twice: trace-time counters while JAX traces, and
 execution-time counters through ``jax.debug.callback``. The port is
@@ -105,8 +105,11 @@ def shape_class(m: int, k: int, n: int, batch: int | None = None) -> str:
 
 
 def mesh_label(mesh_shape: Any = None) -> str:
-    """Always '-': the port launches on one card, without a mesh."""
-    return "-"
+    """'axis=size,...' for a ``((axis, size), ...)`` tuple / mapping, or '-'."""
+    if not mesh_shape:
+        return "-"
+    items = mesh_shape.items() if hasattr(mesh_shape, "items") else mesh_shape
+    return ",".join(f"{a}={int(s)}" for a, s in items) or "-"
 
 
 def gemm_tag(scheme: str, count: int, backend: str, impl: str) -> str:
@@ -211,8 +214,10 @@ def record_gemm(
 
 
 def record_collective(kind: str, mesh_shape: Any, nbytes_per_device: int) -> None:
-    """A modeled-collective-bytes bump (the port runs no collective yet,
-    ROADMAP.md § 1 item 8; kept for the reference's surface)."""
+    """A modeled-collective-bytes bump: one a rank for each collective of
+    a partitioned GEMM (``parallel.shard_gemm``), so that the counters of
+    all ranks together sum the per-device bytes across the mesh, as the
+    reference's callback from inside ``shard_map`` does."""
     if not _reg.enabled() or not nbytes_per_device:
         return
     REGISTRY.inc(MODELED_COLLECTIVE_BYTES, int(nbytes_per_device), {

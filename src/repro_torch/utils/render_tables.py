@@ -17,11 +17,14 @@ def render(path, mesh_filter=None):
         peak = max(t["compute_s"], t["memory_s"], t["collective_s"])
         rf = t["compute_s"] / peak if peak else 0
         mem = (r["memory"]["argument_bytes"] or 0) / 1e9
+        # The port's dry run compiles nothing: no HLO, no useful ratio.
+        useful = r["useful_flops_ratio"]
+        useful = "-" if useful is None else f"{useful:.2f}"
         out.append(
             f"| {r['arch']} | {r['shape']} | {r['mesh']} "
             f"| {t['compute_s']:.4f} | {t['memory_s']:.4f} "
             f"| {t['collective_s']:.4f} | {t['bottleneck']} "
-            f"| {rf:.1%} | {r['useful_flops_ratio']:.2f} | {mem:.2f} |")
+            f"| {rf:.1%} | {useful} | {mem:.2f} |")
     return "\n".join(out)
 
 

@@ -114,8 +114,10 @@ def analyze_step(fn, *args, **kwargs) -> dict:
     * mem_bytes: op-boundary bytes, result plus operand bytes of every
       op that is not a view (the reference's proxy; in eager mode every
       op is a boundary);
-    * coll_bytes: 0 (the port runs no collective yet, ROADMAP.md § 1
-      item 8).
+    * coll_bytes: this rank's modeled collective bytes of the step's
+      partitioned GEMMs on a mesh (telemetry's
+      ``MODELED_COLLECTIVE_BYTES``: the row partitions' sums and the
+      column gathers); 0 on one device.
 
     The hand-written kernels launched on a card are added from their own
     models: each emulated GEMM's int8 ops and telemetry's modeled bytes
@@ -135,9 +137,11 @@ def analyze_step(fn, *args, **kwargs) -> dict:
     flash_attn.OBSERVERS.append(attns.append)
     boundary = _boundary_mode()
     try:
-        with telemetry.recording(), FlopCounterMode(display=False) as fc, \
-                boundary:
+        with telemetry.recording() as reg, \
+                FlopCounterMode(display=False) as fc, boundary:
+            coll0 = reg.total(record.MODELED_COLLECTIVE_BYTES)
             fn(*args, **kwargs)
+            coll = reg.total(record.MODELED_COLLECTIVE_BYTES) - coll0
     finally:
         record.OBSERVERS.remove(gemms.append)
         flash_attn.OBSERVERS.remove(attns.append)
@@ -147,7 +151,7 @@ def analyze_step(fn, *args, **kwargs) -> dict:
                            + [attention_work(c) for c in attns]):
             flops += ops
             mem += moved
-    return {"flops": flops, "mem_bytes": mem, "coll_bytes": 0.0}
+    return {"flops": flops, "mem_bytes": mem, "coll_bytes": float(coll)}
 
 
 def roofline_terms(per_device_flops: float, per_device_mem_bytes: float,

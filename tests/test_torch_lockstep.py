@@ -193,9 +193,11 @@ def test_prefill_and_decode_steps():
                                policy)
     assert torch.equal(out, ref)
     assert out.shape == (B, 1, 512)
-    for make in (S.make_prefill_step, S.make_decode_step):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            make(arch, shape, object(), policy)
+    # The one-device mesh (no process group) runs the same steps.
+    from repro_torch.launch.mesh import make_host_mesh
+    one, _ = S.make_prefill_step(arch, shape, make_host_mesh(), policy)(
+        params, {"tokens": toks})
+    assert torch.equal(one, logits)
     import dataclasses
     enc = dataclasses.replace(arch, model=dataclasses.replace(
         arch.model, causal=False))

@@ -128,11 +128,13 @@ def test_allocator_reserves_scratch_and_refuses_double_free():
 def test_engine_refuses_what_the_slice_does_not_run():
     arch = tconfigs.get_smoke_config("olmo-1b")
     # '+guard' runs since the guard was ported (tests/test_torch_guard.py);
-    # a mesh is still refused.
+    # a mesh too since the parallel layer was (tests/test_torch_mesh_steps
+    # .py): the one-device mesh records none on the policy.
     ContinuousEngine(arch, max_seq=16, device="cpu",
                      policy=TPolicy(default=tapi.precision("ozaki2-m6+guard")))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousEngine(arch, object(), max_seq=16, device="cpu")
+    from repro_torch.launch.mesh import make_host_mesh
+    eng = ContinuousEngine(arch, make_host_mesh(), max_seq=16, device="cpu")
+    assert eng.policy.mesh is None
     # '+cached' parses and, as in the reference, prepares nothing here:
     # it serves the same tokens as the plain spec.
     toks = {}

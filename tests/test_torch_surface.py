@@ -41,9 +41,7 @@ from repro_torch.serving import LockstepEngine
 from repro_torch.utils.tree import tree_flatten, tree_map
 
 # Parameters the port leaves out everywhere, by category.
-MESH_AND_HOST = {   # one card, one host (ROADMAP.md § 1 item 8)
-    "mesh", "mesh_shape", "shardings", "state_shardings", "host", "n_hosts",
-    "sp"}
+MESH_AND_HOST: set[str] = set()   # ported: nothing left out
 GUARD_AND_TELEMETRY: set[str] = set()   # ported: nothing left out
 PALLAS_BLOCKS = {   # the CUDA kernels choose their own tiles (§ 3)
     "blocks", "bm", "bn", "bk", "bt", "prologue_a", "prologue_b", "fixed_bk",
@@ -90,12 +88,21 @@ SPECIFIC = {
     "utils.perf_probe.attribute_emulation":
         "a profiled eager step and telemetry's calls of it, not HLO text",
     "utils.perf_probe.main": "argv, so that a caller can run the CLI",
+    "launch.dryrun.main": "argv, so that a caller can run the CLI",
+    "parallel.compress.compressed_psum":
+        "group, a (mesh, axes) pair, for axis_name: explicit SPMD names "
+        "its process group, shard_map binds an axis name",
+    "parallel.compress.compressed_pmean":
+        "group, a (mesh, axes) pair, for axis_name (compressed_psum)",
+    "parallel.sharding.NamedSharding":
+        "a dataclass of (mesh, spec); the reference's is jax's own class",
 }
 
 # Modules of the port with no counterpart in the reference.
 PORT_ONLY = {"repro_torch.convert", "repro_torch.kernels.backends.cuda",
              "repro_torch.kernels.backends.reference",
-             "repro_torch.kernels.build", "repro_torch.utils.tree"}
+             "repro_torch.kernels.build", "repro_torch.parallel.comm",
+             "repro_torch.utils.tree"}
 
 
 def _reference_module(name: str):
@@ -280,7 +287,8 @@ def test_trainer_keep_and_log_every(tmp_path, capsys):
 def test_checkpoint_async_save_and_restore_like(tmp_path):
     """CheckpointManager(async_save=False) publishes before save returns;
     restore(step, like) checks the structure and takes like's devices;
-    a shardings argument raises."""
+    restore(step, like, shardings) keeps each leaf's slice under its
+    NamedSharding (on a device-free mesh, coordinate 0's)."""
     state = {"w": torch.arange(6.0).reshape(2, 3), "opt": [torch.ones(2)]}
     mgr = CheckpointManager(str(tmp_path), keep=2, async_save=False)
     mgr.save(4, state)
@@ -291,8 +299,13 @@ def test_checkpoint_async_save_and_restore_like(tmp_path):
     assert torch.equal(mgr.restore(4)["opt"][0], state["opt"][0])
     with pytest.raises(ValueError):
         mgr.restore(4, {"w": state["w"]})
-    with pytest.raises(NotImplementedError, match="item 8"):
-        mgr.restore(4, state, shardings={"w": None})
+    from repro_torch.launch.mesh import make_abstract_mesh
+    from repro_torch.parallel import sharding as shd
+    mesh = make_abstract_mesh((1, 2), ("data", "model"))
+    got = mgr.restore(4, None, shd.shardings(
+        {"w": shd.P("model", None), "opt": [shd.P()]}, mesh))
+    assert torch.equal(got["w"], state["w"][:1])
+    assert torch.equal(got["opt"][0], state["opt"][0])
 
 
 def test_prepared_site_default_and_names():
@@ -327,8 +340,11 @@ def test_scheme1_split_axis_and_residual_bound():
 
 def test_dispatch_and_data_call_forms():
     """emulated_matmul's deprecated scheme= / precision= kwargs,
-    resolve_policy(policy, None), make_batch_iterator's positional host
-    arguments and batch_override, and rope_frequencies' default theta."""
+    resolve_policy(policy, mesh) (None or one device: as it was; a
+    device-free mesh of several: the reference's clamp to 'xla'),
+    make_batch_iterator's positional host arguments (host 1 of 2: its own
+    half of the rows) and batch_override, and rope_frequencies' default
+    theta."""
     a, b = torch.randn(6, 20), torch.randn(20, 4)
     with pytest.warns(DeprecationWarning):
         old = dispatch.emulated_matmul(a, b, scheme="ozaki1", precision=3)
@@ -338,9 +354,12 @@ def test_dispatch_and_data_call_forms():
             warnings.simplefilter("ignore", DeprecationWarning)
             dispatch.emulated_matmul(a, b, cfg="ozaki1-p3", precision=3)
     policy = GemmPolicy(default=tapi.precision("ozaki1-p4"))
+    from repro_torch.launch.mesh import make_abstract_mesh
     assert dispatch.resolve_policy(policy, None) == policy
-    with pytest.raises(NotImplementedError, match="item 8"):
-        dispatch.resolve_policy(policy, object())
+    assert dispatch.resolve_policy(
+        policy, make_abstract_mesh((1, 1), ("data", "model"))) == policy
+    assert dispatch.resolve_policy(policy, make_abstract_mesh(
+        (2, 2), ("data", "model"))).default.impl == "xla"
     arch = tconfigs.get_smoke_config(ARCH)
     shape = ShapeSpec("smoke", 16, 2, "train")
     _, batch = next(make_batch_iterator(arch, shape, 0, 0, 1, 3))
@@ -348,8 +367,10 @@ def test_dispatch_and_data_call_forms():
         shape, global_batch=3), 0))
     assert {k: v.shape for k, v in batch.items()} == {
         k: v.shape for k, v in ref.items()}
-    with pytest.raises(NotImplementedError, match="item 8"):
-        next(make_batch_iterator(arch, shape, 0, 1, 2))
+    _, half = next(make_batch_iterator(arch, shape, 0, 1, 2))
+    _, first = next(make_batch_iterator(arch, shape, 0, 0, 2))
+    assert half["tokens"].shape == (1, 16)
+    assert not np.array_equal(half["tokens"], first["tokens"])
     assert torch.equal(rope_frequencies(64), rope_frequencies(64, 10000.0))
 
 

@@ -121,8 +121,11 @@ def test_labels_sites_and_modeled_bytes_match_reference():
         assert telemetry.gemm_tag(*args) == jtele.gemm_tag(*args)
     assert telemetry.shape_class(4, 8, 2) == jtele.shape_class(4, 8, 2)
     assert telemetry.shape_class(4, 8, 2, 3) == "3x4x8x2"
-    assert telemetry.mesh_label(None) == telemetry.mesh_label(
-        (("data", 2),)) == "-"
+    for mesh_shape in (None, (("data", 2),), {"data": 2, "model": 4}):
+        assert telemetry.mesh_label(mesh_shape) == jtele.mesh_label(
+            mesh_shape)
+    assert telemetry.mesh_label((("data", 2), ("model", 4))) == \
+        "data=2,model=4"
     for scheme, count in (("ozaki1", 4), ("ozaki1-4m", 3), ("ozaki2", 6),
                           ("ozaki2-3m", 8)):
         for out_bytes in (2, 4, 8):
